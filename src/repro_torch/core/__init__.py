@@ -1,0 +1,26 @@
+from repro_torch.core.interop import from_reference  # noqa: F401
+from repro_torch.core.kgt_minimax import (  # noqa: F401
+    KGTState,
+    correction_mean_norm,
+    diagnostics,
+    init_state,
+    make_round_step,
+    mean_over_clients,
+    point_etas,
+)
+from repro_torch.core.minimax import MinimaxProblem  # noqa: F401
+from repro_torch.core.mixing import (  # noqa: F401
+    MIXING_IMPLS,
+    consensus_error,
+    make_mixer,
+    mix_dense,
+    mix_packed,
+    mix_ring,
+)
+from repro_torch.core.objectives import (  # noqa: F401
+    make_quadratic_data,
+    quadratic_cell_problem,
+    quadratic_problem,
+)
+from repro_torch.core.packing import PackSpec, pack, pack_spec, unpack  # noqa: F401
+from repro_torch.core.topology import mixing_matrix, spectral_gap  # noqa: F401

@@ -1,0 +1,393 @@
+"""K-GT-Minimax (Algorithm 1) and its baselines, in PyTorch.
+
+Port of ``repro.core.kgt_minimax``.  Every variable carries a leading
+clients dim ``n`` (``x: (n, …)``, ``y``, corrections ``cx``, ``cy``); the
+per-client gradient oracle is vmapped over it.  One ``round_step`` is one
+communication round:
+
+  1. K local steps        x_i -= η_cx (∇x F_i + c_i^x);  y_i += η_cy (∇y F_i + c_i^y)
+  2. correction update    c_i^x += (Δx_i − (WΔx)_i)/(K η_cx)   [line 7]
+                          c_i^y −= (Δy_i − (WΔy)_i)/(K η_cy)   [line 8]
+  3. parameter mixing     x_i ← Σ_j w_ij (x_j + η_sx Δx_j)     [line 10]
+                          y_i ← Σ_j w_ij (y_j + η_sy Δy_j)     [line 11]
+
+Baselines: ``dsgda`` (K=1, no tracking), ``local_sgda`` (K steps, no
+tracking), ``gt_gda`` (Algorithm 1 with K=1).
+
+Lowerings (``cfg.mixing_impl``): the per-leaf ``dense``/``ring``/
+``fused_dense``/``fused_ring``; ``pallas_packed`` (the state packed to
+(n, D) per variable, epilogue in the fused gossip kernel); ``fused_round``
+(the whole round in the whole-round kernel).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from repro_torch.configs.base import AlgorithmConfig
+from repro_torch.core import mixing as mixing_lib
+from repro_torch.core import packing
+from repro_torch.core import topology as topo_lib
+from repro_torch.core import tree as tree_lib
+from repro_torch.core.minimax import MinimaxProblem
+from repro_torch.kernels import ops as kernel_ops
+
+ALGORITHMS = ("kgt_minimax", "gt_gda", "dsgda", "local_sgda")
+
+
+@dataclasses.dataclass
+class KGTState:
+    x: Any          # (n, …) per-client primal variables
+    y: Any          # (n, …) per-client dual variables
+    cx: Any         # (n, …) gradient-tracking correction for x
+    cy: Any         # (n, …) gradient-tracking correction for y
+    round: int = 0  # host int: the single source of truth for the round
+
+
+def _tree_axpy(a: float, x_tree, y_tree):
+    """a * x + y over pytrees, f32 arithmetic, keeps y's dtype."""
+    return tree_lib.tree_map(
+        lambda x, y: (a * x.to(torch.float32)
+                      + y.to(torch.float32)).to(y.dtype), x_tree, y_tree)
+
+
+def _tree_sub(x_tree, y_tree):
+    return tree_lib.tree_map(lambda x, y: x - y, x_tree, y_tree)
+
+
+def _replicate(tree, n: int):
+    return tree_lib.tree_map(
+        lambda x: x.unsqueeze(0).expand(n, *x.shape).contiguous(), tree)
+
+
+def _step_slice(tree, k: int):
+    return tree_lib.tree_map(lambda b: b[k], tree)
+
+
+def _vgrads(problem: MinimaxProblem, x, y, batch, noise):
+    """Per-client gradients, vmapped over the leading clients dim."""
+    return vmap(problem.grads)(x, y, batch, noise)
+
+
+def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
+               gen: torch.Generator, init_batch=None,
+               init_noise: Optional[torch.Tensor] = None) -> KGTState:
+    """Shared x0/y0 across clients; corrections per the paper's
+    initialization c_i = −∇F_i(x0,y0;ξ_i) + (1/n)Σ_j ∇F_j(x0,y0;ξ_j)
+    (Lemma 8 ⇒ Σ_i c_i = 0).  Without tracking the corrections are zeros.
+
+    ``init_noise`` (n, noise_dim) is the noise row of each client's
+    initial gradient; drawn from ``gen`` when omitted.
+    """
+    _check_unported(cfg)
+    n = cfg.num_clients
+    x = _replicate(problem.init_x(gen), n)
+    y = _replicate(problem.init_y(gen), n)
+    track = cfg.algorithm in ("kgt_minimax", "gt_gda")
+    if track and init_batch is not None:
+        if init_noise is None:
+            init_noise = torch.randn((n, problem.noise_dim), generator=gen,
+                                     device=gen.device)
+        gx, gy = _vgrads(problem, x, y, init_batch, init_noise)
+        cx = tree_lib.tree_map(lambda g: g.mean(0, keepdim=True) - g, gx)
+        cy = tree_lib.tree_map(lambda g: g.mean(0, keepdim=True) - g, gy)
+    else:
+        cx = tree_lib.tree_map(torch.zeros_like, x)
+        cy = tree_lib.tree_map(torch.zeros_like, y)
+    if cfg.correction_dtype != "float32":
+        cd = getattr(torch, cfg.correction_dtype)
+        cx = tree_lib.tree_map(lambda c: c.to(cd), cx)
+        cy = tree_lib.tree_map(lambda c: c.to(cd), cy)
+    return KGTState(x=x, y=y, cx=cx, cy=cy, round=0)
+
+
+def point_etas(cfg: AlgorithmConfig) -> dict:
+    """The stepsize bundle for ``make_round_step(traced_etas=True)``.
+
+    ``corr_x``/``corr_y`` are the line-7/8 correction scales ±1/(K·η_c),
+    computed on the host in float64 and rounded once to f32, as the
+    reference does.
+    """
+    k = 1 if cfg.algorithm in ("dsgda", "gt_gda") else cfg.local_steps
+    return {
+        "eta_cx": np.float32(cfg.eta_cx),
+        "eta_cy": np.float32(cfg.eta_cy),
+        "eta_sx": np.float32(cfg.eta_sx),
+        "eta_sy": np.float32(cfg.eta_sy),
+        "corr_x": np.float32(1.0 / (k * cfg.eta_cx)),
+        "corr_y": np.float32(-1.0 / (k * cfg.eta_cy)),
+    }
+
+
+def _check_unported(cfg: AlgorithmConfig) -> None:
+    """Options of the JAX package this port does not implement yet."""
+    mixing_lib.check_impl(cfg.mixing_impl)
+    if cfg.gossip_compress not in (None, "none", ""):
+        raise NotImplementedError(
+            f"gossip_compress={cfg.gossip_compress!r} at round-step level "
+            "is not ported yet (ROADMAP A7)")
+    if cfg.topology_cycle:
+        raise NotImplementedError(
+            "topology_cycle (time-varying W) is not ported yet (ROADMAP A6)")
+    if cfg.topology_family != "static" or cfg.participation_rate < 1.0:
+        raise NotImplementedError(
+            f"topology_family={cfg.topology_family!r} / participation_rate="
+            f"{cfg.participation_rate} (churn) are not ported yet (ROADMAP A6)")
+    if cfg.num_byzantine > 0 or cfg.attack != "honest":
+        raise NotImplementedError(
+            f"num_byzantine={cfg.num_byzantine} / attack={cfg.attack!r} (the "
+            "adversary axis) are not ported yet (ROADMAP A9)")
+    if cfg.algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {cfg.algorithm!r}: {ALGORITHMS}")
+
+
+def make_round_step(
+    problem: MinimaxProblem,
+    cfg: AlgorithmConfig,
+    w=None,
+    lr_scale: Optional[Callable[[int], float]] = None,
+    *,
+    traced_etas: bool = False,
+    traced_w: bool = False,
+    participation: bool = False,
+    byzantine: bool = False,
+    device="cuda",
+):
+    """Builds ``round_step(state, batches, noise) -> state``.
+
+    ``batches``: pytree with leading dims (K, n, …), one per (local step,
+    client).  ``noise``: (K, n, noise_dim), the oracle noise rows.
+    ``w``: the static (n, n) mixing matrix (default: ``cfg.topology``),
+    placed on ``device``.  ``lr_scale(round) -> float`` multiplies the
+    local stepsizes.  ``traced_etas=True`` changes the signature to
+    ``round_step(state, batches, noise, etas)`` with ``etas`` the bundle of
+    :func:`point_etas`; the stepsizes in ``cfg`` are then ignored.
+
+    ``traced_w``, ``participation`` and ``byzantine`` are not ported yet.
+    """
+    if traced_etas and lr_scale is not None:
+        raise ValueError(
+            "traced_etas carries per-trajectory stepsizes; fold the schedule "
+            "into the eta values instead of passing lr_scale")
+    _check_unported(cfg)
+    if traced_w or participation:
+        raise NotImplementedError(
+            "traced_w / participation (churn) are not ported yet (ROADMAP A6)")
+    if byzantine:
+        raise NotImplementedError(
+            "byzantine (the adversary axis) is not ported yet (ROADMAP A9)")
+    impl = cfg.mixing_impl
+    fused = impl == "fused_round"
+    packed = impl == "pallas_packed"
+    if fused and problem.affine_coeffs is None:
+        raise ValueError(
+            "mixing_impl='fused_round' runs the K local steps as affine "
+            "updates inside the kernel; this problem has no affine_coeffs "
+            "oracle — use 'pallas_packed'")
+    if cfg.gossip_backend not in kernel_ops.GOSSIP_BACKENDS:
+        raise ValueError(f"unknown gossip_backend {cfg.gossip_backend!r}: "
+                         f"{kernel_ops.GOSSIP_BACKENDS}")
+    if w is None:
+        w = topo_lib.mixing_matrix(cfg.topology, cfg.num_clients)
+    w_t = torch.as_tensor(np.asarray(w) if not isinstance(w, torch.Tensor)
+                          else w, dtype=torch.float32).to(device)
+    mix = (None if packed or fused
+           else mixing_lib.make_mixer(cfg.topology, impl, w_t,
+                                      cfg.gossip_dtype))
+    backend = cfg.gossip_backend
+    gossip_dtype = cfg.gossip_dtype
+    track = cfg.algorithm in ("kgt_minimax", "gt_gda")
+    k_steps = 1 if cfg.algorithm in ("dsgda", "gt_gda") else cfg.local_steps
+
+    def _local_steps(state, batches, noise, eta_cx, eta_cy):
+        xx, yy = state.x, state.y
+        for k in range(k_steps):
+            gx, gy = _vgrads(problem, xx, yy, _step_slice(batches, k),
+                             noise[k])
+            if track:
+                gx = _tree_axpy(1.0, state.cx, gx)   # g + c
+                gy = _tree_axpy(1.0, state.cy, gy)
+            xx = _tree_axpy(-eta_cx, gx, xx)
+            yy = _tree_axpy(eta_cy, gy, yy)
+        return xx, yy
+
+    def _fused_round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
+                     corr_x, corr_y):
+        """One kernel call runs the K affine local steps and the gossip
+        epilogue over the packed z = (x; y).  Like the reference (which
+        takes G from step 0), this needs the batch constant across the K
+        local steps — the samplers of the quadratic hand every step the
+        same batch — so G and h's data terms come from step 0, built once,
+        and only the noise varies per step."""
+        spec_x = packing.pack_spec(state.x)
+        spec_y = packing.pack_spec(state.y)
+        n, dzx, dzy = spec_x.n, spec_x.dim, spec_y.dim
+        dz = dzx + dzy
+        dev = w_t.device
+        g_mat, h = vmap(problem.affine_coeffs)(
+            _step_slice(batches, 0), noise[:k_steps].transpose(0, 1))
+        h_all = (h.transpose(0, 1) if h.dim() == 3
+                 else h.unsqueeze(0).expand(k_steps, n, dz))
+
+        z0 = torch.cat([packing.pack(state.x, spec_x),
+                        packing.pack(state.y, spec_y)], dim=1)
+        if track:
+            cb = torch.cat([packing.pack(state.cx), packing.pack(state.cy)],
+                           dim=1)
+        else:
+            cb = torch.zeros((n, dz), device=dev)
+        # per-column vectors: the x block descends, the y block ascends;
+        # corr = 0 encodes the no-tracking variants (c' = c exactly)
+        def cols(vx, vy):
+            row = torch.cat([torch.full((dzx,), vx, device=dev),
+                             torch.full((dzy,), vy, device=dev)])
+            return row.unsqueeze(0).expand(n, dz)
+
+        step = cols(eta_cx, -eta_cy)
+        etas = cols(eta_sx, eta_sy)
+        corr = cols(corr_x, corr_y) if track else cols(0.0, 0.0)
+        zeros = torch.zeros((n, dz), device=dev)
+        ones = torch.ones((n, dz), device=dev)
+        z_new, c_new, _ = kernel_ops.fused_round(
+            w_t, z0, cb, zeros, g_mat, h_all, step, etas, corr, ones,
+            backend=backend, compress=None, gossip_dtype=gossip_dtype)
+        if track:
+            cx = packing.unpack(c_new[:, :dzx], packing.pack_spec(state.cx))
+            cy = packing.unpack(c_new[:, dzx:], packing.pack_spec(state.cy))
+        else:
+            cx, cy = state.cx, state.cy
+        return KGTState(x=packing.unpack(z_new[:, :dzx], spec_x),
+                        y=packing.unpack(z_new[:, dzx:], spec_y),
+                        cx=cx, cy=cy, round=state.round + 1)
+
+    def _packed_round(state, dx, dy, eta_sx, eta_sy, corr_x, corr_y):
+        """Each variable packed to one (n, D) buffer; the epilogue
+        θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) is one kernel call."""
+        spec_x = packing.pack_spec(state.x)
+        spec_y = packing.pack_spec(state.y)
+        dxb = packing.pack(dx, spec_x)
+        dyb = packing.pack(dy, spec_y)
+        if not track:
+            # no correction state: the epilogue is one gossip of the
+            # stepped parameters, W(θ + η_s·Δ)
+            xb = mixing_lib.mix_dense(packing.pack(state.x, spec_x)
+                                      + eta_sx * dxb, w_t, gossip_dtype)
+            yb = mixing_lib.mix_dense(packing.pack(state.y, spec_y)
+                                      + eta_sy * dyb, w_t, gossip_dtype)
+            return KGTState(x=packing.unpack(xb, spec_x),
+                            y=packing.unpack(yb, spec_y),
+                            cx=state.cx, cy=state.cy, round=state.round + 1)
+        spec_cx = packing.pack_spec(state.cx)
+        spec_cy = packing.pack_spec(state.cy)
+        xb, cxb = kernel_ops.fused_gossip_round(
+            w_t, dxb, packing.pack(state.x, spec_x),
+            packing.pack(state.cx, spec_cx), eta_sx, corr_x,
+            backend=backend, gossip_dtype=gossip_dtype)
+        yb, cyb = kernel_ops.fused_gossip_round(
+            w_t, dyb, packing.pack(state.y, spec_y),
+            packing.pack(state.cy, spec_cy), eta_sy, corr_y,
+            backend=backend, gossip_dtype=gossip_dtype)
+        return KGTState(x=packing.unpack(xb, spec_x),
+                        y=packing.unpack(yb, spec_y),
+                        cx=packing.unpack(cxb, spec_cx),
+                        cy=packing.unpack(cyb, spec_cy),
+                        round=state.round + 1)
+
+    def _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
+               corr_x, corr_y) -> KGTState:
+        if fused:
+            return _fused_round(state, batches, noise, eta_cx, eta_cy,
+                                eta_sx, eta_sy, corr_x, corr_y)
+        xk, yk = _local_steps(state, batches, noise, eta_cx, eta_cy)
+        dx = _tree_sub(xk, state.x)   # Δx = x^{(t)+K} − x^{(t)}
+        dy = _tree_sub(yk, state.y)
+        if packed:
+            return _packed_round(state, dx, dy, eta_sx, eta_sy, corr_x,
+                                 corr_y)
+        # Algorithm 1 gossips Δ (lines 7-8) and the parameters (lines
+        # 10-11); the fused_* impls stack both into one mix per leaf
+        if impl.startswith("fused"):
+            def pack_mix(delta, base):
+                pairs = tree_lib.tree_map(
+                    lambda d, b: torch.stack([d.to(torch.float32),
+                                              b.to(torch.float32)], dim=1),
+                    delta, base)
+                mixed = mix(pairs)
+                return (tree_lib.tree_map(lambda p: p[:, 0], mixed),
+                        tree_lib.tree_map(lambda p: p[:, 1], mixed))
+
+            mdx, mx = pack_mix(dx, state.x)
+            mdy, my = pack_mix(dy, state.y)
+        else:
+            mdx, mdy = mix(dx), mix(dy)
+            mx, my = mix(state.x), mix(state.y)
+        if track:
+            cx = _tree_axpy(corr_x, _tree_sub(dx, mdx), state.cx)
+            cy = _tree_axpy(corr_y, _tree_sub(dy, mdy), state.cy)
+        else:
+            cx, cy = state.cx, state.cy
+        # x ← W(x + η_s Δx) = Wx + η_s·WΔx
+        return KGTState(x=_tree_axpy(eta_sx, mdx, mx),
+                        y=_tree_axpy(eta_sy, mdy, my),
+                        cx=cx, cy=cy, round=state.round + 1)
+
+    if traced_etas:
+        def round_step(state: KGTState, batches, noise, etas) -> KGTState:
+            e = {k: float(v) for k, v in etas.items()}
+            # η_s = 1 for the no-tracking baselines (plain averaging)
+            return _round(state, batches, noise, e["eta_cx"], e["eta_cy"],
+                          e["eta_sx"] if track else 1.0,
+                          e["eta_sy"] if track else 1.0,
+                          e["corr_x"] if track else None,
+                          e["corr_y"] if track else None)
+
+        return round_step
+
+    eta_sx = cfg.eta_sx if track else 1.0
+    eta_sy = cfg.eta_sy if track else 1.0
+
+    def round_step(state: KGTState, batches, noise) -> KGTState:
+        scale = lr_scale(state.round) if lr_scale is not None else 1.0
+        eta_cx = cfg.eta_cx * scale
+        eta_cy = cfg.eta_cy * scale
+        # the correction scales are host float64, rounded once to f32
+        corr_x = 1.0 / (k_steps * eta_cx) if track else None
+        corr_y = -1.0 / (k_steps * eta_cy) if track else None
+        return _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
+                      corr_x, corr_y)
+
+    return round_step
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics
+# ---------------------------------------------------------------------------
+
+def mean_over_clients(tree):
+    return tree_lib.tree_map(lambda x: x.mean(0), tree)
+
+
+def correction_mean_norm(tree) -> torch.Tensor:
+    """‖c̄‖ = ‖(1/n) Σ_i c_i‖ over all leaves — Lemma 8 says exactly 0 for
+    the tracking variants."""
+    return torch.sqrt(sum(
+        torch.sum(torch.square(l.mean(0).to(torch.float32)))
+        for l in tree_lib.leaves(tree)))
+
+
+def diagnostics(problem: MinimaxProblem, state: KGTState):
+    """Exact ‖∇Φ(x̄)‖ (quadratic problems) + consensus errors."""
+    out = {
+        "consensus_x": mixing_lib.consensus_error(state.x),
+        "consensus_y": mixing_lib.consensus_error(state.y),
+        "correction_mean_norm": correction_mean_norm(state.cx),
+        "correction_mean_norm_y": correction_mean_norm(state.cy),
+    }
+    if problem.phi_grad is not None:
+        out["phi_grad_norm"] = problem.phi_grad_norm(
+            mean_over_clients(state.x))
+    return out

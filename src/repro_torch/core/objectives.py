@@ -1,0 +1,164 @@
+"""The synthetic NC-SC quadratic (port of ``repro.core.objectives:26-194``).
+
+    f_i(x, y) = ½xᵀA_i x + q_iᵀx + yᵀB_i x + b_iᵀy − μ/2‖y‖²  (+ σ·noise)
+
+Stochasticity is additive noise on the linear terms: one ``(dx + dy,)`` row
+per client and local step, ``[nx; ny]``, entering as ``σ(nxᵀx + nyᵀy)``.
+The JAX package draws ``nx``/``ny`` from a key split inside the oracle; here
+the row arrives as a tensor (``repro_torch.engine.sampler`` draws it).
+The DRO and adversarial problems are not ported yet (ROADMAP A11).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.core.minimax import MinimaxProblem
+
+
+def make_quadratic_data(
+    gen: torch.Generator,
+    n_clients: int,
+    dx: int = 10,
+    dy: int = 5,
+    mu: float = 1.0,
+    l_smooth: float = 4.0,
+    heterogeneity: float = 1.0,
+    nonconvexity: float = 0.5,
+) -> Dict[str, Any]:
+    """Per-client data, drawn from ``gen`` on ``gen.device``.
+
+    Same construction as the reference: a PSD global Ā with eigenvalues in
+    [0.1, l_smooth/2] plus zero-mean symmetric per-client perturbations, a
+    B̄ of spectral norm l_smooth/2 plus zero-mean per-client offsets.  The
+    draws differ from the JAX package's (another generator); parity tests
+    take the reference's data through ``repro_torch.core.from_reference``.
+    """
+    dev = gen.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    q_rot = torch.linalg.qr(normal(dx, dx))[0]
+    eigs = torch.linspace(0.1, l_smooth / 2, dx, device=dev)
+    base_a = (q_rot * eigs) @ q_rot.T
+
+    e = normal(n_clients, dx, dx) / np.sqrt(dx)
+    e = 0.5 * (e + e.transpose(-1, -2))
+    e = e - e.mean(0, keepdim=True)
+    a = base_a[None] + (nonconvexity + heterogeneity) * e
+
+    base_b = normal(dy, dx) / np.sqrt(max(dx, dy))
+    base_b = base_b * (l_smooth / 2 / torch.linalg.matrix_norm(base_b, ord=2))
+    db = normal(n_clients, dy, dx) / np.sqrt(dx)
+    db = db - db.mean(0, keepdim=True)
+    b_mat = base_b[None] + heterogeneity * db
+
+    b_vec = normal(n_clients, dy) * heterogeneity
+    q_vec = normal(n_clients, dx) * heterogeneity
+    return {"A": a, "B": b_mat, "b": b_vec, "q": q_vec, "mu": float(mu)}
+
+
+def _value(x, y, batch, noise, *, mu, dx, sigma):
+    f = (
+        0.5 * x @ (batch["A"] @ x)
+        + batch["q"] @ x
+        + y @ (batch["B"] @ x)
+        + batch["b"] @ y
+        - 0.5 * mu * torch.sum(y * y)
+    )
+    if sigma is not None:
+        f = f + sigma * (noise[:dx] @ x + noise[dx:] @ y)
+    return f
+
+
+def _quadratic_affine_coeffs(batch, noise, *, mu, dy, sigma):
+    """(G, h) with (∇x f, ∇y f) = split(G z + h) for z = concat(x, y).
+
+        G = [[A, Bᵀ], [B, −μI]]       h = [q; b] (+ σ·noise)
+
+    ``noise`` may carry leading step dims; h broadcasts to them while G is
+    built once.
+    """
+    a, b_mat = batch["A"], batch["B"]
+    top = torch.cat([a, b_mat.transpose(-1, -2)], dim=-1)
+    bottom = torch.cat(
+        [b_mat, -mu * torch.eye(dy, dtype=a.dtype, device=a.device)], dim=-1)
+    g = torch.cat([top, bottom], dim=-2)
+    h = torch.cat([batch["q"], batch["b"]], dim=-1)
+    if sigma is not None:
+        h = h + sigma * noise
+    return g, h
+
+
+def quadratic_problem(data: Dict[str, Any], sigma: float = 0.0) -> MinimaxProblem:
+    """MinimaxProblem over per-client slices of ``data``.
+
+    The per-client batch is {"A": (dx,dx), "B": (dy,dx), "b": (dy,),
+    "q": (dx,)}; ``sigma > 0`` adds the noise row's linear terms.
+    """
+    mu = float(data["mu"])
+    dx = data["A"].shape[-1]
+    dy = data["B"].shape[-2]
+    dev = data["A"].device
+    sig = float(sigma) if sigma > 0.0 else None
+
+    a_bar = data["A"].mean(0)
+    b_bar = data["B"].mean(0)
+    bv_bar = data["b"].mean(0)
+    q_bar = data["q"].mean(0)
+
+    def value(x, y, batch, noise):
+        return _value(x, y, batch, noise, mu=mu, dx=dx, sigma=sig)
+
+    def phi_grad(x):
+        # y*(x) = (B̄x + b̄)/μ ; ∇Φ = Āx + q̄ + B̄ᵀ y*(x)
+        ystar = (b_bar @ x + bv_bar) / mu
+        return a_bar @ x + q_bar + b_bar.T @ ystar
+
+    def affine_coeffs(batch, noise):
+        return _quadratic_affine_coeffs(batch, noise, mu=mu, dy=dy, sigma=sig)
+
+    return MinimaxProblem(
+        init_x=lambda gen: torch.randn((dx,), generator=gen, device=dev),
+        init_y=lambda gen: torch.zeros((dy,), device=dev),
+        value=value,
+        noise_dim=dx + dy,
+        phi_grad=phi_grad,
+        affine_coeffs=affine_coeffs,
+        mu=mu,
+    )
+
+
+def quadratic_cell_problem(dx: int, dy: int, mu: float = 1.0,
+                           noise: bool = False,
+                           device: str = "cuda") -> MinimaxProblem:
+    """The quadratic with every per-client coefficient read from the batch.
+
+    The per-client slice is ``{"A", "B", "b", "q"}`` plus, when ``noise``, a
+    scalar ``"sigma"``.  No Φ oracle: the sweep runner (ROADMAP A5)
+    evaluates it over its own stacked constants.
+    """
+
+    def value(x, y, batch, nz):
+        f = _value(x, y, batch, None, mu=mu, dx=dx, sigma=None)
+        if noise:
+            f = f + batch["sigma"] * (nz[:dx] @ x + nz[dx:] @ y)
+        return f
+
+    def affine_coeffs(batch, nz):
+        g, h = _quadratic_affine_coeffs(batch, None, mu=mu, dy=dy, sigma=None)
+        if noise:
+            h = h + batch["sigma"] * nz
+        return g, h
+
+    return MinimaxProblem(
+        init_x=lambda gen: torch.randn((dx,), generator=gen, device=device),
+        init_y=lambda gen: torch.zeros((dy,), device=device),
+        value=value,
+        noise_dim=dx + dy,
+        affine_coeffs=affine_coeffs,
+        mu=mu,
+    )

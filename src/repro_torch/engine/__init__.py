@@ -1,0 +1,13 @@
+"""Chunked multi-round execution engine of the port.
+
+``engine`` — chunk programs and the chunk driver; ``sampler`` — per-round
+batch and noise samplers; ``diagnostics`` — metric functions.
+"""
+from repro_torch.engine.diagnostics import quadratic_metrics_fn  # noqa: F401
+from repro_torch.engine.engine import (  # noqa: F401
+    chunk_program,
+    make_chunk_builder,
+    records_from_buffer,
+    run,
+)
+from repro_torch.engine.sampler import make_fixed_batch_sampler  # noqa: F401

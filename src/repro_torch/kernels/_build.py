@@ -1,0 +1,116 @@
+"""Builds the CUDA sources under ``csrc/`` with nvcc and loads them.
+
+Each ``csrc/<name>.cu`` becomes ``build/repro_torch/<name>-<hash>.so`` at
+the repository root, with a plain C interface loaded through ``ctypes``.
+The hash covers the source, every header in ``csrc/`` and the flags, so an
+edit rebuilds; a built library is reused.  Nothing is built at import time:
+the first call of a wrapper on a CUDA tensor builds what it needs, and
+``build_all`` builds every source at once (one nvcc per source, in
+parallel).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("gossip", "fused_round")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# argument types of each library's C entry point (all return cudaError_t)
+SIGNATURES = {
+    "gossip": ("fused_gossip_launch",
+               [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_float,
+                           ctypes.c_float, _I, _P]),
+    "fused_round": ("fused_round_launch", [_P] * 14 + [_I] * 5 + [_P]),
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+# nvcc seconds spent in this process, and each build's ptxas report
+stats = {"build_s": 0.0, "log": {}}
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
+    """Compile every missing library of ``names``, all nvcc runs at once."""
+    targets = {name: _target(name) for name in names}
+    todo = {name: t for name, t in targets.items() if not t.exists()}
+    if not todo:
+        return targets
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, target in todo.items():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp)
+    errors = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        stats["log"][name] = out.decode()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed:\n{out.decode()}")
+        else:
+            os.replace(tmp, todo[name])
+    stats["build_s"] += time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return targets
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([name])[name]))
+        fn_name, argtypes = SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_operand(name, x, shape):
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous float32")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")

@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the round kernels (port of
+``repro.kernels.ref:63-125``).
+
+They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
+holds the CUDA kernels against on the card.  Dtype rules follow the
+reference: the W-contraction operands are narrowed to ``gossip_dtype``, the
+products accumulate in f32, and Δ (or q) stays f32 inside the correction.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.quantize import quantize_dequant
+
+
+def gossip_torch_dtype(gossip_dtype) -> Optional[torch.dtype]:
+    """Config string ("float32" / "bfloat16" / None) -> narrowing dtype."""
+    if gossip_dtype in (None, "float32", torch.float32):
+        return None
+    if gossip_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unknown gossip_dtype {gossip_dtype!r}")
+
+
+def narrow(x: torch.Tensor, gd: Optional[torch.dtype]) -> torch.Tensor:
+    """x rounded to the gossip dtype, held in f32 (identity for None)."""
+    x = x.to(torch.float32)
+    return x if gd is None else x.to(gd).to(torch.float32)
+
+
+def fused_gossip_ref(w, delta, theta, c, eta_s, corr_scale, *,
+                     gossip_dtype=None):
+    """Packed round epilogue for one variable (Algorithm 1 lines 7–11).
+
+    w: (n, n); delta/theta/c: (n, D).  Returns f32
+    (θ_new, c_new) = (Wθ + η_s·WΔ, c + s·(Δ − WΔ)).
+    """
+    gd = gossip_torch_dtype(gossip_dtype)
+    wg = narrow(w, gd)
+    d32 = delta.to(torch.float32)
+    wd = wg @ narrow(delta, gd)
+    wt = wg @ narrow(theta, gd)
+    theta_new = wt + float(eta_s) * wd
+    c_new = c.to(torch.float32) + float(corr_scale) * (d32 - wd)
+    return theta_new, c_new
+
+
+def local_steps_ref(z0, c, ef, g, h_steps, step, mask, *, compress=None):
+    """The local half of the whole round: K affine SGDA steps, then the
+    transmitted value.  Returns (q, ef_new, delta)."""
+    z0 = z0.to(torch.float32)
+    c32 = c.to(torch.float32)
+    z = z0
+    for k in range(h_steps.shape[0]):
+        grad = torch.bmm(g, z.unsqueeze(-1)).squeeze(-1)
+        z = z - step * (grad + h_steps[k] + c32)
+    delta = z - z0
+    ef32 = ef.to(torch.float32)
+    if compress is None:
+        return delta, ef32, delta
+    v = mask * (delta + ef32)
+    q = quantize_dequant(v, compress)
+    return q, torch.where(mask > 0, v - q, ef32), delta
+
+
+def fused_round_ref(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
+                    compress=None, gossip_dtype=None):
+    """Whole Algorithm-1 round over the packed z = (x; y).
+
+    w: (n, n); z0/c/ef/step/etas/corr/mask: (n, dz) f32; g: (n, dz, dz);
+    h_steps: (K, n, dz).  Returns (z_new, c_new, ef_new):
+
+        repeat K:  z ← z − step ⊙ (G z + h_k + c)
+        Δ = z_K − z₀;  q = Δ, or v = mask ⊙ (Δ + e), q = Q(v), e' = v − q
+        z' = W z₀ + η_s ⊙ W q;   c' = c + corr ⊙ (q − W q)
+    """
+    q, e_new, _ = local_steps_ref(z0, c, ef, g, h_steps, step, mask,
+                                  compress=compress)
+    gd = gossip_torch_dtype(gossip_dtype)
+    wg = narrow(w, gd)
+    wq = wg @ narrow(q, gd)
+    wz = wg @ narrow(z0, gd)
+    return wz + etas * wq, c.to(torch.float32) + corr * (q - wq), e_new
