@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. card — ``nvidia-smi`` name and power limit;
 2. build — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
 3. kernels — each CUDA kernel against its plain PyTorch version on the
-   card, at the stated tolerances;
+   card, at the stated tolerances, on a grid that holds every shape (and
+   kind of W) that the later phases run it at;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
@@ -16,8 +17,15 @@ Phases, each printing one JSON line:
    counts must be what the path implies;
 5. quickstart — at the quickstart geometry (fused_round) K-GT-Minimax
    must end below local SGDA, with one whole-round launch a round;
-6. times — CUDA-event medians of each kernel and its plain version, the
-   bounds, the epilogue at D ≈ 1e8, and rounds/s per mixing_impl.
+6. scale — the sparse path at n = 4096 clients on the exponential graph
+   (dx = 384, dy = 128, K = 8): ``sparse_packed`` against ``dense`` on the
+   same W for the four algorithms, the neighbor-gather kernel's launch
+   counts, the four churn families under 70 % participation (Σc ≈ 0,
+   inactive clients frozen bit for bit), churn at n = 512 through all three
+   kernels on the same per-round W and mask, and rounds/s;
+7. times — CUDA-graph device times of each kernel, its plain version and,
+   where one exists, a PyTorch library call, beside the bounds; the
+   epilogue at D ≈ 1e8, and rounds/s per mixing_impl.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering (device busy share, top kernels).
@@ -40,7 +48,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-PHASES = ("card", "build", "kernels", "main", "quickstart", "times")
+PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
@@ -52,11 +60,20 @@ N, K, DX, DY, SIGMA, ROUNDS = 8, 8, 384, 128, 0.1, 50
 ALGOS = ("kgt_minimax", "gt_gda", "dsgda", "local_sgda")
 TRACKING = ("kgt_minimax", "gt_gda")
 
+# the sparse path: the largest client count of benchmarks/bench_scale.py,
+# on the exponential graph (23 neighbors + self at n = 4096)
+SCALE_N, SCALE_ROUNDS, CHURN_ROUNDS = 4096, 20, 10
+CHURN_DENSE_N = 512      # the dense samplers' limit (DENSE_MATERIALIZATION_LIMIT)
+CHURN_DENSE_ROUNDS = 5
+PARTICIPATION = 0.7
+
 # tolerances (max |kernel − plain|); see PERF.md for the reasons
 TOL_GOSSIP = 1e-5        # θ' for O(1) operands; c' gets |s|× this
 TOL_ROUND = 1e-6         # Δ, z' (the JAX package's own kernel tolerance)
 TOL_ROUND_C = 4e-6       # c' (4× as in tests/test_fused_round.py)
-TOL_STATE = 1e-4         # 50-round states vs dense, × (1 + max|dense|)
+TOL_SPARSE = 1e-6        # θ', c' × (1 + max|plain|), f32 and bf16 alike
+TOL_STATE = 1e-4         # R-round states vs dense, × (1 + max|dense|)
+TOL_SIGMA_C = 1e-5       # max_j |mean_i c_ij| × (1 + max|c|): Σ_i c_i = 0
 
 
 def emit(obj) -> None:
@@ -130,6 +147,12 @@ def round_bound_ms(n: int, dz: int, k: int):
     return _bound(byts, flops)
 
 
+def sparse_bound_ms(n: int, d: int, m: int):
+    byts = 4 * (5 * n * d + n * (2 * m + 1))
+    flops = 4 * n * (m + 1) * d + 4 * n * d
+    return _bound(byts, flops)
+
+
 def _bound(byts, flops):
     t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -152,29 +175,42 @@ def gossip_operands(n, d, gen, dev):
 def check_gossip(gen, dev) -> float:
     from repro_torch.kernels import gossip, ref
 
+    from repro_torch.core import sparse_topology as sp_lib
+
     worst = 0.0
+    cases = 0
     shapes = [(n, d) for n in (1, 6, 8, 64, 512) for d in (1, 300, 4097)]
-    shapes += [(N, DX), (N, DY)]
+    # the main path's shapes, and the churn path's at the dense limit
+    shapes += [(N, DX), (N, DY), (CHURN_DENSE_N, DX), (CHURN_DENSE_N, DY)]
     eta_s, corr = 0.5, 12.5
     for n, d in shapes:
         args = gossip_operands(n, d, gen, dev)
-        for gd in (None, "bfloat16"):
-            kt, kc = gossip.fused_gossip_nd(*args, eta_s, corr,
-                                            gossip_dtype=gd)
-            pt, pc = ref.fused_gossip_ref(*args, eta_s, corr,
-                                          gossip_dtype=gd)
-            et, ec = max_err(kt, pt), max_err(kc, pc)
-            if et > TOL_GOSSIP or ec > TOL_GOSSIP * corr:
-                fail(f"fused_gossip n={n} D={d} {gd}: θ err {et}, c err {ec}")
-            worst = max(worst, et, ec / corr)
-    emit({"phase": "kernels", "kernel": "fused_gossip", "cases":
-          len(shapes) * 2, "max_abs_err_theta_or_c_over_s": worst,
-          "tol": TOL_GOSSIP})
+        ws = [("random", args[0])]
+        if n == CHURN_DENSE_N and d in (DX, DY):
+            # the churn path's W: each family's draw under a mask
+            ws += [(label, sp_lib.densify(sp))
+                   for label, sp, _ in churn_topologies(n, gen, dev)]
+        for label, w in ws:
+            for gd in (None, "bfloat16"):
+                kt, kc = gossip.fused_gossip_nd(w, *args[1:], eta_s, corr,
+                                                gossip_dtype=gd)
+                pt, pc = ref.fused_gossip_ref(w, *args[1:], eta_s, corr,
+                                              gossip_dtype=gd)
+                et, ec = max_err(kt, pt), max_err(kc, pc)
+                if et > TOL_GOSSIP or ec > TOL_GOSSIP * corr:
+                    fail(f"fused_gossip n={n} D={d} W={label} {gd}: "
+                         f"θ err {et}, c err {ec}")
+                worst = max(worst, et, ec / corr)
+                cases += 1
+    emit({"phase": "kernels", "kernel": "fused_gossip", "cases": cases,
+          "max_abs_err_theta_or_c_over_s": worst, "tol": TOL_GOSSIP})
     return worst
 
 
-def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None):
-    """The JAX package's kernel-test operands (tests/test_fused_round.py)."""
+def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None,
+                   w=None):
+    """The JAX package's kernel-test operands (tests/test_fused_round.py);
+    ``w`` defaults to the ring's."""
     import torch
 
     from repro_torch.core.topology import mixing_matrix
@@ -182,8 +218,9 @@ def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None):
     def rn(*shape, scale):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    w = torch.as_tensor(mixing_matrix("ring", n), dtype=torch.float32,
-                        device=dev)
+    if w is None:
+        w = torch.as_tensor(mixing_matrix("ring", n), dtype=torch.float32,
+                            device=dev)
     z0, c, ef = rn(n, dz, scale=0.3), rn(n, dz, scale=0.1), rn(n, dz,
                                                                scale=0.01)
     g = rn(n, dz, dz, scale=0.1 / dz)
@@ -204,14 +241,24 @@ def check_round(gen, dev) -> float:
     from repro_torch.core.mixing import gossip_torch_dtype, narrow
     from repro_torch.kernels import fused_round, quantize, ref
 
-    worst = full_q = 0.0
-    cases = 0
+    from repro_torch.core import sparse_topology as sp_lib
+
+    worst = full_q = full_flip = 0.0
+    cases = flips = 0
     # (6, 150, 3): the JAX package's kernel-test shape; then the main
-    # path's and the quickstart's round geometries
-    for (n, dz, k) in ((6, 150, 3), (N, DX + DY, K), (N, 10 + 5, K)):
-        variants = [dict(), dict(corr_zero=True), dict(mask_rows=[1, 3])]
-        for var in variants:
-            args = round_operands(n, dz, k, gen, dev, **var)
+    # path's and the quickstart's round geometries, and the churn path's
+    # at the dense limit, with each family's masked W and that mask
+    churn = [(label, dict(w=sp_lib.densify(sp),
+                          mask_rows=(~mask).nonzero().flatten()))
+             for label, sp, mask in churn_topologies(CHURN_DENSE_N, gen,
+                                                      dev)]
+    for (n, dz, k) in ((6, 150, 3), (N, DX + DY, K), (N, 10 + 5, K),
+                       (CHURN_DENSE_N, DX + DY, K)):
+        variants = ([("ring", dict()), ("ring, corr 0", dict(corr_zero=True)),
+                     ("ring, rows 1 3 out", dict(mask_rows=[1, 3]))]
+                    if n != CHURN_DENSE_N else churn)
+        for var, kw in variants:
+            args = round_operands(n, dz, k, gen, dev, **kw)
             w, z0, c, ef, g, h, step, etas, corr, mask = args
             act = mask > 0
             for compress in (None, "bf16", "int8"):
@@ -248,27 +295,131 @@ def check_round(gen, dev) -> float:
                     errs["c"] = max_err(kc, pc)
                     # and the whole round against the plain whole round
                     # (informational under compression, where a ulp of Δ
-                    # can move a value across a rounding boundary of Q)
+                    # can move a value across a rounding boundary of Q).
+                    # A bf16 gossip rounds Δ too: there, the entries of z'
+                    # and c' that mix a Δ entry whose kernel and plain
+                    # values round to different bf16 values are
+                    # informational, and every other entry is checked
                     fz, fc, fe = ref.fused_round_ref(*args, compress=compress,
                                                      gossip_dtype=gd)
                     full = max(max_err(kz, fz), max_err(kc, fc),
                                max_err(ke, fe))
+                    full_kept = full
+                    if compress is None and gd is not None:
+                        flip = narrow(kq, gdt) != narrow(pd, gdt)
+                        kept = ((w != 0).float() @ flip.float()) == 0
+                        full_kept = max(max_err(kz[kept], fz[kept]),
+                                        max_err(kc[kept], fc[kept]),
+                                        max_err(ke, fe))
+                        flips += int(flip.sum())
+                        full_flip = max(full_flip, full)
                     if (max(errs.get("delta", 0.0), errs.get("v", 0.0),
                             errs["z"]) > TOL_ROUND or errs["c"] > TOL_ROUND_C
-                            or (compress is None and full > TOL_ROUND_C)):
+                            or (compress is None
+                                and full_kept > TOL_ROUND_C)):
                         fail(f"fused_round {n},{dz},{k} {var} {compress} {gd}:"
-                             f" {errs}, whole round {full}")
+                             f" {errs}, whole round {full_kept}")
                     worst = max(worst, *errs.values(),
-                                full if compress is None else 0.0)
+                                full_kept if compress is None else 0.0)
                     if compress is not None:
                         full_q = max(full_q, full)
                     cases += 1
     emit({"phase": "kernels", "kernel": "fused_round", "cases": cases,
           "max_abs_err": worst, "tol": [TOL_ROUND, TOL_ROUND_C],
           "whole_round_err_compressed": full_q,
+          "bf16_gossip_delta_flips": flips,
+          "whole_round_err_bf16_gossip_all_entries": full_flip,
           "bitwise": "e' == e (no compression); with v = q + e': "
                      "q == Q(v), e' == v - q"})
     return worst
+
+
+def churn_topologies(n, gen, dev):
+    """(label, SparseTopology on dev, mask) at n clients: one draw of each
+    churn family on the exp support, under a participation mask — the W
+    the churn paths mix with."""
+    from repro_torch.core import sparse_topology as sp_lib
+    from repro_torch.core import stochastic_topology as st_lib
+
+    exp = sp_lib.sparse_exp(n)
+    out = []
+    for family in st_lib.TOPOLOGY_FAMILIES:
+        w_fn = sp_lib.make_sparse_w_sampler(family, exp, seed=n,
+                                            edge_prob=0.5, device=dev)
+        mask = st_lib.bernoulli_mask(gen, n, PARTICIPATION)
+        out.append((f"{family}+mask", sp_lib.sparse_masked_w(w_fn(1), mask),
+                    mask))
+    return out
+
+
+def sparse_topologies(n, gen, dev):
+    """(label, SparseTopology on dev) at n clients: ring, torus (square n),
+    exp, hierarchical, one draw of each churn family on the exp support,
+    and each such draw under a participation mask."""
+    from repro_torch.core import sparse_topology as sp_lib
+    from repro_torch.core import stochastic_topology as st_lib
+
+    exp = sp_lib.sparse_exp(n)
+    out = [("ring", sp_lib.sparse_ring(n)), ("exp", exp)]
+    if round(n ** 0.5) ** 2 == n:
+        out.append(("torus", sp_lib.sparse_torus(n)))
+    cluster = next(c for c in (16, 8, 4, 3, 2, 1) if n % c == 0)
+    out.append(("hierarchical", sp_lib.sparse_hierarchical(n, cluster)))
+    out = [(label, sp.to(dev)) for label, sp in out]
+    for family in st_lib.TOPOLOGY_FAMILIES:
+        w_fn = sp_lib.make_sparse_w_sampler(family, exp, seed=n,
+                                            edge_prob=0.5, device=dev)
+        out.append((family, w_fn(1)))
+    out += [(label, sp) for label, sp, _ in churn_topologies(n, gen, dev)]
+    return out
+
+
+def check_sparse_gossip(gen, dev) -> float:
+    from repro_torch.kernels import neighbor_gossip, ref
+
+    worst = {}
+    worst_abs = 0.0
+    cases = 0
+    eta_s, corr = 0.5, 12.5          # the path's η_s and 1/(K·η_cx)
+    grid = {n: [1, 128, 300, 4097] for n in (1, 8, 9, 64, 1024, SCALE_N)}
+    # the paths' own shapes: the scale path's x at n = 4096, and the churn
+    # path's x and y at the dense limit
+    grid[SCALE_N].append(DX)
+    grid[CHURN_DENSE_N] = [DX, DY]
+    for n, ds in grid.items():
+        tops = sparse_topologies(n, gen, dev)
+        for d in ds:
+            delta, theta, c = (torch_randn(gen, dev, n, d) for _ in range(3))
+            for label, sp in tops:
+                tab = (sp.neighbor_idx, sp.neighbor_w.contiguous(),
+                       sp.self_w.contiguous())
+                for gd in (None, "bfloat16"):
+                    kt, kc = neighbor_gossip.sparse_gossip_nd(
+                        *tab, delta, theta, c, eta_s, corr, gossip_dtype=gd)
+                    pt, pc = ref.sparse_gossip_ref(*tab, delta, theta, c,
+                                                   eta_s, corr,
+                                                   gossip_dtype=gd)
+                    at, ac = max_err(kt, pt), max_err(kc, pc)
+                    et = at / (1.0 + float(pt.abs().max()))
+                    ec = ac / (1.0 + float(pc.abs().max()))
+                    worst_abs = max(worst_abs, at, ac)
+                    if not (et <= TOL_SPARSE and ec <= TOL_SPARSE):
+                        fail(f"sparse_gossip n={n} D={d} {label} {gd}: "
+                             f"θ err {et}, c err {ec} (× (1 + max|ref|))")
+                    key = f"{label}/{gd or 'float32'}"
+                    worst[key] = max(worst.get(key, 0.0), et, ec)
+                    cases += 1
+            del delta, theta, c
+    emit({"phase": "kernels", "kernel": "sparse_gossip", "cases": cases,
+          "max_abs_err": worst_abs,
+          "max_err_over_1_plus_max_ref_by_group": worst, "tol": TOL_SPARSE})
+    return worst_abs
+
+
+def torch_randn(gen, dev, *shape):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -290,113 +441,101 @@ def main_setup(dev, *, dx=DX, dy=DY, n=N, k=K, sigma=SIGMA, seed=0):
     return problem, client_batch, batches
 
 
-def main_cfg(algo, impl, n=N, k=K):
+def main_cfg(algo, impl, n=N, k=K, topology="ring"):
     from repro_torch.configs import AlgorithmConfig
 
     return AlgorithmConfig(
         algorithm=algo, num_clients=n, local_steps=k, eta_cx=0.01,
         eta_cy=0.05, eta_sx=0.5 if algo == "kgt_minimax" else 1.0,
-        eta_sy=0.5 if algo == "kgt_minimax" else 1.0, topology="ring",
+        eta_sy=0.5 if algo == "kgt_minimax" else 1.0, topology=topology,
         mixing_impl=impl)
 
 
 def prepare(problem, client_batch, batches, algo, impl, dev, *,
-            log_every=10, n=N, k=K):
-    """init_state and the engine's chunk builder: (state, build)."""
+            log_every=10, n=N, k=K, topology="ring", w=None, w_fn=None,
+            mask_fn=None):
+    """init_state and the engine's chunk builder: (state, build).  ``w``
+    is the static mixing matrix (default: the topology's); ``w_fn`` /
+    ``mask_fn`` draw a per-round W / participation mask."""
     import torch
 
     from repro_torch import engine as engine_lib
     from repro_torch.core import init_state, make_round_step
 
-    cfg = main_cfg(algo, impl, n, k)
+    cfg = main_cfg(algo, impl, n, k, topology)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     state = init_state(problem, cfg, gen, init_batch=client_batch)
     sampler = engine_lib.make_fixed_batch_sampler(
         batches, local_steps=k, num_clients=n, noise_dim=problem.noise_dim,
         seed=0, device=dev)
+    if w_fn is not None or mask_fn is not None:
+        sampler = engine_lib.with_topology(sampler, w_fn=w_fn,
+                                           mask_fn=mask_fn)
+    step = make_round_step(problem, cfg, w, traced_w=w_fn is not None,
+                           participation=mask_fn is not None, device=dev)
     build = engine_lib.make_chunk_builder(
-        make_round_step(problem, cfg, device=dev), sampler,
-        engine_lib.quadratic_metrics_fn(problem), log_every=log_every)
+        step, sampler, engine_lib.quadratic_metrics_fn(problem),
+        log_every=log_every)
     return state, build
 
 
-def drive(problem, client_batch, batches, algo, impl, dev, rounds,
-          *, log_every=10, n=N, k=K):
+def drive(problem, client_batch, batches, algo, impl, dev, rounds, **kw):
     """init_state → engine.run; returns (state, history)."""
     from repro_torch import engine as engine_lib
 
     state, build = prepare(problem, client_batch, batches, algo, impl, dev,
-                           log_every=log_every, n=n, k=k)
+                           **kw)
     return engine_lib.run(state, build, total_rounds=rounds,
                           chunk_rounds=rounds)
 
 
 def phase_main(dev) -> dict:
-    from repro_torch.kernels import fused_round, gossip
-
     problem, client_batch, batches = main_setup(dev)
     # the launch counts of the main path: set to 0 just before, read after
-    gossip.fused_gossip_nd.launches = 0
-    fused_round.fused_round_nd.launches = 0
+    zero_launch_counts()
     finals = {}
     for algo in ALGOS:
         for impl in ("dense", "pallas_packed", "fused_round"):
-            state, hist = drive(problem, client_batch, batches, algo, impl,
-                                dev, ROUNDS)
-            finals[algo, impl] = (state, hist)
-    launches = {"fused_gossip": gossip.fused_gossip_nd.launches,
-                "fused_round": fused_round.fused_round_nd.launches}
+            finals[algo, impl] = drive(problem, client_batch, batches, algo,
+                                       impl, dev, ROUNDS)
+    launches = launch_counts()
     expect = {"fused_gossip": 2 * ROUNDS * len(TRACKING),
-              "fused_round": ROUNDS * len(ALGOS)}
+              "fused_round": ROUNDS * len(ALGOS), "sparse_gossip": 0}
     if launches != expect:
         fail(f"main path launches {launches}, expected {expect}")
-    worst = {}
     for algo in ALGOS:
         ref_state, ref_hist = finals[algo, "dense"]
-        for impl in ("pallas_packed", "fused_round"):
-            state, hist = finals[algo, impl]
-            for name in ("x", "y", "cx", "cy"):
-                a, b = getattr(state, name), getattr(ref_state, name)
-                if not bool(a.isfinite().all()):
-                    fail(f"{algo}/{impl}: {name} not finite")
-                err = max_err(a, b)
-                tol = TOL_STATE * (1.0 + float(b.abs().max()))
-                if err > tol:
-                    fail(f"{algo}/{impl}: {name} differs from dense by {err}"
-                         f" > {tol}")
-                worst[f"{algo}/{impl}/{name}"] = err
-        first, last = ref_hist[0]["phi_grad_norm"], ref_hist[-1][
-            "phi_grad_norm"]
+        worst = max(compare_states(finals[algo, impl][0], ref_state,
+                                   f"{algo}/{impl} vs dense")
+                    for impl in ("pallas_packed", "fused_round"))
         emit({"phase": "main", "algorithm": algo, "rounds": ROUNDS,
-              "phi_grad_norm_first": first, "phi_grad_norm_last": last,
+              "phi_grad_norm_first": ref_hist[0]["phi_grad_norm"],
+              "phi_grad_norm_last": ref_hist[-1]["phi_grad_norm"],
               "phi_grad_norm_last_by_impl": {
                   impl: finals[algo, impl][1][-1]["phi_grad_norm"]
                   for impl in ("dense", "pallas_packed", "fused_round")},
-              "max_state_err_vs_dense": max(
-                  v for key, v in worst.items() if key.startswith(algo))})
+              "max_state_err_vs_dense": worst})
     emit({"phase": "main", "launches": launches, "expected": expect,
           "tol_state": TOL_STATE})
     return launches
 
 
 def phase_quickstart(dev) -> dict:
-    from repro_torch.kernels import fused_round, gossip
     from repro_torch.launch import quickstart
 
     algos = ("kgt_minimax", "local_sgda")
     g = {}
     # this path's launch counts: set to 0 just before, read just after
-    gossip.fused_gossip_nd.launches = 0
-    fused_round.fused_round_nd.launches = 0
+    zero_launch_counts()
     for algo in algos:
         _, hist = quickstart.run(algo, mixing_impl="fused_round",
                                  device=dev, verbose=False)
         g[algo] = hist[-1]["phi_grad_norm"]
-    launches = {"fused_gossip": gossip.fused_gossip_nd.launches,
-                "fused_round": fused_round.fused_round_nd.launches}
+    launches = launch_counts()
     expect = {"fused_gossip": 0,
-              "fused_round": quickstart.ROUNDS * len(algos)}
+              "fused_round": quickstart.ROUNDS * len(algos),
+              "sparse_gossip": 0}
     emit({"phase": "quickstart", "mixing_impl": "fused_round",
           "phi_grad_norm_final": g, "launches": launches,
           "expected": expect})
@@ -409,7 +548,227 @@ def phase_quickstart(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 6: the sparse path at scale, and churn
+# ---------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    from repro_torch.kernels import fused_round, gossip, neighbor_gossip
+
+    return {"fused_gossip": gossip.fused_gossip_nd.launches,
+            "fused_round": fused_round.fused_round_nd.launches,
+            "sparse_gossip": neighbor_gossip.sparse_gossip_nd.launches}
+
+
+def zero_launch_counts() -> None:
+    from repro_torch.kernels import fused_round, gossip, neighbor_gossip
+
+    gossip.fused_gossip_nd.launches = 0
+    fused_round.fused_round_nd.launches = 0
+    neighbor_gossip.sparse_gossip_nd.launches = 0
+
+
+def compare_states(state, ref_state, what) -> float:
+    check_finite(state, what)
+    worst = 0.0
+    for name in ("x", "y", "cx", "cy"):
+        a, b = getattr(state, name), getattr(ref_state, name)
+        err = max_err(a, b)
+        tol = TOL_STATE * (1.0 + float(b.abs().max()))
+        if err > tol:
+            fail(f"{what}: {name} differs by {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def sigma_c(state) -> float:
+    """max_j |mean_i c_ij| / (1 + max|c|) over cx and cy (f64 means)."""
+    return max(float(c.double().mean(0).abs().max())
+               / (1.0 + float(c.abs().max())) for c in (state.cx, state.cy))
+
+
+def freeze_hook(mask_fn, state0, frozen: list, inactive: list):
+    """Engine hook (one round a chunk): whether the inactive clients of the
+    round just run kept x, y, cx, cy bit for bit, and how many there were."""
+    import torch
+
+    prev = {"state": state0}
+
+    def hook(state, records, prev_round):
+        keep = ~mask_fn(prev_round)
+        old = prev["state"]
+        frozen.extend(torch.equal(getattr(state, name)[keep],
+                                  getattr(old, name)[keep])
+                      for name in ("x", "y", "cx", "cy"))
+        inactive.append(int(keep.sum()))
+        prev["state"] = state
+
+    return hook
+
+
+def check_finite(state, what) -> None:
+    for name in ("x", "y", "cx", "cy"):
+        if not bool(getattr(state, name).isfinite().all()):
+            fail(f"{what}: {name} not finite")
+
+
+def phase_scale(dev) -> dict:
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.core import sparse_topology as sp_lib
+    from repro_torch.core import stochastic_topology as st_lib
+
+    n = SCALE_N
+    problem, client_batch, batches = main_setup(dev, n=n)
+    support = sp_lib.sparse_exp(n)
+    # the dense reference on the same W (equal to mixing_matrix("exp", n),
+    # built here without its O(n²) host loops)
+    w_dense = sp_lib.densify(support.to(dev))
+    common = dict(n=n, topology="exp", log_every=10)
+
+    # 1-2. sparse_packed against dense, and the kernel's launches
+    out = {"launches": {}, "max_state_err_vs_dense": {}}
+    zero_launch_counts()
+    finals = {}
+    for algo in ALGOS:
+        before = launch_counts()
+        finals[algo, "sparse_packed"] = drive(
+            problem, client_batch, batches, algo, "sparse_packed", dev,
+            SCALE_ROUNDS, **common)
+        after = launch_counts()
+        out["launches"][algo] = {k: after[k] - before[k] for k in after}
+    scale_launches = launch_counts()
+    for algo in ALGOS:
+        finals[algo, "dense"] = drive(problem, client_batch, batches, algo,
+                                      "dense", dev, SCALE_ROUNDS, w=w_dense,
+                                      **common)
+    for algo in ALGOS:
+        want = 2 * SCALE_ROUNDS if algo in TRACKING else 0
+        got = out["launches"][algo]
+        if got != {"fused_gossip": 0, "fused_round": 0,
+                   "sparse_gossip": want}:
+            fail(f"scale {algo}: launches {got}, expected {want} of "
+                 f"sparse_gossip and none of the others")
+        (s_state, s_hist), (d_state, d_hist) = (finals[algo, "sparse_packed"],
+                                                finals[algo, "dense"])
+        out["max_state_err_vs_dense"][algo] = compare_states(
+            s_state, d_state, f"scale {algo} sparse_packed vs dense")
+        emit({"phase": "scale", "n": n, "algorithm": algo,
+              "rounds": SCALE_ROUNDS, "topology": "exp",
+              "max_degree": support.max_degree,
+              "phi_grad_norm_first": d_hist[0]["phi_grad_norm"],
+              "phi_grad_norm_last": {"dense": d_hist[-1]["phi_grad_norm"],
+                                     "sparse_packed":
+                                         s_hist[-1]["phi_grad_norm"]},
+              "max_state_err_vs_dense":
+                  out["max_state_err_vs_dense"][algo],
+              "launches": out["launches"][algo]})
+    del finals
+    out["sparse_gossip_launches"] = scale_launches["sparse_gossip"]
+
+    # 3. every churn family under partial participation, n = 4096
+    churn = {}
+    for i, family in enumerate(st_lib.TOPOLOGY_FAMILIES):
+        w_fn = sp_lib.make_sparse_w_sampler(family, support, seed=10 + i,
+                                            edge_prob=0.5, device=dev)
+        mask_fn = st_lib.make_participation_sampler(n, 10 + i, PARTICIPATION,
+                                                    device=dev)
+        frozen, inactive = [], []
+        state0, build = prepare(problem, client_batch, batches,
+                                "kgt_minimax", "sparse_packed", dev,
+                                w_fn=w_fn, mask_fn=mask_fn, **common)
+        before = launch_counts()["sparse_gossip"]
+        state, _ = engine_lib.run(
+            state0, build, total_rounds=CHURN_ROUNDS, chunk_rounds=1,
+            hooks=[freeze_hook(mask_fn, state0, frozen, inactive)])
+        launched = launch_counts()["sparse_gossip"] - before
+        sc = sigma_c(state)
+        churn[family] = {"sigma_c": sc, "frozen_checks": len(frozen),
+                         "inactive_client_rounds": sum(inactive),
+                         "sparse_gossip_launches": launched}
+        emit({"phase": "scale", "n": n, "churn": family,
+              "participation": PARTICIPATION, "rounds": CHURN_ROUNDS,
+              **churn[family], "tol_sigma_c": TOL_SIGMA_C})
+        if not all(frozen) or len(frozen) != 4 * CHURN_ROUNDS:
+            fail(f"churn {family}: an inactive client moved")
+        if sum(inactive) == 0:
+            fail(f"churn {family}: no client was ever inactive")
+        if not sc <= TOL_SIGMA_C:
+            fail(f"churn {family}: Σc/n = {sc} × (1 + max|c|)")
+        if launched != 2 * CHURN_ROUNDS:
+            fail(f"churn {family}: {launched} sparse_gossip launches")
+        check_finite(state, f"churn {family}")
+    out["churn"] = churn
+
+    # 5. rounds/s, host clock around one engine chunk after a warm-up
+    rps = {}
+    for impl, w in (("sparse_packed", None), ("dense", w_dense)):
+        drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 2,
+              w=w, **common)
+        state, build = prepare(problem, client_batch, batches, "kgt_minimax",
+                               impl, dev, w=w, **{**common,
+                                                  "log_every": SCALE_ROUNDS})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_lib.run(state, build, total_rounds=SCALE_ROUNDS,
+                       chunk_rounds=SCALE_ROUNDS)
+        torch.cuda.synchronize()
+        rps[impl] = SCALE_ROUNDS / (time.perf_counter() - t0)
+    emit({"phase": "scale", "n": n, "rounds_per_s": rps,
+          "algorithm": "kgt_minimax", "rounds": SCALE_ROUNDS,
+          "note": "host clock around engine.run, one chunk, metrics on "
+                  "rounds 0 and 19"})
+    out["rounds_per_s"] = rps
+    del problem, client_batch, batches, w_dense
+    torch.cuda.empty_cache()
+
+    # 4. churn at the dense limit through all three kernels, on the same
+    # per-round W (densified for the dense kernels) and mask
+    n = CHURN_DENSE_N
+    problem, client_batch, batches = main_setup(dev, n=n)
+    support = sp_lib.sparse_exp(n)
+    small = {}
+    for i, family in enumerate(st_lib.TOPOLOGY_FAMILIES):
+        w_fn = sp_lib.make_sparse_w_sampler(family, support, seed=20 + i,
+                                            edge_prob=0.5, device=dev)
+        mask_fn = st_lib.make_participation_sampler(n, 20 + i, PARTICIPATION,
+                                                    device=dev)
+        res = {}
+        for impl in ("sparse_packed", "pallas_packed", "fused_round"):
+            fn = (w_fn if impl == "sparse_packed"
+                  else (lambda r, f=w_fn: sp_lib.densify(f(r))))
+            before = launch_counts()
+            state, _ = drive(problem, client_batch, batches, "kgt_minimax",
+                             impl, dev, CHURN_DENSE_ROUNDS, n=n,
+                             topology="exp", w_fn=fn, mask_fn=mask_fn)
+            after = launch_counts()
+            res[impl] = (state, {k: after[k] - before[k] for k in after})
+        errs = {impl: compare_states(res[impl][0], res["sparse_packed"][0],
+                                     f"churn n={n} {family} {impl} vs "
+                                     "sparse_packed")
+                for impl in ("pallas_packed", "fused_round")}
+        want = {"sparse_packed": {"fused_gossip": 0, "fused_round": 0,
+                                  "sparse_gossip": 2 * CHURN_DENSE_ROUNDS},
+                "pallas_packed": {"fused_gossip": 2 * CHURN_DENSE_ROUNDS,
+                                  "fused_round": 0, "sparse_gossip": 0},
+                "fused_round": {"fused_gossip": 0,
+                                "fused_round": CHURN_DENSE_ROUNDS,
+                                "sparse_gossip": 0}}
+        got = {impl: res[impl][1] for impl in res}
+        if got != want:
+            fail(f"churn n={n} {family}: launches {got}, expected {want}")
+        small[family] = errs
+        emit({"phase": "scale", "n": n, "churn": family,
+              "participation": PARTICIPATION, "rounds": CHURN_DENSE_ROUNDS,
+              "max_state_err_vs_sparse_packed": errs, "launches": got})
+    out["churn_dense_limit"] = small
+    del problem, client_batch, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times
 # ---------------------------------------------------------------------------
 
 def phase_times(dev, gen) -> dict:
@@ -451,6 +810,8 @@ def phase_times(dev, gen) -> dict:
     out["fused_round"] = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
     del args
 
+    out["sparse_gossip"] = time_sparse_gossip(gen, dev)
+
     # the epilogue at a paper-toy-sized packed state
     d_big = 100_000_000
     args = gossip_operands(N, d_big, gen, dev)
@@ -491,47 +852,110 @@ def phase_times(dev, gen) -> dict:
     return out
 
 
+def time_sparse_gossip(gen, dev) -> dict:
+    """The neighbor-gather epilogue on the exponential graph: at
+    benchmarks/bench_scale.py's client counts (D = 256), at the scale
+    path's two shapes (n = 4096, D = 384 and 128), and at D = 16384, where
+    each (n, D) array (268 MB) is far past the 50 MB L2.  Beside it: the
+    plain version and ``torch.sparse.mm`` of the CSR W (self loop included)
+    on [Δ | θ] — the library call covers only the gather half (WΔ and Wθ),
+    not the epilogue."""
+    import torch
+
+    from repro_torch.core import sparse_topology as sp_lib
+    from repro_torch.kernels import neighbor_gossip, ref
+
+    points = [(n, 256) for n in (64, 256, 1024, SCALE_N)]
+    points += [(SCALE_N, DX), (SCALE_N, DY), (SCALE_N, 16384)]
+    path = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    tables = {}
+    for n, d in points:
+        if n not in tables:
+            sp = sp_lib.sparse_exp(n).to(dev)
+            tables[n] = (sp, sp_lib.densify(sp).to_sparse_csr())
+        sp, csr = tables[n]
+        tab = (sp.neighbor_idx, sp.neighbor_w, sp.self_w)
+        delta, theta, c = (torch_randn(gen, dev, n, d) for _ in range(3))
+        both = torch.cat([delta, theta], dim=1)
+        kern = lambda: neighbor_gossip.sparse_gossip_nd(  # noqa: E731
+            *tab, delta, theta, c, 0.5, 12.5)
+        plain = lambda: ref.sparse_gossip_ref(  # noqa: E731
+            *tab, delta, theta, c, 0.5, 12.5)
+        lib = lambda: torch.sparse.mm(csr, both)  # noqa: E731
+        inner, reps = (100, 21) if d <= 4096 else (5, 11)
+        ms = graph_ms(kern, inner=inner, reps=reps)
+        pms = graph_ms(plain, inner=inner, reps=reps)
+        lms = graph_ms(lib, inner=inner, reps=reps)
+        b, by = sparse_bound_ms(n, d, sp.max_degree)
+        byts = 4 * (5 * n * d + n * (2 * sp.max_degree + 1))
+        emit({"phase": "times", "kernel": "sparse_gossip", "n": n, "D": d,
+              "max_degree": sp.max_degree, "ms": ms, "plain_ms": pms,
+              "bound_ms": b, "bound_by": by, "library_ms": lms,
+              "library": "torch.sparse.mm(CSR W, [Δ|θ]): gather half only",
+              "GB_per_s": byts / ms / 1e6})
+        if (n, d) in ((SCALE_N, DX), (SCALE_N, DY)):
+            for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", b),
+                           ("library_ms", lms)):
+                path[key] += v
+        del delta, theta, c, both
+    torch.cuda.empty_cache()
+    return dict(path, bound_by="bytes")
+
+
 def phase_profile(dev) -> None:
-    """torch.profiler over 10 engine rounds per lowering: device busy time
+    """torch.profiler over 10 engine rounds per lowering, at the main
+    path's shape and at the scale path's (n = 4096, exp): device busy time
     against the wall clock, and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import engine as engine_lib
+    from repro_torch.core import sparse_topology as sp_lib
 
-    problem, client_batch, batches = main_setup(dev)
     rounds = 10
-    for impl in ("dense", "pallas_packed", "fused_round"):
-        drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 3)
-        state, build = prepare(problem, client_batch, batches, "kgt_minimax",
-                               impl, dev, log_every=rounds)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine_lib.run(state, build, total_rounds=rounds,
-                           chunk_rounds=rounds)
+    cells = [("main", {}, ("dense", "pallas_packed", "fused_round"))]
+    cells.append(("scale", dict(n=SCALE_N, topology="exp"),
+                  ("dense", "sparse_packed")))
+    for cell, kw, impls in cells:
+        problem, client_batch, batches = main_setup(dev, n=kw.get("n", N))
+        if cell == "scale":
+            # the same static W for dense as sparse_packed builds
+            kw = dict(kw, w=sp_lib.densify(sp_lib.sparse_exp(SCALE_N).to(dev)))
+        for impl in impls:
+            w_kw = kw if impl == "dense" else {
+                key: v for key, v in kw.items() if key != "w"}
+            drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 3,
+                  **w_kw)
+            state, build = prepare(problem, client_batch, batches,
+                                   "kgt_minimax", impl, dev, log_every=rounds,
+                                   **w_kw)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # kernels are the device-side events; the CPU ops that launched
-        # them carry the same device time again
-        avgs = prof.key_averages()
-        events = [e for e in avgs if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0]
-        busy_us = sum(e.self_device_time_total for e in events)
-        op_us = sum(e.self_device_time_total for e in avgs
-                    if e.device_type == DeviceType.CPU)
-        top = sorted(events, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:6]
-        emit({"phase": "profile", "mixing_impl": impl, "rounds": rounds,
-              "wall_us_per_round": wall_us / rounds,
-              "device_busy_us_per_round": busy_us / rounds,
-              "op_device_us_per_round": op_us / rounds,
-              "device_busy_share": busy_us / wall_us,
-              "kernels_per_round": sum(e.count for e in events) / rounds,
-              "top": [[e.key[:60], e.self_device_time_total / rounds,
-                       e.count / rounds] for e in top]})
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine_lib.run(state, build, total_rounds=rounds,
+                               chunk_rounds=rounds)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            # kernels are the device-side events; the CPU ops that launched
+            # them carry the same device time again
+            avgs = prof.key_averages()
+            events = [e for e in avgs if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0]
+            busy_us = sum(e.self_device_time_total for e in events)
+            top = sorted(events, key=lambda e: e.self_device_time_total,
+                         reverse=True)[:6]
+            emit({"phase": "profile", "cell": cell, "mixing_impl": impl,
+                  "n": kw.get("n", N), "rounds": rounds,
+                  "wall_us_per_round": wall_us / rounds,
+                  "device_busy_us_per_round": busy_us / rounds,
+                  "device_busy_share": busy_us / wall_us,
+                  "kernels_per_round": sum(e.count for e in events) / rounds,
+                  "top": [[e.key[:60], e.self_device_time_total / rounds,
+                           e.count / rounds] for e in top]})
+        del problem, client_batch, batches, kw
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -563,18 +987,24 @@ def main(argv=None) -> int:
                     for name, log in _build.stats["log"].items()}})
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    errs = {"fused_gossip": None, "fused_round": None}
+    names = ("fused_gossip", "fused_round", "sparse_gossip")
+    errs = dict.fromkeys(names)
     if "kernels" in phases:
         errs = {"fused_gossip": check_gossip(gen, dev),
-                "fused_round": check_round(gen, dev)}
+                "fused_round": check_round(gen, dev),
+                "sparse_gossip": check_sparse_gossip(gen, dev)}
         torch.cuda.synchronize()
-    launches = {"fused_gossip": None, "fused_round": None}
+    launches = dict.fromkeys(names)
     if "main" in phases:
-        launches = phase_main(dev)
-    qs_launches = {"fused_gossip": None, "fused_round": None}
+        launches.update(phase_main(dev))
+    qs_launches = dict.fromkeys(names)
     if "quickstart" in phases:
-        qs_launches = phase_quickstart(dev)
-    times = {"fused_gossip": {}, "fused_round": {}}
+        qs_launches.update(phase_quickstart(dev))
+    scale = {}
+    if "scale" in phases:
+        scale = phase_scale(dev)
+        launches["sparse_gossip"] = scale["sparse_gossip_launches"]
+    times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
     if "profile" in phases:
@@ -587,6 +1017,9 @@ def main(argv=None) -> int:
         {"name": "fused_round", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_round.cu",
          "replaces": "src/repro/kernels/fused_round.py:99"},
+        {"name": "sparse_gossip", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/neighbor_gossip.cu",
+         "replaces": "src/repro/kernels/neighbor_gossip.py:75"},
     ]
     for k in kernels:
         t = times[k["name"]]
@@ -595,11 +1028,17 @@ def main(argv=None) -> int:
                  max_abs_err=errs[k["name"]],
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
-                 library_ms=None)
+                 library_ms=t.get("library_ms"))
     print(smi, flush=True)
     emit({"kernels": kernels,
-          "library_ms_note": "no single PyTorch call computes either "
-                             "kernel's function"})
+          "launches_note": "fused_gossip, fused_round: the main phase "
+                           "(n = 8); sparse_gossip: the scale phase "
+                           "(n = 4096, 20 rounds × 4 algorithms)",
+          "library_ms_note": "fused_gossip, fused_round: no single PyTorch "
+                             "call computes either function; sparse_gossip: "
+                             "torch.sparse.mm of the CSR W on [Δ|θ], the "
+                             "gather half only, at the scale path's two "
+                             "shapes"})
     if set(PHASES) - phases:
         print(f"chip_smoke: only ran {sorted(phases)}", file=sys.stderr)
         return 2

@@ -2,7 +2,9 @@
 
 The JAX package ``repro`` is the reference; this package re-implements its
 main path — Algorithm 1 on the synthetic NC-SC quadratic — in PyTorch, with
-hand-written CUDA kernels for the two round kernels (``repro_torch.kernels``).
+churn (per-round W, partial participation) and the sparse neighbor-list path
+past 512 clients, and hand-written CUDA kernels for the three round kernels
+(``repro_torch.kernels``).
 It imports ``torch`` and never ``jax`` or ``repro``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; on

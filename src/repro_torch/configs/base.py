@@ -2,15 +2,18 @@
 
 Same fields, defaults and string values as ``repro.configs.base.
 AlgorithmConfig`` so a config carries over unchanged; only
-``gossip_backend`` takes the port's values.  Options this port does not
-implement yet are accepted here and refused by
-``repro_torch.core.kgt_minimax.make_round_step`` (and ``init_state``):
-``gossip_compress`` (ROADMAP A7), ``topology_cycle``, ``topology_family``
-other than "static" and ``participation_rate`` < 1 (A6), ``num_byzantine``
-> 0 and ``attack`` other than "honest" (A9).  ``edge_prob``,
-``client_drop_prob``, ``topology_seed``, ``attack_scale`` and
-``robust_trim`` are read only under those options; ``inner_opt`` is read
-nowhere, in the reference as here.
+``gossip_backend`` takes the port's values.  Churn is ported:
+``topology_cycle`` is read by ``make_round_step``, and ``topology_family``,
+``edge_prob``, ``client_drop_prob``, ``participation_rate`` and
+``topology_seed`` parametrize the per-round samplers of
+``repro_torch.core.stochastic_topology`` / ``sparse_topology`` that the
+caller rides on the engine's sampler slot (``engine.with_topology``), as in
+the reference.  Options this port does not implement yet are accepted here
+and refused by ``repro_torch.core.kgt_minimax.make_round_step`` (and
+``init_state``): ``gossip_compress`` (ROADMAP A7), ``num_byzantine`` > 0
+and ``attack`` other than "honest" (A9); ``attack_scale`` and
+``robust_trim`` are read only under those options, and ``inner_opt`` is
+read nowhere, in the reference as here.
 """
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ class AlgorithmConfig:
     # "fused_dense"/"fused_ring" (Δ and θ stacked into one mix per leaf),
     # "pallas_packed" (whole state packed to (n, D), fused epilogue kernel —
     # the name is kept from the JAX package so configs carry over),
-    # "fused_round" (whole round in one kernel call).  "sparse_packed" and
-    # the robust impls are not ported yet.
+    # "sparse_packed" (the packed epilogue with W as neighbor lists, in the
+    # neighbor-gather kernel: the path past 512 clients), "fused_round"
+    # (whole round in one kernel call).  The robust impls are not ported
+    # yet (ROADMAP A9).
     mixing_impl: str = "dense"
     # Backend for the packed kernels: "auto" (the CUDA kernel for CUDA
     # tensors, the plain PyTorch version for CPU tensors), "kernel" (the
@@ -44,7 +49,7 @@ class AlgorithmConfig:
     gossip_compress: Optional[str] = None   # not ported yet (ROADMAP A7)
     inner_opt: str = "sgd"
     correction_dtype: str = "float32"
-    topology_cycle: Tuple[str, ...] = ()    # not ported yet (ROADMAP A6)
+    topology_cycle: Tuple[str, ...] = ()
     topology_family: str = "static"
     edge_prob: float = 0.5
     client_drop_prob: float = 0.3

@@ -1,4 +1,8 @@
-from repro_torch.core.interop import from_reference  # noqa: F401
+from repro_torch.core.interop import (  # noqa: F401
+    from_reference,
+    make_replay_sampler,
+    sparse_from_reference,
+)
 from repro_torch.core.kgt_minimax import (  # noqa: F401
     KGTState,
     correction_mean_norm,
@@ -16,6 +20,7 @@ from repro_torch.core.mixing import (  # noqa: F401
     mix_dense,
     mix_packed,
     mix_ring,
+    mix_sparse,
 )
 from repro_torch.core.objectives import (  # noqa: F401
     make_quadratic_data,
@@ -24,3 +29,18 @@ from repro_torch.core.objectives import (  # noqa: F401
 )
 from repro_torch.core.packing import PackSpec, pack, pack_spec, unpack  # noqa: F401
 from repro_torch.core.topology import mixing_matrix, spectral_gap  # noqa: F401
+from repro_torch.core.sparse_topology import (  # noqa: F401
+    SPARSE_TOPOLOGIES,
+    SparseTopology,
+    densify,
+    from_dense,
+    make_sparse_w_sampler,
+    sparse_masked_w,
+    sparse_mixing_matrix,
+)
+from repro_torch.core.stochastic_topology import (  # noqa: F401
+    TOPOLOGY_FAMILIES,
+    make_participation_sampler,
+    make_w_sampler,
+    masked_w,
+)

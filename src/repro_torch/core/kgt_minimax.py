@@ -16,8 +16,11 @@ tracking), ``gt_gda`` (Algorithm 1 with K=1).
 
 Lowerings (``cfg.mixing_impl``): the per-leaf ``dense``/``ring``/
 ``fused_dense``/``fused_ring``; ``pallas_packed`` (the state packed to
-(n, D) per variable, epilogue in the fused gossip kernel); ``fused_round``
-(the whole round in the whole-round kernel).
+(n, D) per variable, epilogue in the fused gossip kernel);
+``sparse_packed`` (the same epilogue with W as neighbor lists, in the
+neighbor-gather kernel); ``fused_round`` (the whole round in the
+whole-round kernel).  Churn — a per-round W, partial participation and
+``topology_cycle`` — rides every lowering that can realize it.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ from torch.func import vmap
 from repro_torch.configs.base import AlgorithmConfig
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core import packing
+from repro_torch.core import sparse_topology as sparse_lib
+from repro_torch.core import stochastic_topology as stoch_lib
 from repro_torch.core import topology as topo_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.minimax import MinimaxProblem
@@ -124,25 +129,76 @@ def point_etas(cfg: AlgorithmConfig) -> dict:
 
 
 def _check_unported(cfg: AlgorithmConfig) -> None:
-    """Options of the JAX package this port does not implement yet."""
+    """Refuse the options of the JAX package that this port does not
+    implement yet: ``gossip_compress`` at round-step level (ROADMAP A7) and
+    the adversary axis (A9)."""
     mixing_lib.check_impl(cfg.mixing_impl)
     if cfg.gossip_compress not in (None, "none", ""):
         raise NotImplementedError(
             f"gossip_compress={cfg.gossip_compress!r} at round-step level "
             "is not ported yet (ROADMAP A7)")
-    if cfg.topology_cycle:
-        raise NotImplementedError(
-            "topology_cycle (time-varying W) is not ported yet (ROADMAP A6)")
-    if cfg.topology_family != "static" or cfg.participation_rate < 1.0:
-        raise NotImplementedError(
-            f"topology_family={cfg.topology_family!r} / participation_rate="
-            f"{cfg.participation_rate} (churn) are not ported yet (ROADMAP A6)")
     if cfg.num_byzantine > 0 or cfg.attack != "honest":
         raise NotImplementedError(
             f"num_byzantine={cfg.num_byzantine} / attack={cfg.attack!r} (the "
             "adversary axis) are not ported yet (ROADMAP A9)")
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}: {ALGORITHMS}")
+
+
+def _check_impl_options(cfg: AlgorithmConfig, traced_w: bool) -> None:
+    """The reference's refusals of impl/option pairs (``repro.core.
+    kgt_minimax:247-291``)."""
+    impl = cfg.mixing_impl
+    if cfg.topology_cycle and impl.endswith("ring"):
+        # the time-varying path mixes densely per round; a neighbor-only
+        # ring exchange cannot realize arbitrary cycle members
+        raise ValueError(
+            f"mixing_impl={impl!r} is not supported with topology_cycle; "
+            "use 'dense', 'fused_dense', or 'pallas_packed'")
+    if traced_w and cfg.topology_cycle:
+        raise ValueError(
+            "traced_w supplies W per round; topology_cycle would fight it — "
+            "drop the cycle (sample the W sequence instead) or traced_w")
+    if cfg.topology_cycle and impl == "sparse_packed":
+        # the cycle stacks dense (n, n) members; neighbor lists do not ride it
+        raise ValueError(
+            f"mixing_impl={impl!r} is not supported with topology_cycle; "
+            "use traced_w with a per-round sampler instead")
+
+
+def _client_broadcast(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(n,) mask -> (n, 1, …, 1) against an (n, …) leaf."""
+    return mask.reshape(mask.shape + (1,) * (ndim - 1))
+
+
+def _tree_mask_clients(mask: torch.Tensor, tree):
+    """Zero the leaves of inactive clients (mask 0).  ×1.0 in f32 is exact,
+    so active clients' values are bit-unchanged."""
+    def one(x):
+        m = _client_broadcast(mask.to(torch.float32), x.dim())
+        return (x.to(torch.float32) * m).to(x.dtype)
+
+    return tree_lib.tree_map(one, tree)
+
+
+def _freeze_inactive(mask: torch.Tensor, new_state: KGTState,
+                     old_state: KGTState) -> KGTState:
+    """Per-client select: active clients take the round's result, inactive
+    clients keep (θ, c) bit for bit.  The masked Δ and self-loop W already
+    make the inactive rows no-ops mathematically; the select pins them
+    regardless of the f32 summation order."""
+    keep = mask != 0
+
+    def pick(new, old):
+        return tree_lib.tree_map(
+            lambda a, b: torch.where(_client_broadcast(keep, a.dim()), a, b),
+            new, old)
+
+    return KGTState(x=pick(new_state.x, old_state.x),
+                    y=pick(new_state.y, old_state.y),
+                    cx=pick(new_state.cx, old_state.cx),
+                    cy=pick(new_state.cy, old_state.cy),
+                    round=new_state.round)
 
 
 def make_round_step(
@@ -157,32 +213,47 @@ def make_round_step(
     byzantine: bool = False,
     device="cuda",
 ):
-    """Builds ``round_step(state, batches, noise) -> state``.
+    """Builds ``round_step(state, batches, noise[, etas], *extras) -> state``.
 
     ``batches``: pytree with leading dims (K, n, …), one per (local step,
     client).  ``noise``: (K, n, noise_dim), the oracle noise rows.
-    ``w``: the static (n, n) mixing matrix (default: ``cfg.topology``),
-    placed on ``device``.  ``lr_scale(round) -> float`` multiplies the
-    local stepsizes.  ``traced_etas=True`` changes the signature to
-    ``round_step(state, batches, noise, etas)`` with ``etas`` the bundle of
-    :func:`point_etas`; the stepsizes in ``cfg`` are then ignored.
+    ``w``: the static mixing matrix (default: ``cfg.topology``), placed on
+    ``device``; for ``mixing_impl="sparse_packed"`` a ``SparseTopology``
+    (a dense matrix is bridged with ``from_dense``; by default the support
+    is ``sparse_mixing_matrix(cfg.topology, n)``).  ``lr_scale(round) ->
+    float`` multiplies the local stepsizes.  ``traced_etas=True`` adds the
+    ``etas`` bundle of :func:`point_etas` after ``noise``; the stepsizes in
+    ``cfg`` are then ignored.
 
-    ``traced_w``, ``participation`` and ``byzantine`` are not ported yet.
+    Extras, in this order: ``traced_w=True`` takes this round's W — an
+    (n, n) tensor, or a ``SparseTopology`` for ``sparse_packed`` — in place
+    of the static one; ``participation=True`` takes an (n,) client mask.
+    Inactive clients run no effective local update (their Δ is zeroed),
+    drop every gossip link (``masked_w`` / ``sparse_masked_w`` on whatever
+    W the round uses) and keep (θ, c) bit for bit; the masked W stays
+    doubly stochastic, so Σ_i c_i = 0 holds under any mask.
+    ``cfg.topology_cycle`` cycles W through the listed topologies, one a
+    round.  ``sparse_packed`` runs the round epilogue in the neighbor-gather
+    kernel (``kernels.ops.sparse_gossip_round``) in O(n·max_deg·D) with no
+    (n, n) array; its no-tracking variants mix the packed buffer with
+    ``sparse_topology.sparse_mix``.
+
+    ``byzantine`` (ROADMAP A9) is not ported yet.
     """
     if traced_etas and lr_scale is not None:
         raise ValueError(
             "traced_etas carries per-trajectory stepsizes; fold the schedule "
             "into the eta values instead of passing lr_scale")
     _check_unported(cfg)
-    if traced_w or participation:
-        raise NotImplementedError(
-            "traced_w / participation (churn) are not ported yet (ROADMAP A6)")
+    _check_impl_options(cfg, traced_w)
     if byzantine:
         raise NotImplementedError(
             "byzantine (the adversary axis) is not ported yet (ROADMAP A9)")
     impl = cfg.mixing_impl
     fused = impl == "fused_round"
     packed = impl == "pallas_packed"
+    sparse = impl == "sparse_packed"
+    dynamic_w = traced_w or participation
     if fused and problem.affine_coeffs is None:
         raise ValueError(
             "mixing_impl='fused_round' runs the K local steps as affine "
@@ -191,15 +262,48 @@ def make_round_step(
     if cfg.gossip_backend not in kernel_ops.GOSSIP_BACKENDS:
         raise ValueError(f"unknown gossip_backend {cfg.gossip_backend!r}: "
                          f"{kernel_ops.GOSSIP_BACKENDS}")
-    if w is None:
-        w = topo_lib.mixing_matrix(cfg.topology, cfg.num_clients)
-    w_t = torch.as_tensor(np.asarray(w) if not isinstance(w, torch.Tensor)
-                          else w, dtype=torch.float32).to(device)
-    mix = (None if packed or fused
-           else mixing_lib.make_mixer(cfg.topology, impl, w_t,
-                                      cfg.gossip_dtype))
-    backend = cfg.gossip_backend
     gossip_dtype = cfg.gossip_dtype
+    # W is consumed directly, per round, by the packed, sparse, fused and
+    # per-round-W paths; the others bake it into a mixer
+    direct_w = packed or sparse or fused or dynamic_w
+    # the per-leaf impls take a per-round W through a traced mixer (which
+    # refuses the ring impls: they cannot realize an arbitrary W)
+    traced_mix = (mixing_lib.make_traced_mixer(impl, gossip_dtype)
+                  if dynamic_w and not (packed or sparse or fused) else None)
+
+    def dense_tensor(m):
+        return torch.as_tensor(
+            np.asarray(m) if not isinstance(m, torch.Tensor) else m,
+            dtype=torch.float32).to(device)
+
+    if cfg.topology_cycle:
+        ws = torch.stack([dense_tensor(topo_lib.mixing_matrix(
+            t, cfg.num_clients)) for t in cfg.topology_cycle])
+        get_w = lambda round_idx: ws[round_idx % len(cfg.topology_cycle)]  # noqa: E731
+
+        def make_mix(round_idx):
+            w_r = get_w(round_idx)
+            return lambda tree: mixing_lib.mix_dense(tree, w_r, gossip_dtype)
+    else:
+        if w is None and not traced_w:
+            w = (sparse_lib.sparse_mixing_matrix(cfg.topology,
+                                                 cfg.num_clients) if sparse
+                 else topo_lib.mixing_matrix(cfg.topology, cfg.num_clients))
+        if w is None:
+            w_arr = None
+        elif sparse:
+            w_arr = (w if isinstance(w, sparse_lib.SparseTopology)
+                     else sparse_lib.from_dense(w)).to(device)
+        else:
+            w_arr = dense_tensor(w)
+        get_w = lambda round_idx: w_arr  # noqa: E731
+        if direct_w:
+            make_mix = None
+        else:
+            static_mix = mixing_lib.make_mixer(cfg.topology, impl, w_arr,
+                                               gossip_dtype)
+            make_mix = lambda round_idx: static_mix  # noqa: E731
+    backend = cfg.gossip_backend
     track = cfg.algorithm in ("kgt_minimax", "gt_gda")
     k_steps = 1 if cfg.algorithm in ("dsgda", "gt_gda") else cfg.local_steps
 
@@ -215,8 +319,12 @@ def make_round_step(
             yy = _tree_axpy(eta_cy, gy, yy)
         return xx, yy
 
-    def _fused_round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
-                     corr_x, corr_y):
+    def _done(new_state, state, mask):
+        return (new_state if mask is None
+                else _freeze_inactive(mask, new_state, state))
+
+    def _fused_round(state, batches, noise, w_t, mask, eta_cx, eta_cy,
+                     eta_sx, eta_sy, corr_x, corr_y):
         """One kernel call runs the K affine local steps and the gossip
         epilogue over the packed z = (x; y).  Like the reference (which
         takes G from step 0), this needs the batch constant across the K
@@ -247,26 +355,32 @@ def make_round_step(
                              torch.full((dzy,), vy, device=dev)])
             return row.unsqueeze(0).expand(n, dz)
 
-        step = cols(eta_cx, -eta_cy)
+        mask_col = (torch.ones((n, 1), device=dev) if mask is None
+                    else mask.to(torch.float32).reshape(n, 1))
+        step = mask_col * cols(eta_cx, -eta_cy)   # inactive ⇒ Δ ≡ 0 exactly
         etas = cols(eta_sx, eta_sy)
         corr = cols(corr_x, corr_y) if track else cols(0.0, 0.0)
         zeros = torch.zeros((n, dz), device=dev)
-        ones = torch.ones((n, dz), device=dev)
         z_new, c_new, _ = kernel_ops.fused_round(
-            w_t, z0, cb, zeros, g_mat, h_all, step, etas, corr, ones,
-            backend=backend, compress=None, gossip_dtype=gossip_dtype)
+            w_t, z0, cb, zeros, g_mat, h_all, step, etas, corr,
+            mask_col.expand(n, dz), backend=backend, compress=None,
+            gossip_dtype=gossip_dtype)
         if track:
             cx = packing.unpack(c_new[:, :dzx], packing.pack_spec(state.cx))
             cy = packing.unpack(c_new[:, dzx:], packing.pack_spec(state.cy))
         else:
             cx, cy = state.cx, state.cy
-        return KGTState(x=packing.unpack(z_new[:, :dzx], spec_x),
-                        y=packing.unpack(z_new[:, dzx:], spec_y),
-                        cx=cx, cy=cy, round=state.round + 1)
+        return _done(KGTState(x=packing.unpack(z_new[:, :dzx], spec_x),
+                              y=packing.unpack(z_new[:, dzx:], spec_y),
+                              cx=cx, cy=cy, round=state.round + 1),
+                     state, mask)
 
-    def _packed_round(state, dx, dy, eta_sx, eta_sy, corr_x, corr_y):
+    def _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy, corr_x,
+                      corr_y):
         """Each variable packed to one (n, D) buffer; the epilogue
-        θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) is one kernel call."""
+        θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) is one kernel call: the dense
+        gossip kernel (``pallas_packed``) or the neighbor-gather kernel
+        (``sparse_packed``)."""
         spec_x = packing.pack_spec(state.x)
         spec_y = packing.pack_spec(state.y)
         dxb = packing.pack(dx, spec_x)
@@ -274,40 +388,65 @@ def make_round_step(
         if not track:
             # no correction state: the epilogue is one gossip of the
             # stepped parameters, W(θ + η_s·Δ)
-            xb = mixing_lib.mix_dense(packing.pack(state.x, spec_x)
-                                      + eta_sx * dxb, w_t, gossip_dtype)
-            yb = mixing_lib.mix_dense(packing.pack(state.y, spec_y)
-                                      + eta_sy * dyb, w_t, gossip_dtype)
-            return KGTState(x=packing.unpack(xb, spec_x),
-                            y=packing.unpack(yb, spec_y),
-                            cx=state.cx, cy=state.cy, round=state.round + 1)
+            def mix_buf(b):
+                return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
+                        else mixing_lib.mix_dense(b, w_t, gossip_dtype))
+
+            xb = mix_buf(packing.pack(state.x, spec_x) + eta_sx * dxb)
+            yb = mix_buf(packing.pack(state.y, spec_y) + eta_sy * dyb)
+            return _done(KGTState(x=packing.unpack(xb, spec_x),
+                                  y=packing.unpack(yb, spec_y),
+                                  cx=state.cx, cy=state.cy,
+                                  round=state.round + 1), state, mask)
         spec_cx = packing.pack_spec(state.cx)
         spec_cy = packing.pack_spec(state.cy)
-        xb, cxb = kernel_ops.fused_gossip_round(
-            w_t, dxb, packing.pack(state.x, spec_x),
-            packing.pack(state.cx, spec_cx), eta_sx, corr_x,
-            backend=backend, gossip_dtype=gossip_dtype)
-        yb, cyb = kernel_ops.fused_gossip_round(
-            w_t, dyb, packing.pack(state.y, spec_y),
-            packing.pack(state.cy, spec_cy), eta_sy, corr_y,
-            backend=backend, gossip_dtype=gossip_dtype)
-        return KGTState(x=packing.unpack(xb, spec_x),
-                        y=packing.unpack(yb, spec_y),
-                        cx=packing.unpack(cxb, spec_cx),
-                        cy=packing.unpack(cyb, spec_cy),
-                        round=state.round + 1)
+
+        def epilogue(delta, theta, c, eta_s, corr):
+            if sparse:
+                return kernel_ops.sparse_gossip_round(
+                    w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, delta,
+                    theta, c, eta_s, corr, backend=backend,
+                    gossip_dtype=gossip_dtype)
+            return kernel_ops.fused_gossip_round(
+                w_t, delta, theta, c, eta_s, corr, backend=backend,
+                gossip_dtype=gossip_dtype)
+
+        xb, cxb = epilogue(dxb, packing.pack(state.x, spec_x),
+                           packing.pack(state.cx, spec_cx), eta_sx, corr_x)
+        yb, cyb = epilogue(dyb, packing.pack(state.y, spec_y),
+                           packing.pack(state.cy, spec_cy), eta_sy, corr_y)
+        return _done(KGTState(x=packing.unpack(xb, spec_x),
+                              y=packing.unpack(yb, spec_y),
+                              cx=packing.unpack(cxb, spec_cx),
+                              cy=packing.unpack(cyb, spec_cy),
+                              round=state.round + 1), state, mask)
 
     def _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
-               corr_x, corr_y) -> KGTState:
+               corr_x, corr_y, w_t=None, mask=None) -> KGTState:
+        if direct_w:
+            if w_t is None:
+                w_t = get_w(state.round)
+            if mask is not None:
+                w_t = (sparse_lib.sparse_masked_w(w_t, mask) if sparse
+                       else stoch_lib.masked_w(w_t, mask))
+            mix = (None if traced_mix is None
+                   else (lambda tree: traced_mix(tree, w_t)))
+        else:
+            mix = make_mix(state.round)
         if fused:
-            return _fused_round(state, batches, noise, eta_cx, eta_cy,
-                                eta_sx, eta_sy, corr_x, corr_y)
+            return _fused_round(state, batches, noise, w_t, mask, eta_cx,
+                                eta_cy, eta_sx, eta_sy, corr_x, corr_y)
         xk, yk = _local_steps(state, batches, noise, eta_cx, eta_cy)
         dx = _tree_sub(xk, state.x)   # Δx = x^{(t)+K} − x^{(t)}
         dy = _tree_sub(yk, state.y)
-        if packed:
-            return _packed_round(state, dx, dy, eta_sx, eta_sy, corr_x,
-                                 corr_y)
+        if mask is not None:
+            # inactive clients contribute no local update: with Δ_i = 0 and
+            # W row/column i = e_i, lines 7-11 are no-ops for them
+            dx = _tree_mask_clients(mask, dx)
+            dy = _tree_mask_clients(mask, dy)
+        if packed or sparse:
+            return _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
+                                 corr_x, corr_y)
         # Algorithm 1 gossips Δ (lines 7-8) and the parameters (lines
         # 10-11); the fused_* impls stack both into one mix per leaf
         if impl.startswith("fused"):
@@ -331,26 +470,47 @@ def make_round_step(
         else:
             cx, cy = state.cx, state.cy
         # x ← W(x + η_s Δx) = Wx + η_s·WΔx
-        return KGTState(x=_tree_axpy(eta_sx, mdx, mx),
-                        y=_tree_axpy(eta_sy, mdy, my),
-                        cx=cx, cy=cy, round=state.round + 1)
+        return _done(KGTState(x=_tree_axpy(eta_sx, mdx, mx),
+                              y=_tree_axpy(eta_sy, mdy, my),
+                              cx=cx, cy=cy, round=state.round + 1),
+                     state, mask)
+
+    n_extras = int(traced_w) + int(participation)
+    extras_doc = "".join(f"[{name}]" for name, on in (("w", traced_w),
+                                                      ("mask", participation))
+                         if on)
+
+    def _split_extras(extras):
+        if len(extras) != n_extras:
+            raise TypeError(
+                f"round_step expected {n_extras} extra operand(s) "
+                f"{extras_doc or '(none)'} after noise"
+                f"{' and etas' if traced_etas else ''}, got {len(extras)}")
+        it = iter(extras)
+        w_t = next(it) if traced_w else None
+        mask = next(it) if participation else None
+        return w_t, mask
 
     if traced_etas:
-        def round_step(state: KGTState, batches, noise, etas) -> KGTState:
+        def round_step(state: KGTState, batches, noise, etas,
+                       *extras) -> KGTState:
+            w_t, mask = _split_extras(extras)
             e = {k: float(v) for k, v in etas.items()}
             # η_s = 1 for the no-tracking baselines (plain averaging)
             return _round(state, batches, noise, e["eta_cx"], e["eta_cy"],
                           e["eta_sx"] if track else 1.0,
                           e["eta_sy"] if track else 1.0,
                           e["corr_x"] if track else None,
-                          e["corr_y"] if track else None)
+                          e["corr_y"] if track else None,
+                          w_t=w_t, mask=mask)
 
         return round_step
 
     eta_sx = cfg.eta_sx if track else 1.0
     eta_sy = cfg.eta_sy if track else 1.0
 
-    def round_step(state: KGTState, batches, noise) -> KGTState:
+    def round_step(state: KGTState, batches, noise, *extras) -> KGTState:
+        w_t, mask = _split_extras(extras)
         scale = lr_scale(state.round) if lr_scale is not None else 1.0
         eta_cx = cfg.eta_cx * scale
         eta_cy = cfg.eta_cy * scale
@@ -358,7 +518,7 @@ def make_round_step(
         corr_x = 1.0 / (k_steps * eta_cx) if track else None
         corr_y = -1.0 / (k_steps * eta_cy) if track else None
         return _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
-                      corr_x, corr_y)
+                      corr_x, corr_y, w_t=w_t, mask=mask)
 
     return round_step
 

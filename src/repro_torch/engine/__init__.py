@@ -9,5 +9,9 @@ from repro_torch.engine.engine import (  # noqa: F401
     make_chunk_builder,
     records_from_buffer,
     run,
+    split_sampled,
 )
-from repro_torch.engine.sampler import make_fixed_batch_sampler  # noqa: F401
+from repro_torch.engine.sampler import (  # noqa: F401
+    make_fixed_batch_sampler,
+    with_topology,
+)

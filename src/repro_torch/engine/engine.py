@@ -1,4 +1,4 @@
-"""Chunked execution engine (port of ``repro.engine.engine:62-336``).
+"""Chunked execution engine (port of ``repro.engine.engine:43-336``).
 
 A chunk runs R rounds back to back: for each round the sampler draws the
 round's batch and noise, ``round_step`` advances the state, and on log
@@ -17,15 +17,27 @@ Capturing the chunk as a CUDA graph is later work (ROADMAP A4).
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-Sampler = Callable[[int], Any]
+# (round_idx) -> (batches, noise) or (batches, noise, extras): a sampler may
+# return a third element, a tuple of per-round operands (a sampled mixing
+# matrix W, a participation mask; see sampler.with_topology) that the chunk
+# splats into round_step(state, batches, noise, *extras).
+Sampler = Callable[[int], Tuple[Any, ...]]
 MetricsFn = Callable[[Any, Any], Dict[str, torch.Tensor]]
 Hook = Callable[[Any, List[dict], int], None]  # (state, records, prev_round)
+
+
+def split_sampled(sampled) -> Tuple[Any, Any, Tuple[Any, ...]]:
+    """One sampler return -> ``(batches, noise, extras)`` per the Sampler
+    protocol above."""
+    batches, noise = sampled[0], sampled[1]
+    extras = tuple(sampled[2]) if len(sampled) > 2 else ()
+    return batches, noise, extras
 
 
 def chunk_program(round_step, sampler: Sampler,
@@ -46,8 +58,8 @@ def chunk_program(round_step, sampler: Sampler,
         rows = None
         for _ in range(length):
             r = state.round
-            batches, noise = sampler(r)
-            state = round_step(state, batches, noise)
+            batches, noise, extras = split_sampled(sampler(r))
+            state = round_step(state, batches, noise, *extras)
             if metrics_fn is None or not (r % log_every == 0
                                           or r == final_round):
                 continue

@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gossip", "fused_round")
+SOURCES = ("gossip", "fused_round", "neighbor_gossip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -35,6 +35,9 @@ SIGNATURES = {
                [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_float,
                            ctypes.c_float, _I, _P]),
     "fused_round": ("fused_round_launch", [_P] * 14 + [_I] * 5 + [_P]),
+    "neighbor_gossip": ("sparse_gossip_launch",
+                        [_P] * 8 + [_I, _I, ctypes.c_longlong, ctypes.c_float,
+                                    ctypes.c_float, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -107,10 +110,10 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def check_operand(name, x, shape):
+def check_operand(name, x, shape, dtype=torch.float32):
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous float32")
+    if x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {dtype}")
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")

@@ -1,7 +1,10 @@
-"""Dispatch between the round kernels and their plain PyTorch versions.
+"""Dispatch between the three round kernels and their plain PyTorch versions.
 
-Counterparts of ``repro.kernels.ops.fused_gossip_round`` (:171) and
-``fused_round`` (:202).  ``backend``:
+Counterparts of ``repro.kernels.ops.fused_gossip_round`` (:171),
+``fused_round`` (:202) and ``sparse_gossip_round`` (:253): the packed
+gossip epilogue (``csrc/gossip.cu``), the whole round
+(``csrc/fused_round.cu``) and the neighbor-gather epilogue
+(``csrc/neighbor_gossip.cu``).  ``backend``:
 
 * ``"auto"`` — the CUDA kernel for CUDA tensors, the plain version for CPU
   tensors;
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.kernels import fused_round as fround_lib
 from repro_torch.kernels import gossip as gossip_lib
+from repro_torch.kernels import neighbor_gossip as ngossip_lib
 from repro_torch.kernels import ref as ref_lib
 
 GOSSIP_BACKENDS = ("auto", "kernel", "torch")
@@ -74,3 +78,25 @@ def fused_round(w, z0, c, ef, g_mat, h_steps, step, etas, corr, mask, *,
     return ref_lib.fused_round_ref(w, z0, c, ef, g_mat, h_steps, step, etas,
                                    corr, mask, compress=compress,
                                    gossip_dtype=gossip_dtype)
+
+
+def sparse_gossip_round(neighbor_idx, neighbor_w, self_w, delta, theta, c,
+                        eta_s, corr_scale, *, backend: str = "auto",
+                        gossip_dtype=None):
+    """Fused round epilogue over packed client state, sparse W.
+
+    neighbor_idx: (n, m) padded-CSR neighbor lists (padding = own index);
+    neighbor_w: (n, m) with padding weight 0; self_w: (n,) diagonal;
+    delta/theta/c: (n, D).  Returns f32
+    (θ_new, c_new) = (Wθ + η_s·WΔ, c + corr_scale·(Δ − WΔ)), the contract
+    of :func:`fused_gossip_round` in O(n·m·D).  Raw tensors, not a
+    ``SparseTopology``, so the kernels package needs nothing of ``core``.
+    """
+    if use_kernel(backend, delta):
+        return ngossip_lib.sparse_gossip_nd(
+            neighbor_idx.to(torch.int32).contiguous(), _f32c(neighbor_w),
+            _f32c(self_w), _f32c(delta), _f32c(theta), _f32c(c), eta_s,
+            corr_scale, gossip_dtype=gossip_dtype)
+    return ref_lib.sparse_gossip_ref(neighbor_idx, neighbor_w, self_w, delta,
+                                     theta, c, eta_s, corr_scale,
+                                     gossip_dtype=gossip_dtype)

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the round kernels (port of
-``repro.kernels.ref:63-125``).
+``repro.kernels.ref:63-165``).
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
@@ -43,6 +43,33 @@ def fused_gossip_ref(w, delta, theta, c, eta_s, corr_scale, *,
     wd = wg @ narrow(delta, gd)
     wt = wg @ narrow(theta, gd)
     theta_new = wt + float(eta_s) * wd
+    c_new = c.to(torch.float32) + float(corr_scale) * (d32 - wd)
+    return theta_new, c_new
+
+
+def sparse_gossip_ref(neighbor_idx, neighbor_w, self_w, delta, theta, c,
+                      eta_s, corr_scale, *, gossip_dtype=None):
+    """The same epilogue as :func:`fused_gossip_ref` with W in padded-CSR
+    form.
+
+    neighbor_idx: (n, m) int (padding = own index); neighbor_w: (n, m) with
+    padding weight 0; self_w: (n,) diagonal; delta/theta/c: (n, D).  Raw
+    tensors, not a ``SparseTopology``, so the kernels package needs nothing
+    of ``core``.  Returns f32
+    (θ_new, c_new) = (Wθ + η_s·WΔ, c + s·(Δ − WΔ)).
+    """
+    gd = gossip_torch_dtype(gossip_dtype)
+    idx = neighbor_idx.long()
+    nwg = narrow(neighbor_w, gd)
+    swg = narrow(self_w, gd)
+
+    def spmv(x):
+        xg = narrow(x, gd)
+        return swg[:, None] * xg + torch.einsum("nm,nmd->nd", nwg, xg[idx])
+
+    d32 = delta.to(torch.float32)
+    wd = spmv(delta)
+    theta_new = spmv(theta) + float(eta_s) * wd
     c_new = c.to(torch.float32) + float(corr_scale) * (d32 - wd)
     return theta_new, c_new
 

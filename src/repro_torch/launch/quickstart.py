@@ -5,7 +5,8 @@ and the algorithm state, run rounds through the chunked engine, and watch
 ‖∇Φ(x̄)‖ fall while plain local SGDA stalls.
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart \
-      [--mixing-impl dense|ring|fused_dense|fused_ring|pallas_packed|fused_round]
+      [--mixing-impl dense|ring|fused_dense|fused_ring|pallas_packed|
+                     sparse_packed|fused_round]
       [--device cuda|cpu]
 """
 from __future__ import annotations

@@ -97,17 +97,11 @@ def _problem(n=4):
 
 
 UNPORTED = [
-    ({"mixing_impl": "sparse_packed"}, {}, "A8"),
     ({"mixing_impl": "coord_median"}, {}, "A9"),
     ({"mixing_impl": "sparse_trimmed_mean"}, {}, "A9"),
     ({"gossip_compress": "int8"}, {}, "A7"),
-    ({"topology_cycle": ("ring", "exp")}, {}, "A6"),
-    ({"topology_family": "erdos_renyi"}, {}, "A6"),
-    ({"participation_rate": 0.5}, {}, "A6"),
     ({"num_byzantine": 1}, {}, "A9"),
     ({"attack": "sign_flip"}, {}, "A9"),
-    ({}, {"traced_w": True}, "A6"),
-    ({}, {"participation": True}, "A6"),
     ({}, {"byzantine": True}, "A9"),
 ]
 
