@@ -23,9 +23,18 @@ Phases, each printing one JSON line:
    counts, the four churn families under 70 % participation (Σc ≈ 0,
    inactive clients frozen bit for bit), churn at n = 512 through all three
    kernels on the same per-round W and mask, and rounds/s;
-7. times — CUDA-graph device times of each kernel, its plain version and,
-   where one exists, a PyTorch library call, beside the bounds; the
-   epilogue at D ≈ 1e8, and rounds/s per mixing_impl.
+7. serve — ``launch.serve.serve`` on recurrentgemma-9b at full width in
+   bf16: a batched prefill of 4 prompts of 4096 tokens through the
+   flash-attention and RG-LRU scan kernels, then 32 decode steps; the
+   prefill's logits and caches against the same prefill through the plain
+   versions, prefill + decode against the full-sequence forward, the
+   kernels' launches (12 and 26 a prefill, none in decode), prefill s,
+   decode ms/token, tokens/s, peak memory, and a profile of a warm prefill
+   and of decode steps;
+8. times — device times of each kernel, its plain version and, where one
+   exists, a PyTorch library call, beside the bounds; the epilogue at
+   D ≈ 1e8, the model kernels at the served shapes and at S = 32768, and
+   rounds/s per mixing_impl.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering (device busy share, top kernels).
@@ -48,12 +57,15 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "times")
+PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "serve",
+          "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
+# dense bf16 (tensor-core) flop/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 
 # main-path geometry (the round rows of benchmarks/bench_gossip.py, ring)
 N, K, DX, DY, SIGMA, ROUNDS = 8, 8, 384, 128, 0.1, 50
@@ -74,6 +86,17 @@ TOL_ROUND_C = 4e-6       # c' (4× as in tests/test_fused_round.py)
 TOL_SPARSE = 1e-6        # θ', c' × (1 + max|plain|), f32 and bf16 alike
 TOL_STATE = 1e-4         # R-round states vs dense, × (1 + max|dense|)
 TOL_SIGMA_C = 1e-5       # max_j |mean_i c_ij| × (1 + max|c|): Σ_i c_i = 0
+TOL_ATTN_F32 = 2e-5      # attention, f32 operands, × (1 + max|plain|)
+TOL_ATTN_BF16 = 1e-2     # bf16 output: one bf16 ulp, × (1 + max|plain|)
+TOL_SCAN = 1e-6          # RG-LRU scan, × (1 + max|plain|) (same step order)
+TOL_SERVE = 3e-2         # bf16 logits and caches, × (1 + max|reference|)
+
+# the serving path: recurrentgemma-9b at full width in bf16, 4 prompts of two
+# windows (4096 tokens), 32 new tokens each
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "recurrentgemma-9b", 4, 4096, 32
+LONG_S = 32768           # configs/shapes.py PREFILL_32K's length, batch 1
+# the serve and churn paths launch no kernel of the other's
+NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0}
 
 
 def emit(obj) -> None:
@@ -416,6 +439,135 @@ def check_sparse_gossip(gen, dev) -> float:
     return worst_abs
 
 
+# (B, Sq, Sk, H, KV, D, window, causal): one key, ragged tiles, GQA 4/1 and
+# 14/2 and MHA, head_dim 32 to 256 (80: padded inside the kernel; 33, and 36
+# in bf16: rows not whole 16-byte chunks, so the element-wise loads),
+# windows shorter and longer than a tile, non-causal with Sq ≠ Sk
+FLASH_CASES = [
+    (1, 50, 50, 4, 2, 33, 0, True),
+    (2, 70, 70, 4, 1, 36, 16, True),
+    (1, 1, 1, 1, 1, 64, 0, True),
+    (2, 37, 37, 4, 1, 64, 16, True),
+    (1, 100, 100, 14, 2, 64, 0, True),
+    (2, 130, 130, 4, 4, 256, 16, True),
+    (1, 200, 200, 8, 2, 128, 64, True),
+    (2, 65, 65, 2, 1, 80, 0, True),
+    (1, 129, 129, 4, 2, 32, 7, True),
+    (1, 1000, 1000, 4, 1, 256, 300, True),
+    (1, 70, 100, 4, 1, 64, 0, False),
+    (2, 37, 50, 4, 2, 256, 16, False),
+    (1, 100, 37, 4, 4, 128, 0, False),
+]
+
+
+def served_attention_shape():
+    """(B, S, H, KV, D, window) of the served attn_local layers."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_model_config(SERVE_ARCH)
+    return (SERVE_B, SERVE_PROMPT, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.rglru.local_window)
+
+
+def served_scan_shape():
+    from repro_torch.configs import registry
+
+    return (SERVE_B, SERVE_PROMPT,
+            registry.get_model_config(SERVE_ARCH).rglru.lru_width)
+
+
+def attn_operands(b, sq, sk, h, kv, d, dtype, gen, dev):
+    import torch
+
+    return (torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype))
+
+
+def check_flash_attention(gen, dev) -> float:
+    """B5 against ``ref.attention_ref`` in f32 and bf16, over FLASH_CASES and
+    the served shape.  Returns the largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, ref
+
+    b, s, h, kv, d, window = served_attention_shape()
+    cases = FLASH_CASES + [(b, s, s, h, kv, d, window, True)]
+    worst = 0.0
+    worst_rel = {"float32": 0.0, "bfloat16": 0.0}
+    for b, sq, sk, h, kv, d, window, causal in cases:
+        for dtype, tol in ((torch.float32, TOL_ATTN_F32),
+                           (torch.bfloat16, TOL_ATTN_BF16)):
+            name = str(dtype).split(".")[1]
+            q, k, v = attn_operands(b, sq, sk, h, kv, d, dtype, gen, dev)
+            got = flash_attention.flash_attention_bshd(
+                q, k, v, causal=causal, window=window)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            if got.dtype != dtype or got.shape != q.shape:
+                fail(f"flash_attention: {got.dtype} {tuple(got.shape)}")
+            err = max_err(got.float(), want.float())
+            scale = 1 + float(want.float().abs().max())
+            worst = max(worst, err)
+            worst_rel[name] = max(worst_rel[name], err / scale)
+            if not err <= tol * scale:
+                fail(f"flash_attention {(b, sq, sk, h, kv, d, window)} "
+                     f"causal={causal} {dtype}: err {err}")
+            del q, k, v, got, want
+    # a k that is contiguous but not 16-byte aligned: the element-wise loads
+    q, k, v = attn_operands(2, 100, 100, 4, 1, 64, torch.bfloat16, gen, dev)
+    k_off = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)[1:]
+    k_off = k_off.view(k.shape).copy_(k)
+    got = flash_attention.flash_attention_bshd(q, k_off, v, window=16)
+    want = ref.attention_ref(q, k, v, window=16)
+    err = max_err(got.float(), want.float())
+    if not err <= TOL_ATTN_BF16 * (1 + float(want.float().abs().max())):
+        fail(f"flash_attention with a misaligned k: err {err}")
+    worst = max(worst, err)
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "cases": 2 * len(cases) + 1, "max_abs_err": worst,
+          "max_err_over_1_plus_max_by_dtype": worst_rel,
+          "tol": {"float32": TOL_ATTN_F32, "bfloat16": TOL_ATTN_BF16},
+          "served_shape": list(served_attention_shape())})
+    return worst
+
+
+def check_rglru_scan(gen, dev) -> float:
+    """B8 against ``ref.rglru_ref``, without and with a carried h0 (folded
+    into u_0 as the model folds it), over ragged shapes and the served one.
+    Returns the largest absolute error (0 when bit for bit)."""
+    import torch
+
+    from repro_torch.kernels import ref, rglru_scan
+
+    shapes = [(1, 1, 1), (2, 17, 5), (3, 300, 130), (2, 33, 257),
+              (1, 1000, 4096), served_scan_shape()]
+    worst = 0.0
+    exact = 0
+    for b, s, w in shapes:
+        a = torch.rand((b, s, w), generator=gen, device=dev) * 0.5 + 0.5
+        u = torch.randn((b, s, w), generator=gen, device=dev)
+        h0 = torch.randn((b, w), generator=gen, device=dev)
+        for with_h0 in (False, True):
+            uk = u
+            if with_h0:
+                uk = u.clone()
+                uk[:, 0] = uk[:, 0] + a[:, 0] * h0
+            got = rglru_scan.rglru_scan_bsw(a, uk)
+            want = ref.rglru_ref(a, u, h0 if with_h0 else None)
+            err = max_err(got, want)
+            worst = max(worst, err)
+            exact += int(err == 0.0)
+            if not err <= TOL_SCAN * (1 + float(want.abs().max())):
+                fail(f"rglru_scan {(b, s, w)} h0={with_h0}: err {err}")
+        del a, u, h0, uk, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "rglru_scan", "cases": 2 * len(shapes),
+          "bitwise_equal_cases": exact, "max_abs_err": worst,
+          "tol": TOL_SCAN, "served_shape": list(served_scan_shape())})
+    return worst
+
+
 def torch_randn(gen, dev, *shape):
     import torch
 
@@ -501,7 +653,8 @@ def phase_main(dev) -> dict:
                                        impl, dev, ROUNDS)
     launches = launch_counts()
     expect = {"fused_gossip": 2 * ROUNDS * len(TRACKING),
-              "fused_round": ROUNDS * len(ALGOS), "sparse_gossip": 0}
+              "fused_round": ROUNDS * len(ALGOS), "sparse_gossip": 0,
+              **NO_MODEL_KERNELS}
     if launches != expect:
         fail(f"main path launches {launches}, expected {expect}")
     for algo in ALGOS:
@@ -535,7 +688,7 @@ def phase_quickstart(dev) -> dict:
     launches = launch_counts()
     expect = {"fused_gossip": 0,
               "fused_round": quickstart.ROUNDS * len(algos),
-              "sparse_gossip": 0}
+              "sparse_gossip": 0, **NO_MODEL_KERNELS}
     emit({"phase": "quickstart", "mixing_impl": "fused_round",
           "phi_grad_norm_final": g, "launches": launches,
           "expected": expect})
@@ -552,19 +705,16 @@ def phase_quickstart(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def launch_counts() -> dict:
-    from repro_torch.kernels import fused_round, gossip, neighbor_gossip
+    """Launches of every kernel wrapper (``kernels.ops.KERNELS``)."""
+    from repro_torch.kernels import ops
 
-    return {"fused_gossip": gossip.fused_gossip_nd.launches,
-            "fused_round": fused_round.fused_round_nd.launches,
-            "sparse_gossip": neighbor_gossip.sparse_gossip_nd.launches}
+    return ops.launch_counts()
 
 
 def zero_launch_counts() -> None:
-    from repro_torch.kernels import fused_round, gossip, neighbor_gossip
+    from repro_torch.kernels import ops
 
-    gossip.fused_gossip_nd.launches = 0
-    fused_round.fused_round_nd.launches = 0
-    neighbor_gossip.sparse_gossip_nd.launches = 0
+    ops.zero_launch_counts()
 
 
 def compare_states(state, ref_state, what) -> float:
@@ -646,7 +796,7 @@ def phase_scale(dev) -> dict:
         want = 2 * SCALE_ROUNDS if algo in TRACKING else 0
         got = out["launches"][algo]
         if got != {"fused_gossip": 0, "fused_round": 0,
-                   "sparse_gossip": want}:
+                   "sparse_gossip": want, **NO_MODEL_KERNELS}:
             fail(f"scale {algo}: launches {got}, expected {want} of "
                  f"sparse_gossip and none of the others")
         (s_state, s_hist), (d_state, d_hist) = (finals[algo, "sparse_packed"],
@@ -754,6 +904,7 @@ def phase_scale(dev) -> dict:
                 "fused_round": {"fused_gossip": 0,
                                 "fused_round": CHURN_DENSE_ROUNDS,
                                 "sparse_gossip": 0}}
+        want = {impl: {**w, **NO_MODEL_KERNELS} for impl, w in want.items()}
         got = {impl: res[impl][1] for impl in res}
         if got != want:
             fail(f"churn n={n} {family}: launches {got}, expected {want}")
@@ -768,7 +919,259 @@ def phase_scale(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times
+# phase 7: serving recurrentgemma-9b at full width
+# ---------------------------------------------------------------------------
+
+def rel_err(got, want) -> float:
+    """max |got − want| / (1 + max |want|), in f32."""
+    got, want = got.float(), want.float()
+    return max_err(got, want) / (1 + float(want.abs().max()))
+
+
+def kernel_category(name: str) -> str:
+    """The serve profile's buckets: the two kernels, f32 GEMMs (the RG-LRU
+    gates), the other (bf16) GEMMs, dtype copies, everything else."""
+    if "flash_attention_kernel" in name:
+        return "flash_attention"
+    if "rglru_scan_kernel" in name:
+        return "rglru_scan"
+    low = name.lower()
+    if "sgemm" in low or "f32f32" in low:
+        return "gemm_f32"
+    if any(t in low for t in ("gemm", "gemv", "nvjet", "xmma", "cutlass")):
+        return "gemm_bf16"
+    if "copy" in low:
+        return "copy"
+    return "other"
+
+
+def profile_device(fn) -> dict:
+    """torch.profiler around ``fn()``: wall µs, device busy µs (kernel
+    events), and busy µs by kernel category."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    by = {}
+    for e in events:
+        cat = kernel_category(e.key)
+        by[cat] = by.get(cat, 0.0) + e.self_device_time_total
+    busy = sum(by.values())
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "device_busy_share": busy / wall_us, "busy_us_by_kind": by,
+            "kernels": sum(e.count for e in events),
+            "top": [[e.key[:90], e.self_device_time_total, e.count]
+                    for e in top]}
+
+
+def phase_serve(dev) -> dict:
+    """The serving path: ``launch.serve.serve`` on recurrentgemma-9b at full
+    width in bf16 (4 prompts of 4096 tokens, 32 new tokens each), then its
+    checks: the prefill against the same prefill through the plain versions
+    (logits and every cache), prefill + decode against the full-sequence
+    forward, the kernels' launches, and finiteness."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    # the serve path's launch counts: set to 0 just before, read just after
+    zero_launch_counts()
+    res = serve_lib.serve(SERVE_ARCH, batch=SERVE_B, prompt_len=SERVE_PROMPT,
+                          gen_tokens=SERVE_GEN, device=dev, seed=0)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, cfg = res.model, res.model.cfg
+    kinds = cfg.blocks()
+    n_attn, n_rglru = kinds.count("attn_local"), kinds.count("rglru")
+    zeros = {k: 0 for k in launches}
+    want_prefill = {**zeros, "flash_attention": n_attn, "rglru_scan": n_rglru}
+    if res.launches["prefill"] != want_prefill or launches != want_prefill:
+        fail(f"serve launches {res.launches}, total {launches}; expected "
+             f"{want_prefill} in the prefill")
+    if res.launches["decode"] != zeros:
+        fail(f"serve: kernels launched during decode: {res.launches}")
+    if not torch.isfinite(res.logits.float()).all():
+        fail("serve: non-finite logits")
+    if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
+        fail("serve: a token outside the vocabulary")
+
+    errs = {}
+    with torch.no_grad():
+        # the same prefill through the plain attention and scan
+        caches = model_lib.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                                      device=dev)
+        plain, plain_caches, _ = model_lib.forward(
+            model, {"tokens": res.prompt}, mode="prefill", caches=caches,
+            last_only=True, kernels=False)
+        errs["prefill_logits_vs_plain"] = rel_err(res.logits[:, :1], plain)
+        cache_errs = [rel_err(c[name], p[name]) for c, p in
+                      zip(res.prefill_caches, plain_caches) for name in c]
+        errs["prefill_caches_vs_plain"] = max(cache_errs)
+        del plain, plain_caches, caches
+        # prefill + decode against the forward over prompt + new tokens
+        seq = torch.cat([res.prompt, res.tokens], dim=1)
+        hidden, _, _ = model_lib.backbone(model, {"tokens": seq},
+                                          mode="prefill")
+        full = model_lib.lm_head(model, hidden[:, SERVE_PROMPT - 1:],
+                                 torch.bfloat16)
+        del hidden
+        errs["decode_logits_vs_full_forward"] = rel_err(res.logits, full)
+        diff = (res.logits.float() - full.float()).norm(dim=-1)
+        errs["decode_logits_rel_l2_max"] = float(
+            (diff / full.float().norm(dim=-1)).max())
+        errs["argmax_agreement"] = float(
+            (res.logits.argmax(-1) == full.argmax(-1)).float().mean())
+        del full
+    for key in ("prefill_logits_vs_plain", "prefill_caches_vs_plain",
+                "decode_logits_vs_full_forward"):
+        if not errs[key] <= TOL_SERVE:
+            fail(f"serve: {key} = {errs[key]} > {TOL_SERVE}")
+
+    # a warm prefill and a few decode steps under the profiler
+    def prefill():
+        c = model_lib.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                                 device=dev)
+        return model_lib.forward(model, {"tokens": res.prompt},
+                                 mode="prefill", caches=c, last_only=True)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, warm_caches, _ = prefill()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        prof_prefill = profile_device(prefill)
+        toks = res.tokens
+
+        def decode4():
+            c = warm_caches
+            for i in range(4):
+                _, c = model_lib.decode_step(model, c, toks[:, i:i + 1],
+                                             SERVE_PROMPT + i)
+
+        prof_decode = profile_device(decode4)
+    n_params = model_lib.param_count(model)
+    weight_gb = 2 * n_params / 1e9
+    out = {"prefill_s": res.prefill_s, "prefill_warm_s": warm_s,
+           "decode_ms_per_token": 1e3 * res.decode_s / SERVE_GEN,
+           "tokens_per_s": SERVE_B * SERVE_GEN / res.decode_s,
+           "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / warm_s,
+           "peak_memory_gb": peak_gb, "params": n_params,
+           "weights_gb_bf16": weight_gb,
+           "decode_bound_ms": (weight_gb - 2 * cfg.vocab_size * cfg.d_model
+                               / 1e9) / HBM_BYTES_S * 1e12,
+           "launches": res.launches, **errs, "tol": TOL_SERVE}
+    emit({"phase": "serve", "arch": SERVE_ARCH, "batch": SERVE_B,
+          "prompt_len": SERVE_PROMPT, "gen_tokens": SERVE_GEN, **out})
+    emit({"phase": "serve", "profile": "prefill (warm)", **prof_prefill})
+    emit({"phase": "serve", "profile": "4 decode steps",
+          "per_step_us": prof_decode["wall_us"] / 4, **prof_decode})
+    del res, model, warm_caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_bound_ms(b, sq, sk, h, kv, d, window, elem_bytes, flop_s):
+    """4·B·H·(keys seen)·D flops against q, k, v, o moved once."""
+    import numpy as np
+
+    i = np.arange(sq)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros_like(i)
+    keys = int(np.maximum(0, np.minimum(i, sk - 1) - lo + 1).sum())
+    flops = 4 * b * h * keys * d
+    byts = elem_bytes * (2 * b * sq * h * d + 2 * b * sk * kv * d)
+    t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def scan_bound_ms(b, s, w):
+    return _bound(12 * b * s * w, 2 * b * s * w)
+
+
+def time_model_kernels(gen, dev) -> dict:
+    """B5 (bf16) and B8 at the served shapes and at prefill_32k's length
+    (S = 32768, batch 1): the kernel, its plain version and, for B5,
+    ``scaled_dot_product_attention`` with the same banded boolean mask (k
+    and v expanded to the query heads before the timed call), each beside
+    its bound.  CUDA-event times of eager calls (a call is milliseconds)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref, rglru_scan
+
+    out = {}
+    b, s, h, kv, d, window = served_attention_shape()
+    for bb, ss in ((b, s), (1, LONG_S)):
+        q, k, v = attn_operands(bb, ss, ss, h, kv, d, torch.bfloat16, gen,
+                                dev)
+        kern = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
+            q, k, v, causal=True, window=window)
+        plain = lambda: ref.attention_ref(  # noqa: E731
+            q, k, v, causal=True, window=window)
+        ms, pms = cuda_ms(kern, reps=7), cuda_ms(plain, reps=3)
+        i = torch.arange(ss, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+                  for x in (k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+        try:
+            lib_err = max_err(lib().transpose(1, 2).float(), kern().float())
+            lms = cuda_ms(lib, reps=7)
+        except torch.cuda.OutOfMemoryError:
+            lib_err = lms = None
+        bound, by = attn_bound_ms(bb, ss, ss, h, kv, d, window, 2,
+                                  BF16_FLOP_S)
+        f32_bound, _ = attn_bound_ms(bb, ss, ss, h, kv, d, window, 2,
+                                     F32_FLOP_S)
+        emit({"phase": "times", "kernel": "flash_attention",
+              "shape": [bb, ss, h, kv, d], "window": window,
+              "dtype": "bfloat16", "ms": ms, "plain_ms": pms,
+              "library_ms": lms, "library_max_abs_err_vs_kernel": lib_err,
+              "library": "F.scaled_dot_product_attention, banded bool mask",
+              "bound_ms": bound, "bound_by": by,
+              "bound_ms_at_f32_cuda_core_peak": f32_bound})
+        if bb == b:
+            out["flash_attention"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                          bound_by=by, library_ms=lms)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    b, s, w = served_scan_shape()
+    for bb, ss in ((b, s), (1, LONG_S)):
+        a = torch.rand((bb, ss, w), generator=gen, device=dev) * 0.5 + 0.5
+        u = torch.randn((bb, ss, w), generator=gen, device=dev)
+        ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=11)
+        pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=3)
+        bound, by = scan_bound_ms(bb, ss, w)
+        emit({"phase": "times", "kernel": "rglru_scan", "shape": [bb, ss, w],
+              "ms": ms, "plain_ms": pms, "library_ms": None,
+              "bound_ms": bound, "bound_by": by,
+              "GB_per_s": 12 * bb * ss * w / ms / 1e6})
+        if bb == b:
+            out["rglru_scan"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                     bound_by=by, library_ms=None)
+        del a, u
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: times
 # ---------------------------------------------------------------------------
 
 def phase_times(dev, gen) -> dict:
@@ -811,6 +1214,7 @@ def phase_times(dev, gen) -> dict:
     del args
 
     out["sparse_gossip"] = time_sparse_gossip(gen, dev)
+    out.update(time_model_kernels(gen, dev))
 
     # the epilogue at a paper-toy-sized packed state
     d_big = 100_000_000
@@ -987,12 +1391,15 @@ def main(argv=None) -> int:
                     for name, log in _build.stats["log"].items()}})
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    names = ("fused_gossip", "fused_round", "sparse_gossip")
+    names = ("fused_gossip", "fused_round", "sparse_gossip",
+             "flash_attention", "rglru_scan")
     errs = dict.fromkeys(names)
     if "kernels" in phases:
         errs = {"fused_gossip": check_gossip(gen, dev),
                 "fused_round": check_round(gen, dev),
-                "sparse_gossip": check_sparse_gossip(gen, dev)}
+                "sparse_gossip": check_sparse_gossip(gen, dev),
+                "flash_attention": check_flash_attention(gen, dev),
+                "rglru_scan": check_rglru_scan(gen, dev)}
         torch.cuda.synchronize()
     launches = dict.fromkeys(names)
     if "main" in phases:
@@ -1004,6 +1411,10 @@ def main(argv=None) -> int:
     if "scale" in phases:
         scale = phase_scale(dev)
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
+    if "serve" in phases:
+        serve = phase_serve(dev)
+        for name in ("flash_attention", "rglru_scan"):
+            launches[name] = serve["launches"]["prefill"][name]
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -1020,6 +1431,12 @@ def main(argv=None) -> int:
         {"name": "sparse_gossip", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/neighbor_gossip.cu",
          "replaces": "src/repro/kernels/neighbor_gossip.py:75"},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:72"},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:43"},
     ]
     for k in kernels:
         t = times[k["name"]]
@@ -1033,12 +1450,16 @@ def main(argv=None) -> int:
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "
                            "(n = 8); sparse_gossip: the scale phase "
-                           "(n = 4096, 20 rounds × 4 algorithms)",
-          "library_ms_note": "fused_gossip, fused_round: no single PyTorch "
-                             "call computes either function; sparse_gossip: "
-                             "torch.sparse.mm of the CSR W on [Δ|θ], the "
-                             "gather half only, at the scale path's two "
-                             "shapes"})
+                           "(n = 4096, 20 rounds × 4 algorithms); "
+                           "flash_attention, rglru_scan: the serve phase's "
+                           "prefill (recurrentgemma-9b, 4 × 4096 tokens)",
+          "library_ms_note": "fused_gossip, fused_round, rglru_scan: no "
+                             "single PyTorch call computes the function; "
+                             "sparse_gossip: torch.sparse.mm of the CSR W on "
+                             "[Δ|θ], the gather half only, at the scale "
+                             "path's two shapes; flash_attention: "
+                             "scaled_dot_product_attention with the banded "
+                             "bool mask at the served shape (bf16)"})
     if set(PHASES) - phases:
         print(f"chip_smoke: only ran {sorted(phases)}", file=sys.stderr)
         return 2

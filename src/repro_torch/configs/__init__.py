@@ -1,1 +1,8 @@
-from repro_torch.configs.base import AlgorithmConfig  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    AlgorithmConfig,
+    InputShape,
+    ModelConfig,
+    MoEConfig,
+    RGLRUConfig,
+    SSMConfig,
+)

@@ -1,4 +1,13 @@
-"""Algorithm hyperparameters (Algorithm 1), the port's own copy.
+"""Configuration dataclasses, the port's own copies.
+
+The model architecture (``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
+``ModelConfig``) and ``InputShape`` are copied from
+``repro.configs.base:25-170`` unchanged, so the arch files under
+``repro_torch/configs/`` carry the same values.  ``ModelConfig.param_count``
+counts the RG-LRU gates ``wa``/``wx`` as diagonal, as the reference does;
+``repro_torch.models.model.param_count`` counts the tensors.
+
+Algorithm hyperparameters (Algorithm 1):
 
 Same fields, defaults and string values as ``repro.configs.base.
 AlgorithmConfig`` so a config carries over unchanged; only
@@ -20,6 +29,168 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+
+# ---------------------------------------------------------------------------
+# Model architecture
+# ---------------------------------------------------------------------------
+
+# Block kinds a decoder stack may be composed of.
+BLOCK_ATTN = "attn"            # full causal self-attention + MLP
+BLOCK_SLIDING = "sliding"      # sliding-window causal attention + MLP
+BLOCK_MOE = "moe"              # attention + MoE MLP
+BLOCK_SSM = "ssm"              # Mamba2 SSD block (attention-free)
+BLOCK_RGLRU = "rglru"          # RG-LRU recurrent block (Griffin/Hawk style)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 2
+    # d_ff of EACH expert (assigned configs give the per-expert width).
+    expert_d_ff: int = 0
+    router_aux_coef: float = 0.01
+    router_jitter: float = 0.0
+    capacity_factor: float = 1.25
+    dispatch: str = "dense"  # "dense" (one-hot capacity) | "sorted" (ragged_dot)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block configuration."""
+    d_state: int = 128
+    d_head: int = 64           # P in the SSD paper
+    expand: int = 2            # d_inner = expand * d_model
+    chunk: int = 64            # SSD chunk length
+    d_conv: int = 4            # depthwise conv width
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU (RecurrentGemma) configuration."""
+    lru_width: int = 0         # 0 -> d_model
+    conv_width: int = 4
+    block_pattern: Tuple[str, ...] = ("rglru", "rglru", "attn_local")
+    local_window: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    arch_type: str                      # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                   # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # Block pattern; if empty, derived from arch_type (all-attn / all-moe / ...).
+    block_pattern: Tuple[str, ...] = ()
+    moe: MoEConfig = MoEConfig()
+    ssm: SSMConfig = SSMConfig()
+    rglru: RGLRUConfig = RGLRUConfig()
+    # Sliding-window size used when a "sliding" block is selected (also the
+    # beyond-paper long-context variant for dense archs).
+    sliding_window: int = 4096
+    # When > 0, full-attention blocks (attn/moe) switch to this sliding window
+    # — the long_500k variant for otherwise-quadratic archs (see DESIGN.md §5).
+    long_context_window: int = 0
+    # Modality frontend stub: number of prefix embedding tokens supplied by
+    # input_specs() (vlm: vision patches; 0 = none).
+    num_prefix_tokens: int = 0
+    # Audio: number of parallel codebook streams (musicgen).
+    num_codebooks: int = 0
+    # Source citation for the assigned config.
+    source: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.num_heads if self.num_heads else 0
+
+    def blocks(self) -> Tuple[str, ...]:
+        """Per-layer block kinds, length == num_layers."""
+        if self.block_pattern:
+            pat = self.block_pattern
+        elif self.arch_type == "moe":
+            pat = (BLOCK_MOE,)
+        elif self.arch_type == "ssm":
+            pat = (BLOCK_SSM,)
+        elif self.arch_type == "hybrid":
+            pat = self.rglru.block_pattern
+        else:
+            pat = (BLOCK_ATTN,)
+        reps = -(-self.num_layers // len(pat))
+        return (pat * reps)[: self.num_layers]
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.vocab_size * d  # embed
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for kind in self.blocks():
+            if kind in (BLOCK_ATTN, BLOCK_SLIDING, BLOCK_MOE):
+                attn = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+                if self.qkv_bias:
+                    attn += (n_q + 2 * n_kv) * hd
+                total += attn
+                if kind == BLOCK_MOE:
+                    m = self.moe
+                    total += d * m.num_experts  # router
+                    total += m.num_experts * 3 * d * m.expert_d_ff
+                else:
+                    total += 3 * d * self.d_ff  # gate/up/down
+                total += 2 * d  # norms
+            elif kind == BLOCK_SSM:
+                s = self.ssm
+                d_in = s.expand * d
+                nheads = d_in // s.d_head
+                total += d * (2 * d_in + 2 * s.d_state + nheads)  # in_proj-ish
+                total += d_in * d  # out_proj
+                total += d_in * s.d_conv + 2 * nheads + d  # conv, A, D, norm
+            elif kind == "attn_local":
+                attn = d * (n_q * hd) + 2 * d * (n_kv * hd) + (n_q * hd) * d
+                total += attn + 3 * d * self.d_ff + 2 * d
+            elif kind == BLOCK_RGLRU:
+                w = self.rglru.lru_width or d
+                total += d * w * 2 + w * d  # in (x,gate) + out
+                total += 3 * w  # recurrent/input gates diag-ish + Λ
+                total += 3 * d * self.d_ff + 2 * d
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts)."""
+        if self.arch_type != "moe":
+            return self.param_count()
+        m = self.moe
+        dense_like = self.param_count()
+        n_moe = sum(1 for k in self.blocks() if k == BLOCK_MOE)
+        unused = n_moe * (m.num_experts - m.top_k) * 3 * self.d_model * m.expert_d_ff
+        return dense_like - unused
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+# ---------------------------------------------------------------------------
+# K-GT-Minimax algorithm hyperparameters (Algorithm 1)
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class AlgorithmConfig:

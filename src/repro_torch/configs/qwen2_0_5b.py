@@ -1,0 +1,18 @@
+"""qwen2-0.5b [dense] — 24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151936,
+GQA + QKV bias.  [arXiv:2407.10671]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    arch_type="dense",
+    num_layers=24,
+    d_model=896,
+    num_heads=14,
+    num_kv_heads=2,
+    d_ff=4864,
+    vocab_size=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    source="arXiv:2407.10671",
+)

@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gossip", "fused_round", "neighbor_gossip")
+SOURCES = ("gossip", "fused_round", "neighbor_gossip", "flash_attention",
+           "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -38,6 +39,8 @@ SIGNATURES = {
     "neighbor_gossip": ("sparse_gossip_launch",
                         [_P] * 8 + [_I, _I, ctypes.c_longlong, ctypes.c_float,
                                     ctypes.c_float, _I, _P]),
+    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 9 + [_P]),
+    "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

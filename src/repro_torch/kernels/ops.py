@@ -1,10 +1,12 @@
-"""Dispatch between the three round kernels and their plain PyTorch versions.
+"""Dispatch between the CUDA kernels and their plain PyTorch versions.
 
 Counterparts of ``repro.kernels.ops.fused_gossip_round`` (:171),
-``fused_round`` (:202) and ``sparse_gossip_round`` (:253): the packed
-gossip epilogue (``csrc/gossip.cu``), the whole round
-(``csrc/fused_round.cu``) and the neighbor-gather epilogue
-(``csrc/neighbor_gossip.cu``).  ``backend``:
+``fused_round`` (:202), ``sparse_gossip_round`` (:253), ``flash_attention``
+(:37) and ``rglru_scan`` (:302): the packed gossip epilogue
+(``csrc/gossip.cu``), the whole round (``csrc/fused_round.cu``), the
+neighbor-gather epilogue (``csrc/neighbor_gossip.cu``), causal / windowed
+GQA attention (``csrc/flash_attention.cu``) and the RG-LRU recurrence
+(``csrc/rglru_scan.cu``).  ``backend``:
 
 * ``"auto"`` — the CUDA kernel for CUDA tensors, the plain version for CPU
   tensors;
@@ -19,12 +21,33 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa_lib
 from repro_torch.kernels import fused_round as fround_lib
 from repro_torch.kernels import gossip as gossip_lib
 from repro_torch.kernels import neighbor_gossip as ngossip_lib
 from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels import rglru_scan as rg_lib
 
 GOSSIP_BACKENDS = ("auto", "kernel", "torch")
+
+# each kernel's wrapper, whose ``launches`` attribute counts its launches
+KERNELS = {
+    "fused_gossip": gossip_lib.fused_gossip_nd,
+    "fused_round": fround_lib.fused_round_nd,
+    "sparse_gossip": ngossip_lib.sparse_gossip_nd,
+    "flash_attention": fa_lib.flash_attention_bshd,
+    "rglru_scan": rg_lib.rglru_scan_bsw,
+}
+
+
+def launch_counts() -> dict:
+    """Launches of each CUDA kernel so far in this process."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def zero_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:
@@ -100,3 +123,28 @@ def sparse_gossip_round(neighbor_idx, neighbor_w, self_w, delta, theta, c,
     return ref_lib.sparse_gossip_ref(neighbor_idx, neighbor_w, self_w, delta,
                                      theta, c, eta_s, corr_scale,
                                      gossip_dtype=gossip_dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    backend: str = "auto"):
+    """Causal / sliding-window GQA attention on the model layout.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) in one dtype (float32 or
+    bfloat16 for the kernel).  Returns (B, Sq, H, D) in q's dtype; the
+    softmax is f32.  The kernel masks the true key length (the JAX package's
+    non-causal path attends to its padding: ROADMAP §C).
+    """
+    if use_kernel(backend, q):
+        return fa_lib.flash_attention_bshd(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window)
+    return ref_lib.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a, u, *, backend: str = "auto"):
+    """h_t = a_t·h_{t−1} + u_t over (B, S, W) from h_{−1} = 0; returns f32
+    h (B, S, W).  A carried state h0 is folded in by the caller as
+    u_0 ← u_0 + a_0·h0."""
+    if use_kernel(backend, a):
+        return rg_lib.rglru_scan_bsw(_f32c(a), _f32c(u))
+    return ref_lib.rglru_ref(a, u)

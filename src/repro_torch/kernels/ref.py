@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the round kernels (port of
-``repro.kernels.ref:63-165``).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``:
+the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31`` and
+``rglru_ref`` of ``:196-208``).
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
 reference: the W-contraction operands are narrowed to ``gossip_dtype``, the
-products accumulate in f32, and Δ (or q) stays f32 inside the correction.
+products accumulate in f32, and Δ (or q) stays f32 inside the correction;
+attention and the RG-LRU recurrence compute in f32.
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.quantize import quantize_dequant
+
+NEG_INF = -1e30
 
 
 def gossip_torch_dtype(gossip_dtype) -> Optional[torch.dtype]:
@@ -110,3 +114,63 @@ def fused_round_ref(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
     wq = wg @ narrow(q, gd)
     wz = wg @ narrow(z0, gd)
     return wz + etas * wq, c.to(torch.float32) + corr * (q - wq), e_new
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  q_block: int = 1024):
+    """Causal / sliding-window GQA attention, f32 softmax.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KV, D) — the model layout, where the
+    reference's ``attention_ref`` takes (B·H, S, D).  Query i sees key j iff
+    ``j < Sk`` and (not causal or ``j <= i``) and (window ≤ 0 or
+    ``i - j < window``); query head h reads KV head h // (H // KV), grouped
+    without repeating k and v.  A row that sees no key is 0 (the kernels'
+    rule).  Queries go ``q_block`` at a time against only the keys their
+    masks can reach, so the scores never exceed (B, H, q_block, keys).
+    Returns (B, Sq, H, D) in q's dtype.
+    """
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d ** -0.5
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    out = torch.zeros_like(q)
+    for q0 in range(0, sq, q_block):
+        q1 = min(q0 + q_block, sq)
+        lo = max(0, q0 - window + 1) if window > 0 else 0
+        hi = min(sk, q1) if causal else sk
+        if hi <= lo:
+            continue
+        qi = torch.arange(q0, q1, device=q.device)[:, None]
+        kj = torch.arange(lo, hi, device=q.device)[None, :]
+        mask = torch.ones((q1 - q0, hi - lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kj <= qi
+        if window > 0:
+            mask &= kj > qi - window
+        qg = q[:, q0:q1].to(torch.float32).reshape(b, q1 - q0, kv, g, d)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, lo:hi]) * scale
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1) * mask
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf[:, lo:hi])
+        out[:, q0:q1] = o.reshape(b, q1 - q0, h, d).to(q.dtype)
+    return out
+
+
+def rglru_ref(a, u, h0=None):
+    """Step-by-step h_t = a_t·h_{t−1} + u_t over (B, S, W), in f32.
+
+    ``h0`` (B, W) is the state before step 0 (zeros when None).  Each step
+    rounds the product and the sum separately, the order the CUDA kernel
+    keeps.  Returns h (B, S, W) f32.
+    """
+    b, s, w = a.shape
+    a32, u32 = a.to(torch.float32), u.to(torch.float32)
+    h = (torch.zeros((b, w), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.to(torch.float32))
+    out = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    for t in range(s):
+        torch.add(a32[:, t] * h, u32[:, t], out=out[:, t])
+        h = out[:, t]
+    return out

@@ -1,0 +1,170 @@
+"""Serving entry point: batched prefill, then decode (port of
+``repro.launch.serve`` and the single-device body of
+``repro.launch.steps.build_prefill_step`` / ``build_decode_step``).
+
+One prefill step runs ``forward(mode="prefill", caches=init_cache(B,
+prompt_len + gen_tokens), last_only=True)`` over the whole batch of prompts,
+through the flash-attention and RG-LRU scan kernels; then ``gen_tokens``
+decode steps each sample a token (``torch.multinomial``) and feed it back.
+Weights are bf16 on the card, drawn from a seeded ``torch.Generator``, as
+are the prompts.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
+      --device cpu --reduced --prompt-len 64 --tokens 6
+
+A prefill fills a KV cache exactly only when the cache's length divides the
+prompt length (the cache keeps the last ``length`` keys, and decode's ring
+writes position p at slot p % length); other prompt lengths are refused.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import model as model_lib
+
+
+@dataclasses.dataclass
+class ServeResult:
+    model: model_lib.Model
+    prompt: torch.Tensor          # (B, prompt_len)
+    tokens: torch.Tensor          # (B, gen_tokens), the sampled tokens
+    logits: torch.Tensor          # (B, gen_tokens + 1, V): the prefill's last
+    #                               position, then each decode step's
+    prefill_caches: List[Dict[str, torch.Tensor]]
+    prefill_s: float
+    decode_s: float
+    launches: Dict[str, Dict[str, int]]   # kernel launches: prefill, decode
+
+
+def check_prompt(cfg: ModelConfig, prompt_len: int, total: int) -> None:
+    """Refuse a prompt length that some KV cache's length does not divide:
+    the prefill keeps the last ``length`` keys (reference
+    ``models/transformer.py:166-171``), which lands position p at decode's
+    ring slot p % length only then."""
+    for kind in sorted(set(cfg.blocks())):
+        length = model_lib.cache_length(kind, cfg, total)
+        if length is not None and prompt_len % length:
+            raise ValueError(
+                f"prompt length {prompt_len}: the {kind!r} layers' KV cache "
+                f"holds {length} positions for {total} tokens, and a prefill "
+                f"fills it exactly only when that length divides the prompt "
+                f"length")
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def sample(logits, temperature: float, generator) -> torch.Tensor:
+    """(B, 1, V) logits -> (B, 1) tokens; temperature 0 is greedy."""
+    last = logits[:, -1].to(torch.float32)
+    if temperature <= 0:
+        return last.argmax(-1, keepdim=True)
+    probs = torch.softmax(last / temperature, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)
+
+
+@torch.no_grad()
+def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
+             temperature: float = 1.0, generator=None,
+             compute_dtype=torch.bfloat16) -> ServeResult:
+    """Prefill ``prompt`` (B, P) in one step, then ``gen_tokens`` decode
+    steps."""
+    cfg = model.cfg
+    b, prompt_len = prompt.shape
+    total = prompt_len + gen_tokens
+    check_prompt(cfg, prompt_len, total)
+    device = prompt.device
+    caches = model_lib.init_cache(cfg, b, total, dtype=compute_dtype,
+                                  device=device)
+    start = ops.launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, caches, _ = model_lib.forward(
+        model, {"tokens": prompt}, mode="prefill", compute_dtype=compute_dtype,
+        caches=caches, last_only=True)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    after_prefill = ops.launch_counts()
+    prefill_caches = caches
+    steps, toks = [logits], []
+    t0 = time.perf_counter()
+    for i in range(gen_tokens):
+        tok = sample(logits, temperature, generator)
+        toks.append(tok)
+        logits, caches = model_lib.decode_step(
+            model, caches, tok, prompt_len + i, compute_dtype=compute_dtype)
+        steps.append(logits)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    end = ops.launch_counts()
+    launches = {
+        "prefill": {k: after_prefill[k] - start[k] for k in start},
+        "decode": {k: end[k] - after_prefill[k] for k in start}}
+    tokens = (torch.cat(toks, dim=1) if toks
+              else prompt.new_zeros((b, 0)))
+    return ServeResult(model=model, prompt=prompt, tokens=tokens,
+                       logits=torch.cat(steps, dim=1),
+                       prefill_caches=prefill_caches, prefill_s=prefill_s,
+                       decode_s=decode_s, launches=launches)
+
+
+def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
+          gen_tokens: int = 32, temperature: float = 1.0, device="cuda",
+          seed: int = 0, reduced: bool = False) -> ServeResult:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens on a model of
+    ``arch`` (its reduced CPU-test variant if ``reduced``) with fresh bf16
+    weights, computing in bf16, and generate ``gen_tokens`` tokens each."""
+    cfg = registry.get_model_config(arch)
+    if reduced:
+        cfg = registry.reduced(cfg)
+    check_prompt(cfg, prompt_len, prompt_len + gen_tokens)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = model_lib.init_params(cfg, generator=gen, device=device,
+                                  dtype=torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    res = generate(model, prompt, gen_tokens, temperature=temperature,
+                   generator=gen)
+    print(f"[serve] {cfg.name}: prefill {prompt_len} tok x {batch} seq "
+          f"in {res.prefill_s:.3f} s", flush=True)
+    if gen_tokens:
+        print(f"[serve] decoded {gen_tokens} tok/seq in {res.decode_s:.3f} s: "
+              f"{1e3 * res.decode_s / gen_tokens:.2f} ms/token, "
+              f"{gen_tokens * batch / res.decode_s:.1f} tok/s aggregate",
+              flush=True)
+    return res
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="recurrentgemma-9b",
+                    choices=sorted(registry.ARCHS))
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=4096)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the arch's reduced CPU-test variant")
+    args = ap.parse_args(argv)
+    res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                gen_tokens=args.tokens, temperature=args.temperature,
+                device=args.device, seed=args.seed, reduced=args.reduced)
+    print(f"[serve] tokens[0]: {res.tokens[0].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,87 @@
+"""Carrying the JAX package's model parameters and caches across as numpy.
+
+The reference stacks each repeated unit of the block pattern along a leading
+repeat dim: ``params["stack"][si][bi][name][r]`` is layer
+``offset(si) + r·len(unit) + bi`` here (``transformer.layer_slots``), and the
+caches (``init_cache``) have the same nesting.  This module takes and gives
+numpy only.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.interop import to_tensor
+from repro_torch.models import transformer as tf
+from repro_torch.models.model import Model, init_params
+
+
+def _assign(dst: torch.Tensor, src, what: str) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: reference shape {src.shape}, port shape "
+                         f"{tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(to_tensor(src, dst.device).to(dst.dtype))
+
+
+def params_from_reference(params_np: Dict[str, Any], cfg: ModelConfig, *,
+                          device="cuda", dtype=torch.float32) -> Model:
+    """The reference's ``init_params`` pytree (leaves as numpy) -> a port
+    ``Model`` on ``device`` in ``dtype`` holding the same values.  Every
+    port parameter is assigned exactly once, or this raises."""
+    model = init_params(cfg, device=device, dtype=dtype)
+    done = set()
+
+    def put(name, dst, src):
+        _assign(dst, src, name)
+        done.add(id(dst))
+
+    put("embed", model.embed, params_np["embed"])
+    put("final_norm", model.final_norm, params_np["final_norm"])
+    if model.head is not None:
+        put("head", model.head, params_np["head"])
+    for layer, (si, r, bi, _) in zip(model.layers, tf.layer_slots(cfg)):
+        ref_block = params_np["stack"][si][bi]
+        for name, sub in ref_block.items():
+            if isinstance(sub, dict):
+                for leaf, arr in sub.items():
+                    put(f"{name}.{leaf}", getattr(layer, name)[leaf],
+                        np.asarray(arr)[r])
+            else:
+                put(name, getattr(layer, name), np.asarray(sub)[r])
+    missing = [n for n, p in model.named_parameters() if id(p) not in done]
+    if missing:
+        raise ValueError(f"parameters the reference does not give: {missing}")
+    return model
+
+
+def caches_from_reference(caches_np, cfg: ModelConfig, *,
+                          device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """The reference's cache pytree (numpy leaves, bf16 included) -> one
+    dict per layer, dtypes kept."""
+    return [{name: to_tensor(np.asarray(arr)[r], device)
+             for name, arr in caches_np[si][bi].items()}
+            for si, r, bi, _ in tf.layer_slots(cfg)]
+
+
+def caches_to_numpy(caches, cfg: ModelConfig):
+    """One dict per layer -> the reference's nesting (tuple of segments,
+    tuple of unit slots, dict of arrays stacked over repeats), as f32
+    numpy."""
+    out = []
+    slots = tf.layer_slots(cfg)
+    for si, (unit, reps) in enumerate(tf.segments(cfg)):
+        unit_caches = []
+        for bi in range(len(unit)):
+            layers = [caches[i] for i, (s, _, b, _) in enumerate(slots)
+                      if s == si and b == bi]
+            unit_caches.append({
+                name: np.stack([c[name].detach().to(torch.float32).cpu()
+                                .numpy() for c in layers])
+                for name in layers[0]})
+        out.append(tuple(unit_caches))
+    return tuple(out)

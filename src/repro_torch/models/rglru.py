@@ -1,0 +1,94 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427), port
+of ``repro.models.rglru``.
+
+    r_t = sigmoid(W_a x_t)          (recurrence gate)
+    i_t = sigmoid(W_x x_t)          (input gate)
+    log a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The gate products with ``wa``/``wx`` run in f32, as in the reference.  The
+recurrence over a sequence is ``repro_torch.kernels.ops.rglru_scan`` (the
+hand-written CUDA scan on the card); a carried state h0 is folded into the
+first step, u_0 ← u_0 + a_0·h0, as the Pallas kernel folds its carry.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import dense_init, param
+
+RGLRU_C = 8.0
+
+
+def init_rglru(gen, cfg, d_model: int, *, device, dtype) -> nn.ParameterDict:
+    r = cfg.rglru
+    w = r.lru_width or d_model
+    kw = dict(device=device, dtype=dtype)
+    p = {
+        "in_x": dense_init(gen, (d_model, w), in_axis=0, **kw),
+        "in_gate": dense_init(gen, (d_model, w), in_axis=0, **kw),
+        "conv_w": dense_init(gen, (r.conv_width, w), in_axis=0, **kw) * 0.1,
+        "conv_b": torch.zeros((w,), **kw),
+        "wa": dense_init(gen, (w, w), in_axis=0, **kw),
+        "ba": torch.zeros((w,), **kw),
+        "wx": dense_init(gen, (w, w), in_axis=0, **kw),
+        "bx": torch.zeros((w,), **kw),
+        # softplus(lambda) ~ 0.2..0.99 decay range init
+        "lam": torch.linspace(0.5, 4.0, w, device=device).to(dtype),
+        "out": dense_init(gen, (w, d_model), in_axis=0, **kw),
+    }
+    return nn.ParameterDict({k: param(v) for k, v in p.items()})
+
+
+def _conv1d(x, w, b, state=None):
+    """Causal depthwise conv over S.  x: (B,S,W); w: (k,W); state: the last
+    k−1 inputs of the previous call (zeros when None).  Returns
+    (y, new_state)."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + b
+    # a copy, so the state does not hold the whole padded input alive
+    return y, (xp[:, -(k - 1):, :].clone() if k > 1 else None)
+
+
+def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
+                  conv_state=None, h_state=None, decode: bool = False,
+                  kernels: bool = True):
+    """RG-LRU block.  x: (B,S,d).  Returns (out, cache).  ``kernels=False``
+    runs the scan's plain version (``ref.rglru_ref``) where the kernel
+    would run."""
+    def w(name):
+        return params[name].to(compute_dtype)
+
+    xb = x @ w("in_x")
+    gate = F.gelu(x @ w("in_gate"), approximate="tanh")   # jax.nn.gelu
+    xb, new_conv = _conv1d(xb, w("conv_w"), w("conv_b"), conv_state)
+
+    xf = xb.to(torch.float32)
+    r = torch.sigmoid(xf @ params["wa"].to(torch.float32) + params["ba"])
+    i = torch.sigmoid(xf @ params["wx"].to(torch.float32) + params["bx"])
+    log_a = -RGLRU_C * F.softplus(params["lam"]) * r
+    a = torch.exp(log_a)
+    u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (
+        i * xf)
+
+    if decode:
+        h0 = h_state if h_state is not None else torch.zeros(
+            (x.shape[0], xb.shape[-1]), dtype=torch.float32, device=x.device)
+        h_fin = a[:, 0] * h0 + u[:, 0]
+        h = h_fin[:, None]
+    else:
+        if h_state is not None:
+            u[:, 0] = u[:, 0] + a[:, 0] * h_state
+        h = ops.rglru_scan(a, u) if kernels else ref.rglru_ref(a, u)
+        h_fin = h[:, -1].clone()
+
+    y = h.to(compute_dtype) * gate
+    out = y @ w("out")
+    return out.to(x.dtype), {"conv": new_conv, "h": h_fin}

@@ -1,0 +1,204 @@
+"""Composable decoder stack (port of ``repro.models.transformer``).
+
+A model is a sequence of blocks (``ModelConfig.blocks()``).  The reference
+stacks each repeated unit of the block pattern along a leading repeat dim
+and runs it under ``lax.scan``; here the layers are one flat list, and
+``layer_slots`` maps each layer to its reference slot: in segment ``si``,
+repeat ``r`` and unit slot ``bi`` sits layer ``offset(si) + r·len(unit) +
+bi``.
+
+Block kinds ported:
+  attn / sliding         GQA attention (+ optional window) + SwiGLU MLP
+  attn_local             windowed attention (RecurrentGemma local layer) + MLP
+  rglru                  RG-LRU temporal mixer + MLP
+``moe`` and ``ssm`` wait for ROADMAP A11 (the mamba2 serving slice brings
+``ssm`` with kernel B7).
+
+Modes: ``train`` runs the plain attention and scan (no gradients yet: the
+training slice comes later); ``prefill`` runs the CUDA kernels
+(``kernels.ops.flash_attention`` and ``kernels.ops.rglru_scan``) and fills
+the caches; ``decode`` advances one token against the caches.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models.layers import init_mlp, mlp, param, rms_norm
+
+ATTN_KINDS = ("attn", "sliding", "attn_local")
+KINDS = ATTN_KINDS + ("rglru",)
+
+
+# ---------------------------------------------------------------------------
+# Segments
+# ---------------------------------------------------------------------------
+
+def segments(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+    """((unit_kinds, n_repeats), ...) covering cfg.blocks()."""
+    blocks = cfg.blocks()
+    pat = cfg.block_pattern or None
+    if pat is None:
+        if cfg.arch_type == "hybrid":
+            pat = cfg.rglru.block_pattern
+        elif cfg.arch_type == "moe":
+            pat = ("moe",)
+        elif cfg.arch_type == "ssm":
+            pat = ("ssm",)
+        else:
+            pat = (blocks[0],)
+    n_full = len(blocks) // len(pat)
+    rem = blocks[n_full * len(pat):]
+    segs = []
+    if n_full:
+        segs.append((tuple(pat), n_full))
+    if rem:
+        segs.append((tuple(rem), 1))
+    return tuple(segs)
+
+
+def layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int, str]]:
+    """(segment, repeat, unit slot, kind) of each layer, in layer order."""
+    return [(si, r, bi, kind)
+            for si, (unit, reps) in enumerate(segments(cfg))
+            for r in range(reps) for bi, kind in enumerate(unit)]
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+def _attn_window(kind: str, cfg: ModelConfig) -> int:
+    if kind == "sliding":
+        return cfg.sliding_window
+    if kind == "attn_local":
+        return cfg.rglru.local_window
+    if cfg.long_context_window:  # long_500k variant for full-attn archs
+        return cfg.long_context_window
+    return 0
+
+
+class Block(nn.Module):
+    """One decoder layer: its kind and its parameters, under the reference's
+    names (``norm1``, ``attn`` or ``rglru``, ``norm2``, ``mlp``)."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, gen, *, device, dtype):
+        super().__init__()
+        if kind not in KINDS:
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet (ROADMAP A11)")
+        d = cfg.d_model
+        kw = dict(device=device, dtype=dtype)
+        self.kind = kind
+        self.norm1 = param(torch.zeros((d,), **kw))
+        if kind == "rglru":
+            self.rglru = rglru_lib.init_rglru(gen, cfg, d, **kw)
+        else:
+            self.attn = attn_lib.init_attention(gen, cfg, d, **kw)
+        self.norm2 = param(torch.zeros((d,), **kw))
+        self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
+
+
+def block_forward(
+    kind: str,
+    params: Block,
+    x,
+    cfg: ModelConfig,
+    *,
+    mode: str,            # "train" | "prefill" | "decode"
+    positions,            # (B,S) absolute positions
+    cache: Optional[Dict] = None,
+    pos: Optional[int] = None,   # decode position
+    compute_dtype=torch.bfloat16,
+    kernels: bool = True,
+):
+    """Returns (x_out, new_cache, aux_loss).  ``kernels=False`` runs the
+    kernels' plain versions in ``prefill`` (the check on the card)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, params.norm1, cfg.norm_eps)
+
+    if kind == "rglru":
+        conv_s = cache["conv"] if cache else None
+        h_s = cache["h"] if cache else None
+        y, new_cache = rglru_lib.rglru_forward(
+            params.rglru, h, cfg, compute_dtype, conv_s, h_s,
+            decode=(mode == "decode"), kernels=kernels and mode == "prefill")
+        x = x + y
+        h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+        x = x + mlp(params.mlp, h2, compute_dtype)
+        return x, new_cache, aux
+
+    # attention-family blocks -------------------------------------------------
+    window = _attn_window(kind, cfg)
+    q, k, v = attn_lib.qkv_project(params.attn, h, cfg, positions,
+                                   compute_dtype)
+
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode needs the caches (model.init_cache)")
+        kc, vc = cache["k"], cache["v"]
+        c_len = kc.shape[1]
+        # write position: ring for windowed caches, absolute otherwise; the
+        # write is a select, so the caches passed in stay as they were
+        widx = (pos % c_len) if window else min(pos, c_len - 1)
+        onehot = (torch.arange(c_len, device=x.device) == widx)[
+            None, :, None, None]
+        kc = torch.where(onehot, k.to(kc.dtype), kc)
+        vc = torch.where(onehot, v.to(vc.dtype), vc)
+        # cold-start validity: slots <= pos written so far (ring: all-true
+        # once pos >= window, which is exactly when wrapping starts)
+        valid = torch.arange(c_len, device=x.device) <= pos
+        ctx = attn_lib.decode_attention(q, kc.to(compute_dtype),
+                                        vc.to(compute_dtype), valid)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        new_cache = None
+        if mode == "prefill":
+            attend = ops.flash_attention if kernels else ref.attention_ref
+            ctx = attend(q, k, v, causal=True, window=window)
+        else:
+            ctx = attn_lib.naive_attention(q, k, v, window=window)
+        if cache is not None:  # prefill populating a cache
+            c_len = cache["k"].shape[1]
+            kw = k[:, -c_len:].to(cache["k"].dtype).clone()
+            vw = v[:, -c_len:].to(cache["v"].dtype).clone()
+            new_cache = {"k": kw, "v": vw}
+
+    y = attn_lib.out_project(params.attn, ctx, compute_dtype)
+    x = x + y
+
+    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+    return x + mlp(params.mlp, h2, compute_dtype), new_cache, aux
+
+
+def stack_forward(
+    layers,
+    x,
+    cfg: ModelConfig,
+    *,
+    mode: str,
+    positions,
+    caches=None,
+    pos=None,
+    compute_dtype=torch.bfloat16,
+    kernels: bool = True,
+):
+    """Run every layer.  ``caches`` is a list with one entry per layer (or
+    None).  Returns (x, new_caches, total_aux)."""
+    new_caches = [] if caches is not None else None
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, layer in enumerate(layers):
+        x, nc, a = block_forward(
+            layer.kind, layer, x, cfg, mode=mode, positions=positions,
+            cache=caches[i] if caches is not None else None, pos=pos,
+            compute_dtype=compute_dtype, kernels=kernels)
+        total_aux = total_aux + a
+        if caches is not None:
+            new_caches.append(nc)
+    return x, new_caches, total_aux

@@ -25,7 +25,20 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
 print("COUNT", sum(m.startswith("repro_torch") for m in sys.modules))
+print("MODULES", " ".join(sorted(m for m in sys.modules
+                                 if m.startswith("repro_torch"))))
 """
+
+# modules every walk must reach: one of each package, the serving path's
+# included
+MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
+               "repro_torch.configs.recurrentgemma_9b",
+               "repro_torch.models.model", "repro_torch.models.transformer",
+               "repro_torch.models.attention", "repro_torch.models.rglru",
+               "repro_torch.models.interop", "repro_torch.launch.serve",
+               "repro_torch.kernels.flash_attention",
+               "repro_torch.kernels.rglru_scan", "repro_torch.core.kgt_minimax",
+               "repro_torch.engine.engine")
 
 
 def _env():
@@ -40,8 +53,10 @@ def test_importing_the_port_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    count = int(out.stdout.split("COUNT")[1])
+    count = int(out.stdout.split("COUNT")[1].split()[0])
     assert count >= 20, out.stdout          # every submodule was imported
+    modules = set(out.stdout.split("MODULES")[1].split())
+    assert not set(MUST_IMPORT) - modules, set(MUST_IMPORT) - modules
 
 
 @pytest.mark.parametrize("path", SOURCES,
