@@ -23,15 +23,22 @@ Phases, each printing one JSON line:
    counts, the four churn families under 70 % participation (Σc ≈ 0,
    inactive clients frozen bit for bit), churn at n = 512 through all three
    kernels on the same per-round W and mask, and rounds/s;
-7. serve — ``launch.serve.serve`` on recurrentgemma-9b at full width in
-   bf16: a batched prefill of 4 prompts of 4096 tokens through the
-   flash-attention and RG-LRU scan kernels, then 32 decode steps; the
-   prefill's logits and caches against the same prefill through the plain
-   versions, prefill + decode against the full-sequence forward, the
-   kernels' launches (12 and 26 a prefill, none in decode), prefill s,
-   decode ms/token, tokens/s, peak memory, and a profile of a warm prefill
-   and of decode steps;
-8. times — device times of each kernel, its plain version and, where one
+7. serve — ``launch.serve.serve`` at full width in bf16 on
+   recurrentgemma-9b (a batched prefill of 4 prompts of 4096 tokens
+   through the flash-attention and RG-LRU scan kernels) and on mamba2-1.3b
+   (8 prompts of 4096 tokens through the SSD scan kernel), then 32 decode
+   steps each; the prefill's logits and caches against the same prefill
+   through the plain versions, prefill + decode against the plain
+   full-sequence forward, the kernels' launches (one a layer in the
+   prefill: 12 and 26, and 48; none in decode), prefill s, decode
+   ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
+   decode steps;
+8. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
+   ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4
+   clients, through the SSD scan (48 launches a call) and the fused
+   cross-entropy (1); group losses against the plain route, finiteness,
+   seconds and tokens/s a client batch, peak memory, a profile;
+9. times — device times of each kernel, its plain version and, where one
    exists, a PyTorch library call, beside the bounds; the epilogue at
    D ≈ 1e8, the model kernels at the served shapes and at S = 32768, and
    rounds/s per mixing_impl.
@@ -58,7 +65,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "serve",
-          "times")
+          "evaluate", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
@@ -90,13 +97,29 @@ TOL_ATTN_F32 = 2e-5      # attention, f32 operands, × (1 + max|plain|)
 TOL_ATTN_BF16 = 1e-2     # bf16 output: one bf16 ulp, × (1 + max|plain|)
 TOL_SCAN = 1e-6          # RG-LRU scan, × (1 + max|plain|) (same step order)
 TOL_SERVE = 3e-2         # bf16 logits and caches, × (1 + max|reference|)
+# mamba2-1.3b's bf16 checks: its 48 layers amplify bf16 rounding (its own
+# bf16 logits miss its f32 ones by about as much, ``plain_bf16_vs_f32``);
+# the f32 checks below hold the kernels and caches at TOL_SERVE_F32
+TOL_SERVE_BF16 = {"recurrentgemma-9b": TOL_SERVE, "mamba2-1.3b": 8e-2}
+TOL_SERVE_F32 = 1e-4     # the same checks in f32 compute, × (1 + max)
+TOL_SSD = 1e-5           # SSD scan y and final state, × (1 + max|plain|)
+TOL_CE = 1e-5            # fused cross-entropy NLL, × (1 + max|plain|)
+TOL_EVAL = 1e-3          # group losses, kernel vs plain route, × (1 + max)
 
 # the serving path: recurrentgemma-9b at full width in bf16, 4 prompts of two
 # windows (4096 tokens), 32 new tokens each
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "recurrentgemma-9b", 4, 4096, 32
 LONG_S = 32768           # configs/shapes.py PREFILL_32K's length, batch 1
+# the second served model: mamba2-1.3b at full width in bf16, 8 prompts of
+# 4096 tokens, 32 new tokens each
+MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2-1.3b", 8, 4096, 32
+# evaluation: group_metrics on mamba2-1.3b, one batch of 4 × 4096 tokens
+# (train_4k's length) for each of 4 clients, 8 groups (the reference's
+# make_data_model defaults)
+EVAL_CLIENTS, EVAL_B, EVAL_S, EVAL_GROUPS = 4, 4, 4096, 8
 # the serve and churn paths launch no kernel of the other's
-NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0}
+NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
+                    "fused_cross_entropy": 0}
 
 
 def emit(obj) -> None:
@@ -568,6 +591,154 @@ def check_rglru_scan(gen, dev) -> float:
     return worst
 
 
+def served_ssd_shapes():
+    """(B, S, H, P, N, chunk) of the SSD scan in the mamba2 serve prefill,
+    in evaluation (state0 None there) and at prefill_32k's length."""
+    from repro_torch.configs import registry
+
+    s = registry.get_model_config(MAMBA_ARCH).ssm
+    cfg = registry.get_model_config(MAMBA_ARCH)
+    h = s.expand * cfg.d_model // s.d_head
+    return [(b, sl, h, s.d_head, s.d_state, s.chunk)
+            for b, sl in ((MAMBA_B, MAMBA_PROMPT), (EVAL_B, EVAL_S),
+                          (1, LONG_S))]
+
+
+def ssd_operands(b, s, h, p, n, gen, dev):
+    """xdt, loga (< 0, as −exp(A_log)·dt in the model), B, C and a state0."""
+    import torch
+
+    return (torch.randn((b, s, h, p), generator=gen, device=dev) * 0.5,
+            -torch.rand((b, s, h), generator=gen, device=dev),
+            torch.randn((b, s, n), generator=gen, device=dev),
+            torch.randn((b, s, n), generator=gen, device=dev),
+            torch.randn((b, h, p, n), generator=gen, device=dev))
+
+
+# (B, S, H, P, N, chunk): S = 1 and S < chunk, ragged last chunks, H from 1
+# to 64, P 32 and 64, N 16 and 128, chunk 16 and 64; then the reduced
+# mamba2's shape (CPU tests)
+SSD_CASES = [
+    (1, 1, 1, 32, 16, 16), (2, 10, 3, 32, 16, 16), (2, 37, 4, 32, 16, 16),
+    (1, 100, 1, 64, 128, 64), (2, 130, 8, 64, 128, 64),
+    (3, 64, 2, 32, 128, 64), (1, 257, 64, 64, 128, 64),
+    (2, 48, 5, 64, 16, 64), (2, 40, 16, 32, 16, 16),
+]
+
+
+def check_ssd_scan(gen, dev) -> float:
+    """B7 against ``ref.ssd_chunked`` (y and final state), with and without
+    state0, over SSD_CASES, operands read through strides, and the shapes
+    of the serve, evaluate and times phases.  Returns the largest absolute
+    error."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+
+    worst = worst_rel = 0.0
+    cases = 0
+    for b, s, h, p, n, chunk in SSD_CASES + served_ssd_shapes():
+        xdt, loga, bm, cm, s0 = ssd_operands(b, s, h, p, n, gen, dev)
+        for state0 in (None, s0):
+            y, fin = ssd_scan.ssd_scan_bshp(xdt, loga, bm, cm, state0,
+                                            chunk=chunk)
+            py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk, state0)
+            for name, got, want in (("y", y, py), ("state", fin, pfin)):
+                err = max_err(got, want)
+                rel = err / (1 + float(want.abs().max()))
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                if not rel <= TOL_SSD:
+                    fail(f"ssd_scan {(b, s, h, p, n, chunk)} state0="
+                         f"{state0 is not None}: {name} err {err}")
+            cases += 1
+        del xdt, loga, bm, cm, s0, y, fin, py, pfin
+    # strided operands: xdt, B and C as slices of wider tensors, loga a
+    # transposed view
+    b, s, h, p, n = 2, 100, 4, 64, 128
+    wide = torch.randn((b, s, h, p + 8), generator=gen, device=dev)
+    bc = torch.randn((b, s, 2 * n + 3), generator=gen, device=dev)
+    loga = -torch.rand((b, h, s), generator=gen, device=dev).transpose(1, 2)
+    xdt, bm, cm = wide[..., :p], bc[..., :n], bc[..., n:2 * n]
+    y, fin = ssd_scan.ssd_scan_bshp(xdt, loga, bm, cm, chunk=64)
+    py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, 64)
+    err = max(rel_err(y, py), rel_err(fin, pfin))
+    if not err <= TOL_SSD:
+        fail(f"ssd_scan with strided operands: err {err}")
+    worst_rel = max(worst_rel, err)
+    cases += 1
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "ssd_scan", "cases": cases,
+          "max_abs_err": worst, "max_err_over_1_plus_max": worst_rel,
+          "tol": TOL_SSD, "served_shapes": served_ssd_shapes()})
+    return worst
+
+
+def ce_operands(n, d, v, dtype, gen, dev, *, tied=True):
+    """hidden (N, d); the head as a (V, d) operand — contiguous (tied) or
+    the transposed view of a contiguous (d, V) head (untied); labels with
+    0 and V − 1 among them."""
+    import torch
+
+    hidden = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    scale = 3.0 / d ** 0.5
+    if tied:
+        w = (torch.randn((v, d), generator=gen, device=dev) * scale).to(dtype)
+    else:
+        w = (torch.randn((d, v), generator=gen, device=dev)
+             * scale).to(dtype).T
+    labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+    labels[0] = 0
+    labels[-1] = v - 1
+    return hidden, w, labels
+
+
+def eval_ce_shape():
+    """(N, d, V) of B6 in evaluation: all tokens of a client batch."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_model_config(MAMBA_ARCH)
+    return EVAL_B * EVAL_S, cfg.d_model, cfg.vocab_size
+
+
+# (N, d, V): one token and one class, ragged N, d and V (V past and short of
+# a 128 tile), mamba2's d and V with few tokens, the reduced model's shape
+CE_CASES = [(1, 16, 1), (5, 33, 7), (100, 64, 1000), (130, 256, 50280),
+            (257, 2048, 5000), (64, 2048, 50280), (80, 256, 512)]
+
+
+def check_cross_entropy(gen, dev) -> float:
+    """B6 against ``ref.fused_ce_ref`` in f32 and bf16, tied and untied
+    layouts, over CE_CASES and the evaluate shape (bf16, tied).  Returns the
+    largest absolute error."""
+    import torch
+
+    from repro_torch.kernels import cross_entropy, ref
+
+    worst = worst_rel = 0.0
+    cases = 0
+    grid = [(c, dt, tied) for c in CE_CASES
+            for dt in (torch.float32, torch.bfloat16) for tied in (True, False)]
+    grid.append((eval_ce_shape(), torch.bfloat16, True))
+    for (n, d, v), dtype, tied in grid:
+        hidden, w, labels = ce_operands(n, d, v, dtype, gen, dev, tied=tied)
+        got = cross_entropy.fused_ce_nd(hidden, w, labels)
+        want = ref.fused_ce_ref(hidden, w, labels)
+        err = max_err(got, want)
+        rel = err / (1 + float(want.abs().max()))
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        if not rel <= TOL_CE:
+            fail(f"fused_cross_entropy {(n, d, v)} {dtype} tied={tied}: "
+                 f"err {err}")
+        cases += 1
+        del hidden, w, labels, got, want
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "fused_cross_entropy",
+          "cases": cases, "max_abs_err": worst,
+          "max_err_over_1_plus_max": worst_rel, "tol": TOL_CE,
+          "eval_shape": list(eval_ce_shape())})
+    return worst
+
+
 def torch_randn(gen, dev, *shape):
     import torch
 
@@ -919,7 +1090,7 @@ def phase_scale(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving recurrentgemma-9b at full width
+# phase 7: serving recurrentgemma-9b and mamba2-1.3b at full width
 # ---------------------------------------------------------------------------
 
 def rel_err(got, want) -> float:
@@ -929,12 +1100,14 @@ def rel_err(got, want) -> float:
 
 
 def kernel_category(name: str) -> str:
-    """The serve profile's buckets: the two kernels, f32 GEMMs (the RG-LRU
+    """The profiles' buckets: the model kernels, f32 GEMMs (the RG-LRU
     gates), the other (bf16) GEMMs, dtype copies, everything else."""
-    if "flash_attention_kernel" in name:
-        return "flash_attention"
-    if "rglru_scan_kernel" in name:
-        return "rglru_scan"
+    for kernel, cat in (("flash_attention_kernel", "flash_attention"),
+                        ("rglru_scan_kernel", "rglru_scan"),
+                        ("ssd_scan_kernel", "ssd_scan"),
+                        ("fused_ce_kernel", "fused_cross_entropy")):
+        if kernel in name:
+            return cat
     low = name.lower()
     if "sgemm" in low or "f32f32" in low:
         return "gemm_f32"
@@ -976,12 +1149,25 @@ def profile_device(fn) -> dict:
                     for e in top]}
 
 
-def phase_serve(dev) -> dict:
-    """The serving path: ``launch.serve.serve`` on recurrentgemma-9b at full
-    width in bf16 (4 prompts of 4096 tokens, 32 new tokens each), then its
+def serve_launches(cfg) -> dict:
+    """Each model kernel's launches in one prefill of ``cfg``: one a layer
+    that runs it."""
+    from repro_torch.models import transformer as tf
+
+    kinds = cfg.blocks()
+    return {**NO_MODEL_KERNELS,
+            "flash_attention": sum(kinds.count(k) for k in tf.ATTN_KINDS),
+            "rglru_scan": kinds.count("rglru"),
+            "ssd_scan": kinds.count("ssm")}
+
+
+def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
+    """``launch.serve.serve`` on ``arch`` at full width in bf16, then its
     checks: the prefill against the same prefill through the plain versions
-    (logits and every cache), prefill + decode against the full-sequence
-    forward, the kernels' launches, and finiteness."""
+    (logits and every cache), prefill + decode against the plain full
+    forward (``kernels=False``), the kernels' launches (one a layer in the
+    prefill, none in decode), and finiteness; then a profile of a warm
+    prefill and of decode steps."""
     import torch
 
     from repro_torch.launch import serve as serve_lib
@@ -990,61 +1176,85 @@ def phase_serve(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     # the serve path's launch counts: set to 0 just before, read just after
     zero_launch_counts()
-    res = serve_lib.serve(SERVE_ARCH, batch=SERVE_B, prompt_len=SERVE_PROMPT,
-                          gen_tokens=SERVE_GEN, device=dev, seed=0)
+    res = serve_lib.serve(arch, batch=batch, prompt_len=prompt_len,
+                          gen_tokens=gen_tokens, device=dev, seed=0)
     launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model, cfg = res.model, res.model.cfg
-    kinds = cfg.blocks()
-    n_attn, n_rglru = kinds.count("attn_local"), kinds.count("rglru")
     zeros = {k: 0 for k in launches}
-    want_prefill = {**zeros, "flash_attention": n_attn, "rglru_scan": n_rglru}
+    want_prefill = {**zeros, **serve_launches(cfg)}
     if res.launches["prefill"] != want_prefill or launches != want_prefill:
-        fail(f"serve launches {res.launches}, total {launches}; expected "
-             f"{want_prefill} in the prefill")
+        fail(f"serve {arch} launches {res.launches}, total {launches}; "
+             f"expected {want_prefill} in the prefill")
     if res.launches["decode"] != zeros:
-        fail(f"serve: kernels launched during decode: {res.launches}")
+        fail(f"serve {arch}: kernels launched during decode: "
+             f"{res.launches}")
     if not torch.isfinite(res.logits.float()).all():
-        fail("serve: non-finite logits")
+        fail(f"serve {arch}: non-finite logits")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
-        fail("serve: a token outside the vocabulary")
+        fail(f"serve {arch}: a token outside the vocabulary")
 
     errs = {}
+    total = prompt_len + gen_tokens
     with torch.no_grad():
-        # the same prefill through the plain attention and scan
-        caches = model_lib.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
-                                      device=dev)
+        # the same prefill through the plain versions of the kernels
+        caches = model_lib.init_cache(cfg, batch, total, device=dev)
         plain, plain_caches, _ = model_lib.forward(
             model, {"tokens": res.prompt}, mode="prefill", caches=caches,
             last_only=True, kernels=False)
         errs["prefill_logits_vs_plain"] = rel_err(res.logits[:, :1], plain)
-        cache_errs = [rel_err(c[name], p[name]) for c, p in
-                      zip(res.prefill_caches, plain_caches) for name in c]
-        errs["prefill_caches_vs_plain"] = max(cache_errs)
-        del plain, plain_caches, caches
-        # prefill + decode against the forward over prompt + new tokens
+        cache_errs = {}
+        for c, p in zip(res.prefill_caches, plain_caches):
+            for name in c:
+                cache_errs[name] = max(cache_errs.get(name, 0.0),
+                                       rel_err(c[name], p[name]))
+        errs["prefill_caches_vs_plain"] = max(cache_errs.values())
+        errs["prefill_caches_vs_plain_by_name"] = cache_errs
+        del plain_caches, caches
+        # prefill + decode against the plain forward over prompt + new
+        # tokens
         seq = torch.cat([res.prompt, res.tokens], dim=1)
         hidden, _, _ = model_lib.backbone(model, {"tokens": seq},
-                                          mode="prefill")
-        full = model_lib.lm_head(model, hidden[:, SERVE_PROMPT - 1:],
+                                          mode="prefill", kernels=False)
+        full = model_lib.lm_head(model, hidden[:, prompt_len - 1:],
                                  torch.bfloat16)
         del hidden
         errs["decode_logits_vs_full_forward"] = rel_err(res.logits, full)
+        errs["decode_logits_vs_full_forward_by_position"] = [
+            rel_err(res.logits[:, i], full[:, i])
+            for i in range(full.shape[1])]
         diff = (res.logits.float() - full.float()).norm(dim=-1)
         errs["decode_logits_rel_l2_max"] = float(
             (diff / full.float().norm(dim=-1)).max())
         errs["argmax_agreement"] = float(
             (res.logits.argmax(-1) == full.argmax(-1)).float().mean())
+        # the bf16 noise floor without any kernel: the plain prefill's last
+        # logits against the same position of the plain forward over the
+        # longer sequence (the same math on GEMMs of other shapes)
+        errs["plain_vs_plain_other_length"] = rel_err(plain, full[:, :1])
         del full
+        f32_errs, plain_f32 = serve_f32_checks(model, res.prompt[:2], dev)
+        errs.update(f32_errs)
+        # the model's own bf16 error: the bf16 prefills (plain, kernel)
+        # against the plain f32 prefill, first two prompts
+        errs["plain_bf16_vs_f32"] = rel_err(plain[:2], plain_f32)
+        errs["kernel_bf16_vs_f32"] = rel_err(res.logits[:2, :1], plain_f32)
+        del plain, plain_f32
+    tol = TOL_SERVE_BF16[arch]
     for key in ("prefill_logits_vs_plain", "prefill_caches_vs_plain",
                 "decode_logits_vs_full_forward"):
-        if not errs[key] <= TOL_SERVE:
-            fail(f"serve: {key} = {errs[key]} > {TOL_SERVE}")
+        if not errs[key] <= tol:
+            emit({"phase": "serve", "arch": arch, "failed": key, **errs})
+            fail(f"serve {arch}: {key} = {errs[key]} > {tol}")
+    for key in ("prefill_logits_vs_plain_f32",
+                "decode_logits_vs_full_forward_f32"):
+        if not errs[key] <= TOL_SERVE_F32:
+            emit({"phase": "serve", "arch": arch, "failed": key, **errs})
+            fail(f"serve {arch}: {key} = {errs[key]} > {TOL_SERVE_F32}")
 
     # a warm prefill and a few decode steps under the profiler
     def prefill():
-        c = model_lib.init_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
-                                 device=dev)
+        c = model_lib.init_cache(cfg, batch, total, device=dev)
         return model_lib.forward(model, {"tokens": res.prompt},
                                  mode="prefill", caches=c, last_only=True)
 
@@ -1061,28 +1271,160 @@ def phase_serve(dev) -> dict:
             c = warm_caches
             for i in range(4):
                 _, c = model_lib.decode_step(model, c, toks[:, i:i + 1],
-                                             SERVE_PROMPT + i)
+                                             prompt_len + i)
 
         prof_decode = profile_device(decode4)
     n_params = model_lib.param_count(model)
     weight_gb = 2 * n_params / 1e9
+    # a decode step reads every weight once but the embedding, of which it
+    # gathers B rows — unless the embedding is also the (tied) head
+    gathered_gb = (0.0 if cfg.tie_embeddings
+                   else 2 * cfg.vocab_size * cfg.d_model / 1e9)
     out = {"prefill_s": res.prefill_s, "prefill_warm_s": warm_s,
-           "decode_ms_per_token": 1e3 * res.decode_s / SERVE_GEN,
-           "tokens_per_s": SERVE_B * SERVE_GEN / res.decode_s,
-           "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT / warm_s,
+           "decode_ms_per_token": 1e3 * res.decode_s / gen_tokens,
+           "tokens_per_s": batch * gen_tokens / res.decode_s,
+           "prefill_tokens_per_s": batch * prompt_len / warm_s,
            "peak_memory_gb": peak_gb, "params": n_params,
            "weights_gb_bf16": weight_gb,
-           "decode_bound_ms": (weight_gb - 2 * cfg.vocab_size * cfg.d_model
-                               / 1e9) / HBM_BYTES_S * 1e12,
-           "launches": res.launches, **errs, "tol": TOL_SERVE}
-    emit({"phase": "serve", "arch": SERVE_ARCH, "batch": SERVE_B,
-          "prompt_len": SERVE_PROMPT, "gen_tokens": SERVE_GEN, **out})
-    emit({"phase": "serve", "profile": "prefill (warm)", **prof_prefill})
-    emit({"phase": "serve", "profile": "4 decode steps",
+           "decode_bound_ms": (weight_gb - gathered_gb) / HBM_BYTES_S * 1e12,
+           "launches": res.launches, **errs, "tol": tol,
+           "tol_f32": TOL_SERVE_F32}
+    emit({"phase": "serve", "arch": arch, "batch": batch,
+          "prompt_len": prompt_len, "gen_tokens": gen_tokens, **out})
+    emit({"phase": "serve", "arch": arch, "profile": "prefill (warm)",
+          **prof_prefill})
+    emit({"phase": "serve", "arch": arch, "profile": "4 decode steps",
           "per_step_us": prof_decode["wall_us"] / 4, **prof_decode})
     del res, model, warm_caches
     torch.cuda.empty_cache()
     return out
+
+
+def serve_f32_checks(model, prompt, dev, gen_tokens: int = 8) -> dict:
+    """The serve path's kernels and caches computed in f32 (bf16 weights,
+    f32 activations), where rounding cannot hide a fault: the greedy
+    prefill + decode of ``prompt`` against the plain full forward, and the
+    kernel prefill against the plain prefill.  Returns (errors, the plain
+    f32 prefill's last logits)."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    f32 = torch.float32
+    b, prompt_len = prompt.shape
+    res = serve_lib.generate(model, prompt, gen_tokens, temperature=0.0,
+                             compute_dtype=f32)
+    seq = torch.cat([prompt, res.tokens], dim=1)
+    with torch.no_grad():
+        hidden, _, _ = model_lib.backbone(model, {"tokens": seq},
+                                          mode="prefill", compute_dtype=f32,
+                                          kernels=False)
+        full = model_lib.lm_head(model, hidden[:, prompt_len - 1:], f32)
+        del hidden
+        plain, _, _ = model_lib.forward(
+            model, {"tokens": prompt}, mode="prefill", compute_dtype=f32,
+            caches=model_lib.init_cache(model.cfg, b, prompt_len + gen_tokens,
+                                        dtype=f32, device=dev),
+            last_only=True, kernels=False)
+    return ({"prefill_logits_vs_plain_f32": rel_err(res.logits[:, :1], plain),
+             "decode_logits_vs_full_forward_f32": rel_err(res.logits, full),
+             "f32_check_shape": [b, prompt_len, gen_tokens]}, plain)
+
+
+def phase_serve(dev) -> dict:
+    """The serving path on both served models: recurrentgemma-9b (4 prompts
+    of 4096 tokens, through B5 and B8) and mamba2-1.3b (8 prompts of 4096
+    tokens, through B7), 32 new tokens each."""
+    return {SERVE_ARCH: serve_one(dev, SERVE_ARCH, SERVE_B, SERVE_PROMPT,
+                                  SERVE_GEN),
+            MAMBA_ARCH: serve_one(dev, MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT,
+                                  MAMBA_GEN)}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: evaluating mamba2-1.3b at full width
+# ---------------------------------------------------------------------------
+
+def phase_evaluate(dev) -> dict:
+    """``launch.evaluate.evaluate`` on mamba2-1.3b at full width in bf16:
+    ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4 clients,
+    through B7 (48 a call) and B6 (1 a call); each client's group losses
+    against the plain route (the plain scan and the reference's bf16-logit
+    cross-entropy), finiteness, seconds and tokens/s a client batch, peak
+    memory, and a profile of one warm call."""
+    import torch
+
+    from repro_torch.evaluation.metrics import group_metrics
+    from repro_torch.launch import evaluate as eval_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    # the evaluate path's launch counts: set to 0 just before, read after
+    zero_launch_counts()
+    res = eval_lib.evaluate(MAMBA_ARCH, clients=EVAL_CLIENTS, batch=EVAL_B,
+                            seq_len=EVAL_S, num_groups=EVAL_GROUPS,
+                            device=dev, seed=0)
+    launches = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = res.model
+    n_ssm = model.cfg.blocks().count("ssm")
+    want = {**{k: 0 for k in launches}, "ssd_scan": n_ssm,
+            "fused_cross_entropy": 1}
+    total = {k: v * EVAL_CLIENTS for k, v in want.items()}
+    if any(got != want for got in res.launches) or launches != total:
+        fail(f"evaluate launches {res.launches}, total {launches}; expected "
+             f"{want} a client")
+    errs, worst_same = [], []
+    for i, (b, m) in enumerate(zip(res.batches, res.metrics)):
+        for key in ("group_loss", "mean_loss", "worst_group_loss"):
+            if not bool(torch.isfinite(m[key]).all()):
+                fail(f"evaluate client {i}: {key} not finite")
+        plain = group_metrics(model, b, num_groups=EVAL_GROUPS,
+                              kernels=False)
+        err = rel_err(m["group_loss"], plain["group_loss"])
+        errs.append(err)
+        worst_same.append(int(m["worst_group"]) == int(plain["worst_group"]))
+        if not err <= TOL_EVAL:
+            fail(f"evaluate client {i}: group losses differ from the plain "
+                 f"route by {err} > {TOL_EVAL} × (1 + max)")
+        emit({"phase": "evaluate", "client": i,
+              "group_loss": m["group_loss"].tolist(),
+              "group_loss_plain": plain["group_loss"].tolist(),
+              "groups_present": int(m["groups_present"]),
+              "mean_loss": float(m["mean_loss"]),
+              "worst_group": int(m["worst_group"]),
+              "worst_group_loss": float(m["worst_group_loss"]),
+              "err_vs_plain": err, "seconds": res.seconds[i],
+              "tokens_per_s": EVAL_B * EVAL_S / res.seconds[i],
+              "launches": res.launches[i]})
+    warm_s = time_host(lambda: group_metrics(
+        model, res.batches[0], num_groups=EVAL_GROUPS))
+    plain_s = time_host(lambda: group_metrics(
+        model, res.batches[0], num_groups=EVAL_GROUPS, kernels=False))
+    prof = profile_device(lambda: group_metrics(
+        model, res.batches[0], num_groups=EVAL_GROUPS))
+    out = {"seconds": res.seconds, "warm_s": warm_s, "plain_route_s": plain_s,
+           "tokens_per_s_warm": EVAL_B * EVAL_S / warm_s,
+           "peak_memory_gb": peak_gb, "max_err_vs_plain": max(errs),
+           "worst_group_same_as_plain": worst_same, "launches": launches,
+           "tol": TOL_EVAL}
+    emit({"phase": "evaluate", "arch": MAMBA_ARCH, "clients": EVAL_CLIENTS,
+          "batch": EVAL_B, "seq_len": EVAL_S, "groups": EVAL_GROUPS, **out})
+    emit({"phase": "evaluate", "profile": "group_metrics (warm)", **prof})
+    del res, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_host(fn) -> float:
+    """Host seconds of one call that ends in a synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def attn_bound_ms(b, sq, sk, h, kv, d, window, elem_bytes, flop_s):
@@ -1100,6 +1442,99 @@ def attn_bound_ms(b, sq, sk, h, kv, d, window, elem_bytes, flop_s):
 
 def scan_bound_ms(b, s, w):
     return _bound(12 * b * s * w, 2 * b * s * w)
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk, with_state0=False):
+    """The chunked SSD's least work: per (chunk, head) L(L+1)/2·P
+    multiply-adds for the intra-chunk product, L·P·N for C·Sᵀ and L·P·N
+    (+ P·N) for the state update, and C·Bᵀ, L(L+1)/2·N, once per (batch
+    row, chunk) — it is the same for every head.  Bytes: xdt and y, loga,
+    B and C, the final state (and state0) moved once, f32."""
+    full, rest = divmod(s, chunk)
+    lens = [chunk] * full + ([rest] if rest else [])
+    tri = sum(l_ * (l_ + 1) // 2 for l_ in lens)
+    flops = 2 * b * (h * (tri * p + 2 * s * p * n + len(lens) * p * n)
+                     + tri * n)
+    byts = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
+                + (2 if with_state0 else 1) * b * h * p * n)
+    return _bound(byts, flops)
+
+
+def ce_bound_ms(n, d, v, elem_bytes):
+    """2·N·V·d operations at the operands' peak (bf16 tensor cores, or f32
+    CUDA cores) against hidden, weight, labels and the NLL moved once;
+    also the bound at the f32 CUDA-core peak."""
+    flops = 2 * n * v * d
+    byts = elem_bytes * (n * d + v * d) + 8 * n + 4 * n
+    peak = BF16_FLOP_S if elem_bytes == 2 else F32_FLOP_S
+    t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return ((t_b, "bytes") if t_b >= t_f else (t_f, "operations"),
+            flops / F32_FLOP_S * 1e3)
+
+
+def time_mamba_kernels(gen, dev) -> dict:
+    """B7 at the mamba2 serve prefill's shape (state0 zeros, as the prefill
+    passes its zero cache) and at prefill_32k's length, batch 1; B6 at the
+    evaluate shape in bf16 (tied layout).  Each beside its plain version,
+    its bound and, for B6, the nearest PyTorch calls: ``torch.mm`` of the
+    bf16 operands to f32 logits, then ``F.cross_entropy(reduction="none")``
+    (two calls; B7 has none).  CUDA-event times of eager calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cross_entropy, ref, ssd_scan
+
+    out = {}
+    for b, s, h, p, n, chunk in served_ssd_shapes():
+        if (b, s) == (EVAL_B, EVAL_S):
+            continue
+        xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
+        s0 = torch.zeros((b, h, p, n), device=dev)
+        ms = cuda_ms(lambda: ssd_scan.ssd_scan_bshp(  # noqa: E731
+            xdt, loga, bm, cm, s0, chunk=chunk), reps=11)
+        pms = cuda_ms(lambda: ref.ssd_chunked(  # noqa: E731
+            xdt, loga, bm, cm, chunk, s0), reps=3)
+        (bound, by) = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=True)
+        emit({"phase": "times", "kernel": "ssd_scan",
+              "shape": [b, s, h, p, n], "chunk": chunk, "ms": ms,
+              "plain_ms": pms, "library_ms": None, "bound_ms": bound,
+              "bound_by": by})
+        if (b, s) == (MAMBA_B, MAMBA_PROMPT):
+            out["ssd_scan"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                   bound_by=by, library_ms=None)
+        del xdt, loga, bm, cm, s0
+        torch.cuda.empty_cache()
+    n, d, v = eval_ce_shape()
+    hidden, w, labels = ce_operands(n, d, v, torch.bfloat16, gen, dev)
+    ms = cuda_ms(lambda: cross_entropy.fused_ce_nd(  # noqa: E731
+        hidden, w, labels), reps=5)
+    pms = cuda_ms(lambda: ref.fused_ce_ref(hidden, w, labels),  # noqa: E731
+                  reps=5)
+
+    def lib():
+        try:
+            logits = torch.mm(hidden, w.T, out_dtype=torch.float32)
+        except (TypeError, NotImplementedError, RuntimeError):
+            # a torch without mm's out_dtype: bf16 logits, then a cast
+            logits = torch.mm(hidden, w.T).float()
+        return F.cross_entropy(logits, labels, reduction="none")
+
+    lib_err = max_err(lib(), cross_entropy.fused_ce_nd(hidden, w, labels))
+    lms = cuda_ms(lib, reps=5)
+    (bound, by), f32_bound = ce_bound_ms(n, d, v, 2)
+    emit({"phase": "times", "kernel": "fused_cross_entropy",
+          "shape": [n, d, v], "dtype": "bfloat16", "ms": ms, "plain_ms": pms,
+          "library_ms": lms, "library_max_abs_err_vs_kernel": lib_err,
+          "library": "two calls: torch.mm(h, w.T, out_dtype=float32), then "
+                     "F.cross_entropy(reduction='none')",
+          "bound_ms": bound, "bound_by": by,
+          "bound_ms_at_f32_cuda_core_peak": f32_bound,
+          "tflop_s": 2 * n * v * d / ms / 1e9})
+    out["fused_cross_entropy"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+                                      bound_by=by, library_ms=lms)
+    del hidden, w, labels
+    torch.cuda.empty_cache()
+    return out
 
 
 def time_model_kernels(gen, dev) -> dict:
@@ -1171,7 +1606,7 @@ def time_model_kernels(gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: times
+# phase 9: times
 # ---------------------------------------------------------------------------
 
 def phase_times(dev, gen) -> dict:
@@ -1215,6 +1650,7 @@ def phase_times(dev, gen) -> dict:
 
     out["sparse_gossip"] = time_sparse_gossip(gen, dev)
     out.update(time_model_kernels(gen, dev))
+    out.update(time_mamba_kernels(gen, dev))
 
     # the epilogue at a paper-toy-sized packed state
     d_big = 100_000_000
@@ -1392,14 +1828,17 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     names = ("fused_gossip", "fused_round", "sparse_gossip",
-             "flash_attention", "rglru_scan")
+             "flash_attention", "rglru_scan", "ssd_scan",
+             "fused_cross_entropy")
     errs = dict.fromkeys(names)
     if "kernels" in phases:
         errs = {"fused_gossip": check_gossip(gen, dev),
                 "fused_round": check_round(gen, dev),
                 "sparse_gossip": check_sparse_gossip(gen, dev),
                 "flash_attention": check_flash_attention(gen, dev),
-                "rglru_scan": check_rglru_scan(gen, dev)}
+                "rglru_scan": check_rglru_scan(gen, dev),
+                "ssd_scan": check_ssd_scan(gen, dev),
+                "fused_cross_entropy": check_cross_entropy(gen, dev)}
         torch.cuda.synchronize()
     launches = dict.fromkeys(names)
     if "main" in phases:
@@ -1411,10 +1850,16 @@ def main(argv=None) -> int:
     if "scale" in phases:
         scale = phase_scale(dev)
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
+    launches_eval = dict.fromkeys(names)
     if "serve" in phases:
         serve = phase_serve(dev)
-        for name in ("flash_attention", "rglru_scan"):
-            launches[name] = serve["launches"]["prefill"][name]
+        for name, arch in (("flash_attention", SERVE_ARCH),
+                           ("rglru_scan", SERVE_ARCH),
+                           ("ssd_scan", MAMBA_ARCH)):
+            launches[name] = serve[arch]["launches"]["prefill"][name]
+    if "evaluate" in phases:
+        launches_eval.update(phase_evaluate(dev)["launches"])
+        launches["fused_cross_entropy"] = launches_eval["fused_cross_entropy"]
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -1437,11 +1882,18 @@ def main(argv=None) -> int:
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:43"},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:63"},
+        {"name": "fused_cross_entropy", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cross_entropy.cu",
+         "replaces": "src/repro/kernels/cross_entropy.py:66"},
     ]
     for k in kernels:
         t = times[k["name"]]
         k.update(launches=launches[k["name"]],
                  launches_quickstart=qs_launches[k["name"]],
+                 launches_evaluate=launches_eval[k["name"]],
                  max_abs_err=errs[k["name"]],
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
@@ -1452,14 +1904,22 @@ def main(argv=None) -> int:
                            "(n = 8); sparse_gossip: the scale phase "
                            "(n = 4096, 20 rounds × 4 algorithms); "
                            "flash_attention, rglru_scan: the serve phase's "
-                           "prefill (recurrentgemma-9b, 4 × 4096 tokens)",
-          "library_ms_note": "fused_gossip, fused_round, rglru_scan: no "
-                             "single PyTorch call computes the function; "
-                             "sparse_gossip: torch.sparse.mm of the CSR W on "
-                             "[Δ|θ], the gather half only, at the scale "
-                             "path's two shapes; flash_attention: "
+                           "prefill (recurrentgemma-9b, 4 × 4096 tokens); "
+                           "ssd_scan: the serve phase's prefill "
+                           "(mamba2-1.3b, 8 × 4096 tokens); "
+                           "fused_cross_entropy: the evaluate phase (4 "
+                           "clients × 4 × 4096 tokens), where ssd_scan "
+                           "launches too (launches_evaluate)",
+          "library_ms_note": "fused_gossip, fused_round, rglru_scan, "
+                             "ssd_scan: no single PyTorch call computes the "
+                             "function; sparse_gossip: torch.sparse.mm of "
+                             "the CSR W on [Δ|θ], the gather half only, at "
+                             "the scale path's two shapes; flash_attention: "
                              "scaled_dot_product_attention with the banded "
-                             "bool mask at the served shape (bf16)"})
+                             "bool mask at the served shape (bf16); "
+                             "fused_cross_entropy: the nearest, two calls "
+                             "(torch.mm to f32 logits, then "
+                             "F.cross_entropy) at the evaluate shape"})
     if set(PHASES) - phases:
         print(f"chip_smoke: only ran {sorted(phases)}", file=sys.stderr)
         return 2

@@ -1,0 +1,101 @@
+"""Synthetic heterogeneous federated token data (port of
+``repro.data.synthetic``).
+
+Each of G *domains* has its own unigram model plus a distinct bigram
+shift; each client draws sequences from a client-specific Dirichlet(alpha)
+mixture over domains.  ``alpha`` sets inter-client heterogeneity (alpha →
+0: disjoint domains per client; alpha → ∞: iid clients).  Group labels (the
+domain of each sequence) feed the per-group losses.
+
+Draws come from an explicit ``torch.Generator``, whose numbers differ from
+``jax.random``'s for the same seed.  So the step from the draws to a batch
+(``batch_from_draws``: the bigram blend of reference :97-106) is a pure
+function of the draws (g, first, use_bigram), and the parity test feeds it
+the reference's own draws; the sampler itself is held to the mixtures
+statistically.  ``round_batches`` and the multi-codebook streams wait for
+the training slice (ROADMAP A11).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DataModel:
+    domain_logits: torch.Tensor    # (G, V) unigram logits per domain
+    domain_shift: torch.Tensor     # (G,) bigram shift per domain
+    mixtures: torch.Tensor         # (n_clients, G) client domain mixtures
+    vocab_size: int
+    num_groups: int
+
+
+def make_data_model(generator: Optional[torch.Generator] = None, *,
+                    vocab_size: int, num_groups: int = 8,
+                    num_clients: int = 4, alpha: float = 0.3,
+                    sharpness: float = 2.0, seed: int = 0,
+                    device="cpu") -> DataModel:
+    """The reference's distributions (``make_data_model``, :46): logits
+    sharpness·N(0, 1) over min(V, 4096) tokens, tiled to V with a 0.01·N(0, 1)
+    offset per domain; shifts uniform in [1, max(2, V // 7)); Dirichlet(alpha)
+    mixtures.  Drawn from ``generator`` (a CPU one seeded with ``seed`` when
+    None) and placed on ``device``."""
+    gen = generator
+    if gen is None:
+        gen = torch.Generator()
+        gen.manual_seed(seed)
+    kw = dict(generator=gen, device=gen.device)
+    logits = sharpness * torch.randn((num_groups, min(vocab_size, 4096)), **kw)
+    if vocab_size > 4096:  # tile to the full vocab, cheap + deterministic
+        reps = -(-vocab_size // 4096)
+        logits = logits.repeat(1, reps)[:, :vocab_size]
+        logits = logits + 0.01 * torch.randn((num_groups, 1), **kw)
+    shift = torch.randint(1, max(2, vocab_size // 7), (num_groups,), **kw)
+    mix = torch._sample_dirichlet(
+        torch.full((num_clients, num_groups), float(alpha),
+                   device=gen.device), generator=gen)
+    return DataModel(domain_logits=logits.to(device),
+                     domain_shift=shift.to(device), mixtures=mix.to(device),
+                     vocab_size=vocab_size, num_groups=num_groups)
+
+
+def batch_from_draws(dm: DataModel, g, first, use_bigram) -> Dict[str, torch.Tensor]:
+    """One batch from its draws: g (B,) the domain of each sequence; first
+    (B, S + 1) unigram tokens; use_bigram (B, S + 1) bool.  Each position
+    takes (previous unigram token + the domain's shift) mod V where
+    use_bigram holds, else its unigram token (reference :97-106).  Returns
+    {"tokens", "labels" (next tokens), "groups"}, each (B, S) int64."""
+    shift = dm.domain_shift[g][:, None]
+    prev = torch.roll(first, 1, dims=1)
+    prev[:, 0] = first[:, 0]
+    seq = torch.where(use_bigram, (prev + shift) % dm.vocab_size, first)
+    b, s = seq.shape[0], seq.shape[1] - 1
+    return {"tokens": seq[:, :-1], "labels": seq[:, 1:],
+            "groups": g[:, None].expand(b, s).long()}
+
+
+def sample_client_batch(dm: DataModel, generator: torch.Generator,
+                        client: int, batch: int, seq_len: int
+                        ) -> Dict[str, torch.Tensor]:
+    """One client's batch, drawn on the generator's device (where ``dm``
+    lies): each sequence's domain from the client's mixture, seq_len + 1
+    unigram tokens from the domain's logits, and a fair coin per position
+    for the bigram blend (``batch_from_draws``)."""
+    g = torch.multinomial(dm.mixtures[client] + 1e-9, batch, replacement=True,
+                          generator=generator)
+    probs = torch.softmax(dm.domain_logits[g], dim=-1)
+    first = torch.multinomial(probs, seq_len + 1, replacement=True,
+                              generator=generator)
+    use_bigram = torch.rand(first.shape, generator=generator,
+                            device=first.device) < 0.5
+    return batch_from_draws(dm, g, first, use_bigram)
+
+
+def heterogeneity_index(dm: DataModel) -> float:
+    """Mean pairwise TV distance between client mixtures (0 = iid clients)."""
+    m = dm.mixtures
+    n = m.shape[0]
+    tv = 0.5 * (m[:, None, :] - m[None, :, :]).abs().sum(-1)
+    return float(tv.sum() / (n * (n - 1) + 1e-9))

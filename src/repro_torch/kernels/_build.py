@@ -24,12 +24,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("gossip", "fused_round", "neighbor_gossip", "flash_attention",
-           "rglru_scan")
+           "rglru_scan", "ssd_scan", "cross_entropy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # argument types of each library's C entry point (all return cudaError_t)
 SIGNATURES = {
     "gossip": ("fused_gossip_launch",
@@ -41,6 +42,9 @@ SIGNATURES = {
                                     ctypes.c_float, _I, _P]),
     "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 9 + [_P]),
     "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
+    "ssd_scan": ("ssd_scan_launch", [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P]),
+    "cross_entropy": ("fused_ce_launch",
+                      [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,6 +115,17 @@ def library(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def check_no_grad(what: str, *xs) -> None:
+    """The kernels have no backward pass yet: refuse an operand that
+    requires grad, so that a gradient cannot go missing silently."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{what}: an operand requires grad, and the kernel has no "
+            f"backward pass yet (the training slice, ROADMAP A11, brings "
+            f"it); under autograd the model runs the plain version")
 
 
 def check_operand(name, x, shape, dtype=torch.float32):

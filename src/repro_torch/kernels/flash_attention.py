@@ -23,6 +23,7 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0):
     one dtype (float32 or bfloat16) on one device, H % KV == 0, D ≤ 256.
     Returns a fresh (B, Sq, H, D) tensor in q's dtype.  Counts its launches
     in ``flash_attention_bshd.launches``."""
+    _build.check_no_grad("flash_attention", q, k, v)
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     b, sq, h, d = q.shape

@@ -2,11 +2,13 @@
 
 Counterparts of ``repro.kernels.ops.fused_gossip_round`` (:171),
 ``fused_round`` (:202), ``sparse_gossip_round`` (:253), ``flash_attention``
-(:37) and ``rglru_scan`` (:302): the packed gossip epilogue
-(``csrc/gossip.cu``), the whole round (``csrc/fused_round.cu``), the
-neighbor-gather epilogue (``csrc/neighbor_gossip.cu``), causal / windowed
-GQA attention (``csrc/flash_attention.cu``) and the RG-LRU recurrence
-(``csrc/rglru_scan.cu``).  ``backend``:
+(:37), ``ssd_scan`` (:60), ``fused_cross_entropy`` (:78) and
+``rglru_scan`` (:302): the packed gossip epilogue (``csrc/gossip.cu``), the
+whole round (``csrc/fused_round.cu``), the neighbor-gather epilogue
+(``csrc/neighbor_gossip.cu``), causal / windowed GQA attention
+(``csrc/flash_attention.cu``), the Mamba2 SSD scan (``csrc/ssd_scan.cu``),
+the fused cross-entropy (``csrc/cross_entropy.cu``) and the RG-LRU
+recurrence (``csrc/rglru_scan.cu``).  ``backend``:
 
 * ``"auto"`` — the CUDA kernel for CUDA tensors, the plain version for CPU
   tensors;
@@ -16,17 +18,23 @@ GQA attention (``csrc/flash_attention.cu``) and the RG-LRU recurrence
 
 There is no fallback between the two: a kernel that fails to build or
 launch raises.  No padding either: the kernels mask their ragged edges.
+The model kernels (attention, the two scans, the cross-entropy) have no
+backward pass yet: on the kernel route an operand that requires grad
+raises ``NotImplementedError`` (the training slice brings the backward
+passes; under autograd the model runs the plain versions).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cross_entropy as ce_lib
 from repro_torch.kernels import flash_attention as fa_lib
 from repro_torch.kernels import fused_round as fround_lib
 from repro_torch.kernels import gossip as gossip_lib
 from repro_torch.kernels import neighbor_gossip as ngossip_lib
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels import rglru_scan as rg_lib
+from repro_torch.kernels import ssd_scan as ssd_lib
 
 GOSSIP_BACKENDS = ("auto", "kernel", "torch")
 
@@ -37,6 +45,8 @@ KERNELS = {
     "sparse_gossip": ngossip_lib.sparse_gossip_nd,
     "flash_attention": fa_lib.flash_attention_bshd,
     "rglru_scan": rg_lib.rglru_scan_bsw,
+    "ssd_scan": ssd_lib.ssd_scan_bshp,
+    "fused_cross_entropy": ce_lib.fused_ce_nd,
 }
 
 
@@ -66,6 +76,12 @@ def use_kernel(backend: str, x: torch.Tensor) -> bool:
 
 def _f32c(x):
     return x.to(torch.float32).contiguous()
+
+
+def _f32(x):
+    """f32, keeping the strides where the last dimension is contiguous."""
+    x = x.to(torch.float32)
+    return x if x.stride(-1) == 1 or x.shape[-1] == 1 else x.contiguous()
 
 
 def fused_gossip_round(w, delta, theta, c, eta_s, corr_scale, *,
@@ -148,3 +164,27 @@ def rglru_scan(a, u, *, backend: str = "auto"):
     if use_kernel(backend, a):
         return rg_lib.rglru_scan_bsw(_f32c(a), _f32c(u))
     return ref_lib.rglru_ref(a, u)
+
+
+def ssd_scan(xdt, loga, bm, cm, *, chunk: int, state0=None,
+             backend: str = "auto"):
+    """The Mamba2 SSD scan (``models.ssm.ssd_chunked``) on the model layout:
+    xdt (B, S, H, P), loga (B, S, H), bm and cm (B, S, N), state0
+    (B, H, P, N) or None.  Returns f32 (y (B, S, H, P), final_state
+    (B, H, P, N)).  The kernel reads the operands through their strides
+    and masks a ragged last chunk."""
+    if use_kernel(backend, xdt):
+        return ssd_lib.ssd_scan_bshp(
+            _f32(xdt), _f32(loga), _f32(bm), _f32(cm),
+            None if state0 is None else _f32c(state0), chunk=chunk)
+    return ref_lib.ssd_chunked(xdt, loga, bm, cm, chunk, state0)
+
+
+def fused_cross_entropy(hidden, weight, labels, *, backend: str = "auto"):
+    """Per-token NLL of hidden (N, d) against the head weight addressed as
+    (V, d) (the tied embedding, or an untied (d, V) head's transposed view),
+    with f32 logits that are never all resident.  hidden and weight share
+    one dtype (float32 or bfloat16 for the kernel).  Returns f32 (N,)."""
+    if use_kernel(backend, hidden):
+        return ce_lib.fused_ce_nd(hidden, weight, labels)
+    return ref_lib.fused_ce_ref(hidden, weight, labels)

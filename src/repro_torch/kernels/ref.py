@@ -1,18 +1,21 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``:
-the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31`` and
-``rglru_ref`` of ``:196-208``).
+the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31``,
+``ssd_ref`` of ``:33``, ``fused_ce_ref`` of ``:56`` and ``rglru_ref`` of
+``:196-208``), and ``ssd_chunked``, the chunked SSD scan of
+``repro.models.ssm`` (:50) that kernel B7 computes.
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
 reference: the W-contraction operands are narrowed to ``gossip_dtype``, the
 products accumulate in f32, and Δ (or q) stays f32 inside the correction;
-attention and the RG-LRU recurrence compute in f32.
+attention, the scans and the cross-entropy compute in f32.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.quantize import quantize_dequant
 
@@ -174,3 +177,93 @@ def rglru_ref(a, u, h0=None):
         torch.add(a32[:, t] * h, u32[:, t], out=out[:, t])
         h = out[:, t]
     return out
+
+
+def ssd_ref(xdt, loga, bm, cm, state0=None):
+    """Token-by-token SSD recurrence, the oracle of the chunked scan:
+
+        S_t = exp(loga_t)·S_{t−1} + xdt_t ⊗ B_t,    y_t = S_t · C_t
+
+    on the model layout — xdt (B, S, H, P), loga (B, S, H), bm and cm
+    (B, S, N), one group shared by the heads — where the reference's
+    ``ssd_ref`` takes (B·H, S, P).  ``state0`` (B, H, P, N) is the state
+    before step 0 (zeros when None).  Returns f32 (y, final_state)."""
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    x32, la32 = xdt.to(torch.float32), loga.to(torch.float32)
+    b32, c32 = bm.to(torch.float32), cm.to(torch.float32)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
+             if state0 is None else state0.to(torch.float32))
+    ys = []
+    for t in range(s):
+        state = (torch.exp(la32[:, t])[..., None, None] * state
+                 + torch.einsum("bhp,bn->bhpn", x32[:, t], b32[:, t]))
+        ys.append(torch.einsum("bn,bhpn->bhp", c32[:, t], state))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((b, 0, h, p), dtype=torch.float32, device=xdt.device))
+    return y, state
+
+
+def ssd_chunked(xdt, loga, bm, cm, chunk: int, state0=None):
+    """Chunk-parallel SSD scan (``repro.models.ssm.ssd_chunked``): the
+    plain version of kernel B7.
+
+    xdt (B, S, H, P) inputs pre-multiplied by dt; loga (B, S, H) log decay
+    per token and head; bm, cm (B, S, N) input / output projections (one
+    group); state0 (B, H, P, N) or None.  A ragged S is padded to whole
+    chunks with zeros, as the reference does.  The decay of the upper
+    triangle (u > t) is masked before the exp, where the reference takes
+    exp(+large) and drops it with ``where``: the same values, and no inf to
+    meet a gradient.  Returns f32 (y (B, S, H, P), final_state
+    (B, H, P, N)).
+    """
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    l = max(1, min(chunk, s))
+    nc = -(-s // l)
+    pad = nc * l - s
+    x32, la32 = xdt.to(torch.float32), loga.to(torch.float32)
+    b32, c32 = bm.to(torch.float32), cm.to(torch.float32)
+    if pad:
+        x32 = F.pad(x32, (0, 0, 0, 0, 0, pad))
+        la32 = F.pad(la32, (0, 0, 0, pad))
+        b32 = F.pad(b32, (0, 0, 0, pad))
+        c32 = F.pad(c32, (0, 0, 0, pad))
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
+             if state0 is None else state0.to(torch.float32))
+    upper = ~torch.tril(torch.ones((l, l), dtype=torch.bool,
+                                   device=xdt.device))[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        sl = slice(c * l, (c + 1) * l)
+        xc, lac, bc, cc = x32[:, sl], la32[:, sl], b32[:, sl], c32[:, sl]
+        cum = torch.cumsum(lac, dim=1)                       # (B, l, H)
+        rel = cum[:, :, None, :] - cum[:, None, :, :]        # (B, t, u, H)
+        decay = torch.exp(rel.masked_fill(upper, float("-inf")))
+        cb = torch.einsum("btn,bun->btu", cc, bc)
+        y_intra = torch.einsum("btuh,buhp->bthp", decay * cb[..., None], xc)
+        y_inter = (torch.einsum("btn,bhpn->bthp", cc, state)
+                   * torch.exp(cum)[..., None])
+        last = cum[:, -1]                                    # (B, H)
+        dec_end = torch.exp(last[:, None, :] - cum)          # (B, l, H)
+        s_chunk = torch.einsum("blhp,bln->bhpn", xc * dec_end[..., None], bc)
+        state = torch.exp(last)[..., None, None] * state + s_chunk
+        ys.append(y_intra + y_inter)
+    y = (torch.cat(ys, dim=1)[:, :s] if ys
+         else torch.zeros((b, 0, h, p), dtype=torch.float32, device=xdt.device))
+    return y, state
+
+
+def fused_ce_ref(hidden, weight, labels, *, chunk: int = 1024):
+    """Per-token NLL of hidden (N, d) against a head weight addressed as
+    (V, d) — the tied embedding, or an untied (d, V) head's transposed
+    view: f32 logits = hidden·weightᵀ from the operands cast to f32, then
+    −log_softmax at the label.  Tokens go ``chunk`` at a time, so the
+    (N, V) logits are never all resident.  Returns f32 (N,)."""
+    w32 = weight.to(torch.float32)
+    out = [-torch.log_softmax(hidden[i:i + chunk].to(torch.float32) @ w32.T,
+                              dim=-1)
+           .gather(1, labels[i:i + chunk, None].long())[:, 0]
+           for i in range(0, hidden.shape[0], chunk)]
+    return (torch.cat(out) if out
+            else torch.zeros((0,), dtype=torch.float32, device=hidden.device))

@@ -17,6 +17,7 @@ def rglru_scan_bsw(a, u):
     """a, u: (B, S, W) contiguous f32 CUDA tensors on one device.  Returns a
     fresh f32 h (B, S, W).  Counts its launches in
     ``rglru_scan_bsw.launches``."""
+    _build.check_no_grad("rglru_scan", a, u)
     b, s, w = a.shape
     _build.check_operand("a", a, (b, s, w))
     _build.check_operand("u", u, (b, s, w))

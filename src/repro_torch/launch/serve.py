@@ -4,18 +4,22 @@
 
 One prefill step runs ``forward(mode="prefill", caches=init_cache(B,
 prompt_len + gen_tokens), last_only=True)`` over the whole batch of prompts,
-through the flash-attention and RG-LRU scan kernels; then ``gen_tokens``
-decode steps each sample a token (``torch.multinomial``) and feed it back.
-Weights are bf16 on the card, drawn from a seeded ``torch.Generator``, as
-are the prompts.
+through the model's kernels (flash attention and the RG-LRU scan for
+recurrentgemma-9b, the SSD scan for mamba2-1.3b); then ``gen_tokens``
+decode steps each sample a token (``torch.multinomial``) and feed it back,
+in plain PyTorch.  Weights are bf16 on the card, drawn from a seeded
+``torch.Generator``, as are the prompts.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \\
-      --device cpu --reduced --prompt-len 64 --tokens 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --device cpu --reduced --prompt-len 40 --tokens 6
 
 A prefill fills a KV cache exactly only when the cache's length divides the
 prompt length (the cache keeps the last ``length`` keys, and decode's ring
 writes position p at slot p % length); other prompt lengths are refused.
+Layers without a KV cache (``rglru``, ``ssm``) take any prompt length.
 """
 from __future__ import annotations
 
@@ -150,10 +154,16 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="recurrentgemma-9b",
-                    choices=sorted(registry.ARCHS))
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=4096)
-    ap.add_argument("--tokens", type=int, default=32)
+                    choices=sorted(registry.ARCHS),
+                    help="served in full: recurrentgemma-9b, mamba2-1.3b "
+                         "(and the attention-only archs)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="prompts in the batch (mamba2-1.3b is served at 8 "
+                         "on the card)")
+    ap.add_argument("--prompt-len", type=int, default=4096,
+                    help="tokens a prompt (on the card: 4096 for both)")
+    ap.add_argument("--tokens", type=int, default=32,
+                    help="new tokens a prompt, one decode step each")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,4 +1,5 @@
-"""Carrying the JAX package's model parameters and caches across as numpy.
+"""Carrying the JAX package's model parameters and caches across as numpy,
+in both directions, for every ported block kind (``ssm`` included).
 
 The reference stacks each repeated unit of the block pattern along a leading
 repeat dim: ``params["stack"][si][bi][name][r]`` is layer
@@ -59,6 +60,45 @@ def params_from_reference(params_np: Dict[str, Any], cfg: ModelConfig, *,
     return model
 
 
+def _by_slot(cfg: ModelConfig, items):
+    """One list per (segment, unit slot) of ``items`` (one per layer, in
+    layer order), in repeat order: the reference's nesting."""
+    slots = tf.layer_slots(cfg)
+    return [[[items[i] for i, (s, _, b, _) in enumerate(slots)
+              if s == si and b == bi] for bi in range(len(unit))]
+            for si, (unit, _) in enumerate(tf.segments(cfg))]
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to(torch.float32).cpu().numpy()
+
+
+def params_to_numpy(model: Model) -> Dict[str, Any]:
+    """A port ``Model`` -> the reference's ``init_params`` pytree (f32
+    numpy leaves, each block's tensors stacked over its repeats): the
+    inverse of ``params_from_reference``."""
+    out = {"embed": _np32(model.embed), "final_norm": _np32(model.final_norm)}
+    if model.head is not None:
+        out["head"] = _np32(model.head)
+    stack = []
+    for unit in _by_slot(model.cfg, list(model.layers)):
+        blocks = []
+        for layers in unit:
+            block: Dict[str, Any] = {}
+            for name, _ in layers[0].named_parameters():
+                arr = np.stack([_np32(layer.get_parameter(name))
+                                for layer in layers])
+                head, _, leaf = name.partition(".")
+                if leaf:
+                    block.setdefault(head, {})[leaf] = arr
+                else:
+                    block[head] = arr
+            blocks.append(block)
+        stack.append(tuple(blocks))
+    out["stack"] = tuple(stack)
+    return out
+
+
 def caches_from_reference(caches_np, cfg: ModelConfig, *,
                           device="cuda") -> List[Dict[str, torch.Tensor]]:
     """The reference's cache pytree (numpy leaves, bf16 included) -> one
@@ -72,16 +112,7 @@ def caches_to_numpy(caches, cfg: ModelConfig):
     """One dict per layer -> the reference's nesting (tuple of segments,
     tuple of unit slots, dict of arrays stacked over repeats), as f32
     numpy."""
-    out = []
-    slots = tf.layer_slots(cfg)
-    for si, (unit, reps) in enumerate(tf.segments(cfg)):
-        unit_caches = []
-        for bi in range(len(unit)):
-            layers = [caches[i] for i, (s, _, b, _) in enumerate(slots)
-                      if s == si and b == bi]
-            unit_caches.append({
-                name: np.stack([c[name].detach().to(torch.float32).cpu()
-                                .numpy() for c in layers])
-                for name in layers[0]})
-        out.append(tuple(unit_caches))
-    return tuple(out)
+    return tuple(
+        tuple({name: np.stack([_np32(c[name]) for c in layers])
+               for name in layers[0]} for layers in unit)
+        for unit in _by_slot(cfg, caches))

@@ -1,19 +1,24 @@
 """Top-level language model (port of ``repro.models.model``): embeddings ->
-decoder stack -> head, cache management and the decode step.
+decoder stack -> head, the per-group loss that evaluation reads, cache
+management and the decode step.
 
-The losses (``token_losses``, ``chunked_nll``, ``per_group_loss``,
-``lm_loss``) come with the training slice and kernel B6 (ROADMAP A11);
-modality frontends (``num_prefix_tokens``, ``num_codebooks``) are not ported
-yet either.
+``chunked_nll`` runs kernel B6 (``kernels.ops.fused_cross_entropy``) where
+the layers run theirs: in ``train`` mode with autograd off, so evaluation
+(``evaluation.metrics.group_metrics``) goes through B6 and B7.  ``lm_loss``
+and the DRO / adversarial objectives come with the training slice and the
+backward passes (ROADMAP A11); modality frontends (``num_prefix_tokens``,
+``num_codebooks``) are not ported yet either.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_init, param, rms_norm
 
@@ -107,13 +112,72 @@ def forward(model: Model, batch: Dict[str, Any], *, mode: str = "train",
             last_only: bool = False, kernels: bool = True):
     """Returns (logits, new_caches, aux).  ``last_only`` computes the head on
     the final position only (prefill servers).  ``kernels=False`` runs the
-    kernels' plain versions in ``prefill``."""
+    kernels' plain versions where they would run
+    (``transformer.kernel_route``)."""
     x, new_caches, aux = backbone(
         model, batch, mode=mode, compute_dtype=compute_dtype, caches=caches,
         pos=pos, kernels=kernels)
     if last_only:
         x = x[:, -1:]
     return lm_head(model, x, compute_dtype), new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def token_losses(logits, labels):
+    """Per-token cross-entropy in f32.  logits: (B, S, V); labels (B, S).
+    Returns (B, S)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0]
+
+
+def head_weight(model: Model, compute_dtype):
+    """The head as a (V, d) operand in ``compute_dtype``: the tied
+    embedding, or the untied (d, V) head's transposed view (no copy when
+    the dtype already matches)."""
+    if model.head is None:
+        return model.embed.to(compute_dtype)
+    return model.head.to(compute_dtype).T
+
+
+def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
+                chunk: int = 512, kernels: bool = True):
+    """Per-token NLL (B, S) f32 of the final hidden states against the head,
+    without resident (B, S, V) logits.
+
+    With autograd off (and ``kernels``), kernel B6 over all B·S tokens: its
+    logits are f32 from the compute-dtype operands.  Otherwise the
+    reference's form: the head on ``chunk`` positions at a time, logits in
+    the compute dtype, then an f32 log-softmax.  In bf16 the two differ by
+    the bf16 rounding of the logits (ROADMAP §C quirk 4).
+    """
+    b, s, d = hidden.shape
+    if tf.kernel_route("train", kernels):
+        nll = ops.fused_cross_entropy(
+            hidden.reshape(b * s, d).to(compute_dtype),
+            head_weight(model, compute_dtype), labels.reshape(b * s))
+        return nll.reshape(b, s)
+    return torch.cat([
+        token_losses(lm_head(model, hidden[:, i:i + chunk], compute_dtype),
+                     labels[:, i:i + chunk])
+        for i in range(0, s, chunk)], dim=1)
+
+
+def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
+                   compute_dtype=torch.bfloat16, kernels: bool = True):
+    """Group-resolved LM loss.  batch needs "tokens", "labels" (B, S) and
+    "groups" (B, S) int in [0, num_groups).  Returns ((G,) mean NLL per
+    group — 0 for a group with no token — and aux)."""
+    hidden, _, aux = backbone(model, batch, mode="train",
+                              compute_dtype=compute_dtype, kernels=kernels)
+    nll = chunked_nll(model, hidden, batch["labels"],
+                      compute_dtype=compute_dtype, kernels=kernels)
+    onehot = F.one_hot(batch["groups"].long(), num_groups).to(torch.float32)
+    sums = torch.einsum("bs,bsg->g", nll, onehot)
+    counts = torch.clamp(onehot.sum((0, 1)), min=1.0)
+    return sums / counts, aux
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +203,15 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
         }
     if kind == "ssm":
-        raise NotImplementedError("the ssm block is not ported yet "
-                                  "(ROADMAP A11)")
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        return {
+            "conv": torch.zeros((batch, s.d_conv - 1, d_in + 2 * s.d_state),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, d_in // s.d_head, s.d_head,
+                                  s.d_state), dtype=torch.float32,
+                                 device=device),
+        }
     shape = (batch, cache_length(kind, cfg, seq_len), cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,122 @@
+"""Mamba2 (SSD — state-space duality) block, port of ``repro.models.ssm``.
+
+The recurrence per head h with state S ∈ R^{P×N}:
+
+    S_t = a_t·S_{t−1} + (dt_t·x_t) ⊗ B_t          a_t = exp(A_h·dt_t)
+    y_t = C_t · S_t + D_h·x_t
+
+evaluated chunk-parallel (the SSD algorithm of arXiv:2405.21060).  Over a
+sequence the scan is ``repro_torch.kernels.ops.ssd_scan`` (the hand-written
+CUDA kernel B7 on the card); its plain version, ``ssd_chunked``, lives in
+``kernels.ref`` beside the other plain versions and is re-exported here.
+Decode advances the state one token in plain PyTorch, as the reference
+does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (B7's plain version)
+from repro_torch.models.layers import dense_init, param, rms_norm
+
+
+def init_ssm(gen, cfg, d_model: int, *, device, dtype) -> nn.ParameterDict:
+    """The reference's parameters, names and shapes: ``in_proj`` (d,
+    2·d_in + 2N + H) projecting to z, x, B, C and dt; the depthwise conv
+    over x, B and C; ``A_log``, ``D``, ``dt_bias`` per head; the gated
+    RMSNorm's ``norm``; ``out_proj``."""
+    s = cfg.ssm
+    d_in = s.expand * d_model
+    nheads = d_in // s.d_head
+    conv_ch = d_in + 2 * s.d_state
+    kw = dict(device=device, dtype=dtype)
+    p = {
+        "in_proj": dense_init(gen, (d_model, 2 * d_in + 2 * s.d_state + nheads),
+                              in_axis=0, **kw),
+        "conv_w": dense_init(gen, (s.d_conv, conv_ch), in_axis=0, **kw) * 0.1,
+        "conv_b": torch.zeros((conv_ch,), **kw),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads,
+                                          device=device)).to(dtype),
+        "D": torch.ones((nheads,), **kw),
+        # softplus^-1(0.01)
+        "dt_bias": torch.full((nheads,), math.log(math.expm1(0.01)), **kw),
+        "norm": torch.zeros((d_in,), **kw),
+        "out_proj": dense_init(gen, (d_in, d_model), in_axis=0, **kw),
+    }
+    return nn.ParameterDict({k: param(v) for k, v in p.items()})
+
+
+def _causal_conv(x, w, b, state=None):
+    """Depthwise causal conv, then SiLU.  x: (B, S, C); w: (K, C); state:
+    the (B, K−1, C) inputs carried from the previous call (zeros when
+    None).  Returns (y, new_state)."""
+    k = w.shape[0]
+    if state is None:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + b
+    # a copy, so the state does not hold the whole padded input alive
+    new_state = xp[:, -(k - 1):, :].clone() if k > 1 else None
+    return F.silu(y), new_state
+
+
+def ssm_forward(params, x, cfg, compute_dtype=torch.bfloat16, conv_state=None,
+                ssd_state=None, decode: bool = False, kernels: bool = True):
+    """Mamba2 block.  x: (B, S, d).  Returns (out, {"conv": (B, K−1,
+    d_in + 2N), "state": (B, H, P, N) f32}).  ``kernels=False`` runs the
+    scan's plain version (``ssd_chunked``) where the kernel would run."""
+    s = cfg.ssm
+    d = x.shape[-1]
+    d_in = s.expand * d
+    nheads = d_in // s.d_head
+    n = s.d_state
+
+    def w(name):
+        return params[name].to(compute_dtype)
+
+    proj = x @ w("in_proj")
+    z, xb, bm, cm, dt = torch.split(proj, [d_in, d_in, n, n, nheads], dim=-1)
+    conv_in = torch.cat([xb, bm, cm], dim=-1)
+    conv_out, new_conv = _causal_conv(conv_in, w("conv_w"), w("conv_b"),
+                                      conv_state)
+    xb, bm, cm = torch.split(conv_out, [d_in, n, n], dim=-1)
+
+    dt = F.softplus(dt.to(torch.float32)
+                    + params["dt_bias"].to(torch.float32))      # (B, S, H)
+    a = -torch.exp(params["A_log"].to(torch.float32))           # (H,)
+    loga = a * dt                                               # (B, S, H)
+    xh = xb.reshape(*xb.shape[:-1], nheads, s.d_head)
+    xdt = xh.to(torch.float32) * dt[..., None]
+
+    if decode:
+        # one step: S ← exp(loga) S + xdt ⊗ B;  y = C · S
+        state = ssd_state if ssd_state is not None else torch.zeros(
+            (x.shape[0], nheads, s.d_head, n), dtype=torch.float32,
+            device=x.device)
+        aa = torch.exp(loga[:, 0])                              # (B, H)
+        upd = torch.einsum("bhp,bn->bhpn", xdt[:, 0],
+                           bm[:, 0].to(torch.float32))
+        state = aa[..., None, None] * state + upd
+        y = torch.einsum("bn,bhpn->bhp", cm[:, 0].to(torch.float32),
+                         state)[:, None]
+        new_ssd = state
+    elif kernels:
+        y, new_ssd = ops.ssd_scan(xdt, loga, bm.to(torch.float32),
+                                  cm.to(torch.float32), chunk=s.chunk,
+                                  state0=ssd_state)
+    else:
+        y, new_ssd = ssd_chunked(xdt, loga, bm.to(torch.float32),
+                                 cm.to(torch.float32), s.chunk, ssd_state)
+
+    y = y + params["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
+    y = y.reshape(*y.shape[:-2], d_in).to(compute_dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    out = y @ w("out_proj")
+    return out.to(x.dtype), {"conv": new_conv, "state": new_ssd}

@@ -11,13 +11,14 @@ Block kinds ported:
   attn / sliding         GQA attention (+ optional window) + SwiGLU MLP
   attn_local             windowed attention (RecurrentGemma local layer) + MLP
   rglru                  RG-LRU temporal mixer + MLP
-``moe`` and ``ssm`` wait for ROADMAP A11 (the mamba2 serving slice brings
-``ssm`` with kernel B7).
+  ssm                    Mamba2 SSD mixer, no MLP
+``moe`` waits for ROADMAP A11.
 
-Modes: ``train`` runs the plain attention and scan (no gradients yet: the
-training slice comes later); ``prefill`` runs the CUDA kernels
-(``kernels.ops.flash_attention`` and ``kernels.ops.rglru_scan``) and fills
-the caches; ``decode`` advances one token against the caches.
+Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
+``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them too
+when autograd is off (evaluation), and the plain versions under autograd,
+since the kernels have no backward pass yet (the training slice brings
+them); ``decode`` advances one token against the caches in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -30,10 +31,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, mlp, param, rms_norm
 
 ATTN_KINDS = ("attn", "sliding", "attn_local")
-KINDS = ATTN_KINDS + ("rglru",)
+KINDS = ATTN_KINDS + ("rglru", "ssm")
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +88,8 @@ def _attn_window(kind: str, cfg: ModelConfig) -> int:
 
 class Block(nn.Module):
     """One decoder layer: its kind and its parameters, under the reference's
-    names (``norm1``, ``attn`` or ``rglru``, ``norm2``, ``mlp``)."""
+    names (``norm1``, ``attn`` or ``rglru``, ``norm2``, ``mlp``; an ``ssm``
+    layer holds only ``norm1`` and ``ssm``)."""
 
     def __init__(self, kind: str, cfg: ModelConfig, gen, *, device, dtype):
         super().__init__()
@@ -97,12 +100,23 @@ class Block(nn.Module):
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
         self.norm1 = param(torch.zeros((d,), **kw))
+        if kind == "ssm":
+            self.ssm = ssm_lib.init_ssm(gen, cfg, d, **kw)
+            return
         if kind == "rglru":
             self.rglru = rglru_lib.init_rglru(gen, cfg, d, **kw)
         else:
             self.attn = attn_lib.init_attention(gen, cfg, d, **kw)
         self.norm2 = param(torch.zeros((d,), **kw))
         self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
+
+
+def kernel_route(mode: str, kernels: bool) -> bool:
+    """Whether a layer runs the kernels: in ``prefill``, and in ``train``
+    when autograd is off; never in ``decode`` (one token, plain PyTorch),
+    nor under autograd, nor with ``kernels=False`` (the plain check)."""
+    return kernels and (mode == "prefill" or (
+        mode == "train" and not torch.is_grad_enabled()))
 
 
 def block_forward(
@@ -119,16 +133,26 @@ def block_forward(
     kernels: bool = True,
 ):
     """Returns (x_out, new_cache, aux_loss).  ``kernels=False`` runs the
-    kernels' plain versions in ``prefill`` (the check on the card)."""
+    kernels' plain versions where they would run (the check on the card;
+    ``kernel_route``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, params.norm1, cfg.norm_eps)
+    route = kernel_route(mode, kernels)
+
+    if kind == "ssm":
+        conv_s = cache["conv"] if cache else None
+        ssd_s = cache["state"] if cache else None
+        y, new_cache = ssm_lib.ssm_forward(
+            params.ssm, h, cfg, compute_dtype, conv_s, ssd_s,
+            decode=(mode == "decode"), kernels=route)
+        return x + y, new_cache, aux
 
     if kind == "rglru":
         conv_s = cache["conv"] if cache else None
         h_s = cache["h"] if cache else None
         y, new_cache = rglru_lib.rglru_forward(
             params.rglru, h, cfg, compute_dtype, conv_s, h_s,
-            decode=(mode == "decode"), kernels=kernels and mode == "prefill")
+            decode=(mode == "decode"), kernels=route)
         x = x + y
         h2 = rms_norm(x, params.norm2, cfg.norm_eps)
         x = x + mlp(params.mlp, h2, compute_dtype)
@@ -159,9 +183,10 @@ def block_forward(
         new_cache = {"k": kc, "v": vc}
     else:
         new_cache = None
-        if mode == "prefill":
-            attend = ops.flash_attention if kernels else ref.attention_ref
-            ctx = attend(q, k, v, causal=True, window=window)
+        if route:
+            ctx = ops.flash_attention(q, k, v, causal=True, window=window)
+        elif mode == "prefill":
+            ctx = ref.attention_ref(q, k, v, causal=True, window=window)
         else:
             ctx = attn_lib.naive_attention(q, k, v, window=window)
         if cache is not None:  # prefill populating a cache

@@ -29,8 +29,8 @@ print("MODULES", " ".join(sorted(m for m in sys.modules
                                  if m.startswith("repro_torch"))))
 """
 
-# modules every walk must reach: one of each package, the serving path's
-# included
+# modules every walk must reach: one of each package, the serving and
+# evaluation paths' included
 MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.configs.recurrentgemma_9b",
                "repro_torch.models.model", "repro_torch.models.transformer",
@@ -38,7 +38,11 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.models.interop", "repro_torch.launch.serve",
                "repro_torch.kernels.flash_attention",
                "repro_torch.kernels.rglru_scan", "repro_torch.core.kgt_minimax",
-               "repro_torch.engine.engine")
+               "repro_torch.engine.engine", "repro_torch.models.ssm",
+               "repro_torch.kernels.ssd_scan",
+               "repro_torch.kernels.cross_entropy",
+               "repro_torch.data.synthetic", "repro_torch.evaluation.metrics",
+               "repro_torch.launch.evaluate")
 
 
 def _env():
