@@ -9,7 +9,9 @@ Phases, each printing one JSON line:
 2. build — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card, at the stated tolerances, on a grid that holds every shape (and
-   kind of W) that the later phases run it at;
+   kind of W) that the later phases run it at; B5 and B6 on both their
+   routes (tensor cores, CUDA cores), each call on the route its rule
+   gives it and every tensor-core call repeated on the CUDA-core route;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
@@ -30,16 +32,19 @@ Phases, each printing one JSON line:
    steps each; the prefill's logits and caches against the same prefill
    through the plain versions, prefill + decode against the plain
    full-sequence forward, the kernels' launches (one a layer in the
-   prefill: 12 and 26, and 48; none in decode), prefill s, decode
+   prefill: 12 and 26, and 48; none in decode; every attention launch on
+   the tensor-core route), prefill s, decode
    ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
    decode steps;
 8. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
    ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4
    clients, through the SSD scan (48 launches a call) and the fused
-   cross-entropy (1); group losses against the plain route, finiteness,
+   cross-entropy (1, on the tensor-core route); group losses against the
+   plain route, finiteness,
    seconds and tokens/s a client batch, peak memory, a profile;
 9. times — device times of each kernel, its plain version and, where one
-   exists, a PyTorch library call, beside the bounds; the epilogue at
+   exists, a PyTorch library call, beside the bounds (B5 and B6 on both
+   routes); the epilogue at
    D ≈ 1e8, the model kernels at the served shapes and at S = 32768, and
    rounds/s per mixing_impl.
 
@@ -507,52 +512,94 @@ def attn_operands(b, sq, sk, h, kv, d, dtype, gen, dev):
             torch.randn((b, sk, kv, d), generator=gen, device=dev).to(dtype))
 
 
-def check_flash_attention(gen, dev) -> float:
-    """B5 against ``ref.attention_ref`` in f32 and bf16, over FLASH_CASES and
-    the served shape.  Returns the largest absolute error."""
+# bf16 cases for the tensor-core route's edges: one query row (against one
+# key and against 100), S not a multiple of the 64-key tile or the 128-row
+# query tile, window edges inside key tiles (40, 100, 300), KV 1 and 2,
+# head_dim 64, 128 and 256 (and 80 and 32 in FLASH_CASES, padded)
+FLASH_TC_CASES = [
+    (2, 1, 1, 4, 1, 64, 0, True),
+    (1, 1, 100, 8, 2, 128, 0, False),
+    (1, 300, 300, 4, 2, 64, 40, True),
+    (2, 333, 333, 16, 1, 256, 100, True),
+    (1, 257, 257, 8, 1, 128, 0, True),
+    (1, 640, 640, 4, 2, 256, 300, True),
+]
+
+
+def routed_call(fn, kernel, want_route):
+    """``fn()`` through a two-route wrapper, failing unless it took
+    ``want_route`` (the route counts before and after)."""
+    from repro_torch.kernels import ops
+
+    before = ops.route_counts()[kernel]
+    out = fn()
+    after = ops.route_counts()[kernel]
+    took = [r for r in after if after[r] != before[r]]
+    if took != [want_route]:
+        fail(f"{kernel}: the call took route {took}, expected {want_route}")
+    return out
+
+
+def check_flash_attention(gen, dev):
+    """B5 against ``ref.attention_ref`` in f32 and bf16, over FLASH_CASES,
+    FLASH_TC_CASES and the served shape, on both routes: each call takes
+    the route ``flash_attention.route`` gives it, and every bf16 call that
+    takes the tensor-core route is repeated on the CUDA-core route.
+    Returns the largest absolute error and the cases by route."""
     import torch
 
     from repro_torch.kernels import flash_attention, ref
 
     b, s, h, kv, d, window = served_attention_shape()
-    cases = FLASH_CASES + [(b, s, s, h, kv, d, window, True)]
+    cases = FLASH_CASES + FLASH_TC_CASES + [(b, s, s, h, kv, d, window, True)]
     worst = 0.0
-    worst_rel = {"float32": 0.0, "bfloat16": 0.0}
+    worst_rel = {}  # by route and dtype
+    by_route = {"tensor_core": 0, "cuda_core": 0}
+
+    def run(q, k, v, causal, window, tol, what, want_route, force=None):
+        nonlocal worst
+        got = routed_call(lambda: flash_attention.flash_attention_bshd(
+            q, k, v, causal=causal, window=window, force_route=force),
+            "flash_attention", want_route)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        if got.dtype != q.dtype or got.shape != q.shape:
+            fail(f"flash_attention: {got.dtype} {tuple(got.shape)}")
+        err = max_err(got.float(), want.float())
+        scale = 1 + float(want.float().abs().max())
+        name = f"{want_route}/{str(q.dtype).split('.')[1]}"
+        worst = max(worst, err)
+        worst_rel[name] = max(worst_rel.get(name, 0.0), err / scale)
+        by_route[want_route] += 1
+        if not err <= tol * scale:
+            fail(f"flash_attention {what} {want_route}: err {err}")
+
     for b, sq, sk, h, kv, d, window, causal in cases:
         for dtype, tol in ((torch.float32, TOL_ATTN_F32),
                            (torch.bfloat16, TOL_ATTN_BF16)):
-            name = str(dtype).split(".")[1]
             q, k, v = attn_operands(b, sq, sk, h, kv, d, dtype, gen, dev)
-            got = flash_attention.flash_attention_bshd(
-                q, k, v, causal=causal, window=window)
-            want = ref.attention_ref(q, k, v, causal=causal, window=window)
-            if got.dtype != dtype or got.shape != q.shape:
-                fail(f"flash_attention: {got.dtype} {tuple(got.shape)}")
-            err = max_err(got.float(), want.float())
-            scale = 1 + float(want.float().abs().max())
-            worst = max(worst, err)
-            worst_rel[name] = max(worst_rel[name], err / scale)
-            if not err <= tol * scale:
-                fail(f"flash_attention {(b, sq, sk, h, kv, d, window)} "
-                     f"causal={causal} {dtype}: err {err}")
-            del q, k, v, got, want
-    # a k that is contiguous but not 16-byte aligned: the element-wise loads
+            what = f"{(b, sq, sk, h, kv, d, window)} causal={causal} {dtype}"
+            rt = flash_attention.route(
+                dtype, d, (q.stride(), k.stride(), v.stride()), True)
+            run(q, k, v, causal, window, tol, what, rt)
+            if rt == "tensor_core":
+                run(q, k, v, causal, window, tol, what, "cuda_core",
+                    force="cuda_core")
+            del q, k, v
+    # a k that is contiguous but not 16-byte aligned: the CUDA-core route
+    # with its element-wise loads
     q, k, v = attn_operands(2, 100, 100, 4, 1, 64, torch.bfloat16, gen, dev)
     k_off = torch.empty(k.numel() + 1, dtype=k.dtype, device=dev)[1:]
     k_off = k_off.view(k.shape).copy_(k)
-    got = flash_attention.flash_attention_bshd(q, k_off, v, window=16)
-    want = ref.attention_ref(q, k, v, window=16)
-    err = max_err(got.float(), want.float())
-    if not err <= TOL_ATTN_BF16 * (1 + float(want.float().abs().max())):
-        fail(f"flash_attention with a misaligned k: err {err}")
-    worst = max(worst, err)
+    run(q, k_off, v, True, 16, TOL_ATTN_BF16, "with a misaligned k",
+        "cuda_core")
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_attention",
-          "cases": 2 * len(cases) + 1, "max_abs_err": worst,
-          "max_err_over_1_plus_max_by_dtype": worst_rel,
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "max_abs_err": worst,
+          "max_err_over_1_plus_max_by_route_and_dtype": worst_rel,
           "tol": {"float32": TOL_ATTN_F32, "bfloat16": TOL_ATTN_BF16},
           "served_shape": list(served_attention_shape())})
-    return worst
+    return worst, by_route
 
 
 def check_rglru_scan(gen, dev) -> float:
@@ -704,39 +751,71 @@ def eval_ce_shape():
 # a 128 tile), mamba2's d and V with few tokens, the reduced model's shape
 CE_CASES = [(1, 16, 1), (5, 33, 7), (100, 64, 1000), (130, 256, 50280),
             (257, 2048, 5000), (64, 2048, 50280), (80, 256, 512)]
+# bf16 cases for the tensor-core route's edges: N = 1, 130 and 257 (short of
+# and past a 128-token tile), V = 1000 and 50280 (ragged last 256-entry
+# tile, with label V − 1 in it), d = 64 to 2048 (whole k-slices of 64) and
+# 200 (a last k-slice of 8)
+CE_TC_CASES = [(1, 2048, 50280), (130, 2048, 1000), (257, 256, 50280),
+               (257, 2048, 1000), (130, 64, 50280), (1, 512, 1000),
+               (130, 200, 1000)]
 
 
-def check_cross_entropy(gen, dev) -> float:
+def check_cross_entropy(gen, dev):
     """B6 against ``ref.fused_ce_ref`` in f32 and bf16, tied and untied
-    layouts, over CE_CASES and the evaluate shape (bf16, tied).  Returns the
-    largest absolute error."""
+    layouts, over CE_CASES, CE_TC_CASES (bf16) and the evaluate shape (bf16,
+    tied), on both routes: each call takes the route ``cross_entropy.route``
+    gives it, and every call that takes the tensor-core route is repeated on
+    the CUDA-core route.  Returns the largest absolute error and the cases
+    by route."""
     import torch
 
     from repro_torch.kernels import cross_entropy, ref
 
-    worst = worst_rel = 0.0
-    cases = 0
-    grid = [(c, dt, tied) for c in CE_CASES
-            for dt in (torch.float32, torch.bfloat16) for tied in (True, False)]
-    grid.append((eval_ce_shape(), torch.bfloat16, True))
-    for (n, d, v), dtype, tied in grid:
-        hidden, w, labels = ce_operands(n, d, v, dtype, gen, dev, tied=tied)
-        got = cross_entropy.fused_ce_nd(hidden, w, labels)
+    worst = 0.0
+    worst_rel = {}  # by route and dtype
+    by_route = {"tensor_core": 0, "cuda_core": 0}
+
+    def run(hidden, w, labels, what, want_route, force=None):
+        nonlocal worst
+        got = routed_call(lambda: cross_entropy.fused_ce_nd(
+            hidden, w, labels, force_route=force), "fused_cross_entropy",
+            want_route)
         want = ref.fused_ce_ref(hidden, w, labels)
         err = max_err(got, want)
         rel = err / (1 + float(want.abs().max()))
-        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        name = f"{want_route}/{str(hidden.dtype).split('.')[1]}"
+        worst = max(worst, err)
+        worst_rel[name] = max(worst_rel.get(name, 0.0), rel)
+        by_route[want_route] += 1
         if not rel <= TOL_CE:
-            fail(f"fused_cross_entropy {(n, d, v)} {dtype} tied={tied}: "
-                 f"err {err}")
-        cases += 1
-        del hidden, w, labels, got, want
+            fail(f"fused_cross_entropy {what} {want_route}: err {err}")
+
+    grid = [(c, dt, tied) for c in CE_CASES
+            for dt in (torch.float32, torch.bfloat16) for tied in (True, False)]
+    grid += [(c, torch.bfloat16, tied) for c in CE_TC_CASES
+             for tied in (True, False)]
+    grid.append((eval_ce_shape(), torch.bfloat16, True))
+    for (n, d, v), dtype, tied in grid:
+        hidden, w, labels = ce_operands(n, d, v, dtype, gen, dev, tied=tied)
+        what = f"{(n, d, v)} {dtype} tied={tied}"
+        rt = cross_entropy.route(dtype, hidden.stride(), w.stride(), True)
+        run(hidden, w, labels, what, rt)
+        if rt == "tensor_core":
+            run(hidden, w, labels, what, "cuda_core", force="cuda_core")
+        del hidden, w, labels
+    # hidden that is not 16-byte aligned: the CUDA-core route
+    hidden, w, labels = ce_operands(130, 256, 1000, torch.bfloat16, gen, dev)
+    h_off = torch.empty(hidden.numel() + 1, dtype=hidden.dtype,
+                        device=dev)[1:].view(hidden.shape).copy_(hidden)
+    run(h_off, w, labels, "with a misaligned hidden", "cuda_core")
+    del hidden, h_off, w, labels
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "fused_cross_entropy",
-          "cases": cases, "max_abs_err": worst,
-          "max_err_over_1_plus_max": worst_rel, "tol": TOL_CE,
-          "eval_shape": list(eval_ce_shape())})
-    return worst
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "max_abs_err": worst,
+          "max_err_over_1_plus_max_by_route_and_dtype": worst_rel,
+          "tol": TOL_CE, "eval_shape": list(eval_ce_shape())})
+    return worst, by_route
 
 
 def torch_randn(gen, dev, *shape):
@@ -882,10 +961,28 @@ def launch_counts() -> dict:
     return ops.launch_counts()
 
 
+def route_counts() -> dict:
+    """Launches of each two-route kernel by route (``ops.route_counts``)."""
+    from repro_torch.kernels import ops
+
+    return ops.route_counts()
+
+
 def zero_launch_counts() -> None:
+    """Every launch count and every count by route to 0."""
     from repro_torch.kernels import ops
 
     ops.zero_launch_counts()
+
+
+def check_routes(routes, want, what) -> None:
+    """Fail unless every launch of each two-route kernel in ``routes`` went
+    through the tensor-core route, ``want[kernel]`` launches of it."""
+    for kernel, by in routes.items():
+        expect = {"tensor_core": want.get(kernel, 0), "cuda_core": 0}
+        if by != expect:
+            fail(f"{what}: {kernel} launches by route {by}, expected "
+                 f"{expect} (every launch on the tensor-core route)")
 
 
 def compare_states(state, ref_state, what) -> float:
@@ -1103,9 +1200,11 @@ def kernel_category(name: str) -> str:
     """The profiles' buckets: the model kernels, f32 GEMMs (the RG-LRU
     gates), the other (bf16) GEMMs, dtype copies, everything else."""
     for kernel, cat in (("flash_attention_kernel", "flash_attention"),
+                        ("flash_attention_tc_kernel", "flash_attention"),
                         ("rglru_scan_kernel", "rglru_scan"),
                         ("ssd_scan_kernel", "ssd_scan"),
-                        ("fused_ce_kernel", "fused_cross_entropy")):
+                        ("fused_ce_kernel", "fused_cross_entropy"),
+                        ("fused_ce_tc_kernel", "fused_cross_entropy")):
         if kernel in name:
             return cat
     low = name.lower()
@@ -1179,6 +1278,7 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
     res = serve_lib.serve(arch, batch=batch, prompt_len=prompt_len,
                           gen_tokens=gen_tokens, device=dev, seed=0)
     launches = launch_counts()
+    routes = route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model, cfg = res.model, res.model.cfg
     zeros = {k: 0 for k in launches}
@@ -1189,6 +1289,8 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
     if res.launches["decode"] != zeros:
         fail(f"serve {arch}: kernels launched during decode: "
              f"{res.launches}")
+    # the bf16 prefill's attention launches all on the tensor-core route
+    check_routes(routes, want_prefill, f"serve {arch}")
     if not torch.isfinite(res.logits.float()).all():
         fail(f"serve {arch}: non-finite logits")
     if not ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all():
@@ -1287,7 +1389,8 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
            "peak_memory_gb": peak_gb, "params": n_params,
            "weights_gb_bf16": weight_gb,
            "decode_bound_ms": (weight_gb - gathered_gb) / HBM_BYTES_S * 1e12,
-           "launches": res.launches, **errs, "tol": tol,
+           "launches": res.launches, "launches_by_route": routes, **errs,
+           "tol": tol,
            "tol_f32": TOL_SERVE_F32}
     emit({"phase": "serve", "arch": arch, "batch": batch,
           "prompt_len": prompt_len, "gen_tokens": gen_tokens, **out})
@@ -1365,6 +1468,7 @@ def phase_evaluate(dev) -> dict:
                             seq_len=EVAL_S, num_groups=EVAL_GROUPS,
                             device=dev, seed=0)
     launches = launch_counts()
+    routes = route_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model = res.model
     n_ssm = model.cfg.blocks().count("ssm")
@@ -1374,6 +1478,8 @@ def phase_evaluate(dev) -> dict:
     if any(got != want for got in res.launches) or launches != total:
         fail(f"evaluate launches {res.launches}, total {launches}; expected "
              f"{want} a client")
+    # every cross-entropy launch of group_metrics on the tensor-core route
+    check_routes(routes, total, "evaluate")
     errs, worst_same = [], []
     for i, (b, m) in enumerate(zip(res.batches, res.metrics)):
         for key in ("group_loss", "mean_loss", "worst_group_loss"):
@@ -1407,7 +1513,7 @@ def phase_evaluate(dev) -> dict:
            "tokens_per_s_warm": EVAL_B * EVAL_S / warm_s,
            "peak_memory_gb": peak_gb, "max_err_vs_plain": max(errs),
            "worst_group_same_as_plain": worst_same, "launches": launches,
-           "tol": TOL_EVAL}
+           "launches_by_route": routes, "tol": TOL_EVAL}
     emit({"phase": "evaluate", "arch": MAMBA_ARCH, "clients": EVAL_CLIENTS,
           "batch": EVAL_B, "seq_len": EVAL_S, "groups": EVAL_GROUPS, **out})
     emit({"phase": "evaluate", "profile": "group_metrics (warm)", **prof})
@@ -1506,10 +1612,20 @@ def time_mamba_kernels(gen, dev) -> dict:
         torch.cuda.empty_cache()
     n, d, v = eval_ce_shape()
     hidden, w, labels = ce_operands(n, d, v, torch.bfloat16, gen, dev)
+    # the route the evaluate path takes (tensor cores), then the CUDA-core
+    # route on the same operands
     ms = cuda_ms(lambda: cross_entropy.fused_ce_nd(  # noqa: E731
-        hidden, w, labels), reps=5)
+        hidden, w, labels), reps=11)
+    cc_ms = cuda_ms(lambda: cross_entropy.fused_ce_nd(  # noqa: E731
+        hidden, w, labels, force_route="cuda_core"), reps=3)
     pms = cuda_ms(lambda: ref.fused_ce_ref(hidden, w, labels),  # noqa: E731
                   reps=5)
+    # the untied layout (an untied head's transposed view), tensor cores
+    _, w_untied, _ = ce_operands(1, d, v, torch.bfloat16, gen, dev,
+                                 tied=False)
+    untied_ms = cuda_ms(lambda: cross_entropy.fused_ce_nd(  # noqa: E731
+        hidden, w_untied, labels), reps=11)
+    del w_untied
 
     def lib():
         try:
@@ -1523,15 +1639,19 @@ def time_mamba_kernels(gen, dev) -> dict:
     lms = cuda_ms(lib, reps=5)
     (bound, by), f32_bound = ce_bound_ms(n, d, v, 2)
     emit({"phase": "times", "kernel": "fused_cross_entropy",
-          "shape": [n, d, v], "dtype": "bfloat16", "ms": ms, "plain_ms": pms,
+          "shape": [n, d, v], "dtype": "bfloat16", "ms": ms,
+          "route": "tensor_core", "cuda_core_ms": cc_ms,
+          "untied_tensor_core_ms": untied_ms, "plain_ms": pms,
           "library_ms": lms, "library_max_abs_err_vs_kernel": lib_err,
           "library": "two calls: torch.mm(h, w.T, out_dtype=float32), then "
                      "F.cross_entropy(reduction='none')",
           "bound_ms": bound, "bound_by": by,
           "bound_ms_at_f32_cuda_core_peak": f32_bound,
-          "tflop_s": 2 * n * v * d / ms / 1e9})
+          "tflop_s": 2 * n * v * d / ms / 1e9,
+          "cuda_core_tflop_s": 2 * n * v * d / cc_ms / 1e9})
     out["fused_cross_entropy"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                      bound_by=by, library_ms=lms)
+                                      bound_by=by, library_ms=lms,
+                                      cuda_core_ms=cc_ms)
     del hidden, w, labels
     torch.cuda.empty_cache()
     return out
@@ -1555,9 +1675,12 @@ def time_model_kernels(gen, dev) -> dict:
                                 dev)
         kern = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
             q, k, v, causal=True, window=window)
+        kern_cc = lambda: flash_attention.flash_attention_bshd(  # noqa: E731
+            q, k, v, causal=True, window=window, force_route="cuda_core")
         plain = lambda: ref.attention_ref(  # noqa: E731
             q, k, v, causal=True, window=window)
-        ms, pms = cuda_ms(kern, reps=7), cuda_ms(plain, reps=3)
+        ms, pms = cuda_ms(kern, reps=11), cuda_ms(plain, reps=3)
+        cc_ms = cuda_ms(kern_cc, reps=5)
         i = torch.arange(ss, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
         qt = q.transpose(1, 2)
@@ -1576,14 +1699,18 @@ def time_model_kernels(gen, dev) -> dict:
                                      F32_FLOP_S)
         emit({"phase": "times", "kernel": "flash_attention",
               "shape": [bb, ss, h, kv, d], "window": window,
-              "dtype": "bfloat16", "ms": ms, "plain_ms": pms,
+              "dtype": "bfloat16", "ms": ms, "route": "tensor_core",
+              "cuda_core_ms": cc_ms, "plain_ms": pms,
               "library_ms": lms, "library_max_abs_err_vs_kernel": lib_err,
               "library": "F.scaled_dot_product_attention, banded bool mask",
               "bound_ms": bound, "bound_by": by,
-              "bound_ms_at_f32_cuda_core_peak": f32_bound})
+              "bound_ms_at_f32_cuda_core_peak": f32_bound,
+              "tflop_s": bound * BF16_FLOP_S / ms / 1e12
+              if by == "operations" else None})
         if bb == b:
             out["flash_attention"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                          bound_by=by, library_ms=lms)
+                                          bound_by=by, library_ms=lms,
+                                          cuda_core_ms=cc_ms)
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
     b, s, w = served_scan_shape()
@@ -1823,7 +1950,7 @@ def main(argv=None) -> int:
     _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": {name: [ln for ln in log.splitlines() if "registers" in ln
-                           or "spill" in ln]
+                           or "spill" in ln or "arning" in ln]
                     for name, log in _build.stats["log"].items()}})
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1831,14 +1958,17 @@ def main(argv=None) -> int:
              "flash_attention", "rglru_scan", "ssd_scan",
              "fused_cross_entropy")
     errs = dict.fromkeys(names)
+    cases_by_route = {}
     if "kernels" in phases:
         errs = {"fused_gossip": check_gossip(gen, dev),
                 "fused_round": check_round(gen, dev),
-                "sparse_gossip": check_sparse_gossip(gen, dev),
-                "flash_attention": check_flash_attention(gen, dev),
-                "rglru_scan": check_rglru_scan(gen, dev),
-                "ssd_scan": check_ssd_scan(gen, dev),
-                "fused_cross_entropy": check_cross_entropy(gen, dev)}
+                "sparse_gossip": check_sparse_gossip(gen, dev)}
+        errs["flash_attention"], cases_by_route["flash_attention"] = \
+            check_flash_attention(gen, dev)
+        errs.update(rglru_scan=check_rglru_scan(gen, dev),
+                    ssd_scan=check_ssd_scan(gen, dev))
+        errs["fused_cross_entropy"], cases_by_route["fused_cross_entropy"] = \
+            check_cross_entropy(gen, dev)
         torch.cuda.synchronize()
     launches = dict.fromkeys(names)
     if "main" in phases:
@@ -1851,15 +1981,21 @@ def main(argv=None) -> int:
         scale = phase_scale(dev)
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
     launches_eval = dict.fromkeys(names)
+    launches_by_route = {}
     if "serve" in phases:
         serve = phase_serve(dev)
         for name, arch in (("flash_attention", SERVE_ARCH),
                            ("rglru_scan", SERVE_ARCH),
                            ("ssd_scan", MAMBA_ARCH)):
             launches[name] = serve[arch]["launches"]["prefill"][name]
+        launches_by_route["flash_attention"] = \
+            serve[SERVE_ARCH]["launches_by_route"]["flash_attention"]
     if "evaluate" in phases:
-        launches_eval.update(phase_evaluate(dev)["launches"])
+        evaluated = phase_evaluate(dev)
+        launches_eval.update(evaluated["launches"])
         launches["fused_cross_entropy"] = launches_eval["fused_cross_entropy"]
+        launches_by_route["fused_cross_entropy"] = \
+            evaluated["launches_by_route"]["fused_cross_entropy"]
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -1898,6 +2034,12 @@ def main(argv=None) -> int:
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
                  library_ms=t.get("library_ms"))
+        if k["name"] in ("flash_attention", "fused_cross_entropy"):
+            # two routes: ms is the tensor-core route's, which the main
+            # paths take; the CUDA-core route's time beside it
+            k.update(launches_by_route=launches_by_route.get(k["name"]),
+                     cases_by_route=cases_by_route.get(k["name"]),
+                     cuda_core_ms=t.get("cuda_core_ms"))
     print(smi, flush=True)
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "

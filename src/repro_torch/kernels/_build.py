@@ -40,11 +40,12 @@ SIGNATURES = {
     "neighbor_gossip": ("sparse_gossip_launch",
                         [_P] * 8 + [_I, _I, ctypes.c_longlong, ctypes.c_float,
                                     ctypes.c_float, _I, _P]),
-    "flash_attention": ("flash_attention_launch", [_P] * 4 + [_I] * 9 + [_P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P] * 4 + [_I] * 10 + [_P]),
     "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
     "ssd_scan": ("ssd_scan_launch", [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P]),
     "cross_entropy": ("fused_ce_launch",
-                      [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _P]),
+                      [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -126,6 +127,16 @@ def check_no_grad(what: str, *xs) -> None:
             f"{what}: an operand requires grad, and the kernel has no "
             f"backward pass yet (the training slice, ROADMAP A11, brings "
             f"it); under autograd the model runs the plain version")
+
+
+def forced_route(chosen: str, forced) -> str:
+    """The route a call takes: ``chosen`` (the wrapper's rule) unless
+    ``forced``; the CUDA-core route takes every operand, the tensor-core
+    route only those the rule gives it."""
+    if forced is None or forced == chosen or forced == "cuda_core":
+        return forced or chosen
+    raise ValueError(f"route {forced!r} cannot take these operands; the "
+                     f"route rule gives {chosen!r}")
 
 
 def check_operand(name, x, shape, dtype=torch.float32):

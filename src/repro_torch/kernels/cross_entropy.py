@@ -5,9 +5,12 @@ hidden (N, d) against a head weight addressed as (V, d) through its
 strides — the tied embedding as it is, an untied (d, V) head as its
 transposed view, neither copied — with f32 logits that are never all
 resident.  Bound on an H100: 2·N·V·d operations (compute-bound; design
-notes in the source).  The plain version is
-``repro_torch.kernels.ref.fused_ce_ref``; dispatch between the two is
-``repro_torch.kernels.ops.fused_cross_entropy``.
+notes in the source).  Two routes, chosen by :func:`route`: the
+tensor-core route (TMA and wgmma) for bf16 operands whose rows TMA can
+read, the CUDA-core route for f32 operands and for bf16 rows that are not
+16-byte aligned.  The plain version is
+``repro_torch.kernels.ref.fused_ce_ref``; dispatch between the plain
+version and the kernel is ``repro_torch.kernels.ops.fused_cross_entropy``.
 """
 from __future__ import annotations
 
@@ -16,13 +19,36 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"cuda_core": 0, "tensor_core": 1}
 
 
-def fused_ce_nd(hidden, weight, labels):
+def route(dtype, hidden_strides, weight_strides, aligned: bool) -> str:
+    """The route of a call: ``"tensor_core"`` where TMA can read both
+    operands in bf16 — 16-byte aligned bases (``aligned``), hidden rows
+    contiguous with a row stride of whole 16-byte chunks, and a head whose
+    d axis (tied) or V axis (an untied head's transposed view) is
+    contiguous with the other stride whole chunks too; ``"cuda_core"``
+    otherwise (f32 operands, d = 33, a misaligned base)."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "cuda_core"
+    (shn, shd), (swv, swd) = hidden_strides, weight_strides
+    chunks = 16 // 2  # bf16 values a 16-byte chunk
+    if shd != 1 or shn % chunks:
+        return "cuda_core"
+    if (swd == 1 and swv % chunks == 0) or (swv == 1 and swd % chunks == 0):
+        return "tensor_core"
+    return "cuda_core"
+
+
+def fused_ce_nd(hidden, weight, labels, *, force_route=None):
     """hidden (N, d) with a contiguous last dimension; weight (V, d) of the
     same dtype (float32 or bfloat16) with one of its two strides 1; labels
     (N,) integers in [0, V); CUDA tensors on one device.  Returns a fresh
-    f32 NLL (N,).  Counts its launches in ``fused_ce_nd.launches``."""
+    f32 NLL (N,).  The route is :func:`route`'s; ``force_route="cuda_core"``
+    takes the CUDA-core kernel whatever the operands (to hold both routes
+    against the plain version), and forcing ``"tensor_core"`` on operands
+    it cannot take raises.  Counts its launches in
+    ``fused_ce_nd.launches`` and, by route, in ``fused_ce_nd.routes``."""
     _build.check_no_grad("fused_cross_entropy", hidden, weight)
     if hidden.dtype not in DTYPES or weight.dtype != hidden.dtype:
         raise ValueError(f"hidden and weight must share float32 or bfloat16,"
@@ -44,6 +70,9 @@ def fused_ce_nd(hidden, weight, labels):
         raise ValueError("hidden needs a contiguous last dimension")
     if 1 not in weight.stride() and v > 1 and d > 1:
         raise ValueError("weight needs a stride of 1 along V or along d")
+    which = route(hidden.dtype, hidden.stride(), weight.stride(),
+                  hidden.data_ptr() % 16 == 0 and weight.data_ptr() % 16 == 0)
+    which = _build.forced_route(which, force_route)
     lib = _build.library("cross_entropy")
     lab = labels.to(torch.int32).contiguous()
     nll = torch.empty((n,), dtype=torch.float32, device=hidden.device)
@@ -51,10 +80,12 @@ def fused_ce_nd(hidden, weight, labels):
     err = lib.fused_ce_launch(
         hidden.data_ptr(), weight.data_ptr(), lab.data_ptr(), nll.data_ptr(),
         n, v, d, hidden.stride(0), *weight.stride(), DTYPES[hidden.dtype],
-        stream)
+        ROUTES[which], stream)
     _build.check(err, "fused_ce_launch")
     fused_ce_nd.launches += 1
+    fused_ce_nd.routes[which] += 1
     return nll
 
 
 fused_ce_nd.launches = 0
+fused_ce_nd.routes = dict.fromkeys(ROUTES, 0)

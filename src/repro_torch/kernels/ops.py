@@ -50,14 +50,27 @@ KERNELS = {
 }
 
 
+# the wrappers with two routes (a tensor-core and a CUDA-core kernel), whose
+# ``routes`` attribute counts their launches by route
+ROUTED = ("flash_attention", "fused_cross_entropy")
+
+
 def launch_counts() -> dict:
     """Launches of each CUDA kernel so far in this process."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> dict:
+    """Launches of each two-route kernel so far, by route."""
+    return {name: dict(KERNELS[name].routes) for name in ROUTED}
+
+
 def zero_launch_counts() -> None:
+    """Sets every launch count, and every count by route, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for name in ROUTED:
+        KERNELS[name].routes = dict.fromkeys(KERNELS[name].routes, 0)
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:

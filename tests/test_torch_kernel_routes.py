@@ -1,0 +1,221 @@
+"""The two routes of kernels B5 and B6, and the C entry points' signatures.
+
+B5 (``csrc/flash_attention.cu``) and B6 (``csrc/cross_entropy.cu``) each
+have a tensor-core kernel and a CUDA-core kernel.  Which one a call takes is
+a pure function of dtype, shape, strides and alignment
+(``flash_attention.route``, ``cross_entropy.route``); it is held here on the
+CPU, where no kernel runs.  The served attention shape and the evaluated
+cross-entropy shape must take the tensor-core route.  The ctypes signatures
+of ``_build.SIGNATURES`` are held against the ``extern "C"`` functions of
+the sources, which only nvcc compiles.
+"""
+import re
+
+import pytest
+import torch
+
+from repro_torch.configs import registry
+from repro_torch.kernels import _build
+from repro_torch.kernels import cross_entropy as t_ce
+from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import ops as t_ops
+
+BF16, F32 = torch.bfloat16, torch.float32
+# the shapes the main paths run: recurrentgemma-9b's prefill of 4 × 4096
+# tokens (attn_local, window 2048) and mamba2-1.3b's evaluation of 4 × 4096
+# tokens a client against its tied 50280 × 2048 head
+SERVED_ATTN = (4, 4096, 16, 1, 256)
+EVAL_CE = (4 * 4096, 2048, 50280)
+
+
+def _meta(shape, dtype=BF16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _attn_strides(b, s, h, kv, d, dtype=BF16):
+    q, k = _meta((b, s, h, d), dtype), _meta((b, s, kv, d), dtype)
+    return (q.stride(), k.stride(), k.stride())
+
+
+def _ce_strides(n, d, v, *, tied=True, dtype=BF16):
+    hidden = _meta((n, d), dtype)
+    w = _meta((v, d), dtype) if tied else _meta((d, v), dtype).T
+    return hidden.stride(), w.stride()
+
+
+# ---------------------------------------------------------------------------
+# B6: the cross-entropy's route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_evaluate_shape_takes_the_tensor_core_route(tied):
+    cfg = registry.get_model_config("mamba2-1.3b")
+    n, d, v = EVAL_CE
+    assert (d, v) == (cfg.d_model, cfg.vocab_size)
+    hs, ws = _ce_strides(n, d, v, tied=tied)
+    assert t_ce.route(BF16, hs, ws, True) == "tensor_core"
+
+
+@pytest.mark.parametrize("n,d,v,tied", [
+    (1, 16, 1, True), (130, 2048, 1000, True), (257, 256, 50280, False),
+    (1, 2048, 50280, False), (100, 64, 1000, False), (80, 256, 512, True)])
+def test_bf16_aligned_rows_take_the_tensor_core_route(n, d, v, tied):
+    hs, ws = _ce_strides(n, d, v, tied=tied)
+    assert t_ce.route(BF16, hs, ws, True) == "tensor_core"
+
+
+@pytest.mark.parametrize("why,dtype,n,d,v,tied,aligned", [
+    ("f32 tied", F32, 130, 2048, 1000, True, True),
+    ("f32 untied", F32, 130, 2048, 1000, False, True),
+    ("d = 33", BF16, 5, 33, 7, True, True),
+    ("d = 33 untied", BF16, 5, 33, 1000, False, True),
+    ("V = 7 untied: head rows of 14 bytes", BF16, 5, 64, 7, False, True),
+    ("misaligned base", BF16, 130, 256, 1000, True, False),
+    ("misaligned base, evaluate shape", BF16, *EVAL_CE, True, False),
+])
+def test_what_tma_cannot_read_takes_the_cuda_core_route(why, dtype, n, d, v,
+                                                        tied, aligned):
+    hs, ws = _ce_strides(n, d, v, tied=tied, dtype=dtype)
+    assert t_ce.route(dtype, hs, ws, aligned) == "cuda_core", why
+
+
+@pytest.mark.parametrize("hs,ws", [
+    ((2048, 2), (2048, 1)),      # hidden's last dimension not contiguous
+    ((2052, 1), (2048, 1)),      # hidden rows 4104 bytes apart
+    ((2048, 1), (4100, 1)),      # head rows 8200 bytes apart (tied)
+    ((2048, 1), (1, 50284)),     # head rows 100568 bytes apart (untied)
+    ((2048, 1), (2, 4096)),      # neither head stride 1
+])
+def test_strides_off_16_byte_chunks_take_the_cuda_core_route(hs, ws):
+    assert t_ce.route(BF16, hs, ws, True) == "cuda_core"
+
+
+# ---------------------------------------------------------------------------
+# B5: the attention's route
+# ---------------------------------------------------------------------------
+
+def test_served_attention_shape_takes_the_tensor_core_route():
+    cfg = registry.get_model_config("recurrentgemma-9b")
+    b, s, h, kv, d = SERVED_ATTN
+    assert (h, kv, d) == (cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim)
+    assert t_fa.route(BF16, d, _attn_strides(*SERVED_ATTN), True) == (
+        "tensor_core")
+    assert t_fa.route(BF16, d, _attn_strides(1, 32768, h, kv, d), True) == (
+        "tensor_core")
+
+
+@pytest.mark.parametrize("arch", sorted(
+    a for a in registry.ARCHS
+    if registry.get_model_config(a).num_heads))
+def test_every_attention_config_takes_the_tensor_core_route(arch):
+    """Every head_dim of ``repro_torch/configs`` is one the tensor-core
+    kernel takes (≤ 256, a multiple of 8)."""
+    cfg = registry.get_model_config(arch)
+    d = cfg.resolved_head_dim
+    strides = _attn_strides(1, 100, cfg.num_heads, cfg.num_kv_heads, d)
+    assert t_fa.route(BF16, d, strides, True) == "tensor_core"
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+def test_bf16_whole_chunk_rows_take_the_tensor_core_route(d):
+    assert t_fa.route(BF16, d, _attn_strides(2, 70, 4, 2, d), True) == (
+        "tensor_core")
+
+
+@pytest.mark.parametrize("why,dtype,d,aligned", [
+    ("f32", F32, 256, True),
+    ("f32, D = 64", F32, 64, True),
+    ("D = 33", BF16, 33, True),
+    ("D = 36: rows of 72 bytes", BF16, 36, True),
+    ("misaligned base", BF16, 64, False),
+    ("misaligned base, served shape", BF16, 256, False),
+    ("D past 256", BF16, 264, True),
+])
+def test_attention_the_tensor_cores_cannot_take_goes_to_cuda_cores(
+        why, dtype, d, aligned):
+    strides = _attn_strides(2, 70, 4, 1, d, dtype)
+    assert t_fa.route(dtype, d, strides, aligned) == "cuda_core", why
+
+
+def test_attention_stride_off_16_byte_chunks_takes_the_cuda_core_route():
+    q, k = (8 * 16 * 64, 16 * 64, 64, 1), (8 * 64, 64, 64, 1)
+    assert t_fa.route(BF16, 64, (q, k, k), True) == "tensor_core"
+    assert t_fa.route(BF16, 64, (q, (8 * 68, 68, 68, 1), k), True) == (
+        "cuda_core")
+    assert t_fa.route(BF16, 64, (q, k, (8 * 64, 64, 64, 2)), True) == (
+        "cuda_core")
+
+
+# ---------------------------------------------------------------------------
+# forcing a route, and the counts by route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chosen", ["tensor_core", "cuda_core"])
+def test_the_cuda_core_route_can_always_be_forced(chosen):
+    assert _build.forced_route(chosen, None) == chosen
+    assert _build.forced_route(chosen, "cuda_core") == "cuda_core"
+
+
+def test_the_tensor_core_route_cannot_be_forced_on_what_it_cannot_take():
+    assert _build.forced_route("tensor_core", "tensor_core") == "tensor_core"
+    with pytest.raises(ValueError, match="cannot take"):
+        _build.forced_route("cuda_core", "tensor_core")
+    with pytest.raises(ValueError, match="cannot take"):
+        _build.forced_route("cuda_core", "fastest")
+
+
+def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
+    t_ops.zero_launch_counts()
+    zero = {"tensor_core": 0, "cuda_core": 0}
+    assert t_ops.route_counts() == {"flash_attention": zero,
+                                    "fused_cross_entropy": zero}
+    q = torch.zeros((1, 4, 2, 8), dtype=BF16)
+    t_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    h, w = torch.zeros((4, 8), dtype=BF16), torch.zeros((10, 8), dtype=BF16)
+    t_ops.fused_cross_entropy(h, w, torch.zeros((4,), dtype=torch.long))
+    assert t_ops.route_counts() == {"flash_attention": zero,
+                                    "fused_cross_entropy": zero}
+    assert set(t_ops.ROUTED) <= set(t_ops.KERNELS)
+
+
+def test_zeroing_resets_the_counts_by_route():
+    t_fa.flash_attention_bshd.routes["tensor_core"] += 3
+    t_ce.fused_ce_nd.routes["cuda_core"] += 2
+    t_ops.zero_launch_counts()
+    assert all(v == 0 for by in t_ops.route_counts().values()
+               for v in by.values())
+
+
+# ---------------------------------------------------------------------------
+# the C entry points against their ctypes signatures
+# ---------------------------------------------------------------------------
+
+def _extern_c_params(name: str, fn: str):
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    m = re.search(r'extern\s+"C"\s+\w+\s+' + re.escape(fn) + r"\s*\(([^)]*)\)",
+                  src)
+    assert m, f'csrc/{name}.cu has no extern "C" {fn}'
+    return [p.strip() for p in m.group(1).split(",") if p.strip()]
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_signature_matches_the_extern_c_function(name):
+    fn, argtypes = _build.SIGNATURES[name]
+    params = _extern_c_params(name, fn)
+    assert len(params) == len(argtypes), (name, params)
+    # pointers and the stream are c_void_p; integers are c_int or c_longlong
+    for p, t in zip(params, argtypes):
+        if "*" in p:
+            assert t is _build._P, (name, p)
+        elif p.startswith("long long"):
+            assert t is _build._L, (name, p)
+        elif p.startswith("int"):
+            assert t is _build._I, (name, p)
+        elif p.startswith("float"):
+            assert t is __import__("ctypes").c_float, (name, p)
+
+
+def test_every_source_has_a_signature():
+    assert set(_build.SIGNATURES) == set(_build.SOURCES)
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
