@@ -9,16 +9,19 @@ Phases, each printing one JSON line:
 2. build — nvcc builds every kernel of ``src/repro_torch/kernels/csrc``;
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card, at the stated tolerances, on a grid that holds every shape (and
-   kind of W) that the later phases run it at; B5 and B6 on both their
-   routes (tensor cores, CUDA cores), each call on the route its rule
-   gives it and every tensor-core call repeated on the CUDA-core route;
+   kind of W) that the later phases run it at; the two-route kernels on
+   both routes — B5, B6 and B7 (tensor cores, CUDA cores) and B2 (a
+   cluster per client, a block per client) — each call on the route its
+   rule gives it and every call of the new route repeated on the old one;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
    whole-round lowerings must match ``dense``, and the kernels' launch
-   counts must be what the path implies;
+   counts must be what the path implies, every whole-round launch on the
+   cluster route;
 5. quickstart — at the quickstart geometry (fused_round) K-GT-Minimax
-   must end below local SGDA, with one whole-round launch a round;
+   must end below local SGDA, with one whole-round launch a round, on the
+   cluster route;
 6. scale — the sparse path at n = 4096 clients on the exponential graph
    (dx = 384, dy = 128, K = 8): ``sparse_packed`` against ``dense`` on the
    same W for the four algorithms, the neighbor-gather kernel's launch
@@ -32,19 +35,19 @@ Phases, each printing one JSON line:
    steps each; the prefill's logits and caches against the same prefill
    through the plain versions, prefill + decode against the plain
    full-sequence forward, the kernels' launches (one a layer in the
-   prefill: 12 and 26, and 48; none in decode; every attention launch on
-   the tensor-core route), prefill s, decode
+   prefill: 12 and 26, and 48; none in decode; every attention and SSD
+   scan launch on the tensor-core route), prefill s, decode
    ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
    decode steps;
 8. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
    ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4
    clients, through the SSD scan (48 launches a call) and the fused
-   cross-entropy (1, on the tensor-core route); group losses against the
-   plain route, finiteness,
-   seconds and tokens/s a client batch, peak memory, a profile;
+   cross-entropy (1), both on the tensor-core route; group losses against
+   the plain route, finiteness, seconds and tokens/s a client batch, peak
+   memory, a profile;
 9. times — device times of each kernel, its plain version and, where one
-   exists, a PyTorch library call, beside the bounds (B5 and B6 on both
-   routes); the epilogue at
+   exists, a PyTorch library call, beside the bounds (B2, B5, B6 and B7 on
+   both routes); the epilogue at
    D ≈ 1e8, the model kernels at the served shapes and at S = 32768, and
    rounds/s per mixing_impl.
 
@@ -73,11 +76,12 @@ PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "serve",
           "evaluate", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) and
-# dense bf16 (tensor-core) flop/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
+# bf16 and dense TF32 (tensor-core) flop/s
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+TF32_FLOP_S = 494.7e12
 
 # main-path geometry (the round rows of benchmarks/bench_gossip.py, ring)
 N, K, DX, DY, SIGMA, ROUNDS = 8, 8, 384, 128, 0.1, 50
@@ -204,8 +208,8 @@ def sparse_bound_ms(n: int, d: int, m: int):
     return _bound(byts, flops)
 
 
-def _bound(byts, flops):
-    t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+def _bound(byts, flops, flop_s=F32_FLOP_S):
+    t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -286,7 +290,13 @@ def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None,
     return w, z0, c, ef, g, h, step, etas, corr, mask
 
 
-def check_round(gen, dev) -> float:
+def check_round(gen, dev):
+    """B2 against its plain version over the JAX package's kernel-test
+    shape, the main path's and the quickstart's round geometries and the
+    churn path's, on both routes: each call takes the route
+    ``fused_round.route`` gives it (the cluster route at every one of these
+    shapes), and each is repeated on the block route.  Returns the largest
+    absolute error and the cases by route."""
     import torch
 
     from repro_torch.core.mixing import gossip_torch_dtype, narrow
@@ -295,7 +305,8 @@ def check_round(gen, dev) -> float:
     from repro_torch.core import sparse_topology as sp_lib
 
     worst = full_q = full_flip = 0.0
-    cases = flips = 0
+    flips = same_bits = 0
+    by_route = {r: 0 for r in fused_round.ROUTES}
     # (6, 150, 3): the JAX package's kernel-test shape; then the main
     # path's and the quickstart's round geometries, and the churn path's
     # at the dense limit, with each family's masked W and that mask
@@ -305,6 +316,9 @@ def check_round(gen, dev) -> float:
                                                       dev)]
     for (n, dz, k) in ((6, 150, 3), (N, DX + DY, K), (N, 10 + 5, K),
                        (CHURN_DENSE_N, DX + DY, K)):
+        rt = fused_round.route(dz)
+        if rt != "cluster":
+            fail(f"fused_round: dz = {dz} takes the {rt} route")
         variants = ([("ring", dict()), ("ring, corr 0", dict(corr_zero=True)),
                      ("ring, rows 1 3 out", dict(mask_rows=[1, 3]))]
                     if n != CHURN_DENSE_N else churn)
@@ -313,76 +327,92 @@ def check_round(gen, dev) -> float:
             w, z0, c, ef, g, h, step, etas, corr, mask = args
             act = mask > 0
             for compress in (None, "bf16", "int8"):
+                # local steps against the plain K steps
+                _, _, pd = ref.local_steps_ref(z0, c, ef, g, h, step, mask,
+                                               compress=compress)
                 for gd in (None, "bfloat16"):
-                    kz, kc, ke, kq = fused_round.fused_round_wire(
+                    fz, fc, fe = ref.fused_round_ref(
                         *args, compress=compress, gossip_dtype=gd)
-                    # local steps against the plain K steps: q is Δ without
-                    # compression, and q + e' is v = mask ⊙ (Δ + e) with it
-                    _, _, pd = ref.local_steps_ref(z0, c, ef, g, h, step,
-                                                   mask, compress=compress)
-                    if compress is None:
-                        errs = {"delta": max_err(kq, pd)}
-                        if not torch.equal(ke, ef):
-                            fail(f"fused_round {n},{dz},{k} {var}: e' != e "
-                                 f"without compression")
-                    else:
-                        v = torch.where(act, kq + ke, torch.zeros_like(kq))
-                        errs = {"v": max_err(v, mask * (pd + ef))}
-                        # the wire, bit for bit: the quantizer applied to
-                        # the kernel's v gives its q, e' is v − q exactly,
-                        # and inactive rows keep their e
-                        pq = quantize.quantize_dequant(v, compress)
-                        pe = torch.where(act, v - pq, ef)
-                        if not (torch.equal(kq, pq) and torch.equal(ke, pe)):
-                            fail(f"fused_round {n},{dz},{k} {var} {compress}:"
-                                 f" kernel q/e' differ from the quantizer")
-                    # the epilogue on the kernel's q
-                    gdt = gossip_torch_dtype(gd)
-                    wg = narrow(w, gdt)
-                    wq = wg @ narrow(kq, gdt)
-                    pz = wg @ narrow(z0, gdt) + etas * wq
-                    pc = c + corr * (kq - wq)
-                    errs["z"] = max_err(kz, pz)
-                    errs["c"] = max_err(kc, pc)
-                    # and the whole round against the plain whole round
-                    # (informational under compression, where a ulp of Δ
-                    # can move a value across a rounding boundary of Q).
-                    # A bf16 gossip rounds Δ too: there, the entries of z'
-                    # and c' that mix a Δ entry whose kernel and plain
-                    # values round to different bf16 values are
-                    # informational, and every other entry is checked
-                    fz, fc, fe = ref.fused_round_ref(*args, compress=compress,
-                                                     gossip_dtype=gd)
-                    full = max(max_err(kz, fz), max_err(kc, fc),
-                               max_err(ke, fe))
-                    full_kept = full
-                    if compress is None and gd is not None:
-                        flip = narrow(kq, gdt) != narrow(pd, gdt)
-                        kept = ((w != 0).float() @ flip.float()) == 0
-                        full_kept = max(max_err(kz[kept], fz[kept]),
-                                        max_err(kc[kept], fc[kept]),
-                                        max_err(ke, fe))
-                        flips += int(flip.sum())
-                        full_flip = max(full_flip, full)
-                    if (max(errs.get("delta", 0.0), errs.get("v", 0.0),
-                            errs["z"]) > TOL_ROUND or errs["c"] > TOL_ROUND_C
-                            or (compress is None
-                                and full_kept > TOL_ROUND_C)):
-                        fail(f"fused_round {n},{dz},{k} {var} {compress} {gd}:"
-                             f" {errs}, whole round {full_kept}")
-                    worst = max(worst, *errs.values(),
-                                full_kept if compress is None else 0.0)
-                    if compress is not None:
-                        full_q = max(full_q, full)
-                    cases += 1
-    emit({"phase": "kernels", "kernel": "fused_round", "cases": cases,
+                    wire = {}
+                    for want_route in (rt, "block"):
+                        force = None if want_route == rt else want_route
+                        kz, kc, ke, kq = routed_call(
+                            lambda: fused_round.fused_round_wire(
+                                *args, compress=compress, gossip_dtype=gd,
+                                force_route=force),
+                            "fused_round", want_route)
+                        wire[want_route] = (kq, ke)
+                        what = (f"fused_round {n},{dz},{k} {var} {compress} "
+                                f"{gd} {want_route}")
+                        # q is Δ without compression, and q + e' is
+                        # v = mask ⊙ (Δ + e) with it
+                        if compress is None:
+                            errs = {"delta": max_err(kq, pd)}
+                            if not torch.equal(ke, ef):
+                                fail(f"{what}: e' != e without compression")
+                        else:
+                            v = torch.where(act, kq + ke,
+                                            torch.zeros_like(kq))
+                            errs = {"v": max_err(v, mask * (pd + ef))}
+                            # the wire, bit for bit: the quantizer applied
+                            # to the kernel's v gives its q, e' is v − q
+                            # exactly, and inactive rows keep their e
+                            pq = quantize.quantize_dequant(v, compress)
+                            pe = torch.where(act, v - pq, ef)
+                            if not (torch.equal(kq, pq)
+                                    and torch.equal(ke, pe)):
+                                fail(f"{what}: kernel q/e' differ from the "
+                                     f"quantizer")
+                        # the epilogue on the kernel's q
+                        gdt = gossip_torch_dtype(gd)
+                        wg = narrow(w, gdt)
+                        wq = wg @ narrow(kq, gdt)
+                        pz = wg @ narrow(z0, gdt) + etas * wq
+                        pc = c + corr * (kq - wq)
+                        errs["z"] = max_err(kz, pz)
+                        errs["c"] = max_err(kc, pc)
+                        # and the whole round against the plain whole round
+                        # (informational under compression, where a ulp of
+                        # Δ can move a value across a rounding boundary of
+                        # Q).  A bf16 gossip rounds Δ too: there, the
+                        # entries of z' and c' that mix a Δ entry whose
+                        # kernel and plain values round to different bf16
+                        # values are informational, and every other entry
+                        # is checked
+                        full = max(max_err(kz, fz), max_err(kc, fc),
+                                   max_err(ke, fe))
+                        full_kept = full
+                        if compress is None and gd is not None:
+                            flip = narrow(kq, gdt) != narrow(pd, gdt)
+                            kept = ((w != 0).float() @ flip.float()) == 0
+                            full_kept = max(max_err(kz[kept], fz[kept]),
+                                            max_err(kc[kept], fc[kept]),
+                                            max_err(ke, fe))
+                            flips += int(flip.sum())
+                            full_flip = max(full_flip, full)
+                        if (max(errs.get("delta", 0.0), errs.get("v", 0.0),
+                                errs["z"]) > TOL_ROUND
+                                or errs["c"] > TOL_ROUND_C
+                                or (compress is None
+                                    and full_kept > TOL_ROUND_C)):
+                            fail(f"{what}: {errs}, whole round {full_kept}")
+                        worst = max(worst, *errs.values(),
+                                    full_kept if compress is None else 0.0)
+                        if compress is not None:
+                            full_q = max(full_q, full)
+                        by_route[want_route] += 1
+                    same_bits += all(torch.equal(x, y) for x, y in
+                                     zip(wire[rt], wire["block"]))
+    emit({"phase": "kernels", "kernel": "fused_round",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
           "max_abs_err": worst, "tol": [TOL_ROUND, TOL_ROUND_C],
           "whole_round_err_compressed": full_q,
           "bf16_gossip_delta_flips": flips,
           "whole_round_err_bf16_gossip_all_entries": full_flip,
+          "wire_bitwise_equal_across_routes": same_bits,
           "bitwise": "e' == e (no compression); with v = q + e': "
                      "q == Q(v), e' == v - q"})
-    return worst
+    return worst, by_route
 
 
 def churn_topologies(n, gen, dev):
@@ -673,51 +703,73 @@ SSD_CASES = [
 ]
 
 
-def check_ssd_scan(gen, dev) -> float:
+def check_ssd_scan(gen, dev):
     """B7 against ``ref.ssd_chunked`` (y and final state), with and without
-    state0, over SSD_CASES, operands read through strides, and the shapes
-    of the serve, evaluate and times phases.  Returns the largest absolute
-    error."""
+    state0, over SSD_CASES, operands read through strides (rows of whole
+    16-byte pieces, and rows that are not), and the shapes of the serve,
+    evaluate and times phases, on both routes: each call takes the route
+    ``ssd_scan.route`` gives it (the tensor-core route at every served
+    shape), and every tensor-core call is repeated on the CUDA-core route.
+    Returns the largest absolute error and the cases by route."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
 
-    worst = worst_rel = 0.0
-    cases = 0
-    for b, s, h, p, n, chunk in SSD_CASES + served_ssd_shapes():
-        xdt, loga, bm, cm, s0 = ssd_operands(b, s, h, p, n, gen, dev)
-        for state0 in (None, s0):
-            y, fin = ssd_scan.ssd_scan_bshp(xdt, loga, bm, cm, state0,
-                                            chunk=chunk)
-            py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk, state0)
+    worst = 0.0
+    worst_rel = {r: 0.0 for r in ssd_scan.ROUTES}
+    by_route = {r: 0 for r in ssd_scan.ROUTES}
+
+    def run(xdt, loga, bm, cm, state0, chunk, what):
+        nonlocal worst
+        py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk, state0)
+        ops = [x for x in (xdt, bm, cm, state0) if x is not None]
+        rt = ssd_scan.route(xdt.shape[-1], bm.shape[-1],
+                            (xdt.stride(), bm.stride(), cm.stride()),
+                            all(x.data_ptr() % 16 == 0 for x in ops))
+        for want_route in dict.fromkeys((rt, "cuda_core")):
+            force = None if want_route == rt else want_route
+            y, fin = routed_call(lambda: ssd_scan.ssd_scan_bshp(
+                xdt, loga, bm, cm, state0, chunk=chunk, force_route=force),
+                "ssd_scan", want_route)
             for name, got, want in (("y", y, py), ("state", fin, pfin)):
                 err = max_err(got, want)
                 rel = err / (1 + float(want.abs().max()))
-                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                worst = max(worst, err)
+                worst_rel[want_route] = max(worst_rel[want_route], rel)
                 if not rel <= TOL_SSD:
-                    fail(f"ssd_scan {(b, s, h, p, n, chunk)} state0="
-                         f"{state0 is not None}: {name} err {err}")
-            cases += 1
-        del xdt, loga, bm, cm, s0, y, fin, py, pfin
+                    fail(f"ssd_scan {what} state0={state0 is not None} "
+                         f"{want_route}: {name} err {err}")
+            by_route[want_route] += 1
+            del y, fin
+        return rt
+
+    served = served_ssd_shapes()
+    for b, s, h, p, n, chunk in SSD_CASES + served:
+        xdt, loga, bm, cm, s0 = ssd_operands(b, s, h, p, n, gen, dev)
+        for state0 in (None, s0):
+            rt = run(xdt, loga, bm, cm, state0, chunk, (b, s, h, p, n, chunk))
+            if (b, s, h, p, n, chunk) in served and rt != "tensor_core":
+                fail(f"ssd_scan: served shape {(b, s, h, p, n)} takes the "
+                     f"{rt} route")
+        del xdt, loga, bm, cm, s0
+        torch.cuda.empty_cache()
     # strided operands: xdt, B and C as slices of wider tensors, loga a
-    # transposed view
+    # transposed view; B and C rows 260 floats apart (whole 16-byte pieces:
+    # tensor cores), then 259 (CUDA cores)
     b, s, h, p, n = 2, 100, 4, 64, 128
     wide = torch.randn((b, s, h, p + 8), generator=gen, device=dev)
-    bc = torch.randn((b, s, 2 * n + 3), generator=gen, device=dev)
     loga = -torch.rand((b, h, s), generator=gen, device=dev).transpose(1, 2)
-    xdt, bm, cm = wide[..., :p], bc[..., :n], bc[..., n:2 * n]
-    y, fin = ssd_scan.ssd_scan_bshp(xdt, loga, bm, cm, chunk=64)
-    py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, 64)
-    err = max(rel_err(y, py), rel_err(fin, pfin))
-    if not err <= TOL_SSD:
-        fail(f"ssd_scan with strided operands: err {err}")
-    worst_rel = max(worst_rel, err)
-    cases += 1
+    for pad, want_rt in ((4, "tensor_core"), (3, "cuda_core")):
+        bc = torch.randn((b, s, 2 * n + pad), generator=gen, device=dev)
+        xdt, bm, cm = wide[..., :p], bc[..., :n], bc[..., n:2 * n]
+        if run(xdt, loga, bm, cm, None, 64, f"strided, pad {pad}") != want_rt:
+            fail(f"ssd_scan: strided operands (pad {pad}) off {want_rt}")
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "kernel": "ssd_scan", "cases": cases,
-          "max_abs_err": worst, "max_err_over_1_plus_max": worst_rel,
-          "tol": TOL_SSD, "served_shapes": served_ssd_shapes()})
-    return worst
+    emit({"phase": "kernels", "kernel": "ssd_scan",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "max_abs_err": worst, "max_err_over_1_plus_max_by_route": worst_rel,
+          "tol": TOL_SSD, "served_shapes": served})
+    return worst, by_route
 
 
 def ce_operands(n, d, v, dtype, gen, dev, *, tied=True):
@@ -902,11 +954,13 @@ def phase_main(dev) -> dict:
             finals[algo, impl] = drive(problem, client_batch, batches, algo,
                                        impl, dev, ROUNDS)
     launches = launch_counts()
+    routes = route_counts()
     expect = {"fused_gossip": 2 * ROUNDS * len(TRACKING),
               "fused_round": ROUNDS * len(ALGOS), "sparse_gossip": 0,
               **NO_MODEL_KERNELS}
     if launches != expect:
         fail(f"main path launches {launches}, expected {expect}")
+    check_routes(routes, expect, "main path")
     for algo in ALGOS:
         ref_state, ref_hist = finals[algo, "dense"]
         worst = max(compare_states(finals[algo, impl][0], ref_state,
@@ -920,8 +974,8 @@ def phase_main(dev) -> dict:
                   for impl in ("dense", "pallas_packed", "fused_round")},
               "max_state_err_vs_dense": worst})
     emit({"phase": "main", "launches": launches, "expected": expect,
-          "tol_state": TOL_STATE})
-    return launches
+          "launches_by_route": routes, "tol_state": TOL_STATE})
+    return launches, routes
 
 
 def phase_quickstart(dev) -> dict:
@@ -936,18 +990,20 @@ def phase_quickstart(dev) -> dict:
                                  device=dev, verbose=False)
         g[algo] = hist[-1]["phi_grad_norm"]
     launches = launch_counts()
+    routes = route_counts()
     expect = {"fused_gossip": 0,
               "fused_round": quickstart.ROUNDS * len(algos),
               "sparse_gossip": 0, **NO_MODEL_KERNELS}
     emit({"phase": "quickstart", "mixing_impl": "fused_round",
           "phi_grad_norm_final": g, "launches": launches,
-          "expected": expect})
+          "launches_by_route": routes, "expected": expect})
     if launches != expect:
         fail(f"quickstart launches {launches}, expected {expect}")
+    check_routes(routes, expect, "quickstart")
     if not g["kgt_minimax"] < g["local_sgda"]:
         fail(f"quickstart: kgt_minimax {g['kgt_minimax']} is not below "
              f"local_sgda {g['local_sgda']}")
-    return launches
+    return launches, routes
 
 
 # ---------------------------------------------------------------------------
@@ -977,12 +1033,16 @@ def zero_launch_counts() -> None:
 
 def check_routes(routes, want, what) -> None:
     """Fail unless every launch of each two-route kernel in ``routes`` went
-    through the tensor-core route, ``want[kernel]`` launches of it."""
+    through the route the main paths take (``ops.ROUTED``: tensor cores,
+    or B2's cluster), ``want[kernel]`` launches of it."""
+    from repro_torch.kernels import ops
+
     for kernel, by in routes.items():
-        expect = {"tensor_core": want.get(kernel, 0), "cuda_core": 0}
+        new = ops.ROUTED[kernel]
+        expect = {r: want.get(kernel, 0) if r == new else 0 for r in by}
         if by != expect:
             fail(f"{what}: {kernel} launches by route {by}, expected "
-                 f"{expect} (every launch on the tensor-core route)")
+                 f"{expect} (every launch on the {new} route)")
 
 
 def compare_states(state, ref_state, what) -> float:
@@ -1152,6 +1212,7 @@ def phase_scale(dev) -> dict:
         mask_fn = st_lib.make_participation_sampler(n, 20 + i, PARTICIPATION,
                                                     device=dev)
         res = {}
+        zero_launch_counts()
         for impl in ("sparse_packed", "pallas_packed", "fused_round"):
             fn = (w_fn if impl == "sparse_packed"
                   else (lambda r, f=w_fn: sp_lib.densify(f(r))))
@@ -1176,6 +1237,8 @@ def phase_scale(dev) -> dict:
         got = {impl: res[impl][1] for impl in res}
         if got != want:
             fail(f"churn n={n} {family}: launches {got}, expected {want}")
+        check_routes(route_counts(), want["fused_round"],
+                     f"churn n={n} {family}")
         small[family] = errs
         emit({"phase": "scale", "n": n, "churn": family,
               "participation": PARTICIPATION, "rounds": CHURN_DENSE_ROUNDS,
@@ -1203,6 +1266,8 @@ def kernel_category(name: str) -> str:
                         ("flash_attention_tc_kernel", "flash_attention"),
                         ("rglru_scan_kernel", "rglru_scan"),
                         ("ssd_scan_kernel", "ssd_scan"),
+                        ("ssd_tc_kernel", "ssd_scan"),
+                        ("ssd_cb_kernel", "ssd_scan"),
                         ("fused_ce_kernel", "fused_cross_entropy"),
                         ("fused_ce_tc_kernel", "fused_cross_entropy")):
         if kernel in name:
@@ -1550,12 +1615,16 @@ def scan_bound_ms(b, s, w):
     return _bound(12 * b * s * w, 2 * b * s * w)
 
 
-def ssd_bound_ms(b, s, h, p, n, chunk, with_state0=False):
-    """The chunked SSD's least work: per (chunk, head) L(L+1)/2·P
-    multiply-adds for the intra-chunk product, L·P·N for C·Sᵀ and L·P·N
-    (+ P·N) for the state update, and C·Bᵀ, L(L+1)/2·N, once per (batch
-    row, chunk) — it is the same for every head.  Bytes: xdt and y, loga,
-    B and C, the final state (and state0) moved once, f32."""
+# the 3xTF32 split (csrc/ssd_scan.cu): three TF32 products for each f32 one
+SPLIT_TF32_PRODUCTS = 3
+
+
+def ssd_work(b, s, h, p, n, chunk, with_state0=False):
+    """(bytes, flops) of the chunked SSD's least work: per (chunk, head)
+    L(L+1)/2·P multiply-adds for the intra-chunk product, L·P·N for C·Sᵀ
+    and L·P·N (+ P·N) for the state update, and C·Bᵀ, L(L+1)/2·N, once per
+    (batch row, chunk) — it is the same for every head.  Bytes: xdt and y,
+    loga, B and C, the final state (and state0) moved once, f32."""
     full, rest = divmod(s, chunk)
     lens = [chunk] * full + ([rest] if rest else [])
     tri = sum(l_ * (l_ + 1) // 2 for l_ in lens)
@@ -1563,6 +1632,15 @@ def ssd_bound_ms(b, s, h, p, n, chunk, with_state0=False):
                      + tri * n)
     byts = 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
                 + (2 if with_state0 else 1) * b * h * p * n)
+    return byts, flops
+
+
+def ssd_bound_ms(b, s, h, p, n, chunk, with_state0=False, tensor_cores=False):
+    """:func:`ssd_work` at the f32 CUDA-core peak or (``tensor_cores``, the
+    tensor-core route) three times its operations at the dense TF32 peak."""
+    byts, flops = ssd_work(b, s, h, p, n, chunk, with_state0)
+    if tensor_cores:
+        return _bound(byts, SPLIT_TF32_PRODUCTS * flops, TF32_FLOP_S)
     return _bound(byts, flops)
 
 
@@ -1580,11 +1658,12 @@ def ce_bound_ms(n, d, v, elem_bytes):
 
 def time_mamba_kernels(gen, dev) -> dict:
     """B7 at the mamba2 serve prefill's shape (state0 zeros, as the prefill
-    passes its zero cache) and at prefill_32k's length, batch 1; B6 at the
-    evaluate shape in bf16 (tied layout).  Each beside its plain version,
-    its bound and, for B6, the nearest PyTorch calls: ``torch.mm`` of the
-    bf16 operands to f32 logits, then ``F.cross_entropy(reduction="none")``
-    (two calls; B7 has none).  CUDA-event times of eager calls."""
+    passes its zero cache) and at prefill_32k's length, batch 1, on both
+    routes; B6 at the evaluate shape in bf16 (tied layout).  Each beside
+    its plain version, its bounds and, for B6, the nearest PyTorch calls:
+    ``torch.mm`` of the bf16 operands to f32 logits, then
+    ``F.cross_entropy(reduction="none")`` (two calls; B7 has none).
+    CUDA-event times of eager calls."""
     import torch
     import torch.nn.functional as F
 
@@ -1596,18 +1675,33 @@ def time_mamba_kernels(gen, dev) -> dict:
             continue
         xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
         s0 = torch.zeros((b, h, p, n), device=dev)
+        # the route the served shapes take (tensor cores), then the
+        # CUDA-core route on the same operands
         ms = cuda_ms(lambda: ssd_scan.ssd_scan_bshp(  # noqa: E731
             xdt, loga, bm, cm, s0, chunk=chunk), reps=11)
+        cc_ms = cuda_ms(lambda: ssd_scan.ssd_scan_bshp(  # noqa: E731
+            xdt, loga, bm, cm, s0, chunk=chunk, force_route="cuda_core"),
+            reps=5)
         pms = cuda_ms(lambda: ref.ssd_chunked(  # noqa: E731
             xdt, loga, bm, cm, chunk, s0), reps=3)
-        (bound, by) = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=True)
+        bound, by = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=True,
+                                 tensor_cores=True)
+        f32_bound, f32_by = ssd_bound_ms(b, s, h, p, n, chunk,
+                                         with_state0=True)
+        flops = ssd_work(b, s, h, p, n, chunk, with_state0=True)[1]
         emit({"phase": "times", "kernel": "ssd_scan",
-              "shape": [b, s, h, p, n], "chunk": chunk, "ms": ms,
+              "shape": [b, s, h, p, n], "chunk": chunk,
+              "segments": ssd_scan.segments(b, h, -(-s // chunk))[0],
+              "ms": ms, "route": "tensor_core", "cuda_core_ms": cc_ms,
               "plain_ms": pms, "library_ms": None, "bound_ms": bound,
-              "bound_by": by})
+              "bound_by": by, "bound_ms_at_f32_cuda_core_peak": f32_bound,
+              "f32_bound_by": f32_by, "tflop_s": flops / ms / 1e9,
+              "cuda_core_tflop_s": flops / cc_ms / 1e9})
         if (b, s) == (MAMBA_B, MAMBA_PROMPT):
             out["ssd_scan"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                   bound_by=by, library_ms=None)
+                                   bound_by=by, library_ms=None,
+                                   cuda_core_ms=cc_ms,
+                                   bound_ms_at_f32_cuda_core_peak=f32_bound)
         del xdt, loga, bm, cm, s0
         torch.cuda.empty_cache()
     n, d, v = eval_ce_shape()
@@ -1763,16 +1857,25 @@ def phase_times(dev, gen) -> dict:
     out["fused_gossip"] = dict(ms=g_ms, plain_ms=g_plain, bound_ms=g_bound,
                                bound_by="bytes")
     # whole round at the main-path shape
+    # (the route the main path takes, a cluster per client, then the block
+    # route on the same operands)
     args = round_operands(N, DX + DY, K, gen, dev)
     kern = lambda: fused_round.fused_round_nd(*args)  # noqa: E731
+    block = lambda: fused_round.fused_round_nd(  # noqa: E731
+        *args, force_route="block")
     plain = lambda: ref.fused_round_ref(*args)        # noqa: E731
     ms, pms = graph_ms(kern, inner=20), graph_ms(plain, inner=20)
+    block_ms = graph_ms(block, inner=20)
     b, by = round_bound_ms(N, DX + DY, K)
     emit({"phase": "times", "kernel": "fused_round", "n": N, "dz": DX + DY,
-          "K": K, "ms": ms, "plain_ms": pms, "bound_ms": b, "bound_by": by,
-          "call_ms": cuda_ms(kern, inner=20),
+          "K": K, "ms": ms, "route": "cluster",
+          "cluster_size": fused_round.cluster_size(DX + DY),
+          "block_ms": block_ms, "plain_ms": pms, "bound_ms": b,
+          "bound_by": by, "call_ms": cuda_ms(kern, inner=20),
+          "block_call_ms": cuda_ms(block, inner=20),
           "plain_call_ms": cuda_ms(plain, inner=20)})
-    out["fused_round"] = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by)
+    out["fused_round"] = dict(ms=ms, plain_ms=pms, bound_ms=b, bound_by=by,
+                              block_ms=block_ms)
     del args
 
     out["sparse_gossip"] = time_sparse_gossip(gen, dev)
@@ -1960,28 +2063,35 @@ def main(argv=None) -> int:
     errs = dict.fromkeys(names)
     cases_by_route = {}
     if "kernels" in phases:
-        errs = {"fused_gossip": check_gossip(gen, dev),
-                "fused_round": check_round(gen, dev),
-                "sparse_gossip": check_sparse_gossip(gen, dev)}
+        errs = {"fused_gossip": check_gossip(gen, dev)}
+        errs["fused_round"], cases_by_route["fused_round"] = \
+            check_round(gen, dev)
+        errs["sparse_gossip"] = check_sparse_gossip(gen, dev)
         errs["flash_attention"], cases_by_route["flash_attention"] = \
             check_flash_attention(gen, dev)
-        errs.update(rglru_scan=check_rglru_scan(gen, dev),
-                    ssd_scan=check_ssd_scan(gen, dev))
+        errs["rglru_scan"] = check_rglru_scan(gen, dev)
+        errs["ssd_scan"], cases_by_route["ssd_scan"] = \
+            check_ssd_scan(gen, dev)
         errs["fused_cross_entropy"], cases_by_route["fused_cross_entropy"] = \
             check_cross_entropy(gen, dev)
         torch.cuda.synchronize()
     launches = dict.fromkeys(names)
+    launches_by_route = {}
     if "main" in phases:
-        launches.update(phase_main(dev))
+        main_launches, main_routes = phase_main(dev)
+        launches.update(main_launches)
+        launches_by_route["fused_round"] = main_routes["fused_round"]
     qs_launches = dict.fromkeys(names)
+    qs_routes = {}
     if "quickstart" in phases:
-        qs_launches.update(phase_quickstart(dev))
+        qs_counts, qs_routes = phase_quickstart(dev)
+        qs_launches.update(qs_counts)
     scale = {}
     if "scale" in phases:
         scale = phase_scale(dev)
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
     launches_eval = dict.fromkeys(names)
-    launches_by_route = {}
+    eval_routes = {}
     if "serve" in phases:
         serve = phase_serve(dev)
         for name, arch in (("flash_attention", SERVE_ARCH),
@@ -1990,18 +2100,23 @@ def main(argv=None) -> int:
             launches[name] = serve[arch]["launches"]["prefill"][name]
         launches_by_route["flash_attention"] = \
             serve[SERVE_ARCH]["launches_by_route"]["flash_attention"]
+        launches_by_route["ssd_scan"] = \
+            serve[MAMBA_ARCH]["launches_by_route"]["ssd_scan"]
     if "evaluate" in phases:
         evaluated = phase_evaluate(dev)
         launches_eval.update(evaluated["launches"])
         launches["fused_cross_entropy"] = launches_eval["fused_cross_entropy"]
+        eval_routes = evaluated["launches_by_route"]
         launches_by_route["fused_cross_entropy"] = \
-            evaluated["launches_by_route"]["fused_cross_entropy"]
+            eval_routes["fused_cross_entropy"]
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
     if "profile" in phases:
         phase_profile(dev)
     torch.cuda.synchronize()
+    from repro_torch.kernels import ops
+
     kernels = [
         {"name": "fused_gossip", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip.cu",
@@ -2034,12 +2149,20 @@ def main(argv=None) -> int:
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
                  library_ms=t.get("library_ms"))
-        if k["name"] in ("flash_attention", "fused_cross_entropy"):
-            # two routes: ms is the tensor-core route's, which the main
-            # paths take; the CUDA-core route's time beside it
+        if k["name"] in ops.ROUTED:
+            # two routes: ms is the time of the route the main paths take
+            # (tensor cores, or B2's cluster); the other route's beside it
             k.update(launches_by_route=launches_by_route.get(k["name"]),
-                     cases_by_route=cases_by_route.get(k["name"]),
-                     cuda_core_ms=t.get("cuda_core_ms"))
+                     launches_by_route_quickstart=qs_routes.get(k["name"]),
+                     launches_by_route_evaluate=eval_routes.get(k["name"]),
+                     cases_by_route=cases_by_route.get(k["name"]))
+            if k["name"] == "fused_round":
+                k["block_ms"] = t.get("block_ms")
+            else:
+                k["cuda_core_ms"] = t.get("cuda_core_ms")
+            if k["name"] == "ssd_scan":
+                k["bound_ms_at_f32_cuda_core_peak"] = t.get(
+                    "bound_ms_at_f32_cuda_core_peak")
     print(smi, flush=True)
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "

@@ -36,14 +36,14 @@ SIGNATURES = {
     "gossip": ("fused_gossip_launch",
                [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_float,
                            ctypes.c_float, _I, _P]),
-    "fused_round": ("fused_round_launch", [_P] * 14 + [_I] * 5 + [_P]),
+    "fused_round": ("fused_round_launch", [_P] * 14 + [_I] * 6 + [_P]),
     "neighbor_gossip": ("sparse_gossip_launch",
                         [_P] * 8 + [_I, _I, ctypes.c_longlong, ctypes.c_float,
                                     ctypes.c_float, _I, _P]),
     "flash_attention": ("flash_attention_launch",
                         [_P] * 4 + [_I] * 10 + [_P]),
     "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
-    "ssd_scan": ("ssd_scan_launch", [_P] * 7 + [_I] * 6 + [_L] * 10 + [_P]),
+    "ssd_scan": ("ssd_scan_launch", [_P] * 10 + [_I] * 9 + [_L] * 10 + [_P]),
     "cross_entropy": ("fused_ce_launch",
                       [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P]),
 }
@@ -129,11 +129,12 @@ def check_no_grad(what: str, *xs) -> None:
             f"it); under autograd the model runs the plain version")
 
 
-def forced_route(chosen: str, forced) -> str:
+def forced_route(chosen: str, forced, universal: str = "cuda_core") -> str:
     """The route a call takes: ``chosen`` (the wrapper's rule) unless
-    ``forced``; the CUDA-core route takes every operand, the tensor-core
-    route only those the rule gives it."""
-    if forced is None or forced == chosen or forced == "cuda_core":
+    ``forced``; the ``universal`` route (the first port's kernel: the
+    CUDA-core route, or B2's block-per-client route) takes every operand,
+    the other route only those the rule gives it."""
+    if forced is None or forced == chosen or forced == universal:
         return forced or chosen
     raise ValueError(f"route {forced!r} cannot take these operands; the "
                      f"route rule gives {chosen!r}")

@@ -50,9 +50,13 @@ KERNELS = {
 }
 
 
-# the wrappers with two routes (a tensor-core and a CUDA-core kernel), whose
-# ``routes`` attribute counts their launches by route
-ROUTED = ("flash_attention", "fused_cross_entropy")
+# the wrappers with two routes, whose ``routes`` attribute counts their
+# launches by route, each with the route its rule gives every shape the
+# main paths run (the other is the first port's kernel)
+ROUTED = {"flash_attention": "tensor_core",
+          "fused_cross_entropy": "tensor_core",
+          "ssd_scan": "tensor_core",
+          "fused_round": "cluster"}
 
 
 def launch_counts() -> dict:

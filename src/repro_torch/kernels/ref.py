@@ -254,6 +254,47 @@ def ssd_chunked(xdt, loga, bm, cm, chunk: int, state0=None):
     return y, state
 
 
+def ssd_segment_bounds(s: int, chunk: int, segments: int):
+    """[(first, end) token of each run]: ⌈chunks/segments⌉ whole chunks a
+    run (the last one ragged), none empty."""
+    length = max(1, min(chunk, s))
+    nc = -(-s // length)
+    per = -(-max(nc, 1) // max(1, min(nc, segments)))
+    return [(a, min(a + per * length, s))
+            for a in range(0, max(s, 1), per * length)]
+
+
+def ssd_segmented(xdt, loga, bm, cm, chunk: int, state0=None, *,
+                  segments: int = 1):
+    """The segment algebra of B7's tensor-core route, in plain PyTorch
+    (held against ``ssd_chunked`` by the tests; no path runs it).
+
+    The chunks are cut into ``segments`` runs of whole chunks
+    (:func:`ssd_segment_bounds`, the cut of ``ssd_scan.segments``).
+    Pass 1: each run but the last from a zero state — its end state S_end
+    and its summed log decay D.  Pass 2: run k from S_in = state0 folded
+    through the earlier runs, S_in ← exp(D_j)·S_in + S_end_j.  Each run is
+    ``ssd_chunked`` of its tokens (C·Bᵀ once per batch row and chunk, as
+    there).  Returns f32 (y (B, S, H, P), final_state (B, H, P, N))."""
+    b, s, h, p = xdt.shape
+    n = bm.shape[-1]
+    bounds = ssd_segment_bounds(s, chunk, segments)
+    s_in = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
+            if state0 is None else state0.to(torch.float32))
+    ys = []
+    for k, (a, e) in enumerate(bounds):
+        part = (xdt[:, a:e], loga[:, a:e], bm[:, a:e], cm[:, a:e])
+        y, fin = ssd_chunked(*part, chunk, s_in)
+        ys.append(y)
+        if k + 1 < len(bounds):
+            _, s_end = ssd_chunked(*part, chunk)
+            decay = loga[:, a:e].to(torch.float32).sum(1)         # (B, H)
+            s_in = torch.exp(decay)[..., None, None] * s_in + s_end
+        else:
+            s_in = fin
+    return torch.cat(ys, dim=1), s_in
+
+
 def fused_ce_ref(hidden, weight, labels, *, chunk: int = 1024):
     """Per-token NLL of hidden (N, d) against a head weight addressed as
     (V, d) — the tied embedding, or an untied (d, V) head's transposed

@@ -1,13 +1,18 @@
-"""The two routes of kernels B5 and B6, and the C entry points' signatures.
+"""The two routes of kernels B2, B5, B6 and B7, and the C entry points'
+signatures.
 
-B5 (``csrc/flash_attention.cu``) and B6 (``csrc/cross_entropy.cu``) each
-have a tensor-core kernel and a CUDA-core kernel.  Which one a call takes is
-a pure function of dtype, shape, strides and alignment
-(``flash_attention.route``, ``cross_entropy.route``); it is held here on the
-CPU, where no kernel runs.  The served attention shape and the evaluated
-cross-entropy shape must take the tensor-core route.  The ctypes signatures
-of ``_build.SIGNATURES`` are held against the ``extern "C"`` functions of
-the sources, which only nvcc compiles.
+B5 (``csrc/flash_attention.cu``), B6 (``csrc/cross_entropy.cu``) and B7
+(``csrc/ssd_scan.cu``) each have a tensor-core kernel and a CUDA-core
+kernel; B2 (``csrc/fused_round.cu``) a kernel that holds each client's G in
+a thread-block cluster and one that restreams it per block.  Which one a
+call takes is a pure function of dtype, shape, strides and alignment
+(``flash_attention.route``, ``cross_entropy.route``, ``ssd_scan.route``,
+``fused_round.route``); it is held here on the CPU, where no kernel runs.
+The shapes the main paths run must take the new route: the served
+attention shape, the evaluated cross-entropy shape, the served SSD shapes
+and the main path's and the quickstart's round geometries.  The ctypes
+signatures of ``_build.SIGNATURES`` are held against the ``extern "C"``
+functions of the sources, which only nvcc compiles.
 """
 import re
 
@@ -18,7 +23,9 @@ from repro_torch.configs import registry
 from repro_torch.kernels import _build
 from repro_torch.kernels import cross_entropy as t_ce
 from repro_torch.kernels import flash_attention as t_fa
+from repro_torch.kernels import fused_round as t_fr
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ssd_scan as t_ssd
 
 BF16, F32 = torch.bfloat16, torch.float32
 # the shapes the main paths run: recurrentgemma-9b's prefill of 4 × 4096
@@ -26,6 +33,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 # tokens a client against its tied 50280 × 2048 head
 SERVED_ATTN = (4, 4096, 16, 1, 256)
 EVAL_CE = (4 * 4096, 2048, 50280)
+# mamba2-1.3b's SSD scan: (B, S) of the serve prefill, of evaluation and of
+# prefill_32k at batch 1, × (H, P, N)
+SERVED_SSD = [(8, 4096), (4, 4096), (1, 32768)]
+MAMBA_SSD = (64, 64, 128)
 
 
 def _meta(shape, dtype=BF16):
@@ -148,6 +159,110 @@ def test_attention_stride_off_16_byte_chunks_takes_the_cuda_core_route():
 
 
 # ---------------------------------------------------------------------------
+# B7: the SSD scan's route, and its segments
+# ---------------------------------------------------------------------------
+
+def _ssd_strides(b, s, h, p, n):
+    x, bc = _meta((b, s, h, p), F32), _meta((b, s, n), F32)
+    return (x.stride(), bc.stride(), bc.stride())
+
+
+@pytest.mark.parametrize("b,s", SERVED_SSD)
+def test_served_ssd_shapes_take_the_tensor_core_route(b, s):
+    cfg = registry.get_model_config("mamba2-1.3b")
+    h, p, n = MAMBA_SSD
+    assert (p, n) == (cfg.ssm.d_head, cfg.ssm.d_state)
+    assert h == cfg.ssm.expand * cfg.d_model // p
+    assert t_ssd.route(p, n, _ssd_strides(b, s, h, p, n), True) == (
+        "tensor_core")
+
+
+def test_the_models_strided_b_and_c_take_the_tensor_core_route():
+    """In f32 compute the block hands the scan B and C as slices of the
+    (B, S, d_in + 2N) convolution output: rows 4352 floats apart."""
+    h, p, n = MAMBA_SSD
+    x = _meta((2, 100, h, p), F32)
+    conv = _meta((2, 100, h * p + 2 * n), F32)
+    bm, cm = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+    assert t_ssd.route(p, n, (x.stride(), bm.stride(), cm.stride()),
+                       True) == "tensor_core"
+
+
+@pytest.mark.parametrize("p,n", [(32, 16), (64, 128), (8, 8), (4, 4),
+                                 (36, 12)])
+def test_whole_16_byte_rows_take_the_tensor_core_route(p, n):
+    assert t_ssd.route(p, n, _ssd_strides(2, 37, 3, p, n), True) == (
+        "tensor_core")
+
+
+@pytest.mark.parametrize("why,p,n,strides,aligned", [
+    ("P = 33", 33, 16, None, True),
+    ("N = 6", 32, 6, None, True),
+    ("misaligned base", 64, 128, None, False),
+    ("B and C rows 259 floats apart", 64, 128,
+     ((100 * 4 * 64, 4 * 64, 64, 1), (100 * 259, 259, 1),
+      (100 * 259, 259, 1)), True),
+    ("xdt heads 66 floats apart", 64, 128,
+     ((100 * 4 * 66, 4 * 66, 66, 1), (100 * 128, 128, 1),
+      (100 * 128, 128, 1)), True),
+])
+def test_ssd_rows_cp_async_cannot_stage_take_the_cuda_core_route(
+        why, p, n, strides, aligned):
+    strides = strides or _ssd_strides(2, 100, 4, p, n)
+    assert t_ssd.route(p, n, strides, aligned) == "cuda_core", why
+
+
+@pytest.mark.parametrize("b,s,want", [(8, 4096, 1), (4, 4096, 1),
+                                      (1, 32768, 4), (2, 4096, 2),
+                                      (1, 100, 2), (1, 64, 1)])
+def test_segments_fill_the_card_only_when_the_batch_does_not(b, s, want):
+    """One segment when B·H blocks fill the card's slots (the serve and
+    evaluate shapes), more at batch 1 (prefill_32k: 4 × 128 chunks)."""
+    h = MAMBA_SSD[0]
+    nc = -(-s // 64)
+    n_seg, per = t_ssd.segments(b, h, nc)
+    assert n_seg == want
+    assert (n_seg - 1) * per < nc <= n_seg * per
+
+
+# ---------------------------------------------------------------------------
+# B2: the whole round's route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dz,cs", [(15, 1), (512, 8), (150, 4), (384, 8),
+                                   (64, 1), (65, 2)])
+def test_the_round_geometries_take_the_cluster_route(dz, cs):
+    """dz = 15 is the quickstart's, 512 the main path's (dx 384 + dy 128),
+    150 the JAX package's kernel test's."""
+    assert t_fr.route(dz) == "cluster"
+    assert t_fr.cluster_size(dz) == cs
+
+
+@pytest.mark.parametrize("dz", [1, 2, 63, 127, 128, 129, 256, 257, 500, 511])
+def test_the_cluster_is_the_smallest_that_holds_g(dz):
+    cs = t_fr.cluster_size(dz)
+    assert cs in t_fr.CLUSTER_SIZES
+    assert -(-dz // cs) <= t_fr.ROWS_PER_BLOCK
+    assert all(-(-dz // c) > t_fr.ROWS_PER_BLOCK
+               for c in t_fr.CLUSTER_SIZES if c < cs)
+
+
+@pytest.mark.parametrize("dz", [513, 640, 1024])
+def test_a_slice_no_cluster_holds_takes_the_block_route(dz):
+    assert t_fr.cluster_size(dz) == 0
+    assert t_fr.route(dz) == "block"
+
+
+def test_the_block_route_can_always_be_forced():
+    for dz in (15, 512, 1024):
+        chosen = t_fr.route(dz)
+        assert _build.forced_route(chosen, "block", universal="block") == (
+            "block")
+    with pytest.raises(ValueError, match="cannot take"):
+        _build.forced_route("block", "cluster", universal="block")
+
+
+# ---------------------------------------------------------------------------
 # forcing a route, and the counts by route
 # ---------------------------------------------------------------------------
 
@@ -168,20 +283,31 @@ def test_the_tensor_core_route_cannot_be_forced_on_what_it_cannot_take():
 def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.zero_launch_counts()
     zero = {"tensor_core": 0, "cuda_core": 0}
-    assert t_ops.route_counts() == {"flash_attention": zero,
-                                    "fused_cross_entropy": zero}
+    want = {"flash_attention": zero, "fused_cross_entropy": zero,
+            "ssd_scan": zero, "fused_round": {"cluster": 0, "block": 0}}
+    assert t_ops.route_counts() == want
     q = torch.zeros((1, 4, 2, 8), dtype=BF16)
     t_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     h, w = torch.zeros((4, 8), dtype=BF16), torch.zeros((10, 8), dtype=BF16)
     t_ops.fused_cross_entropy(h, w, torch.zeros((4,), dtype=torch.long))
-    assert t_ops.route_counts() == {"flash_attention": zero,
-                                    "fused_cross_entropy": zero}
+    x = torch.zeros((1, 5, 2, 4))
+    t_ops.ssd_scan(x, torch.zeros((1, 5, 2)), torch.zeros((1, 5, 4)),
+                   torch.zeros((1, 5, 4)), chunk=4)
+    n, dz, k = 2, 3, 2
+    z = torch.zeros((n, dz))
+    t_ops.fused_round(torch.eye(n), z, z, z, torch.zeros((n, dz, dz)),
+                      torch.zeros((k, n, dz)), z, z, z, z + 1)
+    assert t_ops.route_counts() == want
     assert set(t_ops.ROUTED) <= set(t_ops.KERNELS)
+    for name, new in t_ops.ROUTED.items():
+        assert new in t_ops.KERNELS[name].routes
 
 
 def test_zeroing_resets_the_counts_by_route():
     t_fa.flash_attention_bshd.routes["tensor_core"] += 3
     t_ce.fused_ce_nd.routes["cuda_core"] += 2
+    t_ssd.ssd_scan_bshp.routes["tensor_core"] += 1
+    t_fr.fused_round_nd.routes["cluster"] += 4
     t_ops.zero_launch_counts()
     assert all(v == 0 for by in t_ops.route_counts().values()
                for v in by.values())
