@@ -10,22 +10,27 @@ Phases, each printing one JSON line:
 3. kernels — each CUDA kernel against its plain PyTorch version on the
    card, at the stated tolerances, on a grid that holds every shape (and
    kind of W) that the later phases run it at; the two-route kernels on
-   both routes — B5, B6 and B7 (tensor cores, CUDA cores) and B2 (a
-   cluster per client, a block per client) — each call on the route its
-   rule gives it and every call of the new route repeated on the old one;
+   both routes — B5, B6 and B7 (tensor cores, CUDA cores), B2 (a cluster
+   per client, a block per client), B1 (unrolled, tiled) and B4 (stripe,
+   row-block) — each call on the route its rule gives it and every call of
+   the new route repeated on the old one (bit for bit for B1, B2's wire
+   and B4), and the gossip pair calls (x and y in one launch) against two
+   plain single calls;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
    whole-round lowerings must match ``dense``, and the kernels' launch
-   counts must be what the path implies, every whole-round launch on the
-   cluster route;
+   counts must be what the path implies (one gossip pair launch a round),
+   every whole-round launch on the cluster route and every gossip launch
+   on the unrolled route;
 5. quickstart — at the quickstart geometry (fused_round) K-GT-Minimax
    must end below local SGDA, with one whole-round launch a round, on the
    cluster route;
 6. scale — the sparse path at n = 4096 clients on the exponential graph
    (dx = 384, dy = 128, K = 8): ``sparse_packed`` against ``dense`` on the
    same W for the four algorithms, the neighbor-gather kernel's launch
-   counts, the four churn families under 70 % participation (Σc ≈ 0,
+   counts (one pair launch a round, all on the stripe route), the four
+   churn families under 70 % participation (Σc ≈ 0,
    inactive clients frozen bit for bit), churn at n = 512 through all three
    kernels on the same per-round W and mask, and rounds/s;
 7. serve — ``launch.serve.serve`` at full width in bf16 on
@@ -46,10 +51,11 @@ Phases, each printing one JSON line:
    the plain route, finiteness, seconds and tokens/s a client batch, peak
    memory, a profile;
 9. times — device times of each kernel, its plain version and, where one
-   exists, a PyTorch library call, beside the bounds (B2, B5, B6 and B7 on
-   both routes); the epilogue at
-   D ≈ 1e8, the model kernels at the served shapes and at S = 32768, and
-   rounds/s per mixing_impl.
+   exists, a PyTorch library call, beside the bounds (the two-route
+   kernels on both routes; B4's L2 bytes by design); the gossip pairs at
+   the paths' shapes, the dense epilogue at D ≈ 1e8 and the neighbor-
+   gather epilogue at D = 16384, the model kernels at the served shapes
+   and at S = 32768, and rounds/s per mixing_impl.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering (device busy share, top kernels).
@@ -91,6 +97,8 @@ TRACKING = ("kgt_minimax", "gt_gda")
 # the sparse path: the largest client count of benchmarks/bench_scale.py,
 # on the exponential graph (23 neighbors + self at n = 4096)
 SCALE_N, SCALE_ROUNDS, CHURN_ROUNDS = 4096, 20, 10
+# B4's check grid: these client counts and SCALE_N
+SPARSE_CHECK_NS = (1, 8, 9, 64, 1024)
 CHURN_DENSE_N = 512      # the dense samplers' limit (DENSE_MATERIALIZATION_LIMIT)
 CHURN_DENSE_ROUNDS = 5
 PARTICIPATION = 0.7
@@ -126,6 +134,9 @@ MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2-1.3b", 8, 4096, 32
 # (train_4k's length) for each of 4 clients, 8 groups (the reference's
 # make_data_model defaults)
 EVAL_CLIENTS, EVAL_B, EVAL_S, EVAL_GROUPS = 4, 4, 4096, 8
+# each two-route kernel's first-port route (the others': "cuda_core")
+OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
+             "sparse_gossip": "row_block"}
 # the serve and churn paths launch no kernel of the other's
 NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
                     "fused_cross_entropy": 0}
@@ -227,17 +238,46 @@ def gossip_operands(n, d, gen, dev):
     return w, delta, theta, c
 
 
-def check_gossip(gen, dev) -> float:
+def bitwise_equal(a, b) -> bool:
+    """a and b bit for bit, NaNs included (the NaN contract's rows)."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_gossip(gen, dev):
+    """B1 against its plain version over (n, D) from one client to the
+    churn path's 512, the main path's shapes and the churn path's masked
+    W, f32 and bf16, on both routes: each call takes the route
+    ``gossip.route`` gives it (unrolled for n ≤ 8, tiled past it), and
+    every unrolled call is repeated on the tiled route and must equal it
+    bit for bit.  The main path's pair call (x and y in one launch) is
+    held against two plain single calls and, bitwise, against the tiled
+    route's two launches.  Returns the largest error and the cases by
+    route."""
     from repro_torch.kernels import gossip, ref
 
     from repro_torch.core import sparse_topology as sp_lib
 
     worst = 0.0
-    cases = 0
+    by_route = dict.fromkeys(gossip.ROUTES, 0)
+    bitwise = 0
     shapes = [(n, d) for n in (1, 6, 8, 64, 512) for d in (1, 300, 4097)]
     # the main path's shapes, and the churn path's at the dense limit
     shapes += [(N, DX), (N, DY), (CHURN_DENSE_N, DX), (CHURN_DENSE_N, DY)]
     eta_s, corr = 0.5, 12.5
+
+    def held(got, want, scales, what):
+        """θ' within TOL_GOSSIP, c' within |s|·TOL_GOSSIP."""
+        err = 0.0
+        for (kt, kc), (pt, pc), s in zip(got, want, scales):
+            et, ec = max_err(kt, pt), max_err(kc, pc)
+            if et > TOL_GOSSIP or ec > TOL_GOSSIP * abs(s):
+                fail(f"fused_gossip {what}: θ err {et}, c err {ec}")
+            err = max(err, et, ec / abs(s))
+        return err
+
     for n, d in shapes:
         args = gossip_operands(n, d, gen, dev)
         ws = [("random", args[0])]
@@ -245,21 +285,53 @@ def check_gossip(gen, dev) -> float:
             # the churn path's W: each family's draw under a mask
             ws += [(label, sp_lib.densify(sp))
                    for label, sp, _ in churn_topologies(n, gen, dev)]
+        rt = gossip.route(n)
         for label, w in ws:
             for gd in (None, "bfloat16"):
-                kt, kc = gossip.fused_gossip_nd(w, *args[1:], eta_s, corr,
-                                                gossip_dtype=gd)
-                pt, pc = ref.fused_gossip_ref(w, *args[1:], eta_s, corr,
-                                              gossip_dtype=gd)
-                et, ec = max_err(kt, pt), max_err(kc, pc)
-                if et > TOL_GOSSIP or ec > TOL_GOSSIP * corr:
-                    fail(f"fused_gossip n={n} D={d} W={label} {gd}: "
-                         f"θ err {et}, c err {ec}")
-                worst = max(worst, et, ec / corr)
-                cases += 1
-    emit({"phase": "kernels", "kernel": "fused_gossip", "cases": cases,
+                plain = ref.fused_gossip_ref(w, *args[1:], eta_s, corr,
+                                             gossip_dtype=gd)
+                outs = {}
+                for want in dict.fromkeys((rt, "tiled")):
+                    force = None if want == rt else want
+                    outs[want] = routed_call(
+                        lambda: gossip.fused_gossip_nd(
+                            w, *args[1:], eta_s, corr, gossip_dtype=gd,
+                            force_route=force),
+                        "fused_gossip", want)
+                    worst = max(worst, held(
+                        [outs[want]], [plain], [corr],
+                        f"n={n} D={d} W={label} {gd} {want}"))
+                    by_route[want] += 1
+                if rt != "tiled":
+                    if not all(map(bitwise_equal, outs[rt], outs["tiled"])):
+                        fail(f"fused_gossip n={n} D={d} W={label} {gd}: the "
+                             f"{rt} route differs from the tiled route")
+                    bitwise += 1
+    # the pair, as the main path calls it: x and y of one round
+    w, dxv, txv, cxv = gossip_operands(N, DX, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(N, DY, gen, dev)
+    x, y = (dxv, txv, cxv, eta_s, corr), (dyv, tyv, cyv, 1.0, -3.0)
+    pairs = 0
+    for gd in (None, "bfloat16"):
+        before = gossip.fused_gossip_nd.launches
+        got = routed_call(lambda: gossip.fused_gossip_pair_nd(
+            w, x, y, gossip_dtype=gd), "fused_gossip", gossip.route(N))
+        if gossip.fused_gossip_nd.launches - before != 1:
+            fail("fused_gossip pair: not one launch")
+        plain = (ref.fused_gossip_ref(w, *x, gossip_dtype=gd),
+                 ref.fused_gossip_ref(w, *y, gossip_dtype=gd))
+        worst = max(worst, held([got[:2], got[2:]], plain, [corr, -3.0],
+                                f"pair {gd}"))
+        old = gossip.fused_gossip_pair_nd(w, x, y, gossip_dtype=gd,
+                                          force_route="tiled")
+        if not all(map(bitwise_equal, got, old)):
+            fail(f"fused_gossip pair {gd}: differs from the tiled route")
+        pairs += 1
+    emit({"phase": "kernels", "kernel": "fused_gossip",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "bitwise_equal_to_tiled": bitwise, "pair_cases": pairs,
           "max_abs_err_theta_or_c_over_s": worst, "tol": TOL_GOSSIP})
-    return worst
+    return worst, by_route
 
 
 def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None,
@@ -455,18 +527,67 @@ def sparse_topologies(n, gen, dev):
     return out
 
 
-def check_sparse_gossip(gen, dev) -> float:
+def gather_wavefronts(neighbor_idx, bf16: bool) -> float:
+    """Shared-memory wavefronts of the stripe route's gathers on this table
+    over the conflict-free count (1.0: none).  A warp holds 32 consecutive
+    rows, one a lane; each slot's gather is one 16-byte (f32) or 8-byte
+    (bf16) read a lane, served 8 (16) lanes a wavefront, and lanes whose
+    rows fall in one bank group (j mod 8, or mod 16) and differ take one
+    wavefront each.  Counted from the table, not timed."""
+    import torch
+
+    lanes = 16 if bf16 else 8
+    idx = neighbor_idx.to("cpu", torch.int64)
+    n, m = idx.shape
+    n_full = n // lanes * lanes
+    j = idx[:n_full].reshape(-1, lanes, m)            # (phases, lanes, m)
+    same = j[:, :, None, :] == j[:, None, :, :]       # lane a, earlier b
+    earlier = torch.ones(lanes, lanes, dtype=torch.bool).tril(-1)
+    dup = (same & earlier[None, :, :, None]).any(2)   # (phases, lanes, m)
+    onehot = torch.nn.functional.one_hot(j % lanes, lanes)
+    per_group = (onehot * (~dup)[..., None]).sum(1)   # (phases, m, groups)
+    waves = per_group.max(-1).values
+    return float(waves.sum()) / float(waves.numel())
+
+
+def check_sparse_gossip(gen, dev):
+    """B4 against its plain version over every topology kind and churn
+    draw, n from 1 to 4096, f32 and bf16, on both routes: each call takes
+    the route ``neighbor_gossip.route`` gives it (the stripe route at every
+    one of these shapes), and every stripe call is repeated on the
+    row-block route and must equal it bit for bit.  The scale path's pair
+    (x and y in one launch) is held against two plain single calls and the
+    row-block route; an index outside [0, n) must turn its
+    row, and only its row, to NaN on both routes.  Also counts the stripe
+    gathers' bank conflicts on the scale path's tables.  Returns the
+    largest absolute error and the cases by route."""
+    import torch
+
     from repro_torch.kernels import neighbor_gossip, ref
 
     worst = {}
     worst_abs = 0.0
-    cases = 0
+    by_route = dict.fromkeys(neighbor_gossip.ROUTES, 0)
+    bitwise = 0
     eta_s, corr = 0.5, 12.5          # the path's η_s and 1/(K·η_cx)
-    grid = {n: [1, 128, 300, 4097] for n in (1, 8, 9, 64, 1024, SCALE_N)}
+    grid = {n: [1, 128, 300, 4097] for n in SPARSE_CHECK_NS + (SCALE_N,)}
     # the paths' own shapes: the scale path's x at n = 4096, and the churn
     # path's x and y at the dense limit
     grid[SCALE_N].append(DX)
     grid[CHURN_DENSE_N] = [DX, DY]
+
+    def held(got, want, what, key):
+        nonlocal worst_abs
+        for (kt, kc), (pt, pc) in zip(got, want):
+            at, ac = max_err(kt, pt), max_err(kc, pc)
+            et = at / (1.0 + float(pt.abs().max()))
+            ec = ac / (1.0 + float(pc.abs().max()))
+            worst_abs = max(worst_abs, at, ac)
+            if not (et <= TOL_SPARSE and ec <= TOL_SPARSE):
+                fail(f"sparse_gossip {what}: θ err {et}, c err {ec} "
+                     f"(× (1 + max|ref|))")
+            worst[key] = max(worst.get(key, 0.0), et, ec)
+
     for n, ds in grid.items():
         tops = sparse_topologies(n, gen, dev)
         for d in ds:
@@ -475,26 +596,98 @@ def check_sparse_gossip(gen, dev) -> float:
                 tab = (sp.neighbor_idx, sp.neighbor_w.contiguous(),
                        sp.self_w.contiguous())
                 for gd in (None, "bfloat16"):
-                    kt, kc = neighbor_gossip.sparse_gossip_nd(
-                        *tab, delta, theta, c, eta_s, corr, gossip_dtype=gd)
-                    pt, pc = ref.sparse_gossip_ref(*tab, delta, theta, c,
-                                                   eta_s, corr,
-                                                   gossip_dtype=gd)
-                    at, ac = max_err(kt, pt), max_err(kc, pc)
-                    et = at / (1.0 + float(pt.abs().max()))
-                    ec = ac / (1.0 + float(pc.abs().max()))
-                    worst_abs = max(worst_abs, at, ac)
-                    if not (et <= TOL_SPARSE and ec <= TOL_SPARSE):
-                        fail(f"sparse_gossip n={n} D={d} {label} {gd}: "
-                             f"θ err {et}, c err {ec} (× (1 + max|ref|))")
-                    key = f"{label}/{gd or 'float32'}"
-                    worst[key] = max(worst.get(key, 0.0), et, ec)
-                    cases += 1
+                    rt = neighbor_gossip.route(n, tab[0].shape[1],
+                                               gd is not None)
+                    if rt != "stripe":
+                        fail(f"sparse_gossip n={n} {label}: route {rt}")
+                    plain = ref.sparse_gossip_ref(*tab, delta, theta, c,
+                                                  eta_s, corr,
+                                                  gossip_dtype=gd)
+                    outs = {}
+                    for want in (rt, "row_block"):
+                        force = None if want == rt else want
+                        outs[want] = routed_call(
+                            lambda: neighbor_gossip.sparse_gossip_nd(
+                                *tab, delta, theta, c, eta_s, corr,
+                                gossip_dtype=gd, force_route=force),
+                            "sparse_gossip", want)
+                        held([outs[want]], [plain],
+                             f"n={n} D={d} {label} {gd} {want}",
+                             f"{label}/{gd or 'float32'}")
+                        by_route[want] += 1
+                    if not all(map(bitwise_equal, outs[rt],
+                                   outs["row_block"])):
+                        fail(f"sparse_gossip n={n} D={d} {label} {gd}: the "
+                             f"stripe route differs from the row-block "
+                             f"route")
+                    bitwise += 1
             del delta, theta, c
-    emit({"phase": "kernels", "kernel": "sparse_gossip", "cases": cases,
-          "max_abs_err": worst_abs,
-          "max_err_over_1_plus_max_ref_by_group": worst, "tol": TOL_SPARSE})
-    return worst_abs
+
+    # the scale path's pair, on the exp table and one churn draw
+    n = SCALE_N
+    exp = [(label, sp) for label, sp in sparse_topologies(n, gen, dev)
+           if label in ("exp", "erdos_renyi+mask")]
+    x = (*(torch_randn(gen, dev, n, DX) for _ in range(3)), eta_s, corr)
+    y = (*(torch_randn(gen, dev, n, DY) for _ in range(3)), 1.0, -3.0)
+    pairs = 0
+    for label, sp in exp:
+        tab = (sp.neighbor_idx, sp.neighbor_w.contiguous(),
+               sp.self_w.contiguous())
+        for gd in (None, "bfloat16"):
+            plain = (ref.sparse_gossip_ref(*tab, *x, gossip_dtype=gd),
+                     ref.sparse_gossip_ref(*tab, *y, gossip_dtype=gd))
+            old = neighbor_gossip.sparse_gossip_pair_nd(
+                *tab, x, y, gossip_dtype=gd, force_route="row_block")
+            before = neighbor_gossip.sparse_gossip_nd.launches
+            got = routed_call(
+                lambda: neighbor_gossip.sparse_gossip_pair_nd(
+                    *tab, x, y, gossip_dtype=gd),
+                "sparse_gossip", "stripe")
+            if neighbor_gossip.sparse_gossip_nd.launches - before != 1:
+                fail("sparse_gossip pair: not one launch")
+            what = f"pair {label} {gd}"
+            held([got[:2], got[2:]], plain, what, f"pair/{gd or 'float32'}")
+            if not all(map(bitwise_equal, got, old)):
+                fail(f"sparse_gossip {what}: differs from the row-block "
+                     f"route")
+            pairs += 1
+
+    # the NaN contract: out-of-range indices in two rows, at n = 9 (a
+    # table chunk of 9·m words, not whole 16-byte pieces) and n = 4096
+    nan_cases = 0
+    for n in (9, SCALE_N):
+        rows = (5, 3 * n // 4 + 1)
+        sp = dict(sparse_topologies(n, gen, dev))["exp"]
+        idx = sp.neighbor_idx.clone()
+        idx[rows[0], 2], idx[rows[1], 0] = n, -1
+        v = (*(torch_randn(gen, dev, n, 12) for _ in range(3)), eta_s, corr)
+        outs = [neighbor_gossip.sparse_gossip_pair_nd(
+            idx, sp.neighbor_w, sp.self_w, v, force_route=r)
+            for r in ("stripe", "row_block")]
+        for out in outs:
+            for t in out:
+                nan_rows = t.isnan().any(1).nonzero().flatten().tolist()
+                if nan_rows != sorted(rows) or not t[list(rows)].isnan().all():
+                    fail(f"sparse_gossip NaN contract n={n}: NaN rows "
+                         f"{nan_rows}, expected {sorted(rows)}")
+        if not all(map(bitwise_equal, *outs)):
+            fail(f"sparse_gossip NaN contract n={n}: routes differ")
+        nan_cases += 1
+
+    # bank conflicts of the stripe gathers on the scale path's tables
+    conflicts = {f"{label}/{'bfloat16' if bf16 else 'float32'}":
+                 gather_wavefronts(sp.neighbor_idx, bf16)
+                 for label, sp in sparse_topologies(SCALE_N, gen, dev)
+                 if label in ("exp",) or "+mask" in label
+                 for bf16 in (False, True)}
+    emit({"phase": "kernels", "kernel": "sparse_gossip",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "bitwise_equal_to_row_block": bitwise, "pair_cases": pairs,
+          "nan_contract_cases": nan_cases, "max_abs_err": worst_abs,
+          "max_err_over_1_plus_max_ref_by_group": worst, "tol": TOL_SPARSE,
+          f"stripe_gather_wavefronts_over_conflict_free_n{SCALE_N}":
+              conflicts})
+    return worst_abs, by_route
 
 
 # (B, Sq, Sk, H, KV, D, window, causal): one key, ragged tiles, GQA 4/1 and
@@ -955,7 +1148,8 @@ def phase_main(dev) -> dict:
                                        impl, dev, ROUNDS)
     launches = launch_counts()
     routes = route_counts()
-    expect = {"fused_gossip": 2 * ROUNDS * len(TRACKING),
+    # one pair launch a round (x and y) per tracking algorithm
+    expect = {"fused_gossip": ROUNDS * len(TRACKING),
               "fused_round": ROUNDS * len(ALGOS), "sparse_gossip": 0,
               **NO_MODEL_KERNELS}
     if launches != expect:
@@ -1031,14 +1225,15 @@ def zero_launch_counts() -> None:
     ops.zero_launch_counts()
 
 
-def check_routes(routes, want, what) -> None:
+def check_routes(routes, want, what, route_of=None) -> None:
     """Fail unless every launch of each two-route kernel in ``routes`` went
     through the route the main paths take (``ops.ROUTED``: tensor cores,
-    or B2's cluster), ``want[kernel]`` launches of it."""
+    B2's cluster, B1's unrolled or B4's stripe route; ``route_of``
+    overrides it per kernel), ``want[kernel]`` launches of it."""
     from repro_torch.kernels import ops
 
     for kernel, by in routes.items():
-        new = ops.ROUTED[kernel]
+        new = (route_of or {}).get(kernel, ops.ROUTED[kernel])
         expect = {r: want.get(kernel, 0) if r == new else 0 for r in by}
         if by != expect:
             fail(f"{what}: {kernel} launches by route {by}, expected "
@@ -1095,6 +1290,7 @@ def phase_scale(dev) -> dict:
     from repro_torch import engine as engine_lib
     from repro_torch.core import sparse_topology as sp_lib
     from repro_torch.core import stochastic_topology as st_lib
+    from repro_torch.kernels import gossip
 
     n = SCALE_N
     problem, client_batch, batches = main_setup(dev, n=n)
@@ -1120,8 +1316,10 @@ def phase_scale(dev) -> dict:
         finals[algo, "dense"] = drive(problem, client_batch, batches, algo,
                                       "dense", dev, SCALE_ROUNDS, w=w_dense,
                                       **common)
+    scale_routes = route_counts()
     for algo in ALGOS:
-        want = 2 * SCALE_ROUNDS if algo in TRACKING else 0
+        # one pair launch a round (x and y) per tracking algorithm
+        want = SCALE_ROUNDS if algo in TRACKING else 0
         got = out["launches"][algo]
         if got != {"fused_gossip": 0, "fused_round": 0,
                    "sparse_gossip": want, **NO_MODEL_KERNELS}:
@@ -1142,7 +1340,10 @@ def phase_scale(dev) -> dict:
                   out["max_state_err_vs_dense"][algo],
               "launches": out["launches"][algo]})
     del finals
+    # every launch at n = 4096 on the stripe route
+    check_routes(scale_routes, scale_launches, "scale path")
     out["sparse_gossip_launches"] = scale_launches["sparse_gossip"]
+    out["launches_by_route"] = scale_routes
 
     # 3. every churn family under partial participation, n = 4096
     churn = {}
@@ -1155,11 +1356,12 @@ def phase_scale(dev) -> dict:
         state0, build = prepare(problem, client_batch, batches,
                                 "kgt_minimax", "sparse_packed", dev,
                                 w_fn=w_fn, mask_fn=mask_fn, **common)
-        before = launch_counts()["sparse_gossip"]
+        zero_launch_counts()
         state, _ = engine_lib.run(
             state0, build, total_rounds=CHURN_ROUNDS, chunk_rounds=1,
             hooks=[freeze_hook(mask_fn, state0, frozen, inactive)])
-        launched = launch_counts()["sparse_gossip"] - before
+        launched = launch_counts()["sparse_gossip"]
+        check_routes(route_counts(), launch_counts(), f"churn {family}")
         sc = sigma_c(state)
         churn[family] = {"sigma_c": sc, "frozen_checks": len(frozen),
                          "inactive_client_rounds": sum(inactive),
@@ -1173,7 +1375,7 @@ def phase_scale(dev) -> dict:
             fail(f"churn {family}: no client was ever inactive")
         if not sc <= TOL_SIGMA_C:
             fail(f"churn {family}: Σc/n = {sc} × (1 + max|c|)")
-        if launched != 2 * CHURN_ROUNDS:
+        if launched != CHURN_ROUNDS:
             fail(f"churn {family}: {launched} sparse_gossip launches")
         check_finite(state, f"churn {family}")
     out["churn"] = churn
@@ -1226,8 +1428,11 @@ def phase_scale(dev) -> dict:
                                      f"churn n={n} {family} {impl} vs "
                                      "sparse_packed")
                 for impl in ("pallas_packed", "fused_round")}
+        # a round is one pair call: one stripe launch (sparse_packed), or
+        # two launches of B1's tiled route, its route past n = 8
+        # (pallas_packed)
         want = {"sparse_packed": {"fused_gossip": 0, "fused_round": 0,
-                                  "sparse_gossip": 2 * CHURN_DENSE_ROUNDS},
+                                  "sparse_gossip": CHURN_DENSE_ROUNDS},
                 "pallas_packed": {"fused_gossip": 2 * CHURN_DENSE_ROUNDS,
                                   "fused_round": 0, "sparse_gossip": 0},
                 "fused_round": {"fused_gossip": 0,
@@ -1237,8 +1442,10 @@ def phase_scale(dev) -> dict:
         got = {impl: res[impl][1] for impl in res}
         if got != want:
             fail(f"churn n={n} {family}: launches {got}, expected {want}")
-        check_routes(route_counts(), want["fused_round"],
-                     f"churn n={n} {family}")
+        total = {k: sum(w[k] for w in want.values())
+                 for k in want["fused_round"]}
+        check_routes(route_counts(), total, f"churn n={n} {family}",
+                     route_of={"fused_gossip": gossip.route(n)})
         small[family] = errs
         emit({"phase": "scale", "n": n, "churn": family,
               "participation": PARTICIPATION, "rounds": CHURN_DENSE_ROUNDS,
@@ -1841,21 +2048,28 @@ def phase_times(dev, gen) -> dict:
     # ``ms`` is the device time (calls back to back in a CUDA graph),
     # ``call_ms`` the eager rate of calls from Python (host-bound).
     out = {}
-    # fused gossip at the main path's two shapes (one launch each per round)
-    g_ms = g_plain = g_bound = 0.0
-    for d in (DX, DY):
-        args = gossip_operands(N, d, gen, dev)
-        kern = lambda: gossip.fused_gossip_nd(*args, 0.5, 12.5)  # noqa: E731
-        plain = lambda: ref.fused_gossip_ref(*args, 0.5, 12.5)   # noqa: E731
-        ms, pms = graph_ms(kern), graph_ms(plain)
-        b, _ = gossip_bound_ms(N, d)
-        emit({"phase": "times", "kernel": "fused_gossip", "n": N, "D": d,
-              "ms": ms, "plain_ms": pms, "bound_ms": b,
-              "call_ms": cuda_ms(kern, inner=100),
-              "plain_call_ms": cuda_ms(plain, inner=100)})
-        g_ms, g_plain, g_bound = g_ms + ms, g_plain + pms, g_bound + b
-    out["fused_gossip"] = dict(ms=g_ms, plain_ms=g_plain, bound_ms=g_bound,
-                               bound_by="bytes")
+    # the fused gossip pair at the main path's shapes (one launch a round
+    # on the unrolled route; the tiled route launches once a variable)
+    w, dxv, txv, cxv = gossip_operands(N, DX, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(N, DY, gen, dev)
+    xv, yv = (dxv, txv, cxv, 0.5, 12.5), (dyv, tyv, cyv, 1.0, -3.0)
+    kern = lambda: gossip.fused_gossip_pair_nd(w, xv, yv)  # noqa: E731
+    tiled = lambda: gossip.fused_gossip_pair_nd(  # noqa: E731
+        w, xv, yv, force_route="tiled")
+    plain = lambda: (ref.fused_gossip_ref(w, *xv),  # noqa: E731
+                     ref.fused_gossip_ref(w, *yv))
+    ms, tms, pms = graph_ms(kern), graph_ms(tiled), graph_ms(plain)
+    b = gossip_bound_ms(N, DX)[0] + gossip_bound_ms(N, DY)[0]
+    emit({"phase": "times", "kernel": "fused_gossip", "pair": True, "n": N,
+          "D": [DX, DY], "route": gossip.route(N), "ms": ms,
+          "tiled_ms": tms, "plain_ms": pms, "bound_ms": b,
+          "bound_by": "bytes", "call_ms": cuda_ms(kern, inner=100),
+          "tiled_call_ms": cuda_ms(tiled, inner=100),
+          "plain_call_ms": cuda_ms(plain, inner=100)})
+    out["fused_gossip"] = dict(ms=ms, tiled_ms=tms, plain_ms=pms,
+                               bound_ms=b, bound_by="bytes")
+    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
+
     # whole round at the main-path shape
     # (the route the main path takes, a cluster per client, then the block
     # route on the same operands)
@@ -1882,22 +2096,29 @@ def phase_times(dev, gen) -> dict:
     out.update(time_model_kernels(gen, dev))
     out.update(time_mamba_kernels(gen, dev))
 
-    # the epilogue at a paper-toy-sized packed state
+    # the epilogue at a paper-toy-sized packed state, on both routes
     d_big = 100_000_000
     args = gossip_operands(N, d_big, gen, dev)
     kt, kc = gossip.fused_gossip_nd(*args, 0.5, 12.5)
     pt, pc = ref.fused_gossip_ref(*args, 0.5, 12.5)
     err = max(max_err(kt, pt), max_err(kc, pc) / 12.5)
-    del kt, kc, pt, pc
+    del pt, pc
+    tt, tc = gossip.fused_gossip_nd(*args, 0.5, 12.5, force_route="tiled")
+    same = bitwise_equal(kt, tt) and bitwise_equal(kc, tc)
+    del kt, kc, tt, tc
     torch.cuda.empty_cache()
-    if err > TOL_GOSSIP:
-        fail(f"fused_gossip at D={d_big}: err {err}")
+    if err > TOL_GOSSIP or not same:
+        fail(f"fused_gossip at D={d_big}: err {err}, routes equal {same}")
     ms = cuda_ms(lambda: gossip.fused_gossip_nd(*args, 0.5, 12.5), reps=21)
+    tms = cuda_ms(lambda: gossip.fused_gossip_nd(
+        *args, 0.5, 12.5, force_route="tiled"), reps=21)
     pms = cuda_ms(lambda: ref.fused_gossip_ref(*args, 0.5, 12.5), reps=21)
     b, _ = gossip_bound_ms(N, d_big)
     emit({"phase": "times", "kernel": "fused_gossip", "n": N, "D": d_big,
-          "ms": ms, "plain_ms": pms, "bound_ms": b, "max_abs_err": err,
-          "GB_per_s": 4 * 5 * N * d_big / ms / 1e6})
+          "route": gossip.route(N), "ms": ms, "tiled_ms": tms,
+          "plain_ms": pms, "bound_ms": b, "max_abs_err": err,
+          "GB_per_s": 4 * 5 * N * d_big / ms / 1e6,
+          "tiled_GB_per_s": 4 * 5 * N * d_big / tms / 1e6})
     del args
     torch.cuda.empty_cache()
 
@@ -1922,54 +2143,93 @@ def phase_times(dev, gen) -> dict:
     return out
 
 
+def sparse_l2_bytes(n, dx, dy, m, route):
+    """L2 bytes of Δ, θ and the table that one call moves by the design of
+    its route: the row-block route gathers every Δ and θ row m+1 times; the
+    stripe route stages Δ and θ once and reads the (n, m) table once a
+    stripe."""
+    from repro_torch.kernels import neighbor_gossip
+
+    if route == "row_block":
+        return (m + 1) * 2 * n * (dx + dy) * 4
+    w = neighbor_gossip.STRIPE_WIDTH
+    stripes = -(-dx // w) + -(-dy // w)
+    return 2 * n * (dx + dy) * 4 + n * (2 * m + 1) * 4 * stripes
+
+
 def time_sparse_gossip(gen, dev) -> dict:
-    """The neighbor-gather epilogue on the exponential graph: at
-    benchmarks/bench_scale.py's client counts (D = 256), at the scale
-    path's two shapes (n = 4096, D = 384 and 128), and at D = 16384, where
-    each (n, D) array (268 MB) is far past the 50 MB L2.  Beside it: the
-    plain version and ``torch.sparse.mm`` of the CSR W (self loop included)
-    on [Δ | θ] — the library call covers only the gather half (WΔ and Wθ),
-    not the epilogue."""
+    """The neighbor-gather epilogue on the exponential graph, on both
+    routes: at benchmarks/bench_scale.py's client counts (D = 256), as the
+    scale path calls it (the pair at n = 4096, D = 384 and 128, one launch;
+    also on a churn draw and in bf16), and at D = 16384, where each (n, D)
+    array (268 MB) is far past the 50 MB L2.  Beside it: the row-block
+    route (one launch a variable), the plain version, ``torch.sparse.mm``
+    of the CSR W (self loop included) on [Δ | θ] (the gather half only, not
+    the epilogue; one call on all four operands for the pair), the bound
+    and each route's L2 bytes by design."""
     import torch
 
     from repro_torch.core import sparse_topology as sp_lib
     from repro_torch.kernels import neighbor_gossip, ref
 
-    points = [(n, 256) for n in (64, 256, 1024, SCALE_N)]
-    points += [(SCALE_N, DX), (SCALE_N, DY), (SCALE_N, 16384)]
-    path = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    points = [(n, 256, 0) for n in (64, 256, 1024, SCALE_N)]
+    points += [(SCALE_N, DX, DY), (SCALE_N, 16384, 0)]
+    path = {}
     tables = {}
-    for n, d in points:
+    for n, dx, dy in points:
         if n not in tables:
             sp = sp_lib.sparse_exp(n).to(dev)
             tables[n] = (sp, sp_lib.densify(sp).to_sparse_csr())
         sp, csr = tables[n]
+        m = sp.max_degree
         tab = (sp.neighbor_idx, sp.neighbor_w, sp.self_w)
-        delta, theta, c = (torch_randn(gen, dev, n, d) for _ in range(3))
-        both = torch.cat([delta, theta], dim=1)
-        kern = lambda: neighbor_gossip.sparse_gossip_nd(  # noqa: E731
-            *tab, delta, theta, c, 0.5, 12.5)
-        plain = lambda: ref.sparse_gossip_ref(  # noqa: E731
-            *tab, delta, theta, c, 0.5, 12.5)
+        x = (*(torch_randn(gen, dev, n, dx) for _ in range(3)), 0.5, 12.5)
+        y = ((*(torch_randn(gen, dev, n, dy) for _ in range(3)), 1.0, -3.0)
+             if dy else None)
+        both = torch.cat([x[0], x[1]] + ([y[0], y[1]] if dy else []), dim=1)
+        kern = lambda: neighbor_gossip.sparse_gossip_pair_nd(  # noqa: E731
+            *tab, x, y)
+        old = lambda: neighbor_gossip.sparse_gossip_pair_nd(  # noqa: E731
+            *tab, x, y, force_route="row_block")
+        plain = lambda: [ref.sparse_gossip_ref(*tab, *v)  # noqa: E731
+                         for v in (x, y) if v is not None]
         lib = lambda: torch.sparse.mm(csr, both)  # noqa: E731
-        inner, reps = (100, 21) if d <= 4096 else (5, 11)
+        inner, reps = (100, 21) if dx + dy <= 4096 else (5, 11)
         ms = graph_ms(kern, inner=inner, reps=reps)
+        oms = graph_ms(old, inner=inner, reps=reps)
         pms = graph_ms(plain, inner=inner, reps=reps)
         lms = graph_ms(lib, inner=inner, reps=reps)
-        b, by = sparse_bound_ms(n, d, sp.max_degree)
-        byts = 4 * (5 * n * d + n * (2 * sp.max_degree + 1))
-        emit({"phase": "times", "kernel": "sparse_gossip", "n": n, "D": d,
-              "max_degree": sp.max_degree, "ms": ms, "plain_ms": pms,
-              "bound_ms": b, "bound_by": by, "library_ms": lms,
-              "library": "torch.sparse.mm(CSR W, [Δ|θ]): gather half only",
-              "GB_per_s": byts / ms / 1e6})
-        if (n, d) in ((SCALE_N, DX), (SCALE_N, DY)):
-            for key, v in (("ms", ms), ("plain_ms", pms), ("bound_ms", b),
-                           ("library_ms", lms)):
-                path[key] += v
-        del delta, theta, c, both
+        b, by = sparse_bound_ms(n, dx + dy, m)
+        byts = 4 * (5 * n * (dx + dy) + n * (2 * m + 1))
+        row = {"phase": "times", "kernel": "sparse_gossip", "n": n,
+               "D": [dx, dy] if dy else dx, "pair": bool(dy),
+               "max_degree": m, "route": neighbor_gossip.route(n, m, False),
+               "ms": ms, "row_block_ms": oms,
+               "plain_ms": pms, "bound_ms": b, "bound_by": by,
+               "library_ms": lms,
+               "library": "torch.sparse.mm(CSR W, [Δ|θ]): gather half only",
+               "GB_per_s": byts / ms / 1e6,
+               "l2_bytes_by_design": sparse_l2_bytes(n, dx, dy, m, "stripe"),
+               "row_block_l2_bytes_by_design": sparse_l2_bytes(
+                   n, dx, dy, m, "row_block")}
+        if (n, dx, dy) == (SCALE_N, DX, DY):
+            # a churn draw's slot pattern, and bf16 stripes
+            churn = dict(sparse_topologies(n, gen, dev))["erdos_renyi+mask"]
+            ctab = (churn.neighbor_idx, churn.neighbor_w.contiguous(),
+                    churn.self_w.contiguous())
+            row["churn_draw_ms"] = graph_ms(
+                lambda: neighbor_gossip.sparse_gossip_pair_nd(*ctab, x, y),
+                inner=inner, reps=reps)
+            row["bf16_ms"] = graph_ms(
+                lambda: neighbor_gossip.sparse_gossip_pair_nd(
+                    *tab, x, y, gossip_dtype="bfloat16"),
+                inner=inner, reps=reps)
+            path = dict(ms=ms, row_block_ms=oms, plain_ms=pms, bound_ms=b,
+                        bound_by=by, library_ms=lms)
+        emit(row)
+        del x, y, both
     torch.cuda.empty_cache()
-    return dict(path, bound_by="bytes")
+    return path
 
 
 def phase_profile(dev) -> None:
@@ -2063,10 +2323,13 @@ def main(argv=None) -> int:
     errs = dict.fromkeys(names)
     cases_by_route = {}
     if "kernels" in phases:
-        errs = {"fused_gossip": check_gossip(gen, dev)}
+        errs = {}
+        errs["fused_gossip"], cases_by_route["fused_gossip"] = \
+            check_gossip(gen, dev)
         errs["fused_round"], cases_by_route["fused_round"] = \
             check_round(gen, dev)
-        errs["sparse_gossip"] = check_sparse_gossip(gen, dev)
+        errs["sparse_gossip"], cases_by_route["sparse_gossip"] = \
+            check_sparse_gossip(gen, dev)
         errs["flash_attention"], cases_by_route["flash_attention"] = \
             check_flash_attention(gen, dev)
         errs["rglru_scan"] = check_rglru_scan(gen, dev)
@@ -2081,6 +2344,7 @@ def main(argv=None) -> int:
         main_launches, main_routes = phase_main(dev)
         launches.update(main_launches)
         launches_by_route["fused_round"] = main_routes["fused_round"]
+        launches_by_route["fused_gossip"] = main_routes["fused_gossip"]
     qs_launches = dict.fromkeys(names)
     qs_routes = {}
     if "quickstart" in phases:
@@ -2090,6 +2354,8 @@ def main(argv=None) -> int:
     if "scale" in phases:
         scale = phase_scale(dev)
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
+        launches_by_route["sparse_gossip"] = \
+            scale["launches_by_route"]["sparse_gossip"]
     launches_eval = dict.fromkeys(names)
     eval_routes = {}
     if "serve" in phases:
@@ -2156,18 +2422,19 @@ def main(argv=None) -> int:
                      launches_by_route_quickstart=qs_routes.get(k["name"]),
                      launches_by_route_evaluate=eval_routes.get(k["name"]),
                      cases_by_route=cases_by_route.get(k["name"]))
-            if k["name"] == "fused_round":
-                k["block_ms"] = t.get("block_ms")
-            else:
-                k["cuda_core_ms"] = t.get("cuda_core_ms")
+            old = OLD_ROUTE.get(k["name"], "cuda_core")
+            k[f"{old}_ms"] = t.get(f"{old}_ms")
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
     print(smi, flush=True)
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "
-                           "(n = 8); sparse_gossip: the scale phase "
-                           "(n = 4096, 20 rounds × 4 algorithms); "
+                           "(n = 8; fused_gossip one pair launch a round "
+                           "of the 2 tracking algorithms); sparse_gossip: "
+                           "the scale phase (n = 4096, 20 rounds × 4 "
+                           "algorithms, one pair launch a round of the 2 "
+                           "tracking ones); "
                            "flash_attention, rglru_scan: the serve phase's "
                            "prefill (recurrentgemma-9b, 4 × 4096 tokens); "
                            "ssd_scan: the serve phase's prefill "
@@ -2175,11 +2442,16 @@ def main(argv=None) -> int:
                            "fused_cross_entropy: the evaluate phase (4 "
                            "clients × 4 × 4096 tokens), where ssd_scan "
                            "launches too (launches_evaluate)",
+          "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
+                     "sparse_gossip: the pair at (4096, 384 + 128); "
+                     "<old route>_ms: the same work on the first port's "
+                     "kernel (two launches for a pair)",
           "library_ms_note": "fused_gossip, fused_round, rglru_scan, "
                              "ssd_scan: no single PyTorch call computes the "
                              "function; sparse_gossip: torch.sparse.mm of "
-                             "the CSR W on [Δ|θ], the gather half only, at "
-                             "the scale path's two shapes; flash_attention: "
+                             "the CSR W on [Δx|θx|Δy|θy], the gather half "
+                             "only, at the scale path's pair; "
+                             "flash_attention: "
                              "scaled_dot_product_attention with the banded "
                              "bool mask at the served shape (bf16); "
                              "fused_cross_entropy: the nearest, two calls "

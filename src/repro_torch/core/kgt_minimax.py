@@ -234,9 +234,9 @@ def make_round_step(
     doubly stochastic, so Σ_i c_i = 0 holds under any mask.
     ``cfg.topology_cycle`` cycles W through the listed topologies, one a
     round.  ``sparse_packed`` runs the round epilogue in the neighbor-gather
-    kernel (``kernels.ops.sparse_gossip_round``) in O(n·max_deg·D) with no
-    (n, n) array; its no-tracking variants mix the packed buffer with
-    ``sparse_topology.sparse_mix``.
+    kernel (``kernels.ops.sparse_gossip_pair``, x and y in one call) in
+    O(n·max_deg·D) with no (n, n) array; its no-tracking variants mix the
+    packed buffer with ``sparse_topology.sparse_mix``.
 
     ``byzantine`` (ROADMAP A9) is not ported yet.
     """
@@ -378,9 +378,9 @@ def make_round_step(
     def _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy, corr_x,
                       corr_y):
         """Each variable packed to one (n, D) buffer; the epilogue
-        θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) is one kernel call: the dense
-        gossip kernel (``pallas_packed``) or the neighbor-gather kernel
-        (``sparse_packed``)."""
+        θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) of both is one kernel call:
+        the dense gossip kernel (``pallas_packed``) or the neighbor-gather
+        kernel (``sparse_packed``)."""
         spec_x = packing.pack_spec(state.x)
         spec_y = packing.pack_spec(state.y)
         dxb = packing.pack(dx, spec_x)
@@ -400,21 +400,18 @@ def make_round_step(
                                   round=state.round + 1), state, mask)
         spec_cx = packing.pack_spec(state.cx)
         spec_cy = packing.pack_spec(state.cy)
-
-        def epilogue(delta, theta, c, eta_s, corr):
-            if sparse:
-                return kernel_ops.sparse_gossip_round(
-                    w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, delta,
-                    theta, c, eta_s, corr, backend=backend,
-                    gossip_dtype=gossip_dtype)
-            return kernel_ops.fused_gossip_round(
-                w_t, delta, theta, c, eta_s, corr, backend=backend,
-                gossip_dtype=gossip_dtype)
-
-        xb, cxb = epilogue(dxb, packing.pack(state.x, spec_x),
-                           packing.pack(state.cx, spec_cx), eta_sx, corr_x)
-        yb, cyb = epilogue(dyb, packing.pack(state.y, spec_y),
-                           packing.pack(state.cy, spec_cy), eta_sy, corr_y)
+        xv = (dxb, packing.pack(state.x, spec_x),
+              packing.pack(state.cx, spec_cx), eta_sx, corr_x)
+        yv = (dyb, packing.pack(state.y, spec_y),
+              packing.pack(state.cy, spec_cy), eta_sy, corr_y)
+        # both variables' epilogues in one call (one launch on the card)
+        if sparse:
+            xb, cxb, yb, cyb = kernel_ops.sparse_gossip_pair(
+                w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, xv, yv,
+                backend=backend, gossip_dtype=gossip_dtype)
+        else:
+            xb, cxb, yb, cyb = kernel_ops.fused_gossip_pair(
+                w_t, xv, yv, backend=backend, gossip_dtype=gossip_dtype)
         return _done(KGTState(x=packing.unpack(xb, spec_x),
                               y=packing.unpack(yb, spec_y),
                               cx=packing.unpack(cxb, spec_cx),

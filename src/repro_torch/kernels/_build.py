@@ -31,21 +31,30 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# argument types of each library's C entry point (all return cudaError_t)
+_F = ctypes.c_float
+# each library's C entry points and their argument types (all return
+# cudaError_t)
 SIGNATURES = {
-    "gossip": ("fused_gossip_launch",
-               [_P] * 6 + [_I, ctypes.c_longlong, ctypes.c_float,
-                           ctypes.c_float, _I, _P]),
-    "fused_round": ("fused_round_launch", [_P] * 14 + [_I] * 6 + [_P]),
-    "neighbor_gossip": ("sparse_gossip_launch",
-                        [_P] * 8 + [_I, _I, ctypes.c_longlong, ctypes.c_float,
-                                    ctypes.c_float, _I, _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P] * 4 + [_I] * 10 + [_P]),
-    "rglru_scan": ("rglru_scan_launch", [_P] * 3 + [_I] * 3 + [_P]),
-    "ssd_scan": ("ssd_scan_launch", [_P] * 10 + [_I] * 9 + [_L] * 10 + [_P]),
-    "cross_entropy": ("fused_ce_launch",
-                      [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P]),
+    "gossip": {
+        "fused_gossip_launch": [_P] * 6 + [_I, _L, _F, _F, _I, _P],
+        # w, then (Δ, θ, c, θ', c', D, η_s, s) for x and for y
+        "fused_gossip_pair_launch": ([_P] + ([_P] * 5 + [_L, _F, _F]) * 2
+                                     + [_I, _I, _P]),
+    },
+    "fused_round": {"fused_round_launch": [_P] * 14 + [_I] * 6 + [_P]},
+    "neighbor_gossip": {
+        "sparse_gossip_launch": [_P] * 8 + [_I, _I, _L, _F, _F, _I, _P],
+        # the three tables, then (Δ, θ, c, θ', c', D, η_s, s) for x and y
+        "sparse_gossip_pair_launch": ([_P] * 3 + ([_P] * 5 + [_L, _F, _F]) * 2
+                                      + [_I] * 3 + [_P]),
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P] * 4 + [_I] * 10 + [_P]},
+    "rglru_scan": {"rglru_scan_launch": [_P] * 3 + [_I] * 3 + [_P]},
+    "ssd_scan": {
+        "ssd_scan_launch": [_P] * 10 + [_I] * 9 + [_L] * 10 + [_P]},
+    "cross_entropy": {
+        "fused_ce_launch": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -105,10 +114,10 @@ def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -7,9 +7,13 @@ packed (n, D) state of one variable computes
 
 Bound on an H100: 5·n·D·4 bytes against 4·n²·D flops — memory-bound at the
 client counts of the main path; the kernel reads Δ, θ, c once and writes
-θ', c' once (design notes in ``csrc/epilogue.cuh``).  The plain version is
+θ', c' once.  Two routes, chosen by :func:`route`: the unrolled route (n a
+template parameter, every load of a column issued before its first FMA,
+both variables of a round in one launch) for n ≤ 8, and the tiled route
+(``csrc/epilogue.cuh``, one launch a variable) past it — design notes in
+the sources.  The plain version is
 ``repro_torch.kernels.ref.fused_gossip_ref``; dispatch between the two is
-``repro_torch.kernels.ops.fused_gossip_round``.
+``repro_torch.kernels.ops.fused_gossip_round`` and ``fused_gossip_pair``.
 """
 from __future__ import annotations
 
@@ -18,28 +22,91 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import gossip_torch_dtype
 
+ROUTES = ("unrolled", "tiled")
+MAX_UNROLLED_N = 8   # csrc/gossip.cu kMaxUnrolledN
+
+
+def route(n: int) -> str:
+    """``"unrolled"`` for n ≤ 8 (the main path's n: a launch costs about
+    one memory round trip), ``"tiled"`` past it (the churn path's n = 512,
+    whose per-thread row loop the unrolled kernel would not fit in
+    registers).  D does not enter: both kernels take any D."""
+    return "unrolled" if n <= MAX_UNROLLED_N else "tiled"
+
+
+def pair_args(vars_, outs) -> list:
+    """The per-variable arguments of a ``*_pair_launch`` C entry point:
+    (Δ, θ, c, θ', c', D, η_s, s) for x, then for y — zeros and null
+    pointers (D = 0) where there is no y."""
+    args = []
+    for k in range(2):
+        if k < len(vars_):
+            delta, theta, c, eta_s, corr = vars_[k]
+            t_new, c_new = outs[k]
+            args += [delta.data_ptr(), theta.data_ptr(), c.data_ptr(),
+                     t_new.data_ptr(), c_new.data_ptr(), delta.shape[-1],
+                     float(eta_s), float(corr)]
+        else:
+            args += [None] * 5 + [0, 0.0, 0.0]
+    return args
+
+
+def fused_gossip_pair_nd(w, x, y=None, *, gossip_dtype=None,
+                         force_route=None):
+    """The epilogue of one variable, or of two sharing W.
+
+    w: (n, n); x, y: (delta, theta, c, eta_s, corr_scale) with delta/theta/c
+    (n, D) contiguous f32 CUDA tensors on one device (D may differ between
+    x and y); y may be None.  Returns fresh f32 (θx', cx') or
+    (θx', cx', θy', cy').  The route is :func:`route`'s; ``force_route=
+    "tiled"`` takes the first port's kernel whatever n (one launch a
+    variable), and forcing ``"unrolled"`` past n = 8 raises.  The unrolled
+    route runs both variables in one launch.  Counts launches in
+    ``fused_gossip_nd.launches`` and, by route, ``fused_gossip_nd.routes``.
+    """
+    bf16 = gossip_torch_dtype(gossip_dtype) is not None
+    vars_ = [x] if y is None else [x, y]
+    n = x[0].shape[0]
+    _build.check_operand("w", w, (n, n))
+    for delta, theta, c, _, _ in vars_:
+        d = delta.shape[-1]
+        for name, t in (("delta", delta), ("theta", theta), ("c", c)):
+            _build.check_operand(name, t, (n, d))
+    if len({t.device for v in vars_ for t in v[:3]} | {w.device}) != 1:
+        raise ValueError("the operands lie on more than one device")
+    which = _build.forced_route(route(n), force_route, universal="tiled")
+    lib = _build.library("gossip")
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    outs = [(torch.empty_like(v[0]), torch.empty_like(v[0])) for v in vars_]
+    if which == "unrolled":
+        err = lib.fused_gossip_pair_launch(
+            w.data_ptr(), *pair_args(vars_, outs), n, int(bf16), stream)
+        _build.check(err, "fused_gossip_pair_launch")
+        launched = 1
+    else:
+        for (delta, theta, c, eta_s, corr), (t_new, c_new) in zip(vars_,
+                                                                  outs):
+            err = lib.fused_gossip_launch(
+                w.data_ptr(), delta.data_ptr(), theta.data_ptr(),
+                c.data_ptr(), t_new.data_ptr(), c_new.data_ptr(), n,
+                delta.shape[-1], float(eta_s), float(corr), int(bf16),
+                stream)
+            _build.check(err, "fused_gossip_launch")
+        launched = len(vars_)
+    fused_gossip_nd.launches += launched
+    fused_gossip_nd.routes[which] += launched
+    return tuple(t for pair in outs for t in pair)
+
 
 def fused_gossip_nd(w, delta, theta, c, eta_s, corr_scale, *,
-                    gossip_dtype=None):
+                    gossip_dtype=None, force_route=None):
     """w: (n, n); delta/theta/c: (n, D) contiguous f32 CUDA tensors on one
-    device.  Returns fresh f32 (θ_new, c_new).  Counts its launches in
-    ``fused_gossip_nd.launches``."""
-    bf16 = gossip_torch_dtype(gossip_dtype) is not None
-    n, d = delta.shape
-    for name, x, shape in (("w", w, (n, n)), ("delta", delta, (n, d)),
-                           ("theta", theta, (n, d)), ("c", c, (n, d))):
-        _build.check_operand(name, x, shape)
-    lib = _build.library("gossip")
-    theta_new = torch.empty_like(delta)
-    c_new = torch.empty_like(delta)
-    stream = torch.cuda.current_stream(delta.device).cuda_stream
-    err = lib.fused_gossip_launch(
-        w.data_ptr(), delta.data_ptr(), theta.data_ptr(), c.data_ptr(),
-        theta_new.data_ptr(), c_new.data_ptr(), n, d, float(eta_s),
-        float(corr_scale), int(bf16), stream)
-    _build.check(err, "fused_gossip_launch")
-    fused_gossip_nd.launches += 1
-    return theta_new, c_new
+    device.  Returns fresh f32 (θ_new, c_new): :func:`fused_gossip_pair_nd`
+    of one variable."""
+    return fused_gossip_pair_nd(w, (delta, theta, c, eta_s, corr_scale),
+                                gossip_dtype=gossip_dtype,
+                                force_route=force_route)
 
 
 fused_gossip_nd.launches = 0
+fused_gossip_nd.routes = dict.fromkeys(ROUTES, 0)

@@ -8,7 +8,9 @@ whole round (``csrc/fused_round.cu``), the neighbor-gather epilogue
 (``csrc/neighbor_gossip.cu``), causal / windowed GQA attention
 (``csrc/flash_attention.cu``), the Mamba2 SSD scan (``csrc/ssd_scan.cu``),
 the fused cross-entropy (``csrc/cross_entropy.cu``) and the RG-LRU
-recurrence (``csrc/rglru_scan.cu``).  ``backend``:
+recurrence (``csrc/rglru_scan.cu``); ``fused_gossip_pair`` and
+``sparse_gossip_pair`` run the two epilogues of a round (x and y) in one
+launch.  ``backend``:
 
 * ``"auto"`` — the CUDA kernel for CUDA tensors, the plain version for CPU
   tensors;
@@ -56,7 +58,9 @@ KERNELS = {
 ROUTED = {"flash_attention": "tensor_core",
           "fused_cross_entropy": "tensor_core",
           "ssd_scan": "tensor_core",
-          "fused_round": "cluster"}
+          "fused_round": "cluster",
+          "fused_gossip": "unrolled",
+          "sparse_gossip": "stripe"}
 
 
 def launch_counts() -> dict:
@@ -116,6 +120,26 @@ def fused_gossip_round(w, delta, theta, c, eta_s, corr_scale, *,
                                     gossip_dtype=gossip_dtype)
 
 
+def fused_gossip_pair(w, x, y, *, backend: str = "auto", gossip_dtype=None):
+    """:func:`fused_gossip_round` of both variables of a round, sharing W.
+
+    x, y: (delta, theta, c, eta_s, corr_scale) with delta/theta/c (n, Dx)
+    and (n, Dy).  Returns f32 (θx', cx', θy', cy').  On the card one kernel
+    launch (the unrolled route; the tiled route launches once a variable);
+    on the CPU the plain version twice, exactly as two single calls.
+    """
+    if use_kernel(backend, x[0]):
+        return gossip_lib.fused_gossip_pair_nd(
+            _f32c(w), _f32c_var(x), _f32c_var(y), gossip_dtype=gossip_dtype)
+    return (*ref_lib.fused_gossip_ref(w, *x, gossip_dtype=gossip_dtype),
+            *ref_lib.fused_gossip_ref(w, *y, gossip_dtype=gossip_dtype))
+
+
+def _f32c_var(v):
+    """(delta, theta, c, eta_s, corr) with the tensors contiguous f32."""
+    return (*(_f32c(t) for t in v[:3]), *v[3:])
+
+
 def fused_round(w, z0, c, ef, g_mat, h_steps, step, etas, corr, mask, *,
                 backend: str = "auto", compress=None, gossip_dtype=None):
     """Whole Algorithm-1 round (K affine local SGDA steps + gossip epilogue)
@@ -156,6 +180,27 @@ def sparse_gossip_round(neighbor_idx, neighbor_w, self_w, delta, theta, c,
     return ref_lib.sparse_gossip_ref(neighbor_idx, neighbor_w, self_w, delta,
                                      theta, c, eta_s, corr_scale,
                                      gossip_dtype=gossip_dtype)
+
+
+def sparse_gossip_pair(neighbor_idx, neighbor_w, self_w, x, y, *,
+                       backend: str = "auto", gossip_dtype=None):
+    """:func:`sparse_gossip_round` of both variables of a round, sharing
+    the neighbor lists.
+
+    x, y: (delta, theta, c, eta_s, corr_scale) with delta/theta/c (n, Dx)
+    and (n, Dy).  Returns f32 (θx', cx', θy', cy').  On the card one kernel
+    launch (the stripe route; the row-block route launches once a
+    variable); on the CPU the plain version twice, exactly as two single
+    calls.
+    """
+    tab = (neighbor_idx, neighbor_w, self_w)
+    if use_kernel(backend, x[0]):
+        return ngossip_lib.sparse_gossip_pair_nd(
+            neighbor_idx.to(torch.int32).contiguous(), _f32c(neighbor_w),
+            _f32c(self_w), _f32c_var(x), _f32c_var(y),
+            gossip_dtype=gossip_dtype)
+    return (*ref_lib.sparse_gossip_ref(*tab, *x, gossip_dtype=gossip_dtype),
+            *ref_lib.sparse_gossip_ref(*tab, *y, gossip_dtype=gossip_dtype))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

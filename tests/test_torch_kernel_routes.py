@@ -284,7 +284,9 @@ def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.zero_launch_counts()
     zero = {"tensor_core": 0, "cuda_core": 0}
     want = {"flash_attention": zero, "fused_cross_entropy": zero,
-            "ssd_scan": zero, "fused_round": {"cluster": 0, "block": 0}}
+            "ssd_scan": zero, "fused_round": {"cluster": 0, "block": 0},
+            "fused_gossip": {"unrolled": 0, "tiled": 0},
+            "sparse_gossip": {"stripe": 0, "row_block": 0}}
     assert t_ops.route_counts() == want
     q = torch.zeros((1, 4, 2, 8), dtype=BF16)
     t_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
@@ -327,19 +329,22 @@ def _extern_c_params(name: str, fn: str):
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
 def test_signature_matches_the_extern_c_function(name):
-    fn, argtypes = _build.SIGNATURES[name]
-    params = _extern_c_params(name, fn)
-    assert len(params) == len(argtypes), (name, params)
-    # pointers and the stream are c_void_p; integers are c_int or c_longlong
-    for p, t in zip(params, argtypes):
-        if "*" in p:
-            assert t is _build._P, (name, p)
-        elif p.startswith("long long"):
-            assert t is _build._L, (name, p)
-        elif p.startswith("int"):
-            assert t is _build._I, (name, p)
-        elif p.startswith("float"):
-            assert t is __import__("ctypes").c_float, (name, p)
+    """Every C entry point of ``csrc/<name>.cu`` — B1's and B4's two each
+    (the first port's kernel, and the new route's pair launch)."""
+    for fn, argtypes in _build.SIGNATURES[name].items():
+        params = _extern_c_params(name, fn)
+        assert len(params) == len(argtypes), (name, fn, params)
+        # pointers and the stream are c_void_p; integers c_int or c_longlong
+        for p, t in zip(params, argtypes):
+            if "*" in p:
+                assert t is _build._P, (name, fn, p)
+            elif p.startswith("long long"):
+                assert t is _build._L, (name, fn, p)
+            elif p.startswith("int"):
+                assert t is _build._I, (name, fn, p)
+            else:
+                assert p.startswith("float"), (name, fn, p)
+                assert t is _build._F, (name, fn, p)
 
 
 def test_every_source_has_a_signature():
