@@ -32,8 +32,28 @@ Phases, each printing one JSON line:
    counts (one pair launch a round, all on the stripe route), the four
    churn families under 70 % participation (Σc ≈ 0,
    inactive clients frozen bit for bit), churn at n = 512 through all three
-   kernels on the same per-round W and mask, and rounds/s;
-7. serve — ``launch.serve.serve`` at full width in bf16 on
+   kernels on the same per-round W and mask, and rounds/s (of captured
+   chunks);
+7. graph — the engine's CUDA graphs (every chunk of the phases above and
+   below is captured and replayed) against eager chunks
+   (``capture=False``) from the same state: the four algorithms at the
+   main geometry on dense, pallas_packed and fused_round, sparse_packed
+   and dense at n = 4096, one churn family at n = 4096 under 70 %
+   participation — final states and histories bit for bit (dense within
+   TOL_GRAPH_DENSE should cuBLAS pick another algorithm under capture),
+   launches by route equal; a checkpoint saved at a ``boundary_every``
+   multiple, restored into a fresh template and run on, bit for bit an
+   uninterrupted run; rounds/s of both in turns (eager, graph, graph,
+   eager), the capture seconds and the draws' host seconds;
+8. sweep — ``run_sweep`` on the card: ``convergence`` (4 algorithms × 8
+   seeds) on dense, fused_round and pallas_packed, each point again
+   through ``run_point`` (rounds-to-ε and final ‖∇Φ‖ equal), B1 and B2
+   launched inside the captured cells on the routes ``ops.ROUTED``
+   names, kgt_minimax hitting ε at least as often as local_sgda; wall,
+   capture and run seconds, trajectory-rounds/s, ``summarize`` per
+   algorithm; ``churn`` on dense beside the committed
+   ``results/sweeps/churn.json`` (statistical, not a check);
+9. serve — ``launch.serve.serve`` at full width in bf16 on
    recurrentgemma-9b (a batched prefill of 4 prompts of 4096 tokens
    through the flash-attention and RG-LRU scan kernels) and on mamba2-1.3b
    (8 prompts of 4096 tokens through the SSD scan kernel), then 32 decode
@@ -44,13 +64,13 @@ Phases, each printing one JSON line:
    scan launch on the tensor-core route), prefill s, decode
    ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
    decode steps;
-8. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
+10. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
    ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4
    clients, through the SSD scan (48 launches a call) and the fused
    cross-entropy (1), both on the tensor-core route; group losses against
    the plain route, finiteness, seconds and tokens/s a client batch, peak
    memory, a profile;
-9. times — device times of each kernel, its plain version and, where one
+11. times — device times of each kernel, its plain version and, where one
    exists, a PyTorch library call, beside the bounds (the two-route
    kernels on both routes; B4's L2 bytes by design); the gossip pairs at
    the paths' shapes, the dense epilogue at D ≈ 1e8 and the neighbor-
@@ -58,7 +78,8 @@ Phases, each printing one JSON line:
    and at S = 32768, and rounds/s per mixing_impl.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
-engine rounds per lowering (device busy share, top kernels).
+engine rounds per lowering, eager and captured (device busy share, top
+kernels).
 
 Then the ``nvidia-smi`` line, one ``{"kernels": [...]}`` line, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed check raises, so
@@ -78,8 +99,8 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "serve",
-          "evaluate", "times")
+PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
+          "sweep", "serve", "evaluate", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -102,6 +123,10 @@ SPARSE_CHECK_NS = (1, 8, 9, 64, 1024)
 CHURN_DENSE_N = 512      # the dense samplers' limit (DENSE_MATERIALIZATION_LIMIT)
 CHURN_DENSE_ROUNDS = 5
 PARTICIPATION = 0.7
+# the graph phase: captured chunks against eager ones (chunks of 10 rounds,
+# metrics every 5), and a checkpoint every 10 rounds of 30
+GRAPH_ROUNDS, GRAPH_CHUNK, GRAPH_LOG = 50, 10, 5
+GRAPH_CKPT_ROUNDS, GRAPH_CKPT_EVERY = 30, 10
 
 # tolerances (max |kernel − plain|); see PERF.md for the reasons
 TOL_GOSSIP = 1e-5        # θ' for O(1) operands; c' gets |s|× this
@@ -110,6 +135,9 @@ TOL_ROUND_C = 4e-6       # c' (4× as in tests/test_fused_round.py)
 TOL_SPARSE = 1e-6        # θ', c' × (1 + max|plain|), f32 and bf16 alike
 TOL_STATE = 1e-4         # R-round states vs dense, × (1 + max|dense|)
 TOL_SIGMA_C = 1e-5       # max_j |mean_i c_ij| × (1 + max|c|): Σ_i c_i = 0
+# dense under capture, × (1 + max|eager|), used only if it is not bit for
+# bit: cuBLAS may pick another GEMM algorithm on the capture stream
+TOL_GRAPH_DENSE = 1e-6
 TOL_ATTN_F32 = 2e-5      # attention, f32 operands, × (1 + max|plain|)
 TOL_ATTN_BF16 = 1e-2     # bf16 output: one bf16 ulp, × (1 + max|plain|)
 TOL_SCAN = 1e-6          # RG-LRU scan, × (1 + max|plain|) (same step order)
@@ -1100,10 +1128,12 @@ def main_cfg(algo, impl, n=N, k=K, topology="ring"):
 
 def prepare(problem, client_batch, batches, algo, impl, dev, *,
             log_every=10, n=N, k=K, topology="ring", w=None, w_fn=None,
-            mask_fn=None):
+            mask_fn=None, capture=None):
     """init_state and the engine's chunk builder: (state, build).  ``w``
     is the static mixing matrix (default: the topology's); ``w_fn`` /
-    ``mask_fn`` draw a per-round W / participation mask."""
+    ``mask_fn`` draw a per-round W / participation mask.  The builder
+    captures each chunk as a CUDA graph; ``capture=False`` runs it
+    eagerly."""
     import torch
 
     from repro_torch import engine as engine_lib
@@ -1123,8 +1153,24 @@ def prepare(problem, client_batch, batches, algo, impl, dev, *,
                            participation=mask_fn is not None, device=dev)
     build = engine_lib.make_chunk_builder(
         step, sampler, engine_lib.quadratic_metrics_fn(problem),
-        log_every=log_every)
+        log_every=log_every, capture=capture)
     return state, build
+
+
+def steady_rounds_per_s(state, build, rounds: int) -> float:
+    """rounds/s of ``engine.run`` over one chunk of ``rounds``, host clock
+    to a synchronize, after a first run with the same builder (kernels
+    built, the chunk captured)."""
+    import torch
+
+    from repro_torch import engine as engine_lib
+
+    engine_lib.run(state, build, total_rounds=rounds, chunk_rounds=rounds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine_lib.run(state, build, total_rounds=rounds, chunk_rounds=rounds)
+    torch.cuda.synchronize()
+    return rounds / (time.perf_counter() - t0)
 
 
 def drive(problem, client_batch, batches, algo, impl, dev, rounds, **kw):
@@ -1380,23 +1426,17 @@ def phase_scale(dev) -> dict:
         check_finite(state, f"churn {family}")
     out["churn"] = churn
 
-    # 5. rounds/s, host clock around one engine chunk after a warm-up
+    # 5. rounds/s, host clock around one captured engine chunk
     rps = {}
     for impl, w in (("sparse_packed", None), ("dense", w_dense)):
-        drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 2,
-              w=w, **common)
         state, build = prepare(problem, client_batch, batches, "kgt_minimax",
                                impl, dev, w=w, **{**common,
                                                   "log_every": SCALE_ROUNDS})
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine_lib.run(state, build, total_rounds=SCALE_ROUNDS,
-                       chunk_rounds=SCALE_ROUNDS)
-        torch.cuda.synchronize()
-        rps[impl] = SCALE_ROUNDS / (time.perf_counter() - t0)
+        rps[impl] = steady_rounds_per_s(state, build, SCALE_ROUNDS)
     emit({"phase": "scale", "n": n, "rounds_per_s": rps,
           "algorithm": "kgt_minimax", "rounds": SCALE_ROUNDS,
-          "note": "host clock around engine.run, one chunk, metrics on "
+          "note": "host clock around engine.run, one chunk replayed as a "
+                  "CUDA graph after a first run captured it, metrics on "
                   "rounds 0 and 19"})
     out["rounds_per_s"] = rps
     del problem, client_batch, batches, w_dense
@@ -1457,7 +1497,300 @@ def phase_scale(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: serving recurrentgemma-9b and mamba2-1.3b at full width
+# phase 7: captured chunks against eager ones, checkpoint resume
+# ---------------------------------------------------------------------------
+
+def strip_stamps(history) -> list:
+    """History records without their clock stamps."""
+    return [{k: v for k, v in rec.items()
+             if k not in ("wall_s", "build_s", "capture_s", "run_s")}
+            for rec in history]
+
+
+def graph_case(problem, client_batch, batches, algo, impl, dev, *, rounds,
+               chunk, what, smi, **kw) -> dict:
+    """One case run eagerly (``capture=False``) and captured, from the same
+    state: final states and histories bit for bit (``dense``, whose cuBLAS
+    GEMMs may take another algorithm under capture, within
+    TOL_GRAPH_DENSE × (1 + max|eager|) if not), launches by route equal."""
+    import torch
+
+    from repro_torch import engine as engine_lib
+
+    runs = {}
+    for capture in (False, True):
+        state, build = prepare(problem, client_batch, batches, algo, impl,
+                               dev, log_every=GRAPH_LOG, capture=capture, **kw)
+        zero_launch_counts()
+        final, hist = engine_lib.run(state, build, total_rounds=rounds,
+                                     chunk_rounds=chunk)
+        torch.cuda.synchronize()
+        runs[capture] = (final, strip_stamps(hist), launch_counts(),
+                         route_counts(), dict(build.stats))
+    (s0, h0, l0, r0, _), (s1, h1, l1, r1, stats) = runs[False], runs[True]
+    if (l0, r0) != (l1, r1):
+        fail(f"graph {what}: launches {l1} by route {r1}, eager {l0} {r0}")
+    check_finite(s1, f"graph {what}")
+    exact = (s0.round == s1.round and h0 == h1
+             and all(bitwise_equal(getattr(s0, k), getattr(s1, k))
+                     for k in ("x", "y", "cx", "cy")))
+    rel = max([rel_err(getattr(s1, k), getattr(s0, k))
+               for k in ("x", "y", "cx", "cy")]
+              + [abs(a[m] - b[m]) / (1 + abs(b[m]))
+                 for a, b in zip(h1, h0) for m in a if m != "round"])
+    if not exact and (impl != "dense" or len(h0) != len(h1)
+                      or rel > TOL_GRAPH_DENSE):
+        fail(f"graph {what}: captured differs from eager (rel {rel})")
+    out = {"phase": "graph", "case": what, "algorithm": algo,
+           "mixing_impl": impl, "rounds": rounds, "chunk_rounds": chunk,
+           "bit_for_bit": exact, "max_rel_err": rel,
+           "launches": l1, "launches_by_route": r1,
+           "captures": stats["captures"], "replays": stats["replays"],
+           "capture_s": stats["capture_s"], "draw_s": stats["draw_s"],
+           "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
+def graph_rates(problem, client_batch, batches, impl, dev, rounds, **kw):
+    """rounds/s of one chunk of ``rounds`` (kgt_minimax), eager and
+    captured in turns (eager, graph, graph, eager), each builder run once
+    first; the capture seconds, and the draws' host seconds a round."""
+    import torch
+
+    from repro_torch import engine as engine_lib
+
+    builders = {}
+    for capture in (False, True):
+        state, build = prepare(problem, client_batch, batches, "kgt_minimax",
+                               impl, dev, log_every=rounds, capture=capture,
+                               **kw)
+        engine_lib.run(state, build, total_rounds=rounds, chunk_rounds=rounds)
+        builders[capture] = (state, build)
+    capture_s = builders[True][1].stats["capture_s"]
+    rates = {False: [], True: []}
+    draw0 = builders[True][1].stats["draw_s"]
+    for capture in (False, True, True, False):
+        state, build = builders[capture]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine_lib.run(state, build, total_rounds=rounds, chunk_rounds=rounds)
+        torch.cuda.synchronize()
+        rates[capture].append(rounds / (time.perf_counter() - t0))
+    draw_s = (builders[True][1].stats["draw_s"] - draw0) / (2 * rounds)
+    return {"eager": rates[False], "graph": rates[True],
+            "capture_s": capture_s, "draw_host_s_per_round": draw_s}
+
+
+def checkpoint_case(problem, client_batch, batches, impl, dev, what, smi,
+                    **kw) -> dict:
+    """Run GRAPH_CKPT_ROUNDS rounds with checkpoints every
+    GRAPH_CKPT_EVERY (``boundary_every``), restore the first into a fresh
+    template and run on, in chunks that do not align: the final state must
+    be the uninterrupted one bit for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.core import tree as tree_lib
+
+    state, build = prepare(problem, client_batch, batches, "kgt_minimax",
+                           impl, dev, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        hook = engine_lib.checkpoint_hook(d, every=GRAPH_CKPT_EVERY)
+        full, _ = engine_lib.run(state, build,
+                                 total_rounds=GRAPH_CKPT_ROUNDS,
+                                 chunk_rounds=4, hooks=[hook],
+                                 boundary_every=GRAPH_CKPT_EVERY)
+        names = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+        path = os.path.join(d, f"round_{GRAPH_CKPT_EVERY:06d}.npz")
+        template = tree_lib.tree_map(
+            lambda x: torch.zeros_like(x) if isinstance(x, torch.Tensor)
+            else 0, state)
+        restored = ckpt_lib.restore(path, template)
+    if restored.round != GRAPH_CKPT_EVERY:
+        fail(f"checkpoint {what}: restored round {restored.round}")
+    resumed, _ = engine_lib.run(restored, build,
+                                total_rounds=GRAPH_CKPT_ROUNDS,
+                                chunk_rounds=7)
+    exact = resumed.round == full.round and all(
+        bitwise_equal(getattr(resumed, k), getattr(full, k))
+        for k in ("x", "y", "cx", "cy"))
+    out = {"phase": "graph", "checkpoint": what, "mixing_impl": impl,
+           "files": names, "resumed_bit_for_bit": exact,
+           "captures": build.stats["captures"], "nvidia_smi": smi}
+    emit(out)
+    if not exact:
+        fail(f"checkpoint {what}: the resumed run differs")
+    return out
+
+
+def phase_graph(dev, smi) -> dict:
+    import torch
+
+    from repro_torch.core import sparse_topology as sp_lib
+    from repro_torch.core import stochastic_topology as st_lib
+
+    out = {"cases": [], "rates": {}}
+    problem, client_batch, batches = main_setup(dev)
+    for algo in ALGOS:
+        for impl in ("dense", "pallas_packed", "fused_round"):
+            out["cases"].append(graph_case(
+                problem, client_batch, batches, algo, impl, dev,
+                rounds=GRAPH_ROUNDS, chunk=GRAPH_CHUNK,
+                what=f"n={N} {algo}/{impl}", smi=smi))
+    for impl in ("dense", "pallas_packed", "fused_round"):
+        out["rates"][f"n={N} {impl}"] = graph_rates(
+            problem, client_batch, batches, impl, dev, ROUNDS)
+    for impl, kw in (("fused_round", {}),
+                     ("pallas_packed", dict(
+                         w_fn=st_lib.make_w_sampler("erdos_renyi", N, 5,
+                                                    device=dev),
+                         mask_fn=st_lib.make_participation_sampler(
+                             N, 5, PARTICIPATION, device=dev)))):
+        checkpoint_case(problem, client_batch, batches, impl, dev,
+                        f"n={N} {impl}{' churn' if kw else ''}", smi, **kw)
+    del problem, client_batch, batches
+
+    n = SCALE_N
+    problem, client_batch, batches = main_setup(dev, n=n)
+    support = sp_lib.sparse_exp(n)
+    w_dense = sp_lib.densify(support.to(dev))
+    common = dict(n=n, topology="exp")
+    for impl, w in (("sparse_packed", None), ("dense", w_dense)):
+        out["cases"].append(graph_case(
+            problem, client_batch, batches, "kgt_minimax", impl, dev,
+            rounds=SCALE_ROUNDS, chunk=GRAPH_CHUNK, w=w,
+            what=f"n={n} exp {impl}", smi=smi, **common))
+        out["rates"][f"n={n} {impl}"] = graph_rates(
+            problem, client_batch, batches, impl, dev, SCALE_ROUNDS, w=w,
+            **common)
+    del w_dense
+    family = "erdos_renyi"
+    w_fn = sp_lib.make_sparse_w_sampler(family, support, seed=30,
+                                        edge_prob=0.5, device=dev)
+    mask_fn = st_lib.make_participation_sampler(n, 30, PARTICIPATION,
+                                                device=dev)
+    out["cases"].append(graph_case(
+        problem, client_batch, batches, "kgt_minimax", "sparse_packed", dev,
+        rounds=CHURN_ROUNDS, chunk=5, w_fn=w_fn, mask_fn=mask_fn,
+        what=f"n={n} churn {family} p={PARTICIPATION}", smi=smi,
+        **common))
+    for what, r in out["rates"].items():
+        emit({"phase": "graph", "rounds_per_s": what, **r,
+              "nvidia_smi": smi,
+              "note": "kgt_minimax, one chunk, host clock to a synchronize, "
+                      "in turns eager, graph, graph, eager"})
+    del problem, client_batch, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the sweep driver on the card
+# ---------------------------------------------------------------------------
+
+def sweep_launch_check(impl, launches, routes) -> None:
+    """A convergence sweep on ``impl``: the kernel of its lowering launched
+    (replays of captured cells), every launch on the route ``ops.ROUTED``
+    names, and no other kernel."""
+    want = {"fused_round": "fused_round", "pallas_packed": "fused_gossip"}
+    kernel = want.get(impl)
+    for name, k in launches.items():
+        if (name == kernel) != (k > 0):
+            fail(f"sweep {impl}: {name} launched {k} times")
+    if kernel is not None:
+        check_routes(routes, launches, f"sweep {impl}")
+
+
+def phase_sweep(dev, smi) -> dict:
+    import dataclasses
+    import tempfile
+
+    from repro_torch.sweep import defs
+    from repro_torch.sweep import grid as grid_lib
+    from repro_torch.sweep import run as sweep_run
+
+    out = {}
+    base = defs.SWEEPS["convergence"]
+    for impl in ("dense", "fused_round", "pallas_packed"):
+        spec = dataclasses.replace(base, base={**base.base,
+                                               "mixing_impl": impl})
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            res = sweep_run.run_sweep(spec, device=dev, store_dir=d)
+        wall = time.perf_counter() - t0
+        launches, routes = launch_counts(), route_counts()
+        sweep_launch_check(impl, launches, routes)
+        # every point again, sequentially
+        t1 = time.perf_counter()
+        mismatched = []
+        for cell in spec.cells():
+            for p in cell.points:
+                hit, final, _, _ = sweep_run.run_point(p, device=dev)
+                rec = res["points"][grid_lib.point_key(p)]
+                if (hit, final) != (rec["rounds_to_eps"], rec["final_grad"]):
+                    mismatched.append([grid_lib.point_key(p), hit, final,
+                                       rec["rounds_to_eps"],
+                                       rec["final_grad"]])
+        point_wall = time.perf_counter() - t1
+        summary = {a: sweep_run.summarize(sweep_run.points_where(
+            res, algorithm=a)) for a in ALGOS}
+        cells = {key: {k: c[k] for k in ("wall_s", "build_s", "capture_s",
+                                         "setup_s", "run_s",
+                                         "trajectory_rounds")}
+                 for key, c in res["cells"].items()}
+        traj_rounds = sum(c["trajectory_rounds"] for c in cells.values())
+        run_s = sum(c["run_s"] for c in cells.values())
+        out[impl] = {"summary": summary, "wall_s": wall}
+        emit({"phase": "sweep", "sweep": "convergence", "mixing_impl": impl,
+              "points": len(res["points"]), "wall_s": wall,
+              "capture_s": sum(c["capture_s"] for c in cells.values()),
+              "run_s": run_s, "trajectory_rounds": traj_rounds,
+              "trajectory_rounds_per_s": traj_rounds / run_s,
+              "cells": cells, "summary": summary,
+              "run_point_wall_s": point_wall,
+              "run_cell_vs_run_point_mismatches": mismatched,
+              "launches": launches, "launches_by_route": routes,
+              "nvidia_smi": smi})
+        if mismatched:
+            fail(f"sweep {impl}: run_cell and run_point differ at "
+                 f"{len(mismatched)} points")
+        if not (summary["kgt_minimax"]["hit_rate"]
+                >= summary["local_sgda"]["hit_rate"]):
+            fail(f"sweep {impl}: kgt_minimax hits ε less often than "
+                 f"local_sgda ({summary})")
+
+    # churn on dense, n = 8, beside the reference's committed results
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        res = sweep_run.run_sweep(defs.SWEEPS["churn"], device=dev,
+                                  store_dir=d)
+    wall = time.perf_counter() - t0
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "results", "sweeps", "churn.json")) as f:
+        ref = json.load(f)
+    by_family = {}
+    for family in ("static", "erdos_renyi", "pairwise", "dropout"):
+        by_family[family] = {
+            "port": sweep_run.summarize(sweep_run.points_where(
+                res, topology_family=family)),
+            "reference": sweep_run.summarize(sweep_run.points_where(
+                ref, topology_family=family))}
+    emit({"phase": "sweep", "sweep": "churn", "mixing_impl": "dense",
+          "points": len(res["points"]), "wall_s": wall,
+          "by_family": by_family, "nvidia_smi": smi,
+          "note": "the port's data and draws are its own: a statistical "
+                  "comparison, not a check"})
+    out["churn"] = by_family
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: serving recurrentgemma-9b and mamba2-1.3b at full width
 # ---------------------------------------------------------------------------
 
 def rel_err(got, want) -> float:
@@ -1718,7 +2051,7 @@ def phase_serve(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: evaluating mamba2-1.3b at full width
+# phase 10: evaluating mamba2-1.3b at full width
 # ---------------------------------------------------------------------------
 
 def phase_evaluate(dev) -> dict:
@@ -2034,7 +2367,7 @@ def time_model_kernels(gen, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: times
+# phase 11: times
 # ---------------------------------------------------------------------------
 
 def phase_times(dev, gen) -> dict:
@@ -2128,18 +2461,13 @@ def phase_times(dev, gen) -> dict:
     problem, client_batch, batches = main_setup(dev)
     rps = {}
     for impl in MIXING_IMPLS:
-        drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 5)
         state, build = prepare(problem, client_batch, batches, "kgt_minimax",
                                impl, dev, log_every=ROUNDS)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        engine_lib.run(state, build, total_rounds=ROUNDS,
-                       chunk_rounds=ROUNDS)
-        torch.cuda.synchronize()
-        rps[impl] = ROUNDS / (time.perf_counter() - t0)
+        rps[impl] = steady_rounds_per_s(state, build, ROUNDS)
     emit({"phase": "times", "rounds_per_s": rps, "algorithm": "kgt_minimax",
           "rounds": ROUNDS, "note": "host clock around engine.run, "
-          "one chunk, metrics on rounds 0 and 49"})
+          "one chunk replayed as a CUDA graph after a first run captured "
+          "it, metrics on rounds 0 and 49"})
     return out
 
 
@@ -2233,9 +2561,10 @@ def time_sparse_gossip(gen, dev) -> dict:
 
 
 def phase_profile(dev) -> None:
-    """torch.profiler over 10 engine rounds per lowering, at the main
-    path's shape and at the scale path's (n = 4096, exp): device busy time
-    against the wall clock, and the kernels that take it."""
+    """torch.profiler over 10 engine rounds per lowering, eager and
+    replayed as a CUDA graph, at the main path's shape and at the scale
+    path's (n = 4096, exp): device busy time against the wall clock, and
+    the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2252,14 +2581,15 @@ def phase_profile(dev) -> None:
         if cell == "scale":
             # the same static W for dense as sparse_packed builds
             kw = dict(kw, w=sp_lib.densify(sp_lib.sparse_exp(SCALE_N).to(dev)))
-        for impl in impls:
+        for impl, capture in ((i, c) for i in impls for c in (False, True)):
             w_kw = kw if impl == "dense" else {
                 key: v for key, v in kw.items() if key != "w"}
-            drive(problem, client_batch, batches, "kgt_minimax", impl, dev, 3,
-                  **w_kw)
             state, build = prepare(problem, client_batch, batches,
                                    "kgt_minimax", impl, dev, log_every=rounds,
-                                   **w_kw)
+                                   capture=capture, **w_kw)
+            # a first run builds the kernels and captures the chunk
+            engine_lib.run(state, build, total_rounds=rounds,
+                           chunk_rounds=rounds)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2277,7 +2607,8 @@ def phase_profile(dev) -> None:
             top = sorted(events, key=lambda e: e.self_device_time_total,
                          reverse=True)[:6]
             emit({"phase": "profile", "cell": cell, "mixing_impl": impl,
-                  "n": kw.get("n", N), "rounds": rounds,
+                  "cuda_graph": capture, "n": kw.get("n", N),
+                  "rounds": rounds,
                   "wall_us_per_round": wall_us / rounds,
                   "device_busy_us_per_round": busy_us / rounds,
                   "device_busy_share": busy_us / wall_us,
@@ -2356,6 +2687,10 @@ def main(argv=None) -> int:
         launches["sparse_gossip"] = scale["sparse_gossip_launches"]
         launches_by_route["sparse_gossip"] = \
             scale["launches_by_route"]["sparse_gossip"]
+    if "graph" in phases:
+        phase_graph(dev, smi)
+    if "sweep" in phases:
+        phase_sweep(dev, smi)
     launches_eval = dict.fromkeys(names)
     eval_routes = {}
     if "serve" in phases:
@@ -2431,7 +2766,10 @@ def main(argv=None) -> int:
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "
                            "(n = 8; fused_gossip one pair launch a round "
-                           "of the 2 tracking algorithms); sparse_gossip: "
+                           "of the 2 tracking algorithms; like "
+                           "sparse_gossip's, replayed launches of captured "
+                           "chunks, each replay adding what its capture "
+                           "recorded); sparse_gossip: "
                            "the scale phase (n = 4096, 20 rounds × 4 "
                            "algorithms, one pair launch a round of the 2 "
                            "tracking ones); "

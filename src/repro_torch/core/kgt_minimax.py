@@ -239,6 +239,11 @@ def make_round_step(
     packed buffer with ``sparse_topology.sparse_mix``.
 
     ``byzantine`` (ROADMAP A9) is not ported yet.
+
+    The returned step's ``uses_round`` says whether it reads
+    ``state.round`` beyond advancing it (``lr_scale``, ``topology_cycle``):
+    a captured engine chunk bakes that value in and is captured again for
+    every chunk start.
     """
     if traced_etas and lr_scale is not None:
         raise ValueError(
@@ -501,6 +506,7 @@ def make_round_step(
                           e["corr_y"] if track else None,
                           w_t=w_t, mask=mask)
 
+        round_step.uses_round = bool(cfg.topology_cycle)
         return round_step
 
     eta_sx = cfg.eta_sx if track else 1.0
@@ -517,6 +523,9 @@ def make_round_step(
         return _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
                       corr_x, corr_y, w_t=w_t, mask=mask)
 
+    # the engine's CUDA graph bakes the host values a round reads; only the
+    # lr schedule and the topology cycle read the round index
+    round_step.uses_round = lr_scale is not None or bool(cfg.topology_cycle)
     return round_step
 
 

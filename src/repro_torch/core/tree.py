@@ -2,11 +2,14 @@
 
 State variables are tensors or nested dicts/lists/tuples of tensors with a
 leading clients dim.  Leaves are ordered as ``jax.tree.leaves`` orders them
-(dict keys sorted, sequences in order), so packed layouts match the
-reference column for column.
+(dict keys sorted, sequences in order, dataclass fields in declaration
+order, as ``jax.tree_util.register_dataclass`` does), so packed layouts and
+checkpoints match the reference leaf for leaf.  Anything else is a leaf:
+a tensor, or a host value such as ``KGTState.round``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Tuple
 
 import torch
@@ -24,6 +27,10 @@ def flatten(tree: Any) -> Tuple[List[torch.Tensor], Any]:
             return ("dict", keys, [walk(node[k]) for k in keys])
         if isinstance(node, (list, tuple)):
             return (type(node).__name__, None, [walk(v) for v in node])
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            names = tuple(f.name for f in dataclasses.fields(node))
+            return (type(node), names,
+                    [walk(getattr(node, k)) for k in names])
         leaves.append(node)
         return "leaf"
 
@@ -42,6 +49,8 @@ def unflatten(treedef: Any, leaves) -> Any:
         built = [build(c) for c in children]
         if kind == "dict":
             return dict(zip(keys, built))
+        if isinstance(kind, type):
+            return kind(**dict(zip(keys, built)))
         return tuple(built) if kind == "tuple" else list(built)
 
     return build(treedef)

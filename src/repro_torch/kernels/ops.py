@@ -27,6 +27,8 @@ passes; under autograd the model runs the plain versions).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.kernels import cross_entropy as ce_lib
@@ -79,6 +81,46 @@ def zero_launch_counts() -> None:
         fn.launches = 0
     for name in ROUTED:
         KERNELS[name].routes = dict.fromkeys(KERNELS[name].routes, 0)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Adds ``delta`` (as :func:`uncounted` yields it) to the counts: what
+    a CUDA graph replay launches, the launches its capture recorded."""
+    for name, (launches, routes) in delta.items():
+        fn = KERNELS[name]
+        fn.launches += launches
+        for route, k in routes.items():
+            fn.routes[route] += k
+
+
+def _count_snapshot() -> dict:
+    return {name: (fn.launches, dict(getattr(fn, "routes", {})))
+            for name, fn in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block do not count: on exit every count is what
+    it was on entry.  Yields a dict that then holds what they would have
+    added, ``{kernel: (launches, {route: launches})}``, for
+    :func:`add_launch_counts` (a CUDA graph's warm-up and capture run the
+    wrappers, but only a replay launches)."""
+    before = _count_snapshot()
+    delta: dict = {}
+    try:
+        yield delta
+    finally:
+        after = _count_snapshot()
+        for name, (launches, routes) in after.items():
+            b_launches, b_routes = before[name]
+            if launches != b_launches:
+                delta[name] = (launches - b_launches,
+                               {r: k - b_routes.get(r, 0)
+                                for r, k in routes.items()})
+            fn = KERNELS[name]
+            fn.launches = b_launches
+            if hasattr(fn, "routes"):
+                fn.routes = dict(b_routes)
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:

@@ -42,7 +42,10 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.kernels.ssd_scan",
                "repro_torch.kernels.cross_entropy",
                "repro_torch.data.synthetic", "repro_torch.evaluation.metrics",
-               "repro_torch.launch.evaluate")
+               "repro_torch.launch.evaluate",
+               "repro_torch.checkpoint.checkpoint", "repro_torch.obs.ledger",
+               "repro_torch.obs.events", "repro_torch.sweep.run",
+               "repro_torch.sweep.defs", "repro_torch.sweep.batched")
 
 
 def _env():
