@@ -77,6 +77,32 @@ Phases, each printing one JSON line:
    gather epilogue at D = 16384, the model kernels at the served shapes
    and at S = 32768, and rounds/s per mixing_impl.
 
+12. compress — error-feedback compression at the main geometry on
+   pallas_packed and fused_round, bf16 and int8, kgt_minimax and gt_gda,
+   50 rounds: every transmit of an eager run checked on the card's own v
+   (q == Q(v), q + e' == v bit for bit, inactive rows keep e; on
+   fused_round through the kernel's wire, v against the plain K steps),
+   the same runs through captured chunks bit for bit, with B1's and B2's
+   launches by route and B2's compressed launches by route, Σc = 0; int8
+   against the exact trajectory over 100 rounds within 1e-3; the freeze
+   of θ, c and the residual under 70 % participation; a checkpoint resume
+   of a compressed state; rounds/s exact, bf16 and int8, eager and
+   captured in turns;
+13. adversary — one round per attack and lowering at n = 8 (dense,
+   pallas_packed, coord_median, trimmed_mean): an honest adversary is the
+   plain step bit for bit, Σc = 0 under attack on dense and pallas_packed,
+   every robust aggregation against ``robust_agg_ref``; captured chunks
+   bit for bit eager under attack (robust and pallas_packed);
+   sparse_trimmed_mean and sparse_coord_median at n = 4096 on the
+   exponential graph, 20 rounds eager and captured; rounds/s; then the
+   ``adversary`` sweep as defined through ``run_sweep``, every point again
+   through ``run_point``, hit rates and rounds-to-ε beside the committed
+   ``results/sweeps/adversary.json`` (statistical, not a check);
+14. obs — ``obs.health_gauges`` on a compressed state and one
+   ``obs.Profiler`` window over 10 captured rounds (a non-empty trace).
+
+Phases 12–14 run after the sweep phase, before serve.
+
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
 kernels).
@@ -90,6 +116,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -100,7 +127,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
-          "sweep", "serve", "evaluate", "times")
+          "sweep", "compress", "adversary", "obs", "serve", "evaluate",
+          "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -127,6 +155,15 @@ PARTICIPATION = 0.7
 # metrics every 5), and a checkpoint every 10 rounds of 30
 GRAPH_ROUNDS, GRAPH_CHUNK, GRAPH_LOG = 50, 10, 5
 GRAPH_CKPT_ROUNDS, GRAPH_CKPT_EVERY = 30, 10
+# compressed gossip: the quantizers on the two lowerings that take them,
+# and the rounds of int8 against the exact trajectory
+COMPRESS_METHODS = ("bf16", "int8")
+COMPRESS_IMPLS = ("pallas_packed", "fused_round")
+COMPRESS_DIVERGENCE_ROUNDS = 100
+# the adversary: attackers at n = 8 and the attack scale (the adversary
+# sweep's), and the lowerings of the one-round checks
+ADV_BYZANTINE, ADV_SCALE = 2, 3.0
+ADV_IMPLS = ("dense", "pallas_packed", "coord_median", "trimmed_mean")
 
 # tolerances (max |kernel − plain|); see PERF.md for the reasons
 TOL_GOSSIP = 1e-5        # θ' for O(1) operands; c' gets |s|× this
@@ -135,6 +172,10 @@ TOL_ROUND_C = 4e-6       # c' (4× as in tests/test_fused_round.py)
 TOL_SPARSE = 1e-6        # θ', c' × (1 + max|plain|), f32 and bf16 alike
 TOL_STATE = 1e-4         # R-round states vs dense, × (1 + max|dense|)
 TOL_SIGMA_C = 1e-5       # max_j |mean_i c_ij| × (1 + max|c|): Σ_i c_i = 0
+# int8 against exact after 100 rounds, max|Δθ| / max|θ| (the JAX package's
+# test_compressed_vs_exact_divergence_bounded)
+TOL_COMPRESS_DIVERGENCE = 1e-3
+TOL_ROBUST = 1e-6        # a robust aggregation vs its oracle, × (1 + max)
 # dense under capture, × (1 + max|eager|), used only if it is not bit for
 # bit: cuBLAS may pick another GEMM algorithm on the capture stream
 TOL_GRAPH_DENSE = 1e-6
@@ -1116,41 +1157,44 @@ def main_setup(dev, *, dx=DX, dy=DY, n=N, k=K, sigma=SIGMA, seed=0):
     return problem, client_batch, batches
 
 
-def main_cfg(algo, impl, n=N, k=K, topology="ring"):
+def main_cfg(algo, impl, n=N, k=K, topology="ring", **cfg_kw):
     from repro_torch.configs import AlgorithmConfig
 
     return AlgorithmConfig(
         algorithm=algo, num_clients=n, local_steps=k, eta_cx=0.01,
         eta_cy=0.05, eta_sx=0.5 if algo == "kgt_minimax" else 1.0,
         eta_sy=0.5 if algo == "kgt_minimax" else 1.0, topology=topology,
-        mixing_impl=impl)
+        mixing_impl=impl, **cfg_kw)
 
 
 def prepare(problem, client_batch, batches, algo, impl, dev, *,
             log_every=10, n=N, k=K, topology="ring", w=None, w_fn=None,
-            mask_fn=None, capture=None):
+            mask_fn=None, attack_fn=None, capture=None, cfg_kw=None):
     """init_state and the engine's chunk builder: (state, build).  ``w``
     is the static mixing matrix (default: the topology's); ``w_fn`` /
-    ``mask_fn`` draw a per-round W / participation mask.  The builder
-    captures each chunk as a CUDA graph; ``capture=False`` runs it
-    eagerly."""
+    ``mask_fn`` / ``attack_fn`` draw a per-round W / participation mask /
+    Byzantine adversary; ``cfg_kw`` sets further config fields
+    (``gossip_compress``).  The builder captures each chunk as a CUDA
+    graph; ``capture=False`` runs it eagerly."""
     import torch
 
     from repro_torch import engine as engine_lib
     from repro_torch.core import init_state, make_round_step
 
-    cfg = main_cfg(algo, impl, n, k, topology)
+    cfg = main_cfg(algo, impl, n, k, topology, **(cfg_kw or {}))
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     state = init_state(problem, cfg, gen, init_batch=client_batch)
     sampler = engine_lib.make_fixed_batch_sampler(
         batches, local_steps=k, num_clients=n, noise_dim=problem.noise_dim,
         seed=0, device=dev)
-    if w_fn is not None or mask_fn is not None:
+    if w_fn is not None or mask_fn is not None or attack_fn is not None:
         sampler = engine_lib.with_topology(sampler, w_fn=w_fn,
-                                           mask_fn=mask_fn)
+                                           mask_fn=mask_fn,
+                                           attack_fn=attack_fn)
     step = make_round_step(problem, cfg, w, traced_w=w_fn is not None,
-                           participation=mask_fn is not None, device=dev)
+                           participation=mask_fn is not None,
+                           byzantine=attack_fn is not None, device=dev)
     build = engine_lib.make_chunk_builder(
         step, sampler, engine_lib.quadratic_metrics_fn(problem),
         log_every=log_every, capture=capture)
@@ -1264,6 +1308,16 @@ def route_counts() -> dict:
     return ops.route_counts()
 
 
+def compressed_counts() -> dict:
+    """B2's launches with compression, by route
+    (``ops.compressed_route_counts``), under the key
+    ``fused_round_compressed``."""
+    from repro_torch.kernels import ops
+
+    return {"fused_round_compressed":
+            ops.compressed_route_counts()["fused_round"]}
+
+
 def zero_launch_counts() -> None:
     """Every launch count and every count by route to 0."""
     from repro_torch.kernels import ops
@@ -1305,9 +1359,17 @@ def sigma_c(state) -> float:
                / (1.0 + float(c.abs().max())) for c in (state.cx, state.cy))
 
 
+def state_fields(state) -> tuple:
+    """The state's tensor fields: x, y, cx, cy, and the EF residuals under
+    compression."""
+    return ("x", "y", "cx", "cy") + tuple(
+        f for f in ("ef_x", "ef_y") if getattr(state, f, None) is not None)
+
+
 def freeze_hook(mask_fn, state0, frozen: list, inactive: list):
     """Engine hook (one round a chunk): whether the inactive clients of the
-    round just run kept x, y, cx, cy bit for bit, and how many there were."""
+    round just run kept x, y, cx, cy (and the EF residuals) bit for bit,
+    and how many there were."""
     import torch
 
     prev = {"state": state0}
@@ -1317,7 +1379,7 @@ def freeze_hook(mask_fn, state0, frozen: list, inactive: list):
         old = prev["state"]
         frozen.extend(torch.equal(getattr(state, name)[keep],
                                   getattr(old, name)[keep])
-                      for name in ("x", "y", "cx", "cy"))
+                      for name in state_fields(state))
         inactive.append(int(keep.sum()))
         prev["state"] = state
 
@@ -1508,7 +1570,7 @@ def strip_stamps(history) -> list:
 
 
 def graph_case(problem, client_batch, batches, algo, impl, dev, *, rounds,
-               chunk, what, smi, **kw) -> dict:
+               chunk, what, smi, phase="graph", **kw) -> dict:
     """One case run eagerly (``capture=False``) and captured, from the same
     state: final states and histories bit for bit (``dense``, whose cuBLAS
     GEMMs may take another algorithm under capture, within
@@ -1526,14 +1588,15 @@ def graph_case(problem, client_batch, batches, algo, impl, dev, *, rounds,
                                      chunk_rounds=chunk)
         torch.cuda.synchronize()
         runs[capture] = (final, strip_stamps(hist), launch_counts(),
-                         route_counts(), dict(build.stats))
+                         {**route_counts(), **compressed_counts()},
+                         dict(build.stats))
     (s0, h0, l0, r0, _), (s1, h1, l1, r1, stats) = runs[False], runs[True]
     if (l0, r0) != (l1, r1):
         fail(f"graph {what}: launches {l1} by route {r1}, eager {l0} {r0}")
     check_finite(s1, f"graph {what}")
     exact = (s0.round == s1.round and h0 == h1
              and all(bitwise_equal(getattr(s0, k), getattr(s1, k))
-                     for k in ("x", "y", "cx", "cy")))
+                     for k in state_fields(s0)))
     rel = max([rel_err(getattr(s1, k), getattr(s0, k))
                for k in ("x", "y", "cx", "cy")]
               + [abs(a[m] - b[m]) / (1 + abs(b[m]))
@@ -1541,7 +1604,7 @@ def graph_case(problem, client_batch, batches, algo, impl, dev, *, rounds,
     if not exact and (impl != "dense" or len(h0) != len(h1)
                       or rel > TOL_GRAPH_DENSE):
         fail(f"graph {what}: captured differs from eager (rel {rel})")
-    out = {"phase": "graph", "case": what, "algorithm": algo,
+    out = {"phase": phase, "case": what, "algorithm": algo,
            "mixing_impl": impl, "rounds": rounds, "chunk_rounds": chunk,
            "bit_for_bit": exact, "max_rel_err": rel,
            "launches": l1, "launches_by_route": r1,
@@ -1583,7 +1646,7 @@ def graph_rates(problem, client_batch, batches, impl, dev, rounds, **kw):
 
 
 def checkpoint_case(problem, client_batch, batches, impl, dev, what, smi,
-                    **kw) -> dict:
+                    phase="graph", **kw) -> dict:
     """Run GRAPH_CKPT_ROUNDS rounds with checkpoints every
     GRAPH_CKPT_EVERY (``boundary_every``), restore the first into a fresh
     template and run on, in chunks that do not align: the final state must
@@ -1617,8 +1680,8 @@ def checkpoint_case(problem, client_batch, batches, impl, dev, what, smi,
                                 chunk_rounds=7)
     exact = resumed.round == full.round and all(
         bitwise_equal(getattr(resumed, k), getattr(full, k))
-        for k in ("x", "y", "cx", "cy"))
-    out = {"phase": "graph", "checkpoint": what, "mixing_impl": impl,
+        for k in state_fields(full))
+    out = {"phase": phase, "checkpoint": what, "mixing_impl": impl,
            "files": names, "resumed_bit_for_bit": exact,
            "captures": build.stats["captures"], "nvidia_smi": smi}
     emit(out)
@@ -1705,6 +1768,13 @@ def sweep_launch_check(impl, launches, routes) -> None:
         check_routes(routes, launches, f"sweep {impl}")
 
 
+def same_result(a, b) -> bool:
+    """(rounds to ε, final ‖∇Φ‖) pairs equal, a NaN final (a diverged
+    trajectory) equal to a NaN."""
+    return a[0] == b[0] and (a[1] == b[1] or (math.isnan(a[1])
+                                              and math.isnan(b[1])))
+
+
 def phase_sweep(dev, smi) -> dict:
     import dataclasses
     import tempfile
@@ -1786,6 +1856,522 @@ def phase_sweep(dev, smi) -> dict:
           "note": "the port's data and draws are its own: a statistical "
                   "comparison, not a check"})
     out["churn"] = by_family
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: compressed gossip (error feedback) at the main geometry
+# ---------------------------------------------------------------------------
+
+def wire_spy(impl, seen: list):
+    """Context: every transmit of a round step on ``impl`` is checked on
+    the card's own v = mask ⊙ (Δ + e): q == Q(v), q + e' == v bit for bit,
+    inactive rows keep e.  On ``pallas_packed`` it wraps
+    ``core.compression.ef_transmit``; on ``fused_round`` it runs the
+    whole-round kernel through ``fused_round_wire`` (the same launch, with
+    q returned), and holds v against the plain K steps.  ``seen`` gets one
+    record a transmit."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import compression
+    from repro_torch.kernels import fused_round, ops, quantize, ref
+
+    def check(v, q, e_new, e_old, act, method, what):
+        if not (torch.equal(q, quantize.quantize_dequant(v, method))
+                and torch.equal(torch.where(act, q + e_new, v), v)
+                and torch.equal(torch.where(act, e_new, e_old), e_new)):
+            fail(f"compress wire {what}: q + e' != v or q != Q(v)")
+
+    @contextlib.contextmanager
+    def spy():
+        if impl == "pallas_packed":
+            orig = compression.ef_transmit
+
+            def transmit(d, e, method, mask=None):
+                q, e_new = orig(d, e, method, mask)
+                act = (torch.ones(d.shape[0], dtype=torch.bool,
+                                  device=d.device) if mask is None
+                       else mask.to(torch.bool))[:, None]
+                v = (d.float() + e.float()) * act.float()
+                check(v, q, e_new, e, act, method, impl)
+                seen.append({"max_abs_q": float(q.abs().max()),
+                             "max_abs_e": float(e_new.abs().max())})
+                return q, e_new
+
+            compression.ef_transmit = transmit
+            try:
+                yield
+            finally:
+                compression.ef_transmit = orig
+        else:
+            orig = ops.fused_round
+
+            def whole_round(w, z0, c, ef, g, h, step, etas, corr, mask, *,
+                            backend="auto", compress=None,
+                            gossip_dtype=None):
+                args = [t.float().contiguous() for t in
+                        (w, z0, c, ef, g, h, step, etas, corr, mask)]
+                kz, kc, ke, kq = fused_round.fused_round_wire(
+                    *args, compress=compress, gossip_dtype=gossip_dtype)
+                act = args[-1] > 0
+                v = torch.where(act, kq + ke, torch.zeros_like(kq))
+                check(v, kq, ke, args[3], act, compress, impl)
+                _, _, pd = ref.local_steps_ref(*args[1:4], args[4], args[5],
+                                               args[6], args[9],
+                                               compress=compress)
+                plain_v = args[9] * (pd + args[3])
+                err = rel_err(v, plain_v)
+                if err > TOL_ROUND:
+                    fail(f"compress wire {impl}: v misses the plain K "
+                         f"steps by {err}")
+                seen.append({"max_abs_q": float(kq.abs().max()),
+                             "max_abs_e": float(ke.abs().max()),
+                             "v_rel_err_vs_plain": err})
+                return kz, kc, ke
+
+            ops.fused_round = whole_round
+            try:
+                yield
+            finally:
+                ops.fused_round = orig
+
+    return spy()
+
+
+def phase_compress(dev, smi) -> dict:
+    """Compressed gossip at the main geometry on the two lowerings that take
+    it: the wire per round (eager), the same runs through captured chunks
+    with B2's compressed launches counted by route, Σc = 0, int8 against
+    the exact trajectory, the freeze under participation, a checkpoint
+    resume, and rounds/s."""
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.core import stochastic_topology as st_lib
+
+    problem, client_batch, batches = main_setup(dev)
+    cases = [(a, i, m) for a in TRACKING for i in COMPRESS_IMPLS
+             for m in COMPRESS_METHODS]
+
+    # 1. eager rounds with every transmit checked on the card
+    eager = {}
+    for algo, impl, method in cases:
+        seen: list = []
+        with wire_spy(impl, seen):
+            eager[algo, impl, method] = drive(
+                problem, client_batch, batches, algo, impl, dev, ROUNDS,
+                capture=False, cfg_kw={"gossip_compress": method})
+        per_round = 2 if impl == "pallas_packed" else 1
+        if len(seen) != ROUNDS * per_round:
+            fail(f"compress {algo}/{impl}/{method}: {len(seen)} transmits "
+                 f"checked, expected {ROUNDS * per_round}")
+        emit({"phase": "compress", "wire": f"{algo}/{impl}/{method}",
+              "rounds": ROUNDS, "transmits_checked_bitwise": len(seen),
+              "max_abs_e": max(r["max_abs_e"] for r in seen),
+              "max_v_rel_err_vs_plain": max(
+                  (r.get("v_rel_err_vs_plain", 0.0) for r in seen)),
+              "bitwise": "q == Q(v), q + e' == v, inactive rows keep e"})
+
+    # 2. the compressed path through captured chunks, counted
+    zero_launch_counts()
+    captured = {c: drive(problem, client_batch, batches, c[0], c[1], dev,
+                         ROUNDS, cfg_kw={"gossip_compress": c[2]})
+                for c in cases}
+    launches, routes = launch_counts(), route_counts()
+    comp = compressed_counts()
+    per_impl = ROUNDS * len(TRACKING) * len(COMPRESS_METHODS)
+    expect = {"fused_gossip": per_impl, "fused_round": per_impl,
+              "sparse_gossip": 0, **NO_MODEL_KERNELS}
+    if launches != expect:
+        fail(f"compress launches {launches}, expected {expect}")
+    check_routes(routes, expect, "compress")
+    want_comp = {"fused_round_compressed": {"cluster": per_impl, "block": 0}}
+    if comp != want_comp:
+        fail(f"compress: B2's compressed launches by route {comp}, "
+             f"expected {want_comp}")
+    results = {}
+    for c in cases:
+        (se, he), (sg, hg) = eager[c], captured[c]
+        what = "/".join(c)
+        check_finite(sg, f"compress {what}")
+        exact = (strip_stamps(he) == strip_stamps(hg) and all(
+            bitwise_equal(getattr(se, k), getattr(sg, k))
+            for k in state_fields(se)))
+        sc = sigma_c(sg)
+        results[what] = {"captured_bit_for_bit_eager": exact,
+                         "sigma_c": sc,
+                         "phi_grad_norm_last": hg[-1]["phi_grad_norm"],
+                         "ef_norms": [float(sg.ef_x.norm()),
+                                      float(sg.ef_y.norm())]}
+        if not exact:
+            fail(f"compress {what}: the captured run differs from eager")
+        if not sc <= TOL_SIGMA_C:
+            fail(f"compress {what}: Σc = {sc} > {TOL_SIGMA_C}")
+    emit({"phase": "compress", "cases": results, "launches": launches,
+          "expected": expect, "launches_by_route": routes,
+          "compressed_launches_by_route": comp["fused_round_compressed"],
+          "tol_sigma_c": TOL_SIGMA_C})
+
+    # 3. int8 against the exact trajectory (the reference's
+    # test_compressed_vs_exact_divergence_bounded), both lowerings
+    divergence = {}
+    for impl in COMPRESS_IMPLS:
+        ex, _ = drive(problem, client_batch, batches, "kgt_minimax", impl,
+                      dev, COMPRESS_DIVERGENCE_ROUNDS)
+        q8, _ = drive(problem, client_batch, batches, "kgt_minimax", impl,
+                      dev, COMPRESS_DIVERGENCE_ROUNDS,
+                      cfg_kw={"gossip_compress": "int8"})
+        divergence[impl] = {k: float((getattr(ex, k) - getattr(q8, k)).abs()
+                                     .max() / (getattr(ex, k).abs().max()
+                                               + 1e-12))
+                            for k in ("x", "y")}
+        if max(divergence[impl].values()) >= TOL_COMPRESS_DIVERGENCE:
+            fail(f"compress {impl}: int8 drifts from the exact trajectory "
+                 f"by {divergence[impl]}")
+    emit({"phase": "compress", "rounds": COMPRESS_DIVERGENCE_ROUNDS,
+          "int8_vs_exact_rel": divergence, "tol": TOL_COMPRESS_DIVERGENCE})
+
+    # 4. participation: inactive clients keep θ, c and the residual
+    freeze = {}
+    for impl in COMPRESS_IMPLS:
+        mask_fn = st_lib.make_participation_sampler(N, 7, PARTICIPATION,
+                                                    device=dev)
+        state, build = prepare(problem, client_batch, batches,
+                               "kgt_minimax", impl, dev, mask_fn=mask_fn,
+                               cfg_kw={"gossip_compress": "int8"})
+        frozen, inactive = [], []
+        final, _ = engine_lib.run(
+            state, build, total_rounds=CHURN_ROUNDS, chunk_rounds=1,
+            hooks=[freeze_hook(mask_fn, state, frozen, inactive)])
+        sc = sigma_c(final)
+        freeze[impl] = {"inactive_client_rounds": sum(inactive),
+                        "frozen_bit_for_bit": all(frozen), "sigma_c": sc}
+        if not all(frozen) or not sum(inactive):
+            fail(f"compress {impl}: inactive clients moved ({freeze})")
+        if not sc <= TOL_SIGMA_C:
+            fail(f"compress {impl} under participation: Σc = {sc}")
+    emit({"phase": "compress", "participation": PARTICIPATION,
+          "rounds": CHURN_ROUNDS, "freeze": freeze})
+
+    # 5. a checkpoint resume of a compressed state
+    for impl in COMPRESS_IMPLS:
+        checkpoint_case(problem, client_batch, batches, impl, dev,
+                        f"n={N} {impl} int8", smi, phase="compress",
+                        cfg_kw={"gossip_compress": "int8"})
+
+    # 6. rounds/s, exact and compressed, eager and captured in turns
+    rates = {}
+    for impl in COMPRESS_IMPLS:
+        for method in (None, *COMPRESS_METHODS):
+            rates[f"{impl} {method or 'exact'}"] = graph_rates(
+                problem, client_batch, batches, impl, dev, ROUNDS,
+                cfg_kw={"gossip_compress": method})
+    for what, r in rates.items():
+        emit({"phase": "compress", "rounds_per_s": what, **r,
+              "nvidia_smi": smi,
+              "note": "kgt_minimax, one 50-round chunk, host clock to a "
+                      "synchronize, in turns eager, graph, graph, eager"})
+    del problem, client_batch, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "routes": routes,
+            "compressed": comp["fused_round_compressed"], "rates": rates}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the adversary axis and robust aggregation
+# ---------------------------------------------------------------------------
+
+def attack_fn(n, attack, dev, *, num_byzantine=ADV_BYZANTINE, seed=0):
+    """The engine's per-round adversary: ``num_byzantine`` attackers,
+    ``attack`` at ADV_SCALE, noise shaped as the main geometry's x, y."""
+    import torch
+
+    from repro_torch.core import adversary
+
+    like = (torch.empty((n, DX), device="meta"),
+            torch.empty((n, DY), device="meta"))
+    return adversary.make_attack_sampler(
+        n, seed, num_byzantine=num_byzantine, attack=attack,
+        scale=ADV_SCALE, like=like, device=dev)
+
+
+def robust_spy(seen: list):
+    """Context: each robust aggregation a round step makes is held against
+    ``kernels.ref.robust_agg_ref`` on the same candidates, within
+    TOL_ROBUST × (1 + max|oracle|)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import mixing
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ref import gossip_torch_dtype, narrow
+
+    dense, sparse = mixing.robust_mix_dense, mixing.robust_mix_sparse
+
+    def held(vals, valid, out, rule, trim, what):
+        want = ref.robust_agg_ref(vals, valid, rule=rule, trim=trim)
+        fin = torch.isfinite(want)
+        if not torch.equal(torch.isfinite(out), fin):
+            fail(f"robust {what} {rule}: non-finite entries differ")
+        err = rel_err(out[fin], want[fin])
+        seen.append(err)
+        if err > TOL_ROBUST:
+            fail(f"robust {what} {rule}: {err} from robust_agg_ref")
+
+    def robust_dense(buf, w, *, rule, trim=1, gossip_dtype=None):
+        out = dense(buf, w, rule=rule, trim=trim, gossip_dtype=gossip_dtype)
+        n = w.shape[0]
+        valid = (w > 0) | torch.eye(n, dtype=torch.bool, device=w.device)
+        b = narrow(buf, gossip_torch_dtype(gossip_dtype))
+        held(b[None].expand(n, n, b.shape[1]), valid, out, rule, trim,
+             "dense")
+        return out
+
+    def robust_sparse(buf, sp, *, rule, trim=1, gossip_dtype=None):
+        out = sparse(buf, sp, rule=rule, trim=trim,
+                     gossip_dtype=gossip_dtype)
+        b = narrow(buf, gossip_torch_dtype(gossip_dtype))
+        vals = torch.cat([b[:, None], b[sp.neighbor_idx.long()]], 1)
+        valid = torch.cat([torch.ones_like(sp.neighbor_w[:, :1],
+                                           dtype=torch.bool),
+                           sp.neighbor_w > 0], 1)
+        held(vals, valid, out, rule, trim, "sparse")
+        return out
+
+    @contextlib.contextmanager
+    def spy():
+        mixing.robust_mix_dense = robust_dense
+        mixing.robust_mix_sparse = robust_sparse
+        try:
+            yield
+        finally:
+            mixing.robust_mix_dense, mixing.robust_mix_sparse = dense, sparse
+
+    return spy()
+
+
+def one_round(problem, client_batch, batches, algo, impl, dev, adv=None,
+              n=N, topology="ring"):
+    """One round step from ``init_state`` on fixed noise, with the
+    adversary ``adv`` (or the plain step without one)."""
+    import torch
+
+    from repro_torch.core import init_state, make_round_step
+
+    cfg = main_cfg(algo, impl, n, K, topology)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    state = init_state(problem, cfg, gen, init_batch=client_batch)
+    gen.manual_seed(2)
+    noise = torch.randn((K, n, problem.noise_dim), generator=gen,
+                        device=dev)
+    step = make_round_step(problem, cfg, byzantine=adv is not None,
+                           device=dev)
+    extras = () if adv is None else (adv,)
+    return step(state, batches, noise, *extras)
+
+
+def phase_adversary(dev, smi) -> dict:
+    """The Byzantine adversary and the robust aggregations: one round per
+    attack and lowering at n = 8 (an honest adversary is the plain step bit
+    for bit, Σc = 0 under attack on the linear lowerings, every robust
+    aggregation against its oracle), captured chunks against eager ones
+    under attack, the sparse robust forms at n = 4096 on the exponential
+    graph, then the ``adversary`` sweep beside the reference's results."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import adversary
+    from repro_torch.sweep import defs
+    from repro_torch.sweep import grid as grid_lib
+    from repro_torch.sweep import run as sweep_run
+
+    problem, client_batch, batches = main_setup(dev)
+    # 1. one round per attack and lowering
+    agg_errs: list = []
+    rounds = {}
+    with robust_spy(agg_errs):
+        for impl in ADV_IMPLS:
+            plain = one_round(problem, client_batch, batches, "kgt_minimax",
+                              impl, dev)
+            honest = attack_fn(N, "random_noise", dev, num_byzantine=0)(0)
+            same = one_round(problem, client_batch, batches, "kgt_minimax",
+                             impl, dev, honest)
+            if not all(torch.equal(getattr(plain, k), getattr(same, k))
+                       for k in ("x", "y", "cx", "cy")):
+                fail(f"adversary {impl}: an honest adversary is not the "
+                     "plain step bit for bit")
+            for attack in adversary.ATTACKS[1:]:
+                st = one_round(problem, client_batch, batches, "kgt_minimax",
+                               impl, dev, attack_fn(N, attack, dev)(0))
+                rec = {"sigma_c": sigma_c(st),
+                       "max_abs_x": float(st.x.abs().max())}
+                rounds[f"{impl}/{attack}"] = rec
+                if impl in ("dense", "pallas_packed") and not (
+                        rec["sigma_c"] <= TOL_SIGMA_C):
+                    fail(f"adversary {impl}/{attack}: Σc = "
+                         f"{rec['sigma_c']}")
+    emit({"phase": "adversary", "n": N, "one_round": rounds,
+          "honest_adversary_bit_for_bit_plain": True,
+          "robust_aggregations_checked": len(agg_errs),
+          "robust_max_rel_err_vs_oracle": max(agg_errs),
+          "tol_robust": TOL_ROBUST, "tol_sigma_c": TOL_SIGMA_C})
+    if not agg_errs:
+        fail("adversary: no robust aggregation was checked")
+
+    # 2. captured chunks against eager ones under attack
+    for impl in ("coord_median", "trimmed_mean", "pallas_packed"):
+        for attack in ("sign_flip", "random_noise"):
+            graph_case(problem, client_batch, batches, "kgt_minimax", impl,
+                       dev, rounds=GRAPH_ROUNDS, chunk=GRAPH_CHUNK,
+                       what=f"n={N} {impl} {attack}", smi=smi,
+                       phase="adversary", attack_fn=attack_fn(N, attack,
+                                                              dev))
+    rates = {}
+    for impl in ("dense", "coord_median", "trimmed_mean"):
+        rates[f"n={N} {impl} sign_flip"] = graph_rates(
+            problem, client_batch, batches, impl, dev, ROUNDS,
+            attack_fn=attack_fn(N, "sign_flip", dev))
+    del problem, client_batch, batches
+
+    # 3. the sparse robust forms at n = 4096 on the exponential graph
+    n = SCALE_N
+    problem, client_batch, batches = main_setup(dev, n=n)
+    common = dict(n=n, topology="exp")
+    fn = attack_fn(n, "sign_flip", dev, num_byzantine=n // 64)
+    for impl in ("sparse_trimmed_mean", "sparse_coord_median"):
+        case = graph_case(problem, client_batch, batches, "kgt_minimax",
+                          impl, dev, rounds=SCALE_ROUNDS, chunk=GRAPH_CHUNK,
+                          what=f"n={n} exp {impl} sign_flip", smi=smi,
+                          phase="adversary", attack_fn=fn, **common)
+        if any(case["launches"].values()):
+            fail(f"adversary {impl}: launched kernels {case['launches']}")
+    for impl in ("sparse_trimmed_mean", "sparse_coord_median",
+                 "sparse_packed"):
+        rates[f"n={n} {impl} sign_flip"] = graph_rates(
+            problem, client_batch, batches, impl, dev, SCALE_ROUNDS,
+            attack_fn=fn, **common)
+    for what, r in rates.items():
+        emit({"phase": "adversary", "rounds_per_s": what, **r,
+              "nvidia_smi": smi,
+              "note": "kgt_minimax, one chunk, host clock to a "
+                      "synchronize, in turns eager, graph, graph, eager"})
+    del problem, client_batch, batches
+    torch.cuda.empty_cache()
+
+    # 4. the adversary sweep as defined, every point again by run_point
+    spec = defs.SWEEPS["adversary"]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        res = sweep_run.run_sweep(spec, device=dev, store_dir=d)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if any(launches.values()):
+        fail(f"adversary sweep: launched kernels {launches} (dense and the "
+             "robust rules run none)")
+    mismatched = []
+    t1 = time.perf_counter()
+    for cell in spec.cells():
+        for p in cell.points:
+            hit, final, _, _ = sweep_run.run_point(p, device=dev)
+            rec = res["points"][grid_lib.point_key(p)]
+            if not same_result((hit, final),
+                               (rec["rounds_to_eps"], rec["final_grad"])):
+                mismatched.append([grid_lib.point_key(p), hit, final,
+                                   rec["rounds_to_eps"], rec["final_grad"]])
+    point_wall = time.perf_counter() - t1
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "results", "sweeps", "adversary.json")) as f:
+        ref = json.load(f)
+    groups = {}
+    for impl in ("dense", "coord_median", "trimmed_mean"):
+        for attack in adversary.ATTACKS:
+            sel = dict(mixing_impl=impl, attack=attack)
+            port = sweep_run.points_where(res, **sel)
+            if not port:
+                continue
+            refs = sweep_run.points_where(ref, **sel)
+            groups[f"{impl}/{attack}"] = {
+                "port": sweep_run.summarize(port),
+                "reference": sweep_run.summarize(refs),
+                "port_rounds_to_eps": [p["rounds_to_eps"] for p in port],
+                "reference_rounds_to_eps": [p["rounds_to_eps"]
+                                            for p in refs]}
+    cells = {key: {k: c[k] for k in ("wall_s", "capture_s", "run_s",
+                                     "trajectory_rounds")}
+             for key, c in res["cells"].items()}
+    traj_rounds = sum(c["trajectory_rounds"] for c in cells.values())
+    run_s = sum(c["run_s"] for c in cells.values())
+    emit({"phase": "adversary", "sweep": "adversary",
+          "points": len(res["points"]), "wall_s": wall, "run_s": run_s,
+          "trajectory_rounds": traj_rounds,
+          "trajectory_rounds_per_s": traj_rounds / run_s, "cells": cells,
+          "by_impl_attack": groups, "run_point_wall_s": point_wall,
+          "run_cell_vs_run_point_mismatches": mismatched,
+          "nvidia_smi": smi,
+          "note": "the port's data and draws are its own: beside the "
+                  "reference's results/sweeps/adversary.json a statistical "
+                  "comparison, a miss is printed, not failed"})
+    if mismatched:
+        fail(f"adversary sweep: run_cell and run_point differ at "
+             f"{len(mismatched)} points")
+    return {"rates": rates, "groups": groups}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: health gauges and a profiler window
+# ---------------------------------------------------------------------------
+
+def phase_obs(dev, smi) -> dict:
+    """``obs.health_gauges`` on a compressed state, and one ``obs.Profiler``
+    window over 10 captured rounds (of 20, in chunks of 5) that must write
+    a non-empty trace."""
+    import tempfile
+
+    from repro_torch import engine as engine_lib
+    from repro_torch import obs
+
+    problem, client_batch, batches = main_setup(dev)
+    state, build = prepare(problem, client_batch, batches, "kgt_minimax",
+                           "fused_round", dev, log_every=5,
+                           cfg_kw={"gossip_compress": "int8"})
+    with tempfile.TemporaryDirectory() as d:
+        prof = obs.Profiler(os.path.join(d, "trace"), num_rounds=10)
+        closed = []
+
+        def watch(st, records, prev_round):
+            if not prof.active and not closed:
+                closed.append(int(st.round))
+
+        prof.start()
+        final, _ = engine_lib.run(state, build, total_rounds=20,
+                                  chunk_rounds=5, hooks=[prof.hook, watch])
+        prof.stop()
+        if len(prof.paths) != 1:
+            fail(f"obs: the profiler wrote {prof.paths}")
+        size = os.path.getsize(prof.paths[0])
+        with open(prof.paths[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    gauges = obs.health_gauges(final)
+    out = {"phase": "obs", "trace_bytes": size, "trace_events": len(events),
+           "trace_kernel_events": len(kernels),
+           "trace_kernel_names": sorted({e.get("name", "")[:40]
+                                         for e in kernels})[:8],
+           "window_closed_at_round": closed, "health_gauges": gauges,
+           "nvidia_smi": smi}
+    emit(out)
+    if not events or closed != [10]:
+        fail(f"obs: empty trace or a window closed at {closed}")
+    if not ({"ef_x_norm", "ef_y_norm"} <= set(gauges)
+            and all(math.isfinite(v) for v in gauges.values())):
+        fail(f"obs: health gauges {gauges}")
     return out
 
 
@@ -2563,8 +3149,9 @@ def time_sparse_gossip(gen, dev) -> dict:
 def phase_profile(dev) -> None:
     """torch.profiler over 10 engine rounds per lowering, eager and
     replayed as a CUDA graph, at the main path's shape and at the scale
-    path's (n = 4096, exp): device busy time against the wall clock, and
-    the kernels that take it."""
+    path's (n = 4096, exp), compressed (int8) and robust under attack
+    (sign_flip) beside the exact lowerings: device busy time against the
+    wall clock, and the kernels that take it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2573,20 +3160,31 @@ def phase_profile(dev) -> None:
     from repro_torch.core import sparse_topology as sp_lib
 
     rounds = 10
-    cells = [("main", {}, ("dense", "pallas_packed", "fused_round"))]
+    int8 = {"cfg_kw": {"gossip_compress": "int8"}}
+    main_attack = {"attack_fn": attack_fn(N, "sign_flip", dev)}
+    scale_attack = {"attack_fn": attack_fn(SCALE_N, "sign_flip", dev,
+                                           num_byzantine=SCALE_N // 64)}
+    cells = [("main", {}, [("dense", {}), ("pallas_packed", {}),
+                           ("fused_round", {}), ("pallas_packed", int8),
+                           ("fused_round", int8),
+                           ("trimmed_mean", main_attack),
+                           ("coord_median", main_attack)])]
     cells.append(("scale", dict(n=SCALE_N, topology="exp"),
-                  ("dense", "sparse_packed")))
+                  [("dense", {}), ("sparse_packed", {}),
+                   ("sparse_trimmed_mean", scale_attack),
+                   ("sparse_coord_median", scale_attack)]))
     for cell, kw, impls in cells:
         problem, client_batch, batches = main_setup(dev, n=kw.get("n", N))
         if cell == "scale":
             # the same static W for dense as sparse_packed builds
             kw = dict(kw, w=sp_lib.densify(sp_lib.sparse_exp(SCALE_N).to(dev)))
-        for impl, capture in ((i, c) for i in impls for c in (False, True)):
+        for (impl, extra), capture in ((i, c) for i in impls
+                                       for c in (False, True)):
             w_kw = kw if impl == "dense" else {
                 key: v for key, v in kw.items() if key != "w"}
             state, build = prepare(problem, client_batch, batches,
                                    "kgt_minimax", impl, dev, log_every=rounds,
-                                   capture=capture, **w_kw)
+                                   capture=capture, **w_kw, **extra)
             # a first run builds the kernels and captures the chunk
             engine_lib.run(state, build, total_rounds=rounds,
                            chunk_rounds=rounds)
@@ -2607,6 +3205,8 @@ def phase_profile(dev) -> None:
             top = sorted(events, key=lambda e: e.self_device_time_total,
                          reverse=True)[:6]
             emit({"phase": "profile", "cell": cell, "mixing_impl": impl,
+                  "option": ("int8" if "cfg_kw" in extra else "sign_flip"
+                             if "attack_fn" in extra else None),
                   "cuda_graph": capture, "n": kw.get("n", N),
                   "rounds": rounds,
                   "wall_us_per_round": wall_us / rounds,
@@ -2691,6 +3291,13 @@ def main(argv=None) -> int:
         phase_graph(dev, smi)
     if "sweep" in phases:
         phase_sweep(dev, smi)
+    compressed = {}
+    if "compress" in phases:
+        compressed = phase_compress(dev, smi)
+    if "adversary" in phases:
+        phase_adversary(dev, smi)
+    if "obs" in phases:
+        phase_obs(dev, smi)
     launches_eval = dict.fromkeys(names)
     eval_routes = {}
     if "serve" in phases:
@@ -2762,6 +3369,13 @@ def main(argv=None) -> int:
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
+            if k["name"] == "fused_round":
+                # the compress phase: B2's compress branch (B3 inside) on
+                # the round path, by route
+                k.update(launches_compress=compressed.get(
+                    "launches", {}).get("fused_round"),
+                         launches_compressed_by_route=compressed.get(
+                             "compressed"))
     print(smi, flush=True)
     emit({"kernels": kernels,
           "launches_note": "fused_gossip, fused_round: the main phase "
@@ -2772,7 +3386,10 @@ def main(argv=None) -> int:
                            "recorded); sparse_gossip: "
                            "the scale phase (n = 4096, 20 rounds × 4 "
                            "algorithms, one pair launch a round of the 2 "
-                           "tracking ones); "
+                           "tracking ones); fused_round's "
+                           "launches_compress: the compress phase (50 "
+                           "rounds × 2 tracking algorithms × {bf16, int8}, "
+                           "every one with compression); "
                            "flash_attention, rglru_scan: the serve phase's "
                            "prefill (recurrentgemma-9b, 4 × 4096 tokens); "
                            "ssd_scan: the serve phase's prefill "

@@ -17,11 +17,13 @@ AlgorithmConfig`` so a config carries over unchanged; only
 ``topology_seed`` parametrize the per-round samplers of
 ``repro_torch.core.stochastic_topology`` / ``sparse_topology`` that the
 caller rides on the engine's sampler slot (``engine.with_topology``), as in
-the reference.  Options this port does not implement yet are accepted here
-and refused by ``repro_torch.core.kgt_minimax.make_round_step`` (and
-``init_state``): ``gossip_compress`` (ROADMAP A7), ``num_byzantine`` > 0
-and ``attack`` other than "honest" (A9); ``attack_scale`` and
-``robust_trim`` are read only under those options, and ``inner_opt`` is
+the reference.  ``gossip_compress`` is read by ``init_state`` (the EF
+residuals) and ``make_round_step`` (``pallas_packed`` and ``fused_round``
+take it, the others refuse it as the reference does); ``robust_trim`` by
+the robust mixing impls; ``num_byzantine``, ``attack`` and
+``attack_scale`` parametrize ``core.adversary.make_attack_sampler``, which
+the caller rides on the engine's sampler slot with
+``make_round_step(byzantine=True)``, as in the reference; ``inner_opt`` is
 read nowhere, in the reference as here.
 """
 from __future__ import annotations
@@ -208,8 +210,9 @@ class AlgorithmConfig:
     # the name is kept from the JAX package so configs carry over),
     # "sparse_packed" (the packed epilogue with W as neighbor lists, in the
     # neighbor-gather kernel: the path past 512 clients), "fused_round"
-    # (whole round in one kernel call).  The robust impls are not ported
-    # yet (ROADMAP A9).
+    # (whole round in one kernel call), and the robust aggregations
+    # "coord_median" / "trimmed_mean" and their "sparse_*" neighbor-gather
+    # forms (Byzantine-tolerant; see core.mixing.ROBUST_IMPLS).
     mixing_impl: str = "dense"
     # Backend for the packed kernels: "auto" (the CUDA kernel for CUDA
     # tensors, the plain PyTorch version for CPU tensors), "kernel" (the
@@ -217,7 +220,7 @@ class AlgorithmConfig:
     # tensors raise).
     gossip_backend: str = "auto"
     gossip_dtype: str = "float32"   # "bfloat16" narrows the gossip operands
-    gossip_compress: Optional[str] = None   # not ported yet (ROADMAP A7)
+    gossip_compress: Optional[str] = None   # "bf16" | "int8" (EF compression)
     inner_opt: str = "sgd"
     correction_dtype: str = "float32"
     topology_cycle: Tuple[str, ...] = ()

@@ -1,3 +1,19 @@
+from repro_torch.core import adversary, compression  # noqa: F401
+from repro_torch.core.adversary import (  # noqa: F401
+    ATTACK_IDS,
+    ATTACK_STREAM,
+    ATTACKS,
+    Adversary,
+    apply_attack,
+    attack_ids,
+    make_attack_sampler,
+)
+from repro_torch.core.compression import (  # noqa: F401
+    COMPRESS_METHODS,
+    ef_transmit,
+    init_ef,
+    validate_method,
+)
 from repro_torch.core.interop import (  # noqa: F401
     from_reference,
     make_replay_sampler,
@@ -15,12 +31,19 @@ from repro_torch.core.kgt_minimax import (  # noqa: F401
 from repro_torch.core.minimax import MinimaxProblem  # noqa: F401
 from repro_torch.core.mixing import (  # noqa: F401
     MIXING_IMPLS,
+    ROBUST_IMPLS,
+    ROBUST_RULES,
     consensus_error,
     make_mixer,
+    make_traced_mixer,
     mix_dense,
     mix_packed,
     mix_ring,
     mix_sparse,
+    robust_mix_dense,
+    robust_mix_packed,
+    robust_mix_sparse,
+    robust_rule,
 )
 from repro_torch.core.objectives import (  # noqa: F401
     make_quadratic_data,

@@ -19,8 +19,13 @@ Lowerings (``cfg.mixing_impl``): the per-leaf ``dense``/``ring``/
 (n, D) per variable, epilogue in the fused gossip kernel);
 ``sparse_packed`` (the same epilogue with W as neighbor lists, in the
 neighbor-gather kernel); ``fused_round`` (the whole round in the
-whole-round kernel).  Churn — a per-round W, partial participation and
-``topology_cycle`` — rides every lowering that can realize it.
+whole-round kernel); the robust impls (``mixing.ROBUST_IMPLS``: an order
+statistic over the support of W in place of every W contraction).  Churn —
+a per-round W, partial participation and ``topology_cycle`` — rides every
+lowering that can realize it; error-feedback compression of the
+transmitted Δ (``core.compression``) rides ``pallas_packed`` and
+``fused_round``; the Byzantine adversary (``core.adversary``) rides every
+lowering but ``fused_round``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ import torch
 from torch.func import vmap
 
 from repro_torch.configs.base import AlgorithmConfig
+from repro_torch.core import adversary as adversary_lib
+from repro_torch.core import compression as compression_lib
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core import packing
 from repro_torch.core import sparse_topology as sparse_lib
@@ -51,6 +58,12 @@ class KGTState:
     cx: Any         # (n, …) gradient-tracking correction for x
     cy: Any         # (n, …) gradient-tracking correction for y
     round: int = 0  # host int: the single source of truth for the round
+    # error-feedback residuals of compressed gossip (cfg.gossip_compress):
+    # packed (n, D) f32 in core.packing layout, one per variable; None (an
+    # empty node) without compression, so an exact-gossip state keeps its
+    # leaves and old checkpoints restore unchanged
+    ef_x: Any = None
+    ef_y: Any = None
 
 
 def _tree_axpy(a: float, x_tree, y_tree):
@@ -88,7 +101,7 @@ def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
     ``init_noise`` (n, noise_dim) is the noise row of each client's
     initial gradient; drawn from ``gen`` when omitted.
     """
-    _check_unported(cfg)
+    _check_cfg(cfg)
     n = cfg.num_clients
     x = _replicate(problem.init_x(gen), n)
     y = _replicate(problem.init_y(gen), n)
@@ -107,7 +120,14 @@ def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
         cd = getattr(torch, cfg.correction_dtype)
         cx = tree_lib.tree_map(lambda c: c.to(cd), cx)
         cy = tree_lib.tree_map(lambda c: c.to(cd), cy)
-    return KGTState(x=x, y=y, cx=cx, cy=cy, round=0)
+    ef_x = ef_y = None
+    if compression_lib.validate_method(cfg.gossip_compress) is not None:
+        # zero residual per variable, packed (n, D): round 0 transmits Q(Δ)
+        # with nothing carried
+        dev = tree_lib.leaves(x)[0].device
+        ef_x = compression_lib.init_ef(n, packing.pack_spec(x).dim, dev)
+        ef_y = compression_lib.init_ef(n, packing.pack_spec(y).dim, dev)
+    return KGTState(x=x, y=y, cx=cx, cy=cy, round=0, ef_x=ef_x, ef_y=ef_y)
 
 
 def point_etas(cfg: AlgorithmConfig) -> dict:
@@ -128,26 +148,18 @@ def point_etas(cfg: AlgorithmConfig) -> dict:
     }
 
 
-def _check_unported(cfg: AlgorithmConfig) -> None:
-    """Refuse the options of the JAX package that this port does not
-    implement yet: ``gossip_compress`` at round-step level (ROADMAP A7) and
-    the adversary axis (A9)."""
+def _check_cfg(cfg: AlgorithmConfig) -> None:
+    """Refuse an unknown mixing_impl, algorithm or gossip_compress."""
     mixing_lib.check_impl(cfg.mixing_impl)
-    if cfg.gossip_compress not in (None, "none", ""):
-        raise NotImplementedError(
-            f"gossip_compress={cfg.gossip_compress!r} at round-step level "
-            "is not ported yet (ROADMAP A7)")
-    if cfg.num_byzantine > 0 or cfg.attack != "honest":
-        raise NotImplementedError(
-            f"num_byzantine={cfg.num_byzantine} / attack={cfg.attack!r} (the "
-            "adversary axis) are not ported yet (ROADMAP A9)")
+    compression_lib.validate_method(cfg.gossip_compress)
     if cfg.algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}: {ALGORITHMS}")
 
 
-def _check_impl_options(cfg: AlgorithmConfig, traced_w: bool) -> None:
-    """The reference's refusals of impl/option pairs (``repro.core.
-    kgt_minimax:247-291``)."""
+def _check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
+                        traced_w: bool, byzantine: bool) -> None:
+    """The reference's refusals of impl/option pairs, in its order
+    (``repro.core.kgt_minimax:247-291``)."""
     impl = cfg.mixing_impl
     if cfg.topology_cycle and impl.endswith("ring"):
         # the time-varying path mixes densely per round; a neighbor-only
@@ -159,8 +171,28 @@ def _check_impl_options(cfg: AlgorithmConfig, traced_w: bool) -> None:
         raise ValueError(
             "traced_w supplies W per round; topology_cycle would fight it — "
             "drop the cycle (sample the W sequence instead) or traced_w")
-    if cfg.topology_cycle and impl == "sparse_packed":
-        # the cycle stacks dense (n, n) members; neighbor lists do not ride it
+    if (compression_lib.validate_method(cfg.gossip_compress)
+            and impl not in ("pallas_packed", "fused_round")):
+        raise ValueError(
+            f"gossip_compress={cfg.gossip_compress!r} quantizes the packed "
+            f"(n, D) round delta; mixing_impl={impl!r} has no "
+            "packed buffer — use 'pallas_packed' or 'fused_round'")
+    if impl == "fused_round":
+        if problem.affine_coeffs is None:
+            raise ValueError(
+                "mixing_impl='fused_round' runs the K local steps as affine "
+                "updates inside the kernel; this problem has no "
+                "affine_coeffs oracle — use 'pallas_packed'")
+        if byzantine:
+            # the attack corrupts the per-leaf Δ, which never exists on the
+            # whole-round path (Δ is born packed inside the kernel)
+            raise ValueError(
+                "mixing_impl='fused_round' does not support byzantine; "
+                "use 'pallas_packed' (the attack applies pre-packing)")
+    if cfg.topology_cycle and (impl == "sparse_packed"
+                               or impl in mixing_lib.ROBUST_IMPLS):
+        # the cycle stacks dense (n, n) members mixed by mix_dense; neither
+        # neighbor lists nor the robust order statistic ride it
         raise ValueError(
             f"mixing_impl={impl!r} is not supported with topology_cycle; "
             "use traced_w with a per-round sampler instead")
@@ -198,7 +230,18 @@ def _freeze_inactive(mask: torch.Tensor, new_state: KGTState,
                     y=pick(new_state.y, old_state.y),
                     cx=pick(new_state.cx, old_state.cx),
                     cy=pick(new_state.cy, old_state.cy),
-                    round=new_state.round)
+                    round=new_state.round,
+                    # the EF residuals freeze with the rest of the client's
+                    # state (a no-op on None without compression)
+                    ef_x=pick(new_state.ef_x, old_state.ef_x),
+                    ef_y=pick(new_state.ef_y, old_state.ef_y))
+
+
+def _need_ef(state: KGTState) -> None:
+    if state.ef_x is None or state.ef_y is None:
+        raise ValueError(
+            "gossip_compress is set but the state carries no EF residual — "
+            "build it with init_state under the same cfg")
 
 
 def make_round_step(
@@ -238,7 +281,21 @@ def make_round_step(
     O(n·max_deg·D) with no (n, n) array; its no-tracking variants mix the
     packed buffer with ``sparse_topology.sparse_mix``.
 
-    ``byzantine`` (ROADMAP A9) is not ported yet.
+    ``cfg.gossip_compress`` ("bf16" / "int8", ``pallas_packed`` and
+    ``fused_round`` only) transmits q = Q(Δ + e) in place of Δ and carries
+    the residual e' = Δ + e − q in ``state.ef_x`` / ``ef_y``
+    (``core.compression``): on ``fused_round`` inside the whole-round
+    kernel, on ``pallas_packed`` by ``ef_transmit`` before the gossip pair.
+
+    ``byzantine=True`` takes a :class:`repro_torch.core.adversary.Adversary`
+    as the last extra: each attacker's outgoing Δ is corrupted right after
+    the local steps, before the participation zeroing, and rides every
+    downstream use, so Σc = 0 survives under a doubly stochastic W; honest
+    rows are bit for bit untouched.  The robust impls (``coord_median``,
+    ``trimmed_mean`` and their ``sparse_*`` neighbor-gather forms) replace
+    every W contraction with an order statistic R over the support of the
+    round's W: θ ← R(θ + η_s Δ) and c += corr·(Δ − R(Δ)), which does not
+    keep Σc = 0.
 
     The returned step's ``uses_round`` says whether it reads
     ``state.round`` beyond advancing it (``lr_scale``, ``topology_cycle``):
@@ -249,32 +306,30 @@ def make_round_step(
         raise ValueError(
             "traced_etas carries per-trajectory stepsizes; fold the schedule "
             "into the eta values instead of passing lr_scale")
-    _check_unported(cfg)
-    _check_impl_options(cfg, traced_w)
-    if byzantine:
-        raise NotImplementedError(
-            "byzantine (the adversary axis) is not ported yet (ROADMAP A9)")
+    _check_cfg(cfg)
+    _check_impl_options(problem, cfg, traced_w, byzantine)
     impl = cfg.mixing_impl
     fused = impl == "fused_round"
     packed = impl == "pallas_packed"
     sparse = impl == "sparse_packed"
+    robust = impl in mixing_lib.ROBUST_IMPLS
+    rule = mixing_lib.robust_rule(impl) if robust else None
+    # W is a SparseTopology everywhere a dense matrix would appear
+    sparse_w = sparse or (robust and impl.startswith("sparse_"))
+    compress = compression_lib.validate_method(cfg.gossip_compress)
     dynamic_w = traced_w or participation
-    if fused and problem.affine_coeffs is None:
-        raise ValueError(
-            "mixing_impl='fused_round' runs the K local steps as affine "
-            "updates inside the kernel; this problem has no affine_coeffs "
-            "oracle — use 'pallas_packed'")
     if cfg.gossip_backend not in kernel_ops.GOSSIP_BACKENDS:
         raise ValueError(f"unknown gossip_backend {cfg.gossip_backend!r}: "
                          f"{kernel_ops.GOSSIP_BACKENDS}")
     gossip_dtype = cfg.gossip_dtype
-    # W is consumed directly, per round, by the packed, sparse, fused and
-    # per-round-W paths; the others bake it into a mixer
-    direct_w = packed or sparse or fused or dynamic_w
+    # W is consumed directly, per round, by the packed, sparse, fused,
+    # robust and per-round-W paths; the others bake it into a mixer
+    direct_w = packed or sparse or fused or robust or dynamic_w
     # the per-leaf impls take a per-round W through a traced mixer (which
     # refuses the ring impls: they cannot realize an arbitrary W)
     traced_mix = (mixing_lib.make_traced_mixer(impl, gossip_dtype)
-                  if dynamic_w and not (packed or sparse or fused) else None)
+                  if dynamic_w and not (packed or sparse or fused or robust)
+                  else None)
 
     def dense_tensor(m):
         return torch.as_tensor(
@@ -292,11 +347,11 @@ def make_round_step(
     else:
         if w is None and not traced_w:
             w = (sparse_lib.sparse_mixing_matrix(cfg.topology,
-                                                 cfg.num_clients) if sparse
+                                                 cfg.num_clients) if sparse_w
                  else topo_lib.mixing_matrix(cfg.topology, cfg.num_clients))
         if w is None:
             w_arr = None
-        elif sparse:
+        elif sparse_w:
             w_arr = (w if isinstance(w, sparse_lib.SparseTopology)
                      else sparse_lib.from_dense(w)).to(device)
         else:
@@ -365,10 +420,14 @@ def make_round_step(
         step = mask_col * cols(eta_cx, -eta_cy)   # inactive ⇒ Δ ≡ 0 exactly
         etas = cols(eta_sx, eta_sy)
         corr = cols(corr_x, corr_y) if track else cols(0.0, 0.0)
-        zeros = torch.zeros((n, dz), device=dev)
-        z_new, c_new, _ = kernel_ops.fused_round(
-            w_t, z0, cb, zeros, g_mat, h_all, step, etas, corr,
-            mask_col.expand(n, dz), backend=backend, compress=None,
+        if compress:
+            _need_ef(state)
+            efb = torch.cat([state.ef_x, state.ef_y], dim=1)
+        else:
+            efb = torch.zeros((n, dz), device=dev)
+        z_new, c_new, ef_new = kernel_ops.fused_round(
+            w_t, z0, cb, efb, g_mat, h_all, step, etas, corr,
+            mask_col.expand(n, dz), backend=backend, compress=compress,
             gossip_dtype=gossip_dtype)
         if track:
             cx = packing.unpack(c_new[:, :dzx], packing.pack_spec(state.cx))
@@ -377,7 +436,11 @@ def make_round_step(
             cx, cy = state.cx, state.cy
         return _done(KGTState(x=packing.unpack(z_new[:, :dzx], spec_x),
                               y=packing.unpack(z_new[:, dzx:], spec_y),
-                              cx=cx, cy=cy, round=state.round + 1),
+                              cx=cx, cy=cy, round=state.round + 1,
+                              ef_x=ef_new[:, :dzx] if compress
+                              else state.ef_x,
+                              ef_y=ef_new[:, dzx:] if compress
+                              else state.ef_y),
                      state, mask)
 
     def _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy, corr_x,
@@ -390,6 +453,13 @@ def make_round_step(
         spec_y = packing.pack_spec(state.y)
         dxb = packing.pack(dx, spec_x)
         dyb = packing.pack(dy, spec_y)
+        efx, efy = state.ef_x, state.ef_y
+        if compress:
+            # EF quantization of the transmitted Δ: the same q rides the
+            # mixing and the correction, which keeps Σc = 0
+            _need_ef(state)
+            dxb, efx = compression_lib.ef_transmit(dxb, efx, compress, mask)
+            dyb, efy = compression_lib.ef_transmit(dyb, efy, compress, mask)
         if not track:
             # no correction state: the epilogue is one gossip of the
             # stepped parameters, W(θ + η_s·Δ)
@@ -402,7 +472,8 @@ def make_round_step(
             return _done(KGTState(x=packing.unpack(xb, spec_x),
                                   y=packing.unpack(yb, spec_y),
                                   cx=state.cx, cy=state.cy,
-                                  round=state.round + 1), state, mask)
+                                  round=state.round + 1, ef_x=efx,
+                                  ef_y=efy), state, mask)
         spec_cx = packing.pack_spec(state.cx)
         spec_cy = packing.pack_spec(state.cy)
         xv = (dxb, packing.pack(state.x, spec_x),
@@ -421,15 +492,53 @@ def make_round_step(
                               y=packing.unpack(yb, spec_y),
                               cx=packing.unpack(cxb, spec_cx),
                               cy=packing.unpack(cyb, spec_cy),
+                              round=state.round + 1, ef_x=efx, ef_y=efy),
+                     state, mask)
+
+    def _robust_round(state, dx, dy, w_t, mask, eta_sx, eta_sy, corr_x,
+                      corr_y):
+        """The robust epilogue: R (an order statistic over the support of
+        W) replaces every W contraction.  R is nonlinear, so the parameter
+        update is the one pass θ ← R(θ + η_s Δ), and the corrections keep
+        line 7/8's shape c += corr·(Δ − R(Δ)) without the Σc = 0
+        telescoping.  A masked client's support is {self}, and
+        ``_freeze_inactive`` pins it."""
+        def agg(buf):
+            red = (mixing_lib.robust_mix_sparse if sparse_w
+                   else mixing_lib.robust_mix_dense)
+            return red(buf, w_t, rule=rule, trim=cfg.robust_trim,
+                       gossip_dtype=gossip_dtype)
+
+        spec_x = packing.pack_spec(state.x)
+        spec_y = packing.pack_spec(state.y)
+        dxb = packing.pack(dx, spec_x)
+        dyb = packing.pack(dy, spec_y)
+        xb = agg(packing.pack(state.x, spec_x) + eta_sx * dxb)
+        yb = agg(packing.pack(state.y, spec_y) + eta_sy * dyb)
+        if track:
+            spec_cx = packing.pack_spec(state.cx)
+            spec_cy = packing.pack_spec(state.cy)
+            cx0 = packing.pack(state.cx, spec_cx)
+            cy0 = packing.pack(state.cy, spec_cy)
+            cxb = (cx0.to(torch.float32)
+                   + corr_x * (dxb - agg(dxb))).to(cx0.dtype)
+            cyb = (cy0.to(torch.float32)
+                   + corr_y * (dyb - agg(dyb))).to(cy0.dtype)
+            cx = packing.unpack(cxb, spec_cx)
+            cy = packing.unpack(cyb, spec_cy)
+        else:
+            cx, cy = state.cx, state.cy
+        return _done(KGTState(x=packing.unpack(xb, spec_x),
+                              y=packing.unpack(yb, spec_y), cx=cx, cy=cy,
                               round=state.round + 1), state, mask)
 
     def _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
-               corr_x, corr_y, w_t=None, mask=None) -> KGTState:
+               corr_x, corr_y, w_t=None, mask=None, adv=None) -> KGTState:
         if direct_w:
             if w_t is None:
                 w_t = get_w(state.round)
             if mask is not None:
-                w_t = (sparse_lib.sparse_masked_w(w_t, mask) if sparse
+                w_t = (sparse_lib.sparse_masked_w(w_t, mask) if sparse_w
                        else stoch_lib.masked_w(w_t, mask))
             mix = (None if traced_mix is None
                    else (lambda tree: traced_mix(tree, w_t)))
@@ -441,11 +550,20 @@ def make_round_step(
         xk, yk = _local_steps(state, batches, noise, eta_cx, eta_cy)
         dx = _tree_sub(xk, state.x)   # Δx = x^{(t)+K} − x^{(t)}
         dy = _tree_sub(yk, state.y)
+        if adv is not None:
+            # the attacker's outgoing Δ, corrupted before every use below
+            # and before the participation zeroing (an inactive attacker
+            # sends nothing, like an inactive honest client)
+            dx = adversary_lib.apply_attack(adv, dx, stream=0)
+            dy = adversary_lib.apply_attack(adv, dy, stream=1)
         if mask is not None:
             # inactive clients contribute no local update: with Δ_i = 0 and
             # W row/column i = e_i, lines 7-11 are no-ops for them
             dx = _tree_mask_clients(mask, dx)
             dy = _tree_mask_clients(mask, dy)
+        if robust:
+            return _robust_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
+                                 corr_x, corr_y)
         if packed or sparse:
             return _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
                                  corr_x, corr_y)
@@ -477,9 +595,9 @@ def make_round_step(
                               cx=cx, cy=cy, round=state.round + 1),
                      state, mask)
 
-    n_extras = int(traced_w) + int(participation)
-    extras_doc = "".join(f"[{name}]" for name, on in (("w", traced_w),
-                                                      ("mask", participation))
+    n_extras = int(traced_w) + int(participation) + int(byzantine)
+    extras_doc = "".join(f"[{name}]" for name, on in (
+        ("w", traced_w), ("mask", participation), ("adversary", byzantine))
                          if on)
 
     def _split_extras(extras):
@@ -491,12 +609,13 @@ def make_round_step(
         it = iter(extras)
         w_t = next(it) if traced_w else None
         mask = next(it) if participation else None
-        return w_t, mask
+        adv = next(it) if byzantine else None
+        return w_t, mask, adv
 
     if traced_etas:
         def round_step(state: KGTState, batches, noise, etas,
                        *extras) -> KGTState:
-            w_t, mask = _split_extras(extras)
+            w_t, mask, adv = _split_extras(extras)
             e = {k: float(v) for k, v in etas.items()}
             # η_s = 1 for the no-tracking baselines (plain averaging)
             return _round(state, batches, noise, e["eta_cx"], e["eta_cy"],
@@ -504,7 +623,7 @@ def make_round_step(
                           e["eta_sy"] if track else 1.0,
                           e["corr_x"] if track else None,
                           e["corr_y"] if track else None,
-                          w_t=w_t, mask=mask)
+                          w_t=w_t, mask=mask, adv=adv)
 
         round_step.uses_round = bool(cfg.topology_cycle)
         return round_step
@@ -513,7 +632,7 @@ def make_round_step(
     eta_sy = cfg.eta_sy if track else 1.0
 
     def round_step(state: KGTState, batches, noise, *extras) -> KGTState:
-        w_t, mask = _split_extras(extras)
+        w_t, mask, adv = _split_extras(extras)
         scale = lr_scale(state.round) if lr_scale is not None else 1.0
         eta_cx = cfg.eta_cx * scale
         eta_cy = cfg.eta_cy * scale
@@ -521,7 +640,7 @@ def make_round_step(
         corr_x = 1.0 / (k_steps * eta_cx) if track else None
         corr_y = -1.0 / (k_steps * eta_cy) if track else None
         return _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
-                      corr_x, corr_y, w_t=w_t, mask=mask)
+                      corr_x, corr_y, w_t=w_t, mask=mask, adv=adv)
 
     # the engine's CUDA graph bakes the host values a round reads; only the
     # lr schedule and the topology cycle read the round index

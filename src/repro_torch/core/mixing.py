@@ -7,13 +7,18 @@ Port of ``repro.core.mixing:45-121, 223-311``:
 * ``mix_packed`` — one contraction over the whole state packed to (n, D).
 * ``mix_sparse`` — the packed state mixed by neighbor-row gather over a
   :class:`~repro_torch.core.sparse_topology.SparseTopology`, never (n, n).
+* ``robust_mix_dense`` / ``robust_mix_sparse`` / ``robust_mix_packed`` —
+  Byzantine-tolerant aggregation (coordinate median, trimmed mean) over the
+  support of W, for the ``ROBUST_IMPLS`` (reference ``:120-225``).
 
 ``gossip_dtype`` narrows only the communicated operands (W and the mixed
 values); the products and their sum stay f32.  A product of two bf16 values
 is exact in f32, so rounding the operands to bf16 and contracting in f32 is
 the JAX package's ``preferred_element_type=float32`` contraction.
 
-The robust (Byzantine-tolerant) impls are not ported yet (ROADMAP A9).
+The robust rules are plain PyTorch (``torch.sort``, ``take_along_dim``), as
+the reference computes them in plain ``jnp``; they make no host sync, so
+they run inside captured engine chunks.
 """
 from __future__ import annotations
 
@@ -27,22 +32,15 @@ from repro_torch.core import sparse_topology as sparse_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.kernels.ref import gossip_torch_dtype, narrow
 
+ROBUST_RULES = ("coord_median", "trimmed_mean")
+# first-class mixing_impl names: dense form + sparse neighbor-gather form
+ROBUST_IMPLS = ("coord_median", "trimmed_mean",
+                "sparse_coord_median", "sparse_trimmed_mean")
 MIXING_IMPLS = ("dense", "ring", "fused_dense", "fused_ring", "pallas_packed",
-                "sparse_packed", "fused_round")
-# JAX impls that this port refuses, with the ROADMAP item that ports them
-UNPORTED_IMPLS = {
-    "coord_median": "A9",
-    "trimmed_mean": "A9",
-    "sparse_coord_median": "A9",
-    "sparse_trimmed_mean": "A9",
-}
+                "sparse_packed", "fused_round") + ROBUST_IMPLS
 
 
 def check_impl(impl: str) -> None:
-    if impl in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"mixing_impl={impl!r} is not ported yet "
-            f"(ROADMAP {UNPORTED_IMPLS[impl]})")
     if impl not in MIXING_IMPLS:
         raise ValueError(f"unknown mixing_impl {impl!r}: {MIXING_IMPLS}")
 
@@ -96,14 +94,115 @@ def mix_sparse(tree: Any, sp, gossip_dtype=None) -> Any:
     return packing.unpack(mixed, spec)
 
 
-def make_mixer(topology: str, impl: str, w, gossip_dtype: str = "float32"):
+# ---------------------------------------------------------------------------
+# robust (Byzantine-tolerant) aggregation
+# ---------------------------------------------------------------------------
+
+def robust_rule(impl: str) -> str:
+    """The aggregation rule of a robust mixing_impl name."""
+    rule = impl[len("sparse_"):] if impl.startswith("sparse_") else impl
+    if rule not in ROBUST_RULES:
+        raise ValueError(f"not a robust mixing_impl: {impl!r} ({ROBUST_IMPLS})")
+    return rule
+
+
+def _robust_reduce(vals: torch.Tensor, valid: torch.Tensor, rule: str,
+                   trim: int) -> torch.Tensor:
+    """Per-coordinate order statistic over the valid slots of each row.
+
+    vals: (n, m, D) candidate values per client; valid: (n, m) bool.
+    Invalid slots (padding, masked links, absent edges) are ignored, and so
+    are non-finite values per coordinate, so a diverged attacker never
+    holds a trim slot.  Every row keeps ≥ 1 finite valid slot per
+    coordinate (the aggregating client itself).
+
+    * ``coord_median`` — midpoint of the two middle order statistics of the
+      k valid values;
+    * ``trimmed_mean`` — mean after dropping the b smallest and b largest
+      values per coordinate, b = min(trim, (k−1)//2).
+
+    k (hence b) is per (row, coordinate).
+    """
+    if rule not in ROBUST_RULES:
+        raise ValueError(f"unknown robust rule {rule!r}: {ROBUST_RULES}")
+    vals = vals.to(torch.float32)
+    m = vals.shape[1]
+    ok = valid.to(torch.bool)[:, :, None] & torch.isfinite(vals)
+    k = ok.sum(1, dtype=torch.int32)                          # (n, D) ≥ 1
+    filled = torch.where(ok, vals, float("inf"))
+    srt = torch.sort(filled, dim=1).values   # valid ascending, inf last
+    if rule == "coord_median":
+        lo = torch.take_along_dim(srt, ((k - 1) // 2)[:, None, :].long(),
+                                  dim=1)
+        hi = torch.take_along_dim(srt, (k // 2)[:, None, :].long(), dim=1)
+        return (0.5 * (lo + hi))[:, 0, :]
+    b = torch.clamp((k - 1) // 2, max=int(trim))                # (n, D)
+    rank = torch.arange(m, dtype=torch.int32, device=vals.device)[None, :,
+                                                                  None]
+    keep = (rank >= b[:, None, :]) & (rank < (k - b)[:, None, :])
+    # where-then-sum (not multiply) so the inf padding never meets a 0
+    total = torch.sum(torch.where(keep, srt, 0.0), dim=1)
+    return total / (k - 2 * b).to(torch.float32)
+
+
+def robust_mix_dense(buf: torch.Tensor, w: torch.Tensor, *, rule: str,
+                     trim: int = 1, gossip_dtype=None) -> torch.Tensor:
+    """Robust aggregation of a packed (n, D) buffer over the support of a
+    dense (n, n) W: client i reduces over ``{j : w_ij > 0} ∪ {i}``.  The
+    communicated values narrow to ``gossip_dtype``; the reduction is f32."""
+    n = w.shape[0]
+    bg = narrow(buf, gossip_torch_dtype(gossip_dtype))
+    valid = (w.to(torch.float32) > 0.0) | torch.eye(n, dtype=torch.bool,
+                                                    device=w.device)
+    vals = bg[None, :, :].expand(n, n, bg.shape[1])
+    return _robust_reduce(vals, valid, rule, trim).to(buf.dtype)
+
+
+def robust_mix_sparse(buf: torch.Tensor, sp, *, rule: str, trim: int = 1,
+                      gossip_dtype=None) -> torch.Tensor:
+    """Neighbor-gather form of :func:`robust_mix_dense`: the candidates are
+    gathered through the padded-CSR lists, O(n·max_deg·D), no (n, n)
+    array.  Validity is ``neighbor_w > 0`` (padding and masked links drop
+    out) and the self slot is always in."""
+    bg = narrow(buf, gossip_torch_dtype(gossip_dtype))
+    n = sp.neighbor_idx.shape[0]
+    gathered = bg[sp.neighbor_idx.long()]                     # (n, m, D)
+    vals = torch.cat([bg[:, None, :], gathered], dim=1)
+    valid = torch.cat([torch.ones((n, 1), dtype=torch.bool,
+                                  device=bg.device), sp.neighbor_w > 0.0],
+                      dim=1)
+    return _robust_reduce(vals, valid, rule, trim).to(buf.dtype)
+
+
+def robust_mix_packed(tree: Any, w, *, rule: str, trim: int = 1,
+                      gossip_dtype=None) -> Any:
+    """Tree-level robust aggregation: ravel to (n, D), reduce, unravel.
+    A ``SparseTopology`` ``w`` takes the neighbor-gather form, a dense
+    matrix the dense one."""
+    spec = packing.pack_spec(tree)
+    red = (robust_mix_sparse if isinstance(w, sparse_lib.SparseTopology)
+           else robust_mix_dense)
+    mixed = red(packing.pack(tree, spec), w, rule=rule, trim=trim,
+                gossip_dtype=gossip_dtype)
+    return packing.unpack(mixed, spec)
+
+
+def make_mixer(topology: str, impl: str, w, gossip_dtype: str = "float32",
+               *, trim: int = 1):
     """Returns mix(tree) -> tree for the configured implementation.
 
     ``w`` is the (n, n) mixing matrix as a tensor on the state's device, or
-    for ``sparse_packed`` a ``SparseTopology`` (a dense matrix is bridged
-    with ``from_dense``).
+    for ``sparse_packed`` and the ``sparse_*`` robust impls a
+    ``SparseTopology`` (a dense matrix is bridged with ``from_dense``).
     """
     check_impl(impl)
+    if impl in ROBUST_IMPLS:
+        rule = robust_rule(impl)
+        if impl.startswith("sparse_") and not isinstance(
+                w, sparse_lib.SparseTopology):
+            w = sparse_lib.from_dense(w)
+        return lambda tree: robust_mix_packed(tree, w, rule=rule, trim=trim,
+                                              gossip_dtype=gossip_dtype)
     if impl.endswith("ring"):
         if topology != "ring":
             raise ValueError(
@@ -128,17 +227,26 @@ def make_mixer(topology: str, impl: str, w, gossip_dtype: str = "float32"):
     return lambda tree: mix_dense(tree, w, gossip_dtype)
 
 
-def make_traced_mixer(impl: str, gossip_dtype: str = "float32"):
+def make_traced_mixer(impl: str, gossip_dtype: str = "float32", *,
+                      trim: int = 1):
     """Per-round-W analogue of :func:`make_mixer`: ``mix(tree, w)`` with W
     an argument — a sampled or participation-masked matrix, a
-    ``SparseTopology`` for ``sparse_packed``.  The ring impls hard-code
-    their exchange and cannot realize an arbitrary W, so they raise."""
+    ``SparseTopology`` for ``sparse_packed`` and the ``sparse_*`` robust
+    impls.  The ring impls hard-code their exchange and cannot realize an
+    arbitrary W, so they raise."""
     check_impl(impl)
     if impl.endswith("ring"):
         raise ValueError(
             f"mixing_impl={impl!r} is a neighbor-only exchange and cannot "
             "realize a traced (per-round random or participation-masked) W; "
             "use 'dense', 'fused_dense', or 'pallas_packed'")
+    if impl in ROBUST_IMPLS:
+        # W as support: a SparseTopology for the sparse_* forms, an (n, n)
+        # tensor otherwise; robust_mix_packed dispatches on it
+        rule = robust_rule(impl)
+        return lambda tree, w: robust_mix_packed(tree, w, rule=rule,
+                                                 trim=trim,
+                                                 gossip_dtype=gossip_dtype)
     if impl == "sparse_packed":
         return lambda tree, sp: mix_sparse(tree, sp, gossip_dtype)
     if impl == "pallas_packed":

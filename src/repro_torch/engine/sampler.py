@@ -27,20 +27,22 @@ def make_fixed_batch_sampler(batches, *, local_steps: int, num_clients: int,
     return sample
 
 
-def with_topology(sampler, *, w_fn=None, mask_fn=None):
-    """Rides the churn axes on the engine's sampler slot: each round also
-    draws that round's mixing matrix and/or participation mask (pure
-    functions of the round index, e.g. ``core.stochastic_topology`` or
-    ``core.sparse_topology`` samplers).
+def with_topology(sampler, *, w_fn=None, mask_fn=None, attack_fn=None):
+    """Rides the churn and adversary axes on the engine's sampler slot:
+    each round also draws that round's mixing matrix, participation mask
+    and/or Byzantine adversary (pure functions of the round index, e.g.
+    ``core.stochastic_topology``, ``core.sparse_topology`` or
+    ``core.adversary`` samplers).
 
     The wrapped sampler returns ``(batches, noise, extras)``; the engine
     splats ``extras`` into ``round_step(state, batches, noise, *extras)`` in
-    the order (W, mask) — ``make_round_step(traced_w=...,
-    participation=...)``'s order.
+    the order (W, mask, adversary) — ``make_round_step(traced_w=...,
+    participation=..., byzantine=...)``'s order.
     """
-    fns = tuple(f for f in (w_fn, mask_fn) if f is not None)
+    fns = tuple(f for f in (w_fn, mask_fn, attack_fn) if f is not None)
     if not fns:
-        raise ValueError("with_topology needs w_fn and/or mask_fn")
+        raise ValueError(
+            "with_topology needs w_fn, mask_fn, and/or attack_fn")
 
     def sample(round_idx: int):
         sampled = sampler(round_idx)

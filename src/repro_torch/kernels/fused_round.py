@@ -67,7 +67,8 @@ def fused_round_wire(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
     Δ itself without compression.  The route is :func:`route`'s;
     ``force_route="block"`` takes the block route whatever dz, and forcing
     ``"cluster"`` where no cluster holds G raises.  Counts its launches in
-    ``fused_round_nd.launches`` and, by route, in ``fused_round_nd.routes``.
+    ``fused_round_nd.launches`` and, by route, in ``fused_round_nd.routes``;
+    a launch with ``compress`` also by route in ``fused_round_nd.compressed``.
     """
     if compress not in COMPRESS_CODES:
         raise ValueError(f"unknown compress {compress!r}")
@@ -95,6 +96,8 @@ def fused_round_wire(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
     _build.check(err, "fused_round_launch")
     fused_round_nd.launches += 1
     fused_round_nd.routes[which] += 1
+    if compress is not None:
+        fused_round_nd.compressed[which] += 1
     return z_new, c_new, e_new, q
 
 
@@ -108,3 +111,4 @@ def fused_round_nd(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
 
 fused_round_nd.launches = 0
 fused_round_nd.routes = dict.fromkeys(ROUTES, 0)
+fused_round_nd.compressed = dict.fromkeys(ROUTES, 0)

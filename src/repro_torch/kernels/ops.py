@@ -65,6 +65,11 @@ ROUTED = {"flash_attention": "tensor_core",
           "sparse_gossip": "stripe"}
 
 
+# a wrapper's counts by route: ``routes`` (every launch), ``compressed``
+# (B2's launches with compress)
+_BY_ROUTE = ("routes", "compressed")
+
+
 def launch_counts() -> dict:
     """Launches of each CUDA kernel so far in this process."""
     return {name: fn.launches for name, fn in KERNELS.items()}
@@ -75,26 +80,35 @@ def route_counts() -> dict:
     return {name: dict(KERNELS[name].routes) for name in ROUTED}
 
 
+def compressed_route_counts() -> dict:
+    """Launches of the whole-round kernel (B2) with ``compress`` (its EF
+    quantizer, B3, inside), by route."""
+    return {"fused_round": dict(KERNELS["fused_round"].compressed)}
+
+
 def zero_launch_counts() -> None:
     """Sets every launch count, and every count by route, to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for name in ROUTED:
-        KERNELS[name].routes = dict.fromkeys(KERNELS[name].routes, 0)
+        for attr in _BY_ROUTE:
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 
 
 def add_launch_counts(delta: dict) -> None:
     """Adds ``delta`` (as :func:`uncounted` yields it) to the counts: what
     a CUDA graph replay launches, the launches its capture recorded."""
-    for name, (launches, routes) in delta.items():
+    for name, (launches, *by_route) in delta.items():
         fn = KERNELS[name]
         fn.launches += launches
-        for route, k in routes.items():
-            fn.routes[route] += k
+        for attr, counts in zip(_BY_ROUTE, by_route):
+            for route, k in counts.items():
+                getattr(fn, attr)[route] += k
 
 
 def _count_snapshot() -> dict:
-    return {name: (fn.launches, dict(getattr(fn, "routes", {})))
+    return {name: (fn.launches, *(dict(getattr(fn, attr, {}))
+                                  for attr in _BY_ROUTE))
             for name, fn in KERNELS.items()}
 
 
@@ -102,7 +116,8 @@ def _count_snapshot() -> dict:
 def uncounted():
     """Launches inside the block do not count: on exit every count is what
     it was on entry.  Yields a dict that then holds what they would have
-    added, ``{kernel: (launches, {route: launches})}``, for
+    added, ``{kernel: (launches, {route: launches}, {route: compressed
+    launches})}``, for
     :func:`add_launch_counts` (a CUDA graph's warm-up and capture run the
     wrappers, but only a replay launches)."""
     before = _count_snapshot()
@@ -111,16 +126,17 @@ def uncounted():
         yield delta
     finally:
         after = _count_snapshot()
-        for name, (launches, routes) in after.items():
-            b_launches, b_routes = before[name]
+        for name, (launches, *by_route) in after.items():
+            b_launches, *b_by_route = before[name]
             if launches != b_launches:
-                delta[name] = (launches - b_launches,
-                               {r: k - b_routes.get(r, 0)
-                                for r, k in routes.items()})
+                delta[name] = (launches - b_launches, *(
+                    {r: k - b.get(r, 0) for r, k in counts.items()}
+                    for counts, b in zip(by_route, b_by_route)))
             fn = KERNELS[name]
             fn.launches = b_launches
-            if hasattr(fn, "routes"):
-                fn.routes = dict(b_routes)
+            for attr, b in zip(_BY_ROUTE, b_by_route):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, dict(b))
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:

@@ -26,7 +26,9 @@ def quantize_dequant(v: torch.Tensor, method: str) -> torch.Tensor:
     if method == "bf16":
         return v.to(torch.bfloat16).to(torch.float32)
     if method == "int8":
-        inv = torch.tensor(INV_127, dtype=torch.float32, device=v.device)
+        # the f32 constant, filled on the device (no host copy, so the
+        # quantizer runs inside a captured CUDA graph)
+        inv = v.new_full((), INV_127, dtype=torch.float32)
         s = torch.amax(torch.abs(v), dim=-1, keepdim=True) * inv
         safe = torch.where(s > 0, s, torch.ones_like(s))
         q = torch.clamp(torch.round(v / safe), -127.0, 127.0)

@@ -119,6 +119,45 @@ def fused_round_ref(w, z0, c, ef, g, h_steps, step, etas, corr, mask, *,
     return wz + etas * wq, c.to(torch.float32) + corr * (q - wq), e_new
 
 
+def robust_agg_ref(vals, valid, *, rule, trim: int = 1):
+    """Robust-aggregation oracle (coordinate median / b-trimmed mean over
+    each row's valid slots), the ground truth ``mixing.robust_mix_dense``
+    and ``robust_mix_sparse`` are tested against (port of
+    ``repro.kernels.ref.robust_agg_ref``).
+
+    vals: (n, m, D); valid: (n, m) bool with ≥ 1 valid slot per row.
+    Non-finite values are invalid per coordinate.  Deliberately another
+    float path than the implementations: the median goes through
+    ``torch.nanmedian`` (which takes the lower middle value, so the two
+    middle values are averaged here), and the trimmed mean sorts
+    descending, so the surviving values sum in the reverse order.
+    """
+    v32 = vals.to(torch.float32)
+    ok = valid.to(torch.bool)[:, :, None] & torch.isfinite(v32)
+    k = ok.sum(1, dtype=torch.int64)                          # (n, D)
+    if rule == "coord_median":
+        lo = torch.nanmedian(torch.where(ok, v32, float("nan")),
+                             dim=1).values
+        # the upper middle value, from the descending sort (lo when k is
+        # odd)
+        desc = torch.sort(torch.where(ok, v32, -torch.inf), dim=1,
+                          descending=True).values
+        hi = torch.take_along_dim(desc, ((k - 1) // 2)[:, None, :],
+                                  dim=1)[:, 0, :]
+        return 0.5 * (lo + hi)
+    if rule != "trimmed_mean":
+        raise ValueError(f"unknown robust rule {rule!r}")
+    m = vals.shape[1]
+    b = torch.clamp((k - 1) // 2, max=int(trim))
+    # invalid -> -inf, descending: valid values first, largest first
+    desc = torch.sort(torch.where(ok, v32, -torch.inf), dim=1,
+                      descending=True).values
+    rank = torch.arange(m, device=v32.device)[None, :, None]
+    keep = (rank >= b[:, None, :]) & (rank < (k - b)[:, None, :])
+    total = torch.sum(torch.where(keep, desc, 0.0), dim=1)
+    return total / (k - 2 * b).to(torch.float32)
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   q_block: int = 1024):
     """Causal / sliding-window GQA attention, f32 softmax.

@@ -37,7 +37,8 @@ bf16 = 2); with ``gossip_compress`` the Δ-gossip narrows to the quantizer's
 wire width (``kernels.quantize.wire_bits``: bf16 = 2 bytes, int8 = 1 byte
 **plus one f32 scale per row per link** — the per-client scale travels with
 the codes).  The θ-gossip stays at ``gossip_dtype``; compression applies to
-the transmitted delta only (ROADMAP A7 ports the compressed round).
+the transmitted delta only (``core.compression``, the compressed round of
+``pallas_packed`` and ``fused_round``).
 
 For per-round *random* topologies (churn families) the ledger accounts the
 static support graph — an exact figure for ``static``/``dropout`` upper

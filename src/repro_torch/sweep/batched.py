@@ -22,9 +22,9 @@ finished), and the host keeps its state, ``round`` included, frozen at the
 boundary where the sequential ``stop_fn`` would have stopped — the
 reference's ``where(active, new, old)``.
 
-Etas, seeds and churn scalars are host values, baked into a trajectory's
-graph; they are fixed for a trajectory's life, so one capture serves all
-its chunks.  There is no mesh (ROADMAP A13) and no adversary (A9).
+Etas, seeds and churn and adversary scalars are host values, baked into a
+trajectory's graph; they are fixed for a trajectory's life, so one capture
+serves all its chunks.  There is no mesh (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import engine as engine_lib
+from repro_torch.core import adversary as adversary_lib
 from repro_torch.core import sparse_topology as sparse_lib
 from repro_torch.core import stochastic_topology as stoch_lib
 from repro_torch.core import tree as tree_lib
@@ -53,8 +54,10 @@ class Trajectories:
     etas: Dict[str, Any]    # stepsize bundle (core.point_etas), host floats
     seed: int               # noise sampler seed
     active: bool = True     # False freezes the trajectory
-    # churn bundle (None on fixed-topology cells): host scalars of the
-    # per-round W / mask draws — {"seed", "edge_prob", "drop_prob", "rate"}
+    # churn and adversary bundle (None on fixed-topology honest cells):
+    # host scalars of the per-round W / mask / adversary draws — {"seed",
+    # "edge_prob", "drop_prob", "rate", "num_byzantine", "attack_id",
+    # "attack_scale"}
     topo: Optional[dict] = None
 
 
@@ -125,10 +128,23 @@ def make_trajectory_chunk_builder(round_step, traj_sampler: TrajSampler):
     return build
 
 
+_STATE_FIELDS = ("x", "y", "cx", "cy", "ef_x", "ef_y")
+
+
+def _fields(state: KGTState) -> tuple:
+    """A state's tensors (the EF residuals None without compression)."""
+    return tuple(getattr(state, f) for f in _STATE_FIELDS)
+
+
+def _state(fields: tuple, round_idx: int) -> KGTState:
+    return KGTState(round=round_idx, **dict(zip(_STATE_FIELDS, fields)))
+
+
 @dataclasses.dataclass
 class _Cell:
     """A cell as the engine's chunk state: every trajectory's (x, y, cx,
-    cy) and eta bundle, and the round the active trajectories are at."""
+    cy, ef_x, ef_y) and eta bundle, and the round the active trajectories
+    are at."""
     states: List[tuple]
     etas: List[Dict[str, Any]]
     round: int
@@ -145,8 +161,8 @@ def make_batched_chunk_builder(round_step, traj_sampler: TrajSampler):
         out = []
         for st, etas, b, nz, ex in zip(cell.states, cell.etas, batches,
                                        noise, extras):
-            s = round_step(KGTState(*st, round=cell.round), b, nz, etas, *ex)
-            out.append((s.x, s.y, s.cx, s.cy))
+            s = round_step(_state(st, cell.round), b, nz, etas, *ex)
+            out.append(_fields(s))
         return _Cell(states=out, etas=cell.etas, round=cell.round + 1)
 
     cell_step.uses_round = getattr(round_step, "uses_round", True)
@@ -157,8 +173,7 @@ def make_batched_chunk_builder(round_step, traj_sampler: TrajSampler):
             live = [t.state.round for t in trajs if t.active]
             if not live:
                 return trajs, None
-            cell = _Cell(states=[(t.state.x, t.state.y, t.state.cx,
-                                  t.state.cy) for t in trajs],
+            cell = _Cell(states=[_fields(t.state) for t in trajs],
                          etas=[t.etas for t in trajs], round=live[0])
 
             def sample(round_idx: int):
@@ -169,8 +184,7 @@ def make_batched_chunk_builder(round_step, traj_sampler: TrajSampler):
 
             cell, _ = runner(cell, final_round, sampler=sample,
                              length=length)
-            return [dataclasses.replace(t, state=KGTState(*st,
-                                                          round=cell.round))
+            return [dataclasses.replace(t, state=_state(st, cell.round))
                     if t.active else t
                     for t, st in zip(trajs, cell.states)], None
 
@@ -206,22 +220,21 @@ def make_churn_traj_sampler(*, local_steps: int, num_clients: int,
                             participation: bool = False,
                             sparse_support=None, byzantine: bool = False,
                             noise: bool = True, device="cuda"):
-    """:func:`make_quadratic_traj_sampler` plus the churn draws: each round
-    also draws the mixing matrix (``family`` ≠ "static") and/or the
-    participation mask, from the trajectory's ``topo`` bundle (topology
-    seed, edge probability, drop probability, participation rate).
+    """:func:`make_quadratic_traj_sampler` plus the churn and adversary
+    draws: each round also draws the mixing matrix (``family`` ≠
+    "static"), the participation mask and/or the Byzantine adversary, from
+    the trajectory's ``topo`` bundle (topology seed, edge probability, drop
+    probability, participation rate, attacker count, attack id and scale).
 
-    The family and the participation flag are static cell properties; the
-    bundle's scalars vary within a cell.  The draws are
-    ``core.stochastic_topology``'s samplers (``core.sparse_topology``'s on
-    ``sparse_support``, whose W is a ``SparseTopology``), pure functions of
-    the round, so a cell is bit for bit its points and a checkpoint
-    resumes exactly.  ``base_w`` is the matrix of ``static`` and
-    ``dropout``.  ``byzantine`` (the adversary, ROADMAP A9) raises.
+    The family, the participation flag and the byzantine flag are static
+    cell properties; the bundle's scalars vary within a cell.  The draws
+    are ``core.stochastic_topology``'s samplers (``core.sparse_topology``'s
+    on ``sparse_support``, whose W is a ``SparseTopology``) and
+    ``core.adversary.make_attack_sampler`` (seeded by the topology seed,
+    its noise shaped as the trajectory's variables), pure functions of the
+    round, so a cell is bit for bit its points and a checkpoint resumes
+    exactly.  ``base_w`` is the matrix of ``static`` and ``dropout``.
     """
-    if byzantine:
-        raise NotImplementedError(
-            "byzantine (the adversary axis) is not ported yet (ROADMAP A9)")
     if family not in stoch_lib.TOPOLOGY_FAMILIES:
         raise ValueError(f"unknown topology family {family!r}: "
                          f"{stoch_lib.TOPOLOGY_FAMILIES}")
@@ -231,6 +244,7 @@ def make_churn_traj_sampler(*, local_steps: int, num_clients: int,
         noise_dim=noise_dim, noise=noise, device=device)
     w_fns: Dict[tuple, Any] = {}
     mask_fns: Dict[tuple, Any] = {}
+    attack_fns: Dict[tuple, Any] = {}
 
     def w_fn(topo):
         key = (topo["seed"], topo["edge_prob"], topo["drop_prob"])
@@ -252,6 +266,19 @@ def make_churn_traj_sampler(*, local_steps: int, num_clients: int,
                 num_clients, topo["seed"], topo["rate"], device=device)
         return mask_fns[key]
 
+    def attack_fn(traj):
+        topo = traj.topo
+        key = (topo["seed"], topo["num_byzantine"], topo["attack_id"],
+               topo["attack_scale"])
+        if key not in attack_fns:
+            attack_fns[key] = adversary_lib.make_attack_sampler(
+                num_clients, topo["seed"],
+                num_byzantine=topo["num_byzantine"],
+                attack=adversary_lib.ATTACKS[topo["attack_id"]],
+                scale=topo["attack_scale"],
+                like=(traj.state.x, traj.state.y), device=device)
+        return attack_fns[key]
+
     def sample(round_idx: int, traj: Trajectories):
         batches, nz = base_sample(round_idx, traj)
         extras = []
@@ -259,6 +286,8 @@ def make_churn_traj_sampler(*, local_steps: int, num_clients: int,
             extras.append(w_fn(traj.topo)(round_idx))
         if participation:
             extras.append(mask_fn(traj.topo)(round_idx))
+        if byzantine:
+            extras.append(attack_fn(traj)(round_idx))
         return batches, nz, tuple(extras)
 
     return sample

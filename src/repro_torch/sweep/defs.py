@@ -9,9 +9,8 @@ boundary — K / topology / n / algorithm change the traced program (static),
 seed / heterogeneity / sigma / stepsizes are array leaves (batchable).
 
 ``python -m repro_torch.sweep.run <name>`` runs them and persists
-``results/sweeps_torch/<name>.json``.  The ``adversary`` grid is defined
-here so that its cells match the reference's; running a cell with
-attackers or a robust aggregation raises until ROADMAP A9 ports them.
+``results/sweeps_torch/<name>.json``; every sweep runs, the ``adversary``
+grid (attackers against the robust aggregations) included.
 """
 from __future__ import annotations
 

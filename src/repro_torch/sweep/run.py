@@ -39,7 +39,7 @@ from repro_torch.core import (
     quadratic_cell_problem,
     sparse_mixing_matrix,
 )
-from repro_torch.core import mixing as mixing_lib
+from repro_torch.core import adversary as adversary_lib
 from repro_torch.kernels import _build
 from repro_torch.sweep import batched as batched_lib
 from repro_torch.sweep import grid as grid_lib
@@ -100,19 +100,6 @@ def _cfg(p: Dict[str, Any]) -> AlgorithmConfig:
         gossip_compress=p["gossip_compress"])
 
 
-def _check_ported(p: Dict[str, Any]) -> None:
-    """Refuse the points of options this port does not run yet."""
-    if p["gossip_compress"] not in (None, "none", ""):
-        raise NotImplementedError(
-            f"gossip_compress={p['gossip_compress']!r} (compressed gossip) "
-            "is not ported yet (ROADMAP A7)")
-    if _byz(p) or p["attack"] != "honest":
-        raise NotImplementedError(
-            f"num_byzantine={p['num_byzantine']} / attack={p['attack']!r} "
-            "(the adversary axis) is not ported yet (ROADMAP A9)")
-    mixing_lib.check_impl(p["mixing_impl"])
-
-
 def prepare_trajectory(p: Dict[str, Any], *, device="cuda"):
     """One point -> (Trajectories, ∇Φ-oracle constants).
 
@@ -139,10 +126,13 @@ def prepare_trajectory(p: Dict[str, Any], *, device="cuda"):
     kb = {k: v.unsqueeze(0).expand(p["K"], *v.shape) for k, v in cb.items()}
     random_w, part = _churn(p)
     topo = None
-    if random_w or part:
+    if random_w or part or _byz(p):
         topo = {"seed": int(p["seed"]), "edge_prob": float(p["edge_prob"]),
                 "drop_prob": float(p["client_drop_prob"]),
-                "rate": float(p["participation"])}
+                "rate": float(p["participation"]),
+                "num_byzantine": int(p["num_byzantine"]),
+                "attack_id": adversary_lib.ATTACK_IDS[p["attack"]],
+                "attack_scale": float(p["attack_scale"])}
     traj = batched_lib.Trajectories(
         state=st, batches=kb, etas=point_etas(_cfg(p)), seed=int(p["seed"]),
         active=True, topo=topo)
@@ -167,12 +157,14 @@ def _cell_programs(p: Dict[str, Any], *, batched: bool, device="cuda"):
     problem = quadratic_cell_problem(DX, DY, mu=1.0, noise=noise,
                                      device=device)
     random_w, part = _churn(p)
+    byz = _byz(p)
     round_step = make_round_step(problem, _cfg(p), traced_etas=True,
                                  traced_w=random_w, participation=part,
-                                 device=device)
+                                 byzantine=byz, device=device)
     common = dict(local_steps=p["K"], num_clients=p["n"],
-                  noise_dim=problem.noise_dim, noise=noise, device=device)
-    if random_w or part:
+                  noise_dim=problem.noise_dim, noise=noise, byzantine=byz,
+                  device=device)
+    if random_w or part or byz:
         if p["mixing_impl"].startswith("sparse_"):
             # the W slot carries a SparseTopology: the draw runs on the
             # neighbor lists of the support graph, never an (n, n) array
@@ -188,6 +180,7 @@ def _cell_programs(p: Dict[str, Any], *, batched: bool, device="cuda"):
                 family=p["topology_family"], base_w=base_w,
                 participation=part, **common)
     else:
+        common.pop("byzantine")
         sampler = batched_lib.make_quadratic_traj_sampler(**common)
     if batched:
         return batched_lib.make_batched_chunk_builder(round_step, sampler)
@@ -219,7 +212,6 @@ def run_point(p: Dict[str, Any], *, device="cuda"):
     grad), …]`` of the evaluation grid.
     """
     p = _full_point(p)
-    _check_ported(p)
     t0 = time.perf_counter()
     built0 = _build.stats["build_s"]
     traj, consts = prepare_trajectory(p, device=device)
@@ -276,9 +268,6 @@ def run_cell(cell: grid_lib.Cell, *, device="cuda",
                 "declare them as static axes (or give the sigma axis "
                 "cell_key=lambda s: s > 0, a participation axis spanning "
                 "1.0 cell_key=lambda r: r < 1)")
-    for p in points:
-        _check_ported(p)
-
     t0 = time.perf_counter()
     built0 = _build.stats["build_s"]
     prepared = [prepare_trajectory(p, device=device) for p in points]

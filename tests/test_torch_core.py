@@ -4,6 +4,7 @@ the options the port refuses.
 Topology is a numpy-only copy, so it must agree exactly; packing must give
 the reference's column layout bit for bit.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -96,22 +97,45 @@ def _problem(n=4):
     return quadratic_problem(data, sigma=0.1), data
 
 
+# options the port once refused, each now taken on a lowering that takes
+# it (first dict: the config, second: make_round_step's flags) and refused
+# with the reference's own ValueError where the reference refuses it (third:
+# the config change that makes it refused)
 UNPORTED = [
-    ({"mixing_impl": "coord_median"}, {}, "A9"),
-    ({"mixing_impl": "sparse_trimmed_mean"}, {}, "A9"),
-    ({"gossip_compress": "int8"}, {}, "A7"),
-    ({"num_byzantine": 1}, {}, "A9"),
-    ({"attack": "sign_flip"}, {}, "A9"),
-    ({}, {"byzantine": True}, "A9"),
+    ({"mixing_impl": "coord_median"}, {},
+     {"topology_cycle": ("ring", "full")}),
+    ({"mixing_impl": "sparse_trimmed_mean"}, {}, {"topology_cycle": ("ring",)}),
+    ({"gossip_compress": "int8", "mixing_impl": "pallas_packed"}, {},
+     {"mixing_impl": "dense"}),
+    ({"num_byzantine": 1, "mixing_impl": "trimmed_mean"},
+     {"byzantine": True}, {"mixing_impl": "fused_round"}),
+    ({"attack": "sign_flip", "gossip_compress": "bf16",
+      "mixing_impl": "fused_round"}, {}, {"mixing_impl": "sparse_packed"}),
+    ({}, {"byzantine": True}, {"mixing_impl": "fused_round"}),
 ]
 
 
-@pytest.mark.parametrize("cfg_kw,step_kw,item", UNPORTED)
-def test_unported_options_raise(cfg_kw, step_kw, item):
+@pytest.mark.parametrize("cfg_kw,step_kw,refused_kw", UNPORTED)
+def test_unported_options_raise(cfg_kw, step_kw, refused_kw):
+    """Formerly refused options are ported: taken where the reference takes
+    them, refused with the reference's message where it refuses them."""
+    from repro.configs.base import AlgorithmConfig as JaxConfig
+    from repro.core import make_quadratic_data as jax_make_data
+    from repro.core import make_round_step as jax_make_round_step
+    from repro.core import quadratic_problem as jax_quadratic_problem
+
     prob, _ = _problem()
-    cfg = AlgorithmConfig(num_clients=4, **cfg_kw)
-    with pytest.raises(NotImplementedError, match=item):
-        make_round_step(prob, cfg, device="cpu", **step_kw)
+    make_round_step(prob, AlgorithmConfig(num_clients=4, **cfg_kw),
+                    device="cpu", **step_kw)
+    bad = {**cfg_kw, **refused_kw}
+    with pytest.raises(ValueError) as ours:
+        make_round_step(prob, AlgorithmConfig(num_clients=4, **bad),
+                        device="cpu", **step_kw)
+    jprob = jax_quadratic_problem(
+        jax_make_data(jax.random.PRNGKey(0), 4, dx=6, dy=3), sigma=0.1)
+    with pytest.raises(ValueError) as ref:
+        jax_make_round_step(jprob, JaxConfig(num_clients=4, **bad), **step_kw)
+    assert str(ours.value) == str(ref.value)
 
 
 def test_invalid_options_raise():

@@ -184,21 +184,32 @@ def test_refusals_match_the_reference():
 
 
 @pytest.mark.parametrize("point,item", [
-    (dict(gossip_compress="int8"), "A7"),
-    (dict(num_byzantine=1, attack="sign_flip"), "A9"),
-    (dict(mixing_impl="coord_median"), "A9"),
+    (dict(gossip_compress="int8"), "pallas_packed"),
+    (dict(num_byzantine=1, attack="sign_flip"), "fused_round"),
+    (dict(mixing_impl="coord_median"), "dense"),
 ])
 def test_unported_points_raise_naming_the_roadmap_item(point, item):
+    """Compressed, Byzantine and robust points run (run_point and run_cell
+    agree), and a point on a lowering the reference refuses for the option
+    raises the reference's ValueError."""
     p = dict(n=4, K=2, max_rounds=4, eval_every=2, **point)
-    with pytest.raises(NotImplementedError, match=item):
-        sweep_run.run_point(p, device=DEV)
-    with pytest.raises(NotImplementedError, match=item):
-        sweep_run.run_cell(grid.Cell(key="c", static={}, points=(p,)),
-                           device=DEV)
-    with pytest.raises(NotImplementedError, match="A9"):
-        batched_lib.make_churn_traj_sampler(
-            local_steps=2, num_clients=4, noise_dim=15, family="static",
-            byzantine=True, device=DEV)
+    if "gossip_compress" in point:
+        p["mixing_impl"] = item                   # taken on pallas_packed
+    hit, final, _, _ = sweep_run.run_point(p, device=DEV)
+    (res,), _ = sweep_run.run_cell(grid.Cell(key="c", static={},
+                                             points=(p,)), device=DEV)
+    assert (res["rounds_to_eps"], res["final_grad"]) == (hit, final)
+    assert np.isfinite(final)
+    bad = dict(p, mixing_impl="dense" if "gossip_compress" in point
+               else item)
+    if "mixing_impl" in point:
+        bad = dict(p, topology_family="erdos_renyi", mixing_impl=item,
+                   gossip_compress="bf16")
+    with pytest.raises(ValueError) as ours:
+        sweep_run.run_point(bad, device=DEV)
+    with pytest.raises(ValueError) as ref:
+        jax_run.run_point(bad, cache=None)
+    assert str(ours.value) == str(ref.value)
 
 
 def test_store_round_trips(tmp_path):
