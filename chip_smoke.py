@@ -101,7 +101,22 @@ Phases, each printing one JSON line:
 14. obs — ``obs.health_gauges`` on a compressed state and one
    ``obs.Profiler`` window over 10 captured rounds (a non-empty trace).
 
-Phases 12–14 run after the sweep phase, before serve.
+15. train — federated DRO training of qwen2-0.5b at full width (24
+   layers, d_model 896, V = 151 936; bf16 compute, f32 state) through
+   ``launch.train`` at the reference's train defaults (n = 4, K = 4,
+   batch 4 × 128 tokens a client, 8 groups): one local step's per-client
+   gradients (``vmap(grad)``) through B5 and B6 against the plain route in
+   f32 compute (the CUDA-core routes, within 1e-4·(1 + max)) and bf16 (the
+   tensor-core routes); the main path, three rounds at n = 4 in one
+   captured chunk (the state donated to it) with B5's and B6's launches by
+   route, bit for bit the same rounds eager; a checkpoint resume of a
+   captured run at n = 2; rounds/s eager and captured in turns, capture s,
+   tokens/s, peak memory; one round of each baseline; B5 and B6 at the
+   train shapes, held against their plain versions, with forward, plain
+   and backward times.
+
+Phases 12–14 run after the sweep phase, before serve; phase 15 after
+evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
@@ -128,7 +143,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "evaluate",
-          "times")
+          "train", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -191,6 +206,13 @@ TOL_SERVE_F32 = 1e-4     # the same checks in f32 compute, × (1 + max)
 TOL_SSD = 1e-5           # SSD scan y and final state, × (1 + max|plain|)
 TOL_CE = 1e-5            # fused cross-entropy NLL, × (1 + max|plain|)
 TOL_EVAL = 1e-3          # group losses, kernel vs plain route, × (1 + max)
+TOL_TRAIN_F32 = 1e-4     # per-client gradients, kernels vs plain, f32 compute
+# the same in bf16 (B5's accumulation order, B6's f32 logits: quirk 4), x and
+# y apart, each × (1 + max|plain|): read 2.18e-3 to 2.38e-3 (x) and 3.14e-5
+# to 3.25e-5 (y) at two random ȳ (PERF.md); B5's and B6's bf16 outputs at
+# the train shapes are held at TOL_ATTN_BF16 and TOL_CE (``train_kernel_times``)
+TOL_TRAIN_BF16_X = 1e-2
+TOL_TRAIN_BF16_Y = 2e-4
 
 # the serving path: recurrentgemma-9b at full width in bf16, 4 prompts of two
 # windows (4096 tokens), 32 new tokens each
@@ -203,6 +225,12 @@ MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2-1.3b", 8, 4096, 32
 # (train_4k's length) for each of 4 clients, 8 groups (the reference's
 # make_data_model defaults)
 EVAL_CLIENTS, EVAL_B, EVAL_S, EVAL_GROUPS = 4, 4, 4096, 8
+# federated DRO training (the reference's train defaults): qwen2-0.5b at
+# full width, n = 4 clients, K = 4, batch 4 × 128 tokens, 8 groups; the
+# checkpoint resume at n = 2 (half the checkpoint written to disk)
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_N, TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_G = 4, 4, 4, 128, 8
+TRAIN_RESUME_N, TRAIN_ROUNDS = 2, 3
 # each two-route kernel's first-port route (the others': "cuda_core")
 OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
              "sparse_gossip": "row_block"}
@@ -2713,6 +2741,450 @@ def phase_evaluate(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: federated DRO training of qwen2-0.5b at full width
+# ---------------------------------------------------------------------------
+
+def train_args(**over):
+    """``launch.train``'s flags at the reference's train defaults (n = 4
+    on a ring, K = 4, batch 4 × 128 tokens a client, 8 groups,
+    kgt_minimax on dense) on qwen2-0.5b at full width, with ``over``."""
+    from repro_torch.launch import train as train_lib
+
+    args = train_lib.parser().parse_args(["--arch", TRAIN_ARCH])
+    for k, v in over.items():
+        setattr(args, k, v)
+    return args
+
+
+def tree_rel_err(got, want) -> float:
+    """max |got − want| / (1 + max |want|) over every tensor leaf of two
+    trees."""
+    from repro_torch.core import tree as tree_lib
+
+    import torch
+
+    err = top = 0.0
+    for a, b in zip(tree_lib.leaves(got), tree_lib.leaves(want)):
+        if not isinstance(a, torch.Tensor):
+            continue
+        err = max(err, max_err(a.float(), b.float()))
+        top = max(top, float(b.float().abs().max()))
+    return err / (1.0 + top)
+
+
+def to_host(tree):
+    """Every tensor leaf of a tree copied to host memory."""
+    import torch
+
+    from repro_torch.core import tree as tree_lib
+
+    return tree_lib.tree_map(
+        lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def trees_equal(a, b) -> bool:
+    """Every leaf bit for bit (host values equal)."""
+    import torch
+
+    from repro_torch.core import tree as tree_lib
+
+    la, lb = tree_lib.leaves(a), tree_lib.leaves(b)
+    return len(la) == len(lb) and all(
+        bitwise_equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def train_launches(cfg, *, n, k, rounds, logged) -> dict:
+    """B5 and B6 launches of ``rounds`` rounds of the DRO training path:
+    the initial corrections' gradient and each local step's vmapped
+    gradient launch B5 once a layer (the clients folded into its batch)
+    and B6 once a client (each client's own head); each logged row runs
+    three forwards of x̄ (f(x̄, ȳ), the train groups, the held-out
+    groups), each once a layer and once."""
+    layers = len(cfg.blocks())
+    grads = 1 + rounds * k
+    return {**NO_MODEL_KERNELS,
+            "flash_attention": layers * (grads + 3 * logged),
+            "fused_cross_entropy": n * grads + 3 * logged}
+
+
+def train_grad_checks(dev, gen, smi) -> dict:
+    """One local step's per-client gradients (``vmap(grad)`` of the DRO
+    value at the initial parameters and a random positive ȳ — at the
+    initial ȳ = 0 the x-gradient is 0 —, the first round's k = 0 batch)
+    through the
+    kernels and through the plain route, in f32 compute (the kernels'
+    CUDA-core routes) and in bf16 (their tensor-core routes), with B5's and
+    B6's launches by route."""
+    import torch
+
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import objectives
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+
+    args = train_args(device=dev)
+    trainer = train_lib.build(args)
+    batches, noise = trainer.sampler(0)[:2]
+    batch = {key: v[0] for key, v in batches.items()}
+    x = trainer.state.x
+    y = torch.rand(trainer.state.y.shape, generator=gen, device=dev)
+    out = {}
+    for dt, route, tol in (
+            (torch.float32, "cuda_core", (TOL_TRAIN_F32, TOL_TRAIN_F32)),
+            (torch.bfloat16, "tensor_core",
+             (TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y))):
+        grads = {}
+        for kernels in (True, False):
+            problem = objectives.dro_problem(
+                trainer.cfg, num_groups=args.groups, mu=args.mu,
+                compute_dtype=dt, kernels=kernels)
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads[kernels] = kgt._vgrads(problem, x, y, batch, noise[0])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if kernels:
+                launches, routes = launch_counts(), route_counts()
+                kernel_s = secs
+            elif any(launch_counts().values()):
+                fail(f"train grads ({dt}): the plain route launched "
+                     f"{launch_counts()}")
+            else:
+                plain_s = secs
+        want = {**{k: 0 for k in launches},
+                "flash_attention": len(trainer.cfg.blocks()),
+                "fused_cross_entropy": args.clients}
+        if launches != want:
+            fail(f"train grads ({dt}): launches {launches}, expected {want}")
+        check_routes({k: routes[k] for k in ("flash_attention",
+                                              "fused_cross_entropy")},
+                     want, f"train grads ({dt})",
+                     route_of={"flash_attention": route,
+                               "fused_cross_entropy": route})
+        err_x = tree_rel_err(grads[True][0], grads[False][0])
+        err_y = tree_rel_err(grads[True][1], grads[False][1])
+        for g in grads.values():
+            for leaf in tree_lib.leaves(g):
+                if not bool(leaf.isfinite().all()):
+                    fail(f"train grads ({dt}): not finite")
+        res = {"compute_dtype": str(dt).split(".")[-1], "route": route,
+               "rel_err_x": err_x, "rel_err_y": err_y, "tol_x": tol[0],
+               "tol_y": tol[1],
+               "launches": launches, "launches_by_route": routes,
+               "kernel_route_s": kernel_s, "plain_route_s": plain_s,
+               "max_abs_grad_x": max(float(g.abs().max()) for g in
+                                     tree_lib.leaves(grads[False][0])),
+               "max_abs_grad_y": float(grads[False][1].abs().max())}
+        emit({"phase": "train", "check": "per-client gradients",
+              "clients": args.clients, "nvidia_smi": smi, **res})
+        if not (err_x <= tol[0] and err_y <= tol[1]):
+            fail(f"train grads ({dt}): kernels vs plain {err_x}, {err_y} "
+                 f"> {tol} × (1 + max)")
+        out[res["compute_dtype"]] = res
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_kernel_times(gen, dev) -> dict:
+    """B5 and B6 at the train path's shapes in bf16: B5 on the vmapped
+    local step's (n·B, S, 14, 2, 64) causal, B6 on one client's (B·S, 896)
+    hidden states against the tied (151 936, 896) head.  Each kernel's
+    output, on its tensor-core route, is held against its plain version
+    (TOL_ATTN_BF16, TOL_CE); then its forward, its plain forward, its
+    backward (the plain version's gradient, what the autograd Functions
+    run), the PyTorch call beside it, and the forward's bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import cross_entropy, flash_attention, ref
+
+    cfg = registry.get_model_config(TRAIN_ARCH)
+    b, s = TRAIN_N * TRAIN_B, TRAIN_S
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q, k, v = attn_operands(b, s, s, h, kv, d, torch.bfloat16, gen, dev)
+    got = routed_call(lambda: flash_attention.flash_attention_bshd(
+        q, k, v, causal=True), "flash_attention", "tensor_core")
+    attn_err = rel_err(got, ref.attention_ref(q, k, v, causal=True))
+    if not attn_err <= TOL_ATTN_BF16:
+        fail(f"flash_attention at the train shape: {attn_err} > "
+             f"{TOL_ATTN_BF16} × (1 + max)")
+    del got
+    do = torch.randn_like(q)
+    ms = cuda_ms(lambda: flash_attention.flash_attention_bshd(
+        q, k, v, causal=True), reps=21)
+    pms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), reps=11)
+    bwd_ms = cuda_ms(lambda: ref.attention_bwd_ref(q, k, v, do, causal=True),
+                     reps=11)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+              for x in (k, v))
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=21)
+    bound, by = attn_bound_ms(b, s, s, h, kv, d, 0, 2, BF16_FLOP_S)
+    fa = dict(ms=ms, plain_ms=pms, backward_plain_ms=bwd_ms, library_ms=lms,
+              bound_ms=bound, bound_by=by, shape=[b, s, h, kv, d],
+              rel_err=attn_err, tol=TOL_ATTN_BF16)
+    emit({"phase": "train", "kernel": "flash_attention", **fa,
+          "library": "F.scaled_dot_product_attention(is_causal=True), k/v "
+                     "expanded to 14 heads"})
+    del q, k, v, do, qt, kt, vt
+    n, dm, vocab = TRAIN_B * TRAIN_S, cfg.d_model, cfg.vocab_size
+    hidden, w, labels = ce_operands(n, dm, vocab, torch.bfloat16, gen, dev)
+    got = routed_call(lambda: cross_entropy.fused_ce_nd(hidden, w, labels),
+                      "fused_cross_entropy", "tensor_core")
+    ce_err = rel_err(got, ref.fused_ce_ref(hidden, w, labels))
+    if not ce_err <= TOL_CE:
+        fail(f"fused_cross_entropy at the train shape: {ce_err} > {TOL_CE} "
+             "× (1 + max)")
+    del got
+    g = torch.rand((n,), generator=gen, device=dev)
+    ms = cuda_ms(lambda: cross_entropy.fused_ce_nd(hidden, w, labels),
+                 reps=21)
+    pms = cuda_ms(lambda: ref.fused_ce_ref(hidden, w, labels), reps=11)
+    bwd_ms = cuda_ms(lambda: ref.fused_ce_bwd_ref(hidden, w, labels, g),
+                     reps=11)
+
+    def lib():
+        try:
+            logits = torch.mm(hidden, w.T, out_dtype=torch.float32)
+        except (TypeError, NotImplementedError, RuntimeError):
+            logits = torch.mm(hidden, w.T).float()
+        return F.cross_entropy(logits, labels, reduction="none")
+
+    lms = cuda_ms(lib, reps=11)
+    (bound, by), _ = ce_bound_ms(n, dm, vocab, 2)
+    ce = dict(ms=ms, plain_ms=pms, backward_plain_ms=bwd_ms, library_ms=lms,
+              bound_ms=bound, bound_by=by, shape=[n, dm, vocab],
+              rel_err=ce_err, tol=TOL_CE)
+    emit({"phase": "train", "kernel": "fused_cross_entropy", **ce,
+          "library": "two calls: torch.mm(h, w.T, out_dtype=float32), then "
+                     "F.cross_entropy(reduction='none')"})
+    del hidden, w, labels, g
+    torch.cuda.empty_cache()
+    return {"flash_attention": fa, "fused_cross_entropy": ce}
+
+
+def phase_train(dev, gen, smi) -> dict:
+    """Federated DRO training of qwen2-0.5b at full width (24 layers,
+    d_model 896, 14/2 heads, V = 151 936, tied head; bf16 compute, f32
+    state) through ``launch.train`` at the reference's train defaults
+    (n = 4, K = 4, batch 4 × 128 a client, 8 groups), weights from seed 0:
+    per-client gradients through B5 and B6 against the plain route (f32
+    and bf16); the main path, three rounds at n = 4 captured (``--engine
+    scan``, one CUDA graph a chunk), with B5's and B6's launches by route,
+    bit for bit the same rounds eager (``--engine host``); a checkpoint
+    resume of a captured run at n = 2; rounds/s eager and captured in
+    turns, capture s, tokens/s, peak memory; one round of each baseline;
+    B5 and B6 at the train shapes."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import registry
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+
+    cfg = registry.get_model_config(TRAIN_ARCH)
+    gc.collect()            # what the earlier phases left in cycles
+    torch.cuda.empty_cache()
+    out = {"grads": train_grad_checks(dev, gen, smi)}
+    torch.cuda.empty_cache()
+
+    # the main path: the entry point at its defaults (n = 4, --engine scan:
+    # the 3-round chunk one CUDA graph, the state donated to it)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = train_lib.train(train_args(device=dev, rounds=TRAIN_ROUNDS,
+                                     chunk=TRAIN_ROUNDS, log_every=1))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches, routes = launch_counts(), route_counts()
+    peak_graph = torch.cuda.max_memory_allocated() / 1e9
+    want = train_launches(cfg, n=TRAIN_N, k=TRAIN_K, rounds=TRAIN_ROUNDS,
+                          logged=TRAIN_ROUNDS)
+    if launches != {**{k: 0 for k in launches}, **want}:
+        fail(f"train: launches {launches}, expected {want}")
+    check_routes({k: routes[k] for k in ("flash_attention",
+                                          "fused_cross_entropy")},
+                 want, "train")
+    hist = res["history"]
+    for rec in hist:
+        for key in ("f_bar", "mean_loss", "eval_loss"):
+            if not math.isfinite(rec[key]):
+                fail(f"train round {rec['round']}: {key} not finite")
+        g = rec["eval_group_loss"]
+        if len(g) != TRAIN_G or not all(math.isfinite(v) for v in g):
+            fail(f"train round {rec['round']}: eval_group_loss {g}")
+    for leaf in tree_lib.leaves(res["state"].x):
+        if not bool(leaf.isfinite().all()):
+            fail("train: a parameter is not finite")
+    n_params = sum(p.numel() for p in tree_lib.leaves(res["state"].x))
+    # the captured state waits in host memory while the eager run holds
+    # the card
+    graph_state = to_host(res["state"])
+    graph_hist, capture_main_s = strip_stamps(hist), hist[-1]["capture_s"]
+    del res, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the eager reference: the host loop from the same seed
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = train_lib.train(train_args(device=dev, engine="host",
+                                     rounds=TRAIN_ROUNDS, log_every=1))
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 1e9
+    if (launch_counts(), route_counts()) != (launches, routes):
+        fail(f"train: eager launches {launch_counts()} {route_counts()}, "
+             f"captured {launches} {routes}")
+    eager_state, eager_hist = to_host(res["state"]), strip_stamps(
+        res["history"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact = graph_hist == eager_hist and trees_equal(graph_state,
+                                                     eager_state)
+    rel = 0.0 if exact else max(tree_rel_err(graph_state, eager_state), max(
+        abs(a[m] - b[m]) / (1 + abs(b[m]))
+        for a, b in zip(graph_hist, eager_hist)
+        for m in a if m not in ("round", "eval_group_loss")))
+    if not exact and not rel <= TOL_GRAPH_DENSE:
+        fail(f"train capture: captured differs from eager (rel {rel})")
+    del graph_state, eager_state
+    layers = len(cfg.blocks())
+    out["main"] = {"clients": TRAIN_N, "rounds": TRAIN_ROUNDS,
+                   "engine": "scan", "bit_for_bit_with_eager": exact,
+                   "max_rel_err": rel, "capture_s": capture_main_s,
+                   "launches_a_round": {
+                       "flash_attention": layers * TRAIN_K,
+                       "fused_cross_entropy": TRAIN_N * TRAIN_K},
+                   "launches_a_logged_row": {"flash_attention": 3 * layers,
+                                             "fused_cross_entropy": 3},
+                   "seconds_incl_build": main_s,
+                   "peak_memory_gb_captured": peak_graph,
+                   "peak_memory_gb_eager": peak_eager,
+                   "client_stacked_params": n_params,
+                   "allocated_gb_after": torch.cuda.memory_allocated() / 1e9,
+                   "launches": launches, "launches_by_route": routes,
+                   "history": graph_hist}
+    emit({"phase": "train", "case": "main, n = 4, --engine scan against "
+          "--engine host", "nvidia_smi": smi, **out["main"]})
+
+    # a checkpoint resume of a captured run, at n = 2 (half the checkpoint
+    # written to disk)
+    with tempfile.TemporaryDirectory() as d:
+        args = train_args(device=dev, clients=TRAIN_RESUME_N,
+                          rounds=TRAIN_ROUNDS, chunk=TRAIN_ROUNDS,
+                          log_every=1, checkpoint_every=2, checkpoint_dir=d)
+        full = train_lib.train(args)["state"]
+        gc.collect()
+        trainer = train_lib.build(args)
+        restored = ckpt_lib.restore(os.path.join(d, "round_000002.npz"),
+                                    trainer.state)
+        trainer.state = None
+        build = trainer.build_chunk(args)
+        resumed, _ = engine_lib.run(restored, build,
+                                    total_rounds=TRAIN_ROUNDS,
+                                    chunk_rounds=TRAIN_ROUNDS)
+    resumed_exact = resumed.round == full.round and trees_equal(resumed,
+                                                                 full)
+    if not resumed_exact:
+        fail("train: the checkpoint resume of the captured run differs")
+    out["resume"] = {"clients": TRAIN_RESUME_N, "rounds": TRAIN_ROUNDS,
+                     "checkpoint_round": 2, "bit_for_bit": resumed_exact}
+    emit({"phase": "train", "case": "checkpoint resume, captured",
+          **out["resume"]})
+    del full, resumed, restored, trainer, build
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # rounds/s at n = 4, eager and captured in turns, each turn going on
+    # from the state the last one left; a captured chunk's pool and an
+    # eager chunk's working set do not fit the card together, so each
+    # captured turn captures afresh (untimed), times a replay and frees
+    args = train_args(device=dev, log_every=TRAIN_ROUNDS)
+    trainer = train_lib.build(args)
+    state, trainer.state = trainer.state, None
+    rates = {False: [], True: []}
+    capture_s, draw_s = [], []
+    for c in (False, True, True, False):
+        if c:
+            # an eager chunk's new state lies in segments shared with the
+            # blocks it freed (the capture's pool found no room beside
+            # them); moved out and back it is compact
+            host = to_host(state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            state = tree_lib.tree_map(
+                lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
+                host)
+            del host
+        build = trainer.build_chunk(args, capture=c)
+        if c:
+            state, _ = engine_lib.run(
+                state, build, total_rounds=state.round + TRAIN_ROUNDS,
+                chunk_rounds=TRAIN_ROUNDS)
+            capture_s.append(build.stats["capture_s"])
+            draw0 = build.stats["draw_s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = engine_lib.run(state, build,
+                                  total_rounds=state.round + TRAIN_ROUNDS,
+                                  chunk_rounds=TRAIN_ROUNDS)
+        torch.cuda.synchronize()
+        rates[c].append(TRAIN_ROUNDS / (time.perf_counter() - t0))
+        if c:
+            if build.stats["captures"] != 1:
+                fail(f"train rates: {build.stats['captures']} captures")
+            draw_s.append((build.stats["draw_s"] - draw0) / TRAIN_ROUNDS)
+        del build
+        gc.collect()
+        torch.cuda.empty_cache()
+    tokens = TRAIN_N * TRAIN_K * TRAIN_B * TRAIN_S
+    out["rates"] = {
+        "clients": TRAIN_N, "rounds_a_turn": TRAIN_ROUNDS,
+        "rounds_per_s_eager": rates[False],
+        "rounds_per_s_captured": rates[True],
+        "tokens_per_s_eager": [r * tokens for r in rates[False]],
+        "tokens_per_s_captured": [r * tokens for r in rates[True]],
+        "capture_s": capture_s, "draw_host_s_per_round": draw_s}
+    emit({"phase": "train", "case": "n = 4, eager and captured in turns",
+          "nvidia_smi": smi, **out["rates"]})
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one round of each baseline at n = 4
+    out["baselines"] = {}
+    for algo in ALGOS[1:]:
+        r = train_lib.train(train_args(device=dev, engine="host",
+                                       algorithm=algo, rounds=1))
+        rec = r["history"][-1]
+        if not all(math.isfinite(rec[k]) for k in ("f_bar", "mean_loss",
+                                                   "eval_loss")):
+            fail(f"train {algo}: not finite")
+        out["baselines"][algo] = {k: rec[k] for k in ("f_bar", "mean_loss",
+                                                      "eval_loss")}
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "train", "baselines": out["baselines"],
+          "clients": TRAIN_N})
+    out["times"] = train_kernel_times(gen, dev)
+    out["launches"], out["launches_by_route"] = launches, routes
+    return out
+
+
 def time_host(fn) -> float:
     """Host seconds of one call that ends in a synchronize."""
     import torch
@@ -3317,6 +3789,13 @@ def main(argv=None) -> int:
         eval_routes = evaluated["launches_by_route"]
         launches_by_route["fused_cross_entropy"] = \
             eval_routes["fused_cross_entropy"]
+    launches_train = dict.fromkeys(names)
+    train_routes, train_times = {}, {}
+    if "train" in phases:
+        trained = phase_train(dev, gen, smi)
+        launches_train.update(trained["launches"])
+        train_routes = trained["launches_by_route"]
+        train_times = trained["times"]
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -3353,6 +3832,7 @@ def main(argv=None) -> int:
         k.update(launches=launches[k["name"]],
                  launches_quickstart=qs_launches[k["name"]],
                  launches_evaluate=launches_eval[k["name"]],
+                 launches_train=launches_train[k["name"]],
                  max_abs_err=errs[k["name"]],
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
@@ -3363,9 +3843,14 @@ def main(argv=None) -> int:
             k.update(launches_by_route=launches_by_route.get(k["name"]),
                      launches_by_route_quickstart=qs_routes.get(k["name"]),
                      launches_by_route_evaluate=eval_routes.get(k["name"]),
+                     launches_by_route_train=train_routes.get(k["name"]),
                      cases_by_route=cases_by_route.get(k["name"]))
             old = OLD_ROUTE.get(k["name"], "cuda_core")
             k[f"{old}_ms"] = t.get(f"{old}_ms")
+            if k["name"] in train_times:
+                # forward, plain forward, backward (plain) and bound at
+                # the train path's shapes
+                k["train_shapes"] = train_times[k["name"]]
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
@@ -3396,7 +3881,11 @@ def main(argv=None) -> int:
                            "(mamba2-1.3b, 8 × 4096 tokens); "
                            "fused_cross_entropy: the evaluate phase (4 "
                            "clients × 4 × 4096 tokens), where ssd_scan "
-                           "launches too (launches_evaluate)",
+                           "launches too (launches_evaluate); "
+                           "launches_train: the train phase's main run "
+                           "(qwen2-0.5b, n = 4, one captured chunk of 3 "
+                           "rounds of K = 4 local steps under autograd, 3 "
+                           "logged rows)",
           "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "
                      "<old route>_ms: the same work on the first port's "

@@ -46,6 +46,8 @@ from repro_torch.core.mixing import (  # noqa: F401
     robust_rule,
 )
 from repro_torch.core.objectives import (  # noqa: F401
+    adversarial_problem,
+    dro_problem,
     make_quadratic_data,
     quadratic_cell_problem,
     quadratic_problem,

@@ -87,8 +87,31 @@ def _step_slice(tree, k: int):
 
 
 def _vgrads(problem: MinimaxProblem, x, y, batch, noise):
-    """Per-client gradients, vmapped over the leading clients dim."""
+    """Per-client gradients, vmapped over the leading clients dim.  An LM
+    problem's kernels (attention, the cross-entropy) take the vmap through
+    their autograd Functions' ``vmap`` rules."""
     return vmap(problem.grads)(x, y, batch, noise)
+
+
+def _tree_descend(a: float, grads: list, i: int, c_tree, x_tree):
+    """a·(g + c) + x leaf by leaf — ``_tree_axpy(a, _tree_axpy(1.0, c, g),
+    x)`` op for op (c None: a·g + x) — for g = ``grads[i]``, which is taken
+    out of the list and released leaf by leaf as it is used: a language
+    model's per-client gradient tree is GBs, and the iterate, the
+    gradient and the stepped iterate need not all be whole at once."""
+    g_leaves = tree_lib.leaves(grads[i])
+    grads[i] = None
+    c_leaves = None if c_tree is None else tree_lib.leaves(c_tree)
+    x_leaves, x_def = tree_lib.flatten(x_tree)
+    out = []
+    for j, x in enumerate(x_leaves):
+        g, g_leaves[j] = g_leaves[j], None
+        if c_leaves is not None:
+            g = (1.0 * c_leaves[j].to(torch.float32)
+                 + g.to(torch.float32)).to(g.dtype)
+        out.append((a * g.to(torch.float32)
+                    + x.to(torch.float32)).to(x.dtype))
+    return tree_lib.unflatten(x_def, out)
 
 
 def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
@@ -264,9 +287,9 @@ def make_round_step(
     ``device``; for ``mixing_impl="sparse_packed"`` a ``SparseTopology``
     (a dense matrix is bridged with ``from_dense``; by default the support
     is ``sparse_mixing_matrix(cfg.topology, n)``).  ``lr_scale(round) ->
-    float`` multiplies the local stepsizes.  ``traced_etas=True`` adds the
-    ``etas`` bundle of :func:`point_etas` after ``noise``; the stepsizes in
-    ``cfg`` are then ignored.
+    float`` multiplies the local stepsizes.
+    ``traced_etas=True`` adds the ``etas`` bundle of :func:`point_etas`
+    after ``noise``; the stepsizes in ``cfg`` are then ignored.
 
     Extras, in this order: ``traced_w=True`` takes this round's W — an
     (n, n) tensor, or a ``SparseTopology`` for ``sparse_packed`` — in place
@@ -370,13 +393,13 @@ def make_round_step(
     def _local_steps(state, batches, noise, eta_cx, eta_cy):
         xx, yy = state.x, state.y
         for k in range(k_steps):
-            gx, gy = _vgrads(problem, xx, yy, _step_slice(batches, k),
-                             noise[k])
-            if track:
-                gx = _tree_axpy(1.0, state.cx, gx)   # g + c
-                gy = _tree_axpy(1.0, state.cy, gy)
-            xx = _tree_axpy(-eta_cx, gx, xx)
-            yy = _tree_axpy(eta_cy, gy, yy)
+            grads = list(_vgrads(problem, xx, yy, _step_slice(batches, k),
+                                 noise[k]))
+            # x -= η_cx (g + c);  y += η_cy (g + c)
+            xx = _tree_descend(-eta_cx, grads, 0,
+                               state.cx if track else None, xx)
+            yy = _tree_descend(eta_cy, grads, 1,
+                               state.cy if track else None, yy)
         return xx, yy
 
     def _done(new_state, state, mask):
@@ -547,9 +570,10 @@ def make_round_step(
         if fused:
             return _fused_round(state, batches, noise, w_t, mask, eta_cx,
                                 eta_cy, eta_sx, eta_sy, corr_x, corr_y)
-        xk, yk = _local_steps(state, batches, noise, eta_cx, eta_cy)
-        dx = _tree_sub(xk, state.x)   # Δx = x^{(t)+K} − x^{(t)}
-        dy = _tree_sub(yk, state.y)
+        # Δx = x^{(t)+K} − x^{(t)}; the iterates are not kept
+        dx, dy = (_tree_sub(v, v0) for v, v0 in zip(
+            _local_steps(state, batches, noise, eta_cx, eta_cy),
+            (state.x, state.y)))
         if adv is not None:
             # the attacker's outgoing Δ, corrupted before every use below
             # and before the participation zeroing (an inactive attacker
@@ -568,32 +592,42 @@ def make_round_step(
             return _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
                                  corr_x, corr_y)
         # Algorithm 1 gossips Δ (lines 7-8) and the parameters (lines
-        # 10-11); the fused_* impls stack both into one mix per leaf
-        if impl.startswith("fused"):
-            def pack_mix(delta, base):
-                pairs = tree_lib.tree_map(
-                    lambda d, b: torch.stack([d.to(torch.float32),
-                                              b.to(torch.float32)], dim=1),
-                    delta, base)
-                mixed = mix(pairs)
-                return (tree_lib.tree_map(lambda p: p[:, 0], mixed),
-                        tree_lib.tree_map(lambda p: p[:, 1], mixed))
+        # 10-11); the fused_* impls stack both into one mix per leaf.  The
+        # mixers act leaf by leaf, so the epilogue runs one leaf at a time
+        # and holds one leaf's WΔ, Wx and Δ − WΔ at once, not whole trees.
+        def mix_pair(delta, base):
+            if impl.startswith("fused"):
+                p = mix(torch.stack([delta.to(torch.float32),
+                                     base.to(torch.float32)], dim=1))
+                return p[:, 0], p[:, 1]
+            return mix(delta), mix(base)
 
-            mdx, mx = pack_mix(dx, state.x)
-            mdy, my = pack_mix(dy, state.y)
-        else:
-            mdx, mdy = mix(dx), mix(dy)
-            mx, my = mix(state.x), mix(state.y)
-        if track:
-            cx = _tree_axpy(corr_x, _tree_sub(dx, mdx), state.cx)
-            cy = _tree_axpy(corr_y, _tree_sub(dy, mdy), state.cy)
-        else:
-            cx, cy = state.cx, state.cy
+        def epilogue(delta, base, c, eta_s, corr):
+            """(Wθ + η_s·WΔ, c + corr·(Δ − WΔ)) leaf by leaf (c None: no
+            correction)."""
+            d_leaves, b_leaves = tree_lib.leaves(delta), tree_lib.leaves(base)
+            c_leaves = None if c is None else tree_lib.leaves(c)
+            new_b, new_c = [], []
+            for j, (d, b) in enumerate(zip(d_leaves, b_leaves)):
+                md, mb = mix_pair(d, b)
+                if c_leaves is not None:
+                    new_c.append(_tree_axpy(corr, d - md, c_leaves[j]))
+                new_b.append(_tree_axpy(eta_s, md, mb))
+            b_def = tree_lib.flatten(base)[1]
+            return (tree_lib.unflatten(b_def, new_b),
+                    None if c is None else tree_lib.unflatten(
+                        tree_lib.flatten(c)[1], new_c))
+
         # x ← W(x + η_s Δx) = Wx + η_s·WΔx
-        return _done(KGTState(x=_tree_axpy(eta_sx, mdx, mx),
-                              y=_tree_axpy(eta_sy, mdy, my),
-                              cx=cx, cy=cy, round=state.round + 1),
-                     state, mask)
+        x_new, cx = epilogue(dx, state.x, state.cx if track else None,
+                             eta_sx, corr_x)
+        del dx
+        y_new, cy = epilogue(dy, state.y, state.cy if track else None,
+                             eta_sy, corr_y)
+        if not track:
+            cx, cy = state.cx, state.cy
+        return _done(KGTState(x=x_new, y=y_new, cx=cx, cy=cy,
+                              round=state.round + 1), state, mask)
 
     n_extras = int(traced_w) + int(participation) + int(byzantine)
     extras_doc = "".join(f"[{name}]" for name, on in (
@@ -642,8 +676,6 @@ def make_round_step(
         return _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
                       corr_x, corr_y, w_t=w_t, mask=mask, adv=adv)
 
-    # the engine's CUDA graph bakes the host values a round reads; only the
-    # lr schedule and the topology cycle read the round index
     round_step.uses_round = lr_scale is not None or bool(cfg.topology_cycle)
     return round_step
 

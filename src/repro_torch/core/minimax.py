@@ -13,6 +13,11 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
+# torch.func.grad imports torch._dynamo on its first call, and that import
+# keeps the frames then on the stack (the caller's locals: a training
+# state's GBs) in a reference cycle until a full collection; importing it
+# here puts only import frames in that cycle
+import torch._dynamo  # noqa: F401
 from torch.func import grad
 
 from repro_torch.core import tree as tree_lib

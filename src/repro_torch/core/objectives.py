@@ -1,12 +1,23 @@
-"""The synthetic NC-SC quadratic (port of ``repro.core.objectives:26-194``).
+"""Concrete NC-SC minimax objectives (port of ``repro.core.objectives``).
 
-    f_i(x, y) = ½xᵀA_i x + q_iᵀx + yᵀB_i x + b_iᵀy − μ/2‖y‖²  (+ σ·noise)
+* ``quadratic_problem`` — the synthetic NC-SC quadratic
 
-Stochasticity is additive noise on the linear terms: one ``(dx + dy,)`` row
-per client and local step, ``[nx; ny]``, entering as ``σ(nxᵀx + nyᵀy)``.
-The JAX package draws ``nx``/``ny`` from a key split inside the oracle; here
-the row arrives as a tensor (``repro_torch.engine.sampler`` draws it).
-The DRO and adversarial problems are not ported yet (ROADMAP A11).
+      f_i(x, y) = ½xᵀA_i x + q_iᵀx + yᵀB_i x + b_iᵀy − μ/2‖y‖²  (+ σ·noise)
+
+  Stochasticity is additive noise on the linear terms: one ``(dx + dy,)``
+  row per client and local step, ``[nx; ny]``, entering as
+  ``σ(nxᵀx + nyᵀy)``.  The JAX package draws ``nx``/``ny`` from a key split
+  inside the oracle; here the row arrives as a tensor
+  (``repro_torch.engine.sampler`` draws it).
+* ``dro_problem`` — distributionally robust LM training over G token
+  groups: y ∈ R^G, f_i(x, y) = Σ_g y_g ℓ_g(x; D_i) + aux − μ/2‖y‖².
+* ``adversarial_problem`` — a universal adversarial embedding
+  perturbation: y ∈ R^{d_model}, f_i(x, y) = ℓ(x; E + scale·y) − μ/2‖y‖².
+
+For the two LM problems x is one client's parameter dict
+(``models.model.param_dict``), run through ``models.model.call`` on a
+skeleton of the model, and the data batch is the only source of
+randomness (``noise_dim`` 0).
 """
 from __future__ import annotations
 
@@ -162,3 +173,68 @@ def quadratic_cell_problem(dx: int, dy: int, mu: float = 1.0,
         affine_coeffs=affine_coeffs,
         mu=mu,
     )
+
+
+# ---------------------------------------------------------------------------
+# DRO over a language model
+# ---------------------------------------------------------------------------
+
+def _lm_init_x(cfg):
+    """Fresh f32 parameters of ``cfg`` on the generator's device, as a
+    parameter dict."""
+    from repro_torch.models import model as model_lib
+
+    def init_x(gen: torch.Generator):
+        return model_lib.param_dict(model_lib.init_params(
+            cfg, generator=gen, device=gen.device))
+
+    return init_x
+
+
+def dro_problem(cfg, *, num_groups: int = 8, mu: float = 1.0,
+                compute_dtype=torch.bfloat16,
+                kernels: bool = True) -> MinimaxProblem:
+    """Reference :201.  ``value`` is Σ_g y_g ℓ_g + aux − μ/2‖y‖² with the
+    per-group losses of ``models.model.per_group_loss`` computing in
+    ``compute_dtype``; ``kernels`` as there (B5 and B6 on the card,
+    differentiated through their autograd Functions; ``False`` runs the
+    plain versions, the check on the card)."""
+    from repro_torch.models import model as model_lib
+
+    skel = model_lib.skeleton(cfg)
+
+    def value(x, y, batch, noise):
+        del noise  # the data batch is the only source of randomness
+        losses, aux = model_lib.call(
+            skel, x, model_lib.per_group_loss, batch, num_groups=num_groups,
+            compute_dtype=compute_dtype, kernels=kernels)
+        return torch.dot(y, losses) + aux - 0.5 * mu * torch.sum(y * y)
+
+    return MinimaxProblem(
+        init_x=_lm_init_x(cfg),
+        init_y=lambda gen: torch.zeros((num_groups,), device=gen.device),
+        value=value, noise_dim=0, mu=mu)
+
+
+def adversarial_problem(cfg, *, mu: float = 10.0, scale: float = 0.1,
+                        compute_dtype=torch.bfloat16) -> MinimaxProblem:
+    """Reference :225: the NLL of the full logits with ``scale·y`` added to
+    every token's embedding, + aux − μ/2‖y‖²."""
+    from repro_torch.models import model as model_lib
+
+    skel = model_lib.skeleton(cfg)
+
+    def value(x, y, batch, noise):
+        del noise
+        perturbed = dict(batch)
+        perturbed["embed_bias"] = scale * y
+        logits, _, aux = model_lib.call(
+            skel, x, model_lib.forward, perturbed, mode="train",
+            compute_dtype=compute_dtype)
+        nll = model_lib.token_losses(logits, batch["labels"]).mean()
+        return nll + aux - 0.5 * mu * torch.sum(y * y)
+
+    return MinimaxProblem(
+        init_x=_lm_init_x(cfg),
+        init_y=lambda gen: torch.zeros((cfg.d_model,), device=gen.device),
+        value=value, noise_dim=0, mu=mu)

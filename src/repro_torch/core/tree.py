@@ -15,45 +15,46 @@ from typing import Any, Callable, List, Tuple
 import torch
 
 
+def _walk(node, leaves: List[torch.Tensor]):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return ("dict", keys, [_walk(node[k], leaves) for k in keys])
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, None, [_walk(v, leaves) for v in node])
+    if dataclasses.is_dataclass(node) and not isinstance(node, type):
+        names = tuple(f.name for f in dataclasses.fields(node))
+        return (type(node), names,
+                [_walk(getattr(node, k), leaves) for k in names])
+    leaves.append(node)
+    return "leaf"
+
+
 def flatten(tree: Any) -> Tuple[List[torch.Tensor], Any]:
-    """tree -> (leaves, treedef); ``None`` is an empty node."""
+    """tree -> (leaves, treedef); ``None`` is an empty node.  (Module-level
+    recursion: a nested function that calls itself is a reference cycle,
+    which would keep the leaves alive until the cyclic collector runs.)"""
     leaves: List[torch.Tensor] = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            keys = sorted(node)
-            return ("dict", keys, [walk(node[k]) for k in keys])
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, None, [walk(v) for v in node])
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            names = tuple(f.name for f in dataclasses.fields(node))
-            return (type(node), names,
-                    [walk(getattr(node, k)) for k in names])
-        leaves.append(node)
-        return "leaf"
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return None
+    if d == "leaf":
+        return next(it)
+    kind, keys, children = d
+    built = [_build(c, it) for c in children]
+    if kind == "dict":
+        return dict(zip(keys, built))
+    if isinstance(kind, type):
+        return kind(**dict(zip(keys, built)))
+    return tuple(built) if kind == "tuple" else list(built)
 
 
 def unflatten(treedef: Any, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == "leaf":
-            return next(it)
-        kind, keys, children = d
-        built = [build(c) for c in children]
-        if kind == "dict":
-            return dict(zip(keys, built))
-        if isinstance(kind, type):
-            return kind(**dict(zip(keys, built)))
-        return tuple(built) if kind == "tuple" else list(built)
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def leaves(tree: Any) -> List[torch.Tensor]:

@@ -12,13 +12,16 @@ Draws come from an explicit ``torch.Generator``, whose numbers differ from
 (``batch_from_draws``: the bigram blend of reference :97-106) is a pure
 function of the draws (g, first, use_bigram), and the parity test feeds it
 the reference's own draws; the sampler itself is held to the mixtures
-statistically.  ``round_batches`` and the multi-codebook streams wait for
-the training slice (ROADMAP A11).
+statistically.  ``round_batches`` stacks a round's batches (K, n, B, S)
+from the same sampler (``stack_round`` alone is what the parity tests feed
+the reference's draws through); the multi-codebook streams and prefix
+embeddings are not ported (``num_codebooks`` / ``num_prefix_tokens``
+models are refused, ROADMAP A11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -91,6 +94,27 @@ def sample_client_batch(dm: DataModel, generator: torch.Generator,
     use_bigram = torch.rand(first.shape, generator=generator,
                             device=first.device) < 0.5
     return batch_from_draws(dm, g, first, use_bigram)
+
+
+def stack_round(batches: List[List[Dict[str, torch.Tensor]]]
+                ) -> Dict[str, torch.Tensor]:
+    """[[batch of client i at local step k for i] for k] -> one dict of
+    (K, n, B, S) tensors, the layout the round step eats."""
+    return {name: torch.stack([torch.stack([b[name] for b in step])
+                               for step in batches])
+            for name in batches[0][0]}
+
+
+def round_batches(dm: DataModel, generator: torch.Generator, *,
+                  local_steps: int, num_clients: int, per_client_batch: int,
+                  seq_len: int) -> Dict[str, torch.Tensor]:
+    """One round's batches (reference :108): for each local step k and
+    client i, ``sample_client_batch`` of client i from ``generator``,
+    stacked (K, n, B, S)."""
+    return stack_round([[sample_client_batch(dm, generator, i,
+                                             per_client_batch, seq_len)
+                         for i in range(num_clients)]
+                        for _ in range(local_steps)])
 
 
 def heterogeneity_index(dm: DataModel) -> float:

@@ -4,7 +4,10 @@
 and its checkpoint and telemetry hooks; ``sampler`` — per-round batch and
 noise samplers; ``diagnostics`` — metric functions.
 """
-from repro_torch.engine.diagnostics import quadratic_metrics_fn  # noqa: F401
+from repro_torch.engine.diagnostics import (  # noqa: F401
+    dro_metrics_fn,
+    quadratic_metrics_fn,
+)
 from repro_torch.engine.engine import (  # noqa: F401
     ChunkRunner,
     checkpoint_hook,
@@ -17,6 +20,10 @@ from repro_torch.engine.engine import (  # noqa: F401
     telemetry_hook,
 )
 from repro_torch.engine.sampler import (  # noqa: F401
+    flatten_clients,
+    held_out_eval_batch,
+    make_dro_sampler,
     make_fixed_batch_sampler,
+    stream_seed,
     with_topology,
 )

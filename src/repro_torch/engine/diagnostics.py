@@ -1,12 +1,15 @@
 """Metric functions for the engine's metrics buffer (port of
-``repro.engine.diagnostics:80``).
+``repro.engine.diagnostics``).
 
-A metrics function is ``(state, batches) -> {name: 0-d tensor}``; the
-engine writes each value into its on-device buffer row.
+A metrics function is ``(state, batches) -> {name: tensor}``, each value of
+a fixed shape (scalars, or small vectors such as the per-group losses);
+the engine writes the row into its on-device buffer.  ``batches`` is the
+round's K-stacked training data, so train-side metrics see what the
+optimizer saw.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -37,5 +40,46 @@ def quadratic_metrics_fn(problem: MinimaxProblem):
                 kgt.mean_over_clients(state.x)),
             **_consensus_block(state),
         }
+
+    return metrics
+
+
+def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
+                   eval_batch: Optional[Any] = None,
+                   compute_dtype=torch.bfloat16):
+    """Metrics of DRO-LM training (what ``launch.train`` logs; reference
+    :39), with autograd off.
+
+    Train side: f(x̄, ȳ) and the mean per-group loss on the round's first
+    (k = 0, client 0) batch.  Eval side, with ``eval_batch`` (a fixed
+    held-out batch, ``sampler.held_out_eval_batch``): the mean and the (G,)
+    per-group losses of the consensus model on data the optimizer never
+    trains on.  The model runs through ``models.model.call`` (B5 and B6 on
+    the card).
+    """
+    from repro_torch.models import model as model_lib
+
+    skel = model_lib.skeleton(model_cfg)
+
+    def group_losses(xbar, batch):
+        return model_lib.call(skel, xbar, model_lib.per_group_loss, batch,
+                              num_groups=num_groups,
+                              compute_dtype=compute_dtype)[0]
+
+    @torch.no_grad()
+    def metrics(state, batches) -> Dict[str, torch.Tensor]:
+        xbar = kgt.mean_over_clients(state.x)
+        ybar = state.y.mean(0)
+        train_b = {k: v[0, 0] for k, v in batches.items()}
+        out = {
+            "f_bar": problem.value(xbar, ybar, train_b, None),
+            "mean_loss": group_losses(xbar, train_b).mean(),
+            **_consensus_block(state),
+        }
+        if eval_batch is not None:
+            eval_losses = group_losses(xbar, eval_batch)
+            out["eval_loss"] = eval_losses.mean()
+            out["eval_group_loss"] = eval_losses    # a (G,) vector row
+        return out
 
     return metrics

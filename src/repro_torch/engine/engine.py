@@ -12,9 +12,10 @@ On a CUDA device a chunk is captured as one CUDA graph and replayed: the
 counterpart of the reference's jitted ``lax.scan`` chunk, one dispatch per
 chunk in place of the rounds' hundreds of kernel launches.
 
-* The first call at each key warms the chunk up on a scratch copy of the
-  state (kernels built, cuBLAS handles made; no launch count moves),
-  captures it on a side stream and replays it.  The seconds of warm-up
+* The first call at each key warms the chunk up on the static buffers,
+  which it only reads (kernels built, cuBLAS handles made; no launch
+  count moves) — the runner's first key only —, captures it on a side
+  stream and replays it.  The seconds of warm-up
   and capture go to ``stats["capture_s"]``, the counterpart of the
   reference's ``compile_s``.
 * A graph bakes in every host value the chunk reads, so its key holds them:
@@ -34,7 +35,16 @@ chunk in place of the rounds' hundreds of kernel launches.
   (``kernels.ops.uncounted`` / ``add_launch_counts``).
 * The state goes into static input buffers and comes out of static output
   buffers; the caller gets copies, so a returned state never aliases
-  memory that a later replay writes.
+  memory that a later replay writes.  A runner's graphs share those
+  buffers and one memory pool, since one replays at a time: a chunk of
+  another length or log pattern adds no second copy of the state.
+* ``donate=True`` (the language model's trainer, whose state is GBs): the
+  state handed to the runner becomes its static input buffers, each
+  chunk writes the new state back into them as its last step, and the
+  caller gets views of them, so the state lives on the card once beside
+  the pool.  A donated state is the runner's: a later chunk overwrites
+  it.  A leaf whose new value has another layout, or overlaps another
+  leaf, keeps an output buffer and a copy of its own.
 
 A capture that fails raises: there is no fallback to eager chunks.  On the
 CPU, where no graph exists, chunks run eagerly; ``capture=False`` runs
@@ -45,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -76,18 +87,24 @@ def split_sampled(sampled) -> Tuple[Any, Any, Tuple[Any, ...]]:
 def _rounds(round_step, metrics_fn, state, draw, logs, length: int):
     """``length`` rounds from ``state``; ``draw(i)`` is round i's sampler
     return and ``logs[i]`` whether it logs.  Returns ``(state, names,
-    rows)``: rows is a (logged rounds, len(names)) f32 tensor, or None."""
+    shapes, rows)``: rows is a (logged rounds, width) f32 tensor, or None,
+    each row the metrics in ``names`` order, flattened and concatenated
+    (``shapes``: each metric's shape; all scalars give one column a
+    metric)."""
     names: List[str] = []
+    shapes: List[tuple] = []
     rows = []
     for i in range(length):
         batches, noise, extras = split_sampled(draw(i))
         state = round_step(state, batches, noise, *extras)
         if logs and logs[i]:
             row = metrics_fn(state, batches)
-            names = names or list(row)
-            rows.append(torch.stack([row[k].to(torch.float32)
-                                     for k in names]))
-    return state, names, torch.stack(rows) if rows else None
+            if not names:
+                names = list(row)
+                shapes = [tuple(row[k].shape) for k in names]
+            rows.append(torch.cat([row[k].to(torch.float32).reshape(-1)
+                                   for k in names]))
+    return state, names, shapes, torch.stack(rows) if rows else None
 
 
 def _compact(x: torch.Tensor) -> torch.Tensor:
@@ -114,11 +131,13 @@ def _is_tensor(x) -> bool:
 
 class CudaGraph:
     """One CUDA graph: warm-up on a side stream, capture on the side stream
-    ``torch.cuda.graph`` sets up (in its own memory pool), replay on the
-    current stream."""
+    ``torch.cuda.graph`` sets up, replay on the current stream.  ``pool``:
+    the memory pool to capture into, None for a new one; after the capture,
+    this graph's, which a later capture may share."""
 
     def __init__(self) -> None:
         self._graph = torch.cuda.CUDAGraph()
+        self.pool = None
 
     def warm_up(self, fn):
         side = torch.cuda.Stream()
@@ -134,14 +153,38 @@ class CudaGraph:
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self._graph):
+            with torch.cuda.graph(self._graph, pool=self.pool):
                 fn()
         finally:
             if enabled:
                 gc.enable()
+        self.pool = self._graph.pool()
 
     def replay(self) -> None:
         self._graph.replay()
+
+    @staticmethod
+    def write(dst: torch.Tensor, src: torch.Tensor) -> None:
+        """A chunk's store into its output buffers: recorded by the
+        capture, run by each replay."""
+        dst.copy_(src)
+
+
+def _span(x: torch.Tensor) -> Tuple[int, int]:
+    """The device bytes [start, end) that x's elements lie in."""
+    if x.numel() == 0:
+        return (x.data_ptr(), x.data_ptr())
+    extent = 1 + sum((size - 1) * st for size, st in zip(x.shape, x.stride()))
+    return (x.data_ptr(), x.data_ptr() + extent * x.element_size())
+
+
+def _overlap(a: Tuple[int, int], b: Tuple[int, int]) -> bool:
+    return a[0] < b[1] and b[0] < a[1]
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """a and b are the same elements (same address and layout)."""
+    return a.data_ptr() == b.data_ptr() and _meta(a) == _meta(b)
 
 
 class _ChunkGraph:
@@ -171,8 +214,10 @@ class _ChunkGraph:
             for j, x in enumerate(draw_leaves[0]))
         self.draw_meta = tuple(_meta(draw_leaves[0][j])
                                for j in self.tensor_pos)
-        self.st_bufs = [(_alloc(x), x.shape) for x in st_leaves
-                        if _is_tensor(x)]
+        self.donate = runner.donate
+        self.st_bufs = [(runner.buffer(("state", i), x, adopt=self.donate),
+                         x.shape)
+                        for i, x in enumerate(st_leaves) if _is_tensor(x)]
         self.draw_bufs = [[(_alloc(r[j]), r[j].shape)
                            for j in self.tensor_pos] for r in draw_leaves]
         self.graph = None
@@ -201,7 +246,8 @@ class _ChunkGraph:
         """Copies the state and the per-round draws into the buffers."""
         for (buf, _), x in zip(self.st_bufs,
                                (x for x in st_leaves if _is_tensor(x))):
-            buf.copy_(_compact(x))
+            if not _same(buf, _compact(x)):   # a donated state lies there
+                buf.copy_(_compact(x))
         for bufs, r in zip(self.draw_bufs, draw_leaves):
             for (buf, _), j in zip(bufs, self.tensor_pos):
                 buf.copy_(_compact(r[j]))
@@ -233,47 +279,92 @@ class _ChunkGraph:
                     out.append(buf.expand(shape))
             return tree_lib.unflatten(self.draw_def, out)
 
-        state, names, rows = _rounds(self.round_step, self.metrics_fn,
-                                     state, draw, self.logs, self.length)
+        state, names, shapes, rows = _rounds(
+            self.round_step, self.metrics_fn, state, draw, self.logs,
+            self.length)
         out, out_def = tree_lib.flatten(dataclasses.replace(state, round=0))
         tensors = [x for x in out if _is_tensor(x)]
         if rows is not None:
             tensors.append(rows)
         info = (out_def, tuple(None if _is_tensor(x) else x for x in out),
-                tuple(names))
+                tuple(names), tuple(shapes))
         return tensors, info
 
-    def capture(self) -> None:
-        """Warm-up, then capture; the buffers hold this chunk's inputs."""
+    def _set_out_bufs(self, outs, info, buffer) -> None:
+        """``out_bufs``: per output tensor, (buffer, shape); ``in_place``:
+        whether that buffer is the input's.  A donated chunk's state leaf
+        goes back into its input buffer where its layout is the input's
+        and it overlaps no other input leaf; every other output gets a
+        buffer of its own."""
+        spans = [_span(b) for b, _ in self.st_bufs]
+        same_tree = self.donate and info[0] == self.st_def and \
+            info[1] == self.st_host
+        bufs = []
+        for i, o in enumerate(outs):
+            if same_tree and i < len(self.st_bufs):
+                buf, shape = self.st_bufs[i]
+                c = _compact(o)
+                if (shape == o.shape and _meta(c) == _meta(buf)
+                        and not any(_overlap(_span(c), sp)
+                                    for j, sp in enumerate(spans)
+                                    if j != i)):
+                    bufs.append((buf, shape, True))
+                    continue
+            bufs.append((buffer(("out", i), o), o.shape, False))
+        self.out_bufs = [(buf, shape) for buf, shape, _ in bufs]
+        self.in_place = [own for _, _, own in bufs]
+
+    def capture(self, pool, buffer) -> None:
+        """Warm-up, then capture into ``pool``; the buffers hold this
+        chunk's inputs; ``buffer(key, like)`` gives the output buffers.
+        With ``pool`` None (a runner's first graph) the chunk is warmed up
+        first, on a side stream, outside any pool; a later graph of the
+        runner captures into the first one's pool without a warm-up (the
+        first did the lazy set-up), so that capturing it holds no eager
+        working set beside the pool."""
         graph = self.graph_type()
-        with kernel_ops.uncounted():
-            outs, self.info = graph.warm_up(self._body)
-        self.out_bufs = [(_alloc(o), o.shape) for o in outs]
-        del outs
+        graph.pool = pool
+        self.info = self.out_bufs = None
+        if pool is None:
+            with kernel_ops.uncounted():
+                outs, self.info = graph.warm_up(self._body)
+            self._set_out_bufs(outs, self.info, buffer)
+            del outs
 
         def fill():
             outs, info = self._body()
+            if self.info is None:
+                self.info = info
+                self._set_out_bufs(outs, info, buffer)
             if info != self.info:
                 raise RuntimeError("the chunk's capture and warm-up built "
                                    "different outputs")
-            for (buf, _), o in zip(self.out_bufs, outs):
-                buf.copy_(_compact(o))
+            # the stores into the state's own buffers last: an output kept
+            # apart may still read them
+            for last in (False, True):
+                for (buf, _), own, o in zip(self.out_bufs, self.in_place,
+                                            outs):
+                    if own == last:
+                        graph.write(buf, _compact(o))
 
         with kernel_ops.uncounted() as self.launched:
             graph.capture(fill)
         self.graph = graph
 
     def replay(self, r0: int):
-        """Replays the graph; returns (state, names, rows) as copies."""
+        """Replays the graph; returns (state, names, shapes, rows) as
+        copies, a donated state's leaves as views of their buffers."""
         self.graph.replay()
         kernel_ops.add_launch_counts(self.launched)
-        outs = iter(_alloc(buf).copy_(buf).expand(shape)
-                    for buf, shape in self.out_bufs)
-        out_def, out_host, names = self.info
+        outs = iter(buf.expand(shape) if own
+                    else _alloc(buf).copy_(buf).expand(shape)
+                    for (buf, shape), own in zip(self.out_bufs,
+                                                 self.in_place))
+        out_def, out_host, names, shapes = self.info
         leaves = [next(outs) if host is None else host for host in out_host]
         state = dataclasses.replace(tree_lib.unflatten(out_def, leaves),
                                     round=r0 + self.length)
-        return state, list(names), next(outs, None)
+        return state, list(names), list(shapes), next(outs, None)
 
 
 class ChunkRunner:
@@ -283,8 +374,9 @@ class ChunkRunner:
 
     ``capture`` None captures where the state lies on a CUDA device and
     runs eagerly on the CPU; False always runs eagerly; True always
-    captures (on the CPU that raises).  ``stats``: ``capture_s`` (warm-up
-    and capture seconds, kernel builds excluded), ``captures``,
+    captures (on the CPU that raises).  ``donate``: the captured chunks
+    take the state over (module docstring).  ``stats``: ``capture_s``
+    (warm-up and capture seconds, kernel builds excluded), ``captures``,
     ``replays`` and ``draw_s`` (host seconds of the draws made before the
     replays and of copying them in).  ``state`` is a dataclass with a host
     int ``round``; its other host fields are baked into the graphs.
@@ -293,15 +385,42 @@ class ChunkRunner:
     graph_type = CudaGraph
 
     def __init__(self, round_step, metrics_fn: Optional[MetricsFn] = None,
-                 *, log_every: int = 1, capture: Optional[bool] = None):
+                 *, log_every: int = 1, capture: Optional[bool] = None,
+                 donate: bool = False):
         self.round_step = round_step
         self.metrics_fn = metrics_fn
         self.log_every = max(int(log_every), 1)
         self.capture = capture
+        self.donate = donate
         self.uses_round = getattr(round_step, "uses_round", True)
         self.stats = {"capture_s": 0.0, "captures": 0, "replays": 0,
                       "draw_s": 0.0}
         self._graphs: Dict[tuple, _ChunkGraph] = {}
+        # the runner's graphs share one memory pool and their static state
+        # and output buffers (by position and layout): only one graph
+        # replays at a time, its inputs are copied in before and its
+        # outputs copied out after, so a language model's chunks of other
+        # lengths or log patterns cost no second copy of the state
+        self._pool = None
+        self._buffers: Dict[tuple, torch.Tensor] = {}
+
+    def buffer(self, key, like: torch.Tensor, *,
+               adopt: bool = False) -> torch.Tensor:
+        """The shared static buffer at ``key`` laid out as ``like``
+        (``_alloc``); with ``adopt``, a new one is ``like``'s own memory
+        where that overlaps no other buffer."""
+        c = _compact(like)
+        full = (key, _meta(c))
+        buf = self._buffers.get(full)
+        if buf is None:
+            if adopt and not c.requires_grad and not any(
+                    _overlap(_span(c), _span(b))
+                    for b in self._buffers.values()):
+                buf = c
+            else:
+                buf = _alloc(like)
+            self._buffers[full] = buf
+        return buf
 
     def _logs(self, r0: int, length: int, final_round: int) -> tuple:
         if self.metrics_fn is None:
@@ -320,16 +439,16 @@ class ChunkRunner:
             if capture is None:
                 capture = any(_is_tensor(x) and x.is_cuda for x in leaves)
         if capture:
-            state, names, rows = self._replay(
+            state, names, shapes, rows = self._replay(
                 st_def, leaves, r0, final_round, sampler, length, logs)
         else:
-            state, names, rows = _rounds(
+            state, names, shapes, rows = _rounds(
                 self.round_step, self.metrics_fn, state,
                 lambda i: sampler(r0 + i), logs, length)
         if self.metrics_fn is None:
             return state, None
         return state, (names, [r0 + i for i, on in enumerate(logs) if on],
-                       rows)
+                       rows, shapes)
 
     def _replay(self, st_def, st_leaves, r0, final_round, sampler, length,
                 logs):
@@ -352,7 +471,8 @@ class ChunkRunner:
                 self._fixed(draw_def, draw_leaves, r0, final_round, sampler,
                             length), r0, logs, length)
             graph.load(st_leaves, draw_leaves)
-            graph.capture()
+            graph.capture(self._pool, self.buffer)
+            self._pool = getattr(graph.graph, "pool", None)
             self._graphs[key] = graph
             self.stats["captures"] += 1
             self.stats["capture_s"] += (time.perf_counter() - t_cap
@@ -393,9 +513,11 @@ def chunk_program(round_step, sampler: Sampler,
     """The eager ``chunk_step(state, final_round) -> (state, buffer)``.
 
     ``buffer`` is None without ``metrics_fn``, else ``(names, rounds,
-    rows)``: the logged round indices (host ints) and an on-device
-    ``(len(rounds), len(names))`` f32 tensor of scalar metrics.  A round
-    logs when it hits the ``log_every`` grid or equals ``final_round``.
+    rows, shapes)``: the logged round indices (host ints), an on-device
+    ``(len(rounds), width)`` f32 tensor whose rows hold the metrics in
+    ``names`` order, each flattened (``(len(rounds), len(names))`` when all
+    are scalars), and each metric's shape.  A round logs when it hits the
+    ``log_every`` grid or equals ``final_round``.
     """
     runner = ChunkRunner(round_step, metrics_fn, log_every=log_every,
                          capture=False)
@@ -405,13 +527,14 @@ def chunk_program(round_step, sampler: Sampler,
 
 def make_chunk_builder(round_step, sampler: Sampler,
                        metrics_fn: Optional[MetricsFn] = None, *,
-                       log_every: int = 1, capture: Optional[bool] = None):
+                       log_every: int = 1, capture: Optional[bool] = None,
+                       donate: bool = False):
     """Returns ``build(length) -> chunk_step(state, final_round)``: the
     chunks of one :class:`ChunkRunner`, which keeps one CUDA graph per
     chunk length and log pattern (and per whatever else a graph bakes
     in).  ``build.stats`` is the runner's."""
     runner = ChunkRunner(round_step, metrics_fn, log_every=log_every,
-                         capture=capture)
+                         capture=capture, donate=donate)
 
     def build(length: int):
         return lambda state, final_round: runner(
@@ -432,16 +555,23 @@ def row_to_record(row: Dict[str, Any], round_idx: int) -> dict:
 
 
 def records_from_buffer(buf) -> List[dict]:
-    """Metrics buffer -> plain-python history records, one device-to-host
-    transfer per chunk."""
+    """Metrics buffer ``(names, rounds, rows, shapes)`` -> plain-python
+    history records, one device-to-host transfer per chunk."""
     if buf is None:
         return []
-    names, rounds, rows = buf
+    names, rounds, rows, shapes = buf
     if not rounds:
         return []
-    host = rows.cpu().tolist()
-    return [row_to_record(dict(zip(names, vals)), r)
-            for r, vals in zip(rounds, host)]
+    sizes = [math.prod(shape) for shape in shapes]
+    host = rows.cpu().numpy()
+    records = []
+    for r, vals in zip(rounds, host):
+        row, at = {}, 0
+        for name, shape, size in zip(names, shapes, sizes):
+            row[name] = vals[at:at + size].reshape(shape)
+            at += size
+        records.append(row_to_record(row, r))
+    return records
 
 
 def run(state, build_chunk: Callable[[int], Any], *, total_rounds: int,

@@ -1,14 +1,66 @@
-"""Per-round samplers (port of ``repro.engine.sampler:56-105``).
+"""Per-round samplers (port of ``repro.engine.sampler``).
 
 A sampler is ``(round_idx) -> (batches, noise)``, or ``(batches, noise,
-extras)`` with :func:`with_topology`: exactly what ``round_step`` eats.  The noise is drawn on the device from a
-``torch.Generator`` seeded ``seed * 7919 + round`` — the reference's key
-schedule, on another generator — so any round's draw is reproducible in
-isolation.
+extras)`` with :func:`with_topology`: exactly what ``round_step`` eats.
+Every draw comes from a ``torch.Generator`` seeded from the round index
+(the reference folds it into a key), so any round's draw is reproducible
+in isolation and a run resumed from a checkpoint redraws the same data.
+The engine makes a round's draws before it replays a captured chunk, into
+the graph's static buffers.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch.data import synthetic as data_lib
+
+
+def stream_seed(*parts: int) -> int:
+    """A 63-bit generator seed from a tuple of ints (seed, stream, round,
+    ...): distinct tuples give unrelated streams."""
+    words = np.random.SeedSequence([int(p) for p in parts]).generate_state(2)
+    return int((int(words[0]) << 31) ^ int(words[1])) & (2**63 - 1)
+
+
+def make_dro_sampler(dm: data_lib.DataModel, seed: int, *, local_steps: int,
+                     num_clients: int, per_client_batch: int, seq_len: int):
+    """Sampler over a heterogeneous synthetic ``DataModel`` (reference :26):
+    round t's batches, stacked (K, n, B, S), come from a generator on the
+    data model's device seeded ``stream_seed(seed, t)``; the noise is
+    (K, n, 0), since the data batch is the only source of randomness of
+    the DRO and adversarial problems."""
+    dev = dm.domain_logits.device
+    gen = torch.Generator(device=dev)
+
+    def sample(round_idx: int):
+        gen.manual_seed(stream_seed(seed, int(round_idx)))
+        batches = data_lib.round_batches(
+            dm, gen, local_steps=local_steps, num_clients=num_clients,
+            per_client_batch=per_client_batch, seq_len=seq_len)
+        return batches, torch.zeros((local_steps, num_clients, 0),
+                                    device=dev)
+
+    return sample
+
+
+def held_out_eval_batch(dm: data_lib.DataModel, generator: torch.Generator,
+                        *, num_clients: int, per_client_batch: int,
+                        seq_len: int):
+    """One fixed client-balanced eval batch (reference :108), drawn once
+    from ``generator`` (never from the training stream): one
+    ``per_client_batch`` draw per client distribution, flattened to
+    (n·B, S)."""
+    rb = data_lib.round_batches(
+        dm, generator, local_steps=1, num_clients=num_clients,
+        per_client_batch=per_client_batch, seq_len=seq_len)
+    return flatten_clients(rb)
+
+
+def flatten_clients(round_batch):
+    """(1, n, B, S) batches -> (n·B, S)."""
+    return {k: v.reshape((v.shape[1] * v.shape[2],) + tuple(v.shape[3:]))
+            for k, v in round_batch.items()}
 
 
 def make_fixed_batch_sampler(batches, *, local_steps: int, num_clients: int,

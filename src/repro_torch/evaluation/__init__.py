@@ -1,4 +1,5 @@
-"""Evaluation metrics (``repro.evaluation``'s counterpart);
-``evaluate_clients`` needs the client-stacked parameters of the training
-slice and comes with it."""
-from repro_torch.evaluation.metrics import group_metrics  # noqa: F401
+"""Evaluation metrics (``repro.evaluation``'s counterpart)."""
+from repro_torch.evaluation.metrics import (  # noqa: F401
+    evaluate_clients,
+    group_metrics,
+)

@@ -128,14 +128,16 @@ def check(err: int, what: str) -> None:
 
 
 def check_no_grad(what: str, *xs) -> None:
-    """The kernels have no backward pass yet: refuse an operand that
-    requires grad, so that a gradient cannot go missing silently."""
+    """A kernel without a gradient (the two scans, B7 and B8) refuses an
+    operand that requires grad, so that a gradient cannot go missing
+    silently."""
     if torch.is_grad_enabled() and any(
             x is not None and x.requires_grad for x in xs):
         raise NotImplementedError(
             f"{what}: an operand requires grad, and the kernel has no "
-            f"backward pass yet (the training slice, ROADMAP A11, brings "
-            f"it); under autograd the model runs the plain version")
+            f"backward pass yet (mamba2 / recurrentgemma training, a later "
+            f"training slice of ROADMAP A11, brings it); under autograd the "
+            f"model runs the plain version")
 
 
 def forced_route(chosen: str, forced, universal: str = "cuda_core") -> str:

@@ -11,12 +11,22 @@ read, the CUDA-core route for f32 operands and for bf16 rows that are not
 16-byte aligned.  The plain version is
 ``repro_torch.kernels.ref.fused_ce_ref``; dispatch between the plain
 version and the kernel is ``repro_torch.kernels.ops.fused_cross_entropy``.
+
+The wrapper is differentiable: :class:`FusedCrossEntropyFn` runs the
+kernel forward and takes the plain version's gradient
+(``ref.fused_ce_bwd_ref``: per chunk of 512 tokens, the f32 logits
+recomputed from the saved operands, then (softmax − onehot)·W and its
+transpose against the hidden states), so the (N, V) logits are never all
+resident, as the reference's rematerialized scan does.  Under
+``torch.func.vmap`` its ``vmap`` rule launches once per vmapped entry
+where the head is vmapped too (a client's own weights), once in all
+otherwise.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
@@ -47,9 +57,15 @@ def fused_ce_nd(hidden, weight, labels, *, force_route=None):
     f32 NLL (N,).  The route is :func:`route`'s; ``force_route="cuda_core"``
     takes the CUDA-core kernel whatever the operands (to hold both routes
     against the plain version), and forcing ``"tensor_core"`` on operands
-    it cannot take raises.  Counts its launches in
+    it cannot take raises.  Differentiable in hidden and weight
+    (:class:`FusedCrossEntropyFn`).  Counts its launches in
     ``fused_ce_nd.launches`` and, by route, in ``fused_ce_nd.routes``."""
-    _build.check_no_grad("fused_cross_entropy", hidden, weight)
+    return FusedCrossEntropyFn.apply(hidden, weight, labels, force_route)
+
+
+def _launch(hidden, weight, labels, force_route):
+    """One launch of the kernel (the forward of
+    :class:`FusedCrossEntropyFn`)."""
     if hidden.dtype not in DTYPES or weight.dtype != hidden.dtype:
         raise ValueError(f"hidden and weight must share float32 or bfloat16,"
                          f" got {hidden.dtype} and {weight.dtype}")
@@ -89,3 +105,46 @@ def fused_ce_nd(hidden, weight, labels, *, force_route=None):
 
 fused_ce_nd.launches = 0
 fused_ce_nd.routes = dict.fromkeys(ROUTES, 0)
+
+
+class FusedCrossEntropyFn(torch.autograd.Function):
+    """The kernel forward with the plain version's gradient.  ``launch`` is
+    the forward's launch (the CPU tests swap the plain version in)."""
+
+    launch = staticmethod(_launch)
+
+    @staticmethod
+    def forward(hidden, weight, labels, force_route):
+        return FusedCrossEntropyFn.launch(hidden, weight, labels, force_route)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hidden, weight, labels, _ = inputs
+        ctx.save_for_backward(hidden, weight, labels)
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        hidden, weight, labels = ctx.saved_tensors
+        gh, gw = ref.fused_ce_bwd_ref(hidden, weight, labels, grad_nll)
+        return gh, gw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, hidden, weight, labels, force_route):
+        """A vmapped head (each client's own weights): one launch per
+        entry.  A shared head: the tokens of every entry in one launch."""
+        nb = info.batch_size
+
+        def front(x, dim):
+            return (x.movedim(dim, 0) if dim is not None
+                    else x.expand(nb, *x.shape))
+
+        h, lab = front(hidden, in_dims[0]), front(labels, in_dims[2])
+        if in_dims[1] is None:
+            out = FusedCrossEntropyFn.apply(
+                h.reshape(-1, h.shape[-1]).contiguous(), weight,
+                lab.reshape(-1), force_route)
+            return out.reshape(nb, -1), 0
+        w = weight.movedim(in_dims[1], 0)
+        return torch.stack([FusedCrossEntropyFn.apply(h[i], w[i], lab[i],
+                                                      force_route)
+                            for i in range(nb)]), 0

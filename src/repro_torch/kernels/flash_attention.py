@@ -10,12 +10,19 @@ for bf16 operands with 16-byte aligned rows, the CUDA-core route for f32
 operands and for bf16 rows that are not whole 16-byte chunks.  The plain
 version is ``repro_torch.kernels.ref.attention_ref``; dispatch between the
 plain version and the kernel is ``repro_torch.kernels.ops.flash_attention``.
+
+The wrapper is differentiable: :class:`FlashAttentionFn` runs the kernel
+forward and, as the JAX package's models differentiate through plain ops,
+takes the gradient of the plain version (``ref.attention_bwd_ref``, its
+closed form, recomputing the f32 probabilities from the saved q, k, v).
+Under ``torch.func.vmap`` its ``vmap`` rule folds the vmapped dim into B
+and launches once.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
@@ -43,13 +50,18 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
                          force_route=None):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D); contiguous CUDA tensors of
     one dtype (float32 or bfloat16) on one device, H % KV == 0, D ≤ 256.
-    Returns a fresh (B, Sq, H, D) tensor in q's dtype.  The route is
-    :func:`route`'s; ``force_route="cuda_core"`` takes the CUDA-core kernel
-    whatever the operands (to hold both routes against the plain version),
-    and forcing ``"tensor_core"`` on operands it cannot take raises.
-    Counts its launches in ``flash_attention_bshd.launches`` and, by route,
-    in ``flash_attention_bshd.routes``."""
-    _build.check_no_grad("flash_attention", q, k, v)
+    Returns a fresh (B, Sq, H, D) tensor in q's dtype, differentiable in
+    q, k and v (:class:`FlashAttentionFn`).  The route is :func:`route`'s;
+    ``force_route="cuda_core"`` takes the CUDA-core kernel whatever the
+    operands (to hold both routes against the plain version), and forcing
+    ``"tensor_core"`` on operands it cannot take raises.  Counts its
+    launches in ``flash_attention_bshd.launches`` and, by route, in
+    ``flash_attention_bshd.routes``."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, force_route)
+
+
+def _launch(q, k, v, causal, window, force_route):
+    """One launch of the kernel (the forward of :class:`FlashAttentionFn`)."""
     if q.dtype not in DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
     b, sq, h, d = q.shape
@@ -81,3 +93,43 @@ def flash_attention_bshd(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_attention_bshd.launches = 0
 flash_attention_bshd.routes = dict.fromkeys(ROUTES, 0)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel forward with the plain version's gradient.  ``launch`` is
+    the forward's launch (the CPU tests swap the plain version in)."""
+
+    launch = staticmethod(_launch)
+
+    @staticmethod
+    def forward(q, k, v, causal, window, force_route):
+        return FlashAttentionFn.launch(q, k, v, causal, window, force_route)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, _ = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.attention_bwd_ref(q, k, v, grad_out,
+                                           causal=ctx.causal,
+                                           window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, force_route):
+        """The vmapped dim folded into B: one launch for all of it."""
+        nb = info.batch_size
+
+        def fold(x, dim):
+            x = (x.movedim(dim, 0) if dim is not None
+                 else x.expand(nb, *x.shape))
+            return x.reshape(nb * x.shape[1], *x.shape[2:]).contiguous()
+
+        out = FlashAttentionFn.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                     fold(v, in_dims[2]), causal, window,
+                                     force_route)
+        return out.reshape(nb, -1, *out.shape[1:]), 0

@@ -20,10 +20,12 @@ launch.  ``backend``:
 
 There is no fallback between the two: a kernel that fails to build or
 launch raises.  No padding either: the kernels mask their ragged edges.
-The model kernels (attention, the two scans, the cross-entropy) have no
-backward pass yet: on the kernel route an operand that requires grad
-raises ``NotImplementedError`` (the training slice brings the backward
-passes; under autograd the model runs the plain versions).
+Attention and the cross-entropy are differentiable on the kernel route
+(autograd Functions whose backward is the plain version's gradient, with
+``torch.func.vmap`` rules); the two scans have no backward pass yet, and
+on the kernel route an operand that requires grad raises
+``NotImplementedError`` (under autograd the model runs their plain
+versions).
 """
 from __future__ import annotations
 

@@ -2,7 +2,9 @@
 the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31``,
 ``ssd_ref`` of ``:33``, ``fused_ce_ref`` of ``:56`` and ``rglru_ref`` of
 ``:196-208``), and ``ssd_chunked``, the chunked SSD scan of
-``repro.models.ssm`` (:50) that kernel B7 computes.
+``repro.models.ssm`` (:50) that kernel B7 computes; and the gradients of
+attention and the cross-entropy in plain ops (``attention_bwd_ref``,
+``fused_ce_bwd_ref``), the backward passes of kernels B5 and B6.
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
@@ -200,6 +202,44 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
+    qi = torch.arange(sq, device=device)[:, None]
+    kj = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window > 0:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def attention_bwd_ref(q, k, v, grad_out, *, causal: bool = True,
+                      window: int = 0):
+    """The gradient of :func:`attention_ref` in closed form, in plain ops
+    (the backward of kernel B5, ``FlashAttentionFn``; every op has a vmap
+    rule): the f32 probabilities P recomputed from q, k, v, then
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ⊙ (dP − rowsum(P ⊙ dP)),
+    dQ = dS·K·scale, dK = dSᵀ·Q·scale, the query heads of a group summed
+    into their KV head.  Returns (dq, dk, dv) in the operands' dtypes."""
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d ** -0.5
+    mask = _attention_mask(sq, sk, causal, window, q.device)
+    qf = q.to(torch.float32).reshape(b, sq, kv, g, d)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    p = torch.softmax(s.masked_fill(~mask, NEG_INF), dim=-1) * mask
+    do = grad_out.to(torch.float32).reshape(b, sq, kv, g, d)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    return (dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 def rglru_ref(a, u, h0=None):
     """Step-by-step h_t = a_t·h_{t−1} + u_t over (B, S, W), in f32.
 
@@ -347,3 +387,26 @@ def fused_ce_ref(hidden, weight, labels, *, chunk: int = 1024):
            for i in range(0, hidden.shape[0], chunk)]
     return (torch.cat(out) if out
             else torch.zeros((0,), dtype=torch.float32, device=hidden.device))
+
+
+def fused_ce_bwd_ref(hidden, weight, labels, grad_nll, *, chunk: int = 512):
+    """The gradient of :func:`fused_ce_ref` in plain ops (the backward of
+    kernel B6, ``FusedCrossEntropyFn``; every op has a vmap rule): per
+    chunk of ``chunk`` tokens, the f32 logits recomputed from the operands
+    cast to f32, dL = (softmax − onehot(label))·grad_nll, then
+    g_hidden = dL·W and g_W += dLᵀ·hidden, so the (N, V) logits are never
+    all resident.  Returns (g_hidden, g_weight) in the operands' dtypes."""
+    w32 = weight.to(torch.float32)
+    gw = torch.zeros_like(w32)
+    ghs = []
+    for i in range(0, hidden.shape[0], chunk):
+        h32 = hidden[i:i + chunk].to(torch.float32)
+        p = torch.softmax(h32 @ w32.T, dim=-1)
+        lab = labels[i:i + chunk, None].long()
+        dl = p.scatter_add(1, lab, -torch.ones_like(lab, dtype=p.dtype))
+        dl = dl * grad_nll[i:i + chunk, None].to(torch.float32)
+        ghs.append(dl @ w32)
+        gw = gw + dl.T @ h32
+    gh = (torch.cat(ghs) if ghs
+          else torch.zeros_like(hidden, dtype=torch.float32))
+    return gh.to(hidden.dtype), gw.to(weight.dtype)

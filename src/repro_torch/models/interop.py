@@ -4,8 +4,10 @@ in both directions, for every ported block kind (``ssm`` included).
 The reference stacks each repeated unit of the block pattern along a leading
 repeat dim: ``params["stack"][si][bi][name][r]`` is layer
 ``offset(si) + r·len(unit) + bi`` here (``transformer.layer_slots``), and the
-caches (``init_cache``) have the same nesting.  This module takes and gives
-numpy only.
+caches (``init_cache``) have the same nesting.  The training state holds
+one parameter dict per client stacked along a leading clients dim
+(``stacked_params_from_reference`` / ``stacked_params_to_numpy``).  This
+module takes and gives numpy only.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.interop import to_tensor
 from repro_torch.models import transformer as tf
-from repro_torch.models.model import Model, init_params
+from repro_torch.models.model import Model, init_params, skeleton
 
 
 def _assign(dst: torch.Tensor, src, what: str) -> None:
@@ -96,6 +98,34 @@ def params_to_numpy(model: Model) -> Dict[str, Any]:
             blocks.append(block)
         stack.append(tuple(blocks))
     out["stack"] = tuple(stack)
+    return out
+
+
+def stacked_params_from_reference(params_np: List[Dict[str, Any]],
+                                  cfg: ModelConfig, *, device="cuda",
+                                  dtype=torch.float32
+                                  ) -> Dict[str, torch.Tensor]:
+    """One reference ``init_params`` pytree per client -> the training
+    state's client-stacked parameter dict {name: (n, …)}
+    (``torch.func.stack_module_state`` over the clients' ``Model``s)."""
+    models = [params_from_reference(p, cfg, device=device, dtype=dtype)
+              for p in params_np]
+    params, _ = torch.func.stack_module_state(models)
+    return {name: t.detach() for name, t in params.items()}
+
+
+def stacked_params_to_numpy(x: Dict[str, torch.Tensor],
+                            cfg: ModelConfig) -> List[Dict[str, Any]]:
+    """The inverse of :func:`stacked_params_from_reference`: one reference
+    pytree (f32 numpy leaves) per client."""
+    n = next(iter(x.values())).shape[0]
+    out = []
+    for i in range(n):
+        model = skeleton(cfg).to_empty(device="cpu")
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(x[name][i].detach().to("cpu", torch.float32))
+        out.append(params_to_numpy(model))
     return out
 
 

@@ -1,13 +1,17 @@
 """Top-level language model (port of ``repro.models.model``): embeddings ->
-decoder stack -> head, the per-group loss that evaluation reads, cache
-management and the decode step.
+decoder stack -> head, the per-group loss of the DRO objective and of
+evaluation, ``lm_loss``, cache management and the decode step.
 
-``chunked_nll`` runs kernel B6 (``kernels.ops.fused_cross_entropy``) where
-the layers run theirs: in ``train`` mode with autograd off, so evaluation
-(``evaluation.metrics.group_metrics``) goes through B6 and B7.  ``lm_loss``
-and the DRO / adversarial objectives come with the training slice and the
-backward passes (ROADMAP A11); modality frontends (``num_prefix_tokens``,
-``num_codebooks``) are not ported yet either.
+``chunked_nll`` runs kernel B6 (``kernels.ops.fused_cross_entropy``) in
+``train`` mode, under autograd too (its gradient is an autograd Function,
+``kernels.cross_entropy.FusedCrossEntropyFn``), so training and evaluation
+(``evaluation.metrics.group_metrics``) go through it.  Training runs a
+model functionally: the parameters are a dict of tensors keyed by
+``Model``'s parameter names (``param_dict``), one client's slice of the
+client-stacked state, and :func:`call` runs a function of the model
+through ``torch.func.functional_call`` on a parameterless skeleton
+(:func:`skeleton`).  Modality frontends (``num_prefix_tokens``,
+``num_codebooks``) are not ported (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -47,6 +51,11 @@ class Model(nn.Module):
             self.head = param(embed_init(gen, (cfg.d_model, cfg.vocab_size),
                                          **kw))
 
+    def forward(self, fn, *args, **kw):
+        """``fn(self, *args, **kw)``: what ``torch.func.functional_call``
+        runs with the parameters it is given (:func:`call`)."""
+        return fn(self, *args, **kw)
+
 
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
                 seed: int = 0, device="cuda", dtype=torch.float32) -> Model:
@@ -60,6 +69,27 @@ def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None
 
 def param_count(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def param_dict(model: Model) -> Dict[str, torch.Tensor]:
+    """{parameter name: tensor} of ``model``, detached (the training
+    state's form of one client's parameters)."""
+    return {name: p.detach() for name, p in model.named_parameters()}
+
+
+def skeleton(cfg: ModelConfig) -> Model:
+    """A ``Model`` of ``cfg`` on the meta device: its structure without
+    memory, for :func:`call`."""
+    return Model(cfg, None, device="meta", dtype=torch.float32)
+
+
+def call(skel: Model, params: Dict[str, torch.Tensor], fn, *args, **kw):
+    """``fn(model, *args, **kw)`` with the model's parameters taken from
+    ``params`` (every name of ``param_dict``): ``torch.func.
+    functional_call`` on ``skel``, so ``grad`` and ``vmap`` see through
+    it."""
+    return torch.func.functional_call(skel, params, (fn, *args), kw,
+                                      strict=True)
 
 
 # ---------------------------------------------------------------------------
@@ -147,14 +177,15 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
     """Per-token NLL (B, S) f32 of the final hidden states against the head,
     without resident (B, S, V) logits.
 
-    With autograd off (and ``kernels``), kernel B6 over all B·S tokens: its
-    logits are f32 from the compute-dtype operands.  Otherwise the
-    reference's form: the head on ``chunk`` positions at a time, logits in
-    the compute dtype, then an f32 log-softmax.  In bf16 the two differ by
-    the bf16 rounding of the logits (ROADMAP §C quirk 4).
+    With ``kernels``, kernel B6 over all B·S tokens, under autograd too:
+    its logits are f32 from the compute-dtype operands.  With
+    ``kernels=False`` the reference's form: the head on ``chunk`` positions
+    at a time, logits in the compute dtype, then an f32 log-softmax.  In
+    bf16 the two differ by the bf16 rounding of the logits (ROADMAP §C
+    quirk 4).
     """
     b, s, d = hidden.shape
-    if tf.kernel_route("train", kernels):
+    if tf.kernel_route("train", kernels, differentiable=True):
         nll = ops.fused_cross_entropy(
             hidden.reshape(b * s, d).to(compute_dtype),
             head_weight(model, compute_dtype), labels.reshape(b * s))
@@ -174,10 +205,25 @@ def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
                               compute_dtype=compute_dtype, kernels=kernels)
     nll = chunked_nll(model, hidden, batch["labels"],
                       compute_dtype=compute_dtype, kernels=kernels)
-    onehot = F.one_hot(batch["groups"].long(), num_groups).to(torch.float32)
+    # one_hot by comparison: F.one_hot checks its range on the host, which
+    # neither vmap nor a CUDA graph capture can do
+    g = batch["groups"].long()
+    onehot = (g[..., None] == torch.arange(num_groups, device=g.device)
+              ).to(torch.float32)
     sums = torch.einsum("bs,bsg->g", nll, onehot)
     counts = torch.clamp(onehot.sum((0, 1)), min=1.0)
     return sums / counts, aux
+
+
+def lm_loss(model: Model, batch: Dict[str, Any], *,
+            compute_dtype=torch.bfloat16, kernels: bool = True):
+    """Mean next-token NLL plus the auxiliary loss (reference :196).
+    Returns (loss, aux)."""
+    hidden, _, aux = backbone(model, batch, mode="train",
+                              compute_dtype=compute_dtype, kernels=kernels)
+    nll = chunked_nll(model, hidden, batch["labels"],
+                      compute_dtype=compute_dtype, kernels=kernels)
+    return nll.mean() + aux, aux
 
 
 # ---------------------------------------------------------------------------

@@ -15,10 +15,11 @@ Block kinds ported:
 ``moe`` waits for ROADMAP A11.
 
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
-``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them too
-when autograd is off (evaluation), and the plain versions under autograd,
-since the kernels have no backward pass yet (the training slice brings
-them); ``decode`` advances one token against the caches in plain PyTorch.
+``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
+too, where attention runs its kernel under autograd as well (its gradient
+is an autograd Function) and the two scans run their plain versions under
+autograd (their kernels have no gradient yet, ROADMAP A11); ``decode``
+advances one token against the caches in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -111,12 +112,15 @@ class Block(nn.Module):
         self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
 
 
-def kernel_route(mode: str, kernels: bool) -> bool:
-    """Whether a layer runs the kernels: in ``prefill``, and in ``train``
-    when autograd is off; never in ``decode`` (one token, plain PyTorch),
-    nor under autograd, nor with ``kernels=False`` (the plain check)."""
+def kernel_route(mode: str, kernels: bool, *,
+                 differentiable: bool = False) -> bool:
+    """Whether a kernel runs: in ``prefill``, and in ``train`` — under
+    autograd only for a kernel whose gradient is an autograd Function
+    (``differentiable``: attention, the cross-entropy), with autograd off
+    for the others (the two scans); never in ``decode`` (one token, plain
+    PyTorch), nor with ``kernels=False`` (the plain check)."""
     return kernels and (mode == "prefill" or (
-        mode == "train" and not torch.is_grad_enabled()))
+        mode == "train" and (differentiable or not torch.is_grad_enabled())))
 
 
 def block_forward(
@@ -183,7 +187,7 @@ def block_forward(
         new_cache = {"k": kc, "v": vc}
     else:
         new_cache = None
-        if route:
+        if kernel_route(mode, kernels, differentiable=True):
             ctx = ops.flash_attention(q, k, v, causal=True, window=window)
         elif mode == "prefill":
             ctx = ref.attention_ref(q, k, v, causal=True, window=window)

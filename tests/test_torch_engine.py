@@ -18,6 +18,7 @@ on the CPU.
 Exact comparisons are ``torch.equal``; the ledger's integers are equal to
 the reference's.
 """
+import dataclasses
 import json
 import os
 
@@ -54,21 +55,31 @@ class FakeGraph:
     """A CUDA graph's protocol on the CPU: the warm-up and the capture run
     the body (the capture's launch counts are recorded by the engine), a
     replay runs it again without counting, as a real replay runs no
-    Python."""
+    Python.  As a real capture, which runs no work on the device, the
+    capture stores nothing into the output buffers: the replays do."""
 
     replays = 0
+    capturing = False
 
     def warm_up(self, fn):
         return fn()
 
     def capture(self, fn):
         self.fn = fn
-        fn()
+        self.capturing = True
+        try:
+            fn()
+        finally:
+            self.capturing = False
 
     def replay(self):
         FakeGraph.replays += 1
         with ops.uncounted():
             self.fn()
+
+    def write(self, dst, src):
+        if not self.capturing:
+            dst.copy_(src)
 
 
 @pytest.fixture
@@ -262,10 +273,48 @@ def test_row_to_record_and_buffer():
     rec = engine_lib.row_to_record(
         {"a": np.float32(1.5), "v": np.arange(3.0)}, np.int32(7))
     assert rec == {"round": 7, "a": 1.5, "v": [0.0, 1.0, 2.0]}
-    buf = (["a", "b"], [3, 5], torch.tensor([[1.0, 2.0], [3.0, 4.0]]))
+    buf = (["a", "b"], [3, 5], torch.tensor([[1.0, 2.0], [3.0, 4.0]]),
+           [(), ()])
     assert engine_lib.records_from_buffer(buf) == [
         {"round": 3, "a": 1.0, "b": 2.0}, {"round": 5, "a": 3.0, "b": 4.0}]
-    assert engine_lib.records_from_buffer((["a"], [], None)) == []
+    assert engine_lib.records_from_buffer((["a"], [], None, [()])) == []
+
+
+@pytest.mark.parametrize("capture", [False, True])
+def test_vector_metric_rows(monkeypatch, capture):
+    """A vector metric beside the scalars (as the DRO metrics' (G,)
+    ``eval_group_loss``), in eager and captured chunks: the buffer row holds
+    the metrics flattened in order with their shapes, ``records_from_buffer``
+    gives the vector as a list, and the scalars are those of a run without
+    it."""
+    if capture:
+        monkeypatch.setattr(engine_lib.ChunkRunner, "graph_type", FakeGraph)
+    prob, st, step, sampler = _setup()
+    base = engine_lib.quadratic_metrics_fn(prob)
+
+    def metrics(state, batches):
+        return {**base(state, batches), "x_bar": state.x.mean(0)}
+
+    _, buf = engine_lib.make_chunk_builder(step, sampler, metrics,
+                                           log_every=2, capture=capture)(3)(
+        st, 4)
+    names, rounds, rows, shapes = buf
+    assert rounds == [0, 2] and names[-1] == "x_bar"
+    assert shapes == [()] * (len(names) - 1) + [(DX,)]
+    assert rows.shape == (2, len(names) - 1 + DX)
+    final, hist = engine_lib.run(
+        st, engine_lib.make_chunk_builder(step, sampler, metrics,
+                                          log_every=2, capture=capture),
+        total_rounds=5, chunk_rounds=3, wall_clock=False)
+    _, plain = engine_lib.run(
+        st, engine_lib.make_chunk_builder(step, sampler, base, log_every=2,
+                                          capture=False),
+        total_rounds=5, chunk_rounds=3, wall_clock=False)
+    assert [{k: v for k, v in r.items() if k != "x_bar"} for r in hist] == \
+        plain
+    assert all(isinstance(r["x_bar"], list) and len(r["x_bar"]) == DX
+               for r in hist)
+    assert hist[-1]["x_bar"] == final.x.mean(0).tolist()
 
 
 def test_engine_bit_identical_with_telemetry_on(fake_graph):
@@ -458,6 +507,41 @@ def test_returned_state_aliases_no_buffer_of_the_builder(fake_graph):
     for k, v in kept.items():
         assert torch.equal(getattr(s1, k), v)
     assert not torch.equal(s3.x, s1.x)
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_donated_state_becomes_the_runners_buffers(fake_graph, shared):
+    """``donate=True``: the state handed in becomes the static input
+    buffers, each chunk stores the new state back into them and returns
+    views of them, bit for bit the eager run.  Two leaves on one memory
+    (``shared``: y and cy one tensor) are not both taken over: the second
+    gets a buffer of its own."""
+    prob, st, step, sampler = _setup()
+    if shared:
+        st = dataclasses.replace(st, cy=st.y)
+    metrics = engine_lib.quadratic_metrics_fn(prob)
+    eager, h0 = engine_lib.run(
+        st, engine_lib.make_chunk_builder(step, sampler, metrics,
+                                          log_every=2, capture=False),
+        total_rounds=10, chunk_rounds=3, wall_clock=False)
+    given = tree_lib.tree_map(
+        lambda x: x.clone() if isinstance(x, torch.Tensor) else x, st)
+    if shared:
+        given = dataclasses.replace(given, cy=given.y)
+    build = engine_lib.make_chunk_builder(step, sampler, metrics,
+                                          log_every=2, capture=True,
+                                          donate=True)
+    final, h1 = engine_lib.run(given, build, total_rounds=10,
+                               chunk_rounds=3, wall_clock=False)
+    _assert_states_equal(eager, final)
+    assert h0 == h1 and build.stats["replays"] == 4
+    owned = ("x", "y", "cx") if shared else ("x", "y", "cx", "cy")
+    for k in owned:
+        assert getattr(final, k).data_ptr() == getattr(given, k).data_ptr()
+        assert torch.equal(getattr(given, k), getattr(final, k))
+    if shared:
+        assert final.cy.data_ptr() != given.cy.data_ptr()
+        assert torch.equal(given.y, final.y)
 
 
 @pytest.mark.parametrize("kind", ["lr_scale", "topology_cycle"])

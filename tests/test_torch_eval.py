@@ -150,19 +150,31 @@ def test_chunked_nll_matches_jax(dtype, route):
 
 
 def test_chunked_nll_under_autograd_takes_the_plain_route():
-    """With autograd on, ``kernels=True`` still runs the reference's form
-    (the kernels have no backward pass yet), and the gradient flows."""
+    """With autograd on, ``kernels=True`` takes the kernel route as with
+    autograd off — B6 is differentiable — which on CPU tensors is the
+    kernel's plain version (f32 logits, ``ref.fused_ce_ref``), not the
+    reference's bf16-logit form of ``kernels=False``; the gradient flows
+    and is that of the plain version."""
     _, _, model, _, tbatch = _setup()
     hid = torch.randn((4, 40, model.cfg.d_model), requires_grad=True,
                       generator=torch.Generator().manual_seed(1))
     nll = t_model.chunked_nll(model, hid.to(torch.bfloat16),
                               tbatch["labels"], kernels=True)
     with torch.no_grad():
+        no_grad = t_model.chunked_nll(model, hid.to(torch.bfloat16),
+                                      tbatch["labels"], kernels=True)
         plain = t_model.chunked_nll(model, hid.to(torch.bfloat16),
                                     tbatch["labels"], kernels=False)
-    assert torch.equal(nll.detach(), plain)
+    assert torch.equal(nll.detach(), no_grad)
+    assert not torch.equal(nll.detach(), plain)     # the logits' rounding
     nll.mean().backward()
     assert hid.grad is not None and torch.isfinite(hid.grad).all()
+    h2 = hid.detach().clone().requires_grad_(True)
+    t_ref.fused_ce_ref(
+        h2.to(torch.bfloat16).reshape(-1, model.cfg.d_model),
+        model.embed.to(torch.bfloat16), tbatch["labels"].reshape(-1)
+    ).mean().backward()
+    assert torch.equal(hid.grad, h2.grad)
 
 
 @pytest.mark.parametrize("route", ["plain", "kernel"])

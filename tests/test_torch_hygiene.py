@@ -47,7 +47,9 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.obs.events", "repro_torch.sweep.run",
                "repro_torch.sweep.defs", "repro_torch.sweep.batched",
                "repro_torch.core.compression", "repro_torch.core.adversary",
-               "repro_torch.obs.profiler", "repro_torch.obs.report")
+               "repro_torch.obs.profiler", "repro_torch.obs.report",
+               "repro_torch.launch.train", "repro_torch.optim.schedules",
+               "repro_torch.optim.optimizers")
 
 
 def _env():

@@ -273,13 +273,19 @@ def _grad_cases():
 @pytest.mark.parametrize("name", ["flash_attention", "rglru_scan",
                                   "ssd_scan", "fused_cross_entropy"])
 def test_model_kernels_refuse_an_operand_that_requires_grad(name):
-    """No model kernel has a backward pass yet: an operand that requires
-    grad raises, naming the training slice, rather than lose its gradient;
-    under no_grad the same call goes on to the device check."""
+    """The two scans (B7, B8) have no backward pass yet: an operand that
+    requires grad raises, naming the training slice, rather than lose its
+    gradient.  Attention and the cross-entropy (B5, B6) are differentiable
+    (autograd Functions): an operand that requires grad goes on to the
+    device check.  Under no_grad every call goes on to the device check."""
     fn, args, kw = _grad_cases()[name]
     grad_args = (args[0].clone().requires_grad_(True),) + args[1:]
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fn(*grad_args, **kw)
+    if name in ("rglru_scan", "ssd_scan"):
+        with pytest.raises(NotImplementedError, match="training slice"):
+            fn(*grad_args, **kw)
+    else:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(*grad_args, **kw)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         fn(*grad_args, **kw)
     assert t_ops.launch_counts()[name] == 0
