@@ -101,8 +101,9 @@ Phases, each printing one JSON line:
 14. obs — ``obs.health_gauges`` on a compressed state and one
    ``obs.Profiler`` window over 10 captured rounds (a non-empty trace).
 
-15. train — federated DRO training of qwen2-0.5b at full width (24
-   layers, d_model 896, V = 151 936; bf16 compute, f32 state) through
+15. train — federated DRO training of qwen2-0.5b at full width (d_model
+   896, V = 151 936; bf16 compute, f32 state), cut to TRAIN_LAYERS of its
+   24 layers, through
    ``launch.train`` at the reference's train defaults (n = 4, K = 4,
    batch 4 × 128 tokens a client, 8 groups): one local step's per-client
    gradients (``vmap(grad)``) through B5 and B6 against the plain route in
@@ -114,9 +115,23 @@ Phases, each printing one JSON line:
    tokens/s, peak memory; one round of each baseline; B5 and B6 at the
    train shapes, held against their plain versions, with forward, plain
    and backward times.
+16. train_ssm — federated DRO training of the other block kinds:
+   mamba2-1.3b at full width (d_model 2048, V = 50 280; bf16 compute, f32
+   state) at the reference's train defaults but n = 2, cut in depth
+   (SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED): per-client
+   gradients through B7 and B6 against the plain route (f32 and bf16) at
+   full depth, eager rounds/s and peak memory at the eager depth; the main
+   path captured at the captured
+   depth with B7's and B6's launches by route (B7 one launch a layer and
+   local step, the clients folded), bit for bit the host loop, and eager
+   and captured rounds/s in turns; the reduced recurrentgemma-9b's
+   gradients and one round through B5, B8 and B6 against the plain route;
+   B8's autograd Function at a full-width layer (forward against its plain
+   version, backward against autograd through it) and B7 at the train
+   shape, with forward, plain and backward times.
 
-Phases 12–14 run after the sweep phase, before serve; phase 15 after
-evaluate, before times.
+Phases 12–14 run after the sweep phase, before serve; phases 15 and 16
+after evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
@@ -130,6 +145,8 @@ non-zero at once.  ``--phases`` runs a subset (for debugging).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -143,7 +160,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "evaluate",
-          "train", "times")
+          "train", "train_ssm", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -213,6 +230,13 @@ TOL_TRAIN_F32 = 1e-4     # per-client gradients, kernels vs plain, f32 compute
 # the train shapes are held at TOL_ATTN_BF16 and TOL_CE (``train_kernel_times``)
 TOL_TRAIN_BF16_X = 1e-2
 TOL_TRAIN_BF16_Y = 2e-4
+# mamba2-1.3b's per-client gradients in bf16, kernels vs plain: B7 runs in
+# f32 on both routes (3xTF32 against f32), so B6's f32 logits (quirk 4) make
+# the difference, as in qwen2-0.5b's; stated before the first reading
+TOL_TRAIN_SSM_BF16_X, TOL_TRAIN_SSM_BF16_Y = 1e-2, 2e-4
+# B8's backward (``ref.rglru_bwd_ref``) against autograd through the plain
+# recurrence, f32, × (1 + max): the same sums, maybe in another order
+TOL_SCAN_BWD = 1e-5
 
 # the serving path: recurrentgemma-9b at full width in bf16, 4 prompts of two
 # windows (4096 tokens), 32 new tokens each
@@ -231,6 +255,25 @@ EVAL_CLIENTS, EVAL_B, EVAL_S, EVAL_GROUPS = 4, 4, 4096, 8
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_N, TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_G = 4, 4, 4, 128, 8
 TRAIN_RESUME_N, TRAIN_ROUNDS = 2, 3
+# the depth the train phase cuts qwen2-0.5b to, so that the whole script
+# keeps within its time limit with the train_ssm phase beside it (PERF.md
+# §4); its width and the paths it drives are the full model's
+TRAIN_LAYERS = 8
+# the rate turns of both train phases: an eager chunk, then a captured one
+RATE_TURNS = (False, True)
+# federated DRO training of the other block kinds: mamba2-1.3b at full
+# width through B7 and B6, at the reference's train defaults but n = 2 (its
+# state at n = 4 does not leave the working set room on the card: PERF.md
+# §4): the gradient checks at all SSM_LAYERS_GRADS layers, the eager host
+# loop cut to SSM_LAYERS_EAGER and the captured chunks (held bit for bit to
+# eager ones) to SSM_LAYERS_CAPTURED, the depths whose peaks fit the card
+# (PERF.md §4, §5)
+SSM_TRAIN_ARCH, SSM_TRAIN_N = "mamba2-1.3b", 2
+SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 48, 40, 24
+# recurrentgemma-9b's state does not fit the card even at n = 1: its reduced
+# config trains here, and B8 is held at a full-width layer's (n·B, S, W)
+RG_TRAIN_ARCH = "recurrentgemma-9b"
+RG_SCAN_TRAIN_SHAPE = (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 4096)
 # each two-route kernel's first-port route (the others': "cuda_core")
 OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
              "sparse_gossip": "row_block"}
@@ -931,7 +974,8 @@ def check_rglru_scan(gen, dev) -> float:
     from repro_torch.kernels import ref, rglru_scan
 
     shapes = [(1, 1, 1), (2, 17, 5), (3, 300, 130), (2, 33, 257),
-              (1, 1000, 4096), served_scan_shape()]
+              (1, 1000, 4096), served_scan_shape(), RG_SCAN_TRAIN_SHAPE,
+              (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 256)]
     worst = 0.0
     exact = 0
     for b, s, w in shapes:
@@ -969,6 +1013,17 @@ def served_ssd_shapes():
     return [(b, sl, h, s.d_head, s.d_state, s.chunk)
             for b, sl in ((MAMBA_B, MAMBA_PROMPT), (EVAL_B, EVAL_S),
                           (1, LONG_S))]
+
+
+def train_ssd_shape():
+    """(B, S, H, P, N, chunk) of the SSD scan in mamba2-1.3b's training:
+    the clients folded into the batch."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_model_config(SSM_TRAIN_ARCH)
+    s = cfg.ssm
+    return (SSM_TRAIN_N * TRAIN_B, TRAIN_S, s.expand * cfg.d_model // s.d_head,
+            s.d_head, s.d_state, s.chunk)
 
 
 def ssd_operands(b, s, h, p, n, gen, dev):
@@ -1033,7 +1088,7 @@ def check_ssd_scan(gen, dev):
             del y, fin
         return rt
 
-    served = served_ssd_shapes()
+    served = served_ssd_shapes() + [train_ssd_shape()]
     for b, s, h, p, n, chunk in SSD_CASES + served:
         xdt, loga, bm, cm, s0 = ssd_operands(b, s, h, p, n, gen, dev)
         for state0 in (None, s0):
@@ -2796,92 +2851,115 @@ def trees_equal(a, b) -> bool:
 
 
 def train_launches(cfg, *, n, k, rounds, logged) -> dict:
-    """B5 and B6 launches of ``rounds`` rounds of the DRO training path:
-    the initial corrections' gradient and each local step's vmapped
-    gradient launch B5 once a layer (the clients folded into its batch)
-    and B6 once a client (each client's own head); each logged row runs
-    three forwards of x̄ (f(x̄, ȳ), the train groups, the held-out
-    groups), each once a layer and once."""
-    layers = len(cfg.blocks())
+    """The model kernels' launches of ``rounds`` rounds of the DRO training
+    path: the initial corrections' gradient and each local step's vmapped
+    gradient launch each layer's kernel once (B5, B7 or B8: the clients
+    folded into its batch) and B6 once a client (each client's own head);
+    each logged row runs three forwards of x̄ (f(x̄, ȳ), the train groups,
+    the held-out groups), each once a layer and once."""
     grads = 1 + rounds * k
-    return {**NO_MODEL_KERNELS,
-            "flash_attention": layers * (grads + 3 * logged),
+    per_layer = serve_launches(cfg)
+    return {**{name: per_layer[name] * (grads + 3 * logged)
+               for name in per_layer},
             "fused_cross_entropy": n * grads + 3 * logged}
 
 
-def train_grad_checks(dev, gen, smi) -> dict:
+def model_routes(compute_dtype) -> dict:
+    """The route each routed model kernel takes in training: B5 and B6 on
+    tensor cores in bf16 and on CUDA cores in f32; B7's f32 operands on
+    tensor cores either way."""
+    import torch
+
+    route = "tensor_core" if compute_dtype == torch.bfloat16 else "cuda_core"
+    return {"flash_attention": route, "fused_cross_entropy": route,
+            "ssd_scan": "tensor_core"}
+
+
+def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
     """One local step's per-client gradients (``vmap(grad)`` of the DRO
     value at the initial parameters and a random positive ȳ — at the
-    initial ȳ = 0 the x-gradient is 0 —, the first round's k = 0 batch)
-    through the
-    kernels and through the plain route, in f32 compute (the kernels'
-    CUDA-core routes) and in bf16 (their tensor-core routes), with B5's and
-    B6's launches by route."""
+    initial ȳ = 0 the x-gradient is 0 —, the first round's k = 0 batch) of
+    the run ``args`` builds, through the kernels and through the plain
+    route, in f32 compute (within TOL_TRAIN_F32) and in bf16 (within
+    ``tol_bf16``, x and y), with the kernels' launches by route."""
     import torch
 
     from repro_torch.core import kgt_minimax as kgt
     from repro_torch.core import objectives
     from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as train_lib
 
-    args = train_args(device=dev)
     trainer = train_lib.build(args)
     batches, noise = trainer.sampler(0)[:2]
     batch = {key: v[0] for key, v in batches.items()}
-    x = trainer.state.x
-    y = torch.rand(trainer.state.y.shape, generator=gen, device=dev)
+    x, cfg = trainer.state.x, trainer.cfg
+    # ȳ from a generator of its own, so that a check reads the same
+    # whichever phases ran before it
+    y_gen = torch.Generator(device=dev)
+    y_gen.manual_seed(0)
+    y = torch.rand(trainer.state.y.shape, generator=y_gen, device=dev)
+    del trainer, batches         # the corrections: GBs the check needs not
     out = {}
-    for dt, route, tol in (
-            (torch.float32, "cuda_core", (TOL_TRAIN_F32, TOL_TRAIN_F32)),
-            (torch.bfloat16, "tensor_core",
-             (TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y))):
-        grads = {}
+    for dt, tol in ((torch.float32, (TOL_TRAIN_F32, TOL_TRAIN_F32)),
+                    (torch.bfloat16, tol_bf16)):
+        grads, peaks = {}, {}
         for kernels in (True, False):
             problem = objectives.dro_problem(
-                trainer.cfg, num_groups=args.groups, mu=args.mu,
-                compute_dtype=dt, kernels=kernels)
+                cfg, num_groups=args.groups, mu=args.mu, compute_dtype=dt,
+                kernels=kernels)
             zero_launch_counts()
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             grads[kernels] = kgt._vgrads(problem, x, y, batch, noise[0])
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+            peaks[kernels] = torch.cuda.max_memory_allocated() / 1e9
             if kernels:
                 launches, routes = launch_counts(), route_counts()
                 kernel_s = secs
+                # waits in host memory while the plain route runs
+                grads[True] = to_host(grads[True])
             elif any(launch_counts().values()):
-                fail(f"train grads ({dt}): the plain route launched "
+                fail(f"{phase} grads ({dt}): the plain route launched "
                      f"{launch_counts()}")
             else:
                 plain_s = secs
-        want = {**{k: 0 for k in launches},
-                "flash_attention": len(trainer.cfg.blocks()),
+        grads[True] = tree_lib.tree_map(
+            lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
+            grads[True])
+        want = {**dict.fromkeys(launches, 0), **serve_launches(cfg),
                 "fused_cross_entropy": args.clients}
         if launches != want:
-            fail(f"train grads ({dt}): launches {launches}, expected {want}")
-        check_routes({k: routes[k] for k in ("flash_attention",
-                                              "fused_cross_entropy")},
-                     want, f"train grads ({dt})",
-                     route_of={"flash_attention": route,
-                               "fused_cross_entropy": route})
+            fail(f"{phase} grads ({dt}): launches {launches}, expected "
+                 f"{want}")
+        routed = {k: v for k, v in model_routes(dt).items() if want[k]}
+        check_routes({k: routes[k] for k in routed}, want,
+                     f"{phase} grads ({dt})", route_of=routed)
         err_x = tree_rel_err(grads[True][0], grads[False][0])
         err_y = tree_rel_err(grads[True][1], grads[False][1])
         for g in grads.values():
             for leaf in tree_lib.leaves(g):
                 if not bool(leaf.isfinite().all()):
-                    fail(f"train grads ({dt}): not finite")
-        res = {"compute_dtype": str(dt).split(".")[-1], "route": route,
-               "rel_err_x": err_x, "rel_err_y": err_y, "tol_x": tol[0],
-               "tol_y": tol[1],
-               "launches": launches, "launches_by_route": routes,
+                    fail(f"{phase} grads ({dt}): not finite")
+        res = {"compute_dtype": str(dt).split(".")[-1],
+               "routes": routed, "rel_err_x": err_x, "rel_err_y": err_y,
+               "tol_x": tol[0], "tol_y": tol[1],
+               "launches": launches,
+               "launches_by_route": {k: routes[k] for k in ops.ROUTED
+                                     if k in routed},
                "kernel_route_s": kernel_s, "plain_route_s": plain_s,
+               "peak_memory_gb_kernel_route": peaks[True],
+               "peak_memory_gb_plain_route": peaks[False],
                "max_abs_grad_x": max(float(g.abs().max()) for g in
                                      tree_lib.leaves(grads[False][0])),
                "max_abs_grad_y": float(grads[False][1].abs().max())}
-        emit({"phase": "train", "check": "per-client gradients",
+        emit({"phase": phase, "check": "per-client gradients",
+              "arch": cfg.name, "layers": len(cfg.blocks()),
               "clients": args.clients, "nvidia_smi": smi, **res})
         if not (err_x <= tol[0] and err_y <= tol[1]):
-            fail(f"train grads ({dt}): kernels vs plain {err_x}, {err_y} "
+            fail(f"{phase} grads ({dt}): kernels vs plain {err_x}, {err_y} "
                  f"> {tol} × (1 + max)")
         out[res["compute_dtype"]] = res
         del grads
@@ -2969,11 +3047,250 @@ def train_kernel_times(gen, dev) -> dict:
     return {"flash_attention": fa, "fused_cross_entropy": ce}
 
 
+def captured_against_eager(args_of, cfg, *, phase, smi) -> dict:
+    """The main path of a training phase: ``launch.train`` at the flags
+    ``args_of(...)`` gives, TRAIN_ROUNDS rounds in one captured chunk
+    (``--engine scan``: one CUDA graph, the state donated to it), with the
+    kernels' launches by route, finite rows and parameters; then the same
+    rounds through the host loop (``--engine host``), bit for bit."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = train_lib.train(args_of(rounds=TRAIN_ROUNDS, chunk=TRAIN_ROUNDS,
+                                  log_every=1))
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches, routes = launch_counts(), route_counts()
+    peak_graph = torch.cuda.max_memory_allocated() / 1e9
+    n = res["state"].y.shape[0]
+    want = train_launches(cfg, n=n, k=TRAIN_K, rounds=TRAIN_ROUNDS,
+                          logged=TRAIN_ROUNDS)
+    if launches != {**{k: 0 for k in launches}, **want}:
+        fail(f"{phase}: launches {launches}, expected {want}")
+    routed = {k: v for k, v in model_routes(torch.bfloat16).items()
+              if want[k]}
+    check_routes({k: routes[k] for k in routed}, want, phase,
+                 route_of=routed)
+    hist = res["history"]
+    for rec in hist:
+        for key in ("f_bar", "mean_loss", "eval_loss"):
+            if not math.isfinite(rec[key]):
+                fail(f"{phase} round {rec['round']}: {key} not finite")
+        g = rec["eval_group_loss"]
+        if len(g) != TRAIN_G or not all(math.isfinite(v) for v in g):
+            fail(f"{phase} round {rec['round']}: eval_group_loss {g}")
+    for leaf in tree_lib.leaves(res["state"].x):
+        if not bool(leaf.isfinite().all()):
+            fail(f"{phase}: a parameter is not finite")
+    n_params = sum(p.numel() for p in tree_lib.leaves(res["state"].x))
+    # the captured state waits in host memory while the eager run holds
+    # the card
+    graph_state = to_host(res["state"])
+    graph_hist, capture_main_s = strip_stamps(hist), hist[-1]["capture_s"]
+    del res, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the eager reference: the host loop from the same seed
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = train_lib.train(args_of(engine="host", rounds=TRAIN_ROUNDS,
+                                  log_every=1))
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_allocated() / 1e9
+    if (launch_counts(), route_counts()) != (launches, routes):
+        fail(f"{phase}: eager launches {launch_counts()} {route_counts()}, "
+             f"captured {launches} {routes}")
+    eager_state, eager_hist = to_host(res["state"]), strip_stamps(
+        res["history"])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    exact = graph_hist == eager_hist and trees_equal(graph_state,
+                                                     eager_state)
+    rel = 0.0 if exact else max(tree_rel_err(graph_state, eager_state), max(
+        abs(a[m] - b[m]) / (1 + abs(b[m]))
+        for a, b in zip(graph_hist, eager_hist)
+        for m in a if m not in ("round", "eval_group_loss")))
+    if not exact and not rel <= TOL_GRAPH_DENSE:
+        fail(f"{phase} capture: captured differs from eager (rel {rel})")
+    del graph_state, eager_state
+    per_layer = serve_launches(cfg)
+    main = {"arch": cfg.name, "layers": len(cfg.blocks()), "clients": n,
+            "rounds": TRAIN_ROUNDS, "engine": "scan",
+            "bit_for_bit_with_eager": exact, "max_rel_err": rel,
+            "capture_s": capture_main_s,
+            "launches_a_round": {
+                **{k: v * TRAIN_K for k, v in per_layer.items() if v},
+                "fused_cross_entropy": n * TRAIN_K},
+            "launches_a_logged_row": {
+                **{k: 3 * v for k, v in per_layer.items() if v},
+                "fused_cross_entropy": 3},
+            "seconds_incl_build": main_s,
+            "peak_memory_gb_captured": peak_graph,
+            "peak_memory_gb_eager": peak_eager,
+            "client_stacked_params": n_params,
+            "allocated_gb_after": torch.cuda.memory_allocated() / 1e9,
+            "launches": launches, "launches_by_route": routes,
+            "history": graph_hist}
+    emit({"phase": phase, "case": f"main, n = {n}, --engine scan against "
+          "--engine host", "nvidia_smi": smi, **main})
+    return main
+
+
+def train_rates(args, cfg, *, phase, smi, turns) -> dict:
+    """rounds/s of ``args``'s run in ``turns`` (True: a captured chunk,
+    False: an eager one) of TRAIN_ROUNDS rounds, each turn going on from
+    the state the last one left; a captured chunk's pool and an eager
+    chunk's working set need not fit the card together, so each captured
+    turn captures afresh (untimed), times a replay and frees.  With the
+    peak memory over the turns, and the launches of the first turn (every
+    turn launches the same)."""
+    import gc
+
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import train as train_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = train_lib.build(args)
+    # the state lives in this list alone, so that no frame holds the old
+    # one (GBs) while a chunk advances it
+    box, trainer.state = [trainer.state], None
+    rates = {False: [], True: []}
+    capture_s, draw_s = [], []
+    launches = logged = None
+    for c in turns:
+        if c:
+            # an eager chunk's new state lies in segments shared with the
+            # blocks it freed (the capture's pool found no room beside
+            # them); moved out and back it is compact
+            host = to_host(box.pop())
+            gc.collect()
+            torch.cuda.empty_cache()
+            box.append(tree_lib.tree_map(
+                lambda x: x.to(args.device) if isinstance(x, torch.Tensor)
+                else x, host))
+            del host
+        build = trainer.build_chunk(args, capture=c)
+
+        def advance():
+            total = box[0].round + TRAIN_ROUNDS
+            new, hist = engine_lib.run(box.pop(), build, total_rounds=total,
+                                       chunk_rounds=TRAIN_ROUNDS)
+            box.append(new)
+            return hist
+
+        if c:
+            advance()
+            capture_s.append(build.stats["capture_s"])
+            draw0 = build.stats["draw_s"]
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        hist = advance()
+        torch.cuda.synchronize()
+        rates[c].append(TRAIN_ROUNDS / (time.perf_counter() - t0))
+        if launches is None:
+            launches, logged = launch_counts(), len(hist)
+        if c:
+            if build.stats["captures"] != 1:
+                fail(f"{phase} rates: {build.stats['captures']} captures")
+            draw_s.append((build.stats["draw_s"] - draw0) / TRAIN_ROUNDS)
+        del build, advance
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = args.clients
+    per_layer = serve_launches(cfg)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: v * (TRAIN_ROUNDS * TRAIN_K + 3 * logged)
+               for k, v in per_layer.items()},
+            "fused_cross_entropy": n * TRAIN_ROUNDS * TRAIN_K + 3 * logged}
+    if launches != want:
+        fail(f"{phase} rates: a turn launched {launches}, expected {want}")
+    tokens = n * TRAIN_K * TRAIN_B * TRAIN_S
+    out = {"arch": cfg.name, "layers": len(cfg.blocks()), "clients": n,
+           "rounds_a_turn": TRAIN_ROUNDS,
+           "turns": ["captured" if c else "eager" for c in turns],
+           "rounds_per_s_eager": rates[False],
+           "rounds_per_s_captured": rates[True],
+           "tokens_per_s_eager": [r * tokens for r in rates[False]],
+           "tokens_per_s_captured": [r * tokens for r in rates[True]],
+           "capture_s": capture_s, "draw_host_s_per_round": draw_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches_a_turn": launches, "logged_rows_a_turn": logged}
+    emit({"phase": phase, "case": f"n = {n}, "
+          + ", ".join(out["turns"]), "nvidia_smi": smi, **out})
+    del trainer, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def host_loop_run(args, cfg, *, phase, smi) -> dict:
+    """``launch.train`` at ``args`` through its host loop (``--engine
+    host``, which hands the state over round by round, where an eager
+    engine chunk holds the state it was given until the chunk ends),
+    TRAIN_ROUNDS rounds logged at the first and the last: the kernels'
+    launches by route, finite rows, peak memory, and rounds/s over the
+    rounds after the first (the last row's metrics included)."""
+    import gc
+
+    import torch
+
+    from repro_torch.launch import train as train_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = train_lib.train(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches, routes = launch_counts(), route_counts()
+    hist = strip_stamps(res["history"])
+    walls = [r["wall_s"] for r in res["history"]]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = args.clients
+    want = train_launches(cfg, n=n, k=TRAIN_K, rounds=TRAIN_ROUNDS,
+                          logged=len(hist))
+    if launches != {**dict.fromkeys(launches, 0), **want}:
+        fail(f"{phase} host loop: launches {launches}, expected {want}")
+    routed = {k: v for k, v in model_routes(torch.bfloat16).items()
+              if want[k]}
+    check_routes({k: routes[k] for k in routed}, want,
+                 f"{phase} host loop", route_of=routed)
+    for rec in hist:
+        if not all(math.isfinite(rec[k]) for k in ("f_bar", "mean_loss",
+                                                   "eval_loss")):
+            fail(f"{phase} host loop round {rec['round']}: not finite")
+    rate = (hist[-1]["round"] - hist[0]["round"]) / (walls[-1] - walls[0])
+    out = {"arch": cfg.name, "layers": len(cfg.blocks()), "clients": n,
+           "rounds": TRAIN_ROUNDS, "engine": "host",
+           "rounds_per_s": rate,
+           "tokens_per_s": rate * n * TRAIN_K * TRAIN_B * TRAIN_S,
+           "peak_memory_gb": peak, "launches": launches,
+           "launches_by_route": {k: routes[k] for k in routed}}
+    emit({"phase": phase, "case": f"host loop, n = {n}",
+          "nvidia_smi": smi, **out})
+    return out
+
+
 def phase_train(dev, gen, smi) -> dict:
-    """Federated DRO training of qwen2-0.5b at full width (24 layers,
-    d_model 896, 14/2 heads, V = 151 936, tied head; bf16 compute, f32
-    state) through ``launch.train`` at the reference's train defaults
-    (n = 4, K = 4, batch 4 × 128 a client, 8 groups), weights from seed 0:
+    """Federated DRO training of qwen2-0.5b at full width (d_model 896,
+    14/2 heads, V = 151 936, tied head; bf16 compute, f32 state), cut to
+    TRAIN_LAYERS of its 24 layers, through ``launch.train`` at the
+    reference's train defaults (n = 4, K = 4, batch 4 × 128 a client, 8
+    groups), weights from seed 0:
     per-client gradients through B5 and B6 against the plain route (f32
     and bf16); the main path, three rounds at n = 4 captured (``--engine
     scan``, one CUDA graph a chunk), with B5's and B6's launches by route,
@@ -2988,200 +3305,293 @@ def phase_train(dev, gen, smi) -> dict:
 
     from repro_torch import engine as engine_lib
     from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.launch import train as train_lib
+
+    with arch_depth(TRAIN_ARCH, TRAIN_LAYERS) as cfg:
+        gc.collect()            # what the earlier phases left in cycles
+        torch.cuda.empty_cache()
+        out = {"grads": grad_checks(dev, smi, train_args(device=dev),
+                                    phase="train",
+                                    tol_bf16=(TOL_TRAIN_BF16_X,
+                                              TOL_TRAIN_BF16_Y))}
+        torch.cuda.empty_cache()
+        out["main"] = captured_against_eager(
+            lambda **kw: train_args(device=dev, **kw), cfg, phase="train",
+            smi=smi)
+
+        # a checkpoint resume of a captured run, at n = 2 (half the
+        # checkpoint written to disk)
+        with tempfile.TemporaryDirectory() as d:
+            args = train_args(device=dev, clients=TRAIN_RESUME_N,
+                              rounds=TRAIN_ROUNDS, chunk=TRAIN_ROUNDS,
+                              log_every=1, checkpoint_every=2,
+                              checkpoint_dir=d)
+            full = train_lib.train(args)["state"]
+            gc.collect()
+            trainer = train_lib.build(args)
+            restored = ckpt_lib.restore(os.path.join(d, "round_000002.npz"),
+                                        trainer.state)
+            trainer.state = None
+            build = trainer.build_chunk(args)
+            resumed, _ = engine_lib.run(restored, build,
+                                        total_rounds=TRAIN_ROUNDS,
+                                        chunk_rounds=TRAIN_ROUNDS)
+        resumed_exact = resumed.round == full.round and trees_equal(resumed,
+                                                                     full)
+        if not resumed_exact:
+            fail("train: the checkpoint resume of the captured run differs")
+        out["resume"] = {"clients": TRAIN_RESUME_N, "rounds": TRAIN_ROUNDS,
+                         "checkpoint_round": 2, "bit_for_bit": resumed_exact}
+        emit({"phase": "train", "case": "checkpoint resume, captured",
+              **out["resume"]})
+        del full, resumed, restored, trainer, build
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # rounds/s at n = 4, eager and captured in turns
+        out["rates"] = train_rates(train_args(device=dev,
+                                              log_every=TRAIN_ROUNDS), cfg,
+                                   phase="train", smi=smi, turns=RATE_TURNS)
+
+        # one round of each baseline at n = 4
+        out["baselines"] = {}
+        for algo in ALGOS[1:]:
+            r = train_lib.train(train_args(device=dev, engine="host",
+                                           algorithm=algo, rounds=1))
+            rec = r["history"][-1]
+            if not all(math.isfinite(rec[k]) for k in ("f_bar", "mean_loss",
+                                                       "eval_loss")):
+                fail(f"train {algo}: not finite")
+            out["baselines"][algo] = {k: rec[k] for k in ("f_bar", "mean_loss",
+                                                          "eval_loss")}
+            del r
+            gc.collect()
+            torch.cuda.empty_cache()
+        emit({"phase": "train", "baselines": out["baselines"],
+              "clients": TRAIN_N})
+        out["times"] = train_kernel_times(gen, dev)
+        out["launches"] = out["main"]["launches"]
+        out["launches_by_route"] = out["main"]["launches_by_route"]
+        return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: federated DRO training of the other block kinds
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def arch_depth(arch, layers):
+    """``arch`` cut to its first ``layers`` layers in the registry while
+    the block runs (``launch.train.build`` looks the config up by name);
+    yields the cut config."""
     from repro_torch.configs import registry
+
+    full = registry.ARCHS[arch]
+    registry.ARCHS[arch] = dataclasses.replace(full, num_layers=layers)
+    try:
+        yield registry.ARCHS[arch]
+    finally:
+        registry.ARCHS[arch] = full
+
+
+def ssm_args(**over):
+    """``launch.train``'s flags at the reference's train defaults but
+    n = SSM_TRAIN_N, on SSM_TRAIN_ARCH, with ``over``."""
+    return train_args(arch=SSM_TRAIN_ARCH, clients=SSM_TRAIN_N, **over)
+
+
+def rg_reduced_checks(dev, smi) -> dict:
+    """The reduced recurrentgemma-9b (3 layers: two RG-LRU blocks and a
+    local-attention block, d_model 256) at the train defaults but
+    n = SSM_TRAIN_N: per-client gradients through B5, B8 and B6 against
+    the plain route (f32 and bf16, as ``grad_checks``), and one round
+    from the initial state in f32 compute, through the kernels against
+    the plain route, within TOL_TRAIN_F32 · (1 + max)."""
+    import torch
+
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import objectives
     from repro_torch.core import tree as tree_lib
     from repro_torch.launch import train as train_lib
 
-    cfg = registry.get_model_config(TRAIN_ARCH)
+    args = train_args(device=dev, arch=RG_TRAIN_ARCH, reduced=True,
+                      clients=SSM_TRAIN_N)
+    out = {"grads": grad_checks(dev, smi, args, phase="train_ssm",
+                                tol_bf16=(TOL_TRAIN_BF16_X,
+                                          TOL_TRAIN_BF16_Y))}
+    trainer = train_lib.build(args)
+    batches, noise = trainer.sampler(0)[:2]
+    rounds = {}
+    for kernels in (True, False):
+        problem = objectives.dro_problem(
+            trainer.cfg, num_groups=args.groups, mu=args.mu,
+            compute_dtype=torch.float32, kernels=kernels)
+        step = kgt.make_round_step(problem, trainer.algo, device=dev)
+        state = tree_lib.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            trainer.state)
+        zero_launch_counts()
+        rounds[kernels] = step(state, batches, noise)
+        if kernels:
+            launches, routes = launch_counts(), route_counts()
+        elif any(launch_counts().values()):
+            fail(f"train_ssm {RG_TRAIN_ARCH} round: the plain route "
+                 f"launched {launch_counts()}")
+    per_layer = serve_launches(trainer.cfg)
+    want = {**dict.fromkeys(launches, 0),
+            **{k: v * TRAIN_K for k, v in per_layer.items()},
+            "fused_cross_entropy": SSM_TRAIN_N * TRAIN_K}
+    if launches != want:
+        fail(f"train_ssm {RG_TRAIN_ARCH} round: launches {launches}, "
+             f"expected {want}")
+    routed = {k: v for k, v in model_routes(torch.float32).items()
+              if want[k]}
+    check_routes({k: routes[k] for k in routed}, want,
+                 f"train_ssm {RG_TRAIN_ARCH} round", route_of=routed)
+    err = max(tree_rel_err(getattr(rounds[True], f),
+                           getattr(rounds[False], f))
+              for f in ("x", "y", "cx", "cy"))
+    out["round"] = {"arch": trainer.cfg.name, "clients": SSM_TRAIN_N,
+                    "compute_dtype": "float32", "rel_err": err,
+                    "tol": TOL_TRAIN_F32, "launches": launches,
+                    "launches_by_route": {k: routes[k] for k in routed}}
+    emit({"phase": "train_ssm", "check": "one round, kernels against plain",
+          "nvidia_smi": smi, **out["round"]})
+    if not err <= TOL_TRAIN_F32:
+        fail(f"train_ssm {RG_TRAIN_ARCH} round: kernels vs plain {err} > "
+             f"{TOL_TRAIN_F32} × (1 + max)")
+    return out
+
+
+def rglru_train_times(gen, dev) -> dict:
+    """``RglruScanFn`` at a full-width recurrentgemma-9b layer's training
+    shape, RG_SCAN_TRAIN_SHAPE (n·B, S, W) f32: the kernel forward against
+    ``ref.rglru_ref`` (TOL_SCAN, as the kernels phase holds B8), the
+    Function's backward (``ref.rglru_bwd_ref``) against autograd through
+    the plain version (TOL_SCAN_BWD); the forward's, the plain forward's
+    and the backward's times, and the 12·B·S·W-byte bound."""
+    import torch
+
+    from repro_torch.kernels import ref, rglru_scan
+
+    b, s, w = RG_SCAN_TRAIN_SHAPE
+    a = (torch.rand((b, s, w), generator=gen, device=dev) * 0.5
+         + 0.5).requires_grad_(True)
+    u = torch.randn((b, s, w), generator=gen, device=dev).requires_grad_(True)
+    wts = torch.randn((b, s, w), generator=gen, device=dev)
+    h = rglru_scan.rglru_scan_bsw(a, u)
+    want = ref.rglru_ref(a, u)
+    fwd_err = max_err(h.detach(), want.detach())
+    got_g = torch.autograd.grad((h * wts).sum(), (a, u))
+    want_g = torch.autograd.grad((want * wts).sum(), (a, u))
+    bwd_rel = max(max_err(g, wg) / (1 + float(wg.abs().max()))
+                  for g, wg in zip(got_g, want_g))
+    if not fwd_err <= TOL_SCAN * (1 + float(want.detach().abs().max())):
+        fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: forward err {fwd_err}")
+    if not bwd_rel <= TOL_SCAN_BWD:
+        fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: backward {bwd_rel} > "
+             f"{TOL_SCAN_BWD} × (1 + max)")
+    a, u, h = a.detach(), u.detach(), h.detach()
+    del got_g, want_g, want
+    ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=21)
+    pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=5)
+    bwd_ms = cuda_ms(lambda: ref.rglru_bwd_ref(a, h, wts), reps=5)
+    bound, by = scan_bound_ms(b, s, w)
+    out = dict(ms=ms, plain_ms=pms, backward_plain_ms=bwd_ms,
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=[b, s, w], forward_max_abs_err=fwd_err,
+               forward_bit_for_bit=fwd_err == 0.0, forward_tol=TOL_SCAN,
+               backward_rel_err=bwd_rel, backward_tol=TOL_SCAN_BWD)
+    emit({"phase": "train_ssm", "kernel": "rglru_scan", **out})
+    del a, u, h, wts
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssd_train_times(gen, dev) -> dict:
+    """B7 at the mamba2 train path's shape (the clients folded into B:
+    (SSM_TRAIN_N·B, S, 64, 64, 128), chunk 64, no state0) on its
+    tensor-core route, held against ``ref.ssd_chunked`` (TOL_SSD); its
+    forward, the plain forward, and the backward the Function runs
+    (``ref.ssd_bwd_ref``), beside the bound of ``ssd_work``."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+
+    b, s, h, p, n, chunk = train_ssd_shape()
+    xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
+    y, fin = routed_call(lambda: ssd_scan.ssd_scan_bshp(
+        xdt, loga, bm, cm, chunk=chunk), "ssd_scan", "tensor_core")
+    py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk)
+    err = max(max_err(y, py) / (1 + float(py.abs().max())),
+              max_err(fin, pfin) / (1 + float(pfin.abs().max())))
+    if not err <= TOL_SSD:
+        fail(f"ssd_scan at the train shape: {err} > {TOL_SSD} × (1 + max)")
+    gy, gfin = torch.randn_like(py), torch.zeros_like(pfin)
+    del y, fin, py, pfin
+    ms = cuda_ms(lambda: ssd_scan.ssd_scan_bshp(
+        xdt, loga, bm, cm, chunk=chunk), reps=21)
+    pms = cuda_ms(lambda: ref.ssd_chunked(xdt, loga, bm, cm, chunk),
+                  reps=11)
+    bwd_ms = cuda_ms(lambda: ref.ssd_bwd_ref(xdt, loga, bm, cm, chunk,
+                                             None, gy, gfin), reps=11)
+    bound, by = ssd_bound_ms(b, s, h, p, n, chunk, tensor_cores=True)
+    out = dict(ms=ms, plain_ms=pms, backward_plain_ms=bwd_ms,
+               library_ms=None, bound_ms=bound, bound_by=by,
+               shape=[b, s, h, p, n], chunk=chunk, rel_err=err,
+               tol=TOL_SSD)
+    emit({"phase": "train_ssm", "kernel": "ssd_scan", **out})
+    del xdt, loga, bm, cm, gy, gfin
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_ssm(dev, gen, smi) -> dict:
+    """Federated DRO training of mamba2-1.3b at full width (d_model 2048,
+    expand 2, d_head 64, d_state 128, chunk 64, V = 50 280, tied head;
+    bf16 compute, f32 state; weights from seed 0) through ``launch.train``
+    at the reference's train defaults but n = SSM_TRAIN_N, with B7 (one
+    launch a layer and local step, the clients folded) and B6 (one a
+    client) under ``vmap(grad)``: at SSM_LAYERS_CAPTURED layers, the main
+    path captured with its launches by route, bit for bit the host loop,
+    then eager and captured rates in turns; at SSM_LAYERS_GRADS layers,
+    per-client gradients against the plain route (f32 and bf16); at
+    SSM_LAYERS_EAGER layers, the host loop's rounds/s and peak memory.
+    Then the
+    reduced
+    recurrentgemma-9b (``rg_reduced_checks``), B8's Function at a
+    full-width layer (``rglru_train_times``) and B7 at the train shape
+    (``ssd_train_times``)."""
+    import gc
+
+    import torch
+
     gc.collect()            # what the earlier phases left in cycles
     torch.cuda.empty_cache()
-    out = {"grads": train_grad_checks(dev, gen, smi)}
-    torch.cuda.empty_cache()
-
-    # the main path: the entry point at its defaults (n = 4, --engine scan:
-    # the 3-round chunk one CUDA graph, the state donated to it)
-    torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts()
-    t0 = time.perf_counter()
-    res = train_lib.train(train_args(device=dev, rounds=TRAIN_ROUNDS,
-                                     chunk=TRAIN_ROUNDS, log_every=1))
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
-    launches, routes = launch_counts(), route_counts()
-    peak_graph = torch.cuda.max_memory_allocated() / 1e9
-    want = train_launches(cfg, n=TRAIN_N, k=TRAIN_K, rounds=TRAIN_ROUNDS,
-                          logged=TRAIN_ROUNDS)
-    if launches != {**{k: 0 for k in launches}, **want}:
-        fail(f"train: launches {launches}, expected {want}")
-    check_routes({k: routes[k] for k in ("flash_attention",
-                                          "fused_cross_entropy")},
-                 want, "train")
-    hist = res["history"]
-    for rec in hist:
-        for key in ("f_bar", "mean_loss", "eval_loss"):
-            if not math.isfinite(rec[key]):
-                fail(f"train round {rec['round']}: {key} not finite")
-        g = rec["eval_group_loss"]
-        if len(g) != TRAIN_G or not all(math.isfinite(v) for v in g):
-            fail(f"train round {rec['round']}: eval_group_loss {g}")
-    for leaf in tree_lib.leaves(res["state"].x):
-        if not bool(leaf.isfinite().all()):
-            fail("train: a parameter is not finite")
-    n_params = sum(p.numel() for p in tree_lib.leaves(res["state"].x))
-    # the captured state waits in host memory while the eager run holds
-    # the card
-    graph_state = to_host(res["state"])
-    graph_hist, capture_main_s = strip_stamps(hist), hist[-1]["capture_s"]
-    del res, hist
+    out = {}
+    with arch_depth(SSM_TRAIN_ARCH, SSM_LAYERS_CAPTURED) as cfg:
+        out["main"] = captured_against_eager(
+            lambda **kw: ssm_args(device=dev, **kw), cfg, phase="train_ssm",
+            smi=smi)
+        out["rates"] = train_rates(
+            ssm_args(device=dev, log_every=TRAIN_ROUNDS), cfg,
+            phase="train_ssm", smi=smi, turns=RATE_TURNS)
+    with arch_depth(SSM_TRAIN_ARCH, SSM_LAYERS_GRADS):
+        out["grads"] = grad_checks(
+            dev, smi, ssm_args(device=dev), phase="train_ssm",
+            tol_bf16=(TOL_TRAIN_SSM_BF16_X, TOL_TRAIN_SSM_BF16_Y))
     gc.collect()
     torch.cuda.empty_cache()
-
-    # the eager reference: the host loop from the same seed
-    torch.cuda.reset_peak_memory_stats()
-    zero_launch_counts()
-    res = train_lib.train(train_args(device=dev, engine="host",
-                                     rounds=TRAIN_ROUNDS, log_every=1))
-    torch.cuda.synchronize()
-    peak_eager = torch.cuda.max_memory_allocated() / 1e9
-    if (launch_counts(), route_counts()) != (launches, routes):
-        fail(f"train: eager launches {launch_counts()} {route_counts()}, "
-             f"captured {launches} {routes}")
-    eager_state, eager_hist = to_host(res["state"]), strip_stamps(
-        res["history"])
-    del res
-    gc.collect()
-    torch.cuda.empty_cache()
-    exact = graph_hist == eager_hist and trees_equal(graph_state,
-                                                     eager_state)
-    rel = 0.0 if exact else max(tree_rel_err(graph_state, eager_state), max(
-        abs(a[m] - b[m]) / (1 + abs(b[m]))
-        for a, b in zip(graph_hist, eager_hist)
-        for m in a if m not in ("round", "eval_group_loss")))
-    if not exact and not rel <= TOL_GRAPH_DENSE:
-        fail(f"train capture: captured differs from eager (rel {rel})")
-    del graph_state, eager_state
-    layers = len(cfg.blocks())
-    out["main"] = {"clients": TRAIN_N, "rounds": TRAIN_ROUNDS,
-                   "engine": "scan", "bit_for_bit_with_eager": exact,
-                   "max_rel_err": rel, "capture_s": capture_main_s,
-                   "launches_a_round": {
-                       "flash_attention": layers * TRAIN_K,
-                       "fused_cross_entropy": TRAIN_N * TRAIN_K},
-                   "launches_a_logged_row": {"flash_attention": 3 * layers,
-                                             "fused_cross_entropy": 3},
-                   "seconds_incl_build": main_s,
-                   "peak_memory_gb_captured": peak_graph,
-                   "peak_memory_gb_eager": peak_eager,
-                   "client_stacked_params": n_params,
-                   "allocated_gb_after": torch.cuda.memory_allocated() / 1e9,
-                   "launches": launches, "launches_by_route": routes,
-                   "history": graph_hist}
-    emit({"phase": "train", "case": "main, n = 4, --engine scan against "
-          "--engine host", "nvidia_smi": smi, **out["main"]})
-
-    # a checkpoint resume of a captured run, at n = 2 (half the checkpoint
-    # written to disk)
-    with tempfile.TemporaryDirectory() as d:
-        args = train_args(device=dev, clients=TRAIN_RESUME_N,
-                          rounds=TRAIN_ROUNDS, chunk=TRAIN_ROUNDS,
-                          log_every=1, checkpoint_every=2, checkpoint_dir=d)
-        full = train_lib.train(args)["state"]
-        gc.collect()
-        trainer = train_lib.build(args)
-        restored = ckpt_lib.restore(os.path.join(d, "round_000002.npz"),
-                                    trainer.state)
-        trainer.state = None
-        build = trainer.build_chunk(args)
-        resumed, _ = engine_lib.run(restored, build,
-                                    total_rounds=TRAIN_ROUNDS,
-                                    chunk_rounds=TRAIN_ROUNDS)
-    resumed_exact = resumed.round == full.round and trees_equal(resumed,
-                                                                 full)
-    if not resumed_exact:
-        fail("train: the checkpoint resume of the captured run differs")
-    out["resume"] = {"clients": TRAIN_RESUME_N, "rounds": TRAIN_ROUNDS,
-                     "checkpoint_round": 2, "bit_for_bit": resumed_exact}
-    emit({"phase": "train", "case": "checkpoint resume, captured",
-          **out["resume"]})
-    del full, resumed, restored, trainer, build
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # rounds/s at n = 4, eager and captured in turns, each turn going on
-    # from the state the last one left; a captured chunk's pool and an
-    # eager chunk's working set do not fit the card together, so each
-    # captured turn captures afresh (untimed), times a replay and frees
-    args = train_args(device=dev, log_every=TRAIN_ROUNDS)
-    trainer = train_lib.build(args)
-    state, trainer.state = trainer.state, None
-    rates = {False: [], True: []}
-    capture_s, draw_s = [], []
-    for c in (False, True, True, False):
-        if c:
-            # an eager chunk's new state lies in segments shared with the
-            # blocks it freed (the capture's pool found no room beside
-            # them); moved out and back it is compact
-            host = to_host(state)
-            del state
-            gc.collect()
-            torch.cuda.empty_cache()
-            state = tree_lib.tree_map(
-                lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x,
-                host)
-            del host
-        build = trainer.build_chunk(args, capture=c)
-        if c:
-            state, _ = engine_lib.run(
-                state, build, total_rounds=state.round + TRAIN_ROUNDS,
-                chunk_rounds=TRAIN_ROUNDS)
-            capture_s.append(build.stats["capture_s"])
-            draw0 = build.stats["draw_s"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = engine_lib.run(state, build,
-                                  total_rounds=state.round + TRAIN_ROUNDS,
-                                  chunk_rounds=TRAIN_ROUNDS)
-        torch.cuda.synchronize()
-        rates[c].append(TRAIN_ROUNDS / (time.perf_counter() - t0))
-        if c:
-            if build.stats["captures"] != 1:
-                fail(f"train rates: {build.stats['captures']} captures")
-            draw_s.append((build.stats["draw_s"] - draw0) / TRAIN_ROUNDS)
-        del build
-        gc.collect()
-        torch.cuda.empty_cache()
-    tokens = TRAIN_N * TRAIN_K * TRAIN_B * TRAIN_S
-    out["rates"] = {
-        "clients": TRAIN_N, "rounds_a_turn": TRAIN_ROUNDS,
-        "rounds_per_s_eager": rates[False],
-        "rounds_per_s_captured": rates[True],
-        "tokens_per_s_eager": [r * tokens for r in rates[False]],
-        "tokens_per_s_captured": [r * tokens for r in rates[True]],
-        "capture_s": capture_s, "draw_host_s_per_round": draw_s}
-    emit({"phase": "train", "case": "n = 4, eager and captured in turns",
-          "nvidia_smi": smi, **out["rates"]})
-    del trainer, state
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # one round of each baseline at n = 4
-    out["baselines"] = {}
-    for algo in ALGOS[1:]:
-        r = train_lib.train(train_args(device=dev, engine="host",
-                                       algorithm=algo, rounds=1))
-        rec = r["history"][-1]
-        if not all(math.isfinite(rec[k]) for k in ("f_bar", "mean_loss",
-                                                   "eval_loss")):
-            fail(f"train {algo}: not finite")
-        out["baselines"][algo] = {k: rec[k] for k in ("f_bar", "mean_loss",
-                                                      "eval_loss")}
-        del r
-        gc.collect()
-        torch.cuda.empty_cache()
-    emit({"phase": "train", "baselines": out["baselines"],
-          "clients": TRAIN_N})
-    out["times"] = train_kernel_times(gen, dev)
-    out["launches"], out["launches_by_route"] = launches, routes
+    with arch_depth(SSM_TRAIN_ARCH, SSM_LAYERS_EAGER) as cfg:
+        out["eager"] = host_loop_run(
+            ssm_args(device=dev, engine="host", rounds=TRAIN_ROUNDS,
+                     log_every=TRAIN_ROUNDS - 1), cfg,
+            phase="train_ssm", smi=smi)
+    out["recurrentgemma_reduced"] = rg_reduced_checks(dev, smi)
+    out["times"] = {"ssd_scan": ssd_train_times(gen, dev),
+                    "rglru_scan": rglru_train_times(gen, dev)}
+    out["launches"] = out["main"]["launches"]
+    out["launches_by_route"] = out["main"]["launches_by_route"]
     return out
 
 
@@ -3795,7 +4205,14 @@ def main(argv=None) -> int:
         trained = phase_train(dev, gen, smi)
         launches_train.update(trained["launches"])
         train_routes = trained["launches_by_route"]
-        train_times = trained["times"]
+        train_times.update(trained["times"])
+    launches_train_ssm = dict.fromkeys(names)
+    train_ssm_routes = {}
+    if "train_ssm" in phases:
+        trained = phase_train_ssm(dev, gen, smi)
+        launches_train_ssm.update(trained["launches"])
+        train_ssm_routes = trained["launches_by_route"]
+        train_times.update(trained["times"])
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -3829,10 +4246,15 @@ def main(argv=None) -> int:
     ]
     for k in kernels:
         t = times[k["name"]]
+        if k["name"] in train_times:
+            # forward, plain forward, backward (plain) and bound at the
+            # train paths' shapes
+            k["train_shapes"] = train_times[k["name"]]
         k.update(launches=launches[k["name"]],
                  launches_quickstart=qs_launches[k["name"]],
                  launches_evaluate=launches_eval[k["name"]],
                  launches_train=launches_train[k["name"]],
+                 launches_train_ssm=launches_train_ssm[k["name"]],
                  max_abs_err=errs[k["name"]],
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
@@ -3844,13 +4266,11 @@ def main(argv=None) -> int:
                      launches_by_route_quickstart=qs_routes.get(k["name"]),
                      launches_by_route_evaluate=eval_routes.get(k["name"]),
                      launches_by_route_train=train_routes.get(k["name"]),
+                     launches_by_route_train_ssm=train_ssm_routes.get(
+                         k["name"]),
                      cases_by_route=cases_by_route.get(k["name"]))
             old = OLD_ROUTE.get(k["name"], "cuda_core")
             k[f"{old}_ms"] = t.get(f"{old}_ms")
-            if k["name"] in train_times:
-                # forward, plain forward, backward (plain) and bound at
-                # the train path's shapes
-                k["train_shapes"] = train_times[k["name"]]
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
@@ -3885,7 +4305,11 @@ def main(argv=None) -> int:
                            "launches_train: the train phase's main run "
                            "(qwen2-0.5b, n = 4, one captured chunk of 3 "
                            "rounds of K = 4 local steps under autograd, 3 "
-                           "logged rows)",
+                           "logged rows); launches_train_ssm: the "
+                           "train_ssm phase's main run (mamba2-1.3b at "
+                           f"{SSM_LAYERS_CAPTURED} layers, n = "
+                           f"{SSM_TRAIN_N}, the same chunk); train_shapes: "
+                           "each model kernel at its training shape",
           "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "
                      "<old route>_ms: the same work on the first port's "

@@ -127,19 +127,6 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def check_no_grad(what: str, *xs) -> None:
-    """A kernel without a gradient (the two scans, B7 and B8) refuses an
-    operand that requires grad, so that a gradient cannot go missing
-    silently."""
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in xs):
-        raise NotImplementedError(
-            f"{what}: an operand requires grad, and the kernel has no "
-            f"backward pass yet (mamba2 / recurrentgemma training, a later "
-            f"training slice of ROADMAP A11, brings it); under autograd the "
-            f"model runs the plain version")
-
-
 def forced_route(chosen: str, forced, universal: str = "cuda_core") -> str:
     """The route a call takes: ``chosen`` (the wrapper's rule) unless
     ``forced``; the ``universal`` route (the first port's kernel: the

@@ -20,12 +20,9 @@ launch.  ``backend``:
 
 There is no fallback between the two: a kernel that fails to build or
 launch raises.  No padding either: the kernels mask their ragged edges.
-Attention and the cross-entropy are differentiable on the kernel route
-(autograd Functions whose backward is the plain version's gradient, with
-``torch.func.vmap`` rules); the two scans have no backward pass yet, and
-on the kernel route an operand that requires grad raises
-``NotImplementedError`` (under autograd the model runs their plain
-versions).
+The four model kernels (attention, the two scans, the cross-entropy) are
+differentiable on the kernel route: autograd Functions whose backward is
+the plain version's gradient, with ``torch.func.vmap`` rules.
 """
 from __future__ import annotations
 

@@ -3,8 +3,9 @@ the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31``,
 ``ssd_ref`` of ``:33``, ``fused_ce_ref`` of ``:56`` and ``rglru_ref`` of
 ``:196-208``), and ``ssd_chunked``, the chunked SSD scan of
 ``repro.models.ssm`` (:50) that kernel B7 computes; and the gradients of
-attention and the cross-entropy in plain ops (``attention_bwd_ref``,
-``fused_ce_bwd_ref``), the backward passes of kernels B5 and B6.
+the four model kernels in plain ops (``attention_bwd_ref``,
+``fused_ce_bwd_ref``, ``ssd_bwd_ref``, ``rglru_bwd_ref``), the backward
+passes of kernels B5, B6, B7 and B8.
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
@@ -251,11 +252,32 @@ def rglru_ref(a, u, h0=None):
     a32, u32 = a.to(torch.float32), u.to(torch.float32)
     h = (torch.zeros((b, w), dtype=torch.float32, device=a.device)
          if h0 is None else h0.to(torch.float32))
-    out = torch.empty((b, s, w), dtype=torch.float32, device=a.device)
+    hs = []
     for t in range(s):
-        torch.add(a32[:, t] * h, u32[:, t], out=out[:, t])
-        h = out[:, t]
-    return out
+        h = a32[:, t] * h + u32[:, t]
+        hs.append(h)
+    return (torch.stack(hs, dim=1) if hs
+            else torch.zeros((b, 0, w), dtype=torch.float32, device=a.device))
+
+
+def rglru_bwd_ref(a, h, grad_h):
+    """The gradient of :func:`rglru_ref` (from h_{−1} = 0) in plain ops, the
+    backward of kernel B8 (``RglruScanFn``; every op has a vmap rule): the
+    same recurrence run backward in time, g_t = dh_t + a_{t+1}·g_{t+1},
+    then du_t = g_t and da_t = g_t·h_{t−1} (h_{−1} = 0), in f32.  ``h`` is
+    the forward's output.  Returns (da, du) f32 (B, S, W)."""
+    b, s, w = a.shape
+    a32, h32 = a.to(torch.float32), h.to(torch.float32)
+    dh = grad_h.to(torch.float32)
+    if s == 0:
+        empty = torch.zeros((b, 0, w), dtype=torch.float32, device=a.device)
+        return empty, empty
+    gs = [dh[:, s - 1]]
+    for t in range(s - 2, -1, -1):
+        gs.append(dh[:, t] + a32[:, t + 1] * gs[-1])
+    du = torch.stack(gs[::-1], dim=1)
+    h_prev = torch.cat([torch.zeros_like(h32[:, :1]), h32[:, :-1]], dim=1)
+    return du * h_prev, du
 
 
 def ssd_ref(xdt, loga, bm, cm, state0=None):
@@ -331,6 +353,22 @@ def ssd_chunked(xdt, loga, bm, cm, chunk: int, state0=None):
     y = (torch.cat(ys, dim=1)[:, :s] if ys
          else torch.zeros((b, 0, h, p), dtype=torch.float32, device=xdt.device))
     return y, state
+
+
+def ssd_bwd_ref(xdt, loga, bm, cm, chunk: int, state0, grad_y, grad_state):
+    """The gradient of :func:`ssd_chunked` (the backward of kernel B7,
+    ``SsdScanFn``): ``torch.func.vjp`` of the plain chunked scan recomputed
+    from the f32 inputs, so it composes with the ``grad`` and ``vmap``
+    transforms the backward runs under.  Returns (dxdt, dloga, dbm, dcm,
+    dstate0 — None when ``state0`` is None)."""
+    if state0 is None:
+        _, vjp = torch.func.vjp(lambda *ops: ssd_chunked(*ops, chunk),
+                                xdt, loga, bm, cm)
+        return (*vjp((grad_y, grad_state)), None)
+    _, vjp = torch.func.vjp(
+        lambda *ops: ssd_chunked(*ops[:4], chunk, ops[4]),
+        xdt, loga, bm, cm, state0)
+    return vjp((grad_y, grad_state))
 
 
 def ssd_segment_bounds(s: int, chunk: int, segments: int):

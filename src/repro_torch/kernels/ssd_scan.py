@@ -12,12 +12,19 @@ version is ``repro_torch.kernels.ref.ssd_chunked`` (and
 ``ref.ssd_segmented`` writes the tensor-core route's segment algebra out
 in plain PyTorch); dispatch between the plain version and the kernels is
 ``repro_torch.kernels.ops.ssd_scan``.
+
+The wrapper is differentiable: :class:`SsdScanFn` runs the kernel forward
+and takes the plain version's gradient (``ref.ssd_bwd_ref``: the VJP of
+``ref.ssd_chunked`` recomputed from the saved f32 inputs).  Under
+``torch.func.vmap`` its ``vmap`` rule folds the vmapped dim into B — a
+reshape, which keeps the strided views the kernel reads — and launches
+once.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 64, 64, 128
 ROUTES = {"cuda_core": 0, "tensor_core": 1}
@@ -58,9 +65,15 @@ def ssd_scan_bshp(xdt, loga, bm, cm, state0=None, *, chunk: int = 64,
     (y (B, S, H, P), final_state (B, H, P, N)).  The route is
     :func:`route`'s; ``force_route="cuda_core"`` takes the CUDA-core kernel
     whatever the operands, and forcing ``"tensor_core"`` on operands it
-    cannot take raises.  Counts its launches in ``ssd_scan_bshp.launches``
-    and, by route, in ``ssd_scan_bshp.routes``."""
-    _build.check_no_grad("ssd_scan", xdt, loga, bm, cm, state0)
+    cannot take raises.  Differentiable in xdt, loga, bm, cm and state0
+    (:class:`SsdScanFn`).  Counts its launches in
+    ``ssd_scan_bshp.launches`` and, by route, in
+    ``ssd_scan_bshp.routes``."""
+    return SsdScanFn.apply(xdt, loga, bm, cm, state0, chunk, force_route)
+
+
+def _launch(xdt, loga, bm, cm, state0, chunk, force_route):
+    """One launch of the kernel (the forward of :class:`SsdScanFn`)."""
     b, s, h, p = xdt.shape
     n = bm.shape[-1]
     if not 0 < chunk <= MAX_CHUNK or p > MAX_HEAD_DIM or n > MAX_STATE:
@@ -117,3 +130,47 @@ def ssd_scan_bshp(xdt, loga, bm, cm, state0=None, *, chunk: int = 64,
 
 ssd_scan_bshp.launches = 0
 ssd_scan_bshp.routes = dict.fromkeys(ROUTES, 0)
+
+
+class SsdScanFn(torch.autograd.Function):
+    """The kernel forward with the plain version's gradient.  ``launch`` is
+    the forward's launch (the CPU tests swap the plain version in)."""
+
+    launch = staticmethod(_launch)
+
+    @staticmethod
+    def forward(xdt, loga, bm, cm, state0, chunk, force_route):
+        return SsdScanFn.launch(xdt, loga, bm, cm, state0, chunk,
+                                force_route)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        xdt, loga, bm, cm, state0, chunk, _ = inputs
+        ctx.save_for_backward(xdt, loga, bm, cm, state0)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        xdt, loga, bm, cm, state0 = ctx.saved_tensors
+        return (*ref.ssd_bwd_ref(xdt, loga, bm, cm, ctx.chunk, state0,
+                                 grad_y, grad_state), None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, xdt, loga, bm, cm, state0, chunk, force_route):
+        """The vmapped dim folded into B: one launch for all of it."""
+        nb = info.batch_size
+
+        def fold(x, dim):
+            if x is None:
+                return None
+            x = (x.movedim(dim, 0) if dim is not None
+                 else x.expand(nb, *x.shape))
+            return x.reshape(nb * x.shape[1], *x.shape[2:])
+
+        y, fin = SsdScanFn.apply(
+            fold(xdt, in_dims[0]), fold(loga, in_dims[1]),
+            fold(bm, in_dims[2]), fold(cm, in_dims[3]),
+            None if state0 is None else fold(state0, in_dims[4]).contiguous(),
+            chunk, force_route)
+        return ((y.reshape(nb, -1, *y.shape[1:]),
+                 fin.reshape(nb, -1, *fin.shape[1:])), (0, 0))

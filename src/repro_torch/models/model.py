@@ -185,7 +185,7 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
     quirk 4).
     """
     b, s, d = hidden.shape
-    if tf.kernel_route("train", kernels, differentiable=True):
+    if tf.kernel_route("train", kernels):
         nll = ops.fused_cross_entropy(
             hidden.reshape(b * s, d).to(compute_dtype),
             head_weight(model, compute_dtype), labels.reshape(b * s))

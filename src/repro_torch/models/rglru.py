@@ -85,7 +85,9 @@ def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
         h = h_fin[:, None]
     else:
         if h_state is not None:
-            u[:, 0] = u[:, 0] + a[:, 0] * h_state
+            # out of place, so autograd and vmap see a fresh u
+            u = torch.cat([u[:, :1] + a[:, :1] * h_state[:, None], u[:, 1:]],
+                          dim=1)
         h = ops.rglru_scan(a, u) if kernels else ref.rglru_ref(a, u)
         h_fin = h[:, -1].clone()
 

@@ -16,10 +16,9 @@ Block kinds ported:
 
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
 ``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
-too, where attention runs its kernel under autograd as well (its gradient
-is an autograd Function) and the two scans run their plain versions under
-autograd (their kernels have no gradient yet, ROADMAP A11); ``decode``
-advances one token against the caches in plain PyTorch.
+too, under autograd as well (each kernel's gradient is an autograd
+Function); ``decode`` advances one token against the caches in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -112,15 +111,12 @@ class Block(nn.Module):
         self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
 
 
-def kernel_route(mode: str, kernels: bool, *,
-                 differentiable: bool = False) -> bool:
-    """Whether a kernel runs: in ``prefill``, and in ``train`` — under
-    autograd only for a kernel whose gradient is an autograd Function
-    (``differentiable``: attention, the cross-entropy), with autograd off
-    for the others (the two scans); never in ``decode`` (one token, plain
-    PyTorch), nor with ``kernels=False`` (the plain check)."""
-    return kernels and (mode == "prefill" or (
-        mode == "train" and (differentiable or not torch.is_grad_enabled())))
+def kernel_route(mode: str, kernels: bool) -> bool:
+    """Whether a kernel runs: in ``prefill`` and in ``train``, with or
+    without autograd (every model kernel's gradient is an autograd
+    Function); never in ``decode`` (one token, plain PyTorch), nor with
+    ``kernels=False`` (the plain check)."""
+    return kernels and mode in ("prefill", "train")
 
 
 def block_forward(
@@ -187,7 +183,7 @@ def block_forward(
         new_cache = {"k": kc, "v": vc}
     else:
         new_cache = None
-        if kernel_route(mode, kernels, differentiable=True):
+        if route:
             ctx = ops.flash_attention(q, k, v, causal=True, window=window)
         elif mode == "prefill":
             ctx = ref.attention_ref(q, k, v, causal=True, window=window)

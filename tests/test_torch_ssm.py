@@ -229,7 +229,9 @@ def test_kernel_route():
     assert t_tf.kernel_route("prefill", True)
     assert not t_tf.kernel_route("decode", True)
     assert not t_tf.kernel_route("prefill", False)
-    assert not t_tf.kernel_route("train", True)      # autograd is on here
+    # autograd is on here: every model kernel has a gradient (autograd
+    # Functions), so training runs the kernels
+    assert t_tf.kernel_route("train", True)
     with torch.no_grad():
         assert t_tf.kernel_route("train", True)
         assert not t_tf.kernel_route("train", False)
@@ -273,19 +275,14 @@ def _grad_cases():
 @pytest.mark.parametrize("name", ["flash_attention", "rglru_scan",
                                   "ssd_scan", "fused_cross_entropy"])
 def test_model_kernels_refuse_an_operand_that_requires_grad(name):
-    """The two scans (B7, B8) have no backward pass yet: an operand that
-    requires grad raises, naming the training slice, rather than lose its
-    gradient.  Attention and the cross-entropy (B5, B6) are differentiable
-    (autograd Functions): an operand that requires grad goes on to the
-    device check.  Under no_grad every call goes on to the device check."""
+    """Every model kernel (B5–B8) is differentiable (autograd Functions):
+    an operand that requires grad is not refused for that, and goes on to
+    the device check, which refuses a CPU tensor; so does every call under
+    no_grad.  Nothing launches."""
     fn, args, kw = _grad_cases()[name]
     grad_args = (args[0].clone().requires_grad_(True),) + args[1:]
-    if name in ("rglru_scan", "ssd_scan"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            fn(*grad_args, **kw)
-    else:
-        with pytest.raises(ValueError, match="CUDA tensor"):
-            fn(*grad_args, **kw)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fn(*grad_args, **kw)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
         fn(*grad_args, **kw)
     assert t_ops.launch_counts()[name] == 0
