@@ -129,8 +129,25 @@ Phases, each printing one JSON line:
    B8's autograd Function at a full-width layer (forward against its plain
    version, backward against autograd through it) and B7 at the train
    shape, with forward, plain and backward times.
+17. moe — granite-moe-1b-a400m at full width (24 layers, 32 experts top
+   8, V = 49 155; bf16): a prefill server on 4 prompts of 4096 tokens
+   through B5 (24 launches, tensor cores) against the plain prefill (the
+   expert routings of both routes recorded, the flips counted; logits held
+   at the prompts whose last token routed alike) and in f32 (no flip);
+   16 decode steps from position 0 against the dropless full forward;
+   ``group_metrics`` on 4 clients × 4 × 4096 tokens through B5 and B6;
+   DRO training at n = 2: per-client gradients through B5 and B6 against
+   the plain route (f32: no flip; bf16: flips counted), the main path
+   captured bit for bit the host loop, and an eager and a captured rate
+   turn, cut in depth (MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED).
+18. frontends — musicgen-medium at full width (4 codebooks; bf16): a
+   prefill server on 4 × 1500 frames through B5, ``group_metrics`` with
+   B6 launched once a codebook, per-client gradients at
+   MUSIC_LAYERS_GRADS layers; internvl2-76b's prefix path at full width
+   cut to VLM_LAYERS layers through B5 against plain; the reduced
+   internvl2-76b's gradients and one round through B5 and B6.
 
-Phases 12–14 run after the sweep phase, before serve; phases 15 and 16
+Phases 12–14 run after the sweep phase, before serve; phases 15 to 18
 after evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
@@ -160,7 +177,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "evaluate",
-          "train", "train_ssm", "times")
+          "train", "train_ssm", "moe", "frontends", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -234,6 +251,16 @@ TOL_TRAIN_BF16_Y = 2e-4
 # f32 on both routes (3xTF32 against f32), so B6's f32 logits (quirk 4) make
 # the difference, as in qwen2-0.5b's; stated before the first reading
 TOL_TRAIN_SSM_BF16_X, TOL_TRAIN_SSM_BF16_Y = 1e-2, 2e-4
+# granite-moe-1b-a400m's per-client gradients in bf16, kernels vs plain,
+# stated before the first reading: B5's and B6's bf16 differences flip
+# near-tie top-8 routings and, through the capacity slots of the tokens
+# after them, the routings of many more (PERF.md §6: over half the tokens
+# of a full-width prefill); a token sent to other experts moves the
+# gradient by a step, not by rounding.  So the limits, qwen2-0.5b's, hold
+# the kernel route against the plain route replaying its expert choices
+# (``routing_replay``); the plain route's own routing is compared too,
+# its flips counted and its error printed; in f32 it must route alike
+TOL_TRAIN_MOE_BF16_X, TOL_TRAIN_MOE_BF16_Y = 1e-2, 2e-4
 # B8's backward (``ref.rglru_bwd_ref``) against autograd through the plain
 # recurrence, f32, × (1 + max): the same sums, maybe in another order
 TOL_SCAN_BWD = 1e-5
@@ -274,6 +301,31 @@ SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 48, 40, 24
 # config trains here, and B8 is held at a full-width layer's (n·B, S, W)
 RG_TRAIN_ARCH = "recurrentgemma-9b"
 RG_SCAN_TRAIN_SHAPE = (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 4096)
+# the MoE block (phase moe): granite-moe-1b-a400m at full width (24 layers,
+# d_model 1024, 32 experts top 8, V = 49 155, tied), served as a prefill
+# server on 4 prompts of its 4096-token context, decoded MOE_DECODE_STEPS
+# steps from position 0 against its full forward without capacity drops
+# (capacity factor MOE_DROPLESS_FACTOR, as tests/test_decode_consistency.py
+# holds the reference), evaluated as the evaluate phase evaluates mamba2,
+# and trained at the reference's train defaults but n = MOE_TRAIN_N (its
+# f32 state is 21.4 GB at n = 2, and n = 4's 43 GB leave the working set no
+# room): the gradient checks at MOE_LAYERS_GRADS layers, the captured
+# chunks (held bit for bit to the host loop) and the rate turns at
+# MOE_LAYERS_CAPTURED (PERF.md §4)
+MOE_ARCH, MOE_TRAIN_N = "granite-moe-1b-a400m", 2
+MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_DECODE_STEPS = 4, 4096, 16
+MOE_DROPLESS_FACTOR = 8.0
+MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 24, 8
+# the modality frontends (phase frontends): musicgen-medium at full width
+# (4 codebooks of V = 2048, untied), 4 prompts of 1500 frames (30 s at
+# EnCodec's 50 Hz), evaluated on 4 clients × 4 × 1500 frames, its gradient
+# checks cut to MUSIC_LAYERS_GRADS of its 48 layers (n = 2: its 29.4 GB of
+# state leave a full-depth working set no room); internvl2-76b's prefix
+# path at full width cut to VLM_LAYERS layers (76 B parameters fit no
+# card), VLM_B prompts of 256 prefix embeddings and VLM_PROMPT tokens
+MUSIC_ARCH, MUSIC_B, MUSIC_FRAMES, MUSIC_LAYERS_GRADS = (
+    "musicgen-medium", 4, 1500, 24)
+VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
 # each two-route kernel's first-port route (the others': "cuda_core")
 OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
              "sparse_gossip": "row_block"}
@@ -282,7 +334,14 @@ NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
                     "fused_cross_entropy": 0}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``t_s``, the seconds since
+    the script started (the time limit's account)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -887,6 +946,16 @@ FLASH_TC_CASES = [
     (1, 257, 257, 8, 1, 128, 0, True),
     (1, 640, 640, 4, 2, 256, 300, True),
 ]
+# the shapes of the moe and frontends phases: granite-moe-1b-a400m's
+# (16/8 heads of 64) vmapped train step at n = 2 and its prefill; musicgen's
+# 24/24 heads of 64 at 1500 frames; internvl2-76b's 64/8 heads of 128 over
+# 256 prefix embeddings and 2048 tokens
+MODEL_FLASH_CASES = [
+    (8, 128, 128, 16, 8, 64, 0, True),
+    (4, 4096, 4096, 16, 8, 64, 0, True),
+    (4, 1500, 1500, 24, 24, 64, 0, True),
+    (2, 2304, 2304, 64, 8, 128, 0, True),
+]
 
 
 def routed_call(fn, kernel, want_route):
@@ -914,7 +983,8 @@ def check_flash_attention(gen, dev):
     from repro_torch.kernels import flash_attention, ref
 
     b, s, h, kv, d, window = served_attention_shape()
-    cases = FLASH_CASES + FLASH_TC_CASES + [(b, s, s, h, kv, d, window, True)]
+    cases = (FLASH_CASES + FLASH_TC_CASES + MODEL_FLASH_CASES
+             + [(b, s, s, h, kv, d, window, True)])
     worst = 0.0
     worst_rel = {}  # by route and dtype
     by_route = {"tensor_core": 0, "cuda_core": 0}
@@ -1154,7 +1224,11 @@ CE_CASES = [(1, 16, 1), (5, 33, 7), (100, 64, 1000), (130, 256, 50280),
 # 200 (a last k-slice of 8)
 CE_TC_CASES = [(1, 2048, 50280), (130, 2048, 1000), (257, 256, 50280),
                (257, 2048, 1000), (130, 64, 50280), (1, 512, 1000),
-               (130, 200, 1000)]
+               (130, 200, 1000),
+               # granite-moe-1b-a400m's train client batch (V odd: the
+               # vocab tail), musicgen's evaluate batch against one
+               # codebook's head
+               (512, 1024, 49155), (6000, 1536, 2048)]
 
 
 def check_cross_entropy(gen, dev):
@@ -2861,7 +2935,13 @@ def train_launches(cfg, *, n, k, rounds, logged) -> dict:
     per_layer = serve_launches(cfg)
     return {**{name: per_layer[name] * (grads + 3 * logged)
                for name in per_layer},
-            "fused_cross_entropy": n * grads + 3 * logged}
+            "fused_cross_entropy": ce_launches(cfg) * (n * grads
+                                                       + 3 * logged)}
+
+
+def ce_launches(cfg) -> int:
+    """B6's launches for one batch: one a codebook (one with none)."""
+    return max(1, cfg.num_codebooks)
 
 
 def model_routes(compute_dtype) -> dict:
@@ -2881,7 +2961,11 @@ def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
     initial ȳ = 0 the x-gradient is 0 —, the first round's k = 0 batch) of
     the run ``args`` builds, through the kernels and through the plain
     route, in f32 compute (within TOL_TRAIN_F32) and in bf16 (within
-    ``tol_bf16``, x and y), with the kernels' launches by route."""
+    ``tol_bf16``, x and y), with the kernels' launches by route.  A MoE
+    model's plain route runs twice: routing itself (its flips against the
+    kernel route's routings counted; in f32 there must be none, and its
+    gradients are held too) and replaying the kernel route's expert
+    choices (``routing_replay``), which the limits hold in both dtypes."""
     import torch
 
     from repro_torch.core import kgt_minimax as kgt
@@ -2894,6 +2978,7 @@ def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
     batches, noise = trainer.sampler(0)[:2]
     batch = {key: v[0] for key, v in batches.items()}
     x, cfg = trainer.state.x, trainer.cfg
+    moe = cfg.arch_type == "moe"
     # ȳ from a generator of its own, so that a check reads the same
     # whichever phases ran before it
     y_gen = torch.Generator(device=dev)
@@ -2901,68 +2986,91 @@ def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
     y = torch.rand(trainer.state.y.shape, generator=y_gen, device=dev)
     del trainer, batches         # the corrections: GBs the check needs not
     out = {}
+    runs = ("kernel", "plain") + (("replayed",) if moe else ())
+    held = "replayed" if moe else "plain"
     for dt, tol in ((torch.float32, (TOL_TRAIN_F32, TOL_TRAIN_F32)),
                     (torch.bfloat16, tol_bf16)):
-        grads, peaks = {}, {}
-        for kernels in (True, False):
+        peaks, secs, seen, errs = {}, {}, {}, {}
+        kern = None
+        for run in runs:
             problem = objectives.dro_problem(
                 cfg, num_groups=args.groups, mu=args.mu, compute_dtype=dt,
-                kernels=kernels)
+                kernels=run == "kernel")
             zero_launch_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            grads[kernels] = kgt._vgrads(problem, x, y, batch, noise[0])
+            with (routing_replay(seen["kernel"]) if run == "replayed"
+                  else routing_recorder()) as seen[run]:
+                g = kgt._vgrads(problem, x, y, batch, noise[0])
             torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            peaks[kernels] = torch.cuda.max_memory_allocated() / 1e9
-            if kernels:
+            secs[run] = time.perf_counter() - t0
+            peaks[run] = torch.cuda.max_memory_allocated() / 1e9
+            if run == "kernel":
                 launches, routes = launch_counts(), route_counts()
-                kernel_s = secs
-                # waits in host memory while the plain route runs
-                grads[True] = to_host(grads[True])
             elif any(launch_counts().values()):
                 fail(f"{phase} grads ({dt}): the plain route launched "
                      f"{launch_counts()}")
-            else:
-                plain_s = secs
-        grads[True] = tree_lib.tree_map(
-            lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t,
-            grads[True])
+            for leaf in tree_lib.leaves(g):
+                if not bool(leaf.isfinite().all()):
+                    fail(f"{phase} grads ({dt}, {run}): not finite")
+            if run == "kernel":
+                # waits in host memory while the plain route runs
+                kern = to_host(g)
+                del g
+                continue
+            if kern[1].device.type == "cpu":
+                kern = tree_lib.tree_map(
+                    lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                    else t, kern)
+            errs[run] = (tree_rel_err(kern[0], g[0]),
+                         tree_rel_err(kern[1], g[1]))
+            if run == held:
+                max_x = max(float(t.abs().max())
+                            for t in tree_lib.leaves(g[0]))
+                max_y = float(g[1].abs().max())
+            del g
+        del kern
         want = {**dict.fromkeys(launches, 0), **serve_launches(cfg),
-                "fused_cross_entropy": args.clients}
+                "fused_cross_entropy": args.clients * ce_launches(cfg)}
         if launches != want:
             fail(f"{phase} grads ({dt}): launches {launches}, expected "
                  f"{want}")
         routed = {k: v for k, v in model_routes(dt).items() if want[k]}
         check_routes({k: routes[k] for k in routed}, want,
                      f"{phase} grads ({dt})", route_of=routed)
-        err_x = tree_rel_err(grads[True][0], grads[False][0])
-        err_y = tree_rel_err(grads[True][1], grads[False][1])
-        for g in grads.values():
-            for leaf in tree_lib.leaves(g):
-                if not bool(leaf.isfinite().all()):
-                    fail(f"{phase} grads ({dt}): not finite")
+        err_x, err_y = errs[held]
         res = {"compute_dtype": str(dt).split(".")[-1],
                "routes": routed, "rel_err_x": err_x, "rel_err_y": err_y,
                "tol_x": tol[0], "tol_y": tol[1],
                "launches": launches,
                "launches_by_route": {k: routes[k] for k in ops.ROUTED
                                      if k in routed},
-               "kernel_route_s": kernel_s, "plain_route_s": plain_s,
-               "peak_memory_gb_kernel_route": peaks[True],
-               "peak_memory_gb_plain_route": peaks[False],
-               "max_abs_grad_x": max(float(g.abs().max()) for g in
-                                     tree_lib.leaves(grads[False][0])),
-               "max_abs_grad_y": float(grads[False][1].abs().max())}
+               "kernel_route_s": secs["kernel"],
+               "plain_route_s": secs["plain"],
+               "peak_memory_gb_kernel_route": peaks["kernel"],
+               "peak_memory_gb_plain_route": peaks["plain"],
+               "max_abs_grad_x": max_x, "max_abs_grad_y": max_y}
+        if moe:
+            res.update(held_against="the plain route replaying the kernel "
+                       "route's expert choices",
+                       rel_err_x_own_routing=errs["plain"][0],
+                       rel_err_y_own_routing=errs["plain"][1],
+                       routing_flips=routing_flips(
+                           seen["kernel"], seen["plain"], cfg))
         emit({"phase": phase, "check": "per-client gradients",
               "arch": cfg.name, "layers": len(cfg.blocks()),
               "clients": args.clients, "nvidia_smi": smi, **res})
         if not (err_x <= tol[0] and err_y <= tol[1]):
             fail(f"{phase} grads ({dt}): kernels vs plain {err_x}, {err_y} "
                  f"> {tol} × (1 + max)")
+        if moe and dt == torch.float32 and (
+                res["routing_flips"]["choices"]
+                or res["routing_flips"]["tokens"]
+                or not max(errs["plain"]) <= TOL_TRAIN_F32):
+            fail(f"{phase} grads (f32): the routes routed differently or "
+                 f"their gradients differ: {res}")
         out[res["compute_dtype"]] = res
-        del grads
         torch.cuda.empty_cache()
     return out
 
@@ -3129,10 +3237,10 @@ def captured_against_eager(args_of, cfg, *, phase, smi) -> dict:
             "capture_s": capture_main_s,
             "launches_a_round": {
                 **{k: v * TRAIN_K for k, v in per_layer.items() if v},
-                "fused_cross_entropy": n * TRAIN_K},
+                "fused_cross_entropy": n * TRAIN_K * ce_launches(cfg)},
             "launches_a_logged_row": {
                 **{k: 3 * v for k, v in per_layer.items() if v},
-                "fused_cross_entropy": 3},
+                "fused_cross_entropy": 3 * ce_launches(cfg)},
             "seconds_incl_build": main_s,
             "peak_memory_gb_captured": peak_graph,
             "peak_memory_gb_eager": peak_eager,
@@ -3214,7 +3322,8 @@ def train_rates(args, cfg, *, phase, smi, turns) -> dict:
     want = {**dict.fromkeys(launches, 0),
             **{k: v * (TRAIN_ROUNDS * TRAIN_K + 3 * logged)
                for k, v in per_layer.items()},
-            "fused_cross_entropy": n * TRAIN_ROUNDS * TRAIN_K + 3 * logged}
+            "fused_cross_entropy": ce_launches(cfg) * (
+                n * TRAIN_ROUNDS * TRAIN_K + 3 * logged)}
     if launches != want:
         fail(f"{phase} rates: a turn launched {launches}, expected {want}")
     tokens = n * TRAIN_K * TRAIN_B * TRAIN_S
@@ -3400,13 +3509,14 @@ def ssm_args(**over):
     return train_args(arch=SSM_TRAIN_ARCH, clients=SSM_TRAIN_N, **over)
 
 
-def rg_reduced_checks(dev, smi) -> dict:
-    """The reduced recurrentgemma-9b (3 layers: two RG-LRU blocks and a
-    local-attention block, d_model 256) at the train defaults but
-    n = SSM_TRAIN_N: per-client gradients through B5, B8 and B6 against
-    the plain route (f32 and bf16, as ``grad_checks``), and one round
-    from the initial state in f32 compute, through the kernels against
-    the plain route, within TOL_TRAIN_F32 · (1 + max)."""
+def reduced_checks(dev, smi, arch, *, phase) -> dict:
+    """The reduced ``arch`` (recurrentgemma-9b: 3 layers, two RG-LRU blocks
+    and a local-attention block, d_model 256; internvl2-76b: 2 attention
+    layers and 4 prefix embeddings a sequence) at the train defaults but
+    n = SSM_TRAIN_N: per-client gradients through its kernels (B5, B8,
+    B6) against the plain route (f32 and bf16, as ``grad_checks``), and
+    one round from the initial state in f32 compute, through the kernels
+    against the plain route, within TOL_TRAIN_F32 · (1 + max)."""
     import torch
 
     from repro_torch.core import kgt_minimax as kgt
@@ -3414,9 +3524,9 @@ def rg_reduced_checks(dev, smi) -> dict:
     from repro_torch.core import tree as tree_lib
     from repro_torch.launch import train as train_lib
 
-    args = train_args(device=dev, arch=RG_TRAIN_ARCH, reduced=True,
+    args = train_args(device=dev, arch=arch, reduced=True,
                       clients=SSM_TRAIN_N)
-    out = {"grads": grad_checks(dev, smi, args, phase="train_ssm",
+    out = {"grads": grad_checks(dev, smi, args, phase=phase,
                                 tol_bf16=(TOL_TRAIN_BF16_X,
                                           TOL_TRAIN_BF16_Y))}
     trainer = train_lib.build(args)
@@ -3435,19 +3545,20 @@ def rg_reduced_checks(dev, smi) -> dict:
         if kernels:
             launches, routes = launch_counts(), route_counts()
         elif any(launch_counts().values()):
-            fail(f"train_ssm {RG_TRAIN_ARCH} round: the plain route "
+            fail(f"{phase} {arch} round: the plain route "
                  f"launched {launch_counts()}")
     per_layer = serve_launches(trainer.cfg)
     want = {**dict.fromkeys(launches, 0),
             **{k: v * TRAIN_K for k, v in per_layer.items()},
-            "fused_cross_entropy": SSM_TRAIN_N * TRAIN_K}
+            "fused_cross_entropy": SSM_TRAIN_N * TRAIN_K * ce_launches(
+                trainer.cfg)}
     if launches != want:
-        fail(f"train_ssm {RG_TRAIN_ARCH} round: launches {launches}, "
+        fail(f"{phase} {arch} round: launches {launches}, "
              f"expected {want}")
     routed = {k: v for k, v in model_routes(torch.float32).items()
               if want[k]}
     check_routes({k: routes[k] for k in routed}, want,
-                 f"train_ssm {RG_TRAIN_ARCH} round", route_of=routed)
+                 f"{phase} {arch} round", route_of=routed)
     err = max(tree_rel_err(getattr(rounds[True], f),
                            getattr(rounds[False], f))
               for f in ("x", "y", "cx", "cy"))
@@ -3455,10 +3566,10 @@ def rg_reduced_checks(dev, smi) -> dict:
                     "compute_dtype": "float32", "rel_err": err,
                     "tol": TOL_TRAIN_F32, "launches": launches,
                     "launches_by_route": {k: routes[k] for k in routed}}
-    emit({"phase": "train_ssm", "check": "one round, kernels against plain",
+    emit({"phase": phase, "check": "one round, kernels against plain",
           "nvidia_smi": smi, **out["round"]})
     if not err <= TOL_TRAIN_F32:
-        fail(f"train_ssm {RG_TRAIN_ARCH} round: kernels vs plain {err} > "
+        fail(f"{phase} {arch} round: kernels vs plain {err} > "
              f"{TOL_TRAIN_F32} × (1 + max)")
     return out
 
@@ -3559,7 +3670,7 @@ def phase_train_ssm(dev, gen, smi) -> dict:
     SSM_LAYERS_EAGER layers, the host loop's rounds/s and peak memory.
     Then the
     reduced
-    recurrentgemma-9b (``rg_reduced_checks``), B8's Function at a
+    recurrentgemma-9b (``reduced_checks``), B8's Function at a
     full-width layer (``rglru_train_times``) and B7 at the train shape
     (``ssd_train_times``)."""
     import gc
@@ -3587,11 +3698,533 @@ def phase_train_ssm(dev, gen, smi) -> dict:
             ssm_args(device=dev, engine="host", rounds=TRAIN_ROUNDS,
                      log_every=TRAIN_ROUNDS - 1), cfg,
             phase="train_ssm", smi=smi)
-    out["recurrentgemma_reduced"] = rg_reduced_checks(dev, smi)
+    out["recurrentgemma_reduced"] = reduced_checks(dev, smi, RG_TRAIN_ARCH,
+                                                   phase="train_ssm")
     out["times"] = {"ssd_scan": ssd_train_times(gen, dev),
                     "rglru_scan": rglru_train_times(gen, dev)}
     out["launches"] = out["main"]["launches"]
     out["launches_by_route"] = out["main"]["launches_by_route"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: the MoE block and the modality frontends
+# ---------------------------------------------------------------------------
+
+def _unwrapped(t):
+    """A tensor made under ``torch.func`` transforms: its value (the vmap
+    dimension moved to the front) and its wrappers, outermost first."""
+    from torch._C import _functorch as ft
+
+    chain = []
+    while ft.is_functorch_wrapped_tensor(t):
+        if ft.is_batchedtensor(t):
+            chain.append(("vmap", ft.maybe_get_level(t)))
+            t = ft.get_unwrapped(t).movedim(ft.maybe_get_bdim(t), 0)
+        else:
+            chain.append(("grad", ft.maybe_get_level(t)))
+            t = ft.get_unwrapped(t)
+    if sum(kind == "vmap" for kind, _ in chain) > 1:
+        fail("routing: nested vmap levels")
+    return t, chain
+
+
+def _batched_like(value, chain):
+    """Integer ``value`` (its front dimension the vmapped one) batched at
+    the vmap level of the wrappers ``_unwrapped`` read; indices carry no
+    gradient, so the grad levels lift it as they lift any tensor made
+    outside them."""
+    from torch._C import _functorch as ft
+
+    for kind, level in reversed(chain):
+        if kind == "vmap":
+            value = ft._add_batch_dim(value, 0, level)
+    return value
+
+
+@contextlib.contextmanager
+def routing_recorder():
+    """Every ``models.moe.route`` call's expert choices (…, S, k), in call
+    order (one a ``moe`` layer a forward; under ``vmap`` the clients
+    first), while the block runs."""
+    from repro_torch.models import moe as moe_lib
+
+    seen, real = [], moe_lib.route
+
+    def route(params, x, cfg):
+        r = real(params, x, cfg)
+        seen.append(_unwrapped(r.gate_idx)[0].detach().clone())
+        return r
+
+    moe_lib.route = route
+    try:
+        yield seen
+    finally:
+        moe_lib.route = real
+
+
+@contextlib.contextmanager
+def routing_replay(recorded):
+    """``models.moe.route`` with the expert choices of another run of the
+    same tokens (``recorded``, a ``routing_recorder``'s list): each call
+    takes the next recorded choices, and its gates and aux from its own
+    router probabilities at them (``moe.routing``).  So a plain route
+    replaying the kernel route's choices differs from it by rounding
+    alone, where a near-tie top-k or a capacity boundary would otherwise
+    send a token to other experts."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    used, real = [], moe_lib.route
+
+    def route(params, x, cfg):
+        probs = moe_lib.router_probs(params, x)
+        own = torch.topk(probs, cfg.moe.top_k, dim=-1).indices
+        gate_idx = _batched_like(recorded[len(used)], _unwrapped(own)[1])
+        used.append(1)
+        return moe_lib.routing(probs, gate_idx, cfg)
+
+    moe_lib.route = route
+    try:
+        yield used
+    finally:
+        moe_lib.route = real
+    if len(used) != len(recorded):
+        fail(f"routing replay: {len(used)} MoE layers ran, "
+             f"{len(recorded)} recorded")
+
+
+def routing_flips(got, want, cfg) -> dict:
+    """The routings of two runs of the same tokens compared layer by
+    layer (lists of (…, S, k) expert choices, as ``routing_recorder``
+    gives): ``choices``, (layer, token, choice) triples whose expert
+    differs (two experts trading places within a token's top k count
+    here, and change nothing); ``expert_sets``, (layer, token) pairs whose
+    set of experts differs; ``kept``, (layer, token, expert) triples that
+    one run computes and the other does not (another set, or another
+    capacity decision); ``tokens``, tokens with such a triple in some
+    layer."""
+    import torch
+
+    from repro_torch.models import moe as moe_lib
+
+    if len(got) != len(want):
+        fail(f"routing: {len(got)} against {len(want)} MoE layers")
+    m = cfg.moe
+    counts = {"layers": len(got), "choices": 0, "expert_sets": 0,
+              "kept": 0, "tokens": 0, "tokens_a_layer": 0}
+    mask = None
+    for a, b in zip(got, want):
+        s, k = a.shape[-2:]
+        a, b = a.reshape(-1, s, k), b.reshape(-1, s, k)
+        cap = moe_lib.capacity(s, m.num_experts, m.top_k, m.capacity_factor)
+
+        def kept(idx):
+            keep = moe_lib.capacity_slots(idx, m.num_experts, cap)[1]
+            return torch.zeros(idx.shape[:-1] + (m.num_experts,),
+                               dtype=torch.bool, device=idx.device).scatter(
+                -1, idx, keep)
+
+        diff = kept(a) != kept(b)
+        counts["choices"] += int((a != b).sum())
+        counts["expert_sets"] += int(
+            (a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+        counts["kept"] += int(diff.sum())
+        token = diff.any(-1)
+        mask = token if mask is None else mask | token
+        counts["tokens_a_layer"] = int(token.numel())
+    if mask is not None:
+        counts["tokens"] = int(mask.sum())
+    return counts
+
+
+def prefill_server(dev, arch, batch, prompt_len, *, phase, smi) -> dict:
+    """``launch.serve.serve`` as a prefill server (``gen_tokens=0``: its
+    layers attend globally) on ``arch`` at full width in bf16: the
+    kernels' launches (B5 once a layer, on tensor cores), prefill s and
+    peak memory; then a warm prefill and the plain prefill
+    (``kernels=False``): the served logits within TOL_SERVE of the plain
+    ones, and the first prompt's in f32 compute within TOL_SERVE_F32.  A
+    MoE model's plain prefill replays the kernel route's expert choices
+    for those checks (``routing_replay``); its own routing's flips and
+    error are printed beside them."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = serve_lib.serve(arch, batch=batch, prompt_len=prompt_len,
+                          gen_tokens=0, device=dev, seed=0)
+    launches, routes = launch_counts(), route_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, cfg = res.model, res.model.cfg
+    moe = cfg.arch_type == "moe"
+    want = {**dict.fromkeys(launches, 0), **serve_launches(cfg)}
+    if res.launches["prefill"] != want or launches != want:
+        fail(f"{phase} {arch} prefill launches {res.launches}, total "
+             f"{launches}; expected {want}")
+    check_routes(routes, want, f"{phase} {arch} prefill")
+    if not bool(torch.isfinite(res.logits.float()).all()):
+        fail(f"{phase} {arch}: non-finite logits")
+
+    def prefills(tokens, dt):
+        """{run: (last logits, seconds)}, and the routings seen."""
+        out, seen = {}, {}
+        for run in ("kernel", "plain") + (("replayed",) if moe else ()):
+            caches = model_lib.init_cache(cfg, tokens.shape[0], prompt_len,
+                                          dtype=dt, device=dev)
+            with (routing_replay(seen["kernel"]) if run == "replayed"
+                  else routing_recorder()) as seen[run]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = model_lib.forward(
+                    model, {"tokens": tokens}, mode="prefill", caches=caches,
+                    last_only=True, kernels=run == "kernel",
+                    compute_dtype=dt)[0]
+                torch.cuda.synchronize()
+            out[run] = (logits, time.perf_counter() - t0)
+            del caches
+        return out, seen
+
+    held = "replayed" if moe else "plain"
+    with torch.no_grad():
+        bf16, seen = prefills(res.prompt, torch.bfloat16)
+        errs = {"prefill_logits_vs_plain": rel_err(res.logits,
+                                                   bf16[held][0]),
+                "warm_equals_served": bool(torch.equal(bf16["kernel"][0],
+                                                       res.logits)),
+                "prefill_warm_s": bf16["kernel"][1],
+                "prefill_plain_s": bf16["plain"][1]}
+        if moe:
+            errs.update(held_against="the plain prefill replaying the "
+                        "kernel route's expert choices",
+                        prefill_logits_vs_plain_own_routing=rel_err(
+                            res.logits, bf16["plain"][0]),
+                        routing_flips=routing_flips(seen["kernel"],
+                                                    seen["plain"], cfg))
+        del bf16, seen
+        f32, seen = prefills(res.prompt[:1], torch.float32)
+        errs["prefill_logits_vs_plain_f32"] = rel_err(f32["kernel"][0],
+                                                      f32[held][0])
+        if moe:
+            errs.update(prefill_logits_vs_plain_f32_own_routing=rel_err(
+                f32["kernel"][0], f32["plain"][0]),
+                routing_flips_f32=routing_flips(seen["kernel"],
+                                                seen["plain"], cfg))
+        del f32, seen
+    out = {"arch": cfg.name, "layers": len(cfg.blocks()), "batch": batch,
+           "prompt_len": prompt_len, "prefill_s": res.prefill_s,
+           "peak_memory_gb": peak_gb,
+           "params": model_lib.param_count(model),
+           "prefill_tokens_per_s": batch * prompt_len / res.prefill_s,
+           "launches": res.launches["prefill"], "launches_by_route": routes,
+           **errs, "tol": TOL_SERVE, "tol_f32": TOL_SERVE_F32}
+    emit({"phase": phase, "case": "prefill server", "nvidia_smi": smi,
+          **out})
+    if not errs["prefill_logits_vs_plain"] <= TOL_SERVE:
+        fail(f"{phase} {arch}: prefill vs plain "
+             f"{errs['prefill_logits_vs_plain']} > {TOL_SERVE}")
+    if not errs["prefill_logits_vs_plain_f32"] <= TOL_SERVE_F32:
+        fail(f"{phase} {arch}: f32 prefill vs plain "
+             f"{errs['prefill_logits_vs_plain_f32']} > {TOL_SERVE_F32}")
+    return out, res
+
+
+def moe_decode_check(model, dev, gen, *, smi) -> dict:
+    """MOE_DECODE_STEPS decode steps from position 0 (the cold cache's
+    validity mask), one prompt token each, on MOE_SERVE_B prompts,
+    against the plain full forward over the same tokens, both with
+    capacity factor MOE_DROPLESS_FACTOR (a decode step's one token never
+    overflows; the full forward's tokens may): in f32 compute within
+    TOL_SERVE_F32 with no routing differing; in bf16 the error and the
+    flips are printed, not held (a decode step and the full forward round
+    in other places, enough to flip near-tie routings)."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+
+    cfg = model.cfg
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DROPLESS_FACTOR))
+    steps = MOE_DECODE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (MOE_SERVE_B, steps),
+                         generator=gen, device=dev)
+    out = {}
+    model.cfg = dropless
+    try:
+        with torch.no_grad():
+            for dt in (torch.float32, torch.bfloat16):
+                caches = model_lib.init_cache(dropless, MOE_SERVE_B, steps,
+                                              dtype=dt, device=dev)
+                logits = []
+                with routing_recorder() as dec:
+                    for t in range(steps):
+                        lg, caches = model_lib.decode_step(
+                            model, caches, toks[:, t:t + 1], t,
+                            compute_dtype=dt)
+                        logits.append(lg)
+                with routing_recorder() as full_routes:
+                    full, _, _ = model_lib.forward(
+                        model, {"tokens": toks}, mode="prefill",
+                        compute_dtype=dt, kernels=False)
+                n_layers = len(full_routes)
+                by_layer = [torch.cat(dec[l::n_layers], dim=1)
+                            for l in range(n_layers)]
+                flips = routing_flips(by_layer, full_routes, dropless)
+                name = str(dt).split(".")[-1]
+                out[name] = {"err": rel_err(torch.cat(logits, dim=1), full),
+                             "routing_flips": flips}
+    finally:
+        model.cfg = cfg
+    res = {"steps": steps, "batch": MOE_SERVE_B,
+           "capacity_factor": MOE_DROPLESS_FACTOR, **out,
+           "tol_f32": TOL_SERVE_F32}
+    emit({"phase": "moe", "check": "decode from position 0 against the "
+          "full forward", "nvidia_smi": smi, **res})
+    f32 = out["float32"]
+    if f32["routing_flips"]["choices"] or not f32["err"] <= TOL_SERVE_F32:
+        fail(f"moe decode (f32): {f32}")
+    return res
+
+
+def evaluate_check(dev, arch, seq_len, *, phase, smi) -> dict:
+    """``launch.evaluate.evaluate`` on ``arch`` at full width in bf16:
+    ``group_metrics`` on one batch of EVAL_B × ``seq_len`` tokens for each
+    of EVAL_CLIENTS clients, B5 once a layer and B6 once a codebook (once
+    without codebooks) a client batch, on tensor cores; each client's
+    group losses against the plain route within TOL_EVAL, finite; seconds
+    and tokens/s a client batch, peak memory.  A MoE model's plain route
+    replays the kernel route's expert choices for the check; its own
+    routing's flips and error are printed beside it."""
+    import torch
+
+    from repro_torch.evaluation.metrics import group_metrics
+    from repro_torch.launch import evaluate as eval_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    with routing_recorder() as kernel_routes:
+        res = eval_lib.evaluate(arch, clients=EVAL_CLIENTS, batch=EVAL_B,
+                                seq_len=seq_len, num_groups=EVAL_GROUPS,
+                                device=dev, seed=0, verbose=False)
+    launches, routes = launch_counts(), route_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = res.model
+    cfg = model.cfg
+    want = {**dict.fromkeys(launches, 0), **serve_launches(cfg),
+            "fused_cross_entropy": ce_launches(cfg)}
+    total = {k: v * EVAL_CLIENTS for k, v in want.items()}
+    if any(got != want for got in res.launches) or launches != total:
+        fail(f"{phase} {arch} evaluate launches {res.launches}, total "
+             f"{launches}; expected {want} a client")
+    check_routes(routes, total, f"{phase} {arch} evaluate")
+    moe = cfg.arch_type == "moe"
+    per_client = len(kernel_routes) // EVAL_CLIENTS
+    errs, own, flips, plain_s = [], [], [], []
+    for i, (b, m) in enumerate(zip(res.batches, res.metrics)):
+        if not all(bool(torch.isfinite(m[k]).all())
+                   for k in ("group_loss", "mean_loss")):
+            fail(f"{phase} {arch} evaluate client {i}: not finite")
+        seen = {True: kernel_routes[i * per_client:(i + 1) * per_client]}
+        with routing_recorder() as seen[False]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = group_metrics(model, b, num_groups=EVAL_GROUPS,
+                                  kernels=False)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+        if moe:
+            flips.append(routing_flips(seen[True], seen[False], cfg))
+            own.append(rel_err(m["group_loss"], plain["group_loss"]))
+            with routing_replay(seen[True]):
+                plain = group_metrics(model, b, num_groups=EVAL_GROUPS,
+                                      kernels=False)
+        errs.append(rel_err(m["group_loss"], plain["group_loss"]))
+    out = {"arch": cfg.name, "clients": EVAL_CLIENTS, "batch": EVAL_B,
+           "seq_len": seq_len, "seconds": res.seconds,
+           "plain_route_s": plain_s,
+           "tokens_per_s": [EVAL_B * seq_len / t for t in res.seconds],
+           "peak_memory_gb": peak_gb, "err_vs_plain": errs,
+           "launches": launches,
+           "launches_a_client": want, "launches_by_route": routes,
+           "mean_loss": [float(m["mean_loss"]) for m in res.metrics],
+           "tol": TOL_EVAL}
+    if moe:
+        out.update(held_against="the plain route replaying the kernel "
+                   "route's expert choices", err_vs_plain_own_routing=own,
+                   routing_flips=flips)
+    emit({"phase": phase, "case": "evaluate", "nvidia_smi": smi, **out})
+    if not max(errs) <= TOL_EVAL:
+        fail(f"{phase} {arch} evaluate: group losses vs plain {errs} > "
+             f"{TOL_EVAL} × (1 + max)")
+    del res, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_args(**over):
+    """``launch.train``'s flags at the reference's train defaults but
+    n = MOE_TRAIN_N, on MOE_ARCH, with ``over``."""
+    return train_args(arch=MOE_ARCH, clients=MOE_TRAIN_N, **over)
+
+
+def phase_moe(dev, gen, smi) -> dict:
+    """granite-moe-1b-a400m at full width (bf16 weights and compute; seed-0
+    weights): a prefill server on MOE_SERVE_B × MOE_SERVE_PROMPT tokens
+    through B5 (``prefill_server``), decode from position 0 against the
+    dropless full forward (``moe_decode_check``), ``group_metrics`` through
+    B5 and B6 (``evaluate_check``); then DRO training at n = MOE_TRAIN_N
+    (f32 state): per-client gradients through B5 and B6 against the plain
+    route at MOE_LAYERS_GRADS layers with the routing flips counted, and
+    at MOE_LAYERS_CAPTURED layers the main path captured, bit for bit the
+    host loop, and an eager and a captured rate turn."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    out["prefill"], res = prefill_server(dev, MOE_ARCH, MOE_SERVE_B,
+                                         MOE_SERVE_PROMPT, phase="moe",
+                                         smi=smi)
+    out["decode"] = moe_decode_check(res.model, dev, gen, smi=smi)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["evaluate"] = evaluate_check(dev, MOE_ARCH, EVAL_S, phase="moe",
+                                     smi=smi)
+    with arch_depth(MOE_ARCH, MOE_LAYERS_GRADS):
+        out["grads"] = grad_checks(
+            dev, smi, moe_args(device=dev), phase="moe",
+            tol_bf16=(TOL_TRAIN_MOE_BF16_X, TOL_TRAIN_MOE_BF16_Y))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with arch_depth(MOE_ARCH, MOE_LAYERS_CAPTURED) as cfg:
+        out["main"] = captured_against_eager(
+            lambda **kw: moe_args(device=dev, **kw), cfg, phase="moe",
+            smi=smi)
+        out["rates"] = train_rates(
+            moe_args(device=dev, log_every=TRAIN_ROUNDS), cfg, phase="moe",
+            smi=smi, turns=RATE_TURNS)
+    out["launches_prefill"] = out["prefill"]["launches"]
+    out["launches_evaluate"] = out["evaluate"]["launches"]
+    out["launches"] = out["main"]["launches"]
+    out["launches_by_route"] = out["main"]["launches_by_route"]
+    return out
+
+
+def vlm_prefix_prefill(dev, smi) -> dict:
+    """internvl2-76b's prefix path at full width (d_model 8192, 64/8 heads
+    of 128, V = 128 256, untied) cut to VLM_LAYERS layers, bf16: a prefill
+    of VLM_B prompts, each 256 prefix embeddings (0.02·N(0, 1), as the
+    data layer draws them) and VLM_PROMPT tokens, through B5 (one launch a
+    layer, tensor cores) against the plain prefill within TOL_SERVE; the
+    prefix must move the logits."""
+    import torch
+
+    from repro_torch.data import synthetic as data_lib
+    from repro_torch.models import model as model_lib
+
+    with arch_depth(VLM_ARCH, VLM_LAYERS) as cfg:
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        model = model_lib.init_params(cfg, generator=g, device=dev,
+                                      dtype=torch.bfloat16)
+        tokens = torch.randint(0, cfg.vocab_size, (VLM_B, VLM_PROMPT),
+                               generator=g, device=dev)
+        batch = {"tokens": tokens,
+                 "prefix": data_lib.prefix_embeddings(g, VLM_B, cfg)}
+        total = cfg.num_prefix_tokens + VLM_PROMPT
+
+        def prefill(b, kernels):
+            return model_lib.forward(
+                model, b, mode="prefill", last_only=True, kernels=kernels,
+                caches=model_lib.init_cache(cfg, VLM_B, total, device=dev))
+
+        with torch.no_grad():
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, _ = prefill(batch, True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches, routes = launch_counts(), route_counts()
+            plain, plain_caches, _ = prefill(batch, False)
+            bare, _, _ = prefill({"tokens": tokens}, True)
+        want = {**dict.fromkeys(launches, 0), **serve_launches(cfg)}
+        if launches != want:
+            fail(f"frontends {VLM_ARCH} prefill launches {launches}, "
+                 f"expected {want}")
+        check_routes(routes, want, f"frontends {VLM_ARCH} prefill")
+        err = rel_err(logits, plain)
+        cache_err = max(rel_err(c[k], p[k]) for c, p in
+                        zip(caches, plain_caches) for k in c)
+        out = {"arch": cfg.name, "layers": VLM_LAYERS, "batch": VLM_B,
+               "prefix_tokens": cfg.num_prefix_tokens,
+               "prompt_len": VLM_PROMPT, "cache_len": int(
+                   caches[0]["k"].shape[1]),
+               "params": model_lib.param_count(model), "prefill_s": secs,
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "prefill_logits_vs_plain": err,
+               "prefill_caches_vs_plain": cache_err,
+               "logits_without_prefix_vs_with": rel_err(bare, logits),
+               "launches": launches, "launches_by_route": routes,
+               "tol": TOL_SERVE}
+        emit({"phase": "frontends", "case": "prefix prefill",
+              "nvidia_smi": smi, **out})
+        if not (err <= TOL_SERVE and cache_err <= TOL_SERVE):
+            fail(f"frontends {VLM_ARCH} prefill vs plain: {err}, caches "
+                 f"{cache_err} > {TOL_SERVE}")
+        if not bool(torch.isfinite(logits.float()).all()) or \
+                out["logits_without_prefix_vs_with"] == 0.0:
+            fail(f"frontends {VLM_ARCH}: the prefix did not reach the "
+                 "logits, or they are not finite")
+        del model, logits, caches, plain, plain_caches, bare
+        torch.cuda.empty_cache()
+        return out
+
+
+def phase_frontends(dev, gen, smi) -> dict:
+    """musicgen-medium at full width (48 layers, d_model 1536, 4 codebooks
+    of V = 2048, untied; bf16): a prefill server on MUSIC_B × MUSIC_FRAMES
+    frames through B5, ``group_metrics`` through B5 and B6 (one launch a
+    codebook a client batch), per-client DRO gradients through B5 and B6
+    at MUSIC_LAYERS_GRADS layers; internvl2-76b's prefix path through B5
+    at VLM_LAYERS layers (``vlm_prefix_prefill``); the reduced
+    internvl2-76b's gradients and one round through B5 and B6
+    (``reduced_checks``)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    out["prefill"], res = prefill_server(dev, MUSIC_ARCH, MUSIC_B,
+                                         MUSIC_FRAMES, phase="frontends",
+                                         smi=smi)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["evaluate"] = evaluate_check(dev, MUSIC_ARCH, MUSIC_FRAMES,
+                                     phase="frontends", smi=smi)
+    with arch_depth(MUSIC_ARCH, MUSIC_LAYERS_GRADS):
+        out["grads"] = grad_checks(
+            dev, smi, train_args(device=dev, arch=MUSIC_ARCH,
+                                 clients=MOE_TRAIN_N), phase="frontends",
+            tol_bf16=(TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["prefix"] = vlm_prefix_prefill(dev, smi)
+    out["internvl2_reduced"] = reduced_checks(dev, smi, VLM_ARCH,
+                                              phase="frontends")
+    out["launches_prefill"] = out["prefill"]["launches"]
+    out["launches_evaluate"] = out["evaluate"]["launches"]
     return out
 
 
@@ -4213,6 +4846,19 @@ def main(argv=None) -> int:
         launches_train_ssm.update(trained["launches"])
         train_ssm_routes = trained["launches_by_route"]
         train_times.update(trained["times"])
+    # the moe and frontends phases' launches: {path: {kernel: launches}}
+    launches_moe, moe_routes = {}, {}
+    if "moe" in phases:
+        moe = phase_moe(dev, gen, smi)
+        launches_moe = {"prefill": moe["launches_prefill"],
+                        "evaluate": moe["launches_evaluate"],
+                        "train": moe["launches"]}
+        moe_routes = moe["launches_by_route"]
+    launches_frontends = {}
+    if "frontends" in phases:
+        front = phase_frontends(dev, gen, smi)
+        launches_frontends = {"prefill": front["launches_prefill"],
+                              "evaluate": front["launches_evaluate"]}
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
@@ -4255,6 +4901,10 @@ def main(argv=None) -> int:
                  launches_evaluate=launches_eval[k["name"]],
                  launches_train=launches_train[k["name"]],
                  launches_train_ssm=launches_train_ssm[k["name"]],
+                 launches_moe={path: c.get(k["name"]) for path, c
+                               in launches_moe.items()} or None,
+                 launches_frontends={path: c.get(k["name"]) for path, c
+                                     in launches_frontends.items()} or None,
                  max_abs_err=errs[k["name"]],
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
@@ -4268,6 +4918,7 @@ def main(argv=None) -> int:
                      launches_by_route_train=train_routes.get(k["name"]),
                      launches_by_route_train_ssm=train_ssm_routes.get(
                          k["name"]),
+                     launches_by_route_moe=moe_routes.get(k["name"]),
                      cases_by_route=cases_by_route.get(k["name"]))
             old = OLD_ROUTE.get(k["name"], "cuda_core")
             k[f"{old}_ms"] = t.get(f"{old}_ms")
@@ -4308,7 +4959,14 @@ def main(argv=None) -> int:
                            "logged rows); launches_train_ssm: the "
                            "train_ssm phase's main run (mamba2-1.3b at "
                            f"{SSM_LAYERS_CAPTURED} layers, n = "
-                           f"{SSM_TRAIN_N}, the same chunk); train_shapes: "
+                           f"{SSM_TRAIN_N}, the same chunk); "
+                           "launches_moe: granite-moe-1b-a400m's prefill "
+                           "(4 × 4096 tokens), evaluate (4 clients) and "
+                           f"train main run ({MOE_LAYERS_CAPTURED} layers, "
+                           f"n = {MOE_TRAIN_N}, the same chunk); "
+                           "launches_frontends: musicgen-medium's prefill "
+                           "(4 × 1500 frames) and evaluate (4 clients, B6 "
+                           "once a codebook); train_shapes: "
                            "each model kernel at its training shape",
           "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "

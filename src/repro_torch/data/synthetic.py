@@ -12,11 +12,14 @@ Draws come from an explicit ``torch.Generator``, whose numbers differ from
 (``batch_from_draws``: the bigram blend of reference :97-106) is a pure
 function of the draws (g, first, use_bigram), and the parity test feeds it
 the reference's own draws; the sampler itself is held to the mixtures
-statistically.  ``round_batches`` stacks a round's batches (K, n, B, S)
-from the same sampler (``stack_round`` alone is what the parity tests feed
-the reference's draws through); the multi-codebook streams and prefix
-embeddings are not ported (``num_codebooks`` / ``num_prefix_tokens``
-models are refused, ROADMAP A11).
+statistically.  An audio model's C codebook streams have no bigram
+blend: C unigram draws a position from the sequence's domain, each label
+(token + the domain's shift) mod V of the next position
+(``codebook_batch_from_draws``, reference :88-95).  ``round_batches``
+stacks a round's batches (K, n, B, S…) from the same sampler
+(``stack_round`` alone is what the parity tests feed the reference's
+draws through), with a vision-language model's (B, P, d) prefix
+embeddings, 0.02·N(0, 1), beside each (reference :124-128).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,16 +84,37 @@ def batch_from_draws(dm: DataModel, g, first, use_bigram) -> Dict[str, torch.Ten
             "groups": g[:, None].expand(b, s).long()}
 
 
+def codebook_batch_from_draws(dm: DataModel, g, toks
+                              ) -> Dict[str, torch.Tensor]:
+    """One multi-codebook batch from its draws: g (B,) the domain of each
+    sequence; toks (B, S + 1, C) unigram tokens of each codebook.  Returns
+    {"tokens" (B, S, C), "labels" (B, S, C): (next token + the domain's
+    shift) mod V, "groups" (B, S)}, int64 (reference :88-95)."""
+    shift = dm.domain_shift[g][:, None, None]
+    labels_full = (toks + shift) % dm.vocab_size
+    b, s = toks.shape[0], toks.shape[1] - 1
+    return {"tokens": toks[:, :-1], "labels": labels_full[:, 1:],
+            "groups": g[:, None].expand(b, s).long()}
+
+
 def sample_client_batch(dm: DataModel, generator: torch.Generator,
-                        client: int, batch: int, seq_len: int
-                        ) -> Dict[str, torch.Tensor]:
+                        client: int, batch: int, seq_len: int,
+                        num_codebooks: int = 0) -> Dict[str, torch.Tensor]:
     """One client's batch, drawn on the generator's device (where ``dm``
     lies): each sequence's domain from the client's mixture, seq_len + 1
     unigram tokens from the domain's logits, and a fair coin per position
-    for the bigram blend (``batch_from_draws``)."""
+    for the bigram blend (``batch_from_draws``); with ``num_codebooks`` C,
+    C unigram tokens a position instead, and no blend
+    (``codebook_batch_from_draws``)."""
     g = torch.multinomial(dm.mixtures[client] + 1e-9, batch, replacement=True,
                           generator=generator)
     probs = torch.softmax(dm.domain_logits[g], dim=-1)
+    if num_codebooks:
+        toks = torch.multinomial(probs, num_codebooks * (seq_len + 1),
+                                 replacement=True, generator=generator)
+        toks = toks.reshape(batch, num_codebooks, seq_len + 1).transpose(
+            1, 2)
+        return codebook_batch_from_draws(dm, g, toks)
     first = torch.multinomial(probs, seq_len + 1, replacement=True,
                               generator=generator)
     use_bigram = torch.rand(first.shape, generator=generator,
@@ -96,10 +122,18 @@ def sample_client_batch(dm: DataModel, generator: torch.Generator,
     return batch_from_draws(dm, g, first, use_bigram)
 
 
+def prefix_embeddings(generator: torch.Generator, batch: int,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """A batch's stub vision embeddings: 0.02·N(0, 1) of shape (B, P, d)
+    (reference :124-128), on the generator's device."""
+    return 0.02 * torch.randn((batch, cfg.num_prefix_tokens, cfg.d_model),
+                              generator=generator, device=generator.device)
+
+
 def stack_round(batches: List[List[Dict[str, torch.Tensor]]]
                 ) -> Dict[str, torch.Tensor]:
     """[[batch of client i at local step k for i] for k] -> one dict of
-    (K, n, B, S) tensors, the layout the round step eats."""
+    (K, n, B, S…) tensors, the layout the round step eats."""
     return {name: torch.stack([torch.stack([b[name] for b in step])
                                for step in batches])
             for name in batches[0][0]}
@@ -107,13 +141,23 @@ def stack_round(batches: List[List[Dict[str, torch.Tensor]]]
 
 def round_batches(dm: DataModel, generator: torch.Generator, *,
                   local_steps: int, num_clients: int, per_client_batch: int,
-                  seq_len: int) -> Dict[str, torch.Tensor]:
+                  seq_len: int, cfg: Optional[ModelConfig] = None
+                  ) -> Dict[str, torch.Tensor]:
     """One round's batches (reference :108): for each local step k and
-    client i, ``sample_client_batch`` of client i from ``generator``,
-    stacked (K, n, B, S)."""
-    return stack_round([[sample_client_batch(dm, generator, i,
-                                             per_client_batch, seq_len)
-                         for i in range(num_clients)]
+    client i, ``sample_client_batch`` of client i from ``generator`` — its
+    codebook streams where ``cfg`` has codebooks — and its
+    ``prefix_embeddings`` where ``cfg`` has prefix tokens, stacked
+    (K, n, B, S…)."""
+    ncb = cfg.num_codebooks if cfg is not None else 0
+
+    def one(i):
+        b = sample_client_batch(dm, generator, i, per_client_batch, seq_len,
+                                ncb)
+        if cfg is not None and cfg.num_prefix_tokens:
+            b["prefix"] = prefix_embeddings(generator, per_client_batch, cfg)
+        return b
+
+    return stack_round([[one(i) for i in range(num_clients)]
                         for _ in range(local_steps)])
 
 

@@ -24,12 +24,15 @@ def stream_seed(*parts: int) -> int:
 
 
 def make_dro_sampler(dm: data_lib.DataModel, seed: int, *, local_steps: int,
-                     num_clients: int, per_client_batch: int, seq_len: int):
+                     num_clients: int, per_client_batch: int, seq_len: int,
+                     cfg=None):
     """Sampler over a heterogeneous synthetic ``DataModel`` (reference :26):
-    round t's batches, stacked (K, n, B, S), come from a generator on the
-    data model's device seeded ``stream_seed(seed, t)``; the noise is
-    (K, n, 0), since the data batch is the only source of randomness of
-    the DRO and adversarial problems."""
+    round t's batches for a model of ``cfg`` (its codebook streams and
+    prefix embeddings, ``data.synthetic.round_batches``), stacked
+    (K, n, B, S…), come from a generator on the data model's device seeded
+    ``stream_seed(seed, t)``; the noise is (K, n, 0), since the data batch
+    is the only source of randomness of the DRO and adversarial
+    problems."""
     dev = dm.domain_logits.device
     gen = torch.Generator(device=dev)
 
@@ -37,7 +40,7 @@ def make_dro_sampler(dm: data_lib.DataModel, seed: int, *, local_steps: int,
         gen.manual_seed(stream_seed(seed, int(round_idx)))
         batches = data_lib.round_batches(
             dm, gen, local_steps=local_steps, num_clients=num_clients,
-            per_client_batch=per_client_batch, seq_len=seq_len)
+            per_client_batch=per_client_batch, seq_len=seq_len, cfg=cfg)
         return batches, torch.zeros((local_steps, num_clients, 0),
                                     device=dev)
 
@@ -46,19 +49,19 @@ def make_dro_sampler(dm: data_lib.DataModel, seed: int, *, local_steps: int,
 
 def held_out_eval_batch(dm: data_lib.DataModel, generator: torch.Generator,
                         *, num_clients: int, per_client_batch: int,
-                        seq_len: int):
-    """One fixed client-balanced eval batch (reference :108), drawn once
-    from ``generator`` (never from the training stream): one
-    ``per_client_batch`` draw per client distribution, flattened to
-    (n·B, S)."""
+                        seq_len: int, cfg=None):
+    """One fixed client-balanced eval batch (reference :108) for a model of
+    ``cfg``, drawn once from ``generator`` (never from the training
+    stream): one ``per_client_batch`` draw per client distribution,
+    flattened to (n·B, S…)."""
     rb = data_lib.round_batches(
         dm, generator, local_steps=1, num_clients=num_clients,
-        per_client_batch=per_client_batch, seq_len=seq_len)
+        per_client_batch=per_client_batch, seq_len=seq_len, cfg=cfg)
     return flatten_clients(rb)
 
 
 def flatten_clients(round_batch):
-    """(1, n, B, S) batches -> (n·B, S)."""
+    """(1, n, B, S…) batches -> (n·B, S…)."""
     return {k: v.reshape((v.shape[1] * v.shape[2],) + tuple(v.shape[3:]))
             for k, v in round_batch.items()}
 

@@ -61,7 +61,8 @@ def evaluate_clients(state_x, dm, cfg, generator: Optional[torch.Generator]
     for i in range(n):
         b = (batches[i] if batches is not None
              else data_lib.sample_client_batch(dm, generator, i,
-                                               per_client_batch, seq_len))
+                                               per_client_batch, seq_len,
+                                               cfg.num_codebooks))
         m = model_lib.call(skel, xbar, group_metrics, b,
                            num_groups=num_groups,
                            compute_dtype=compute_dtype)

@@ -66,7 +66,7 @@ def main(argv=None):
                          device=dev)
     sampler = engine_lib.make_dro_sampler(
         dm, engine_lib.stream_seed(SEED, SAMPLER_STREAM), local_steps=k,
-        num_clients=n, per_client_batch=2, seq_len=64)
+        num_clients=n, per_client_batch=2, seq_len=64, cfg=cfg)
     batches0, _ = sampler(0)
     state = init_state(problem, algo, gen_of(INIT_STREAM),
                        init_batch={key: v[0] for key, v in batches0.items()})
@@ -74,7 +74,7 @@ def main(argv=None):
     # held-out eval batch: clean vs adversarial loss of the consensus model
     eval_b = engine_lib.held_out_eval_batch(
         dm, gen_of(EVAL_STREAM), num_clients=n, per_client_batch=2,
-        seq_len=64)
+        seq_len=64, cfg=cfg)
 
     @torch.no_grad()
     def metrics_fn(state, batches):

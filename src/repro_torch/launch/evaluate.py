@@ -5,8 +5,10 @@ for one set of weights, without the client-stacked state of training).
 The model gets fresh bf16 weights from a seeded ``torch.Generator``; the data
 model is ``data.synthetic.make_data_model`` (G groups, one Dirichlet(alpha)
 mixture a client); each client draws one batch and ``group_metrics`` runs on
-it with autograd off — through the SSD scan (B7) in every Mamba2 layer and
-the fused cross-entropy (B6) on the card.
+it with autograd off — through the SSD scan (B7) in every Mamba2 layer, the
+flash attention (B5) in every attention layer and the fused cross-entropy
+(B6, once a codebook of an audio model) on the card.  As in the
+reference's ``evaluate_clients``, the batches carry no prefix embeddings.
 
   PYTHONPATH=src python -m repro_torch.launch.evaluate --arch mamba2-1.3b
   PYTHONPATH=src python -m repro_torch.launch.evaluate --arch mamba2-1.3b \\
@@ -63,7 +65,8 @@ def evaluate(arch: str, *, clients: int = 4, batch: int = 4,
     res = EvalResult(model=model, data=dm, batches=[], metrics=[], seconds=[],
                      launches=[])
     for i in range(clients):
-        b = data_lib.sample_client_batch(dm, gen, i, batch, seq_len)
+        b = data_lib.sample_client_batch(dm, gen, i, batch, seq_len,
+                                         cfg.num_codebooks)
         start = ops.launch_counts()
         _sync(device)
         t0 = time.perf_counter()

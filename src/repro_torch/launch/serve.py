@@ -19,7 +19,13 @@ in plain PyTorch.  Weights are bf16 on the card, drawn from a seeded
 A prefill fills a KV cache exactly only when the cache's length divides the
 prompt length (the cache keeps the last ``length`` keys, and decode's ring
 writes position p at slot p % length); other prompt lengths are refused.
-Layers without a KV cache (``rglru``, ``ssm``) take any prompt length.
+Layers without a KV cache (``rglru``, ``ssm``) take any prompt length.  So
+a model whose layers attend globally (qwen2-0.5b, granite-moe-1b-a400m,
+musicgen-medium, …: a cache as long as prompt and new tokens together) is
+served as a prefill server, ``--tokens 0``; decoding after its prompt is
+the scheduler's (ROADMAP A12).  An audio model's prompts are (B, P, C)
+codebook streams, and each decode step samples every codebook: (B, 1, C)
+(reference ``launch/serve.py:31,49``).
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ from repro_torch.models import model as model_lib
 @dataclasses.dataclass
 class ServeResult:
     model: model_lib.Model
-    prompt: torch.Tensor          # (B, prompt_len)
-    tokens: torch.Tensor          # (B, gen_tokens), the sampled tokens
-    logits: torch.Tensor          # (B, gen_tokens + 1, V): the prefill's last
-    #                               position, then each decode step's
+    prompt: torch.Tensor          # (B, prompt_len[, C])
+    tokens: torch.Tensor          # (B, gen_tokens[, C]), the sampled tokens
+    logits: torch.Tensor          # (B, gen_tokens + 1[, C], V): the
+    #                               prefill's last position, then each
+    #                               decode step's
     prefill_caches: List[Dict[str, torch.Tensor]]
     prefill_s: float
     decode_s: float
@@ -70,22 +77,25 @@ def _sync(device) -> None:
 
 
 def sample(logits, temperature: float, generator) -> torch.Tensor:
-    """(B, 1, V) logits -> (B, 1) tokens; temperature 0 is greedy."""
-    last = logits[:, -1].to(torch.float32)
+    """(B, 1, V) logits -> (B, 1) tokens, or (B, 1, C, V) -> (B, 1, C), a
+    token of each codebook; temperature 0 is greedy."""
+    last = logits[:, -1].to(torch.float32)        # (B, V) or (B, C, V)
     if temperature <= 0:
-        return last.argmax(-1, keepdim=True)
+        return last.argmax(-1)[:, None]
     probs = torch.softmax(last / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)
+    tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                            generator=generator)
+    return tok.reshape(last.shape[:-1])[:, None]
 
 
 @torch.no_grad()
 def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
              temperature: float = 1.0, generator=None,
              compute_dtype=torch.bfloat16) -> ServeResult:
-    """Prefill ``prompt`` (B, P) in one step, then ``gen_tokens`` decode
-    steps."""
+    """Prefill ``prompt`` (B, P), or (B, P, C) with codebooks, in one
+    step, then ``gen_tokens`` decode steps."""
     cfg = model.cfg
-    b, prompt_len = prompt.shape
+    b, prompt_len = prompt.shape[:2]
     total = prompt_len + gen_tokens
     check_prompt(cfg, prompt_len, total)
     device = prompt.device
@@ -116,7 +126,7 @@ def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
         "prefill": {k: after_prefill[k] - start[k] for k in start},
         "decode": {k: end[k] - after_prefill[k] for k in start}}
     tokens = (torch.cat(toks, dim=1) if toks
-              else prompt.new_zeros((b, 0)))
+              else prompt.new_zeros((b, 0, *prompt.shape[2:])))
     return ServeResult(model=model, prompt=prompt, tokens=tokens,
                        logits=torch.cat(steps, dim=1),
                        prefill_caches=prefill_caches, prefill_s=prefill_s,
@@ -137,7 +147,8 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
     gen.manual_seed(seed)
     model = model_lib.init_params(cfg, generator=gen, device=device,
                                   dtype=torch.bfloat16)
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len, *cb),
                            generator=gen, device=device)
     res = generate(model, prompt, gen_tokens, temperature=temperature,
                    generator=gen)
@@ -155,8 +166,12 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="recurrentgemma-9b",
                     choices=sorted(registry.ARCHS),
-                    help="served in full: recurrentgemma-9b, mamba2-1.3b "
-                         "(and the attention-only archs)")
+                    help="served in full (prefill, then decode): "
+                         "recurrentgemma-9b, mamba2-1.3b; served as "
+                         "prefill servers (--tokens 0), their layers "
+                         "attending globally: qwen2-0.5b, "
+                         "granite-moe-1b-a400m, musicgen-medium and the "
+                         "other attention-only archs")
     ap.add_argument("--batch", type=int, default=4,
                     help="prompts in the batch (mamba2-1.3b is served at 8 "
                          "on the card)")

@@ -237,7 +237,8 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
     if init_batch is None:
         init_batch = {k: v[0] for k, v in data_lib.round_batches(
             dm, gen_of(INIT_BATCH_STREAM), local_steps=1, num_clients=n,
-            per_client_batch=args.batch, seq_len=args.seq_len).items()}
+            per_client_batch=args.batch, seq_len=args.seq_len,
+            cfg=cfg).items()}
     state = kgt.init_state(problem, algo, gen_of(INIT_STREAM),
                            init_batch=init_batch)
     del init_batch
@@ -249,7 +250,7 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
         sampler = engine_lib.make_dro_sampler(
             dm, engine_lib.stream_seed(args.seed, SAMPLER_STREAM),
             local_steps=algo.local_steps, num_clients=n,
-            per_client_batch=args.batch, seq_len=args.seq_len)
+            per_client_batch=args.batch, seq_len=args.seq_len, cfg=cfg)
     if random_w or part or byz:
         # churn and adversary axes ride the sampler slot: per-round W,
         # participation mask and attack drawn from the round index
@@ -282,7 +283,7 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
     if eval_batch is None:
         eval_batch = engine_lib.held_out_eval_batch(
             dm, gen_of(EVAL_BATCH_STREAM), num_clients=n,
-            per_client_batch=args.batch, seq_len=args.seq_len)
+            per_client_batch=args.batch, seq_len=args.seq_len, cfg=cfg)
     metrics_fn = engine_lib.dro_metrics_fn(
         problem, cfg, num_groups=args.groups, eval_batch=eval_batch)
     round_step = kgt.make_round_step(

@@ -1,5 +1,7 @@
 """Carrying the JAX package's model parameters and caches across as numpy,
-in both directions, for every ported block kind (``ssm`` included).
+in both directions, for every block kind (``moe``'s ``router``, ``gate``,
+``up`` and ``down`` leaves among them) and the modality frontends'
+(C, V, d) embedding and (C, d, V) head.
 
 The reference stacks each repeated unit of the block pattern along a leading
 repeat dim: ``params["stack"][si][bi][name][r]`` is layer

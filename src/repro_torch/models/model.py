@@ -10,8 +10,14 @@ model functionally: the parameters are a dict of tensors keyed by
 ``Model``'s parameter names (``param_dict``), one client's slice of the
 client-stacked state, and :func:`call` runs a function of the model
 through ``torch.func.functional_call`` on a parameterless skeleton
-(:func:`skeleton`).  Modality frontends (``num_prefix_tokens``,
-``num_codebooks``) are not ported (ROADMAP A11).
+(:func:`skeleton`).
+
+The modality frontends are the reference's stubs: an audio model
+(``num_codebooks`` C) embeds (B, S, C) token streams as the sum of C
+per-codebook embeddings and predicts (B, S, C, V) logits, its loss the
+mean over codebooks; a vision-language model (``num_prefix_tokens`` P)
+takes precomputed (B, P, d) ``prefix`` embeddings in its batch, run
+before the tokens and dropped after the final norm.
 """
 from __future__ import annotations
 
@@ -29,27 +35,24 @@ from repro_torch.models.layers import embed_init, param, rms_norm
 
 class Model(nn.Module):
     """Parameters of one language model, under the reference's names:
-    ``embed`` (V, d), ``layers`` (one ``transformer.Block`` per layer, in
-    layer order), ``final_norm`` (d,) and, unless the embeddings are tied,
-    ``head`` (d, V)."""
+    ``embed`` (V, d), or (C, V, d) with C codebooks, ``layers`` (one
+    ``transformer.Block`` per layer, in layer order), ``final_norm`` (d,)
+    and, unless the embeddings are tied, ``head`` (d, V), or (C, d, V)."""
 
     def __init__(self, cfg: ModelConfig, gen, *, device, dtype):
         super().__init__()
-        if cfg.num_codebooks or cfg.num_prefix_tokens:
-            raise NotImplementedError(
-                "modality frontends (num_codebooks, num_prefix_tokens) are "
-                "not ported yet (ROADMAP A11)")
         kw = dict(device=device, dtype=dtype)
+        cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         self.cfg = cfg
-        self.embed = param(embed_init(gen, (cfg.vocab_size, cfg.d_model),
-                                      **kw))
+        self.embed = param(embed_init(gen, (*cb, cfg.vocab_size,
+                                            cfg.d_model), **kw))
         self.layers = nn.ModuleList(
             tf.Block(kind, cfg, gen, **kw) for kind in cfg.blocks())
         self.final_norm = param(torch.zeros((cfg.d_model,), **kw))
         self.head = None
         if not cfg.tie_embeddings:
-            self.head = param(embed_init(gen, (cfg.d_model, cfg.vocab_size),
-                                         **kw))
+            self.head = param(embed_init(gen, (*cb, cfg.d_model,
+                                               cfg.vocab_size), **kw))
 
     def forward(self, fn, *args, **kw):
         """``fn(self, *args, **kw)``: what ``torch.func.functional_call``
@@ -97,10 +100,24 @@ def call(skel: Model, params: Dict[str, torch.Tensor], fn, *args, **kw):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(model: Model, tokens, compute_dtype):
-    return model.embed[tokens].to(compute_dtype)
+    """(B, S) tokens -> (B, S, d); with C codebooks (B, S, C) tokens ->
+    the sum of the C codebooks' embeddings, added in codebook order in the
+    compute dtype (reference :54-60)."""
+    if not model.cfg.num_codebooks:
+        return model.embed[tokens].to(compute_dtype)
+    x = model.embed[0][tokens[..., 0]].to(compute_dtype)
+    for c in range(1, model.cfg.num_codebooks):
+        x = x + model.embed[c][tokens[..., c]].to(compute_dtype)
+    return x
 
 
 def lm_head(model: Model, x, compute_dtype):
+    """(B, S, d) -> logits (B, S, V), or (B, S, C, V) with C codebooks."""
+    if model.cfg.num_codebooks:
+        if model.head is None:
+            return torch.einsum("bsd,cvd->bscv", x,
+                                model.embed.to(compute_dtype))
+        return torch.einsum("bsd,cdv->bscv", x, model.head.to(compute_dtype))
     if model.head is None:
         return x @ model.embed.to(compute_dtype).T
     return x @ model.head.to(compute_dtype)
@@ -114,16 +131,22 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
              compute_dtype=torch.bfloat16, caches=None, pos=None,
              kernels: bool = True):
     """Everything up to (and incl.) the final norm.  Returns (hidden (B,S,d),
-    new_caches, aux)."""
+    new_caches, aux).  A model with prefix tokens runs ``batch["prefix"]``
+    (B, P, d), where the batch has one, before the token embeddings
+    outside decode, positions over P + S, and drops the P positions after
+    the final norm (reference :92-115); decode ignores it."""
     cfg = model.cfg
-    if "prefix" in batch:
-        raise NotImplementedError("prefix embeddings are not ported yet "
-                                  "(ROADMAP A11)")
     tokens = batch["tokens"]
     x = embed_tokens(model, tokens, compute_dtype)
     if "embed_bias" in batch:  # adversarial objective: universal perturbation
         x = x + batch["embed_bias"].to(compute_dtype)
-    b, s = x.shape[0], x.shape[1]
+    b = x.shape[0]
+    offset = 0
+    if cfg.num_prefix_tokens and "prefix" in batch and mode != "decode":
+        prefix = batch["prefix"].to(compute_dtype)
+        x = torch.cat([prefix, x], dim=1)
+        offset = prefix.shape[1]
+    s = x.shape[1]
     if mode == "decode":
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
@@ -134,6 +157,8 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
         model.layers, x, cfg, mode=mode, positions=positions, caches=caches,
         pos=pos, compute_dtype=compute_dtype, kernels=kernels)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if offset:
+        x = x[:, offset:]
     return x, new_caches, aux
 
 
@@ -157,19 +182,25 @@ def forward(model: Model, batch: Dict[str, Any], *, mode: str = "train",
 # ---------------------------------------------------------------------------
 
 def token_losses(logits, labels):
-    """Per-token cross-entropy in f32.  logits: (B, S, V); labels (B, S).
-    Returns (B, S)."""
+    """Per-token cross-entropy in f32.  logits: (B, S, V) with labels
+    (B, S), or (B, S, C, V) with labels (B, S, C), then the mean over the
+    C codebooks.  Returns (B, S)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    return -logp.gather(-1, labels[..., None].long())[..., 0]
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    return nll.mean(-1) if nll.dim() == 3 else nll
 
 
-def head_weight(model: Model, compute_dtype):
+def head_weight(model: Model, compute_dtype, codebook: Optional[int] = None):
     """The head as a (V, d) operand in ``compute_dtype``: the tied
     embedding, or the untied (d, V) head's transposed view (no copy when
-    the dtype already matches)."""
-    if model.head is None:
-        return model.embed.to(compute_dtype)
-    return model.head.to(compute_dtype).T
+    the dtype already matches); with codebooks, that of ``codebook``."""
+    embed, head = model.embed, model.head
+    if codebook is not None:
+        embed = embed[codebook]
+        head = None if head is None else head[codebook]
+    if head is None:
+        return embed.to(compute_dtype)
+    return head.to(compute_dtype).T
 
 
 def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
@@ -178,18 +209,25 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
     without resident (B, S, V) logits.
 
     With ``kernels``, kernel B6 over all B·S tokens, under autograd too:
-    its logits are f32 from the compute-dtype operands.  With
-    ``kernels=False`` the reference's form: the head on ``chunk`` positions
-    at a time, logits in the compute dtype, then an f32 log-softmax.  In
-    bf16 the two differ by the bf16 rounding of the logits (ROADMAP §C
-    quirk 4).
+    its logits are f32 from the compute-dtype operands; with C codebooks,
+    one launch a codebook (its head, its labels (B, S) of the (B, S, C)),
+    then the mean of the C NLLs.  With ``kernels=False`` the reference's
+    form: the head on ``chunk`` positions at a time, logits in the compute
+    dtype, then an f32 log-softmax.  In bf16 the two differ by the bf16
+    rounding of the logits (ROADMAP §C quirk 4).
     """
     b, s, d = hidden.shape
     if tf.kernel_route("train", kernels):
-        nll = ops.fused_cross_entropy(
-            hidden.reshape(b * s, d).to(compute_dtype),
-            head_weight(model, compute_dtype), labels.reshape(b * s))
-        return nll.reshape(b, s)
+        h = hidden.reshape(b * s, d).to(compute_dtype)
+        if not model.cfg.num_codebooks:
+            return ops.fused_cross_entropy(
+                h, head_weight(model, compute_dtype),
+                labels.reshape(b * s)).reshape(b, s)
+        nll = torch.stack([
+            ops.fused_cross_entropy(h, head_weight(model, compute_dtype, c),
+                                    labels[..., c].reshape(b * s))
+            for c in range(model.cfg.num_codebooks)], dim=-1)
+        return nll.mean(-1).reshape(b, s)
     return torch.cat([
         token_losses(lm_head(model, hidden[:, i:i + chunk], compute_dtype),
                      labels[:, i:i + chunk])
@@ -198,8 +236,8 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
 
 def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
                    compute_dtype=torch.bfloat16, kernels: bool = True):
-    """Group-resolved LM loss.  batch needs "tokens", "labels" (B, S) and
-    "groups" (B, S) int in [0, num_groups).  Returns ((G,) mean NLL per
+    """Group-resolved LM loss.  batch needs "tokens", "labels" (B, S), or
+    (B, S, C) with codebooks, and "groups" (B, S) int in [0, num_groups).  Returns ((G,) mean NLL per
     group — 0 for a group with no token — and aux)."""
     hidden, _, aux = backbone(model, batch, mode="train",
                               compute_dtype=compute_dtype, kernels=kernels)
@@ -272,9 +310,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def decode_step(model: Model, caches, tokens, pos: int, *,
                 compute_dtype=torch.bfloat16):
-    """One-token decode.  tokens: (B,1); pos: the absolute position.
-    Returns (logits (B,1,V), new_caches); the caches passed in are left as
-    they were."""
+    """One-token decode.  tokens: (B,1), or (B,1,C) with codebooks; pos:
+    the absolute position.  Returns (logits (B,1,V) or (B,1,C,V),
+    new_caches); the caches passed in are left as they were."""
     logits, new_caches, _ = forward(
         model, {"tokens": tokens}, mode="decode", compute_dtype=compute_dtype,
         caches=caches, pos=pos)

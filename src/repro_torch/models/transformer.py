@@ -12,7 +12,7 @@ Block kinds ported:
   attn_local             windowed attention (RecurrentGemma local layer) + MLP
   rglru                  RG-LRU temporal mixer + MLP
   ssm                    Mamba2 SSD mixer, no MLP
-``moe`` waits for ROADMAP A11.
+  moe                    GQA attention + MoE MLP (``models.moe``)
 
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
 ``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
@@ -30,11 +30,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, mlp, param, rms_norm
 
-ATTN_KINDS = ("attn", "sliding", "attn_local")
+# the block kinds whose mixer is attention (kernel B5 in prefill and train)
+ATTN_KINDS = ("attn", "sliding", "attn_local", "moe")
 KINDS = ATTN_KINDS + ("rglru", "ssm")
 
 
@@ -88,14 +90,14 @@ def _attn_window(kind: str, cfg: ModelConfig) -> int:
 
 class Block(nn.Module):
     """One decoder layer: its kind and its parameters, under the reference's
-    names (``norm1``, ``attn`` or ``rglru``, ``norm2``, ``mlp``; an ``ssm``
-    layer holds only ``norm1`` and ``ssm``)."""
+    names (``norm1``, ``attn`` or ``rglru``, ``norm2``, ``mlp``; a ``moe``
+    layer holds ``moe`` in place of ``mlp``; an ``ssm`` layer holds only
+    ``norm1`` and ``ssm``)."""
 
     def __init__(self, kind: str, cfg: ModelConfig, gen, *, device, dtype):
         super().__init__()
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP A11)")
+            raise ValueError(f"unknown block kind {kind!r}: {KINDS}")
         d = cfg.d_model
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
@@ -108,7 +110,10 @@ class Block(nn.Module):
         else:
             self.attn = attn_lib.init_attention(gen, cfg, d, **kw)
         self.norm2 = param(torch.zeros((d,), **kw))
-        self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
+        if kind == "moe":
+            self.moe = moe_lib.init_moe(gen, cfg, d, **kw)
+        else:
+            self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
 
 
 def kernel_route(mode: str, kernels: bool) -> bool:
@@ -199,7 +204,13 @@ def block_forward(
     x = x + y
 
     h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-    return x + mlp(params.mlp, h2, compute_dtype), new_cache, aux
+    if kind == "moe":
+        moe_fn = (moe_lib.moe_mlp_sorted if cfg.moe.dispatch == "sorted"
+                  else moe_lib.moe_mlp)
+        y2, aux = moe_fn(params.moe, h2, cfg, compute_dtype)
+    else:
+        y2 = mlp(params.mlp, h2, compute_dtype)
+    return x + y2, new_cache, aux
 
 
 def stack_forward(
@@ -215,7 +226,10 @@ def stack_forward(
     kernels: bool = True,
 ):
     """Run every layer.  ``caches`` is a list with one entry per layer (or
-    None).  Returns (x, new_caches, total_aux)."""
+    None).  Returns (x, new_caches, total_aux): the sum of every layer's
+    aux (the reference adds each unit's last block's aux, the same sum
+    where a unit is one block, as every ``moe`` unit is: ROADMAP §C quirk
+    5)."""
     new_caches = [] if caches is not None else None
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(layers):

@@ -1,6 +1,9 @@
 """The DRO parity harness shared by ``tests/test_torch_dro.py`` (reduced
-qwen2-0.5b) and ``tests/test_torch_dro_blocks.py`` (reduced mamba2-1.3b and
-recurrentgemma-9b): the reference's inputs, a state whose clients differ,
+qwen2-0.5b), ``tests/test_torch_dro_blocks.py`` (reduced mamba2-1.3b and
+recurrentgemma-9b) and ``tests/test_torch_dro_frontends.py`` (reduced
+granite-moe-1b-a400m, musicgen-medium and internvl2-76b): the reference's
+inputs (codebook streams and prefix embeddings where the model takes
+them), a state whose clients differ,
 and the checks of the DRO value and its per-client gradients, one round on
 ``dense`` and the initial corrections of ``init_state``, each for one
 architecture, in f32 compute, at the reference's own train-test sizes
@@ -49,6 +52,7 @@ from repro_torch.kernels import rglru_scan as t_rg
 from repro_torch.kernels import ssd_scan as t_ssd
 from repro_torch.models import interop
 from repro_torch.models import model as t_model
+from repro_torch.models import transformer as t_tf
 
 TOL = 1e-4
 N, K, B, S, G = 2, 2, 2, 32, 4
@@ -60,8 +64,13 @@ def np_tree(tree):
 
 
 def batch_of(b):
-    """A reference batch (numpy / jax arrays) -> the port's (int64)."""
-    return {k: torch.tensor(np.asarray(v)).long() for k, v in b.items()}
+    """A reference batch (numpy / jax arrays) -> the port's: integers as
+    int64, prefix embeddings as f32."""
+    out = {}
+    for k, v in b.items():
+        t = torch.tensor(np.asarray(v))
+        out[k] = t if t.is_floating_point() else t.long()
+    return out
 
 
 def close(got, want, tol, what=""):
@@ -113,7 +122,7 @@ def reference_inputs(arch):
     def draw(local_steps, key):
         return np_tree(jax.jit(functools.partial(
             jax_data.round_batches, local_steps=local_steps, num_clients=N,
-            per_client_batch=B, seq_len=S))(dm, key))
+            per_client_batch=B, seq_len=S, cfg=jcfg))(dm, key))
 
     return dict(dm=dm, x0=np_tree(x0),
                 init_b=jax.tree.map(lambda a: a[0], draw(1, kb)),
@@ -192,13 +201,14 @@ def grad_launches(arch, passes: int) -> dict:
     """The Functions' launches of ``passes`` vmapped evaluations of the DRO
     value over the clients: each block's kernel once a layer (the clients
     folded into its batch), the cross-entropy once a client (each its own
-    head)."""
-    kinds = cfgs(arch)[1].blocks()
-    return {"flash_attention": passes * sum(
-                k in ("attn", "sliding", "attn_local") for k in kinds),
+    head) and codebook."""
+    cfg = cfgs(arch)[1]
+    kinds = cfg.blocks()
+    return {"flash_attention": passes * sum(k in t_tf.ATTN_KINDS
+                                            for k in kinds),
             "ssd_scan": passes * kinds.count("ssm"),
             "rglru_scan": passes * kinds.count("rglru"),
-            "fused_cross_entropy": passes * N}
+            "fused_cross_entropy": passes * N * max(1, cfg.num_codebooks)}
 
 
 @functools.lru_cache(maxsize=None)
