@@ -63,7 +63,9 @@ Phases, each printing one JSON line:
    prefill: 12 and 26, and 48; none in decode; every attention and SSD
    scan launch on the tensor-core route), prefill s, decode
    ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
-   decode steps;
+   decode steps; the decode step is a CUDA graph (``DecodeStep``), and the
+   same prompts decoded again eagerly and captured from one seed must
+   agree bit for bit, with the ms/token of both;
 10. evaluate — ``launch.evaluate.evaluate`` on mamba2-1.3b at full width:
    ``group_metrics`` on one batch of 4 × 4096 tokens for each of 4
    clients, through the SSD scan (48 launches a call) and the fused
@@ -146,9 +148,23 @@ Phases, each printing one JSON line:
    MUSIC_LAYERS_GRADS layers; internvl2-76b's prefix path at full width
    cut to VLM_LAYERS layers through B5 against plain; the reduced
    internvl2-76b's gradients and one round through B5 and B6.
+19. scheduler — the continuous-batching engine
+   (``repro_torch.serving.ServingEngine``: every slot at its own
+   position, one CUDA graph a tick) at full width on qwen2-0.5b (16 slots,
+   caches of 1024, 40 requests of 32–512 prompt and 16–128 new tokens:
+   1127 ticks), granite-moe-1b-a400m, musicgen-medium and mamba2-1.3b
+   (SCHED_CASES), eagerly and captured with the same noise: every tick's
+   samples, the outputs, the final caches and logits bit for bit, no
+   kernel launched; ticks, ms a tick, generated and prompt tokens/s,
+   capture s, peak memory, a replay's device ms; then 8 requests through
+   4 slots in f32 compute, each request's logits at every tick against
+   the plain full forward of its prompt and outputs within TOL_SERVE_F32
+   (granite's at the dropless capacity, run eagerly, no expert set
+   differing; mamba2-1.3b's held for requests in a fresh slot only,
+   ROADMAP §C quirk 6).
 
-Phases 12–14 run after the sweep phase, before serve; phases 15 to 18
-after evaluate, before times.
+Phases 12–14 run after the sweep phase, before serve; phase 19 right
+after serve; phases 15 to 18 after evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
@@ -176,8 +192,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
-          "sweep", "compress", "adversary", "obs", "serve", "evaluate",
-          "train", "train_ssm", "moe", "frontends", "times")
+          "sweep", "compress", "adversary", "obs", "serve", "scheduler",
+          "evaluate", "train", "train_ssm", "moe", "frontends", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -326,6 +342,28 @@ MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 24, 8
 MUSIC_ARCH, MUSIC_B, MUSIC_FRAMES, MUSIC_LAYERS_GRADS = (
     "musicgen-medium", 4, 1500, 24)
 VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
+# continuous batching (phase scheduler): each model at full width behind
+# serving.ServingEngine, SCHED_CASES' slots, cache length, requests, prompt
+# lengths and new tokens (inclusive ranges) drawn from SCHED_SEED, the
+# temperatures SCHED_TEMPS in turn, eagerly and through the captured tick;
+# then SCHED_F32's requests in f32 compute, 4 slots so that slots are
+# reused.  Cut for the phase's 150 s (PERF.md §6): eager ticks are
+# host-bound at 48–102 ms, so qwen2-0.5b serves 40 requests (1127 ticks),
+# musicgen-medium and mamba2-1.3b 12 (mamba2's shorter), and the f32
+# requests are short and captured (a MoE model's run eagerly)
+SCHED_SEED, SCHED_TEMPS = 0, (1.0, 0.7)
+SCHED_CASES = (
+    ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=40,
+                        prompt=(32, 512), new=(16, 128))),
+    ("granite-moe-1b-a400m", dict(slots=8, max_len=512, requests=16,
+                                  prompt=(16, 128), new=(8, 64))),
+    ("musicgen-medium", dict(slots=8, max_len=512, requests=12,
+                             prompt=(16, 128), new=(8, 64))),
+    ("mamba2-1.3b", dict(slots=8, max_len=512, requests=12,
+                         prompt=(16, 64), new=(8, 32))),
+)
+SCHED_F32 = dict(slots=4, max_len=160, requests=8, prompt=(8, 32),
+                 new=(4, 16))
 # each two-route kernel's first-port route (the others': "cuda_core")
 OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
              "sparse_gossip": "row_block"}
@@ -2685,6 +2723,8 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
         del full
         f32_errs, plain_f32 = serve_f32_checks(model, res.prompt[:2], dev)
         errs.update(f32_errs)
+        decode_graph = decode_capture_check(model, res.prompt, gen_tokens,
+                                            dev, what=f"serve {arch}")
         # the model's own bf16 error: the bf16 prefills (plain, kernel)
         # against the plain f32 prefill, first two prompts
         errs["plain_bf16_vs_f32"] = rel_err(plain[:2], plain_f32)
@@ -2737,6 +2777,7 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
            "peak_memory_gb": peak_gb, "params": n_params,
            "weights_gb_bf16": weight_gb,
            "decode_bound_ms": (weight_gb - gathered_gb) / HBM_BYTES_S * 1e12,
+           **decode_graph,
            "launches": res.launches, "launches_by_route": routes, **errs,
            "tol": tol,
            "tol_f32": TOL_SERVE_F32}
@@ -2749,6 +2790,34 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
     del res, model, warm_caches
     torch.cuda.empty_cache()
     return out
+
+
+def decode_capture_check(model, prompt, gen_tokens: int, dev, *,
+                         what: str) -> dict:
+    """``launch.serve.generate`` on ``prompt`` eagerly and through its
+    captured decode step (``capture=False`` / ``True``), each from a
+    generator seeded alike: the logits and tokens bit for bit, and the
+    decode ms/token of both (the captured step's capture apart)."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+
+    runs = {}
+    for capture in (False, True):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        runs[capture] = serve_lib.generate(model, prompt, gen_tokens,
+                                           generator=gen, capture=capture)
+    eager, graph = runs[False], runs[True]
+    if not (torch.equal(eager.logits, graph.logits)
+            and torch.equal(eager.tokens, graph.tokens)):
+        fail(f"{what}: the captured decode differs from the eager one by "
+             f"{max_err(graph.logits.float(), eager.logits.float())}")
+    return {"decode_ms_per_token_eager": 1e3 * eager.decode_s / gen_tokens,
+            "decode_ms_per_token_captured":
+                1e3 * graph.decode_s / gen_tokens,
+            "decode_capture_s": graph.capture_s,
+            "decode_captured_equals_eager": True}
 
 
 def serve_f32_checks(model, prompt, dev, gen_tokens: int = 8) -> dict:
@@ -2791,6 +2860,257 @@ def phase_serve(dev) -> dict:
                                   SERVE_GEN),
             MAMBA_ARCH: serve_one(dev, MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT,
                                   MAMBA_GEN)}
+
+
+# ---------------------------------------------------------------------------
+# phase 19 (right after serve): continuous batching at full width
+# ---------------------------------------------------------------------------
+
+def sched_requests(cfg, *, requests, prompt, new, seed=SCHED_SEED) -> list:
+    """``requests`` requests drawn from a numpy seed: prompt lengths in
+    ``prompt``, new tokens in ``new`` (both inclusive), random tokens
+    ((P, C) codebook rows for an audio model), the temperatures
+    SCHED_TEMPS in turn; as keyword dicts of ``serving.Request``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    out = []
+    for uid in range(requests):
+        p = int(rng.integers(prompt[0], prompt[1] + 1))
+        out.append(dict(uid=uid,
+                        prompt=rng.integers(0, cfg.vocab_size, (p, *cb)),
+                        max_new_tokens=int(rng.integers(new[0], new[1] + 1)),
+                        temperature=SCHED_TEMPS[uid % len(SCHED_TEMPS)]))
+    return out
+
+
+def sched_engine(model, reqs, *, slots, max_len, capture,
+                 compute_dtype=None):
+    import torch
+
+    from repro_torch.serving import Request, ServingEngine
+
+    eng = ServingEngine(model, num_slots=slots, max_len=max_len,
+                        seed=SCHED_SEED, capture=capture,
+                        compute_dtype=compute_dtype or torch.bfloat16)
+    for r in reqs:
+        eng.submit(Request(**r))
+    return eng
+
+
+def sched_serve(model, reqs, *, slots, max_len, capture) -> dict:
+    """``reqs`` through a ServingEngine run to its end (as ``run`` does),
+    every tick's samples kept: the engine, the samples, the run's seconds
+    (host clock to a synchronize; the capture apart) and its ticks."""
+    import torch
+
+    eng = sched_engine(model, reqs, slots=slots, max_len=max_len,
+                       capture=capture)
+    sampled = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        n = eng.tick()
+        if not n and not eng.queue:
+            break
+        sampled.append(eng.step.sampled.clone())
+    torch.cuda.synchronize()
+    return {"engine": eng, "sampled": sampled,
+            "s": time.perf_counter() - t0, "ticks": eng._tick}
+
+
+def sched_captured_against_eager(model, reqs, case, *, what) -> dict:
+    """The same requests and noise (the engine's seed) eagerly and through
+    the captured tick: every tick's samples, the outputs in retirement
+    order, the final caches and logits bit for bit; ms a tick, tokens/s,
+    capture s and peak memory of both, launches of the captured run."""
+    import torch
+
+    kw = dict(slots=case["slots"], max_len=case["max_len"])
+    runs, peaks, final = {}, {}, {}
+    for capture in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        # the scheduler path's launch counts: set to 0 just before, read
+        # just after
+        zero_launch_counts()
+        run = sched_serve(model, reqs, capture=capture, **kw)
+        run["launches"] = launch_counts()
+        peaks[capture] = torch.cuda.max_memory_allocated() / 1e9
+        eng = run.pop("engine")
+        run["capture_s"] = eng.step.capture_s
+        run["done"] = {uid: r.output for uid, r in eng.done.items()}
+        final[capture] = ([{k: v.clone() for k, v in c.items()}
+                           for c in eng.caches], eng.step.logits.clone())
+        if capture:
+            # the device's time a tick: the graph replayed alone (CUDA
+            # events), on the finished engine's buffers
+            run["replay_ms"] = cuda_ms(eng.step, reps=11)
+        runs[capture] = run
+        del eng
+    eager, graph = runs[False], runs[True]
+    same = (eager["ticks"] == graph["ticks"]
+            and list(eager["done"]) == list(graph["done"])
+            and all((eager["done"][u] == graph["done"][u]).all()
+                    for u in eager["done"])
+            and all(torch.equal(a, b) for a, b in zip(eager["sampled"],
+                                                      graph["sampled"]))
+            and torch.equal(final[False][1], final[True][1])
+            and all(torch.equal(a[k], b[k])
+                    for a, b in zip(final[False][0], final[True][0])
+                    for k in a))
+    if not same:
+        fail(f"{what}: the captured ticks differ from the eager ones")
+    if graph["launches"] != {k: 0 for k in graph["launches"]}:
+        fail(f"{what}: kernels launched on the decode path: "
+             f"{graph['launches']}")
+    gen = sum(len(o) for o in graph["done"].values())
+    prompt = sum(len(r["prompt"]) for r in reqs)
+    if len(graph["done"]) != len(reqs):
+        fail(f"{what}: {len(graph['done'])} of {len(reqs)} requests done")
+    return {"ticks": graph["ticks"], "requests": len(reqs),
+            "generated_tokens": gen, "prompt_tokens": prompt,
+            "ms_a_tick_eager": 1e3 * eager["s"] / eager["ticks"],
+            "ms_a_tick_captured": 1e3 * graph["s"] / graph["ticks"],
+            "generated_tokens_per_s_eager": gen / eager["s"],
+            "generated_tokens_per_s_captured": gen / graph["s"],
+            "prompt_tokens_per_s_eager": prompt / eager["s"],
+            "prompt_tokens_per_s_captured": prompt / graph["s"],
+            "run_s_eager": eager["s"], "run_s_captured": graph["s"],
+            "capture_s": graph["capture_s"],
+            "replay_device_ms": graph["replay_ms"],
+            "peak_memory_gb_eager": peaks[False],
+            "peak_memory_gb_captured": peaks[True],
+            "launches": graph["launches"],
+            "captured_equals_eager": True}
+
+
+def sched_f32_check(model, arch) -> dict:
+    """SCHED_F32's requests through a ServingEngine in f32 compute (bf16
+    weights; captured, or for a MoE model eagerly, so that its expert
+    choices are recorded: the captured tick is the eager one bit for
+    bit), every request's
+    logits at each of its ticks against the plain full forward of its
+    prompt and outputs from position 0 (a MoE model's at capacity factor
+    MOE_DROPLESS_FACTOR, its expert sets compared too): the errors of
+    requests admitted into a fresh slot and of those in a reused one
+    apart (a recurrent state carries over: ROADMAP §C quirk 6)."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+
+    f32 = torch.float32
+    cfg = model.cfg
+    case = SCHED_F32
+    reqs = sched_requests(cfg, requests=case["requests"],
+                          prompt=case["prompt"], new=case["new"])
+    moe = "moe" in cfg.blocks()
+    eng = sched_engine(model, reqs, slots=case["slots"],
+                       max_len=case["max_len"], capture=not moe,
+                       compute_dtype=f32)
+    seen = []     # per tick: ({slot: (uid, position)}, logits (S, [C,] V))
+    fresh, used = {}, set()
+    with (routing_recorder() if moe else contextlib.nullcontext([])) as dec:
+        while True:
+            eng._admit()
+            who = {}
+            for i, slot in enumerate(eng.slots):
+                if slot.request is not None:
+                    uid = slot.request.uid
+                    who[i] = (uid, slot.pos)
+                    fresh.setdefault(uid, i not in used)
+                    used.add(i)
+            n = eng.tick()
+            if not n and not eng.queue:
+                break
+            seen.append((who, eng.step.logits[:, 0].clone()))
+    n_moe = cfg.blocks().count("moe")
+    errs, flips = {}, 0
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_DROPLESS_FACTOR)) if moe else cfg
+    model.cfg = dropless
+    try:
+        with torch.no_grad():
+            for uid, req in eng.done.items():
+                seq = torch.cat([torch.as_tensor(reqs[uid]["prompt"]),
+                                 torch.as_tensor(req.output[:-1])])
+                with (routing_recorder() if moe
+                      else contextlib.nullcontext([])) as full_routes:
+                    full, _, _ = model_lib.forward(
+                        model, {"tokens": seq[None].to(model.embed.device)},
+                        mode="prefill", compute_dtype=f32, kernels=False)
+                err, top = 0.0, 1 + float(full.abs().max())
+                for t, (who, logits) in enumerate(seen):
+                    for i, (u, p) in who.items():
+                        if u != uid:
+                            continue
+                        err = max(err, max_err(logits[i], full[0, p]) / top)
+                        for layer in range(n_moe):
+                            got = dec[t * n_moe + layer][i, 0].sort().values
+                            want = full_routes[layer][0, p].sort().values
+                            flips += int(not torch.equal(got, want))
+                errs[uid] = err
+    finally:
+        model.cfg = cfg
+    fresh_errs = [e for u, e in errs.items() if fresh[u]]
+    reused_errs = [e for u, e in errs.items() if not fresh[u]]
+    return {"requests": len(reqs), "slots": case["slots"],
+            "ticks": eng._tick, "err_fresh_slot": max(fresh_errs),
+            "err_reused_slot": max(reused_errs, default=None),
+            "err_by_request": errs,
+            "fresh_slot": [u for u in errs if fresh[u]],
+            "routing_flips": flips if moe else None}
+
+
+def scheduler_case(dev, arch, case, *, smi) -> dict:
+    """``arch`` at full width (bf16 weights from seed 0) behind the
+    continuous-batching engine: captured against eager, then the f32
+    check (held at TOL_SERVE_F32 for every request, or, where a recurrent
+    state carries over, for those admitted into a fresh slot)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models import model as model_lib
+
+    cfg = registry.get_model_config(arch)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    model = model_lib.init_params(cfg, generator=gen, device=dev,
+                                  dtype=torch.bfloat16)
+    what = f"scheduler {arch}"
+    reqs = sched_requests(cfg, requests=case["requests"],
+                          prompt=case["prompt"], new=case["new"])
+    with torch.no_grad():
+        out = sched_captured_against_eager(model, reqs, case, what=what)
+        f32 = sched_f32_check(model, arch)
+    carries = any(k in cfg.blocks() for k in ("ssm", "rglru"))
+    held = f32["err_fresh_slot"] if carries else max(
+        f32["err_fresh_slot"], f32["err_reused_slot"] or 0.0)
+    res = {"phase": "scheduler", "arch": arch, "nvidia_smi": smi,
+           "slots": case["slots"], "max_len": case["max_len"],
+           "prompt_len": list(case["prompt"]), "new_tokens": list(case["new"]),
+           **out, "f32": f32, "f32_held": held,
+           "f32_held_requests": "fresh slots only" if carries else "all",
+           "tol_f32": TOL_SERVE_F32}
+    emit(res)
+    if not held <= TOL_SERVE_F32:
+        fail(f"{what}: f32 logits against the full forward {held} > "
+             f"{TOL_SERVE_F32}")
+    if f32["routing_flips"]:
+        fail(f"{what}: {f32['routing_flips']} expert sets differ from the "
+             f"full forward's in f32")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_scheduler(dev, smi) -> dict:
+    """The continuous-batching engine at full width on SCHED_CASES."""
+    return {arch: scheduler_case(dev, arch, case, smi=smi)
+            for arch, case in SCHED_CASES}
 
 
 # ---------------------------------------------------------------------------
@@ -4825,6 +5145,8 @@ def main(argv=None) -> int:
             serve[SERVE_ARCH]["launches_by_route"]["flash_attention"]
         launches_by_route["ssd_scan"] = \
             serve[MAMBA_ARCH]["launches_by_route"]["ssd_scan"]
+    if "scheduler" in phases:
+        phase_scheduler(dev, smi)
     if "evaluate" in phases:
         evaluated = phase_evaluate(dev)
         launches_eval.update(evaluated["launches"])

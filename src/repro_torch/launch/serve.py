@@ -6,15 +6,19 @@ One prefill step runs ``forward(mode="prefill", caches=init_cache(B,
 prompt_len + gen_tokens), last_only=True)`` over the whole batch of prompts,
 through the model's kernels (flash attention and the RG-LRU scan for
 recurrentgemma-9b, the SSD scan for mamba2-1.3b); then ``gen_tokens``
-decode steps each sample a token (``torch.multinomial``) and feed it back,
-in plain PyTorch.  Weights are bf16 on the card, drawn from a seeded
-``torch.Generator``, as are the prompts.
+decode steps each sample a token (``torch.multinomial``) and feed it back.
+The decode step is ``serving.decode.DecodeStep``: on the card one CUDA
+graph, captured once a call (its model, batch and cache length fixed) and
+replayed every step; ``capture=False`` runs it eagerly.  Weights are bf16
+on the card, drawn from a seeded ``torch.Generator``, as are the prompts.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
       --device cpu --reduced --prompt-len 40 --tokens 6
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+      --local --device cpu
 
 A prefill fills a KV cache exactly only when the cache's length divides the
 prompt length (the cache keeps the last ``length`` keys, and decode's ring
@@ -22,10 +26,15 @@ writes position p at slot p % length); other prompt lengths are refused.
 Layers without a KV cache (``rglru``, ``ssm``) take any prompt length.  So
 a model whose layers attend globally (qwen2-0.5b, granite-moe-1b-a400m,
 musicgen-medium, …: a cache as long as prompt and new tokens together) is
-served as a prefill server, ``--tokens 0``; decoding after its prompt is
-the scheduler's (ROADMAP A12).  An audio model's prompts are (B, P, C)
-codebook streams, and each decode step samples every codebook: (B, 1, C)
-(reference ``launch/serve.py:31,49``).
+served here as a prefill server, ``--tokens 0``; it generates after its
+prompt through the continuous-batching engine
+(``repro_torch.serving.ServingEngine``) or ``--local``, both of which
+prefill token by token through the decode step.  ``--local`` is the
+reference's single-device demo (``serve_local``): the arch's reduced
+config, the prompt token by token, then sampled decode steps
+(``generate_stepwise``, which ``launch.serve_example`` runs too).  An audio
+model's prompts are (B, P, C) codebook streams, and each decode step
+samples every codebook: (B, 1, C) (reference ``launch/serve.py:31,49``).
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_lib
+from repro_torch.serving.decode import DecodeStep, gumbel_noise
 
 
 @dataclasses.dataclass
@@ -53,6 +63,7 @@ class ServeResult:
     prefill_caches: List[Dict[str, torch.Tensor]]
     prefill_s: float
     decode_s: float
+    capture_s: float                      # the decode step's capture
     launches: Dict[str, Dict[str, int]]   # kernel launches: prefill, decode
 
 
@@ -91,9 +102,11 @@ def sample(logits, temperature: float, generator) -> torch.Tensor:
 @torch.no_grad()
 def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
              temperature: float = 1.0, generator=None,
-             compute_dtype=torch.bfloat16) -> ServeResult:
+             compute_dtype=torch.bfloat16, capture=None) -> ServeResult:
     """Prefill ``prompt`` (B, P), or (B, P, C) with codebooks, in one
-    step, then ``gen_tokens`` decode steps."""
+    step, then ``gen_tokens`` decode steps through a ``DecodeStep`` on
+    copies of the prefill's caches (``capture`` None: a CUDA graph on the
+    card)."""
     cfg = model.cfg
     b, prompt_len = prompt.shape[:2]
     total = prompt_len + gen_tokens
@@ -112,12 +125,19 @@ def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
     after_prefill = ops.launch_counts()
     prefill_caches = caches
     steps, toks = [logits], []
+    step = None
+    if gen_tokens:
+        step = DecodeStep(model, [{k: v.clone() for k, v in c.items()}
+                                  for c in caches], b,
+                          compute_dtype=compute_dtype, capture=capture)
     t0 = time.perf_counter()
     for i in range(gen_tokens):
         tok = sample(logits, temperature, generator)
         toks.append(tok)
-        logits, caches = model_lib.decode_step(
-            model, caches, tok, prompt_len + i, compute_dtype=compute_dtype)
+        step.tokens.copy_(tok)
+        step.pos.fill_(prompt_len + i)
+        step()
+        logits = step.logits.clone()
         steps.append(logits)
     _sync(device)
     decode_s = time.perf_counter() - t0
@@ -130,7 +150,9 @@ def generate(model: model_lib.Model, prompt: torch.Tensor, gen_tokens: int, *,
     return ServeResult(model=model, prompt=prompt, tokens=tokens,
                        logits=torch.cat(steps, dim=1),
                        prefill_caches=prefill_caches, prefill_s=prefill_s,
-                       decode_s=decode_s, launches=launches)
+                       decode_s=decode_s,
+                       capture_s=step.capture_s if step else 0.0,
+                       launches=launches)
 
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
@@ -162,31 +184,150 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
     return res
 
 
+@dataclasses.dataclass
+class StepwiseResult:
+    logits: torch.Tensor          # (B, P + T[, C], V): each step's, the
+    #                               prompt's P steps, then the T decode steps
+    tokens: torch.Tensor          # (B, T[, C]), the sampled tokens
+    prefill_s: float
+    decode_s: float
+    capture_s: float
+
+
+@torch.no_grad()
+def generate_stepwise(model: model_lib.Model, prompt: torch.Tensor,
+                      gen_tokens: int, *, temperature: float = 1.0,
+                      generator=None, noise=None,
+                      compute_dtype=torch.bfloat16,
+                      capture=None) -> StepwiseResult:
+    """The reference's local serve loop (``repro/launch/serve.py:23-53``,
+    ``examples/serve.py``): ``prompt`` (B, P[, C]) token by token through
+    a ``DecodeStep`` (for exactness across cache kinds), then
+    ``gen_tokens`` steps, each fed the token sampled from the step before
+    (``serving.decode.sample``: Gumbel noise from ``noise(shape)`` if
+    given, else from ``generator``, drawn once a sample, in the
+    reference's order)."""
+    b, prompt_len = prompt.shape[:2]
+    device = prompt.device
+    caches = model_lib.init_cache(model.cfg, b, prompt_len + gen_tokens,
+                                  dtype=compute_dtype, device=device)
+    step = DecodeStep(model, caches, b, compute_dtype=compute_dtype,
+                      capture=capture, sample=True)
+    step.temps.fill_(temperature)
+    shape = tuple(step.noise.shape)
+
+    def draw():
+        step.noise.copy_(noise(shape) if noise else
+                         gumbel_noise(shape, generator, device))
+
+    logits, toks = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in range(prompt_len):
+        step.tokens.copy_(prompt[:, t:t + 1])
+        step.pos.fill_(t)
+        if t == prompt_len - 1 and gen_tokens:
+            draw()
+        step()
+        logits.append(step.logits.clone())
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(gen_tokens):
+        tok = step.sampled[:, None].clone()
+        toks.append(tok)
+        step.tokens.copy_(tok)
+        step.pos.fill_(prompt_len + i)
+        if i < gen_tokens - 1:
+            draw()
+        step()
+        logits.append(step.logits.clone())
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    tokens = (torch.cat(toks, dim=1) if toks
+              else prompt.new_zeros((b, 0, *prompt.shape[2:])))
+    return StepwiseResult(logits=torch.cat(logits, dim=1), tokens=tokens,
+                          prefill_s=prefill_s, decode_s=decode_s,
+                          capture_s=step.capture_s)
+
+
+def reduced_model_and_prompts(arch: str, batch: int, prompt_len: int, *,
+                              device, seed: int = 0):
+    """The local demos' inputs: the arch's reduced config with fresh f32
+    weights (the reference's ``init_params``; bf16 compute and caches
+    follow, as its ``decode_step``) and random prompts (B, P[, C]), both
+    from one seeded generator, which is returned for the sampling."""
+    cfg = registry.reduced(registry.get_model_config(arch))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = model_lib.init_params(cfg, generator=gen, device=device)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len, *cb),
+                           generator=gen, device=device)
+    return model, prompt, gen
+
+
+def serve_local(arch: str, batch: int, prompt_len: int, gen_tokens: int,
+                temperature: float, *, device="cuda", seed: int = 0,
+                capture=None) -> StepwiseResult:
+    """The reference's ``--local`` demo: :func:`generate_stepwise` on
+    :func:`reduced_model_and_prompts`."""
+    model, prompt, gen = reduced_model_and_prompts(
+        arch, batch, prompt_len, device=device, seed=seed)
+    res = generate_stepwise(model, prompt, gen_tokens,
+                            temperature=temperature, generator=gen,
+                            capture=capture)
+    print(f"[serve] prefill {prompt_len} tok x {batch} seq: "
+          f"{res.prefill_s:.2f}s", flush=True)
+    print(f"[serve] decoded {gen_tokens} tok/seq in {res.decode_s:.2f}s "
+          f"({gen_tokens * batch / res.decode_s:.1f} tok/s aggregate)",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="recurrentgemma-9b",
-                    choices=sorted(registry.ARCHS),
+    ap.add_argument("--arch", default=None, choices=sorted(registry.ARCHS),
                     help="served in full (prefill, then decode): "
-                         "recurrentgemma-9b, mamba2-1.3b; served as "
-                         "prefill servers (--tokens 0), their layers "
-                         "attending globally: qwen2-0.5b, "
+                         "recurrentgemma-9b (the default), mamba2-1.3b; "
+                         "served as prefill servers (--tokens 0), their "
+                         "layers attending globally: qwen2-0.5b, "
                          "granite-moe-1b-a400m, musicgen-medium and the "
-                         "other attention-only archs")
-    ap.add_argument("--batch", type=int, default=4,
-                    help="prompts in the batch (mamba2-1.3b is served at 8 "
-                         "on the card)")
-    ap.add_argument("--prompt-len", type=int, default=4096,
-                    help="tokens a prompt (on the card: 4096 for both)")
-    ap.add_argument("--tokens", type=int, default=32,
-                    help="new tokens a prompt, one decode step each")
+                         "other attention-only archs, which generate "
+                         "through the continuous-batching engine "
+                         "(repro_torch.serving.ServingEngine) or --local "
+                         "(whose default is qwen2-0.5b)")
+    ap.add_argument("--local", action="store_true",
+                    help="the reference's single-device demo: the reduced "
+                         "config, the prompt token by token through the "
+                         "decode step, then sampled decode steps")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="prompts in the batch (default 4; 2 with --local; "
+                         "mamba2-1.3b is served at 8 on the card)")
+    ap.add_argument("--prompt-len", type=int, default=None,
+                    help="tokens a prompt (default 4096, on the card for "
+                         "both; 16 with --local)")
+    ap.add_argument("--tokens", type=int, default=None,
+                    help="new tokens a prompt, one decode step each "
+                         "(default 32; 16 with --local)")
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced CPU-test variant")
     args = ap.parse_args(argv)
-    res = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
-                gen_tokens=args.tokens, temperature=args.temperature,
+    # the reference's --local defaults, or the full-width serve's
+    defaults = (("qwen2-0.5b", 2, 16, 16) if args.local
+                else ("recurrentgemma-9b", 4, 4096, 32))
+    arch, batch, prompt_len, tokens = (
+        d if v is None else v for v, d in zip(
+            (args.arch, args.batch, args.prompt_len, args.tokens), defaults))
+    if args.local:
+        serve_local(arch, batch, prompt_len, tokens, args.temperature,
+                    device=args.device, seed=args.seed)
+        return
+    res = serve(arch, batch=batch, prompt_len=prompt_len,
+                gen_tokens=tokens, temperature=args.temperature,
                 device=args.device, seed=args.seed, reduced=args.reduced)
     print(f"[serve] tokens[0]: {res.tokens[0].tolist()}")
 

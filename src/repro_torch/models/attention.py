@@ -103,10 +103,12 @@ def qchunk_attention(q, k, v, *, window: int = 0, q_chunk: int = 512):
 
 def decode_attention(q, k_cache, v_cache, valid):
     """Single-token decode: q (B,1,H,D) against a cache (B,S,KV,D) with a
-    boolean validity mask ``valid`` (S,) — False for slots not yet
-    written."""
+    boolean validity mask ``valid`` (S,), or (B,S) with a row per
+    sequence — False for slots not yet written."""
     b, one, h, d = q.shape
     kv = k_cache.shape[-2]
+    if valid.dim() == 2:                  # (B, KV, G, Sq, S)
+        valid = valid[:, None, None, None, :]
     ctx = _softmax_attend(q.reshape(b, one, kv, h // kv, d), k_cache,
                           v_cache, valid, d ** -0.5, q.dtype)
     return ctx.reshape(b, one, h, d)

@@ -147,7 +147,9 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
         x = torch.cat([prefix, x], dim=1)
         offset = prefix.shape[1]
     s = x.shape[1]
-    if mode == "decode":
+    if mode == "decode" and isinstance(pos, torch.Tensor):
+        positions = pos.to(torch.int32)[:, None]     # each row its own
+    elif mode == "decode":
         positions = torch.full((b, 1), pos, dtype=torch.int32,
                                device=x.device)
     else:
@@ -308,11 +310,14 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
             for kind in cfg.blocks()]
 
 
-def decode_step(model: Model, caches, tokens, pos: int, *,
+def decode_step(model: Model, caches, tokens, pos, *,
                 compute_dtype=torch.bfloat16):
     """One-token decode.  tokens: (B,1), or (B,1,C) with codebooks; pos:
-    the absolute position.  Returns (logits (B,1,V) or (B,1,C,V),
-    new_caches); the caches passed in are left as they were."""
+    the absolute position, an int for every row or a (B,) integer tensor
+    on the model's device, each row at its own (a continuous-batching
+    pool's slots; no host sync, so a CUDA graph captures it).  Returns
+    (logits (B,1,V) or (B,1,C,V), new_caches); the caches passed in are
+    left as they were."""
     logits, new_caches, _ = forward(
         model, {"tokens": tokens}, mode="decode", compute_dtype=compute_dtype,
         caches=caches, pos=pos)

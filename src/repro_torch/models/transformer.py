@@ -133,7 +133,7 @@ def block_forward(
     mode: str,            # "train" | "prefill" | "decode"
     positions,            # (B,S) absolute positions
     cache: Optional[Dict] = None,
-    pos: Optional[int] = None,   # decode position
+    pos=None,             # decode position: int, or (B,) tensor
     compute_dtype=torch.bfloat16,
     kernels: bool = True,
 ):
@@ -173,16 +173,24 @@ def block_forward(
             raise ValueError("decode needs the caches (model.init_cache)")
         kc, vc = cache["k"], cache["v"]
         c_len = kc.shape[1]
+        slots = torch.arange(c_len, device=x.device)
+        # a (B,) pos: each row writes and reads at its own position, as
+        # (B, c_len) masks, with no host sync
+        p = pos[:, None] if isinstance(pos, torch.Tensor) else pos
         # write position: ring for windowed caches, absolute otherwise; the
         # write is a select, so the caches passed in stay as they were
-        widx = (pos % c_len) if window else min(pos, c_len - 1)
-        onehot = (torch.arange(c_len, device=x.device) == widx)[
-            None, :, None, None]
+        if window:
+            widx = p % c_len
+        elif isinstance(p, torch.Tensor):
+            widx = torch.clamp(p, max=c_len - 1)
+        else:
+            widx = min(p, c_len - 1)
+        onehot = (slots == widx).reshape(-1, c_len, 1, 1)
         kc = torch.where(onehot, k.to(kc.dtype), kc)
         vc = torch.where(onehot, v.to(vc.dtype), vc)
         # cold-start validity: slots <= pos written so far (ring: all-true
         # once pos >= window, which is exactly when wrapping starts)
-        valid = torch.arange(c_len, device=x.device) <= pos
+        valid = slots <= p
         ctx = attn_lib.decode_attention(q, kc.to(compute_dtype),
                                         vc.to(compute_dtype), valid)
         new_cache = {"k": kc, "v": vc}

@@ -14,6 +14,7 @@ expressions, so bitwise; a robust aggregation sums the same values in
 another order, 1e-6·(1 + max); one round, 1e-5·(1 + max) (the round tests'
 bound, ``tests/test_torch_round.py``).
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 import functools
 

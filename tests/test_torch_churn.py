@@ -10,6 +10,7 @@ corrections after a few rounds, every port lowering against the JAX
 weights, the masked W) are compared on the same inputs at 1e-7; the port's
 own samplers are held to the invariants and to each other.
 """
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

@@ -12,6 +12,7 @@ compared at the entries that mix no transmitted entry whose reference
 value v = Δ + e lies within max(1 ulp, |v_port − v_ref|) of a rounding
 boundary, and q + e' == v is held bitwise everywhere, on the port's own v.
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 import functools
 

@@ -4,6 +4,7 @@ the options the port refuses.
 Topology is a numpy-only copy, so it must agree exactly; packing must give
 the reference's column layout bit for bit.
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,7 @@ port's sampler is held to shapes, ranges and next-token labels as
 statistically (each group's frequency within 5 standard errors, 5·√(p(1−p)/n),
 of its mixture weight).
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ rounds and initial corrections are ``tests/_torch_dro.py``'s, shared with
 ``tests/test_torch_dro_blocks.py`` (the other block kinds).
 ``tests/test_torch_train.py`` holds the train entry point.
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ cross-entropy once a client), and ``kernels=False``.
 
 Tolerance: max |port − JAX| ≤ 1e-4·(1 + max|JAX|).
 """
+import _torch_threads  # noqa: F401
 import pytest
 
 import _torch_dro as h

@@ -16,6 +16,7 @@ granite-moe-1b-a400m through the train CLI.
 
 Tolerance: max |port − JAX| ≤ 1e-4·(1 + max|JAX|).
 """
+import _torch_threads  # noqa: F401
 import json
 
 import jax

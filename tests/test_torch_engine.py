@@ -18,6 +18,7 @@ on the CPU.
 Exact comparisons are ``torch.equal``; the ledger's integers are equal to
 the reference's.
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 import json
 import os

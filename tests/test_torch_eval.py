@@ -23,6 +23,7 @@ Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|):
   a backbone that the two frameworks round at other places (measured
   9e-5).
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

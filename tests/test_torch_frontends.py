@@ -13,6 +13,7 @@ carried across with ``models.interop``) and the same numpy inputs.
 Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|): f32 compute 1e-5,
 bf16 compute 3e-2 (as ``tests/test_torch_models.py``).
 """
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

@@ -18,6 +18,7 @@ tolerance (tests/test_torch_sparse.py).  A round through ``_packed_round``
 (``pallas_packed``, ``sparse_packed``) is held against the JAX round at the
 round tests' 1e-5 (x, y) and 4e-5 (corrections).
 """
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

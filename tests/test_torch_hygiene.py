@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro``, and
 ``chip_smoke.py`` refuses to report a result without a CUDA card."""
+import _torch_threads  # noqa: F401
 import ast
 import os
 import pathlib
@@ -49,7 +50,9 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.core.compression", "repro_torch.core.adversary",
                "repro_torch.obs.profiler", "repro_torch.obs.report",
                "repro_torch.launch.train", "repro_torch.optim.schedules",
-               "repro_torch.optim.optimizers")
+               "repro_torch.optim.optimizers",
+               "repro_torch.serving.scheduler", "repro_torch.serving.decode",
+               "repro_torch.launch.serve_example")
 
 
 def _env():

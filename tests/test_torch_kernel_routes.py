@@ -14,6 +14,7 @@ and the main path's and the quickstart's round geometries.  The ctypes
 signatures of ``_build.SIGNATURES`` are held against the ``extern "C"``
 functions of the sources, which only nvcc compiles.
 """
+import _torch_threads  # noqa: F401
 import re
 
 import pytest

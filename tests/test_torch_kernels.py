@@ -11,6 +11,7 @@ corrections — the JAX package's own kernel tolerances
 (tests/test_fused_round.py:70-80, :124-131).  Both sides compute in f32 on
 the CPU; only the order of the f32 sums differs.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,7 @@ Tolerances, as max |Δ| ≤ tol·(1 + max|reference|): f32 compute 1e-5 (the
 same math in other orders); bf16 compute 3e-2 (the frameworks round bf16
 at other places, as ``tests/test_torch_models.py`` states).
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

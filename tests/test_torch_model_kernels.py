@@ -15,6 +15,7 @@ Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|):
 Non-causal attention is held against JAX ``ref.attention_ref``: the Pallas
 path attends to its own padding when ``causal=False`` (ROADMAP §C).
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -17,6 +17,7 @@ Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|):
   (2^−8 relative each) build up over the layers.
 """
 
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

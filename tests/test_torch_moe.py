@@ -13,6 +13,7 @@ Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|): f32 compute 1e-5,
 bf16 compute 3e-2 (as ``tests/test_torch_models.py``); gradients under
 ``vmap(grad)`` 1e-5 in f32.
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 import functools
 from unittest import mock

@@ -5,6 +5,7 @@ the CPU.  ``report`` is a copy of pure Python, so it must agree exactly on
 a stream with the reference's stamps; the gauges are f32 reductions in
 another order, 1e-6 relative.
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 import json
 

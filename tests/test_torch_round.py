@@ -14,6 +14,7 @@ frameworks the autodiff of ``value`` is a different f32 expression graph
 (120 rounds) is compared relatively, at 1e-4: the trajectory contracts, so
 f32 op-order differences stay at that level rather than growing.
 """
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

@@ -18,6 +18,7 @@ the reference's gradients (its associative scan and chunked einsums sum
 in other orders; measured ≤ 1e-6), 1e-6 between the Functions' closed-form
 backwards and autograd through the plain versions.
 """
+import _torch_threads  # noqa: F401
 import json
 
 import jax

@@ -8,6 +8,7 @@ bf16 compute (``serve`` itself) 3e-2 — the decode path rounds to bf16 at
 other places than the full forward (a CPU run at 38 layers, d = 512, gave
 4.3e-3).
 """
+import _torch_threads  # noqa: F401
 import pytest
 import torch
 

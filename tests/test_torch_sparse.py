@@ -19,6 +19,7 @@ stochastic, on the support, a pure function of the round), and the round
 step is fed the reference's own per-round draws through
 ``make_replay_sampler``.
 """
+import _torch_threads  # noqa: F401
 import functools
 
 import jax

@@ -16,6 +16,7 @@ S shorter than a chunk, state0 on and off, 1 to 4 runs, P and N of 8 and
 Tolerance: max |got − want| ≤ 1e-5·(1 + max|want|), the kernel check's
 TOL_SSD — the same f32 math summed in another order.
 """
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

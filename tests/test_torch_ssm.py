@@ -17,6 +17,7 @@ Tolerances, as max |port − JAX| ≤ tol·(1 + max|JAX|):
 The final SSD state is small (≈ 3e-3 at dt ≈ 0.01), so it is also held to
 1e-5 of its own magnitude in f32.
 """
+import _torch_threads  # noqa: F401
 import jax
 import jax.numpy as jnp
 import numpy as np

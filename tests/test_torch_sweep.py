@@ -14,6 +14,7 @@
 * The refusals are the reference's; compressed and Byzantine cells name
   ROADMAP A7 and A9; the store round-trips.
 """
+import _torch_threads  # noqa: F401
 import dataclasses
 
 import numpy as np

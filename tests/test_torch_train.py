@@ -27,6 +27,7 @@ Functions of B5 and B6 with the plain forward swapped in for the launch:
 their gradients under ``grad`` and ``vmap(grad)`` equal the plain
 version's autograd, and their ``vmap`` rules launch as documented.
 """
+import _torch_threads  # noqa: F401
 import argparse
 import functools
 import json
@@ -337,6 +338,12 @@ class FakeGraph:
             dst.copy_(src)
 
 
+@functools.lru_cache(maxsize=None)
+def _host_engine_run():
+    """``--engine host`` on 4 rounds: what both cases below are held to."""
+    return t_train.train(_port_args(rounds=4, engine="host", log_every=2))
+
+
 @pytest.mark.parametrize("capture", [False, True])
 def test_scan_engine_history_matches_host_engine(monkeypatch, capture):
     """--engine scan and --engine host: the same records and the same final
@@ -351,7 +358,7 @@ def test_scan_engine_history_matches_host_engine(monkeypatch, capture):
                                 self.metrics_fn, log_every=args.log_every,
                                 capture=True, donate=True))
     scan = t_train.train(_port_args(rounds=4, chunk=3, log_every=2))
-    host = t_train.train(_port_args(rounds=4, engine="host", log_every=2))
+    host = _host_engine_run()
     assert [r["round"] for r in scan["history"]] == [0, 2, 3]
     assert _strip(scan["history"]) == _strip(host["history"])
     for a, b in zip(tree_lib.leaves(scan["state"]),
