@@ -117,6 +117,19 @@ Phases, each printing one JSON line:
    tokens/s, peak memory; one round of each baseline; B5 and B6 at the
    train shapes, held against their plain versions, with forward, plain
    and backward times.
+15b. mesh — the decentralized training mesh (``launch.train --mesh
+   decentralized``) at the train phase's geometry (qwen2-0.5b cut to
+   TRAIN_LAYERS, n = 4, K = 4, 4 × 128 tokens a client) over a world of
+   2 ranks (``dist.launch.run_world``: NCCL with a card a rank where the
+   machine has two, else both ranks on cuda:0 over gloo), 2 clients a
+   rank: three rounds through ``--engine host`` and through ``--engine
+   scan`` (eager chunks) held to the host path run here from the same
+   seed (TOL_MESH_X / TOL_MESH_Y, printed before the reading), Σc = 0,
+   B5's and B6's launches by route on every rank, no collective in the
+   local steps, the gossip's collectives and bytes a round against the
+   formula; one round of fused_ring (the neighbour exchange); a world of
+   1 over NCCL, one round, bit for bit the host path; rounds/s, tokens/s,
+   communication s a round and peak memory per rank.
 16. train_ssm — federated DRO training of the other block kinds:
    mamba2-1.3b at full width (d_model 2048, V = 50 280; bf16 compute, f32
    state) at the reference's train defaults but n = 2, cut in depth
@@ -164,7 +177,8 @@ Phases, each printing one JSON line:
    ROADMAP §C quirk 6).
 
 Phases 12–14 run after the sweep phase, before serve; phase 19 right
-after serve; phases 15 to 18 after evaluate, before times.
+after serve; phases 15 to 18 (15b, mesh, right after train) after
+evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
@@ -193,7 +207,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "scheduler",
-          "evaluate", "train", "train_ssm", "moe", "frontends", "times")
+          "evaluate", "train", "mesh", "train_ssm", "moe", "frontends",
+          "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -304,6 +319,16 @@ TRAIN_RESUME_N, TRAIN_ROUNDS = 2, 3
 TRAIN_LAYERS = 8
 # the rate turns of both train phases: an eager chunk, then a captured one
 RATE_TURNS = (False, True)
+# the decentralized mesh (phase mesh): the train phase's geometry over a
+# world of MESH_WORLD ranks (2 clients a rank), held to the host path from
+# the same seed at the train phase's bf16 limits, stated before the first
+# reading: a rank's vmapped local steps batch 2 clients where the host
+# path batches 4, so batched GEMMs may round otherwise
+MESH_WORLD = 2
+TOL_MESH_X, TOL_MESH_Y = TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y
+# the mesh's main runs log rounds 0 and TRAIN_ROUNDS − 1 (each logged row
+# all-reduces x̄ and c̄x: GBs through gloo on one card)
+MESH_LOG_EVERY = TRAIN_ROUNDS - 1
 # federated DRO training of the other block kinds: mamba2-1.3b at full
 # width through B7 and B6, at the reference's train defaults but n = 2 (its
 # state at n = 4 does not leave the working set room on the card: PERF.md
@@ -3805,6 +3830,350 @@ def phase_train(dev, gen, smi) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: the decentralized training mesh
+# ---------------------------------------------------------------------------
+
+def state_fingerprints(state) -> dict:
+    """Two 64-bit sums of each tensor leaf's bit patterns (plain, and
+    weighted by position) per field of a training state: equal
+    fingerprints stand for bit-for-bit equal leaves."""
+    import torch
+
+    from repro_torch.core import tree as tree_lib
+
+    def one(t):
+        t = t.detach().contiguous()
+        bits = t.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                       1: torch.int8}[t.element_size()]).reshape(-1)
+        bits = bits.to(torch.int64)
+        pos = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        return (int(bits.sum()), int((bits * pos).sum()))
+
+    return {name: [one(t) for t in tree_lib.leaves(getattr(state, name))]
+            for name in ("x", "y", "cx", "cy")}
+
+
+def save_rows(state, directory) -> None:
+    """Each tensor leaf of x, y, cx and cy as an .npy file, for the ranks
+    to read their rows of (``numpy.load`` with ``mmap_mode``)."""
+    import numpy as np
+
+    from repro_torch.core import tree as tree_lib
+
+    os.makedirs(directory, exist_ok=True)
+    for name in ("x", "y", "cx", "cy"):
+        for i, t in enumerate(tree_lib.leaves(getattr(state, name))):
+            np.save(os.path.join(directory, f"{name}_{i:04d}.npy"),
+                    t.detach().float().cpu().numpy())
+
+
+def rows_rel_err(state, lo, hi, directory) -> dict:
+    """max |mesh − host| / (1 + max |host|) per field, the host path's rows
+    [lo, hi) read from ``save_rows``' files."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import tree as tree_lib
+
+    out = {}
+    for name in ("x", "y", "cx", "cy"):
+        err = top = 0.0
+        for i, t in enumerate(tree_lib.leaves(getattr(state, name))):
+            want = torch.from_numpy(np.array(np.load(
+                os.path.join(directory, f"{name}_{i:04d}.npy"),
+                mmap_mode="r")[lo:hi])).to(t.device)
+            err = max(err, max_err(t.float(), want))
+            top = max(top, float(want.abs().max()))
+            del want
+        out[name] = err / (1.0 + top)
+    return out
+
+
+def mesh_sigma_c(state, n) -> float:
+    """max_j |Σ_i c_ij| / n / (1 + max|c|) over cx and cy, the sums (f64)
+    all-reduced over the world, max|c| this rank's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import collectives
+
+    axis = collectives.axis_of_group(dist.group.WORLD, n)
+    worst = 0.0
+    with collectives.phase("check"):
+        for name in ("cx", "cy"):
+            for c in tree_lib.leaves(getattr(state, name)):
+                s = collectives.all_reduce_sum(c.double().sum(0), axis)
+                worst = max(worst, float(s.abs().max()) / n
+                            / (1.0 + float(c.abs().max())))
+    return worst
+
+
+def mesh_rank(rank, world, layers, runs):
+    """One rank of the mesh phase: ``launch.train --mesh decentralized``
+    for each run of ``runs`` (engine, rounds, mixing_impl, the host path's
+    rows or fingerprints to hold it to), with the kernels' launches by
+    route, the collectives by phase, the host seconds and the peak memory
+    of each run."""
+    import gc
+
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.launch import train as train_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    with arch_depth(TRAIN_ARCH, layers):
+        for run in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            collectives.zero_collective_counts()
+            t0 = time.perf_counter()
+            res = train_lib.train(train_args(
+                device="cuda", mesh="decentralized", engine=run["engine"],
+                rounds=run["rounds"], chunk=run["rounds"],
+                log_every=MESH_LOG_EVERY, mixing_impl=run["impl"]))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec = {"name": run["name"], "rank": rank,
+                   "device": str(torch.cuda.current_device()),
+                   "clients": res["clients"], "seconds": seconds,
+                   "launches": launch_counts(), "routes": route_counts(),
+                   "collectives": collectives.collective_counts(),
+                   "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "history": res["history"]}
+            state = res["state"]
+            del res
+            rec["finite"] = all(bool(t.isfinite().all()) for t in
+                                state_leaves(state))
+            if run.get("sigma_c"):
+                rec["sigma_c"] = mesh_sigma_c(state, TRAIN_N)
+            if run.get("rows_dir"):
+                lo, hi = rec["clients"]
+                rec["rel_err"] = rows_rel_err(state, lo, hi, run["rows_dir"])
+            if run.get("fingerprints") is not None:
+                rec["bit_for_bit"] = (state_fingerprints(state)
+                                      == run["fingerprints"])
+            out.append(rec)
+            del state
+    return out
+
+
+def state_leaves(state):
+    from repro_torch.core import tree as tree_lib
+
+    return [t for name in ("x", "y", "cx", "cy")
+            for t in tree_lib.leaves(getattr(state, name))]
+
+
+def mesh_gossip_formula(cfg, n, world, impl) -> dict:
+    """The gossip collectives of one round at n clients over ``world``
+    ranks: dense, two all-gathers a leaf of x and y (Δ and θ), each
+    receiving (R − 1)·(n/R) client rows of f32; fused_ring, one exchange a
+    leaf (Δ and θ stacked), 2 rows of both received."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import model as model_lib
+
+    leaves = tree_lib.leaves(model_lib.param_dict(model_lib.skeleton(cfg)))
+    lx, dx = len(leaves), sum(t.numel() for t in leaves)
+    ly, dy = 1, TRAIN_G
+    if impl == "dense":
+        return {"all_gather": {"calls": 2 * (lx + ly),
+                               "bytes": (world - 1) * (n // world) * 2
+                               * (dx + dy) * 4}}
+    return {"exchange": {"calls": lx + ly, "bytes": 2 * 2 * (dx + dy) * 4}}
+
+
+def phase_mesh(dev, smi) -> dict:
+    """The decentralized training mesh (``launch.train --mesh
+    decentralized``) at the train phase's geometry: qwen2-0.5b at full
+    width cut to TRAIN_LAYERS layers, n = 4, K = 4, 4 × 128 tokens a
+    client, 8 groups, kgt_minimax on dense, over a world of MESH_WORLD
+    ranks started by ``dist.launch.run_world`` (NCCL, one card a rank,
+    where the machine has two cards; else both ranks on ``cuda:0`` over
+    gloo).  The host path runs first in this process from the same seed
+    (``--engine host``, TRAIN_ROUNDS rounds and one); then on the mesh
+    TRAIN_ROUNDS rounds through ``--engine host`` and through ``--engine
+    scan`` (eager chunks), held to the host path's state at
+    TOL_MESH_X / TOL_MESH_Y (printed before the reading), Σc = 0 (the
+    scan run), B5's and B6's launches on every rank by route, no
+    collective in the local steps, the gossip's collectives and bytes a
+    round against ``mesh_gossip_formula``; one round of fused_ring (the
+    neighbour exchange); and a world of 1 over NCCL in this process for
+    one round, bit for bit the host path.  Rates: rounds/s, tokens/s, communication s a round, peak
+    memory per rank."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist import launch as dist_launch
+    from repro_torch.launch import train as train_lib
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= MESH_WORLD else "gloo"
+    t_phase = time.perf_counter()
+    out = {"world": MESH_WORLD, "backend": backend, "cards": cards}
+    with arch_depth(TRAIN_ARCH, TRAIN_LAYERS) as cfg, \
+            tempfile.TemporaryDirectory() as store:
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "mesh", "case": "plan", "world": MESH_WORLD,
+              "backend": backend, "cards": cards,
+              "placement": ("one card a rank" if backend == "nccl"
+                            else "both ranks on cuda:0"),
+              "tolerance_x_cx": TOL_MESH_X, "tolerance_y_cy": TOL_MESH_Y,
+              "tolerance_rows": TOL_MESH_X,
+              "sigma_c_limit": TOL_SIGMA_C})
+        # the host path from the same seed, in this process
+        ref = {}
+        for rounds in (TRAIN_ROUNDS, 1):
+            res = train_lib.train(train_args(device=dev, engine="host",
+                                             rounds=rounds,
+                                             log_every=MESH_LOG_EVERY))
+            ref[rounds] = {"history": strip_stamps(res["history"]),
+                           "fingerprints": state_fingerprints(res["state"])}
+            if rounds == TRAIN_ROUNDS:
+                save_rows(res["state"], os.path.join(store, "rows"))
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        host_s = time.perf_counter() - t_phase
+        runs = [dict(name="host", engine="host", rounds=TRAIN_ROUNDS,
+                     impl="dense", rows_dir=os.path.join(store, "rows")),
+                dict(name="scan", engine="scan", rounds=TRAIN_ROUNDS,
+                     impl="dense", rows_dir=os.path.join(store, "rows"),
+                     sigma_c=True),
+                dict(name="fused_ring", engine="host", rounds=1,
+                     impl="fused_ring")]
+        t0 = time.perf_counter()
+        ranks = dist_launch.run_world(
+            MESH_WORLD, mesh_rank, TRAIN_LAYERS, runs, backend=backend,
+            store_dir=store, device="cuda")
+        world_s = time.perf_counter() - t0
+        # a world of 1 over NCCL, in this process (the card is free again)
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_launch.init_from_env("nccl", "cuda")
+        try:
+            one, = mesh_rank(0, 1, TRAIN_LAYERS, [dict(
+                name="world of 1", engine="host", rounds=1, impl="dense",
+                fingerprints=ref[1]["fingerprints"])])
+        finally:
+            torch.distributed.destroy_process_group()
+        one_s = time.perf_counter() - t0
+
+    n_local = TRAIN_N // MESH_WORLD
+    logged = len(ref[TRAIN_ROUNDS]["history"])
+    want_launches = train_launches(cfg, n=n_local, k=TRAIN_K,
+                                   rounds=TRAIN_ROUNDS, logged=logged)
+    routed = {k: v for k, v in model_routes(torch.bfloat16).items()
+              if want_launches[k]}
+    tokens = TRAIN_N * TRAIN_K * TRAIN_B * TRAIN_S
+    for i, run in enumerate(runs):
+        recs = [r[i] for r in ranks]
+        name = run["name"]
+        for rec in recs:
+            what = f"mesh {name} rank {rec['rank']}"
+            if not rec["finite"]:
+                fail(f"{what}: a state leaf is not finite")
+            if "sigma_c" in rec and not rec["sigma_c"] <= TOL_SIGMA_C:
+                fail(f"{what}: Σc = {rec['sigma_c']} > {TOL_SIGMA_C}")
+            if "local_steps" in rec["collectives"]:
+                fail(f"{what}: collectives in the local steps "
+                     f"{rec['collectives']['local_steps']}")
+            gossip = {k: {m: v[m] for m in ("calls", "bytes")}
+                      for k, v in rec["collectives"].get("gossip",
+                                                         {}).items()}
+            want = {k: {m: v * run["rounds"] for m, v in c.items()}
+                    for k, c in mesh_gossip_formula(
+                        cfg, TRAIN_N, MESH_WORLD, run["impl"]).items()}
+            if gossip != want:
+                fail(f"{what}: gossip collectives {gossip}, expected {want}")
+            if run["rounds"] == TRAIN_ROUNDS:
+                if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
+                                       **want_launches}:
+                    fail(f"{what}: launches {rec['launches']}, expected "
+                         f"{want_launches}")
+                check_routes({k: rec["routes"][k] for k in routed},
+                             want_launches, what, route_of=routed)
+            rows_err = max(
+                abs(a[m] - b[m]) / (1 + abs(b[m]))
+                for a, b in zip(strip_stamps(rec["history"]),
+                                ref[run["rounds"]]["history"])
+                for m in a if m not in ("round", "eval_group_loss"))
+            rec["rows_rel_err"] = rows_err
+            if not rows_err <= TOL_MESH_X:
+                fail(f"{what}: history rows differ by {rows_err}")
+            if "rel_err" in rec:
+                e = rec["rel_err"]
+                if not (e["x"] <= TOL_MESH_X and e["cx"] <= TOL_MESH_X
+                        and e["y"] <= TOL_MESH_Y and e["cy"] <= TOL_MESH_Y):
+                    fail(f"{what}: the state differs from the host path "
+                         f"{e}")
+        # rounds/s on rank 0: a scan run's one chunk by the engine's clock
+        # (its rows' stamp), a host run's rounds between its first and last
+        # rows (as host_loop_run)
+        hist = recs[0]["history"]
+        walls = [r["wall_s"] for r in hist]
+        rate = (run["rounds"] / walls[-1] if run["engine"] == "scan"
+                else (hist[-1]["round"] - hist[0]["round"])
+                / (walls[-1] - walls[0]) if len(walls) > 1 else None)
+        comm = [r["collectives"]["gossip"] for r in recs]
+        comm_s = [sum(v["seconds"] for v in c.values()) / run["rounds"]
+                  for c in comm]
+        metrics_s = [sum(v["seconds"] for v in r["collectives"].get(
+            "metrics", {}).values()) / run["rounds"] for r in recs]
+        line = {"run": name, "engine": run["engine"], "impl": run["impl"],
+                "rounds": run["rounds"], "clients_by_rank":
+                [r["clients"] for r in recs],
+                "devices_by_rank": [r["device"] for r in recs],
+                "rel_err_by_rank": [r.get("rel_err") for r in recs],
+                "rows_rel_err_by_rank": [r["rows_rel_err"] for r in recs],
+                "sigma_c_by_rank": [r.get("sigma_c") for r in recs],
+                "rounds_per_s": rate,
+                "tokens_per_s": rate * tokens if rate else None,
+                "seconds_by_rank": [r["seconds"] for r in recs],
+                "gossip_s_a_round_by_rank": comm_s,
+                "metrics_comm_s_a_round_by_rank": metrics_s,
+                "collectives_by_rank": [r["collectives"] for r in recs],
+                "staged_bytes_by_rank": [r["collectives"]["staged_bytes"]
+                                         for r in recs],
+                "peak_memory_gb_by_rank": [r["peak_memory_gb"]
+                                           for r in recs],
+                "launches_by_rank": [r["launches"] for r in recs],
+                "launches_by_route_by_rank": [
+                    {k: r["routes"][k] for k in routed} for r in recs]}
+        out[name] = line
+        emit({"phase": "mesh", "case": f"{name}, world of {MESH_WORLD} "
+              f"over {backend}", "nvidia_smi": smi, **line})
+    if not one["bit_for_bit"] or strip_stamps(one["history"]) != \
+            ref[1]["history"]:
+        fail("mesh: the world of 1 differs from the host path")
+    if any(k != "staged_bytes" and k != "check" and v
+           for k, v in one["collectives"].items()):
+        fail(f"mesh: the world of 1 made collectives {one['collectives']}")
+    out["world_of_1"] = {"backend": "nccl", "bit_for_bit": True,
+                         "seconds": one["seconds"],
+                         "peak_memory_gb": one["peak_memory_gb"]}
+    out["seconds"] = {"host_path": host_s, "world": world_s,
+                      "world_of_1": one_s,
+                      "phase": time.perf_counter() - t_phase}
+    emit({"phase": "mesh", "case": "world of 1 over nccl, one round",
+          "nvidia_smi": smi, **out["world_of_1"],
+          "phase_seconds": out["seconds"]})
+    # the scan run's, on rank 0 (every rank launches as many)
+    out["launches"] = dict(ranks[0][1]["launches"])
+    out["launches_by_route"] = {k: ranks[0][1]["routes"][k] for k in routed}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 16: federated DRO training of the other block kinds
 # ---------------------------------------------------------------------------
 
@@ -5161,6 +5530,16 @@ def main(argv=None) -> int:
         launches_train.update(trained["launches"])
         train_routes = trained["launches_by_route"]
         train_times.update(trained["times"])
+    launches_mesh = dict.fromkeys(names)
+    mesh_routes = {}
+    if "mesh" in phases:
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        meshed = phase_mesh(dev, smi)
+        launches_mesh.update(meshed["launches"])
+        mesh_routes = meshed["launches_by_route"]
     launches_train_ssm = dict.fromkeys(names)
     train_ssm_routes = {}
     if "train_ssm" in phases:
@@ -5222,6 +5601,7 @@ def main(argv=None) -> int:
                  launches_quickstart=qs_launches[k["name"]],
                  launches_evaluate=launches_eval[k["name"]],
                  launches_train=launches_train[k["name"]],
+                 launches_mesh=launches_mesh[k["name"]],
                  launches_train_ssm=launches_train_ssm[k["name"]],
                  launches_moe={path: c.get(k["name"]) for path, c
                                in launches_moe.items()} or None,
@@ -5238,6 +5618,7 @@ def main(argv=None) -> int:
                      launches_by_route_quickstart=qs_routes.get(k["name"]),
                      launches_by_route_evaluate=eval_routes.get(k["name"]),
                      launches_by_route_train=train_routes.get(k["name"]),
+                     launches_by_route_mesh=mesh_routes.get(k["name"]),
                      launches_by_route_train_ssm=train_ssm_routes.get(
                          k["name"]),
                      launches_by_route_moe=moe_routes.get(k["name"]),
@@ -5278,7 +5659,11 @@ def main(argv=None) -> int:
                            "launches_train: the train phase's main run "
                            "(qwen2-0.5b, n = 4, one captured chunk of 3 "
                            "rounds of K = 4 local steps under autograd, 3 "
-                           "logged rows); launches_train_ssm: the "
+                           "logged rows); launches_mesh: rank 0 of the "
+                           "mesh phase's scan run (qwen2-0.5b, n = 4 over "
+                           "2 ranks, 2 clients a rank, 3 rounds eager, 2 "
+                           "logged rows on every rank); launches_train_ssm: "
+                           "the "
                            "train_ssm phase's main run (mamba2-1.3b at "
                            f"{SSM_LAYERS_CAPTURED} layers, n = "
                            f"{SSM_TRAIN_N}, the same chunk); "

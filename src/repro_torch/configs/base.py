@@ -3,7 +3,8 @@
 The model architecture (``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
 ``ModelConfig``) and ``InputShape`` are copied from
 ``repro.configs.base:25-170`` unchanged, so the arch files under
-``repro_torch/configs/`` carry the same values.  ``ModelConfig.param_count``
+``repro_torch/configs/`` carry the same values; so are ``MinimaxConfig``
+(:177) and ``MeshConfig`` (:255-275).  ``ModelConfig.param_count``
 counts the RG-LRU gates ``wa``/``wx`` as diagonal, as the reference does;
 ``repro_torch.models.model.param_count`` counts the tensors.
 
@@ -188,6 +189,40 @@ class InputShape:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+
+@dataclasses.dataclass(frozen=True)
+class MinimaxConfig:
+    objective: str = "dro"     # quadratic | dro | adversarial
+    # DRO: number of loss groups (= d_y); strong-concavity modulus mu
+    num_groups: int = 8
+    mu: float = 1.0
+    # adversarial: perturbation scale
+    adv_scale: float = 0.1
+
+
+# ---------------------------------------------------------------------------
+# Mesh / sharding (reference :255-275, without attn_heads_sharding and
+# remat: the port reads neither; they come with the slice that executes the
+# fsdp and model axes)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    num_clients: int = 4       # clients axis of the logical mesh
+    fsdp: int = 4
+    model: int = 16
+    # parameter layout within a client: "fsdp2d" shards weights over
+    # (fsdp, model); "replicated" keeps them whole (small models)
+    param_mode: str = "fsdp2d"
+    moe_expert_parallel: bool = False
+    # residual sharding: "batch_seq" (fsdp, model) or "batch" (fsdp only)
+    residual_mode: str = "batch_seq"
+
+    @property
+    def devices_needed(self) -> int:
+        return self.num_clients * self.fsdp * self.model
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,13 @@ lowering that can realize it; error-feedback compression of the
 transmitted Δ (``core.compression``) rides ``pallas_packed`` and
 ``fused_round``; the Byzantine adversary (``core.adversary``) rides every
 lowering but ``fused_round``.
+
+On the decentralized mesh (``axis``, a ``dist.collectives.ClientsAxis``)
+every leaf holds this rank's n/R clients; the K local steps are unchanged
+and issue no collective, and the gossips of ``dense``, ``fused_dense``,
+``ring``, ``fused_ring`` and ``pallas_packed`` are ``dist.collectives``'
+(the rank's rows of W over all-gathered rows, or the ring's neighbour
+exchange).  The other lowerings and options are not ported to the mesh.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.core import stochastic_topology as stoch_lib
 from repro_torch.core import topology as topo_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.minimax import MinimaxProblem
+from repro_torch.dist import collectives
 from repro_torch.kernels import ops as kernel_ops
 
 ALGORITHMS = ("kgt_minimax", "gt_gda", "dsgda", "local_sgda")
@@ -116,26 +124,46 @@ def _tree_descend(a: float, grads: list, i: int, c_tree, x_tree):
 
 def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
                gen: torch.Generator, init_batch=None,
-               init_noise: Optional[torch.Tensor] = None) -> KGTState:
+               init_noise: Optional[torch.Tensor] = None,
+               axis: Optional[collectives.ClientsAxis] = None) -> KGTState:
     """Shared x0/y0 across clients; corrections per the paper's
     initialization c_i = −∇F_i(x0,y0;ξ_i) + (1/n)Σ_j ∇F_j(x0,y0;ξ_j)
     (Lemma 8 ⇒ Σ_i c_i = 0).  Without tracking the corrections are zeros.
 
     ``init_noise`` (n, noise_dim) is the noise row of each client's
     initial gradient; drawn from ``gen`` when omitted.
+
+    ``axis``: this rank's clients of the decentralized mesh.  The same
+    draws as the host path (x0, y0, the (n, …) ``init_batch`` and noise)
+    are sliced to its rows; the mean over every client's initial gradient
+    is taken over their all-gather (once, phase ``init``), so each row is
+    the host path's bit for bit where the gradients are: an all-reduced
+    mean rounds otherwise, and in bf16 compute a rounding in c moves the
+    trajectory by far more than itself.
     """
     _check_cfg(cfg)
     n = cfg.num_clients
-    x = _replicate(problem.init_x(gen), n)
-    y = _replicate(problem.init_y(gen), n)
+    n_rows = n if axis is None else axis.n_local
+    x = _replicate(problem.init_x(gen), n_rows)
+    y = _replicate(problem.init_y(gen), n_rows)
     track = cfg.algorithm in ("kgt_minimax", "gt_gda")
     if track and init_batch is not None:
         if init_noise is None:
             init_noise = torch.randn((n, problem.noise_dim), generator=gen,
                                      device=gen.device)
+        if axis is not None:
+            init_batch = collectives.shard_tree(init_batch, axis)
+            init_noise = axis.rows(init_noise)
         gx, gy = _vgrads(problem, x, y, init_batch, init_noise)
-        cx = tree_lib.tree_map(lambda g: g.mean(0, keepdim=True) - g, gx)
-        cy = tree_lib.tree_map(lambda g: g.mean(0, keepdim=True) - g, gy)
+
+        def correction(g):
+            with collectives.phase("init"):
+                every = g if axis is None else collectives.all_gather_rows(
+                    g, axis)
+            return every.mean(0, keepdim=True) - g
+
+        cx = tree_lib.tree_map(correction, gx)
+        cy = tree_lib.tree_map(correction, gy)
     else:
         cx = tree_lib.tree_map(torch.zeros_like, x)
         cy = tree_lib.tree_map(torch.zeros_like, y)
@@ -148,8 +176,10 @@ def init_state(problem: MinimaxProblem, cfg: AlgorithmConfig,
         # zero residual per variable, packed (n, D): round 0 transmits Q(Δ)
         # with nothing carried
         dev = tree_lib.leaves(x)[0].device
-        ef_x = compression_lib.init_ef(n, packing.pack_spec(x).dim, dev)
-        ef_y = compression_lib.init_ef(n, packing.pack_spec(y).dim, dev)
+        ef_x = compression_lib.init_ef(n_rows, packing.pack_spec(x).dim,
+                                       dev)
+        ef_y = compression_lib.init_ef(n_rows, packing.pack_spec(y).dim,
+                                       dev)
     return KGTState(x=x, y=y, cx=cx, cy=cy, round=0, ef_x=ef_x, ef_y=ef_y)
 
 
@@ -221,6 +251,50 @@ def _check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
             "use traced_w with a per-round sampler instead")
 
 
+# the lowerings the decentralized mesh runs (``make_round_step(axis=)``)
+MESH_IMPLS = ("dense", "fused_dense", "ring", "fused_ring", "pallas_packed")
+
+
+def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
+                       participation: bool = False, byzantine: bool = False,
+                       traced_etas: bool = False) -> None:
+    """Refuses what the decentralized mesh does not run yet: the other
+    lowerings, compression, a per-round or cycled W, participation, the
+    adversary and per-trajectory stepsizes (ROADMAP A13)."""
+    impl = cfg.mixing_impl
+    if impl not in MESH_IMPLS:
+        raise NotImplementedError(
+            f"mixing_impl={impl!r} on the decentralized mesh is not ported "
+            f"yet (ROADMAP A13); the mesh runs {MESH_IMPLS}")
+    if cfg.gossip_backend == "kernel":
+        raise NotImplementedError(
+            "gossip_backend='kernel' on the decentralized mesh: the B1 "
+            "epilogue over a rank's rows of W is not ported yet (ROADMAP "
+            "A13); the mesh gossips through dist.collectives ('auto')")
+    off = [name for name, on in (
+        ("gossip_compress", compression_lib.validate_method(
+            cfg.gossip_compress) is not None),
+        ("topology_cycle", bool(cfg.topology_cycle)),
+        ("traced_w", traced_w), ("participation", participation),
+        ("byzantine", byzantine), ("traced_etas", traced_etas)) if on]
+    if off:
+        raise NotImplementedError(
+            f"{', '.join(off)} on the decentralized mesh: not ported yet "
+            "(ROADMAP A13)")
+
+
+def _mesh_mixer(cfg: AlgorithmConfig, impl: str, w: torch.Tensor,
+                w_rows: torch.Tensor, gossip_dtype, axis):
+    """``mix(tree)`` of the rank's rows for the per-leaf lowerings:
+    ``make_mixer``'s dense and ring mixers through ``dist.collectives``."""
+    if impl.endswith("ring"):
+        w_self, w_nbr = mixing_lib.ring_weights(cfg.topology, impl, w)
+        return lambda tree: collectives.mix_ring(tree, w_self, w_nbr, axis,
+                                                 gossip_dtype)
+    return lambda tree: collectives.mix_dense(tree, w_rows, axis,
+                                              gossip_dtype)
+
+
 def _client_broadcast(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     """(n,) mask -> (n, 1, …, 1) against an (n, …) leaf."""
     return mask.reshape(mask.shape + (1,) * (ndim - 1))
@@ -278,6 +352,7 @@ def make_round_step(
     participation: bool = False,
     byzantine: bool = False,
     device="cuda",
+    axis: Optional[collectives.ClientsAxis] = None,
 ):
     """Builds ``round_step(state, batches, noise[, etas], *extras) -> state``.
 
@@ -324,6 +399,12 @@ def make_round_step(
     ``state.round`` beyond advancing it (``lr_scale``, ``topology_cycle``):
     a captured engine chunk bakes that value in and is captured again for
     every chunk start.
+
+    ``axis`` (a ``dist.collectives.ClientsAxis``): the step of one rank of
+    the decentralized mesh over its n/R clients' rows (module docstring),
+    for ``dense``, ``fused_dense``, ``ring``, ``fused_ring`` and
+    ``pallas_packed`` on a static W; anything else raises.  Its collectives
+    count under the phases ``local_steps`` (none) and ``gossip``.
     """
     if traced_etas and lr_scale is not None:
         raise ValueError(
@@ -331,6 +412,10 @@ def make_round_step(
             "into the eta values instead of passing lr_scale")
     _check_cfg(cfg)
     _check_impl_options(problem, cfg, traced_w, byzantine)
+    if axis is not None:
+        check_mesh_options(cfg, traced_w=traced_w,
+                           participation=participation, byzantine=byzantine,
+                           traced_etas=traced_etas)
     impl = cfg.mixing_impl
     fused = impl == "fused_round"
     packed = impl == "pallas_packed"
@@ -359,6 +444,7 @@ def make_round_step(
             np.asarray(m) if not isinstance(m, torch.Tensor) else m,
             dtype=torch.float32).to(device)
 
+    w_rows = None
     if cfg.topology_cycle:
         ws = torch.stack([dense_tensor(topo_lib.mixing_matrix(
             t, cfg.num_clients)) for t in cfg.topology_cycle])
@@ -380,8 +466,15 @@ def make_round_step(
         else:
             w_arr = dense_tensor(w)
         get_w = lambda round_idx: w_arr  # noqa: E731
+        if axis is not None:
+            # this rank's rows of W
+            w_rows = w_arr[axis.lo:axis.hi].contiguous()
         if direct_w:
             make_mix = None
+        elif axis is not None:
+            static_mix = _mesh_mixer(cfg, impl, w_arr, w_rows, gossip_dtype,
+                                     axis)
+            make_mix = lambda round_idx: static_mix  # noqa: E731
         else:
             static_mix = mixing_lib.make_mixer(cfg.topology, impl, w_arr,
                                                gossip_dtype)
@@ -401,6 +494,14 @@ def make_round_step(
             yy = _tree_descend(eta_cy, grads, 1,
                                state.cy if track else None, yy)
         return xx, yy
+
+    def mix_buf(b, w_t):
+        """One gossip of a packed (n, D) buffer (the rank's rows on the
+        mesh)."""
+        if axis is not None:
+            return collectives.mix_dense(b, w_rows, axis, gossip_dtype)
+        return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
+                else mixing_lib.mix_dense(b, w_t, gossip_dtype))
 
     def _done(new_state, state, mask):
         return (new_state if mask is None
@@ -486,12 +587,8 @@ def make_round_step(
         if not track:
             # no correction state: the epilogue is one gossip of the
             # stepped parameters, W(θ + η_s·Δ)
-            def mix_buf(b):
-                return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
-                        else mixing_lib.mix_dense(b, w_t, gossip_dtype))
-
-            xb = mix_buf(packing.pack(state.x, spec_x) + eta_sx * dxb)
-            yb = mix_buf(packing.pack(state.y, spec_y) + eta_sy * dyb)
+            xb = mix_buf(packing.pack(state.x, spec_x) + eta_sx * dxb, w_t)
+            yb = mix_buf(packing.pack(state.y, spec_y) + eta_sy * dyb, w_t)
             return _done(KGTState(x=packing.unpack(xb, spec_x),
                                   y=packing.unpack(yb, spec_y),
                                   cx=state.cx, cy=state.cy,
@@ -504,7 +601,12 @@ def make_round_step(
         yv = (dyb, packing.pack(state.y, spec_y),
               packing.pack(state.cy, spec_cy), eta_sy, corr_y)
         # both variables' epilogues in one call (one launch on the card)
-        if sparse:
+        if axis is not None:
+            # the mesh: one all-gather a variable, the epilogue on the
+            # rank's rows of W (the B1 kernel is the single-process path)
+            xb, cxb, yb, cyb = collectives.gossip_pair(
+                w_rows, xv, yv, axis, gossip_dtype)
+        elif sparse:
             xb, cxb, yb, cyb = kernel_ops.sparse_gossip_pair(
                 w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, xv, yv,
                 backend=backend, gossip_dtype=gossip_dtype)
@@ -557,6 +659,13 @@ def make_round_step(
 
     def _round(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
                corr_x, corr_y, w_t=None, mask=None, adv=None) -> KGTState:
+        with collectives.phase("gossip"):
+            return _round_body(state, batches, noise, eta_cx, eta_cy,
+                               eta_sx, eta_sy, corr_x, corr_y, w_t, mask,
+                               adv)
+
+    def _round_body(state, batches, noise, eta_cx, eta_cy, eta_sx, eta_sy,
+                    corr_x, corr_y, w_t, mask, adv) -> KGTState:
         if direct_w:
             if w_t is None:
                 w_t = get_w(state.round)
@@ -571,9 +680,11 @@ def make_round_step(
             return _fused_round(state, batches, noise, w_t, mask, eta_cx,
                                 eta_cy, eta_sx, eta_sy, corr_x, corr_y)
         # Δx = x^{(t)+K} − x^{(t)}; the iterates are not kept
+        with collectives.phase("local_steps"):
+            stepped = _local_steps(state, batches, noise, eta_cx, eta_cy)
         dx, dy = (_tree_sub(v, v0) for v, v0 in zip(
-            _local_steps(state, batches, noise, eta_cx, eta_cy),
-            (state.x, state.y)))
+            stepped, (state.x, state.y)))
+        del stepped
         if adv is not None:
             # the attacker's outgoing Δ, corrupted before every use below
             # and before the participation zeroing (an inactive attacker
@@ -684,15 +795,19 @@ def make_round_step(
 # Diagnostics
 # ---------------------------------------------------------------------------
 
-def mean_over_clients(tree):
-    return tree_lib.tree_map(lambda x: x.mean(0), tree)
+def mean_over_clients(tree, axis=None):
+    """The mean over every client of each leaf; on the mesh (``axis``) the
+    rank's partial sums all-reduced."""
+    return tree_lib.tree_map(lambda x: collectives.clients_mean(x, axis),
+                             tree)
 
 
-def correction_mean_norm(tree) -> torch.Tensor:
+def correction_mean_norm(tree, axis=None) -> torch.Tensor:
     """‖c̄‖ = ‖(1/n) Σ_i c_i‖ over all leaves — Lemma 8 says exactly 0 for
-    the tracking variants."""
+    the tracking variants.  On the mesh (``axis``) c̄ is all-reduced."""
     return torch.sqrt(sum(
-        torch.sum(torch.square(l.mean(0).to(torch.float32)))
+        torch.sum(torch.square(collectives.clients_mean(l, axis).to(
+            torch.float32)))
         for l in tree_lib.leaves(tree)))
 
 

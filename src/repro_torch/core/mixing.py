@@ -30,6 +30,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core import sparse_topology as sparse_lib
 from repro_torch.core import tree as tree_lib
+from repro_torch.dist import collectives
 from repro_torch.kernels.ref import gossip_torch_dtype, narrow
 
 ROBUST_RULES = ("coord_median", "trimmed_mean")
@@ -187,6 +188,19 @@ def robust_mix_packed(tree: Any, w, *, rule: str, trim: int = 1,
     return packing.unpack(mixed, spec)
 
 
+def ring_weights(topology: str, impl: str, w) -> tuple:
+    """(w_self, w_nbr) of a ring's W for the neighbor-only ring impls,
+    which no other topology may take."""
+    if topology != "ring":
+        raise ValueError(
+            f"mixing_impl={impl!r} is a neighbor-only exchange, valid "
+            f"only for topology='ring' (got {topology!r}); use 'dense', "
+            f"'fused_dense', or 'pallas_packed' for arbitrary W")
+    wn = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w)
+    n = wn.shape[0]
+    return float(wn[0, 0]), (float(wn[0, 1 % n]) if n > 1 else 0.0)
+
+
 def make_mixer(topology: str, impl: str, w, gossip_dtype: str = "float32",
                *, trim: int = 1):
     """Returns mix(tree) -> tree for the configured implementation.
@@ -204,15 +218,7 @@ def make_mixer(topology: str, impl: str, w, gossip_dtype: str = "float32",
         return lambda tree: robust_mix_packed(tree, w, rule=rule, trim=trim,
                                               gossip_dtype=gossip_dtype)
     if impl.endswith("ring"):
-        if topology != "ring":
-            raise ValueError(
-                f"mixing_impl={impl!r} is a neighbor-only exchange, valid "
-                f"only for topology='ring' (got {topology!r}); use 'dense', "
-                f"'fused_dense', or 'pallas_packed' for arbitrary W")
-        wn = np.asarray(w.cpu() if isinstance(w, torch.Tensor) else w)
-        n = wn.shape[0]
-        w_self = float(wn[0, 0])
-        w_nbr = float(wn[0, 1 % n]) if n > 1 else 0.0
+        w_self, w_nbr = ring_weights(topology, impl, w)
         return lambda tree: mix_ring(tree, w_self, w_nbr, gossip_dtype)
     if impl == "sparse_packed":
         sp = (w if isinstance(w, sparse_lib.SparseTopology)
@@ -258,9 +264,25 @@ def make_traced_mixer(impl: str, gossip_dtype: str = "float32", *,
     return lambda tree, w: mix_dense(tree, w, gossip_dtype)
 
 
-def consensus_error(tree: Any) -> torch.Tensor:
-    """(1/n) Σ_i ||T_i - mean_j T_j||² summed over leaves (client variance Ξ)."""
-    def one(x):
-        m = x.mean(0, keepdim=True)
-        return torch.sum(torch.square((x - m).to(torch.float32))) / x.shape[0]
-    return sum(one(x) for x in tree_lib.leaves(tree))
+def consensus_error(tree: Any, axis=None, means=None) -> torch.Tensor:
+    """(1/n) Σ_i ||T_i - mean_j T_j||² summed over leaves (client variance Ξ).
+
+    On the decentralized mesh (``axis``, a ``dist.collectives.ClientsAxis``:
+    the leaves hold this rank's clients) the means and the sum of squares
+    are all-reduced over the clients axis, so Ξ is the global one.
+    ``means``: the leaves' means over the clients, where the caller has
+    them."""
+    leaves = tree_lib.leaves(tree)
+    if means is None:
+        means = [collectives.clients_mean(x, axis) for x in leaves]
+    else:
+        means = tree_lib.leaves(means)
+
+    def one(x, m):
+        return torch.sum(torch.square((x - m.unsqueeze(0)).to(
+            torch.float32)))
+
+    if axis is None or axis.size == 1:
+        return sum(one(x, m) / x.shape[0] for x, m in zip(leaves, means))
+    total = sum(one(x, m) for x, m in zip(leaves, means))
+    return collectives.all_reduce_sum(total, axis) / axis.n

@@ -1,0 +1,476 @@
+"""The collectives of the decentralized mesh: what GSPMD inserts for the
+reference, written out.  The only module that calls ``torch.distributed``
+on the round path.
+
+A rank of the clients axis holds n/R of the n clients, rows ``[lo, hi)`` of
+every (n, …) state leaf (:class:`ClientsAxis`).  The K local steps touch
+only those rows; a round's gossips are the collectives here:
+
+* **dense gossip** (``mix_dense``, reference ``core/mixing.py:45-60``): an
+  all-gather of the rank's rows in the gossip dtype, then the rank's rows
+  of W contracted in f32, as ``core.mixing.mix_dense`` contracts all of W;
+* **the ring** (``mix_ring``, :63-88): ``jnp.roll`` on a clients-sharded dim
+  lowers to a collective-permute, so here each rank sends its first row to
+  the previous rank and its last row to the next and receives theirs (2
+  rows a rank, not n), through ``batch_isend_irecv``;
+* **the packed epilogue** (``gossip_pair``, ``mix_packed`` :91): one
+  all-gather a variable of its stacked (Δ, θ) buffer, then the round
+  epilogue θ' = W_r θ + η_s·W_r Δ, c' = c + s·(Δ − W_r Δ) on the rank's
+  rows W_r, as ``kernels.ref.fused_gossip_ref`` computes it over all of W;
+* **all-reduced means** (``clients_mean``, ``all_reduce_sum``) and a
+  **broadcast** for the metrics.
+
+A world of one rank makes no collective: an all-gather of one rank is the
+tensor itself and a mean over one rank's clients is the host path's mean,
+so a one-rank mesh runs the host path's operations.
+
+Gloo reads a send's or receive's buffer as host memory, so on gloo a CUDA
+tensor crosses through pinned host buffers made here (PyTorch's caching
+host allocator keeps them for the next call), whatever the op: the rank's
+rows go down once, and only what the other ranks sent comes back up, into
+place in the output.  The bytes copied (both ways) count as
+``staged_bytes``.  One gloo group moves ~0.5 GB/s a direction between two
+ranks of one host (one TCP connection, one thread: PERF.md §5), so a large
+gloo transfer is split over GLOO_STREAMS groups of the same ranks at once
+(``ClientsAxis.streams``).  NCCL takes device tensors.
+
+Counters, in the style of ``kernels.ops``' launch counters:
+``collective_counts()`` gives, per phase (``local_steps``, ``gossip``,
+``metrics``, ``init``, ``checkpoint``; :func:`phase` sets it) and kind
+(``all_gather``, ``exchange``, ``all_reduce``, ``broadcast``), the calls,
+the bytes this rank received from the others (an all-gather's (R − 1)/R of
+its output, an exchange's rows, an all-reduce's or broadcast's payload)
+and the seconds of the calls: for a CUDA tensor between two CUDA events
+recorded on the current stream around the call (read when the counts are,
+so that no call waits for the device), for a CPU tensor on the host clock.
+``zero_collective_counts()`` resets them.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import tree as tree_lib
+from repro_torch.kernels.ref import gossip_torch_dtype, narrow
+
+# the gloo groups a large transfer is split over, and the least bytes a
+# piece of it carries
+GLOO_STREAMS = 4
+STREAM_BYTES = 8 << 20
+
+@dataclasses.dataclass(frozen=True)
+class ClientsAxis:
+    """This rank's place on the clients axis: ``size`` ranks share the
+    ``n`` clients, rank ``rank`` of them (its index on the axis) holding
+    rows ``[lo, hi)``.  ``group`` is the axis' process group (None: the
+    default group), ``backend`` its backend; ``streams`` more gloo groups
+    over the same ranks, for a large transfer to share (module
+    docstring)."""
+    n: int
+    rank: int
+    size: int
+    group: Any = None
+    backend: str = "gloo"
+    streams: tuple = ()
+
+    def __post_init__(self):
+        if self.n % self.size:
+            raise ValueError(
+                f"{self.size} ranks cannot share {self.n} clients evenly: "
+                "the clients axis must divide the number of clients")
+
+    @property
+    def n_local(self) -> int:
+        return self.n // self.size
+
+    @property
+    def lo(self) -> int:
+        return self.rank * self.n_local
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.n_local
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of an (n, …) tensor, a copy of its own."""
+        return x[self.lo:self.hi].clone()
+
+    def global_rank(self, r: int) -> int:
+        return r if self.group is None else dist.get_global_rank(self.group,
+                                                                 r)
+
+
+def gloo_streams(group) -> tuple:
+    """GLOO_STREAMS − 1 more gloo groups over ``group``'s ranks where
+    ``group`` is a gloo group of more than one rank spanning the world
+    (every rank of the world makes them, in the same order), else ()."""
+    size = dist.get_world_size(group)
+    if (dist.get_backend(group) != "gloo" or size == 1
+            or size != dist.get_world_size()):
+        return ()
+    ranks = dist.get_process_group_ranks(group)
+    return tuple(dist.new_group(ranks, backend="gloo")
+                 for _ in range(GLOO_STREAMS - 1))
+
+
+def clients_axis(mesh, n: int) -> ClientsAxis:
+    """The :class:`ClientsAxis` of this rank on ``mesh``'s ``clients``
+    dim, for ``n`` clients (every rank calls it: it may make groups)."""
+    group = mesh.get_group("clients")
+    return ClientsAxis(n=n, rank=mesh.get_local_rank("clients"),
+                       size=mesh.size(mesh.mesh_dim_names.index("clients")),
+                       group=group, backend=dist.get_backend(group),
+                       streams=gloo_streams(group))
+
+
+def axis_of_group(group, n: int, streams: tuple = ()) -> ClientsAxis:
+    """The :class:`ClientsAxis` of this rank over a whole process group."""
+    return ClientsAxis(n=n, rank=dist.get_rank(group),
+                       size=dist.get_world_size(group), group=group,
+                       backend=dist.get_backend(group), streams=streams)
+
+
+# ---------------------------------------------------------------------------
+# counters
+# ---------------------------------------------------------------------------
+
+_counts: dict = {}          # (phase, kind) -> [calls, bytes, seconds]
+_staged = [0]
+_phases = ["other"]
+_pending: list = []         # (entry, start, end) events not yet read
+
+
+def _read_events(wait: bool) -> None:
+    """Adds the elapsed time of the pending calls' event pairs to their
+    entries, in order: all of them (``wait``), else those that ended."""
+    while _pending and (wait or _pending[0][2].query()):
+        entry, start, end = _pending.pop(0)
+        end.synchronize()
+        entry[2] += start.elapsed_time(end) / 1e3
+
+
+def collective_counts() -> dict:
+    """``{phase: {kind: {"calls", "bytes", "seconds"}}}`` so far in this
+    process, and ``"staged_bytes"``: the bytes copied between the card and
+    the host for gloo."""
+    _read_events(wait=True)
+    out: dict = {}
+    for (ph, kind), (calls, nbytes, secs) in _counts.items():
+        out.setdefault(ph, {})[kind] = {"calls": calls, "bytes": nbytes,
+                                        "seconds": secs}
+    out["staged_bytes"] = _staged[0]
+    return out
+
+
+def zero_collective_counts() -> None:
+    _counts.clear()
+    _pending.clear()
+    _staged[0] = 0
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Collectives inside the block count under ``name``."""
+    _phases.append(name)
+    try:
+        yield
+    finally:
+        _phases.pop()
+
+
+@contextlib.contextmanager
+def _op(kind: str, device: torch.device):
+    entry = _counts.setdefault((_phases[-1], kind), [0, 0, 0.0])
+    cuda = device.type == "cuda"
+    if cuda:
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    t0 = time.perf_counter()
+    rec = {"bytes": 0}
+    yield rec
+    entry[0] += 1
+    entry[1] += rec["bytes"]
+    if cuda:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(stream)
+        _pending.append((entry, start, end))
+        _read_events(wait=False)
+    else:
+        entry[2] += time.perf_counter() - t0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _staging(axis: ClientsAxis, t: torch.Tensor) -> bool:
+    return axis.backend == "gloo" and t.is_cuda
+
+
+def _pinned_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def _to_wire(axis: ClientsAxis, t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the backend reads it: a pinned host copy for gloo and a
+    CUDA tensor, else ``t`` (contiguous)."""
+    t = t.contiguous()
+    if _staging(axis, t):
+        host = _pinned_like(t)
+        host.copy_(t)
+        _staged[0] += _nbytes(t)
+        return host
+    return t
+
+
+def _recv_like(wire: torch.Tensor, staged: bool) -> torch.Tensor:
+    return _pinned_like(wire) if staged else torch.empty_like(wire)
+
+
+def _from_wire(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    if t.device != device:
+        _staged[0] += _nbytes(t)
+        return t.to(device)
+    return t
+
+
+def _pieces(axis: ClientsAxis, flat: torch.Tensor):
+    """(group, start, stop) pieces of a flat tensor: one a stream group, no
+    piece under STREAM_BYTES, the axis' own group first."""
+    groups = (axis.group,) + axis.streams
+    k = max(1, min(len(groups), _nbytes(flat) // STREAM_BYTES))
+    step = -(-flat.numel() // k)
+    return [(g, a, min(a + step, flat.numel()))
+            for g, a in zip(groups, range(0, flat.numel(), step))]
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def all_gather_rows(x: torch.Tensor, axis: ClientsAxis,
+                    dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order: the
+    (n, …) tensor of the rank's (n/R, …) rows (``x`` itself on one
+    rank)."""
+    if axis.size == 1:
+        return x
+    with _op("all_gather", x.device) as rec:
+        staged = _staging(axis, x)
+        wire = _to_wire(axis, x)
+        flat = wire.reshape(-1)
+        recv = [_recv_like(flat, staged) for _ in range(axis.size)]
+        works = [dist.all_gather([r[a:b] for r in recv], flat[a:b], group=g,
+                                 async_op=True)
+                 for g, a, b in _pieces(axis, flat)]
+        for w in works:
+            w.wait()
+        parts = [r.view(wire.shape) for r in recv]
+        rec["bytes"] = (axis.size - 1) * _nbytes(wire)
+        if not staged:
+            return torch.cat(parts, dim=dim)
+        # the other ranks' rows straight into place on the card; the
+        # rank's own rows from where they are
+        k = x.shape[dim]
+        out = torch.empty((*x.shape[:dim], k * axis.size,
+                           *x.shape[dim + 1:]), dtype=x.dtype,
+                          device=x.device)
+        for r, part in enumerate(parts):
+            dst = out.narrow(dim, r * k, k)
+            if r == axis.rank:
+                dst.copy_(x)
+            else:
+                dst.copy_(part)
+                _staged[0] += _nbytes(part)
+    return out
+
+
+def all_reduce_sum(t: torch.Tensor, axis: ClientsAxis) -> torch.Tensor:
+    """The sum of every rank's ``t`` (``t`` itself on one rank)."""
+    if axis.size == 1:
+        return t
+    with _op("all_reduce", t.device) as rec:
+        wire = _to_wire(axis, t)
+        if wire is t or wire.data_ptr() == t.data_ptr():
+            wire = wire.clone()
+        flat = wire.reshape(-1)
+        works = [dist.all_reduce(flat[a:b], group=g, async_op=True)
+                 for g, a, b in _pieces(axis, flat)]
+        for w in works:
+            w.wait()
+        out = _from_wire(wire, t.device)
+        rec["bytes"] = _nbytes(wire)
+    return out
+
+
+def broadcast_from(t: torch.Tensor, src: int,
+                   axis: ClientsAxis) -> torch.Tensor:
+    """Rank ``src``'s ``t`` on every rank (each rank passes a tensor of the
+    same shape and dtype)."""
+    if axis.size == 1:
+        return t
+    with _op("broadcast", t.device) as rec:
+        wire = _to_wire(axis, t)
+        if wire is t or wire.data_ptr() == t.data_ptr():
+            wire = wire.clone()
+        dist.broadcast(wire, src=axis.global_rank(src), group=axis.group)
+        out = _from_wire(wire, t.device)
+        rec["bytes"] = 0 if axis.rank == src else _nbytes(wire)
+    return out
+
+
+def _p2p(pairs, axis: ClientsAxis) -> None:
+    """Each (op, tensor, peer) of ``pairs`` in pieces over the stream
+    groups, all in flight at once."""
+    by_group: dict = {}
+    for op, t, peer in pairs:
+        flat = t.reshape(-1)
+        for g, a, b in _pieces(axis, flat):
+            by_group.setdefault(g, []).append(
+                dist.P2POp(op, flat[a:b], axis.global_rank(peer), group=g))
+    reqs = [req for ops in by_group.values()
+            for req in dist.batch_isend_irecv(ops)]
+    for req in reqs:
+        req.wait()
+
+
+def ring_neighbors(x: torch.Tensor, axis: ClientsAxis):
+    """(the previous rank's last row, the next rank's first row), each
+    (1, …): what ``torch.roll(·, ±1)`` over the whole clients dim brings
+    across this rank's ends.  Two rows received a rank (one message each
+    way with a single peer)."""
+    r, size = axis.rank, axis.size
+    prev, nxt = (r - 1) % size, (r + 1) % size
+    with _op("exchange", x.device) as rec:
+        staged = _staging(axis, x)
+        if size == 2:
+            send = _to_wire(axis, torch.cat([x[:1], x[-1:]]))
+            got = _recv_like(send, staged)
+            _p2p([(dist.isend, send, nxt), (dist.irecv, got, prev)], axis)
+            got = _from_wire(got, x.device)
+            up, dn = got[1:2], got[0:1]
+            rec["bytes"] = _nbytes(send)
+        else:
+            first, last = _to_wire(axis, x[:1]), _to_wire(axis, x[-1:])
+            up_w, dn_w = _recv_like(last, staged), _recv_like(first, staged)
+            _p2p([(dist.isend, first, prev), (dist.isend, last, nxt),
+                  (dist.irecv, up_w, prev), (dist.irecv, dn_w, nxt)], axis)
+            up, dn = _from_wire(up_w, x.device), _from_wire(dn_w, x.device)
+            rec["bytes"] = _nbytes(up_w) + _nbytes(dn_w)
+    return up, dn
+
+
+# ---------------------------------------------------------------------------
+# gossip over a clients-sharded state
+# ---------------------------------------------------------------------------
+
+def _wire_dtype(x: torch.Tensor, gd: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` in the dtype it travels in: the gossip dtype, else its own
+    (``narrow`` of the gathered value is then the host path's)."""
+    return x if gd is None else x.to(gd)
+
+
+def mix_dense(tree: Any, w_rows: torch.Tensor, axis: ClientsAxis,
+              gossip_dtype=None) -> Any:
+    """This rank's rows of W @ leaves: each (n/R, …) leaf all-gathered in
+    the gossip dtype, contracted with ``w_rows`` (this rank's (n/R, n)
+    rows of W) in f32."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    wg = narrow(w_rows, gd)
+
+    def one(x):
+        g = all_gather_rows(_wire_dtype(x, gd), axis).to(torch.float32)
+        mixed = wg @ g.reshape(axis.n, -1)
+        return mixed.reshape(x.shape).to(x.dtype)
+
+    return tree_lib.tree_map(one, tree)
+
+
+def mix_ring(tree: Any, w_self: float, w_nbr: float, axis: ClientsAxis,
+             gossip_dtype=None) -> Any:
+    """Ring mixing w_self·x_i + w_nbr·(x_{i−1} + x_{i+1}) of this rank's
+    rows, the rows across its ends brought by :func:`ring_neighbors`;
+    elementwise the host path's ``core.mixing.mix_ring``."""
+    gd = gossip_torch_dtype(gossip_dtype)
+
+    def one(x):
+        if axis.n == 1:
+            return x
+        xc = narrow(x, gd)
+        if axis.size == 1:
+            up = torch.roll(xc, 1, dims=0)
+            dn = torch.roll(xc, -1, dims=0)
+        else:
+            up_row, dn_row = ring_neighbors(_wire_dtype(xc, gd), axis)
+            up = torch.cat([up_row.to(torch.float32), xc[:-1]])
+            dn = torch.cat([xc[1:], dn_row.to(torch.float32)])
+        if axis.n == 2:
+            mixed = w_self * xc + w_nbr * up
+        else:
+            mixed = w_self * xc + w_nbr * (up + dn)
+        return mixed.to(x.dtype)
+
+    return tree_lib.tree_map(one, tree)
+
+
+def gossip_epilogue(w_rows: torch.Tensor, delta, theta, c, eta_s,
+                    corr_scale, axis: ClientsAxis, gossip_dtype=None):
+    """The packed round epilogue of one variable over a clients-sharded
+    (n/R, D) state: one all-gather of the stacked (Δ, θ), then
+    (θ', c') = (W_r θ + η_s·W_r Δ, c + s·(Δ − W_r Δ)) in f32, W_r this
+    rank's rows of W (``kernels.ref.fused_gossip_ref`` on W_r)."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    wg = narrow(w_rows, gd)
+    both = _wire_dtype(torch.stack([delta.to(torch.float32),
+                                    theta.to(torch.float32)]), gd)
+    g = all_gather_rows(both, axis, dim=1).to(torch.float32)
+    wd = wg @ g[0]
+    wt = wg @ g[1]
+    theta_new = wt + float(eta_s) * wd
+    c_new = c.to(torch.float32) + float(corr_scale) * (
+        delta.to(torch.float32) - wd)
+    return theta_new, c_new
+
+
+def gossip_pair(w_rows: torch.Tensor, x, y, axis: ClientsAxis,
+                gossip_dtype=None):
+    """:func:`gossip_epilogue` of both variables of a round (x, y: (delta,
+    theta, c, eta_s, corr_scale)): one collective a variable.  Returns f32
+    (θx', cx', θy', cy')."""
+    return (*gossip_epilogue(w_rows, *x, axis, gossip_dtype),
+            *gossip_epilogue(w_rows, *y, axis, gossip_dtype))
+
+
+# ---------------------------------------------------------------------------
+# means over every client
+# ---------------------------------------------------------------------------
+
+def clients_mean(x: torch.Tensor, axis: Optional[ClientsAxis]):
+    """The mean over all n clients of an (n/R, …) leaf: f32 partial sums
+    all-reduced, over n; ``x.mean(0)`` (the host path's) without a mesh
+    or on one rank."""
+    if axis is None or axis.size == 1:
+        return x.mean(0)
+    s = all_reduce_sum(x.to(torch.float32).sum(0), axis)
+    return (s / axis.n).to(x.dtype)
+
+
+def gather_tree(tree: Any, axis: ClientsAxis) -> Any:
+    """Every (n/R, …) tensor leaf all-gathered to (n, …) on every rank
+    (host values pass through)."""
+    return tree_lib.tree_map(
+        lambda x: all_gather_rows(x, axis) if isinstance(x, torch.Tensor)
+        else x, tree)
+
+
+def shard_tree(tree: Any, axis: ClientsAxis) -> Any:
+    """This rank's rows of every (n, …) tensor leaf (host values pass
+    through)."""
+    return tree_lib.tree_map(
+        lambda x: axis.rows(x) if isinstance(x, torch.Tensor) else x, tree)

@@ -24,6 +24,7 @@ from repro_torch.engine.sampler import (  # noqa: F401
     held_out_eval_batch,
     make_dro_sampler,
     make_fixed_batch_sampler,
+    slice_clients,
     stream_seed,
     with_topology,
 )

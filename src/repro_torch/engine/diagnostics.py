@@ -16,16 +16,21 @@ import torch
 from repro_torch.core import kgt_minimax as kgt
 from repro_torch.core import mixing as mixing_lib
 from repro_torch.core.minimax import MinimaxProblem
+from repro_torch.dist import collectives
 
 
-def _consensus_block(state) -> Dict[str, torch.Tensor]:
-    """Consensus Ξx/Ξy, the Lemma-8 ‖c̄‖ watchdogs and ‖ȳ‖."""
+def _consensus_block(state, axis=None, xbar=None,
+                     ybar=None) -> Dict[str, torch.Tensor]:
+    """Consensus Ξx/Ξy, the Lemma-8 ‖c̄‖ watchdogs and ‖ȳ‖.  On the
+    decentralized mesh (``axis``: the state holds this rank's clients)
+    every mean over the clients is all-reduced; ``xbar`` / ``ybar`` are the
+    means where the caller has them."""
     return {
-        "consensus_x": mixing_lib.consensus_error(state.x),
-        "consensus_y": mixing_lib.consensus_error(state.y),
-        "corr_x_norm": kgt.correction_mean_norm(state.cx),
-        "corr_y_norm": kgt.correction_mean_norm(state.cy),
-        "y_bar_norm": kgt.correction_mean_norm(state.y),
+        "consensus_x": mixing_lib.consensus_error(state.x, axis, xbar),
+        "consensus_y": mixing_lib.consensus_error(state.y, axis, ybar),
+        "corr_x_norm": kgt.correction_mean_norm(state.cx, axis),
+        "corr_y_norm": kgt.correction_mean_norm(state.cy, axis),
+        "y_bar_norm": kgt.correction_mean_norm(state.y, axis),
     }
 
 
@@ -46,7 +51,7 @@ def quadratic_metrics_fn(problem: MinimaxProblem):
 
 def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
                    eval_batch: Optional[Any] = None,
-                   compute_dtype=torch.bfloat16):
+                   compute_dtype=torch.bfloat16, axis=None):
     """Metrics of DRO-LM training (what ``launch.train`` logs; reference
     :39), with autograd off.
 
@@ -56,6 +61,12 @@ def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
     per-group losses of the consensus model on data the optimizer never
     trains on.  The model runs through ``models.model.call`` (B5 and B6 on
     the card).
+
+    On the decentralized mesh (``axis``: the state and ``batches`` hold
+    this rank's clients) x̄, ȳ and the consensus terms are all-reduced,
+    client 0's batch is broadcast from its rank (rank 0), and every rank
+    computes the same row on the whole held-out batch (collectives under
+    the phase ``metrics``).
     """
     from repro_torch.models import model as model_lib
 
@@ -68,13 +79,20 @@ def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
 
     @torch.no_grad()
     def metrics(state, batches) -> Dict[str, torch.Tensor]:
-        xbar = kgt.mean_over_clients(state.x)
-        ybar = state.y.mean(0)
+        with collectives.phase("metrics"):
+            return _metrics(state, batches)
+
+    def _metrics(state, batches) -> Dict[str, torch.Tensor]:
+        xbar = kgt.mean_over_clients(state.x, axis)
+        ybar = collectives.clients_mean(state.y, axis)
         train_b = {k: v[0, 0] for k, v in batches.items()}
+        if axis is not None:
+            train_b = {k: collectives.broadcast_from(v, 0, axis)
+                       for k, v in sorted(train_b.items())}
         out = {
             "f_bar": problem.value(xbar, ybar, train_b, None),
             "mean_loss": group_losses(xbar, train_b).mean(),
-            **_consensus_block(state),
+            **_consensus_block(state, axis, xbar, ybar),
         }
         if eval_batch is not None:
             eval_losses = group_losses(xbar, eval_batch)

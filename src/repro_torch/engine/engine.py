@@ -676,13 +676,16 @@ def telemetry_hook(telemetry, *, ledger=None, health_fn=None,
 
 def checkpoint_hook(directory: str, every: int,
                     metadata: Optional[dict] = None,
-                    verbose: bool = False) -> Hook:
+                    verbose: bool = False, save=None) -> Hook:
     """Chunk-boundary checkpointing: saves ``round_%06d.npz`` when the
     boundary crosses a multiple of ``every`` rounds (``state.round`` in the
     name and metadata keeps the resume point exact); pass
     ``boundary_every=every`` to :func:`run` to land on the exact
-    multiples."""
+    multiples.  ``save(path, state, metadata=)`` writes (default
+    ``checkpoint.save``; the decentralized mesh's gathers first)."""
     from repro_torch.checkpoint import checkpoint as ckpt_lib
+
+    save = save or ckpt_lib.save
 
     def hook(state, records, prev_round):
         r = int(state.round)
@@ -691,7 +694,7 @@ def checkpoint_hook(directory: str, every: int,
         path = os.path.join(directory, f"round_{r:06d}.npz")
         meta = dict(metadata or {})
         meta["round"] = r
-        ckpt_lib.save(path, state, metadata=meta)
+        save(path, state, metadata=meta)
         if verbose:
             print(f"[engine] checkpoint -> {path}", flush=True)
 

@@ -47,6 +47,25 @@ def make_dro_sampler(dm: data_lib.DataModel, seed: int, *, local_steps: int,
     return sample
 
 
+def slice_clients(sampler, lo: int, hi: int):
+    """A sampler of one rank of the decentralized mesh: ``sampler``'s
+    round, (K, n, …) batches and noise, cut to the rank's client rows
+    ``[lo, hi)``.  Every rank draws the whole round from the host path's
+    generator, which costs n/(hi − lo) times the draws, so that the mesh
+    trains on exactly the host path's data."""
+
+    def sample(round_idx: int):
+        sampled = sampler(round_idx)
+        if len(sampled) > 2:
+            raise ValueError("slice_clients: per-round extras (W, mask, "
+                             "adversary) do not ride the mesh")
+        batches, noise = sampled
+        return ({k: v[:, lo:hi].contiguous() for k, v in batches.items()},
+                noise[:, lo:hi].contiguous())
+
+    return sample
+
+
 def held_out_eval_batch(dm: data_lib.DataModel, generator: torch.Generator,
                         *, num_clients: int, per_client_batch: int,
                         seq_len: int, cfg=None):

@@ -11,6 +11,7 @@ parallel).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -81,12 +82,27 @@ def _target(name: str) -> Path:
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every missing library of ``names``, all nvcc runs at once."""
+    """Compile every missing library of ``names``, all nvcc runs at once.
+    Processes that build at once (the ranks of a world) take turns on a
+    file lock in the build directory, and each looks again for what the
+    one before it built, so no target is compiled twice."""
     targets = {name: _target(name) for name in names}
-    todo = {name: t for name, t in targets.items() if not t.exists()}
-    if not todo:
+    if all(t.exists() for t in targets.values()):
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            _compile({name: t for name, t in targets.items()
+                      if not t.exists()})
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return targets
+
+
+def _compile(todo: Dict[str, Path]) -> None:
+    if not todo:
+        return
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     procs = {}
@@ -106,7 +122,6 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     stats["build_s"] += time.perf_counter() - t0
     if errors:
         raise RuntimeError("\n".join(errors))
-    return targets
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,0 +1,74 @@
+"""Production and decentralized meshes (port of ``repro.launch.mesh``).
+
+The decentralized logical mesh is ``(clients, fsdp, model)``: one
+K-GT-Minimax client a contiguous block of ``fsdp × model`` ranks.  Here a
+mesh is a ``torch.distributed`` ``DeviceMesh`` over the ranks of a world,
+one rank a device; the production meshes (256 and 512 chips) exist on no
+world this repository starts, so their shapes come as abstract meshes
+(``dist.compat.abstract_mesh``) for spec work.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch.distributed as dist
+
+from repro_torch.configs.base import MeshConfig
+from repro_torch.dist import compat
+from repro_torch.dist.sharding import CLIENTS, FSDP, MODEL
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> compat.AbstractMesh:
+    """The launch-spec serving mesh's shape: (data 16, model 16), or (pod
+    2, data 16, model 16)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return compat.abstract_mesh(dict(zip(axes, shape)))
+
+
+def make_decentralized_mesh(mcfg: MeshConfig) -> compat.AbstractMesh:
+    """The production device array reshaped to (clients, fsdp, model), as
+    an abstract mesh."""
+    prod = make_production_mesh(multi_pod=mcfg.multi_pod)
+    if prod.size != mcfg.devices_needed:
+        raise ValueError(f"{mcfg} needs {mcfg.devices_needed} devices, the "
+                         f"production mesh has {prod.size}")
+    return compat.abstract_mesh({CLIENTS: mcfg.num_clients, FSDP: mcfg.fsdp,
+                                 MODEL: mcfg.model})
+
+
+# per-arch overrides of the decentralized layout: the 70B-class model needs
+# a bigger per-client sub-mesh to fit its f32 tracking state
+_ARCH_MESH = {
+    "internvl2-76b": dict(num_clients=2, fsdp=8),
+    "qwen1.5-32b": dict(num_clients=4, fsdp=4),
+}
+
+
+def decentralized_mesh_config(arch_id: str, *,
+                              multi_pod: bool = False) -> MeshConfig:
+    kw = dict(_ARCH_MESH.get(arch_id, dict(num_clients=4, fsdp=4)))
+    kw["model"] = 16
+    if multi_pod:
+        kw["num_clients"] *= 2  # the clients axis spans the pod dimension
+    return MeshConfig(multi_pod=multi_pod, **kw)
+
+
+def local_mesh(n_ranks: int = None, *, device_type: str = None):
+    """``(clients = n_ranks, 1, 1)`` over the first ``n_ranks`` ranks of
+    the default process group (all of them by default)."""
+    n = n_ranks or dist.get_world_size()
+    return compat.mesh_of(np.arange(n).reshape(n, 1, 1),
+                          (CLIENTS, FSDP, MODEL), device_type=device_type)
+
+
+def fake_mesh(num_clients: int = 2, fsdp: int = 2, model: int = 2):
+    """A decentralized mesh over a CPU world (gloo) of ``num_clients ×
+    fsdp × model`` ranks, for tests and the smoke run (started by
+    ``dist.launch.run_world``)."""
+    need = num_clients * fsdp * model
+    have = dist.get_world_size()
+    if have != need:
+        raise RuntimeError(f"fake_mesh needs a world of {need} ranks, this "
+                           f"one has {have}")
+    return compat.make_mesh((num_clients, fsdp, model),
+                            (CLIENTS, FSDP, MODEL), device_type="cpu")

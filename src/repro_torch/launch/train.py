@@ -18,9 +18,20 @@ metrics, eager), the A/B reference.  It runs on the card unless given
 ``--device cpu``.  The captured chunks take the state over (the engine's
 ``donate``): it lives on the card once, in the graphs' static buffers,
 beside their memory pool.  On the card the run ends by printing its peak
-device memory.  The sharded mesh programs (``--mesh decentralized``) and
-the persistent compile cache (``--compile-cache``) are not ported
-(ROADMAP A13) and raise.
+device memory.  The persistent compile cache (``--compile-cache``) is not
+ported (ROADMAP A13) and raises.
+
+``--mesh decentralized`` spreads the n clients over the R ranks of a
+``torch.distributed`` world (``launch.steps``): each rank holds n/R
+clients, runs their K local steps (B5 and B6 on its card), and the round's
+gossips are the only collectives (``dist.collectives``).  Every rank draws
+the host path's data and initial state and keeps its rows, computes the
+same metrics row from all-reduced means, and rank 0 prints the rows and
+writes ``--out`` and the checkpoints, gathered to the host path's file
+format (a mesh checkpoint resumes on the host path and the reverse).
+Chunks run eagerly on the mesh (``capture=off (mesh)``).  Rank r runs on
+``cuda:(LOCAL_RANK mod device_count)`` over ``--dist-backend`` (``nccl``
+on the card, ``gloo`` on the CPU; two ranks on one card need gloo).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --rounds 48 --chunk 16 --log-every 16
@@ -29,22 +40,29 @@ the persistent compile cache (``--compile-cache``) are not ported
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --device cpu --clients 2 --local-steps 2 --batch 2 \\
       --seq-len 32 --groups 4 --rounds 6
+  PYTHONPATH=src torchrun --standalone --nproc-per-node=2 \\
+      -m repro_torch.launch.train --mesh decentralized --arch qwen2-0.5b \\
+      --reduced --device cpu --clients 4 --local-steps 2 --batch 2 \\
+      --seq-len 32 --groups 4 --rounds 2 --log-every 1
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import engine as engine_lib
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import registry
-from repro_torch.configs.base import AlgorithmConfig, ModelConfig
+from repro_torch.configs.base import (AlgorithmConfig, InputShape, MeshConfig,
+                                      MinimaxConfig, ModelConfig)
 from repro_torch.core import adversary as adversary_lib
 from repro_torch.core import kgt_minimax as kgt
 from repro_torch.core import mixing as mixing_lib
@@ -54,6 +72,8 @@ from repro_torch.core import stochastic_topology as stoch_lib
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.compression import COMPRESS_METHODS
 from repro_torch.data import synthetic as data_lib
+from repro_torch.dist import collectives
+from repro_torch.dist import launch as dist_launch
 from repro_torch.kernels.ops import GOSSIP_BACKENDS
 from repro_torch.optim import schedules
 
@@ -158,15 +178,33 @@ def algorithm_config(args) -> AlgorithmConfig:
 
 
 def _check_unported(args) -> None:
-    if getattr(args, "mesh", "host") != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded mesh programs "
-            "(repro.launch.steps) are not ported yet (ROADMAP A13); run "
-            "--mesh host")
     if getattr(args, "compile_cache", None) is not None:
         raise NotImplementedError(
             "--compile-cache: the persistent compile cache "
             "(repro.sweep.cache) is not ported yet (ROADMAP A13)")
+
+
+def _check_mesh(args, algo: AlgorithmConfig) -> None:
+    """The reference's refusals on the mesh (:254-258), then what the
+    port's mesh does not run yet, then a world to run on."""
+    if (algo.topology_family != "static" or algo.participation_rate < 1.0
+            or algo.num_byzantine > 0):
+        raise ValueError(
+            "--topology-family/--participation/--num-byzantine are not "
+            "supported with --mesh decentralized yet (the sharded chunk "
+            "builder bakes a static W); run on the host mesh")
+    kgt.check_mesh_options(algo)
+    if getattr(args, "telemetry_out", None):
+        # the health gauges read the whole state
+        raise NotImplementedError(
+            "--telemetry-out on the decentralized mesh is not ported yet "
+            "(ROADMAP A13)")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "--mesh decentralized runs on a torch.distributed world: start "
+            "it under torchrun (python -m repro_torch.launch.train does "
+            "that for itself), or call train() in the ranks of "
+            "repro_torch.dist.launch.run_world")
 
 
 def lr_schedule(args) -> Optional[Callable[[int], float]]:
@@ -192,10 +230,19 @@ class Trainer:
     eval_batch: Dict[str, torch.Tensor]
     metrics_fn: Callable
     device: str
+    # this rank's clients on the decentralized mesh (None: the host path)
+    axis: Optional[collectives.ClientsAxis] = None
 
     def build_chunk(self, args, *, capture: Optional[bool] = None):
         """The scan engine's chunks; captured ones take over the state
-        they are given (``donate``)."""
+        they are given (``donate``).  On the mesh (the reference's
+        ``steps.build_train_chunk``) chunks run eagerly."""
+        if self.axis is not None:
+            if capture:
+                raise NotImplementedError(
+                    "captured chunks on the decentralized mesh are not "
+                    "ported yet (ROADMAP A13)")
+            capture = False
         return engine_lib.make_chunk_builder(
             self.round_step, self.sampler, self.metrics_fn,
             log_every=args.log_every, capture=capture, donate=True)
@@ -221,6 +268,9 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
     part = algo.participation_rate < 1.0
     byz = algo.num_byzantine > 0
     n = algo.num_clients
+    on_mesh = getattr(args, "mesh", "host") == "decentralized"
+    if on_mesh:
+        _check_mesh(args, algo)
 
     def gen_of(stream: int) -> torch.Generator:
         g = torch.Generator(device=device)
@@ -234,13 +284,16 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
     problem = objectives.dro_problem(cfg, num_groups=args.groups, mu=args.mu)
     if init_params is not None:
         problem = dataclasses.replace(problem, init_x=lambda gen: init_params)
+    axis = None
+    if on_mesh:
+        round_step, axis = mesh_round(args, cfg, algo, problem, device)
     if init_batch is None:
         init_batch = {k: v[0] for k, v in data_lib.round_batches(
             dm, gen_of(INIT_BATCH_STREAM), local_steps=1, num_clients=n,
             per_client_batch=args.batch, seq_len=args.seq_len,
             cfg=cfg).items()}
     state = kgt.init_state(problem, algo, gen_of(INIT_STREAM),
-                           init_batch=init_batch)
+                           init_batch=init_batch, axis=axis)
     del init_batch
 
     # the per-round sampler (a pure function of the round index) and one
@@ -285,14 +338,52 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
             dm, gen_of(EVAL_BATCH_STREAM), num_clients=n,
             per_client_batch=args.batch, seq_len=args.seq_len, cfg=cfg)
     metrics_fn = engine_lib.dro_metrics_fn(
-        problem, cfg, num_groups=args.groups, eval_batch=eval_batch)
-    round_step = kgt.make_round_step(
-        problem, algo, lr_scale=lr_schedule(args), traced_w=random_w,
-        participation=part, byzantine=byz, device=device)
+        problem, cfg, num_groups=args.groups, eval_batch=eval_batch,
+        axis=axis)
+    if axis is not None:
+        # every rank draws the whole round and keeps its clients' rows
+        sampler = engine_lib.slice_clients(sampler, axis.lo, axis.hi)
+    else:
+        round_step = kgt.make_round_step(
+            problem, algo, lr_scale=lr_schedule(args), traced_w=random_w,
+            participation=part, byzantine=byz, device=device)
     return Trainer(cfg=cfg, algo=algo, data=dm, problem=problem, state=state,
                    round_step=round_step, sampler=sampler,
                    eval_batch=eval_batch, metrics_fn=metrics_fn,
-                   device=device)
+                   device=device, axis=axis)
+
+
+def mesh_round(args, cfg: ModelConfig, algo: AlgorithmConfig, problem,
+               device):
+    """``(round_step, axis)`` of this rank on the ``(clients, 1, 1)`` mesh
+    over the world, weights whole within a client (reference
+    :149-180)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+
+    n = algo.num_clients
+    mesh = mesh_lib.local_mesh(device_type=torch.device(device).type)
+    mcfg = MeshConfig(num_clients=n, fsdp=1, model=1,
+                      param_mode="replicated")
+    shape = InputShape(name="train_cli", seq_len=args.seq_len,
+                       global_batch=args.batch * n, kind="train")
+    return steps_lib.build_train_round(
+        cfg, shape, mesh, mcfg, algo=algo,
+        minimax=MinimaxConfig(num_groups=args.groups, mu=args.mu),
+        lr_scale=lr_schedule(args), problem=problem, device=device)
+
+
+def save_checkpoint(path: str, state: kgt.KGTState, metadata: dict,
+                    axis: Optional[collectives.ClientsAxis] = None) -> None:
+    """``checkpoint.save`` of the whole state: on the mesh every rank's
+    rows are gathered (each rank takes part) and rank 0 writes, in the host
+    path's format."""
+    if axis is not None:
+        with collectives.phase("checkpoint"):
+            state = collectives.gather_tree(state, axis)
+        if axis.rank != 0:
+            return
+    ckpt_lib.save(path, state, metadata=metadata)
 
 
 def _topology_part(algo: AlgorithmConfig) -> str:
@@ -323,9 +414,13 @@ def train(args, **replace) -> dict:
     """A training run (reference :183): ``build``, then ``--rounds`` rounds
     through the scan engine (``engine.run``, captured chunks on the card)
     or the host loop.  ``replace`` goes to :func:`build`.  Returns
-    {"history", "final_consensus", "state"}."""
+    {"history", "final_consensus", "state"}; on the mesh "state" holds this
+    rank's clients, rows ``"clients"`` = [lo, hi) of the whole state, and
+    only rank 0 prints."""
     trainer = build(args, **replace)
     algo, cfg, state = trainer.algo, trainer.cfg, trainer.state
+    axis = trainer.axis
+    lead = axis is None or axis.rank == 0
     # the run owns the state from here: handed over by popping it from a
     # list, so that this frame holds no reference to the initial state
     # (GBs for a language model) while the rounds advance it
@@ -334,14 +429,28 @@ def train(args, **replace) -> dict:
     chunk_rounds = max(1, min(int(getattr(args, "chunk", 16)),
                               max(args.rounds, 1)))
     n_params = sum(x.numel() for x in tree_lib.leaves(state.x))
-    print(f"[train] {cfg.name}: {n_params / 1e6:.2f}M client-stacked "
-          f"params, n={algo.num_clients}, K={algo.local_steps}, "
-          f"{_topology_part(algo)}, algo={algo.algorithm}, "
-          f"engine={engine_mode}"
-          + (f" (chunk={chunk_rounds})" if engine_mode == "scan" else ""),
-          flush=True)
+    mesh_part = ""
+    if axis is not None:
+        n_params *= axis.size
+        mesh_part = (f", mesh=(clients={axis.size}, fsdp=1, model=1) over "
+                     f"{axis.backend}, {axis.n_local} clients a rank, "
+                     "capture=off (mesh)")
+    if lead:
+        print(f"[train] {cfg.name}: {n_params / 1e6:.2f}M client-stacked "
+              f"params, n={algo.num_clients}, K={algo.local_steps}, "
+              f"{_topology_part(algo)}, algo={algo.algorithm}, "
+              f"engine={engine_mode}"
+              + (f" (chunk={chunk_rounds})" if engine_mode == "scan" else "")
+              + mesh_part, flush=True)
 
-    telemetry, ledger, profiler = _build_telemetry(args, algo, cfg, state)
+    if lead:
+        telemetry, ledger, profiler = _build_telemetry(args, algo, cfg,
+                                                       state)
+    else:
+        # the other ranks compute the same rows; rank 0 reports them
+        from repro_torch import obs
+
+        telemetry, ledger, profiler = obs.Telemetry([]), None, None
     del state
     try:
         if engine_mode == "scan":
@@ -353,7 +462,8 @@ def train(args, **replace) -> dict:
             if args.checkpoint_every:
                 hooks.append(engine_lib.checkpoint_hook(
                     args.checkpoint_dir, args.checkpoint_every,
-                    metadata={"arch": cfg.name}, verbose=True))
+                    metadata={"arch": cfg.name}, verbose=lead,
+                    save=functools.partial(save_checkpoint, axis=axis)))
             if profiler is not None:
                 profiler.start()
                 hooks.append(profiler.hook)
@@ -371,14 +481,18 @@ def train(args, **replace) -> dict:
         if profiler is not None:
             profiler.stop()
         telemetry.close()
-    if torch.device(trainer.device).type == "cuda":
+    if torch.device(trainer.device).type == "cuda" and lead:
         print(f"[train] peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    return {
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+              + (" (rank 0)" if axis is not None else ""), flush=True)
+    out = {
         "history": history,
         "final_consensus": history[-1]["consensus_x"] if history else None,
         "state": state,
     }
+    if axis is not None:
+        out["clients"] = [axis.lo, axis.hi]
+    return out
 
 
 def _host_loop(args, state, trainer: Trainer, cfg, telemetry=None,
@@ -409,9 +523,10 @@ def _host_loop(args, state, trainer: Trainer, cfg, telemetry=None,
                 prev_logged = t + 1
         if args.checkpoint_every and (t + 1) % args.checkpoint_every == 0:
             path = os.path.join(args.checkpoint_dir, f"round_{t + 1:06d}.npz")
-            ckpt_lib.save(path, state,
-                          metadata={"round": t + 1, "arch": cfg.name})
-            print(f"[train] checkpoint -> {path}", flush=True)
+            save_checkpoint(path, state, {"round": t + 1, "arch": cfg.name},
+                            trainer.axis)
+            if trainer.axis is None or trainer.axis.rank == 0:
+                print(f"[train] checkpoint -> {path}", flush=True)
     return state, history
 
 
@@ -443,7 +558,12 @@ def parser() -> argparse.ArgumentParser:
                     help="rounds per engine chunk (--engine scan)")
     ap.add_argument("--mesh", default="host",
                     choices=["host", "decentralized"],
-                    help="decentralized: not ported yet (ROADMAP A13)")
+                    help="decentralized: the clients spread over the ranks "
+                         "of a torch.distributed world (run under torchrun; "
+                         "alone, a world of one rank)")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="--mesh decentralized: the process group's backend "
+                         "(default nccl on cuda, gloo on cpu)")
     ap.add_argument("--topology", default="ring")
     ap.add_argument("--topology-family", default="static",
                     choices=list(stoch_lib.TOPOLOGY_FAMILIES))
@@ -483,7 +603,19 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    result = train(args)
+    if args.mesh != "decentralized":
+        result = train(args)
+    else:
+        backend = args.dist_backend or dist_launch.default_backend(
+            args.device)
+        args.device = dist_launch.init_from_env(backend, args.device)
+        try:
+            result = train(args)
+            lead = dist.get_rank() == 0
+        finally:
+            dist.destroy_process_group()
+        if not lead:
+            return
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import ops, ref
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -167,6 +168,7 @@ def block_forward(
     window = _attn_window(kind, cfg)
     q, k, v = attn_lib.qkv_project(params.attn, h, cfg, positions,
                                    compute_dtype)
+    q = dist_ctx.apply("attn_qkv", q)  # optional head-sharding switch
 
     if mode == "decode":
         if cache is None:
@@ -208,6 +210,7 @@ def block_forward(
             vw = v[:, -c_len:].to(cache["v"].dtype).clone()
             new_cache = {"k": kw, "v": vw}
 
+    ctx = dist_ctx.apply("attn_out", ctx)  # back to the residual layout
     y = attn_lib.out_project(params.attn, ctx, compute_dtype)
     x = x + y
 
@@ -240,11 +243,19 @@ def stack_forward(
     5)."""
     new_caches = [] if caches is not None else None
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the last layer of each unit of the block pattern, after which the
+    # residual is re-pinned to the installed layout (the reference's
+    # scanned unit)
+    segs = segments(cfg)
+    unit_ends = [bi == len(segs[si][0]) - 1
+                 for si, _, bi, _ in layer_slots(cfg)]
     for i, layer in enumerate(layers):
         x, nc, a = block_forward(
             layer.kind, layer, x, cfg, mode=mode, positions=positions,
             cache=caches[i] if caches is not None else None, pos=pos,
             compute_dtype=compute_dtype, kernels=kernels)
+        if unit_ends[i]:
+            x = dist_ctx.apply_residual(x)
         total_aux = total_aux + a
         if caches is not None:
             new_caches.append(nc)

@@ -52,7 +52,11 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.launch.train", "repro_torch.optim.schedules",
                "repro_torch.optim.optimizers",
                "repro_torch.serving.scheduler", "repro_torch.serving.decode",
-               "repro_torch.launch.serve_example")
+               "repro_torch.launch.serve_example",
+               "repro_torch.dist.context", "repro_torch.dist.compat",
+               "repro_torch.dist.sharding", "repro_torch.dist.collectives",
+               "repro_torch.dist.launch", "repro_torch.launch.mesh",
+               "repro_torch.launch.steps", "repro_torch.launch.smoke")
 
 
 def _env():

@@ -22,8 +22,9 @@ Tolerances, max |port − JAX| ≤ tol·(1 + max|JAX|):
 
 The port alone: the scan engine against the host loop record for record
 (eagerly and through a fake CUDA graph), a checkpoint resume bit for bit,
-the unported mesh and compile cache refused, the CLI, and the autograd
-Functions of B5 and B6 with the plain forward swapped in for the launch:
+a per-round W on the mesh and the unported compile cache refused, the
+CLI, and the autograd Functions of B5 and B6 with the plain forward
+swapped in for the launch:
 their gradients under ``grad`` and ``vmap(grad)`` equal the plain
 version's autograd, and their ``vmap`` rules launch as documented.
 """
@@ -381,11 +382,16 @@ def test_checkpoint_resume_is_bit_for_bit(tmp_path):
     assert _strip(hist) == _strip(full["history"][2:])
 
 
-@pytest.mark.parametrize("flag,value", [("mesh", "decentralized"),
-                                        ("compile_cache", "on")])
-def test_unported_mesh_and_compile_cache_are_refused(flag, value):
-    with pytest.raises(NotImplementedError, match="A13"):
-        t_train.build(_port_args(**{flag: value}))
+@pytest.mark.parametrize("over,error,match", [
+    # the mesh runs (tests/test_torch_mesh_train.py); a per-round W on it
+    # is refused as the reference refuses it (repro/launch/train.py:254)
+    (dict(mesh="decentralized", topology_family="erdos_renyi"), ValueError,
+     "not supported with --mesh decentralized"),
+    (dict(compile_cache="on"), NotImplementedError, "A13")],
+    ids=["mesh-decentralized", "compile_cache-on"])
+def test_unported_mesh_and_compile_cache_are_refused(over, error, match):
+    with pytest.raises(error, match=match):
+        t_train.build(_port_args(**over))
 
 
 def test_cli_runs_and_writes_its_history(tmp_path, capsys):
