@@ -122,14 +122,31 @@ Phases, each printing one JSON line:
    TRAIN_LAYERS, n = 4, K = 4, 4 × 128 tokens a client) over a world of
    2 ranks (``dist.launch.run_world``: NCCL with a card a rank where the
    machine has two, else both ranks on cuda:0 over gloo), 2 clients a
-   rank: three rounds through ``--engine host`` and through ``--engine
-   scan`` (eager chunks) held to the host path run here from the same
+   rank: MESH_ROUNDS (2) rounds through ``--engine host`` and through
+   ``--engine scan`` (eager chunks) held to the host path run here from the same
    seed (TOL_MESH_X / TOL_MESH_Y, printed before the reading), Σc = 0,
    B5's and B6's launches by route on every rank, no collective in the
    local steps, the gossip's collectives and bytes a round against the
    formula; one round of fused_ring (the neighbour exchange); a world of
    1 over NCCL, one round, bit for bit the host path; rounds/s, tokens/s,
    communication s a round and peak memory per rank.
+15c. serve_mesh — the serving mesh (``launch.steps.build_prefill_step``
+   and ``build_decode_step`` on a ``(data, model)`` mesh, tensor
+   parallelism from ``dist.tensor_parallel``): qwen2-0.5b at full width
+   (24 layers, bf16) prefilling 4 × 4096 tokens and decoding 32, over a
+   world of 2 ranks (NCCL with a card a rank, else both on cuda:0 over
+   gloo) at (data 1, model 2) and (data 2, model 1), held to the single
+   process (``serve_single_process``, run here first) at
+   TOL_SERVE: the last logits, the caches gathered over heads and rows,
+   32 teacher-forced decode steps' logits; the model ranks' logits and
+   samples alike; B5 24 launches a prefill on every rank on tensor cores
+   (at (4, 4096, 7, 1, 64) on a model rank, held against its plain version
+   and timed beside SDPA and its bound); the collectives and bytes a rank
+   against the printed formula; a 2-layer f32 prefill at (1, 2) at
+   TOL_SERVE_F32; a world of 1 over NCCL bit for bit the single process;
+   prefill s, decode ms a token, tokens/s, communication s, staged GB and
+   peak GB a rank.  The mesh's decode runs eagerly (a gloo collective
+   cannot be captured).
 16. train_ssm — federated DRO training of the other block kinds:
    mamba2-1.3b at full width (d_model 2048, V = 50 280; bf16 compute, f32
    state) at the reference's train defaults but n = 2, cut in depth
@@ -164,8 +181,8 @@ Phases, each printing one JSON line:
 19. scheduler — the continuous-batching engine
    (``repro_torch.serving.ServingEngine``: every slot at its own
    position, one CUDA graph a tick) at full width on qwen2-0.5b (16 slots,
-   caches of 1024, 40 requests of 32–512 prompt and 16–128 new tokens:
-   1127 ticks), granite-moe-1b-a400m, musicgen-medium and mamba2-1.3b
+   caches of 1024, 20 requests of 32–512 prompt and 16–128 new tokens),
+   granite-moe-1b-a400m, musicgen-medium and mamba2-1.3b
    (SCHED_CASES), eagerly and captured with the same noise: every tick's
    samples, the outputs, the final caches and logits bit for bit, no
    kernel launched; ticks, ms a tick, generated and prompt tokens/s,
@@ -177,8 +194,8 @@ Phases, each printing one JSON line:
    ROADMAP §C quirk 6).
 
 Phases 12–14 run after the sweep phase, before serve; phase 19 right
-after serve; phases 15 to 18 (15b, mesh, right after train) after
-evaluate, before times.
+after serve; phases 15 to 18 (15b, mesh, right after train, and 15c,
+serve_mesh, right after mesh) after evaluate, before times.
 
 ``--phases card,build,profile`` adds a torch.profiler pass over a few
 engine rounds per lowering, eager and captured (device busy share, top
@@ -207,8 +224,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "scheduler",
-          "evaluate", "train", "mesh", "train_ssm", "moe", "frontends",
-          "times")
+          "evaluate", "train", "mesh", "serve_mesh", "train_ssm", "moe",
+          "frontends", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor), dense
@@ -326,9 +343,22 @@ RATE_TURNS = (False, True)
 # path batches 4, so batched GEMMs may round otherwise
 MESH_WORLD = 2
 TOL_MESH_X, TOL_MESH_Y = TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y
-# the mesh's main runs log rounds 0 and TRAIN_ROUNDS − 1 (each logged row
-# all-reduces x̄ and c̄x: GBs through gloo on one card)
-MESH_LOG_EVERY = TRAIN_ROUNDS - 1
+# the mesh's main runs: MESH_ROUNDS rounds (one fewer than TRAIN_ROUNDS, to
+# pay for the serve_mesh phase: PERF.md §6), logging rounds 0 and
+# MESH_ROUNDS − 1 (each logged row all-reduces x̄ and c̄x: GBs through gloo
+# on one card)
+MESH_ROUNDS = 2
+MESH_LOG_EVERY = MESH_ROUNDS - 1
+# the serving mesh (phase serve_mesh): qwen2-0.5b at full width (24 layers,
+# bf16) serving SERVE_MESH_B prompts of SERVE_MESH_PROMPT tokens and
+# SERVE_MESH_GEN new tokens over a world of SERVE_MESH_WORLD ranks at each
+# (data, model) of SERVE_MESH_SHAPES, held to the single process at
+# TOL_SERVE; the f32 prefill at SERVE_MESH_F32_LAYERS layers at
+# TOL_SERVE_F32; each step's samples drawn from SERVE_MESH_SAMPLE_SEED
+SERVE_MESH_ARCH, SERVE_MESH_WORLD = "qwen2-0.5b", 2
+SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_GEN = 4, 4096, 32
+SERVE_MESH_SHAPES = ((1, 2), (2, 1))
+SERVE_MESH_F32_LAYERS, SERVE_MESH_SAMPLE_SEED = 2, 1
 # federated DRO training of the other block kinds: mamba2-1.3b at full
 # width through B7 and B6, at the reference's train defaults but n = 2 (its
 # state at n = 4 does not leave the working set room on the card: PERF.md
@@ -373,18 +403,20 @@ VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
 # temperatures SCHED_TEMPS in turn, eagerly and through the captured tick;
 # then SCHED_F32's requests in f32 compute, 4 slots so that slots are
 # reused.  Cut for the phase's 150 s (PERF.md §6): eager ticks are
-# host-bound at 48–102 ms, so qwen2-0.5b serves 40 requests (1127 ticks),
-# musicgen-medium and mamba2-1.3b 12 (mamba2's shorter), and the f32
-# requests are short and captured (a MoE model's run eagerly)
+# host-bound at 48–102 ms, so qwen2-0.5b serves 20 requests on 16 slots
+# and the others 9 on 8 (cut from 40, 16, 12 and 12 to pay for the
+# serve_mesh phase: PERF.md §6; one request more than slots, so that every
+# model admits a request into a reused slot), and the f32 requests are
+# short and captured (a MoE model's run eagerly)
 SCHED_SEED, SCHED_TEMPS = 0, (1.0, 0.7)
 SCHED_CASES = (
-    ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=40,
+    ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=20,
                         prompt=(32, 512), new=(16, 128))),
-    ("granite-moe-1b-a400m", dict(slots=8, max_len=512, requests=16,
+    ("granite-moe-1b-a400m", dict(slots=8, max_len=512, requests=9,
                                   prompt=(16, 128), new=(8, 64))),
-    ("musicgen-medium", dict(slots=8, max_len=512, requests=12,
+    ("musicgen-medium", dict(slots=8, max_len=512, requests=9,
                              prompt=(16, 128), new=(8, 64))),
-    ("mamba2-1.3b", dict(slots=8, max_len=512, requests=12,
+    ("mamba2-1.3b", dict(slots=8, max_len=512, requests=9,
                          prompt=(16, 64), new=(8, 32))),
 )
 SCHED_F32 = dict(slots=4, max_len=160, requests=8, prompt=(8, 32),
@@ -1012,9 +1044,11 @@ FLASH_TC_CASES = [
 # the shapes of the moe and frontends phases: granite-moe-1b-a400m's
 # (16/8 heads of 64) vmapped train step at n = 2 and its prefill; musicgen's
 # 24/24 heads of 64 at 1500 frames; internvl2-76b's 64/8 heads of 128 over
-# 256 prefix embeddings and 2048 tokens
+# 256 prefix embeddings and 2048 tokens; qwen2-0.5b's prefill on a model
+# rank of the serving mesh (7 query heads over 1 KV head)
 MODEL_FLASH_CASES = [
     (8, 128, 128, 16, 8, 64, 0, True),
+    (4, 4096, 4096, 7, 1, 64, 0, True),
     (4, 4096, 4096, 16, 8, 64, 0, True),
     (4, 1500, 1500, 24, 24, 64, 0, True),
     (2, 2304, 2304, 64, 8, 128, 0, True),
@@ -3105,6 +3139,11 @@ def scheduler_case(dev, arch, case, *, smi) -> dict:
     model = model_lib.init_params(cfg, generator=gen, device=dev,
                                   dtype=torch.bfloat16)
     what = f"scheduler {arch}"
+    if case["requests"] <= case["slots"]:
+        # FIFO admission: every request past the slots' count enters a
+        # slot that another request left
+        fail(f"{what}: {case['requests']} requests on {case['slots']} "
+             "slots admit none into a reused slot")
     reqs = sched_requests(cfg, requests=case["requests"],
                           prompt=case["prompt"], new=case["new"])
     with torch.no_grad():
@@ -3116,6 +3155,7 @@ def scheduler_case(dev, arch, case, *, smi) -> dict:
     res = {"phase": "scheduler", "arch": arch, "nvidia_smi": smi,
            "slots": case["slots"], "max_len": case["max_len"],
            "prompt_len": list(case["prompt"]), "new_tokens": list(case["new"]),
+           "reused_slot_admissions": case["requests"] - case["slots"],
            **out, "f32": f32, "f32_held": held,
            "f32_held_requests": "fresh slots only" if carries else "all",
            "tol_f32": TOL_SERVE_F32}
@@ -3996,8 +4036,8 @@ def phase_mesh(dev, smi) -> dict:
     ranks started by ``dist.launch.run_world`` (NCCL, one card a rank,
     where the machine has two cards; else both ranks on ``cuda:0`` over
     gloo).  The host path runs first in this process from the same seed
-    (``--engine host``, TRAIN_ROUNDS rounds and one); then on the mesh
-    TRAIN_ROUNDS rounds through ``--engine host`` and through ``--engine
+    (``--engine host``, MESH_ROUNDS rounds and one); then on the mesh
+    MESH_ROUNDS rounds through ``--engine host`` and through ``--engine
     scan`` (eager chunks), held to the host path's state at
     TOL_MESH_X / TOL_MESH_Y (printed before the reading), Σc = 0 (the
     scan run), B5's and B6's launches on every rank by route, no
@@ -4031,21 +4071,21 @@ def phase_mesh(dev, smi) -> dict:
               "sigma_c_limit": TOL_SIGMA_C})
         # the host path from the same seed, in this process
         ref = {}
-        for rounds in (TRAIN_ROUNDS, 1):
+        for rounds in (MESH_ROUNDS, 1):
             res = train_lib.train(train_args(device=dev, engine="host",
                                              rounds=rounds,
                                              log_every=MESH_LOG_EVERY))
             ref[rounds] = {"history": strip_stamps(res["history"]),
                            "fingerprints": state_fingerprints(res["state"])}
-            if rounds == TRAIN_ROUNDS:
+            if rounds == MESH_ROUNDS:
                 save_rows(res["state"], os.path.join(store, "rows"))
             del res
             gc.collect()
             torch.cuda.empty_cache()
         host_s = time.perf_counter() - t_phase
-        runs = [dict(name="host", engine="host", rounds=TRAIN_ROUNDS,
+        runs = [dict(name="host", engine="host", rounds=MESH_ROUNDS,
                      impl="dense", rows_dir=os.path.join(store, "rows")),
-                dict(name="scan", engine="scan", rounds=TRAIN_ROUNDS,
+                dict(name="scan", engine="scan", rounds=MESH_ROUNDS,
                      impl="dense", rows_dir=os.path.join(store, "rows"),
                      sigma_c=True),
                 dict(name="fused_ring", engine="host", rounds=1,
@@ -4069,9 +4109,9 @@ def phase_mesh(dev, smi) -> dict:
         one_s = time.perf_counter() - t0
 
     n_local = TRAIN_N // MESH_WORLD
-    logged = len(ref[TRAIN_ROUNDS]["history"])
+    logged = len(ref[MESH_ROUNDS]["history"])
     want_launches = train_launches(cfg, n=n_local, k=TRAIN_K,
-                                   rounds=TRAIN_ROUNDS, logged=logged)
+                                   rounds=MESH_ROUNDS, logged=logged)
     routed = {k: v for k, v in model_routes(torch.bfloat16).items()
               if want_launches[k]}
     tokens = TRAIN_N * TRAIN_K * TRAIN_B * TRAIN_S
@@ -4095,7 +4135,7 @@ def phase_mesh(dev, smi) -> dict:
                         cfg, TRAIN_N, MESH_WORLD, run["impl"]).items()}
             if gossip != want:
                 fail(f"{what}: gossip collectives {gossip}, expected {want}")
-            if run["rounds"] == TRAIN_ROUNDS:
+            if run["rounds"] == MESH_ROUNDS:
                 if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
                                        **want_launches}:
                     fail(f"{what}: launches {rec['launches']}, expected "
@@ -4170,6 +4210,485 @@ def phase_mesh(dev, smi) -> dict:
     # the scan run's, on rank 0 (every rank launches as many)
     out["launches"] = dict(ranks[0][1]["launches"])
     out["launches_by_route"] = {k: ranks[0][1]["routes"][k] for k in routed}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15c: the serving mesh
+# ---------------------------------------------------------------------------
+
+def serve_mesh_inputs(cfg, dev, dtype, seed=0):
+    """``launch.serve.serve``'s draws: the weights in ``dtype``, then
+    SERVE_MESH_B prompts of SERVE_MESH_PROMPT tokens, from one generator
+    seeded with ``seed`` (every rank draws the same)."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = model_lib.init_params(cfg, generator=gen, device=dev, dtype=dtype)
+    prompt = torch.randint(0, cfg.vocab_size,
+                           (SERVE_MESH_B, SERVE_MESH_PROMPT), generator=gen,
+                           device=dev)
+    return model, prompt
+
+
+def serve_single_process(model, prompt, gen_tokens, generator) -> dict:
+    """The serving mesh's single-process reference in bf16: one prefill
+    (``models.model.forward``) into caches of the prompt's length, grown
+    for the new tokens (``grow_caches``), then ``gen_tokens`` eager
+    ``decode_step`` calls at (B,) positions, each fed the token sampled
+    (``launch.serve.sample``) from the step before.  Returns the last
+    logits then each step's, the fed tokens, the prefill's caches and the
+    seconds."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    cfg, dt = model.cfg, torch.bfloat16
+    b, p = prompt.shape[:2]
+    with torch.no_grad():
+        caches = model_lib.init_cache(cfg, b, p, dtype=dt,
+                                      device=prompt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _ = model_lib.forward(
+            model, {"tokens": prompt}, mode="prefill", compute_dtype=dt,
+            caches=caches, last_only=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_caches = caches
+        caches = [{k: v.clone() for k, v in c.items()}
+                  for c in model_lib.grow_caches(cfg, caches, p + gen_tokens)]
+        outs, toks = [logits], []
+        t0 = time.perf_counter()
+        for i in range(gen_tokens):
+            tok = serve_lib.sample(logits, 1.0, generator)
+            toks.append(tok)
+            logits, caches = model_lib.decode_step(
+                model, caches, tok,
+                torch.full((b,), p + i, device=prompt.device),
+                compute_dtype=dt)
+            outs.append(logits)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return {"logits": torch.cat(outs, dim=1), "tokens": torch.cat(toks, dim=1),
+            "prefill_caches": prefill_caches, "prefill_s": prefill_s,
+            "decode_s": decode_s}
+
+
+def weights_fingerprint(model) -> list:
+    """Each parameter's f64 sum: what the ranks' own draws must give."""
+    return [float(p.double().sum()) for p in model.parameters()]
+
+
+def serve_mesh_formula(cfg, nb, s, t, m, elt) -> dict:
+    """The collectives of one rank at m model ranks: a prefill makes
+    2L + 1 all-reduces of nb·S·d f32 elements (after each layer's
+    out-projection and MLP, and of the embedding rows) and one all-gather
+    of the last logits' vocab pieces ((m − 1)·nb·⌈V/m⌉ in the compute
+    dtype); a decode step the same at S = 1.  None at m = 1."""
+    if m == 1:
+        return {}
+    from repro_torch.dist import tensor_parallel as tp
+
+    vmax = max(tp.pieces(cfg.vocab_size, m, "vocab_size"))
+
+    def step(seq, k):
+        return {"all_reduce": {"calls": k * (2 * cfg.num_layers + 1),
+                               "bytes": k * (2 * cfg.num_layers + 1) * nb
+                               * seq * cfg.d_model * 4},
+                "all_gather": {"calls": k,
+                               "bytes": k * (m - 1) * nb * vmax * elt}}
+
+    return {"prefill": step(s, 1), "decode": step(1, t)}
+
+
+def rank_device() -> str:
+    """The card a spawned rank runs on (``dist.launch.run_world`` set
+    it)."""
+    import torch
+
+    return f"cuda:{torch.cuda.current_device()}"
+
+
+def serve_mesh_rank(rank, world, spec):
+    """One rank of the serve_mesh phase: the serving meshes
+    SERVE_MESH_SHAPES over this world, qwen2-0.5b drawn here from the
+    parent's seed (its prompts and weights' fingerprint checked against
+    the parent's), a short warm-up, then on each mesh one prefill of the
+    parent's prompts and SERVE_MESH_GEN decode steps fed the parent's
+    tokens (``launch.serve.generate_on_mesh``), the kernels' launches by
+    route and the collectives counted around each; the model ranks'
+    samples from every step's logits compared; then the f32 prefill at
+    SERVE_MESH_F32_LAYERS layers on (1, 2)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device()
+    meshes = {shape: mesh_lib.serve_mesh(*shape)
+              for shape in SERVE_MESH_SHAPES}
+    cfg = registry.get_model_config(SERVE_MESH_ARCH)
+    model, prompt = serve_mesh_inputs(cfg, dev, torch.bfloat16)
+    if not torch.equal(prompt.cpu(), spec["prompt"]):
+        raise AssertionError(f"rank {rank} drew other prompts")
+    if weights_fingerprint(model) != spec["fingerprint"]:
+        raise AssertionError(f"rank {rank} drew other weights")
+    params = model_lib.param_dict(model)
+    del model
+    forced = spec["tokens"].to(dev)
+    # whether the backend sums bf16 itself (the partial sums cross in f32)
+    probe = torch.tensor([1.0, 2.0 ** -8], dtype=torch.bfloat16,
+                         device=dev) * (rank + 1)
+    try:
+        bf16_sum = collectives.all_reduce_sum(
+            probe, meshes[(1, 2)].model_axis).float().tolist()
+    except Exception as e:  # a probe: its failure is the answer
+        bf16_sum = f"{type(e).__name__}: {e}"
+    # a short warm-up on the first mesh: library loads, cuBLAS handles
+    serve_lib.generate_on_mesh(meshes[SERVE_MESH_SHAPES[0]], cfg, params,
+                               prompt[:, :256], 1, forced=forced[:, :1])
+    out = []
+    for shape in SERVE_MESH_SHAPES:
+        mesh = meshes[shape]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        res = serve_lib.generate_on_mesh(mesh, cfg, params, prompt,
+                                         SERVE_MESH_GEN, forced=forced)
+        launches, routes = launch_counts(), route_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # each step's sample (a generator seeded alike on every rank)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SERVE_MESH_SAMPLE_SEED)
+        sampled = torch.cat([serve_lib.sample(res.logits[:, i:i + 1], 1.0,
+                                              gen)
+                             for i in range(res.logits.shape[1])], dim=1)
+        with collectives.phase("check"):
+            every = collectives.all_gather_rows(sampled[None],
+                                                mesh.model_axis)
+        out.append({"shape": shape, "rank": rank,
+                    "device": dev, "batch_rank": mesh.batch_axis.rank,
+                    "model_rank": mesh.model_axis.rank,
+                    "rows": (res.rows.start, res.rows.stop),
+                    "logits": res.logits.cpu(),
+                    "caches": [{k: v.cpu() for k, v in c.items()}
+                               for c in res.prefill_caches],
+                    "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                    "collectives": res.collectives,
+                    "launches": launches, "routes": routes,
+                    "launches_prefill": res.launches["prefill"],
+                    "launches_decode": res.launches["decode"],
+                    "peak_memory_gb": peak,
+                    "same_tokens": res.same_tokens,
+                    "same_samples": bool((every == sampled[None]).all()),
+                    "gloo_bf16_sum": bf16_sum})
+        del res
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32_LAYERS)
+    model32, prompt32 = serve_mesh_inputs(cfg32, dev, torch.float32)
+    res = serve_lib.generate_on_mesh(
+        meshes[(1, 2)], cfg32, model_lib.param_dict(model32), prompt32, 0,
+        compute_dtype=torch.float32)
+    out.append({"shape": "f32", "rank": rank,
+                "model_rank": meshes[(1, 2)].model_axis.rank,
+                "logits": res.logits.cpu(),
+                "caches": [{k: v.cpu() for k, v in c.items()}
+                           for c in res.prefill_caches]})
+    return out
+
+
+def gather_mesh_serve(recs):
+    """The mesh's logits (B, steps, V) and prefill caches (per layer) from
+    its ranks: every model rank's logits bit for bit alike (else None), the
+    rows in batch-rank order, the KV heads in model-rank order."""
+    import torch
+
+    by_b = {}
+    for r in recs:
+        by_b.setdefault(r.get("batch_rank", 0), []).append(r)
+    logits, caches, alike = [], None, True
+    for b in sorted(by_b):
+        group = sorted(by_b[b], key=lambda r: r["model_rank"])
+        alike &= all(torch.equal(r["logits"], group[0]["logits"])
+                     for r in group[1:])
+        logits.append(group[0]["logits"])
+        layers = group[0]["caches"]
+        if len(group) > 1:
+            layers = [{k: torch.cat([r["caches"][i][k] for r in group],
+                                    dim=2) for k in layers[i]}
+                      for i in range(len(layers))]
+        caches = layers if caches is None else [
+            {k: torch.cat([c[k], lay[k]]) for k in c}
+            for c, lay in zip(caches, layers)]
+    return torch.cat(logits), caches, alike
+
+
+def caches_rel_err(got, want) -> float:
+    return max(rel_err(g[k], w[k].cpu()) for g, w in zip(got, want)
+               for k in g)
+
+
+def b5_shard_times(gen, dev, cfg, m) -> dict:
+    """B5 at a model rank's shard of the served prefill, bf16 causal:
+    (SERVE_MESH_B, SERVE_MESH_PROMPT, H/m, KV/m, D) on its tensor-core
+    route against its plain version (TOL_ATTN_BF16), with the kernel's,
+    the plain version's and SDPA's times and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    b, s = SERVE_MESH_B, SERVE_MESH_PROMPT
+    h, kv, d = cfg.num_heads // m, cfg.num_kv_heads // m, cfg.resolved_head_dim
+    q, k, v = attn_operands(b, s, s, h, kv, d, torch.bfloat16, gen, dev)
+    got = routed_call(lambda: flash_attention.flash_attention_bshd(
+        q, k, v, causal=True), "flash_attention", "tensor_core")
+    want = ref.attention_ref(q, k, v, causal=True)
+    err, rel = max_err(got.float(), want.float()), rel_err(got, want)
+    del want
+    if not rel <= TOL_ATTN_BF16:
+        fail(f"flash_attention at the shard shape: {rel} > {TOL_ATTN_BF16} "
+             "× (1 + max)")
+    del got
+    ms = cuda_ms(lambda: flash_attention.flash_attention_bshd(
+        q, k, v, causal=True), reps=21)
+    pms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), reps=5)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
+              for x in (k, v))
+    lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), reps=21)
+    bound, by = attn_bound_ms(b, s, s, h, kv, d, 0, 2, BF16_FLOP_S)
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, h, kv, d], ms=ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bound, bound_by=by, max_abs_err=err, rel_err=rel,
+                tol=TOL_ATTN_BF16,
+                library="F.scaled_dot_product_attention(is_causal=True), "
+                        f"k/v expanded to {h} heads")
+
+
+def phase_serve_mesh(dev, gen, smi) -> dict:
+    """The serving mesh (``launch.steps.build_prefill_step`` /
+    ``build_decode_step`` through ``launch.serve.generate_on_mesh``):
+    qwen2-0.5b at full width (24 layers, seed-0 bf16 weights) prefilling
+    SERVE_MESH_B × SERVE_MESH_PROMPT tokens, then decoding SERVE_MESH_GEN.
+    The single-process path first, in this process
+    (:func:`serve_single_process`, its decode eager), and B5 at a model rank's
+    shard shape against its plain version, timed beside SDPA and its
+    bound; then a world of SERVE_MESH_WORLD ranks (NCCL with a card a rank
+    where the machine has two, else both on ``cuda:0`` over gloo) on
+    ``(data 1, model 2)`` and ``(data 2, model 1)``: the last logits, the
+    caches gathered over heads and rows, and every teacher-forced decode
+    step's logits held to the single process at TOL_SERVE, the model
+    ranks' logits and samples alike, B5 24 launches a prefill on every
+    rank on tensor cores and none in decode, the collectives and bytes a
+    rank against ``serve_mesh_formula``; the f32 prefill at
+    SERVE_MESH_F32_LAYERS layers on (1, 2) at TOL_SERVE_F32; and a world of
+    1 over NCCL in this process, bit for bit the single process."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import launch as dist_launch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import model as model_lib
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SERVE_MESH_WORLD else "gloo"
+    t_phase = time.perf_counter()
+    cfg = registry.get_model_config(SERVE_MESH_ARCH)
+    emit({"phase": "serve_mesh", "case": "plan", "arch": SERVE_MESH_ARCH,
+          "world": SERVE_MESH_WORLD, "backend": backend, "cards": cards,
+          "placement": ("one card a rank" if backend == "nccl"
+                        else "both ranks on cuda:0, every byte staged "
+                             "through pinned host memory"),
+          "meshes": [list(s) for s in SERVE_MESH_SHAPES],
+          "batch": SERVE_MESH_B, "prompt": SERVE_MESH_PROMPT,
+          "new_tokens": SERVE_MESH_GEN, "reduce_dtype": "float32",
+          "tolerance_bf16": TOL_SERVE, "tolerance_f32": TOL_SERVE_F32,
+          "f32_layers": SERVE_MESH_F32_LAYERS,
+          "decode": "eager (a gloo collective cannot be captured)"})
+    # the single process: bf16 at full depth, then f32 at 2 layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, prompt = serve_mesh_inputs(cfg, dev, torch.bfloat16)
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(SERVE_MESH_SAMPLE_SEED)
+    zero_launch_counts()
+    ref = serve_single_process(model, prompt, SERVE_MESH_GEN, gen_s)
+    ref_launches = launch_counts()
+    ref_peak = torch.cuda.max_memory_allocated() / 1e9
+    fingerprint = weights_fingerprint(model)
+    cfg32 = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32_LAYERS)
+    model32, prompt32 = serve_mesh_inputs(cfg32, dev, torch.float32)
+    with torch.no_grad():
+        logits32, caches32, _ = model_lib.forward(
+            model32, {"tokens": prompt32}, mode="prefill",
+            compute_dtype=torch.float32, last_only=True,
+            caches=model_lib.init_cache(cfg32, SERVE_MESH_B,
+                                        SERVE_MESH_PROMPT,
+                                        dtype=torch.float32, device=dev))
+    logits32 = logits32.cpu()
+    caches32 = [{k: v.cpu() for k, v in c.items()} for c in caches32]
+    del model32, prompt32
+    b5 = b5_shard_times(gen, dev, cfg, 2)
+    emit({"phase": "serve_mesh", "kernel": "flash_attention",
+          "case": "a model rank's shard of the served prefill",
+          "nvidia_smi": smi, **b5})
+    single_s = time.perf_counter() - t_phase
+    want_b5 = cfg.blocks().count("attn")
+    if ref_launches["flash_attention"] != want_b5:
+        fail(f"serve_mesh single process: {ref_launches['flash_attention']} "
+             f"B5 launches, expected {want_b5}")
+    spec = {"prompt": prompt.cpu(), "tokens": ref["tokens"].cpu(),
+            "fingerprint": fingerprint}
+    ref_logits = ref["logits"].cpu()
+    ref_caches = [{k: v.cpu() for k, v in c.items()}
+                  for c in ref["prefill_caches"]]
+    ref_times = {"prefill_s": ref["prefill_s"], "decode_s": ref["decode_s"]}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = dist_launch.run_world(
+            SERVE_MESH_WORLD, serve_mesh_rank, spec, backend=backend,
+            store_dir=store, device="cuda")
+    world_s = time.perf_counter() - t0
+    out = {"world": SERVE_MESH_WORLD, "backend": backend,
+           "single_process": {**ref_times, "peak_memory_gb": ref_peak,
+                              "launches": ref_launches},
+           "b5_shard": b5}
+    tokens = SERVE_MESH_B * SERVE_MESH_GEN
+    launches_by_rank = {}
+    for shape in SERVE_MESH_SHAPES:
+        recs = [r for rk in ranks for r in rk if r["shape"] == shape]
+        logits, caches, alike = gather_mesh_serve(recs)
+        what = f"serve_mesh {shape}"
+        if not alike:
+            fail(f"{what}: the model ranks' logits differ")
+        if not all(r["same_tokens"] and r["same_samples"] for r in recs):
+            fail(f"{what}: the ranks of a model group sampled apart")
+        err_prefill = rel_err(logits[:, :1], ref_logits[:, :1])
+        err_decode = max(rel_err(logits[:, i:i + 1], ref_logits[:, i:i + 1])
+                         for i in range(1, logits.shape[1]))
+        err_caches = caches_rel_err(caches, ref_caches)
+        for name, e in (("prefill logits", err_prefill),
+                        ("decode logits", err_decode),
+                        ("caches", err_caches)):
+            if not e <= TOL_SERVE:
+                fail(f"{what}: {name} differ by {e} > {TOL_SERVE} × (1 + max)")
+        nb = SERVE_MESH_B // shape[0]
+        want_comm = serve_mesh_formula(cfg, nb, SERVE_MESH_PROMPT,
+                                       SERVE_MESH_GEN, shape[1], 2)
+        for r in recs:
+            got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
+                        for k, v in kinds.items()}
+                   for ph, kinds in r["collectives"].items()
+                   if ph in ("prefill", "decode")}
+            if got != want_comm:
+                fail(f"{what} rank {r['rank']}: collectives {got}, "
+                     f"expected {want_comm}")
+            want_l = {**dict.fromkeys(r["launches"], 0),
+                      "flash_attention": want_b5}
+            if (r["launches"] != want_l
+                    or r["launches_prefill"] != want_l
+                    or r["routes"]["flash_attention"]["tensor_core"]
+                    != want_b5):
+                fail(f"{what} rank {r['rank']}: launches {r['launches']} "
+                     f"(prefill {r['launches_prefill']}), routes "
+                     f"{r['routes']['flash_attention']}; expected {want_l}, "
+                     "all on tensor cores")
+        comm_s = [sum(v["seconds"] for ph in ("prefill", "decode")
+                      for v in r["collectives"].get(ph, {}).values())
+                  for r in recs]
+        decode_s = max(r["decode_s"] for r in recs)
+        line = {"mesh": list(shape), "rows_by_rank": [r["rows"] for r in recs],
+                "devices_by_rank": [r["device"] for r in recs],
+                "rel_err_prefill_logits": err_prefill,
+                "rel_err_decode_logits": err_decode,
+                "rel_err_caches": err_caches,
+                "prefill_s_by_rank": [r["prefill_s"] for r in recs],
+                "decode_ms_a_token_by_rank": [1e3 * r["decode_s"]
+                                              / SERVE_MESH_GEN for r in recs],
+                "tokens_per_s": tokens / decode_s,
+                "comm_s_by_rank": comm_s,
+                "collectives_by_rank": [r["collectives"] for r in recs],
+                "formula_a_rank": want_comm,
+                "staged_gb_by_rank": [r["collectives"]["staged_bytes"] / 1e9
+                                      for r in recs],
+                "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in recs],
+                "launches_by_route_by_rank": [r["routes"]["flash_attention"]
+                                              for r in recs],
+                "bf16_sum_probe_by_rank": [r["gloo_bf16_sum"] for r in recs]}
+        launches_by_rank["x".join(map(str, shape))] = \
+            line["launches_by_route_by_rank"]
+        out["x".join(map(str, shape))] = line
+        emit({"phase": "serve_mesh", "case": f"{shape} over {backend}",
+              "nvidia_smi": smi, **line})
+    recs = [r for rk in ranks for r in rk if r["shape"] == "f32"]
+    logits, caches, alike = gather_mesh_serve(recs)
+    f32 = {"rel_err_logits": rel_err(logits, logits32),
+           "rel_err_caches": caches_rel_err(caches, caches32)}
+    if not (alike and max(f32.values()) <= TOL_SERVE_F32):
+        fail(f"serve_mesh f32 at (1, 2): {f32} > {TOL_SERVE_F32}")
+    out["f32"] = f32
+    emit({"phase": "serve_mesh", "case": f"f32 prefill, "
+          f"{SERVE_MESH_F32_LAYERS} layers, (1, 2)", **f32})
+    del ranks
+    # a world of 1 over NCCL, in this process: bit for bit the single one
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launch.init_from_env("nccl", "cuda")
+    try:
+        mesh = mesh_lib.serve_mesh(1, 1)
+        res = serve_lib.generate_on_mesh(
+            mesh, cfg, model_lib.param_dict(model), prompt, SERVE_MESH_GEN,
+            forced=spec["tokens"].to(dev))
+    finally:
+        torch.distributed.destroy_process_group()
+    same = (torch.equal(res.logits.cpu(), ref_logits) and all(
+        torch.equal(g[k].cpu(), w[k]) for g, w in zip(res.prefill_caches,
+                                                      ref_caches) for k in g))
+    if not same:
+        fail("serve_mesh: the world of 1 differs from the single process")
+    if set(res.collectives) != {"staged_bytes"}:
+        fail(f"serve_mesh: the world of 1 made collectives "
+             f"{res.collectives}")
+    out["world_of_1"] = {"backend": "nccl", "bit_for_bit": True,
+                         "prefill_s": res.prefill_s,
+                         "decode_s": res.decode_s}
+    del res, model, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = {"single_process": single_s, "world": world_s,
+                      "world_of_1": time.perf_counter() - t0,
+                      "phase": time.perf_counter() - t_phase}
+    emit({"phase": "serve_mesh", "case": "world of 1 over nccl",
+          "nvidia_smi": smi, **out["world_of_1"],
+          "single_process": out["single_process"],
+          "phase_seconds": out["seconds"]})
+    out["launches_by_route_by_rank"] = launches_by_rank
     return out
 
 
@@ -5540,6 +6059,13 @@ def main(argv=None) -> int:
         meshed = phase_mesh(dev, smi)
         launches_mesh.update(meshed["launches"])
         mesh_routes = meshed["launches_by_route"]
+    serve_mesh = {}
+    if "serve_mesh" in phases:
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_mesh = phase_serve_mesh(dev, gen, smi)
     launches_train_ssm = dict.fromkeys(names)
     train_ssm_routes = {}
     if "train_ssm" in phases:
@@ -5628,6 +6154,12 @@ def main(argv=None) -> int:
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
+            if k["name"] == "flash_attention" and serve_mesh:
+                # the serve_mesh phase: each rank's prefill launches by
+                # route on each mesh, and B5 at a model rank's shard shape
+                k.update(launches_by_route_serve_mesh_by_rank=serve_mesh[
+                    "launches_by_route_by_rank"],
+                         serve_mesh_shard=serve_mesh["b5_shard"])
             if k["name"] == "fused_round":
                 # the compress phase: B2's compress branch (B3 inside) on
                 # the round path, by route
@@ -5661,7 +6193,7 @@ def main(argv=None) -> int:
                            "rounds of K = 4 local steps under autograd, 3 "
                            "logged rows); launches_mesh: rank 0 of the "
                            "mesh phase's scan run (qwen2-0.5b, n = 4 over "
-                           "2 ranks, 2 clients a rank, 3 rounds eager, 2 "
+                           "2 ranks, 2 clients a rank, 2 rounds eager, 2 "
                            "logged rows on every rank); launches_train_ssm: "
                            "the "
                            "train_ssm phase's main run (mamba2-1.3b at "
@@ -5671,6 +6203,12 @@ def main(argv=None) -> int:
                            "(4 × 4096 tokens), evaluate (4 clients) and "
                            f"train main run ({MOE_LAYERS_CAPTURED} layers, "
                            f"n = {MOE_TRAIN_N}, the same chunk); "
+                           "launches_by_route_serve_mesh_by_rank: B5 on "
+                           "each rank of the serve_mesh phase's worlds "
+                           "(qwen2-0.5b, a 4 × 4096 prefill and 32 decode "
+                           "steps on (data 1, model 2) and (data 2, model "
+                           "1)), serve_mesh_shard B5 at a model rank's "
+                           "shard shape (4, 4096, 7, 1, 64); "
                            "launches_frontends: musicgen-medium's prefill "
                            "(4 × 1500 frames) and evaluate (4 clients, B6 "
                            "once a codebook); train_shapes: "

@@ -204,7 +204,8 @@ class MinimaxConfig:
 # ---------------------------------------------------------------------------
 # Mesh / sharding (reference :255-275, without attn_heads_sharding and
 # remat: the port reads neither; they come with the slice that executes the
-# fsdp and model axes)
+# fsdp and model axes in training.  The serving mesh, which executes its
+# model axis, reads no MeshConfig: launch.mesh.serve_mesh takes its sizes)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)

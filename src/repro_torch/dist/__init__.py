@@ -15,11 +15,21 @@ processes of a ``torch.distributed`` world:
    :func:`residual_constraint`.
 3. **What crosses ranks?**  ``collectives`` is the port's side of what
    GSPMD inserts for the reference: the gossips of a round over a
-   clients-sharded state, the all-reduced means of the metrics, and their
-   counters.  ``launch`` starts a world (``run_world``) or joins torchrun's.
+   clients-sharded state, the all-reduced means of the metrics, the
+   serving mesh's sums over ``model`` and its all-gather of vocab-sharded
+   logits, and their counters.  ``launch`` starts a world (``run_world``)
+   or joins torchrun's.
+4. **How is a model split over ``model`` to serve it?**
+   ``tensor_parallel`` is the executed plan beside
+   ``serve_params_shardings``' specs: heads, d_ff and the vocabulary over
+   the serving mesh's ``model`` ranks (Megatron's layout), a rank's shard
+   and the context slots that run its collectives.
 
 ``compat`` builds the meshes: a ``DeviceMesh`` over a world, or an
-abstract mesh of named sizes for spec work.
+abstract mesh of named sizes for spec work.  The serving mesh
+(``launch.mesh.ServeMesh``) executes; the training mesh's fsdp and model
+axes are specs only (ROADMAP A13), and the sweep-cell leg of the
+reference's smoke run is not ported yet.
 """
 from repro_torch.dist.compat import abstract_mesh, make_mesh, mesh_of
 from repro_torch.dist.context import (

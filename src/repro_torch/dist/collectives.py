@@ -1,10 +1,14 @@
-"""The collectives of the decentralized mesh: what GSPMD inserts for the
+"""The collectives of the port's meshes: what GSPMD inserts for the
 reference, written out.  The only module that calls ``torch.distributed``
-on the round path.
+on the round path and on the serving path.
 
-A rank of the clients axis holds n/R of the n clients, rows ``[lo, hi)`` of
-every (n, …) state leaf (:class:`ClientsAxis`).  The K local steps touch
-only those rows; a round's gossips are the collectives here:
+An axis of a mesh is a :class:`MeshAxis`: this rank's index on it, its
+size and its process group (a sub-group of the world: the ``model`` ranks
+of one batch shard, the ``data`` ranks of one model shard, the clients
+axis).  A rank of the clients axis holds n/R of the n clients, rows
+``[lo, hi)`` of every (n, …) state leaf (:class:`ClientsAxis`).  The K
+local steps touch only those rows; a round's gossips are the collectives
+here:
 
 * **dense gossip** (``mix_dense``, reference ``core/mixing.py:45-60``): an
   all-gather of the rank's rows in the gossip dtype, then the rank's rows
@@ -20,6 +24,12 @@ only those rows; a round's gossips are the collectives here:
 * **all-reduced means** (``clients_mean``, ``all_reduce_sum``) and a
   **broadcast** for the metrics.
 
+The serving mesh's tensor parallelism (``dist.tensor_parallel``) adds two
+over its ``model`` axis: **a sum of partial products** (``sum_over``: the
+out-projection's and the MLP's row-parallel partials, the vocab-parallel
+embedding rows), and **an all-gather along the last dim in uneven pieces**
+(``all_gather_last``: each rank's vocab columns of the logits).
+
 A world of one rank makes no collective: an all-gather of one rank is the
 tensor itself and a mean over one rank's clients is the host path's mean,
 so a one-rank mesh runs the host path's operations.
@@ -32,28 +42,29 @@ place in the output.  The bytes copied (both ways) count as
 ``staged_bytes``.  One gloo group moves ~0.5 GB/s a direction between two
 ranks of one host (one TCP connection, one thread: PERF.md §5), so a large
 gloo transfer is split over GLOO_STREAMS groups of the same ranks at once
-(``ClientsAxis.streams``).  NCCL takes device tensors.
+(``MeshAxis.streams``).  NCCL takes device tensors.
 
 Counters, in the style of ``kernels.ops``' launch counters:
 ``collective_counts()`` gives, per phase (``local_steps``, ``gossip``,
-``metrics``, ``init``, ``checkpoint``; :func:`phase` sets it) and kind
-(``all_gather``, ``exchange``, ``all_reduce``, ``broadcast``), the calls,
-the bytes this rank received from the others (an all-gather's (R − 1)/R of
-its output, an exchange's rows, an all-reduce's or broadcast's payload)
-and the seconds of the calls: for a CUDA tensor between two CUDA events
-recorded on the current stream around the call (read when the counts are,
-so that no call waits for the device), for a CPU tensor on the host clock.
-``zero_collective_counts()`` resets them.
+``metrics``, ``init``, ``checkpoint``, ``prefill``, ``decode``; :func:`phase`
+sets it) and kind (``all_gather``, ``exchange``, ``all_reduce``,
+``broadcast``), the calls, the bytes this rank received from the others (an
+all-gather's (R − 1)/R of its output, an exchange's rows, an all-reduce's
+or broadcast's payload) and the seconds of the calls: for a CUDA tensor
+between two CUDA events recorded on the current stream around the call
+(read when the counts are, so that no call waits for the device), for a
+CPU tensor on the host clock.  ``zero_collective_counts()`` resets them.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from repro_torch.core import tree as tree_lib
 from repro_torch.kernels.ref import gossip_torch_dtype, narrow
@@ -63,20 +74,30 @@ from repro_torch.kernels.ref import gossip_torch_dtype, narrow
 GLOO_STREAMS = 4
 STREAM_BYTES = 8 << 20
 
+
 @dataclasses.dataclass(frozen=True)
-class ClientsAxis:
-    """This rank's place on the clients axis: ``size`` ranks share the
-    ``n`` clients, rank ``rank`` of them (its index on the axis) holding
-    rows ``[lo, hi)``.  ``group`` is the axis' process group (None: the
+class MeshAxis:
+    """This rank's place on one axis of a mesh: ``size`` ranks, this one
+    its ``rank``-th.  ``group`` is the axis' process group (None: the
     default group), ``backend`` its backend; ``streams`` more gloo groups
     over the same ranks, for a large transfer to share (module
     docstring)."""
-    n: int
     rank: int
     size: int
     group: Any = None
     backend: str = "gloo"
     streams: tuple = ()
+
+    def global_rank(self, r: int) -> int:
+        return r if self.group is None else dist.get_global_rank(self.group,
+                                                                 r)
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class ClientsAxis(MeshAxis):
+    """The clients axis: its ``size`` ranks share the ``n`` clients, rank
+    ``rank`` of them holding rows ``[lo, hi)``."""
+    n: int
 
     def __post_init__(self):
         if self.n % self.size:
@@ -99,10 +120,6 @@ class ClientsAxis:
     def rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of an (n, …) tensor, a copy of its own."""
         return x[self.lo:self.hi].clone()
-
-    def global_rank(self, r: int) -> int:
-        return r if self.group is None else dist.get_global_rank(self.group,
-                                                                 r)
 
 
 def gloo_streams(group) -> tuple:
@@ -133,6 +150,28 @@ def axis_of_group(group, n: int, streams: tuple = ()) -> ClientsAxis:
     return ClientsAxis(n=n, rank=dist.get_rank(group),
                        size=dist.get_world_size(group), group=group,
                        backend=dist.get_backend(group), streams=streams)
+
+
+def sub_axes(rank_lists: Sequence[Sequence[int]]) -> Optional[MeshAxis]:
+    """One process group for each list of global ranks in ``rank_lists``
+    (every rank of the world calls this, with the same lists, in the same
+    order), on the world's backend, with GLOO_STREAMS − 1 stream groups
+    beside each gloo group of more than one rank; returns this rank's
+    :class:`MeshAxis` on the list that holds it (None if none does)."""
+    me = dist.get_rank()
+    backend = dist.get_backend()
+    mine = None
+    for ranks in rank_lists:
+        ranks = list(ranks)
+        group = dist.new_group(ranks, backend=backend)
+        streams = ()
+        if backend == "gloo" and len(ranks) > 1:
+            streams = tuple(dist.new_group(ranks, backend="gloo")
+                            for _ in range(GLOO_STREAMS - 1))
+        if me in ranks:
+            mine = MeshAxis(rank=ranks.index(me), size=len(ranks),
+                            group=group, backend=backend, streams=streams)
+    return mine
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +248,7 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _staging(axis: ClientsAxis, t: torch.Tensor) -> bool:
+def _staging(axis: MeshAxis, t: torch.Tensor) -> bool:
     return axis.backend == "gloo" and t.is_cuda
 
 
@@ -217,7 +256,7 @@ def _pinned_like(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
 
 
-def _to_wire(axis: ClientsAxis, t: torch.Tensor) -> torch.Tensor:
+def _to_wire(axis: MeshAxis, t: torch.Tensor) -> torch.Tensor:
     """``t`` where the backend reads it: a pinned host copy for gloo and a
     CUDA tensor, else ``t`` (contiguous)."""
     t = t.contiguous()
@@ -240,7 +279,7 @@ def _from_wire(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t
 
 
-def _pieces(axis: ClientsAxis, flat: torch.Tensor):
+def _pieces(axis: MeshAxis, flat: torch.Tensor):
     """(group, start, stop) pieces of a flat tensor: one a stream group, no
     piece under STREAM_BYTES, the axis' own group first."""
     groups = (axis.group,) + axis.streams
@@ -254,7 +293,7 @@ def _pieces(axis: ClientsAxis, flat: torch.Tensor):
 # primitives
 # ---------------------------------------------------------------------------
 
-def all_gather_rows(x: torch.Tensor, axis: ClientsAxis,
+def all_gather_rows(x: torch.Tensor, axis: MeshAxis,
                     dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order: the
     (n, …) tensor of the rank's (n/R, …) rows (``x`` itself on one
@@ -291,7 +330,7 @@ def all_gather_rows(x: torch.Tensor, axis: ClientsAxis,
     return out
 
 
-def all_reduce_sum(t: torch.Tensor, axis: ClientsAxis) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """The sum of every rank's ``t`` (``t`` itself on one rank)."""
     if axis.size == 1:
         return t
@@ -310,7 +349,7 @@ def all_reduce_sum(t: torch.Tensor, axis: ClientsAxis) -> torch.Tensor:
 
 
 def broadcast_from(t: torch.Tensor, src: int,
-                   axis: ClientsAxis) -> torch.Tensor:
+                   axis: MeshAxis) -> torch.Tensor:
     """Rank ``src``'s ``t`` on every rank (each rank passes a tensor of the
     same shape and dtype)."""
     if axis.size == 1:
@@ -325,7 +364,35 @@ def broadcast_from(t: torch.Tensor, src: int,
     return out
 
 
-def _p2p(pairs, axis: ClientsAxis) -> None:
+def sum_over(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The sum over the axis' ranks of each rank's partial ``t``, in
+    ``t``'s dtype: the partials all-reduced in f32, then rounded once to
+    ``t``'s dtype (a bf16 sum of M partials would round M − 1 more
+    times); ``t`` itself on one rank.  Every rank gets the same values."""
+    if axis.size == 1:
+        return t
+    return all_reduce_sum(t.to(torch.float32), axis).to(t.dtype)
+
+
+def all_gather_last(x: torch.Tensor, axis: MeshAxis,
+                    widths: Sequence[int]) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along its last dim in rank order,
+    rank r's piece ``widths[r]`` wide (the pieces may differ by one, as a
+    vocabulary that the axis does not divide leaves them): each piece
+    padded to the widest for one all-gather, then trimmed.  ``x`` itself
+    on one rank."""
+    if axis.size == 1:
+        return x
+    if x.shape[-1] != widths[axis.rank]:
+        raise ValueError(f"rank {axis.rank}'s piece is {x.shape[-1]} wide, "
+                         f"the plan gives it {widths[axis.rank]}")
+    wide = max(widths)
+    padded = F.pad(x, (0, wide - x.shape[-1])) if x.shape[-1] < wide else x
+    g = all_gather_rows(padded.unsqueeze(0), axis)
+    return torch.cat([g[r, ..., :w] for r, w in enumerate(widths)], dim=-1)
+
+
+def _p2p(pairs, axis: MeshAxis) -> None:
     """Each (op, tensor, peer) of ``pairs`` in pieces over the stream
     groups, all in flight at once."""
     by_group: dict = {}
@@ -340,7 +407,7 @@ def _p2p(pairs, axis: ClientsAxis) -> None:
         req.wait()
 
 
-def ring_neighbors(x: torch.Tensor, axis: ClientsAxis):
+def ring_neighbors(x: torch.Tensor, axis: MeshAxis):
     """(the previous rank's last row, the next rank's first row), each
     (1, …): what ``torch.roll(·, ±1)`` over the whole clients dim brings
     across this rank's ends.  Two rows received a rank (one message each

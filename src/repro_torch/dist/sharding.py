@@ -70,11 +70,21 @@ def _is_expert_leaf(path) -> bool:
     return "moe" in keys and bool(keys) and keys[-1] in _EXPERT_LEAF_KEYS
 
 
-def placements(parts: Sequence[Optional[str]], mesh) -> tuple:
+def placements(parts: Sequence, mesh) -> tuple:
     """The placements of a leaf whose dim d lies on axis ``parts[d]`` (None:
-    on no axis), one a mesh dim."""
-    return tuple(Shard(parts.index(a)) if a in parts else Replicate()
-                 for a in compat.axis_names(mesh))
+    on no axis; a tuple of names: on all of them, as the serving mesh's
+    batch dim on ``("pod", "data")``), one a mesh dim."""
+    def dim_of(a):
+        for d, p in enumerate(parts):
+            if p == a or (isinstance(p, tuple) and a in p):
+                return d
+        return None
+
+    out = []
+    for a in compat.axis_names(mesh):
+        d = dim_of(a)
+        out.append(Replicate() if d is None else Shard(d))
+    return tuple(out)
 
 
 def params_shardings(params, mesh, *, leading_clients: bool = True,

@@ -1,4 +1,5 @@
-"""Production and decentralized meshes (port of ``repro.launch.mesh``).
+"""Production, decentralized and serving meshes (port of
+``repro.launch.mesh``).
 
 The decentralized logical mesh is ``(clients, fsdp, model)``: one
 K-GT-Minimax client a contiguous block of ``fsdp × model`` ranks.  Here a
@@ -6,14 +7,26 @@ mesh is a ``torch.distributed`` ``DeviceMesh`` over the ranks of a world,
 one rank a device; the production meshes (256 and 512 chips) exist on no
 world this repository starts, so their shapes come as abstract meshes
 (``dist.compat.abstract_mesh``) for spec work.
+
+The serving mesh ``(data, model)`` is a :class:`ServeMesh`: the batch
+rows split over ``data``, the weights over ``model``
+(``dist.tensor_parallel``); the ``(pod, data, model)`` layout exists only
+as the abstract production mesh.  It carries this rank's two
+axes as ``dist.collectives.MeshAxis`` groups, so it may span a sub-set of
+the world's ranks (``serve_mesh(..., ranks=)``), as the reference's
+``compat.make_mesh((4, 2), ("data", "model"))`` (its ``launch/smoke.py``
+:164) spans 8 of a host's devices.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
 
 import numpy as np
 import torch.distributed as dist
 
 from repro_torch.configs.base import MeshConfig
-from repro_torch.dist import compat
+from repro_torch.dist import collectives, compat
 from repro_torch.dist.sharding import CLIENTS, FSDP, MODEL
 
 
@@ -72,3 +85,47 @@ def fake_mesh(num_clients: int = 2, fsdp: int = 2, model: int = 2):
                            f"one has {have}")
     return compat.make_mesh((num_clients, fsdp, model),
                             (CLIENTS, FSDP, MODEL), device_type="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the serving mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ServeMesh(compat.AbstractMesh):
+    """A ``(data, model)`` mesh of named sizes (``shape``, as an abstract
+    mesh) and this rank's place on it: its axis over the ``data`` ranks
+    (those that hold the same weight shard) and over the ``model`` ranks
+    (those that hold the same batch rows)."""
+    batch_axis: collectives.MeshAxis = None
+    model_axis: collectives.MeshAxis = None
+
+
+def serve_mesh(data: int, model: int, *,
+               ranks: Optional[Sequence[int]] = None) -> Optional[ServeMesh]:
+    """The serving mesh over ``ranks`` of the world (default: all of it,
+    which must then hold ``data × model`` ranks), laid out row-major as
+    ``(data, model)``: the ``model`` ranks of a batch shard are
+    contiguous.  Every rank of the world calls it (it makes the axes'
+    groups); a rank outside ``ranks`` gets None."""
+    ranks = list(range(dist.get_world_size()) if ranks is None else ranks)
+    if len(ranks) != data * model:
+        raise ValueError(f"a serving mesh of {data} x {model} needs "
+                         f"{data * model} ranks, got {len(ranks)}")
+    grid = np.asarray(ranks).reshape(data, model)
+    model_ax = collectives.sub_axes(grid.tolist())
+    batch_ax = collectives.sub_axes(grid.T.tolist())
+    if dist.get_rank() not in ranks:
+        return None
+    return ServeMesh(("data", MODEL), (data, model),
+                     batch_axis=batch_ax, model_axis=model_ax)
+
+
+def fake_serve_mesh(data: int = 4, model: int = 2) -> ServeMesh:
+    """A serving mesh over a CPU world (gloo) of ``data × model`` ranks,
+    for tests and the smoke run (started by ``dist.launch.run_world``)."""
+    have = dist.get_world_size()
+    if have != data * model:
+        raise RuntimeError(f"fake_serve_mesh needs a world of {data * model} "
+                           f"ranks, this one has {have}")
+    return serve_mesh(data, model)

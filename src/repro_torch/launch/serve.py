@@ -35,19 +35,43 @@ config, the prompt token by token, then sampled decode steps
 (``generate_stepwise``, which ``launch.serve_example`` runs too).  An audio
 model's prompts are (B, P, C) codebook streams, and each decode step
 samples every codebook: (B, 1, C) (reference ``launch/serve.py:31,49``).
+``--mesh DATAxMODEL`` serves on the world's serving mesh
+(``launch.mesh.serve_mesh``), under torchrun or ``dist.launch.run_world``
+(without them, a world of one rank: ``--mesh 1x1``): the batch rows split
+over ``data``, the weights over ``model`` (``dist.tensor_parallel``),
+through ``launch.steps.build_prefill_step`` and ``build_decode_step``
+(:func:`generate_on_mesh`, the decode steps eager: a gloo collective
+cannot be captured).  Every rank draws the same weights and prompts from
+the seed; rank 0 prints prefill s, decode ms a token, tokens/s, the
+communication s and bytes by collective and the peak memory of a rank::
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node=2 \\
+      -m repro_torch.launch.serve --mesh 1x2 --device cpu --reduced \\
+      --arch qwen2-0.5b --prompt-len 16 --tokens 4
+
+``--shape SHAPE`` runs :func:`serve_production` instead: the bytes of the
+arguments a rank holds on the production mesh (data 16 × model 16, or pod
+2 × data 16 × model 16 with ``--multi-pod``), from the reference's specs.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
+from torch.distributed.tensor import Placement
 
 from repro_torch.configs import registry
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.core import tree as tree_lib
+from repro_torch.dist import collectives
+from repro_torch.dist import sharding as sh
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels import ops
+from repro_torch.launch import steps as steps_lib
 from repro_torch.models import model as model_lib
 from repro_torch.serving.decode import DecodeStep, gumbel_noise
 
@@ -184,6 +208,276 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 4096,
     return res
 
 
+# ---------------------------------------------------------------------------
+# the serving mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MeshServeResult:
+    rows: slice                   # this rank's rows of the batch
+    logits: torch.Tensor          # (b, T + 1[, C], V) of those rows: the
+    #                               prefill's last position, then each
+    #                               decode step's, every vocabulary column
+    tokens: torch.Tensor          # (b, T[, C]) fed to the decode steps
+    prefill_caches: List[Dict[str, torch.Tensor]]   # the rank's rows and
+    #                               KV heads, at the prompt's length
+    prefill_s: float
+    decode_s: float
+    launches: Dict[str, Dict[str, int]]   # kernel launches: prefill, decode
+    collectives: dict             # ``collectives.collective_counts()``
+    same_tokens: bool             # the model ranks fed the same tokens
+
+
+@torch.no_grad()
+def generate_on_mesh(mesh, cfg: ModelConfig, params: Dict[str, torch.Tensor],
+                     prompt: torch.Tensor, gen_tokens: int, *,
+                     temperature: float = 1.0, generator=None, forced=None,
+                     prefix=None, compute_dtype=torch.bfloat16
+                     ) -> MeshServeResult:
+    """:func:`generate` on a serving mesh, on this rank: the full
+    parameter dict ``params`` (``param_dict``) cut to the rank's shard,
+    ``prompt`` (B, P[, C]) to its rows; one prefill step
+    (``steps.build_prefill_step``, caches of the prompt's length, then
+    grown), then ``gen_tokens`` eager decode steps
+    (``steps.build_decode_step``) at (rows,) positions, each fed the token
+    sampled from the step before (:func:`sample` with ``generator``; every
+    rank of a model group holds the same logits and generator, so samples
+    the same) or, with ``forced`` (B, T[, C]), that token (teacher
+    forcing).  ``prefix`` (B, P', d): a vision-language model's prefix
+    embeddings, run before the prompt in the prefill.  The collective
+    counts are zeroed first; the tokens are compared over the model axis
+    after the decode (the ``check`` phase)."""
+    b, prompt_len = prompt.shape[:2]
+    total = prompt_len + gen_tokens
+    check_prompt(cfg, prompt_len, prompt_len)
+    pre = steps_lib.build_prefill_step(
+        cfg, InputShape("serve_prefill", prompt_len, b, "prefill"), mesh,
+        compute_dtype=compute_dtype)
+    dec = steps_lib.build_decode_step(
+        cfg, InputShape("serve_decode", total, b, "decode"), mesh,
+        compute_dtype=compute_dtype)
+    shard = tp.shard_params(params, pre.plan, mesh.model_axis.rank)
+    rows = pre.rows
+    nb = rows.stop - rows.start
+    device = prompt.device
+    caches = model_lib.init_cache(pre.cfg, nb, prompt_len,
+                                  dtype=compute_dtype, device=device)
+    collectives.zero_collective_counts()
+    start = ops.launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    batch = {"tokens": prompt[rows]}
+    if prefix is not None:
+        batch["prefix"] = prefix[rows]
+    logits, caches = pre(shard, batch, caches)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    after_prefill = ops.launch_counts()
+    prefill_caches = caches
+    caches = model_lib.grow_caches(pre.cfg, caches, total)
+    outs, toks = [logits], []
+    t0 = time.perf_counter()
+    for i in range(gen_tokens):
+        tok = (forced[rows, i:i + 1] if forced is not None
+               else sample(logits, temperature, generator))
+        toks.append(tok)
+        pos = torch.full((nb,), prompt_len + i, dtype=torch.long,
+                         device=device)
+        logits, caches = dec(shard, caches, tok, pos)
+        outs.append(logits)
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    end = ops.launch_counts()
+    tokens = (torch.cat(toks, dim=1) if toks
+              else prompt.new_zeros((nb, 0, *prompt.shape[2:])))
+    same = True
+    if tokens.numel():
+        with collectives.phase("check"):
+            every = collectives.all_gather_rows(tokens[None],
+                                                mesh.model_axis)
+        same = bool((every == tokens[None]).all())
+    return MeshServeResult(
+        rows=rows, logits=torch.cat(outs, dim=1), tokens=tokens,
+        prefill_caches=prefill_caches, prefill_s=prefill_s,
+        decode_s=decode_s,
+        launches={"prefill": {k: after_prefill[k] - start[k] for k in start},
+                  "decode": {k: end[k] - after_prefill[k] for k in start}},
+        collectives=collectives.collective_counts(), same_tokens=same)
+
+
+def peak_memory_gb(device) -> float:
+    """The rank's peak memory: the CUDA allocator's on the card, the
+    process's resident set on the CPU."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.max_memory_allocated(device) / 1e9
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _comm_line(counts: dict, phase: str) -> str:
+    kinds = counts.get(phase, {})
+    secs = sum(v["seconds"] for v in kinds.values())
+    parts = ", ".join(f"{k} {v['calls']} calls {v['bytes']} B"
+                      for k, v in sorted(kinds.items()))
+    return f"{phase} {secs:.3f} s ({parts or 'none'})"
+
+
+def serve_on_world(arch: str, data: int, model: int, *, batch: int = 4,
+                   prompt_len: int = 4096, gen_tokens: int = 32,
+                   temperature: float = 1.0, device="cuda", seed: int = 0,
+                   reduced: bool = False, backend: Optional[str] = None
+                   ) -> MeshServeResult:
+    """``--mesh DATAxMODEL``: joins torchrun's world (or starts one of one
+    rank), makes the ``(data, model)`` serving mesh over it, draws the
+    weights (bf16) and prompts from ``seed`` on every rank and runs
+    :func:`generate_on_mesh`; rank 0 prints the report."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import launch as dist_launch
+    from repro_torch.launch import mesh as mesh_lib
+
+    backend = backend or dist_launch.default_backend(device)
+    dev = dist_launch.init_from_env(backend, device)
+    try:
+        mesh = mesh_lib.serve_mesh(data, model)
+        cfg = registry.get_model_config(arch)
+        if reduced:
+            cfg = registry.reduced(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        full = model_lib.init_params(cfg, generator=gen, device=dev,
+                                     dtype=torch.bfloat16)
+        cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+        prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len, *cb),
+                               generator=gen, device=dev)
+        params = model_lib.param_dict(full)
+        del full
+        res = generate_on_mesh(mesh, cfg, params, prompt, gen_tokens,
+                               temperature=temperature, generator=gen)
+        if not res.same_tokens:
+            raise RuntimeError("the ranks of a model group sampled "
+                               "different tokens")
+        if dist.get_rank() == 0:
+            where = (f"{cfg.name} on (data {data}, model {model}) over "
+                     f"{backend}")
+            print(f"[serve] {where}: prefill {prompt_len} tok x {batch} seq "
+                  f"in {res.prefill_s:.3f} s", flush=True)
+            if gen_tokens:
+                print(f"[serve] decoded {gen_tokens} tok/seq in "
+                      f"{res.decode_s:.3f} s (eager): "
+                      f"{1e3 * res.decode_s / gen_tokens:.2f} ms/token, "
+                      f"{gen_tokens * batch / res.decode_s:.1f} tok/s "
+                      "aggregate", flush=True)
+            c = res.collectives
+            print(f"[serve] communication a rank: {_comm_line(c, 'prefill')}"
+                  f"; {_comm_line(c, 'decode')}; staged "
+                  f"{c['staged_bytes']} B", flush=True)
+            print(f"[serve] peak memory a rank: "
+                  f"{peak_memory_gb(dev):.3f} GB", flush=True)
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# the production mesh, from the reference's specs
+# ---------------------------------------------------------------------------
+
+def _placement_leaves(node, out: list) -> list:
+    """The placement tuples of a tree of them, in ``tree_lib``'s leaf
+    order (dict keys sorted)."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            _placement_leaves(node[k], out)
+    elif isinstance(node, (list, tuple)) and not (
+            node and all(isinstance(p, Placement) for p in node)):
+        for v in node:
+            _placement_leaves(v, out)
+    else:
+        out.append(node)
+    return out
+
+
+def _bytes_a_rank(tree, shards, mesh) -> int:
+    """Σ over leaves of a leaf's bytes over the product of the sizes of
+    the mesh axes that shard it (each divides its dim)."""
+    sizes = [mesh.shape[a] for a in mesh.axis_names]
+    leaves = tree_lib.leaves(tree)
+    specs = _placement_leaves(shards, [])
+    if len(leaves) != len(specs):
+        raise ValueError(f"{len(leaves)} leaves, {len(specs)} placements")
+    total = 0
+    for t, pl in zip(leaves, specs):
+        div = 1
+        for size, p in zip(sizes, pl):
+            if p.is_shard():
+                div *= size
+        total += t.numel() * t.element_size() // div
+    return total
+
+
+def serve_production(arch: str, shape_name: str,
+                     multi_pod: bool = False) -> dict:
+    """The bytes of the arguments a rank holds when the reference's
+    serving steps run ``arch`` at ``SHAPES[shape_name]`` on the production
+    mesh (reference :56): the bf16 parameters under
+    ``serve_params_shardings``, the caches under ``_cache_shardings`` and
+    the inputs (int32 tokens, f32 prefix; the batch dim over the batch
+    axes where they divide it), counted from the ported specs, with
+    ``long_context_variant`` for long_500k.  XLA's temporaries and outputs
+    have no counterpart here: the count is of the arguments only."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    cfg = registry.get_model_config(arch)
+    shape = SHAPES[shape_name]
+    if shape.kind == "train":
+        raise ValueError(f"{shape_name} is a training shape")
+    if shape.name == "long_500k":
+        cfg = steps_lib.long_context_variant(cfg)
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    batch_axis = steps_lib._serve_batch_axes(mesh)[0]
+    b, s = shape.global_batch, shape.seq_len
+    params = steps_lib._bf16_params(steps_lib.params_sds(cfg))
+    caches = steps_lib.cache_sds(cfg, b, s)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    tok_len = s if shape.kind == "prefill" else 1
+    inputs = {"tokens": torch.empty((b, tok_len, *cb), dtype=torch.int32,
+                                    device="meta")}
+    if shape.kind == "prefill" and cfg.num_prefix_tokens:
+        inputs["prefix"] = torch.empty((b, cfg.num_prefix_tokens,
+                                        cfg.d_model), device="meta")
+    if shape.kind != "prefill":
+        inputs["pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    in_shards = _input_placements(inputs, mesh, batch_axis)
+    out = {"arch": arch, "shape": shape_name,
+           "mesh": dict(zip(mesh.axis_names, mesh.axis_sizes)),
+           "params_bytes": _bytes_a_rank(
+               params, sh.serve_params_shardings(params, mesh), mesh),
+           "caches_bytes": _bytes_a_rank(
+               caches, steps_lib._cache_shardings(caches, mesh, batch_axis),
+               mesh),
+           "inputs_bytes": _bytes_a_rank(inputs, in_shards, mesh)}
+    out["arguments_bytes"] = (out["params_bytes"] + out["caches_bytes"]
+                              + out["inputs_bytes"])
+    print(f"[serve] {arch} x {shape_name} on {out['mesh']}: arguments a "
+          f"rank {out['arguments_bytes'] / 2**30:.3f} GiB (params "
+          f"{out['params_bytes'] / 2**30:.3f}, caches "
+          f"{out['caches_bytes'] / 2**30:.3f}, inputs "
+          f"{out['inputs_bytes'] / 2**30:.6f}); arguments only: XLA's "
+          "temporaries and outputs have no counterpart here", flush=True)
+    return out
+
+
+def _input_placements(inputs, mesh, batch_axis):
+    """The inputs' placements: the batch dim over ``batch_axis`` where it
+    divides it (reference :285-288), a scalar replicated."""
+    return {k: sh.placements(
+        ([steps_lib._maybe(batch_axis, t.shape[0], mesh)]
+         + [None] * (t.dim() - 1)) if t.dim() else [], mesh)
+        for k, t in inputs.items()}
+
+
 @dataclasses.dataclass
 class StepwiseResult:
     logits: torch.Tensor          # (B, P + T[, C], V): each step's, the
@@ -315,7 +609,26 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reduced", action="store_true",
                     help="the arch's reduced CPU-test variant")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on the world's (data, model) serving mesh "
+                         "(torchrun, or a world of one rank: 1x1), the "
+                         "other flags' defaults the full-width serve's")
+    ap.add_argument("--dist-backend", default=None,
+                    help="with --mesh: nccl (default on the card) or gloo "
+                         "(default on the CPU)")
+    ap.add_argument("--shape", default=None,
+                    choices=[k for k, v in SHAPES.items()
+                             if v.kind != "train"],
+                    help="report the arguments' bytes a rank on the "
+                         "production mesh at this shape (serve_production; "
+                         "default arch qwen2-0.5b)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --shape: the (pod 2, data 16, model 16) mesh")
     args = ap.parse_args(argv)
+    if args.shape:
+        serve_production(args.arch or "qwen2-0.5b", args.shape,
+                         args.multi_pod)
+        return
     # the reference's --local defaults, or the full-width serve's
     defaults = (("qwen2-0.5b", 2, 16, 16) if args.local
                 else ("recurrentgemma-9b", 4, 4096, 32))
@@ -325,6 +638,13 @@ def main(argv=None) -> None:
     if args.local:
         serve_local(arch, batch, prompt_len, tokens, args.temperature,
                     device=args.device, seed=args.seed)
+        return
+    if args.mesh:
+        data, model = (int(x) for x in args.mesh.lower().split("x"))
+        serve_on_world(arch, data, model, batch=batch, prompt_len=prompt_len,
+                       gen_tokens=tokens, temperature=args.temperature,
+                       device=args.device, seed=args.seed,
+                       reduced=args.reduced, backend=args.dist_backend)
         return
     res = serve(arch, batch=batch, prompt_len=prompt_len,
                 gen_tokens=tokens, temperature=args.temperature,

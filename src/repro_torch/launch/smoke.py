@@ -1,14 +1,24 @@
-"""Smoke run of the decentralized training mesh on a CPU world (port of
-the train legs of ``repro.launch.smoke``).
+"""Smoke run of the decentralized training mesh and of the serving mesh on
+CPU worlds (port of the train and serving legs of ``repro.launch.smoke``).
 
-For each reduced architecture, on a gloo world of 2 ranks (the clients
-axis of a ``(clients=2, 1, 1)`` mesh, one client a rank), runs one
-decentralized K-GT-Minimax round through ``launch.train`` on ``dense`` and
-on ``pallas_packed``, and prints ``train round ran`` and ``packed-gossip
-train round ran``.  Exit code 0 iff every leg ran.  The serving leg and
-the sweep-cell leg wait for the next slice of the mesh (ROADMAP A13).
+For each reduced architecture:
+
+* train legs, on a gloo world of 2 ranks (the clients axis of a
+  ``(clients=2, 1, 1)`` mesh, one client a rank): one decentralized
+  K-GT-Minimax round through ``launch.train`` on ``dense`` and on
+  ``pallas_packed``, printing ``train round ran`` and ``packed-gossip
+  train round ran``;
+* the serving leg, on a gloo world of 4 ranks at ``(data 2, model 2)``
+  (reference :164-180; an arch whose ``ssm`` or ``rglru`` blocks have no
+  tensor-parallel layout at ``(data 4, model 1)``): one prefill step and
+  one decode step through ``launch.steps`` on the reference's smoke shape
+  (8 rows of 64 tokens), printing ``prefill+decode ran``.
+
+Exit code 0 iff every leg ran.  The sweep-cell leg waits for a later slice
+of the mesh (ROADMAP A13).
 
   PYTHONPATH=src python -m repro_torch.launch.smoke [--archs qwen2-0.5b ...]
+      [--legs train serve]
 """
 from __future__ import annotations
 
@@ -23,6 +33,9 @@ from repro_torch.configs import registry
 WORLD = 2
 LEGS = (("dense", "train round"), ("pallas_packed", "packed-gossip train "
                                    "round"))
+# the serving leg: a world of SERVE_WORLD ranks, the reference's smoke
+# serving shape (8 rows of 64 tokens; its decode step at position 64)
+SERVE_WORLD, SERVE_BATCH, SERVE_SEQ = 4, 8, 64
 
 
 def _leg(arch: str, impl: str) -> None:
@@ -58,17 +71,101 @@ def _legs(rank: int, world: int, archs) -> list:
     return results
 
 
+def serve_shape(cfg):
+    """(data, model) of the serving leg: (2, 2), or (4, 1) for an arch
+    that the model axis cannot split."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    try:
+        tp.check_config(cfg, 2)
+    except ValueError:
+        return SERVE_WORLD, 1
+    return 2, 2
+
+
+def _serve_leg(arch: str, meshes: dict) -> str:
+    import torch
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+
+    cfg = registry.reduced(registry.get_model_config(arch))
+    shape = serve_shape(cfg)
+    mesh = meshes[shape]
+    gen = torch.Generator().manual_seed(0)
+    full = model_lib.param_dict(model_lib.init_params(
+        cfg, generator=gen, device="cpu", dtype=torch.bfloat16))
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ, *cb),
+                           generator=gen)
+    pre = steps.build_prefill_step(
+        cfg, InputShape("smoke_serve", SERVE_SEQ, SERVE_BATCH, "prefill"),
+        mesh)
+    dec = steps.build_decode_step(
+        cfg, InputShape("smoke_serve", SERVE_SEQ + 1, SERVE_BATCH, "decode"),
+        mesh)
+    shard = tp.shard_params(full, pre.plan, mesh.model_axis.rank)
+    batch = {"tokens": tokens[pre.rows]}
+    if cfg.num_prefix_tokens:
+        batch["prefix"] = torch.randn(
+            (SERVE_BATCH, cfg.num_prefix_tokens, cfg.d_model),
+            generator=gen)[pre.rows]
+    caches = model_lib.init_cache(pre.cfg, pre.rows.stop - pre.rows.start,
+                                  SERVE_SEQ, device="cpu")
+    logits, caches = pre(shard, batch, caches)
+    caches = model_lib.grow_caches(pre.cfg, caches, SERVE_SEQ + 1)
+    logits, caches = dec(shard, caches, logits[:, -1:].argmax(-1),
+                         SERVE_SEQ)
+    if not bool(logits.float().isfinite().all()):
+        raise FloatingPointError("non-finite decode logits")
+    return f"(data {shape[0]}, model {shape[1]})"
+
+
+def _serve_legs(rank: int, world: int, archs) -> list:
+    """The serving leg of every arch on this rank; rank 0 prints."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    meshes = {shape: mesh_lib.fake_serve_mesh(*shape)
+              for shape in ((2, 2), (SERVE_WORLD, 1))}
+    results = []
+    for arch in archs:
+        t0 = time.perf_counter()
+        try:
+            where = _serve_leg(arch, meshes)
+            ok, line = True, (f"prefill+decode ran on {where} "
+                              f"({time.perf_counter() - t0:.1f}s)")
+        except Exception as e:  # a leg's failure is reported, not fatal
+            ok, line = False, (f"serve FAILED: {type(e).__name__}: {e}"
+                               f"\n{traceback.format_exc()}")
+        if rank == 0:
+            print(f"[smoke] {arch}: {line}", flush=True)
+        results.append(ok)
+    return results
+
+
 def main(argv=None) -> int:
     from repro_torch.dist import launch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--archs", nargs="*", default=["qwen2-0.5b"],
                     choices=sorted(registry.ARCHS))
+    ap.add_argument("--legs", nargs="*", default=["train", "serve"],
+                    choices=["train", "serve"])
     args = ap.parse_args(argv)
-    print(f"[smoke] a gloo world of {WORLD} ranks on the CPU", flush=True)
+    results = []
     with tempfile.TemporaryDirectory() as store:
-        results = launch.run_world(WORLD, _legs, args.archs,
-                                   backend="gloo", store_dir=store)
+        if "train" in args.legs:
+            print(f"[smoke] a gloo world of {WORLD} ranks on the CPU",
+                  flush=True)
+            results += launch.run_world(WORLD, _legs, args.archs,
+                                        backend="gloo", store_dir=store)
+        if "serve" in args.legs:
+            print(f"[smoke] a gloo world of {SERVE_WORLD} ranks on the CPU",
+                  flush=True)
+            results += launch.run_world(SERVE_WORLD, _serve_legs, args.archs,
+                                        backend="gloo", store_dir=store)
     return 0 if all(all(r) for r in results) else 1
 
 

@@ -1,5 +1,5 @@
-"""Step builder of the decentralized training mesh (port of the train
-parts of ``repro.launch.steps``, :38-162).
+"""Step functions of the decentralized training mesh and of the serving
+mesh (port of ``repro.launch.steps``).
 
 ``build_train_round`` builds one K-GT-Minimax round (K local DRO-minimax
 steps, correction, gossip) of this rank's clients on the decentralized
@@ -20,19 +20,38 @@ the mesh (:57-66: "the Pallas kernels themselves are the single-chip
 epilogue path"), ``pallas_packed`` here gossips through
 ``dist.collectives.gossip_pair``; ``sparse_packed`` is not ported to the
 mesh.
+
+``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
+build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch
+rows split over ``pod × data`` (replicated where that axis does not divide
+them, as the reference's ``_maybe`` leaves a batch of 1), the weights over
+``model`` as tensor parallelism (``dist.tensor_parallel``), the residual
+whole on every model rank.  The reference's serving residual is batch over
+``data`` and sequence over ``model`` (:268-270), which GSPMD gathers around
+attention; sequence parallelism is later work (ROADMAP A13).  A step runs
+eagerly: a gloo collective cannot be captured in a CUDA graph.  The
+reference's specs of those programs are ported as pure functions
+(``_cache_shardings``, ``params_sds``, ``cache_sds``), which
+``launch.serve.serve_production`` counts bytes from.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Dict, Optional
+
+import torch
 
 from repro_torch.configs.base import (AlgorithmConfig, InputShape, MeshConfig,
                                       MinimaxConfig, ModelConfig)
 from repro_torch.core import kgt_minimax as kgt
 from repro_torch.core import objectives
-from repro_torch.dist import collectives
+from repro_torch.core import tree as tree_lib
+from repro_torch.dist import collectives, compat
 from repro_torch.dist import context as dist_ctx
 from repro_torch.dist import sharding as sh
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.models import model as model_lib
+from repro_torch.models import transformer as tf
 
 
 def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
@@ -68,3 +87,187 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
 
     round_step.uses_round = round_fn.uses_round
     return round_step, axis
+
+
+# ---------------------------------------------------------------------------
+# serving (reference :227-353)
+# ---------------------------------------------------------------------------
+
+def _serve_batch_axes(mesh):
+    return (("pod", "data") if "pod" in compat.axis_names(mesh)
+            else "data",)
+
+
+def _axis_size(mesh, axis) -> int:
+    sizes = compat.axis_sizes(mesh)
+    if isinstance(axis, tuple):
+        n = 1
+        for a in axis:
+            n *= sizes.get(a, 1)
+        return n
+    return sizes.get(axis, 1)
+
+
+def _maybe(axis, size: int, mesh):
+    """``axis`` if its mesh extent divides ``size``, else None (e.g. batch
+    1: replicated)."""
+    return axis if size % _axis_size(mesh, axis) == 0 else None
+
+
+def _bf16_params(tree):
+    """Serving parameters are bf16 (inference): every floating leaf."""
+    return tree_lib.tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t, tree)
+
+
+def batch_rows(mesh, b: int) -> slice:
+    """This rank's rows of a batch of ``b``: its piece of the batch axis,
+    or every row where the axis does not divide ``b``."""
+    axis = _serve_batch_axes(mesh)[0]
+    if _maybe(axis, b, mesh) is None:
+        return slice(0, b)
+    n = b // _axis_size(mesh, axis)
+    r = mesh.batch_axis.rank
+    return slice(r * n, (r + 1) * n)
+
+
+@dataclasses.dataclass
+class ServeStep:
+    """One rank's serving step ``fn`` with what it runs on: the rank's
+    shard config, the model axis' plan and the rank's rows of the
+    batch."""
+    fn: Callable
+    cfg: ModelConfig
+    plan: Dict[str, Optional[tp.Split]]
+    rows: slice
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _step(fn, model_cfg: ModelConfig, mesh, b: int) -> ServeStep:
+    m, r = mesh.model_axis.size, mesh.model_axis.rank
+    return ServeStep(fn, tp.shard_config(model_cfg, m, r),
+                     tp.plan(model_cfg, m), batch_rows(mesh, b))
+
+
+def build_prefill_step(model_cfg: ModelConfig, shape: InputShape, mesh, *,
+                       compute_dtype=torch.bfloat16) -> ServeStep:
+    """``prefill(params_shard, batch_rows, caches) -> (logits_last,
+    caches)`` on this rank (reference :253): ``forward(mode="prefill",
+    last_only=True)`` of the rank's shard (``tp.shard_params`` of the
+    bf16 parameters) on its rows, the logits of every vocabulary column
+    (gathered over ``model``) and the caches of the rank's rows and KV
+    heads (``init_cache`` of the step's ``cfg`` at ``shape.seq_len``).
+    The collectives count under the ``prefill`` phase."""
+    skel = tp.shard_skeleton(model_cfg, mesh.model_axis.size,
+                             mesh.model_axis.rank)
+
+    def prefill(params_shard, batch, caches):
+        with torch.no_grad(), collectives.phase("prefill"), \
+                tp.model_parallel(mesh.model_axis, model_cfg):
+            logits, new_caches, _ = model_lib.call(
+                skel, params_shard, model_lib.forward, batch,
+                mode="prefill", compute_dtype=compute_dtype, caches=caches,
+                last_only=True)
+        return logits, new_caches
+
+    return _step(prefill, model_cfg, mesh, shape.global_batch)
+
+
+def build_decode_step(model_cfg: ModelConfig, shape: InputShape, mesh, *,
+                      compute_dtype=torch.bfloat16) -> ServeStep:
+    """``decode(params_shard, caches, tokens, pos) -> (logits, caches)`` on
+    this rank (reference :310): one ``decode_step`` of the rank's rows
+    against caches of ``shape.seq_len``, ``pos`` an int or a (rows,)
+    tensor.  The collectives count under the ``decode`` phase."""
+    skel = tp.shard_skeleton(model_cfg, mesh.model_axis.size,
+                             mesh.model_axis.rank)
+
+    def decode(params_shard, caches, tokens, pos):
+        with torch.no_grad(), collectives.phase("decode"), \
+                tp.model_parallel(mesh.model_axis, model_cfg):
+            return model_lib.call(skel, params_shard, model_lib.decode_step,
+                                  caches, tokens, pos,
+                                  compute_dtype=compute_dtype)
+
+    return _step(decode, model_cfg, mesh, shape.global_batch)
+
+
+def params_sds(model_cfg: ModelConfig):
+    """The model's f32 parameters as meta tensors in the reference's tree
+    (``init_params``: ``embed``, ``stack`` — per segment, per unit slot,
+    each leaf stacked over the segment's repeats —, ``final_norm``,
+    ``head``)."""
+    skel = model_lib.skeleton(model_cfg)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    out = {"embed": meta(*skel.embed.shape),
+           "final_norm": meta(*skel.final_norm.shape)}
+    if skel.head is not None:
+        out["head"] = meta(*skel.head.shape)
+    slots = tf.layer_slots(model_cfg)
+    stack = []
+    for si, (unit, reps) in enumerate(tf.segments(model_cfg)):
+        blocks = []
+        for bi in range(len(unit)):
+            first = next(layer for layer, (s_, _, b_, _) in
+                         zip(skel.layers, slots) if (s_, b_) == (si, bi))
+            block: dict = {}
+            for name, p in first.named_parameters():
+                head, _, leaf = name.partition(".")
+                t = meta(reps, *p.shape)
+                if leaf:
+                    block.setdefault(head, {})[leaf] = t
+                else:
+                    block[head] = t
+            blocks.append(block)
+        stack.append(tuple(blocks))
+    out["stack"] = tuple(stack)
+    return out
+
+
+def cache_sds(model_cfg: ModelConfig, b: int, s: int, dtype=torch.bfloat16):
+    """``init_cache(b, s)`` as meta tensors in the reference's tree: per
+    segment, per unit slot, each leaf stacked over the repeats."""
+    out = []
+    for unit, reps in tf.segments(model_cfg):
+        unit_caches = []
+        for kind in unit:
+            one = model_lib._block_cache(kind, model_cfg, b, s, dtype, "meta")
+            unit_caches.append({k: torch.empty((reps, *t.shape),
+                                               dtype=t.dtype, device="meta")
+                                for k, t in one.items()})
+        out.append(tuple(unit_caches))
+    return tuple(out)
+
+
+def _cache_shardings(cache_sds_tree, mesh, batch_axis):
+    """Placements of the (reps, B, …) cache leaves (reference :291): the
+    batch dim over the batch axes where they divide it; the largest
+    trailing dim that the model axis divides over ``model``."""
+    n_model = _axis_size(mesh, sh.MODEL)
+
+    def spec(t):
+        shp = tuple(t.shape)
+        parts = [None] * len(shp)
+        if len(shp) >= 2:
+            parts[1] = _maybe(batch_axis, shp[1], mesh)
+        cands = [(sz, i) for i, sz in enumerate(shp[2:], start=2)
+                 if sz % n_model == 0 and sz >= n_model]
+        if cands:
+            parts[max(cands)[1]] = sh.MODEL
+        return sh.placements(parts, mesh)
+
+    return tree_lib.tree_map(spec, cache_sds_tree)
+
+
+def long_context_variant(model_cfg: ModelConfig) -> ModelConfig:
+    """The sub-quadratic variant for long_500k (reference :347): SSM and
+    hybrid archs are native; full-attention archs get a 4096-token sliding
+    window."""
+    if model_cfg.arch_type in ("ssm", "hybrid"):
+        return model_cfg
+    return dataclasses.replace(model_cfg, long_context_window=4096)

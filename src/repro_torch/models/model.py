@@ -12,6 +12,12 @@ client-stacked state, and :func:`call` runs a function of the model
 through ``torch.func.functional_call`` on a parameterless skeleton
 (:func:`skeleton`).
 
+A rank of the serving mesh runs a ``Model`` of its tensor-parallel shard
+(``dist.tensor_parallel``): its heads, widths and a contiguous range of
+the vocabulary (``Model.vocab_range``), the collectives at tagged points
+of ``dist.context`` (``embed_rows`` after the lookup, ``logits`` after the
+head; identities without a context).
+
 The modality frontends are the reference's stubs: an audio model
 (``num_codebooks`` C) embeds (B, S, C) token streams as the sum of C
 per-codebook embeddings and predicts (B, S, C, V) logits, its loss the
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_init, param, rms_norm
@@ -37,13 +44,16 @@ class Model(nn.Module):
     """Parameters of one language model, under the reference's names:
     ``embed`` (V, d), or (C, V, d) with C codebooks, ``layers`` (one
     ``transformer.Block`` per layer, in layer order), ``final_norm`` (d,)
-    and, unless the embeddings are tied, ``head`` (d, V), or (C, d, V)."""
+    and, unless the embeddings are tied, ``head`` (d, V), or (C, d, V).
+    ``vocab_range`` [lo, hi) is set on a tensor-parallel shard, whose V
+    columns are the token ids lo … hi − 1 (None: the whole vocabulary)."""
 
     def __init__(self, cfg: ModelConfig, gen, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         self.cfg = cfg
+        self.vocab_range = None
         self.embed = param(embed_init(gen, (*cb, cfg.vocab_size,
                                             cfg.d_model), **kw))
         self.layers = nn.ModuleList(
@@ -102,7 +112,10 @@ def call(skel: Model, params: Dict[str, torch.Tensor], fn, *args, **kw):
 def embed_tokens(model: Model, tokens, compute_dtype):
     """(B, S) tokens -> (B, S, d); with C codebooks (B, S, C) tokens ->
     the sum of the C codebooks' embeddings, added in codebook order in the
-    compute dtype (reference :54-60)."""
+    compute dtype (reference :54-60).  A shard with a ``vocab_range``
+    looks up :func:`_shard_rows`."""
+    if model.vocab_range is not None:
+        return _shard_rows(model, tokens, compute_dtype)
     if not model.cfg.num_codebooks:
         return model.embed[tokens].to(compute_dtype)
     x = model.embed[0][tokens[..., 0]].to(compute_dtype)
@@ -111,8 +124,39 @@ def embed_tokens(model: Model, tokens, compute_dtype):
     return x
 
 
+def _shard_rows(model: Model, tokens, compute_dtype):
+    """The embedding rows of a vocab-parallel shard: ids in its range
+    looked up, the others' rows zero, then summed over the model axis
+    (``embed_rows``: one rank holds each row, so the sum is the row); with
+    codebooks the C rows (B, S, C, d) cross together and are added in
+    codebook order afterwards, as :func:`embed_tokens` adds them."""
+    lo, hi = model.vocab_range
+    local = tokens - lo
+    inside = (local >= 0) & (local < hi - lo)
+    local = torch.where(inside, local, 0)
+    if model.cfg.num_codebooks:
+        rows = torch.stack([model.embed[c][local[..., c]]
+                            for c in range(model.cfg.num_codebooks)], dim=-2)
+    else:
+        rows = model.embed[local]
+    rows = torch.where(inside[..., None], rows.to(compute_dtype), 0)
+    rows = dist_ctx.apply("embed_rows", rows)
+    if not model.cfg.num_codebooks:
+        return rows
+    x = rows[..., 0, :]
+    for c in range(1, model.cfg.num_codebooks):
+        x = x + rows[..., c, :]
+    return x
+
+
 def lm_head(model: Model, x, compute_dtype):
-    """(B, S, d) -> logits (B, S, V), or (B, S, C, V) with C codebooks."""
+    """(B, S, d) -> logits (B, S, V), or (B, S, C, V) with C codebooks; a
+    shard's vocabulary columns gathered over the model axis
+    (``logits``)."""
+    return dist_ctx.apply("logits", _head(model, x, compute_dtype))
+
+
+def _head(model: Model, x, compute_dtype):
     if model.cfg.num_codebooks:
         if model.head is None:
             return torch.einsum("bsd,cvd->bscv", x,
@@ -308,6 +352,26 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """One cache dict per layer, in layer order."""
     return [_block_cache(kind, cfg, batch, seq_len, dtype, device)
             for kind in cfg.blocks()]
+
+
+def grow_caches(cfg: ModelConfig, caches, total: int) -> List[Dict]:
+    """Caches that a prefill filled at the prompt's length
+    (``init_cache(cfg, B, P)``), each KV cache grown to its length for
+    ``total`` tokens by empty slots after the prompt's.  Decode writes
+    position p at slot p (a global cache) or p % length (a window), so a
+    prefill that fills its cache exactly (``launch.serve.check_prompt``
+    at ``total = P``) then serves the decode steps up to ``total``.
+    Other caches pass through."""
+    out = []
+    for kind, cache in zip(cfg.blocks(), caches):
+        length = cache_length(kind, cfg, total)
+        if length is None or cache["k"].shape[1] == length:
+            out.append(cache)
+            continue
+        out.append({name: torch.cat([t, t.new_zeros(
+            (t.shape[0], length - t.shape[1], *t.shape[2:]))], dim=1)
+            for name, t in cache.items()})
+    return out
 
 
 def decode_step(model: Model, caches, tokens, pos, *,

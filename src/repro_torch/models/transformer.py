@@ -14,6 +14,12 @@ Block kinds ported:
   ssm                    Mamba2 SSD mixer, no MLP
   moe                    GQA attention + MoE MLP (``models.moe``)
 
+On the serving mesh's model axis (``dist.tensor_parallel``) a block runs
+on its rank's heads and d_ff (or expert_d_ff) piece, and the partial sums
+of the out-projection and of the MLP or MoE cross the ranks at the
+``attn_proj`` and ``ffn_out`` points of ``dist.context`` (identities
+without a context).
+
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
 ``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
 too, under autograd as well (each kernel's gradient is an autograd
@@ -212,6 +218,7 @@ def block_forward(
 
     ctx = dist_ctx.apply("attn_out", ctx)  # back to the residual layout
     y = attn_lib.out_project(params.attn, ctx, compute_dtype)
+    y = dist_ctx.apply("attn_proj", y)  # the head shards' partial sums
     x = x + y
 
     h2 = rms_norm(x, params.norm2, cfg.norm_eps)
@@ -221,6 +228,7 @@ def block_forward(
         y2, aux = moe_fn(params.moe, h2, cfg, compute_dtype)
     else:
         y2 = mlp(params.mlp, h2, compute_dtype)
+    y2 = dist_ctx.apply("ffn_out", y2)  # the ffn shards' partial sums
     return x + y2, new_cache, aux
 
 

@@ -56,7 +56,8 @@ MUST_IMPORT = ("repro_torch.configs.registry", "repro_torch.configs.shapes",
                "repro_torch.dist.context", "repro_torch.dist.compat",
                "repro_torch.dist.sharding", "repro_torch.dist.collectives",
                "repro_torch.dist.launch", "repro_torch.launch.mesh",
-               "repro_torch.launch.steps", "repro_torch.launch.smoke")
+               "repro_torch.launch.steps", "repro_torch.launch.smoke",
+               "repro_torch.dist.tensor_parallel")
 
 
 def _env():

@@ -1,0 +1,629 @@
+"""The port's serving mesh (``launch.steps.build_prefill_step`` /
+``build_decode_step`` on a ``launch.mesh.ServeMesh``, tensor parallelism
+from ``dist.tensor_parallel``, ``launch.serve.generate_on_mesh``,
+``serve_production``) against ``repro``.
+
+* One spawned gloo world of 4 ranks runs every case
+  (``_torch_serve_mesh_worker.serve_cases``) on sub-meshes ``(1, 2)``,
+  ``(2, 1)``, ``(2, 2)`` and ``(1, 1)``: the reduced qwen2-0.5b,
+  granite-moe-1b-a400m, musicgen-medium (codebooks) and internvl2-76b
+  (prefix) in f32 — the prefill's last logits and its caches (gathered over
+  heads and rows) against ``repro.models.forward(mode="prefill",
+  last_only=True, caches=...)`` (what the reference's
+  ``build_prefill_step`` runs, ``repro/launch/steps.py:272-278``), then four
+  teacher-forced decode steps against ``repro.models.decode_step`` from the
+  reference's caches grown as the port grows them; mamba2-1.3b and
+  recurrentgemma-9b at ``(2, 1)``; the reduced qwen2-0.5b with an odd
+  vocabulary (511) on ``(1, 2)`` and ``(2, 2)`` against the reference at
+  that vocabulary; a world of one rank bit for bit the port's single
+  process (prefill, ``grow_caches``, decode steps); the counted
+  collectives and bytes against the formula.
+* ``shard_params`` then ``gather_params`` bit for bit; the refusals.
+* ``_cache_shardings``, ``_maybe`` and the arguments' bytes of
+  ``serve_production`` against the reference's specs on the production
+  meshes, in a subprocess with 512 fake XLA devices (as
+  ``repro/launch/smoke.py:1-4`` sets them); ``long_context_variant``.
+* ``launch.serve --mesh 1x2`` under torchrun, and the smoke's serving leg
+  (on the world of 4).
+
+Tolerance: f32 compute, max |Δ| ≤ 1e-4·(1 + max|reference|) — the same
+math, the row-parallel partial products summed over ranks in f32.
+"""
+import _torch_threads  # noqa: F401
+import dataclasses
+import functools
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jax_registry
+from repro.launch import steps as jax_steps
+from repro.models import model as jax_model
+from repro_torch.configs import registry
+from repro_torch.configs.base import InputShape
+from repro_torch.configs.shapes import SHAPES
+from repro_torch.core import tree as tree_lib
+from repro_torch.dist import collectives
+from repro_torch.dist import launch as dist_launch
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.kernels import flash_attention
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import serve as serve_lib
+from repro_torch.launch import steps
+from repro_torch.models import interop
+from repro_torch.models import model as t_model
+
+import _torch_serve_mesh_worker as worker
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOL = 1e-4
+B, P, T = 2, 32, 4
+TP_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "musicgen-medium",
+            "internvl2-76b")
+DP_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
+TP_MESHES = ((1, 2), (2, 1), (2, 2))
+ODD_VOCAB = 511
+# the smoke's serving leg, on the same world: (2, 2) and (4, 1)
+SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-1.3b")
+
+
+def _close(got, want, tol=TOL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    err = np.abs(got - want).max()
+    assert err <= tol * (1 + np.abs(want).max()), err
+    return err
+
+
+# ---------------------------------------------------------------------------
+# the reference's prefill and decode steps
+# ---------------------------------------------------------------------------
+
+def _grow_reference(caches, grown):
+    """The reference's prefill caches padded with zero slots to the
+    lengths of ``grown`` (its ``init_cache`` at P + T), as the port's
+    ``grow_caches`` grows them."""
+    def pad(c, g):
+        if c.shape == g.shape:
+            return c
+        widths = [(0, gs - cs) for cs, gs in zip(c.shape, g.shape)]
+        return jnp.pad(c, widths)
+
+    return jax.tree.map(pad, caches, grown)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch, vocab=None):
+    """(case, reference): the reduced ``arch``'s reference params, prompts
+    and forced tokens, with the reference's f32 prefill (last logits and
+    caches) and the logits of T teacher-forced decode steps.  ``vocab``:
+    the config's vocabulary replaced by that many tokens."""
+    cfg_j = jax_registry.reduced(jax_registry.get_model_config(arch))
+    cfg_t = registry.reduced(registry.get_model_config(arch))
+    if vocab is not None:
+        cfg_j = dataclasses.replace(cfg_j, vocab_size=vocab)
+        cfg_t = dataclasses.replace(cfg_t, vocab_size=vocab,
+                                    name=f"{cfg_t.name}-vocab-{vocab}")
+    params = jax_model.init_params(cfg_j, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(5)
+    cb = (cfg_j.num_codebooks,) if cfg_j.num_codebooks else ()
+    prompt = rng.integers(0, cfg_j.vocab_size, (B, P, *cb)).astype(np.int32)
+    forced = rng.integers(0, cfg_j.vocab_size, (B, T, *cb)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(prompt)}
+    prefix = None
+    if cfg_j.num_prefix_tokens:
+        prefix = rng.standard_normal(
+            (B, cfg_j.num_prefix_tokens, cfg_j.d_model)).astype(np.float32)
+        batch["prefix"] = jnp.asarray(prefix)
+    caches = jax_model.init_cache(cfg_j, B, P, jnp.float32)
+    prefill = jax.jit(lambda p, b, c: jax_model.forward(
+        p, b, cfg_j, mode="prefill", compute_dtype=jnp.float32, caches=c,
+        last_only=True)[:2])
+    decode = jax.jit(lambda p, c, t, pos: jax_model.decode_step(
+        p, c, t, pos, cfg_j, compute_dtype=jnp.float32))
+    logits, caches = prefill(params, batch, caches)
+    prefill_caches = jax.tree.map(np.asarray, caches)
+    caches = _grow_reference(caches, jax_model.init_cache(
+        cfg_j, B, P + T, jnp.float32))
+    outs = [np.asarray(logits)]
+    for i in range(T):
+        logits, caches = decode(params, caches,
+                                jnp.asarray(forced[:, i:i + 1]),
+                                jnp.int32(P + i))
+        outs.append(np.asarray(logits))
+    case = {"name": arch if vocab is None else "odd_vocab", "cfg": cfg_t,
+            "params": jax.tree.map(np.asarray, params), "dtype": torch.float32,
+            "prompt": torch.from_numpy(prompt).long(),
+            "forced": torch.from_numpy(forced).long(),
+            "prefix": None if prefix is None else torch.from_numpy(prefix),
+            "gen_tokens": T,
+            "meshes": (((1, 2), (2, 2)) if vocab is not None
+                       else TP_MESHES if arch in TP_ARCHS else ((2, 1),))}
+    ref = {"logits": np.concatenate(outs, axis=1),
+           "caches": interop.caches_from_reference(prefill_caches, cfg_t,
+                                                   device="cpu")}
+    return case, ref
+
+
+def _world_of_one_case():
+    """bf16 serving (the default) on a mesh of one rank, held bit for bit
+    to the single-process path (:func:`_single_process`)."""
+    cfg = registry.reduced(registry.get_model_config("qwen2-0.5b"))
+    g = torch.Generator().manual_seed(6)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=g)
+    forced = torch.randint(0, cfg.vocab_size, (B, T), generator=g)
+    return {"name": "world_of_1", "cfg": cfg, "params": None, "seed": 4,
+            "dtype": torch.bfloat16, "prompt": prompt, "forced": forced,
+            "gen_tokens": T, "meshes": ((1, 1),)}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Every case on one spawned world of 4; results by (case, mesh)."""
+    refs = {arch: _reference(arch) for arch in TP_ARCHS + DP_ARCHS}
+    refs["odd_vocab"] = _reference("qwen2-0.5b", ODD_VOCAB)
+    one_case = _world_of_one_case()
+    cases = [c for c, _ in refs.values()] + [one_case]
+    d = tmp_path_factory.mktemp("serve_mesh")
+    path = str(d / "cases.pt")
+    torch.save(cases, path)
+    ranks = dist_launch.run_world(4, worker.serve_cases, path, SMOKE_ARCHS,
+                                  backend="gloo", store_dir=str(d))
+    by = {}
+    for recs in ranks:
+        for r in recs:
+            by.setdefault((r["case"], r["mesh"]), []).append(r)
+    return {"refs": refs, "cases": {c["name"]: c for c in cases},
+            "one": _single_process(one_case), "by": by}
+
+
+def _gathered(recs):
+    """The mesh's logits (B, T + 1, …) and prefill caches (per layer, all
+    rows and KV heads) from each rank's: every model rank's logits equal,
+    rows concatenated in batch-rank order, KV heads in model-rank order."""
+    by_b = {}
+    for r in recs:
+        by_b.setdefault(r["batch_rank"], []).append(r)
+    logits, caches = [], None
+    for b in sorted(by_b):
+        group = sorted(by_b[b], key=lambda r: r["model_rank"])
+        for r in group[1:]:
+            assert torch.equal(r["logits"], group[0]["logits"])
+        logits.append(group[0]["logits"])
+        layers = group[0]["caches"]
+        if len(group) > 1:
+            layers = [{k: torch.cat([r["caches"][i][k] for r in group],
+                                    dim=2) for k in layers[i]}
+                      for i in range(len(layers))]
+        if b == 0:
+            caches = layers
+        elif recs[0]["rows"] != (0, B):      # rows split, not replicated
+            caches = [{k: torch.cat([c[k], l[k]]) for k in c}
+                      for c, l in zip(caches, layers)]
+    if recs[0]["rows"] == (0, B):
+        logits = logits[:1]
+    return torch.cat(logits), caches
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_prefill_and_decode_match_the_reference(world, arch, mesh):
+    recs = world["by"][(arch, mesh)]
+    assert len(recs) == mesh[0] * mesh[1]
+    assert all(r["same_tokens"] for r in recs)
+    ref = world["refs"][arch][1]
+    logits, caches = _gathered(recs)
+    _close(logits[:, :1], ref["logits"][:, :1])        # the prefill
+    _close(logits[:, 1:], ref["logits"][:, 1:])        # four decode steps
+    assert len(caches) == len(ref["caches"])
+    for got, want in zip(caches, ref["caches"]):
+        assert set(got) == set(want)
+        for k in got:
+            _close(got[k], want[k])
+
+
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_scan_blocks_serve_on_the_data_axis(world, arch):
+    recs = world["by"][(arch, (2, 1))]
+    assert [r["rows"] for r in sorted(recs, key=lambda r: r["rank"])] == [
+        (0, 1), (1, 2)]
+    ref = world["refs"][arch][1]
+    logits, caches = _gathered(recs)
+    _close(logits, ref["logits"])
+    for got, want in zip(caches, ref["caches"]):
+        for k in got:
+            _close(got[k], want[k])
+    # the data axis alone makes no collective but the tokens' check
+    for r in recs:
+        assert set(r["collectives"]) - {"check"} == {"staged_bytes"}
+
+
+@pytest.mark.parametrize("arch", DP_ARCHS)
+def test_scan_blocks_refuse_the_model_axis_by_name(arch):
+    cfg = registry.reduced(registry.get_model_config(arch))
+    kind = "ssm" if arch.startswith("mamba") else "rglru"
+    with pytest.raises(ValueError, match=f"'{kind}' blocks"):
+        tp.plan(cfg, 2)
+    fake = mesh_lib.ServeMesh(
+        ("data", "model"), (1, 2),
+        batch_axis=collectives.MeshAxis(rank=0, size=1),
+        model_axis=collectives.MeshAxis(rank=0, size=2))
+    with pytest.raises(ValueError, match=f"'{kind}' blocks"):
+        steps.build_prefill_step(
+            cfg, InputShape("s", 8, 2, "prefill"), fake)
+    tp.plan(cfg, 1)                      # the data axis alone is fine
+
+
+def _single_process(case):
+    cfg = case["cfg"]
+    model = t_model.init_params(cfg, seed=case["seed"], device="cpu",
+                                dtype=case["dtype"])
+    caches = t_model.init_cache(cfg, B, P, dtype=case["dtype"], device="cpu")
+    with torch.no_grad():
+        logits, caches, _ = t_model.forward(
+            model, {"tokens": case["prompt"]}, mode="prefill",
+            compute_dtype=case["dtype"], caches=caches, last_only=True)
+        prefill = caches
+        caches = t_model.grow_caches(cfg, caches, P + T)
+        outs = [logits]
+        for i in range(T):
+            logits, caches = t_model.decode_step(
+                model, caches, case["forced"][:, i:i + 1],
+                torch.full((B,), P + i), compute_dtype=case["dtype"])
+            outs.append(logits)
+    return torch.cat(outs, dim=1), prefill
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)],
+                         ids=lambda m: "x".join(map(str, m)))
+def test_an_odd_vocabulary_splits_unevenly(world, mesh):
+    assert tp.pieces(ODD_VOCAB, 2, "v") == (256, 255)
+    recs = world["by"][("odd_vocab", mesh)]
+    ref = world["refs"]["odd_vocab"][1]
+    logits, caches = _gathered(recs)
+    assert logits.shape[-1] == ODD_VOCAB
+    _close(logits[:, :1], ref["logits"][:, :1])        # the prefill
+    _close(logits[:, 1:], ref["logits"][:, 1:])        # four decode steps
+    assert len(caches) == len(ref["caches"])
+    for got, want in zip(caches, ref["caches"]):
+        for k in got:
+            _close(got[k], want[k])
+    # the logits' all-gather moves the padded pieces (256 wide)
+    for r in recs:
+        gather = r["collectives"]["prefill"]["all_gather"]
+        assert gather == {**gather, "calls": 1,
+                          "bytes": (mesh[1] - 1) * (B // mesh[0]) * 256 * 4}
+
+
+def test_a_world_of_one_is_the_single_process_path(world):
+    logits, prefill = world["one"]
+    r, = world["by"][("world_of_1", (1, 1))]
+    assert torch.equal(r["logits"], logits)
+    assert torch.equal(r["tokens"], world["cases"]["world_of_1"]["forced"])
+    for got, want in zip(r["caches"], prefill):
+        for k in got:
+            assert torch.equal(got[k], want[k])
+    assert set(r["collectives"]) == {"staged_bytes"}
+
+
+def _formula(cfg, nb, s, t, m, elt):
+    """The collectives of one rank at m model ranks: a prefill makes
+    2L + 1 f32 all-reduces — after each layer's out-projection and MLP,
+    of nb·S'·d (S' with the prefix), and the embedding rows' of
+    nb·S·[C]·d — and one all-gather of the last logits' padded pieces,
+    ((m − 1)·nb·[C]·⌈V/m⌉ in the compute dtype); a decode step the same
+    with S = 1.  The check phase all-gathers the fed tokens (int64)."""
+    if m == 1:
+        return {}
+    c = cfg.num_codebooks or 1
+    layers, d = cfg.num_layers, cfg.d_model
+    vmax = max(tp.pieces(cfg.vocab_size, m, "v"))
+
+    def step(seq, total):
+        return {"all_reduce": {"calls": 2 * layers + 1,
+                               "bytes": (2 * layers * nb * total * d
+                                         + nb * seq * c * d) * 4},
+                "all_gather": {"calls": 1,
+                               "bytes": (m - 1) * nb * c * vmax * elt}}
+
+    pre = step(s, s + cfg.num_prefix_tokens)
+    dec = {k: {f: v * t for f, v in x.items()} for k, x in step(1, 1).items()}
+    return {"prefill": pre, "decode": dec,
+            "check": {"all_gather": {"calls": 1,
+                                     "bytes": (m - 1) * nb * t * c * 8}}}
+
+
+@pytest.mark.parametrize("mesh", TP_MESHES, ids=lambda m: "x".join(map(str, m)))
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_the_counted_collectives_match_the_formula(world, arch, mesh):
+    cfg = world["cases"][arch]["cfg"]
+    want = _formula(cfg, B // mesh[0], P, T, mesh[1], 4)
+    for r in world["by"][(arch, mesh)]:
+        got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
+                    for k, v in kinds.items()}
+               for ph, kinds in r["collectives"].items()
+               if ph != "staged_bytes"}
+        assert got == want
+        assert r["collectives"]["staged_bytes"] == 0     # CPU tensors
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_shard_then_gather_is_bit_for_bit(arch, m):
+    cfg = registry.reduced(registry.get_model_config(arch))
+    if cfg.num_kv_heads % m:
+        with pytest.raises(ValueError, match="num_kv_heads"):
+            tp.plan(cfg, m)
+        return
+    full = t_model.param_dict(t_model.init_params(cfg, seed=1, device="cpu"))
+    the_plan = tp.plan(cfg, m)
+    shards = [tp.shard_params(full, the_plan, r) for r in range(m)]
+    back = tp.gather_params(shards, the_plan)
+    assert set(back) == set(full)
+    for name in full:
+        assert torch.equal(back[name], full[name]), name
+    # each shard is a model of the rank's shard config
+    for r, shard in enumerate(shards):
+        skel = tp.shard_skeleton(cfg, m, r)
+        shapes = {n: tuple(p.shape) for n, p in skel.named_parameters()}
+        assert shapes == {n: tuple(t.shape) for n, t in shard.items()}
+    # GQA stays grouped: rank r's query heads are those of its KV heads
+    wq = full["layers.0.attn.wq"]
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    for r, shard in enumerate(shards):
+        q = shard["layers.0.attn.wq"]
+        lo = r * (kv // m) * (h // kv)
+        assert torch.equal(q, wq[:, lo:lo + h // m])
+
+
+def test_qwen2_at_two_model_ranks_runs_b5_on_tensor_cores():
+    """qwen2-0.5b's shard at M = 2 is (4, 4096, 7, 1, 64) for B5: 7 query
+    heads over 1 KV head, bf16, whose rows the tensor-core route takes."""
+    cfg = tp.shard_config(registry.get_model_config("qwen2-0.5b"), 2, 0)
+    assert (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            cfg.d_ff, cfg.vocab_size) == (7, 1, 64, 2432, 75968)
+    q = torch.empty((4, 4096, 7, 64), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((4, 4096, 1, 64), dtype=torch.bfloat16, device="meta")
+    assert flash_attention.route(torch.bfloat16, 64,
+                                 (q.stride(), k.stride(), k.stride()),
+                                 True) == "tensor_core"
+
+
+def test_the_plan_leaves_the_router_and_norms_whole():
+    cfg = registry.reduced(registry.get_model_config("granite-moe-1b-a400m"))
+    the_plan = tp.plan(cfg, 2)
+    assert the_plan["layers.0.moe.router"] is None
+    assert the_plan["layers.0.norm1"] is None
+    assert the_plan["final_norm"] is None
+    assert the_plan["layers.0.moe.gate"] == tp.Split(2, (32, 32))
+    assert the_plan["layers.0.moe.down"] == tp.Split(1, (32, 32))
+    assert the_plan["embed"] == tp.Split(0, (256, 256))
+
+
+def test_batch_rows_split_over_pod_and_data():
+    """With a pod axis the rows split over pod × data (reference
+    ``_serve_batch_axes``); a batch the axis does not divide is whole on
+    every rank (``_maybe``)."""
+    mesh = mesh_lib.ServeMesh(
+        ("pod", "data", "model"), (2, 2, 2),
+        batch_axis=collectives.MeshAxis(rank=3, size=4),
+        model_axis=collectives.MeshAxis(rank=1, size=2))
+    assert steps._serve_batch_axes(mesh) == (("pod", "data"),)
+    assert steps.batch_rows(mesh, 8) == slice(6, 8)
+    assert steps.batch_rows(mesh, 1) == slice(0, 1)
+
+
+def test_grow_caches_then_decode_equals_the_longer_cache():
+    """A prefill at the prompt's length, grown, then decoded: the logits
+    of decoding from position 0 into the long cache (f32)."""
+    cfg = registry.reduced(registry.get_model_config("qwen2-0.5b"))
+    model = t_model.init_params(cfg, seed=9, device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (1, 12),
+                         generator=torch.Generator().manual_seed(8))
+    with torch.no_grad():
+        full, _, _ = t_model.forward(model, {"tokens": toks},
+                                     compute_dtype=torch.float32)
+        caches = t_model.init_cache(cfg, 1, 8, dtype=torch.float32,
+                                    device="cpu")
+        _, caches, _ = t_model.forward(
+            model, {"tokens": toks[:, :8]}, mode="prefill", caches=caches,
+            compute_dtype=torch.float32, last_only=True)
+        caches = t_model.grow_caches(cfg, caches, 12)
+        assert caches[0]["k"].shape[1] == 12
+        for t in range(8, 12):
+            logits, caches = t_model.decode_step(
+                model, caches, toks[:, t:t + 1], t,
+                compute_dtype=torch.float32)
+            _close(logits, full[:, t:t + 1], 1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the reference's specs (fake devices in a subprocess)
+# ---------------------------------------------------------------------------
+
+SPEC_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "musicgen-medium",
+              "internvl2-76b", "mamba2-1.3b", "recurrentgemma-9b")
+SPEC_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+
+_REFERENCE_SPECS = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=512"
+import json, math, sys
+import jax, jax.numpy as jnp
+from repro.configs import registry
+from repro.configs.shapes import SHAPES
+from repro.dist import sharding as sh
+from repro.launch import mesh as mesh_lib
+from repro.launch import steps
+from repro.models import model as model_lib
+
+def spec_dims(s, ndim):
+    parts = list(s.spec) + [None] * (ndim - len(s.spec))
+    return [None if p is None else ([p] if isinstance(p, str) else list(p))
+            for p in parts]
+
+def nbytes(tree, shards):
+    return sum(math.prod(s.shard_shape(x.shape)) * x.dtype.itemsize
+               for x, s in zip(jax.tree.leaves(tree), jax.tree.leaves(shards)))
+
+out = {}
+params_of = {}
+for multi_pod in (False, True):
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    ax = steps._serve_batch_axes(mesh)[0]
+    out[f"maybe/{multi_pod}"] = [
+        [steps._maybe(a, n, mesh) for n in (1, 2, 16, 32, 128)]
+        for a in (ax, "model", "data")]
+    for arch in sys.argv[1].split(","):
+        for name in sys.argv[2].split(","):
+            cfg = registry.get_model_config(arch)
+            shape = SHAPES[name]
+            if name == "long_500k":
+                cfg = steps.long_context_variant(cfg)
+            b, s = shape.global_batch, shape.seq_len
+            if arch not in params_of:  # the variant's params are the same
+                params_of[arch] = steps._bf16_sds(jax.eval_shape(
+                    lambda k: model_lib.init_params(cfg, k),
+                    jax.random.PRNGKey(0)))
+            params = params_of[arch]
+            caches = jax.eval_shape(
+                lambda: model_lib.init_cache(cfg, b, s, jnp.bfloat16))
+            c_shard = steps._cache_shardings(caches, mesh, ax)
+            cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+            tl = s if shape.kind == "prefill" else 1
+            inputs = {"tokens": jax.ShapeDtypeStruct((b, tl, *cb), jnp.int32)}
+            if shape.kind == "prefill" and cfg.num_prefix_tokens:
+                inputs["prefix"] = jax.ShapeDtypeStruct(
+                    (b, cfg.num_prefix_tokens, cfg.d_model), jnp.float32)
+            from jax.sharding import NamedSharding, PartitionSpec as P
+            i_shard = {k: NamedSharding(mesh, P(*([steps._maybe(ax, v.shape[0], mesh)]
+                       + [None] * (len(v.shape) - 1)))) for k, v in inputs.items()}
+            if shape.kind != "prefill":
+                inputs["pos"] = jax.ShapeDtypeStruct((), jnp.int32)
+                i_shard["pos"] = NamedSharding(mesh, P())
+            out[f"{arch}/{name}/{multi_pod}"] = {
+                "params_bytes": nbytes(params, sh.serve_params_shardings(params, mesh)),
+                "caches_bytes": nbytes(caches, c_shard),
+                "inputs_bytes": nbytes(inputs, i_shard),
+                "cache_specs": [spec_dims(c, len(x.shape)) for x, c in zip(
+                    jax.tree.leaves(caches), jax.tree.leaves(c_shard))]}
+print("JSON" + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_specs():
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _REFERENCE_SPECS, ",".join(SPEC_ARCHS),
+         ",".join(SPEC_SHAPES)], env=env, capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.split("JSON", 1)[1])
+
+
+def _port_dims(placements, names, ndim):
+    parts = [None] * ndim
+    for name, p in zip(names, placements):
+        if p.is_shard():
+            parts[p.dim] = (parts[p.dim] or []) + [name]
+    return parts
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+def test_maybe_matches_the_reference(reference_specs, multi_pod):
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    ax = steps._serve_batch_axes(mesh)[0]
+    got = [[steps._maybe(a, n, mesh) for n in (1, 2, 16, 32, 128)]
+           for a in (ax, "model", "data")]
+    want = [[tuple(v) if isinstance(v, list) else v for v in row]
+            for row in reference_specs[f"maybe/{multi_pod}"]]
+    assert got == want
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("shape", SPEC_SHAPES)
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_serve_production_counts_the_reference_specs(reference_specs, arch,
+                                                     shape, multi_pod):
+    want = reference_specs[f"{arch}/{shape}/{multi_pod}"]
+    got = serve_lib.serve_production(arch, shape, multi_pod)
+    for k in ("params_bytes", "caches_bytes", "inputs_bytes"):
+        assert got[k] == want[k], k
+    # the caches' placements, leaf for leaf
+    cfg = registry.get_model_config(arch)
+    if shape == "long_500k":
+        cfg = steps.long_context_variant(cfg)
+    s = SHAPES[shape]
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    tree = steps.cache_sds(cfg, s.global_batch, s.seq_len)
+    shards = steps._cache_shardings(tree, mesh,
+                                    steps._serve_batch_axes(mesh)[0])
+    leaves = tree_lib.leaves(tree)
+    specs = serve_lib._placement_leaves(shards, [])
+    assert len(leaves) == len(specs) == len(want["cache_specs"])
+    for t, pl, w in zip(leaves, specs, want["cache_specs"]):
+        assert _port_dims(pl, mesh.axis_names, t.dim()) == w
+
+
+@pytest.mark.parametrize("arch", sorted(registry.ARCHS))
+def test_long_context_variant_matches_the_reference(arch):
+    got = steps.long_context_variant(registry.get_model_config(arch))
+    want = jax_steps.long_context_variant(jax_registry.get_model_config(arch))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+# ---------------------------------------------------------------------------
+# the entry points
+# ---------------------------------------------------------------------------
+
+def _env():
+    return dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+
+def test_serve_mesh_cli_under_torchrun():
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=2", "-m", "repro_torch.launch.serve", "--mesh",
+         "1x2", "--device", "cpu", "--reduced", "--arch", "qwen2-0.5b",
+         "--prompt-len", "16", "--tokens", "3", "--batch", "2"],
+        env=_env(), cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr[-3000:]
+    text = out.stdout
+    assert "on (data 1, model 2) over gloo: prefill 16 tok x 2 seq" in text
+    assert "ms/token" in text and "tok/s aggregate" in text
+    # 2L + 1 = 5 all-reduces a prefill, 5 a decode step
+    assert "all_reduce 5 calls" in text and "all_reduce 15 calls" in text
+    assert "peak memory a rank" in text
+
+
+def test_serve_production_cli(capsys):
+    serve_lib.main(["--shape", "decode_32k", "--arch", "qwen2-0.5b"])
+    out = capsys.readouterr().out
+    assert "qwen2-0.5b x decode_32k on {'data': 16, 'model': 16}" in out
+    assert "arguments only" in out
+
+
+def test_smoke_runs_the_serving_leg(world):
+    """``launch.smoke``'s serving leg on the fixture's world of 4: qwen2
+    at (data 2, model 2), mamba2 at (data 4, model 1)."""
+    recs = world["by"][("smoke", None)]
+    assert len(recs) == 4
+    assert all(r["ok"] == [True] * len(SMOKE_ARCHS) for r in recs)
+    cfgs = [registry.reduced(registry.get_model_config(a))
+            for a in SMOKE_ARCHS]
+    from repro_torch.launch import smoke
+
+    assert [smoke.serve_shape(c) for c in cfgs] == [(2, 2), (4, 1)]
