@@ -43,10 +43,11 @@ Phases, each printing one JSON line:
    TOL_GRAPH_DENSE should cuBLAS pick another algorithm under capture),
    launches by route equal; a checkpoint saved at a ``boundary_every``
    multiple, restored into a fresh template and run on, bit for bit an
-   uninterrupted run; rounds/s of both in turns (eager, graph, graph,
-   eager), the capture seconds and the draws' host seconds;
-8. sweep — ``run_sweep`` on the card: ``convergence`` (4 algorithms × 8
-   seeds) on dense, fused_round and pallas_packed, each point again
+   uninterrupted run; rounds/s of both (an eager turn, then a graph
+   turn), the capture seconds and the draws' host seconds;
+8. sweep — ``run_sweep`` on the card: ``convergence`` (4 algorithms ×
+   SWEEP_SEEDS of its 8 seeds) on dense, fused_round and pallas_packed,
+   each point again
    through ``run_point`` (rounds-to-ε and final ‖∇Φ‖ equal), B1 and B2
    launched inside the captured cells on the routes ``ops.ROUTED``
    names, kgt_minimax hitting ε at least as often as local_sgda; wall,
@@ -97,7 +98,8 @@ Phases, each printing one JSON line:
    bit for bit eager under attack (robust and pallas_packed);
    sparse_trimmed_mean and sparse_coord_median at n = 4096 on the
    exponential graph, 20 rounds eager and captured; rounds/s; then the
-   ``adversary`` sweep as defined through ``run_sweep``, every point again
+   ``adversary`` sweep (ADV_SWEEP_SEEDS of its 2 seeds) through
+   ``run_sweep``, every point again
    through ``run_point``, hit rates and rounds-to-ε beside the committed
    ``results/sweeps/adversary.json`` (statistical, not a check);
 14. obs — ``obs.health_gauges`` on a compressed state and one
@@ -144,15 +146,25 @@ Phases, each printing one JSON line:
    and timed beside SDPA and its bound); the collectives and bytes a rank
    against the printed formula; a 2-layer f32 prefill at (1, 2) at
    TOL_SERVE_F32; a world of 1 over NCCL bit for bit the single process;
-   prefill s, decode ms a token, tokens/s, communication s, staged GB and
-   peak GB a rank.  The mesh's decode runs eagerly (a gloo collective
-   cannot be captured).
+   then on the same world at (data 1, model 2) (SERVE_SCAN) mamba2-1.3b
+   at full width and depth (48 layers, 2 × 4096 prompt tokens, B7 on 32
+   of the 64 SSM heads a rank, 48 launches a prefill on tensor cores) and
+   recurrentgemma-9b at full width and depth (38 layers, 1 × 4096 tokens,
+   past its 2048 window; B8 on 2048 of the 4096 LRU channels, 26 launches
+   a prefill, B5 on 8 query heads over the KV head both ranks hold, 12 on
+   tensor cores), each rank drawing only its shard (``tp.init_shard``),
+   16 teacher-forced decode steps each, held to the single process at the
+   arch's TOL_SERVE_BF16 and in f32 (2 and 3 layers) at TOL_SERVE_F32, B7,
+   B8 and B5 at a rank's shapes against their plain versions with their
+   times and bounds; prefill s, decode ms a token, tokens/s,
+   communication s, staged GB and peak GB a rank.  The mesh's decode runs
+   eagerly (a gloo collective cannot be captured).
 16. train_ssm — federated DRO training of the other block kinds:
    mamba2-1.3b at full width (d_model 2048, V = 50 280; bf16 compute, f32
    state) at the reference's train defaults but n = 2, cut in depth
    (SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED): per-client
    gradients through B7 and B6 against the plain route (f32 and bf16) at
-   full depth, eager rounds/s and peak memory at the eager depth; the main
+   the gradients' depth, eager rounds/s and peak memory at the eager depth; the main
    path captured at the captured
    depth with B7's and B6's launches by route (B7 one launch a layer and
    local step, the clients folded), bit for bit the host loop, and eager
@@ -181,7 +193,7 @@ Phases, each printing one JSON line:
 19. scheduler — the continuous-batching engine
    (``repro_torch.serving.ServingEngine``: every slot at its own
    position, one CUDA graph a tick) at full width on qwen2-0.5b (16 slots,
-   caches of 1024, 20 requests of 32–512 prompt and 16–128 new tokens),
+   caches of 1024, 17 requests of 32–256 prompt and 16–64 new tokens),
    granite-moe-1b-a400m, musicgen-medium and mamba2-1.3b
    (SCHED_CASES), eagerly and captured with the same noise: every tick's
    samples, the outputs, the final caches and logits bit for bit, no
@@ -261,6 +273,10 @@ COMPRESS_DIVERGENCE_ROUNDS = 100
 # sweep's), and the lowerings of the one-round checks
 ADV_BYZANTINE, ADV_SCALE = 2, 3.0
 ADV_IMPLS = ("dense", "pallas_packed", "coord_median", "trimmed_mean")
+# the sweeps' seed axes cut for the script's time limit (PERF.md §4): the
+# convergence sweep's 8 seeds to SWEEP_SEEDS, the adversary sweep's 2 to
+# ADV_SWEEP_SEEDS; every point of the cut grids is checked as before
+SWEEP_SEEDS, ADV_SWEEP_SEEDS = 2, 1
 
 # tolerances (max |kernel − plain|); see PERF.md for the reasons
 TOL_GOSSIP = 1e-5        # θ' for O(1) operands; c' gets |s|× this
@@ -330,10 +346,10 @@ EVAL_CLIENTS, EVAL_B, EVAL_S, EVAL_GROUPS = 4, 4, 4096, 8
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_N, TRAIN_K, TRAIN_B, TRAIN_S, TRAIN_G = 4, 4, 4, 128, 8
 TRAIN_RESUME_N, TRAIN_ROUNDS = 2, 3
-# the depth the train phase cuts qwen2-0.5b to, so that the whole script
-# keeps within its time limit with the train_ssm phase beside it (PERF.md
-# §4); its width and the paths it drives are the full model's
-TRAIN_LAYERS = 8
+# the depth the train and mesh phases cut qwen2-0.5b to, so that the whole
+# script keeps within its time limit (PERF.md §4 lists the cuts); its width
+# and the paths it drives are the full model's
+TRAIN_LAYERS = 4
 # the rate turns of both train phases: an eager chunk, then a captured one
 RATE_TURNS = (False, True)
 # the decentralized mesh (phase mesh): the train phase's geometry over a
@@ -359,15 +375,29 @@ SERVE_MESH_ARCH, SERVE_MESH_WORLD = "qwen2-0.5b", 2
 SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_GEN = 4, 4096, 32
 SERVE_MESH_SHAPES = ((1, 2), (2, 1))
 SERVE_MESH_F32_LAYERS, SERVE_MESH_SAMPLE_SEED = 2, 1
+# the scan archs on the same world, at full width and (data 1, model 2):
+# SERVE_SCAN[arch] = (rows, layers, f32 layers) of SERVE_SCAN_PROMPT tokens
+# and SERVE_SCAN_GEN teacher-forced new tokens (16, not 32: a decode step
+# makes ~100 small collectives over gloo), held to the single process at
+# the arch's TOL_SERVE_BF16 (mamba2-1.3b's 48 layers amplify bf16 rounding:
+# PERF.md §2); mamba2-1.3b at its 48 layers (B7 at (2, 4096, 32, 64, 128)
+# a rank), recurrentgemma-9b at its 38 (B8 at (1, 4096, 2048), B5 at
+# 8 query heads over the one KV head both ranks hold); the f32 prefill
+# at 2 layers, recurrentgemma-9b's at 3 (one whole 2:1 unit, so its
+# replicated KV head is held in f32 too)
+SERVE_SCAN_SHAPE = (1, 2)
+SERVE_SCAN = {"mamba2-1.3b": (2, 48, 2), "recurrentgemma-9b": (1, 38, 3)}
+SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 16
 # federated DRO training of the other block kinds: mamba2-1.3b at full
 # width through B7 and B6, at the reference's train defaults but n = 2 (its
 # state at n = 4 does not leave the working set room on the card: PERF.md
-# §4): the gradient checks at all SSM_LAYERS_GRADS layers, the eager host
-# loop cut to SSM_LAYERS_EAGER and the captured chunks (held bit for bit to
-# eager ones) to SSM_LAYERS_CAPTURED, the depths whose peaks fit the card
-# (PERF.md §4, §5)
+# §4): the gradient checks cut to SSM_LAYERS_GRADS layers, the eager host
+# loop to SSM_LAYERS_EAGER and the captured chunks (held bit for bit to
+# eager ones) to SSM_LAYERS_CAPTURED (at most 48, 40 and 24, the depths
+# whose peaks fit the card; cut below them for the script's time limit:
+# PERF.md §4, §5)
 SSM_TRAIN_ARCH, SSM_TRAIN_N = "mamba2-1.3b", 2
-SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 48, 40, 24
+SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 24, 16, 8
 # recurrentgemma-9b's state does not fit the card even at n = 1: its reduced
 # config trains here, and B8 is held at a full-width layer's (n·B, S, W)
 RG_TRAIN_ARCH = "recurrentgemma-9b"
@@ -382,20 +412,21 @@ RG_SCAN_TRAIN_SHAPE = (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 4096)
 # f32 state is 21.4 GB at n = 2, and n = 4's 43 GB leave the working set no
 # room): the gradient checks at MOE_LAYERS_GRADS layers, the captured
 # chunks (held bit for bit to the host loop) and the rate turns at
-# MOE_LAYERS_CAPTURED (PERF.md §4)
+# MOE_LAYERS_CAPTURED (cut for the script's time limit: PERF.md §4)
 MOE_ARCH, MOE_TRAIN_N = "granite-moe-1b-a400m", 2
 MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_DECODE_STEPS = 4, 4096, 16
 MOE_DROPLESS_FACTOR = 8.0
-MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 24, 8
+MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 12, 4
 # the modality frontends (phase frontends): musicgen-medium at full width
 # (4 codebooks of V = 2048, untied), 4 prompts of 1500 frames (30 s at
 # EnCodec's 50 Hz), evaluated on 4 clients × 4 × 1500 frames, its gradient
 # checks cut to MUSIC_LAYERS_GRADS of its 48 layers (n = 2: its 29.4 GB of
-# state leave a full-depth working set no room); internvl2-76b's prefix
+# state leave a full-depth working set no room; cut further for the
+# script's time limit, PERF.md §4); internvl2-76b's prefix
 # path at full width cut to VLM_LAYERS layers (76 B parameters fit no
 # card), VLM_B prompts of 256 prefix embeddings and VLM_PROMPT tokens
 MUSIC_ARCH, MUSIC_B, MUSIC_FRAMES, MUSIC_LAYERS_GRADS = (
-    "musicgen-medium", 4, 1500, 24)
+    "musicgen-medium", 4, 1500, 12)
 VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
 # continuous batching (phase scheduler): each model at full width behind
 # serving.ServingEngine, SCHED_CASES' slots, cache length, requests, prompt
@@ -403,19 +434,19 @@ VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
 # temperatures SCHED_TEMPS in turn, eagerly and through the captured tick;
 # then SCHED_F32's requests in f32 compute, 4 slots so that slots are
 # reused.  Cut for the phase's 150 s (PERF.md §6): eager ticks are
-# host-bound at 48–102 ms, so qwen2-0.5b serves 20 requests on 16 slots
-# and the others 9 on 8 (cut from 40, 16, 12 and 12 to pay for the
-# serve_mesh phase: PERF.md §6; one request more than slots, so that every
-# model admits a request into a reused slot), and the f32 requests are
-# short and captured (a MoE model's run eagerly)
+# host-bound at 48–102 ms, so qwen2-0.5b serves 17 requests on 16 slots
+# and the others 9 on 8, with short prompts and few new tokens (cut for
+# the script's time limit: PERF.md §4; every model admits a request into
+# a reused slot), and the f32 requests are short and captured (a MoE
+# model's run eagerly)
 SCHED_SEED, SCHED_TEMPS = 0, (1.0, 0.7)
 SCHED_CASES = (
-    ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=20,
-                        prompt=(32, 512), new=(16, 128))),
+    ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=17,
+                        prompt=(32, 256), new=(16, 64))),
     ("granite-moe-1b-a400m", dict(slots=8, max_len=512, requests=9,
-                                  prompt=(16, 128), new=(8, 64))),
+                                  prompt=(16, 64), new=(8, 32))),
     ("musicgen-medium", dict(slots=8, max_len=512, requests=9,
-                             prompt=(16, 128), new=(8, 64))),
+                             prompt=(16, 64), new=(8, 32))),
     ("mamba2-1.3b", dict(slots=8, max_len=512, requests=9,
                          prompt=(16, 64), new=(8, 32))),
 )
@@ -1021,6 +1052,15 @@ def served_scan_shape():
             registry.get_model_config(SERVE_ARCH).rglru.lru_width)
 
 
+def served_scan_shard():
+    """B8's (B, S, W/2) on a model rank of the serving mesh."""
+    from repro_torch.configs import registry
+
+    return (SERVE_SCAN[SERVE_ARCH][0], SERVE_SCAN_PROMPT,
+            registry.get_model_config(SERVE_ARCH).rglru.lru_width
+            // SERVE_SCAN_SHAPE[1])
+
+
 def attn_operands(b, sq, sk, h, kv, d, dtype, gen, dev):
     import torch
 
@@ -1044,11 +1084,14 @@ FLASH_TC_CASES = [
 # the shapes of the moe and frontends phases: granite-moe-1b-a400m's
 # (16/8 heads of 64) vmapped train step at n = 2 and its prefill; musicgen's
 # 24/24 heads of 64 at 1500 frames; internvl2-76b's 64/8 heads of 128 over
-# 256 prefix embeddings and 2048 tokens; qwen2-0.5b's prefill on a model
-# rank of the serving mesh (7 query heads over 1 KV head)
+# 256 prefix embeddings and 2048 tokens; the prefills on a model rank of
+# the serving mesh: qwen2-0.5b's (7 query heads over 1 KV head) and
+# recurrentgemma-9b's attn_local layers (8 query heads over the one KV head
+# both ranks hold, window 2048)
 MODEL_FLASH_CASES = [
     (8, 128, 128, 16, 8, 64, 0, True),
     (4, 4096, 4096, 7, 1, 64, 0, True),
+    (1, 4096, 4096, 8, 1, 256, 2048, True),
     (4, 4096, 4096, 16, 8, 64, 0, True),
     (4, 1500, 1500, 24, 24, 64, 0, True),
     (2, 2304, 2304, 64, 8, 128, 0, True),
@@ -1142,7 +1185,7 @@ def check_rglru_scan(gen, dev) -> float:
 
     shapes = [(1, 1, 1), (2, 17, 5), (3, 300, 130), (2, 33, 257),
               (1, 1000, 4096), served_scan_shape(), RG_SCAN_TRAIN_SHAPE,
-              (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 256)]
+              (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 256), served_scan_shard()]
     worst = 0.0
     exact = 0
     for b, s, w in shapes:
@@ -1171,15 +1214,19 @@ def check_rglru_scan(gen, dev) -> float:
 
 def served_ssd_shapes():
     """(B, S, H, P, N, chunk) of the SSD scan in the mamba2 serve prefill,
-    in evaluation (state0 None there) and at prefill_32k's length."""
+    in evaluation (state0 None there), at prefill_32k's length and on a
+    model rank of the serving mesh (H/2 heads)."""
     from repro_torch.configs import registry
 
     s = registry.get_model_config(MAMBA_ARCH).ssm
     cfg = registry.get_model_config(MAMBA_ARCH)
     h = s.expand * cfg.d_model // s.d_head
-    return [(b, sl, h, s.d_head, s.d_state, s.chunk)
-            for b, sl in ((MAMBA_B, MAMBA_PROMPT), (EVAL_B, EVAL_S),
-                          (1, LONG_S))]
+    m = SERVE_SCAN_SHAPE[1]
+    return [(b, sl, hh, s.d_head, s.d_state, s.chunk)
+            for b, sl, hh in ((MAMBA_B, MAMBA_PROMPT, h), (EVAL_B, EVAL_S, h),
+                              (1, LONG_S, h),
+                              (SERVE_SCAN[MAMBA_ARCH][0], SERVE_SCAN_PROMPT,
+                               h // m))]
 
 
 def train_ssd_shape():
@@ -1871,7 +1918,8 @@ def graph_case(problem, client_batch, batches, algo, impl, dev, *, rounds,
 
 def graph_rates(problem, client_batch, batches, impl, dev, rounds, **kw):
     """rounds/s of one chunk of ``rounds`` (kgt_minimax), eager and
-    captured in turns (eager, graph, graph, eager), each builder run once
+    captured (an eager turn, then a graph turn: one of each, for the
+    script's time limit), each builder run once
     first; the capture seconds, and the draws' host seconds a round."""
     import torch
 
@@ -1887,14 +1935,14 @@ def graph_rates(problem, client_batch, batches, impl, dev, rounds, **kw):
     capture_s = builders[True][1].stats["capture_s"]
     rates = {False: [], True: []}
     draw0 = builders[True][1].stats["draw_s"]
-    for capture in (False, True, True, False):
+    for capture in (False, True):
         state, build = builders[capture]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine_lib.run(state, build, total_rounds=rounds, chunk_rounds=rounds)
         torch.cuda.synchronize()
         rates[capture].append(rounds / (time.perf_counter() - t0))
-    draw_s = (builders[True][1].stats["draw_s"] - draw0) / (2 * rounds)
+    draw_s = (builders[True][1].stats["draw_s"] - draw0) / rounds
     return {"eager": rates[False], "graph": rates[True],
             "capture_s": capture_s, "draw_host_s_per_round": draw_s}
 
@@ -1999,7 +2047,7 @@ def phase_graph(dev, smi) -> dict:
         emit({"phase": "graph", "rounds_per_s": what, **r,
               "nvidia_smi": smi,
               "note": "kgt_minimax, one chunk, host clock to a synchronize, "
-                      "in turns eager, graph, graph, eager"})
+                      "an eager turn, then a graph turn"})
     del problem, client_batch, batches
     torch.cuda.empty_cache()
     return out
@@ -2029,6 +2077,17 @@ def same_result(a, b) -> bool:
                                               and math.isnan(b[1])))
 
 
+def cut_seeds(spec, seeds: int):
+    """``spec`` with its ``seed`` axis cut to its first ``seeds`` values."""
+    import dataclasses
+
+    from repro_torch.sweep import grid as grid_lib
+
+    axes = tuple(grid_lib.batch_axis("seed", *a.values[:seeds])
+                 if a.name == "seed" else a for a in spec.axes)
+    return dataclasses.replace(spec, axes=axes)
+
+
 def phase_sweep(dev, smi) -> dict:
     import dataclasses
     import tempfile
@@ -2038,7 +2097,7 @@ def phase_sweep(dev, smi) -> dict:
     from repro_torch.sweep import run as sweep_run
 
     out = {}
-    base = defs.SWEEPS["convergence"]
+    base = cut_seeds(defs.SWEEPS["convergence"], SWEEP_SEEDS)
     for impl in ("dense", "fused_round", "pallas_packed"):
         spec = dataclasses.replace(base, base={**base.base,
                                                "mixing_impl": impl})
@@ -2326,7 +2385,7 @@ def phase_compress(dev, smi) -> dict:
         emit({"phase": "compress", "rounds_per_s": what, **r,
               "nvidia_smi": smi,
               "note": "kgt_minimax, one 50-round chunk, host clock to a "
-                      "synchronize, in turns eager, graph, graph, eager"})
+                      "synchronize, an eager turn, then a graph turn"})
     del problem, client_batch, batches
     torch.cuda.empty_cache()
     return {"launches": launches, "routes": routes,
@@ -2514,12 +2573,12 @@ def phase_adversary(dev, smi) -> dict:
         emit({"phase": "adversary", "rounds_per_s": what, **r,
               "nvidia_smi": smi,
               "note": "kgt_minimax, one chunk, host clock to a "
-                      "synchronize, in turns eager, graph, graph, eager"})
+                      "synchronize, an eager turn, then a graph turn"})
     del problem, client_batch, batches
     torch.cuda.empty_cache()
 
-    # 4. the adversary sweep as defined, every point again by run_point
-    spec = defs.SWEEPS["adversary"]
+    # 4. the adversary sweep (its seeds cut), every point again by run_point
+    spec = cut_seeds(defs.SWEEPS["adversary"], ADV_SWEEP_SEEDS)
     zero_launch_counts()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -4217,10 +4276,11 @@ def phase_mesh(dev, smi) -> dict:
 # phase 15c: the serving mesh
 # ---------------------------------------------------------------------------
 
-def serve_mesh_inputs(cfg, dev, dtype, seed=0):
+def serve_mesh_inputs(cfg, dev, dtype, seed=0, rows=None, prompt_len=None):
     """``launch.serve.serve``'s draws: the weights in ``dtype``, then
-    SERVE_MESH_B prompts of SERVE_MESH_PROMPT tokens, from one generator
-    seeded with ``seed`` (every rank draws the same)."""
+    ``rows`` prompts (SERVE_MESH_B) of ``prompt_len`` tokens
+    (SERVE_MESH_PROMPT), from one generator seeded with ``seed`` (every
+    rank draws the same)."""
     import torch
 
     from repro_torch.models import model as model_lib
@@ -4229,9 +4289,26 @@ def serve_mesh_inputs(cfg, dev, dtype, seed=0):
     gen.manual_seed(seed)
     model = model_lib.init_params(cfg, generator=gen, device=dev, dtype=dtype)
     prompt = torch.randint(0, cfg.vocab_size,
-                           (SERVE_MESH_B, SERVE_MESH_PROMPT), generator=gen,
-                           device=dev)
+                           (rows or SERVE_MESH_B,
+                            prompt_len or SERVE_MESH_PROMPT),
+                           generator=gen, device=dev)
     return model, prompt
+
+
+def shard_inputs(cfg, m, rank, dev, dtype, seed, rows, prompt_len):
+    """:func:`serve_mesh_inputs` on a model rank: the same draws, the
+    weights kept as the rank's shard only (``tp.init_shard``)."""
+    import torch
+
+    from repro_torch.dist import tensor_parallel as tp
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shard = tp.init_shard(cfg, m, rank, generator=gen, device=dev,
+                          dtype=dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (rows, prompt_len),
+                           generator=gen, device=dev)
+    return shard, prompt
 
 
 def serve_single_process(model, prompt, gen_tokens, generator) -> dict:
@@ -4284,24 +4361,44 @@ def weights_fingerprint(model) -> list:
     return [float(p.double().sum()) for p in model.parameters()]
 
 
+def shard_fingerprints(model, m) -> list:
+    """Each model rank's f64 sum of each leaf of its shard, by name: what
+    ``tp.init_shard`` must give there."""
+    from repro_torch.dist import tensor_parallel as tp
+
+    the_plan = tp.plan(model.cfg, m)
+    return [{n: float((p if the_plan[n] is None else the_plan[n].take(p, r))
+                      .double().sum()) for n, p in model.named_parameters()}
+            for r in range(m)]
+
+
 def serve_mesh_formula(cfg, nb, s, t, m, elt) -> dict:
     """The collectives of one rank at m model ranks: a prefill makes
-    2L + 1 all-reduces of nb·S·d f32 elements (after each layer's
-    out-projection and MLP, and of the embedding rows) and one all-gather
-    of the last logits' vocab pieces ((m − 1)·nb·⌈V/m⌉ in the compute
-    dtype); a decode step the same at S = 1.  None at m = 1."""
+    2L + 1 f32 all-reduces — after each layer's mixer (its out-projection)
+    and MLP, of nb·S·d, or for an ``ssm`` layer after its out-projection
+    and of its gated norm's sums of squares, nb·S·d and nb·S; and of the
+    embedding rows, nb·S·d — and all-gathers in the compute dtype: one of
+    the last logits' vocab pieces ((m − 1)·nb·⌈V/m⌉) and one a ``rglru``
+    layer of its gate input ((m − 1)·nb·S·W/m); a decode step the same at
+    S = 1.  None at m = 1."""
     if m == 1:
         return {}
     from repro_torch.dist import tensor_parallel as tp
 
+    kinds, d = cfg.blocks(), cfg.d_model
+    n_ssm, n_lru = kinds.count("ssm"), kinds.count("rglru")
+    w = cfg.rglru.channels(cfg.d_model)
     vmax = max(tp.pieces(cfg.vocab_size, m, "vocab_size"))
 
     def step(seq, k):
-        return {"all_reduce": {"calls": k * (2 * cfg.num_layers + 1),
-                               "bytes": k * (2 * cfg.num_layers + 1) * nb
-                               * seq * cfg.d_model * 4},
-                "all_gather": {"calls": k,
-                               "bytes": k * (m - 1) * nb * vmax * elt}}
+        rows = nb * seq
+        return {"all_reduce": {"calls": k * (2 * len(kinds) + 1),
+                               "bytes": k * 4 * rows * (
+                                   (2 * len(kinds) - n_ssm + 1) * d
+                                   + n_ssm)},
+                "all_gather": {"calls": k * (1 + n_lru),
+                               "bytes": k * (m - 1) * elt * (
+                                   nb * vmax + n_lru * rows * (w // m))}}
 
     return {"prefill": step(s, 1), "decode": step(1, t)}
 
@@ -4314,6 +4411,96 @@ def rank_device() -> str:
     return f"cuda:{torch.cuda.current_device()}"
 
 
+def mesh_serve_record(res, mesh, rank, dev, launches, routes, peak, smp):
+    """What a rank of the serve_mesh phase returns of one
+    ``generate_on_mesh`` run (``smp``: each step's sample, compared over
+    the model ranks first)."""
+    from repro_torch.dist import collectives
+
+    with collectives.phase("check"):
+        every = collectives.all_gather_rows(smp[None], mesh.model_axis)
+    return {"rank": rank, "device": dev, "batch_rank": mesh.batch_axis.rank,
+            "model_rank": mesh.model_axis.rank,
+            "rows": (res.rows.start, res.rows.stop),
+            "logits": res.logits.cpu(),
+            "caches": [{k: v.cpu() for k, v in c.items()}
+                       for c in res.prefill_caches],
+            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+            "collectives": res.collectives, "launches": launches,
+            "routes": routes, "launches_prefill": res.launches["prefill"],
+            "launches_decode": res.launches["decode"],
+            "peak_memory_gb": peak, "same_tokens": res.same_tokens,
+            "same_samples": bool((every == smp[None]).all())}
+
+
+def step_samples(logits, dev):
+    """Each step's sample of ``logits`` (B, steps, V) from a generator
+    seeded with SERVE_MESH_SAMPLE_SEED, as every rank draws them."""
+    import torch
+
+    from repro_torch.launch import serve as serve_lib
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SERVE_MESH_SAMPLE_SEED)
+    return torch.cat([serve_lib.sample(logits[:, i:i + 1], 1.0, gen)
+                      for i in range(logits.shape[1])], dim=1)
+
+
+def serve_scan_rank(rank, dev, mesh, arch, spec) -> list:
+    """The scan arch ``arch`` on this rank of the (1, 2) mesh: the rank's
+    shard drawn piece by piece (``tp.init_shard``; its fingerprint and the
+    prompts checked against the parent's), the bf16 prefill and
+    SERVE_SCAN_GEN decode steps fed the parent's tokens (the process warm
+    from qwen2-0.5b's runs), then the f32 prefill at the arch's f32
+    depth."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_lib
+
+    rows, layers, f32_layers = SERVE_SCAN[arch]
+    cfg = dataclasses.replace(registry.get_model_config(arch),
+                              num_layers=layers)
+    m, r = mesh.model_axis.size, mesh.model_axis.rank
+    shard, prompt = shard_inputs(cfg, m, r, dev, torch.bfloat16, 0, rows,
+                                 SERVE_SCAN_PROMPT)
+    if not torch.equal(prompt.cpu(), spec["prompt"]):
+        raise AssertionError(f"rank {rank} drew other {arch} prompts")
+    if {n: float(t.double().sum()) for n, t in shard.items()} != \
+            spec["fingerprints"][r]:
+        raise AssertionError(f"rank {rank} drew another {arch} shard")
+    forced = spec["tokens"].to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = serve_lib.generate_on_mesh(mesh, cfg, shard, prompt,
+                                     SERVE_SCAN_GEN, forced=forced)
+    launches, routes = launch_counts(), route_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rec = mesh_serve_record(res, mesh, rank, dev, launches, routes, peak,
+                            step_samples(res.logits, dev))
+    out = [{"arch": arch, "shape": SERVE_SCAN_SHAPE, **rec}]
+    del res, shard, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=f32_layers)
+    shard32, prompt32 = shard_inputs(cfg32, m, r, dev, torch.float32, 0,
+                                     rows, SERVE_SCAN_PROMPT)
+    res = serve_lib.generate_on_mesh(mesh, cfg32, shard32, prompt32, 0,
+                                     compute_dtype=torch.float32)
+    out.append({"arch": arch, "shape": "f32", "rank": rank,
+                "model_rank": r, "logits": res.logits.cpu(),
+                "caches": [{k: v.cpu() for k, v in c.items()}
+                           for c in res.prefill_caches]})
+    del res, shard32, prompt32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve_mesh_rank(rank, world, spec):
     """One rank of the serve_mesh phase: the serving meshes
     SERVE_MESH_SHAPES over this world, qwen2-0.5b drawn here from the
@@ -4322,14 +4509,16 @@ def serve_mesh_rank(rank, world, spec):
     parent's prompts and SERVE_MESH_GEN decode steps fed the parent's
     tokens (``launch.serve.generate_on_mesh``), the kernels' launches by
     route and the collectives counted around each; the model ranks'
-    samples from every step's logits compared; then the f32 prefill at
-    SERVE_MESH_F32_LAYERS layers on (1, 2)."""
+    samples from every step's logits compared; the f32 prefill at
+    SERVE_MESH_F32_LAYERS layers on (1, 2); then each arch of SERVE_SCAN
+    on (1, 2) (:func:`serve_scan_rank`)."""
     import gc
 
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.dist import collectives
+    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import serve as serve_lib
     from repro_torch.models import model as model_lib
@@ -4357,7 +4546,12 @@ def serve_mesh_rank(rank, world, spec):
     except Exception as e:  # a probe: its failure is the answer
         bf16_sum = f"{type(e).__name__}: {e}"
     # a short warm-up on the first mesh: library loads, cuBLAS handles
-    serve_lib.generate_on_mesh(meshes[SERVE_MESH_SHAPES[0]], cfg, params,
+    def shard(params, cfg, mesh):
+        m, r = mesh.model_axis.size, mesh.model_axis.rank
+        return tp.shard_params(params, tp.plan(cfg, m), r)
+
+    first = meshes[SERVE_MESH_SHAPES[0]]
+    serve_lib.generate_on_mesh(first, cfg, shard(params, cfg, first),
                                prompt[:, :256], 1, forced=forced[:, :1])
     out = []
     for shape in SERVE_MESH_SHAPES:
@@ -4366,34 +4560,14 @@ def serve_mesh_rank(rank, world, spec):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_launch_counts()
-        res = serve_lib.generate_on_mesh(mesh, cfg, params, prompt,
-                                         SERVE_MESH_GEN, forced=forced)
+        res = serve_lib.generate_on_mesh(mesh, cfg, shard(params, cfg, mesh),
+                                         prompt, SERVE_MESH_GEN,
+                                         forced=forced)
         launches, routes = launch_counts(), route_counts()
         peak = torch.cuda.max_memory_allocated() / 1e9
-        # each step's sample (a generator seeded alike on every rank)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SERVE_MESH_SAMPLE_SEED)
-        sampled = torch.cat([serve_lib.sample(res.logits[:, i:i + 1], 1.0,
-                                              gen)
-                             for i in range(res.logits.shape[1])], dim=1)
-        with collectives.phase("check"):
-            every = collectives.all_gather_rows(sampled[None],
-                                                mesh.model_axis)
-        out.append({"shape": shape, "rank": rank,
-                    "device": dev, "batch_rank": mesh.batch_axis.rank,
-                    "model_rank": mesh.model_axis.rank,
-                    "rows": (res.rows.start, res.rows.stop),
-                    "logits": res.logits.cpu(),
-                    "caches": [{k: v.cpu() for k, v in c.items()}
-                               for c in res.prefill_caches],
-                    "prefill_s": res.prefill_s, "decode_s": res.decode_s,
-                    "collectives": res.collectives,
-                    "launches": launches, "routes": routes,
-                    "launches_prefill": res.launches["prefill"],
-                    "launches_decode": res.launches["decode"],
-                    "peak_memory_gb": peak,
-                    "same_tokens": res.same_tokens,
-                    "same_samples": bool((every == sampled[None]).all()),
+        rec = mesh_serve_record(res, mesh, rank, dev, launches, routes, peak,
+                                step_samples(res.logits, dev))
+        out.append({"arch": SERVE_MESH_ARCH, "shape": shape, **rec,
                     "gloo_bf16_sum": bf16_sum})
         del res
     del params
@@ -4402,21 +4576,32 @@ def serve_mesh_rank(rank, world, spec):
     cfg32 = dataclasses.replace(cfg, num_layers=SERVE_MESH_F32_LAYERS)
     model32, prompt32 = serve_mesh_inputs(cfg32, dev, torch.float32)
     res = serve_lib.generate_on_mesh(
-        meshes[(1, 2)], cfg32, model_lib.param_dict(model32), prompt32, 0,
+        meshes[(1, 2)], cfg32, shard(model_lib.param_dict(model32), cfg32,
+                                     meshes[(1, 2)]), prompt32, 0,
         compute_dtype=torch.float32)
-    out.append({"shape": "f32", "rank": rank,
+    out.append({"arch": SERVE_MESH_ARCH, "shape": "f32", "rank": rank,
                 "model_rank": meshes[(1, 2)].model_axis.rank,
                 "logits": res.logits.cpu(),
                 "caches": [{k: v.cpu() for k, v in c.items()}
                            for c in res.prefill_caches]})
+    del res, model32, prompt32
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in SERVE_SCAN:
+        out += serve_scan_rank(rank, dev, meshes[SERVE_SCAN_SHAPE], arch,
+                               spec["scan"][arch])
     return out
 
 
-def gather_mesh_serve(recs):
+def gather_mesh_serve(recs, cfg):
     """The mesh's logits (B, steps, V) and prefill caches (per layer) from
     its ranks: every model rank's logits bit for bit alike (else None), the
-    rows in batch-rank order, the KV heads in model-rank order."""
+    rows in batch-rank order, each batch shard's caches joined over its
+    model ranks (``tp.gather_caches``: KV heads, SSM heads and channels,
+    LRU channels; a replicated piece equal on every rank that holds it)."""
     import torch
+
+    from repro_torch.dist import tensor_parallel as tp
 
     by_b = {}
     for r in recs:
@@ -4427,11 +4612,7 @@ def gather_mesh_serve(recs):
         alike &= all(torch.equal(r["logits"], group[0]["logits"])
                      for r in group[1:])
         logits.append(group[0]["logits"])
-        layers = group[0]["caches"]
-        if len(group) > 1:
-            layers = [{k: torch.cat([r["caches"][i][k] for r in group],
-                                    dim=2) for k in layers[i]}
-                      for i in range(len(layers))]
+        layers = tp.gather_caches([r["caches"] for r in group], cfg)
         caches = layers if caches is None else [
             {k: torch.cat([c[k], lay[k]]) for k in c}
             for c, lay in zip(caches, layers)]
@@ -4443,43 +4624,308 @@ def caches_rel_err(got, want) -> float:
                for k in g)
 
 
-def b5_shard_times(gen, dev, cfg, m) -> dict:
-    """B5 at a model rank's shard of the served prefill, bf16 causal:
-    (SERVE_MESH_B, SERVE_MESH_PROMPT, H/m, KV/m, D) on its tensor-core
+def b5_shard_times(gen, dev, cfg, m, b=None, s=None, window=0) -> dict:
+    """B5 at a model rank's shard of a served prefill, bf16 causal (with
+    ``window``): (b, s, H/m, the rank's KV heads, D) on its tensor-core
     route against its plain version (TOL_ATTN_BF16), with the kernel's,
-    the plain version's and SDPA's times and the bound."""
+    the plain version's and SDPA's times (k and v expanded to the query
+    heads; a banded bool mask with a window) and the bound."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.kernels import flash_attention, ref
 
-    b, s = SERVE_MESH_B, SERVE_MESH_PROMPT
-    h, kv, d = cfg.num_heads // m, cfg.num_kv_heads // m, cfg.resolved_head_dim
+    b, s = b or SERVE_MESH_B, s or SERVE_MESH_PROMPT
+    rank_cfg = tp.shard_config(cfg, m, 0)
+    h, kv = rank_cfg.num_heads, rank_cfg.num_kv_heads
+    d = cfg.resolved_head_dim
     q, k, v = attn_operands(b, s, s, h, kv, d, torch.bfloat16, gen, dev)
     got = routed_call(lambda: flash_attention.flash_attention_bshd(
-        q, k, v, causal=True), "flash_attention", "tensor_core")
-    want = ref.attention_ref(q, k, v, causal=True)
+        q, k, v, causal=True, window=window), "flash_attention",
+        "tensor_core")
+    want = ref.attention_ref(q, k, v, causal=True, window=window)
     err, rel = max_err(got.float(), want.float()), rel_err(got, want)
     del want
     if not rel <= TOL_ATTN_BF16:
-        fail(f"flash_attention at the shard shape: {rel} > {TOL_ATTN_BF16} "
-             "× (1 + max)")
+        fail(f"flash_attention at the shard shape {(b, s, h, kv, d)}: "
+             f"{rel} > {TOL_ATTN_BF16} × (1 + max)")
     del got
     ms = cuda_ms(lambda: flash_attention.flash_attention_bshd(
-        q, k, v, causal=True), reps=21)
-    pms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True), reps=5)
+        q, k, v, causal=True, window=window), reps=21)
+    pms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=True,
+                                            window=window), reps=5)
     qt = q.transpose(1, 2)
     kt, vt = (x.transpose(1, 2).repeat_interleave(h // kv, dim=1)
               for x in (k, v))
-    lms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), reps=21)
-    bound, by = attn_bound_ms(b, s, s, h, kv, d, 0, 2, BF16_FLOP_S)
+    if window:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), reps=21)
+        lib = f"banded bool mask (window {window})"
+    else:
+        lms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), reps=21)
+        lib = "is_causal=True"
+    bound, by = attn_bound_ms(b, s, s, h, kv, d, window, 2, BF16_FLOP_S)
     torch.cuda.empty_cache()
-    return dict(shape=[b, s, h, kv, d], ms=ms, plain_ms=pms, library_ms=lms,
+    return dict(shape=[b, s, h, kv, d], window=window, ms=ms, plain_ms=pms,
+                library_ms=lms, bound_ms=bound, bound_by=by,
+                max_abs_err=err, rel_err=rel, tol=TOL_ATTN_BF16,
+                route="tensor_core",
+                library=f"F.scaled_dot_product_attention({lib}), k/v "
+                        f"expanded to {h} heads")
+
+
+def b7_shard_times(gen, dev, cfg, m, b) -> dict:
+    """B7 at a model rank's shard of mamba2-1.3b's served prefill, (b,
+    SERVE_SCAN_PROMPT, H/m, P, N) with a zero state0 (the prefill's zero
+    cache), on its tensor-core route against its plain version (TOL_SSD),
+    with the kernel's and the plain version's times and the bound (no
+    PyTorch call computes it)."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+
+    s_cfg = cfg.ssm
+    h = s_cfg.heads(cfg.d_model) // m
+    s, p, n, chunk = SERVE_SCAN_PROMPT, s_cfg.d_head, s_cfg.d_state, \
+        s_cfg.chunk
+    xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
+    s0 = torch.zeros((b, h, p, n), device=dev)
+    y, fin = routed_call(lambda: ssd_scan.ssd_scan_bshp(
+        xdt, loga, bm, cm, s0, chunk=chunk), "ssd_scan", "tensor_core")
+    py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk, s0)
+    err = max(max_err(y, py), max_err(fin, pfin))
+    rel = max(rel_err(y, py), rel_err(fin, pfin))
+    del y, fin, py, pfin
+    if not rel <= TOL_SSD:
+        fail(f"ssd_scan at the shard shape {(b, s, h, p, n)}: {rel} > "
+             f"{TOL_SSD} × (1 + max)")
+    ms = cuda_ms(lambda: ssd_scan.ssd_scan_bshp(
+        xdt, loga, bm, cm, s0, chunk=chunk), reps=11)
+    pms = cuda_ms(lambda: ref.ssd_chunked(xdt, loga, bm, cm, chunk, s0),
+                  reps=3)
+    bound, by = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=True,
+                             tensor_cores=True)
+    del xdt, loga, bm, cm, s0
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, h, p, n], chunk=chunk, ms=ms, plain_ms=pms,
+                library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=err, rel_err=rel, tol=TOL_SSD,
+                route="tensor_core",
+                segments=ssd_scan.segments(b, h, -(-s // chunk))[0])
+
+
+def b8_shard_times(gen, dev, cfg, m, b) -> dict:
+    """B8 at a model rank's shard of recurrentgemma-9b's served prefill,
+    (b, SERVE_SCAN_PROMPT, W/m), against its plain version (TOL_SCAN),
+    with both times and the bound (no PyTorch call computes it)."""
+    import torch
+
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.kernels import ref, rglru_scan
+
+    s, w = SERVE_SCAN_PROMPT, cfg.rglru.channels(cfg.d_model) // m
+    a = torch.rand((b, s, w), generator=gen, device=dev) * 0.5 + 0.5
+    u = torch.randn((b, s, w), generator=gen, device=dev)
+    got, want = rglru_scan.rglru_scan_bsw(a, u), ref.rglru_ref(a, u)
+    err, rel = max_err(got, want), rel_err(got, want)
+    del got, want
+    if not rel <= TOL_SCAN:
+        fail(f"rglru_scan at the shard shape {(b, s, w)}: {rel} > "
+             f"{TOL_SCAN} × (1 + max)")
+    ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=11)
+    pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=3)
+    bound, by = scan_bound_ms(b, s, w)
+    del a, u
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, w], ms=ms, plain_ms=pms, library_ms=None,
                 bound_ms=bound, bound_by=by, max_abs_err=err, rel_err=rel,
-                tol=TOL_ATTN_BF16,
-                library="F.scaled_dot_product_attention(is_causal=True), "
-                        f"k/v expanded to {h} heads")
+                tol=TOL_SCAN)
+
+
+def scan_kernel_launches(cfg) -> dict:
+    """The model kernels' launches of one prefill of ``cfg`` (one a
+    layer of its kind: B5 an attention layer, B7 an ``ssm`` layer, B8 an
+    ``rglru`` layer); none in decode."""
+    kinds = cfg.blocks()
+    return {"flash_attention": sum(k in ("attn", "sliding", "attn_local",
+                                         "moe") for k in kinds),
+            "ssd_scan": kinds.count("ssm"),
+            "rglru_scan": kinds.count("rglru")}
+
+
+def scan_single_process(dev, gen, arch, smi) -> tuple:
+    """The parent's side of SERVE_SCAN[arch]: the bf16 single process at
+    the arch's depth (:func:`serve_single_process`, its launches), the
+    f32 prefill at its f32 depth, each rank's shard fingerprints and the
+    kernels at a model rank's shapes; returns (what the ranks are given,
+    what they are held to), everything on the host."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.models import model as model_lib
+
+    rows, layers, f32_layers = SERVE_SCAN[arch]
+    m = SERVE_SCAN_SHAPE[1]
+    cfg = dataclasses.replace(registry.get_model_config(arch),
+                              num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, prompt = serve_mesh_inputs(cfg, dev, torch.bfloat16, rows=rows,
+                                      prompt_len=SERVE_SCAN_PROMPT)
+    gen_s = torch.Generator(device=dev)
+    gen_s.manual_seed(SERVE_MESH_SAMPLE_SEED)
+    zero_launch_counts()
+    ref = serve_single_process(model, prompt, SERVE_SCAN_GEN, gen_s)
+    launches, routes = launch_counts(), route_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = scan_kernel_launches(cfg)
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"serve_mesh {arch} single process: {launches[name]} "
+                 f"{name} launches, expected {n}")
+    spec = {"prompt": prompt.cpu(), "tokens": ref["tokens"].cpu(),
+            "fingerprints": shard_fingerprints(model, m)}
+    held = {"cfg": cfg, "logits": ref["logits"].cpu(),
+            "caches": [{k: v.cpu() for k, v in c.items()}
+                       for c in ref["prefill_caches"]],
+            "single_process": {"prefill_s": ref["prefill_s"],
+                               "decode_s": ref["decode_s"],
+                               "decode_ms_a_token": 1e3 * ref["decode_s"]
+                               / SERVE_SCAN_GEN,
+                               "peak_memory_gb": peak,
+                               "launches": {k: launches[k] for k in want},
+                               "launches_by_route": {
+                                   k: routes[k] for k in routes
+                                   if k in want}}}
+    del ref, model, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=f32_layers)
+    model32, prompt32 = serve_mesh_inputs(cfg32, dev, torch.float32,
+                                          rows=rows,
+                                          prompt_len=SERVE_SCAN_PROMPT)
+    with torch.no_grad():
+        logits32, caches32, _ = model_lib.forward(
+            model32, {"tokens": prompt32}, mode="prefill",
+            compute_dtype=torch.float32, last_only=True,
+            caches=model_lib.init_cache(cfg32, rows, SERVE_SCAN_PROMPT,
+                                        dtype=torch.float32, device=dev))
+    held.update(cfg32=cfg32, logits32=logits32.cpu(),
+                caches32=[{k: v.cpu() for k, v in c.items()}
+                          for c in caches32])
+    del model32, prompt32, logits32, caches32
+    gc.collect()
+    torch.cuda.empty_cache()
+    shards = {}
+    if want["ssd_scan"]:
+        shards["ssd_scan"] = b7_shard_times(gen, dev, cfg, m, rows)
+    if want["rglru_scan"]:
+        shards["rglru_scan"] = b8_shard_times(gen, dev, cfg, m, rows)
+    if want["flash_attention"]:
+        shards["flash_attention"] = b5_shard_times(
+            gen, dev, cfg, m, rows, SERVE_SCAN_PROMPT, cfg.rglru.local_window)
+    for name, t in shards.items():
+        emit({"phase": "serve_mesh", "kernel": name,
+              "case": f"a model rank's shard of {arch}'s served prefill",
+              "nvidia_smi": smi, **t})
+    held["shards"] = shards
+    return spec, held
+
+
+def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
+    """The (1, 2) run of SERVE_SCAN[arch] held to the single process at
+    the arch's TOL_SERVE_BF16 (the last logits, the caches gathered over
+    heads, channels and rows, each teacher-forced decode step's logits),
+    the model ranks' logits and samples alike, each rank's kernel launches
+    (every one a prefill, on tensor cores where the kernel has routes,
+    none in decode) and collectives against ``serve_mesh_formula``; the
+    f32 prefill at TOL_SERVE_F32."""
+    cfg = held["cfg"]
+    rows = SERVE_SCAN[arch][0]
+    what = f"serve_mesh {arch} {SERVE_SCAN_SHAPE}"
+    tol = TOL_SERVE_BF16[arch]
+    logits, caches, alike = gather_mesh_serve(recs, cfg)
+    if not alike:
+        fail(f"{what}: the model ranks' logits differ")
+    if not all(r["same_tokens"] and r["same_samples"] for r in recs):
+        fail(f"{what}: the ranks of a model group sampled apart")
+    ref_logits = held["logits"]
+    errs = {"prefill logits": rel_err(logits[:, :1], ref_logits[:, :1]),
+            "decode logits": max(rel_err(logits[:, i:i + 1],
+                                         ref_logits[:, i:i + 1])
+                                 for i in range(1, logits.shape[1])),
+            "caches": caches_rel_err(caches, held["caches"])}
+    for name, e in errs.items():
+        if not e <= tol:
+            fail(f"{what}: {name} differ by {e} > {tol} × (1 + max)")
+    nb = rows // SERVE_SCAN_SHAPE[0]
+    want_comm = serve_mesh_formula(cfg, nb, SERVE_SCAN_PROMPT,
+                                   SERVE_SCAN_GEN, SERVE_SCAN_SHAPE[1], 2)
+    want_l = scan_kernel_launches(cfg)
+    for r in recs:
+        got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
+                    for k, v in kinds.items()}
+               for ph, kinds in r["collectives"].items()
+               if ph in ("prefill", "decode")}
+        if got != want_comm:
+            fail(f"{what} rank {r['rank']}: collectives {got}, expected "
+                 f"{want_comm}")
+        full = {**dict.fromkeys(r["launches"], 0), **want_l}
+        routed = {k: r["routes"][k] for k in want_l if k in r["routes"]}
+        if (r["launches"] != full or r["launches_prefill"] != full
+                or any(c.get("tensor_core") != want_l[k]
+                       for k, c in routed.items())):
+            fail(f"{what} rank {r['rank']}: launches {r['launches']} "
+                 f"(prefill {r['launches_prefill']}), routes {routed}; "
+                 f"expected {full}, all on tensor cores")
+    logits32, caches32, alike32 = gather_mesh_serve(recs32, held["cfg32"])
+    f32 = {"rel_err_logits": rel_err(logits32, held["logits32"]),
+           "rel_err_caches": caches_rel_err(caches32, held["caches32"])}
+    if not (alike32 and max(f32.values()) <= TOL_SERVE_F32):
+        fail(f"{what} f32: {f32} > {TOL_SERVE_F32}")
+    tokens = rows * SERVE_SCAN_GEN
+    decode_s = max(r["decode_s"] for r in recs)
+    line = {"arch": arch, "layers": cfg.num_layers, "rows": rows,
+            "prompt": SERVE_SCAN_PROMPT, "new_tokens": SERVE_SCAN_GEN,
+            "mesh": list(SERVE_SCAN_SHAPE), "tolerance_bf16": tol,
+            "rows_by_rank": [r["rows"] for r in recs],
+            "devices_by_rank": [r["device"] for r in recs],
+            "rel_err_prefill_logits": errs["prefill logits"],
+            "rel_err_decode_logits": errs["decode logits"],
+            "rel_err_caches": errs["caches"],
+            "f32_layers": held["cfg32"].num_layers, "f32": f32,
+            "tolerance_f32": TOL_SERVE_F32,
+            "prefill_s_by_rank": [r["prefill_s"] for r in recs],
+            "decode_ms_a_token_by_rank": [1e3 * r["decode_s"]
+                                          / SERVE_SCAN_GEN for r in recs],
+            "tokens_per_s": tokens / decode_s,
+            "comm_s_by_rank": [sum(v["seconds"] for ph in ("prefill",
+                                                           "decode")
+                                   for v in r["collectives"].get(ph,
+                                                                 {}).values())
+                               for r in recs],
+            "collectives_by_rank": [r["collectives"] for r in recs],
+            "formula_a_rank": want_comm,
+            "staged_gb_by_rank": [r["collectives"]["staged_bytes"] / 1e9
+                                  for r in recs],
+            "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in recs],
+            "launches_by_rank": [{k: r["launches"][k] for k in want_l}
+                                 for r in recs],
+            "launches_by_route_by_rank": [
+                {k: r["routes"][k] for k in want_l if k in r["routes"]}
+                for r in recs],
+            "single_process": held["single_process"]}
+    emit({"phase": "serve_mesh", "case": f"{arch} {SERVE_SCAN_SHAPE} over "
+          f"{backend}", "nvidia_smi": smi, **line})
+    return line
 
 
 def phase_serve_mesh(dev, gen, smi) -> dict:
@@ -4490,16 +4936,19 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     The single-process path first, in this process
     (:func:`serve_single_process`, its decode eager), and B5 at a model rank's
     shard shape against its plain version, timed beside SDPA and its
-    bound; then a world of SERVE_MESH_WORLD ranks (NCCL with a card a rank
-    where the machine has two, else both on ``cuda:0`` over gloo) on
+    bound; then the same for each arch of SERVE_SCAN
+    (:func:`scan_single_process`: B7 or B8 and B5 at a model rank's
+    shapes); then a world of SERVE_MESH_WORLD ranks (NCCL with a card a
+    rank where the machine has two, else both on ``cuda:0`` over gloo) on
     ``(data 1, model 2)`` and ``(data 2, model 1)``: the last logits, the
     caches gathered over heads and rows, and every teacher-forced decode
     step's logits held to the single process at TOL_SERVE, the model
     ranks' logits and samples alike, B5 24 launches a prefill on every
     rank on tensor cores and none in decode, the collectives and bytes a
     rank against ``serve_mesh_formula``; the f32 prefill at
-    SERVE_MESH_F32_LAYERS layers on (1, 2) at TOL_SERVE_F32; and a world of
-    1 over NCCL in this process, bit for bit the single process."""
+    SERVE_MESH_F32_LAYERS layers on (1, 2) at TOL_SERVE_F32; each arch of
+    SERVE_SCAN on (1, 2) (:func:`check_scan_mesh`); and a world of 1 over
+    NCCL in this process, bit for bit the single process."""
     import gc
     import tempfile
 
@@ -4525,6 +4974,11 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
           "new_tokens": SERVE_MESH_GEN, "reduce_dtype": "float32",
           "tolerance_bf16": TOL_SERVE, "tolerance_f32": TOL_SERVE_F32,
           "f32_layers": SERVE_MESH_F32_LAYERS,
+          "scan_archs": {a: {"rows": v[0], "layers": v[1], "f32_layers": v[2],
+                             "tolerance_bf16": TOL_SERVE_BF16[a]}
+                         for a, v in SERVE_SCAN.items()},
+          "scan_mesh": list(SERVE_SCAN_SHAPE),
+          "scan_prompt": SERVE_SCAN_PROMPT, "scan_new_tokens": SERVE_SCAN_GEN,
           "decode": "eager (a gloo collective cannot be captured)"})
     # the single process: bf16 at full depth, then f32 at 2 layers
     gc.collect()
@@ -4554,13 +5008,12 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     emit({"phase": "serve_mesh", "kernel": "flash_attention",
           "case": "a model rank's shard of the served prefill",
           "nvidia_smi": smi, **b5})
-    single_s = time.perf_counter() - t_phase
     want_b5 = cfg.blocks().count("attn")
     if ref_launches["flash_attention"] != want_b5:
         fail(f"serve_mesh single process: {ref_launches['flash_attention']} "
              f"B5 launches, expected {want_b5}")
     spec = {"prompt": prompt.cpu(), "tokens": ref["tokens"].cpu(),
-            "fingerprint": fingerprint}
+            "fingerprint": fingerprint, "scan": {}}
     ref_logits = ref["logits"].cpu()
     ref_caches = [{k: v.cpu() for k, v in c.items()}
                   for c in ref["prefill_caches"]]
@@ -4568,6 +5021,11 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     del ref
     gc.collect()
     torch.cuda.empty_cache()
+    held = {}
+    for arch in SERVE_SCAN:
+        spec["scan"][arch], held[arch] = scan_single_process(dev, gen, arch,
+                                                             smi)
+    single_s = time.perf_counter() - t_phase
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as store:
         ranks = dist_launch.run_world(
@@ -4581,8 +5039,9 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     tokens = SERVE_MESH_B * SERVE_MESH_GEN
     launches_by_rank = {}
     for shape in SERVE_MESH_SHAPES:
-        recs = [r for rk in ranks for r in rk if r["shape"] == shape]
-        logits, caches, alike = gather_mesh_serve(recs)
+        recs = [r for rk in ranks for r in rk
+                if r["arch"] == SERVE_MESH_ARCH and r["shape"] == shape]
+        logits, caches, alike = gather_mesh_serve(recs, cfg)
         what = f"serve_mesh {shape}"
         if not alike:
             fail(f"{what}: the model ranks' logits differ")
@@ -4645,8 +5104,9 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
         out["x".join(map(str, shape))] = line
         emit({"phase": "serve_mesh", "case": f"{shape} over {backend}",
               "nvidia_smi": smi, **line})
-    recs = [r for rk in ranks for r in rk if r["shape"] == "f32"]
-    logits, caches, alike = gather_mesh_serve(recs)
+    recs = [r for rk in ranks for r in rk
+            if r["arch"] == SERVE_MESH_ARCH and r["shape"] == "f32"]
+    logits, caches, alike = gather_mesh_serve(recs, cfg32)
     f32 = {"rel_err_logits": rel_err(logits, logits32),
            "rel_err_caches": caches_rel_err(caches, caches32)}
     if not (alike and max(f32.values()) <= TOL_SERVE_F32):
@@ -4654,7 +5114,23 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     out["f32"] = f32
     emit({"phase": "serve_mesh", "case": f"f32 prefill, "
           f"{SERVE_MESH_F32_LAYERS} layers, (1, 2)", **f32})
-    del ranks
+    # the scan archs at (1, 2): each kernel's shard times and launches
+    out["scan"], kernels = {}, {}
+    for arch in SERVE_SCAN:
+        recs = [r for rk in ranks for r in rk
+                if r["arch"] == arch and r["shape"] == SERVE_SCAN_SHAPE]
+        recs32 = [r for rk in ranks for r in rk
+                  if r["arch"] == arch and r["shape"] == "f32"]
+        line = check_scan_mesh(arch, held[arch], recs, recs32, backend, smi)
+        out["scan"][arch] = line
+        for name, t in held[arch]["shards"].items():
+            k = kernels.setdefault(name, {"shards": {},
+                                          "launches_by_rank": {}})
+            k["shards"][arch] = t
+            k["launches_by_rank"][arch] = [
+                r["routes"].get(name, r["launches"][name]) for r in recs]
+    out["kernels"] = kernels
+    del ranks, held
     # a world of 1 over NCCL, in this process: bit for bit the single one
     t0 = time.perf_counter()
     gc.collect()
@@ -4662,7 +5138,7 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
     dist_launch.init_from_env("nccl", "cuda")
     try:
         mesh = mesh_lib.serve_mesh(1, 1)
-        res = serve_lib.generate_on_mesh(
+        res = serve_lib.generate_on_mesh(   # one rank: its shard is all
             mesh, cfg, model_lib.param_dict(model), prompt, SERVE_MESH_GEN,
             forced=spec["tokens"].to(dev))
     finally:
@@ -5520,7 +5996,10 @@ def time_mamba_kernels(gen, dev) -> dict:
 
     out = {}
     for b, s, h, p, n, chunk in served_ssd_shapes():
-        if (b, s) == (EVAL_B, EVAL_S):
+        # evaluate's shape is the served one's but for B; a model rank's
+        # shard is timed in the serve_mesh phase
+        if (b, s) in ((EVAL_B, EVAL_S),
+                      (SERVE_SCAN[MAMBA_ARCH][0], SERVE_SCAN_PROMPT)):
             continue
         xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
         s0 = torch.zeros((b, h, p, n), device=dev)
@@ -6137,6 +6616,14 @@ def main(argv=None) -> int:
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
                  library_ms=t.get("library_ms"))
+        scan_mesh = serve_mesh.get("kernels", {}).get(k["name"])
+        if scan_mesh:
+            # the serve_mesh phase's scan archs at (1, 2): each rank's
+            # launches (by route where the kernel has two) and the kernel
+            # at a model rank's shard shape
+            k.update(launches_serve_mesh_scan_by_rank=scan_mesh[
+                "launches_by_rank"], serve_mesh_scan_shards=scan_mesh[
+                    "shards"])
         if k["name"] in ops.ROUTED:
             # two routes: ms is the time of the route the main paths take
             # (tensor cores, or B2's cluster); the other route's beside it
@@ -6209,6 +6696,13 @@ def main(argv=None) -> int:
                            "steps on (data 1, model 2) and (data 2, model "
                            "1)), serve_mesh_shard B5 at a model rank's "
                            "shard shape (4, 4096, 7, 1, 64); "
+                           "launches_serve_mesh_scan_by_rank: B5, B7 and "
+                           "B8 on each rank of the serve_mesh phase's "
+                           "(data 1, model 2) runs of mamba2-1.3b (48 "
+                           "layers, a 2 × 4096 prefill) and "
+                           "recurrentgemma-9b (38 layers, 1 × 4096), "
+                           "serve_mesh_scan_shards each at a model rank's "
+                           "shard shape; "
                            "launches_frontends: musicgen-medium's prefill "
                            "(4 × 1500 frames) and evaluate (4 clients, B6 "
                            "once a codebook); train_shapes: "

@@ -3,9 +3,10 @@
 The model architecture (``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
 ``ModelConfig``) and ``InputShape`` are copied from
 ``repro.configs.base:25-170`` unchanged, so the arch files under
-``repro_torch/configs/`` carry the same values; so are ``MinimaxConfig``
-(:177) and ``MeshConfig`` (:255-275).  ``ModelConfig.param_count``
-counts the RG-LRU gates ``wa``/``wx`` as diagonal, as the reference does;
+``repro_torch/configs/`` carry the same values (``SSMShard`` and
+``RGLRUShard``, a rank's piece on the serving mesh's model axis, are the
+port's own); so are ``MinimaxConfig`` (:177) and ``MeshConfig``
+(:255-275).  ``ModelConfig.param_count`` counts the RG-LRU gates ``wa``/``wx`` as diagonal, as the reference does;
 ``repro_torch.models.model.param_count`` counts the tensors.
 
 Algorithm hyperparameters (Algorithm 1):
@@ -66,6 +67,23 @@ class SSMConfig:
     chunk: int = 64            # SSD chunk length
     d_conv: int = 4            # depthwise conv width
 
+    def heads(self, d_model: int) -> int:
+        """The SSD heads H of a block: d_inner / d_head."""
+        return self.expand * d_model // self.d_head
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMShard(SSMConfig):
+    """The SSM of one rank of the serving mesh's model axis
+    (``dist.tensor_parallel.shard_config``): ``rank_heads`` of the block's
+    H heads, and their rank_heads·d_head channels of d_inner.  ``expand``
+    stays the model's, so d_inner = expand·d_model is the whole width that
+    the gated norm divides by."""
+    rank_heads: int = 0
+
+    def heads(self, d_model: int) -> int:
+        return self.rank_heads
+
 
 @dataclasses.dataclass(frozen=True)
 class RGLRUConfig:
@@ -74,6 +92,22 @@ class RGLRUConfig:
     conv_width: int = 4
     block_pattern: Tuple[str, ...] = ("rglru", "rglru", "attn_local")
     local_window: int = 2048
+
+    def channels(self, d_model: int) -> int:
+        """The LRU channels W of a block (``lru_width``, or d_model)."""
+        return self.lru_width or d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUShard(RGLRUConfig):
+    """The RG-LRU of one rank of the serving mesh's model axis
+    (``dist.tensor_parallel.shard_config``): ``rank_channels`` of the
+    block's W channels.  ``lru_width`` stays the model's: the gates read
+    every channel (``wa`` and ``wx`` keep their W rows)."""
+    rank_channels: int = 0
+
+    def channels(self, d_model: int) -> int:
+        return self.rank_channels
 
 
 @dataclasses.dataclass(frozen=True)

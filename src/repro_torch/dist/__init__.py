@@ -21,9 +21,10 @@ processes of a ``torch.distributed`` world:
    or joins torchrun's.
 4. **How is a model split over ``model`` to serve it?**
    ``tensor_parallel`` is the executed plan beside
-   ``serve_params_shardings``' specs: heads, d_ff and the vocabulary over
-   the serving mesh's ``model`` ranks (Megatron's layout), a rank's shard
-   and the context slots that run its collectives.
+   ``serve_params_shardings``' specs: query and KV heads, SSM heads, LRU
+   channels, d_ff and the vocabulary over the serving mesh's ``model``
+   ranks (Megatron's layout), a rank's shard and the context slots that
+   run its collectives.
 
 ``compat`` builds the meshes: a ``DeviceMesh`` over a world, or an
 abstract mesh of named sizes for spec work.  The serving mesh

@@ -26,9 +26,12 @@ here:
 
 The serving mesh's tensor parallelism (``dist.tensor_parallel``) adds two
 over its ``model`` axis: **a sum of partial products** (``sum_over``: the
-out-projection's and the MLP's row-parallel partials, the vocab-parallel
-embedding rows), and **an all-gather along the last dim in uneven pieces**
-(``all_gather_last``: each rank's vocab columns of the logits).
+mixers' out-projections' and the MLP's row-parallel partials, the SSM's
+sums of squares for its gated norm, the vocab-parallel embedding rows),
+and **an all-gather along the last dim in pieces** (``all_gather_last``:
+each rank's vocab columns of the logits, uneven where M does not divide
+V, and each rank's channels of the RG-LRU's gate input).  They count as
+``all_reduce`` and ``all_gather``.
 
 A world of one rank makes no collective: an all-gather of one rank is the
 tensor itself and a mean over one rank's clients is the host path's mean,

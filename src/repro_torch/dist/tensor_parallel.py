@@ -3,66 +3,153 @@ executed plan beside ``dist.sharding.serve_params_shardings``' specs.
 
 The reference lets GSPMD place each weight by its largest divisible dim
 (``repro/dist/sharding.py:123``) and insert the collectives.  Here the
-layout is Megatron's, chosen so that each layer needs one collective, and
-the model code calls the collectives at tagged points
+layout is Megatron's, chosen so that each layer needs one collective a
+projection, and the model code calls the collectives at tagged points
 (``dist.context.apply``; identities without a context):
 
-==========================================  ====================  =========================
-leaf                                        split over ``model``  after the layer
-==========================================  ====================  =========================
-``attn.wq`` / ``wk`` / ``wv`` (and ``b*``)  heads, KV groups      —
-``attn.wo``                                 heads                 sum (``attn_proj``)
-``mlp.gate`` / ``up``                       d_ff                  —
-``mlp.down``                                d_ff                  sum (``ffn_out``)
-``moe.gate`` / ``up`` / ``down``            expert_d_ff           sum (``ffn_out``)
-``moe.router``, norms                       none                  —
-``embed``, ``head`` (a codebook each)       vocab                 lookup: sum (``embed_rows``);
-                                                                  logits: all-gather (``logits``)
-==========================================  ====================  =========================
+==============================  ===================  ====================
+leaf                            split over model     collective after it
+==============================  ===================  ====================
+attn.wq, bq                     query heads          —
+attn.wk, wv, bk, bv             KV heads, or one     —
+                                KV head on M/KV
+                                ranks
+attn.wo                         query heads          sum (attn_proj)
+mlp.gate, up                    d_ff                 —
+mlp.down                        d_ff                 sum (ffn_out)
+moe.gate, up, down              expert_d_ff          sum (ffn_out)
+ssm.in_proj                     columns [z_r, x_r,   —
+                                B, C, dt_r]
+ssm.conv_w, conv_b              [x_r, B, C]          —
+ssm.A_log, D, dt_bias           SSM heads            —
+ssm.norm                        d_inner channels     sum of squares
+                                                     (ssm_norm)
+ssm.out_proj                    d_inner rows         sum (mixer_out)
+rglru.in_x, in_gate, conv_*     LRU channels         conv output gathered
+                                                     (lru_gate_in)
+rglru.wa, wx                    LRU columns          —
+rglru.ba, bx, lam               LRU channels         —
+rglru.out                       LRU rows             sum (mixer_out)
+moe.router, block norms         none                 —
+embed, head (a codebook each)   vocab                lookup: sum
+                                                     (embed_rows);
+                                                     logits: all-gather
+                                                     (logits)
+==============================  ===================  ====================
 
-Rank r of M takes KV heads ``[r·KV/M, (r+1)·KV/M)`` and the query heads of
-those groups, so GQA stays grouped (M must divide KV).  d_ff, expert_d_ff
-and the vocabulary split into contiguous pieces of ⌈n/M⌉, the last one
-shorter where M does not divide n (granite-moe-1b-a400m's 49 155 tokens):
-an all-gather of uneven pieces pads and trims them
-(``collectives.all_gather_last``).  A rank's shard is a ``Model`` of
-:func:`shard_config` (its heads, widths and vocabulary), so every function
-of ``models`` runs on it unchanged; the residual stream stays whole on
-every rank.  A rank looks up only the token ids of its vocabulary range
-(``Model.vocab_range``) and zeroes the others' rows, so the sum over the
-ranks is each row exactly.
+Rank r of M takes query heads ``[r·H/M, (r+1)·H/M)``.  Where M divides KV
+it takes KV heads ``[r·KV/M, (r+1)·KV/M)``, the query heads of those
+groups; where KV divides M (recurrentgemma-9b's one KV head), KV head
+``r // (M/KV)`` sits whole on M/KV ranks, each with H/M of its group's
+query heads, its ``wk`` / ``wv`` / ``bk`` / ``bv`` and its k/v caches
+whole.  Either way GQA stays grouped.  An ``ssm`` block splits by heads:
+rank r takes the columns ``[z_r, x_r, B, C, dt_r]`` of ``in_proj`` (its
+H/M heads of z, x and dt; B and C have one group, so every rank holds them
+whole), ``[x_r, B, C]`` of the conv (``models.ssm``).  An ``rglru`` block
+splits by LRU channels (``models.rglru``), its ``mlp`` by d_ff.  d_ff,
+expert_d_ff and the vocabulary split into contiguous pieces of ⌈n/M⌉, the
+last one shorter where M does not divide n (granite-moe-1b-a400m's 49 155
+tokens): an all-gather of uneven pieces pads and trims them
+(``collectives.all_gather_last``).  Heads, SSM heads and LRU channels split
+evenly or not at all: :func:`check_config` refuses by name what does not
+divide.
+
+A leaf's piece is one contiguous range of a dim (``Split(dim, widths)``)
+or, for ``in_proj``, the conv, a replicated KV head and their caches, a
+list of ranges a rank (``Split(dim, ranges=...)``), which may be apart and
+may be held by several ranks.  :func:`shard_params` cuts them and
+:func:`gather_params` / :func:`gather_caches` join them, checking that the
+ranks holding a range agree bit for bit.  :func:`init_shard` draws a
+model's weights as ``models.model.init_params`` draws them and keeps only
+the rank's piece of each part as it comes, so no rank holds the whole
+model.
+
+A rank's shard is a ``Model`` of :func:`shard_config` (its heads, widths
+and vocabulary; ``configs.base.SSMShard`` and ``RGLRUShard`` for its SSM
+heads and LRU channels), so every
+function of ``models`` runs on it unchanged; the residual stream stays
+whole on every rank.  A rank looks up only the token ids of its vocabulary
+range (``Model.vocab_range``) and zeroes the others' rows, so the sum over
+the ranks is each row exactly.
 
 The partial sums are all-reduced in f32 (``collectives.sum_over``) and
 rounded once to the compute dtype: the partials of a bf16 GEMM are bf16
 already, and a sum of M of them in bf16 would round M − 1 more times.
-The f32 wire moves twice the bytes of a bf16 one.  ``ssm`` and ``rglru``
-blocks have no tensor-parallel layout yet (ROADMAP A13): a plan over more
-than one model rank refuses them by name.
+The f32 wire moves twice the bytes of a bf16 one.  The SSM's sums of
+squares are f32 already; the RG-LRU's gate input crosses in the compute
+dtype, exactly.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RGLRUShard, SSMShard
 from repro_torch.dist import collectives
 from repro_torch.dist import context as dist_ctx
 from repro_torch.models import model as model_lib
 from repro_torch.models import transformer as tf
 
+Ranges = Tuple[Tuple[int, int], ...]
+
 
 @dataclasses.dataclass(frozen=True)
 class Split:
     """A leaf split over the model axis along ``dim``: rank r's piece is
-    ``widths[r]`` wide, starting at the sum of the widths before it."""
+    ``widths[r]`` wide, starting at the sum of the widths before it; or,
+    with ``ranges``, rank r's piece is its ``ranges[r]`` — [lo, hi) ranges
+    of ``dim``, concatenated in order — which may lie apart and may be
+    held by other ranks too."""
     dim: int
-    widths: Tuple[int, ...]
+    widths: Tuple[int, ...] = ()
+    ranges: Tuple[Ranges, ...] = ()
 
-    def start(self, rank: int) -> int:
-        return sum(self.widths[:rank])
+    def spans(self, rank: int) -> Ranges:
+        """Rank ``rank``'s [lo, hi) ranges of ``dim``, in order."""
+        if self.ranges:
+            return self.ranges[rank]
+        lo = sum(self.widths[:rank])
+        return ((lo, lo + self.widths[rank]),)
+
+    def take(self, t: torch.Tensor, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s piece of ``t``, a copy of its own."""
+        parts = [t.narrow(self.dim, lo, hi - lo)
+                 for lo, hi in self.spans(rank)]
+        return (torch.cat(parts, dim=self.dim) if len(parts) > 1
+                else parts[0].clone())
+
+    def join(self, pieces: Sequence[torch.Tensor],
+             what: str = "") -> torch.Tensor:
+        """The whole tensor from every rank's piece (rank order): each
+        range written once, and every other rank that holds it checked
+        equal to it bit for bit."""
+        spans = [self.spans(r) for r in range(len(pieces))]
+        n = max(hi for sp in spans for _, hi in sp)
+        ref = pieces[0]
+        out = ref.new_empty((*ref.shape[:self.dim], n,
+                             *ref.shape[self.dim + 1:]))
+        seen = [False] * n
+        for r, (piece, sp) in enumerate(zip(pieces, spans)):
+            at = 0
+            for lo, hi in sp:
+                part = piece.narrow(self.dim, at, hi - lo)
+                at += hi - lo
+                dst = out.narrow(self.dim, lo, hi - lo)
+                if all(seen[lo:hi]):
+                    if not torch.equal(dst, part):
+                        raise ValueError(f"{what}: rank {r}'s copy of "
+                                         f"[{lo}, {hi}) differs")
+                    continue
+                if any(seen[lo:hi]):
+                    raise ValueError(f"{what}: ranges overlap in part")
+                dst.copy_(part)
+                seen[lo:hi] = [True] * (hi - lo)
+        if not all(seen):
+            raise ValueError(f"{what}: the pieces leave a gap")
+        return out
 
 
 def pieces(n: int, m: int, what: str) -> Tuple[int, ...]:
@@ -76,28 +163,98 @@ def pieces(n: int, m: int, what: str) -> Tuple[int, ...]:
     return widths
 
 
+def _even(n: int, m: int, dim: int) -> Split:
+    return Split(dim, (n // m,) * m)
+
+
 def check_config(cfg: ModelConfig, m: int) -> None:
-    """Refuses a model that ``m`` model ranks cannot split: a block kind
-    without a tensor-parallel layout, or KV heads ``m`` does not divide."""
+    """Refuses a model that ``m`` model ranks cannot split, naming the
+    field: query heads, SSM heads or LRU channels that ``m`` does not
+    divide, KV heads that neither divide nor are divided by ``m``, or a
+    d_ff, expert_d_ff or vocabulary smaller than ``m``."""
     if m == 1:
         return
-    for kind in sorted(set(cfg.blocks())):
-        if kind not in tf.ATTN_KINDS:  # the kinds the plan can split
-            raise ValueError(
-                f"the {kind!r} blocks of {cfg.name} have no tensor-parallel "
-                f"layout: serve them at model = 1 (data parallelism only); "
-                f"model = {m} is not supported for them yet")
-    if cfg.num_kv_heads % m:
-        raise ValueError(
-            f"{cfg.name}: num_kv_heads = {cfg.num_kv_heads} does not split "
-            f"over {m} model ranks (each rank takes whole KV groups)")
+    kinds = set(cfg.blocks())
+
+    def need(ok, field, n, how):
+        if not ok:
+            raise ValueError(f"{cfg.name}: {field} = {n} does not split "
+                             f"over {m} model ranks ({how})")
+
+    if kinds & set(tf.ATTN_KINDS):
+        h, kv = cfg.num_heads, cfg.num_kv_heads
+        need(h % m == 0, "num_heads", h, "each rank takes whole query heads")
+        need(kv % m == 0 or m % kv == 0, "num_kv_heads", kv,
+             "each rank takes whole KV heads, or one KV head that "
+             "model / num_kv_heads ranks share")
+    if "ssm" in kinds:
+        need(cfg.ssm.heads(cfg.d_model) % m == 0, "the SSM heads",
+             cfg.ssm.heads(cfg.d_model), "expand·d_model/d_head of them; "
+             "each rank takes whole heads")
+    if "rglru" in kinds:
+        w = cfg.rglru.channels(cfg.d_model)
+        need(w % m == 0, "lru_width", w, "each rank takes W/M channels")
+    if kinds - {"ssm", "moe"}:          # the blocks with an MLP
+        pieces(cfg.d_ff, m, "d_ff")
+    if "moe" in kinds:
+        pieces(cfg.moe.expert_d_ff, m, "expert_d_ff")
+    pieces(cfg.vocab_size, m, "vocab_size")
+
+
+def _kv_split(kv: int, m: int, dim: int) -> Split:
+    """KV heads over ``m`` ranks: KV/m a rank, or head ``r // (m/KV)``
+    whole on each of its m/KV ranks."""
+    if kv % m == 0:
+        return _even(kv, m, dim)
+    rep = m // kv
+    return Split(dim, ranges=tuple(((r // rep, r // rep + 1),)
+                                   for r in range(m)))
+
+
+def _ssm_channels(cfg: ModelConfig, m: int, dim: int) -> Split:
+    """``[x_r, B, C]`` of the conv's d_inner + 2N channels (and of the
+    conv cache)."""
+    s = cfg.ssm
+    d_in = s.heads(cfg.d_model) * s.d_head
+    c = d_in // m
+    return Split(dim, ranges=tuple(
+        ((r * c, (r + 1) * c), (d_in, d_in + 2 * s.d_state))
+        for r in range(m)))
+
+
+def _ssm_split(leaf: str, cfg: ModelConfig, m: int) -> Split:
+    s = cfg.ssm
+    h = s.heads(cfg.d_model)
+    d_in, n = h * s.d_head, s.d_state
+    if leaf == "in_proj":       # columns [z, x, B, C, dt]
+        c, hr = d_in // m, h // m
+        return Split(1, ranges=tuple(
+            ((r * c, (r + 1) * c), (d_in + r * c, d_in + (r + 1) * c),
+             (2 * d_in, 2 * d_in + 2 * n),
+             (2 * d_in + 2 * n + r * hr, 2 * d_in + 2 * n + (r + 1) * hr))
+            for r in range(m)))
+    if leaf in ("conv_w", "conv_b"):
+        return _ssm_channels(cfg, m, 1 if leaf == "conv_w" else 0)
+    if leaf in ("A_log", "D", "dt_bias"):
+        return _even(h, m, 0)
+    if leaf in ("norm", "out_proj"):
+        return _even(d_in, m, 0)
+    raise ValueError(f"ssm.{leaf}: no tensor-parallel layout")
+
+
+def _rglru_split(leaf: str, cfg: ModelConfig, m: int) -> Split:
+    w = cfg.rglru.channels(cfg.d_model)
+    if leaf in ("in_x", "in_gate", "conv_w", "wa", "wx"):
+        return _even(w, m, 1)
+    if leaf in ("conv_b", "ba", "bx", "lam", "out"):
+        return _even(w, m, 0)
+    raise ValueError(f"rglru.{leaf}: no tensor-parallel layout")
 
 
 def leaf_split(name: str, shape, cfg: ModelConfig,
                m: int) -> Optional[Split]:
     """The plan for one parameter (its ``param_dict`` name and shape):
-    the dim it splits along and the pieces, or None for a leaf every
-    model rank holds whole."""
+    how it splits, or None for a leaf every model rank holds whole."""
     if m == 1:
         return None
     parts = name.split(".")
@@ -107,14 +264,14 @@ def leaf_split(name: str, shape, cfg: ModelConfig,
         return Split(nd - 2, pieces(shape[nd - 2], m, "vocab_size"))
     if top == "head":                         # (d, V) or (C, d, V)
         return Split(nd - 1, pieces(shape[nd - 1], m, "vocab_size"))
-    if top != "layers" or leaf.startswith("norm"):
+    if top != "layers" or parts[2].startswith("norm"):
         return None
     mod = parts[2]
     if mod == "attn":
-        heads = cfg.num_kv_heads if leaf in ("wk", "wv", "bk", "bv") \
-            else cfg.num_heads
-        widths = (heads // m,) * m
-        return Split(0 if leaf in ("wo", "bq", "bk", "bv") else 1, widths)
+        dim = 0 if leaf in ("wo", "bq", "bk", "bv") else 1
+        if leaf in ("wk", "wv", "bk", "bv"):
+            return _kv_split(cfg.num_kv_heads, m, dim)
+        return _even(cfg.num_heads, m, dim)
     if mod == "mlp":
         dim = 0 if leaf == "down" else 1
         return Split(dim, pieces(shape[dim], m, "d_ff"))
@@ -123,6 +280,10 @@ def leaf_split(name: str, shape, cfg: ModelConfig,
             return None
         dim = 1 if leaf == "down" else 2
         return Split(dim, pieces(shape[dim], m, "expert_d_ff"))
+    if mod == "ssm":
+        return _ssm_split(leaf, cfg, m)
+    if mod == "rglru":
+        return _rglru_split(leaf, cfg, m)
     raise ValueError(f"{name}: the {mod!r} mixer has no tensor-parallel "
                      "layout")
 
@@ -141,21 +302,87 @@ def shard_params(full: Dict[str, torch.Tensor], the_plan, rank: int
     """Rank ``rank``'s shard of a full parameter dict (``param_dict``):
     each split leaf's piece, a copy of its own; each whole leaf as it
     is."""
-    out = {}
-    for name, t in full.items():
-        s = the_plan[name]
-        out[name] = t if s is None else t.narrow(
-            s.dim, s.start(rank), s.widths[rank]).clone()
-    return out
+    return {name: t if the_plan[name] is None
+            else the_plan[name].take(t, rank)
+            for name, t in full.items()}
 
 
 def gather_params(shards: List[Dict[str, torch.Tensor]], the_plan
                   ) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_params`: the full dict from every
-    rank's shard, in rank order."""
-    return {name: (shards[0][name] if s is None else
-                   torch.cat([sh[name] for sh in shards], dim=s.dim))
-            for name, s in the_plan.items()}
+    rank's shard, in rank order; a range that several ranks hold (and a
+    whole leaf) must be equal on all of them."""
+    out = {}
+    for name, s in the_plan.items():
+        if s is None:
+            for sh in shards[1:]:
+                if not torch.equal(sh[name], shards[0][name]):
+                    raise ValueError(f"{name}: the ranks' copies differ")
+            out[name] = shards[0][name]
+        else:
+            out[name] = s.join([sh[name] for sh in shards], name)
+    return out
+
+
+def init_shard(cfg: ModelConfig, m: int, rank: int, *, generator=None,
+               seed: int = 0, device="cuda", dtype=torch.float32
+               ) -> Dict[str, torch.Tensor]:
+    """Rank ``rank``'s shard of ``models.model.init_params(cfg,
+    generator=...)``: the same draws from the same generator (which ends
+    where ``init_params`` leaves it), each part cut to the rank's piece as
+    it is drawn, so the rank holds one layer whole at most, never the
+    model."""
+    the_plan = plan(cfg, m)
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+    out = {}
+    for name, part in model_lib.draw_parts(cfg, generator, device=device,
+                                           dtype=dtype):
+        named = (part.named_parameters(prefix=name)
+                 if isinstance(part, torch.nn.Module) else [(name, part)])
+        for n, t in named:
+            s = the_plan[n]
+            out[n] = t.detach() if s is None else s.take(t.detach(), rank)
+        del part, named
+    return out
+
+
+def cache_plan(cfg: ModelConfig, m: int) -> List[Dict[str, Optional[Split]]]:
+    """How each layer's cache (``models.model.init_cache``) splits over
+    ``m`` model ranks: k/v (B, L, KV, hd) by KV heads as ``wk``; an
+    ``ssm`` layer's conv (B, K − 1, d_inner + 2N) as ``[x_r, B, C]`` and
+    its state (B, H, P, N) by heads; an ``rglru`` layer's conv (B, K − 1,
+    W) and h (B, W) by channels."""
+    check_config(cfg, m)
+    out = []
+    for kind in cfg.blocks():
+        if m == 1:
+            out.append({})
+        elif kind == "ssm":
+            out.append({"conv": _ssm_channels(cfg, m, 2),
+                        "state": _even(cfg.ssm.heads(cfg.d_model), m, 1)})
+        elif kind == "rglru":
+            w = cfg.rglru.channels(cfg.d_model)
+            out.append({"conv": _even(w, m, 2), "h": _even(w, m, 1)})
+        else:
+            kv = _kv_split(cfg.num_kv_heads, m, 2)
+            out.append({"k": kv, "v": kv})
+    return out
+
+
+def gather_caches(shards: List[List[Dict[str, torch.Tensor]]],
+                  cfg: ModelConfig) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's whole cache from each model rank's caches (rank
+    order; the same rows on every rank): the inverse of the split that
+    :func:`cache_plan` gives, a replicated KV head or the SSM's B and C
+    channels checked equal across the ranks that hold them."""
+    m = len(shards)
+    if m == 1:
+        return shards[0]
+    return [{k: split[k].join([sh[i][k] for sh in shards],
+                              f"layer {i} {k}") for k in split}
+            for i, split in enumerate(cache_plan(cfg, m))]
 
 
 def vocab_range(cfg: ModelConfig, m: int, rank: int) -> Tuple[int, int]:
@@ -166,21 +393,35 @@ def vocab_range(cfg: ModelConfig, m: int, rank: int) -> Tuple[int, int]:
 
 
 def shard_config(cfg: ModelConfig, m: int, rank: int) -> ModelConfig:
-    """The config of rank ``rank``'s shard: its heads, d_ff, expert_d_ff
-    and vocabulary piece (the head dim kept); ``cfg`` itself at m = 1."""
+    """The config of rank ``rank``'s shard: its query heads and KV heads
+    (one where several ranks share a KV head), d_ff, expert_d_ff, LRU
+    channels (``rglru`` becomes an ``RGLRUShard``, ``lru_width`` kept),
+    SSM heads (``ssm`` becomes an ``SSMShard``, ``expand`` kept) and
+    vocabulary piece, the head dim kept; ``cfg`` itself at m = 1.
+    ``models.ssm`` reads a block's heads from its ``A_log``."""
     if m == 1:
         return cfg
     check_config(cfg, m)
+    kinds = set(cfg.blocks())
     lo, hi = vocab_range(cfg, m, rank)
-    kw = dict(vocab_size=hi - lo, head_dim=cfg.resolved_head_dim,
-              num_heads=cfg.num_heads // m,
-              num_kv_heads=cfg.num_kv_heads // m)
+    kw = dict(vocab_size=hi - lo)
+    if cfg.num_heads:
+        kw.update(head_dim=cfg.resolved_head_dim,
+                  num_heads=cfg.num_heads // m,
+                  num_kv_heads=max(cfg.num_kv_heads // m, 1))
     if cfg.d_ff:
         kw["d_ff"] = pieces(cfg.d_ff, m, "d_ff")[rank]
     if cfg.moe.num_experts:
         kw["moe"] = dataclasses.replace(
             cfg.moe, expert_d_ff=pieces(cfg.moe.expert_d_ff, m,
                                         "expert_d_ff")[rank])
+    if "rglru" in kinds:
+        kw["rglru"] = RGLRUShard(**dataclasses.asdict(cfg.rglru),
+                                 rank_channels=cfg.rglru.channels(
+                                     cfg.d_model) // m)
+    if "ssm" in kinds:
+        kw["ssm"] = SSMShard(**dataclasses.asdict(cfg.ssm),
+                             rank_heads=cfg.ssm.heads(cfg.d_model) // m)
     return dataclasses.replace(cfg, **kw)
 
 
@@ -196,17 +437,24 @@ def shard_skeleton(cfg: ModelConfig, m: int, rank: int) -> model_lib.Model:
 
 def slots(axis: collectives.MeshAxis, cfg: ModelConfig) -> dict:
     """The ``dist.context`` slots of the model axis: the row-parallel
-    sums and the vocab-parallel embedding rows over ``axis``, the logits
-    gathered over it.  None at one rank: no slot, so the model runs the
-    single-process path."""
-    if axis.size == 1:
+    sums (``attn_proj``, ``mixer_out``, ``ffn_out``), the SSM's sums of
+    squares (``ssm_norm``) and the vocab-parallel embedding rows over
+    ``axis``; the RG-LRU's gate input and the logits gathered over it.
+    None at one rank: no slot, so the model runs the single-process
+    path."""
+    m = axis.size
+    if m == 1:
         return {}
-    widths = pieces(cfg.vocab_size, axis.size, "vocab_size")
+    widths = pieces(cfg.vocab_size, m, "vocab_size")
+    lru = (cfg.rglru.channels(cfg.d_model) // m,) * m
 
     def reduce(t):
         return collectives.sum_over(t, axis)
 
-    return {"attn_proj": reduce, "ffn_out": reduce, "embed_rows": reduce,
+    return {"attn_proj": reduce, "mixer_out": reduce, "ffn_out": reduce,
+            "ssm_norm": reduce, "embed_rows": reduce,
+            "lru_gate_in": lambda t: collectives.all_gather_last(t, axis,
+                                                                 lru),
             "logits": lambda t: collectives.all_gather_last(t, axis,
                                                             widths)}
 

@@ -38,16 +38,22 @@ samples every codebook: (B, 1, C) (reference ``launch/serve.py:31,49``).
 ``--mesh DATAxMODEL`` serves on the world's serving mesh
 (``launch.mesh.serve_mesh``), under torchrun or ``dist.launch.run_world``
 (without them, a world of one rank: ``--mesh 1x1``): the batch rows split
-over ``data``, the weights over ``model`` (``dist.tensor_parallel``),
-through ``launch.steps.build_prefill_step`` and ``build_decode_step``
-(:func:`generate_on_mesh`, the decode steps eager: a gloo collective
-cannot be captured).  Every rank draws the same weights and prompts from
-the seed; rank 0 prints prefill s, decode ms a token, tokens/s, the
-communication s and bytes by collective and the peak memory of a rank::
+over ``data``, the weights over ``model`` (``dist.tensor_parallel``: every
+block kind, attention by heads, ``ssm`` by SSM heads, ``rglru`` by LRU
+channels), through ``launch.steps.build_prefill_step`` and
+``build_decode_step`` (:func:`generate_on_mesh`, the decode steps eager: a
+gloo collective cannot be captured).  Every rank draws the weights and
+prompts from the seed, the weights piece by piece, keeping only its shard
+(``tp.init_shard``); rank 0 prints prefill s, decode ms a token,
+tokens/s, the communication s and bytes by collective and the peak memory
+of a rank::
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node=2 \\
       -m repro_torch.launch.serve --mesh 1x2 --device cpu --reduced \\
       --arch qwen2-0.5b --prompt-len 16 --tokens 4
+  PYTHONPATH=src torchrun --standalone --nproc-per-node=2 \\
+      -m repro_torch.launch.serve --mesh 1x2 --device cpu --reduced \\
+      --arch recurrentgemma-9b --prompt-len 64 --tokens 4
 
 ``--shape SHAPE`` runs :func:`serve_production` instead: the bytes of the
 arguments a rank holds on the production mesh (data 16 × model 16, or pod
@@ -220,7 +226,10 @@ class MeshServeResult:
     #                               decode step's, every vocabulary column
     tokens: torch.Tensor          # (b, T[, C]) fed to the decode steps
     prefill_caches: List[Dict[str, torch.Tensor]]   # the rank's rows and
-    #                               KV heads, at the prompt's length
+    #                               piece (KV heads, SSM heads and their
+    #                               conv channels, LRU channels), at the
+    #                               prompt's length: tp.gather_caches
+    #                               joins the model ranks' pieces
     prefill_s: float
     decode_s: float
     launches: Dict[str, Dict[str, int]]   # kernel launches: prefill, decode
@@ -229,14 +238,15 @@ class MeshServeResult:
 
 
 @torch.no_grad()
-def generate_on_mesh(mesh, cfg: ModelConfig, params: Dict[str, torch.Tensor],
+def generate_on_mesh(mesh, cfg: ModelConfig, shard: Dict[str, torch.Tensor],
                      prompt: torch.Tensor, gen_tokens: int, *,
                      temperature: float = 1.0, generator=None, forced=None,
                      prefix=None, compute_dtype=torch.bfloat16
                      ) -> MeshServeResult:
-    """:func:`generate` on a serving mesh, on this rank: the full
-    parameter dict ``params`` (``param_dict``) cut to the rank's shard,
-    ``prompt`` (B, P[, C]) to its rows; one prefill step
+    """:func:`generate` on a serving mesh, on this rank: ``shard`` the
+    rank's piece of the model's parameters (``tp.init_shard``, or
+    ``tp.shard_params`` of a ``param_dict``), ``prompt`` (B, P[, C]) cut
+    to its rows; one prefill step
     (``steps.build_prefill_step``, caches of the prompt's length, then
     grown), then ``gen_tokens`` eager decode steps
     (``steps.build_decode_step``) at (rows,) positions, each fed the token
@@ -256,7 +266,6 @@ def generate_on_mesh(mesh, cfg: ModelConfig, params: Dict[str, torch.Tensor],
     dec = steps_lib.build_decode_step(
         cfg, InputShape("serve_decode", total, b, "decode"), mesh,
         compute_dtype=compute_dtype)
-    shard = tp.shard_params(params, pre.plan, mesh.model_axis.rank)
     rows = pre.rows
     nb = rows.stop - rows.start
     device = prompt.device
@@ -330,7 +339,8 @@ def serve_on_world(arch: str, data: int, model: int, *, batch: int = 4,
                    ) -> MeshServeResult:
     """``--mesh DATAxMODEL``: joins torchrun's world (or starts one of one
     rank), makes the ``(data, model)`` serving mesh over it, draws the
-    weights (bf16) and prompts from ``seed`` on every rank and runs
+    rank's shard of the weights (bf16; ``tp.init_shard``, the draws of
+    ``init_params``) and the prompts from ``seed`` on every rank and runs
     :func:`generate_on_mesh`; rank 0 prints the report."""
     import torch.distributed as dist
 
@@ -346,14 +356,13 @@ def serve_on_world(arch: str, data: int, model: int, *, batch: int = 4,
             cfg = registry.reduced(cfg)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        full = model_lib.init_params(cfg, generator=gen, device=dev,
-                                     dtype=torch.bfloat16)
+        shard = tp.init_shard(cfg, model, mesh.model_axis.rank,
+                              generator=gen, device=dev,
+                              dtype=torch.bfloat16)
         cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len, *cb),
                                generator=gen, device=dev)
-        params = model_lib.param_dict(full)
-        del full
-        res = generate_on_mesh(mesh, cfg, params, prompt, gen_tokens,
+        res = generate_on_mesh(mesh, cfg, shard, prompt, gen_tokens,
                                temperature=temperature, generator=gen)
         if not res.same_tokens:
             raise RuntimeError("the ranks of a model group sampled "

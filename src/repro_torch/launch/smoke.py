@@ -9,16 +9,18 @@ For each reduced architecture:
   ``pallas_packed``, printing ``train round ran`` and ``packed-gossip
   train round ran``;
 * the serving leg, on a gloo world of 4 ranks at ``(data 2, model 2)``
-  (reference :164-180; an arch whose ``ssm`` or ``rglru`` blocks have no
-  tensor-parallel layout at ``(data 4, model 1)``): one prefill step and
-  one decode step through ``launch.steps`` on the reference's smoke shape
-  (8 rows of 64 tokens), printing ``prefill+decode ran``.
+  for every arch, as the reference runs every arch at ``(4, 2)``
+  (reference :164-180): one prefill step and one decode step through
+  ``launch.steps`` on the reference's smoke shape (8 rows of 64 tokens),
+  printing ``prefill+decode ran on (data 2, model 2)``.
 
 Exit code 0 iff every leg ran.  The sweep-cell leg waits for a later slice
 of the mesh (ROADMAP A13).
 
   PYTHONPATH=src python -m repro_torch.launch.smoke [--archs qwen2-0.5b ...]
       [--legs train serve]
+  PYTHONPATH=src python -m repro_torch.launch.smoke --legs serve \\
+      --archs mamba2-1.3b recurrentgemma-9b
 """
 from __future__ import annotations
 
@@ -33,9 +35,10 @@ from repro_torch.configs import registry
 WORLD = 2
 LEGS = (("dense", "train round"), ("pallas_packed", "packed-gossip train "
                                    "round"))
-# the serving leg: a world of SERVE_WORLD ranks, the reference's smoke
-# serving shape (8 rows of 64 tokens; its decode step at position 64)
-SERVE_WORLD, SERVE_BATCH, SERVE_SEQ = 4, 8, 64
+# the serving leg: a world of SERVE_WORLD ranks as a SERVE_MESH (data,
+# model) mesh, the reference's smoke serving shape (8 rows of 64 tokens;
+# its decode step at position 64)
+SERVE_WORLD, SERVE_MESH, SERVE_BATCH, SERVE_SEQ = 4, (2, 2), 8, 64
 
 
 def _leg(arch: str, impl: str) -> None:
@@ -71,19 +74,7 @@ def _legs(rank: int, world: int, archs) -> list:
     return results
 
 
-def serve_shape(cfg):
-    """(data, model) of the serving leg: (2, 2), or (4, 1) for an arch
-    that the model axis cannot split."""
-    from repro_torch.dist import tensor_parallel as tp
-
-    try:
-        tp.check_config(cfg, 2)
-    except ValueError:
-        return SERVE_WORLD, 1
-    return 2, 2
-
-
-def _serve_leg(arch: str, meshes: dict) -> str:
+def _serve_leg(arch: str, mesh) -> None:
     import torch
 
     from repro_torch.configs.base import InputShape
@@ -92,8 +83,6 @@ def _serve_leg(arch: str, meshes: dict) -> str:
     from repro_torch.models import model as model_lib
 
     cfg = registry.reduced(registry.get_model_config(arch))
-    shape = serve_shape(cfg)
-    mesh = meshes[shape]
     gen = torch.Generator().manual_seed(0)
     full = model_lib.param_dict(model_lib.init_params(
         cfg, generator=gen, device="cpu", dtype=torch.bfloat16))
@@ -120,20 +109,20 @@ def _serve_leg(arch: str, meshes: dict) -> str:
                          SERVE_SEQ)
     if not bool(logits.float().isfinite().all()):
         raise FloatingPointError("non-finite decode logits")
-    return f"(data {shape[0]}, model {shape[1]})"
 
 
 def _serve_legs(rank: int, world: int, archs) -> list:
-    """The serving leg of every arch on this rank; rank 0 prints."""
+    """The serving leg of every arch on this rank, each as ``(ok,
+    line)``; rank 0 prints the lines."""
     from repro_torch.launch import mesh as mesh_lib
 
-    meshes = {shape: mesh_lib.fake_serve_mesh(*shape)
-              for shape in ((2, 2), (SERVE_WORLD, 1))}
+    mesh = mesh_lib.fake_serve_mesh(*SERVE_MESH)
+    where = f"(data {SERVE_MESH[0]}, model {SERVE_MESH[1]})"
     results = []
     for arch in archs:
         t0 = time.perf_counter()
         try:
-            where = _serve_leg(arch, meshes)
+            _serve_leg(arch, mesh)
             ok, line = True, (f"prefill+decode ran on {where} "
                               f"({time.perf_counter() - t0:.1f}s)")
         except Exception as e:  # a leg's failure is reported, not fatal
@@ -141,7 +130,7 @@ def _serve_legs(rank: int, world: int, archs) -> list:
                                f"\n{traceback.format_exc()}")
         if rank == 0:
             print(f"[smoke] {arch}: {line}", flush=True)
-        results.append(ok)
+        results.append((ok, line))
     return results
 
 
@@ -164,8 +153,9 @@ def main(argv=None) -> int:
         if "serve" in args.legs:
             print(f"[smoke] a gloo world of {SERVE_WORLD} ranks on the CPU",
                   flush=True)
-            results += launch.run_world(SERVE_WORLD, _serve_legs, args.archs,
-                                        backend="gloo", store_dir=store)
+            results += [[ok for ok, _ in legs] for legs in launch.run_world(
+                SERVE_WORLD, _serve_legs, args.archs, backend="gloo",
+                store_dir=store)]
     return 0 if all(all(r) for r in results) else 1
 
 

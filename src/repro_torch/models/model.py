@@ -50,24 +50,41 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen, *, device, dtype):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
-        cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         self.cfg = cfg
         self.vocab_range = None
-        self.embed = param(embed_init(gen, (*cb, cfg.vocab_size,
-                                            cfg.d_model), **kw))
-        self.layers = nn.ModuleList(
-            tf.Block(kind, cfg, gen, **kw) for kind in cfg.blocks())
-        self.final_norm = param(torch.zeros((cfg.d_model,), **kw))
         self.head = None
-        if not cfg.tie_embeddings:
-            self.head = param(embed_init(gen, (*cb, cfg.d_model,
-                                               cfg.vocab_size), **kw))
+        for name, part in draw_parts(cfg, gen, device=device, dtype=dtype):
+            if name == "embed":
+                self.embed = part
+                self.layers = nn.ModuleList()
+            elif name.startswith("layers."):
+                self.layers.append(part)
+            else:
+                setattr(self, name, part)
 
     def forward(self, fn, *args, **kw):
         """``fn(self, *args, **kw)``: what ``torch.func.functional_call``
         runs with the parameters it is given (:func:`call`)."""
         return fn(self, *args, **kw)
+
+
+def draw_parts(cfg: ModelConfig, gen, *, device, dtype):
+    """The parts of a ``Model`` in the order their weights are drawn from
+    ``gen``, one at a time: ``("embed", parameter)``, ``("layers.i",
+    Block)`` for each layer, ``("final_norm", parameter)`` and, unless the
+    embeddings are tied, ``("head", parameter)``.  ``Model`` keeps them
+    all; ``dist.tensor_parallel.init_shard`` keeps a rank's piece of each
+    as it comes."""
+    kw = dict(device=device, dtype=dtype)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    yield "embed", param(embed_init(gen, (*cb, cfg.vocab_size, cfg.d_model),
+                                    **kw))
+    for i, kind in enumerate(cfg.blocks()):
+        yield f"layers.{i}", tf.Block(kind, cfg, gen, **kw)
+    yield "final_norm", param(torch.zeros((cfg.d_model,), **kw))
+    if not cfg.tie_embeddings:
+        yield "head", param(embed_init(gen, (*cb, cfg.d_model,
+                                             cfg.vocab_size), **kw))
 
 
 def init_params(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
@@ -326,7 +343,7 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
                  dtype, device) -> Dict[str, torch.Tensor]:
     hd = cfg.resolved_head_dim
     if kind == "rglru":
-        w = cfg.rglru.lru_width or cfg.d_model
+        w = cfg.rglru.channels(cfg.d_model)
         return {
             "conv": torch.zeros((batch, cfg.rglru.conv_width - 1, w),
                                 dtype=dtype, device=device),
@@ -334,13 +351,13 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
         }
     if kind == "ssm":
         s = cfg.ssm
-        d_in = s.expand * cfg.d_model
+        nheads = s.heads(cfg.d_model)
         return {
-            "conv": torch.zeros((batch, s.d_conv - 1, d_in + 2 * s.d_state),
+            "conv": torch.zeros((batch, s.d_conv - 1,
+                                 nheads * s.d_head + 2 * s.d_state),
                                 dtype=dtype, device=device),
-            "state": torch.zeros((batch, d_in // s.d_head, s.d_head,
-                                  s.d_state), dtype=torch.float32,
-                                 device=device),
+            "state": torch.zeros((batch, nheads, s.d_head, s.d_state),
+                                 dtype=torch.float32, device=device),
         }
     shape = (batch, cache_length(kind, cfg, seq_len), cfg.num_kv_heads, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -349,7 +366,9 @@ def _block_cache(kind: str, cfg: ModelConfig, batch: int, seq_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                dtype=torch.bfloat16, device="cuda") -> List[Dict]:
-    """One cache dict per layer, in layer order."""
+    """One cache dict per layer, in layer order; a shard config's
+    (``dist.tensor_parallel.shard_config``) at the rank's KV heads, SSM
+    heads and LRU channels."""
     return [_block_cache(kind, cfg, batch, seq_len, dtype, device)
             for kind in cfg.blocks()]
 

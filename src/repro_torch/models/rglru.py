@@ -10,6 +10,21 @@ The gate products with ``wa``/``wx`` run in f32, as in the reference.  The
 recurrence over a sequence is ``repro_torch.kernels.ops.rglru_scan`` (the
 hand-written CUDA scan on the card); a carried state h0 is folded into the
 first step, u_0 ← u_0 + a_0·h0, as the Pallas kernel folds its carry.
+
+On the serving mesh's model axis (``dist.tensor_parallel``) a rank holds
+W/M of the LRU channels: its columns of ``in_x``, ``in_gate``, ``wa`` and
+``wx``, its channels of the conv, ``ba``, ``bx`` and ``lam``, its rows of
+``out``.  The gates ``r`` and ``i`` of its channels read every channel of
+the conv output, so each rank's conv output (B, S, W/M) is gathered in the
+compute dtype at the ``lru_gate_in`` point of ``dist.context``; its f32
+cast is the reference's ``xf`` exactly, and the products with the rank's
+columns of ``wa`` and ``wx`` stay in full f32.  Gathering the input moves
+(M − 1)/M·B·S·W compute-dtype values a rank; the other layout, the rows of
+``wa`` and ``wx`` on each rank and the two pre-sigmoid (B, S, W) f32 partial
+products all-reduced, would move 2·B·S·W f32 values: 4× the bytes in bf16.
+The recurrence (B8) then runs on the rank's (B, S, W/M) ``a`` and ``u``,
+and ``out``'s partial sums cross at ``mixer_out``
+(``models.transformer.block_forward``).
 """
 from __future__ import annotations
 
@@ -17,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import dense_init, param
 
@@ -24,21 +40,24 @@ RGLRU_C = 8.0
 
 
 def init_rglru(gen, cfg, d_model: int, *, device, dtype) -> nn.ParameterDict:
+    """The reference's parameters over W channels; a rank's shard config
+    (``configs.base.RGLRUShard``) gives its channels c, and ``wa`` /
+    ``wx`` keep their W rows: (W, c)."""
     r = cfg.rglru
-    w = r.lru_width or d_model
+    w, c = r.lru_width or d_model, r.channels(d_model)
     kw = dict(device=device, dtype=dtype)
     p = {
-        "in_x": dense_init(gen, (d_model, w), in_axis=0, **kw),
-        "in_gate": dense_init(gen, (d_model, w), in_axis=0, **kw),
-        "conv_w": dense_init(gen, (r.conv_width, w), in_axis=0, **kw) * 0.1,
-        "conv_b": torch.zeros((w,), **kw),
-        "wa": dense_init(gen, (w, w), in_axis=0, **kw),
-        "ba": torch.zeros((w,), **kw),
-        "wx": dense_init(gen, (w, w), in_axis=0, **kw),
-        "bx": torch.zeros((w,), **kw),
+        "in_x": dense_init(gen, (d_model, c), in_axis=0, **kw),
+        "in_gate": dense_init(gen, (d_model, c), in_axis=0, **kw),
+        "conv_w": dense_init(gen, (r.conv_width, c), in_axis=0, **kw) * 0.1,
+        "conv_b": torch.zeros((c,), **kw),
+        "wa": dense_init(gen, (w, c), in_axis=0, **kw),
+        "ba": torch.zeros((c,), **kw),
+        "wx": dense_init(gen, (w, c), in_axis=0, **kw),
+        "bx": torch.zeros((c,), **kw),
         # softplus(lambda) ~ 0.2..0.99 decay range init
-        "lam": torch.linspace(0.5, 4.0, w, device=device).to(dtype),
-        "out": dense_init(gen, (w, d_model), in_axis=0, **kw),
+        "lam": torch.linspace(0.5, 4.0, c, device=device).to(dtype),
+        "out": dense_init(gen, (c, d_model), in_axis=0, **kw),
     }
     return nn.ParameterDict({k: param(v) for k, v in p.items()})
 
@@ -71,8 +90,11 @@ def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
     xb, new_conv = _conv1d(xb, w("conv_w"), w("conv_b"), conv_state)
 
     xf = xb.to(torch.float32)
-    r = torch.sigmoid(xf @ params["wa"].to(torch.float32) + params["ba"])
-    i = torch.sigmoid(xf @ params["wx"].to(torch.float32) + params["bx"])
+    # every rank's channels on a shard (the identity in one process)
+    xg = dist_ctx.apply("lru_gate_in", xb)
+    xa = xf if xg is xb else xg.to(torch.float32)
+    r = torch.sigmoid(xa @ params["wa"].to(torch.float32) + params["ba"])
+    i = torch.sigmoid(xa @ params["wx"].to(torch.float32) + params["bx"])
     log_a = -RGLRU_C * F.softplus(params["lam"]) * r
     a = torch.exp(log_a)
     u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * (

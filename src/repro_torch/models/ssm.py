@@ -11,6 +11,18 @@ CUDA kernel B7 on the card); its plain version, ``ssd_chunked``, lives in
 ``kernels.ref`` beside the other plain versions and is re-exported here.
 Decode advances the state one token in plain PyTorch, as the reference
 does.
+
+On the serving mesh's model axis (``dist.tensor_parallel``) a rank holds
+H/M of the heads: its columns ``[z_r, x_r, B, C, dt_r]`` of ``in_proj``
+(B and C whole: one group), its ``[x_r, B, C]`` channels of the conv, its
+heads of ``A_log``, ``D``, ``dt_bias``, its channels of ``norm`` and its
+rows of ``out_proj``.  The block reads its heads from ``A_log``'s shape.
+The gated RMSNorm takes the mean of squares over all of d_inner: each
+rank's f32 sum of squares over its channels crosses the ranks at the
+``ssm_norm`` point of ``dist.context`` (a (B, S, 1) sum), divided by the
+whole d_inner; in one process (all the heads) it is ``rms_norm`` itself.
+``out_proj``'s partial sums cross at ``mixer_out``
+(``models.transformer.block_forward``).
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401  (B7's plain version)
 from repro_torch.models.layers import dense_init, param, rms_norm
@@ -29,10 +42,11 @@ def init_ssm(gen, cfg, d_model: int, *, device, dtype) -> nn.ParameterDict:
     """The reference's parameters, names and shapes: ``in_proj`` (d,
     2·d_in + 2N + H) projecting to z, x, B, C and dt; the depthwise conv
     over x, B and C; ``A_log``, ``D``, ``dt_bias`` per head; the gated
-    RMSNorm's ``norm``; ``out_proj``."""
+    RMSNorm's ``norm``; ``out_proj``.  A rank's shard config
+    (``configs.base.SSMShard``) gives its heads and their channels."""
     s = cfg.ssm
-    d_in = s.expand * d_model
-    nheads = d_in // s.d_head
+    nheads = s.heads(d_model)
+    d_in = nheads * s.d_head
     conv_ch = d_in + 2 * s.d_state
     kw = dict(device=device, dtype=dtype)
     p = {
@@ -66,15 +80,29 @@ def _causal_conv(x, w, b, state=None):
     return F.silu(y), new_state
 
 
+def _split_rms_norm(x, scale, eps: float, width: int):
+    """``layers.rms_norm`` of a rank's channels of a last dim ``width``
+    wide that the model axis splits: the mean of squares over all
+    ``width`` channels, from the f32 sums of squares of every rank's
+    (``ssm_norm``)."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    sq = dist_ctx.apply("ssm_norm", torch.sum(torch.square(x), dim=-1,
+                                              keepdim=True))
+    x = x * torch.rsqrt(sq / width + eps)
+    return (x * (1.0 + scale.to(torch.float32))).to(dtype)
+
+
 def ssm_forward(params, x, cfg, compute_dtype=torch.bfloat16, conv_state=None,
                 ssd_state=None, decode: bool = False, kernels: bool = True):
     """Mamba2 block.  x: (B, S, d).  Returns (out, {"conv": (B, K−1,
     d_in + 2N), "state": (B, H, P, N) f32}).  ``kernels=False`` runs the
-    scan's plain version (``ssd_chunked``) where the kernel would run."""
+    scan's plain version (``ssd_chunked``) where the kernel would run.
+    On a shard the heads are A_log's, the caches the rank's."""
     s = cfg.ssm
     d = x.shape[-1]
-    d_in = s.expand * d
-    nheads = d_in // s.d_head
+    nheads = params["A_log"].shape[0]
+    d_in = nheads * s.d_head
     n = s.d_state
 
     def w(name):
@@ -117,6 +145,9 @@ def ssm_forward(params, x, cfg, compute_dtype=torch.bfloat16, conv_state=None,
     y = y + params["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
     y = y.reshape(*y.shape[:-2], d_in).to(compute_dtype)
     y = y * F.silu(z)
-    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    if d_in == s.expand * d:
+        y = rms_norm(y, params["norm"], cfg.norm_eps)
+    else:                       # a shard's heads: the norm over every rank's
+        y = _split_rms_norm(y, params["norm"], cfg.norm_eps, s.expand * d)
     out = y @ w("out_proj")
     return out.to(x.dtype), {"conv": new_conv, "state": new_ssd}

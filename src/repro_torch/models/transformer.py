@@ -15,10 +15,12 @@ Block kinds ported:
   moe                    GQA attention + MoE MLP (``models.moe``)
 
 On the serving mesh's model axis (``dist.tensor_parallel``) a block runs
-on its rank's heads and d_ff (or expert_d_ff) piece, and the partial sums
-of the out-projection and of the MLP or MoE cross the ranks at the
-``attn_proj`` and ``ffn_out`` points of ``dist.context`` (identities
-without a context).
+on its rank's piece: query and KV heads, SSM heads, LRU channels, d_ff or
+expert_d_ff.  The partial sums of the mixer's out-projection cross the
+ranks at ``attn_proj`` (attention) or ``mixer_out`` (``ssm``, ``rglru``),
+those of the MLP or MoE at ``ffn_out``: points of ``dist.context``,
+identities without a context.  The mixers' own points (the SSM's gated
+norm, the RG-LRU's gate input) are in ``models.ssm`` and ``models.rglru``.
 
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
 ``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
@@ -157,6 +159,7 @@ def block_forward(
         y, new_cache = ssm_lib.ssm_forward(
             params.ssm, h, cfg, compute_dtype, conv_s, ssd_s,
             decode=(mode == "decode"), kernels=route)
+        y = dist_ctx.apply("mixer_out", y)  # the head shards' partial sums
         return x + y, new_cache, aux
 
     if kind == "rglru":
@@ -165,10 +168,10 @@ def block_forward(
         y, new_cache = rglru_lib.rglru_forward(
             params.rglru, h, cfg, compute_dtype, conv_s, h_s,
             decode=(mode == "decode"), kernels=route)
-        x = x + y
+        x = x + dist_ctx.apply("mixer_out", y)  # the channel shards' sums
         h2 = rms_norm(x, params.norm2, cfg.norm_eps)
-        x = x + mlp(params.mlp, h2, compute_dtype)
-        return x, new_cache, aux
+        y2 = dist_ctx.apply("ffn_out", mlp(params.mlp, h2, compute_dtype))
+        return x + y2, new_cache, aux
 
     # attention-family blocks -------------------------------------------------
     window = _attn_window(kind, cfg)

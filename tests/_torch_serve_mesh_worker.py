@@ -6,13 +6,15 @@ port only, never JAX).
 ``(2, 1)`` over ranks 0–1, ``(2, 2)`` over all four and ``(1, 1)`` over
 rank 0; for each case of a ``torch.save`` file (a port config, the
 reference's parameters as numpy or a seed, prompts, forced tokens and the
-meshes to run on), ``launch.serve.generate_on_mesh`` on each of its meshes;
-each rank returns its rows' logits, its prefill caches, the tokens it fed,
-the collectives' counts and the kernel launches; then the serving legs of
-``launch.smoke`` on the same world (``smoke_archs``).
+meshes to run on), ``launch.serve.generate_on_mesh`` of the rank's shard
+on each of its meshes; each rank returns its rows' logits, its prefill
+caches, the tokens it fed, the collectives' counts and the kernel
+launches; then the serving legs of ``launch.smoke`` on the same world
+(``smoke_archs``).
 """
 import torch
 
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve as serve_lib
 from repro_torch.models import interop
@@ -46,8 +48,10 @@ def serve_cases(rank, world, path, smoke_archs=()):
             mesh = meshes[shape]
             if mesh is None:
                 continue
+            m, r = mesh.model_axis.size, mesh.model_axis.rank
+            shard = tp.shard_params(params, tp.plan(case["cfg"], m), r)
             res = serve_lib.generate_on_mesh(
-                mesh, case["cfg"], params, case["prompt"],
+                mesh, case["cfg"], shard, case["prompt"],
                 case["gen_tokens"], forced=case.get("forced"),
                 prefix=case.get("prefix"), compute_dtype=case["dtype"])
             out.append({"case": case["name"], "mesh": shape, "rank": rank,
@@ -60,5 +64,5 @@ def serve_cases(rank, world, path, smoke_archs=()):
                         "launches": res.launches,
                         "same_tokens": res.same_tokens})
     out.append({"case": "smoke", "mesh": None, "rank": rank,
-                "ok": smoke._serve_legs(rank, world, smoke_archs)})
+                "legs": smoke._serve_legs(rank, world, smoke_archs)})
     return out

@@ -6,19 +6,23 @@ from ``dist.tensor_parallel``, ``launch.serve.generate_on_mesh``,
 * One spawned gloo world of 4 ranks runs every case
   (``_torch_serve_mesh_worker.serve_cases``) on sub-meshes ``(1, 2)``,
   ``(2, 1)``, ``(2, 2)`` and ``(1, 1)``: the reduced qwen2-0.5b,
-  granite-moe-1b-a400m, musicgen-medium (codebooks) and internvl2-76b
-  (prefix) in f32 — the prefill's last logits and its caches (gathered over
-  heads and rows) against ``repro.models.forward(mode="prefill",
-  last_only=True, caches=...)`` (what the reference's
-  ``build_prefill_step`` runs, ``repro/launch/steps.py:272-278``), then four
-  teacher-forced decode steps against ``repro.models.decode_step`` from the
-  reference's caches grown as the port grows them; mamba2-1.3b and
-  recurrentgemma-9b at ``(2, 1)``; the reduced qwen2-0.5b with an odd
+  granite-moe-1b-a400m, musicgen-medium (codebooks), internvl2-76b
+  (prefix), mamba2-1.3b (``ssm`` blocks split by heads) and
+  recurrentgemma-9b (``rglru`` blocks split by LRU channels, one KV head
+  that both model ranks hold) in f32 — the prefill's last logits and its
+  caches (gathered over heads, channels and rows by ``tp.gather_caches``)
+  against ``repro.models.forward(mode="prefill", last_only=True,
+  caches=...)`` (what the reference's ``build_prefill_step`` runs,
+  ``repro/launch/steps.py:272-278``), then four teacher-forced decode
+  steps against ``repro.models.decode_step`` from the reference's caches
+  grown as the port grows them; the reduced qwen2-0.5b with an odd
   vocabulary (511) on ``(1, 2)`` and ``(2, 2)`` against the reference at
   that vocabulary; a world of one rank bit for bit the port's single
   process (prefill, ``grow_caches``, decode steps); the counted
   collectives and bytes against the formula.
-* ``shard_params`` then ``gather_params`` bit for bit; the refusals.
+* ``shard_params`` then ``gather_params`` bit for bit, ``init_shard``
+  the same pieces; ``plan(cfg, 2)`` of every arch; the refusals of what
+  does not split, by name.
 * ``_cache_shardings``, ``_maybe`` and the arguments' bytes of
   ``serve_production`` against the reference's specs on the production
   meshes, in a subprocess with 512 fake XLA devices (as
@@ -53,25 +57,29 @@ from repro_torch.core import tree as tree_lib
 from repro_torch.dist import collectives
 from repro_torch.dist import launch as dist_launch
 from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist import context as dist_ctx
 from repro_torch.kernels import flash_attention
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ssd_scan
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import serve as serve_lib
 from repro_torch.launch import steps
 from repro_torch.models import interop
 from repro_torch.models import model as t_model
+from repro_torch.models import transformer as t_tf
 
 import _torch_serve_mesh_worker as worker
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-4
 B, P, T = 2, 32, 4
+SCAN_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
 TP_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "musicgen-medium",
-            "internvl2-76b")
-DP_ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
+            "internvl2-76b") + SCAN_ARCHS
 TP_MESHES = ((1, 2), (2, 1), (2, 2))
 ODD_VOCAB = 511
-# the smoke's serving leg, on the same world: (2, 2) and (4, 1)
-SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-1.3b")
+# the smoke's serving leg, on the same world at (2, 2)
+SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b")
 
 
 def _close(got, want, tol=TOL):
@@ -145,7 +153,7 @@ def _reference(arch, vocab=None):
             "prefix": None if prefix is None else torch.from_numpy(prefix),
             "gen_tokens": T,
             "meshes": (((1, 2), (2, 2)) if vocab is not None
-                       else TP_MESHES if arch in TP_ARCHS else ((2, 1),))}
+                       else TP_MESHES)}
     ref = {"logits": np.concatenate(outs, axis=1),
            "caches": interop.caches_from_reference(prefill_caches, cfg_t,
                                                    device="cpu")}
@@ -167,7 +175,7 @@ def _world_of_one_case():
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Every case on one spawned world of 4; results by (case, mesh)."""
-    refs = {arch: _reference(arch) for arch in TP_ARCHS + DP_ARCHS}
+    refs = {arch: _reference(arch) for arch in TP_ARCHS}
     refs["odd_vocab"] = _reference("qwen2-0.5b", ODD_VOCAB)
     one_case = _world_of_one_case()
     cases = [c for c, _ in refs.values()] + [one_case]
@@ -184,10 +192,11 @@ def world(tmp_path_factory):
             "one": _single_process(one_case), "by": by}
 
 
-def _gathered(recs):
+def _gathered(recs, cfg):
     """The mesh's logits (B, T + 1, …) and prefill caches (per layer, all
-    rows and KV heads) from each rank's: every model rank's logits equal,
-    rows concatenated in batch-rank order, KV heads in model-rank order."""
+    rows, heads and channels) from each rank's: every model rank's logits
+    equal, rows concatenated in batch-rank order, each batch shard's caches
+    joined over its model ranks (``tp.gather_caches``)."""
     by_b = {}
     for r in recs:
         by_b.setdefault(r["batch_rank"], []).append(r)
@@ -197,11 +206,7 @@ def _gathered(recs):
         for r in group[1:]:
             assert torch.equal(r["logits"], group[0]["logits"])
         logits.append(group[0]["logits"])
-        layers = group[0]["caches"]
-        if len(group) > 1:
-            layers = [{k: torch.cat([r["caches"][i][k] for r in group],
-                                    dim=2) for k in layers[i]}
-                      for i in range(len(layers))]
+        layers = tp.gather_caches([r["caches"] for r in group], cfg)
         if b == 0:
             caches = layers
         elif recs[0]["rows"] != (0, B):      # rows split, not replicated
@@ -219,7 +224,7 @@ def test_prefill_and_decode_match_the_reference(world, arch, mesh):
     assert len(recs) == mesh[0] * mesh[1]
     assert all(r["same_tokens"] for r in recs)
     ref = world["refs"][arch][1]
-    logits, caches = _gathered(recs)
+    logits, caches = _gathered(recs, world["cases"][arch]["cfg"])
     _close(logits[:, :1], ref["logits"][:, :1])        # the prefill
     _close(logits[:, 1:], ref["logits"][:, 1:])        # four decode steps
     assert len(caches) == len(ref["caches"])
@@ -229,13 +234,13 @@ def test_prefill_and_decode_match_the_reference(world, arch, mesh):
             _close(got[k], want[k])
 
 
-@pytest.mark.parametrize("arch", DP_ARCHS)
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
 def test_scan_blocks_serve_on_the_data_axis(world, arch):
     recs = world["by"][(arch, (2, 1))]
     assert [r["rows"] for r in sorted(recs, key=lambda r: r["rank"])] == [
         (0, 1), (1, 2)]
     ref = world["refs"][arch][1]
-    logits, caches = _gathered(recs)
+    logits, caches = _gathered(recs, world["cases"][arch]["cfg"])
     _close(logits, ref["logits"])
     for got, want in zip(caches, ref["caches"]):
         for k in got:
@@ -245,20 +250,56 @@ def test_scan_blocks_serve_on_the_data_axis(world, arch):
         assert set(r["collectives"]) - {"check"} == {"staged_bytes"}
 
 
-@pytest.mark.parametrize("arch", DP_ARCHS)
-def test_scan_blocks_refuse_the_model_axis_by_name(arch):
+def _refused(arch, m, **changes):
     cfg = registry.reduced(registry.get_model_config(arch))
-    kind = "ssm" if arch.startswith("mamba") else "rglru"
-    with pytest.raises(ValueError, match=f"'{kind}' blocks"):
-        tp.plan(cfg, 2)
+    return dataclasses.replace(cfg, **changes), m
+
+
+# what the model axis does not split, each refused by the field's name:
+# the reduced mamba2-1.3b's 16 SSM heads over 3 ranks, an LRU width of 250
+# over 4, 3 KV heads over 2 (neither divides the other), 4 query heads
+# over 3
+REFUSALS = {
+    "ssm_heads": (_refused("mamba2-1.3b", 3), "the SSM heads"),
+    "lru_width": (_refused("recurrentgemma-9b", 4, rglru=dataclasses.replace(
+        registry.reduced(registry.get_model_config(
+            "recurrentgemma-9b")).rglru, lru_width=250)), "lru_width"),
+    "kv_heads": (_refused("qwen2-0.5b", 2, num_heads=6, num_kv_heads=3,
+                          head_dim=64), "num_kv_heads"),
+    "query_heads": (_refused("recurrentgemma-9b", 3), "num_heads"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_what_does_not_split_is_refused_by_name(case):
+    (cfg, m), field = REFUSALS[case]
+    with pytest.raises(ValueError, match=f"{field} = "):
+        tp.plan(cfg, m)
     fake = mesh_lib.ServeMesh(
-        ("data", "model"), (1, 2),
+        ("data", "model"), (1, m),
         batch_axis=collectives.MeshAxis(rank=0, size=1),
-        model_axis=collectives.MeshAxis(rank=0, size=2))
-    with pytest.raises(ValueError, match=f"'{kind}' blocks"):
+        model_axis=collectives.MeshAxis(rank=0, size=m))
+    with pytest.raises(ValueError, match=f"{field} = "):
         steps.build_prefill_step(
             cfg, InputShape("s", 8, 2, "prefill"), fake)
     tp.plan(cfg, 1)                      # the data axis alone is fine
+
+
+@pytest.mark.parametrize("arch", sorted(registry.ARCHS))
+def test_every_arch_plans_over_two_model_ranks(arch):
+    """``plan(cfg, 2)`` of the full config on the meta device: each rank's
+    shard skeleton has the shapes of the plan's pieces, and the pieces
+    cover every parameter (the shard configs make the same model)."""
+    cfg = registry.get_model_config(arch)
+    the_plan = tp.plan(cfg, 2)
+    full = dict(t_model.skeleton(cfg).named_parameters())
+    assert set(the_plan) == set(full)
+    for r in range(2):
+        got = {n: tuple(p.shape) for n, p in
+               tp.shard_skeleton(cfg, 2, r).named_parameters()}
+        want = {n: tuple(p.shape if s is None else s.take(p, r).shape)
+                for n, p in full.items() for s in [the_plan[n]]}
+        assert got == want
 
 
 def _single_process(case):
@@ -287,7 +328,7 @@ def test_an_odd_vocabulary_splits_unevenly(world, mesh):
     assert tp.pieces(ODD_VOCAB, 2, "v") == (256, 255)
     recs = world["by"][("odd_vocab", mesh)]
     ref = world["refs"]["odd_vocab"][1]
-    logits, caches = _gathered(recs)
+    logits, caches = _gathered(recs, world["cases"]["odd_vocab"]["cfg"])
     assert logits.shape[-1] == ODD_VOCAB
     _close(logits[:, :1], ref["logits"][:, :1])        # the prefill
     _close(logits[:, 1:], ref["logits"][:, 1:])        # four decode steps
@@ -315,23 +356,31 @@ def test_a_world_of_one_is_the_single_process_path(world):
 
 def _formula(cfg, nb, s, t, m, elt):
     """The collectives of one rank at m model ranks: a prefill makes
-    2L + 1 f32 all-reduces — after each layer's out-projection and MLP,
-    of nb·S'·d (S' with the prefix), and the embedding rows' of
-    nb·S·[C]·d — and one all-gather of the last logits' padded pieces,
-    ((m − 1)·nb·[C]·⌈V/m⌉ in the compute dtype); a decode step the same
-    with S = 1.  The check phase all-gathers the fed tokens (int64)."""
+    2L + 1 f32 all-reduces — after each layer's mixer (out-projection)
+    and MLP, of nb·S'·d (S' with the prefix), or for an ``ssm`` layer
+    after its out-projection and of its gated norm's sums of squares,
+    nb·S'·d and nb·S'; and the embedding rows' of nb·S·[C]·d — and all-
+    gathers, in the compute dtype: the last logits' padded pieces
+    ((m − 1)·nb·[C]·⌈V/m⌉) and each ``rglru`` layer's gate input
+    ((m − 1)·nb·S'·W/m); a decode step the same with S = 1.  The check
+    phase all-gathers the fed tokens (int64)."""
     if m == 1:
         return {}
     c = cfg.num_codebooks or 1
-    layers, d = cfg.num_layers, cfg.d_model
+    kinds, d = cfg.blocks(), cfg.d_model
+    n_ssm, n_lru = kinds.count("ssm"), kinds.count("rglru")
+    w = cfg.rglru.lru_width or d
     vmax = max(tp.pieces(cfg.vocab_size, m, "v"))
 
     def step(seq, total):
-        return {"all_reduce": {"calls": 2 * layers + 1,
-                               "bytes": (2 * layers * nb * total * d
+        rows = nb * total
+        return {"all_reduce": {"calls": 2 * len(kinds) + 1,
+                               "bytes": ((2 * len(kinds) - n_ssm) * rows * d
+                                         + n_ssm * rows
                                          + nb * seq * c * d) * 4},
-                "all_gather": {"calls": 1,
-                               "bytes": (m - 1) * nb * c * vmax * elt}}
+                "all_gather": {"calls": 1 + n_lru,
+                               "bytes": (m - 1) * (nb * c * vmax + n_lru
+                                                   * rows * (w // m)) * elt}}
 
     pre = step(s, s + cfg.num_prefix_tokens)
     dec = {k: {f: v * t for f, v in x.items()} for k, x in step(1, 1).items()}
@@ -362,10 +411,6 @@ def test_the_counted_collectives_match_the_formula(world, arch, mesh):
 @pytest.mark.parametrize("arch", TP_ARCHS)
 def test_shard_then_gather_is_bit_for_bit(arch, m):
     cfg = registry.reduced(registry.get_model_config(arch))
-    if cfg.num_kv_heads % m:
-        with pytest.raises(ValueError, match="num_kv_heads"):
-            tp.plan(cfg, m)
-        return
     full = t_model.param_dict(t_model.init_params(cfg, seed=1, device="cpu"))
     the_plan = tp.plan(cfg, m)
     shards = [tp.shard_params(full, the_plan, r) for r in range(m)]
@@ -373,18 +418,40 @@ def test_shard_then_gather_is_bit_for_bit(arch, m):
     assert set(back) == set(full)
     for name in full:
         assert torch.equal(back[name], full[name]), name
-    # each shard is a model of the rank's shard config
     for r, shard in enumerate(shards):
+        # each shard is a model of the rank's shard config
         skel = tp.shard_skeleton(cfg, m, r)
         shapes = {n: tuple(p.shape) for n, p in skel.named_parameters()}
         assert shapes == {n: tuple(t.shape) for n, t in shard.items()}
-    # GQA stays grouped: rank r's query heads are those of its KV heads
-    wq = full["layers.0.attn.wq"]
+        # drawn piece by piece, the same shard
+        drawn = tp.init_shard(cfg, m, r, seed=1, device="cpu")
+        assert all(torch.equal(drawn[n], shard[n]) for n in full)
     h, kv = cfg.num_heads, cfg.num_kv_heads
-    for r, shard in enumerate(shards):
-        q = shard["layers.0.attn.wq"]
-        lo = r * (kv // m) * (h // kv)
-        assert torch.equal(q, wq[:, lo:lo + h // m])
+    if h:
+        # GQA stays grouped: rank r's query heads are those of its KV
+        # heads, each KV head whole on every rank that holds it
+        at = next(n[:-2] for n in full if n.endswith(".attn.wq"))
+        wq, wk = full[at + "wq"], full[at + "wk"]
+        for r, shard in enumerate(shards):
+            lo = r * h // m
+            assert torch.equal(shard[at + "wq"], wq[:, lo:lo + h // m])
+            g = lo * kv // h                 # the KV head of query head lo
+            assert torch.equal(shard[at + "wk"],
+                               wk[:, g:g + max(kv // m, 1)])
+    if "ssm" in cfg.blocks():
+        # B and C whole on every rank; each rank its heads of x, z and dt
+        s = cfg.ssm
+        d_in, n = s.heads(cfg.d_model) * s.d_head, s.d_state
+        w = full["layers.0.ssm.in_proj"]
+        for r, shard in enumerate(shards):
+            c, hr = d_in // m, s.heads(cfg.d_model) // m
+            got = shard["layers.0.ssm.in_proj"]
+            assert torch.equal(got[:, :c], w[:, r * c:(r + 1) * c])
+            assert torch.equal(got[:, 2 * c:2 * c + 2 * n],
+                               w[:, 2 * d_in:2 * d_in + 2 * n])
+            assert torch.equal(got[:, 2 * c + 2 * n:],
+                               w[:, 2 * d_in + 2 * n + r * hr:
+                                 2 * d_in + 2 * n + (r + 1) * hr])
 
 
 def test_qwen2_at_two_model_ranks_runs_b5_on_tensor_cores():
@@ -398,6 +465,55 @@ def test_qwen2_at_two_model_ranks_runs_b5_on_tensor_cores():
     assert flash_attention.route(torch.bfloat16, 64,
                                  (q.stride(), k.stride(), k.stride()),
                                  True) == "tensor_core"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_the_scan_archs_at_two_model_ranks_take_the_tensor_core_routes(
+        monkeypatch, dtype):
+    """The full-width scan archs' rank-0 blocks at M = 2 on the meta
+    device, the kernels' entry points spied on: mamba2-1.3b's ``ssm``
+    block hands B7 (B, S, 32, 64, 128) with strides its tensor-core route
+    takes (B and C, in f32 compute, are views of the conv output);
+    recurrentgemma-9b's ``rglru`` block hands B8 (B, S, 2048), its
+    ``attn_local`` block B5 8 query heads over 1 KV head of 256."""
+    seen = {}
+
+    def spy(name, fn):
+        def call(*args, **kw):
+            seen[name] = args
+            return fn(*args, **kw)
+        monkeypatch.setattr(t_ops, name, call)
+
+    spy("ssd_scan", lambda xdt, loga, bm, cm, **kw: (
+        torch.empty_like(xdt, dtype=torch.float32),
+        torch.empty((xdt.shape[0], xdt.shape[2], xdt.shape[3],
+                     bm.shape[-1]), device="meta")))
+    spy("rglru_scan", lambda a, u, **kw: torch.empty_like(a))
+    spy("flash_attention", lambda q, k, v, **kw: torch.empty_like(q))
+    b, s = 2, 128
+    for arch in ("mamba2-1.3b", "recurrentgemma-9b"):
+        cfg = registry.get_model_config(arch)
+        rank_cfg = tp.shard_config(cfg, 2, 0)
+        x = torch.empty((b, s, cfg.d_model), dtype=dtype, device="meta")
+        positions = torch.zeros((b, s), dtype=torch.int32, device="meta")
+        gather = {"lru_gate_in": lambda t: torch.cat([t, t], dim=-1)}
+        with torch.no_grad(), dist_ctx.residual_constraint(**gather):
+            for kind in sorted(set(cfg.blocks())):
+                blk = t_tf.Block(kind, rank_cfg, None, device="meta",
+                                 dtype=torch.float32)
+                t_tf.block_forward(kind, blk, x, rank_cfg, mode="prefill",
+                                   positions=positions, compute_dtype=dtype)
+    xdt, loga, bm, cm = seen["ssd_scan"]
+    assert tuple(xdt.shape) == (b, s, 32, 64) and bm.shape[-1] == 128
+    f32 = [t.to(torch.float32) for t in (xdt, bm, cm)]
+    assert ssd_scan.route(64, 128, [t.stride() for t in f32],
+                          True) == "tensor_core"
+    assert tuple(seen["rglru_scan"][0].shape) == (b, s, 2048)
+    q, k, v = seen["flash_attention"]
+    assert (tuple(q.shape), tuple(k.shape)) == ((b, s, 8, 256),
+                                                (b, s, 1, 256))
+    assert flash_attention.route(torch.bfloat16, 256, (
+        q.stride(), k.stride(), v.stride()), True) == "tensor_core"
 
 
 def test_the_plan_leaves_the_router_and_norms_whole():
@@ -617,13 +733,11 @@ def test_serve_production_cli(capsys):
 
 
 def test_smoke_runs_the_serving_leg(world):
-    """``launch.smoke``'s serving leg on the fixture's world of 4: qwen2
-    at (data 2, model 2), mamba2 at (data 4, model 1)."""
+    """``launch.smoke``'s serving leg on the fixture's world of 4: qwen2,
+    mamba2 and recurrentgemma at (data 2, model 2)."""
     recs = world["by"][("smoke", None)]
     assert len(recs) == 4
-    assert all(r["ok"] == [True] * len(SMOKE_ARCHS) for r in recs)
-    cfgs = [registry.reduced(registry.get_model_config(a))
-            for a in SMOKE_ARCHS]
-    from repro_torch.launch import smoke
-
-    assert [smoke.serve_shape(c) for c in cfgs] == [(2, 2), (4, 1)]
+    for r in recs:
+        assert [ok for ok, _ in r["legs"]] == [True] * len(SMOKE_ARCHS)
+        assert all("prefill+decode ran on (data 2, model 2)" in line
+                   for _, line in r["legs"])
