@@ -11,11 +11,13 @@ Phases, each printing one JSON line:
    card, at the stated tolerances, on a grid that holds every shape (and
    kind of W) that the later phases run it at; the two-route kernels on
    both routes — B5, B6 and B7 (tensor cores, CUDA cores), B2 (a cluster
-   per client, a block per client), B1 (unrolled, tiled) and B4 (stripe,
-   row-block) — each call on the route its rule gives it and every call of
-   the new route repeated on the old one (bit for bit for B1, B2's wire
-   and B4), and the gossip pair calls (x and y in one launch) against two
-   plain single calls;
+   per client, a block per client), B1 (unrolled, tiled), B4 (stripe,
+   row-block) and B8 (chunked, walk) — each call on the route its rule
+   gives it and every call of the new route repeated on the old one (bit
+   for bit for B1, B2's wire and B4; B8's walk bit for bit the plain
+   version), B8 also on a and u drawn as the model draws them at the
+   served shape (TOL_SERVE_F32), and the gossip pair calls (x and y in one
+   launch) against two plain single calls;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
@@ -62,7 +64,8 @@ Phases, each printing one JSON line:
    through the plain versions, prefill + decode against the plain
    full-sequence forward, the kernels' launches (one a layer in the
    prefill: 12 and 26, and 48; none in decode; every attention and SSD
-   scan launch on the tensor-core route), prefill s, decode
+   scan launch on the tensor-core route, every RG-LRU scan launch on the
+   route its rule gives, no backward launch), prefill s, decode
    ms/token, tokens/s, peak memory, and a profile of a warm prefill and of
    decode steps; the decode step is a CUDA graph (``DecodeStep``), and the
    same prompts decoded again eagerly and captured from one seed must
@@ -78,7 +81,8 @@ Phases, each printing one JSON line:
    kernels on both routes; B4's L2 bytes by design); the gossip pairs at
    the paths' shapes, the dense epilogue at D ≈ 1e8 and the neighbor-
    gather epilogue at D = 16384, the model kernels at the served shapes
-   and at S = 32768, and rounds/s per mixing_impl.
+   and at S = 32768 (B8 also at the train and mesh-rank shapes, with its
+   backward kernel), and rounds/s per mixing_impl.
 
 12. compress — error-feedback compression at the main geometry on
    pallas_packed and fused_round, bf16 and int8, kgt_minimax and gt_gda,
@@ -135,12 +139,12 @@ Phases, each printing one JSON line:
 15c. serve_mesh — the serving mesh (``launch.steps.build_prefill_step``
    and ``build_decode_step`` on a ``(data, model)`` mesh, tensor
    parallelism from ``dist.tensor_parallel``): qwen2-0.5b at full width
-   (24 layers, bf16) prefilling 4 × 4096 tokens and decoding 32, over a
+   (24 layers, bf16) prefilling 4 × 4096 tokens and decoding 16, over a
    world of 2 ranks (NCCL with a card a rank, else both on cuda:0 over
    gloo) at (data 1, model 2) and (data 2, model 1), held to the single
    process (``serve_single_process``, run here first) at
    TOL_SERVE: the last logits, the caches gathered over heads and rows,
-   32 teacher-forced decode steps' logits; the model ranks' logits and
+   16 teacher-forced decode steps' logits; the model ranks' logits and
    samples alike; B5 24 launches a prefill on every rank on tensor cores
    (at (4, 4096, 7, 1, 64) on a model rank, held against its plain version
    and timed beside SDPA and its bound); the collectives and bytes a rank
@@ -151,13 +155,15 @@ Phases, each printing one JSON line:
    of the 64 SSM heads a rank, 48 launches a prefill on tensor cores) and
    recurrentgemma-9b at full width and depth (38 layers, 1 × 4096 tokens,
    past its 2048 window; B8 on 2048 of the 4096 LRU channels, 26 launches
-   a prefill, B5 on 8 query heads over the KV head both ranks hold, 12 on
-   tensor cores), each rank drawing only its shard (``tp.init_shard``),
-   16 teacher-forced decode steps each, held to the single process at the
+   a prefill on the route B8's rule gives the rank's shard, B5 on 8 query
+   heads over the KV head both ranks hold, 12 on tensor cores; the single
+   process's launches by route alike), each rank drawing only its shard
+   (``tp.init_shard``),
+   8 teacher-forced decode steps each, held to the single process at the
    arch's TOL_SERVE_BF16 and in f32 (2 and 3 layers) at TOL_SERVE_F32, B7,
-   B8 and B5 at a rank's shapes against their plain versions with their
-   times and bounds; prefill s, decode ms a token, tokens/s,
-   communication s, staged GB and peak GB a rank.  The mesh's decode runs
+   B8 (both routes) and B5 at a rank's shapes against their plain
+   versions with their times and bounds; prefill s, decode ms a token,
+   tokens/s, communication s, staged GB and peak GB a rank.  The mesh's decode runs
    eagerly (a gloo collective cannot be captured).
 16. train_ssm — federated DRO training of the other block kinds:
    mamba2-1.3b at full width (d_model 2048, V = 50 280; bf16 compute, f32
@@ -169,10 +175,13 @@ Phases, each printing one JSON line:
    depth with B7's and B6's launches by route (B7 one launch a layer and
    local step, the clients folded), bit for bit the host loop, and eager
    and captured rounds/s in turns; the reduced recurrentgemma-9b's
-   gradients and one round through B5, B8 and B6 against the plain route;
-   B8's autograd Function at a full-width layer (forward against its plain
-   version, backward against autograd through it) and B7 at the train
-   shape, with forward, plain and backward times.
+   gradients and one round through B5, B8 and B6 against the plain route
+   (B8 on the route its rule gives, its backward kernel launched once a
+   forward launch); B8's autograd Function at a full-width layer (forward
+   against its plain version, the backward kernel against autograd
+   through it) and B7 at the train shape, with forward, plain and
+   backward times (B8's both routes, its backward kernel and the plain
+   backward).
 17. moe — granite-moe-1b-a400m at full width (24 layers, 32 experts top
    8, V = 49 155; bf16): a prefill server on 4 prompts of 4096 tokens
    through B5 (24 launches, tensor cores) against the plain prefill (the
@@ -193,7 +202,7 @@ Phases, each printing one JSON line:
 19. scheduler — the continuous-batching engine
    (``repro_torch.serving.ServingEngine``: every slot at its own
    position, one CUDA graph a tick) at full width on qwen2-0.5b (16 slots,
-   caches of 1024, 17 requests of 32–256 prompt and 16–64 new tokens),
+   caches of 1024, 17 requests of 32–128 prompt and 16–32 new tokens),
    granite-moe-1b-a400m, musicgen-medium and mamba2-1.3b
    (SCHED_CASES), eagerly and captured with the same noise: every tick's
    samples, the outputs, the final caches and logits bit for bit, no
@@ -277,6 +286,9 @@ ADV_IMPLS = ("dense", "pallas_packed", "coord_median", "trimmed_mean")
 # convergence sweep's 8 seeds to SWEEP_SEEDS, the adversary sweep's 2 to
 # ADV_SWEEP_SEEDS; every point of the cut grids is checked as before
 SWEEP_SEEDS, ADV_SWEEP_SEEDS = 2, 1
+# the times phase's rounds/s per mixing_impl: one captured chunk of this
+# many rounds (cut from ROUNDS for the script's time limit: PERF.md §4)
+TIMES_RATE_ROUNDS = 20
 
 # tolerances (max |kernel − plain|); see PERF.md for the reasons
 TOL_GOSSIP = 1e-5        # θ' for O(1) operands; c' gets |s|× this
@@ -372,13 +384,15 @@ MESH_LOG_EVERY = MESH_ROUNDS - 1
 # TOL_SERVE; the f32 prefill at SERVE_MESH_F32_LAYERS layers at
 # TOL_SERVE_F32; each step's samples drawn from SERVE_MESH_SAMPLE_SEED
 SERVE_MESH_ARCH, SERVE_MESH_WORLD = "qwen2-0.5b", 2
-SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_GEN = 4, 4096, 32
+# (16 new tokens, cut from 32 for the script's time limit: PERF.md §4)
+SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_GEN = 4, 4096, 16
 SERVE_MESH_SHAPES = ((1, 2), (2, 1))
 SERVE_MESH_F32_LAYERS, SERVE_MESH_SAMPLE_SEED = 2, 1
 # the scan archs on the same world, at full width and (data 1, model 2):
 # SERVE_SCAN[arch] = (rows, layers, f32 layers) of SERVE_SCAN_PROMPT tokens
-# and SERVE_SCAN_GEN teacher-forced new tokens (16, not 32: a decode step
-# makes ~100 small collectives over gloo), held to the single process at
+# and SERVE_SCAN_GEN teacher-forced new tokens (8: a decode step makes
+# ~100 small collectives over gloo; cut from 16 for the script's time
+# limit, PERF.md §4), held to the single process at
 # the arch's TOL_SERVE_BF16 (mamba2-1.3b's 48 layers amplify bf16 rounding:
 # PERF.md §2); mamba2-1.3b at its 48 layers (B7 at (2, 4096, 32, 64, 128)
 # a rank), recurrentgemma-9b at its 38 (B8 at (1, 4096, 2048), B5 at
@@ -387,7 +401,7 @@ SERVE_MESH_F32_LAYERS, SERVE_MESH_SAMPLE_SEED = 2, 1
 # replicated KV head is held in f32 too)
 SERVE_SCAN_SHAPE = (1, 2)
 SERVE_SCAN = {"mamba2-1.3b": (2, 48, 2), "recurrentgemma-9b": (1, 38, 3)}
-SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 16
+SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 8
 # federated DRO training of the other block kinds: mamba2-1.3b at full
 # width through B7 and B6, at the reference's train defaults but n = 2 (its
 # state at n = 4 does not leave the working set room on the card: PERF.md
@@ -442,19 +456,19 @@ VLM_ARCH, VLM_LAYERS, VLM_B, VLM_PROMPT = "internvl2-76b", 2, 2, 2048
 SCHED_SEED, SCHED_TEMPS = 0, (1.0, 0.7)
 SCHED_CASES = (
     ("qwen2-0.5b", dict(slots=16, max_len=1024, requests=17,
-                        prompt=(32, 256), new=(16, 64))),
+                        prompt=(32, 128), new=(16, 32))),
     ("granite-moe-1b-a400m", dict(slots=8, max_len=512, requests=9,
-                                  prompt=(16, 64), new=(8, 32))),
+                                  prompt=(16, 32), new=(8, 16))),
     ("musicgen-medium", dict(slots=8, max_len=512, requests=9,
-                             prompt=(16, 64), new=(8, 32))),
+                             prompt=(16, 32), new=(8, 16))),
     ("mamba2-1.3b", dict(slots=8, max_len=512, requests=9,
-                         prompt=(16, 64), new=(8, 32))),
+                         prompt=(16, 32), new=(8, 16))),
 )
 SCHED_F32 = dict(slots=4, max_len=160, requests=8, prompt=(8, 32),
                  new=(4, 16))
 # each two-route kernel's first-port route (the others': "cuda_core")
 OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
-             "sparse_gossip": "row_block"}
+             "sparse_gossip": "row_block", "rglru_scan": "walk"}
 # the serve and churn paths launch no kernel of the other's
 NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
                     "fused_cross_entropy": 0}
@@ -505,12 +519,12 @@ def graph_ms(fn, *, reps: int = 21, inner: int = 100) -> float:
     return cuda_ms(graph.replay, reps=reps) / inner
 
 
-def cuda_ms(fn, *, reps: int = 21, inner: int = 1) -> float:
+def cuda_ms(fn, *, reps: int = 21, inner: int = 1, warmup: int = 3) -> float:
     """Median over ``reps`` of the per-call time of ``inner`` back-to-back
-    calls, from CUDA events, after a warm-up."""
+    calls, from CUDA events, after ``warmup`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -1175,41 +1189,188 @@ def check_flash_attention(gen, dev):
     return worst, by_route
 
 
-def check_rglru_scan(gen, dev) -> float:
+def rglru_operands(shape, gen, dev, *, model=False):
+    """B8's (a, u) at ``shape``: a ∈ [0.5, 1] and u ~ N(0, 1); with
+    ``model``, as the RG-LRU block draws them at its seed-0 init
+    (``models.rglru``): a = exp(−8·softplus(Λ)·r) over Λ = linspace(0.5, 4,
+    W) with a recurrence gate r = σ(N(0, 1)), and u = √(1 − a²)·i·x with
+    i = σ(N(0, 1)), x ~ N(0, 1)."""
+    import torch
+    import torch.nn.functional as F
+
+    b, s, w = shape
+    if not model:
+        return (torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.5,
+                torch.randn(shape, generator=gen, device=dev))
+    lam = torch.linspace(0.5, 4.0, w, device=dev)
+    r = torch.sigmoid(torch.randn(shape, generator=gen, device=dev))
+    log_a = -8.0 * F.softplus(lam) * r
+    a = torch.exp(log_a)
+    i = torch.sigmoid(torch.randn(shape, generator=gen, device=dev))
+    x = torch.randn(shape, generator=gen, device=dev)
+    u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) * i * x
+    return a, u
+
+
+def rglru_scan_shapes():
+    """Every (B, S, W) of B8 in the later phases, and ragged ones: one
+    chunk and less (the walk), S of two chunks or more with ragged W and S
+    (the chunked route); the served, 32k, train and mesh-rank shapes."""
+    from repro_torch.configs import registry
+
+    w = registry.get_model_config(SERVE_ARCH).rglru.lru_width
+    return [(1, 1, 1), (2, 17, 5), (3, 300, 130), (2, 33, 257), (2, 129, 5),
+            (1, 257, 33), (1, 1000, 4096), served_scan_shape(),
+            (1, LONG_S, w), RG_SCAN_TRAIN_SHAPE,
+            (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 256), served_scan_shard()]
+
+
+def check_rglru_scan(gen, dev):
     """B8 against ``ref.rglru_ref``, without and with a carried h0 (folded
-    into u_0 as the model folds it), over ragged shapes and the served one.
-    Returns the largest absolute error (0 when bit for bit)."""
+    into u_0 as the model folds it; at 32k without), over
+    ``rglru_scan_shapes``, on both routes: each call takes the route ``rglru_scan.route`` gives it (held
+    at TOL_SCAN on the chunked route), and every call is repeated on the
+    walk, forced (bit for bit: any error fails).  Then a and u drawn as
+    the model draws them (``rglru_operands(model=True)``) at the served
+    shape, on both routes at TOL_SERVE_F32.  Returns the largest absolute
+    error and the cases by route."""
     import torch
 
     from repro_torch.kernels import ref, rglru_scan
 
-    shapes = [(1, 1, 1), (2, 17, 5), (3, 300, 130), (2, 33, 257),
-              (1, 1000, 4096), served_scan_shape(), RG_SCAN_TRAIN_SHAPE,
-              (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 256), served_scan_shard()]
     worst = 0.0
-    exact = 0
-    for b, s, w in shapes:
-        a = torch.rand((b, s, w), generator=gen, device=dev) * 0.5 + 0.5
-        u = torch.randn((b, s, w), generator=gen, device=dev)
+    worst_rel = dict.fromkeys(rglru_scan.ROUTES, 0.0)
+    by_route = dict.fromkeys(rglru_scan.ROUTES, 0)
+
+    def run(a, uk, want, what, tol):
+        nonlocal worst
+        rt = rglru_scan.route(*a.shape)
+        errs = {}
+        for r in dict.fromkeys((rt, "walk")):
+            got = routed_call(lambda: rglru_scan.rglru_scan_bsw(
+                a, uk, force_route=r), "rglru_scan", r)
+            err = max_err(got, want)
+            rel = err / (1 + float(want.abs().max()))
+            worst = max(worst, err)
+            worst_rel[r] = max(worst_rel[r], rel)
+            by_route[r] += 1
+            errs[r] = rel
+            if r == "walk" and err != 0.0:
+                fail(f"rglru_scan {what} walk: err {err}, not bit for bit")
+            if not rel <= tol:
+                fail(f"rglru_scan {what} {r}: {rel} > {tol} × (1 + max)")
+            del got
+        return errs
+
+    for b, s, w in rglru_scan_shapes():
+        a, u = rglru_operands((b, s, w), gen, dev)
         h0 = torch.randn((b, w), generator=gen, device=dev)
-        for with_h0 in (False, True):
+        # at 32k without h0 only: a plain loop of its S steps takes 1.1–1.5 s
+        # beside an H100
+        for with_h0 in (False, True) if s < LONG_S else (False,):
             uk = u
             if with_h0:
                 uk = u.clone()
                 uk[:, 0] = uk[:, 0] + a[:, 0] * h0
-            got = rglru_scan.rglru_scan_bsw(a, uk)
             want = ref.rglru_ref(a, u, h0 if with_h0 else None)
-            err = max_err(got, want)
-            worst = max(worst, err)
-            exact += int(err == 0.0)
-            if not err <= TOL_SCAN * (1 + float(want.abs().max())):
-                fail(f"rglru_scan {(b, s, w)} h0={with_h0}: err {err}")
-        del a, u, h0, uk, got, want
+            run(a, uk, want, f"{(b, s, w)} h0={with_h0}", TOL_SCAN)
+            del uk, want
+        del a, u, h0
+        torch.cuda.empty_cache()
+    shape = served_scan_shape()
+    a, u = rglru_operands(shape, gen, dev, model=True)
+    model_case = {"shape": list(shape), "tol": TOL_SERVE_F32,
+                  "a_mean": float(a.mean()), "a_max": float(a.max()),
+                  "a_share_above_0.9": float((a > 0.9).float().mean()),
+                  "rel_err_by_route": run(a, u, ref.rglru_ref(a, u),
+                                          f"{shape} as the model draws it",
+                                          TOL_SERVE_F32)}
+    del a, u
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "kernel": "rglru_scan", "cases": 2 * len(shapes),
-          "bitwise_equal_cases": exact, "max_abs_err": worst,
-          "tol": TOL_SCAN, "served_shape": list(served_scan_shape())})
-    return worst
+    emit({"phase": "kernels", "kernel": "rglru_scan",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "max_abs_err": worst, "max_err_over_1_plus_max_by_route": worst_rel,
+          "tol": TOL_SCAN, "shapes": rglru_scan_shapes(),
+          "model_drawn_case": model_case})
+    return worst, by_route
+
+
+def rglru_chunked_direct(a, u):
+    """B8's chunked kernel through its C entry, at a shape the wrapper's
+    rule keeps on the walk (a single chunk): for its time only."""
+    import torch
+
+    from repro_torch.kernels import _build, rglru_scan
+
+    b, s, w = a.shape
+    h = torch.empty_like(a)
+    work = torch.empty((rglru_scan.work_bytes(b, s, w),), dtype=torch.uint8,
+                       device=a.device)
+    _build.check(_build.library("rglru_scan").rglru_chunked_launch(
+        a.data_ptr(), u.data_ptr(), h.data_ptr(), work.data_ptr(), b, s, w,
+        torch.cuda.current_stream(a.device).cuda_stream),
+        "rglru_chunked_launch")
+    return h
+
+
+# operand sets of the B8 timings rotate over at least this many bytes (3×
+# an H100's 50 MB L2), so that every call reads device memory
+COLD_BYTES = 150e6
+
+
+def rotating(fn, sets):
+    """A call of ``fn`` on the next of ``sets`` (argument tuples) each time."""
+    turn = [0]
+
+    def go():
+        turn[0] = (turn[0] + 1) % len(sets)
+        return fn(*sets[turn[0]])
+    return go
+
+
+def b8_times(gen, dev, shape, *, plain_reps=3) -> dict:
+    """B8 at ``shape``: the device ms of both routes (the chunked one through
+    ``rglru_chunked_direct`` where the rule keeps the shape on the walk),
+    of the backward kernel and of the plain version, beside the bounds
+    (12·B·S·W bytes forward, 20·B·S·W backward).  Kernel times from CUDA
+    graphs of back-to-back calls (``graph_ms``) over enough operand sets
+    that they exceed COLD_BYTES; the plain version's from CUDA events."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, rglru_scan
+
+    b, s, w = shape
+    sets = [rglru_operands(shape, gen, dev)
+            for _ in range(max(1, math.ceil(COLD_BYTES / (12 * b * s * w))))]
+    inner = len(sets) * max(1, 8 // len(sets))
+    rt = rglru_scan.route(b, s, w)
+    out = {"shape": [b, s, w], "route": rt, "operand_sets": len(sets)}
+    with ops.uncounted():
+        for r in rglru_scan.ROUTES:
+            fn = (rglru_chunked_direct if r == "chunked" and rt == "walk"
+                  else lambda a, u, r=r: rglru_scan.rglru_scan_bsw(
+                      a, u, force_route=r))
+            out[f"{r}_ms"] = graph_ms(rotating(fn, sets), reps=11,
+                                      inner=inner)
+        back = [(a, rglru_scan.rglru_scan_bsw(a, u),
+                 torch.randn(shape, generator=gen, device=dev))
+                for a, u in sets]
+        out["backward_ms"] = graph_ms(rotating(
+            rglru_scan.RglruScanFn.backward_launch, back), reps=11,
+            inner=inner)
+    out["ms"] = out[f"{rt}_ms"]
+    a, u = sets[0]
+    # the plain version is a loop of S steps (over a second at 32k beside
+    # an H100): one warm-up
+    out["plain_ms"] = cuda_ms(lambda: ref.rglru_ref(a, u), reps=plain_reps,
+                              warmup=1)
+    out["bound_ms"], out["bound_by"] = scan_bound_ms(b, s, w)
+    out["library_ms"] = None
+    out["backward_bound_ms"], out["backward_bound_by"] = _bound(
+        20 * b * s * w, 3 * b * s * w)
+    del sets, back, a, u
+    torch.cuda.empty_cache()
+    return out
 
 
 def served_ssd_shapes():
@@ -2704,6 +2865,7 @@ def kernel_category(name: str) -> str:
     for kernel, cat in (("flash_attention_kernel", "flash_attention"),
                         ("flash_attention_tc_kernel", "flash_attention"),
                         ("rglru_scan_kernel", "rglru_scan"),
+                        ("rglru_chunked_kernel", "rglru_scan"),
                         ("ssd_scan_kernel", "ssd_scan"),
                         ("ssd_tc_kernel", "ssd_scan"),
                         ("ssd_cb_kernel", "ssd_scan"),
@@ -2783,6 +2945,7 @@ def serve_one(dev, arch, batch, prompt_len, gen_tokens) -> dict:
                           gen_tokens=gen_tokens, device=dev, seed=0)
     launches = launch_counts()
     routes = route_counts()
+    check_backward_launches(0, f"serve {arch}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model, cfg = res.model, res.model.cfg
     zeros = {k: 0 for k in launches}
@@ -3388,15 +3551,35 @@ def ce_launches(cfg) -> int:
     return max(1, cfg.num_codebooks)
 
 
-def model_routes(compute_dtype) -> dict:
+def model_routes(compute_dtype, args=None, cfg=None) -> dict:
     """The route each routed model kernel takes in training: B5 and B6 on
     tensor cores in bf16 and on CUDA cores in f32; B7's f32 operands on
-    tensor cores either way."""
+    tensor cores either way; B8's, where ``args`` trains ``cfg``, by its
+    rule at the clients folded into the batch, (n·B, S, W)."""
     import torch
 
+    from repro_torch.kernels import rglru_scan
+
     route = "tensor_core" if compute_dtype == torch.bfloat16 else "cuda_core"
-    return {"flash_attention": route, "fused_cross_entropy": route,
-            "ssd_scan": "tensor_core"}
+    out = {"flash_attention": route, "fused_cross_entropy": route,
+           "ssd_scan": "tensor_core"}
+    if args is not None:
+        out["rglru_scan"] = rglru_scan.route(
+            args.clients * args.batch, args.seq_len,
+            cfg.rglru.channels(cfg.d_model))
+    return out
+
+
+def check_backward_launches(want, what) -> dict:
+    """Fail unless B8's backward kernel launched ``want`` times (one a
+    forward launch under a gradient; none without)."""
+    from repro_torch.kernels import ops
+
+    got = ops.backward_launch_counts()
+    if got != {"rglru_scan": want}:
+        fail(f"{what}: backward launches {got}, expected {want} of "
+             "rglru_scan")
+    return got
 
 
 def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
@@ -3452,9 +3635,13 @@ def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
             peaks[run] = torch.cuda.max_memory_allocated() / 1e9
             if run == "kernel":
                 launches, routes = launch_counts(), route_counts()
+                backward = check_backward_launches(
+                    launches["rglru_scan"], f"{phase} grads ({dt})")
             elif any(launch_counts().values()):
                 fail(f"{phase} grads ({dt}): the plain route launched "
                      f"{launch_counts()}")
+            else:
+                check_backward_launches(0, f"{phase} grads ({dt}, {run})")
             for leaf in tree_lib.leaves(g):
                 if not bool(leaf.isfinite().all()):
                     fail(f"{phase} grads ({dt}, {run}): not finite")
@@ -3480,14 +3667,15 @@ def grad_checks(dev, smi, args, *, phase, tol_bf16) -> dict:
         if launches != want:
             fail(f"{phase} grads ({dt}): launches {launches}, expected "
                  f"{want}")
-        routed = {k: v for k, v in model_routes(dt).items() if want[k]}
+        routed = {k: v for k, v in model_routes(dt, args, cfg).items()
+                  if want[k]}
         check_routes({k: routes[k] for k in routed}, want,
                      f"{phase} grads ({dt})", route_of=routed)
         err_x, err_y = errs[held]
         res = {"compute_dtype": str(dt).split(".")[-1],
                "routes": routed, "rel_err_x": err_x, "rel_err_y": err_y,
                "tol_x": tol[0], "tol_y": tol[1],
-               "launches": launches,
+               "launches": launches, "backward_launches": backward,
                "launches_by_route": {k: routes[k] for k in ops.ROUTED
                                      if k in routed},
                "kernel_route_s": secs["kernel"],
@@ -4720,30 +4908,45 @@ def b7_shard_times(gen, dev, cfg, m, b) -> dict:
 
 def b8_shard_times(gen, dev, cfg, m, b) -> dict:
     """B8 at a model rank's shard of recurrentgemma-9b's served prefill,
-    (b, SERVE_SCAN_PROMPT, W/m), against its plain version (TOL_SCAN),
-    with both times and the bound (no PyTorch call computes it)."""
+    (b, SERVE_SCAN_PROMPT, W/m), against its plain version on both routes
+    (the rule's at TOL_SCAN, the walk bit for bit), with both routes'
+    times, the backward kernel's, the plain version's and the bounds
+    (``b8_times``; no PyTorch call computes it)."""
     import torch
 
-    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.kernels import ref, rglru_scan
 
-    s, w = SERVE_SCAN_PROMPT, cfg.rglru.channels(cfg.d_model) // m
-    a = torch.rand((b, s, w), generator=gen, device=dev) * 0.5 + 0.5
-    u = torch.randn((b, s, w), generator=gen, device=dev)
-    got, want = rglru_scan.rglru_scan_bsw(a, u), ref.rglru_ref(a, u)
-    err, rel = max_err(got, want), rel_err(got, want)
-    del got, want
-    if not rel <= TOL_SCAN:
-        fail(f"rglru_scan at the shard shape {(b, s, w)}: {rel} > "
-             f"{TOL_SCAN} × (1 + max)")
-    ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=11)
-    pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=3)
-    bound, by = scan_bound_ms(b, s, w)
-    del a, u
+    shape = (b, SERVE_SCAN_PROMPT, cfg.rglru.channels(cfg.d_model) // m)
+    a, u = rglru_operands(shape, gen, dev)
+    want = ref.rglru_ref(a, u)
+    rt = rglru_scan.route(*shape)
+    errs = {}
+    for r in dict.fromkeys((rt, "walk")):
+        got = rglru_scan.rglru_scan_bsw(a, u, force_route=r)
+        errs[r] = (max_err(got, want), rel_err(got, want))
+        del got
+    del a, u, want
     torch.cuda.empty_cache()
-    return dict(shape=[b, s, w], ms=ms, plain_ms=pms, library_ms=None,
-                bound_ms=bound, bound_by=by, max_abs_err=err, rel_err=rel,
-                tol=TOL_SCAN)
+    if errs["walk"][0] != 0.0:
+        fail(f"rglru_scan at the shard shape {shape}: the walk is off the "
+             f"plain version by {errs['walk'][0]}")
+    if not errs[rt][1] <= TOL_SCAN:
+        fail(f"rglru_scan at the shard shape {shape}: {errs[rt][1]} > "
+             f"{TOL_SCAN} × (1 + max) on the {rt} route")
+    return dict(**b8_times(gen, dev, shape), max_abs_err=errs[rt][0],
+                rel_err=errs[rt][1], rel_err_by_route={
+                    r: e[1] for r, e in errs.items()}, tol=TOL_SCAN)
+
+
+def scan_kernel_routes(cfg, rows, channels) -> dict:
+    """The route of each two-route model kernel in a bf16 prefill of
+    ``rows`` prompts of SERVE_SCAN_PROMPT tokens over ``channels`` LRU
+    channels: B5 and B7 on tensor cores, B8 by its rule."""
+    from repro_torch.kernels import rglru_scan
+
+    return {"flash_attention": "tensor_core", "ssd_scan": "tensor_core",
+            "rglru_scan": rglru_scan.route(rows, SERVE_SCAN_PROMPT,
+                                           channels)}
 
 
 def scan_kernel_launches(cfg) -> dict:
@@ -4791,6 +4994,10 @@ def scan_single_process(dev, gen, arch, smi) -> tuple:
         if launches[name] != n:
             fail(f"serve_mesh {arch} single process: {launches[name]} "
                  f"{name} launches, expected {n}")
+    check_routes({k: routes[k] for k in want}, want,
+                 f"serve_mesh {arch} single process",
+                 route_of=scan_kernel_routes(
+                     cfg, rows, cfg.rglru.channels(cfg.d_model)))
     spec = {"prompt": prompt.cpu(), "tokens": ref["tokens"].cpu(),
             "fingerprints": shard_fingerprints(model, m)}
     held = {"cfg": cfg, "logits": ref["logits"].cpu(),
@@ -4845,9 +5052,9 @@ def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
     the arch's TOL_SERVE_BF16 (the last logits, the caches gathered over
     heads, channels and rows, each teacher-forced decode step's logits),
     the model ranks' logits and samples alike, each rank's kernel launches
-    (every one a prefill, on tensor cores where the kernel has routes,
-    none in decode) and collectives against ``serve_mesh_formula``; the
-    f32 prefill at TOL_SERVE_F32."""
+    (every one a prefill, each on its route — B5 and B7 on tensor cores,
+    B8 by its rule at the rank's shard —, none in decode) and collectives
+    against ``serve_mesh_formula``; the f32 prefill at TOL_SERVE_F32."""
     cfg = held["cfg"]
     rows = SERVE_SCAN[arch][0]
     what = f"serve_mesh {arch} {SERVE_SCAN_SHAPE}"
@@ -4870,6 +5077,8 @@ def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
     want_comm = serve_mesh_formula(cfg, nb, SERVE_SCAN_PROMPT,
                                    SERVE_SCAN_GEN, SERVE_SCAN_SHAPE[1], 2)
     want_l = scan_kernel_launches(cfg)
+    rank_routes = scan_kernel_routes(
+        cfg, nb, cfg.rglru.channels(cfg.d_model) // SERVE_SCAN_SHAPE[1])
     for r in recs:
         got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
                     for k, v in kinds.items()}
@@ -4881,11 +5090,11 @@ def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
         full = {**dict.fromkeys(r["launches"], 0), **want_l}
         routed = {k: r["routes"][k] for k in want_l if k in r["routes"]}
         if (r["launches"] != full or r["launches_prefill"] != full
-                or any(c.get("tensor_core") != want_l[k]
+                or any(c.get(rank_routes[k]) != want_l[k]
                        for k, c in routed.items())):
             fail(f"{what} rank {r['rank']}: launches {r['launches']} "
                  f"(prefill {r['launches_prefill']}), routes {routed}; "
-                 f"expected {full}, all on tensor cores")
+                 f"expected {full}, each on its route {rank_routes}")
     logits32, caches32, alike32 = gather_mesh_serve(recs32, held["cfg32"])
     f32 = {"rel_err_logits": rel_err(logits32, held["logits32"]),
            "rel_err_caches": caches_rel_err(caches32, held["caches32"])}
@@ -5228,6 +5437,8 @@ def reduced_checks(dev, smi, arch, *, phase) -> dict:
         rounds[kernels] = step(state, batches, noise)
         if kernels:
             launches, routes = launch_counts(), route_counts()
+            backward = check_backward_launches(
+                launches["rglru_scan"], f"{phase} {arch} round")
         elif any(launch_counts().values()):
             fail(f"{phase} {arch} round: the plain route "
                  f"launched {launch_counts()}")
@@ -5239,8 +5450,8 @@ def reduced_checks(dev, smi, arch, *, phase) -> dict:
     if launches != want:
         fail(f"{phase} {arch} round: launches {launches}, "
              f"expected {want}")
-    routed = {k: v for k, v in model_routes(torch.float32).items()
-              if want[k]}
+    routed = {k: v for k, v in model_routes(
+        torch.float32, args, trainer.cfg).items() if want[k]}
     check_routes({k: routes[k] for k in routed}, want,
                  f"{phase} {arch} round", route_of=routed)
     err = max(tree_rel_err(getattr(rounds[True], f),
@@ -5249,6 +5460,7 @@ def reduced_checks(dev, smi, arch, *, phase) -> dict:
     out["round"] = {"arch": trainer.cfg.name, "clients": SSM_TRAIN_N,
                     "compute_dtype": "float32", "rel_err": err,
                     "tol": TOL_TRAIN_F32, "launches": launches,
+                    "backward_launches": backward,
                     "launches_by_route": {k: routes[k] for k in routed}}
     emit({"phase": phase, "check": "one round, kernels against plain",
           "nvidia_smi": smi, **out["round"]})
@@ -5260,46 +5472,54 @@ def reduced_checks(dev, smi, arch, *, phase) -> dict:
 
 def rglru_train_times(gen, dev) -> dict:
     """``RglruScanFn`` at a full-width recurrentgemma-9b layer's training
-    shape, RG_SCAN_TRAIN_SHAPE (n·B, S, W) f32: the kernel forward against
-    ``ref.rglru_ref`` (TOL_SCAN, as the kernels phase holds B8), the
-    Function's backward (``ref.rglru_bwd_ref``) against autograd through
-    the plain version (TOL_SCAN_BWD); the forward's, the plain forward's
-    and the backward's times, and the 12·B·S·W-byte bound."""
+    shape, RG_SCAN_TRAIN_SHAPE (n·B, S, W) f32: the kernel forward (the
+    rule's route, the walk: one chunk) against ``ref.rglru_ref`` (bit for
+    bit), the Function's backward — the backward kernel, one launch —
+    against autograd through the plain version (TOL_SCAN_BWD); both
+    routes', the backward kernel's and the plain forward's times
+    (``b8_times``), the plain backward's (``ref.rglru_bwd_ref``) beside
+    them, and the bounds."""
     import torch
 
-    from repro_torch.kernels import ref, rglru_scan
+    from repro_torch.kernels import ops, ref, rglru_scan
 
     b, s, w = RG_SCAN_TRAIN_SHAPE
-    a = (torch.rand((b, s, w), generator=gen, device=dev) * 0.5
-         + 0.5).requires_grad_(True)
-    u = torch.randn((b, s, w), generator=gen, device=dev).requires_grad_(True)
+    a, u = (x.requires_grad_(True) for x in rglru_operands(
+        RG_SCAN_TRAIN_SHAPE, gen, dev))
     wts = torch.randn((b, s, w), generator=gen, device=dev)
+    zero_launch_counts()
     h = rglru_scan.rglru_scan_bsw(a, u)
     want = ref.rglru_ref(a, u)
     fwd_err = max_err(h.detach(), want.detach())
     got_g = torch.autograd.grad((h * wts).sum(), (a, u))
+    backward_launches = ops.backward_launch_counts()["rglru_scan"]
     want_g = torch.autograd.grad((want * wts).sum(), (a, u))
     bwd_rel = max(max_err(g, wg) / (1 + float(wg.abs().max()))
                   for g, wg in zip(got_g, want_g))
-    if not fwd_err <= TOL_SCAN * (1 + float(want.detach().abs().max())):
-        fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: forward err {fwd_err}")
+    rt = rglru_scan.route(b, s, w)
+    if not (fwd_err == 0.0 if rt == "walk" else
+            fwd_err <= TOL_SCAN * (1 + float(want.detach().abs().max()))):
+        fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: the forward on the "
+             f"{rt} route is off the plain version by {fwd_err}")
+    if backward_launches != 1:
+        fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: {backward_launches} "
+             "backward launches, expected 1")
     if not bwd_rel <= TOL_SCAN_BWD:
         fail(f"rglru_scan at {RG_SCAN_TRAIN_SHAPE}: backward {bwd_rel} > "
              f"{TOL_SCAN_BWD} × (1 + max)")
     a, u, h = a.detach(), u.detach(), h.detach()
     del got_g, want_g, want
-    ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=21)
-    pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=5)
-    bwd_ms = cuda_ms(lambda: ref.rglru_bwd_ref(a, h, wts), reps=5)
-    bound, by = scan_bound_ms(b, s, w)
-    out = dict(ms=ms, plain_ms=pms, backward_plain_ms=bwd_ms,
-               library_ms=None, bound_ms=bound, bound_by=by,
-               shape=[b, s, w], forward_max_abs_err=fwd_err,
-               forward_bit_for_bit=fwd_err == 0.0, forward_tol=TOL_SCAN,
-               backward_rel_err=bwd_rel, backward_tol=TOL_SCAN_BWD)
-    emit({"phase": "train_ssm", "kernel": "rglru_scan", **out})
+    bwd_plain_ms = cuda_ms(lambda: ref.rglru_bwd_ref(a, h, wts), reps=5,
+                           warmup=1)
     del a, u, h, wts
     torch.cuda.empty_cache()
+    out = dict(**b8_times(gen, dev, RG_SCAN_TRAIN_SHAPE, plain_reps=5),
+               backward_plain_ms=bwd_plain_ms,
+               forward_max_abs_err=fwd_err,
+               forward_bit_for_bit=fwd_err == 0.0, forward_tol=TOL_SCAN,
+               backward_rel_err=bwd_rel, backward_tol=TOL_SCAN_BWD,
+               backward_launches=backward_launches)
+    emit({"phase": "train_ssm", "kernel": "rglru_scan", **out})
     return out
 
 
@@ -6080,15 +6300,17 @@ def time_mamba_kernels(gen, dev) -> dict:
 
 
 def time_model_kernels(gen, dev) -> dict:
-    """B5 (bf16) and B8 at the served shapes and at prefill_32k's length
-    (S = 32768, batch 1): the kernel, its plain version and, for B5,
+    """B5 (bf16) at the served shape and at prefill_32k's length (S =
+    32768, batch 1): the kernel, its plain version and
     ``scaled_dot_product_attention`` with the same banded boolean mask (k
     and v expanded to the query heads before the timed call), each beside
-    its bound.  CUDA-event times of eager calls (a call is milliseconds)."""
+    its bound, from CUDA events of eager calls (a call is milliseconds);
+    B8 at the served, 32k, train and mesh-rank shapes: both routes, the
+    backward kernel and the plain version (``b8_times``)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import flash_attention, ref, rglru_scan
+    from repro_torch.kernels import flash_attention, ref
 
     out = {}
     b, s, h, kv, d, window = served_attention_shape()
@@ -6136,21 +6358,18 @@ def time_model_kernels(gen, dev) -> dict:
         del q, k, v, qt, kt, vt, mask
         torch.cuda.empty_cache()
     b, s, w = served_scan_shape()
-    for bb, ss in ((b, s), (1, LONG_S)):
-        a = torch.rand((bb, ss, w), generator=gen, device=dev) * 0.5 + 0.5
-        u = torch.randn((bb, ss, w), generator=gen, device=dev)
-        ms = cuda_ms(lambda: rglru_scan.rglru_scan_bsw(a, u), reps=11)
-        pms = cuda_ms(lambda: ref.rglru_ref(a, u), reps=3)
-        bound, by = scan_bound_ms(bb, ss, w)
-        emit({"phase": "times", "kernel": "rglru_scan", "shape": [bb, ss, w],
-              "ms": ms, "plain_ms": pms, "library_ms": None,
-              "bound_ms": bound, "bound_by": by,
-              "GB_per_s": 12 * bb * ss * w / ms / 1e6})
-        if bb == b:
-            out["rglru_scan"] = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-                                     bound_by=by, library_ms=None)
-        del a, u
-        torch.cuda.empty_cache()
+    shapes = {"served": (b, s, w), "32k": (1, LONG_S, w),
+              "train": RG_SCAN_TRAIN_SHAPE, "mesh_rank": served_scan_shard()}
+    out["rglru_scan"] = {}
+    for case, shape in shapes.items():
+        # the plain version's loop of 32768 steps timed once (1.1–1.5 s a
+        # call beside an H100)
+        t = b8_times(gen, dev, shape, plain_reps=1 if case == "32k" else 3)
+        emit({"phase": "times", "kernel": "rglru_scan", "case": case, **t,
+              "GB_per_s": 12 * math.prod(shape) / t["ms"] / 1e6})
+        if case == "served":
+            out["rglru_scan"].update(t)
+        out["rglru_scan"][f"shape_{case}"] = t
     return out
 
 
@@ -6250,12 +6469,12 @@ def phase_times(dev, gen) -> dict:
     rps = {}
     for impl in MIXING_IMPLS:
         state, build = prepare(problem, client_batch, batches, "kgt_minimax",
-                               impl, dev, log_every=ROUNDS)
-        rps[impl] = steady_rounds_per_s(state, build, ROUNDS)
+                               impl, dev, log_every=TIMES_RATE_ROUNDS)
+        rps[impl] = steady_rounds_per_s(state, build, TIMES_RATE_ROUNDS)
     emit({"phase": "times", "rounds_per_s": rps, "algorithm": "kgt_minimax",
-          "rounds": ROUNDS, "note": "host clock around engine.run, "
-          "one chunk replayed as a CUDA graph after a first run captured "
-          "it, metrics on rounds 0 and 49"})
+          "rounds": TIMES_RATE_ROUNDS, "note": "host clock around "
+          "engine.run, one chunk replayed as a CUDA graph after a first run "
+          "captured it, metrics on its first and last rounds"})
     return out
 
 
@@ -6465,7 +6684,8 @@ def main(argv=None) -> int:
             check_sparse_gossip(gen, dev)
         errs["flash_attention"], cases_by_route["flash_attention"] = \
             check_flash_attention(gen, dev)
-        errs["rglru_scan"] = check_rglru_scan(gen, dev)
+        errs["rglru_scan"], cases_by_route["rglru_scan"] = \
+            check_rglru_scan(gen, dev)
         errs["ssd_scan"], cases_by_route["ssd_scan"] = \
             check_ssd_scan(gen, dev)
         errs["fused_cross_entropy"], cases_by_route["fused_cross_entropy"] = \
@@ -6512,6 +6732,8 @@ def main(argv=None) -> int:
             serve[SERVE_ARCH]["launches_by_route"]["flash_attention"]
         launches_by_route["ssd_scan"] = \
             serve[MAMBA_ARCH]["launches_by_route"]["ssd_scan"]
+        launches_by_route["rglru_scan"] = \
+            serve[SERVE_ARCH]["launches_by_route"]["rglru_scan"]
     if "scheduler" in phases:
         phase_scheduler(dev, smi)
     if "evaluate" in phases:
@@ -6546,12 +6768,17 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         serve_mesh = phase_serve_mesh(dev, gen, smi)
     launches_train_ssm = dict.fromkeys(names)
-    train_ssm_routes = {}
+    train_ssm_routes, backward_train_ssm = {}, {}
     if "train_ssm" in phases:
         trained = phase_train_ssm(dev, gen, smi)
         launches_train_ssm.update(trained["launches"])
         train_ssm_routes = trained["launches_by_route"]
         train_times.update(trained["times"])
+        reduced = trained["recurrentgemma_reduced"]
+        backward_train_ssm = {
+            **{f"grads_{dt}": reduced["grads"][dt]["backward_launches"][
+                "rglru_scan"] for dt in reduced["grads"]},
+            "round": reduced["round"]["backward_launches"]["rglru_scan"]}
     # the moe and frontends phases' launches: {path: {kernel: launches}}
     launches_moe, moe_routes = {}, {}
     if "moe" in phases:
@@ -6641,6 +6868,20 @@ def main(argv=None) -> int:
             if k["name"] == "ssd_scan":
                 k["bound_ms_at_f32_cuda_core_peak"] = t.get(
                     "bound_ms_at_f32_cuda_core_peak")
+            if k["name"] == "rglru_scan":
+                # the routes at each timed shape, and the backward kernel
+                # (the chunked kernel in reverse time): its launches in the
+                # train_ssm phase's reduced recurrentgemma-9b and its time
+                k.update(route_ms_by_shape={
+                    case: {f: t[f"shape_{case}"].get(f) for f in (
+                        "shape", "route", "walk_ms", "chunked_ms",
+                        "backward_ms", "bound_ms", "backward_bound_ms",
+                        "plain_ms")}
+                    for case in ("served", "32k", "train", "mesh_rank")
+                    if f"shape_{case}" in t},
+                    backward_launches_train_ssm=backward_train_ssm or None,
+                    backward_ms=t.get("backward_ms"),
+                    backward_bound_ms=t.get("backward_bound_ms"))
             if k["name"] == "flash_attention" and serve_mesh:
                 # the serve_mesh phase: each rank's prefill launches by
                 # route on each mesh, and B5 at a model rank's shard shape
@@ -6670,6 +6911,10 @@ def main(argv=None) -> int:
                            "every one with compression); "
                            "flash_attention, rglru_scan: the serve phase's "
                            "prefill (recurrentgemma-9b, 4 × 4096 tokens); "
+                           "rglru_scan's backward_launches_train_ssm: the "
+                           "reduced recurrentgemma-9b's gradient checks "
+                           "and round in the train_ssm phase (one a "
+                           "forward launch under a gradient); "
                            "ssd_scan: the serve phase's prefill "
                            "(mamba2-1.3b, 8 × 4096 tokens); "
                            "fused_cross_entropy: the evaluate phase (4 "
@@ -6709,6 +6954,10 @@ def main(argv=None) -> int:
                            "each model kernel at its training shape",
           "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "
+                     "rglru_scan: the served (4, 4096, 4096) on the "
+                     "route its rule gives, device time over operand "
+                     "sets past the L2, route_ms_by_shape the same at "
+                     "the four timed shapes; "
                      "<old route>_ms: the same work on the first port's "
                      "kernel (two launches for a pair)",
           "library_ms_note": "fused_gossip, fused_round, rglru_scan, "

@@ -51,7 +51,12 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 10 + [_P]},
-    "rglru_scan": {"rglru_scan_launch": [_P] * 3 + [_I] * 3 + [_P]},
+    "rglru_scan": {
+        "rglru_scan_launch": [_P] * 3 + [_I] * 3 + [_P],
+        # a, u, h, the workspace; B, S, W
+        "rglru_chunked_launch": [_P] * 4 + [_I] * 3 + [_P],
+        # a, h, dh, da, du, the workspace; B, S, W
+        "rglru_scan_bwd_launch": [_P] * 6 + [_I] * 3 + [_P]},
     "ssd_scan": {
         "ssd_scan_launch": [_P] * 10 + [_I] * 9 + [_L] * 10 + [_P]},
     "cross_entropy": {
@@ -145,8 +150,8 @@ def check(err: int, what: str) -> None:
 def forced_route(chosen: str, forced, universal: str = "cuda_core") -> str:
     """The route a call takes: ``chosen`` (the wrapper's rule) unless
     ``forced``; the ``universal`` route (the first port's kernel: the
-    CUDA-core route, or B2's block-per-client route) takes every operand,
-    the other route only those the rule gives it."""
+    CUDA-core route, B2's block-per-client route or B8's walk) takes every
+    operand, the other route only those the rule gives it."""
     if forced is None or forced == chosen or forced == universal:
         return forced or chosen
     raise ValueError(f"route {forced!r} cannot take these operands; the "

@@ -22,7 +22,8 @@ There is no fallback between the two: a kernel that fails to build or
 launch raises.  No padding either: the kernels mask their ragged edges.
 The four model kernels (attention, the two scans, the cross-entropy) are
 differentiable on the kernel route: autograd Functions whose backward is
-the plain version's gradient, with ``torch.func.vmap`` rules.
+the plain version's gradient (the RG-LRU scan's: a backward kernel), with
+``torch.func.vmap`` rules.
 """
 from __future__ import annotations
 
@@ -59,9 +60,14 @@ KERNELS = {
 ROUTED = {"flash_attention": "tensor_core",
           "fused_cross_entropy": "tensor_core",
           "ssd_scan": "tensor_core",
+          "rglru_scan": "chunked",
           "fused_round": "cluster",
           "fused_gossip": "unrolled",
           "sparse_gossip": "stripe"}
+
+# the wrappers whose backward is a kernel too, counted in their
+# ``backward_launches`` attribute (B8: the chunked kernel in reverse time)
+BACKWARD = ("rglru_scan",)
 
 
 # a wrapper's counts by route: ``routes`` (every launch), ``compressed``
@@ -79,6 +85,11 @@ def route_counts() -> dict:
     return {name: dict(KERNELS[name].routes) for name in ROUTED}
 
 
+def backward_launch_counts() -> dict:
+    """Launches of each backward kernel so far in this process."""
+    return {name: KERNELS[name].backward_launches for name in BACKWARD}
+
+
 def compressed_route_counts() -> dict:
     """Launches of the whole-round kernel (B2) with ``compress`` (its EF
     quantizer, B3, inside), by route."""
@@ -86,28 +97,35 @@ def compressed_route_counts() -> dict:
 
 
 def zero_launch_counts() -> None:
-    """Sets every launch count, and every count by route, to 0."""
+    """Sets every launch count, every count by route and every backward
+    launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
         for attr in _BY_ROUTE:
             if hasattr(fn, attr):
                 setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
+    for name in BACKWARD:
+        KERNELS[name].backward_launches = 0
 
 
 def add_launch_counts(delta: dict) -> None:
     """Adds ``delta`` (as :func:`uncounted` yields it) to the counts: what
     a CUDA graph replay launches, the launches its capture recorded."""
-    for name, (launches, *by_route) in delta.items():
+    for name, (launches, *rest) in delta.items():
         fn = KERNELS[name]
         fn.launches += launches
-        for attr, counts in zip(_BY_ROUTE, by_route):
+        for attr, counts in zip(_BY_ROUTE, rest):
             for route, k in counts.items():
                 getattr(fn, attr)[route] += k
+        if name in BACKWARD:
+            fn.backward_launches += rest[len(_BY_ROUTE)]
 
 
 def _count_snapshot() -> dict:
+    """Each wrapper's (launches, *counts by route[, backward launches])."""
     return {name: (fn.launches, *(dict(getattr(fn, attr, {}))
-                                  for attr in _BY_ROUTE))
+                                  for attr in _BY_ROUTE),
+                   *((fn.backward_launches,) if name in BACKWARD else ()))
             for name, fn in KERNELS.items()}
 
 
@@ -116,26 +134,31 @@ def uncounted():
     """Launches inside the block do not count: on exit every count is what
     it was on entry.  Yields a dict that then holds what they would have
     added, ``{kernel: (launches, {route: launches}, {route: compressed
-    launches})}``, for
-    :func:`add_launch_counts` (a CUDA graph's warm-up and capture run the
-    wrappers, but only a replay launches)."""
+    launches}[, backward launches])}`` (the last for the kernels of
+    :data:`BACKWARD`), for :func:`add_launch_counts` (a CUDA graph's
+    warm-up and capture run the wrappers, but only a replay launches)."""
     before = _count_snapshot()
     delta: dict = {}
     try:
         yield delta
     finally:
         after = _count_snapshot()
-        for name, (launches, *by_route) in after.items():
-            b_launches, *b_by_route = before[name]
-            if launches != b_launches:
+        nr = len(_BY_ROUTE)
+        for name, (launches, *rest) in after.items():
+            b_launches, *b_rest = before[name]
+            by_route, b_by_route = rest[:nr], b_rest[:nr]
+            if launches != b_launches or rest[nr:] != b_rest[nr:]:
                 delta[name] = (launches - b_launches, *(
                     {r: k - b.get(r, 0) for r, k in counts.items()}
-                    for counts, b in zip(by_route, b_by_route)))
+                    for counts, b in zip(by_route, b_by_route)), *(
+                        k - b for k, b in zip(rest[nr:], b_rest[nr:])))
             fn = KERNELS[name]
             fn.launches = b_launches
             for attr, b in zip(_BY_ROUTE, b_by_route):
                 if hasattr(fn, attr):
                     setattr(fn, attr, dict(b))
+            if name in BACKWARD:
+                fn.backward_launches = b_rest[nr]
 
 
 def use_kernel(backend: str, x: torch.Tensor) -> bool:
@@ -279,7 +302,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 def rglru_scan(a, u, *, backend: str = "auto"):
     """h_t = a_t·h_{t−1} + u_t over (B, S, W) from h_{−1} = 0; returns f32
     h (B, S, W).  A carried state h0 is folded in by the caller as
-    u_0 ← u_0 + a_0·h0."""
+    u_0 ← u_0 + a_0·h0.  The kernel takes the route of
+    ``rglru_scan.route`` (chunked where S spans two chunks, else the walk)
+    and differentiates through the backward kernel."""
     if use_kernel(backend, a):
         return rg_lib.rglru_scan_bsw(_f32c(a), _f32c(u))
     return ref_lib.rglru_ref(a, u)

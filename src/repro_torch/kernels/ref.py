@@ -5,7 +5,9 @@ the round kernels of ``:63-165``, ``attention_ref`` of ``:12-31``,
 ``repro.models.ssm`` (:50) that kernel B7 computes; and the gradients of
 the four model kernels in plain ops (``attention_bwd_ref``,
 ``fused_ce_bwd_ref``, ``ssd_bwd_ref``, ``rglru_bwd_ref``), the backward
-passes of kernels B5, B6, B7 and B8.
+passes of kernels B5, B6, B7 and B8 (B8's also a kernel, whose algebra
+``rglru_bwd_scan`` writes out, as ``rglru_chunked`` writes out B8's
+chunked route's and ``ssd_segmented`` B7's segments').
 
 They are what the wrappers run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card.  Dtype rules follow the
@@ -276,6 +278,73 @@ def rglru_bwd_ref(a, h, grad_h):
     for t in range(s - 2, -1, -1):
         gs.append(dh[:, t] + a32[:, t + 1] * gs[-1])
     du = torch.stack(gs[::-1], dim=1)
+    h_prev = torch.cat([torch.zeros_like(h32[:, :1]), h32[:, :-1]], dim=1)
+    return du * h_prev, du
+
+
+def rglru_chunked(a, u, chunk: int, *, runs: int = 8):
+    """The arithmetic of B8's chunked route, in plain PyTorch (held against
+    ``rglru_ref`` and the reference by the tests; no path runs it).
+
+    S is cut into chunks of ``chunk`` steps (the last one ragged), each
+    chunk into ``runs`` runs of ``chunk // runs`` steps (a block's warps).
+    Each run is scanned from zero, keeping the prefix products P_t; the
+    runs' maps (Π a, h_end) compose into each run's carry-in map (ea, eh)
+    and the chunk's aggregate (A_c, H_c); the carry into chunk c is the
+    inclusive state of chunk c − 1, H_{c−1} + A_{c−1}·carry_{c−1} (the
+    kernel's look-back composes the same maps, maybe in another order);
+    then h_t = h_local_t + P_t·(eh + ea·carry).  Returns f32 h (B, S, W)."""
+    b, s, w = a.shape
+    if chunk % runs:
+        raise ValueError(f"chunk {chunk} is not {runs} runs of whole steps")
+    if s == 0:
+        return torch.zeros((b, 0, w), dtype=torch.float32, device=a.device)
+    k = chunk // runs
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    a32 = F.pad(a.to(torch.float32), (0, 0, 0, pad), value=1.0)
+    u32 = F.pad(u.to(torch.float32), (0, 0, 0, pad))
+    a5 = a32.reshape(b, nc, runs, k, w)
+    u5 = u32.reshape(b, nc, runs, k, w)
+    hl, p = [], []
+    hv = torch.zeros_like(a5[:, :, :, 0])
+    pv = torch.ones_like(hv)
+    for i in range(k):
+        hv = a5[:, :, :, i] * hv + u5[:, :, :, i]
+        pv = pv * a5[:, :, :, i]
+        hl.append(hv)
+        p.append(pv)
+    hl, p = torch.stack(hl, dim=3), torch.stack(p, dim=3)
+    ta, th = torch.ones_like(hv[:, :, 0]), torch.zeros_like(hv[:, :, 0])
+    ea, eh = [], []
+    for r in range(runs):
+        ea.append(ta)
+        eh.append(th)
+        th = pv[:, :, r] * th + hv[:, :, r]
+        ta = ta * pv[:, :, r]
+    ea, eh = torch.stack(ea, dim=2), torch.stack(eh, dim=2)
+    carry = torch.zeros_like(th[:, 0])
+    carries = []
+    for c in range(nc):
+        carries.append(carry)
+        carry = th[:, c] + ta[:, c] * carry
+    carries = torch.stack(carries, dim=1)[:, :, None]      # (B, nc, 1, W)
+    cin = eh + ea * carries
+    h = hl + p * cin[:, :, :, None]
+    return h.reshape(b, nc * chunk, w)[:, :s]
+
+
+def rglru_bwd_scan(a, h, grad_h, chunk: int = 64):
+    """The gradient of :func:`rglru_ref` as B8's backward kernel computes
+    it: the chunked scan (:func:`rglru_chunked`) in reverse time — logical
+    step t' is step S − 1 − t', with a read one step ahead (a_{t+1}, the
+    identity past the end) — gives g_t = dh_t + a_{t+1}·g_{t+1}; then
+    du_t = g_t and da_t = g_t·h_{t−1} (h_{−1} = 0).  Returns (da, du) f32
+    (B, S, W)."""
+    a32, h32 = a.to(torch.float32), h.to(torch.float32)
+    a_next = torch.cat([a32[:, 1:], torch.ones_like(a32[:, :1])], dim=1)
+    du = rglru_chunked(a_next.flip(1), grad_h.to(torch.float32).flip(1),
+                       chunk).flip(1)
     h_prev = torch.cat([torch.zeros_like(h32[:, :1]), h32[:, :-1]], dim=1)
     return du * h_prev, du
 

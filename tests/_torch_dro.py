@@ -182,7 +182,7 @@ def function_route():
                 "ssd_scan", lambda x, la, bm, cm, s0, chunk, _:
                 ref.ssd_chunked(x, la, bm, cm, chunk, s0))), \
             mock.patch.object(t_rg.RglruScanFn, "launch", counted(
-                "rglru_scan", ref.rglru_ref)), \
+                "rglru_scan", lambda a, u, _: ref.rglru_ref(a, u))), \
             mock.patch.object(t_ce.FusedCrossEntropyFn, "launch", counted(
                 "fused_cross_entropy", lambda h, w, lab, _:
                 ref.fused_ce_ref(h, w, lab))):

@@ -1,18 +1,21 @@
-"""The two routes of kernels B2, B5, B6 and B7, and the C entry points'
+"""The two routes of kernels B2, B5, B6, B7 and B8, and the C entry points'
 signatures.
 
 B5 (``csrc/flash_attention.cu``), B6 (``csrc/cross_entropy.cu``) and B7
 (``csrc/ssd_scan.cu``) each have a tensor-core kernel and a CUDA-core
 kernel; B2 (``csrc/fused_round.cu``) a kernel that holds each client's G in
-a thread-block cluster and one that restreams it per block.  Which one a
-call takes is a pure function of dtype, shape, strides and alignment
-(``flash_attention.route``, ``cross_entropy.route``, ``ssd_scan.route``,
-``fused_round.route``); it is held here on the CPU, where no kernel runs.
+a thread-block cluster and one that restreams it per block; B8
+(``csrc/rglru_scan.cu``) a chunked single-pass scan and the walk of one
+thread a channel.  Which one a call takes is a pure function of dtype,
+shape, strides and alignment (``flash_attention.route``,
+``cross_entropy.route``, ``ssd_scan.route``, ``fused_round.route``,
+``rglru_scan.route``); it is held here on the CPU, where no kernel runs.
 The shapes the main paths run must take the new route: the served
-attention shape, the evaluated cross-entropy shape, the served SSD shapes
-and the main path's and the quickstart's round geometries.  The ctypes
-signatures of ``_build.SIGNATURES`` are held against the ``extern "C"``
-functions of the sources, which only nvcc compiles.
+attention shape, the evaluated cross-entropy shape, the served SSD shapes,
+the main path's and the quickstart's round geometries, and B8's served,
+32k and serving-mesh shapes.  The ctypes signatures of
+``_build.SIGNATURES`` are held against the ``extern "C"`` functions of the
+sources, which only nvcc compiles.
 """
 import _torch_threads  # noqa: F401
 import re
@@ -26,6 +29,7 @@ from repro_torch.kernels import cross_entropy as t_ce
 from repro_torch.kernels import flash_attention as t_fa
 from repro_torch.kernels import fused_round as t_fr
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import rglru_scan as t_rg
 from repro_torch.kernels import ssd_scan as t_ssd
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -227,6 +231,58 @@ def test_segments_fill_the_card_only_when_the_batch_does_not(b, s, want):
 
 
 # ---------------------------------------------------------------------------
+# B8: the RG-LRU scan's route
+# ---------------------------------------------------------------------------
+
+# every (B, S, W) at which chip_smoke.py runs B8, with the route the rule
+# gives it: the kernels phase's grid (ragged S and W, one chunk and more),
+# recurrentgemma-9b's served prefill (4 × 4096 tokens over its 4096 LRU
+# channels) and its single-process prefill on the serving mesh (1 × 4096),
+# prefill_32k's length, a (1, 2) mesh's model rank (2048 channels), the
+# full-width train layer ((n = 2)·4 rows of 128 tokens) and its narrow twin
+B8_SHAPES = {
+    (1, 1, 1): "walk", (2, 17, 5): "walk", (2, 33, 257): "walk",
+    (3, 300, 130): "chunked", (1, 1000, 4096): "chunked",
+    (2, 129, 5): "chunked", (1, 257, 33): "chunked",
+    (4, 4096, 4096): "chunked", (1, 4096, 4096): "chunked",
+    (1, 32768, 4096): "chunked", (1, 4096, 2048): "chunked",
+    (8, 128, 4096): "walk", (8, 128, 256): "walk",
+}
+
+
+@pytest.mark.parametrize("shape", sorted(B8_SHAPES))
+def test_b8_shapes_take_the_rules_route(shape):
+    assert t_rg.route(*shape) == B8_SHAPES[shape]
+
+
+def test_b8_served_shapes_are_recurrentgemmas():
+    cfg = registry.get_model_config("recurrentgemma-9b")
+    w = cfg.rglru.lru_width
+    assert (4, 4096, w) in B8_SHAPES and (1, 32768, w) in B8_SHAPES
+    assert (1, 4096, w // 2) in B8_SHAPES
+    assert t_ops.ROUTED["rglru_scan"] == t_rg.route(4, 4096, w)
+
+
+@pytest.mark.parametrize("s,want", [(0, "walk"), (1, "walk"),
+                                    (t_rg.CHUNK, "walk"),
+                                    (t_rg.CHUNK + 1, "chunked"),
+                                    (2 * t_rg.CHUNK, "chunked")])
+def test_b8_takes_the_chunked_route_from_two_chunks(s, want):
+    assert t_rg.route(2, s, 64) == want
+    assert t_rg.route(0, s, 64) == t_rg.route(2, s, 0) == "walk"
+
+
+@pytest.mark.parametrize("shape", sorted(B8_SHAPES))
+def test_b8_walk_can_always_be_forced(shape):
+    chosen = t_rg.route(*shape)
+    assert _build.forced_route(chosen, "walk", universal="walk") == "walk"
+    assert _build.forced_route(chosen, None, universal="walk") == chosen
+    if chosen == "walk":
+        with pytest.raises(ValueError, match="cannot take"):
+            _build.forced_route(chosen, "chunked", universal="walk")
+
+
+# ---------------------------------------------------------------------------
 # B2: the whole round's route
 # ---------------------------------------------------------------------------
 
@@ -285,12 +341,16 @@ def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.zero_launch_counts()
     zero = {"tensor_core": 0, "cuda_core": 0}
     want = {"flash_attention": zero, "fused_cross_entropy": zero,
-            "ssd_scan": zero, "fused_round": {"cluster": 0, "block": 0},
+            "ssd_scan": zero, "rglru_scan": {"walk": 0, "chunked": 0},
+            "fused_round": {"cluster": 0, "block": 0},
             "fused_gossip": {"unrolled": 0, "tiled": 0},
             "sparse_gossip": {"stripe": 0, "row_block": 0}}
     assert t_ops.route_counts() == want
+    assert t_ops.backward_launch_counts() == {"rglru_scan": 0}
     q = torch.zeros((1, 4, 2, 8), dtype=BF16)
     t_ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
+    a = torch.full((2, 2 * t_rg.CHUNK + 1, 3), 0.5, requires_grad=True)
+    t_ops.rglru_scan(a, a).sum().backward()
     h, w = torch.zeros((4, 8), dtype=BF16), torch.zeros((10, 8), dtype=BF16)
     t_ops.fused_cross_entropy(h, w, torch.zeros((4,), dtype=torch.long))
     x = torch.zeros((1, 5, 2, 4))
@@ -301,6 +361,7 @@ def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.fused_round(torch.eye(n), z, z, z, torch.zeros((n, dz, dz)),
                       torch.zeros((k, n, dz)), z, z, z, z + 1)
     assert t_ops.route_counts() == want
+    assert t_ops.backward_launch_counts() == {"rglru_scan": 0}
     assert set(t_ops.ROUTED) <= set(t_ops.KERNELS)
     for name, new in t_ops.ROUTED.items():
         assert new in t_ops.KERNELS[name].routes
@@ -311,9 +372,34 @@ def test_zeroing_resets_the_counts_by_route():
     t_ce.fused_ce_nd.routes["cuda_core"] += 2
     t_ssd.ssd_scan_bshp.routes["tensor_core"] += 1
     t_fr.fused_round_nd.routes["cluster"] += 4
+    t_rg.rglru_scan_bsw.routes["chunked"] += 2
+    t_rg.rglru_scan_bsw.backward_launches += 2
     t_ops.zero_launch_counts()
     assert all(v == 0 for by in t_ops.route_counts().values()
                for v in by.values())
+    assert t_ops.backward_launch_counts() == {"rglru_scan": 0}
+
+
+def test_backward_launches_ride_a_captures_counts():
+    """B8's backward launches inside ``uncounted`` (a CUDA graph's capture)
+    do not count, and come back with each ``add_launch_counts`` (a replay),
+    beside its forward launches by route."""
+    t_ops.zero_launch_counts()
+    with t_ops.uncounted() as delta:
+        t_rg.rglru_scan_bsw.launches += 2
+        t_rg.rglru_scan_bsw.routes["chunked"] += 2
+        t_rg.rglru_scan_bsw.backward_launches += 2
+    assert t_ops.backward_launch_counts() == {"rglru_scan": 0}
+    assert t_ops.launch_counts()["rglru_scan"] == 0
+    assert delta == {"rglru_scan": (2, {"walk": 0, "chunked": 2}, {}, 2)}
+    t_ops.add_launch_counts(delta)
+    t_ops.add_launch_counts(delta)
+    assert t_ops.backward_launch_counts() == {"rglru_scan": 4}
+    assert t_ops.route_counts()["rglru_scan"] == {"walk": 0, "chunked": 4}
+    with t_ops.uncounted() as delta:
+        t_rg.rglru_scan_bsw.backward_launches += 1
+    assert delta == {"rglru_scan": (0, {"walk": 0, "chunked": 0}, {}, 1)}
+    t_ops.zero_launch_counts()
 
 
 # ---------------------------------------------------------------------------

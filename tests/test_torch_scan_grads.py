@@ -10,6 +10,8 @@ RG-LRU recurrence), against the JAX package.
   ``ref.rglru_ref``) and ``jax.vmap(jax.grad)`` of the reference's
   ``ssd_chunked`` / ``rglru_scan`` on the same numpy inputs; the ``vmap``
   rules fold the clients into B, so each call launches the forward once.
+  ``RglruScanFn``'s backward launch swapped too (for the backward kernel's
+  algebra, ``ref.rglru_bwd_scan``): one backward launch a call.
 * The RG-LRU block with a carried state differentiates, and the reduced
   recurrentgemma-9b trains through the CLI on the CPU.
 
@@ -66,7 +68,7 @@ def plain_launches(monkeypatch):
         counts["ssd_scan"] += 1
         return ref.ssd_chunked(xdt, loga, bm, cm, chunk, state0)
 
-    def rg(a, u):
+    def rg(a, u, force_route):
         counts["rglru_scan"] += 1
         return ref.rglru_ref(a, u)
 
@@ -150,6 +152,67 @@ def test_rglru_scan_fn_gradient(plain_launches, transform):
     for g, p, wnt in zip(got, plain, want):
         _close(g, p, TOL_PLAIN)
         _close(g, wnt, TOL_JAX)
+
+
+@pytest.mark.parametrize("transform", ["grad", "vmap_grad"])
+def test_rglru_scan_fn_backward_launch(plain_launches, monkeypatch,
+                                       transform):
+    """``RglruScanFn`` with its backward launch swapped too — for the
+    backward kernel's algebra, ``ref.rglru_bwd_scan`` at the kernel's
+    chunk, counting —: one forward and one backward launch a call, the
+    backward on plain tensors (the ``vmap`` rule folds the clients into B),
+    and the gradients the plain version's autograd and ``jax.grad``'s."""
+    seen = []
+
+    def bwd(a, h, grad_h):
+        seen.append(tuple(a.shape))
+        for x in (a, h, grad_h):
+            assert not torch._C._functorch.is_batchedtensor(x)
+        return ref.rglru_bwd_scan(a, h, grad_h, t_rg.CHUNK)
+
+    monkeypatch.setattr(t_rg.RglruScanFn, "backward_launch",
+                        staticmethod(bwd))
+    s, w = 2 * t_rg.CHUNK + 5, 7
+    a, u, _, wts = _rglru_inputs(CLIENTS * 2, s, w, seed=11)
+    a, u = a.reshape(CLIENTS, 2, s, w), u.reshape(CLIENTS, 2, s, w)
+    wt = _t(wts[:2])
+
+    def loss(fn):
+        return lambda a, u: (fn(a, u) * wt).sum()
+
+    def jloss(a, u):
+        return (jax_rglru.rglru_scan(a, u)[0] * jnp.asarray(wts[:2])).sum()
+
+    jgrad = jax.grad(jloss, argnums=(0, 1))
+    if transform == "grad":
+        args = (_t(a[0]), _t(u[0]))
+        got = grad(loss(t_rg.rglru_scan_bsw), argnums=(0, 1))(*args)
+        plain = grad(loss(ref.rglru_ref), argnums=(0, 1))(*args)
+        want = jgrad(jnp.asarray(a[0]), jnp.asarray(u[0]))
+        assert seen == [(2, s, w)]
+    else:
+        args = (_t(a), _t(u))
+        got = vmap(grad(loss(t_rg.rglru_scan_bsw), argnums=(0, 1)))(*args)
+        plain = vmap(grad(loss(ref.rglru_ref), argnums=(0, 1)))(*args)
+        want = jax.vmap(jgrad)(jnp.asarray(a), jnp.asarray(u))
+        assert seen == [(CLIENTS * 2, s, w)]
+    assert plain_launches["rglru_scan"] == 1
+    for g, p, wnt in zip(got, plain, want):
+        _close(g, p, TOL_PLAIN)
+        _close(g, wnt, TOL_JAX)
+
+
+def test_rglru_backward_launch_is_the_plain_backward_on_the_cpu():
+    """On CPU tensors the backward launch is ``ref.rglru_bwd_ref`` and
+    counts no kernel launch."""
+    a, u, _, wts = _rglru_inputs(2, 40, 5, seed=2)
+    h = ref.rglru_ref(_t(a), _t(u))
+    before = t_rg.rglru_scan_bsw.backward_launches
+    got = t_rg.RglruScanFn.backward_launch(_t(a), h, _t(wts))
+    want = ref.rglru_bwd_ref(_t(a), h, _t(wts))
+    for g, wnt in zip(got, want):
+        torch.testing.assert_close(g, wnt, rtol=0, atol=0)
+    assert t_rg.rglru_scan_bsw.backward_launches == before
 
 
 def test_rglru_block_with_a_carried_state_differentiates():
