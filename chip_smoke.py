@@ -17,7 +17,11 @@ Phases, each printing one JSON line:
    for bit for B1, B2's wire and B4; B8's walk bit for bit the plain
    version), B8 also on a and u drawn as the model draws them at the
    served shape (TOL_SERVE_F32), and the gossip pair calls (x and y in one
-   launch) against two plain single calls;
+   launch) against two plain single calls; B1's and B4's row blocks of the
+   decentralized mesh on both routes (B1: a rank's 4 of 8 rows of W over
+   all 8 rows of Δ and θ; B4: a rank's 1024 of 4096 rows of the exp lists
+   remapped onto its own rows and its halo), each against its plain
+   version and bit for bit the whole call's rows;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
    σ = 0.1), 50 rounds per (algorithm, mixing_impl); the packed and
@@ -82,7 +86,9 @@ Phases, each printing one JSON line:
    the paths' shapes, the dense epilogue at D ≈ 1e8 and the neighbor-
    gather epilogue at D = 16384, the model kernels at the served shapes
    and at S = 32768 (B8 also at the train and mesh-rank shapes, with its
-   backward kernel), and rounds/s per mixing_impl.
+   backward kernel), B1's and B4's row blocks at the kernels phase's
+   shapes (B4's beside ``torch.sparse.mm`` of the rank's CSR rows), and
+   rounds/s per mixing_impl.
 
 12. compress — error-feedback compression at the main geometry on
    pallas_packed and fused_round, bf16 and int8, kgt_minimax and gt_gda,
@@ -125,16 +131,20 @@ Phases, each printing one JSON line:
    and backward times.
 15b. mesh — the decentralized training mesh (``launch.train --mesh
    decentralized``) at the train phase's geometry (qwen2-0.5b cut to
-   TRAIN_LAYERS, n = 4, K = 4, 4 × 128 tokens a client) over a world of
+   MESH_LAYERS, n = 4, K = 4, 4 × 128 tokens a client) over a world of
    2 ranks (``dist.launch.run_world``: NCCL with a card a rank where the
    machine has two, else both ranks on cuda:0 over gloo), 2 clients a
-   rank: MESH_ROUNDS (2) rounds through ``--engine host`` and through
-   ``--engine scan`` (eager chunks) held to the host path run here from the same
-   seed (TOL_MESH_X / TOL_MESH_Y, printed before the reading), Σc = 0,
-   B5's and B6's launches by route on every rank, no collective in the
-   local steps, the gossip's collectives and bytes a round against the
-   formula; one round of fused_ring (the neighbour exchange); a world of
-   1 over NCCL, one round, bit for bit the host path; rounds/s, tokens/s,
+   rank, MESH_ROUNDS (1) round a run: dense through ``--engine host``
+   and through ``--engine scan`` (eager chunks), fused_ring (the
+   neighbour exchange), sparse_packed (the halo exchange, B4 on a rank's
+   remapped table), pallas_packed with int8 compression (B1 on a rank's
+   row block, on q) and sparse_trimmed_mean (the halo, the plain order
+   statistic), each held to its host path run here from the same seed
+   (TOL_MESH_X / TOL_MESH_Y, printed before the reading), Σc = 0 but for
+   the robust rule, B5's, B6's, B1's and B4's launches by route on every
+   rank, no collective in the local steps, the gossip's collectives and
+   bytes a round against the formula (a halo's rows by the rank's plan);
+   a world of 1 over NCCL bit for bit the host path; rounds/s, tokens/s,
    communication s a round and peak memory per rank.
 15c. serve_mesh — the serving mesh (``launch.steps.build_prefill_step``
    and ``build_decode_step`` on a ``(data, model)`` mesh, tensor
@@ -266,6 +276,10 @@ TRACKING = ("kgt_minimax", "gt_gda")
 SCALE_N, SCALE_ROUNDS, CHURN_ROUNDS = 4096, 20, 10
 # B4's check grid: these client counts and SCALE_N
 SPARSE_CHECK_NS = (1, 8, 9, 64, 1024)
+# the row blocks of B1 and B4 on the decentralized mesh, checked at the main
+# path's n over B1_ROW_RANKS ranks (4 rows a rank) and at SCALE_N over
+# B4_ROW_RANKS ranks (1024 rows a rank, with its halo)
+B1_ROW_RANKS, B4_ROW_RANKS = 2, 4
 CHURN_DENSE_N = 512      # the dense samplers' limit (DENSE_MATERIALIZATION_LIMIT)
 CHURN_DENSE_ROUNDS = 5
 PARTICIPATION = 0.7
@@ -371,12 +385,20 @@ RATE_TURNS = (False, True)
 # path batches 4, so batched GEMMs may round otherwise
 MESH_WORLD = 2
 TOL_MESH_X, TOL_MESH_Y = TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y
-# the mesh's main runs: MESH_ROUNDS rounds (one fewer than TRAIN_ROUNDS, to
-# pay for the serve_mesh phase: PERF.md §6), logging rounds 0 and
-# MESH_ROUNDS − 1 (each logged row all-reduces x̄ and c̄x: GBs through gloo
-# on one card)
-MESH_ROUNDS = 2
-MESH_LOG_EVERY = MESH_ROUNDS - 1
+# every mesh run: MESH_ROUNDS rounds, each logged (a logged row all-reduces
+# x̄ and c̄x: GBs through gloo on one card), qwen2-0.5b cut to MESH_LAYERS
+# layers (cut from two rounds and TRAIN_LAYERS layers to pay for the
+# lowerings below: PERF.md §4)
+MESH_LAYERS = 2
+MESH_ROUNDS = 1
+MESH_LOG_EVERY = 1
+# the mesh's other lowerings on --engine host: (name, mixing_impl,
+# gossip_compress)
+MESH_LOWERINGS = (("sparse_packed", "sparse_packed", None),
+                  ("pallas_packed+int8", "pallas_packed", "int8"),
+                  ("sparse_trimmed_mean", "sparse_trimmed_mean", None))
+# the gossip kernels whose launches the mesh's runs count by route
+GOSSIP_KERNELS = ("fused_gossip", "sparse_gossip")
 # the serving mesh (phase serve_mesh): qwen2-0.5b at full width (24 layers,
 # bf16) serving SERVE_MESH_B prompts of SERVE_MESH_PROMPT tokens and
 # SERVE_MESH_GEN new tokens over a world of SERVE_MESH_WORLD ranks at each
@@ -558,6 +580,22 @@ def sparse_bound_ms(n: int, d: int, m: int):
     return _bound(byts, flops)
 
 
+def gossip_rows_bound_ms(n: int, n_out: int, d: int):
+    """B1's row block: W's n_out rows, Δ and θ of all n rows and c read
+    once, θ' and c' of the n_out rows written once."""
+    byts = 4 * (n_out * n + 2 * n * d + 3 * n_out * d)
+    flops = 4 * n_out * n * d + 6 * n_out * d
+    return _bound(byts, flops)
+
+
+def sparse_rows_bound_ms(n_out: int, n_src: int, d: int, m: int):
+    """B4's row block: the n_out rows' table, Δ and θ of the n_src
+    sources and c read once, θ' and c' of the n_out rows written once."""
+    byts = 4 * (2 * n_src * d + 3 * n_out * d + n_out * (2 * m + 1))
+    flops = 4 * n_out * (m + 1) * d + 4 * n_out * d
+    return _bound(byts, flops)
+
+
 def _bound(byts, flops, flop_s=F32_FLOP_S):
     t_b, t_f = byts / HBM_BYTES_S * 1e3, flops / flop_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
@@ -666,9 +704,44 @@ def check_gossip(gen, dev):
         if not all(map(bitwise_equal, got, old)):
             fail(f"fused_gossip pair {gd}: differs from the tiled route")
         pairs += 1
+    # the mesh's row blocks: each of B1_ROW_RANKS ranks' rows of W over the
+    # gathered Δ and θ of all N rows, x and y in one call, on both routes,
+    # against the plain version at the block's row0 and bit for bit the
+    # whole pair's rows on the same route
+    k = N // B1_ROW_RANKS
+    row_blocks = 0
+    for gd in (None, "bfloat16"):
+        whole = {rt: gossip.fused_gossip_pair_nd(
+            w, x, y, gossip_dtype=gd,
+            force_route=None if rt == gossip.route(N) else rt)
+            for rt in gossip.ROUTES}
+        for lo in range(0, N, k):
+            rows = slice(lo, lo + k)
+            wr = w[rows].contiguous()
+            xr = (*x[:2], x[2][rows].contiguous(), *x[3:])
+            yr = (*y[:2], y[2][rows].contiguous(), *y[3:])
+            plain = (ref.fused_gossip_ref(wr, *xr, gossip_dtype=gd, row0=lo),
+                     ref.fused_gossip_ref(wr, *yr, gossip_dtype=gd, row0=lo))
+            for rt in gossip.ROUTES:
+                got = routed_call(
+                    lambda: gossip.fused_gossip_pair_nd(
+                        wr, xr, yr, gossip_dtype=gd, row0=lo,
+                        force_route=None if rt == gossip.route(N) else rt),
+                    "fused_gossip", rt)
+                what = f"rows [{lo}, {lo + k}) of n={N} {gd} {rt}"
+                worst = max(worst, held([got[:2], got[2:]], plain,
+                                        [corr, -3.0], what))
+                if not all(bitwise_equal(a, b[rows])
+                           for a, b in zip(got, whole[rt])):
+                    fail(f"fused_gossip {what}: differs from the whole "
+                         "epilogue's rows")
+                by_route[rt] += 1
+                row_blocks += 1
     emit({"phase": "kernels", "kernel": "fused_gossip",
           "cases": sum(by_route.values()), "cases_by_route": by_route,
           "bitwise_equal_to_tiled": bitwise, "pair_cases": pairs,
+          "row_block_cases": row_blocks,
+          "row_block_shape": {"n": N, "rows_a_rank": k, "D": [DX, DY]},
           "max_abs_err_theta_or_c_over_s": worst, "tol": TOL_GOSSIP})
     return worst, by_route
 
@@ -902,6 +975,7 @@ def check_sparse_gossip(gen, dev):
     largest absolute error and the cases by route."""
     import torch
 
+    from repro_torch.dist import collectives
     from repro_torch.kernels import neighbor_gossip, ref
 
     worst = {}
@@ -991,6 +1065,51 @@ def check_sparse_gossip(gen, dev):
                      f"route")
             pairs += 1
 
+    # the mesh's row blocks: each of B4_ROW_RANKS ranks' rows of the exp
+    # lists, remapped onto its own rows and its halo (its HaloPlan), over
+    # those n_src sources, x and y in one call, on the route the rule
+    # gives n_src and on the row-block route, against the plain version
+    # and bit for bit the whole pair's rows on the same route
+    sp = exp[0][1]
+    k = n // B4_ROW_RANKS
+    row_blocks, halo_rows_by_rank = 0, []
+    for gd in (None, "bfloat16"):
+        whole = {rt: neighbor_gossip.sparse_gossip_pair_nd(
+            sp.neighbor_idx, sp.neighbor_w.contiguous(),
+            sp.self_w.contiguous(), x, y, gossip_dtype=gd,
+            force_route=None if rt == "stripe" else rt)
+            for rt in neighbor_gossip.ROUTES}
+        for r in range(B4_ROW_RANKS):
+            plan = collectives.halo_plan(sp, collectives.ClientsAxis(
+                n=n, rank=r, size=B4_ROW_RANKS), dev)
+            rows, src = slice(r * k, (r + 1) * k), plan.cols
+            tab = (plan.table.neighbor_idx, plan.table.neighbor_w,
+                   plan.table.self_w)
+            xr = (x[0][src], x[1][src], x[2][rows].contiguous(), *x[3:])
+            yr = (y[0][src], y[1][src], y[2][rows].contiguous(), *y[3:])
+            plain = (ref.sparse_gossip_ref(*tab, *xr, gossip_dtype=gd),
+                     ref.sparse_gossip_ref(*tab, *yr, gossip_dtype=gd))
+            rt_rule = neighbor_gossip.route(len(src), tab[0].shape[1],
+                                            gd is not None)
+            for rt in dict.fromkeys((rt_rule, "row_block")):
+                got = routed_call(
+                    lambda: neighbor_gossip.sparse_gossip_pair_nd(
+                        *tab, xr, yr, gossip_dtype=gd,
+                        force_route=None if rt == rt_rule else rt),
+                    "sparse_gossip", rt)
+                what = (f"rows [{r * k}, {(r + 1) * k}) of n={n} over "
+                        f"{len(src)} sources, {gd} {rt}")
+                held([got[:2], got[2:]], plain, what,
+                     f"row_block/{gd or 'float32'}")
+                if not all(bitwise_equal(a, b[rows])
+                           for a, b in zip(got, whole[rt])):
+                    fail(f"sparse_gossip {what}: differs from the whole "
+                         "call's rows")
+                by_route[rt] += 1
+                row_blocks += 1
+            if gd is None:
+                halo_rows_by_rank.append(plan.n_halo)
+
     # the NaN contract: out-of-range indices in two rows, at n = 9 (a
     # table chunk of 9·m words, not whole 16-byte pieces) and n = 4096
     nan_cases = 0
@@ -1022,7 +1141,11 @@ def check_sparse_gossip(gen, dev):
     emit({"phase": "kernels", "kernel": "sparse_gossip",
           "cases": sum(by_route.values()), "cases_by_route": by_route,
           "bitwise_equal_to_row_block": bitwise, "pair_cases": pairs,
-          "nan_contract_cases": nan_cases, "max_abs_err": worst_abs,
+          "nan_contract_cases": nan_cases, "row_block_cases": row_blocks,
+          "row_block_shape": {"n": SCALE_N, "rows_a_rank": SCALE_N
+                              // B4_ROW_RANKS, "D": [DX, DY],
+                              "halo_rows_by_rank": halo_rows_by_rank},
+          "max_abs_err": worst_abs,
           "max_err_over_1_plus_max_ref_by_group": worst, "tol": TOL_SPARSE,
           f"stripe_gather_wavefronts_over_conflict_free_n{SCALE_N}":
               conflicts})
@@ -4223,7 +4346,8 @@ def mesh_rank(rank, world, layers, runs):
             res = train_lib.train(train_args(
                 device="cuda", mesh="decentralized", engine=run["engine"],
                 rounds=run["rounds"], chunk=run["rounds"],
-                log_every=MESH_LOG_EVERY, mixing_impl=run["impl"]))
+                log_every=MESH_LOG_EVERY, mixing_impl=run["impl"],
+                gossip_compress=run.get("compress")))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             rec = {"name": run["name"], "rank": rank,
@@ -4257,41 +4381,65 @@ def state_leaves(state):
             for t in tree_lib.leaves(getattr(state, name))]
 
 
-def mesh_gossip_formula(cfg, n, world, impl) -> dict:
-    """The gossip collectives of one round at n clients over ``world``
-    ranks: dense, two all-gathers a leaf of x and y (Δ and θ), each
-    receiving (R − 1)·(n/R) client rows of f32; fused_ring, one exchange a
-    leaf (Δ and θ stacked), 2 rows of both received."""
+def mesh_gossip_formula(cfg, n, world, impl, rank=0) -> dict:
+    """The gossip collectives of one tracking round at n clients over
+    ``world`` ranks on the train flags' topology, on rank ``rank``, all
+    f32: dense, two all-gathers a leaf of x and y (Δ and θ), each
+    receiving (R − 1)·(n/R) client rows; fused_ring, one exchange a leaf
+    (Δ and θ stacked), 2 rows of both received; pallas_packed, one
+    all-gather a variable of its stacked (Δ, θ); and the halo term:
+    sparse_packed, one halo exchange a variable of its stacked (Δ, θ),
+    receiving the rank's ``HaloPlan`` rows (n_halo), and the robust rules,
+    R(θ + η_sΔ) and R(Δ) a variable, one exchange of the n_halo rows
+    each."""
+    from repro_torch.core import sparse_topology as sparse_lib
+    from repro_torch.core import topology as topo_lib
     from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import collectives
     from repro_torch.models import model as model_lib
 
     leaves = tree_lib.leaves(model_lib.param_dict(model_lib.skeleton(cfg)))
     lx, dx = len(leaves), sum(t.numel() for t in leaves)
     ly, dy = 1, TRAIN_G
+    gathered = (world - 1) * (n // world) * 2 * (dx + dy) * 4
     if impl == "dense":
-        return {"all_gather": {"calls": 2 * (lx + ly),
-                               "bytes": (world - 1) * (n // world) * 2
-                               * (dx + dy) * 4}}
-    return {"exchange": {"calls": lx + ly, "bytes": 2 * 2 * (dx + dy) * 4}}
+        return {"all_gather": {"calls": 2 * (lx + ly), "bytes": gathered}}
+    if impl == "pallas_packed":
+        return {"all_gather": {"calls": 2, "bytes": gathered}}
+    if impl.endswith("ring"):
+        return {"exchange": {"calls": lx + ly,
+                             "bytes": 2 * 2 * (dx + dy) * 4}}
+    topology = train_args().topology
+    support = (sparse_lib.sparse_mixing_matrix(topology, n)
+               if impl.startswith("sparse_") else sparse_lib.from_dense(
+                   topo_lib.mixing_matrix(topology, n)))
+    plan = collectives.halo_plan(support, collectives.ClientsAxis(
+        n=n, rank=rank, size=world))
+    return {"halo": {"calls": 2 if impl == "sparse_packed" else 4,
+                     "bytes": plan.n_halo * 2 * (dx + dy) * 4}}
 
 
 def phase_mesh(dev, smi) -> dict:
     """The decentralized training mesh (``launch.train --mesh
     decentralized``) at the train phase's geometry: qwen2-0.5b at full
-    width cut to TRAIN_LAYERS layers, n = 4, K = 4, 4 × 128 tokens a
-    client, 8 groups, kgt_minimax on dense, over a world of MESH_WORLD
+    width cut to MESH_LAYERS layers, n = 4, K = 4, 4 × 128 tokens a
+    client, 8 groups, kgt_minimax on a ring, over a world of MESH_WORLD
     ranks started by ``dist.launch.run_world`` (NCCL, one card a rank,
     where the machine has two cards; else both ranks on ``cuda:0`` over
-    gloo).  The host path runs first in this process from the same seed
-    (``--engine host``, MESH_ROUNDS rounds and one); then on the mesh
-    MESH_ROUNDS rounds through ``--engine host`` and through ``--engine
-    scan`` (eager chunks), held to the host path's state at
-    TOL_MESH_X / TOL_MESH_Y (printed before the reading), Σc = 0 (the
-    scan run), B5's and B6's launches on every rank by route, no
-    collective in the local steps, the gossip's collectives and bytes a
-    round against ``mesh_gossip_formula``; one round of fused_ring (the
-    neighbour exchange); and a world of 1 over NCCL in this process for
-    one round, bit for bit the host path.  Rates: rounds/s, tokens/s, communication s a round, peak
+    gloo), MESH_ROUNDS rounds a run.  The host path runs first in this
+    process from the same seed (``--engine host``: dense and each of
+    MESH_LOWERINGS); then on the mesh dense through ``--engine host`` and
+    through ``--engine scan`` (eager chunks), held to the host path's
+    state at TOL_MESH_X / TOL_MESH_Y (printed before the reading), Σc = 0
+    (the scan run); fused_ring (the neighbour exchange); each of
+    MESH_LOWERINGS (sparse_packed: the halo exchange and B4 on a rank's
+    remapped table; pallas_packed with int8 compression: B1 on a rank's
+    row block, on q; sparse_trimmed_mean: the halo and the plain order
+    statistic), each held to its host path at the same limits, Σc = 0 but
+    for the robust rule; on every run B5's, B6's, B1's and B4's launches on
+    every rank by route, no collective in the local steps, the gossip's
+    collectives and bytes a round against ``mesh_gossip_formula``; and a
+    world of 1 over NCCL in this process, bit for bit the host path.  Rates: rounds/s, tokens/s, communication s a round, peak
     memory per rank."""
     import gc
     import tempfile
@@ -4305,7 +4453,7 @@ def phase_mesh(dev, smi) -> dict:
     backend = "nccl" if cards >= MESH_WORLD else "gloo"
     t_phase = time.perf_counter()
     out = {"world": MESH_WORLD, "backend": backend, "cards": cards}
-    with arch_depth(TRAIN_ARCH, TRAIN_LAYERS) as cfg, \
+    with arch_depth(TRAIN_ARCH, MESH_LAYERS) as cfg, \
             tempfile.TemporaryDirectory() as store:
         gc.collect()
         torch.cuda.empty_cache()
@@ -4313,33 +4461,44 @@ def phase_mesh(dev, smi) -> dict:
               "backend": backend, "cards": cards,
               "placement": ("one card a rank" if backend == "nccl"
                             else "both ranks on cuda:0"),
+              "lowerings": [name for name, _, _ in MESH_LOWERINGS],
               "tolerance_x_cx": TOL_MESH_X, "tolerance_y_cy": TOL_MESH_Y,
               "tolerance_rows": TOL_MESH_X,
               "sigma_c_limit": TOL_SIGMA_C})
-        # the host path from the same seed, in this process
+        # the host path from the same seed, in this process, each state's
+        # rows saved for the ranks
         ref = {}
-        for rounds in (MESH_ROUNDS, 1):
-            res = train_lib.train(train_args(device=dev, engine="host",
-                                             rounds=rounds,
-                                             log_every=MESH_LOG_EVERY))
-            ref[rounds] = {"history": strip_stamps(res["history"]),
-                           "fingerprints": state_fingerprints(res["state"])}
-            if rounds == MESH_ROUNDS:
-                save_rows(res["state"], os.path.join(store, "rows"))
+        for name, impl, comp in (("dense", "dense", None),
+                                 *MESH_LOWERINGS):
+            res = train_lib.train(train_args(
+                device=dev, engine="host", rounds=MESH_ROUNDS,
+                log_every=MESH_LOG_EVERY, mixing_impl=impl,
+                gossip_compress=comp))
+            ref[name] = {"history": strip_stamps(res["history"]),
+                         "fingerprints": state_fingerprints(res["state"])}
+            save_rows(res["state"], os.path.join(store, name))
             del res
             gc.collect()
             torch.cuda.empty_cache()
         host_s = time.perf_counter() - t_phase
         runs = [dict(name="host", engine="host", rounds=MESH_ROUNDS,
-                     impl="dense", rows_dir=os.path.join(store, "rows")),
+                     impl="dense", ref="dense",
+                     rows_dir=os.path.join(store, "dense")),
                 dict(name="scan", engine="scan", rounds=MESH_ROUNDS,
-                     impl="dense", rows_dir=os.path.join(store, "rows"),
-                     sigma_c=True),
-                dict(name="fused_ring", engine="host", rounds=1,
-                     impl="fused_ring")]
+                     impl="dense", ref="dense",
+                     rows_dir=os.path.join(store, "dense"), sigma_c=True),
+                dict(name="fused_ring", engine="host", rounds=MESH_ROUNDS,
+                     impl="fused_ring", ref="dense")]
+        runs += [dict(name=name, engine="host", rounds=MESH_ROUNDS, impl=impl,
+                      compress=comp, ref=name,
+                      rows_dir=os.path.join(store, name),
+                      sigma_c=impl not in ("coord_median", "trimmed_mean",
+                                           "sparse_coord_median",
+                                           "sparse_trimmed_mean"))
+                 for name, impl, comp in MESH_LOWERINGS]
         t0 = time.perf_counter()
         ranks = dist_launch.run_world(
-            MESH_WORLD, mesh_rank, TRAIN_LAYERS, runs, backend=backend,
+            MESH_WORLD, mesh_rank, MESH_LAYERS, runs, backend=backend,
             store_dir=store, device="cuda")
         world_s = time.perf_counter() - t0
         # a world of 1 over NCCL, in this process (the card is free again)
@@ -4348,23 +4507,28 @@ def phase_mesh(dev, smi) -> dict:
         torch.cuda.empty_cache()
         dist_launch.init_from_env("nccl", "cuda")
         try:
-            one, = mesh_rank(0, 1, TRAIN_LAYERS, [dict(
-                name="world of 1", engine="host", rounds=1, impl="dense",
-                fingerprints=ref[1]["fingerprints"])])
+            one, = mesh_rank(0, 1, MESH_LAYERS, [dict(
+                name="world of 1", engine="host", rounds=MESH_ROUNDS,
+                impl="dense", fingerprints=ref["dense"]["fingerprints"])])
         finally:
             torch.distributed.destroy_process_group()
         one_s = time.perf_counter() - t0
 
     n_local = TRAIN_N // MESH_WORLD
-    logged = len(ref[MESH_ROUNDS]["history"])
-    want_launches = train_launches(cfg, n=n_local, k=TRAIN_K,
-                                   rounds=MESH_ROUNDS, logged=logged)
     routed = {k: v for k, v in model_routes(torch.bfloat16).items()
-              if want_launches[k]}
+              if k in ("flash_attention", "fused_cross_entropy")}
     tokens = TRAIN_N * TRAIN_K * TRAIN_B * TRAIN_S
+    gossip_kernels = {}
     for i, run in enumerate(runs):
         recs = [r[i] for r in ranks]
         name = run["name"]
+        want_launches = {
+            **train_launches(cfg, n=n_local, k=TRAIN_K, rounds=run["rounds"],
+                             logged=len(ref[run["ref"]]["history"])),
+            # B1 (pallas_packed) and B4 (sparse_packed) once a round
+            "fused_gossip": run["rounds"] * (run["impl"] == "pallas_packed"),
+            "sparse_gossip": run["rounds"] * (run["impl"]
+                                              == "sparse_packed")}
         for rec in recs:
             what = f"mesh {name} rank {rec['rank']}"
             if not rec["finite"]:
@@ -4379,20 +4543,22 @@ def phase_mesh(dev, smi) -> dict:
                                                          {}).items()}
             want = {k: {m: v * run["rounds"] for m, v in c.items()}
                     for k, c in mesh_gossip_formula(
-                        cfg, TRAIN_N, MESH_WORLD, run["impl"]).items()}
+                        cfg, TRAIN_N, MESH_WORLD, run["impl"],
+                        rec["rank"]).items()}
             if gossip != want:
                 fail(f"{what}: gossip collectives {gossip}, expected {want}")
-            if run["rounds"] == MESH_ROUNDS:
-                if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
-                                       **want_launches}:
-                    fail(f"{what}: launches {rec['launches']}, expected "
-                         f"{want_launches}")
-                check_routes({k: rec["routes"][k] for k in routed},
-                             want_launches, what, route_of=routed)
+            if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
+                                   **want_launches}:
+                fail(f"{what}: launches {rec['launches']}, expected "
+                     f"{want_launches}")
+            check_routes({k: rec["routes"][k] for k in routed},
+                         want_launches, what, route_of=routed)
+            check_routes({k: rec["routes"][k] for k in GOSSIP_KERNELS},
+                         want_launches, what)
             rows_err = max(
                 abs(a[m] - b[m]) / (1 + abs(b[m]))
                 for a, b in zip(strip_stamps(rec["history"]),
-                                ref[run["rounds"]]["history"])
+                                ref[run["ref"]]["history"])
                 for m in a if m not in ("round", "eval_group_loss"))
             rec["rows_rel_err"] = rows_err
             if not rows_err <= TOL_MESH_X:
@@ -4403,20 +4569,29 @@ def phase_mesh(dev, smi) -> dict:
                         and e["y"] <= TOL_MESH_Y and e["cy"] <= TOL_MESH_Y):
                     fail(f"{what}: the state differs from the host path "
                          f"{e}")
-        # rounds/s on rank 0: a scan run's one chunk by the engine's clock
-        # (its rows' stamp), a host run's rounds between its first and last
-        # rows (as host_loop_run)
+        for k in GOSSIP_KERNELS:
+            if want_launches[k]:
+                gossip_kernels[k] = {
+                    "run": name,
+                    "launches_by_rank": [r["launches"][k] for r in recs],
+                    "launches_by_route_by_rank": [r["routes"][k]
+                                                  for r in recs]}
+        # rounds/s on rank 0: a host run's rounds between its first and last
+        # rows (as host_loop_run); a scan run's one chunk, or a host run of
+        # one row, by the last row's stamp (its logged row included)
         hist = recs[0]["history"]
         walls = [r["wall_s"] for r in hist]
-        rate = (run["rounds"] / walls[-1] if run["engine"] == "scan"
-                else (hist[-1]["round"] - hist[0]["round"])
-                / (walls[-1] - walls[0]) if len(walls) > 1 else None)
+        rate = ((hist[-1]["round"] - hist[0]["round"])
+                / (walls[-1] - walls[0])
+                if run["engine"] == "host" and len(walls) > 1
+                else run["rounds"] / walls[-1])
         comm = [r["collectives"]["gossip"] for r in recs]
         comm_s = [sum(v["seconds"] for v in c.values()) / run["rounds"]
                   for c in comm]
         metrics_s = [sum(v["seconds"] for v in r["collectives"].get(
             "metrics", {}).values()) / run["rounds"] for r in recs]
         line = {"run": name, "engine": run["engine"], "impl": run["impl"],
+                "compress": run.get("compress"),
                 "rounds": run["rounds"], "clients_by_rank":
                 [r["clients"] for r in recs],
                 "devices_by_rank": [r["device"] for r in recs],
@@ -4435,12 +4610,13 @@ def phase_mesh(dev, smi) -> dict:
                                            for r in recs],
                 "launches_by_rank": [r["launches"] for r in recs],
                 "launches_by_route_by_rank": [
-                    {k: r["routes"][k] for k in routed} for r in recs]}
+                    {k: r["routes"][k] for k in (*routed, *GOSSIP_KERNELS)}
+                    for r in recs]}
         out[name] = line
         emit({"phase": "mesh", "case": f"{name}, world of {MESH_WORLD} "
               f"over {backend}", "nvidia_smi": smi, **line})
     if not one["bit_for_bit"] or strip_stamps(one["history"]) != \
-            ref[1]["history"]:
+            ref["dense"]["history"]:
         fail("mesh: the world of 1 differs from the host path")
     if any(k != "staged_bytes" and k != "check" and v
            for k, v in one["collectives"].items()):
@@ -4451,12 +4627,14 @@ def phase_mesh(dev, smi) -> dict:
     out["seconds"] = {"host_path": host_s, "world": world_s,
                       "world_of_1": one_s,
                       "phase": time.perf_counter() - t_phase}
-    emit({"phase": "mesh", "case": "world of 1 over nccl, one round",
+    emit({"phase": "mesh", "case": "world of 1 over nccl",
           "nvidia_smi": smi, **out["world_of_1"],
           "phase_seconds": out["seconds"]})
-    # the scan run's, on rank 0 (every rank launches as many)
+    # the scan run's, on rank 0 (every rank launches as many); B1's and
+    # B4's on every rank of the run that launches them
     out["launches"] = dict(ranks[0][1]["launches"])
     out["launches_by_route"] = {k: ranks[0][1]["routes"][k] for k in routed}
+    out["gossip_kernels"] = gossip_kernels
     return out
 
 
@@ -6408,7 +6586,27 @@ def phase_times(dev, gen) -> dict:
           "plain_call_ms": cuda_ms(plain, inner=100)})
     out["fused_gossip"] = dict(ms=ms, tiled_ms=tms, plain_ms=pms,
                                bound_ms=b, bound_by="bytes")
-    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
+    # the row block of the decentralized mesh at the same shapes: rank 1 of
+    # B1_ROW_RANKS, its rows of W over all N rows of Δ and θ
+    k = N // B1_ROW_RANKS
+    wr = w[k:2 * k].contiguous()
+    xr = (dxv, txv, cxv[k:2 * k].contiguous(), 0.5, 12.5)
+    yr = (dyv, tyv, cyv[k:2 * k].contiguous(), 1.0, -3.0)
+    kern = lambda: gossip.fused_gossip_pair_nd(  # noqa: E731
+        wr, xr, yr, row0=k)
+    tiled = lambda: gossip.fused_gossip_pair_nd(  # noqa: E731
+        wr, xr, yr, row0=k, force_route="tiled")
+    plain = lambda: (ref.fused_gossip_ref(wr, *xr, row0=k),  # noqa: E731
+                     ref.fused_gossip_ref(wr, *yr, row0=k))
+    ms, tms, pms = graph_ms(kern), graph_ms(tiled), graph_ms(plain)
+    bx, by = gossip_rows_bound_ms(N, k, DX), gossip_rows_bound_ms(N, k, DY)
+    rows = dict(n=N, rows_a_rank=k, row0=k, D=[DX, DY],
+                route=gossip.route(N), ms=ms, tiled_ms=tms, plain_ms=pms,
+                bound_ms=bx[0] + by[0], bound_by=bx[1], library_ms=None)
+    emit({"phase": "times", "kernel": "fused_gossip", "pair": True,
+          "row_block": True, **rows})
+    out["fused_gossip"]["rows"] = rows
+    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv, xr, yr
 
     # whole round at the main-path shape
     # (the route the main path takes, a cluster per client, then the block
@@ -6560,11 +6758,63 @@ def time_sparse_gossip(gen, dev) -> dict:
                     *tab, x, y, gossip_dtype="bfloat16"),
                 inner=inner, reps=reps)
             path = dict(ms=ms, row_block_ms=oms, plain_ms=pms, bound_ms=b,
-                        bound_by=by, library_ms=lms)
+                        bound_by=by, library_ms=lms,
+                        rows=time_sparse_rows(sp, x, y, dev,
+                                              inner=inner, reps=reps))
         emit(row)
         del x, y, both
     torch.cuda.empty_cache()
     return path
+
+
+def time_sparse_rows(sp, x, y, dev, *, inner, reps) -> dict:
+    """B4's row block on the decentralized mesh at the scale path's pair:
+    rank 1 of B4_ROW_RANKS, its rows of ``sp`` remapped onto its own rows
+    and its halo, over those sources; beside it the row-block route, the
+    plain version and ``torch.sparse.mm`` of the rank's CSR rows (self
+    loop included) on the sources' [Δx|θx|Δy|θy] (the gather half only)."""
+    import torch
+
+    from repro_torch.dist import collectives
+    from repro_torch.kernels import neighbor_gossip, ref
+
+    n = sp.n
+    k = n // B4_ROW_RANKS
+    plan = collectives.halo_plan(sp, collectives.ClientsAxis(
+        n=n, rank=1, size=B4_ROW_RANKS), dev)
+    src, rows = plan.cols, slice(k, 2 * k)
+    n_src, m = len(src), sp.max_degree
+    tab = (plan.table.neighbor_idx, plan.table.neighbor_w,
+           plan.table.self_w)
+    xr = (x[0][src], x[1][src], x[2][rows].contiguous(), *x[3:])
+    yr = (y[0][src], y[1][src], y[2][rows].contiguous(), *y[3:])
+    dense = torch.zeros((k, n_src), device=dev)
+    dense.index_put_((torch.arange(k, device=dev)[:, None].expand(k, m),
+                      tab[0].long()), tab[1], accumulate=True)
+    dense[torch.arange(k), torch.arange(k)] += tab[2]
+    csr = dense.to_sparse_csr()
+    both = torch.cat([xr[0], xr[1], yr[0], yr[1]], dim=1)
+    rt = neighbor_gossip.route(n_src, m, False)
+    kern = lambda: neighbor_gossip.sparse_gossip_pair_nd(  # noqa: E731
+        *tab, xr, yr)
+    old = lambda: neighbor_gossip.sparse_gossip_pair_nd(  # noqa: E731
+        *tab, xr, yr, force_route="row_block")
+    plain = lambda: (ref.sparse_gossip_ref(*tab, *xr),  # noqa: E731
+                     ref.sparse_gossip_ref(*tab, *yr))
+    lib = lambda: torch.sparse.mm(csr, both)  # noqa: E731
+    d = x[0].shape[1] + y[0].shape[1]
+    b, by = sparse_rows_bound_ms(k, n_src, d, m)
+    out = dict(n=n, rows_a_rank=k, n_src=n_src, max_degree=m, D=[
+        x[0].shape[1], y[0].shape[1]], route=rt,
+        ms=graph_ms(kern, inner=inner, reps=reps),
+        row_block_ms=graph_ms(old, inner=inner, reps=reps),
+        plain_ms=graph_ms(plain, inner=inner, reps=reps),
+        library_ms=graph_ms(lib, inner=inner, reps=reps),
+        library="torch.sparse.mm(the rank's CSR rows, [Δ|θ] of its "
+                "sources): gather half only", bound_ms=b, bound_by=by)
+    emit({"phase": "times", "kernel": "sparse_gossip", "pair": True,
+          "row_block": True, **out})
+    return out
 
 
 def phase_profile(dev) -> None:
@@ -6751,7 +7001,7 @@ def main(argv=None) -> int:
         train_routes = trained["launches_by_route"]
         train_times.update(trained["times"])
     launches_mesh = dict.fromkeys(names)
-    mesh_routes = {}
+    mesh_routes, mesh_gossip = {}, {}
     if "mesh" in phases:
         import gc
 
@@ -6760,6 +7010,7 @@ def main(argv=None) -> int:
         meshed = phase_mesh(dev, smi)
         launches_mesh.update(meshed["launches"])
         mesh_routes = meshed["launches_by_route"]
+        mesh_gossip = meshed["gossip_kernels"]
     serve_mesh = {}
     if "serve_mesh" in phases:
         import gc
@@ -6843,6 +7094,12 @@ def main(argv=None) -> int:
                  ms=t.get("ms"), plain_ms=t.get("plain_ms"),
                  bound_ms=t.get("bound_ms"), bound_by=t.get("bound_by"),
                  library_ms=t.get("library_ms"))
+        if k["name"] in GOSSIP_KERNELS:
+            # the decentralized mesh's row block (PERF.md rows 1m, 3m): its
+            # time at the checked shapes, and its launches on every rank of
+            # the mesh phase's run through it
+            k["mesh_rows"] = {**t.get("rows", {}),
+                              **mesh_gossip.get(k["name"], {})}
         scan_mesh = serve_mesh.get("kernels", {}).get(k["name"])
         if scan_mesh:
             # the serve_mesh phase's scan archs at (1, 2): each rank's
@@ -6924,9 +7181,11 @@ def main(argv=None) -> int:
                            "(qwen2-0.5b, n = 4, one captured chunk of 3 "
                            "rounds of K = 4 local steps under autograd, 3 "
                            "logged rows); launches_mesh: rank 0 of the "
-                           "mesh phase's scan run (qwen2-0.5b, n = 4 over "
-                           "2 ranks, 2 clients a rank, 2 rounds eager, 2 "
-                           "logged rows on every rank); launches_train_ssm: "
+                           "mesh phase's scan run (qwen2-0.5b at "
+                           f"{MESH_LAYERS} layers, n = 4 over "
+                           "2 ranks, 2 clients a rank, one round eager, "
+                           "one logged row on every rank); "
+                           "launches_train_ssm: "
                            "the "
                            "train_ssm phase's main run (mamba2-1.3b at "
                            f"{SSM_LAYERS_CAPTURED} layers, n = "
@@ -6954,6 +7213,12 @@ def main(argv=None) -> int:
                            "each model kernel at its training shape",
           "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "
+                     "mesh_rows: the row block of a rank of the "
+                     "decentralized mesh, B1 4 of the 8 rows, B4 1024 of "
+                     "the 4096 over its own rows and its halo, with its "
+                     "launches on every rank of the mesh phase's "
+                     "pallas_packed+int8 and sparse_packed runs (one a "
+                     "round); "
                      "rglru_scan: the served (4, 4096, 4096) on the "
                      "route its rule gives, device time over operand "
                      "sets past the L2, route_ms_by_shape the same at "

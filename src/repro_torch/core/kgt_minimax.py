@@ -29,10 +29,17 @@ lowering but ``fused_round``.
 
 On the decentralized mesh (``axis``, a ``dist.collectives.ClientsAxis``)
 every leaf holds this rank's n/R clients; the K local steps are unchanged
-and issue no collective, and the gossips of ``dense``, ``fused_dense``,
-``ring``, ``fused_ring`` and ``pallas_packed`` are ``dist.collectives``'
-(the rank's rows of W over all-gathered rows, or the ring's neighbour
-exchange).  The other lowerings and options are not ported to the mesh.
+and issue no collective, and every lowering gossips through
+``dist.collectives``: ``dense`` and ``fused_dense`` the rank's rows of W
+over all-gathered rows, ``ring`` and ``fused_ring`` the ring's neighbour
+exchange, ``pallas_packed`` (with or without compression) an all-gather
+a variable and the B1 epilogue on the rank's row block of W,
+``sparse_packed`` and the robust rules a halo exchange of the neighbour
+rows the rank's lists read (B4 on the remapped table, or the order
+statistic over the rank's candidates), and ``fused_round`` the
+whole-round kernel on every rank over the gathered state.  A static W
+only: the per-round W, participation and the adversary are refused, as
+the reference refuses them on its mesh.
 """
 from __future__ import annotations
 
@@ -209,8 +216,9 @@ def _check_cfg(cfg: AlgorithmConfig) -> None:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}: {ALGORITHMS}")
 
 
-def _check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
-                        traced_w: bool, byzantine: bool) -> None:
+def check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
+                       traced_w: bool = False,
+                       byzantine: bool = False) -> None:
     """The reference's refusals of impl/option pairs, in its order
     (``repro.core.kgt_minimax:247-291``)."""
     impl = cfg.mixing_impl
@@ -251,32 +259,25 @@ def _check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
             "use traced_w with a per-round sampler instead")
 
 
-# the lowerings the decentralized mesh runs (``make_round_step(axis=)``)
-MESH_IMPLS = ("dense", "fused_dense", "ring", "fused_ring", "pallas_packed")
-
-
 def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
                        participation: bool = False, byzantine: bool = False,
                        traced_etas: bool = False) -> None:
-    """Refuses what the decentralized mesh does not run yet: the other
-    lowerings, compression, a per-round or cycled W, participation, the
-    adversary and per-trajectory stepsizes (ROADMAP A13)."""
-    impl = cfg.mixing_impl
-    if impl not in MESH_IMPLS:
-        raise NotImplementedError(
-            f"mixing_impl={impl!r} on the decentralized mesh is not ported "
-            f"yet (ROADMAP A13); the mesh runs {MESH_IMPLS}")
-    if cfg.gossip_backend == "kernel":
-        raise NotImplementedError(
-            "gossip_backend='kernel' on the decentralized mesh: the B1 "
-            "epilogue over a rank's rows of W is not ported yet (ROADMAP "
-            "A13); the mesh gossips through dist.collectives ('auto')")
+    """The decentralized mesh runs every lowering, compressed gossip and
+    every gossip backend on a static W.  It refuses, as the reference's
+    mesh does, a per-round W, participation and the adversary; and, not
+    ported yet (ROADMAP A13), ``topology_cycle`` and per-trajectory
+    stepsizes."""
     off = [name for name, on in (
-        ("gossip_compress", compression_lib.validate_method(
-            cfg.gossip_compress) is not None),
-        ("topology_cycle", bool(cfg.topology_cycle)),
         ("traced_w", traced_w), ("participation", participation),
-        ("byzantine", byzantine), ("traced_etas", traced_etas)) if on]
+        ("byzantine", byzantine)) if on]
+    if off:
+        raise ValueError(
+            f"{', '.join(off)} is not supported on the decentralized mesh "
+            "yet (the sharded round bakes a static W); run on the host "
+            "mesh")
+    off = [name for name, on in (
+        ("topology_cycle", bool(cfg.topology_cycle)),
+        ("traced_etas", traced_etas)) if on]
     if off:
         raise NotImplementedError(
             f"{', '.join(off)} on the decentralized mesh: not ported yet "
@@ -402,16 +403,18 @@ def make_round_step(
 
     ``axis`` (a ``dist.collectives.ClientsAxis``): the step of one rank of
     the decentralized mesh over its n/R clients' rows (module docstring),
-    for ``dense``, ``fused_dense``, ``ring``, ``fused_ring`` and
-    ``pallas_packed`` on a static W; anything else raises.  Its collectives
-    count under the phases ``local_steps`` (none) and ``gossip``.
+    for every lowering, with or without compression, on a static W
+    (``check_mesh_options`` says what else it refuses).  ``sparse_packed``
+    and the robust rules build the rank's ``dist.collectives.HaloPlan``
+    once, here.  Its collectives count under the phases ``local_steps``
+    (none) and ``gossip``.
     """
     if traced_etas and lr_scale is not None:
         raise ValueError(
             "traced_etas carries per-trajectory stepsizes; fold the schedule "
             "into the eta values instead of passing lr_scale")
     _check_cfg(cfg)
-    _check_impl_options(problem, cfg, traced_w, byzantine)
+    check_impl_options(problem, cfg, traced_w, byzantine)
     if axis is not None:
         check_mesh_options(cfg, traced_w=traced_w,
                            participation=participation, byzantine=byzantine,
@@ -444,7 +447,7 @@ def make_round_step(
             np.asarray(m) if not isinstance(m, torch.Tensor) else m,
             dtype=torch.float32).to(device)
 
-    w_rows = None
+    w_rows = plan = None
     if cfg.topology_cycle:
         ws = torch.stack([dense_tensor(topo_lib.mixing_matrix(
             t, cfg.num_clients)) for t in cfg.topology_cycle])
@@ -466,7 +469,12 @@ def make_round_step(
         else:
             w_arr = dense_tensor(w)
         get_w = lambda round_idx: w_arr  # noqa: E731
-        if axis is not None:
+        if axis is not None and (sparse or robust):
+            # the neighbour rows this rank reads, over the support of W
+            plan = collectives.halo_plan(
+                w_arr if sparse_w else sparse_lib.from_dense(w_arr), axis,
+                device)
+        if axis is not None and not sparse_w:
             # this rank's rows of W
             w_rows = w_arr[axis.lo:axis.hi].contiguous()
         if direct_w:
@@ -498,10 +506,12 @@ def make_round_step(
     def mix_buf(b, w_t):
         """One gossip of a packed (n, D) buffer (the rank's rows on the
         mesh)."""
-        if axis is not None:
-            return collectives.mix_dense(b, w_rows, axis, gossip_dtype)
-        return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
-                else mixing_lib.mix_dense(b, w_t, gossip_dtype))
+        if axis is None:
+            return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
+                    else mixing_lib.mix_dense(b, w_t, gossip_dtype))
+        if sparse:
+            return collectives.sparse_mix(b, plan, axis, gossip_dtype)
+        return collectives.mix_dense(b, w_rows, axis, gossip_dtype)
 
     def _done(new_state, state, mask):
         return (new_state if mask is None
@@ -532,6 +542,20 @@ def make_round_step(
                            dim=1)
         else:
             cb = torch.zeros((n, dz), device=dev)
+        if compress:
+            _need_ef(state)
+            efb = torch.cat([state.ef_x, state.ef_y], dim=1)
+        else:
+            efb = torch.zeros((n, dz), device=dev)
+        if axis is not None:
+            # the whole-round kernel is not split over the clients: every
+            # rank runs it on all n rows, gathered, and keeps its own (as
+            # GSPMD replicates the reference's pallas_call)
+            z0, cb, efb, g_mat = (collectives.all_gather_rows(
+                t.contiguous(), axis) for t in (z0, cb, efb, g_mat))
+            h_all = collectives.all_gather_rows(h_all.contiguous(), axis,
+                                                dim=1)
+            n = axis.n
         # per-column vectors: the x block descends, the y block ascends;
         # corr = 0 encodes the no-tracking variants (c' = c exactly)
         def cols(vx, vy):
@@ -544,15 +568,13 @@ def make_round_step(
         step = mask_col * cols(eta_cx, -eta_cy)   # inactive ⇒ Δ ≡ 0 exactly
         etas = cols(eta_sx, eta_sy)
         corr = cols(corr_x, corr_y) if track else cols(0.0, 0.0)
-        if compress:
-            _need_ef(state)
-            efb = torch.cat([state.ef_x, state.ef_y], dim=1)
-        else:
-            efb = torch.zeros((n, dz), device=dev)
         z_new, c_new, ef_new = kernel_ops.fused_round(
             w_t, z0, cb, efb, g_mat, h_all, step, etas, corr,
             mask_col.expand(n, dz), backend=backend, compress=compress,
             gossip_dtype=gossip_dtype)
+        if axis is not None:
+            z_new, c_new, ef_new = (t[axis.lo:axis.hi]
+                                    for t in (z_new, c_new, ef_new))
         if track:
             cx = packing.unpack(c_new[:, :dzx], packing.pack_spec(state.cx))
             cy = packing.unpack(c_new[:, dzx:], packing.pack_spec(state.cy))
@@ -601,11 +623,16 @@ def make_round_step(
         yv = (dyb, packing.pack(state.y, spec_y),
               packing.pack(state.cy, spec_cy), eta_sy, corr_y)
         # both variables' epilogues in one call (one launch on the card)
-        if axis is not None:
-            # the mesh: one all-gather a variable, the epilogue on the
-            # rank's rows of W (the B1 kernel is the single-process path)
+        if axis is not None and sparse:
+            # the mesh: a halo exchange a variable, B4 on the remapped
+            # table over the rank's rows and the halo
+            xb, cxb, yb, cyb = collectives.sparse_gossip_pair(
+                plan, xv, yv, axis, gossip_dtype, backend=backend)
+        elif axis is not None:
+            # the mesh: an all-gather a variable, B1 on the rank's rows of
+            # W
             xb, cxb, yb, cyb = collectives.gossip_pair(
-                w_rows, xv, yv, axis, gossip_dtype)
+                w_rows, xv, yv, axis, gossip_dtype, backend=backend)
         elif sparse:
             xb, cxb, yb, cyb = kernel_ops.sparse_gossip_pair(
                 w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, xv, yv,
@@ -627,12 +654,22 @@ def make_round_step(
         update is the one pass θ ← R(θ + η_s Δ), and the corrections keep
         line 7/8's shape c += corr·(Δ − R(Δ)) without the Σc = 0
         telescoping.  A masked client's support is {self}, and
-        ``_freeze_inactive`` pins it."""
+        ``_freeze_inactive`` pins it.  On the mesh each R reads the
+        rank's rows and the halo (one exchange a call)."""
         def agg(buf):
-            red = (mixing_lib.robust_mix_sparse if sparse_w
-                   else mixing_lib.robust_mix_dense)
-            return red(buf, w_t, rule=rule, trim=cfg.robust_trim,
-                       gossip_dtype=gossip_dtype)
+            kw = dict(rule=rule, trim=cfg.robust_trim,
+                      gossip_dtype=gossip_dtype)
+            if axis is None:
+                red = (mixing_lib.robust_mix_sparse if sparse_w
+                       else mixing_lib.robust_mix_dense)
+                return red(buf, w_t, **kw)
+            halo = collectives.exchange_halo(buf, plan, axis, gossip_dtype)
+            if sparse_w:
+                return mixing_lib.robust_mix_sparse(buf, plan.table,
+                                                    halo=halo, **kw)
+            return mixing_lib.robust_mix_dense(buf, w_rows, halo=halo,
+                                               cols=plan.cols, row0=axis.lo,
+                                               **kw)
 
         spec_x = packing.pack_spec(state.x)
         spec_y = packing.pack_spec(state.y)

@@ -141,38 +141,85 @@ def _robust_reduce(vals: torch.Tensor, valid: torch.Tensor, rule: str,
     rank = torch.arange(m, dtype=torch.int32, device=vals.device)[None, :,
                                                                   None]
     keep = (rank >= b[:, None, :]) & (rank < (k - b)[:, None, :])
-    # where-then-sum (not multiply) so the inf padding never meets a 0
-    total = torch.sum(torch.where(keep, srt, 0.0), dim=1)
+    # where-then-sum (not multiply) so the inf padding never meets a 0; the
+    # slots added in order, one elementwise add each, so that a column's
+    # sum does not depend on how many columns are reduced with it
+    kept = torch.where(keep, srt, 0.0)
+    total = kept[:, 0]
+    for j in range(1, m):
+        total = total + kept[:, j]
     return total / (k - 2 * b).to(torch.float32)
 
 
+# the candidate values an order statistic holds at once (n·m·columns): a
+# language model's packed D is ~1e8 columns a client, whose (n, m, D)
+# candidates, sort values and int64 sort indices would not fit beside the
+# state, so the rules reduce column blocks of this many candidates in turn
+# (each coordinate's reduction is its own: the blocks change no value)
+ROBUST_CHUNK = 1 << 25
+
+
+def _reduce_columns(vals_of, valid: torch.Tensor, rule: str, trim: int,
+                    d: int) -> torch.Tensor:
+    """:func:`_robust_reduce` over columns [0, d) in blocks of at most
+    ROBUST_CHUNK candidates; ``vals_of(a, b)`` gives the (n, m, b − a)
+    candidates of columns [a, b)."""
+    n, m = valid.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=valid.device)
+    step = max(1, ROBUST_CHUNK // max(1, n * m))
+    for a in range(0, d, step):
+        b = min(a + step, d)
+        out[:, a:b] = _robust_reduce(vals_of(a, b), valid, rule, trim)
+    return out
+
+
 def robust_mix_dense(buf: torch.Tensor, w: torch.Tensor, *, rule: str,
-                     trim: int = 1, gossip_dtype=None) -> torch.Tensor:
+                     trim: int = 1, gossip_dtype=None, halo=None,
+                     cols=None, row0: int = 0) -> torch.Tensor:
     """Robust aggregation of a packed (n, D) buffer over the support of a
     dense (n, n) W: client i reduces over ``{j : w_ij > 0} ∪ {i}``.  The
-    communicated values narrow to ``gossip_dtype``; the reduction is f32."""
+    communicated values narrow to ``gossip_dtype``; the reduction is f32.
+
+    On the decentralized mesh ``w`` is the rank's (n/R, n) rows of W from
+    row ``row0``, ``buf`` its rows, ``halo`` the rows it received
+    (``dist.collectives.halo_rows``) and ``cols`` the global row of each
+    of [buf; halo]: each row reduces over the same support, among the rows
+    the rank holds."""
+    gd = gossip_torch_dtype(gossip_dtype)
     n = w.shape[0]
-    bg = narrow(buf, gossip_torch_dtype(gossip_dtype))
-    valid = (w.to(torch.float32) > 0.0) | torch.eye(n, dtype=torch.bool,
-                                                    device=w.device)
-    vals = bg[None, :, :].expand(n, n, bg.shape[1])
-    return _robust_reduce(vals, valid, rule, trim).to(buf.dtype)
+    bg = narrow(buf, gd)
+    if halo is None:
+        src = bg
+        valid = (w.to(torch.float32) > 0.0) | torch.eye(n, dtype=torch.bool,
+                                                        device=w.device)
+    else:
+        src = torch.cat([bg, narrow(halo, gd)])
+        own = row0 + torch.arange(n, device=w.device)
+        valid = ((w.to(torch.float32)[:, cols] > 0.0)
+                 | (cols[None, :] == own[:, None]))
+    return _reduce_columns(
+        lambda a, b: src[None, :, a:b].expand(n, src.shape[0], b - a),
+        valid, rule, trim, bg.shape[1]).to(buf.dtype)
 
 
 def robust_mix_sparse(buf: torch.Tensor, sp, *, rule: str, trim: int = 1,
-                      gossip_dtype=None) -> torch.Tensor:
+                      gossip_dtype=None, halo=None) -> torch.Tensor:
     """Neighbor-gather form of :func:`robust_mix_dense`: the candidates are
     gathered through the padded-CSR lists, O(n·max_deg·D), no (n, n)
     array.  Validity is ``neighbor_w > 0`` (padding and masked links drop
-    out) and the self slot is always in."""
-    bg = narrow(buf, gossip_torch_dtype(gossip_dtype))
+    out) and the self slot is always in.  ``halo``: rows after ``buf``'s
+    that the lists also index (``sparse_topology.sparse_mix``'s)."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    bg = narrow(buf, gd)
     n = sp.neighbor_idx.shape[0]
-    gathered = bg[sp.neighbor_idx.long()]                     # (n, m, D)
-    vals = torch.cat([bg[:, None, :], gathered], dim=1)
+    src = bg if halo is None else torch.cat([bg, narrow(halo, gd)])
+    idx = sp.neighbor_idx.long()
     valid = torch.cat([torch.ones((n, 1), dtype=torch.bool,
                                   device=bg.device), sp.neighbor_w > 0.0],
                       dim=1)
-    return _robust_reduce(vals, valid, rule, trim).to(buf.dtype)
+    return _reduce_columns(
+        lambda a, b: torch.cat([bg[:, None, a:b], src[:, a:b][idx]], dim=1),
+        valid, rule, trim, bg.shape[1]).to(buf.dtype)
 
 
 def robust_mix_packed(tree: Any, w, *, rule: str, trim: int = 1,

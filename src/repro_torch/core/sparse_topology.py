@@ -240,13 +240,17 @@ def sparse_masked_w(sp: SparseTopology, mask: torch.Tensor) -> SparseTopology:
 
 
 def sparse_mix(sp: SparseTopology, buf: torch.Tensor,
-               gossip_dtype=None) -> torch.Tensor:
+               gossip_dtype=None, halo=None) -> torch.Tensor:
     """``W @ buf`` for a packed (n, D) buffer by neighbor-row gather,
     O(n·max_deg·D).  ``mixing.mix_dense``'s dtype rules: the weights and
-    the communicated values narrow to ``gossip_dtype``, the sum is f32."""
+    the communicated values narrow to ``gossip_dtype``, the sum is f32.
+    ``halo``: rows after ``buf``'s that the lists also index (a rank's
+    received neighbour rows on the decentralized mesh, ``sp`` its remapped
+    table)."""
     gd = gossip_torch_dtype(gossip_dtype)
     bg = narrow(buf, gd)
-    gathered = bg[sp.neighbor_idx.long()]                  # (n, max_deg, D)
+    src = bg if halo is None else torch.cat([bg, narrow(halo, gd)])
+    gathered = src[sp.neighbor_idx.long()]                 # (n, max_deg, D)
     mixed = (narrow(sp.self_w, gd)[:, None] * bg
              + torch.einsum("nm,nmd->nd", narrow(sp.neighbor_w, gd),
                             gathered))

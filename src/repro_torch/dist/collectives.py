@@ -20,7 +20,16 @@ here:
 * **the packed epilogue** (``gossip_pair``, ``mix_packed`` :91): one
   all-gather a variable of its stacked (Δ, θ) buffer, then the round
   epilogue θ' = W_r θ + η_s·W_r Δ, c' = c + s·(Δ − W_r Δ) on the rank's
-  rows W_r, as ``kernels.ref.fused_gossip_ref`` computes it over all of W;
+  rows W_r: ``kernels.ops.fused_gossip_pair``'s row block (kernel B1 on
+  the card, ``kernels.ref.fused_gossip_ref`` on the CPU);
+* **the halo exchange** (``halo_rows`` over a :class:`HaloPlan`): the
+  neighbour rows that a rank's neighbour lists read and it does not hold,
+  and only those, every send and receive of the rank in one batch —
+  what the reference's gather-based sparse oracle gathers.  Over it run
+  ``sparse_packed``'s epilogue (``sparse_gossip_pair``: kernel B4 on the
+  card over the remapped table), its no-tracking mix (``sparse_mix``) and
+  the robust rules (``core.mixing.robust_mix_dense`` /
+  ``robust_mix_sparse`` with ``halo``);
 * **all-reduced means** (``clients_mean``, ``all_reduce_sum``) and a
   **broadcast** for the metrics.
 
@@ -50,10 +59,11 @@ gloo transfer is split over GLOO_STREAMS groups of the same ranks at once
 Counters, in the style of ``kernels.ops``' launch counters:
 ``collective_counts()`` gives, per phase (``local_steps``, ``gossip``,
 ``metrics``, ``init``, ``checkpoint``, ``prefill``, ``decode``; :func:`phase`
-sets it) and kind (``all_gather``, ``exchange``, ``all_reduce``,
+sets it) and kind (``all_gather``, ``exchange``, ``halo``, ``all_reduce``,
 ``broadcast``), the calls, the bytes this rank received from the others (an
-all-gather's (R − 1)/R of its output, an exchange's rows, an all-reduce's
-or broadcast's payload) and the seconds of the calls: for a CUDA tensor
+all-gather's (R − 1)/R of its output, an exchange's or a halo's rows, an
+all-reduce's or broadcast's payload) and the seconds of the calls: for a
+CUDA tensor
 between two CUDA events recorded on the current stream around the call
 (read when the counts are, so that no call waits for the device), for a
 CPU tensor on the host clock.  ``zero_collective_counts()`` resets them.
@@ -65,11 +75,14 @@ import dataclasses
 import time
 from typing import Any, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core import sparse_topology as sparse_lib
 from repro_torch.core import tree as tree_lib
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.ref import gossip_torch_dtype, narrow
 
 # the gloo groups a large transfer is split over, and the least bytes a
@@ -300,20 +313,31 @@ def all_gather_rows(x: torch.Tensor, axis: MeshAxis,
                     dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order: the
     (n, …) tensor of the rank's (n/R, …) rows (``x`` itself on one
-    rank)."""
+    rank).  Over gloo the ranks exchange their pieces pairwise (every
+    send and receive in one batch, :func:`_p2p`): gloo's own all-gather
+    passes every rank's piece through a fresh flat host buffer and copies
+    it out again, which made a 3 GB gather 5× slower than the same bytes
+    moved pairwise (PERF.md §6)."""
     if axis.size == 1:
         return x
     with _op("all_gather", x.device) as rec:
         staged = _staging(axis, x)
         wire = _to_wire(axis, x)
-        flat = wire.reshape(-1)
-        recv = [_recv_like(flat, staged) for _ in range(axis.size)]
-        works = [dist.all_gather([r[a:b] for r in recv], flat[a:b], group=g,
-                                 async_op=True)
-                 for g, a, b in _pieces(axis, flat)]
-        for w in works:
-            w.wait()
-        parts = [r.view(wire.shape) for r in recv]
+        if axis.backend == "gloo":
+            parts = [wire if r == axis.rank else _recv_like(wire, staged)
+                     for r in range(axis.size)]
+            peers = [r for r in range(axis.size) if r != axis.rank]
+            _p2p([(dist.isend, wire, r) for r in peers]
+                 + [(dist.irecv, parts[r], r) for r in peers], axis)
+        else:
+            flat = wire.reshape(-1)
+            recv = [_recv_like(flat, staged) for _ in range(axis.size)]
+            works = [dist.all_gather([r[a:b] for r in recv], flat[a:b],
+                                     group=g, async_op=True)
+                     for g, a, b in _pieces(axis, flat)]
+            for w in works:
+                w.wait()
+            parts = [r.view(wire.shape) for r in recv]
         rec["bytes"] = (axis.size - 1) * _nbytes(wire)
         if not staged:
             return torch.cat(parts, dim=dim)
@@ -436,6 +460,99 @@ def ring_neighbors(x: torch.Tensor, axis: MeshAxis):
     return up, dn
 
 
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """What a rank of the clients axis exchanges to read its neighbour
+    lists' rows (:func:`halo_plan`): ``recv[p]``, the rows of rank p that
+    this rank's lists reference (global ids, ascending; the halo is their
+    concatenation in rank order); ``send[p]``, this rank's local rows that
+    rank p's lists reference; ``table``, this rank's (n/R, m) lists
+    remapped onto local indices over [own rows; halo rows] (own rows
+    first, padding on the row's own local index with weight 0); ``cols``,
+    the global row of each of those n/R + n_halo source rows."""
+    recv: tuple
+    send: tuple
+    table: Any
+    cols: torch.Tensor
+
+    @property
+    def n_halo(self) -> int:
+        return sum(len(r) for r in self.recv)
+
+    @property
+    def active(self) -> bool:
+        """Whether the rank sends or receives anything."""
+        return any(self.recv) or any(self.send)
+
+
+def halo_plan(sp, axis: ClientsAxis, device="cpu") -> HaloPlan:
+    """The :class:`HaloPlan` of this rank for the static neighbour lists
+    ``sp`` (a ``SparseTopology`` over all n clients; every rank has it, so
+    every rank computes the same sends and receives and no message is
+    needed to agree on them).  Built once, on the host.  A world of one
+    rank has an empty plan: no row crosses, the table is ``sp``'s."""
+    idx = sp.neighbor_idx.cpu().numpy()
+    k = axis.n_local
+
+    def reads(r):
+        """The rows outside rank r's own that its lists reference."""
+        rows = np.unique(idx[r * k:(r + 1) * k])
+        return rows[(rows < r * k) | (rows >= (r + 1) * k)]
+
+    mine = reads(axis.rank)
+    recv = tuple(tuple(int(g) for g in mine if g // k == p)
+                 for p in range(axis.size))
+    send = tuple(() if p == axis.rank else
+                 tuple(int(g) - axis.lo for g in reads(p)
+                       if axis.lo <= g < axis.hi)
+                 for p in range(axis.size))
+    cols = np.concatenate([np.arange(axis.lo, axis.hi),
+                           np.asarray([g for r in recv for g in r],
+                                      dtype=np.int64)]).astype(np.int64)
+    local = np.full(axis.n, -1, dtype=np.int64)
+    local[cols] = np.arange(len(cols))
+    rows = slice(axis.lo, axis.hi)
+    table = sparse_lib.SparseTopology(
+        neighbor_idx=torch.as_tensor(local[idx[rows]], dtype=torch.int32),
+        neighbor_w=sp.neighbor_w[rows].cpu(), self_w=sp.self_w[rows].cpu(),
+        degree=sp.degree[rows].cpu()).to(device)
+    return HaloPlan(recv=recv, send=send, table=table,
+                    cols=torch.as_tensor(cols, device=device))
+
+
+def halo_rows(x: torch.Tensor, plan: HaloPlan,
+              axis: MeshAxis) -> torch.Tensor:
+    """The halo rows of ``plan`` of every rank's (n/R, …) ``x``, (n_halo,
+    …) in the plan's order, in ``x``'s dtype: this rank's rows that the
+    others read sent to them and theirs received, every send and receive
+    in one batch (a rank whose lists reach several peers, as on the
+    exponential graph, posts them all before it waits).  Counted as one
+    ``halo`` call where the rank takes part (bytes: the rows received);
+    no call where it sends and receives nothing (a world of one rank)."""
+    if not plan.active:
+        return x[:0]
+    with _op("halo", x.device) as rec:
+        staged = _staging(axis, x)
+        pairs, got = [], []
+        for p in range(axis.size):
+            if plan.send[p]:
+                rows = torch.as_tensor(plan.send[p], device=x.device)
+                pairs.append((dist.isend,
+                              _to_wire(axis, x.index_select(0, rows)), p))
+            if plan.recv[p]:
+                shape = (len(plan.recv[p]), *x.shape[1:])
+                buf = (torch.empty(shape, dtype=x.dtype, pin_memory=True)
+                       if staged else torch.empty(shape, dtype=x.dtype,
+                                                  device=x.device))
+                pairs.append((dist.irecv, buf, p))
+                got.append(buf)
+        _p2p(pairs, axis)
+        out = (torch.cat([_from_wire(g, x.device) for g in got]) if got
+               else x[:0])
+        rec["bytes"] = sum(_nbytes(g) for g in got)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # gossip over a clients-sharded state
 # ---------------------------------------------------------------------------
@@ -489,32 +606,67 @@ def mix_ring(tree: Any, w_self: float, w_nbr: float, axis: ClientsAxis,
     return tree_lib.tree_map(one, tree)
 
 
-def gossip_epilogue(w_rows: torch.Tensor, delta, theta, c, eta_s,
-                    corr_scale, axis: ClientsAxis, gossip_dtype=None):
-    """The packed round epilogue of one variable over a clients-sharded
-    (n/R, D) state: one all-gather of the stacked (Δ, θ), then
-    (θ', c') = (W_r θ + η_s·W_r Δ, c + s·(Δ − W_r Δ)) in f32, W_r this
-    rank's rows of W (``kernels.ref.fused_gossip_ref`` on W_r)."""
-    gd = gossip_torch_dtype(gossip_dtype)
-    wg = narrow(w_rows, gd)
-    both = _wire_dtype(torch.stack([delta.to(torch.float32),
-                                    theta.to(torch.float32)]), gd)
-    g = all_gather_rows(both, axis, dim=1).to(torch.float32)
-    wd = wg @ g[0]
-    wt = wg @ g[1]
-    theta_new = wt + float(eta_s) * wd
-    c_new = c.to(torch.float32) + float(corr_scale) * (
-        delta.to(torch.float32) - wd)
-    return theta_new, c_new
-
-
 def gossip_pair(w_rows: torch.Tensor, x, y, axis: ClientsAxis,
-                gossip_dtype=None):
-    """:func:`gossip_epilogue` of both variables of a round (x, y: (delta,
-    theta, c, eta_s, corr_scale)): one collective a variable.  Returns f32
-    (θx', cx', θy', cy')."""
-    return (*gossip_epilogue(w_rows, *x, axis, gossip_dtype),
-            *gossip_epilogue(w_rows, *y, axis, gossip_dtype))
+                gossip_dtype=None, *, backend: str = "auto"):
+    """The packed round epilogue of both variables of a round (x, y:
+    (delta, theta, c, eta_s, corr_scale)) over a clients-sharded (n/R, D)
+    state: one all-gather a variable of its stacked (Δ, θ), then
+    (θ', c') = (W_r θ + η_s·W_r Δ, c + s·(Δ − W_r Δ)) in f32, W_r this
+    rank's rows of W, by one ``kernels.ops.fused_gossip_pair`` call at
+    ``row0 = axis.lo`` — one launch of B1 on the card.  Only the
+    contraction's operands travel narrowed: the rank's own Δ rows go back
+    in f32 for the correction.  Returns f32 (θx', cx', θy', cy')."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    vars_ = []
+    for delta, theta, c, eta_s, corr in (x, y):
+        d32 = delta.to(torch.float32)
+        both = _wire_dtype(torch.stack([d32, theta.to(torch.float32)]), gd)
+        g = all_gather_rows(both, axis, dim=1).to(torch.float32)
+        g[0, axis.lo:axis.hi] = d32
+        vars_.append((g[0], g[1], c, eta_s, corr))
+    return kernel_ops.fused_gossip_pair(w_rows, *vars_, backend=backend,
+                                        gossip_dtype=gossip_dtype,
+                                        row0=axis.lo)
+
+
+def sparse_gossip_pair(plan: HaloPlan, x, y, axis: ClientsAxis,
+                       gossip_dtype=None, *, backend: str = "auto"):
+    """``sparse_packed``'s epilogue of both variables of a round over a
+    clients-sharded state: one halo exchange a variable of its stacked
+    (Δ, θ) rows, then one ``kernels.ops.sparse_gossip_pair`` call on the
+    plan's remapped table over the sources [own rows (f32); halo rows] —
+    one launch of B4 on the card.  Returns f32 (θx', cx', θy', cy')."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    vars_ = []
+    for delta, theta, c, eta_s, corr in (x, y):
+        d32, t32 = delta.to(torch.float32), theta.to(torch.float32)
+        halo = halo_rows(_wire_dtype(torch.stack([d32, t32], dim=1), gd),
+                         plan, axis).to(torch.float32)
+        vars_.append((torch.cat([d32, halo[:, 0]]),
+                      torch.cat([t32, halo[:, 1]]), c, eta_s, corr))
+    tab = plan.table
+    return kernel_ops.sparse_gossip_pair(
+        tab.neighbor_idx, tab.neighbor_w, tab.self_w, *vars_,
+        backend=backend, gossip_dtype=gossip_dtype)
+
+
+def sparse_mix(buf: torch.Tensor, plan: HaloPlan, axis: ClientsAxis,
+               gossip_dtype=None) -> torch.Tensor:
+    """This rank's rows of W @ buf for a clients-sharded (n/R, D) buffer
+    over the halo: ``sparse_topology.sparse_mix`` on the plan's table with
+    the received rows after the rank's own (the no-tracking variants of
+    ``sparse_packed``)."""
+    return sparse_lib.sparse_mix(plan.table, buf, gossip_dtype,
+                                 halo=exchange_halo(buf, plan, axis,
+                                                    gossip_dtype))
+
+
+def exchange_halo(buf: torch.Tensor, plan: HaloPlan, axis: ClientsAxis,
+                  gossip_dtype=None) -> torch.Tensor:
+    """:func:`halo_rows` of a clients-sharded (n/R, D) buffer, sent in
+    the gossip dtype (the values a mix or an order statistic reads)."""
+    gd = gossip_torch_dtype(gossip_dtype)
+    return halo_rows(_wire_dtype(buf.to(torch.float32), gd), plan, axis)
 
 
 # ---------------------------------------------------------------------------

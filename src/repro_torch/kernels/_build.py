@@ -37,17 +37,21 @@ _F = ctypes.c_float
 # cudaError_t)
 SIGNATURES = {
     "gossip": {
-        "fused_gossip_launch": [_P] * 6 + [_I, _L, _F, _F, _I, _P],
-        # w, then (Δ, θ, c, θ', c', D, η_s, s) for x and for y
+        # w, Δ, θ, c, θ', c'; n, n_out, row0, D, η_s, s, bf16
+        "fused_gossip_launch": [_P] * 6 + [_I, _I, _I, _L, _F, _F, _I, _P],
+        # w, then (Δ, θ, c, θ', c', D, η_s, s) for x and for y; n, n_out,
+        # row0, bf16
         "fused_gossip_pair_launch": ([_P] + ([_P] * 5 + [_L, _F, _F]) * 2
-                                     + [_I, _I, _P]),
+                                     + [_I] * 4 + [_P]),
     },
     "fused_round": {"fused_round_launch": [_P] * 14 + [_I] * 6 + [_P]},
     "neighbor_gossip": {
-        "sparse_gossip_launch": [_P] * 8 + [_I, _I, _L, _F, _F, _I, _P],
-        # the three tables, then (Δ, θ, c, θ', c', D, η_s, s) for x and y
+        # the three tables, Δ, θ, c, θ', c'; n, n_src, m, D, η_s, s, bf16
+        "sparse_gossip_launch": [_P] * 8 + [_I, _I, _I, _L, _F, _F, _I, _P],
+        # the three tables, then (Δ, θ, c, θ', c', D, η_s, s) for x and y;
+        # n, n_src, m, bf16
         "sparse_gossip_pair_launch": ([_P] * 3 + ([_P] * 5 + [_L, _F, _F]) * 2
-                                      + [_I] * 3 + [_P]),
+                                      + [_I] * 4 + [_P]),
     },
     "flash_attention": {
         "flash_attention_launch": [_P] * 4 + [_I] * 10 + [_P]},

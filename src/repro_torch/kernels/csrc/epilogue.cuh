@@ -5,7 +5,9 @@
 //   c' = c + s ⊙ (Δ − WΔ)
 //
 // gossip.cu instantiates it with scalar η, s (one variable's epilogue,
-// replacing repro/kernels/gossip.py::fused_gossip_nd); fused_round.cu with
+// replacing repro/kernels/gossip.py::fused_gossip_nd), over a block of
+// n_out rows of W (n_out, n) whose out row r reads Δ[row0 + r] in its
+// correction (launch_gossip_epilogue_rows); fused_round.cu with
 // per-(row, column) η, s arrays (the epilogue of the whole round, where the
 // x and y blocks of z carry different stepsizes and signs, with Δ → q and
 // θ → z0).
@@ -62,7 +64,8 @@ struct ArrayScales {
   __device__ float corr_at(int64_t off) const { return corr[off]; }
 };
 
-// grid = (ceil(D / kEpiThreads), ceil(n / TI)); block = kEpiThreads.
+// grid = (ceil(D / kEpiThreads), ceil(n_out / TI)); block = kEpiThreads.
+// W is (n_out, n), Δ and θ (n, D), c and the outputs (n_out, D).
 template <int TI, bool BF16, class Scales>
 __global__ void __launch_bounds__(kEpiThreads)
 gossip_epilogue_kernel(const float* __restrict__ w,
@@ -71,7 +74,7 @@ gossip_epilogue_kernel(const float* __restrict__ w,
                        const float* __restrict__ c,
                        float* __restrict__ theta_out,
                        float* __restrict__ c_out,
-                       int n, int64_t D, Scales sc) {
+                       int n, int n_out, int row0, int64_t D, Scales sc) {
   __shared__ float ws[TI][kEpiTJ];
   const int64_t d = (int64_t)blockIdx.x * kEpiThreads + threadIdx.x;
   const int i0 = blockIdx.y * TI;
@@ -86,7 +89,7 @@ gossip_epilogue_kernel(const float* __restrict__ w,
     for (int e = threadIdx.x; e < TI * kEpiTJ; e += kEpiThreads) {
       const int i = i0 + e / kEpiTJ, j = j0 + e % kEpiTJ;
       ws[e / kEpiTJ][e % kEpiTJ] =
-          (i < n && j < n) ? narrow<BF16>(w[(int64_t)i * n + j]) : 0.f;
+          (i < n_out && j < n) ? narrow<BF16>(w[(int64_t)i * n + j]) : 0.f;
     }
     __syncthreads();
     if (live) {
@@ -108,41 +111,55 @@ gossip_epilogue_kernel(const float* __restrict__ w,
 #pragma unroll
   for (int ii = 0; ii < TI; ++ii) {
     const int i = i0 + ii;
-    if (i < n) {
+    if (i < n_out) {
       const int64_t off = (int64_t)i * D + d;
+      const float own = delta[(int64_t)(row0 + i) * D + d];
       theta_out[off] = acc_t[ii] + sc.eta_at(off) * acc_d[ii];
-      c_out[off] = c[off] + sc.corr_at(off) * (delta[off] - acc_d[ii]);
+      c_out[off] = c[off] + sc.corr_at(off) * (own - acc_d[ii]);
     }
   }
 }
 
-// Launches the epilogue on `stream`; returns cudaGetLastError().
+// Launches the epilogue of out rows [row0, row0 + n_out) on `stream`;
+// returns cudaGetLastError().  The tile height follows n_out.
+template <class Scales>
+cudaError_t launch_gossip_epilogue_rows(const float* w, const float* delta,
+                                        const float* theta, const float* c,
+                                        float* theta_out, float* c_out, int n,
+                                        int n_out, int row0, int64_t D,
+                                        bool bf16, Scales sc,
+                                        cudaStream_t stream) {
+  if (n <= 0 || n_out <= 0 || D <= 0) return cudaSuccess;
+  const unsigned gx = (unsigned)((D + kEpiThreads - 1) / kEpiThreads);
+  if (n_out <= 8) {
+    const dim3 grid(gx, 1);
+    if (bf16)
+      gossip_epilogue_kernel<8, true, Scales><<<grid, kEpiThreads, 0, stream>>>(
+          w, delta, theta, c, theta_out, c_out, n, n_out, row0, D, sc);
+    else
+      gossip_epilogue_kernel<8, false, Scales><<<grid, kEpiThreads, 0, stream>>>(
+          w, delta, theta, c, theta_out, c_out, n, n_out, row0, D, sc);
+  } else {
+    const dim3 grid(gx, (unsigned)((n_out + 31) / 32));
+    if (bf16)
+      gossip_epilogue_kernel<32, true, Scales><<<grid, kEpiThreads, 0, stream>>>(
+          w, delta, theta, c, theta_out, c_out, n, n_out, row0, D, sc);
+    else
+      gossip_epilogue_kernel<32, false, Scales><<<grid, kEpiThreads, 0, stream>>>(
+          w, delta, theta, c, theta_out, c_out, n, n_out, row0, D, sc);
+  }
+  return cudaGetLastError();
+}
+
+// The epilogue of all of W (n, n): every row, row0 = 0.
 template <class Scales>
 cudaError_t launch_gossip_epilogue(const float* w, const float* delta,
                                    const float* theta, const float* c,
                                    float* theta_out, float* c_out, int n,
                                    int64_t D, bool bf16, Scales sc,
                                    cudaStream_t stream) {
-  if (n <= 0 || D <= 0) return cudaSuccess;
-  const unsigned gx = (unsigned)((D + kEpiThreads - 1) / kEpiThreads);
-  if (n <= 8) {
-    const dim3 grid(gx, 1);
-    if (bf16)
-      gossip_epilogue_kernel<8, true, Scales><<<grid, kEpiThreads, 0, stream>>>(
-          w, delta, theta, c, theta_out, c_out, n, D, sc);
-    else
-      gossip_epilogue_kernel<8, false, Scales><<<grid, kEpiThreads, 0, stream>>>(
-          w, delta, theta, c, theta_out, c_out, n, D, sc);
-  } else {
-    const dim3 grid(gx, (unsigned)((n + 31) / 32));
-    if (bf16)
-      gossip_epilogue_kernel<32, true, Scales><<<grid, kEpiThreads, 0, stream>>>(
-          w, delta, theta, c, theta_out, c_out, n, D, sc);
-    else
-      gossip_epilogue_kernel<32, false, Scales><<<grid, kEpiThreads, 0, stream>>>(
-          w, delta, theta, c, theta_out, c_out, n, D, sc);
-  }
-  return cudaGetLastError();
+  return launch_gossip_epilogue_rows(w, delta, theta, c, theta_out, c_out, n,
+                                     n, 0, D, bf16, sc, stream);
 }
 
 }  // namespace repro_torch

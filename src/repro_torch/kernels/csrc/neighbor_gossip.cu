@@ -12,6 +12,12 @@
 // with scalar η_s and s.  Padding slots add exact zeros.  The diagonal is
 // its own operand: no augmented (n, m+1) table is built.
 //
+// Sources and out rows.  The table has n rows, one an out row; its indices
+// address n_src ≥ n source rows of Δ and θ, out row i's self term reading
+// source row i, and c, θ', c' are (n, D).  n_src = n is the epilogue of all
+// of W; on the decentralized mesh the sources are a rank's own rows and
+// then the halo rows it received, the table remapped onto them.
+//
 // Bound: Δ, θ, c read once and θ', c' written once, plus the tables:
 // 5·n·D·4 + n·(2m+1)·4 bytes against 4·n·(m+1)·D + 4·n·D flops — about
 // 5 flop/byte at m ≈ 24, far below the card's ~20 f32 flop/byte, so the
@@ -37,7 +43,7 @@
 // D tile consecutive: the rows those blocks gather, a kThreads-column
 // stripe of Δ and θ, stay in L2 while the tile is worked on.  The ragged D
 // edge and the last row block are masked; n is not padded.  An index
-// outside [0, n) is never dereferenced: that row's outputs become NaN.
+// outside [0, n_src) is never dereferenced: that row's outputs become NaN.
 //
 // gossip_dtype = bfloat16 rounds w, w_ii, Δ and θ to bf16
 // (__float2bfloat16_rn) and multiplies and adds in f32, where a bf16×bf16
@@ -61,8 +67,8 @@ neighbor_gossip_kernel(const int* __restrict__ nidx,
                        const float* __restrict__ theta,
                        const float* __restrict__ c,
                        float* __restrict__ theta_out,
-                       float* __restrict__ c_out, int n, int m, int64_t D,
-                       unsigned row_blocks, float eta, float corr) {
+                       float* __restrict__ c_out, int n, int n_src, int m,
+                       int64_t D, unsigned row_blocks, float eta, float corr) {
   __shared__ int s_idx[kNgRows][kNgSlots];
   __shared__ float s_w[kNgRows][kNgSlots];
   const unsigned rb = blockIdx.x % row_blocks;
@@ -96,7 +102,7 @@ neighbor_gossip_kernel(const int* __restrict__ nidx,
         for (int r = 0; r < kNgRows; ++r) {
           const int j = s_idx[r][s];
           const float w = s_w[r][s];
-          if ((unsigned)j < (unsigned)n) {
+          if ((unsigned)j < (unsigned)n_src) {
             const int64_t off = (int64_t)j * D + d;
             acc_d[r] = fmaf(w, narrow<BF16>(delta[off]), acc_d[r]);
             acc_t[r] = fmaf(w, narrow<BF16>(theta[off]), acc_t[r]);
@@ -125,7 +131,8 @@ neighbor_gossip_kernel(const int* __restrict__ nidx,
 // ---------------------------------------------------------------------------
 //
 // Design.  A block owns a stripe of kStripeCols columns of one variable over
-// all n rows.  It stages Δ and θ of the stripe in dynamic shared memory once
+// all n_src source rows.  It stages Δ and θ of the stripe in dynamic shared
+// memory once
 // (f32 by cp.async, every row in flight at once; or narrowed to bf16 —
 // half the bytes — for gossip_dtype = bfloat16), then walks the rows in
 // chunks of kStripeChunk, one row a thread: the row's m+1 gathers are
@@ -152,10 +159,10 @@ neighbor_gossip_kernel(const int* __restrict__ nidx,
 // Summation order.  Each output is the row-block kernel's: the self term
 // w_ii·Δ_i first, then slots 0…m−1 by fmaf, then the same epilogue
 // expressions, so the two routes agree bit for bit.  An index outside
-// [0, n) is never dereferenced: its slot reads row 0 with weight NaN, so
-// the row's sums become NaN, as there.
+// [0, n_src) is never dereferenced: its slot reads row 0 with weight NaN,
+// so the row's sums become NaN, as there.
 //
-// Shared memory: 2·n·4·(4 or 2) bytes for the stripe + 2·kStripeChunk·
+// Shared memory: 2·n_src·4·(4 or 2) bytes for the stripe + 2·kStripeChunk·
 // (2m+1)·4 bytes for the table buffers (227,328 B at n = 4096, m = 23 in
 // f32, within the 227 KB a block may use).
 
@@ -259,7 +266,7 @@ __global__ void __launch_bounds__(kStripeThreads, 1)
 stripe_gossip_kernel(const int* __restrict__ nidx,
                      const float* __restrict__ nw,
                      const float* __restrict__ self_w, StripeVar x,
-                     StripeVar y, int n, int m) {
+                     StripeVar y, int n, int n_src, int m) {
   using Row = StripeRow<BF16>;
   using RowT = typename Row::T;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -272,7 +279,7 @@ stripe_gossip_kernel(const int* __restrict__ nidx,
   const int64_t D = v.D;
   const int ncols = D - c0 < kStripeCols ? (int)(D - c0) : kStripeCols;
 
-  const size_t sb = stripe_bytes(n, BF16);
+  const size_t sb = stripe_bytes(n_src, BF16);
   RowT* sd = reinterpret_cast<RowT*>(smem);
   RowT* st = reinterpret_cast<RowT*>(smem + sb);
   unsigned char* tab = smem + 2 * sb;
@@ -306,7 +313,7 @@ stripe_gossip_kernel(const int* __restrict__ nidx,
   // every row's 16 bytes in flight at once (cp.async for f32, register
   // batches for bf16, which narrows on the way)
   if (VEC && !BF16) {
-    for (int r = tid; r < n; r += kStripeThreads) {
+    for (int r = tid; r < n_src; r += kStripeThreads) {
       const int64_t off = (int64_t)r * D + c0;
       cp_async16(&sd[r], v.delta + off);
       cp_async16(&st[r], v.theta + off);
@@ -314,26 +321,28 @@ stripe_gossip_kernel(const int* __restrict__ nidx,
     asm volatile("cp.async.commit_group;" ::: "memory");
   } else if (VEC) {
     constexpr int kBatch = 8;
-    for (int r0 = tid; r0 < n; r0 += kBatch * kStripeThreads) {
+    for (int r0 = tid; r0 < n_src; r0 += kBatch * kStripeThreads) {
       float4 a[kBatch], b[kBatch];
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         const int r = r0 + q * kStripeThreads;
         const int64_t off = (int64_t)r * D + c0;
-        a[q] = r < n ? ld4(v.delta + off) : make_float4(0.f, 0.f, 0.f, 0.f);
-        b[q] = r < n ? ld4(v.theta + off) : make_float4(0.f, 0.f, 0.f, 0.f);
+        a[q] = r < n_src ? ld4(v.delta + off)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+        b[q] = r < n_src ? ld4(v.theta + off)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int q = 0; q < kBatch; ++q) {
         const int r = r0 + q * kStripeThreads;
-        if (r < n) {
+        if (r < n_src) {
           sd[r] = Row::pack(a[q]);
           st[r] = Row::pack(b[q]);
         }
       }
     }
   } else {
-    for (int e = tid; e < n * kStripeCols; e += kStripeThreads) {
+    for (int e = tid; e < n_src * kStripeCols; e += kStripeThreads) {
       const int r = e / kStripeCols, q = e % kStripeCols;
       const int64_t off = (int64_t)r * D + c0 + q;
       const float a = q < ncols ? v.delta[off] : 0.f;
@@ -393,9 +402,9 @@ stripe_gossip_kernel(const int* __restrict__ nidx,
 #pragma unroll 4
       for (int q = 0; q < m; ++q) {
         const int j = ri[q];
-        // an index outside [0, n) reads row 0 with weight NaN: the row's
-        // sums become NaN and stay NaN
-        const bool ok = (unsigned)j < (unsigned)n;
+        // an index outside [0, n_src) reads row 0 with weight NaN: the
+        // row's sums become NaN and stay NaN
+        const bool ok = (unsigned)j < (unsigned)n_src;
         const float w = ok ? narrow<BF16>(rw[q]) : kNaN;
         const float4 a = Row::unpack(sd[ok ? j : 0]);
         const float4 b = Row::unpack(st[ok ? j : 0]);
@@ -439,8 +448,8 @@ stripe_gossip_kernel(const int* __restrict__ nidx,
 template <bool BF16, bool VEC>
 cudaError_t launch_stripe(const int* nidx, const float* nw,
                           const float* self_w, const StripeVar& x,
-                          const StripeVar& y, int n, int m, size_t smem,
-                          cudaStream_t stream) {
+                          const StripeVar& y, int n, int n_src, int m,
+                          size_t smem, cudaStream_t stream) {
   auto kernel = stripe_gossip_kernel<BF16, VEC>;
   static bool opted_in = false;  // the 227 KB opt-in, once per kernel
   if (!opted_in) {
@@ -451,7 +460,7 @@ cudaError_t launch_stripe(const int* nidx, const float* nw,
     opted_in = true;
   }
   kernel<<<x.stripes + y.stripes, kStripeThreads, smem, stream>>>(
-      nidx, nw, self_w, x, y, n, m);
+      nidx, nw, self_w, x, y, n, n_src, m);
   return cudaGetLastError();
 }
 
@@ -465,10 +474,11 @@ extern "C" int sparse_gossip_launch(const int* nidx, const float* nw,
                                     const float* self_w, const float* delta,
                                     const float* theta, const float* c,
                                     float* theta_out, float* c_out, int n,
-                                    int m, long long D, float eta_s,
-                                    float corr_scale, int bf16,
+                                    int n_src, int m, long long D,
+                                    float eta_s, float corr_scale, int bf16,
                                     void* stream) {
   using namespace repro_torch;
+  if (n_src < n) return (int)cudaErrorInvalidValue;
   if (n <= 0 || D <= 0) return (int)cudaSuccess;
   const unsigned long long row_blocks = (n + kNgRows - 1) / kNgRows;
   const unsigned long long col_tiles = (D + kNgThreads - 1) / kNgThreads;
@@ -478,26 +488,28 @@ extern "C" int sparse_gossip_launch(const int* nidx, const float* nw,
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     neighbor_gossip_kernel<true><<<grid, kNgThreads, 0, st>>>(
-        nidx, nw, self_w, delta, theta, c, theta_out, c_out, n, m,
+        nidx, nw, self_w, delta, theta, c, theta_out, c_out, n, n_src, m,
         (int64_t)D, (unsigned)row_blocks, eta_s, corr_scale);
   else
     neighbor_gossip_kernel<false><<<grid, kNgThreads, 0, st>>>(
-        nidx, nw, self_w, delta, theta, c, theta_out, c_out, n, m,
+        nidx, nw, self_w, delta, theta, c, theta_out, c_out, n, n_src, m,
         (int64_t)D, (unsigned)row_blocks, eta_s, corr_scale);
   return (int)cudaGetLastError();
 }
 
 // The stripe route over one or two variables that share the table (Dy = 0:
-// x alone).  The three table operands must be 16-byte aligned.
+// x alone), n out rows over n_src ≥ n source rows.  The three table
+// operands must be 16-byte aligned.
 extern "C" int sparse_gossip_pair_launch(
     const int* nidx, const float* nw, const float* self_w, const float* dx,
     const float* tx, const float* cx, float* tox, float* cox, long long Dx,
     float eta_x, float corr_x, const float* dy, const float* ty,
     const float* cy, float* toy, float* coy, long long Dy, float eta_y,
-    float corr_y, int n, int m, int bf16, void* stream) {
+    float corr_y, int n, int n_src, int m, int bf16, void* stream) {
   using namespace repro_torch;
-  if (n <= 0 || m < 0 || Dx < 0 || Dy < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = stripe_smem_bytes(n, m, bf16 != 0);
+  if (n <= 0 || n_src < n || m < 0 || Dx < 0 || Dy < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = stripe_smem_bytes(n_src, m, bf16 != 0);
   if (smem > kMaxStripeSmem || !aligned16(nidx) || !aligned16(nw) ||
       !aligned16(self_w))
     return (int)cudaErrorInvalidValue;
@@ -515,14 +527,14 @@ extern "C" int sparse_gossip_pair_launch(
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   if (bf16)
-    err = vec ? launch_stripe<true, true>(nidx, nw, self_w, x, y, n, m, smem,
-                                          st)
-              : launch_stripe<true, false>(nidx, nw, self_w, x, y, n, m,
-                                           smem, st);
+    err = vec ? launch_stripe<true, true>(nidx, nw, self_w, x, y, n, n_src,
+                                          m, smem, st)
+              : launch_stripe<true, false>(nidx, nw, self_w, x, y, n, n_src,
+                                           m, smem, st);
   else
-    err = vec ? launch_stripe<false, true>(nidx, nw, self_w, x, y, n, m,
-                                           smem, st)
-              : launch_stripe<false, false>(nidx, nw, self_w, x, y, n, m,
-                                            smem, st);
+    err = vec ? launch_stripe<false, true>(nidx, nw, self_w, x, y, n, n_src,
+                                           m, smem, st)
+              : launch_stripe<false, false>(nidx, nw, self_w, x, y, n, n_src,
+                                            m, smem, st);
   return (int)err;
 }

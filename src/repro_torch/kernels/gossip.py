@@ -7,7 +7,10 @@ packed (n, D) state of one variable computes
 
 Bound on an H100: 5·n·D·4 bytes against 4·n²·D flops — memory-bound at the
 client counts of the main path; the kernel reads Δ, θ, c once and writes
-θ', c' once.  Two routes, chosen by :func:`route`: the unrolled route (n a
+θ', c' once.  A row block (``row0``) computes out rows [row0, row0 + n_out)
+of the epilogue from W's (n_out, n) rows, c (n_out, D) and the whole Δ, θ
+(n, D): a rank's rows on the decentralized mesh, over its gathered Δ and
+θ; its bound is 2·n·D·4 + 3·n_out·D·4 bytes against 4·n_out·n·D flops.  Two routes, chosen by :func:`route`: the unrolled route (n a
 template parameter, every load of a column issued before its first FMA,
 both variables of a round in one launch) for n ≤ 8, and the tiled route
 (``csrc/epilogue.cuh``, one launch a variable) past it — design notes in
@@ -30,7 +33,8 @@ def route(n: int) -> str:
     """``"unrolled"`` for n ≤ 8 (the main path's n: a launch costs about
     one memory round trip), ``"tiled"`` past it (the churn path's n = 512,
     whose per-thread row loop the unrolled kernel would not fit in
-    registers).  D does not enter: both kernels take any D."""
+    registers).  n is the contraction length (W's columns), whatever rows
+    a row block computes; D does not enter: both kernels take any D."""
     return "unrolled" if n <= MAX_UNROLLED_N else "tiled"
 
 
@@ -52,13 +56,15 @@ def pair_args(vars_, outs) -> list:
 
 
 def fused_gossip_pair_nd(w, x, y=None, *, gossip_dtype=None,
-                         force_route=None):
+                         force_route=None, row0: int = 0):
     """The epilogue of one variable, or of two sharing W.
 
-    w: (n, n); x, y: (delta, theta, c, eta_s, corr_scale) with delta/theta/c
-    (n, D) contiguous f32 CUDA tensors on one device (D may differ between
-    x and y); y may be None.  Returns fresh f32 (θx', cx') or
-    (θx', cx', θy', cy').  The route is :func:`route`'s; ``force_route=
+    w: (n_out, n) rows [row0, row0 + n_out) of W; x, y: (delta, theta, c,
+    eta_s, corr_scale) with delta/theta (n, D) and c (n_out, D) contiguous
+    f32 CUDA tensors on one device (D may differ between x and y); y may
+    be None.  Out row r's correction reads Δ[row0 + r].  Returns fresh f32
+    (θx', cx') or (θx', cx', θy', cy'), each (n_out, D); n_out = n, row0 = 0
+    is the whole epilogue.  The route is :func:`route`'s; ``force_route=
     "tiled"`` takes the first port's kernel whatever n (one launch a
     variable), and forcing ``"unrolled"`` past n = 8 raises.  The unrolled
     route runs both variables in one launch.  Counts launches in
@@ -67,20 +73,26 @@ def fused_gossip_pair_nd(w, x, y=None, *, gossip_dtype=None,
     bf16 = gossip_torch_dtype(gossip_dtype) is not None
     vars_ = [x] if y is None else [x, y]
     n = x[0].shape[0]
-    _build.check_operand("w", w, (n, n))
+    n_out = w.shape[0]
+    if not 0 <= row0 <= n - n_out:
+        raise ValueError(f"rows [{row0}, {row0 + n_out}) of W lie outside "
+                         f"its {n} rows")
+    _build.check_operand("w", w, (n_out, n))
     for delta, theta, c, _, _ in vars_:
         d = delta.shape[-1]
-        for name, t in (("delta", delta), ("theta", theta), ("c", c)):
-            _build.check_operand(name, t, (n, d))
+        for name, t, rows in (("delta", delta, n), ("theta", theta, n),
+                              ("c", c, n_out)):
+            _build.check_operand(name, t, (rows, d))
     if len({t.device for v in vars_ for t in v[:3]} | {w.device}) != 1:
         raise ValueError("the operands lie on more than one device")
     which = _build.forced_route(route(n), force_route, universal="tiled")
     lib = _build.library("gossip")
     stream = torch.cuda.current_stream(w.device).cuda_stream
-    outs = [(torch.empty_like(v[0]), torch.empty_like(v[0])) for v in vars_]
+    outs = [(torch.empty_like(v[2]), torch.empty_like(v[2])) for v in vars_]
     if which == "unrolled":
         err = lib.fused_gossip_pair_launch(
-            w.data_ptr(), *pair_args(vars_, outs), n, int(bf16), stream)
+            w.data_ptr(), *pair_args(vars_, outs), n, n_out, row0, int(bf16),
+            stream)
         _build.check(err, "fused_gossip_pair_launch")
         launched = 1
     else:
@@ -88,8 +100,8 @@ def fused_gossip_pair_nd(w, x, y=None, *, gossip_dtype=None,
                                                                   outs):
             err = lib.fused_gossip_launch(
                 w.data_ptr(), delta.data_ptr(), theta.data_ptr(),
-                c.data_ptr(), t_new.data_ptr(), c_new.data_ptr(), n,
-                delta.shape[-1], float(eta_s), float(corr), int(bf16),
+                c.data_ptr(), t_new.data_ptr(), c_new.data_ptr(), n, n_out,
+                row0, delta.shape[-1], float(eta_s), float(corr), int(bf16),
                 stream)
             _build.check(err, "fused_gossip_launch")
         launched = len(vars_)

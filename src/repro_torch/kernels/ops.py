@@ -200,19 +200,25 @@ def fused_gossip_round(w, delta, theta, c, eta_s, corr_scale, *,
                                     gossip_dtype=gossip_dtype)
 
 
-def fused_gossip_pair(w, x, y, *, backend: str = "auto", gossip_dtype=None):
+def fused_gossip_pair(w, x, y, *, backend: str = "auto", gossip_dtype=None,
+                      row0: int = 0):
     """:func:`fused_gossip_round` of both variables of a round, sharing W.
 
     x, y: (delta, theta, c, eta_s, corr_scale) with delta/theta/c (n, Dx)
     and (n, Dy).  Returns f32 (θx', cx', θy', cy').  On the card one kernel
     launch (the unrolled route; the tiled route launches once a variable);
-    on the CPU the plain version twice, exactly as two single calls.
+    on the CPU the plain version twice, exactly as two single calls.  A row
+    block: w (n_out, n) rows [row0, row0 + n_out) of W, c (n_out, D), the
+    outputs (n_out, D) (``ref.fused_gossip_ref``'s ``row0``).
     """
     if use_kernel(backend, x[0]):
         return gossip_lib.fused_gossip_pair_nd(
-            _f32c(w), _f32c_var(x), _f32c_var(y), gossip_dtype=gossip_dtype)
-    return (*ref_lib.fused_gossip_ref(w, *x, gossip_dtype=gossip_dtype),
-            *ref_lib.fused_gossip_ref(w, *y, gossip_dtype=gossip_dtype))
+            _f32c(w), _f32c_var(x), _f32c_var(y), gossip_dtype=gossip_dtype,
+            row0=row0)
+    return (*ref_lib.fused_gossip_ref(w, *x, gossip_dtype=gossip_dtype,
+                                      row0=row0),
+            *ref_lib.fused_gossip_ref(w, *y, gossip_dtype=gossip_dtype,
+                                      row0=row0))
 
 
 def _f32c_var(v):
@@ -271,7 +277,8 @@ def sparse_gossip_pair(neighbor_idx, neighbor_w, self_w, x, y, *,
     and (n, Dy).  Returns f32 (θx', cx', θy', cy').  On the card one kernel
     launch (the stripe route; the row-block route launches once a
     variable); on the CPU the plain version twice, exactly as two single
-    calls.
+    calls.  Δ and θ may hold n_src ≥ n source rows that the (n, m) table
+    indexes, the out rows' own first (``ref.sparse_gossip_ref``).
     """
     tab = (neighbor_idx, neighbor_w, self_w)
     if use_kernel(backend, x[0]):

@@ -43,15 +43,17 @@ def narrow(x: torch.Tensor, gd: Optional[torch.dtype]) -> torch.Tensor:
 
 
 def fused_gossip_ref(w, delta, theta, c, eta_s, corr_scale, *,
-                     gossip_dtype=None):
+                     gossip_dtype=None, row0: int = 0):
     """Packed round epilogue for one variable (Algorithm 1 lines 7–11).
 
-    w: (n, n); delta/theta/c: (n, D).  Returns f32
-    (θ_new, c_new) = (Wθ + η_s·WΔ, c + s·(Δ − WΔ)).
+    w: (n_out, n), rows [row0, row0 + n_out) of W; delta/theta: (n, D);
+    c: (n_out, D).  Returns f32 (θ_new, c_new) = (Wθ + η_s·WΔ,
+    c + s·(Δ_own − WΔ)), each (n_out, D), Δ_own = Δ[row0 : row0 + n_out];
+    n_out = n, row0 = 0 is the epilogue of all of W.
     """
     gd = gossip_torch_dtype(gossip_dtype)
     wg = narrow(w, gd)
-    d32 = delta.to(torch.float32)
+    d32 = delta[row0:row0 + w.shape[0]].to(torch.float32)
     wd = wg @ narrow(delta, gd)
     wt = wg @ narrow(theta, gd)
     theta_new = wt + float(eta_s) * wd
@@ -64,22 +66,25 @@ def sparse_gossip_ref(neighbor_idx, neighbor_w, self_w, delta, theta, c,
     """The same epilogue as :func:`fused_gossip_ref` with W in padded-CSR
     form.
 
-    neighbor_idx: (n, m) int (padding = own index); neighbor_w: (n, m) with
-    padding weight 0; self_w: (n,) diagonal; delta/theta/c: (n, D).  Raw
-    tensors, not a ``SparseTopology``, so the kernels package needs nothing
-    of ``core``.  Returns f32
-    (θ_new, c_new) = (Wθ + η_s·WΔ, c + s·(Δ − WΔ)).
+    neighbor_idx: (n, m) int (padding = own index) into the n_src ≥ n
+    source rows of delta/theta (n_src, D), out row i's self term reading
+    source row i; neighbor_w: (n, m) with padding weight 0; self_w: (n,)
+    diagonal; c: (n, D).  Raw tensors, not a ``SparseTopology``, so the
+    kernels package needs nothing of ``core``.  Returns f32
+    (θ_new, c_new) = (Wθ + η_s·WΔ, c + s·(Δ − WΔ)), each (n, D).
     """
     gd = gossip_torch_dtype(gossip_dtype)
     idx = neighbor_idx.long()
+    n = idx.shape[0]
     nwg = narrow(neighbor_w, gd)
     swg = narrow(self_w, gd)
 
     def spmv(x):
         xg = narrow(x, gd)
-        return swg[:, None] * xg + torch.einsum("nm,nmd->nd", nwg, xg[idx])
+        return (swg[:, None] * xg[:n]
+                + torch.einsum("nm,nmd->nd", nwg, xg[idx]))
 
-    d32 = delta.to(torch.float32)
+    d32 = delta[:n].to(torch.float32)
     wd = spmv(delta)
     theta_new = spmv(theta) + float(eta_s) * wd
     c_new = c.to(torch.float32) + float(corr_scale) * (d32 - wd)

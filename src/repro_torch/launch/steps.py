@@ -15,11 +15,14 @@ the ``clients`` axis and lets GSPMD insert the gossip collectives.  Here
 each rank runs its own clients' rows (``dist.collectives.ClientsAxis``)
 and the round step issues the collectives itself: none in the K local
 steps, the gossips after them (``core.kgt_minimax.make_round_step(axis=)``).
-Where the reference swaps the Pallas gossip epilogue for its XLA oracle on
-the mesh (:57-66: "the Pallas kernels themselves are the single-chip
-epilogue path"), ``pallas_packed`` here gossips through
-``dist.collectives.gossip_pair``; ``sparse_packed`` is not ported to the
-mesh.
+Where the reference swaps the Pallas gossip epilogues for its XLA oracle on
+the mesh (:52-59: GSPMD does not split a ``pallas_call`` over the
+clients), the port runs its kernels over a rank's rows: ``pallas_packed``
+all-gathers (Δ, θ) and runs B1 on the rank's row block of W
+(``dist.collectives.gossip_pair``), ``sparse_packed`` exchanges the halo
+of neighbour rows its lists read and runs B4 on the remapped table
+(``dist.collectives.sparse_gossip_pair``); ``gossip_backend`` follows
+``kernels.ops.use_kernel`` as off the mesh.
 
 ``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
 build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch

@@ -24,7 +24,11 @@ ported (ROADMAP A13) and raises.
 ``--mesh decentralized`` spreads the n clients over the R ranks of a
 ``torch.distributed`` world (``launch.steps``): each rank holds n/R
 clients, runs their K local steps (B5 and B6 on its card), and the round's
-gossips are the only collectives (``dist.collectives``).  Every rank draws
+gossips are the only collectives (``dist.collectives``): every
+``--mixing-impl`` on a static W, ``sparse_packed`` and the robust rules
+over a halo exchange of neighbour rows, ``pallas_packed`` (also with
+``--gossip-compress``) over an all-gather, B1 and B4 on a rank's rows on
+the card.  Every rank draws
 the host path's data and initial state and keeps its rows, computes the
 same metrics row from all-reduced means, and rank 0 prints the rows and
 writes ``--out`` and the checkpoints, gathered to the host path's file
@@ -184,15 +188,18 @@ def _check_unported(args) -> None:
             "(repro.sweep.cache) is not ported yet (ROADMAP A13)")
 
 
-def _check_mesh(args, algo: AlgorithmConfig) -> None:
-    """The reference's refusals on the mesh (:254-258), then what the
-    port's mesh does not run yet, then a world to run on."""
+def _check_mesh(args, algo: AlgorithmConfig, problem) -> None:
+    """The reference's refusals on the mesh (:254-258) and of the
+    lowering on the problem (``fused_round`` needs an ``affine_coeffs``
+    oracle, which the DRO problem has not), then what the port's mesh does
+    not run yet, then a world to run on."""
     if (algo.topology_family != "static" or algo.participation_rate < 1.0
             or algo.num_byzantine > 0):
         raise ValueError(
             "--topology-family/--participation/--num-byzantine are not "
             "supported with --mesh decentralized yet (the sharded chunk "
             "builder bakes a static W); run on the host mesh")
+    kgt.check_impl_options(problem, algo)
     kgt.check_mesh_options(algo)
     if getattr(args, "telemetry_out", None):
         # the health gauges read the whole state
@@ -269,8 +276,9 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
     byz = algo.num_byzantine > 0
     n = algo.num_clients
     on_mesh = getattr(args, "mesh", "host") == "decentralized"
+    problem = objectives.dro_problem(cfg, num_groups=args.groups, mu=args.mu)
     if on_mesh:
-        _check_mesh(args, algo)
+        _check_mesh(args, algo, problem)
 
     def gen_of(stream: int) -> torch.Generator:
         g = torch.Generator(device=device)
@@ -281,7 +289,6 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
         vocab_size=cfg.vocab_size, num_groups=args.groups, num_clients=n,
         alpha=args.alpha, seed=engine_lib.stream_seed(args.seed, DATA_STREAM),
         device=device)
-    problem = objectives.dro_problem(cfg, num_groups=args.groups, mu=args.mu)
     if init_params is not None:
         problem = dataclasses.replace(problem, init_x=lambda gen: init_params)
     axis = None

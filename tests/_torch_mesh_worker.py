@@ -7,8 +7,12 @@ port only, never JAX).
   inputs of an ``.npz``; each rank returns its output rows and the
   collectives' counts;
 * ``train_cases``: ``launch.train --mesh decentralized`` runs fed the
-  reference's draws (a ``torch.save`` file), each returning the history,
-  the gathered state on rank 0, Σ_i c_i over the ranks and the counts.
+  reference's draws (a ``torch.save`` file; none: each rank draws its
+  own from the run's seed), each returning the history, the gathered
+  state on rank 0, Σ_i c_i over the ranks and the counts;
+* ``round_cases``: ``make_round_step(axis=)`` on the quadratic, each
+  lowering on the rank's rows of saved inputs, returning the rank's rows
+  and the gossip's counts.
 """
 import numpy as np
 import torch
@@ -125,7 +129,8 @@ def train_cases(rank, world, draws_path, runs):
     from repro_torch.dist import context as dist_ctx
     from repro_torch.launch import train as train_lib
 
-    draws = torch.load(draws_path, weights_only=False)
+    draws = (None if draws_path is None
+             else torch.load(draws_path, weights_only=False))
     group = dist.group.WORLD
     out = {}
     for name, over, restore in runs:
@@ -133,7 +138,7 @@ def train_cases(rank, world, draws_path, runs):
         for k, v in over.items():
             setattr(args, k, v)
         axis = collectives.axis_of_group(group, args.clients)
-        kw = _port_kw(draws, args.clients)
+        kw = {} if draws is None else _port_kw(draws, args.clients)
         collectives.zero_collective_counts()
         # every residual constraint the model applies inside the round
         calls = {"residual": 0}
@@ -174,4 +179,45 @@ def train_cases(rank, world, draws_path, runs):
                      "outside_slots": dict(dist_ctx.current_slots()),
                      "c_sums": sums if rank == 0 else None,
                      "state": whole if rank == 0 else None}
+    return out
+
+
+def round_cases(rank, world, inputs_path, cases):
+    """The round level of ``tests/test_torch_mesh_lowerings.py``: each case
+    (impl, compress, algorithm, gossip dtype, topology, n) runs its
+    ``make_round_step(axis=)`` on this rank's rows of the saved inputs
+    (quadratic data, initial state and noise of each n), ``rounds`` rounds;
+    returns the rank's rows of the final state, Σ_i c_i of its rows and the
+    gossip's collectives by kind."""
+    from repro_torch.configs import AlgorithmConfig
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core.objectives import quadratic_problem
+
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = []
+    for impl, compress, algo, gd, topology, n in cases:
+        inp = inputs[n]
+        axis = collectives.axis_of_group(dist.group.WORLD, n)
+        rows = slice(axis.lo, axis.hi)
+        prob = quadratic_problem(inp["data"], sigma=inp["sigma"])
+        cfg = AlgorithmConfig(**inp["cfg"], algorithm=algo, num_clients=n,
+                              topology=topology, mixing_impl=impl,
+                              gossip_dtype=gd, gossip_compress=compress)
+        step = kgt.make_round_step(prob, cfg, device="cpu", axis=axis)
+        state = collectives.shard_tree(inp["state"][(algo, compress)], axis)
+        batches = {k: v[:, rows] for k, v in inp["batches"].items()}
+        collectives.zero_collective_counts()
+        for noise in inp["noise"]:
+            state = step(state, batches, noise[:, rows])
+        counts = collectives.collective_counts()
+        out.append({
+            "case": (impl, compress, algo, gd, topology, n),
+            "rows": [axis.lo, axis.hi],
+            "state": {f: getattr(state, f) for f in ("x", "y", "cx", "cy",
+                                                     "ef_x", "ef_y")},
+            "c_sums": {f: getattr(state, f).double().sum(0)
+                       for f in ("cx", "cy")},
+            "gossip": {k: (v["calls"], v["bytes"])
+                       for k, v in counts.get("gossip", {}).items()},
+            "local_steps": counts.get("local_steps", {})})
     return out

@@ -312,20 +312,45 @@ def test_checkpoints_cross_between_the_mesh_and_the_host_path(runs):
     (dict(topology_family="erdos_renyi"), ValueError, "not supported"),
     (dict(participation=0.5), ValueError, "not supported"),
     (dict(num_byzantine=1), ValueError, "not supported"),
-    (dict(mixing_impl="sparse_packed"), NotImplementedError, "A13"),
-    (dict(mixing_impl="fused_round"), NotImplementedError, "A13"),
-    (dict(mixing_impl="coord_median"), NotImplementedError, "A13"),
-    (dict(mixing_impl="pallas_packed", gossip_compress="bf16"),
-     NotImplementedError, "A13"),
-    (dict(gossip_backend="kernel"), NotImplementedError, "A13"),
+    (dict(mixing_impl="fused_round"), ValueError, "affine_coeffs"),
     (dict(telemetry_out="telemetry.jsonl"), NotImplementedError, "A13"),
     (dict(), RuntimeError, "torch.distributed world")],
-    ids=["topology_family", "participation", "byzantine", "sparse_packed",
-         "fused_round", "robust", "compress", "kernel_backend", "telemetry",
-         "no_process_group"])
+    ids=["topology_family", "participation", "byzantine", "fused_round",
+         "telemetry", "no_process_group"])
 def test_refusals(over, error, match):
+    """The reference's refusals on the mesh (its words; ``fused_round``
+    on the DRO problem: the reference's own error, it has no
+    ``affine_coeffs`` oracle), then what the port's mesh does not run yet,
+    then a world to run on."""
     with pytest.raises(error, match=match):
         t_train.build(_port_args(**over))
+
+
+@pytest.mark.parametrize("cfg_over,step_kw,error,match", [
+    (dict(topology_cycle=("ring", "exp")), {}, NotImplementedError, "A13"),
+    ({}, dict(traced_etas=True), NotImplementedError, "A13"),
+    ({}, dict(traced_w=True), ValueError, "not supported"),
+    ({}, dict(participation=True), ValueError, "not supported"),
+    ({}, dict(byzantine=True), ValueError, "not supported")],
+    ids=["topology_cycle", "traced_etas", "traced_w", "participation",
+         "byzantine"])
+def test_round_step_refusals_on_the_mesh(cfg_over, step_kw, error, match):
+    """``make_round_step(axis=)`` runs every lowering on a static W; it
+    refuses a per-round W, participation and the adversary (as the
+    reference's mesh does), and a cycled W and per-trajectory stepsizes
+    (not ported yet)."""
+    from repro_torch.configs import AlgorithmConfig
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import make_quadratic_data, quadratic_problem
+    from repro_torch.dist import collectives
+
+    data = make_quadratic_data(torch.Generator().manual_seed(0), 4, dx=3,
+                               dy=2)
+    cfg = AlgorithmConfig(num_clients=4, **cfg_over)
+    with pytest.raises(error, match=match):
+        kgt.make_round_step(quadratic_problem(data), cfg, device="cpu",
+                            axis=collectives.ClientsAxis(n=4, rank=0, size=2),
+                            **step_kw)
 
 
 def test_cli_on_a_world_of_one(tmp_path):
