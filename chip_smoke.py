@@ -20,7 +20,9 @@ Phases, each printing one JSON line:
    launch) against two plain single calls; B1's and B4's row blocks of the
    decentralized mesh on both routes (B1: a rank's 4 of 8 rows of W over
    all 8 rows of Δ and θ; B4: a rank's 1024 of 4096 rows of the exp lists
-   remapped onto its own rows and its halo), each against its plain
+   remapped onto its own rows and its halo; both also at the mesh
+   phase's own shape, a rank's 2 of 4 rows over the packed qwen2-0.5b at
+   MESH_LAYERS layers, B4 on the ring's halo), each against its plain
    version and bit for bit the whole call's rows;
 4. main — K-GT-Minimax and its three baselines through ``engine.run`` at
    the full round geometry (n = 8, K = 8, dx = 384, dy = 128, ring,
@@ -87,7 +89,8 @@ Phases, each printing one JSON line:
    gather epilogue at D = 16384, the model kernels at the served shapes
    and at S = 32768 (B8 also at the train and mesh-rank shapes, with its
    backward kernel), B1's and B4's row blocks at the kernels phase's
-   shapes (B4's beside ``torch.sparse.mm`` of the rank's CSR rows), and
+   shapes, the mesh phase's included (B4's beside ``torch.sparse.mm`` of
+   the rank's CSR rows), and
    rounds/s per mixing_impl.
 
 12. compress — error-feedback compression at the main geometry on
@@ -134,9 +137,9 @@ Phases, each printing one JSON line:
    MESH_LAYERS, n = 4, K = 4, 4 × 128 tokens a client) over a world of
    2 ranks (``dist.launch.run_world``: NCCL with a card a rank where the
    machine has two, else both ranks on cuda:0 over gloo), 2 clients a
-   rank, MESH_ROUNDS (1) round a run: dense through ``--engine host``
-   and through ``--engine scan`` (eager chunks), fused_ring (the
-   neighbour exchange), sparse_packed (the halo exchange, B4 on a rank's
+   rank: MESH_ROUNDS (2) rounds of dense through ``--engine host`` and
+   through ``--engine scan`` (eager chunks) and of fused_ring (the
+   neighbour exchange); MESH_LOWERING_ROUNDS (1) of sparse_packed (the halo exchange, B4 on a rank's
    remapped table), pallas_packed with int8 compression (B1 on a rank's
    row block, on q) and sparse_trimmed_mean (the halo, the plain order
    statistic), each held to its host path run here from the same seed
@@ -242,6 +245,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -385,12 +389,17 @@ RATE_TURNS = (False, True)
 # path batches 4, so batched GEMMs may round otherwise
 MESH_WORLD = 2
 TOL_MESH_X, TOL_MESH_Y = TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y
-# every mesh run: MESH_ROUNDS rounds, each logged (a logged row all-reduces
-# x̄ and c̄x: GBs through gloo on one card), qwen2-0.5b cut to MESH_LAYERS
-# layers (cut from two rounds and TRAIN_LAYERS layers to pay for the
-# lowerings below: PERF.md §4)
+# every mesh run: qwen2-0.5b cut to MESH_LAYERS layers (cut from
+# TRAIN_LAYERS to pay for the lowerings below: PERF.md §4), each round
+# logged (a logged row all-reduces x̄ and c̄x: GBs through gloo on one
+# card); dense (host and scan engines), fused_ring and the world of 1 run
+# MESH_ROUNDS rounds, so that a local step reads the tracking correction
+# and the scan chunk carries its state from one round to the next; each
+# of MESH_LOWERINGS runs MESH_LOWERING_ROUNDS (its Σc and its state after
+# the round's gossip hold it to the host path)
 MESH_LAYERS = 2
-MESH_ROUNDS = 1
+MESH_ROUNDS = 2
+MESH_LOWERING_ROUNDS = 1
 MESH_LOG_EVERY = 1
 # the mesh's other lowerings on --engine host: (name, mixing_impl,
 # gossip_compress)
@@ -623,6 +632,18 @@ def bitwise_equal(a, b) -> bool:
                                               b.view(torch.int32))
 
 
+def mesh_packed_dims() -> tuple:
+    """(dx, dy) a client in the mesh phase's run: qwen2-0.5b's parameters
+    at MESH_LAYERS layers, packed, and its TRAIN_G group weights."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import model as model_lib
+
+    with arch_depth(TRAIN_ARCH, MESH_LAYERS) as cfg:
+        leaves = tree_lib.leaves(model_lib.param_dict(
+            model_lib.skeleton(cfg)))
+    return sum(t.numel() for t in leaves), TRAIN_G
+
+
 def check_gossip(gen, dev):
     """B1 against its plain version over (n, D) from one client to the
     churn path's 512, the main path's shapes and the churn path's masked
@@ -631,8 +652,13 @@ def check_gossip(gen, dev):
     every unrolled call is repeated on the tiled route and must equal it
     bit for bit.  The main path's pair call (x and y in one launch) is
     held against two plain single calls and, bitwise, against the tiled
-    route's two launches.  Returns the largest error and the cases by
+    route's two launches.  The decentralized mesh's row blocks: each
+    rank's rows of W at the main path's shapes and at the mesh phase's
+    own, against the plain version at the block's row0 and bit for bit
+    the whole pair's rows.  Returns the largest error and the cases by
     route."""
+    import torch
+
     from repro_torch.kernels import gossip, ref
 
     from repro_torch.core import sparse_topology as sp_lib
@@ -704,44 +730,69 @@ def check_gossip(gen, dev):
         if not all(map(bitwise_equal, got, old)):
             fail(f"fused_gossip pair {gd}: differs from the tiled route")
         pairs += 1
-    # the mesh's row blocks: each of B1_ROW_RANKS ranks' rows of W over the
-    # gathered Δ and θ of all N rows, x and y in one call, on both routes,
-    # against the plain version at the block's row0 and bit for bit the
-    # whole pair's rows on the same route
-    k = N // B1_ROW_RANKS
-    row_blocks = 0
-    for gd in (None, "bfloat16"):
-        whole = {rt: gossip.fused_gossip_pair_nd(
-            w, x, y, gossip_dtype=gd,
-            force_route=None if rt == gossip.route(N) else rt)
-            for rt in gossip.ROUTES}
-        for lo in range(0, N, k):
-            rows = slice(lo, lo + k)
-            wr = w[rows].contiguous()
-            xr = (*x[:2], x[2][rows].contiguous(), *x[3:])
-            yr = (*y[:2], y[2][rows].contiguous(), *y[3:])
-            plain = (ref.fused_gossip_ref(wr, *xr, gossip_dtype=gd, row0=lo),
-                     ref.fused_gossip_ref(wr, *yr, gossip_dtype=gd, row0=lo))
+    def row_blocks(w, x, y, ranks):
+        """Each of ``ranks`` ranks' rows of W over the gathered Δ and θ of
+        all n rows, x and y in one call, on both routes, bit for bit the
+        whole pair's rows on the same route and against the plain version
+        at the block's row0; returns the cases."""
+        nonlocal worst
+        n = w.shape[0]
+        k, cases = n // ranks, 0
+        for gd in (None, "bfloat16"):
             for rt in gossip.ROUTES:
-                got = routed_call(
-                    lambda: gossip.fused_gossip_pair_nd(
-                        wr, xr, yr, gossip_dtype=gd, row0=lo,
-                        force_route=None if rt == gossip.route(N) else rt),
-                    "fused_gossip", rt)
-                what = f"rows [{lo}, {lo + k}) of n={N} {gd} {rt}"
-                worst = max(worst, held([got[:2], got[2:]], plain,
-                                        [corr, -3.0], what))
-                if not all(bitwise_equal(a, b[rows])
-                           for a, b in zip(got, whole[rt])):
-                    fail(f"fused_gossip {what}: differs from the whole "
-                         "epilogue's rows")
-                by_route[rt] += 1
-                row_blocks += 1
+                force = None if rt == gossip.route(n) else rt
+                whole = gossip.fused_gossip_pair_nd(
+                    w, x, y, gossip_dtype=gd, force_route=force)
+                for lo in range(0, n, k):
+                    rows = slice(lo, lo + k)
+                    wr = w[rows].contiguous()
+                    xr = (*x[:2], x[2][rows].contiguous(), *x[3:])
+                    yr = (*y[:2], y[2][rows].contiguous(), *y[3:])
+                    got = routed_call(
+                        lambda: gossip.fused_gossip_pair_nd(
+                            wr, xr, yr, gossip_dtype=gd, row0=lo,
+                            force_route=force),
+                        "fused_gossip", rt)
+                    what = (f"rows [{lo}, {lo + k}) of n={n} "
+                            f"D={x[0].shape[1]} {gd} {rt}")
+                    if not all(bitwise_equal(a, b[rows])
+                               for a, b in zip(got, whole)):
+                        fail(f"fused_gossip {what}: differs from the whole "
+                             "epilogue's rows")
+                    plain = (ref.fused_gossip_ref(wr, *xr, gossip_dtype=gd,
+                                                  row0=lo),
+                             ref.fused_gossip_ref(wr, *yr, gossip_dtype=gd,
+                                                  row0=lo))
+                    worst = max(worst, held([got[:2], got[2:]], plain,
+                                            [x[4], y[4]], what))
+                    by_route[rt] += 1
+                    cases += 1
+                    del got, plain, xr, yr
+                del whole
+        return cases
+
+    # the mesh's row blocks: each of B1_ROW_RANKS ranks' rows at the main
+    # path's shapes, then each of MESH_WORLD ranks' rows at the mesh
+    # phase's own (n = TRAIN_N, the packed qwen2-0.5b at MESH_LAYERS
+    # layers and its group weights), as its pallas_packed run launches B1
+    k = N // B1_ROW_RANKS
+    row_cases = row_blocks(w, x, y, B1_ROW_RANKS)
+    del w, x, y, dxv, txv, cxv, dyv, tyv, cyv
+    mdx, mdy = mesh_packed_dims()
+    w, dxv, txv, cxv = gossip_operands(TRAIN_N, mdx, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(TRAIN_N, mdy, gen, dev)
+    mesh_cases = row_blocks(w, (dxv, txv, cxv, eta_s, corr),
+                            (dyv, tyv, cyv, 1.0, -3.0), MESH_WORLD)
+    del w, dxv, txv, cxv, dyv, tyv, cyv
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "fused_gossip",
           "cases": sum(by_route.values()), "cases_by_route": by_route,
           "bitwise_equal_to_tiled": bitwise, "pair_cases": pairs,
-          "row_block_cases": row_blocks,
+          "row_block_cases": row_cases,
           "row_block_shape": {"n": N, "rows_a_rank": k, "D": [DX, DY]},
+          "mesh_rank_cases": mesh_cases,
+          "mesh_rank_shape": {"n": TRAIN_N, "rows_a_rank": TRAIN_N
+                              // MESH_WORLD, "D": [mdx, mdy]},
           "max_abs_err_theta_or_c_over_s": worst, "tol": TOL_GOSSIP})
     return worst, by_route
 
@@ -975,6 +1026,7 @@ def check_sparse_gossip(gen, dev):
     largest absolute error and the cases by route."""
     import torch
 
+    from repro_torch.core import sparse_topology as sp_lib
     from repro_torch.dist import collectives
     from repro_torch.kernels import neighbor_gossip, ref
 
@@ -1065,50 +1117,78 @@ def check_sparse_gossip(gen, dev):
                      f"route")
             pairs += 1
 
-    # the mesh's row blocks: each of B4_ROW_RANKS ranks' rows of the exp
-    # lists, remapped onto its own rows and its halo (its HaloPlan), over
-    # those n_src sources, x and y in one call, on the route the rule
-    # gives n_src and on the row-block route, against the plain version
-    # and bit for bit the whole pair's rows on the same route
-    sp = exp[0][1]
-    k = n // B4_ROW_RANKS
-    row_blocks, halo_rows_by_rank = 0, []
-    for gd in (None, "bfloat16"):
-        whole = {rt: neighbor_gossip.sparse_gossip_pair_nd(
-            sp.neighbor_idx, sp.neighbor_w.contiguous(),
-            sp.self_w.contiguous(), x, y, gossip_dtype=gd,
-            force_route=None if rt == "stripe" else rt)
-            for rt in neighbor_gossip.ROUTES}
-        for r in range(B4_ROW_RANKS):
+    def row_blocks(sp, x, y, ranks, label):
+        """Each of ``ranks`` ranks' rows of ``sp``'s lists, remapped onto
+        its own rows and its halo (its HaloPlan), over those n_src
+        sources, x and y in one call, on the route the rule gives n_src
+        and on the row-block route, bit for bit the whole pair's rows on
+        the same route and against the plain version; returns the cases
+        and each rank's halo rows."""
+        n = sp.n
+        k, cases, halos = n // ranks, 0, []
+        tab_n = (sp.neighbor_idx, sp.neighbor_w.contiguous(),
+                 sp.self_w.contiguous())
+        for r in range(ranks):
             plan = collectives.halo_plan(sp, collectives.ClientsAxis(
-                n=n, rank=r, size=B4_ROW_RANKS), dev)
+                n=n, rank=r, size=ranks), dev)
+            halos.append(plan.n_halo)
             rows, src = slice(r * k, (r + 1) * k), plan.cols
             tab = (plan.table.neighbor_idx, plan.table.neighbor_w,
                    plan.table.self_w)
             xr = (x[0][src], x[1][src], x[2][rows].contiguous(), *x[3:])
             yr = (y[0][src], y[1][src], y[2][rows].contiguous(), *y[3:])
-            plain = (ref.sparse_gossip_ref(*tab, *xr, gossip_dtype=gd),
-                     ref.sparse_gossip_ref(*tab, *yr, gossip_dtype=gd))
-            rt_rule = neighbor_gossip.route(len(src), tab[0].shape[1],
-                                            gd is not None)
-            for rt in dict.fromkeys((rt_rule, "row_block")):
-                got = routed_call(
-                    lambda: neighbor_gossip.sparse_gossip_pair_nd(
-                        *tab, xr, yr, gossip_dtype=gd,
-                        force_route=None if rt == rt_rule else rt),
-                    "sparse_gossip", rt)
-                what = (f"rows [{r * k}, {(r + 1) * k}) of n={n} over "
-                        f"{len(src)} sources, {gd} {rt}")
-                held([got[:2], got[2:]], plain, what,
-                     f"row_block/{gd or 'float32'}")
-                if not all(bitwise_equal(a, b[rows])
-                           for a, b in zip(got, whole[rt])):
-                    fail(f"sparse_gossip {what}: differs from the whole "
-                         "call's rows")
-                by_route[rt] += 1
-                row_blocks += 1
-            if gd is None:
-                halo_rows_by_rank.append(plan.n_halo)
+            for gd in (None, "bfloat16"):
+                rt_rule = neighbor_gossip.route(len(src), tab[0].shape[1],
+                                                gd is not None)
+                rt_whole = neighbor_gossip.route(n, tab_n[0].shape[1],
+                                                 gd is not None)
+                for rt in dict.fromkeys((rt_rule, "row_block")):
+                    whole = neighbor_gossip.sparse_gossip_pair_nd(
+                        *tab_n, x, y, gossip_dtype=gd,
+                        force_route=None if rt == rt_whole else rt)
+                    got = routed_call(
+                        lambda: neighbor_gossip.sparse_gossip_pair_nd(
+                            *tab, xr, yr, gossip_dtype=gd,
+                            force_route=None if rt == rt_rule else rt),
+                        "sparse_gossip", rt)
+                    what = (f"{label} rows [{r * k}, {(r + 1) * k}) of "
+                            f"n={n} over {len(src)} sources, "
+                            f"D={x[0].shape[1]} {gd} {rt}")
+                    if not all(bitwise_equal(a, b[rows])
+                               for a, b in zip(got, whole)):
+                        fail(f"sparse_gossip {what}: differs from the "
+                             "whole call's rows")
+                    del whole
+                    plain = (ref.sparse_gossip_ref(*tab, *xr,
+                                                   gossip_dtype=gd),
+                             ref.sparse_gossip_ref(*tab, *yr,
+                                                   gossip_dtype=gd))
+                    held([got[:2], got[2:]], plain, what,
+                         f"row_block/{gd or 'float32'}")
+                    by_route[rt] += 1
+                    cases += 1
+                    del got, plain
+            del xr, yr
+        return cases, halos
+
+    # the mesh's row blocks: each of B4_ROW_RANKS ranks' rows of the exp
+    # lists at the scale path's pair; then each of MESH_WORLD ranks' rows
+    # of the mesh phase's support (its topology at n = TRAIN_N) at its
+    # own D (the packed qwen2-0.5b at MESH_LAYERS layers and its group
+    # weights), as its sparse_packed run launches B4
+    row_cases, halo_rows_by_rank = row_blocks(exp[0][1], x, y,
+                                              B4_ROW_RANKS, "exp")
+    del x, y
+    mdx, mdy = mesh_packed_dims()
+    msp = sp_lib.sparse_mixing_matrix(train_args().topology, TRAIN_N).to(dev)
+    mx = (*(torch_randn(gen, dev, TRAIN_N, mdx) for _ in range(3)), eta_s,
+          corr)
+    my = (*(torch_randn(gen, dev, TRAIN_N, mdy) for _ in range(3)), 1.0,
+          -3.0)
+    mesh_cases, mesh_halos = row_blocks(msp, mx, my, MESH_WORLD,
+                                        train_args().topology)
+    del mx, my
+    torch.cuda.empty_cache()
 
     # the NaN contract: out-of-range indices in two rows, at n = 9 (a
     # table chunk of 9·m words, not whole 16-byte pieces) and n = 4096
@@ -1141,10 +1221,15 @@ def check_sparse_gossip(gen, dev):
     emit({"phase": "kernels", "kernel": "sparse_gossip",
           "cases": sum(by_route.values()), "cases_by_route": by_route,
           "bitwise_equal_to_row_block": bitwise, "pair_cases": pairs,
-          "nan_contract_cases": nan_cases, "row_block_cases": row_blocks,
+          "nan_contract_cases": nan_cases, "row_block_cases": row_cases,
           "row_block_shape": {"n": SCALE_N, "rows_a_rank": SCALE_N
                               // B4_ROW_RANKS, "D": [DX, DY],
                               "halo_rows_by_rank": halo_rows_by_rank},
+          "mesh_rank_cases": mesh_cases,
+          "mesh_rank_shape": {"n": TRAIN_N, "topology":
+                              train_args().topology, "rows_a_rank": TRAIN_N
+                              // MESH_WORLD, "D": [mdx, mdy],
+                              "halo_rows_by_rank": mesh_halos},
           "max_abs_err": worst_abs,
           "max_err_over_1_plus_max_ref_by_group": worst, "tol": TOL_SPARSE,
           f"stripe_gather_wavefronts_over_conflict_free_n{SCALE_N}":
@@ -4426,7 +4511,8 @@ def phase_mesh(dev, smi) -> dict:
     client, 8 groups, kgt_minimax on a ring, over a world of MESH_WORLD
     ranks started by ``dist.launch.run_world`` (NCCL, one card a rank,
     where the machine has two cards; else both ranks on ``cuda:0`` over
-    gloo), MESH_ROUNDS rounds a run.  The host path runs first in this
+    gloo), MESH_ROUNDS rounds of dense and fused_ring and
+    MESH_LOWERING_ROUNDS of each lowering.  The host path runs first in this
     process from the same seed (``--engine host``: dense and each of
     MESH_LOWERINGS); then on the mesh dense through ``--engine host`` and
     through ``--engine scan`` (eager chunks), held to the host path's
@@ -4471,7 +4557,8 @@ def phase_mesh(dev, smi) -> dict:
         for name, impl, comp in (("dense", "dense", None),
                                  *MESH_LOWERINGS):
             res = train_lib.train(train_args(
-                device=dev, engine="host", rounds=MESH_ROUNDS,
+                device=dev, engine="host", rounds=(
+                    MESH_ROUNDS if name == "dense" else MESH_LOWERING_ROUNDS),
                 log_every=MESH_LOG_EVERY, mixing_impl=impl,
                 gossip_compress=comp))
             ref[name] = {"history": strip_stamps(res["history"]),
@@ -4489,7 +4576,8 @@ def phase_mesh(dev, smi) -> dict:
                      rows_dir=os.path.join(store, "dense"), sigma_c=True),
                 dict(name="fused_ring", engine="host", rounds=MESH_ROUNDS,
                      impl="fused_ring", ref="dense")]
-        runs += [dict(name=name, engine="host", rounds=MESH_ROUNDS, impl=impl,
+        runs += [dict(name=name, engine="host", rounds=MESH_LOWERING_ROUNDS,
+                      impl=impl,
                       compress=comp, ref=name,
                       rows_dir=os.path.join(store, name),
                       sigma_c=impl not in ("coord_median", "trimmed_mean",
@@ -6559,6 +6647,7 @@ def phase_times(dev, gen) -> dict:
     import torch
 
     from repro_torch.core import MIXING_IMPLS
+    from repro_torch.core import sparse_topology as sp_lib
     from repro_torch.kernels import fused_round, gossip, ref
 
     # At the main path's shapes a call is a few µs of device work behind
@@ -6588,25 +6677,9 @@ def phase_times(dev, gen) -> dict:
                                bound_ms=b, bound_by="bytes")
     # the row block of the decentralized mesh at the same shapes: rank 1 of
     # B1_ROW_RANKS, its rows of W over all N rows of Δ and θ
-    k = N // B1_ROW_RANKS
-    wr = w[k:2 * k].contiguous()
-    xr = (dxv, txv, cxv[k:2 * k].contiguous(), 0.5, 12.5)
-    yr = (dyv, tyv, cyv[k:2 * k].contiguous(), 1.0, -3.0)
-    kern = lambda: gossip.fused_gossip_pair_nd(  # noqa: E731
-        wr, xr, yr, row0=k)
-    tiled = lambda: gossip.fused_gossip_pair_nd(  # noqa: E731
-        wr, xr, yr, row0=k, force_route="tiled")
-    plain = lambda: (ref.fused_gossip_ref(wr, *xr, row0=k),  # noqa: E731
-                     ref.fused_gossip_ref(wr, *yr, row0=k))
-    ms, tms, pms = graph_ms(kern), graph_ms(tiled), graph_ms(plain)
-    bx, by = gossip_rows_bound_ms(N, k, DX), gossip_rows_bound_ms(N, k, DY)
-    rows = dict(n=N, rows_a_rank=k, row0=k, D=[DX, DY],
-                route=gossip.route(N), ms=ms, tiled_ms=tms, plain_ms=pms,
-                bound_ms=bx[0] + by[0], bound_by=bx[1], library_ms=None)
-    emit({"phase": "times", "kernel": "fused_gossip", "pair": True,
-          "row_block": True, **rows})
-    out["fused_gossip"]["rows"] = rows
-    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv, xr, yr
+    out["fused_gossip"]["rows"] = time_gossip_rows(
+        w, xv, yv, B1_ROW_RANKS, graph_ms)
+    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
 
     # whole round at the main-path shape
     # (the route the main path takes, a cluster per client, then the block
@@ -6631,6 +6704,21 @@ def phase_times(dev, gen) -> dict:
     del args
 
     out["sparse_gossip"] = time_sparse_gossip(gen, dev)
+    # both row blocks at the mesh phase's own shape: rank 1 of MESH_WORLD
+    # at n = TRAIN_N, x the packed qwen2-0.5b at MESH_LAYERS layers, y its
+    # group weights; a call moves GBs, so CUDA events around single calls
+    mdx, mdy = mesh_packed_dims()
+    w, dxv, txv, cxv = gossip_operands(TRAIN_N, mdx, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(TRAIN_N, mdy, gen, dev)
+    xv, yv = (dxv, txv, cxv, 0.5, 12.5), (dyv, tyv, cyv, 1.0, -3.0)
+    events = functools.partial(cuda_ms, reps=5, warmup=1)
+    out["fused_gossip"]["rows"]["mesh_rank"] = time_gossip_rows(
+        w, xv, yv, MESH_WORLD, events)
+    msp = sp_lib.sparse_mixing_matrix(train_args().topology, TRAIN_N)
+    out["sparse_gossip"]["rows"]["mesh_rank"] = time_sparse_rows(
+        msp.to(dev), xv, yv, dev, ranks=MESH_WORLD, timed=events)
+    del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
+    torch.cuda.empty_cache()
     out.update(time_model_kernels(gen, dev))
     out.update(time_mamba_kernels(gen, dev))
 
@@ -6759,29 +6847,63 @@ def time_sparse_gossip(gen, dev) -> dict:
                 inner=inner, reps=reps)
             path = dict(ms=ms, row_block_ms=oms, plain_ms=pms, bound_ms=b,
                         bound_by=by, library_ms=lms,
-                        rows=time_sparse_rows(sp, x, y, dev,
-                                              inner=inner, reps=reps))
+                        rows=time_sparse_rows(
+                                            sp, x, y, dev, ranks=B4_ROW_RANKS,
+                                            timed=functools.partial(
+                                                graph_ms, inner=inner,
+                                                reps=reps)))
         emit(row)
         del x, y, both
     torch.cuda.empty_cache()
     return path
 
 
-def time_sparse_rows(sp, x, y, dev, *, inner, reps) -> dict:
-    """B4's row block on the decentralized mesh at the scale path's pair:
-    rank 1 of B4_ROW_RANKS, its rows of ``sp`` remapped onto its own rows
-    and its halo, over those sources; beside it the row-block route, the
-    plain version and ``torch.sparse.mm`` of the rank's CSR rows (self
-    loop included) on the sources' [Δx|θx|Δy|θy] (the gather half only)."""
+def time_gossip_rows(w, x, y, ranks, timed) -> dict:
+    """B1's row block on the decentralized mesh: rank 1 of ``ranks``, its
+    rows of W over all n rows of the pair (x, y)'s Δ and θ, on both
+    routes, beside the plain version, each timed by ``timed(fn)``."""
+    from repro_torch.kernels import gossip, ref
+
+    n = w.shape[0]
+    k = n // ranks
+    wr = w[k:2 * k].contiguous()
+    xr = (*x[:2], x[2][k:2 * k].contiguous(), *x[3:])
+    yr = (*y[:2], y[2][k:2 * k].contiguous(), *y[3:])
+    rt = gossip.route(n)
+    fns = {r: functools.partial(
+        gossip.fused_gossip_pair_nd, wr, xr, yr, row0=k,
+        force_route=None if r == rt else r) for r in gossip.ROUTES}
+    fns["plain"] = lambda: (ref.fused_gossip_ref(wr, *xr, row0=k),
+                            ref.fused_gossip_ref(wr, *yr, row0=k))
+    ms = {name: timed(fn) for name, fn in fns.items()}
+    dx, dy = x[0].shape[1], y[0].shape[1]
+    bx, by = gossip_rows_bound_ms(n, k, dx), gossip_rows_bound_ms(n, k, dy)
+    rows = dict(n=n, rows_a_rank=k, row0=k, D=[dx, dy], route=rt,
+                ms=ms[rt], **{f"{r}_ms": ms[r] for r in gossip.ROUTES
+                              if r != rt},
+                plain_ms=ms["plain"], bound_ms=bx[0] + by[0],
+                bound_by=bx[1], library_ms=None)
+    emit({"phase": "times", "kernel": "fused_gossip", "pair": True,
+          "row_block": True, **rows})
+    return rows
+
+
+def time_sparse_rows(sp, x, y, dev, *, ranks, timed) -> dict:
+    """B4's row block on the decentralized mesh: rank 1 of ``ranks``, its
+    rows of ``sp`` remapped onto its own rows and its halo, over those
+    sources, the pair (x, y); beside it the row-block route, the plain
+    version and ``torch.sparse.mm`` of the rank's CSR rows (self loop
+    included) on the sources' [Δx|θx|Δy|θy] (the gather half only), each
+    timed by ``timed(fn)``."""
     import torch
 
     from repro_torch.dist import collectives
     from repro_torch.kernels import neighbor_gossip, ref
 
     n = sp.n
-    k = n // B4_ROW_RANKS
+    k = n // ranks
     plan = collectives.halo_plan(sp, collectives.ClientsAxis(
-        n=n, rank=1, size=B4_ROW_RANKS), dev)
+        n=n, rank=1, size=ranks), dev)
     src, rows = plan.cols, slice(k, 2 * k)
     n_src, m = len(src), sp.max_degree
     tab = (plan.table.neighbor_idx, plan.table.neighbor_w,
@@ -6806,10 +6928,8 @@ def time_sparse_rows(sp, x, y, dev, *, inner, reps) -> dict:
     b, by = sparse_rows_bound_ms(k, n_src, d, m)
     out = dict(n=n, rows_a_rank=k, n_src=n_src, max_degree=m, D=[
         x[0].shape[1], y[0].shape[1]], route=rt,
-        ms=graph_ms(kern, inner=inner, reps=reps),
-        row_block_ms=graph_ms(old, inner=inner, reps=reps),
-        plain_ms=graph_ms(plain, inner=inner, reps=reps),
-        library_ms=graph_ms(lib, inner=inner, reps=reps),
+        ms=timed(kern), row_block_ms=timed(old), plain_ms=timed(plain),
+        library_ms=timed(lib),
         library="torch.sparse.mm(the rank's CSR rows, [Δ|θ] of its "
                 "sources): gather half only", bound_ms=b, bound_by=by)
     emit({"phase": "times", "kernel": "sparse_gossip", "pair": True,
@@ -7183,8 +7303,9 @@ def main(argv=None) -> int:
                            "logged rows); launches_mesh: rank 0 of the "
                            "mesh phase's scan run (qwen2-0.5b at "
                            f"{MESH_LAYERS} layers, n = 4 over "
-                           "2 ranks, 2 clients a rank, one round eager, "
-                           "one logged row on every rank); "
+                           f"2 ranks, 2 clients a rank, {MESH_ROUNDS} "
+                           "rounds in one eager chunk, a logged row a "
+                           "round on every rank); "
                            "launches_train_ssm: "
                            "the "
                            "train_ssm phase's main run (mamba2-1.3b at "
@@ -7215,8 +7336,13 @@ def main(argv=None) -> int:
                      "sparse_gossip: the pair at (4096, 384 + 128); "
                      "mesh_rows: the row block of a rank of the "
                      "decentralized mesh, B1 4 of the 8 rows, B4 1024 of "
-                     "the 4096 over its own rows and its halo, with its "
-                     "launches on every rank of the mesh phase's "
+                     "the 4096 over its own rows and its halo; "
+                     "mesh_rows.mesh_rank: the same at the mesh phase's "
+                     "own shape (n = 4 over 2 ranks, 2 rows a rank, D = "
+                     "qwen2-0.5b's packed parameters at "
+                     f"{MESH_LAYERS} layers and its 8 group "
+                     "weights), each route, device time by CUDA events "
+                     "around single calls; with its launches on every rank of the mesh phase's "
                      "pallas_packed+int8 and sparse_packed runs (one a "
                      "round); "
                      "rglru_scan: the served (4, 4096, 4096) on the "

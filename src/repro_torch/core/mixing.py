@@ -141,22 +141,18 @@ def _robust_reduce(vals: torch.Tensor, valid: torch.Tensor, rule: str,
     rank = torch.arange(m, dtype=torch.int32, device=vals.device)[None, :,
                                                                   None]
     keep = (rank >= b[:, None, :]) & (rank < (k - b)[:, None, :])
-    # where-then-sum (not multiply) so the inf padding never meets a 0; the
-    # slots added in order, one elementwise add each, so that a column's
-    # sum does not depend on how many columns are reduced with it
-    kept = torch.where(keep, srt, 0.0)
-    total = kept[:, 0]
-    for j in range(1, m):
-        total = total + kept[:, j]
+    # where-then-sum (not multiply) so the inf padding never meets a 0
+    total = torch.sum(torch.where(keep, srt, 0.0), dim=1)
     return total / (k - 2 * b).to(torch.float32)
 
 
 # the candidate values an order statistic holds at once (n·m·columns): a
 # language model's packed D is ~1e8 columns a client, whose (n, m, D)
 # candidates, sort values and int64 sort indices would not fit beside the
-# state, so the rules reduce column blocks of this many candidates in turn
-# (each coordinate's reduction is its own: the blocks change no value)
-ROBUST_CHUNK = 1 << 25
+# state, so past this many candidates the rules reduce column blocks in
+# turn (each coordinate's reduction is its own); the quadratic's rounds,
+# n = 4096 on the exp graph included, stay one block
+ROBUST_CHUNK = 1 << 28
 
 
 def _reduce_columns(vals_of, valid: torch.Tensor, rule: str, trim: int,
@@ -165,6 +161,8 @@ def _reduce_columns(vals_of, valid: torch.Tensor, rule: str, trim: int,
     ROBUST_CHUNK candidates; ``vals_of(a, b)`` gives the (n, m, b − a)
     candidates of columns [a, b)."""
     n, m = valid.shape
+    if n * m * d <= ROBUST_CHUNK:
+        return _robust_reduce(vals_of(0, d), valid, rule, trim)
     out = torch.empty((n, d), dtype=torch.float32, device=valid.device)
     step = max(1, ROBUST_CHUNK // max(1, n * m))
     for a in range(0, d, step):

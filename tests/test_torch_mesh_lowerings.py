@@ -380,8 +380,9 @@ def test_a_ranks_q_is_the_host_paths_bit_for_bit(method):
 def test_robust_rules_reduce_column_blocks_bit_for_bit(impl, monkeypatch):
     """The robust rules reduce a language model's D in blocks of
     ``mixing.ROBUST_CHUNK`` candidates; each coordinate is its own, so
-    blocks of a few columns give one block's values bit for bit, on the
-    host path and over a rank's halo."""
+    blocks of a few columns give one block's values, on the host path and
+    over a rank's halo: a median bit for bit, a trimmed mean within
+    TOL_ROBUST (``torch.sum`` may group a block's slots otherwise)."""
     from repro_torch.core import mixing
 
     n, d = 8, 37
@@ -408,12 +409,19 @@ def test_robust_rules_reduce_column_blocks_bit_for_bit(impl, monkeypatch):
                        halo=halo, cols=plan.cols, row0=axis.lo)
         return whole, part
 
+    def same(a, b):
+        if rule == "coord_median":
+            return torch.equal(a, b)
+        return float((a - b).abs().max()) <= TOL_ROBUST * (
+            1 + float(b.abs().max()))
+
     want = both()
     monkeypatch.setattr(mixing, "ROBUST_CHUNK", 2 * 3 * n)
     got = both()
     for a, b in zip(got, want):
-        assert torch.equal(a, b)
-    assert torch.equal(got[1], got[0][axis.lo:axis.hi])
+        assert same(a, b)
+    assert same(got[1], got[0][axis.lo:axis.hi])
+    assert same(want[1], want[0][axis.lo:axis.hi])
 
 
 PLAN_CASES = [(topo, n, world) for topo in TOPOLOGIES for n in NS
