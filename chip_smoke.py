@@ -65,7 +65,7 @@ Phases, each printing one JSON line:
 9. serve — ``launch.serve.serve`` at full width in bf16 on
    recurrentgemma-9b (a batched prefill of 4 prompts of 4096 tokens
    through the flash-attention and RG-LRU scan kernels) and on mamba2-1.3b
-   (8 prompts of 4096 tokens through the SSD scan kernel), then 32 decode
+   (8 prompts of 4096 tokens through the SSD scan kernel), then 16 decode
    steps each; the prefill's logits and caches against the same prefill
    through the plain versions, prefill + decode against the plain
    full-sequence forward, the kernels' launches (one a layer in the
@@ -149,6 +149,21 @@ Phases, each printing one JSON line:
    bytes a round against the formula (a halo's rows by the rank's plan);
    a world of 1 over NCCL bit for bit the host path; rounds/s, tokens/s,
    communication s a round and peak memory per rank.
+15b'. fsdp_mesh — a client's weights over the mesh's fsdp and model axes
+   (``launch.steps.build_train_round`` on ``launch.mesh.train_mesh(2, 2,
+   2)``, ``dist.tensor_parallel.ClientShard``): 8 gloo ranks on cuda:0,
+   qwen2-0.5b at full width cut to FSDP_MESH_LAYERS (2) layers, n = 2,
+   K = 4, 4 × 128 tokens a client, FSDP_MESH_ROUNDS (2) rounds of
+   pallas_packed, each rank holding its (fsdp, model) quarter of its
+   client's x and cx; held to the host path run here first from the same
+   seed (TOL_MESH_X / TOL_MESH_Y); per rank the state's bytes, peak
+   memory, the seconds and bytes a round of the fsdp gathers, the
+   reduce-scatters, the model sums and the gossip, rounds/s, and B1's,
+   B5's and B6's vocab-parallel launches by route (the whole-vocabulary
+   B6 launches no time).  The kernels phase holds B6's vocab-parallel
+   form (``ce_partials``) against its plain version at a rank's shape on
+   both routes and the merged NLL of two pieces against whole-vocabulary
+   B6 (TOL_CE_MERGED).
 15c. serve_mesh — the serving mesh (``launch.steps.build_prefill_step``
    and ``build_decode_step`` on a ``(data, model)`` mesh, tensor
    parallelism from ``dist.tensor_parallel``): qwen2-0.5b at full width
@@ -252,6 +267,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -259,7 +275,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 PHASES = ("card", "build", "kernels", "main", "quickstart", "scale", "graph",
           "sweep", "compress", "adversary", "obs", "serve", "scheduler",
-          "evaluate", "train", "mesh", "serve_mesh", "train_ssm", "moe",
+          "evaluate", "train", "mesh", "fsdp_mesh", "serve_mesh",
+          "train_ssm", "moe",
           "frontends", "times")
 # not part of the default run: torch.profiler over a few engine rounds
 EXTRA_PHASES = ("profile",)
@@ -360,12 +377,12 @@ TOL_TRAIN_MOE_BF16_X, TOL_TRAIN_MOE_BF16_Y = 1e-2, 2e-4
 TOL_SCAN_BWD = 1e-5
 
 # the serving path: recurrentgemma-9b at full width in bf16, 4 prompts of two
-# windows (4096 tokens), 32 new tokens each
-SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "recurrentgemma-9b", 4, 4096, 32
+# windows (4096 tokens), 16 new tokens each
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "recurrentgemma-9b", 4, 4096, 16
 LONG_S = 32768           # configs/shapes.py PREFILL_32K's length, batch 1
 # the second served model: mamba2-1.3b at full width in bf16, 8 prompts of
-# 4096 tokens, 32 new tokens each
-MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2-1.3b", 8, 4096, 32
+# 4096 tokens, 16 new tokens each
+MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT, MAMBA_GEN = "mamba2-1.3b", 8, 4096, 16
 # evaluation: group_metrics on mamba2-1.3b, one batch of 4 × 4096 tokens
 # (train_4k's length) for each of 4 clients, 8 groups (the reference's
 # make_data_model defaults)
@@ -379,7 +396,7 @@ TRAIN_RESUME_N, TRAIN_ROUNDS = 2, 3
 # the depth the train and mesh phases cut qwen2-0.5b to, so that the whole
 # script keeps within its time limit (PERF.md §4 lists the cuts); its width
 # and the paths it drives are the full model's
-TRAIN_LAYERS = 4
+TRAIN_LAYERS = 2
 # the rate turns of both train phases: an eager chunk, then a captured one
 RATE_TURNS = (False, True)
 # the decentralized mesh (phase mesh): the train phase's geometry over a
@@ -398,6 +415,24 @@ TOL_MESH_X, TOL_MESH_Y = TOL_TRAIN_BF16_X, TOL_TRAIN_BF16_Y
 # of MESH_LOWERINGS runs MESH_LOWERING_ROUNDS (its Σc and its state after
 # the round's gossip hold it to the host path)
 MESH_LAYERS = 2
+# a client's weights over the mesh's fsdp and model axes (phase
+# fsdp_mesh): a world of 8 ranks on the card as (clients 2, fsdp 2, model
+# 2), qwen2-0.5b at full width cut to FSDP_MESH_LAYERS layers, n = 2, the
+# train phase's K, batch and groups, FSDP_MESH_ROUNDS rounds of
+# pallas_packed (a local step of the second reads the tracking
+# correction), held to the host path from the same seed at the train
+# phase's bf16 limits (TOL_MESH_X / TOL_MESH_Y), stated before the first
+# reading
+FSDP_MESH = (2, 2, 2)
+FSDP_MESH_LAYERS = 2
+FSDP_MESH_ROUNDS = 2
+# B6's vocab-parallel form (phase kernels) at a rank's shape on that mesh:
+# a client's 4 × 128 tokens over fsdp 2, d_model, and the vocabulary over
+# model 2; the merged NLL of the two pieces against the whole vocabulary's
+# B6 at TOL_CE_MERGED·(1 + max), the partials against their plain version
+# at TOL_CE
+CE_PARTIALS_SHAPE = (TRAIN_B * TRAIN_S // 2, 896, 151936 // 2)
+TOL_CE_MERGED = 1e-6
 MESH_ROUNDS = 2
 MESH_LOWERING_ROUNDS = 1
 MESH_LOG_EVERY = 1
@@ -442,7 +477,7 @@ SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 8
 # whose peaks fit the card; cut below them for the script's time limit:
 # PERF.md §4, §5)
 SSM_TRAIN_ARCH, SSM_TRAIN_N = "mamba2-1.3b", 2
-SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 24, 16, 8
+SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 16, 16, 8
 # recurrentgemma-9b's state does not fit the card even at n = 1: its reduced
 # config trains here, and B8 is held at a full-width layer's (n·B, S, W)
 RG_TRAIN_ARCH = "recurrentgemma-9b"
@@ -461,7 +496,7 @@ RG_SCAN_TRAIN_SHAPE = (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 4096)
 MOE_ARCH, MOE_TRAIN_N = "granite-moe-1b-a400m", 2
 MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_DECODE_STEPS = 4, 4096, 16
 MOE_DROPLESS_FACTOR = 8.0
-MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 12, 4
+MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 8, 4
 # the modality frontends (phase frontends): musicgen-medium at full width
 # (4 codebooks of V = 2048, untied), 4 prompts of 1500 frames (30 s at
 # EnCodec's 50 Hz), evaluated on 4 clients × 4 × 1500 frames, its gradient
@@ -502,7 +537,7 @@ OLD_ROUTE = {"fused_round": "block", "fused_gossip": "tiled",
              "sparse_gossip": "row_block", "rglru_scan": "walk"}
 # the serve and churn paths launch no kernel of the other's
 NO_MODEL_KERNELS = {"flash_attention": 0, "rglru_scan": 0, "ssd_scan": 0,
-                    "fused_cross_entropy": 0}
+                    "fused_cross_entropy": 0, "ce_partials": 0}
 
 
 _T0 = time.perf_counter()
@@ -654,9 +689,10 @@ def check_gossip(gen, dev):
     held against two plain single calls and, bitwise, against the tiled
     route's two launches.  The decentralized mesh's row blocks: each
     rank's rows of W at the main path's shapes and at the mesh phase's
-    own, against the plain version at the block's row0 and bit for bit
-    the whole pair's rows.  Returns the largest error and the cases by
-    route."""
+    own and at each fsdp_mesh rank's (one row of W at n = 2 over its
+    piece of the packed state), against the plain version at the block's
+    row0 and bit for bit the whole pair's rows.  Returns the largest
+    error, the cases by route and the row-block cases by shape."""
     import torch
 
     from repro_torch.kernels import gossip, ref
@@ -784,6 +820,18 @@ def check_gossip(gen, dev):
     mesh_cases = row_blocks(w, (dxv, txv, cxv, eta_s, corr),
                             (dyv, tyv, cyv, 1.0, -3.0), MESH_WORLD)
     del w, dxv, txv, cxv, dyv, tyv, cyv
+    # each fsdp_mesh rank's one row of W (n = 2 clients, one a rank of its
+    # clients axis) over its piece of the packed qwen2-0.5b at
+    # FSDP_MESH_LAYERS layers and the group weights, as its pallas_packed
+    # round and the phase's host path launch B1
+    nf = FSDP_MESH[0]
+    with arch_depth(TRAIN_ARCH, FSDP_MESH_LAYERS) as cfg:
+        fdx, fdy = fsdp_packed_dims(cfg)
+    w, dxv, txv, cxv = gossip_operands(nf, fdx, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(nf, fdy, gen, dev)
+    fsdp_cases = row_blocks(w, (dxv, txv, cxv, eta_s, corr),
+                            (dyv, tyv, cyv, 1.0, -3.0), nf)
+    del w, dxv, txv, cxv, dyv, tyv, cyv
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "fused_gossip",
           "cases": sum(by_route.values()), "cases_by_route": by_route,
@@ -793,8 +841,12 @@ def check_gossip(gen, dev):
           "mesh_rank_cases": mesh_cases,
           "mesh_rank_shape": {"n": TRAIN_N, "rows_a_rank": TRAIN_N
                               // MESH_WORLD, "D": [mdx, mdy]},
+          "fsdp_mesh_rank_cases": fsdp_cases,
+          "fsdp_mesh_rank_shape": {"n": nf, "rows_a_rank": 1,
+                                   "D": [fdx, fdy]},
           "max_abs_err_theta_or_c_over_s": worst, "tol": TOL_GOSSIP})
-    return worst, by_route
+    return worst, by_route, {"main": row_cases, "mesh": mesh_cases,
+                             "fsdp_mesh": fsdp_cases}
 
 
 def round_operands(n, dz, k, gen, dev, *, corr_zero=False, mask_rows=None,
@@ -1800,6 +1852,146 @@ def check_cross_entropy(gen, dev):
           "max_err_over_1_plus_max_by_route_and_dtype": worst_rel,
           "tol": TOL_CE, "eval_shape": list(eval_ce_shape())})
     return worst, by_route
+
+
+def ce_partials_bound_ms(n, d, v):
+    """2·N·V·d operations at the bf16 tensor-core peak against hidden,
+    the piece and the labels read once and (m, l, z) written once."""
+    return _bound(2 * (n * d + v * d) + 8 * n + 12 * n, 2 * n * v * d,
+                  BF16_FLOP_S)
+
+
+def check_ce_partials(gen, dev):
+    """B6's vocab-parallel form (``cross_entropy.fused_ce_partials_nd``)
+    against ``ref.ce_partials_ref``: m, the piece's log-sum-exp m + log l
+    and z, each within TOL_CE·(1 + max|plain|), at CE_PARTIALS_SHAPE (bf16, a contiguous piece, labels
+    over the whole vocabulary, so that most fall outside the piece) and
+    at ragged shapes in f32 and bf16, each call on the route
+    ``cross_entropy.route`` gives it and every tensor-core call again on
+    the CUDA-core route; then the two pieces of the whole vocabulary
+    (2 × CE_PARTIALS_SHAPE's V) merged as the model ranks merge them
+    against whole-vocabulary B6, on each route, at TOL_CE_MERGED·(1 +
+    max).  Times at the rank's shape: the kernel on each route, the plain
+    version, and the nearest library calls (``torch.mm`` to f32 logits,
+    then ``F.cross_entropy`` on the piece).  Returns (the largest absolute
+    error, cases by route, times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cross_entropy, ops, ref
+
+    worst = 0.0
+    by_route = {"tensor_core": 0, "cuda_core": 0}
+    errs = {}
+
+    def operands(n, d, v, dtype, lo):
+        hidden, w, labels = ce_operands(n, d, 2 * v, dtype, gen, dev)
+        return hidden, w[lo:lo + v], labels - lo
+
+    def run(hidden, w, labels, what, want_route, force=None):
+        nonlocal worst
+        got = routed_call(lambda: cross_entropy.fused_ce_partials_nd(
+            hidden, w, labels, force_route=force), "ce_partials",
+            want_route)
+        want = ref.ce_partials_ref(hidden, w, labels)
+        # l through the piece's log-sum-exp m + log l (what the merge
+        # reads): a sum of V_r f32 exponentials in another order (and
+        # exp2 on the tensor-core route) misses 1e-5 of l itself
+        # (1.4e-5 at the rank's shape)
+        got = (got[0], got[0] + torch.log(got[1]), got[2])
+        want = (want[0], want[0] + torch.log(want[1]), want[2])
+        for name, g, p in zip(("m", "lse", "z"), got, want):
+            err = max_err(g, p)
+            rel = err / (1 + float(p.abs().max()))
+            worst = max(worst, err)
+            key = f"{want_route}/{str(hidden.dtype).split('.')[1]}/{name}"
+            errs[key] = max(errs.get(key, 0.0), rel)
+            if not rel <= TOL_CE:
+                fail(f"ce_partials {what} {want_route} {name}: err {err}")
+        by_route[want_route] += 1
+        return got
+
+    cases = [(CE_PARTIALS_SHAPE, torch.bfloat16, 0),
+             ((130, 200, 1000), torch.bfloat16, 1000),
+             ((257, 256, 777), torch.bfloat16, 3),
+             ((5, 33, 7), torch.float32, 7), ((100, 64, 1000),
+                                              torch.float32, 0)]
+    for (n, d, v), dtype, lo in cases:
+        hidden, w, labels = operands(n, d, v, dtype, lo)
+        what = f"{(n, d, v)} {dtype} from {lo}"
+        rt = cross_entropy.route(dtype, hidden.stride(), w.stride(),
+                                 hidden.data_ptr() % 16 == 0
+                                 and w.data_ptr() % 16 == 0)
+        run(hidden, w, labels, what, rt)
+        if rt == "tensor_core":
+            run(hidden, w, labels, what, "cuda_core", force="cuda_core")
+        del hidden, w, labels
+    # the merge: two pieces of the whole vocabulary against B6 on it
+    n, d, v = CE_PARTIALS_SHAPE
+    hidden, w_all, labels = ce_operands(n, d, 2 * v, torch.bfloat16, gen, dev)
+    merged_err = {}
+    for force in (None, "cuda_core"):
+        route = force or "tensor_core"
+        parts = [routed_call(lambda lo=lo: cross_entropy.fused_ce_partials_nd(
+            hidden, w_all[lo:lo + v], labels - lo, force_route=force),
+            "ce_partials", route) for lo in (0, v)]
+        big = torch.maximum(parts[0][0], parts[1][0])
+        nll = ref.merge_nll(big, sum(p[1] * torch.exp(p[0] - big)
+                                     for p in parts),
+                            parts[0][2] + parts[1][2])
+        whole = routed_call(lambda: cross_entropy.fused_ce_nd(
+            hidden, w_all, labels, force_route=force), "fused_cross_entropy",
+            route)
+        by_route[route] += 2
+        rel = max_err(nll, whole) / (1 + float(whole.abs().max()))
+        merged_err[route] = rel
+        if not rel <= TOL_CE_MERGED:
+            fail(f"ce_partials: the merged pieces miss whole-vocabulary B6 "
+                 f"on the {route} route by {rel} of (1 + max)")
+    del w_all
+    # times at the rank's shape
+    hidden, w, labels = operands(n, d, v, torch.bfloat16, 0)
+    lab_in = torch.where((labels >= 0) & (labels < v), labels,
+                         torch.full_like(labels, -100))
+
+    try:  # f32 logits straight from the bf16 GEMM, where the build has it
+        torch.mm(hidden[:1], w[:1].T, out_dtype=torch.float32)
+
+        def logits():
+            return torch.mm(hidden, w.T, out_dtype=torch.float32)
+
+        library_form = "torch.mm(out_dtype=float32) + F.cross_entropy"
+    except TypeError:
+        def logits():
+            return torch.mm(hidden, w.T).float()
+
+        library_form = "torch.mm (bf16 logits) .float() + F.cross_entropy"
+
+    def library():
+        return F.cross_entropy(logits(), lab_in, reduction="none",
+                               ignore_index=-100)
+    with ops.uncounted():
+        times = {
+            "shape": list(CE_PARTIALS_SHAPE),
+            "ms": cuda_ms(lambda: cross_entropy.fused_ce_partials_nd(
+                hidden, w, labels)),
+            "cuda_core_ms": cuda_ms(
+                lambda: cross_entropy.fused_ce_partials_nd(
+                    hidden, w, labels, force_route="cuda_core"), reps=5),
+            "plain_ms": cuda_ms(lambda: ref.ce_partials_ref(
+                hidden, w, labels), reps=5),
+            "library_ms": cuda_ms(library, reps=5),
+            "library_form": library_form}
+    times["bound_ms"], times["bound_by"] = ce_partials_bound_ms(n, d, v)
+    del hidden, w, labels
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "ce_partials",
+          "cases": sum(by_route.values()), "cases_by_route": by_route,
+          "max_abs_err": worst,
+          "max_err_over_1_plus_max_by_route_dtype_output": errs,
+          "merged_err_over_1_plus_max_by_route": merged_err,
+          "tol": TOL_CE, "tol_merged": TOL_CE_MERGED, **times})
+    return worst, by_route, times
 
 
 def torch_randn(gen, dev, *shape):
@@ -3344,7 +3536,7 @@ def serve_f32_checks(model, prompt, dev, gen_tokens: int = 8) -> dict:
 def phase_serve(dev) -> dict:
     """The serving path on both served models: recurrentgemma-9b (4 prompts
     of 4096 tokens, through B5 and B8) and mamba2-1.3b (8 prompts of 4096
-    tokens, through B7), 32 new tokens each."""
+    tokens, through B7), SERVE_GEN and MAMBA_GEN (16) new tokens each."""
     return {SERVE_ARCH: serve_one(dev, SERVE_ARCH, SERVE_B, SERVE_PROMPT,
                                   SERVE_GEN),
             MAMBA_ARCH: serve_one(dev, MAMBA_ARCH, MAMBA_B, MAMBA_PROMPT,
@@ -4723,6 +4915,380 @@ def phase_mesh(dev, smi) -> dict:
     out["launches"] = dict(ranks[0][1]["launches"])
     out["launches_by_route"] = {k: ranks[0][1]["routes"][k] for k in routed}
     out["gossip_kernels"] = gossip_kernels
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15b: a client's weights over the mesh's fsdp and model axes
+# ---------------------------------------------------------------------------
+
+def fsdp_mesh_algo():
+    """The fsdp_mesh phase's round: kgt_minimax on pallas_packed at the
+    train CLI's stepsizes and topology, n = 2, K = 4."""
+    from repro_torch.configs.base import AlgorithmConfig
+
+    args = train_args()
+    return AlgorithmConfig(algorithm="kgt_minimax", num_clients=FSDP_MESH[0],
+                           local_steps=TRAIN_K, eta_cx=args.eta_cx,
+                           eta_cy=args.eta_cy, eta_sx=args.eta_s,
+                           eta_sy=args.eta_s, topology=args.topology,
+                           mixing_impl="pallas_packed")
+
+
+def fsdp_mesh_batches(cfg, dev):
+    """The fsdp_mesh phase's initial batch and each round's (K, n, B, S)
+    batches, drawn from the port's data model (the host path draws them
+    and saves them for the ranks)."""
+    import torch
+
+    from repro_torch.data import synthetic as data_lib
+
+    n = FSDP_MESH[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    dm = data_lib.make_data_model(gen, vocab_size=cfg.vocab_size,
+                                  num_groups=TRAIN_G, num_clients=n,
+                                  device=dev)
+    draw = [data_lib.round_batches(dm, gen, local_steps=k, num_clients=n,
+                                   per_client_batch=TRAIN_B,
+                                   seq_len=TRAIN_S, cfg=cfg)
+            for k in [1] + [TRAIN_K] * FSDP_MESH_ROUNDS]
+    init_batch = {k: v[0] for k, v in draw[0].items()}
+    return init_batch, draw[1:]
+
+
+def fsdp_host_path(cfg, dev, directory, init_batch, rounds) -> dict:
+    """The host path of the fsdp_mesh phase in this process (while the
+    ranks start): the same initial state (x0 drawn from a generator
+    seeded 0, the corrections from the initial batch) and
+    FSDP_MESH_ROUNDS rounds of pallas_packed
+    on both clients' whole weights; each rank's pieces of its client's x
+    and cx (``dist.tensor_parallel.ClientShard.take`` at its place on the
+    block) and its client's y and cy saved to ``directory``, on the host,
+    for the ranks, then the marker ``host_done`` that they wait for."""
+    import torch
+
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import objectives
+    from repro_torch.dist import collectives
+    from repro_torch.dist import tensor_parallel as tp
+
+    algo = fsdp_mesh_algo()
+    n = FSDP_MESH[0]
+    problem = objectives.dro_problem(cfg, num_groups=TRAIN_G)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = kgt.init_state(problem, algo, gen, init_batch=init_batch)
+    step = kgt.make_round_step(problem, algo, device=dev)
+    t0 = time.perf_counter()
+    for batches in rounds:
+        state = step(state, batches, torch.zeros((TRAIN_K, n, 0),
+                                                 device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _, f, m = FSDP_MESH
+    for fr in range(f):
+        for mr in range(m):
+            shard = tp.ClientShard(cfg, collectives.MeshAxis(fr, f),
+                                   collectives.MeshAxis(mr, m))
+            for i in range(n):
+                torch.save({name: (getattr(state, name)[i].cpu()
+                                   if name in ("y", "cy") else
+                                   {k: v.cpu() for k, v in shard.take(
+                                       {k: v[i] for k, v in getattr(
+                                           state, name).items()}).items()})
+                            for name in ("x", "cx", "y", "cy")},
+                           os.path.join(directory, f"host_{i}_{fr}_{mr}.pt"))
+    open(os.path.join(directory, "host_done"), "w").close()
+    client_bytes = sum(t[0].numel() * t[0].element_size()
+                       for t in state.x.values())
+    del state
+    return {"seconds": seconds, "client_x_bytes": client_bytes}
+
+
+def fsdp_mesh_rank(rank, world, layers, directory, dev):
+    """One rank of the fsdp_mesh phase: its pieces of its client on the
+    ``(clients, fsdp, model)`` mesh over ``launch.steps.
+    build_train_round``, FSDP_MESH_ROUNDS rounds of pallas_packed; its
+    state's bytes, peak memory, the collectives by phase and kind, the
+    kernels' launches by route, the seconds, and the relative error of
+    each field against the host path's pieces."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import InputShape, MeshConfig, MinimaxConfig
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.dist import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+
+    entered = time.time()
+    t_enter = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c, f, m = FSDP_MESH
+    with arch_depth(TRAIN_ARCH, layers) as cfg:
+        algo = fsdp_mesh_algo()
+        saved = torch.load(os.path.join(directory, "batches.pt"))
+        init_batch = {k: v.to(dev) for k, v in saved["init"].items()}
+        rounds = [{k: v.to(dev) for k, v in b.items()}
+                  for b in saved["rounds"]]
+        mesh = mesh_lib.train_mesh(c, f, m, device_type=dev)
+        step, axis = steps.build_train_round(
+            cfg, InputShape("fsdp_mesh", TRAIN_S, TRAIN_B * c, "train"),
+            mesh, MeshConfig(num_clients=c, fsdp=f, model=m),
+            algo=algo, minimax=MinimaxConfig(num_groups=TRAIN_G),
+            device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        setup_s = t0 - t_enter
+        state = kgt.init_state(step.problem, algo, gen,
+                               init_batch=init_batch, axis=axis)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rows = slice(axis.lo, axis.hi)
+        mine = [{k: v[:, rows] for k, v in b.items()} for b in rounds]
+        del rounds
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        collectives.zero_collective_counts()
+        t0 = time.perf_counter()
+        for batches in mine:
+            state = step(state, batches, torch.zeros(
+                (TRAIN_K, axis.n_local, 0), device=dev))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, routes = launch_counts(), route_counts()
+        counts = collectives.collective_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_lib.leaves(
+                              (state.x, state.cx, state.y, state.cy)))
+        t0 = time.perf_counter()
+        # the host path runs in the parent while the ranks start
+        while not os.path.exists(os.path.join(directory, "host_done")):
+            if time.perf_counter() - t0 > 600:
+                raise TimeoutError("the host path did not finish")
+            time.sleep(0.05)
+        err = dict.fromkeys(("x", "cx", "y", "cy"), 0.0)
+        for i in range(axis.lo, axis.hi):
+            host = torch.load(os.path.join(
+                directory, f"host_{i}_{step.axes.fsdp.rank}_"
+                f"{step.axes.model.rank}.pt"), weights_only=False)
+            for name in err:
+                got = getattr(state, name)
+                pairs = ([(got[i - axis.lo], host[name])]
+                         if name in ("y", "cy") else
+                         [(got[k][i - axis.lo], w)
+                          for k, w in host[name].items()])
+                for g, w in pairs:
+                    if w.numel():   # an empty fsdp piece
+                        err[name] = max(err[name], rel_err(g.cpu(), w))
+        finite = all(bool(t.isfinite().all()) for t in tree_lib.leaves(
+            (state.x, state.cx, state.y, state.cy)))
+        check_s = time.perf_counter() - t0
+    return {"rank": rank, "device": rank_device(), "entered": entered,
+            "setup_s": setup_s, "check_s": check_s,
+            "clients": [axis.lo, axis.hi],
+            "block": [step.axes.fsdp.rank, step.axes.model.rank],
+            "state_bytes": state_bytes, "peak_memory_gb": peak,
+            "init_s": init_s, "seconds": seconds,
+            "rounds_per_s": FSDP_MESH_ROUNDS / seconds,
+            "launches": launches, "routes": routes,
+            "collectives": counts, "rel_err": err, "finite": finite}
+
+
+def fsdp_packed_dims(cfg) -> tuple:
+    """(dx, dy) of the fsdp_mesh phase's gossip on rank (fsdp 0, model 0)
+    of a client's block: its pieces of qwen2-0.5b's parameters at
+    FSDP_MESH_LAYERS layers, packed, and the TRAIN_G group weights."""
+    from repro_torch.dist import collectives
+    from repro_torch.dist import tensor_parallel as tp
+
+    _, f, m = FSDP_MESH
+    shard = tp.ClientShard(cfg, collectives.MeshAxis(0, f),
+                           collectives.MeshAxis(0, m))
+    dx = 0
+    for name, p in shard.skel.named_parameters():
+        rows = collectives.fsdp_widths(shard.rows[name], f)[0]
+        dx += rows * (p.numel() // max(1, p.shape[0]))
+    return dx, TRAIN_G
+
+
+def fsdp_kernel_times(gen, dev, cfg) -> dict:
+    """The model and gossip kernels at a rank's shapes in the fsdp_mesh
+    phase (PERF.md rows 1f, 4f): B1's pair at n = 2 clients, a rank's
+    one row of W over its piece of the packed state (both routes, the
+    plain version; CUDA events around single calls), and B5 on a rank's
+    heads of its fsdp rank's batch rows, (2, 128, 7, 1, 64) bf16 causal,
+    against its plain version, with SDPA's time."""
+    from repro_torch.kernels import ops
+
+    dx, dy = fsdp_packed_dims(cfg)
+    n = FSDP_MESH[0]
+    w, dxv, txv, cxv = gossip_operands(n, dx, gen, dev)
+    _, dyv, tyv, cyv = gossip_operands(n, dy, gen, dev)
+    xv, yv = (dxv, txv, cxv, 0.5, 12.5), (dyv, tyv, cyv, 1.0, -3.0)
+    events = functools.partial(cuda_ms, reps=5, warmup=1)
+    with ops.uncounted():
+        b1 = time_gossip_rows(w, xv, yv, n, events, phase="fsdp_mesh")
+        del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
+        b5 = b5_shard_times(gen, dev, cfg, FSDP_MESH[2],
+                            b=TRAIN_B // FSDP_MESH[1], s=TRAIN_S)
+    emit({"phase": "fsdp_mesh", "case": "kernels at a rank's shapes",
+          "fused_gossip": b1, "flash_attention": b5})
+    return {"fused_gossip": b1, "flash_attention": b5}
+
+
+def phase_fsdp_mesh(dev, smi) -> dict:
+    """A client's weights over the decentralized mesh's fsdp and model
+    axes: a world of 8 gloo ranks on this card as (clients 2, fsdp 2,
+    model 2) (``launch.mesh.train_mesh``, ``launch.steps.
+    build_train_round``), qwen2-0.5b at full width cut to
+    FSDP_MESH_LAYERS layers, n = 2, K = 4, 4 × 128 tokens a client, 8
+    groups, FSDP_MESH_ROUNDS rounds of pallas_packed in bf16 compute:
+    each rank its (fsdp, model) pieces of its client's x and cx, ZeRO-3
+    gathers over fsdp, tensor parallelism over model, B6's vocab-parallel
+    form on its vocabulary piece (the whole-vocabulary B6 launches no
+    time), B5 on its heads, B1 on its shard of the packed state.  Held to
+    the host path, run in this process from the same seed while the
+    ranks start, at TOL_MESH_X (x, cx) and TOL_MESH_Y (y, cy), printed
+    before the reading.  No fallback: a failure fails the phase.  Per rank: the
+    state's bytes against a client's, peak memory, the seconds and bytes
+    a round of the fsdp gathers, the reduce-scatters, the model sums and
+    the gossip, rounds/s, the launches by route."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist import launch as dist_launch
+
+    t_phase = time.perf_counter()
+    c, f, m = FSDP_MESH
+    world = c * f * m
+    emit({"phase": "fsdp_mesh", "case": "plan", "mesh": list(FSDP_MESH),
+          "world": world, "backend": "gloo", "placement": "every rank on "
+          "cuda:0", "arch": TRAIN_ARCH, "layers": FSDP_MESH_LAYERS,
+          "rounds": FSDP_MESH_ROUNDS, "impl": "pallas_packed",
+          "tolerance_x_cx": TOL_MESH_X, "tolerance_y_cy": TOL_MESH_Y})
+    with arch_depth(TRAIN_ARCH, FSDP_MESH_LAYERS) as cfg, \
+            tempfile.TemporaryDirectory() as store:
+        gc.collect()
+        torch.cuda.empty_cache()
+        init_batch, rounds_b = fsdp_mesh_batches(cfg, dev)
+        torch.save({"init": {k: v.cpu() for k, v in init_batch.items()},
+                    "rounds": [{k: v.cpu() for k, v in b.items()}
+                               for b in rounds_b]},
+                   os.path.join(store, "batches.pt"))
+        # the world starts (~30 s for 8 ranks to reach the card) while the
+        # host path runs here; the ranks wait for its pieces to compare
+        got = {}
+
+        def start_world():
+            try:
+                got["ranks"] = dist_launch.run_world(
+                    world, fsdp_mesh_rank, FSDP_MESH_LAYERS, store, dev,
+                    backend="gloo", store_dir=store, device=dev)
+            except BaseException as e:  # raised again below
+                got["error"] = e
+
+        t0, spawned = time.perf_counter(), time.time()
+        thread = threading.Thread(target=start_world)
+        thread.start()
+        try:
+            host = fsdp_host_path(cfg, dev, store, init_batch, rounds_b)
+            host_s = time.perf_counter() - t0
+            del init_batch, rounds_b
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            thread.join()
+        world_s = time.perf_counter() - t0
+        if "error" in got:
+            raise got["error"]
+        ranks = got["ranks"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        shapes = fsdp_kernel_times(gen, dev, cfg)
+    rounds = FSDP_MESH_ROUNDS
+    want_launches = {"flash_attention": rounds * TRAIN_K * FSDP_MESH_LAYERS,
+                     "ce_partials": rounds * TRAIN_K,
+                     "fused_gossip": rounds}
+    kinds = {"fsdp_gathers": ("local_steps", "fsdp_gather"),
+             "reduce_scatters": ("local_steps", "reduce_scatter"),
+             "model_sums": ("local_steps", "model_sum"),
+             "model_maxes": ("local_steps", "all_reduce_max"),
+             "batch_sums": ("local_steps", "batch_sum"),
+             "gossip": ("gossip", "all_gather")}
+    lines = []
+    for rec in ranks:
+        what = f"fsdp_mesh rank {rec['rank']}"
+        if not rec["finite"]:
+            fail(f"{what}: a state leaf is not finite")
+        e = rec["rel_err"]
+        if not (e["x"] <= TOL_MESH_X and e["cx"] <= TOL_MESH_X
+                and e["y"] <= TOL_MESH_Y and e["cy"] <= TOL_MESH_Y):
+            fail(f"{what}: the state differs from the host path {e}")
+        if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
+                               **want_launches}:
+            fail(f"{what}: launches {rec['launches']}, expected "
+                 f"{want_launches}")
+        check_routes({k: rec["routes"][k] for k in ("flash_attention",
+                                                     "ce_partials",
+                                                     "fused_gossip")},
+                     want_launches, what)
+        by_kind = {}
+        for name, (ph, kind) in kinds.items():
+            v = rec["collectives"].get(ph, {}).get(kind)
+            by_kind[name] = None if v is None else {
+                "calls_a_round": v["calls"] / rounds,
+                "bytes_a_round": v["bytes"] / rounds,
+                "seconds_a_round": v["seconds"] / rounds}
+        for name in ("fsdp_gathers", "reduce_scatters", "model_sums",
+                     "gossip"):
+            if by_kind[name] is None:
+                fail(f"{what}: no {name} in the round")
+        line = {"rank": rec["rank"], "device": rec["device"],
+                "clients": rec["clients"], "block_fsdp_model": rec["block"],
+                "state_gb": rec["state_bytes"] / 1e9,
+                "client_x_gb": host["client_x_bytes"] / 1e9,
+                "x_cx_share_of_a_client": (
+                    (rec["state_bytes"] - 2 * 4 * TRAIN_G)
+                    / (2 * host["client_x_bytes"])),
+                "peak_memory_gb": rec["peak_memory_gb"],
+                "setup_s": rec["setup_s"], "init_s": rec["init_s"],
+                "check_s": rec["check_s"], "seconds": rec["seconds"],
+                "rounds_per_s": rec["rounds_per_s"],
+                "collectives_a_round": by_kind,
+                "staged_bytes_a_round":
+                    rec["collectives"]["staged_bytes"] / rounds,
+                "rel_err": e,
+                "launches": {k: rec["launches"][k] for k in want_launches},
+                "launches_by_route": {k: rec["routes"][k]
+                                      for k in ("flash_attention",
+                                                "ce_partials",
+                                                "fused_gossip")}}
+        emit({"phase": "fsdp_mesh", "case": f"rank {rec['rank']}",
+              "nvidia_smi": smi, **line})
+        lines.append(line)
+    out = {"ranks": lines, "host_path_s": host_s, "world_s": world_s,
+           "spawn_to_ranks_s": [r["entered"] - spawned for r in ranks],
+           "kernel_times": shapes,
+           "host_round_s": host["seconds"] / rounds,
+           "phase_s": time.perf_counter() - t_phase,
+           "launches": dict(ranks[0]["launches"]),
+           "launches_by_route": {k: ranks[0]["routes"][k]
+                                 for k in ("flash_attention", "ce_partials",
+                                           "fused_gossip")}}
+    emit({"phase": "fsdp_mesh", "case": "summary", "nvidia_smi": smi,
+          **{k: v for k, v in out.items()
+             if k not in ("ranks", "kernel_times")}})
     return out
 
 
@@ -6858,10 +7424,11 @@ def time_sparse_gossip(gen, dev) -> dict:
     return path
 
 
-def time_gossip_rows(w, x, y, ranks, timed) -> dict:
+def time_gossip_rows(w, x, y, ranks, timed, phase="times") -> dict:
     """B1's row block on the decentralized mesh: rank 1 of ``ranks``, its
     rows of W over all n rows of the pair (x, y)'s Δ and θ, on both
-    routes, beside the plain version, each timed by ``timed(fn)``."""
+    routes, beside the plain version, each timed by ``timed(fn)``; its
+    line under ``phase``."""
     from repro_torch.kernels import gossip, ref
 
     n = w.shape[0]
@@ -6883,7 +7450,7 @@ def time_gossip_rows(w, x, y, ranks, timed) -> dict:
                               if r != rt},
                 plain_ms=ms["plain"], bound_ms=bx[0] + by[0],
                 bound_by=bx[1], library_ms=None)
-    emit({"phase": "times", "kernel": "fused_gossip", "pair": True,
+    emit({"phase": phase, "kernel": "fused_gossip", "pair": True,
           "row_block": True, **rows})
     return rows
 
@@ -7022,8 +7589,13 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    from repro_torch.dist import launch as dist_launch
     from repro_torch.kernels import _build
 
+    if phases & {"mesh", "fsdp_mesh", "serve_mesh"}:
+        # the fork server the mesh phases' ranks fork from imports torch
+        # and the port while the kernels build
+        dist_launch.start_forkserver()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
@@ -7041,13 +7613,15 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     names = ("fused_gossip", "fused_round", "sparse_gossip",
              "flash_attention", "rglru_scan", "ssd_scan",
-             "fused_cross_entropy")
+             "fused_cross_entropy", "ce_partials")
     errs = dict.fromkeys(names)
     cases_by_route = {}
+    gossip_row_cases = None
+    ce_partials_times = {}
     if "kernels" in phases:
         errs = {}
-        errs["fused_gossip"], cases_by_route["fused_gossip"] = \
-            check_gossip(gen, dev)
+        errs["fused_gossip"], cases_by_route["fused_gossip"], \
+            gossip_row_cases = check_gossip(gen, dev)
         errs["fused_round"], cases_by_route["fused_round"] = \
             check_round(gen, dev)
         errs["sparse_gossip"], cases_by_route["sparse_gossip"] = \
@@ -7060,6 +7634,8 @@ def main(argv=None) -> int:
             check_ssd_scan(gen, dev)
         errs["fused_cross_entropy"], cases_by_route["fused_cross_entropy"] = \
             check_cross_entropy(gen, dev)
+        errs["ce_partials"], cases_by_route["ce_partials"], \
+            ce_partials_times = check_ce_partials(gen, dev)
         torch.cuda.synchronize()
     launches = dict.fromkeys(names)
     launches_by_route = {}
@@ -7131,6 +7707,18 @@ def main(argv=None) -> int:
         launches_mesh.update(meshed["launches"])
         mesh_routes = meshed["launches_by_route"]
         mesh_gossip = meshed["gossip_kernels"]
+    fsdp_launches, fsdp_routes, fsdp_shapes = dict.fromkeys(names), {}, {}
+    if "fsdp_mesh" in phases:
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp = phase_fsdp_mesh(dev, smi)
+        fsdp_launches.update(fsdp["launches"])
+        fsdp_routes = fsdp["launches_by_route"]
+        fsdp_shapes = fsdp["kernel_times"]
+        launches["ce_partials"] = fsdp["launches"]["ce_partials"]
+        launches_by_route["ce_partials"] = fsdp_routes["ce_partials"]
     serve_mesh = {}
     if "serve_mesh" in phases:
         import gc
@@ -7166,6 +7754,7 @@ def main(argv=None) -> int:
     times = {name: {} for name in names}
     if "times" in phases:
         times = phase_times(dev, gen)
+    times["ce_partials"] = ce_partials_times
     if "profile" in phases:
         phase_profile(dev)
     torch.cuda.synchronize()
@@ -7193,6 +7782,11 @@ def main(argv=None) -> int:
         {"name": "fused_cross_entropy", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/cross_entropy.cu",
          "replaces": "src/repro/kernels/cross_entropy.py:66"},
+        # B6's vocab-parallel form: the pieces GSPMD's vocab-sharded head
+        # gives the reference's fused_ce_nd
+        {"name": "ce_partials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/cross_entropy.cu",
+         "replaces": "src/repro/kernels/cross_entropy.py:66"},
     ]
     for k in kernels:
         t = times[k["name"]]
@@ -7205,6 +7799,8 @@ def main(argv=None) -> int:
                  launches_evaluate=launches_eval[k["name"]],
                  launches_train=launches_train[k["name"]],
                  launches_mesh=launches_mesh[k["name"]],
+                 launches_fsdp_mesh=fsdp_launches[k["name"]],
+                 fsdp_mesh_shape=fsdp_shapes.get(k["name"]),
                  launches_train_ssm=launches_train_ssm[k["name"]],
                  launches_moe={path: c.get(k["name"]) for path, c
                                in launches_moe.items()} or None,
@@ -7220,6 +7816,10 @@ def main(argv=None) -> int:
             # the mesh phase's run through it
             k["mesh_rows"] = {**t.get("rows", {}),
                               **mesh_gossip.get(k["name"], {})}
+        if k["name"] == "fused_gossip":
+            # B1's row blocks held in the kernels phase: at the main
+            # path's shape, the mesh phase's and the fsdp_mesh phase's
+            k["row_block_cases"] = gossip_row_cases
         scan_mesh = serve_mesh.get("kernels", {}).get(k["name"])
         if scan_mesh:
             # the serve_mesh phase's scan archs at (1, 2): each rank's
@@ -7236,6 +7836,7 @@ def main(argv=None) -> int:
                      launches_by_route_evaluate=eval_routes.get(k["name"]),
                      launches_by_route_train=train_routes.get(k["name"]),
                      launches_by_route_mesh=mesh_routes.get(k["name"]),
+                     launches_by_route_fsdp_mesh=fsdp_routes.get(k["name"]),
                      launches_by_route_train_ssm=train_ssm_routes.get(
                          k["name"]),
                      launches_by_route_moe=moe_routes.get(k["name"]),
@@ -7274,7 +7875,15 @@ def main(argv=None) -> int:
                              "compressed"))
     print(smi, flush=True)
     emit({"kernels": kernels,
-          "launches_note": "fused_gossip, fused_round: the main phase "
+          "launches_note": "ce_partials (B6's vocab-parallel form) and "
+                           "launches_fsdp_mesh: rank 0 of the fsdp_mesh "
+                           "phase (qwen2-0.5b at "
+                           f"{FSDP_MESH_LAYERS} layers on (clients 2, "
+                           f"fsdp 2, model 2), {FSDP_MESH_ROUNDS} rounds "
+                           "of K = 4 under autograd: B6's partials once a "
+                           "local step, B5 once a layer and local step, B1 "
+                           "once a round; every rank launches as many); "
+                           "fused_gossip, fused_round: the main phase "
                            "(n = 8; fused_gossip one pair launch a round "
                            "of the 2 tracking algorithms; like "
                            "sparse_gossip's, replayed launches of captured "
@@ -7332,7 +7941,10 @@ def main(argv=None) -> int:
                            "(4 × 1500 frames) and evaluate (4 clients, B6 "
                            "once a codebook); train_shapes: "
                            "each model kernel at its training shape",
-          "ms_note": "fused_gossip: the pair at (8, 384 + 128); "
+          "ms_note": "ce_partials: at a rank's shape on the "
+                     "fsdp_mesh phase's block (256 tokens, d 896, a "
+                     "vocabulary piece of 75 968), bf16; "
+                     "fused_gossip: the pair at (8, 384 + 128); "
                      "sparse_gossip: the pair at (4096, 384 + 128); "
                      "mesh_rows: the row block of a rank of the "
                      "decentralized mesh, B1 4 of the 8 rows, B4 1024 of "
@@ -7351,7 +7963,10 @@ def main(argv=None) -> int:
                      "the four timed shapes; "
                      "<old route>_ms: the same work on the first port's "
                      "kernel (two launches for a pair)",
-          "library_ms_note": "fused_gossip, fused_round, rglru_scan, "
+          "library_ms_note": "ce_partials: torch.mm to f32 logits "
+                             "(its out_dtype where the build has it) and "
+                             "F.cross_entropy on the piece; "
+                             "fused_gossip, fused_round, rglru_scan, "
                              "ssd_scan: no single PyTorch call computes the "
                              "function; sparse_gossip: torch.sparse.mm of "
                              "the CSR W on [Δx|θx|Δy|θy], the gather half "

@@ -236,10 +236,10 @@ class MinimaxConfig:
 
 
 # ---------------------------------------------------------------------------
-# Mesh / sharding (reference :255-275, without attn_heads_sharding and
-# remat: the port reads neither; they come with the slice that executes the
-# fsdp and model axes in training.  The serving mesh, which executes its
-# model axis, reads no MeshConfig: launch.mesh.serve_mesh takes its sizes)
+# Mesh / sharding (reference :255-275, without attn_heads_sharding: it
+# means something only once the residual's sequence is split over model,
+# ROADMAP A4.  The serving mesh, which executes its model axis, reads no
+# MeshConfig: launch.mesh.serve_mesh takes its sizes)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -254,6 +254,11 @@ class MeshConfig:
     moe_expert_parallel: bool = False
     # residual sharding: "batch_seq" (fsdp, model) or "batch" (fsdp only)
     residual_mode: str = "batch_seq"
+    # activation checkpointing of each unit in training (the reference's
+    # default is True); off here, since launch.steps.build_train_round
+    # refuses it by name: torch.utils.checkpoint does not run under
+    # torch.func.grad (ROADMAP A3)
+    remat: bool = False
 
     @property
     def devices_needed(self) -> int:

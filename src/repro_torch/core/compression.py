@@ -44,18 +44,19 @@ def validate_method(method: Optional[str]) -> Optional[str]:
 
 
 def ef_transmit(delta_buf: torch.Tensor, ef_buf: torch.Tensor, method: str,
-                mask: Optional[torch.Tensor] = None
+                mask: Optional[torch.Tensor] = None, row_max=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Δ, e) -> (q, e') per the protocol above.  All ``(n, D)`` f32.
 
     ``mask`` (optional ``(n,)``): inactive rows transmit exact zeros and
     keep their residual unchanged (their Δ is already zero; without the
-    mask their residual would leak onto the wire).
+    mask their residual would leak onto the wire).  ``row_max``: the max
+    over the ranks that share each row (``quantize_dequant``).
     """
     v = delta_buf.to(torch.float32) + ef_buf.to(torch.float32)
     if mask is not None:
         v = v * mask.to(torch.float32)[:, None]
-    q = quantize_dequant(v, method)
+    q = quantize_dequant(v, method, row_max)
     e_new = v - q
     if mask is not None:
         e_new = torch.where(mask.to(torch.bool)[:, None], e_new, ef_buf)

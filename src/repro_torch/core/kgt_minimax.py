@@ -39,7 +39,12 @@ rows the rank's lists read (B4 on the remapped table, or the order
 statistic over the rank's candidates), and ``fused_round`` the
 whole-round kernel on every rank over the gathered state.  A static W
 only: the per-round W, participation and the adversary are refused, as
-the reference refuses them on its mesh.
+the reference refuses them on its mesh.  Where a client's weights lie over
+its ``(fsdp, model)`` block (``block``; the problem's ``shard``), the
+leaves hold this rank's pieces of its clients: the local steps, the
+corrections and the gossip run elementwise on the pieces, over the ranks
+that hold the same piece of every client (the clients axis), and only
+int8 compression's per-row scale crosses the block (its max).
 """
 from __future__ import annotations
 
@@ -354,6 +359,7 @@ def make_round_step(
     byzantine: bool = False,
     device="cuda",
     axis: Optional[collectives.ClientsAxis] = None,
+    block: Optional[collectives.MeshAxis] = None,
 ):
     """Builds ``round_step(state, batches, noise[, etas], *extras) -> state``.
 
@@ -407,7 +413,10 @@ def make_round_step(
     (``check_mesh_options`` says what else it refuses).  ``sparse_packed``
     and the robust rules build the rank's ``dist.collectives.HaloPlan``
     once, here.  Its collectives count under the phases ``local_steps``
-    (none) and ``gossip``.
+    (none, but a sharded client's gathers, reduce-scatters and sums, which
+    the problem makes) and ``gossip``.  ``block``: the ranks that hold one
+    client's weights between them (``launch.mesh.TrainAxes.block``), over
+    which int8 compression takes each row's max|v|.
     """
     if traced_etas and lr_scale is not None:
         raise ValueError(
@@ -488,6 +497,9 @@ def make_round_step(
                                                gossip_dtype)
             make_mix = lambda round_idx: static_mix  # noqa: E731
     backend = cfg.gossip_backend
+    # int8's per-row scale: the max over the pieces of a split client row
+    row_max = (None if block is None or block.size == 1 else
+               (lambda t: collectives.all_reduce_max(t, block)))
     track = cfg.algorithm in ("kgt_minimax", "gt_gda")
     k_steps = 1 if cfg.algorithm in ("dsgda", "gt_gda") else cfg.local_steps
 
@@ -604,8 +616,11 @@ def make_round_step(
             # EF quantization of the transmitted Δ: the same q rides the
             # mixing and the correction, which keeps Σc = 0
             _need_ef(state)
-            dxb, efx = compression_lib.ef_transmit(dxb, efx, compress, mask)
-            dyb, efy = compression_lib.ef_transmit(dyb, efy, compress, mask)
+            kw = {} if row_max is None else {"row_max": row_max}
+            dxb, efx = compression_lib.ef_transmit(dxb, efx, compress, mask,
+                                                   **kw)
+            dyb, efy = compression_lib.ef_transmit(dyb, efy, compress, mask,
+                                                   **kw)
         if not track:
             # no correction state: the epilogue is one gossip of the
             # stepped parameters, W(θ + η_s·Δ)
@@ -839,13 +854,15 @@ def mean_over_clients(tree, axis=None):
                              tree)
 
 
-def correction_mean_norm(tree, axis=None) -> torch.Tensor:
+def correction_mean_norm(tree, axis=None, block=None) -> torch.Tensor:
     """‖c̄‖ = ‖(1/n) Σ_i c_i‖ over all leaves — Lemma 8 says exactly 0 for
-    the tracking variants.  On the mesh (``axis``) c̄ is all-reduced."""
-    return torch.sqrt(sum(
-        torch.sum(torch.square(collectives.clients_mean(l, axis).to(
-            torch.float32)))
-        for l in tree_lib.leaves(tree)))
+    the tracking variants.  On the mesh (``axis``) c̄ is all-reduced; where
+    the leaves are pieces of a client split over a block of ranks, the
+    sum of squares is taken over it too (``block``, its
+    ``dist.collectives.BlockSum``)."""
+    terms = [torch.sum(torch.square(collectives.clients_mean(l, axis).to(
+        torch.float32))) for l in tree_lib.leaves(tree)]
+    return torch.sqrt(sum(terms) if block is None else block(terms))
 
 
 def diagnostics(problem: MinimaxProblem, state: KGTState):

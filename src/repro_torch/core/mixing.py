@@ -309,14 +309,17 @@ def make_traced_mixer(impl: str, gossip_dtype: str = "float32", *,
     return lambda tree, w: mix_dense(tree, w, gossip_dtype)
 
 
-def consensus_error(tree: Any, axis=None, means=None) -> torch.Tensor:
+def consensus_error(tree: Any, axis=None, means=None,
+                    block=None) -> torch.Tensor:
     """(1/n) Σ_i ||T_i - mean_j T_j||² summed over leaves (client variance Ξ).
 
     On the decentralized mesh (``axis``, a ``dist.collectives.ClientsAxis``:
     the leaves hold this rank's clients) the means and the sum of squares
     are all-reduced over the clients axis, so Ξ is the global one.
     ``means``: the leaves' means over the clients, where the caller has
-    them."""
+    them.  ``block``: where the leaves are pieces of a client split over
+    a block of ranks, its ``dist.collectives.BlockSum``, over which the
+    sum of squares is taken too."""
     leaves = tree_lib.leaves(tree)
     if means is None:
         means = [collectives.clients_mean(x, axis) for x in leaves]
@@ -327,7 +330,12 @@ def consensus_error(tree: Any, axis=None, means=None) -> torch.Tensor:
         return torch.sum(torch.square((x - m.unsqueeze(0)).to(
             torch.float32)))
 
-    if axis is None or axis.size == 1:
+    if (axis is None or axis.size == 1) and block is None:
         return sum(one(x, m) / x.shape[0] for x, m in zip(leaves, means))
-    total = sum(one(x, m) for x, m in zip(leaves, means))
+    if block is None:
+        total = sum(one(x, m) for x, m in zip(leaves, means))
+    else:
+        total = block([one(x, m) for x, m in zip(leaves, means)])
+    if axis is None or axis.size == 1:
+        return total / leaves[0].shape[0]
     return collectives.all_reduce_sum(total, axis) / axis.n

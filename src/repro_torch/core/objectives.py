@@ -191,27 +191,61 @@ def _lm_init_x(cfg):
     return init_x
 
 
+def dro_group_losses(cfg, *, num_groups: int, compute_dtype=torch.bfloat16,
+                     kernels: bool = True, shard=None):
+    """``losses(x, batch) -> ((G,) per-group losses, aux)`` of
+    ``models.model.per_group_loss`` on a client's parameters ``x``: the
+    whole dict through ``models.model.call``, or with ``shard`` (a
+    ``dist.tensor_parallel.ClientShard``) this rank's pieces of it on the
+    fsdp rank's rows of the batch, under the shard's slots, each group's
+    mean over the client's whole batch."""
+    from repro_torch.dist import context as dist_ctx
+    from repro_torch.models import model as model_lib
+
+    kw = dict(num_groups=num_groups, compute_dtype=compute_dtype,
+              kernels=kernels)
+    if shard is None:
+        skel = model_lib.skeleton(cfg)
+        return lambda x, batch: model_lib.call(
+            skel, x, model_lib.per_group_loss, batch, **kw)
+
+    def losses(x, batch):
+        with dist_ctx.residual_constraint(**shard.slots()):
+            return model_lib.per_group_loss(shard.model_of(x),
+                                            shard.batch(batch), **kw)
+
+    return losses
+
+
 def dro_problem(cfg, *, num_groups: int = 8, mu: float = 1.0,
-                compute_dtype=torch.bfloat16,
-                kernels: bool = True) -> MinimaxProblem:
+                compute_dtype=torch.bfloat16, kernels: bool = True,
+                shard=None) -> MinimaxProblem:
     """Reference :201.  ``value`` is Σ_g y_g ℓ_g + aux − μ/2‖y‖² with the
     per-group losses of ``models.model.per_group_loss`` computing in
     ``compute_dtype``; ``kernels`` as there (B5 and B6 on the card,
     differentiated through their autograd Functions; ``False`` runs the
-    plain versions, the check on the card)."""
-    from repro_torch.models import model as model_lib
+    plain versions, the check on the card).
 
-    skel = model_lib.skeleton(cfg)
+    ``shard``: a ``dist.tensor_parallel.ClientShard``, this rank's place
+    on a client's ``(fsdp, model)`` block of the decentralized mesh.  x is
+    then this rank's pieces of a client's weights (``init_x`` draws the
+    whole model's draws and keeps them), gathered where the forward reads
+    them, so ``grad`` returns the pieces' gradient summed over the block;
+    y stays whole, and its gradient ℓ − μy is the same on every rank of
+    the block (not summed over it) (:func:`dro_group_losses`)."""
+    losses_of = dro_group_losses(cfg, num_groups=num_groups,
+                                 compute_dtype=compute_dtype,
+                                 kernels=kernels, shard=shard)
 
     def value(x, y, batch, noise):
         del noise  # the data batch is the only source of randomness
-        losses, aux = model_lib.call(
-            skel, x, model_lib.per_group_loss, batch, num_groups=num_groups,
-            compute_dtype=compute_dtype, kernels=kernels)
+        losses, aux = losses_of(x, batch)
         return torch.dot(y, losses) + aux - 0.5 * mu * torch.sum(y * y)
 
+    init_x = (_lm_init_x(cfg) if shard is None else
+              lambda gen: shard.init(gen, device=gen.device))
     return MinimaxProblem(
-        init_x=_lm_init_x(cfg),
+        init_x=init_x,
         init_y=lambda gen: torch.zeros((num_groups,), device=gen.device),
         value=value, noise_dim=0, mu=mu)
 

@@ -19,17 +19,21 @@ processes of a ``torch.distributed`` world:
    serving mesh's sums over ``model`` and its all-gather of vocab-sharded
    logits, and their counters.  ``launch`` starts a world (``run_world``)
    or joins torchrun's.
-4. **How is a model split over ``model`` to serve it?**
+4. **How is a model split over ``model`` to serve it, and a client's
+   weights over its ``(fsdp, model)`` block to train it?**
    ``tensor_parallel`` is the executed plan beside
-   ``serve_params_shardings``' specs: query and KV heads, SSM heads, LRU
-   channels, d_ff and the vocabulary over the serving mesh's ``model``
-   ranks (Megatron's layout), a rank's shard and the context slots that
-   run its collectives.
+   ``serve_params_shardings``' and ``params_shardings``' specs: query and
+   KV heads, SSM heads, LRU channels, d_ff and the vocabulary over the
+   ``model`` ranks (Megatron's layout), a rank's shard and the context
+   slots that run its collectives; in training (``ClientShard``) each
+   model piece split once more over ``fsdp`` in ZeRO-3 pieces, gathered
+   where the forward reads them (``collectives.fsdp_gather`` and the
+   other autograd Functions of the block).
 
 ``compat`` builds the meshes: a ``DeviceMesh`` over a world, or an
 abstract mesh of named sizes for spec work.  The serving mesh
-(``launch.mesh.ServeMesh``) executes; the training mesh's fsdp and model
-axes are specs only (ROADMAP A13), and the sweep-cell leg of the
+(``launch.mesh.ServeMesh``) and the training mesh's three axes
+(``launch.mesh.TrainAxes``) execute; the sweep-cell leg of the
 reference's smoke run is not ported yet.
 """
 from repro_torch.dist.compat import abstract_mesh, make_mesh, mesh_of

@@ -42,6 +42,18 @@ each rank's vocab columns of the logits, uneven where M does not divide
 V, and each rank's channels of the RG-LRU's gate input).  They count as
 ``all_reduce`` and ``all_gather``.
 
+Training over a client's ``(fsdp, model)`` block (``dist.tensor_parallel.
+ClientShard``) runs them as autograd Functions with ``vmap`` rules, each
+backward the other of its pair: **the fsdp gather** of a weight's ZeRO-3
+pieces (``fsdp_gather``, kind ``fsdp_gather``; its backward a
+**reduce-scatter** of the gradient, pairwise, summed in f32 in rank
+order, ``reduce_scatter``), Megatron's **copy** (identity forward, its
+gradient summed over ``model``) and **sum** (``axis_copy`` /
+``axis_sum``, kind ``model_sum``; over fsdp the per-group loss sums,
+``batch_sum``), and **an all-reduced max** (``axis_max`` /
+``all_reduce_max``: the vocabulary pieces' log-sum-exp maxima, int8's row
+scale over a split row).
+
 A world of one rank makes no collective: an all-gather of one rank is the
 tensor itself and a mean over one rank's clients is the host path's mean,
 so a one-rank mesh runs the host path's operations.
@@ -168,11 +180,13 @@ def axis_of_group(group, n: int, streams: tuple = ()) -> ClientsAxis:
                        backend=dist.get_backend(group), streams=streams)
 
 
-def sub_axes(rank_lists: Sequence[Sequence[int]]) -> Optional[MeshAxis]:
+def sub_axes(rank_lists: Sequence[Sequence[int]], *,
+             streams: bool = True) -> Optional[MeshAxis]:
     """One process group for each list of global ranks in ``rank_lists``
     (every rank of the world calls this, with the same lists, in the same
     order), on the world's backend, with GLOO_STREAMS − 1 stream groups
-    beside each gloo group of more than one rank; returns this rank's
+    beside each gloo group of more than one rank (unless ``streams`` is
+    False: an axis that moves only a few bytes); returns this rank's
     :class:`MeshAxis` on the list that holds it (None if none does)."""
     me = dist.get_rank()
     backend = dist.get_backend()
@@ -180,13 +194,13 @@ def sub_axes(rank_lists: Sequence[Sequence[int]]) -> Optional[MeshAxis]:
     for ranks in rank_lists:
         ranks = list(ranks)
         group = dist.new_group(ranks, backend=backend)
-        streams = ()
-        if backend == "gloo" and len(ranks) > 1:
-            streams = tuple(dist.new_group(ranks, backend="gloo")
-                            for _ in range(GLOO_STREAMS - 1))
+        extra = ()
+        if streams and backend == "gloo" and len(ranks) > 1:
+            extra = tuple(dist.new_group(ranks, backend="gloo")
+                          for _ in range(GLOO_STREAMS - 1))
         if me in ranks:
             mine = MeshAxis(rank=ranks.index(me), size=len(ranks),
-                            group=group, backend=backend, streams=streams)
+                            group=group, backend=backend, streams=extra)
     return mine
 
 
@@ -297,7 +311,10 @@ def _from_wire(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _pieces(axis: MeshAxis, flat: torch.Tensor):
     """(group, start, stop) pieces of a flat tensor: one a stream group, no
-    piece under STREAM_BYTES, the axis' own group first."""
+    piece under STREAM_BYTES, the axis' own group first; none for an
+    empty tensor (a weight's empty fsdp piece)."""
+    if flat.numel() == 0:
+        return []
     groups = (axis.group,) + axis.streams
     k = max(1, min(len(groups), _nbytes(flat) // STREAM_BYTES))
     step = -(-flat.numel() // k)
@@ -309,8 +326,8 @@ def _pieces(axis: MeshAxis, flat: torch.Tensor):
 # primitives
 # ---------------------------------------------------------------------------
 
-def all_gather_rows(x: torch.Tensor, axis: MeshAxis,
-                    dim: int = 0) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, axis: MeshAxis, dim: int = 0, *,
+                    kind: str = "all_gather") -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order: the
     (n, …) tensor of the rank's (n/R, …) rows (``x`` itself on one
     rank).  Over gloo the ranks exchange their pieces pairwise (every
@@ -320,7 +337,7 @@ def all_gather_rows(x: torch.Tensor, axis: MeshAxis,
     moved pairwise (PERF.md §6)."""
     if axis.size == 1:
         return x
-    with _op("all_gather", x.device) as rec:
+    with _op(kind, x.device) as rec:
         staged = _staging(axis, x)
         wire = _to_wire(axis, x)
         if axis.backend == "gloo":
@@ -357,11 +374,12 @@ def all_gather_rows(x: torch.Tensor, axis: MeshAxis,
     return out
 
 
-def all_reduce_sum(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+def all_reduce_sum(t: torch.Tensor, axis: MeshAxis, *,
+                   kind: str = "all_reduce") -> torch.Tensor:
     """The sum of every rank's ``t`` (``t`` itself on one rank)."""
     if axis.size == 1:
         return t
-    with _op("all_reduce", t.device) as rec:
+    with _op(kind, t.device) as rec:
         wire = _to_wire(axis, t)
         if wire is t or wire.data_ptr() == t.data_ptr():
             wire = wire.clone()
@@ -391,14 +409,64 @@ def broadcast_from(t: torch.Tensor, src: int,
     return out
 
 
-def sum_over(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+def sum_over(t: torch.Tensor, axis: MeshAxis, *,
+             kind: str = "all_reduce") -> torch.Tensor:
     """The sum over the axis' ranks of each rank's partial ``t``, in
     ``t``'s dtype: the partials all-reduced in f32, then rounded once to
     ``t``'s dtype (a bf16 sum of M partials would round M − 1 more
     times); ``t`` itself on one rank.  Every rank gets the same values."""
     if axis.size == 1:
         return t
-    return all_reduce_sum(t.to(torch.float32), axis).to(t.dtype)
+    return all_reduce_sum(t.to(torch.float32), axis, kind=kind).to(t.dtype)
+
+
+def all_reduce_max(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """The elementwise max of every rank's ``t`` (``t`` itself on one
+    rank), exact in any dtype; counted as ``all_reduce_max``."""
+    if axis.size == 1:
+        return t
+    with _op("all_reduce_max", t.device) as rec:
+        wire = _to_wire(axis, t)
+        if wire is t or wire.data_ptr() == t.data_ptr():
+            wire = wire.clone()
+        dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=axis.group)
+        out = _from_wire(wire, t.device)
+        rec["bytes"] = _nbytes(wire)
+    return out
+
+
+def reduce_scatter_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """This rank's block of rows of the sum over the axis' ranks of each
+    rank's ``x`` (size·k, …): rank r gets rows [r·k, (r + 1)·k) of the
+    sum, its own block and the others' (each rank sends every peer its
+    block, all in one batch) added in f32 in rank order and rounded once
+    to ``x``'s dtype.  Counted as ``reduce_scatter`` (bytes: the blocks
+    received).  ``x`` itself on one rank."""
+    if axis.size == 1:
+        return x
+    k = x.shape[0] // axis.size
+    if k * axis.size != x.shape[0]:
+        raise ValueError(f"{x.shape[0]} rows do not split over "
+                         f"{axis.size} ranks")
+    with _op("reduce_scatter", x.device) as rec:
+        staged = _staging(axis, x)
+        pairs, got = [], {}
+        for p in range(axis.size):
+            if p == axis.rank:
+                continue
+            block = _to_wire(axis, x[p * k:(p + 1) * k])
+            buf = _recv_like(block, staged)
+            pairs += [(dist.isend, block, p), (dist.irecv, buf, p)]
+            got[p] = buf
+        _p2p(pairs, axis)
+        acc = None
+        for p in range(axis.size):
+            part = (x[p * k:(p + 1) * k] if p == axis.rank
+                    else _from_wire(got[p], x.device))
+            part = part.to(torch.float32)
+            acc = part if acc is None else acc + part
+        rec["bytes"] = sum(_nbytes(g) for g in got.values())
+    return acc.to(x.dtype)
 
 
 def all_gather_last(x: torch.Tensor, axis: MeshAxis,
@@ -683,6 +751,27 @@ def clients_mean(x: torch.Tensor, axis: Optional[ClientsAxis]):
     return (s / axis.n).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockSum:
+    """A sum over the ranks of a client's ``(fsdp, model)`` block of terms
+    computed leaf by leaf on each rank's pieces, each element of the
+    client counted once: ``owned`` (a tree congruent with the pieces',
+    ``tensor_parallel.ClientShard.owned``) says which of this rank's
+    leaves it counts — a leaf that several model ranks hold whole counts
+    on the first of them."""
+    axis: MeshAxis
+    owned: Any
+
+    def __call__(self, terms: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The block's sum of ``terms``, one f32 scalar a leaf in
+        ``tree.leaves`` order."""
+        own = tree_lib.leaves(self.owned)
+        total = sum(t.to(torch.float32) for t, o in zip(terms, own) if o)
+        if not torch.is_tensor(total):
+            total = terms[0].new_zeros((), dtype=torch.float32)
+        return all_reduce_sum(total, self.axis)
+
+
 def gather_tree(tree: Any, axis: ClientsAxis) -> Any:
     """Every (n/R, …) tensor leaf all-gathered to (n, …) on every rank
     (host values pass through)."""
@@ -696,3 +785,200 @@ def shard_tree(tree: Any, axis: ClientsAxis) -> Any:
     through)."""
     return tree_lib.tree_map(
         lambda x: axis.rows(x) if isinstance(x, torch.Tensor) else x, tree)
+
+
+# ---------------------------------------------------------------------------
+# a client's (fsdp, model) block in training: autograd Functions
+# ---------------------------------------------------------------------------
+#
+# A rank's clients run under ``torch.func.vmap(grad)``, so each Function has
+# a ``vmap`` rule: the clients' dim is moved to the front and the
+# collective runs once on the batch (the plain tensors below the
+# transforms).  Each backward is the other Function of its pair, so it
+# too runs as one collective under ``vmap``: the fsdp gather's backward is
+# a reduce-scatter of the summed gradient, the model axis' copy (an
+# identity forward) sums its gradient, and its sum (the row-parallel
+# partials) passes its gradient through unchanged (Megatron's pair).
+
+def _front(x, dim):
+    return x.movedim(dim, 0)
+
+
+def fsdp_widths(rows: int, f: int):
+    """Rank r's rows of a dim of ``rows`` split over ``f`` fsdp ranks:
+    pieces of ⌈rows/f⌉, the last ones shorter or empty."""
+    step = -(-rows // f)
+    return tuple(max(0, min(step, rows - r * step)) for r in range(f))
+
+
+def _gather_piece(x, axis: MeshAxis, rows: int, dim: int):
+    """The whole dim ``dim`` (``rows`` long) from every rank's piece of it
+    (:func:`fsdp_widths`): each piece padded to ⌈rows/F⌉, all-gathered,
+    trimmed."""
+    step = -(-rows // axis.size)
+    pad = step - x.shape[dim]
+    if pad:
+        x = torch.cat([x, x.new_zeros((*x.shape[:dim], pad,
+                                       *x.shape[dim + 1:]))], dim=dim)
+    return all_gather_rows(x.contiguous(), axis, dim=dim,
+                           kind="fsdp_gather").narrow(dim, 0, rows)
+
+
+def _scatter_piece(g, axis: MeshAxis, rows: int, dim: int):
+    """This rank's piece of dim ``dim`` of the sum over the ranks of each
+    rank's whole ``g`` (:func:`reduce_scatter_rows`, in f32)."""
+    step = -(-rows // axis.size)
+    g = g.movedim(dim, 0)
+    pad = step * axis.size - rows
+    if pad:
+        g = torch.cat([g, g.new_zeros((pad, *g.shape[1:]))])
+    part = reduce_scatter_rows(g.contiguous(), axis)
+    width = fsdp_widths(rows, axis.size)[axis.rank]
+    return part[:width].movedim(0, dim)
+
+
+class FsdpGather(torch.autograd.Function):
+    """A weight's rows joined from its fsdp pieces along ``dim``; its
+    gradient summed over the fsdp ranks and scattered back to the
+    pieces."""
+
+    @staticmethod
+    def forward(x, axis, rows, dim):
+        return _gather_piece(x, axis, rows, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.axis, ctx.rows, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return FsdpScatter.apply(g, ctx.axis, ctx.rows, ctx.dim), None, \
+            None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, rows, dim):
+        if in_dims[0] is None:
+            return FsdpGather.apply(x, axis, rows, dim), None
+        return FsdpGather.apply(_front(x, in_dims[0]), axis, rows,
+                                dim + 1), 0
+
+
+class FsdpScatter(torch.autograd.Function):
+    """The sum over the fsdp ranks of a whole-weight gradient, this rank's
+    piece of it (the backward of :class:`FsdpGather`)."""
+
+    @staticmethod
+    def forward(g, axis, rows, dim):
+        return _scatter_piece(g, axis, rows, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.axis, ctx.rows, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return FsdpGather.apply(g, ctx.axis, ctx.rows, ctx.dim), None, \
+            None, None
+
+    @staticmethod
+    def vmap(info, in_dims, g, axis, rows, dim):
+        if in_dims[0] is None:
+            return FsdpScatter.apply(g, axis, rows, dim), None
+        return FsdpScatter.apply(_front(g, in_dims[0]), axis, rows,
+                                 dim + 1), 0
+
+
+class AxisCopy(torch.autograd.Function):
+    """The identity forward, the gradient summed over the axis' ranks
+    (:func:`sum_over`): where the whole residual enters a column-parallel
+    piece, each rank's gradient of it is a partial."""
+
+    @staticmethod
+    def forward(x, axis, kind):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.axis, ctx.kind = inputs
+
+    @staticmethod
+    def backward(ctx, g):
+        return AxisSum.apply(g, ctx.axis, ctx.kind), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, kind):
+        if in_dims[0] is None:
+            return AxisCopy.apply(x, axis, kind), None
+        return AxisCopy.apply(x, axis, kind), in_dims[0]
+
+
+class AxisSum(torch.autograd.Function):
+    """The sum over the axis' ranks of each rank's partial
+    (:func:`sum_over`: f32, rounded once), the gradient passed through:
+    every rank's partial enters the sum once."""
+
+    @staticmethod
+    def forward(x, axis, kind):
+        return sum_over(x, axis, kind=kind)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, kind):
+        if in_dims[0] is None:
+            return AxisSum.apply(x, axis, kind), None
+        return AxisSum.apply(x, axis, kind), in_dims[0]
+
+
+def fsdp_gather(x: torch.Tensor, axis: MeshAxis, rows: int,
+                dim: int = 0) -> torch.Tensor:
+    """The whole dim ``dim`` (``rows`` long) of a weight of which this
+    rank holds its :func:`fsdp_widths` piece: :class:`FsdpGather` (``x``
+    itself on one rank)."""
+    if axis.size == 1:
+        return x
+    return FsdpGather.apply(x, axis, rows, dim)
+
+
+def axis_copy(x: torch.Tensor, axis: MeshAxis,
+              kind: str = "model_sum") -> torch.Tensor:
+    """:class:`AxisCopy` (``x`` itself on one rank)."""
+    return x if axis.size == 1 else AxisCopy.apply(x, axis, kind)
+
+
+def axis_sum(x: torch.Tensor, axis: MeshAxis,
+             kind: str = "model_sum") -> torch.Tensor:
+    """:class:`AxisSum` (``x`` itself on one rank)."""
+    return x if axis.size == 1 else AxisSum.apply(x, axis, kind)
+
+
+class AxisMax(torch.autograd.Function):
+    """The elementwise max over the axis' ranks (:func:`all_reduce_max`),
+    without a gradient."""
+
+    @staticmethod
+    def forward(x, axis):
+        return all_reduce_max(x, axis)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis):
+        return AxisMax.apply(x, axis), in_dims[0]
+
+
+def axis_max(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """:class:`AxisMax` (``x`` itself on one rank)."""
+    return x if axis.size == 1 else AxisMax.apply(x, axis)

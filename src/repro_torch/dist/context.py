@@ -46,14 +46,20 @@ def current_slots() -> Dict[str, ConstraintFn]:
     return out
 
 
-def apply(tag: str, x):
-    """The innermost constraint registered under ``tag`` applied to ``x``,
-    or ``x`` itself."""
+def slot(tag: str) -> Optional[ConstraintFn]:
+    """The innermost function registered under ``tag``, or None."""
     for frame in reversed(_stack()):
         fn = frame.get(tag)
         if fn is not None:
-            return fn(x)
-    return x
+            return fn
+    return None
+
+
+def apply(tag: str, x):
+    """The innermost constraint registered under ``tag`` applied to ``x``,
+    or ``x`` itself."""
+    fn = slot(tag)
+    return x if fn is None else fn(x)
 
 
 def apply_residual(x):
@@ -69,7 +75,8 @@ def residual_constraint(residual: Optional[ConstraintFn] = None,
     """Installs constraint functions for the dynamic extent of the block.
 
     ``residual`` becomes the :func:`apply_residual` target; keyword slots
-    register further tagged switches (``attn_qkv`` / ``attn_out``).
+    register further tagged switches (``attn_qkv`` / ``attn_out``, the
+    serving and training meshes' collectives of ``dist.tensor_parallel``).
     Re-entrant: nested blocks shadow outer tags and restore them on exit.
     """
     frame = dict(slots)

@@ -1,9 +1,8 @@
-"""Starting a ``torch.distributed`` world: ``run_world`` spawns one, and
+"""Starting a ``torch.distributed`` world: ``run_world`` starts one, and
 ``init_from_env`` joins the one ``torchrun`` starts.
 
-``run_world(world, fn, *args, backend=, store_dir=)`` spawns ``world``
-processes (the ``spawn`` start method: a process that has used CUDA cannot
-fork a child that uses it), joins them through a ``FileStore`` in a fresh
+``run_world(world, fn, *args, backend=, store_dir=)`` starts ``world``
+processes, joins them through a ``FileStore`` in a fresh
 directory under ``store_dir`` (a file, so no TCP port can collide between
 worlds that run at once), calls ``fn(rank, world, *args)`` in each, and
 returns each rank's result in rank order.  A rank that raises fails the
@@ -14,10 +13,21 @@ store directory.  On ``device="cuda"`` rank r runs on
 ``cuda:(r mod device_count)``; the caller frees its CUDA memory pool first
 (``gc.collect()``, ``torch.cuda.empty_cache()``), since each rank holds a
 context of its own beside the caller's.
+
+The ranks fork from ``multiprocessing``'s fork server, which
+:func:`start_forkserver` starts once a process with torch and the port's
+modules imported (``FORKSERVER_PRELOAD``): a spawned rank spends seconds
+importing them, most of a world's start on the card; a forked one none.
+A process that has used CUDA cannot fork a child that uses it, but the
+server never touches CUDA, so a rank initializes it afresh.  The ranks
+see the environment the server was started with; it stops when the
+process that started it exits.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
+import multiprocessing
 import os
 import tempfile
 from typing import Any, Callable, List, Optional, Tuple
@@ -27,6 +37,36 @@ import torch.distributed as dist
 
 # how long a rank waits for the others in a collective before it fails
 TIMEOUT_S = 600
+
+# what the fork server imports: torch, torch.func's first import
+# (torch._dynamo) and the port's modules that the ranks run
+FORKSERVER_PRELOAD = ("torch", "torch.distributed", "torch._dynamo",
+                      "repro_torch.dist.launch", "repro_torch.launch.train",
+                      "repro_torch.launch.steps", "repro_torch.launch.serve")
+
+
+def start_forkserver() -> None:
+    """Starts the fork server that ``run_world`` forks ranks from, with
+    ``FORKSERVER_PRELOAD`` imported, unless it runs; stopped at exit.  It
+    returns at once: the server imports them in the background (a caller
+    may start it early, while it does other work), and a world started
+    before it is done waits for it."""
+    from multiprocessing import forkserver
+
+    if forkserver._forkserver._forkserver_pid is None:
+        multiprocessing.set_forkserver_preload(list(FORKSERVER_PRELOAD))
+        atexit.register(stop_forkserver)
+    forkserver.ensure_running()
+
+
+def stop_forkserver() -> None:
+    """Stops the fork server, if one runs, and waits for it to end."""
+    from multiprocessing import forkserver
+
+    # the module's own stop (it closes the server's "alive" pipe); the
+    # server otherwise outlives the caller by as long as it takes to see
+    # the pipe close
+    forkserver._forkserver._stop()
 
 
 def torchrun_env() -> Optional[Tuple[int, int, int]]:
@@ -114,17 +154,18 @@ def _entry(rank: int, world: int, backend: str, store: str, device: str,
 def run_world(world: int, fn: Callable, *args, backend: str = "gloo",
               store_dir: str, device: str = "cpu",
               threads: Optional[int] = None) -> List[Any]:
-    """``fn(rank, world, *args)`` on each rank of a spawned world of
-    ``world`` processes; returns the results in rank order (module
-    docstring).  ``threads``: each rank's torch threads (default: this
-    process's share, its threads over ``world``)."""
+    """``fn(rank, world, *args)`` on each rank of a world of ``world``
+    processes forked from the fork server; returns the results in rank
+    order (module docstring).  ``threads``: each rank's torch threads
+    (default: this process's share, its threads over ``world``)."""
     check_backend(backend, device, world)
+    start_forkserver()
     os.makedirs(store_dir, exist_ok=True)
     store = tempfile.mkdtemp(prefix="world-", dir=store_dir)
     if threads is None:
         threads = max(1, torch.get_num_threads() // world)
     torch.multiprocessing.start_processes(
         _entry, args=(world, backend, store, device, threads, fn, args),
-        nprocs=world, join=True, start_method="spawn")
+        nprocs=world, join=True, start_method="forkserver")
     return [torch.load(os.path.join(store, f"result_{r}.pt"),
                        weights_only=False) for r in range(world)]

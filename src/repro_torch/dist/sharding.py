@@ -19,6 +19,12 @@ expert leaf on ``model`` with ``expert_parallel``), so the same dims land
 on the same axes as in its ``PartitionSpec``.  A tree is a nested dict /
 list / tuple; a leaf's path is its keys, a dotted string key (the port's
 parameter names, ``layers.3.moe.gate``) counting as its parts.
+
+These are specs.  The executed training layout of a client's weights is
+``dist.tensor_parallel.ClientShard``: over ``model`` the serving mesh's
+Megatron plan (heads, d_ff, the vocabulary; the dims GSPMD shards for
+``fsdp2d`` where the largest dim is one of those), over ``fsdp`` dim 0 of
+each model piece in ZeRO-3 pieces.
 """
 from __future__ import annotations
 

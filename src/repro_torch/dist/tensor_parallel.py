@@ -83,6 +83,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import types
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -464,3 +465,234 @@ def model_parallel(axis: collectives.MeshAxis, cfg: ModelConfig):
     """The model axis' :func:`slots` installed for the block."""
     with dist_ctx.residual_constraint(**slots(axis, cfg)):
         yield
+
+
+# ---------------------------------------------------------------------------
+# training: one client's weights over its (fsdp, model) block
+# ---------------------------------------------------------------------------
+
+# the block kinds that train split over a client's (fsdp, model) block
+TRAIN_KINDS = ("attn", "sliding", "attn_local")
+
+
+def check_train(cfg: ModelConfig, fsdp: int, model: int, *,
+                param_mode: str = "fsdp2d",
+                expert_parallel: bool = False) -> None:
+    """Refuses by name what training over a client's ``fsdp × model``
+    block does not run yet: the ``ssm``, ``rglru`` and ``moe`` blocks
+    (their backward slots), ``moe_expert_parallel`` and ``param_mode=
+    "replicated"``; then what :func:`check_config` refuses.  Nothing at
+    ``fsdp = model = 1``."""
+    if fsdp * model == 1:
+        return
+    where = f"in training over fsdp × model = {fsdp} × {model}"
+    off = sorted(set(cfg.blocks()) - set(TRAIN_KINDS))
+    if off:
+        raise NotImplementedError(
+            f"{cfg.name}: the {', '.join(off)} blocks {where}: not ported "
+            "yet (ROADMAP A3)")
+    if expert_parallel:
+        raise NotImplementedError(
+            f"moe_expert_parallel {where}: not ported yet (ROADMAP A3)")
+    if param_mode != "fsdp2d":
+        raise NotImplementedError(
+            f"param_mode={param_mode!r} {where}: not ported yet (ROADMAP "
+            "A3)")
+    check_config(cfg, model)
+
+
+def merge_partials(m, l, z, axis: collectives.MeshAxis):
+    """The vocabulary pieces' per-token partials over the model axis:
+    (M, L, Z) with M = max m, L = Σ l·e^(m − M), Z = Σ z (``nll = M +
+    log L − Z``).  M is taken without a gradient (the NLL does not depend
+    on it); L and Z are :func:`collectives.axis_sum`, so each rank's
+    gradient of its own l and z is the whole one."""
+    big = collectives.axis_max(m.detach(), axis)
+    return (big, collectives.axis_sum(l * torch.exp(m - big), axis),
+            collectives.axis_sum(z, axis))
+
+
+class LayerPieces:
+    """One layer of a :class:`ShardedModel`: ``gathered()`` is the layer
+    as ``models.transformer.block_forward`` reads it, every weight
+    all-gathered over fsdp at that call."""
+
+    def __init__(self, owner: "ShardedModel", kind: str,
+                 names: List[Tuple[str, str, str]]):
+        self.kind = kind
+        self._owner, self._names = owner, names
+
+    def gathered(self):
+        out: dict = {}
+        for name, head, leaf in self._names:
+            w = self._owner.weight(name)
+            if leaf:
+                out.setdefault(head, {})[leaf] = w
+            else:
+                out[head] = w
+        return types.SimpleNamespace(kind=self.kind, **out)
+
+
+class ShardedModel:
+    """A ``models.model.Model`` read from this rank's pieces of a client's
+    weights (``x``, keyed by ``param_dict`` name): each weight
+    all-gathered over fsdp where the forward first reads it
+    (``collectives.fsdp_gather``, whose backward reduce-scatters its
+    gradient), a layer's at the layer's entry, and kept for the rest of
+    the forward: a tied embedding, read by the lookup and the head, is
+    gathered and reduce-scattered once.  Over ``model`` it is the rank's
+    tensor-parallel shard (its ``cfg`` and ``vocab_range``).  One instance
+    serves one forward (``ClientShard.model_of``)."""
+
+    def __init__(self, shard: "ClientShard", x: Dict[str, torch.Tensor]):
+        self.cfg = shard.skel.cfg
+        self.vocab_range = shard.skel.vocab_range
+        self._shard, self._x = shard, x
+        self._gathered: Dict[str, torch.Tensor] = {}
+        per_layer: Dict[int, list] = {}
+        for name in x:
+            parts = name.split(".")
+            if parts[0] == "layers":
+                rest = ".".join(parts[2:])
+                head, _, leaf = rest.partition(".")
+                per_layer.setdefault(int(parts[1]), []).append(
+                    (name, head, leaf))
+        self.layers = [LayerPieces(self, kind, per_layer[i])
+                       for i, kind in enumerate(self.cfg.blocks())]
+
+    def weight(self, name: str) -> torch.Tensor:
+        if name not in self._gathered:
+            self._gathered[name] = collectives.fsdp_gather(
+                self._x[name], self._shard.fsdp, self._shard.rows[name])
+        return self._gathered[name]
+
+    @property
+    def embed(self):
+        return self.weight("embed")
+
+    @property
+    def final_norm(self):
+        return self.weight("final_norm")
+
+    @property
+    def head(self):
+        return self.weight("head") if "head" in self._x else None
+
+
+class ClientShard:
+    """This rank's piece of one client's weights on the client's ``(fsdp,
+    model)`` block of the decentralized mesh.  Over ``model`` a leaf is
+    split by the serving mesh's plan (:func:`plan`: heads, d_ff and the
+    vocabulary; norms whole); over ``fsdp`` the rank's model piece is
+    split once more along its dim 0 in pieces of ⌈n/F⌉
+    (``collectives.fsdp_widths``, the last ones shorter or empty), so the
+    block's F·M ranks hold one copy of the client between them.  The
+    state's leaves (x, cx) hold these pieces; y stays whole on every rank
+    of the block.  The client's batch rows split over fsdp
+    (:meth:`batch`).  ``block``: all the client's ranks (sums over the
+    pieces, :meth:`block_sum`)."""
+
+    def __init__(self, cfg: ModelConfig, fsdp: collectives.MeshAxis,
+                 model: collectives.MeshAxis,
+                 block: collectives.MeshAxis = collectives.MeshAxis(0, 1)):
+        self.cfg, self.fsdp, self.model, self.block = cfg, fsdp, model, block
+        self.plan = plan(cfg, model.size)
+        self.skel = shard_skeleton(cfg, model.size, model.rank)
+        self.rows = {name: p.shape[0]
+                     for name, p in self.skel.named_parameters()}
+
+    def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's fsdp piece of ``name``'s model piece ``t``."""
+        widths = collectives.fsdp_widths(self.rows[name], self.fsdp.size)
+        lo = sum(widths[:self.fsdp.rank])
+        return t.narrow(0, lo, widths[self.fsdp.rank]).clone()
+
+    def take(self, full: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        """This rank's pieces of a whole client's parameter dict."""
+        return {name: self.piece(name, t) for name, t in
+                shard_params(full, self.plan, self.model.rank).items()}
+
+    def init(self, generator, *, device, dtype=torch.float32
+             ) -> Dict[str, torch.Tensor]:
+        """This rank's pieces of ``models.model.init_params(cfg,
+        generator=...)``, the generator left where that leaves it
+        (:func:`init_shard`)."""
+        mine = init_shard(self.cfg, self.model.size, self.model.rank,
+                          generator=generator, device=device, dtype=dtype)
+        return {name: self.piece(name, t) for name, t in mine.items()}
+
+    def batch(self, batch: dict) -> dict:
+        """This fsdp rank's rows of one client's (B, …) batch."""
+        f, r = self.fsdp.size, self.fsdp.rank
+        out = {}
+        for k, v in batch.items():
+            b = v.shape[0]
+            if b % f:
+                raise ValueError(f"a client's batch of {b} rows does not "
+                                 f"split over {f} fsdp ranks")
+            out[k] = v[r * (b // f):(r + 1) * (b // f)]
+        return out
+
+    def model_of(self, x: Dict[str, torch.Tensor]) -> ShardedModel:
+        return ShardedModel(self, x)
+
+    def owned(self) -> Dict[str, bool]:
+        """Whether this rank counts each of its pieces in a sum over the
+        block: a leaf every model rank holds whole (a norm) on model rank
+        0 only, a range several model ranks hold (a replicated KV head)
+        on the first of them."""
+        r = self.model.rank
+        out = {}
+        for name, s in self.plan.items():
+            if s is None:
+                out[name] = r == 0
+            else:
+                out[name] = all(s.spans(q) != s.spans(r) for q in range(r))
+        return out
+
+    def block_sum(self) -> collectives.BlockSum:
+        """The sum over the block of per-leaf terms of the pieces, each
+        element counted once."""
+        return collectives.BlockSum(self.block, self.owned())
+
+    def slots(self) -> dict:
+        """The ``dist.context`` slots of training on the block: over
+        ``model`` the copies where the whole residual enters a
+        column-parallel piece (``attn_in``, ``ffn_in``, ``head_in``), the
+        row-parallel sums (``attn_proj``, ``ffn_out``, ``embed_rows``) and
+        the vocabulary pieces' partial log-sum-exps merged
+        (``vocab_merge``); over ``fsdp`` the per-group loss sums and
+        token counts (``batch_sum``).  None of them at one rank."""
+        out = {}
+        mod, fs = self.model, self.fsdp
+        if mod.size > 1:
+            def copy(t):
+                return collectives.axis_copy(t, mod)
+
+            def total(t):
+                return collectives.axis_sum(t, mod)
+
+            out.update(attn_in=copy, ffn_in=copy, head_in=copy,
+                       attn_proj=total, ffn_out=total, embed_rows=total,
+                       vocab_merge=lambda m, l, z: merge_partials(m, l, z,
+                                                                  mod))
+        if fs.size > 1:
+            out["batch_sum"] = lambda t: collectives.axis_sum(
+                t, fs, "batch_sum")
+        return out
+
+
+def gather_client(shards: Sequence[Dict[str, torch.Tensor]],
+                  cfg: ModelConfig, fsdp: int, model: int
+                  ) -> Dict[str, torch.Tensor]:
+    """One client's whole parameter dict from the pieces of its block's
+    ranks, in block order (fsdp rank f, model rank m at ``f·model + m``):
+    the fsdp pieces joined along dim 0, then the model pieces
+    (:func:`gather_params`, which checks the replicated ones equal)."""
+    pieces_m = [{name: torch.cat([shards[f * model + m][name]
+                                  for f in range(fsdp)])
+                 for name in shards[m]} for m in range(model)]
+    if model == 1:
+        return pieces_m[0]
+    return gather_params(pieces_m, plan(cfg, model))

@@ -19,16 +19,20 @@ from repro_torch.core.minimax import MinimaxProblem
 from repro_torch.dist import collectives
 
 
-def _consensus_block(state, axis=None, xbar=None,
-                     ybar=None) -> Dict[str, torch.Tensor]:
+def _consensus_block(state, axis=None, xbar=None, ybar=None,
+                     block=None) -> Dict[str, torch.Tensor]:
     """Consensus Ξx/Ξy, the Lemma-8 ‖c̄‖ watchdogs and ‖ȳ‖.  On the
     decentralized mesh (``axis``: the state holds this rank's clients)
     every mean over the clients is all-reduced; ``xbar`` / ``ybar`` are the
-    means where the caller has them."""
+    means where the caller has them.  ``block``: where x and cx hold this
+    rank's pieces of its clients' weights, the ``dist.collectives.
+    BlockSum`` of their sums of squares (y and cy are whole on every rank
+    of the block)."""
     return {
-        "consensus_x": mixing_lib.consensus_error(state.x, axis, xbar),
+        "consensus_x": mixing_lib.consensus_error(state.x, axis, xbar,
+                                                  block),
         "consensus_y": mixing_lib.consensus_error(state.y, axis, ybar),
-        "corr_x_norm": kgt.correction_mean_norm(state.cx, axis),
+        "corr_x_norm": kgt.correction_mean_norm(state.cx, axis, block),
         "corr_y_norm": kgt.correction_mean_norm(state.cy, axis),
         "y_bar_norm": kgt.correction_mean_norm(state.y, axis),
     }
@@ -51,7 +55,7 @@ def quadratic_metrics_fn(problem: MinimaxProblem):
 
 def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
                    eval_batch: Optional[Any] = None,
-                   compute_dtype=torch.bfloat16, axis=None):
+                   compute_dtype=torch.bfloat16, axis=None, shard=None):
     """Metrics of DRO-LM training (what ``launch.train`` logs; reference
     :39), with autograd off.
 
@@ -66,16 +70,21 @@ def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
     this rank's clients) x̄, ȳ and the consensus terms are all-reduced,
     client 0's batch is broadcast from its rank (rank 0), and every rank
     computes the same row on the whole held-out batch (collectives under
-    the phase ``metrics``).
+    the phase ``metrics``).  Where x holds this rank's pieces of a
+    client's weights (``shard``, a ``dist.tensor_parallel.ClientShard``),
+    x̄ is the pieces' mean, the losses run on them as the problem's do,
+    and x's and cx's sums of squares are taken over the block
+    (``ClientShard.block_sum``).
     """
-    from repro_torch.models import model as model_lib
+    from repro_torch.core import objectives
 
-    skel = model_lib.skeleton(model_cfg)
+    losses_of = objectives.dro_group_losses(
+        model_cfg, num_groups=num_groups, compute_dtype=compute_dtype,
+        shard=shard)
+    block = None if shard is None else shard.block_sum()
 
     def group_losses(xbar, batch):
-        return model_lib.call(skel, xbar, model_lib.per_group_loss, batch,
-                              num_groups=num_groups,
-                              compute_dtype=compute_dtype)[0]
+        return losses_of(xbar, batch)[0]
 
     @torch.no_grad()
     def metrics(state, batches) -> Dict[str, torch.Tensor]:
@@ -92,7 +101,7 @@ def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
         out = {
             "f_bar": problem.value(xbar, ybar, train_b, None),
             "mean_loss": group_losses(xbar, train_b).mean(),
-            **_consensus_block(state, axis, xbar, ybar),
+            **_consensus_block(state, axis, xbar, ybar, block),
         }
         if eval_batch is not None:
             eval_losses = group_losses(xbar, eval_batch)

@@ -64,7 +64,11 @@ SIGNATURES = {
     "ssd_scan": {
         "ssd_scan_launch": [_P] * 10 + [_I] * 9 + [_L] * 10 + [_P]},
     "cross_entropy": {
-        "fused_ce_launch": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P]},
+        "fused_ce_launch": [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _P],
+        # hidden, weight, labels, z, m, l; N, V, D; the strides; dtype,
+        # route
+        "fused_ce_partials_launch": ([_P] * 6 + [_I] * 3 + [_L] * 3
+                                     + [_I, _I, _P])},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

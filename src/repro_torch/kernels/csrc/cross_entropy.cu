@@ -53,6 +53,15 @@
 //
 // On both routes a ragged N, V or d is masked: rows past N load zeros and
 // write nothing, columns past V are left out of the sums.
+//
+// The vocab-parallel form (fused_ce_partials_launch; the head is one
+// rank's piece of the vocabulary, the labels offset by the piece's first
+// id) writes, per token, the partials the pieces are merged from instead
+// of the NLL: the running max m, the exp-sum l = Σ_v e^(h·w_v − m) and the
+// label's logit z, 0 where the label falls outside [0, V).  The same two
+// kernels compute them (m_out and l_out non-null); only the last write
+// differs.  nll_t = M + log Σ_r l_r e^(m_r − M) − Σ_r z_r with M = max_r m_r
+// over the pieces r (kernels/cross_entropy.py::VocabParallelCEFn).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,6 +87,7 @@ template <typename T>
 __global__ void __launch_bounds__(kCeThreads)
 fused_ce_kernel(const T* __restrict__ hidden, const T* __restrict__ weight,
                 const int* __restrict__ labels, float* __restrict__ nll,
+                float* __restrict__ m_out, float* __restrict__ l_out,
                 int N, int V, int D, int64_t shn, int64_t swv, int64_t swd) {
   // hs[k][t] and ws[k][v], k-major; +1 keeps the transposed stores apart
   __shared__ float hs[kCeK][kCeRows + 1];
@@ -174,8 +184,15 @@ fused_ce_kernel(const T* __restrict__ hidden, const T* __restrict__ weight,
     for (int off = 8; off > 0; off >>= 1)
       lab_logit = fmaxf(lab_logit, __shfl_xor_sync(0xffffffffu, lab_logit, off));
     const int t = t0 + ty + 8 * i;
-    if (tx == 0 && t < N)
-      nll[t] = logf(fmaxf(l[i], 1e-30f)) + m[i] - lab_logit;
+    if (tx == 0 && t < N) {
+      if (m_out != nullptr) {  // the vocab-parallel partials
+        nll[t] = lab_logit > kCeNegInf ? lab_logit : 0.0f;
+        m_out[t] = m[i];
+        l_out[t] = l[i];
+      } else {
+        nll[t] = logf(fmaxf(l[i], 1e-30f)) + m[i] - lab_logit;
+      }
+    }
   }
 }
 
@@ -390,13 +407,22 @@ __device__ __forceinline__ void tile_row_update(RowState& st, const float* acc,
 
 __device__ __forceinline__ void row_finish(RowState st, int row, int N,
                                            float* __restrict__ nll,
+                                           float* __restrict__ m_out,
+                                           float* __restrict__ l_out,
                                            int lane) {
   st.l += __shfl_xor_sync(0xffffffffu, st.l, 1);
   st.l += __shfl_xor_sync(0xffffffffu, st.l, 2);
   st.ll = fmaxf(st.ll, __shfl_xor_sync(0xffffffffu, st.ll, 1));
   st.ll = fmaxf(st.ll, __shfl_xor_sync(0xffffffffu, st.ll, 2));
-  if ((lane & 3) == 0 && row < N)
-    nll[row] = logf(fmaxf(st.l, 1e-30f)) + st.m - st.ll;
+  if ((lane & 3) == 0 && row < N) {
+    if (m_out != nullptr) {  // the vocab-parallel partials
+      nll[row] = st.ll > kCeNegInf ? st.ll : 0.0f;
+      m_out[row] = st.m;
+      l_out[row] = st.l;
+    } else {
+      nll[row] = logf(fmaxf(st.l, 1e-30f)) + st.m - st.ll;
+    }
+  }
 }
 
 // kMnMajor: the head's V axis is contiguous (an untied head's transposed
@@ -406,6 +432,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 fused_ce_tc_kernel(const __grid_constant__ CUtensorMap tm_h,
                    const __grid_constant__ CUtensorMap tm_w,
                    const int* __restrict__ labels, float* __restrict__ nll,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
                    int N, int V, int D) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -511,8 +538,8 @@ fused_ce_tc_kernel(const __grid_constant__ CUtensorMap tm_h,
     tile_row_update<0>(st0, acc, v0, lab0, lane);
     tile_row_update<2>(st1, acc, v0, lab1, lane);
   }
-  row_finish(st0, r0, N, nll, lane);
-  row_finish(st1, r1, N, nll, lane);
+  row_finish(st0, r0, N, nll, m_out, l_out, lane);
+  row_finish(st1, r1, N, nll, m_out, l_out, lane);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -559,8 +586,8 @@ static bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* base,
 
 template <bool kMnMajor>
 static int launch_tc(const CUtensorMap& th, const CUtensorMap& tw,
-                     const int* labels, float* nll, int N, int V, int D,
-                     cudaStream_t s) {
+                     const int* labels, float* nll, float* m_out,
+                     float* l_out, int N, int V, int D, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -570,7 +597,8 @@ static int launch_tc(const CUtensorMap& th, const CUtensorMap& tw,
     configured = true;
   }
   fused_ce_tc_kernel<kMnMajor><<<(N + kTcM - 1) / kTcM, kTcThreads, kTcSmem,
-                                  s>>>(th, tw, labels, nll, N, V, D);
+                                  s>>>(th, tw, labels, nll, m_out, l_out,
+                                       N, V, D);
   return (int)cudaGetLastError();
 }
 
@@ -579,9 +607,9 @@ static bool aligned16(const void* p, long long pitch_elems) {
 }
 
 static int fused_ce_tc(const void* hidden, const void* weight,
-                       const int* labels, float* nll, int N, int V, int D,
-                       long long shn, long long swv, long long swd,
-                       cudaStream_t s) {
+                       const int* labels, float* nll, float* m_out,
+                       float* l_out, int N, int V, int D, long long shn,
+                       long long swv, long long swd, cudaStream_t s) {
   // what TMA reads: 16-byte aligned bases and row pitches; one of the
   // head's strides is 1
   const bool mn_major = swd != 1;
@@ -596,11 +624,42 @@ static int fused_ce_tc(const void* hidden, const void* weight,
   if (mn_major) {
     if (!make_map(enc, &tw, weight, V, D, swd, 64, kTcK))
       return (int)cudaErrorInvalidValue;
-    return launch_tc<true>(th, tw, labels, nll, N, V, D, s);
+    return launch_tc<true>(th, tw, labels, nll, m_out, l_out, N, V, D, s);
   }
   if (!make_map(enc, &tw, weight, D, V, swv, kTcK, kTcN))
     return (int)cudaErrorInvalidValue;
-  return launch_tc<false>(th, tw, labels, nll, N, V, D, s);
+  return launch_tc<false>(th, tw, labels, nll, m_out, l_out, N, V, D, s);
+}
+
+// One launch on the route asked for: the NLL (m_out null) or the
+// vocab-parallel partials (z in nll, m in m_out, l in l_out).
+static int ce_dispatch(const void* hidden, const void* weight,
+                       const int* labels, float* nll, float* m_out,
+                       float* l_out, int N, int V, int D, long long shn,
+                       long long swv, long long swd, int dtype, int route,
+                       void* stream) {
+  if (N <= 0) return (int)cudaSuccess;
+  if (V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (dtype != 1) return (int)cudaErrorInvalidValue;
+    return fused_ce_tc(hidden, weight, labels, nll, m_out, l_out, N, V, D,
+                       shn, swv, swd, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + kCeRows - 1) / kCeRows);
+  if (dtype == 0) {
+    fused_ce_kernel<float><<<grid, kCeThreads, 0, s>>>(
+        (const float*)hidden, (const float*)weight, labels, nll, m_out, l_out,
+        N, V, D, shn, swv, swd);
+  } else if (dtype == 1) {
+    fused_ce_kernel<__nv_bfloat16><<<grid, kCeThreads, 0, s>>>(
+        (const __nv_bfloat16*)hidden, (const __nv_bfloat16*)weight, labels,
+        nll, m_out, l_out, N, V, D, shn, swv, swd);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
@@ -612,26 +671,21 @@ extern "C" int fused_ce_launch(const void* hidden, const void* weight,
                                int D, long long shn, long long swv,
                                long long swd, int dtype, int route,
                                void* stream) {
-  using namespace repro_torch;
-  if (N <= 0) return (int)cudaSuccess;
-  if (V <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (route == 1) {
-    if (dtype != 1) return (int)cudaErrorInvalidValue;
-    return fused_ce_tc(hidden, weight, labels, nll, N, V, D, shn, swv, swd, s);
-  }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + kCeRows - 1) / kCeRows);
-  if (dtype == 0) {
-    fused_ce_kernel<float><<<grid, kCeThreads, 0, s>>>(
-        (const float*)hidden, (const float*)weight, labels, nll, N, V, D, shn,
-        swv, swd);
-  } else if (dtype == 1) {
-    fused_ce_kernel<__nv_bfloat16><<<grid, kCeThreads, 0, s>>>(
-        (const __nv_bfloat16*)hidden, (const __nv_bfloat16*)weight, labels,
-        nll, N, V, D, shn, swv, swd);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return repro_torch::ce_dispatch(hidden, weight, labels, nll, nullptr,
+                                  nullptr, N, V, D, shn, swv, swd, dtype,
+                                  route, stream);
+}
+
+// The vocab-parallel partials of a piece (V its width, labels offset by
+// its first id): z (the label's logit, 0 outside [0, V)), m and l, (N,)
+// f32 each; dtype and route as above
+extern "C" int fused_ce_partials_launch(const void* hidden,
+                                        const void* weight, const int* labels,
+                                        float* z, float* m, float* l, int N,
+                                        int V, int D, long long shn,
+                                        long long swv, long long swd,
+                                        int dtype, int route, void* stream) {
+  if (m == nullptr || l == nullptr) return (int)cudaErrorInvalidValue;
+  return repro_torch::ce_dispatch(hidden, weight, labels, z, m, l, N, V, D,
+                                  shn, swv, swd, dtype, route, stream);
 }

@@ -7,7 +7,8 @@ Counterparts of ``repro.kernels.ops.fused_gossip_round`` (:171),
 whole round (``csrc/fused_round.cu``), the neighbor-gather epilogue
 (``csrc/neighbor_gossip.cu``), causal / windowed GQA attention
 (``csrc/flash_attention.cu``), the Mamba2 SSD scan (``csrc/ssd_scan.cu``),
-the fused cross-entropy (``csrc/cross_entropy.cu``) and the RG-LRU
+the fused cross-entropy (``csrc/cross_entropy.cu``; its vocab-parallel
+form ``vocab_parallel_cross_entropy``) and the RG-LRU
 recurrence (``csrc/rglru_scan.cu``); ``fused_gossip_pair`` and
 ``sparse_gossip_pair`` run the two epilogues of a round (x and y) in one
 launch.  ``backend``:
@@ -51,6 +52,7 @@ KERNELS = {
     "rglru_scan": rg_lib.rglru_scan_bsw,
     "ssd_scan": ssd_lib.ssd_scan_bshp,
     "fused_cross_entropy": ce_lib.fused_ce_nd,
+    "ce_partials": ce_lib.fused_ce_partials_nd,
 }
 
 
@@ -59,6 +61,7 @@ KERNELS = {
 # main paths run (the other is the first port's kernel)
 ROUTED = {"flash_attention": "tensor_core",
           "fused_cross_entropy": "tensor_core",
+          "ce_partials": "tensor_core",
           "ssd_scan": "tensor_core",
           "rglru_scan": "chunked",
           "fused_round": "cluster",
@@ -339,3 +342,19 @@ def fused_cross_entropy(hidden, weight, labels, *, backend: str = "auto"):
     if use_kernel(backend, hidden):
         return ce_lib.fused_ce_nd(hidden, weight, labels)
     return ref_lib.fused_ce_ref(hidden, weight, labels)
+
+
+def vocab_parallel_cross_entropy(hidden, weight, labels, merge, *,
+                                 backend: str = "auto"):
+    """Per-token NLL (N,) f32 over a vocabulary split across the model
+    ranks, from this rank's piece: hidden (N, d), the piece addressed as
+    (V_r, d), labels (N,) offset by the piece's first id, ``merge(m, l,
+    z) -> (M, L, Z)`` the merge over the model axis.  On the card kernel
+    B6's partials (``cross_entropy.VocabParallelCEFn``), on the CPU
+    ``ref.ce_partials_ref`` under autograd, each merged into M + log L −
+    Z."""
+    if use_kernel(backend, hidden):
+        return ce_lib.VocabParallelCEFn.apply(hidden, weight, labels,
+                                              merge)[0]
+    return ref_lib.merge_nll(*merge(*ref_lib.ce_partials_ref(
+        hidden, weight, labels)))

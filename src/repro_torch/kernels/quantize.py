@@ -21,15 +21,22 @@ QUANT_METHODS = ("bf16", "int8")
 INV_127 = 1.0 / 127.0
 
 
-def quantize_dequant(v: torch.Tensor, method: str) -> torch.Tensor:
-    """f32 tensor -> its deterministic quantize-dequantize image (f32)."""
+def quantize_dequant(v: torch.Tensor, method: str,
+                     row_max=None) -> torch.Tensor:
+    """f32 tensor -> its deterministic quantize-dequantize image (f32).
+    ``row_max``: where a row is split over ranks (a client's (fsdp, model)
+    block), the max of each rank's max|v| over them, so the scale is the
+    whole row's (a max is exact: each piece's q is the whole row's)."""
     if method == "bf16":
         return v.to(torch.bfloat16).to(torch.float32)
     if method == "int8":
         # the f32 constant, filled on the device (no host copy, so the
         # quantizer runs inside a captured CUDA graph)
         inv = v.new_full((), INV_127, dtype=torch.float32)
-        s = torch.amax(torch.abs(v), dim=-1, keepdim=True) * inv
+        big = torch.amax(torch.abs(v), dim=-1, keepdim=True)
+        if row_max is not None:
+            big = row_max(big)
+        s = big * inv
         safe = torch.where(s > 0, s, torch.ones_like(s))
         q = torch.clamp(torch.round(v / safe), -127.0, 127.0)
         return torch.where(s > 0, q * safe, torch.zeros_like(v))

@@ -522,3 +522,68 @@ def fused_ce_bwd_ref(hidden, weight, labels, grad_nll, *, chunk: int = 512):
     gh = (torch.cat(ghs) if ghs
           else torch.zeros_like(hidden, dtype=torch.float32))
     return gh.to(hidden.dtype), gw.to(weight.dtype)
+
+
+def ce_partials_logits(logits, labels):
+    """The vocab-parallel partials of f32 ``logits`` (N, V_r) of one
+    vocabulary piece, labels (N,) offset by the piece's first id: (m, l,
+    z) per token, m the max logit (taken without a gradient), l = Σ_v
+    e^(logit_v − m), z the label's logit, 0 where the label falls outside
+    [0, V_r).  The NLL over the pieces r is M + log Σ_r l_r e^(m_r − M) −
+    Σ_r z_r, M = max_r m_r."""
+    v = logits.shape[-1]
+    m = logits.detach().amax(-1)
+    l = torch.exp(logits - m[..., None]).sum(-1)
+    lab = labels.long()
+    inside = (lab >= 0) & (lab < v)
+    z = logits.gather(-1, torch.clamp(lab, 0, v - 1)[..., None])[..., 0]
+    return m, l, torch.where(inside, z, torch.zeros_like(z))
+
+
+def ce_partials_ref(hidden, weight, labels, *, chunk: int = 1024):
+    """The plain version of kernel B6's vocab-parallel form: hidden (N, d)
+    against one rank's piece of the head, addressed as (V_r, d), labels
+    (N,) offset by the piece's first id; f32 logits from the operands
+    cast to f32, ``chunk`` tokens at a time, then
+    :func:`ce_partials_logits`.  Returns f32 (m, l, z), each (N,)."""
+    w32 = weight.to(torch.float32)
+    parts = [ce_partials_logits(hidden[i:i + chunk].to(torch.float32)
+                                @ w32.T, labels[i:i + chunk])
+             for i in range(0, hidden.shape[0], chunk)]
+    if not parts:
+        empty = torch.zeros((0,), dtype=torch.float32, device=hidden.device)
+        return empty, empty, empty
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def merge_nll(big_m, big_l, big_z):
+    """The NLL of the merged partials: M + log L − Z."""
+    return big_m + torch.log(big_l) - big_z
+
+
+def vocab_ce_bwd_ref(hidden, weight, labels, lse, grad_nll, *,
+                     chunk: int = 512):
+    """The gradient of the vocab-parallel NLL on one rank's piece (the
+    backward of ``VocabParallelCEFn``; every op has a vmap rule): per
+    chunk of ``chunk`` tokens, the piece's f32 logits recomputed from the
+    operands cast to f32, dL = (e^(logit − lse) − onehot(label))·grad_nll
+    with the global log-sum-exp ``lse`` (N,) and the onehot only where the
+    label falls in the piece, then g_hidden = dL·W (this piece's part of
+    it: the model axis sums the parts) and g_W = dLᵀ·hidden.  Returns
+    (g_hidden, g_weight) in the operands' dtypes."""
+    w32 = weight.to(torch.float32)
+    v = w32.shape[0]
+    gw = torch.zeros_like(w32)
+    ghs = []
+    for i in range(0, hidden.shape[0], chunk):
+        h32 = hidden[i:i + chunk].to(torch.float32)
+        p = torch.exp(h32 @ w32.T - lse[i:i + chunk, None])
+        lab = labels[i:i + chunk, None].long()
+        inside = ((lab >= 0) & (lab < v)).to(p.dtype)
+        dl = p.scatter_add(1, torch.clamp(lab, 0, v - 1), -inside)
+        dl = dl * grad_nll[i:i + chunk, None].to(torch.float32)
+        ghs.append(dl @ w32)
+        gw = gw + dl.T @ h32
+    gh = (torch.cat(ghs) if ghs
+          else torch.zeros_like(hidden, dtype=torch.float32))
+    return gh.to(hidden.dtype), gw.to(weight.dtype)

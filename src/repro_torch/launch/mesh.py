@@ -4,8 +4,12 @@
 The decentralized logical mesh is ``(clients, fsdp, model)``: one
 K-GT-Minimax client a contiguous block of ``fsdp × model`` ranks.  Here a
 mesh is a ``torch.distributed`` ``DeviceMesh`` over the ranks of a world,
-one rank a device; the production meshes (256 and 512 chips) exist on no
-world this repository starts, so their shapes come as abstract meshes
+one rank a device (:func:`train_mesh`); :func:`train_axes` gives a rank
+its three axes as ``dist.collectives`` groups (:class:`TrainAxes`: the
+clients axis over the ranks that hold the same piece of every client,
+the fsdp and model axes and the whole block of its client).  The
+production meshes (256 and 512 chips) exist on no world this repository
+starts, so their shapes come as abstract meshes
 (``dist.compat.abstract_mesh``) for spec work.
 
 The serving mesh ``(data, model)`` is a :class:`ServeMesh`: the batch
@@ -74,17 +78,67 @@ def local_mesh(n_ranks: int = None, *, device_type: str = None):
                           (CLIENTS, FSDP, MODEL), device_type=device_type)
 
 
-def fake_mesh(num_clients: int = 2, fsdp: int = 2, model: int = 2):
-    """A decentralized mesh over a CPU world (gloo) of ``num_clients ×
-    fsdp × model`` ranks, for tests and the smoke run (started by
-    ``dist.launch.run_world``)."""
+def train_mesh(num_clients: int, fsdp: int, model: int, *,
+               device_type: str = None):
+    """The decentralized mesh ``(clients, fsdp, model)`` over a world of
+    ``num_clients × fsdp × model`` ranks, laid out row-major (one client a
+    contiguous block of ``fsdp × model`` ranks), its device type this
+    rank's (``cuda`` on the card, as ranks sharing one card over gloo
+    have it)."""
     need = num_clients * fsdp * model
     have = dist.get_world_size()
     if have != need:
-        raise RuntimeError(f"fake_mesh needs a world of {need} ranks, this "
-                           f"one has {have}")
+        raise RuntimeError(f"a ({num_clients}, {fsdp}, {model}) mesh needs "
+                           f"a world of {need} ranks, this one has {have}")
     return compat.make_mesh((num_clients, fsdp, model),
-                            (CLIENTS, FSDP, MODEL), device_type="cpu")
+                            (CLIENTS, FSDP, MODEL), device_type=device_type)
+
+
+def fake_mesh(num_clients: int = 2, fsdp: int = 2, model: int = 2):
+    """A decentralized mesh over a CPU world (gloo) of ``num_clients ×
+    fsdp × model`` ranks, for tests and the smoke run (started by
+    ``dist.launch.run_world``): :func:`train_mesh` on the CPU."""
+    return train_mesh(num_clients, fsdp, model, device_type="cpu")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainAxes:
+    """This rank's three axes on the decentralized mesh: ``clients``, the
+    ranks that hold the same ``(fsdp, model)`` piece of every client (the
+    gossip's group); ``fsdp`` and ``model``, the ranks of its client's
+    block that share its model piece or its batch rows; ``block``, all
+    ``fsdp × model`` ranks of its client."""
+    clients: collectives.ClientsAxis
+    fsdp: collectives.MeshAxis
+    model: collectives.MeshAxis
+    block: collectives.MeshAxis
+
+
+def _mesh_axis(mesh, name: str) -> collectives.MeshAxis:
+    size = mesh.size(mesh.mesh_dim_names.index(name))
+    if size == 1:
+        return collectives.MeshAxis(rank=0, size=1)
+    group = mesh.get_group(name)
+    return collectives.MeshAxis(rank=mesh.get_local_rank(name), size=size,
+                                group=group, backend=dist.get_backend(group))
+
+
+def train_axes(mesh, n: int) -> TrainAxes:
+    """This rank's :class:`TrainAxes` on a ``(clients, fsdp, model)``
+    ``DeviceMesh``, for ``n`` clients (every rank calls it: it makes the
+    block's groups where the block has more than one rank)."""
+    sizes = compat.axis_sizes(mesh)
+    per_client = sizes[FSDP] * sizes[MODEL]
+    if per_client == 1:
+        block = collectives.MeshAxis(rank=0, size=1)
+    else:
+        # the block moves only maxima and norms: no stream groups
+        block = collectives.sub_axes(
+            mesh.mesh.reshape(sizes[CLIENTS], per_client).tolist(),
+            streams=False)
+    return TrainAxes(clients=collectives.clients_axis(mesh, n),
+                     fsdp=_mesh_axis(mesh, FSDP),
+                     model=_mesh_axis(mesh, MODEL), block=block)
 
 
 # ---------------------------------------------------------------------------

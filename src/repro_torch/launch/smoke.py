@@ -8,6 +8,15 @@ For each reduced architecture:
   K-GT-Minimax round through ``launch.train`` on ``dense`` and on
   ``pallas_packed``, printing ``train round ran`` and ``packed-gossip
   train round ran``;
+* the reference's train legs (reference :47-98), on a gloo world of 8
+  ranks as ``(clients=2, fsdp=2, model=2)``: one round through
+  ``launch.steps.build_train_round`` on ``dense``, ``pallas_packed`` and
+  ``sparse_packed``, each client's weights over its ``(fsdp, model)``
+  block, the reference's train shape (4 rows of 64 tokens), printing the
+  reference's ``train round``, ``packed-gossip train round`` and
+  ``sparse-gossip train round``, each ``ran on (clients 2, fsdp 2, model
+  2)``; an arch whose blocks do not train over the block yet (``ssm``,
+  ``rglru``, ``moe``: ROADMAP A3) prints that its legs wait;
 * the serving leg, on a gloo world of 4 ranks at ``(data 2, model 2)``
   for every arch, as the reference runs every arch at ``(4, 2)``
   (reference :164-180): one prefill step and one decode step through
@@ -18,7 +27,7 @@ Exit code 0 iff every leg ran.  The sweep-cell leg waits for a later slice
 of the mesh (ROADMAP A13).
 
   PYTHONPATH=src python -m repro_torch.launch.smoke [--archs qwen2-0.5b ...]
-      [--legs train serve]
+      [--legs train fsdp serve]
   PYTHONPATH=src python -m repro_torch.launch.smoke --legs serve \\
       --archs mamba2-1.3b recurrentgemma-9b
 """
@@ -35,6 +44,13 @@ from repro_torch.configs import registry
 WORLD = 2
 LEGS = (("dense", "train round"), ("pallas_packed", "packed-gossip train "
                                    "round"))
+# the reference's train legs: a world of FSDP_WORLD ranks as FSDP_MESH
+# (clients, fsdp, model), its train shape (reference :36: 4 rows of 64
+# tokens, 2 clients) and its three lowerings
+FSDP_WORLD, FSDP_MESH, FSDP_BATCH, FSDP_SEQ = 8, (2, 2, 2), 4, 64
+FSDP_LEGS = (("dense", "train round"),
+             ("pallas_packed", "packed-gossip train round"),
+             ("sparse_packed", "sparse-gossip train round"))
 # the serving leg: a world of SERVE_WORLD ranks as a SERVE_MESH (data,
 # model) mesh, the reference's smoke serving shape (8 rows of 64 tokens;
 # its decode step at position 64)
@@ -67,6 +83,77 @@ def _legs(rank: int, world: int, archs) -> list:
                 ok, line = True, f"{what} ran ({time.perf_counter() - t0:.1f}s)"
             except Exception as e:  # a leg's failure is reported, not fatal
                 ok, line = False, (f"{what} FAILED: {type(e).__name__}: {e}"
+                                   f"\n{traceback.format_exc()}")
+            if rank == 0:
+                print(f"[smoke] {arch}: {line}", flush=True)
+            results.append(ok)
+    return results
+
+
+def _fsdp_leg(arch: str, impl: str, mesh) -> None:
+    """One round of ``impl`` on the ``(clients, fsdp, model)`` mesh from
+    ``init_state``, on random tokens; its state must be finite."""
+    import torch
+
+    from repro_torch.configs.base import (AlgorithmConfig, InputShape,
+                                          MeshConfig, MinimaxConfig)
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch import steps
+
+    cfg = registry.reduced(registry.get_model_config(arch))
+    c, f, m = FSDP_MESH
+    k, g = 2, 4
+    algo = AlgorithmConfig(num_clients=c, local_steps=k, mixing_impl=impl)
+    step, axis = steps.build_train_round(
+        cfg, InputShape("smoke_train", FSDP_SEQ, FSDP_BATCH, "train"), mesh,
+        MeshConfig(num_clients=c, fsdp=f, model=m), algo=algo,
+        minimax=MinimaxConfig(num_groups=g), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    shape = (k, c, FSDP_BATCH // c, FSDP_SEQ)
+    batches = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                       generator=gen),
+               "labels": torch.randint(0, cfg.vocab_size, shape,
+                                       generator=gen),
+               "groups": torch.randint(0, g, shape, generator=gen)}
+    state = kgt.init_state(step.problem, algo, gen,
+                           init_batch={n: b[0] for n, b in batches.items()},
+                           axis=axis)
+    rows = slice(axis.lo, axis.hi)
+    state = step(state, {n: b[:, rows] for n, b in batches.items()},
+                 torch.zeros((k, axis.n_local, 0)))
+    if not all(bool(t.isfinite().all()) for t in tree_lib.leaves(
+            (state.x, state.y, state.cx, state.cy))):
+        raise FloatingPointError("a state leaf is not finite")
+
+
+def _fsdp_legs(rank: int, world: int, archs) -> list:
+    """The reference's train legs of every arch on this rank; rank 0
+    prints each line."""
+    from repro_torch.dist import tensor_parallel as tp
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh = mesh_lib.fake_mesh(*FSDP_MESH)
+    where = "(clients {}, fsdp {}, model {})".format(*FSDP_MESH)
+    results = []
+    for arch in archs:
+        cfg = registry.reduced(registry.get_model_config(arch))
+        try:
+            tp.check_train(cfg, *FSDP_MESH[1:])
+        except NotImplementedError as e:
+            if rank == 0:
+                print(f"[smoke] {arch}: the train legs on {where} wait: {e}",
+                      flush=True)
+            continue
+        for impl, what in FSDP_LEGS:
+            t0 = time.perf_counter()
+            try:
+                _fsdp_leg(arch, impl, mesh)
+                ok, line = True, (f"{what} ran on {where} "
+                                  f"({time.perf_counter() - t0:.1f}s)")
+            except Exception as e:  # a leg's failure is reported, not fatal
+                ok, line = False, (f"{what} FAILED on {where}: "
+                                   f"{type(e).__name__}: {e}"
                                    f"\n{traceback.format_exc()}")
             if rank == 0:
                 print(f"[smoke] {arch}: {line}", flush=True)
@@ -140,8 +227,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--archs", nargs="*", default=["qwen2-0.5b"],
                     choices=sorted(registry.ARCHS))
-    ap.add_argument("--legs", nargs="*", default=["train", "serve"],
-                    choices=["train", "serve"])
+    ap.add_argument("--legs", nargs="*", default=["train", "fsdp", "serve"],
+                    choices=["train", "fsdp", "serve"])
     args = ap.parse_args(argv)
     results = []
     with tempfile.TemporaryDirectory() as store:
@@ -149,6 +236,11 @@ def main(argv=None) -> int:
             print(f"[smoke] a gloo world of {WORLD} ranks on the CPU",
                   flush=True)
             results += launch.run_world(WORLD, _legs, args.archs,
+                                        backend="gloo", store_dir=store)
+        if "fsdp" in args.legs:
+            print(f"[smoke] a gloo world of {FSDP_WORLD} ranks on the CPU",
+                  flush=True)
+            results += launch.run_world(FSDP_WORLD, _fsdp_legs, args.archs,
                                         backend="gloo", store_dir=store)
         if "serve" in args.legs:
             print(f"[smoke] a gloo world of {SERVE_WORLD} ranks on the CPU",

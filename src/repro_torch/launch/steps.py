@@ -24,6 +24,18 @@ of neighbour rows its lists read and runs B4 on the remapped table
 (``dist.collectives.sparse_gossip_pair``); ``gossip_backend`` follows
 ``kernels.ops.use_kernel`` as off the mesh.
 
+Where the mesh's ``fsdp`` and ``model`` axes are larger than one, a
+client's weights lie over its block of ``fsdp × model`` ranks as the
+reference's ``params_shardings`` (``param_mode="fsdp2d"``) lays them out:
+over ``model`` by the serving mesh's tensor-parallel plan, in autograd
+(Megatron's copy and sum pairs, B6 over the rank's vocabulary piece with
+its partial log-sum-exps merged), over ``fsdp`` in ZeRO-3 pieces of each
+model piece, gathered where the forward reads them, their gradient
+reduce-scattered; the client's batch rows split over ``fsdp``
+(``dist.tensor_parallel.ClientShard``).  The state's x and cx hold the
+rank's pieces; every lowering gossips them over the clients axis, the
+ranks that hold the same piece of every client.
+
 ``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
 build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch
 rows split over ``pod × data`` (replicated where that axis does not divide
@@ -61,12 +73,28 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
                       mcfg: MeshConfig,
                       algo: Optional[AlgorithmConfig] = None,
                       minimax: Optional[MinimaxConfig] = None,
-                      lr_scale=None, *, problem=None, device="cuda"):
+                      lr_scale=None, *, problem=None, device="cuda",
+                      compute_dtype=torch.bfloat16, kernels: bool = True):
     """``(round_step, axis)``: ``round_step(state, batches, noise) ->
     state`` on this rank's (n/R, …) state and (K, n/R, B, S…) batches,
     under the mesh's residual constraint (reference :38-137), ``axis`` the
     rank's clients.  ``problem`` defaults to the DRO problem of
-    ``minimax``."""
+    ``minimax`` in ``compute_dtype`` (``kernels`` as ``dro_problem``'s:
+    False runs the plain versions); at ``fsdp × model > 1`` (where no
+    other problem is taken) it is that problem on the rank's
+    pieces (``dro_problem(shard=)``, x's leaves the rank's pieces of its
+    clients), and ``round_step.problem``, ``round_step.axes`` (the
+    rank's ``launch.mesh.TrainAxes``) and ``round_step.shard`` (its
+    ``ClientShard``; None at one rank a client) give what the state and
+    the metrics are built from.  ``mcfg.remat`` is refused: activation checkpointing
+    does not run under ``torch.func.grad``."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if mcfg.remat:
+        raise NotImplementedError(
+            "remat: torch.utils.checkpoint does not run under "
+            "torch.func.grad (saved tensor hooks), which takes the "
+            "clients' gradients; leave MeshConfig.remat False (ROADMAP A3)")
     algo = algo or AlgorithmConfig(num_clients=mcfg.num_clients)
     algo = dataclasses.replace(algo, num_clients=mcfg.num_clients)
     minimax = minimax or MinimaxConfig()
@@ -74,13 +102,24 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
     if shape.global_batch % n:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"over {n} clients")
+    axes = mesh_lib.train_axes(mesh, n)
+    if problem is not None and axes.block.size > 1:
+        raise ValueError(
+            "a client split over fsdp × model runs the DRO problem on the "
+            "rank's pieces, which the round builds: pass problem=None")
+    tp.check_train(model_cfg, axes.fsdp.size, axes.model.size,
+                   param_mode=mcfg.param_mode,
+                   expert_parallel=mcfg.moe_expert_parallel)
+    shard = (None if axes.block.size == 1 else
+             tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block))
     if problem is None:
-        problem = objectives.dro_problem(model_cfg,
-                                         num_groups=minimax.num_groups,
-                                         mu=minimax.mu)
-    axis = collectives.clients_axis(mesh, n)
+        problem = objectives.dro_problem(
+            model_cfg, num_groups=minimax.num_groups, mu=minimax.mu,
+            compute_dtype=compute_dtype, kernels=kernels, shard=shard)
+    axis = axes.clients
     round_fn = kgt.make_round_step(problem, algo, lr_scale=lr_scale,
-                                   device=device, axis=axis)
+                                   device=device, axis=axis,
+                                   block=axes.block)
     constraint = sh.leading_dims_constraint(mesh,
                                             sh.residual_axes(mcfg.residual_mode))
 
@@ -89,6 +128,8 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
             return round_fn(state, batches, noise, *extras)
 
     round_step.uses_round = round_fn.uses_round
+    round_step.problem, round_step.axes = problem, axes
+    round_step.shard = shard
     return round_step, axis
 
 

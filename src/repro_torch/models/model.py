@@ -16,7 +16,12 @@ A rank of the serving mesh runs a ``Model`` of its tensor-parallel shard
 (``dist.tensor_parallel``): its heads, widths and a contiguous range of
 the vocabulary (``Model.vocab_range``), the collectives at tagged points
 of ``dist.context`` (``embed_rows`` after the lookup, ``logits`` after the
-head; identities without a context).
+head; identities without a context).  A rank of a client's (fsdp, model)
+block in training runs the same shard from its pieces
+(``tensor_parallel.ShardedModel``): the loss over its vocabulary range is
+merged over the model ranks (``vocab_merge``, :func:`chunked_nll`) and
+the per-group sums over the fsdp ranks' batch rows (``batch_sum``,
+:func:`per_group_loss`).
 
 The modality frontends are the reference's stubs: an audio model
 (``num_codebooks`` C) embeds (B, S, C) token streams as the sum of C
@@ -35,7 +40,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import context as dist_ctx
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import embed_init, param, rms_norm
 
@@ -257,12 +262,13 @@ def head_weight(model: Model, compute_dtype, codebook: Optional[int] = None):
     """The head as a (V, d) operand in ``compute_dtype``: the tied
     embedding, or the untied (d, V) head's transposed view (no copy when
     the dtype already matches); with codebooks, that of ``codebook``."""
-    embed, head = model.embed, model.head
-    if codebook is not None:
-        embed = embed[codebook]
-        head = None if head is None else head[codebook]
+    head = model.head
     if head is None:
-        return embed.to(compute_dtype)
+        embed = model.embed
+        return (embed if codebook is None
+                else embed[codebook]).to(compute_dtype)
+    if codebook is not None:
+        head = head[codebook]
     return head.to(compute_dtype).T
 
 
@@ -280,6 +286,10 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
     rounding of the logits (ROADMAP §C quirk 4).
     """
     b, s, d = hidden.shape
+    merge = dist_ctx.slot("vocab_merge")
+    if merge is not None:
+        return _vocab_parallel_nll(model, hidden, labels, merge,
+                                   compute_dtype, chunk, kernels)
     if tf.kernel_route("train", kernels):
         h = hidden.reshape(b * s, d).to(compute_dtype)
         if not model.cfg.num_codebooks:
@@ -297,6 +307,39 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
         for i in range(0, s, chunk)], dim=1)
 
 
+def _vocab_parallel_nll(model, hidden, labels, merge, compute_dtype,
+                        chunk: int, kernels: bool):
+    """:func:`chunked_nll` on a training shard whose head is a piece [lo,
+    hi) of the vocabulary: the hidden states enter the head through
+    ``head_in`` (the model ranks sum their gradient), each token's
+    partials over the piece (max logit, exp-sum, the label's logit where
+    the label falls in the piece) are merged over the model ranks by
+    ``merge`` and nll = M + log L − Z.  With ``kernels``, kernel B6's
+    partial form (``ops.vocab_parallel_cross_entropy``); without, the
+    reference's form: the piece's logits in the compute dtype ``chunk``
+    positions at a time, then f32 partials.  With C codebooks the mean of
+    the C NLLs."""
+    b, s, d = hidden.shape
+    lo, _ = model.vocab_range
+    h = dist_ctx.apply("head_in", hidden)
+    route = tf.kernel_route("train", kernels)
+    nlls = []
+    for c in range(model.cfg.num_codebooks) or (None,):
+        w = head_weight(model, compute_dtype, c)
+        lab = (labels if c is None else labels[..., c]) - lo
+        if route:
+            nll = ops.vocab_parallel_cross_entropy(
+                h.reshape(b * s, d).to(compute_dtype), w,
+                lab.reshape(b * s), merge).reshape(b, s)
+        else:
+            nll = torch.cat([ref.merge_nll(*merge(*ref.ce_partials_logits(
+                (h[:, i:i + chunk].to(compute_dtype) @ w.T).to(
+                    torch.float32), lab[:, i:i + chunk])))
+                for i in range(0, s, chunk)], dim=1)
+        nlls.append(nll)
+    return nlls[0] if len(nlls) == 1 else torch.stack(nlls, -1).mean(-1)
+
+
 def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
                    compute_dtype=torch.bfloat16, kernels: bool = True):
     """Group-resolved LM loss.  batch needs "tokens", "labels" (B, S), or
@@ -311,8 +354,12 @@ def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
     g = batch["groups"].long()
     onehot = (g[..., None] == torch.arange(num_groups, device=g.device)
               ).to(torch.float32)
-    sums = torch.einsum("bs,bsg->g", nll, onehot)
-    counts = torch.clamp(onehot.sum((0, 1)), min=1.0)
+    # over a client's batch split across fsdp ranks: the sums and counts
+    # of every rank's rows (``batch_sum``)
+    sums = dist_ctx.apply("batch_sum", torch.einsum("bs,bsg->g", nll,
+                                                    onehot))
+    counts = torch.clamp(dist_ctx.apply("batch_sum", onehot.sum((0, 1))),
+                         min=1.0)
     return sums / counts, aux
 
 

@@ -19,7 +19,12 @@ on its rank's piece: query and KV heads, SSM heads, LRU channels, d_ff or
 expert_d_ff.  The partial sums of the mixer's out-projection cross the
 ranks at ``attn_proj`` (attention) or ``mixer_out`` (``ssm``, ``rglru``),
 those of the MLP or MoE at ``ffn_out``: points of ``dist.context``,
-identities without a context.  The mixers' own points (the SSM's gated
+identities without a context.  Training over a client's (fsdp, model)
+block adds the conjugate points where the whole residual enters a
+column-parallel piece, ``attn_in`` (q/k/v) and ``ffn_in`` (gate/up): an
+identity whose gradient the model ranks sum.  A layer is read through its
+``gathered()`` at its entry: the layer itself, or on that block its
+weights all-gathered over fsdp (``tensor_parallel.LayerPieces``).  The mixers' own points (the SSM's gated
 norm, the RG-LRU's gate input) are in ``models.ssm`` and ``models.rglru``.
 
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
@@ -124,6 +129,10 @@ class Block(nn.Module):
         else:
             self.mlp = init_mlp(gen, d, cfg.d_ff, **kw)
 
+    def gathered(self) -> "Block":
+        """The layer as :func:`block_forward` reads it: itself."""
+        return self
+
 
 def kernel_route(mode: str, kernels: bool) -> bool:
     """Whether a kernel runs: in ``prefill`` and in ``train``, with or
@@ -175,8 +184,9 @@ def block_forward(
 
     # attention-family blocks -------------------------------------------------
     window = _attn_window(kind, cfg)
-    q, k, v = attn_lib.qkv_project(params.attn, h, cfg, positions,
-                                   compute_dtype)
+    q, k, v = attn_lib.qkv_project(params.attn,
+                                   dist_ctx.apply("attn_in", h), cfg,
+                                   positions, compute_dtype)
     q = dist_ctx.apply("attn_qkv", q)  # optional head-sharding switch
 
     if mode == "decode":
@@ -224,7 +234,7 @@ def block_forward(
     y = dist_ctx.apply("attn_proj", y)  # the head shards' partial sums
     x = x + y
 
-    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+    h2 = dist_ctx.apply("ffn_in", rms_norm(x, params.norm2, cfg.norm_eps))
     if kind == "moe":
         moe_fn = (moe_lib.moe_mlp_sorted if cfg.moe.dispatch == "sorted"
                   else moe_lib.moe_mlp)
@@ -262,7 +272,8 @@ def stack_forward(
                  for si, _, bi, _ in layer_slots(cfg)]
     for i, layer in enumerate(layers):
         x, nc, a = block_forward(
-            layer.kind, layer, x, cfg, mode=mode, positions=positions,
+            layer.kind, layer.gathered(), x, cfg, mode=mode,
+            positions=positions,
             cache=caches[i] if caches is not None else None, pos=pos,
             compute_dtype=compute_dtype, kernels=kernels)
         if unit_ends[i]:

@@ -1,6 +1,6 @@
 """What the ranks of the port's mesh tests run (``dist.launch.run_world``
-imports this module in each spawned rank, so it imports torch and the
-port only, never JAX).
+imports this module in each rank, so it imports torch and the port only,
+never JAX).
 
 * ``collective_cases``: on a world of 4, over sub-groups of 1, 2 and 4
   ranks, the dense, ring and packed gossips of ``dist.collectives`` on the
@@ -12,8 +12,13 @@ port only, never JAX).
   state on rank 0, Σ_i c_i over the ranks and the counts;
 * ``round_cases``: ``make_round_step(axis=)`` on the quadratic, each
   lowering on the rank's rows of saved inputs, returning the rank's rows
-  and the gossip's counts.
+  and the gossip's counts;
+* ``world_info``: a rank's place, an all-reduced sum, and whether the
+  port's training modules were imported before it ran (by the fork
+  server it forked from).
 """
+import sys
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -221,3 +226,11 @@ def round_cases(rank, world, inputs_path, cases):
                        for k, v in counts.get("gossip", {}).items()},
             "local_steps": counts.get("local_steps", {})})
     return out
+
+
+def world_info(rank, world):
+    preloaded = "repro_torch.launch.train" in sys.modules
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    return {"rank": rank, "world": world, "sum": x.item(),
+            "preloaded": preloaded}

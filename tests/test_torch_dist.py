@@ -14,7 +14,9 @@
   ``repro.kernels.ref.fused_gossip_ref`` (the reference's packed
   epilogue) on the same numpy inputs; the counted calls and bytes equal
   the formula.  The world is spawned once for the file.
-* ``repro_torch.launch.smoke`` in a subprocess.
+* ``repro_torch.launch.smoke`` in a subprocess: its train legs at
+  ``(clients 2, 1, 1)``, the reference's train legs at ``(clients 2, fsdp
+  2, model 2)`` (the MoE arch's wait) and its serving legs.
 """
 import _torch_threads  # noqa: F401
 import dataclasses
@@ -422,14 +424,17 @@ def test_mesh_configs_match_the_reference(arch, multi_pod):
 
     got = mesh_lib.decentralized_mesh_config(arch, multi_pod=multi_pod)
     want = jax_mesh.decentralized_mesh_config(arch, multi_pod=multi_pod)
-    # the port's MeshConfig leaves out the two fields it reads nowhere yet
-    # (they come with the slice that executes the fsdp and model axes)
-    dropped = {"attn_heads_sharding", "remat"}
+    # the port's MeshConfig leaves out the field it reads nowhere yet
+    # (it comes with sequence parallelism, ROADMAP A4); remat is back with
+    # the slice that executes the fsdp and model axes, off by default
+    # since training refuses it (ROADMAP A3)
+    dropped = {"attn_heads_sharding"}
     assert set(dataclasses.asdict(want)) - set(dataclasses.asdict(got)) \
         == dropped
+    assert want.remat and not got.remat
     assert dataclasses.asdict(got) == {
         k: v for k, v in dataclasses.asdict(want).items()
-        if k not in dropped}
+        if k not in dropped | {"remat"}} | {"remat": False}
     assert got.devices_needed == want.devices_needed
     dec = mesh_lib.make_decentralized_mesh(got)
     assert dec.shape == {"clients": got.num_clients, "fsdp": got.fsdp,
@@ -438,6 +443,23 @@ def test_mesh_configs_match_the_reference(arch, multi_pod):
     assert prod.size == got.devices_needed
     assert prod.axis_names == (("pod", "data", "model") if multi_pod
                                else ("data", "model"))
+
+
+def test_run_world_forks_ranks_from_the_fork_server(tmp_path):
+    """``run_world`` forks its ranks from the fork server, which imported
+    the port's training modules before any rank ran; ``stop_forkserver``
+    stops it, and the next world starts it again."""
+    from multiprocessing import forkserver
+
+    want = [(0, 2, 3.0, True), (1, 2, 3.0, True)]
+    for _ in range(2):
+        ranks = dist_launch.run_world(2, worker.world_info,
+                                      store_dir=str(tmp_path))
+        assert [(r["rank"], r["world"], r["sum"], r["preloaded"])
+                for r in ranks] == want
+        assert forkserver._forkserver._forkserver_pid is not None
+        dist_launch.stop_forkserver()
+        assert forkserver._forkserver._forkserver_pid is None
 
 
 def test_backend_refusals():
@@ -466,3 +488,11 @@ def test_smoke_runs_the_train_legs():
     for arch in ("qwen2-0.5b", "granite-moe-1b-a400m"):
         assert f"[smoke] {arch}: train round ran" in out.stdout
         assert f"[smoke] {arch}: packed-gossip train round ran" in out.stdout
+    # the reference's train legs at (clients 2, fsdp 2, model 2): the
+    # attention blocks' arch runs all three, the MoE arch's wait
+    where = "ran on (clients 2, fsdp 2, model 2)"
+    for what in ("train round", "packed-gossip train round",
+                 "sparse-gossip train round"):
+        assert f"[smoke] qwen2-0.5b: {what} {where}" in out.stdout
+    assert ("[smoke] granite-moe-1b-a400m: the train legs on (clients 2, "
+            "fsdp 2, model 2) wait") in out.stdout

@@ -1,0 +1,484 @@
+"""A client's weights over the training mesh's fsdp and model axes
+(``launch.steps.build_train_round`` at ``(clients 2, fsdp 2, model 2)``,
+``dist.tensor_parallel.ClientShard``) against the JAX package's unsharded
+round and the port's host path, on the reduced qwen2-0.5b (2 layers, d 256,
+4 heads, 2 KV heads, vocab 512), n = 2, K = 2, 4 × 32 tokens a client, 4
+groups, two rounds from a state whose clients differ.
+
+One world of 8 gloo ranks is spawned for the file and runs every case
+and check (``_torch_fsdp_mesh_worker.run``); the reference's rounds
+(``repro.core.kgt_minimax.make_round_step`` on
+``repro.core.objectives.dro_problem``, jitted: GSPMD's sharded program
+computes that round) are compiled here while the world runs.  The f32
+cases run the port's kernels' plain versions (``kernels=True`` on CPU
+tensors: B6's vocab-parallel partials, ``ref.ce_partials_ref``); the bf16
+cases ``kernels=False``, the reference's form (logits in bf16, ROADMAP §C
+quirk 4), on both sides.
+
+Tolerances, stated before the first reading, max |got − want| ≤
+tol·(1 + max|want|):
+* f32: TOL_F32 = 1e-4;
+* bf16 compute: TOL_BF16_X = 1e-2 for x and cx, TOL_BF16_Y = 2e-4 for y
+  and cy (PERF.md §2's limits);
+* Σ_i c_i over the clients: TOL_SIGMA_C = 1e-5;
+* int8 compression: its quantizer's q on a rank's pieces (the row's max
+  taken over the block) is the whole row's bit for bit; the compressed
+  round's x, y and cy at TOL_F32, its cx by Σc (a Δ one f32 ulp apart
+  may round to another int8 step, which the correction scales by
+  1/(K·η_c): ROADMAP §C, "Rounding in the chip checks").
+"""
+import _torch_threads  # noqa: F401
+import functools
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import registry as jax_registry
+from repro.configs.base import AlgorithmConfig as JaxAlgorithmConfig
+from repro.core import kgt_minimax as jax_kgt
+from repro.core import objectives as jax_objectives
+from repro.data import synthetic as jax_data
+from repro.models import model as jax_model
+from repro_torch.configs import registry
+from repro_torch.configs.base import AlgorithmConfig, MeshConfig
+from repro_torch.core import KGTState
+from repro_torch.core import compression, packing
+from repro_torch.core import kgt_minimax as t_kgt
+from repro_torch.core import objectives as t_objectives
+from repro_torch.dist import launch as dist_launch
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.launch import steps
+from repro_torch.models import interop
+
+import _torch_fsdp_mesh_worker as worker
+
+TOL_F32 = 1e-4
+TOL_BF16_X = 1e-2
+TOL_BF16_Y = 2e-4
+TOL_SIGMA_C = 1e-5
+ARCH = worker.ARCH
+N, K, B, S, G, ROUNDS = 2, 2, 4, 32, 4, 2
+F, M = worker.MESH[1], worker.MESH[2]
+ALGO = dict(eta_cx=0.02, eta_cy=0.2, eta_sx=0.7, eta_sy=0.7,
+            topology="ring")
+# (name, mixing_impl, algorithm, compute dtype, kernels, gossip_compress)
+CASES = [
+    ("dense", "dense", "kgt_minimax", "float32", True, None),
+    ("pallas_packed", "pallas_packed", "kgt_minimax", "float32", True, None),
+    ("sparse_packed", "sparse_packed", "kgt_minimax", "float32", True, None),
+    ("sparse_packed_gt_gda", "sparse_packed", "gt_gda", "float32", True,
+     None),
+    ("pallas_packed_bf16", "pallas_packed", "kgt_minimax", "bfloat16",
+     False, None),
+    ("pallas_packed_int8", "pallas_packed", "kgt_minimax", "float32", True,
+     "int8"),
+]
+NAMES = [c[0] for c in CASES]
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@functools.lru_cache(maxsize=None)
+def _cfgs():
+    return (jax_registry.reduced(jax_registry.get_model_config(ARCH)),
+            registry.reduced(registry.get_model_config(ARCH)))
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs():
+    """The reference's parameters made to differ by client, y > 0, small
+    corrections summing to 0, and ROUNDS rounds of (K, n, B, S) batches
+    (numpy)."""
+    jcfg = _cfgs()[0]
+    kd, kx, kb = jax.random.split(jax.random.PRNGKey(0), 3)
+    dm = jax.jit(functools.partial(
+        jax_data.make_data_model, vocab_size=jcfg.vocab_size, num_groups=G,
+        num_clients=N, alpha=0.3))(kd)
+    x0 = _np(jax.jit(functools.partial(jax_model.init_params, jcfg))(kx))
+    draw = jax.jit(functools.partial(
+        jax_data.round_batches, local_steps=K, num_clients=N,
+        per_client_batch=B, seq_len=S, cfg=jcfg))
+    batches = [_np(draw(dm, jax.random.fold_in(kb, t)))
+               for t in range(ROUNDS)]
+    rng = np.random.default_rng(0)
+    xs = [jax.tree.map(lambda a: (a + 0.01 * rng.standard_normal(a.shape))
+                       .astype(np.float32), x0) for _ in range(N)]
+    # corrections that sum to 0 over the clients, as init_state's do
+    cx = jax.tree.map(lambda a: (1e-3 * rng.standard_normal((N, *a.shape)))
+                      .astype(np.float32), x0)
+    cx = jax.tree.map(lambda a: a - a.mean(0), cx)
+    cxs = [jax.tree.map(lambda a: a[c], cx) for c in range(N)]
+    y = rng.uniform(0.1, 1.0, (N, G)).astype(np.float32)
+    cy = (1e-2 * rng.standard_normal((N, G))).astype(np.float32)
+    cy = cy - cy.mean(0)
+    return dict(xs=xs, cxs=cxs, y=y, cy=cy, batches=batches)
+
+
+def _batch(b):
+    return {k: torch.tensor(np.asarray(v)).long() for k, v in b.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_state():
+    inp, tcfg = _inputs(), _cfgs()[1]
+    return dict(
+        x=interop.stacked_params_from_reference(inp["xs"], tcfg,
+                                                device="cpu"),
+        cx=interop.stacked_params_from_reference(inp["cxs"], tcfg,
+                                                 device="cpu"),
+        y=torch.tensor(inp["y"]), cy=torch.tensor(inp["cy"]))
+
+
+def _stack(trees):
+    return jax.tree.map(lambda *a: np.stack(a), *trees)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(algo, dtype, compress):
+    """The reference's ROUNDS rounds from the inputs (jitted, its XLA
+    oracle for a packed lowering's compression): numpy fields."""
+    inp = _inputs()
+    jprob = jax_objectives.dro_problem(_cfgs()[0], num_groups=G, mu=1.0,
+                                       compute_dtype=getattr(jnp, dtype))
+    impl = "pallas_packed" if compress else "dense"
+    cfg = JaxAlgorithmConfig(**ALGO, algorithm=algo, num_clients=N,
+                             local_steps=K, mixing_impl=impl,
+                             gossip_compress=compress,
+                             gossip_backend="xla" if compress else "auto")
+    ef = [None, None]
+    if compress:
+        dx = sum(a.size for a in jax.tree.leaves(inp["xs"][0]))
+        ef = [np.zeros((N, dx), np.float32), np.zeros((N, G), np.float32)]
+    st = jax_kgt.KGTState(x=_stack(inp["xs"]), y=inp["y"],
+                          cx=_stack(inp["cxs"]), cy=inp["cy"],
+                          round=jnp.int32(0), ef_x=ef[0], ef_y=ef[1])
+    step = jax.jit(jax_kgt.make_round_step(jprob, cfg))
+    keys = jax.random.split(jax.random.PRNGKey(1), K * N).reshape(K, N, 2)
+    for b in inp["batches"]:
+        st = step(st, b, keys)
+    return _np(dict(x=st.x, y=st.y, cx=st.cx, cy=st.cy))
+
+
+@functools.lru_cache(maxsize=None)
+def _host(impl, algo, dtype, kernels, compress):
+    """The port's host path on the case: its final state."""
+    tcfg = _cfgs()[1]
+    prob = t_objectives.dro_problem(tcfg, num_groups=G, mu=1.0,
+                                    compute_dtype=getattr(torch, dtype),
+                                    kernels=kernels)
+    cfg = AlgorithmConfig(**ALGO, algorithm=algo, num_clients=N,
+                          local_steps=K, mixing_impl=impl,
+                          gossip_compress=compress)
+    st = _port_state()
+    state = t_kgt.init_state(prob, cfg, torch.Generator(), axis=None)
+    state = KGTState(x=st["x"], y=st["y"], cx=st["cx"], cy=st["cy"],
+                     round=0, ef_x=state.ef_x, ef_y=state.ef_y)
+    step = t_kgt.make_round_step(prob, cfg, device="cpu")
+    for b in _inputs()["batches"]:
+        state = step(state, _batch(b), torch.zeros((K, N, 0)))
+    return state
+
+
+def _q_input():
+    """A whole client row per client, as a stacked parameter dict, for
+    the int8 quantizer check (values of several scales, so rows' maxima
+    lie in different leaves)."""
+    gen = torch.Generator().manual_seed(3)
+    x = _port_state()["x"]
+    return {k: torch.randn(v.shape, generator=gen) * (1.0 + i % 5)
+            for i, (k, v) in enumerate(x.items())}
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    """Every case and the checks on the 8 ranks (rank order), and the
+    whole q input; the reference's rounds compiled meanwhile."""
+    d = tmp_path_factory.mktemp("fsdp_mesh")
+    st = _port_state()
+    inputs = dict(n=N, k=K, b=B, s=S, g=G, mu=1.0, algo=ALGO,
+                  state=st, batches=[_batch(b) for b in _inputs()["batches"]])
+    path, q_path = str(d / "inputs.pt"), str(d / "q.pt")
+    torch.save(inputs, path)
+    q_in = _q_input()
+    torch.save(q_in, q_path)
+    out = {}
+
+    def run():
+        ranks = dist_launch.run_world(8, worker.run, path, q_path, CASES,
+                                      backend="gloo", store_dir=str(d))
+        out["cases"] = [r["cases"] for r in ranks]
+        out["checks"] = [r["checks"] for r in ranks]
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        for _, _, algo, dtype, _, comp in CASES:
+            _reference(algo, dtype, comp)
+    finally:
+        thread.join()
+    return dict(out, q_in=q_in)
+
+
+def _ranks_of(client):
+    """The block of ``client``: its ranks in (fsdp, model) order."""
+    return range(client * F * M, (client + 1) * F * M)
+
+
+def _gathered(ranks, name, field):
+    """Every client's whole (gathered) parameter dict of ``field``."""
+    cfg = _cfgs()[1]
+    out = []
+    for c in range(N):
+        pieces = []
+        for r in _ranks_of(c):
+            rec = ranks[r][name]
+            pieces.append({k: v[c - rec["clients"][0]]
+                           for k, v in rec[field].items()})
+        out.append(tp.gather_client(pieces, cfg, F, M))
+    return out
+
+
+def _err(got, want):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max()) / (1.0 + float(
+        np.abs(want).max()))
+
+
+def _tols(dtype):
+    if dtype == "float32":
+        return dict(x=TOL_F32, cx=TOL_F32, y=TOL_F32, cy=TOL_F32)
+    return dict(x=TOL_BF16_X, cx=TOL_BF16_X, y=TOL_BF16_Y, cy=TOL_BF16_Y)
+
+
+def _errs(ranks, name, want_x, want_cx, want_y, want_cy):
+    """max rel. error of each field of the world's state against the
+    wanted one (x, cx as per-client dicts in the port's names)."""
+    errs = {}
+    for field, want in (("x", want_x), ("cx", want_cx)):
+        for got, w in zip(_gathered(ranks, name, field), want):
+            for k in got:
+                errs[field] = max(errs.get(field, 0.0),
+                                  _err(got[k].float().numpy(),
+                                       w[k].float().numpy()))
+    for field, want in (("y", want_y), ("cy", want_cy)):
+        for c in range(N):
+            for r in _ranks_of(c):
+                rec = ranks[r][name]
+                got = rec[field][c - rec["clients"][0]]
+                errs[field] = max(errs.get(field, 0.0),
+                                  _err(got.numpy(), want[c]))
+    return errs
+
+
+def _case(name):
+    return next(c for c in CASES if c[0] == name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_round_matches_the_reference(world, name):
+    _, impl, algo, dtype, kernels, comp = _case(name)
+    want = _reference(algo, dtype, comp)
+    errs = _errs(world["cases"], name, _port_dicts(want["x"]),
+                 _port_dicts(want["cx"]), want["y"], want["cy"])
+    tol = _tols(dtype)
+    fields = ("x", "y", "cy") if comp else ("x", "cx", "y", "cy")
+    assert all(errs[f] <= tol[f] for f in fields), errs
+
+
+def _port_dicts(stacked):
+    """A reference (n, …) parameter pytree as one port parameter dict a
+    client."""
+    x = interop.stacked_params_from_reference(
+        [jax.tree.map(lambda a: a[c], stacked) for c in range(N)],
+        _cfgs()[1], device="cpu")
+    return [{k: v[c] for k, v in x.items()} for c in range(N)]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_round_matches_the_host_path(world, name):
+    _, impl, algo, dtype, kernels, comp = _case(name)
+    host = _host(impl, algo, dtype, kernels, comp)
+    per_client = lambda d: [{k: v[c] for k, v in d.items()}  # noqa: E731
+                            for c in range(N)]
+    errs = _errs(world["cases"], name, per_client(host.x),
+                 per_client(host.cx), host.y.numpy(), host.cy.numpy())
+    tol = _tols(dtype)
+    fields = ("x", "y", "cy") if comp else ("x", "cx", "y", "cy")
+    assert all(errs[f] <= tol[f] for f in fields), errs
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_sigma_c_is_zero(world, name):
+    """Σ_i c_i = 0 over the clients, leaf by leaf of the gathered cx, and
+    over cy."""
+    ranks = world["cases"]
+    cxs = _gathered(ranks, name, "cx")
+    for k in cxs[0]:
+        total = sum(c[k].double() for c in cxs)
+        top = max(float(c[k].abs().max()) for c in cxs)
+        assert float(total.abs().max()) / N <= TOL_SIGMA_C * (1 + top), k
+    cy = torch.stack([ranks[_ranks_of(c)[0]][name]["cy"][0]
+                      for c in range(N)])
+    assert float(cy.double().sum(0).abs().max()) / N <= TOL_SIGMA_C * (
+        1 + float(cy.abs().max()))
+
+
+def test_y_is_the_same_on_every_rank_of_a_client(world):
+    for name in NAMES:
+        for c in range(N):
+            ys = [world["cases"][r][name]["y"] for r in _ranks_of(c)]
+            assert all(torch.equal(y, ys[0]) for y in ys), name
+
+
+def test_the_round_makes_the_block_collectives(world):
+    """The local steps gather the weights over fsdp and reduce-scatter
+    their gradients (as many calls), sum the row-parallel partials over
+    model and the loss sums over fsdp; the gossip runs over the clients
+    axis only."""
+    for rank in world["cases"]:
+        counts = rank["dense"]["counts"]
+        local = counts["local_steps"]
+        assert local["fsdp_gather"]["calls"] == local["reduce_scatter"][
+            "calls"] > 0
+        assert local["model_sum"]["calls"] > 0
+        assert local["batch_sum"]["calls"] > 0
+        assert set(counts["gossip"]) == {"all_gather"}
+
+
+def test_replicated_leaves_get_the_same_gradient_on_every_model_rank(world):
+    """A leaf every model rank holds whole (the norms) gets the same
+    gradient bit for bit on the model ranks of a client's fsdp rank; the
+    y gradient is the same on every rank of the block."""
+    checks = world["checks"]
+    replicated = [k for k, whole in checks[0]["plan"].items() if whole]
+    assert replicated
+    for c in range(N):
+        block = [checks[r] for r in _ranks_of(c)]
+        for f in range(F):
+            ranks = [rec for rec in block if rec["block"][0] == f]
+            for k in replicated:
+                assert all(torch.equal(rec["gx"][k], ranks[0]["gx"][k])
+                           for rec in ranks), k
+        assert all(torch.equal(rec["gy"], block[0]["gy"]) for rec in block)
+
+
+def test_the_gradient_is_the_host_paths(world):
+    """The pieces' gradients gathered are the unsharded gradient."""
+    tcfg = _cfgs()[1]
+    prob = t_objectives.dro_problem(tcfg, num_groups=G, mu=1.0,
+                                    compute_dtype=torch.float32)
+    st = _port_state()
+    batch = {k: v[0] for k, v in _batch(_inputs()["batches"][0]).items()}
+    gx, gy = t_kgt._vgrads(prob, st["x"], st["y"], batch,
+                           torch.zeros((N, 0)))
+    checks = world["checks"]
+    for c in range(N):
+        got = tp.gather_client(
+            [{k: v[c - checks[r]["clients"][0]]
+              for k, v in checks[r]["gx"].items()} for r in _ranks_of(c)],
+            tcfg, F, M)
+        for k in got:
+            assert _err(got[k].numpy(), gx[k][c].numpy()) <= TOL_F32, k
+        got_y = checks[_ranks_of(c)[0]]["gy"][c - checks[
+            _ranks_of(c)[0]]["clients"][0]]
+        assert _err(got_y.numpy(), gy[c].numpy()) <= TOL_F32
+
+
+def test_the_metrics_row_is_the_host_paths(world):
+    """``dro_metrics_fn`` on the pieces (x̄ the pieces' mean, the losses
+    on them, the consensus and correction norms summed over the block)
+    against the host path's row of the same state and batches, on every
+    rank."""
+    from repro_torch.engine import diagnostics
+
+    tcfg = _cfgs()[1]
+    prob = t_objectives.dro_problem(tcfg, num_groups=G, mu=1.0,
+                                    compute_dtype=torch.float32)
+    st = _port_state()
+    batches = _batch(_inputs()["batches"][0])
+    want = diagnostics.dro_metrics_fn(
+        prob, tcfg, num_groups=G,
+        eval_batch={k: v[1, 0] for k, v in batches.items()},
+        compute_dtype=torch.float32)(
+        KGTState(x=st["x"], y=st["y"], cx=st["cx"], cy=st["cy"], round=0),
+        batches)
+    for rec in world["checks"]:
+        assert set(rec["row"]) == set(want)
+        for k, w in want.items():
+            assert _err(rec["row"][k].numpy(), w.numpy()) <= TOL_F32, k
+
+
+def test_a_rank_holds_a_quarter_of_a_client(world):
+    """x and cx are split over the block's F·M = 4 ranks (up to the
+    uneven pieces: a KV bias of one head a model rank has an empty fsdp
+    piece), y and cy are whole on each."""
+    st = _port_state()
+    whole = sum(v[0].numel() * 4 for v in st["x"].values()) * 2
+    yb = G * 4 * 2
+    for rec in world["checks"]:
+        x_bytes = rec["state_bytes"] - yb
+        assert abs(x_bytes - whole / (F * M)) <= 0.01 * whole / (F * M)
+
+
+def test_int8_q_is_the_whole_rows_bit_for_bit(world):
+    """int8's q (and e') on a rank's pieces, the row's max over the block,
+    is the whole row's q bit for bit."""
+    tcfg = _cfgs()[1]
+    q_in = world["q_in"]
+    spec = packing.pack_spec(q_in)
+    q, e = compression.ef_transmit(packing.pack(q_in, spec),
+                                   torch.zeros((N, spec.dim)), "int8")
+    want_q, want_e = packing.unpack(q, spec), packing.unpack(e, spec)
+    checks = world["checks"]
+    for field, want in (("q", want_q), ("e", want_e)):
+        for c in range(N):
+            got = tp.gather_client(
+                [{k: v[c - checks[r]["clients"][0]]
+                  for k, v in checks[r][field].items()}
+                 for r in _ranks_of(c)], tcfg, F, M)
+            for k in got:
+                assert torch.equal(got[k], want[k][c]), (field, k)
+
+
+def test_remat_is_refused_by_name():
+    """``MeshConfig.remat`` (activation checkpointing) does not run under
+    ``torch.func.grad``: ``build_train_round`` refuses it by name."""
+    with pytest.raises(NotImplementedError, match="remat.*ROADMAP A3"):
+        steps.build_train_round(_cfgs()[1], None, None,
+                                MeshConfig(num_clients=2, fsdp=2, model=2,
+                                           remat=True))
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mamba2-1.3b", "ssm blocks"), ("recurrentgemma-9b", "rglru blocks"),
+    ("granite-moe-1b-a400m", "moe blocks")])
+def test_blocks_not_ported_are_refused_by_name(arch, match):
+    cfg = registry.reduced(registry.get_model_config(arch))
+    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP A3"):
+        tp.check_train(cfg, 2, 2)
+    tp.check_train(cfg, 1, 1)
+
+
+def test_replicated_param_mode_and_expert_parallel_are_refused():
+    cfg = _cfgs()[1]
+    with pytest.raises(NotImplementedError, match="replicated.*ROADMAP A3"):
+        tp.check_train(cfg, 2, 1, param_mode="replicated")
+    with pytest.raises(NotImplementedError, match="moe_expert_parallel"):
+        tp.check_train(cfg, 1, 2, expert_parallel=True)
+
+
+def test_fsdp_pieces_cover_a_dim():
+    from repro_torch.dist import collectives
+
+    assert collectives.fsdp_widths(7, 2) == (4, 3)
+    assert collectives.fsdp_widths(1, 2) == (1, 0)
+    assert collectives.fsdp_widths(896, 2) == (448, 448)
+    assert sum(collectives.fsdp_widths(5, 4)) == 5

@@ -341,6 +341,7 @@ def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.zero_launch_counts()
     zero = {"tensor_core": 0, "cuda_core": 0}
     want = {"flash_attention": zero, "fused_cross_entropy": zero,
+            "ce_partials": zero,
             "ssd_scan": zero, "rglru_scan": {"walk": 0, "chunked": 0},
             "fused_round": {"cluster": 0, "block": 0},
             "fused_gossip": {"unrolled": 0, "tiled": 0},
@@ -353,6 +354,8 @@ def test_route_counts_start_at_zero_and_cpu_dispatch_counts_nothing():
     t_ops.rglru_scan(a, a).sum().backward()
     h, w = torch.zeros((4, 8), dtype=BF16), torch.zeros((10, 8), dtype=BF16)
     t_ops.fused_cross_entropy(h, w, torch.zeros((4,), dtype=torch.long))
+    t_ops.vocab_parallel_cross_entropy(
+        h, w, torch.zeros((4,), dtype=torch.long), lambda m, l, z: (m, l, z))
     x = torch.zeros((1, 5, 2, 4))
     t_ops.ssd_scan(x, torch.zeros((1, 5, 2)), torch.zeros((1, 5, 4)),
                    torch.zeros((1, 5, 4)), chunk=4)
