@@ -151,19 +151,26 @@ Phases, each printing one JSON line:
    communication s a round and peak memory per rank.
 15b'. fsdp_mesh — a client's weights over the mesh's fsdp and model axes
    (``launch.steps.build_train_round`` on ``launch.mesh.train_mesh(2, 2,
-   2)``, ``dist.tensor_parallel.ClientShard``): 8 gloo ranks on cuda:0,
-   qwen2-0.5b at full width cut to FSDP_MESH_LAYERS (2) layers, n = 2,
-   K = 4, 4 × 128 tokens a client, FSDP_MESH_ROUNDS (2) rounds of
-   pallas_packed, each rank holding its (fsdp, model) quarter of its
-   client's x and cx; held to the host path run here first from the same
-   seed (TOL_MESH_X / TOL_MESH_Y); per rank the state's bytes, peak
-   memory, the seconds and bytes a round of the fsdp gathers, the
-   reduce-scatters, the model sums and the gossip, rounds/s, and B1's,
-   B5's and B6's vocab-parallel launches by route (the whole-vocabulary
-   B6 launches no time).  The kernels phase holds B6's vocab-parallel
-   form (``ce_partials``) against its plain version at a rank's shape on
-   both routes and the merged NLL of two pieces against whole-vocabulary
-   B6 (TOL_CE_MERGED).
+   2)``, ``dist.tensor_parallel.ClientShard``): 8 gloo ranks on cuda:0
+   running FSDP_MESH_RUNS in one world: qwen2-0.5b at full width cut to
+   FSDP_MESH_LAYERS (2) layers, FSDP_MESH_ROUNDS (2) rounds; mamba2-1.3b
+   and granite-moe-1b-a400m (experts split over model) at full width,
+   2 layers, and the reduced recurrentgemma-9b, one round each, then
+   granite again in bf16 replaying the host path's expert choices;
+   n = 2, K = 4, 4 × 128 tokens a client, pallas_packed, each rank
+   holding its (fsdp, model) quarter of its client's x and cx; each run
+   held to its host path run here from the same seed (bf16: TOL_MESH_X /
+   TOL_MESH_Y; f32: TOL_TRAIN_F32), granite's expert choices against the
+   host path's (no flip in f32; counted in bf16); per rank and run the
+   state's bytes, peak memory, the seconds and bytes a round of the fsdp
+   gathers, the reduce-scatters, the model sums, the RG-LRU gate input's
+   gathers and the gossip, rounds/s, and B1's, B5's, B6's
+   vocab-parallel, B7's and B8's launches by route, B8's backward
+   launches (the whole-vocabulary B6 launches no time); each kernel at a
+   rank's shape in each run against its plain version.  The kernels
+   phase holds B6's vocab-parallel form (``ce_partials``) against its
+   plain version at a rank's shape on both routes and the merged NLL of
+   two pieces against whole-vocabulary B6 (TOL_CE_MERGED).
 15c. serve_mesh — the serving mesh (``launch.steps.build_prefill_step``
    and ``build_decode_step`` on a ``(data, model)`` mesh, tensor
    parallelism from ``dist.tensor_parallel``): qwen2-0.5b at full width
@@ -179,8 +186,9 @@ Phases, each printing one JSON line:
    against the printed formula; a 2-layer f32 prefill at (1, 2) at
    TOL_SERVE_F32; a world of 1 over NCCL bit for bit the single process;
    then on the same world at (data 1, model 2) (SERVE_SCAN) mamba2-1.3b
-   at full width and depth (48 layers, 2 × 4096 prompt tokens, B7 on 32
-   of the 64 SSM heads a rank, 48 launches a prefill on tensor cores) and
+   at full width cut to 24 of its 48 layers (2 × 4096 prompt tokens, B7
+   on 32 of the 64 SSM heads a rank, 24 launches a prefill on tensor
+   cores) and
    recurrentgemma-9b at full width and depth (38 layers, 1 × 4096 tokens,
    past its 2048 window; B8 on 2048 of the 4096 LRU channels, 26 launches
    a prefill on the route B8's rule gives the rank's shard, B5 on 8 query
@@ -426,6 +434,44 @@ MESH_LAYERS = 2
 FSDP_MESH = (2, 2, 2)
 FSDP_MESH_LAYERS = 2
 FSDP_MESH_ROUNDS = 2
+# the phase's runs in its one world, in order: (name, arch, layers — None
+# for the reduced config —, rounds, compute dtype, moe_expert_parallel,
+# replay — whether the ranks replay the host path's expert choices).
+# qwen2-0.5b as above; mamba2-1.3b (B7 on a rank's 32 SSM heads, B6's
+# partials on half its 50 280 tokens) and granite-moe-1b-a400m (its 32
+# experts split over model, as the reference's smoke sets it; B5 on 8
+# query and 4 KV heads, B6's partials on uneven pieces of 49 155) at full
+# width cut to FSDP_MESH_LAYERS layers; recurrentgemma-9b's reduced config
+# (B8 and its backward on a rank's LRU channels, B5 over the one KV head
+# both model ranks hold): its untied 256 000 × 4096 embedding and head
+# alone are 2.1 B parameters, ~34 GB of x and cx for two clients in f32,
+# past one card shared by 8 ranks.  A run after the first starts from the
+# host path's initial state and runs one round (its own init_state is the
+# first run's check).  The limits against the host path, stated before the
+# first reading (``fsdp_run_tols``): bf16 compute TOL_MESH_X (x, cx) and
+# TOL_MESH_Y (y, cy); f32 compute TOL_TRAIN_F32 on every field — granite
+# in f32 (its expert choices on its first batch against the host path's
+# counted, and none may differ), and the reduced recurrentgemma-9b, whose
+# bf16 round misses TOL_MESH_X on cx (2.67e-2) in a CPU rehearsal of this
+# geometry.  granite runs again in bf16, the compute that training uses:
+# there B5's and B6's bf16 roundings flip near-tie top-8 choices (~3 %,
+# ROADMAP §C) and a token sent to other experts moves the state by a step,
+# so its ranks replay the host path's expert choices of every MoE layer
+# and local step (``routing_replay``, recorded by ``routing_recorder``),
+# their own choices on the first batch against the host path's counted
+# and printed; it runs last, so that the host path has recorded them by
+# the time the ranks reach it
+FSDP_MESH_RUNS = (
+    ("qwen2-0.5b", TRAIN_ARCH, FSDP_MESH_LAYERS, FSDP_MESH_ROUNDS,
+     "bfloat16", False, False),
+    ("mamba2-1.3b", "mamba2-1.3b", FSDP_MESH_LAYERS, 1, "bfloat16", False,
+     False),
+    ("granite-moe-1b-a400m", "granite-moe-1b-a400m", FSDP_MESH_LAYERS, 1,
+     "float32", True, False),
+    ("recurrentgemma-9b-reduced", "recurrentgemma-9b", None, 1, "float32",
+     False, False),
+    ("granite-moe-1b-a400m-bf16", "granite-moe-1b-a400m", FSDP_MESH_LAYERS,
+     1, "bfloat16", True, True))
 # B6's vocab-parallel form (phase kernels) at a rank's shape on that mesh:
 # a client's 4 × 128 tokens over fsdp 2, d_model, and the vocabulary over
 # model 2; the merged NLL of the two pieces against the whole vocabulary's
@@ -460,13 +506,14 @@ SERVE_MESH_F32_LAYERS, SERVE_MESH_SAMPLE_SEED = 2, 1
 # ~100 small collectives over gloo; cut from 16 for the script's time
 # limit, PERF.md §4), held to the single process at
 # the arch's TOL_SERVE_BF16 (mamba2-1.3b's 48 layers amplify bf16 rounding:
-# PERF.md §2); mamba2-1.3b at its 48 layers (B7 at (2, 4096, 32, 64, 128)
-# a rank), recurrentgemma-9b at its 38 (B8 at (1, 4096, 2048), B5 at
+# PERF.md §2); mamba2-1.3b at 24 of its 48 layers (cut from 48 for the
+# script's time limit, PERF.md §4; B7 at (2, 4096, 32, 64, 128) a rank),
+# recurrentgemma-9b at its 38 (B8 at (1, 4096, 2048), B5 at
 # 8 query heads over the one KV head both ranks hold); the f32 prefill
 # at 2 layers, recurrentgemma-9b's at 3 (one whole 2:1 unit, so its
 # replicated KV head is held in f32 too)
 SERVE_SCAN_SHAPE = (1, 2)
-SERVE_SCAN = {"mamba2-1.3b": (2, 48, 2), "recurrentgemma-9b": (1, 38, 3)}
+SERVE_SCAN = {"mamba2-1.3b": (2, 24, 2), "recurrentgemma-9b": (1, 38, 3)}
 SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 8
 # federated DRO training of the other block kinds: mamba2-1.3b at full
 # width through B7 and B6, at the reference's train defaults but n = 2 (its
@@ -477,7 +524,7 @@ SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 8
 # whose peaks fit the card; cut below them for the script's time limit:
 # PERF.md §4, §5)
 SSM_TRAIN_ARCH, SSM_TRAIN_N = "mamba2-1.3b", 2
-SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 16, 16, 8
+SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 8, 8, 4
 # recurrentgemma-9b's state does not fit the card even at n = 1: its reduced
 # config trains here, and B8 is held at a full-width layer's (n·B, S, W)
 RG_TRAIN_ARCH = "recurrentgemma-9b"
@@ -496,7 +543,7 @@ RG_SCAN_TRAIN_SHAPE = (SSM_TRAIN_N * TRAIN_B, TRAIN_S, 4096)
 MOE_ARCH, MOE_TRAIN_N = "granite-moe-1b-a400m", 2
 MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_DECODE_STEPS = 4, 4096, 16
 MOE_DROPLESS_FACTOR = 8.0
-MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 8, 4
+MOE_LAYERS_GRADS, MOE_LAYERS_CAPTURED = 4, 2
 # the modality frontends (phase frontends): musicgen-medium at full width
 # (4 codebooks of V = 2048, untied), 4 prompts of 1500 frames (30 s at
 # EnCodec's 50 Hz), evaluated on 4 clients × 4 × 1500 frames, its gradient
@@ -4928,17 +4975,65 @@ def fsdp_mesh_algo():
     from repro_torch.configs.base import AlgorithmConfig
 
     args = train_args()
-    return AlgorithmConfig(algorithm="kgt_minimax", num_clients=FSDP_MESH[0],
+    return AlgorithmConfig(algorithm="kgt_minimax",
+                           num_clients=FSDP_MESH[0],
                            local_steps=TRAIN_K, eta_cx=args.eta_cx,
                            eta_cy=args.eta_cy, eta_sx=args.eta_s,
                            eta_sy=args.eta_s, topology=args.topology,
                            mixing_impl="pallas_packed")
 
 
-def fsdp_mesh_batches(cfg, dev):
-    """The fsdp_mesh phase's initial batch and each round's (K, n, B, S)
-    batches, drawn from the port's data model (the host path draws them
-    and saves them for the ranks)."""
+def fsdp_run_cfg(run):
+    """The config of an FSDP_MESH_RUNS entry: the arch at full width cut
+    to its layers, or its reduced config."""
+    from repro_torch.configs import registry
+
+    cfg = registry.get_model_config(run[1])
+    if run[2] is None:
+        return registry.reduced(cfg)
+    return dataclasses.replace(cfg, num_layers=run[2])
+
+
+def fsdp_run_tols(run) -> tuple:
+    """(x and cx, y and cy) limits of a run against its host path."""
+    return ((TOL_MESH_X, TOL_MESH_Y) if run[4] == "bfloat16"
+            else (TOL_TRAIN_F32, TOL_TRAIN_F32))
+
+
+def fsdp_want_launches(run, cfg) -> dict:
+    """A rank's launches of each model and gossip kernel in a run's
+    rounds: B5 once an attention layer and local step, B7 once an ``ssm``
+    layer, B8 once an ``rglru`` layer (its backward kernel as often), B6's
+    partials once a local step, B1 once a round; the whole-vocabulary B6
+    no time."""
+    kinds = cfg.blocks()
+    steps_ = run[3] * TRAIN_K
+    return {"flash_attention": steps_ * sum(
+        k in ("attn", "sliding", "attn_local", "moe") for k in kinds),
+        "ssd_scan": steps_ * kinds.count("ssm"),
+        "rglru_scan": steps_ * kinds.count("rglru"),
+        "ce_partials": steps_, "fused_gossip": run[3]}
+
+
+def fsdp_route_of(run, cfg) -> dict:
+    """The route each two-route kernel of a run takes: B5 and B6's
+    partials on tensor cores in bf16, on CUDA cores in f32; B7 on tensor
+    cores; B8 by its rule at a rank's (B/F, S, W/M); B1 unrolled."""
+    from repro_torch.kernels import rglru_scan
+
+    core = "tensor_core" if run[4] == "bfloat16" else "cuda_core"
+    out = {"flash_attention": core, "ce_partials": core}
+    if "rglru" in cfg.blocks():
+        out["rglru_scan"] = rglru_scan.route(
+            TRAIN_B // FSDP_MESH[1], TRAIN_S,
+            cfg.rglru.channels(cfg.d_model) // FSDP_MESH[2])
+    return out
+
+
+def fsdp_mesh_batches(cfg, dev, rounds):
+    """A run's initial batch and each round's (K, n, B, S) batches, drawn
+    from the port's data model (the host path draws them and saves them
+    for the ranks)."""
     import torch
 
     from repro_torch.data import synthetic as data_lib
@@ -4952,67 +5047,164 @@ def fsdp_mesh_batches(cfg, dev):
     draw = [data_lib.round_batches(dm, gen, local_steps=k, num_clients=n,
                                    per_client_batch=TRAIN_B,
                                    seq_len=TRAIN_S, cfg=cfg)
-            for k in [1] + [TRAIN_K] * FSDP_MESH_ROUNDS]
+            for k in [1] + [TRAIN_K] * rounds]
     init_batch = {k: v[0] for k, v in draw[0].items()}
     return init_batch, draw[1:]
 
 
-def fsdp_host_path(cfg, dev, directory, init_batch, rounds) -> dict:
-    """The host path of the fsdp_mesh phase in this process (while the
-    ranks start): the same initial state (x0 drawn from a generator
-    seeded 0, the corrections from the initial batch) and
-    FSDP_MESH_ROUNDS rounds of pallas_packed
-    on both clients' whole weights; each rank's pieces of its client's x
-    and cx (``dist.tensor_parallel.ClientShard.take`` at its place on the
-    block) and its client's y and cy saved to ``directory``, on the host,
-    for the ranks, then the marker ``host_done`` that they wait for."""
+@contextlib.contextmanager
+def expert_choices():
+    """Records the expert choices (``models.moe.route``'s (…, k) gate
+    indices, on the host) of every MoE layer called while the block
+    runs, in call order."""
+    from repro_torch.models import moe as moe_lib
+
+    got, orig = [], moe_lib.route
+
+    def spy(params, x, cfg):
+        r = orig(params, x, cfg)
+        got.append(r.gate_idx.detach().cpu())
+        return r
+
+    moe_lib.route = spy
+    try:
+        yield got
+    finally:
+        moe_lib.route = orig
+
+
+def count_flips(got, want) -> int:
+    """(layer, token) pairs whose sets of chosen experts differ."""
+    return sum(int((g.sort(-1).values != w.sort(-1).values).any(-1).sum())
+               for g, w in zip(got, want))
+
+
+def fsdp_save_pieces(state, cfg, ep, directory, prefix) -> None:
+    """Each block position's pieces of each client's x and cx and its
+    y and cy, on the host, as ``{prefix}_{client}_{fsdp}_{model}.pt``."""
     import torch
 
-    from repro_torch.core import kgt_minimax as kgt
-    from repro_torch.core import objectives
     from repro_torch.dist import collectives
     from repro_torch.dist import tensor_parallel as tp
 
-    algo = fsdp_mesh_algo()
-    n = FSDP_MESH[0]
-    problem = objectives.dro_problem(cfg, num_groups=TRAIN_G)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    state = kgt.init_state(problem, algo, gen, init_batch=init_batch)
-    step = kgt.make_round_step(problem, algo, device=dev)
-    t0 = time.perf_counter()
-    for batches in rounds:
-        state = step(state, batches, torch.zeros((TRAIN_K, n, 0),
-                                                 device=dev))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     _, f, m = FSDP_MESH
     for fr in range(f):
         for mr in range(m):
             shard = tp.ClientShard(cfg, collectives.MeshAxis(fr, f),
-                                   collectives.MeshAxis(mr, m))
-            for i in range(n):
+                                   collectives.MeshAxis(mr, m),
+                                   expert_parallel=ep)
+            for i in range(FSDP_MESH[0]):
                 torch.save({name: (getattr(state, name)[i].cpu()
                                    if name in ("y", "cy") else
                                    {k: v.cpu() for k, v in shard.take(
                                        {k: v[i] for k, v in getattr(
                                            state, name).items()}).items()})
                             for name in ("x", "cx", "y", "cy")},
-                           os.path.join(directory, f"host_{i}_{fr}_{mr}.pt"))
-    open(os.path.join(directory, "host_done"), "w").close()
+                           os.path.join(directory,
+                                        f"{prefix}_{i}_{fr}_{mr}.pt"))
+
+
+def fsdp_host_path(index, run, cfg, dev, directory, init_batch,
+                   rounds) -> dict:
+    """The host path of run ``index`` of the fsdp_mesh phase in this
+    process (while the ranks run): the initial state (x0 drawn from a
+    generator seeded 0, the corrections from the initial batch) and the
+    run's rounds of pallas_packed on both clients' whole weights.  Every
+    run but the first (whose ranks draw their own initial state) saves
+    each block position's pieces of that state for the ranks
+    (``init_{index}``, then the marker ``init_done_{index}``); a MoE run
+    saves the expert choices of each client's first batch on it, and a
+    run that the ranks replay saves the expert choices of every MoE layer
+    and local step of its rounds (``replay_{index}``, one (n, B, S, k)
+    tensor a call).  Then each position's pieces of the final state
+    (``host_{index}``) and the marker ``host_done_{index}`` that the ranks
+    wait for."""
+    import torch
+
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import objectives
+    from repro_torch.models import model as model_lib
+
+    algo = fsdp_mesh_algo()
+    n, ep, dtype = FSDP_MESH[0], run[5], getattr(torch, run[4])
+    problem = objectives.dro_problem(cfg, num_groups=TRAIN_G,
+                                     compute_dtype=dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = kgt.init_state(problem, algo, gen, init_batch=init_batch)
+    if index:
+        fsdp_save_pieces(state, cfg, ep, directory, f"init_{index}")
+        open(os.path.join(directory, f"init_done_{index}"), "w").close()
+    if cfg.moe.num_experts:
+        skel = model_lib.skeleton(cfg)
+        choices = []
+        for i in range(n):
+            with torch.no_grad(), expert_choices() as got:
+                model_lib.call(skel, {k: v[i] for k, v in state.x.items()},
+                               model_lib.per_group_loss,
+                               {k: v[0, i] for k, v in rounds[0].items()},
+                               num_groups=TRAIN_G, compute_dtype=dtype)
+            choices.append(got)
+        torch.save(choices, os.path.join(directory, f"routing_{index}.pt"))
+    step = kgt.make_round_step(problem, algo, device=dev)
+    t0 = time.perf_counter()
+    with (routing_recorder() if run[6] else contextlib.nullcontext(
+            [])) as seen:
+        for batches in rounds:
+            state = step(state, batches, torch.zeros((TRAIN_K, n, 0),
+                                                     device=dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if run[6]:
+        torch.save([t.cpu() for t in seen],
+                   os.path.join(directory, f"replay_{index}.pt"))
+    fsdp_save_pieces(state, cfg, ep, directory, f"host_{index}")
+    open(os.path.join(directory, f"host_done_{index}"), "w").close()
     client_bytes = sum(t[0].numel() * t[0].element_size()
                        for t in state.x.values())
     del state
     return {"seconds": seconds, "client_x_bytes": client_bytes}
 
 
-def fsdp_mesh_rank(rank, world, layers, directory, dev):
-    """One rank of the fsdp_mesh phase: its pieces of its client on the
+def wait_for(path, what, limit=600) -> None:
+    """Waits for the parent's marker ``path``; fails at once where the
+    parent's host path failed (its marker ``host_failed`` beside it)."""
+    t0 = time.perf_counter()
+    failed = os.path.join(os.path.dirname(path), "host_failed")
+    while not os.path.exists(path):
+        if os.path.exists(failed):
+            raise RuntimeError(f"{what}: the host path failed")
+        if time.perf_counter() - t0 > limit:
+            raise TimeoutError(f"{what} did not finish")
+        time.sleep(0.05)
+
+
+def fsdp_mesh_rank(rank, world, directory, dev):
+    """One rank of the fsdp_mesh phase: each of FSDP_MESH_RUNS in order
+    (:func:`fsdp_mesh_run`)."""
+    entered = time.time()
+    t_enter = time.perf_counter()
+    runs = []
+    for index, run in enumerate(FSDP_MESH_RUNS):
+        runs.append(fsdp_mesh_run(index, run, directory, dev, t_enter))
+        t_enter = None
+    return {"rank": rank, "device": rank_device(), "entered": entered,
+            "runs": runs}
+
+
+def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
+    """Run ``index`` on this rank: its pieces of its client on the
     ``(clients, fsdp, model)`` mesh over ``launch.steps.
-    build_train_round``, FSDP_MESH_ROUNDS rounds of pallas_packed; its
+    build_train_round``, the run's rounds of pallas_packed from the
+    initial state (the first run draws it on the mesh from the host
+    path's seed, the others load the host path's pieces of it); its
     state's bytes, peak memory, the collectives by phase and kind, the
-    kernels' launches by route, the seconds, and the relative error of
-    each field against the host path's pieces."""
+    kernels' launches by route (B8's backward launches too), the seconds,
+    the relative error of each field against the host path's pieces and,
+    for a MoE run, its expert choices on the client's first batch against
+    the host path's.  A run that replays the host path's expert choices
+    (``run[6]``) waits for the host path's rounds, then runs its own under
+    ``routing_replay`` of its client's and fsdp rank's rows of them."""
     import gc
 
     import torch
@@ -5021,98 +5213,145 @@ def fsdp_mesh_rank(rank, world, layers, directory, dev):
     from repro_torch.core import kgt_minimax as kgt
     from repro_torch.core import tree as tree_lib
     from repro_torch.dist import collectives
+    from repro_torch.dist import context as dist_ctx
+    from repro_torch.kernels import ops
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
 
-    entered = time.time()
-    t_enter = time.perf_counter()
+    t_enter = t_enter or time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c, f, m = FSDP_MESH
-    with arch_depth(TRAIN_ARCH, layers) as cfg:
-        algo = fsdp_mesh_algo()
-        saved = torch.load(os.path.join(directory, "batches.pt"))
-        init_batch = {k: v.to(dev) for k, v in saved["init"].items()}
-        rounds = [{k: v.to(dev) for k, v in b.items()}
-                  for b in saved["rounds"]]
-        mesh = mesh_lib.train_mesh(c, f, m, device_type=dev)
-        step, axis = steps.build_train_round(
-            cfg, InputShape("fsdp_mesh", TRAIN_S, TRAIN_B * c, "train"),
-            mesh, MeshConfig(num_clients=c, fsdp=f, model=m),
-            algo=algo, minimax=MinimaxConfig(num_groups=TRAIN_G),
-            device=dev)
+    cfg, ep, dtype = fsdp_run_cfg(run), run[5], getattr(torch, run[4])
+    algo = fsdp_mesh_algo()
+    saved = torch.load(os.path.join(directory, f"batches_{index}.pt"))
+    init_batch = {k: v.to(dev) for k, v in saved["init"].items()}
+    rounds = [{k: v.to(dev) for k, v in b.items()} for b in saved["rounds"]]
+    mesh = mesh_lib.train_mesh(c, f, m, device_type=dev)
+    step, axis = steps.build_train_round(
+        cfg, InputShape("fsdp_mesh", TRAIN_S, TRAIN_B * c, "train"),
+        mesh, MeshConfig(num_clients=c, fsdp=f, model=m,
+                         moe_expert_parallel=ep),
+        algo=algo, minimax=MinimaxConfig(num_groups=TRAIN_G), device=dev,
+        compute_dtype=dtype)
+    shard, block = step.shard, (step.axes.fsdp.rank, step.axes.model.rank)
+    t0 = time.perf_counter()
+    setup_s = t0 - t_enter
+    if index == 0:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        t0 = time.perf_counter()
-        setup_s = t0 - t_enter
         state = kgt.init_state(step.problem, algo, gen,
                                init_batch=init_batch, axis=axis)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        rows = slice(axis.lo, axis.hi)
-        mine = [{k: v[:, rows] for k, v in b.items()} for b in rounds]
-        del rounds
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        zero_launch_counts()
-        collectives.zero_collective_counts()
-        t0 = time.perf_counter()
+    else:
+        wait_for(os.path.join(directory, f"init_done_{index}"),
+                 f"run {index}'s initial state")
+        init = [torch.load(os.path.join(
+            directory, f"init_{index}_{i}_{block[0]}_{block[1]}.pt"),
+            weights_only=False) for i in range(axis.lo, axis.hi)]
+        state = kgt.KGTState(**{
+            name: (torch.stack([p[name] for p in init]).to(dev)
+                   if name in ("y", "cy") else
+                   {k: torch.stack([p[name][k] for p in init]).to(dev)
+                    for k in init[0][name]})
+            for name in ("x", "cx", "y", "cy")}, round=0)
+        del init
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = slice(axis.lo, axis.hi)
+    flips = None
+    if cfg.moe.num_experts:
+        # the expert choices of the client's first batch on the initial
+        # weights, this rank's rows of them, against the host path's
+        with torch.no_grad(), expert_choices() as got, \
+                dist_ctx.residual_constraint(**shard.slots()):
+            model_lib.per_group_loss(
+                shard.model_of({k: v[0] for k, v in state.x.items()}),
+                shard.batch({k: v[0, axis.lo] for k, v in
+                             rounds[0].items()}),
+                num_groups=TRAIN_G, compute_dtype=dtype)
+    mine = [{k: v[:, rows] for k, v in b.items()} for b in rounds]
+    del rounds
+    replay = contextlib.nullcontext()
+    if run[6]:
+        wait_for(os.path.join(directory, f"host_done_{index}"),
+                 f"run {index}'s host path")
+        b = TRAIN_B // f
+        replay = routing_replay([
+            t[axis.lo:axis.hi, block[0] * b:(block[0] + 1) * b].to(dev)
+            for t in torch.load(os.path.join(directory,
+                                             f"replay_{index}.pt"))])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    collectives.zero_collective_counts()
+    t0 = time.perf_counter()
+    with replay:
         for batches in mine:
             state = step(state, batches, torch.zeros(
                 (TRAIN_K, axis.n_local, 0), device=dev))
         torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches, routes = launch_counts(), route_counts()
-        counts = collectives.collective_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        state_bytes = sum(t.numel() * t.element_size()
-                          for t in tree_lib.leaves(
-                              (state.x, state.cx, state.y, state.cy)))
-        t0 = time.perf_counter()
-        # the host path runs in the parent while the ranks start
-        while not os.path.exists(os.path.join(directory, "host_done")):
-            if time.perf_counter() - t0 > 600:
-                raise TimeoutError("the host path did not finish")
-            time.sleep(0.05)
-        err = dict.fromkeys(("x", "cx", "y", "cy"), 0.0)
-        for i in range(axis.lo, axis.hi):
-            host = torch.load(os.path.join(
-                directory, f"host_{i}_{step.axes.fsdp.rank}_"
-                f"{step.axes.model.rank}.pt"), weights_only=False)
-            for name in err:
-                got = getattr(state, name)
-                pairs = ([(got[i - axis.lo], host[name])]
-                         if name in ("y", "cy") else
-                         [(got[k][i - axis.lo], w)
-                          for k, w in host[name].items()])
-                for g, w in pairs:
-                    if w.numel():   # an empty fsdp piece
-                        err[name] = max(err[name], rel_err(g.cpu(), w))
-        finite = all(bool(t.isfinite().all()) for t in tree_lib.leaves(
-            (state.x, state.cx, state.y, state.cy)))
-        check_s = time.perf_counter() - t0
-    return {"rank": rank, "device": rank_device(), "entered": entered,
-            "setup_s": setup_s, "check_s": check_s,
-            "clients": [axis.lo, axis.hi],
-            "block": [step.axes.fsdp.rank, step.axes.model.rank],
+    seconds = time.perf_counter() - t0
+    launches, routes = launch_counts(), route_counts()
+    backward = ops.backward_launch_counts()
+    counts = collectives.collective_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_lib.leaves(
+                          (state.x, state.cx, state.y, state.cy)))
+    t0 = time.perf_counter()
+    # the host path runs in the parent while the ranks run
+    wait_for(os.path.join(directory, f"host_done_{index}"),
+             f"run {index}'s host path")
+    if cfg.moe.num_experts:
+        want = torch.load(os.path.join(directory, f"routing_{index}.pt"),
+                          weights_only=False)[axis.lo]
+        b = TRAIN_B // f
+        flips = count_flips(got, [w[block[0] * b:(block[0] + 1) * b]
+                                  for w in want])
+    err = dict.fromkeys(("x", "cx", "y", "cy"), 0.0)
+    for i in range(axis.lo, axis.hi):
+        host = torch.load(os.path.join(
+            directory, f"host_{index}_{i}_{block[0]}_{block[1]}.pt"),
+            weights_only=False)
+        for name in err:
+            got_s = getattr(state, name)
+            pairs = ([(got_s[i - axis.lo], host[name])]
+                     if name in ("y", "cy") else
+                     [(got_s[k][i - axis.lo], w)
+                      for k, w in host[name].items()])
+            for g, w in pairs:
+                if w.numel():   # an empty fsdp piece
+                    err[name] = max(err[name], rel_err(g.cpu(), w))
+    finite = all(bool(t.isfinite().all()) for t in tree_lib.leaves(
+        (state.x, state.cx, state.y, state.cy)))
+    check_s = time.perf_counter() - t0
+    shared = sorted(shard.shared)
+    del state, step, mine, shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"setup_s": setup_s, "check_s": check_s,
+            "clients": [axis.lo, axis.hi], "block": list(block),
             "state_bytes": state_bytes, "peak_memory_gb": peak,
             "init_s": init_s, "seconds": seconds,
-            "rounds_per_s": FSDP_MESH_ROUNDS / seconds,
+            "rounds_per_s": run[3] / seconds,
             "launches": launches, "routes": routes,
-            "collectives": counts, "rel_err": err, "finite": finite}
+            "backward_launches": backward, "collectives": counts,
+            "rel_err": err, "finite": finite, "expert_flips": flips,
+            "shared_leaves": len(shared)}
 
 
-def fsdp_packed_dims(cfg) -> tuple:
-    """(dx, dy) of the fsdp_mesh phase's gossip on rank (fsdp 0, model 0)
-    of a client's block: its pieces of qwen2-0.5b's parameters at
-    FSDP_MESH_LAYERS layers, packed, and the TRAIN_G group weights."""
+def fsdp_packed_dims(cfg, ep=False) -> tuple:
+    """(dx, dy) of a run's gossip on rank (fsdp 0, model 0) of a client's
+    block: its pieces of the model's parameters, packed, and the TRAIN_G
+    group weights."""
     from repro_torch.dist import collectives
     from repro_torch.dist import tensor_parallel as tp
 
     _, f, m = FSDP_MESH
     shard = tp.ClientShard(cfg, collectives.MeshAxis(0, f),
-                           collectives.MeshAxis(0, m))
+                           collectives.MeshAxis(0, m), expert_parallel=ep)
     dx = 0
     for name, p in shard.skel.named_parameters():
         rows = collectives.fsdp_widths(shard.rows[name], f)[0]
@@ -5120,48 +5359,132 @@ def fsdp_packed_dims(cfg) -> tuple:
     return dx, TRAIN_G
 
 
-def fsdp_kernel_times(gen, dev, cfg) -> dict:
-    """The model and gossip kernels at a rank's shapes in the fsdp_mesh
-    phase (PERF.md rows 1f, 4f): B1's pair at n = 2 clients, a rank's
-    one row of W over its piece of the packed state (both routes, the
-    plain version; CUDA events around single calls), and B5 on a rank's
-    heads of its fsdp rank's batch rows, (2, 128, 7, 1, 64) bf16 causal,
-    against its plain version, with SDPA's time."""
-    from repro_torch.kernels import ops
+def ce_piece_times(gen, dev, n, d, v) -> dict:
+    """B6's partials at a rank's piece (n tokens, d, a vocabulary piece of
+    v, bf16, labels over twice the piece): m, m + log l and z against the
+    plain version at TOL_CE·(1 + max) on the tensor-core route, with the
+    kernel's time on each route, the plain version's, the library calls'
+    (``torch.mm`` to f32 logits, then ``F.cross_entropy`` on the piece)
+    and the bound."""
+    import torch
+    import torch.nn.functional as F
 
-    dx, dy = fsdp_packed_dims(cfg)
-    n = FSDP_MESH[0]
-    w, dxv, txv, cxv = gossip_operands(n, dx, gen, dev)
-    _, dyv, tyv, cyv = gossip_operands(n, dy, gen, dev)
-    xv, yv = (dxv, txv, cxv, 0.5, 12.5), (dyv, tyv, cyv, 1.0, -3.0)
-    events = functools.partial(cuda_ms, reps=5, warmup=1)
+    from repro_torch.kernels import cross_entropy, ops, ref
+
+    hidden, w, labels = ce_operands(n, d, 2 * v, torch.bfloat16, gen, dev)
+    w = w[:v]
+    got = routed_call(lambda: cross_entropy.fused_ce_partials_nd(
+        hidden, w, labels), "ce_partials", "tensor_core")
+    want = ref.ce_partials_ref(hidden, w, labels)
+    rel = 0.0
+    for g, p in zip((got[0], got[0] + torch.log(got[1]), got[2]),
+                    (want[0], want[0] + torch.log(want[1]), want[2])):
+        rel = max(rel, max_err(g, p) / (1 + float(p.abs().max())))
+    del got, want
+    if not rel <= TOL_CE:
+        fail(f"ce_partials at {(n, d, v)}: {rel} > {TOL_CE} × (1 + max)")
+    lab_in = torch.where(labels < v, labels, torch.full_like(labels, -100))
+
+    def library():
+        return F.cross_entropy(torch.mm(hidden, w.T).float(), lab_in,
+                               reduction="none", ignore_index=-100)
+
     with ops.uncounted():
-        b1 = time_gossip_rows(w, xv, yv, n, events, phase="fsdp_mesh")
-        del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
-        b5 = b5_shard_times(gen, dev, cfg, FSDP_MESH[2],
-                            b=TRAIN_B // FSDP_MESH[1], s=TRAIN_S)
+        out = {"shape": [n, d, v], "rel_err": rel, "tol": TOL_CE,
+               "ms": cuda_ms(lambda: cross_entropy.fused_ce_partials_nd(
+                   hidden, w, labels)),
+               "cuda_core_ms": cuda_ms(
+                   lambda: cross_entropy.fused_ce_partials_nd(
+                       hidden, w, labels, force_route="cuda_core"), reps=3),
+               "plain_ms": cuda_ms(lambda: ref.ce_partials_ref(
+                   hidden, w, labels), reps=5),
+               "library_ms": cuda_ms(library, reps=5),
+               "library": "torch.mm (bf16 logits) .float() + "
+                          "F.cross_entropy"}
+    out["bound_ms"], out["bound_by"] = ce_partials_bound_ms(n, d, v)
+    del hidden, w, labels, lab_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_kernel_times(gen, dev) -> dict:
+    """The model and gossip kernels at a rank's shapes in the fsdp_mesh
+    phase (PERF.md rows 1f, 4f, 5f, 6f, 7f): B1's pair at n = 2 clients,
+    a rank's one row of W over its piece of each run's packed state (both
+    routes, the plain version; CUDA events around single calls); B5 on a
+    rank's heads of its fsdp rank's batch rows, bf16 causal, for qwen2-0.5b
+    (2, 128, 7, 1, 64), granite-moe-1b-a400m (2, 128, 8, 4, 64) and the
+    reduced recurrentgemma-9b with its KV head shared (2, 128, 2, 1, 64),
+    window 32; B6's partials at mamba2-1.3b's and granite's pieces; B7 at
+    mamba2-1.3b's (2, 128, 32, 64, 128) with no state0; B8 and its
+    backward at the reduced recurrentgemma-9b's (2, 128, 128): each
+    against its plain version, with SDPA's time for B5."""
+    from repro_torch.kernels import ops
+    from repro_torch.dist import tensor_parallel as tp
+
+    n, f, m = FSDP_MESH
+    b = TRAIN_B // f
+    events = functools.partial(cuda_ms, reps=5, warmup=1)
+    out = {"fused_gossip": {}, "flash_attention": {}, "ce_partials": {},
+           "ssd_scan": {}, "rglru_scan": {}}
+    timed = set()
+    with ops.uncounted():
+        for run in FSDP_MESH_RUNS:
+            if run[1:3] + run[5:6] in timed:
+                continue    # the pieces of an earlier run, in another dtype
+            timed.add(run[1:3] + run[5:6])
+            cfg = fsdp_run_cfg(run)
+            dx, dy = fsdp_packed_dims(cfg, run[5])
+            w, dxv, txv, cxv = gossip_operands(n, dx, gen, dev)
+            _, dyv, tyv, cyv = gossip_operands(n, dy, gen, dev)
+            xv, yv = (dxv, txv, cxv, 0.5, 12.5), (dyv, tyv, cyv, 1.0, -3.0)
+            out["fused_gossip"][run[0]] = time_gossip_rows(
+                w, xv, yv, n, events, phase="fsdp_mesh")
+            del w, xv, yv, dxv, txv, cxv, dyv, tyv, cyv
+            kinds = set(cfg.blocks())
+            if kinds & {"attn", "moe", "attn_local"}:
+                window = cfg.rglru.local_window if "attn_local" in kinds \
+                    else 0
+                out["flash_attention"][run[0]] = b5_shard_times(
+                    gen, dev, cfg, m, b=b, s=TRAIN_S, window=window)
+            if run[0] != FSDP_MESH_RUNS[0][0] and run[2] is not None:
+                v = tp.pieces(cfg.vocab_size, m, "vocab_size")[0]
+                out["ce_partials"][run[0]] = ce_piece_times(
+                    gen, dev, b * TRAIN_S, cfg.d_model, v)
+            if "ssm" in kinds:
+                out["ssd_scan"][run[0]] = b7_shard_times(
+                    gen, dev, cfg, m, b, s=TRAIN_S, state0=False)
+            if "rglru" in kinds:
+                out["rglru_scan"][run[0]] = b8_shard_times(
+                    gen, dev, cfg, m, b, s=TRAIN_S)
     emit({"phase": "fsdp_mesh", "case": "kernels at a rank's shapes",
-          "fused_gossip": b1, "flash_attention": b5})
-    return {"fused_gossip": b1, "flash_attention": b5}
+          "nvidia_smi": nvidia_smi(), **out})
+    return out
 
 
 def phase_fsdp_mesh(dev, smi) -> dict:
     """A client's weights over the decentralized mesh's fsdp and model
     axes: a world of 8 gloo ranks on this card as (clients 2, fsdp 2,
     model 2) (``launch.mesh.train_mesh``, ``launch.steps.
-    build_train_round``), qwen2-0.5b at full width cut to
-    FSDP_MESH_LAYERS layers, n = 2, K = 4, 4 × 128 tokens a client, 8
-    groups, FSDP_MESH_ROUNDS rounds of pallas_packed in bf16 compute:
-    each rank its (fsdp, model) pieces of its client's x and cx, ZeRO-3
-    gathers over fsdp, tensor parallelism over model, B6's vocab-parallel
-    form on its vocabulary piece (the whole-vocabulary B6 launches no
-    time), B5 on its heads, B1 on its shard of the packed state.  Held to
-    the host path, run in this process from the same seed while the
-    ranks start, at TOL_MESH_X (x, cx) and TOL_MESH_Y (y, cy), printed
-    before the reading.  No fallback: a failure fails the phase.  Per rank: the
-    state's bytes against a client's, peak memory, the seconds and bytes
-    a round of the fsdp gathers, the reduce-scatters, the model sums and
-    the gossip, rounds/s, the launches by route."""
+    build_train_round``), running FSDP_MESH_RUNS in order: qwen2-0.5b,
+    mamba2-1.3b and granite-moe-1b-a400m (its experts split over model)
+    at full width cut to FSDP_MESH_LAYERS layers, the reduced
+    recurrentgemma-9b, and granite in bf16 with the host path's expert
+    choices replayed; n = 2, K = 4, 4 × 128 tokens a client, 8 groups,
+    pallas_packed: each rank its (fsdp, model) pieces of its client's x
+    and cx, ZeRO-3 gathers over fsdp, tensor parallelism over model, B6's
+    vocab-parallel form on its vocabulary piece (the whole-vocabulary B6
+    launches no time), B5 on its heads (recurrentgemma-9b's one KV head on
+    both model ranks), B7 on its SSM heads, B8 and its backward on its LRU
+    channels, B1 on its shard of the packed state.  Each run held to its
+    host path, run in this process from the same seed while the ranks run,
+    at its limits (``fsdp_run_tols``), printed before the reading; a MoE
+    run's expert choices on its first batch counted against the host
+    path's (none may differ in f32).  No fallback: a failure fails the phase.  Per rank and run:
+    the state's bytes against a client's, peak memory, the seconds and
+    bytes a round of the fsdp gathers, the reduce-scatters, the model
+    sums, the RG-LRU gate input's gathers and the gossip, rounds/s, the
+    launches by route."""
     import gc
     import tempfile
 
@@ -5174,39 +5497,56 @@ def phase_fsdp_mesh(dev, smi) -> dict:
     world = c * f * m
     emit({"phase": "fsdp_mesh", "case": "plan", "mesh": list(FSDP_MESH),
           "world": world, "backend": "gloo", "placement": "every rank on "
-          "cuda:0", "arch": TRAIN_ARCH, "layers": FSDP_MESH_LAYERS,
-          "rounds": FSDP_MESH_ROUNDS, "impl": "pallas_packed",
-          "tolerance_x_cx": TOL_MESH_X, "tolerance_y_cy": TOL_MESH_Y})
-    with arch_depth(TRAIN_ARCH, FSDP_MESH_LAYERS) as cfg, \
-            tempfile.TemporaryDirectory() as store:
+          "cuda:0", "impl": "pallas_packed",
+          "runs": [{"name": r[0], "arch": r[1],
+                    "layers": r[2] if r[2] is not None else "reduced",
+                    "rounds": r[3], "compute_dtype": r[4],
+                    "moe_expert_parallel": r[5],
+                    "routing_replayed": r[6],
+                    "tolerance_x_cx": fsdp_run_tols(r)[0],
+                    "tolerance_y_cy": fsdp_run_tols(r)[1]}
+                   for r in FSDP_MESH_RUNS]})
+    cfgs = [fsdp_run_cfg(r) for r in FSDP_MESH_RUNS]
+    with tempfile.TemporaryDirectory() as store:
         gc.collect()
         torch.cuda.empty_cache()
-        init_batch, rounds_b = fsdp_mesh_batches(cfg, dev)
-        torch.save({"init": {k: v.cpu() for k, v in init_batch.items()},
-                    "rounds": [{k: v.cpu() for k, v in b.items()}
-                               for b in rounds_b]},
-                   os.path.join(store, "batches.pt"))
-        # the world starts (~30 s for 8 ranks to reach the card) while the
-        # host path runs here; the ranks wait for its pieces to compare
+        drawn = []
+        for index, (run, cfg) in enumerate(zip(FSDP_MESH_RUNS, cfgs)):
+            init_batch, rounds_b = fsdp_mesh_batches(cfg, dev, run[3])
+            torch.save({"init": {k: v.cpu() for k, v in init_batch.items()},
+                        "rounds": [{k: v.cpu() for k, v in b.items()}
+                                   for b in rounds_b]},
+                       os.path.join(store, f"batches_{index}.pt"))
+            drawn.append((init_batch, rounds_b))
+        # the world starts while the host paths run here, one a run in the
+        # ranks' order; the ranks wait for each one's pieces
         got = {}
 
         def start_world():
             try:
                 got["ranks"] = dist_launch.run_world(
-                    world, fsdp_mesh_rank, FSDP_MESH_LAYERS, store, dev,
-                    backend="gloo", store_dir=store, device=dev)
+                    world, fsdp_mesh_rank, store, dev, backend="gloo",
+                    store_dir=store, device=dev)
             except BaseException as e:  # raised again below
                 got["error"] = e
 
         t0, spawned = time.perf_counter(), time.time()
         thread = threading.Thread(target=start_world)
         thread.start()
+        host, host_s = [], []
         try:
-            host = fsdp_host_path(cfg, dev, store, init_batch, rounds_b)
-            host_s = time.perf_counter() - t0
-            del init_batch, rounds_b
-            gc.collect()
-            torch.cuda.empty_cache()
+            for index, (run, cfg) in enumerate(zip(FSDP_MESH_RUNS, cfgs)):
+                t1 = time.perf_counter()
+                host.append(fsdp_host_path(index, run, cfg, dev, store,
+                                           *drawn[index]))
+                host_s.append(time.perf_counter() - t1)
+                gc.collect()
+                torch.cuda.empty_cache()
+            del drawn
+        except BaseException:
+            # the ranks waiting for a host path fail at once
+            open(os.path.join(store, "host_failed"), "w").close()
+            raise
         finally:
             thread.join()
         world_s = time.perf_counter() - t0
@@ -5215,80 +5555,102 @@ def phase_fsdp_mesh(dev, smi) -> dict:
         ranks = got["ranks"]
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-        shapes = fsdp_kernel_times(gen, dev, cfg)
-    rounds = FSDP_MESH_ROUNDS
-    want_launches = {"flash_attention": rounds * TRAIN_K * FSDP_MESH_LAYERS,
-                     "ce_partials": rounds * TRAIN_K,
-                     "fused_gossip": rounds}
+        shapes = fsdp_kernel_times(gen, dev)
     kinds = {"fsdp_gathers": ("local_steps", "fsdp_gather"),
              "reduce_scatters": ("local_steps", "reduce_scatter"),
              "model_sums": ("local_steps", "model_sum"),
+             "model_gathers": ("local_steps", "model_gather"),
+             "model_scatters": ("local_steps", "model_scatter"),
              "model_maxes": ("local_steps", "all_reduce_max"),
              "batch_sums": ("local_steps", "batch_sum"),
              "gossip": ("gossip", "all_gather")}
-    lines = []
-    for rec in ranks:
-        what = f"fsdp_mesh rank {rec['rank']}"
-        if not rec["finite"]:
-            fail(f"{what}: a state leaf is not finite")
-        e = rec["rel_err"]
-        if not (e["x"] <= TOL_MESH_X and e["cx"] <= TOL_MESH_X
-                and e["y"] <= TOL_MESH_Y and e["cy"] <= TOL_MESH_Y):
-            fail(f"{what}: the state differs from the host path {e}")
-        if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
-                               **want_launches}:
-            fail(f"{what}: launches {rec['launches']}, expected "
-                 f"{want_launches}")
-        check_routes({k: rec["routes"][k] for k in ("flash_attention",
-                                                     "ce_partials",
-                                                     "fused_gossip")},
-                     want_launches, what)
-        by_kind = {}
-        for name, (ph, kind) in kinds.items():
-            v = rec["collectives"].get(ph, {}).get(kind)
-            by_kind[name] = None if v is None else {
-                "calls_a_round": v["calls"] / rounds,
-                "bytes_a_round": v["bytes"] / rounds,
-                "seconds_a_round": v["seconds"] / rounds}
-        for name in ("fsdp_gathers", "reduce_scatters", "model_sums",
-                     "gossip"):
-            if by_kind[name] is None:
-                fail(f"{what}: no {name} in the round")
-        line = {"rank": rec["rank"], "device": rec["device"],
-                "clients": rec["clients"], "block_fsdp_model": rec["block"],
-                "state_gb": rec["state_bytes"] / 1e9,
-                "client_x_gb": host["client_x_bytes"] / 1e9,
-                "x_cx_share_of_a_client": (
-                    (rec["state_bytes"] - 2 * 4 * TRAIN_G)
-                    / (2 * host["client_x_bytes"])),
-                "peak_memory_gb": rec["peak_memory_gb"],
-                "setup_s": rec["setup_s"], "init_s": rec["init_s"],
-                "check_s": rec["check_s"], "seconds": rec["seconds"],
-                "rounds_per_s": rec["rounds_per_s"],
-                "collectives_a_round": by_kind,
-                "staged_bytes_a_round":
-                    rec["collectives"]["staged_bytes"] / rounds,
-                "rel_err": e,
-                "launches": {k: rec["launches"][k] for k in want_launches},
-                "launches_by_route": {k: rec["routes"][k]
-                                      for k in ("flash_attention",
-                                                "ce_partials",
-                                                "fused_gossip")}}
-        emit({"phase": "fsdp_mesh", "case": f"rank {rec['rank']}",
-              "nvidia_smi": smi, **line})
-        lines.append(line)
-    out = {"ranks": lines, "host_path_s": host_s, "world_s": world_s,
+    routed = ("flash_attention", "ce_partials", "ssd_scan", "rglru_scan",
+              "fused_gossip")
+    runs_out = []
+    for index, (run, cfg) in enumerate(zip(FSDP_MESH_RUNS, cfgs)):
+        want = fsdp_want_launches(run, cfg)
+        route_of = fsdp_route_of(run, cfg)
+        tol_x, tol_y = fsdp_run_tols(run)
+        lines = []
+        for rank in ranks:
+            rec = rank["runs"][index]
+            what = f"fsdp_mesh {run[0]} rank {rank['rank']}"
+            if not rec["finite"]:
+                fail(f"{what}: a state leaf is not finite")
+            e = rec["rel_err"]
+            if not (e["x"] <= tol_x and e["cx"] <= tol_x
+                    and e["y"] <= tol_y and e["cy"] <= tol_y):
+                fail(f"{what}: the state differs from the host path {e}")
+            if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
+                                   **want}:
+                fail(f"{what}: launches {rec['launches']}, expected {want}")
+            if rec["backward_launches"]["rglru_scan"] != want["rglru_scan"]:
+                fail(f"{what}: B8's backward launched "
+                     f"{rec['backward_launches']['rglru_scan']} times, "
+                     f"expected {want['rglru_scan']}")
+            check_routes({k: rec["routes"][k] for k in routed}, want, what,
+                         route_of=route_of)
+            by_kind = {}
+            for name, (ph, kind) in kinds.items():
+                v = rec["collectives"].get(ph, {}).get(kind)
+                by_kind[name] = None if v is None else {
+                    "calls_a_round": v["calls"] / run[3],
+                    "bytes_a_round": v["bytes"] / run[3],
+                    "seconds_a_round": v["seconds"] / run[3]}
+            needed = ["fsdp_gathers", "reduce_scatters", "model_sums",
+                      "gossip"]
+            if "rglru" in cfg.blocks():
+                needed += ["model_gathers", "model_scatters"]
+            for name in needed:
+                if by_kind[name] is None:
+                    fail(f"{what}: no {name} in the round")
+            line = {"run": run[0], "rank": rank["rank"],
+                    "device": rank["device"], "clients": rec["clients"],
+                    "block_fsdp_model": rec["block"],
+                    "state_gb": rec["state_bytes"] / 1e9,
+                    "client_x_gb": host[index]["client_x_bytes"] / 1e9,
+                    "x_cx_share_of_a_client": (
+                        (rec["state_bytes"] - 2 * 4 * TRAIN_G)
+                        / (2 * host[index]["client_x_bytes"])),
+                    "peak_memory_gb": rec["peak_memory_gb"],
+                    "setup_s": rec["setup_s"], "init_s": rec["init_s"],
+                    "check_s": rec["check_s"], "seconds": rec["seconds"],
+                    "rounds_per_s": rec["rounds_per_s"],
+                    "collectives_a_round": by_kind,
+                    "staged_bytes_a_round":
+                        rec["collectives"]["staged_bytes"] / run[3],
+                    "rel_err": e, "expert_flips": rec["expert_flips"],
+                    "routing_replayed": run[6],
+                    "shared_leaves": rec["shared_leaves"],
+                    "launches": {k: rec["launches"][k] for k in want},
+                    "backward_launches": rec["backward_launches"],
+                    "launches_by_route": {k: rec["routes"][k]
+                                          for k in routed}}
+            if (cfg.moe.num_experts and run[4] == "float32"
+                    and rec["expert_flips"]):
+                fail(f"{what}: {rec['expert_flips']} expert choices differ "
+                     "from the host path's in f32")
+            emit({"phase": "fsdp_mesh", "case": f"{run[0]} rank "
+                  f"{rank['rank']}", "nvidia_smi": smi, **line})
+            lines.append(line)
+        runs_out.append({"name": run[0], "ranks": lines,
+                         "host_path_s": host_s[index],
+                         "host_round_s": host[index]["seconds"] / run[3],
+                         "launches": lines[0]["launches"],
+                         "launches_by_route": lines[0]["launches_by_route"],
+                         "backward_launches": lines[0]["backward_launches"],
+                         "expert_flips": [ln["expert_flips"]
+                                          for ln in lines]})
+    out = {"runs": runs_out, "world_s": world_s,
            "spawn_to_ranks_s": [r["entered"] - spawned for r in ranks],
-           "kernel_times": shapes,
-           "host_round_s": host["seconds"] / rounds,
-           "phase_s": time.perf_counter() - t_phase,
-           "launches": dict(ranks[0]["launches"]),
-           "launches_by_route": {k: ranks[0]["routes"][k]
-                                 for k in ("flash_attention", "ce_partials",
-                                           "fused_gossip")}}
+           "kernel_times": shapes, "phase_s": time.perf_counter() - t_phase,
+           "launches": dict(ranks[0]["runs"][0]["launches"]),
+           "launches_by_route": {k: ranks[0]["runs"][0]["routes"][k]
+                                 for k in routed}}
     emit({"phase": "fsdp_mesh", "case": "summary", "nvidia_smi": smi,
-          **{k: v for k, v in out.items()
-             if k not in ("ranks", "kernel_times")}})
+          **{k: v for k, v in out.items() if k not in ("kernel_times",)},
+          "runs": [{k: v for k, v in r.items() if k != "ranks"}
+                   for r in runs_out]})
     return out
 
 
@@ -5698,22 +6060,22 @@ def b5_shard_times(gen, dev, cfg, m, b=None, s=None, window=0) -> dict:
                         f"expanded to {h} heads")
 
 
-def b7_shard_times(gen, dev, cfg, m, b) -> dict:
+def b7_shard_times(gen, dev, cfg, m, b, s=None, state0=True) -> dict:
     """B7 at a model rank's shard of mamba2-1.3b's served prefill, (b,
     SERVE_SCAN_PROMPT, H/m, P, N) with a zero state0 (the prefill's zero
-    cache), on its tensor-core route against its plain version (TOL_SSD),
-    with the kernel's and the plain version's times and the bound (no
-    PyTorch call computes it)."""
+    cache), or at ``s`` tokens without one (training), on its tensor-core
+    route against its plain version (TOL_SSD), with the kernel's and the
+    plain version's times and the bound (no PyTorch call computes it)."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
 
     s_cfg = cfg.ssm
     h = s_cfg.heads(cfg.d_model) // m
-    s, p, n, chunk = SERVE_SCAN_PROMPT, s_cfg.d_head, s_cfg.d_state, \
+    s, p, n, chunk = s or SERVE_SCAN_PROMPT, s_cfg.d_head, s_cfg.d_state, \
         s_cfg.chunk
     xdt, loga, bm, cm, _ = ssd_operands(b, s, h, p, n, gen, dev)
-    s0 = torch.zeros((b, h, p, n), device=dev)
+    s0 = torch.zeros((b, h, p, n), device=dev) if state0 else None
     y, fin = routed_call(lambda: ssd_scan.ssd_scan_bshp(
         xdt, loga, bm, cm, s0, chunk=chunk), "ssd_scan", "tensor_core")
     py, pfin = ref.ssd_chunked(xdt, loga, bm, cm, chunk, s0)
@@ -5727,7 +6089,7 @@ def b7_shard_times(gen, dev, cfg, m, b) -> dict:
         xdt, loga, bm, cm, s0, chunk=chunk), reps=11)
     pms = cuda_ms(lambda: ref.ssd_chunked(xdt, loga, bm, cm, chunk, s0),
                   reps=3)
-    bound, by = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=True,
+    bound, by = ssd_bound_ms(b, s, h, p, n, chunk, with_state0=state0,
                              tensor_cores=True)
     del xdt, loga, bm, cm, s0
     torch.cuda.empty_cache()
@@ -5738,17 +6100,17 @@ def b7_shard_times(gen, dev, cfg, m, b) -> dict:
                 segments=ssd_scan.segments(b, h, -(-s // chunk))[0])
 
 
-def b8_shard_times(gen, dev, cfg, m, b) -> dict:
+def b8_shard_times(gen, dev, cfg, m, b, s=None) -> dict:
     """B8 at a model rank's shard of recurrentgemma-9b's served prefill,
-    (b, SERVE_SCAN_PROMPT, W/m), against its plain version on both routes
-    (the rule's at TOL_SCAN, the walk bit for bit), with both routes'
-    times, the backward kernel's, the plain version's and the bounds
-    (``b8_times``; no PyTorch call computes it)."""
+    (b, SERVE_SCAN_PROMPT or ``s``, W/m), against its plain version on
+    both routes (the rule's at TOL_SCAN, the walk bit for bit), with both
+    routes' times, the backward kernel's, the plain version's and the
+    bounds (``b8_times``; no PyTorch call computes it)."""
     import torch
 
     from repro_torch.kernels import ref, rglru_scan
 
-    shape = (b, SERVE_SCAN_PROMPT, cfg.rglru.channels(cfg.d_model) // m)
+    shape = (b, s or SERVE_SCAN_PROMPT, cfg.rglru.channels(cfg.d_model) // m)
     a, u = rglru_operands(shape, gen, dev)
     want = ref.rglru_ref(a, u)
     rt = rglru_scan.route(*shape)
@@ -7708,6 +8070,7 @@ def main(argv=None) -> int:
         mesh_routes = meshed["launches_by_route"]
         mesh_gossip = meshed["gossip_kernels"]
     fsdp_launches, fsdp_routes, fsdp_shapes = dict.fromkeys(names), {}, {}
+    fsdp_runs = []
     if "fsdp_mesh" in phases:
         import gc
 
@@ -7717,6 +8080,7 @@ def main(argv=None) -> int:
         fsdp_launches.update(fsdp["launches"])
         fsdp_routes = fsdp["launches_by_route"]
         fsdp_shapes = fsdp["kernel_times"]
+        fsdp_runs = fsdp["runs"]
         launches["ce_partials"] = fsdp["launches"]["ce_partials"]
         launches_by_route["ce_partials"] = fsdp_routes["ce_partials"]
     serve_mesh = {}
@@ -7800,7 +8164,10 @@ def main(argv=None) -> int:
                  launches_train=launches_train[k["name"]],
                  launches_mesh=launches_mesh[k["name"]],
                  launches_fsdp_mesh=fsdp_launches[k["name"]],
-                 fsdp_mesh_shape=fsdp_shapes.get(k["name"]),
+                 launches_fsdp_mesh_by_run={
+                     r["name"]: r["launches"].get(k["name"])
+                     for r in fsdp_runs} or None,
+                 fsdp_mesh_shapes=fsdp_shapes.get(k["name"]),
                  launches_train_ssm=launches_train_ssm[k["name"]],
                  launches_moe={path: c.get(k["name"]) for path, c
                                in launches_moe.items()} or None,
@@ -7837,6 +8204,9 @@ def main(argv=None) -> int:
                      launches_by_route_train=train_routes.get(k["name"]),
                      launches_by_route_mesh=mesh_routes.get(k["name"]),
                      launches_by_route_fsdp_mesh=fsdp_routes.get(k["name"]),
+                     launches_by_route_fsdp_mesh_by_run={
+                         r["name"]: r["launches_by_route"].get(k["name"])
+                         for r in fsdp_runs} or None,
                      launches_by_route_train_ssm=train_ssm_routes.get(
                          k["name"]),
                      launches_by_route_moe=moe_routes.get(k["name"]),
@@ -7858,6 +8228,9 @@ def main(argv=None) -> int:
                     for case in ("served", "32k", "train", "mesh_rank")
                     if f"shape_{case}" in t},
                     backward_launches_train_ssm=backward_train_ssm or None,
+                    backward_launches_fsdp_mesh_by_run={
+                        r["name"]: r["backward_launches"]["rglru_scan"]
+                        for r in fsdp_runs} or None,
                     backward_ms=t.get("backward_ms"),
                     backward_bound_ms=t.get("backward_bound_ms"))
             if k["name"] == "flash_attention" and serve_mesh:
@@ -7883,6 +8256,14 @@ def main(argv=None) -> int:
                            "of K = 4 under autograd: B6's partials once a "
                            "local step, B5 once a layer and local step, B1 "
                            "once a round; every rank launches as many); "
+                           "launches_fsdp_mesh_by_run: rank 0 of each of "
+                           "the phase's runs (mamba2-1.3b and "
+                           "granite-moe-1b-a400m at full width, "
+                           f"{FSDP_MESH_LAYERS} layers, and the reduced "
+                           "recurrentgemma-9b, one round each: B7 and B8 "
+                           "once a layer of their kind and local step, B8's "
+                           "backward as often); fsdp_mesh_shapes: each "
+                           "kernel at a rank's shape in each run; "
                            "fused_gossip, fused_round: the main phase "
                            "(n = 8; fused_gossip one pair launch a round "
                            "of the 2 tracking algorithms; like "
@@ -7932,7 +8313,8 @@ def main(argv=None) -> int:
                            "shard shape (4, 4096, 7, 1, 64); "
                            "launches_serve_mesh_scan_by_rank: B5, B7 and "
                            "B8 on each rank of the serve_mesh phase's "
-                           "(data 1, model 2) runs of mamba2-1.3b (48 "
+                           "(data 1, model 2) runs of mamba2-1.3b ("
+                           f"{SERVE_SCAN['mamba2-1.3b'][1]} "
                            "layers, a 2 × 4096 prefill) and "
                            "recurrentgemma-9b (38 layers, 1 × 4096), "
                            "serve_mesh_scan_shards each at a model rank's "

@@ -3,9 +3,9 @@
 The model architecture (``MoEConfig``, ``SSMConfig``, ``RGLRUConfig``,
 ``ModelConfig``) and ``InputShape`` are copied from
 ``repro.configs.base:25-170`` unchanged, so the arch files under
-``repro_torch/configs/`` carry the same values (``SSMShard`` and
-``RGLRUShard``, a rank's piece on the serving mesh's model axis, are the
-port's own); so are ``MinimaxConfig`` (:177) and ``MeshConfig``
+``repro_torch/configs/`` carry the same values (``SSMShard``,
+``RGLRUShard`` and ``MoEShard``, a rank's piece on a mesh's model axis,
+are the port's own); so are ``MinimaxConfig`` (:177) and ``MeshConfig``
 (:255-275).  ``ModelConfig.param_count`` counts the RG-LRU gates ``wa``/``wx`` as diagonal, as the reference does;
 ``repro_torch.models.model.param_count`` counts the tensors.
 
@@ -56,6 +56,24 @@ class MoEConfig:
     router_jitter: float = 0.0
     capacity_factor: float = 1.25
     dispatch: str = "dense"  # "dense" (one-hot capacity) | "sorted" (ragged_dot)
+
+    def expert_range(self) -> Tuple[int, int]:
+        """[lo, hi): the experts whose weights a block holds (all)."""
+        return 0, self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEShard(MoEConfig):
+    """The MoE of one rank of a client's model axis under expert
+    parallelism (``dist.tensor_parallel.shard_config(expert_parallel=
+    True)``): experts ``[expert_lo, expert_lo + rank_experts)``, each
+    whole.  ``num_experts`` stays the model's: the router, the capacity
+    and the aux loss read every expert."""
+    expert_lo: int = 0
+    rank_experts: int = 0
+
+    def expert_range(self) -> Tuple[int, int]:
+        return self.expert_lo, self.expert_lo + self.rank_experts
 
 
 @dataclasses.dataclass(frozen=True)

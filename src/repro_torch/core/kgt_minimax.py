@@ -860,9 +860,11 @@ def correction_mean_norm(tree, axis=None, block=None) -> torch.Tensor:
     the leaves are pieces of a client split over a block of ranks, the
     sum of squares is taken over it too (``block``, its
     ``dist.collectives.BlockSum``)."""
-    terms = [torch.sum(torch.square(collectives.clients_mean(l, axis).to(
-        torch.float32))) for l in tree_lib.leaves(tree)]
-    return torch.sqrt(sum(terms) if block is None else block(terms))
+    squares = [torch.square(collectives.clients_mean(l, axis).to(
+        torch.float32)) for l in tree_lib.leaves(tree)]
+    if block is not None:
+        return torch.sqrt(block(squares))
+    return torch.sqrt(sum(torch.sum(t) for t in squares))
 
 
 def diagnostics(problem: MinimaxProblem, state: KGTState):

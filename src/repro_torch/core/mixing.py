@@ -326,16 +326,18 @@ def consensus_error(tree: Any, axis=None, means=None,
     else:
         means = tree_lib.leaves(means)
 
+    def squares(x, m):
+        return torch.square((x - m.unsqueeze(0)).to(torch.float32))
+
     def one(x, m):
-        return torch.sum(torch.square((x - m.unsqueeze(0)).to(
-            torch.float32)))
+        return torch.sum(squares(x, m))
 
     if (axis is None or axis.size == 1) and block is None:
         return sum(one(x, m) / x.shape[0] for x, m in zip(leaves, means))
     if block is None:
         total = sum(one(x, m) for x, m in zip(leaves, means))
     else:
-        total = block([one(x, m) for x, m in zip(leaves, means)])
+        total = block([squares(x, m) for x, m in zip(leaves, means)])
     if axis is None or axis.size == 1:
         return total / leaves[0].shape[0]
     return collectives.all_reduce_sum(total, axis) / axis.n

@@ -47,10 +47,11 @@ ClientShard``) runs them as autograd Functions with ``vmap`` rules, each
 backward the other of its pair: **the fsdp gather** of a weight's ZeRO-3
 pieces (``fsdp_gather``, kind ``fsdp_gather``; its backward a
 **reduce-scatter** of the gradient, pairwise, summed in f32 in rank
-order, ``reduce_scatter``), Megatron's **copy** (identity forward, its
-gradient summed over ``model``) and **sum** (``axis_copy`` /
-``axis_sum``, kind ``model_sum``; over fsdp the per-group loss sums,
-``batch_sum``), and **an all-reduced max** (``axis_max`` /
+order, ``reduce_scatter``; over ``model`` the RG-LRU's gate input,
+``model_gather`` / ``model_scatter``), Megatron's **copy** (identity
+forward, its gradient summed over ``model``) and **sum** (``axis_copy`` /
+``axis_sum``, kind ``model_sum``; over fsdp the per-group loss sums and
+the MoE aux's, ``batch_sum``), and **an all-reduced max** (``axis_max`` /
 ``all_reduce_max``: the vocabulary pieces' log-sum-exp maxima, int8's row
 scale over a split row).
 
@@ -435,12 +436,13 @@ def all_reduce_max(t: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     return out
 
 
-def reduce_scatter_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+def reduce_scatter_rows(x: torch.Tensor, axis: MeshAxis, *,
+                        kind: str = "reduce_scatter") -> torch.Tensor:
     """This rank's block of rows of the sum over the axis' ranks of each
     rank's ``x`` (size·k, …): rank r gets rows [r·k, (r + 1)·k) of the
     sum, its own block and the others' (each rank sends every peer its
     block, all in one batch) added in f32 in rank order and rounded once
-    to ``x``'s dtype.  Counted as ``reduce_scatter`` (bytes: the blocks
+    to ``x``'s dtype.  Counted as ``kind`` (bytes: the blocks
     received).  ``x`` itself on one rank."""
     if axis.size == 1:
         return x
@@ -448,7 +450,7 @@ def reduce_scatter_rows(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     if k * axis.size != x.shape[0]:
         raise ValueError(f"{x.shape[0]} rows do not split over "
                          f"{axis.size} ranks")
-    with _op("reduce_scatter", x.device) as rec:
+    with _op(kind, x.device) as rec:
         staged = _staging(axis, x)
         pairs, got = [], {}
         for p in range(axis.size):
@@ -753,22 +755,28 @@ def clients_mean(x: torch.Tensor, axis: Optional[ClientsAxis]):
 
 @dataclasses.dataclass(frozen=True)
 class BlockSum:
-    """A sum over the ranks of a client's ``(fsdp, model)`` block of terms
-    computed leaf by leaf on each rank's pieces, each element of the
-    client counted once: ``owned`` (a tree congruent with the pieces',
+    """A sum over the ranks of a client's ``(fsdp, model)`` block of
+    elementwise terms of each rank's pieces, each element of the client
+    counted once: ``owned`` (a tree congruent with the pieces',
     ``tensor_parallel.ClientShard.owned``) says which of this rank's
-    leaves it counts — a leaf that several model ranks hold whole counts
-    on the first of them."""
+    elements it counts — True or False for a whole piece (a leaf that
+    several model ranks hold whole counts on the first of them), or a 0/1
+    mask that broadcasts against the piece (the SSM's B and C columns of
+    ``in_proj``, which every model rank holds beside its own)."""
     axis: MeshAxis
     owned: Any
 
     def __call__(self, terms: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The block's sum of ``terms``, one f32 scalar a leaf in
-        ``tree.leaves`` order."""
-        own = tree_lib.leaves(self.owned)
-        total = sum(t.to(torch.float32) for t, o in zip(terms, own) if o)
-        if not torch.is_tensor(total):
-            total = terms[0].new_zeros((), dtype=torch.float32)
+        """The block's f32 sum of ``terms``, one elementwise tensor a leaf
+        in ``tree.leaves`` order (leading dims, such as the clients',
+        broadcast against a mask)."""
+        total = terms[0].new_zeros((), dtype=torch.float32)
+        for t, own in zip(terms, tree_lib.leaves(self.owned)):
+            if torch.is_tensor(own):
+                t = t * own.to(t.device)
+            elif not own:
+                continue
+            total = total + torch.sum(t.to(torch.float32))
         return all_reduce_sum(total, self.axis)
 
 
@@ -811,7 +819,13 @@ def fsdp_widths(rows: int, f: int):
     return tuple(max(0, min(step, rows - r * step)) for r in range(f))
 
 
-def _gather_piece(x, axis: MeshAxis, rows: int, dim: int):
+# what a gather of pieces and its reduce-scatter count as: over fsdp a
+# weight's ZeRO-3 pieces, over model the RG-LRU's gate input
+FSDP_KINDS = ("fsdp_gather", "reduce_scatter")
+MODEL_KINDS = ("model_gather", "model_scatter")
+
+
+def _gather_piece(x, axis: MeshAxis, rows: int, dim: int, kind: str):
     """The whole dim ``dim`` (``rows`` long) from every rank's piece of it
     (:func:`fsdp_widths`): each piece padded to ⌈rows/F⌉, all-gathered,
     trimmed."""
@@ -821,10 +835,10 @@ def _gather_piece(x, axis: MeshAxis, rows: int, dim: int):
         x = torch.cat([x, x.new_zeros((*x.shape[:dim], pad,
                                        *x.shape[dim + 1:]))], dim=dim)
     return all_gather_rows(x.contiguous(), axis, dim=dim,
-                           kind="fsdp_gather").narrow(dim, 0, rows)
+                           kind=kind).narrow(dim, 0, rows)
 
 
-def _scatter_piece(g, axis: MeshAxis, rows: int, dim: int):
+def _scatter_piece(g, axis: MeshAxis, rows: int, dim: int, kind: str):
     """This rank's piece of dim ``dim`` of the sum over the ranks of each
     rank's whole ``g`` (:func:`reduce_scatter_rows`, in f32)."""
     step = -(-rows // axis.size)
@@ -832,7 +846,7 @@ def _scatter_piece(g, axis: MeshAxis, rows: int, dim: int):
     pad = step * axis.size - rows
     if pad:
         g = torch.cat([g, g.new_zeros((pad, *g.shape[1:]))])
-    part = reduce_scatter_rows(g.contiguous(), axis)
+    part = reduce_scatter_rows(g.contiguous(), axis, kind=kind)
     width = fsdp_widths(rows, axis.size)[axis.rank]
     return part[:width].movedim(0, dim)
 
@@ -840,27 +854,29 @@ def _scatter_piece(g, axis: MeshAxis, rows: int, dim: int):
 class FsdpGather(torch.autograd.Function):
     """A weight's rows joined from its fsdp pieces along ``dim``; its
     gradient summed over the fsdp ranks and scattered back to the
-    pieces."""
+    pieces.  ``kinds``: what the gather and the reduce-scatter count as
+    (:data:`FSDP_KINDS`; :func:`model_gather` runs the same pair over the
+    model axis)."""
 
     @staticmethod
-    def forward(x, axis, rows, dim):
-        return _gather_piece(x, axis, rows, dim)
+    def forward(x, axis, rows, dim, kinds):
+        return _gather_piece(x, axis, rows, dim, kinds[0])
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, ctx.axis, ctx.rows, ctx.dim = inputs
+        _, ctx.axis, ctx.rows, ctx.dim, ctx.kinds = inputs
 
     @staticmethod
     def backward(ctx, g):
-        return FsdpScatter.apply(g, ctx.axis, ctx.rows, ctx.dim), None, \
-            None, None
+        return FsdpScatter.apply(g, ctx.axis, ctx.rows, ctx.dim,
+                                 ctx.kinds), None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, x, axis, rows, dim):
+    def vmap(info, in_dims, x, axis, rows, dim, kinds):
         if in_dims[0] is None:
-            return FsdpGather.apply(x, axis, rows, dim), None
+            return FsdpGather.apply(x, axis, rows, dim, kinds), None
         return FsdpGather.apply(_front(x, in_dims[0]), axis, rows,
-                                dim + 1), 0
+                                dim + 1, kinds), 0
 
 
 class FsdpScatter(torch.autograd.Function):
@@ -868,24 +884,24 @@ class FsdpScatter(torch.autograd.Function):
     piece of it (the backward of :class:`FsdpGather`)."""
 
     @staticmethod
-    def forward(g, axis, rows, dim):
-        return _scatter_piece(g, axis, rows, dim)
+    def forward(g, axis, rows, dim, kinds):
+        return _scatter_piece(g, axis, rows, dim, kinds[1])
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        _, ctx.axis, ctx.rows, ctx.dim = inputs
+        _, ctx.axis, ctx.rows, ctx.dim, ctx.kinds = inputs
 
     @staticmethod
     def backward(ctx, g):
-        return FsdpGather.apply(g, ctx.axis, ctx.rows, ctx.dim), None, \
-            None, None
+        return FsdpGather.apply(g, ctx.axis, ctx.rows, ctx.dim,
+                                ctx.kinds), None, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, g, axis, rows, dim):
+    def vmap(info, in_dims, g, axis, rows, dim, kinds):
         if in_dims[0] is None:
-            return FsdpScatter.apply(g, axis, rows, dim), None
+            return FsdpScatter.apply(g, axis, rows, dim, kinds), None
         return FsdpScatter.apply(_front(g, in_dims[0]), axis, rows,
-                                 dim + 1), 0
+                                 dim + 1, kinds), 0
 
 
 class AxisCopy(torch.autograd.Function):
@@ -943,7 +959,20 @@ def fsdp_gather(x: torch.Tensor, axis: MeshAxis, rows: int,
     itself on one rank)."""
     if axis.size == 1:
         return x
-    return FsdpGather.apply(x, axis, rows, dim)
+    return FsdpGather.apply(x, axis, rows, dim, FSDP_KINDS)
+
+
+def model_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    """Every model rank's equal piece of ``x``'s last dim joined in rank
+    order (the RG-LRU's gate input: each rank's gates read every
+    channel), its gradient summed over the ranks and scattered back to
+    the pieces: :class:`FsdpGather` over ``axis``, counted as
+    ``model_gather`` and ``model_scatter`` (``x`` itself on one rank)."""
+    if axis.size == 1:
+        return x
+    dim = x.dim() - 1
+    return FsdpGather.apply(x, axis, x.shape[dim] * axis.size, dim,
+                            MODEL_KINDS)
 
 
 def axis_copy(x: torch.Tensor, axis: MeshAxis,

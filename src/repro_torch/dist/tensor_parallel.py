@@ -1,5 +1,6 @@
-"""Tensor parallelism over the ``model`` axis of the serving mesh: the
-executed plan beside ``dist.sharding.serve_params_shardings``' specs.
+"""Tensor parallelism over the ``model`` axis of the serving mesh and of a
+client's ``(fsdp, model)`` block in training: the executed plan beside
+``dist.sharding``'s specs.
 
 The reference lets GSPMD place each weight by its largest divisible dim
 (``repro/dist/sharding.py:123``) and insert the collectives.  Here the
@@ -17,7 +18,9 @@ attn.wk, wv, bk, bv             KV heads, or one     —
 attn.wo                         query heads          sum (attn_proj)
 mlp.gate, up                    d_ff                 —
 mlp.down                        d_ff                 sum (ffn_out)
-moe.gate, up, down              expert_d_ff          sum (ffn_out)
+moe.gate, up, down              expert_d_ff, or      sum (ffn_out)
+                                whole experts with
+                                expert_parallel
 ssm.in_proj                     columns [z_r, x_r,   —
                                 B, C, dt_r]
 ssm.conv_w, conv_b              [x_r, B, C]          —
@@ -54,6 +57,42 @@ tokens): an all-gather of uneven pieces pads and trims them
 evenly or not at all: :func:`check_config` refuses by name what does not
 divide.
 
+In training (:class:`ClientShard`) each tag is an autograd Function of
+``dist.collectives`` whose backward is its pair's forward, so that every
+rank's gradient of a leaf it holds is the whole one:
+
+================  ==========================  ===========================
+slot              forward                     backward
+================  ==========================  ===========================
+attn_in,          identity (the whole         sum over model (each rank's
+mixer_in,         residual into a column-     columns give a partial)
+ffn_in, head_in   parallel piece; ``ffn_in``
+                  on the MoE experts' input,
+                  not the router's)
+expert_gates      identity (the MoE gates     sum over model
+                  that combine a rank's
+                  partial expert outputs)
+attn_proj,        sum over model              identity
+mixer_out,
+ffn_out,
+embed_rows
+ssm_norm          sum over model (the sums    sum over model (each rank's
+                  of squares)                 channels read the whole sum)
+lru_gate_in       all-gather over model       reduce-scatter over model
+                  (``model_gather``)
+vocab_merge       max, sums over model        (through the sums)
+batch_sum         sum over fsdp (per-group    identity
+                  loss sums and counts, the
+                  MoE aux's sums and counts)
+================  ==========================  ===========================
+
+A range that several model ranks hold (the SSM's B and C, a KV head that
+M/KV ranks share) goes through a copy where the forward reads it
+(:meth:`ClientShard.copy_shared`): each rank's gradient of it flows only
+through its own heads, so the sum over the ranks that hold it is the
+whole gradient (over the whole model axis only where every rank holds
+it), and those ranks stay equal bit for bit.
+
 A leaf's piece is one contiguous range of a dim (``Split(dim, widths)``)
 or, for ``in_proj``, the conv, a replicated KV head and their caches, a
 list of ranges a rank (``Split(dim, ranges=...)``), which may be apart and
@@ -84,11 +123,12 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import types
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, RGLRUShard, SSMShard
+from repro_torch.configs.base import (ModelConfig, MoEShard, RGLRUShard,
+                                      SSMShard)
 from repro_torch.dist import collectives
 from repro_torch.dist import context as dist_ctx
 from repro_torch.models import model as model_lib
@@ -168,11 +208,13 @@ def _even(n: int, m: int, dim: int) -> Split:
     return Split(dim, (n // m,) * m)
 
 
-def check_config(cfg: ModelConfig, m: int) -> None:
+def check_config(cfg: ModelConfig, m: int, *,
+                 expert_parallel: bool = False) -> None:
     """Refuses a model that ``m`` model ranks cannot split, naming the
     field: query heads, SSM heads or LRU channels that ``m`` does not
-    divide, KV heads that neither divide nor are divided by ``m``, or a
-    d_ff, expert_d_ff or vocabulary smaller than ``m``."""
+    divide, KV heads that neither divide nor are divided by ``m``, a
+    d_ff, expert_d_ff or vocabulary smaller than ``m``, or with
+    ``expert_parallel`` experts that ``m`` does not divide."""
     if m == 1:
         return
     kinds = set(cfg.blocks())
@@ -197,7 +239,11 @@ def check_config(cfg: ModelConfig, m: int) -> None:
         need(w % m == 0, "lru_width", w, "each rank takes W/M channels")
     if kinds - {"ssm", "moe"}:          # the blocks with an MLP
         pieces(cfg.d_ff, m, "d_ff")
-    if "moe" in kinds:
+    if "moe" in kinds and expert_parallel:
+        e = cfg.moe.num_experts
+        need(e % m == 0, "num_experts", e, "expert parallelism: each rank "
+             "takes E/M whole experts")
+    elif "moe" in kinds:
         pieces(cfg.moe.expert_d_ff, m, "expert_d_ff")
     pieces(cfg.vocab_size, m, "vocab_size")
 
@@ -252,10 +298,12 @@ def _rglru_split(leaf: str, cfg: ModelConfig, m: int) -> Split:
     raise ValueError(f"rglru.{leaf}: no tensor-parallel layout")
 
 
-def leaf_split(name: str, shape, cfg: ModelConfig,
-               m: int) -> Optional[Split]:
+def leaf_split(name: str, shape, cfg: ModelConfig, m: int, *,
+               expert_parallel: bool = False) -> Optional[Split]:
     """The plan for one parameter (its ``param_dict`` name and shape):
-    how it splits, or None for a leaf every model rank holds whole."""
+    how it splits, or None for a leaf every model rank holds whole.
+    ``expert_parallel`` splits the MoE experts' dim 0 (E/M whole experts
+    a rank) in place of their expert_d_ff."""
     if m == 1:
         return None
     parts = name.split(".")
@@ -279,6 +327,8 @@ def leaf_split(name: str, shape, cfg: ModelConfig,
     if mod == "moe":
         if leaf == "router":
             return None
+        if expert_parallel:
+            return _even(shape[0], m, 0)
         dim = 1 if leaf == "down" else 2
         return Split(dim, pieces(shape[dim], m, "expert_d_ff"))
     if mod == "ssm":
@@ -289,12 +339,14 @@ def leaf_split(name: str, shape, cfg: ModelConfig,
                      "layout")
 
 
-def plan(cfg: ModelConfig, m: int) -> Dict[str, Optional[Split]]:
+def plan(cfg: ModelConfig, m: int, *, expert_parallel: bool = False
+         ) -> Dict[str, Optional[Split]]:
     """:func:`leaf_split` of every parameter of ``cfg``'s model (on the
     meta device), keyed by ``param_dict`` name."""
-    check_config(cfg, m)
+    check_config(cfg, m, expert_parallel=expert_parallel)
     skel = model_lib.skeleton(cfg)
-    return {name: leaf_split(name, tuple(p.shape), cfg, m)
+    return {name: leaf_split(name, tuple(p.shape), cfg, m,
+                             expert_parallel=expert_parallel)
             for name, p in skel.named_parameters()}
 
 
@@ -326,14 +378,14 @@ def gather_params(shards: List[Dict[str, torch.Tensor]], the_plan
 
 
 def init_shard(cfg: ModelConfig, m: int, rank: int, *, generator=None,
-               seed: int = 0, device="cuda", dtype=torch.float32
-               ) -> Dict[str, torch.Tensor]:
+               seed: int = 0, device="cuda", dtype=torch.float32,
+               expert_parallel: bool = False) -> Dict[str, torch.Tensor]:
     """Rank ``rank``'s shard of ``models.model.init_params(cfg,
     generator=...)``: the same draws from the same generator (which ends
     where ``init_params`` leaves it), each part cut to the rank's piece as
     it is drawn, so the rank holds one layer whole at most, never the
     model."""
-    the_plan = plan(cfg, m)
+    the_plan = plan(cfg, m, expert_parallel=expert_parallel)
     if generator is None:
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
@@ -393,16 +445,19 @@ def vocab_range(cfg: ModelConfig, m: int, rank: int) -> Tuple[int, int]:
     return lo, lo + widths[rank]
 
 
-def shard_config(cfg: ModelConfig, m: int, rank: int) -> ModelConfig:
+def shard_config(cfg: ModelConfig, m: int, rank: int, *,
+                 expert_parallel: bool = False) -> ModelConfig:
     """The config of rank ``rank``'s shard: its query heads and KV heads
-    (one where several ranks share a KV head), d_ff, expert_d_ff, LRU
-    channels (``rglru`` becomes an ``RGLRUShard``, ``lru_width`` kept),
-    SSM heads (``ssm`` becomes an ``SSMShard``, ``expand`` kept) and
-    vocabulary piece, the head dim kept; ``cfg`` itself at m = 1.
-    ``models.ssm`` reads a block's heads from its ``A_log``."""
+    (one where several ranks share a KV head), d_ff, expert_d_ff (or with
+    ``expert_parallel`` its E/M experts: ``moe`` becomes a ``MoEShard``,
+    ``num_experts`` kept), LRU channels (``rglru`` becomes an
+    ``RGLRUShard``, ``lru_width`` kept), SSM heads (``ssm`` becomes an
+    ``SSMShard``, ``expand`` kept) and vocabulary piece, the head dim
+    kept; ``cfg`` itself at m = 1.  ``models.ssm`` reads a block's heads
+    from its ``A_log``."""
     if m == 1:
         return cfg
-    check_config(cfg, m)
+    check_config(cfg, m, expert_parallel=expert_parallel)
     kinds = set(cfg.blocks())
     lo, hi = vocab_range(cfg, m, rank)
     kw = dict(vocab_size=hi - lo)
@@ -412,7 +467,11 @@ def shard_config(cfg: ModelConfig, m: int, rank: int) -> ModelConfig:
                   num_kv_heads=max(cfg.num_kv_heads // m, 1))
     if cfg.d_ff:
         kw["d_ff"] = pieces(cfg.d_ff, m, "d_ff")[rank]
-    if cfg.moe.num_experts:
+    if cfg.moe.num_experts and expert_parallel:
+        e = cfg.moe.num_experts // m
+        kw["moe"] = MoEShard(**dataclasses.asdict(cfg.moe),
+                             expert_lo=rank * e, rank_experts=e)
+    elif cfg.moe.num_experts:
         kw["moe"] = dataclasses.replace(
             cfg.moe, expert_d_ff=pieces(cfg.moe.expert_d_ff, m,
                                         "expert_d_ff")[rank])
@@ -426,11 +485,13 @@ def shard_config(cfg: ModelConfig, m: int, rank: int) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-def shard_skeleton(cfg: ModelConfig, m: int, rank: int) -> model_lib.Model:
+def shard_skeleton(cfg: ModelConfig, m: int, rank: int, *,
+                   expert_parallel: bool = False) -> model_lib.Model:
     """A meta-device ``Model`` at rank ``rank``'s shard shapes, its
     vocabulary range set (at m > 1), for ``models.model.call`` with the
     rank's parameter dict."""
-    skel = model_lib.skeleton(shard_config(cfg, m, rank))
+    skel = model_lib.skeleton(shard_config(cfg, m, rank,
+                                           expert_parallel=expert_parallel))
     if m > 1:
         skel.vocab_range = vocab_range(cfg, m, rank)
     return skel
@@ -471,34 +532,22 @@ def model_parallel(axis: collectives.MeshAxis, cfg: ModelConfig):
 # training: one client's weights over its (fsdp, model) block
 # ---------------------------------------------------------------------------
 
-# the block kinds that train split over a client's (fsdp, model) block
-TRAIN_KINDS = ("attn", "sliding", "attn_local")
-
-
 def check_train(cfg: ModelConfig, fsdp: int, model: int, *,
-                param_mode: str = "fsdp2d",
-                expert_parallel: bool = False) -> None:
+                param_mode: str = "fsdp2d", expert_parallel: bool = False
+                ) -> None:
     """Refuses by name what training over a client's ``fsdp × model``
-    block does not run yet: the ``ssm``, ``rglru`` and ``moe`` blocks
-    (their backward slots), ``moe_expert_parallel`` and ``param_mode=
-    "replicated"``; then what :func:`check_config` refuses.  Nothing at
+    block does not run: ``param_mode="replicated"``; then what
+    :func:`check_config` refuses.  Every block kind trains, and
+    ``expert_parallel`` splits the MoE experts over model.  Nothing at
     ``fsdp = model = 1``."""
     if fsdp * model == 1:
         return
     where = f"in training over fsdp × model = {fsdp} × {model}"
-    off = sorted(set(cfg.blocks()) - set(TRAIN_KINDS))
-    if off:
-        raise NotImplementedError(
-            f"{cfg.name}: the {', '.join(off)} blocks {where}: not ported "
-            "yet (ROADMAP A3)")
-    if expert_parallel:
-        raise NotImplementedError(
-            f"moe_expert_parallel {where}: not ported yet (ROADMAP A3)")
     if param_mode != "fsdp2d":
         raise NotImplementedError(
             f"param_mode={param_mode!r} {where}: not ported yet (ROADMAP "
             "A3)")
-    check_config(cfg, model)
+    check_config(cfg, model, expert_parallel=expert_parallel)
 
 
 def merge_partials(m, l, z, axis: collectives.MeshAxis):
@@ -510,6 +559,18 @@ def merge_partials(m, l, z, axis: collectives.MeshAxis):
     big = collectives.axis_max(m.detach(), axis)
     return (big, collectives.axis_sum(l * torch.exp(m - big), axis),
             collectives.axis_sum(z, axis))
+
+
+class _Span(NamedTuple):
+    """One range [lo, hi) of a rank's piece of a split leaf, of a dim n
+    wide: where it starts in the piece, how many model ranks hold it, and
+    whether no model rank before this one does."""
+    start: int
+    lo: int
+    hi: int
+    n: int
+    holders: int
+    first: bool
 
 
 class LayerPieces:
@@ -562,8 +623,9 @@ class ShardedModel:
 
     def weight(self, name: str) -> torch.Tensor:
         if name not in self._gathered:
-            self._gathered[name] = collectives.fsdp_gather(
-                self._x[name], self._shard.fsdp, self._shard.rows[name])
+            self._gathered[name] = self._shard.copy_shared(
+                name, collectives.fsdp_gather(
+                    self._x[name], self._shard.fsdp, self._shard.rows[name]))
         return self._gathered[name]
 
     @property
@@ -582,11 +644,13 @@ class ShardedModel:
 class ClientShard:
     """This rank's piece of one client's weights on the client's ``(fsdp,
     model)`` block of the decentralized mesh.  Over ``model`` a leaf is
-    split by the serving mesh's plan (:func:`plan`: heads, d_ff and the
-    vocabulary; norms whole); over ``fsdp`` the rank's model piece is
-    split once more along its dim 0 in pieces of ⌈n/F⌉
-    (``collectives.fsdp_widths``, the last ones shorter or empty), so the
-    block's F·M ranks hold one copy of the client between them.  The
+    split by the serving mesh's plan (:func:`plan`: heads, SSM heads, LRU
+    channels, d_ff or expert_d_ff — with ``expert_parallel`` whole experts
+    — and the vocabulary; norms and the router whole); over ``fsdp`` the
+    rank's model piece is split once more along its dim 0 in pieces of
+    ⌈n/F⌉ (``collectives.fsdp_widths``, the last ones shorter or empty), so
+    the block's F·M ranks hold one copy of the client between them (and
+    the ranges that several model ranks hold, once each of them).  The
     state's leaves (x, cx) hold these pieces; y stays whole on every rank
     of the block.  The client's batch rows split over fsdp
     (:meth:`batch`).  ``block``: all the client's ranks (sums over the
@@ -594,12 +658,66 @@ class ClientShard:
 
     def __init__(self, cfg: ModelConfig, fsdp: collectives.MeshAxis,
                  model: collectives.MeshAxis,
-                 block: collectives.MeshAxis = collectives.MeshAxis(0, 1)):
+                 block: collectives.MeshAxis = collectives.MeshAxis(0, 1),
+                 *, expert_parallel: bool = False):
         self.cfg, self.fsdp, self.model, self.block = cfg, fsdp, model, block
-        self.plan = plan(cfg, model.size)
-        self.skel = shard_skeleton(cfg, model.size, model.rank)
+        self.expert_parallel = expert_parallel
+        self.plan = plan(cfg, model.size, expert_parallel=expert_parallel)
+        self.skel = shard_skeleton(cfg, model.size, model.rank,
+                                   expert_parallel=expert_parallel)
         self.rows = {name: p.shape[0]
                      for name, p in self.skel.named_parameters()}
+        self.shared = {name: spans for name, spans in
+                       ((n, self._spans(s)) for n, s in self.plan.items())
+                       if any(sp.holders > 1 for sp in spans)}
+
+    def _spans(self, s: Optional[Split]) -> List["_Span"]:
+        """Each range of this rank's piece of a leaf split by ``s``, along
+        ``s.dim``."""
+        if s is None:
+            return []
+        r, out, at = self.model.rank, [], 0
+        n = max(hi for q in range(self.model.size) for _, hi in s.spans(q))
+        for lo, hi in s.spans(r):
+            holders = [q for q in range(self.model.size)
+                       if (lo, hi) in s.spans(q)]
+            out.append(_Span(at, lo, hi, n, len(holders), holders[0] == r))
+            at += hi - lo
+        return out
+
+    def copy_shared(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """``name``'s gathered model piece ``w`` with each range that other
+        model ranks hold too through a copy whose backward sums its
+        gradient over the ranks that hold it: each of them computes only
+        its heads' part of such a range's gradient (the SSM's B and C
+        columns and channels, a KV head that several ranks share), so
+        that sum is the whole gradient, the same on each of them.  A range
+        every model rank holds goes through ``collectives.axis_copy``; one
+        that only some hold (a KV head on M/KV of the M ranks, 1 < KV < M)
+        is placed at its own offset in zeros as wide as the leaf's dim,
+        copied so, and cut back out, so that the sum over model adds each
+        range's holders only.  ``w`` itself where the rank holds no such
+        range."""
+        spans = self.shared.get(name)
+        if not spans:
+            return w
+        dim = self.plan[name].dim
+        m = self.model.size
+
+        def one(sp: _Span):
+            part = w.narrow(dim, sp.start, sp.hi - sp.lo)
+            if sp.holders == 1:
+                return part
+            if sp.holders == m:
+                return collectives.axis_copy(part, self.model)
+            pad = [0, 0] * (part.dim() - 1 - dim) + [sp.lo, sp.n - sp.hi]
+            wide = collectives.axis_copy(
+                torch.nn.functional.pad(part, pad), self.model)
+            return wide.narrow(dim, sp.lo, sp.hi - sp.lo)
+
+        if len(spans) == 1:
+            return one(spans[0])
+        return torch.cat([one(sp) for sp in spans], dim=dim)
 
     def piece(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's fsdp piece of ``name``'s model piece ``t``."""
@@ -619,7 +737,8 @@ class ClientShard:
         generator=...)``, the generator left where that leaves it
         (:func:`init_shard`)."""
         mine = init_shard(self.cfg, self.model.size, self.model.rank,
-                          generator=generator, device=device, dtype=dtype)
+                          generator=generator, device=device, dtype=dtype,
+                          expert_parallel=self.expert_parallel)
         return {name: self.piece(name, t) for name, t in mine.items()}
 
     def batch(self, batch: dict) -> dict:
@@ -637,33 +756,56 @@ class ClientShard:
     def model_of(self, x: Dict[str, torch.Tensor]) -> ShardedModel:
         return ShardedModel(self, x)
 
-    def owned(self) -> Dict[str, bool]:
-        """Whether this rank counts each of its pieces in a sum over the
-        block: a leaf every model rank holds whole (a norm) on model rank
-        0 only, a range several model ranks hold (a replicated KV head)
-        on the first of them."""
+    def owned(self) -> Dict[str, object]:
+        """Which elements of each of its pieces this rank counts in a sum
+        over the block: a leaf every model rank holds whole (a norm, the
+        router) on model rank 0 only; a range several model ranks hold (a
+        replicated KV head, the SSM's B and C) on the first of them —
+        True or False for a whole piece, else a 0/1 f32 mask along the
+        split dim, cut to the rank's fsdp piece where that dim is 0, that
+        broadcasts against the piece (``collectives.BlockSum``)."""
         r = self.model.rank
-        out = {}
+        out: Dict[str, object] = {}
         for name, s in self.plan.items():
             if s is None:
                 out[name] = r == 0
-            else:
-                out[name] = all(s.spans(q) != s.spans(r) for q in range(r))
+                continue
+            flags = [sp.first for sp in self._spans(s)
+                     for _ in range(sp.hi - sp.lo)]
+            if s.dim == 0:
+                widths = collectives.fsdp_widths(self.rows[name],
+                                                 self.fsdp.size)
+                lo = sum(widths[:self.fsdp.rank])
+                flags = flags[lo:lo + widths[self.fsdp.rank]]
+            if all(flags) or not any(flags):
+                out[name] = bool(flags) and flags[0]
+                continue
+            nd = self.skel.get_parameter(name).dim()
+            shape = [1] * nd
+            shape[s.dim] = len(flags)
+            out[name] = torch.tensor(flags, dtype=torch.float32).reshape(
+                shape)
         return out
 
     def block_sum(self) -> collectives.BlockSum:
-        """The sum over the block of per-leaf terms of the pieces, each
+        """The sum over the block of elementwise terms of the pieces, each
         element counted once."""
         return collectives.BlockSum(self.block, self.owned())
 
     def slots(self) -> dict:
-        """The ``dist.context`` slots of training on the block: over
-        ``model`` the copies where the whole residual enters a
-        column-parallel piece (``attn_in``, ``ffn_in``, ``head_in``), the
-        row-parallel sums (``attn_proj``, ``ffn_out``, ``embed_rows``) and
-        the vocabulary pieces' partial log-sum-exps merged
-        (``vocab_merge``); over ``fsdp`` the per-group loss sums and
-        token counts (``batch_sum``).  None of them at one rank."""
+        """The ``dist.context`` slots of training on the block.  Over
+        ``model``: the copies where the whole residual enters a
+        column-parallel piece (``attn_in``, ``mixer_in``, ``ffn_in``,
+        ``head_in``) and on the MoE gates that combine a rank's partial
+        expert outputs (``expert_gates``); the row-parallel sums
+        (``attn_proj``, ``mixer_out``, ``ffn_out``, ``embed_rows``); the
+        SSM's sums of squares, a sum whose gradient is summed too
+        (``ssm_norm``: each rank's channels read the whole sum); the
+        RG-LRU's gate input gathered, its gradient reduce-scattered
+        (``lru_gate_in``); the vocabulary pieces' partial log-sum-exps
+        merged (``vocab_merge``).  Over ``fsdp``: the per-group loss sums
+        and token counts and the MoE aux's sums and counts
+        (``batch_sum``).  None of them at one rank."""
         out = {}
         mod, fs = self.model, self.fsdp
         if mod.size > 1:
@@ -673,8 +815,13 @@ class ClientShard:
             def total(t):
                 return collectives.axis_sum(t, mod)
 
-            out.update(attn_in=copy, ffn_in=copy, head_in=copy,
-                       attn_proj=total, ffn_out=total, embed_rows=total,
+            out.update(attn_in=copy, mixer_in=copy, ffn_in=copy,
+                       head_in=copy, expert_gates=copy,
+                       attn_proj=total, mixer_out=total, ffn_out=total,
+                       embed_rows=total,
+                       ssm_norm=lambda t: copy(total(t)),
+                       lru_gate_in=lambda t: collectives.model_gather(t,
+                                                                      mod),
                        vocab_merge=lambda m, l, z: merge_partials(m, l, z,
                                                                   mod))
         if fs.size > 1:
@@ -684,7 +831,8 @@ class ClientShard:
 
 
 def gather_client(shards: Sequence[Dict[str, torch.Tensor]],
-                  cfg: ModelConfig, fsdp: int, model: int
+                  cfg: ModelConfig, fsdp: int, model: int, *,
+                  expert_parallel: bool = False
                   ) -> Dict[str, torch.Tensor]:
     """One client's whole parameter dict from the pieces of its block's
     ranks, in block order (fsdp rank f, model rank m at ``f·model + m``):
@@ -695,4 +843,5 @@ def gather_client(shards: Sequence[Dict[str, torch.Tensor]],
                  for name in shards[m]} for m in range(model)]
     if model == 1:
         return pieces_m[0]
-    return gather_params(pieces_m, plan(cfg, model))
+    return gather_params(pieces_m, plan(cfg, model,
+                                        expert_parallel=expert_parallel))

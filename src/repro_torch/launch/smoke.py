@@ -15,8 +15,8 @@ For each reduced architecture:
   block, the reference's train shape (4 rows of 64 tokens), printing the
   reference's ``train round``, ``packed-gossip train round`` and
   ``sparse-gossip train round``, each ``ran on (clients 2, fsdp 2, model
-  2)``; an arch whose blocks do not train over the block yet (``ssm``,
-  ``rglru``, ``moe``: ROADMAP A3) prints that its legs wait;
+  2)``, for every arch (a MoE arch with ``moe_expert_parallel``, as the
+  reference sets it, :47-48);
 * the serving leg, on a gloo world of 4 ranks at ``(data 2, model 2)``
   for every arch, as the reference runs every arch at ``(4, 2)``
   (reference :164-180): one prefill step and one decode step through
@@ -107,8 +107,9 @@ def _fsdp_leg(arch: str, impl: str, mesh) -> None:
     algo = AlgorithmConfig(num_clients=c, local_steps=k, mixing_impl=impl)
     step, axis = steps.build_train_round(
         cfg, InputShape("smoke_train", FSDP_SEQ, FSDP_BATCH, "train"), mesh,
-        MeshConfig(num_clients=c, fsdp=f, model=m), algo=algo,
-        minimax=MinimaxConfig(num_groups=g), device="cpu")
+        MeshConfig(num_clients=c, fsdp=f, model=m,
+                   moe_expert_parallel=bool(cfg.moe.num_experts)),
+        algo=algo, minimax=MinimaxConfig(num_groups=g), device="cpu")
     gen = torch.Generator().manual_seed(0)
     shape = (k, c, FSDP_BATCH // c, FSDP_SEQ)
     batches = {"tokens": torch.randint(0, cfg.vocab_size, shape,
@@ -130,21 +131,12 @@ def _fsdp_leg(arch: str, impl: str, mesh) -> None:
 def _fsdp_legs(rank: int, world: int, archs) -> list:
     """The reference's train legs of every arch on this rank; rank 0
     prints each line."""
-    from repro_torch.dist import tensor_parallel as tp
     from repro_torch.launch import mesh as mesh_lib
 
     mesh = mesh_lib.fake_mesh(*FSDP_MESH)
     where = "(clients {}, fsdp {}, model {})".format(*FSDP_MESH)
     results = []
     for arch in archs:
-        cfg = registry.reduced(registry.get_model_config(arch))
-        try:
-            tp.check_train(cfg, *FSDP_MESH[1:])
-        except NotImplementedError as e:
-            if rank == 0:
-                print(f"[smoke] {arch}: the train legs on {where} wait: {e}",
-                      flush=True)
-            continue
         for impl, what in FSDP_LEGS:
             t0 = time.perf_counter()
             try:

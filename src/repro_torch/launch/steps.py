@@ -29,12 +29,13 @@ client's weights lie over its block of ``fsdp × model`` ranks as the
 reference's ``params_shardings`` (``param_mode="fsdp2d"``) lays them out:
 over ``model`` by the serving mesh's tensor-parallel plan, in autograd
 (Megatron's copy and sum pairs, B6 over the rank's vocabulary piece with
-its partial log-sum-exps merged), over ``fsdp`` in ZeRO-3 pieces of each
-model piece, gathered where the forward reads them, their gradient
-reduce-scattered; the client's batch rows split over ``fsdp``
-(``dist.tensor_parallel.ClientShard``).  The state's x and cx hold the
-rank's pieces; every lowering gossips them over the clients axis, the
-ranks that hold the same piece of every client.
+its partial log-sum-exps merged; every block kind, and with
+``MeshConfig.moe_expert_parallel`` the MoE experts split over ``model``),
+over ``fsdp`` in ZeRO-3 pieces of each model piece, gathered where the
+forward reads them, their gradient reduce-scattered; the client's batch
+rows split over ``fsdp`` (``dist.tensor_parallel.ClientShard``).  The
+state's x and cx hold the rank's pieces; every lowering gossips them over
+the clients axis, the ranks that hold the same piece of every client.
 
 ``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
 build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch
@@ -111,7 +112,8 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
                    param_mode=mcfg.param_mode,
                    expert_parallel=mcfg.moe_expert_parallel)
     shard = (None if axes.block.size == 1 else
-             tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block))
+             tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block,
+                            expert_parallel=mcfg.moe_expert_parallel))
     if problem is None:
         problem = objectives.dro_problem(
             model_cfg, num_groups=minimax.num_groups, mu=minimax.mu,

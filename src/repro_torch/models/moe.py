@@ -16,6 +16,18 @@ Two dispatches, as in the reference:
 
 The expert products are plain ``torch.einsum`` / matmuls, as the
 reference's are plain einsums: MoE has no Pallas kernel.
+
+Training over a client's (fsdp, model) block (``dist.tensor_parallel.
+ClientShard``) splits the experts' ``expert_d_ff`` over model, or with
+expert parallelism the experts themselves (a ``configs.base.MoEShard``:
+the rank dispatches and combines only its experts' slots).  Either way a
+rank's expert outputs are partials that cross at ``ffn_out``, and the
+router stays whole on every rank.  Three points of ``dist.context``,
+identities without a context, carry the gradients: ``ffn_in`` on the
+experts' input (the router reads the input itself, whose gradient is
+whole on every rank), ``expert_gates`` on the gates the partials are
+combined with (their gradient is a partial too), and ``batch_sum`` on the
+aux loss's sums and counts, which the fsdp ranks' batch rows share.
 """
 from __future__ import annotations
 
@@ -25,20 +37,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist import context as dist_ctx
 from repro_torch.models.layers import dense_init, param
 
 
 def init_moe(gen, cfg, d_model: int, *, device, dtype) -> nn.ParameterDict:
     """``router`` (d, E), ``gate`` / ``up`` (E, d, f), ``down`` (E, f, d):
-    the reference's names and fan-ins (reference :18)."""
+    the reference's names and fan-ins (reference :18); a rank's shard
+    config gives its f, or its experts (``MoEShard``)."""
     m = cfg.moe
+    lo, hi = m.expert_range()
     e, f = m.num_experts, m.expert_d_ff
     kw = dict(device=device, dtype=dtype)
     return nn.ParameterDict({
         "router": param(dense_init(gen, (d_model, e), in_axis=0, **kw)),
-        "gate": param(dense_init(gen, (e, d_model, f), in_axis=1, **kw)),
-        "up": param(dense_init(gen, (e, d_model, f), in_axis=1, **kw)),
-        "down": param(dense_init(gen, (e, f, d_model), in_axis=1, **kw)),
+        "gate": param(dense_init(gen, (hi - lo, d_model, f), in_axis=1,
+                                 **kw)),
+        "up": param(dense_init(gen, (hi - lo, d_model, f), in_axis=1,
+                               **kw)),
+        "down": param(dense_init(gen, (hi - lo, f, d_model), in_axis=1,
+                                 **kw)),
     })
 
 
@@ -72,18 +90,28 @@ def route(params, x, cfg) -> Routing:
 def routing(probs, gate_idx, cfg) -> Routing:
     """The routing of the choices ``gate_idx`` under the router
     probabilities ``probs``: their gates renormalized with a 1e-9 floor,
-    and the Switch aux loss coef·E·Σ_e me_e·ce_e (reference :48-56)."""
+    and the Switch aux loss coef·E·Σ_e me_e·ce_e (reference :48-56).
+    Where a ``batch_sum`` point is installed (a client's batch rows split
+    over fsdp ranks), me and ce are the sums and counts of every rank's
+    rows over the whole batch's tokens: the aux of the client's batch, not
+    a mean of its pieces' auxes."""
     m = cfg.moe
     e = m.num_experts
     gate_vals = probs.gather(-1, gate_idx)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    me = probs.mean(dim=tuple(range(probs.dim() - 1)))
     # one-hot by comparison: F.one_hot checks its range on the host, which
     # neither vmap nor a CUDA graph capture can do
     top1 = (gate_idx[..., :1] == torch.arange(e, device=probs.device)).to(
         torch.float32)
-    ce = top1.mean(dim=tuple(range(top1.dim() - 1)))
+    dims = tuple(range(probs.dim() - 1))
+    total = dist_ctx.slot("batch_sum")
+    if total is None:
+        me, ce = probs.mean(dim=dims), top1.mean(dim=dims)
+    else:
+        tokens = total(probs.new_full((), float(probs[..., 0].numel())))
+        me = total(probs.sum(dim=dims)) / tokens
+        ce = total(top1.sum(dim=dims)) / tokens
     aux = m.router_aux_coef * e * torch.sum(me * ce)
     return Routing(gate_vals=gate_vals, gate_idx=gate_idx, aux=aux)
 
@@ -120,19 +148,27 @@ def combine_weights(r: Routing, num_experts: int, cap: int):
 
 def moe_mlp(params, x, cfg, compute_dtype=torch.bfloat16):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux).  Per-batch-row
-    capacity (``capacity(S, …)``) keeps the shapes batch-invariant."""
+    capacity (``capacity(S, …)``) keeps the shapes batch-invariant.  A
+    shard holding experts [lo, hi) of E (``MoEShard``) routes over all E
+    and dispatches and combines its experts' slots only."""
     m = cfg.moe
     b, s, d = x.shape
     e = m.num_experts
+    lo, hi = m.expert_range()
     cap = capacity(s, e, m.top_k, m.capacity_factor)
     r = route(params, x, cfg)
+    r = dataclasses.replace(r, gate_vals=dist_ctx.apply("expert_gates",
+                                                        r.gate_vals))
     combine = combine_weights(r, e, cap)                    # (B, S, E, c)
+    if hi - lo < e:
+        combine = combine[:, :, lo:hi]
     dispatch = (combine > 0).to(compute_dtype)
 
     def w(name):
         return params[name].to(compute_dtype)
 
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x.to(compute_dtype))
+    xe = torch.einsum("bsec,bsd->becd", dispatch,
+                      dist_ctx.apply("ffn_in", x).to(compute_dtype))
     h = F.silu(torch.einsum("becd,edf->becf", xe, w("gate")))
     h = h * torch.einsum("becd,edf->becf", xe, w("up"))
     ye = torch.einsum("becf,efd->becd", h, w("down"))
@@ -157,6 +193,10 @@ def moe_mlp_sorted(params, x, cfg, compute_dtype=torch.bfloat16):
     gated rows added back to their tokens in f32.  Returns (out, aux)."""
     _refuse_transforms(x)
     m = cfg.moe
+    if m.expert_range() != (0, m.num_experts):
+        raise ValueError("moe_mlp_sorted runs every expert: a shard of "
+                         "experts (expert parallelism) takes the dense "
+                         "dispatch")
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     xt = x.reshape(b * s, d)

@@ -21,7 +21,9 @@ ranks at ``attn_proj`` (attention) or ``mixer_out`` (``ssm``, ``rglru``),
 those of the MLP or MoE at ``ffn_out``: points of ``dist.context``,
 identities without a context.  Training over a client's (fsdp, model)
 block adds the conjugate points where the whole residual enters a
-column-parallel piece, ``attn_in`` (q/k/v) and ``ffn_in`` (gate/up): an
+column-parallel piece, ``attn_in`` (q/k/v), ``mixer_in`` (the ``ssm``
+block's ``in_proj``, the ``rglru`` block's ``in_x`` / ``in_gate``) and
+``ffn_in`` (gate/up, and the MoE experts' input: ``models.moe``): an
 identity whose gradient the model ranks sum.  A layer is read through its
 ``gathered()`` at its entry: the layer itself, or on that block its
 weights all-gathered over fsdp (``tensor_parallel.LayerPieces``).  The mixers' own points (the SSM's gated
@@ -166,7 +168,8 @@ def block_forward(
         conv_s = cache["conv"] if cache else None
         ssd_s = cache["state"] if cache else None
         y, new_cache = ssm_lib.ssm_forward(
-            params.ssm, h, cfg, compute_dtype, conv_s, ssd_s,
+            params.ssm, dist_ctx.apply("mixer_in", h), cfg, compute_dtype,
+            conv_s, ssd_s,
             decode=(mode == "decode"), kernels=route)
         y = dist_ctx.apply("mixer_out", y)  # the head shards' partial sums
         return x + y, new_cache, aux
@@ -175,10 +178,11 @@ def block_forward(
         conv_s = cache["conv"] if cache else None
         h_s = cache["h"] if cache else None
         y, new_cache = rglru_lib.rglru_forward(
-            params.rglru, h, cfg, compute_dtype, conv_s, h_s,
-            decode=(mode == "decode"), kernels=route)
+            params.rglru, dist_ctx.apply("mixer_in", h), cfg, compute_dtype,
+            conv_s, h_s, decode=(mode == "decode"), kernels=route)
         x = x + dist_ctx.apply("mixer_out", y)  # the channel shards' sums
-        h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+        h2 = dist_ctx.apply("ffn_in", rms_norm(x, params.norm2,
+                                               cfg.norm_eps))
         y2 = dist_ctx.apply("ffn_out", mlp(params.mlp, h2, compute_dtype))
         return x + y2, new_cache, aux
 
@@ -234,13 +238,13 @@ def block_forward(
     y = dist_ctx.apply("attn_proj", y)  # the head shards' partial sums
     x = x + y
 
-    h2 = dist_ctx.apply("ffn_in", rms_norm(x, params.norm2, cfg.norm_eps))
-    if kind == "moe":
+    h2 = rms_norm(x, params.norm2, cfg.norm_eps)
+    if kind == "moe":   # ffn_in on the experts' input, not the router's
         moe_fn = (moe_lib.moe_mlp_sorted if cfg.moe.dispatch == "sorted"
                   else moe_lib.moe_mlp)
         y2, aux = moe_fn(params.moe, h2, cfg, compute_dtype)
     else:
-        y2 = mlp(params.mlp, h2, compute_dtype)
+        y2 = mlp(params.mlp, dist_ctx.apply("ffn_in", h2), compute_dtype)
     y2 = dist_ctx.apply("ffn_out", y2)  # the ffn shards' partial sums
     return x + y2, new_cache, aux
 

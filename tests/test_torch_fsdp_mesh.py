@@ -28,6 +28,7 @@ tol·(1 + max|want|):
   1/(K·η_c): ROADMAP §C, "Rounding in the chip checks").
 """
 import _torch_threads  # noqa: F401
+import dataclasses
 import functools
 import threading
 
@@ -461,18 +462,48 @@ def test_remat_is_refused_by_name():
     ("mamba2-1.3b", "ssm blocks"), ("recurrentgemma-9b", "rglru blocks"),
     ("granite-moe-1b-a400m", "moe blocks")])
 def test_blocks_not_ported_are_refused_by_name(arch, match):
+    """The ``ssm``, ``rglru`` and ``moe`` blocks, refused before they
+    trained over the block, now plan: ``check_train`` takes them at
+    (fsdp 2, model 2), the model axis splits the block's own leaves, and
+    the four block ranks' pieces of a whole client join back to it bit for
+    bit (their rounds against the reference: ``test_torch_fsdp_blocks``)."""
+    from repro_torch.dist import collectives
+    from repro_torch.models import model as t_model
+
     cfg = registry.reduced(registry.get_model_config(arch))
-    with pytest.raises(NotImplementedError, match=f"{match}.*ROADMAP A3"):
-        tp.check_train(cfg, 2, 2)
+    kind = match.split()[0]
+    ep = kind == "moe"
+    tp.check_train(cfg, 2, 2, expert_parallel=ep)
     tp.check_train(cfg, 1, 1)
+    plan = tp.plan(cfg, 2, expert_parallel=ep)
+    mine = [k for k in plan if f".{kind}." in k]
+    assert mine and any(plan[k] is not None for k in mine)
+    full = t_model.param_dict(t_model.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+    shards = [tp.ClientShard(cfg, collectives.MeshAxis(f, 2),
+                             collectives.MeshAxis(m, 2),
+                             expert_parallel=ep).take(full)
+              for f in range(2) for m in range(2)]
+    back = tp.gather_client(shards, cfg, 2, 2, expert_parallel=ep)
+    assert all(torch.equal(back[k], full[k]) for k in full)
 
 
 def test_replicated_param_mode_and_expert_parallel_are_refused():
+    """``param_mode="replicated"`` stays refused by name in training over
+    the block; expert parallelism in training now plans (E/M whole experts
+    a model rank) and refuses by name experts that M does not divide."""
     cfg = _cfgs()[1]
     with pytest.raises(NotImplementedError, match="replicated.*ROADMAP A3"):
         tp.check_train(cfg, 2, 1, param_mode="replicated")
-    with pytest.raises(NotImplementedError, match="moe_expert_parallel"):
-        tp.check_train(cfg, 1, 2, expert_parallel=True)
+    moe = registry.reduced(registry.get_model_config("granite-moe-1b-a400m"))
+    tp.check_train(moe, 1, 2, expert_parallel=True)
+    assert tp.plan(moe, 2, expert_parallel=True)[
+        "layers.0.moe.up"] == tp.Split(0, (2, 2))
+    six = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                           num_experts=6))
+    with pytest.raises(ValueError, match="num_experts = 6 does not split "
+                       "over 4"):
+        tp.check_train(six, 1, 4, expert_parallel=True)
 
 
 def test_fsdp_pieces_cover_a_dim():
