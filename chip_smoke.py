@@ -158,13 +158,16 @@ Phases, each printing one JSON line:
    2 layers, and the reduced recurrentgemma-9b, one round each, then
    granite again in bf16 replaying the host path's expert choices;
    n = 2, K = 4, 4 × 128 tokens a client, pallas_packed, each rank
-   holding its (fsdp, model) quarter of its client's x and cx; each run
+   holding its (fsdp, model) quarter of its client's x and cx, the
+   residual's sequence split over model (``residual_mode="batch_seq"``,
+   the default: its gathers and reduce-scatters as many); each run
    held to its host path run here from the same seed (bf16: TOL_MESH_X /
    TOL_MESH_Y; f32: TOL_TRAIN_F32), granite's expert choices against the
    host path's (no flip in f32; counted in bf16); per rank and run the
    state's bytes, peak memory, the seconds and bytes a round of the fsdp
-   gathers, the reduce-scatters, the model sums, the RG-LRU gate input's
-   gathers and the gossip, rounds/s, and B1's, B5's, B6's
+   gathers, the reduce-scatters, the model sums, the sequence's gathers
+   and reduce-scatters, the RG-LRU gate input's gathers and the gossip,
+   rounds/s, and B1's, B5's, B6's
    vocab-parallel, B7's and B8's launches by route, B8's backward
    launches (the whole-vocabulary B6 launches no time); each kernel at a
    rank's shape in each run against its plain version.  The kernels
@@ -176,7 +179,9 @@ Phases, each printing one JSON line:
    parallelism from ``dist.tensor_parallel``): qwen2-0.5b at full width
    (24 layers, bf16) prefilling 4 × 4096 tokens and decoding 16, over a
    world of 2 ranks (NCCL with a card a rank, else both on cuda:0 over
-   gloo) at (data 1, model 2) and (data 2, model 1), held to the single
+   gloo) at (data 1, model 2) and (data 2, model 1), a prefill's residual
+   split over model by sequence (2048 positions a rank at model 2), a
+   decode step's whole, held to the single
    process (``serve_single_process``, run here first) at
    TOL_SERVE: the last logits, the caches gathered over heads and rows,
    16 teacher-forced decode steps' logits; the model ranks' logits and
@@ -5483,7 +5488,8 @@ def phase_fsdp_mesh(dev, smi) -> dict:
     path's (none may differ in f32).  No fallback: a failure fails the phase.  Per rank and run:
     the state's bytes against a client's, peak memory, the seconds and
     bytes a round of the fsdp gathers, the reduce-scatters, the model
-    sums, the RG-LRU gate input's gathers and the gossip, rounds/s, the
+    sums, the sequence's gathers and reduce-scatters (as many calls), the
+    RG-LRU gate input's gathers and the gossip, rounds/s, the
     launches by route."""
     import gc
     import tempfile
@@ -5559,6 +5565,8 @@ def phase_fsdp_mesh(dev, smi) -> dict:
     kinds = {"fsdp_gathers": ("local_steps", "fsdp_gather"),
              "reduce_scatters": ("local_steps", "reduce_scatter"),
              "model_sums": ("local_steps", "model_sum"),
+             "seq_gathers": ("local_steps", "seq_gather"),
+             "seq_scatters": ("local_steps", "seq_scatter"),
              "model_gathers": ("local_steps", "model_gather"),
              "model_scatters": ("local_steps", "model_scatter"),
              "model_maxes": ("local_steps", "all_reduce_max"),
@@ -5598,12 +5606,16 @@ def phase_fsdp_mesh(dev, smi) -> dict:
                     "bytes_a_round": v["bytes"] / run[3],
                     "seconds_a_round": v["seconds"] / run[3]}
             needed = ["fsdp_gathers", "reduce_scatters", "model_sums",
-                      "gossip"]
+                      "seq_gathers", "seq_scatters", "gossip"]
             if "rglru" in cfg.blocks():
                 needed += ["model_gathers", "model_scatters"]
             for name in needed:
                 if by_kind[name] is None:
                     fail(f"{what}: no {name} in the round")
+            if (by_kind["seq_gathers"]["calls_a_round"]
+                    != by_kind["seq_scatters"]["calls_a_round"]):
+                fail(f"{what}: the sequence's gathers and reduce-scatters "
+                     "differ in number")
             line = {"run": run[0], "rank": rank["rank"],
                     "device": rank["device"], "clients": rec["clients"],
                     "block_fsdp_model": rec["block"],
@@ -5754,35 +5766,53 @@ def shard_fingerprints(model, m) -> list:
             for r in range(m)]
 
 
-def serve_mesh_formula(cfg, nb, s, t, m, elt) -> dict:
-    """The collectives of one rank at m model ranks: a prefill makes
-    2L + 1 f32 all-reduces — after each layer's mixer (its out-projection)
-    and MLP, of nb·S·d, or for an ``ssm`` layer after its out-projection
-    and of its gated norm's sums of squares, nb·S·d and nb·S; and of the
-    embedding rows, nb·S·d — and all-gathers in the compute dtype: one of
-    the last logits' vocab pieces ((m − 1)·nb·⌈V/m⌉) and one a ``rglru``
-    layer of its gate input ((m − 1)·nb·S·W/m); a decode step the same at
-    S = 1.  None at m = 1."""
+def serve_mesh_formula(cfg, nb, s, t, m, elt, model_rank=0) -> dict:
+    """The collectives of model rank ``model_rank`` of m: a prefill splits
+    the residual's sequence of S positions over the model ranks in pieces
+    of k = ⌈S/m⌉ and makes, in the compute dtype, a reduce-scatter after
+    each layer's mixer (its out-projection) and MLP and of the embedding
+    rows, each receiving (m − 1)·nb·k·d; an all-gather of the pieces
+    before each of those mixers and MLPs, as many bytes; one broadcast of
+    the last position's hidden row (nb·d, received by every rank but the
+    last); an ``ssm`` layer's f32 all-reduce of its gated norm's sums of
+    squares (nb·S); and all-gathers of the last logits' vocab pieces
+    ((m − 1)·nb·⌈V/m⌉) and of each ``rglru`` layer's gate input ((m −
+    1)·nb·S·W/m).  A decode step keeps the residual whole: 2L + 1 f32
+    all-reduces — after each layer's mixer and MLP, of nb·d, or for an
+    ``ssm`` layer after its out-projection and of its gated norm's sums of
+    squares, nb·d and nb; and of the embedding rows, nb·d — and the same
+    all-gathers at S = 1.  None at m = 1."""
     if m == 1:
         return {}
+    from repro_torch.dist import collectives
     from repro_torch.dist import tensor_parallel as tp
 
     kinds, d = cfg.blocks(), cfg.d_model
     n_ssm, n_lru = kinds.count("ssm"), kinds.count("rglru")
     w = cfg.rglru.channels(cfg.d_model)
     vmax = max(tp.pieces(cfg.vocab_size, m, "vocab_size"))
+    n = 2 * len(kinds) - n_ssm
 
-    def step(seq, k):
-        rows = nb * seq
-        return {"all_reduce": {"calls": k * (2 * len(kinds) + 1),
-                               "bytes": k * 4 * rows * (
-                                   (2 * len(kinds) - n_ssm + 1) * d
-                                   + n_ssm)},
-                "all_gather": {"calls": k * (1 + n_lru),
-                               "bytes": k * (m - 1) * elt * (
-                                   nb * vmax + n_lru * rows * (w // m))}}
+    def gathers(seq, k):
+        return {"calls": k * (1 + n_lru),
+                "bytes": k * (m - 1) * elt * (nb * vmax
+                                              + n_lru * nb * seq * (w // m))}
 
-    return {"prefill": step(s, 1), "decode": step(1, t)}
+    piece = (m - 1) * nb * -(-s // m) * d * elt
+    widths = collectives.fsdp_widths(s, m)
+    last = max(r for r, width in enumerate(widths) if width)
+    prefill = {"seq_scatter": {"calls": n + 1, "bytes": (n + 1) * piece},
+               "seq_gather": {"calls": n, "bytes": n * piece},
+               "broadcast": {"calls": 1, "bytes": 0 if model_rank == last
+                             else nb * d * elt},
+               "all_gather": gathers(s, 1)}
+    if n_ssm:
+        prefill["all_reduce"] = {"calls": n_ssm, "bytes": 4 * nb * s * n_ssm}
+    decode = {"all_reduce": {"calls": t * (2 * len(kinds) + 1),
+                             "bytes": t * 4 * nb * (
+                                 (2 * len(kinds) - n_ssm + 1) * d + n_ssm)},
+              "all_gather": gathers(1, t)}
+    return {"prefill": prefill, "decode": decode}
 
 
 def rank_device() -> str:
@@ -6268,12 +6298,13 @@ def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
         if not e <= tol:
             fail(f"{what}: {name} differ by {e} > {tol} × (1 + max)")
     nb = rows // SERVE_SCAN_SHAPE[0]
-    want_comm = serve_mesh_formula(cfg, nb, SERVE_SCAN_PROMPT,
-                                   SERVE_SCAN_GEN, SERVE_SCAN_SHAPE[1], 2)
+    want_by_rank = [serve_mesh_formula(cfg, nb, SERVE_SCAN_PROMPT,
+                                       SERVE_SCAN_GEN, SERVE_SCAN_SHAPE[1], 2,
+                                       r["model_rank"]) for r in recs]
     want_l = scan_kernel_launches(cfg)
     rank_routes = scan_kernel_routes(
         cfg, nb, cfg.rglru.channels(cfg.d_model) // SERVE_SCAN_SHAPE[1])
-    for r in recs:
+    for r, want_comm in zip(recs, want_by_rank):
         got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
                     for k, v in kinds.items()}
                for ph, kinds in r["collectives"].items()
@@ -6316,7 +6347,7 @@ def check_scan_mesh(arch, held, recs, recs32, backend, smi) -> dict:
                                                                  {}).values())
                                for r in recs],
             "collectives_by_rank": [r["collectives"] for r in recs],
-            "formula_a_rank": want_comm,
+            "formula_by_rank": want_by_rank,
             "staged_gb_by_rank": [r["collectives"]["staged_bytes"] / 1e9
                                   for r in recs],
             "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in recs],
@@ -6460,9 +6491,10 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
             if not e <= TOL_SERVE:
                 fail(f"{what}: {name} differ by {e} > {TOL_SERVE} × (1 + max)")
         nb = SERVE_MESH_B // shape[0]
-        want_comm = serve_mesh_formula(cfg, nb, SERVE_MESH_PROMPT,
-                                       SERVE_MESH_GEN, shape[1], 2)
-        for r in recs:
+        want_by_rank = [serve_mesh_formula(cfg, nb, SERVE_MESH_PROMPT,
+                                           SERVE_MESH_GEN, shape[1], 2,
+                                           r["model_rank"]) for r in recs]
+        for r, want_comm in zip(recs, want_by_rank):
             got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
                         for k, v in kinds.items()}
                    for ph, kinds in r["collectives"].items()
@@ -6495,7 +6527,7 @@ def phase_serve_mesh(dev, gen, smi) -> dict:
                 "tokens_per_s": tokens / decode_s,
                 "comm_s_by_rank": comm_s,
                 "collectives_by_rank": [r["collectives"] for r in recs],
-                "formula_a_rank": want_comm,
+                "formula_by_rank": want_by_rank,
                 "staged_gb_by_rank": [r["collectives"]["staged_bytes"] / 1e9
                                       for r in recs],
                 "peak_memory_gb_by_rank": [r["peak_memory_gb"] for r in recs],

@@ -254,10 +254,9 @@ class MinimaxConfig:
 
 
 # ---------------------------------------------------------------------------
-# Mesh / sharding (reference :255-275, without attn_heads_sharding: it
-# means something only once the residual's sequence is split over model,
-# ROADMAP A4.  The serving mesh, which executes its model axis, reads no
-# MeshConfig: launch.mesh.serve_mesh takes its sizes)
+# Mesh / sharding (reference :255-275.  The serving mesh, which executes
+# its model axis, reads no MeshConfig: launch.mesh.serve_mesh takes its
+# sizes)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -270,7 +269,16 @@ class MeshConfig:
     # (fsdp, model); "replicated" keeps them whole (small models)
     param_mode: str = "fsdp2d"
     moe_expert_parallel: bool = False
-    # residual sharding: "batch_seq" (fsdp, model) or "batch" (fsdp only)
+    # the reference's switch between all-gathering the seq-sharded
+    # residual before attention and an all-to-all to q split by heads
+    # (Megatron-SP style).  In the port's Megatron layout q is always
+    # split by heads after the sequence's gather, and the context returns
+    # to the sequence split through attn_proj's reduce-scatter: the layout
+    # this switch asks GSPMD for.  So both values run that one program.
+    attn_heads_sharding: bool = False
+    # residual sharding: "batch_seq" (fsdp, model: the sequence split over
+    # model, dist.tensor_parallel.SeqSplit) or "batch" (fsdp only: the
+    # residual whole on every model rank)
     residual_mode: str = "batch_seq"
     # activation checkpointing of each unit in training (the reference's
     # default is True); off here, since launch.steps.build_train_round

@@ -270,7 +270,7 @@ def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
     """The decentralized mesh runs every lowering, compressed gossip and
     every gossip backend on a static W.  It refuses, as the reference's
     mesh does, a per-round W, participation and the adversary; and, not
-    ported yet (ROADMAP A13), ``topology_cycle`` and per-trajectory
+    ported yet (ROADMAP A1), ``topology_cycle`` and per-trajectory
     stepsizes."""
     off = [name for name, on in (
         ("traced_w", traced_w), ("participation", participation),
@@ -286,7 +286,7 @@ def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
     if off:
         raise NotImplementedError(
             f"{', '.join(off)} on the decentralized mesh: not ported yet "
-            "(ROADMAP A13)")
+            "(ROADMAP A1)")
 
 
 def _mesh_mixer(cfg: AlgorithmConfig, impl: str, w: torch.Tensor,

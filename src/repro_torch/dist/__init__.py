@@ -25,7 +25,10 @@ processes of a ``torch.distributed`` world:
    ``serve_params_shardings``' and ``params_shardings``' specs: query and
    KV heads, SSM heads, LRU channels, d_ff and the vocabulary over the
    ``model`` ranks (Megatron's layout), a rank's shard and the context
-   slots that run its collectives; in training (``ClientShard``) each
+   slots that run its collectives, with the residual's sequence split
+   over ``model`` between a block's column- and row-parallel pieces
+   (``SeqSplit``: a prefill, and training under
+   ``residual_mode="batch_seq"``); in training (``ClientShard``) each
    model piece split once more over ``fsdp`` in ZeRO-3 pieces, gathered
    where the forward reads them (``collectives.fsdp_gather`` and the
    other autograd Functions of the block).

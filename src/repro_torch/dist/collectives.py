@@ -40,7 +40,16 @@ sums of squares for its gated norm, the vocab-parallel embedding rows),
 and **an all-gather along the last dim in pieces** (``all_gather_last``:
 each rank's vocab columns of the logits, uneven where M does not divide
 V, and each rank's channels of the RG-LRU's gate input).  They count as
-``all_reduce`` and ``all_gather``.
+``all_reduce`` and ``all_gather``.  A prefill splits the residual's
+sequence over ``model`` (Megatron's sequence parallelism,
+``tensor_parallel.SeqSplit``): **an all-gather of the sequence's pieces**
+where the residual enters a column-parallel piece (``gather_seq``) and
+**a reduce-scatter** of the row-parallel partials back to them
+(``scatter_seq``: summed in f32 in rank order, as ``sum_over`` sums),
+pieces of ⌈S/M⌉ along any dim, the last ones shorter or empty, padded
+and trimmed on the wire, counted as ``seq_gather`` and ``seq_scatter``;
+the last position reaches every rank by a ``broadcast``
+(``last_position``).
 
 Training over a client's ``(fsdp, model)`` block (``dist.tensor_parallel.
 ClientShard``) runs them as autograd Functions with ``vmap`` rules, each
@@ -48,7 +57,10 @@ backward the other of its pair: **the fsdp gather** of a weight's ZeRO-3
 pieces (``fsdp_gather``, kind ``fsdp_gather``; its backward a
 **reduce-scatter** of the gradient, pairwise, summed in f32 in rank
 order, ``reduce_scatter``; over ``model`` the RG-LRU's gate input,
-``model_gather`` / ``model_scatter``), Megatron's **copy** (identity
+``model_gather`` / ``model_scatter``, and the residual's sequence,
+``gather_seq`` / ``scatter_seq``, with ``SeqGatherPair`` for the MoE's
+input, whose router's gradient is whole on every rank), Megatron's
+**copy** (identity
 forward, its gradient summed over ``model``) and **sum** (``axis_copy`` /
 ``axis_sum``, kind ``model_sum``; over fsdp the per-group loss sums and
 the MoE aux's, ``batch_sum``), and **an all-reduced max** (``axis_max`` /
@@ -820,9 +832,11 @@ def fsdp_widths(rows: int, f: int):
 
 
 # what a gather of pieces and its reduce-scatter count as: over fsdp a
-# weight's ZeRO-3 pieces, over model the RG-LRU's gate input
+# weight's ZeRO-3 pieces, over model the RG-LRU's gate input and the
+# residual's sequence (Megatron's sequence parallelism)
 FSDP_KINDS = ("fsdp_gather", "reduce_scatter")
 MODEL_KINDS = ("model_gather", "model_scatter")
+SEQ_KINDS = ("seq_gather", "seq_scatter")
 
 
 def _gather_piece(x, axis: MeshAxis, rows: int, dim: int, kind: str):
@@ -855,8 +869,8 @@ class FsdpGather(torch.autograd.Function):
     """A weight's rows joined from its fsdp pieces along ``dim``; its
     gradient summed over the fsdp ranks and scattered back to the
     pieces.  ``kinds``: what the gather and the reduce-scatter count as
-    (:data:`FSDP_KINDS`; :func:`model_gather` runs the same pair over the
-    model axis)."""
+    (:data:`FSDP_KINDS`; :func:`model_gather` and :func:`gather_seq` run
+    the same pair over the model axis)."""
 
     @staticmethod
     def forward(x, axis, rows, dim, kinds):
@@ -973,6 +987,92 @@ def model_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     dim = x.dim() - 1
     return FsdpGather.apply(x, axis, x.shape[dim] * axis.size, dim,
                             MODEL_KINDS)
+
+
+def gather_seq(x: torch.Tensor, axis: MeshAxis, n: int,
+               dim: int = 1) -> torch.Tensor:
+    """The whole sequence (``n`` positions along ``dim``) from every
+    model rank's piece of it, pieces of ⌈n/M⌉ (:func:`fsdp_widths`: the
+    last ones shorter, or empty where n < M), where the residual enters
+    a column-parallel piece; its gradient, a partial on each rank, summed
+    over the ranks and scattered back to the pieces: :class:`FsdpGather`
+    counted as ``seq_gather`` and ``seq_scatter`` (``x`` itself on one
+    rank)."""
+    if axis.size == 1:
+        return x
+    return FsdpGather.apply(x, axis, n, dim, SEQ_KINDS)
+
+
+def scatter_seq(x: torch.Tensor, axis: MeshAxis,
+                dim: int = 1) -> torch.Tensor:
+    """This rank's piece of the sequence (``dim``) of the sum of every
+    model rank's partial ``x``, where a row-parallel output returns to the
+    residual: the partials added in f32 in rank order and rounded once, as
+    :func:`sum_over` adds them; its gradient all-gathered
+    (:class:`FsdpScatter` counted as ``seq_scatter`` and ``seq_gather``;
+    ``x`` itself on one rank)."""
+    if axis.size == 1:
+        return x
+    return FsdpScatter.apply(x, axis, x.shape[dim], dim, SEQ_KINDS)
+
+
+class SeqGatherPair(torch.autograd.Function):
+    """The whole sequence gathered once for two readers (the MoE's input):
+    a replicated one, the router, whose gradient is already whole on every
+    model rank, so its share of the backward takes the rank's piece and
+    sums nothing; and a column-parallel one, the experts, whose gradient
+    is a partial, reduce-scattered as :func:`gather_seq`'s."""
+
+    @staticmethod
+    def forward(x, axis, n, dim):
+        whole = _gather_piece(x, axis, n, dim, SEQ_KINDS[0])
+        return whole, whole.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.axis, ctx.n, ctx.dim = inputs
+
+    @staticmethod
+    def backward(ctx, g_whole, g_part):
+        axis, n, dim = ctx.axis, ctx.n, ctx.dim
+        widths = fsdp_widths(n, axis.size)
+        mine = g_whole.narrow(dim, sum(widths[:axis.rank]), widths[axis.rank])
+        return (FsdpScatter.apply(g_part, axis, n, dim, SEQ_KINDS) + mine,
+                None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, axis, n, dim):
+        if in_dims[0] is None:
+            return SeqGatherPair.apply(x, axis, n, dim), (None, None)
+        return SeqGatherPair.apply(_front(x, in_dims[0]), axis, n,
+                                   dim + 1), (0, 0)
+
+
+def gather_seq_pair(x: torch.Tensor, axis: MeshAxis, n: int,
+                    dim: int = 1):
+    """(whole for a replicated reader, whole for a column-parallel
+    reader): :class:`SeqGatherPair` (``(x, x)`` on one rank)."""
+    if axis.size == 1:
+        return x, x
+    return SeqGatherPair.apply(x, axis, n, dim)
+
+
+def last_position(x: torch.Tensor, axis: MeshAxis, n: int,
+                  dim: int = 1) -> torch.Tensor:
+    """The sequence's last position (length 1 along ``dim``) on every
+    model rank, from the rank whose piece holds it (the last one with a
+    non-empty piece of :func:`fsdp_widths`): one broadcast (``x``'s last
+    position itself on one rank).  No gradient: the prefill's
+    ``last_only`` head."""
+    if axis.size == 1:
+        return x.narrow(dim, x.shape[dim] - 1, 1)
+    widths = fsdp_widths(n, axis.size)
+    src = max(r for r, w in enumerate(widths) if w)
+    if axis.rank == src:
+        row = x.narrow(dim, x.shape[dim] - 1, 1).contiguous()
+    else:
+        row = x.new_empty((*x.shape[:dim], 1, *x.shape[dim + 1:]))
+    return broadcast_from(row, src, axis)
 
 
 def axis_copy(x: torch.Tensor, axis: MeshAxis,

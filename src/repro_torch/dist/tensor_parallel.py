@@ -40,26 +40,26 @@ embed, head (a codebook each)   vocab                lookup: sum
                                                      (logits)
 ==============================  ===================  ====================
 
-Rank r of M takes query heads ``[r·H/M, (r+1)·H/M)``.  Where M divides KV
-it takes KV heads ``[r·KV/M, (r+1)·KV/M)``, the query heads of those
-groups; where KV divides M (recurrentgemma-9b's one KV head), KV head
-``r // (M/KV)`` sits whole on M/KV ranks, each with H/M of its group's
-query heads, its ``wk`` / ``wv`` / ``bk`` / ``bv`` and its k/v caches
-whole.  Either way GQA stays grouped.  An ``ssm`` block splits by heads:
-rank r takes the columns ``[z_r, x_r, B, C, dt_r]`` of ``in_proj`` (its
-H/M heads of z, x and dt; B and C have one group, so every rank holds them
-whole), ``[x_r, B, C]`` of the conv (``models.ssm``).  An ``rglru`` block
-splits by LRU channels (``models.rglru``), its ``mlp`` by d_ff.  d_ff,
-expert_d_ff and the vocabulary split into contiguous pieces of ⌈n/M⌉, the
-last one shorter where M does not divide n (granite-moe-1b-a400m's 49 155
-tokens): an all-gather of uneven pieces pads and trims them
-(``collectives.all_gather_last``).  Heads, SSM heads and LRU channels split
-evenly or not at all: :func:`check_config` refuses by name what does not
-divide.
+That is a decode step's layout, the residual whole on every rank.  A
+prefill splits the residual's sequence over the model ranks between the
+blocks' column- and row-parallel pieces (Megatron's sequence
+parallelism, :class:`SeqSplit`; the reference's serving layout, batch
+over ``data`` and sequence over ``model``): rank r holds its ⌈S/M⌉
+positions (``collectives.fsdp_widths``, the last pieces shorter, or
+empty where S < M), each "sum" above is a reduce-scatter of the
+sequence in its place (the partials added in f32 in rank order, as the
+sum adds them), the residual is gathered where it enters each
+column-parallel piece (``attn_in``, ``mixer_in``, ``ffn_in``; the
+MoE's input once, ``moe_in``, for its router and experts), the norms
+and residual adds run on the rank's piece, and the last position
+reaches every rank before the head (``last_row``).  The mixers, their
+kernels and the cache writes see the whole sequence of the rank's heads
+or channels either way.
 
 In training (:class:`ClientShard`) each tag is an autograd Function of
 ``dist.collectives`` whose backward is its pair's forward, so that every
-rank's gradient of a leaf it holds is the whole one:
+rank's gradient of a leaf it holds is the whole one.  With the residual
+whole (``MeshConfig.residual_mode="batch"``):
 
 ================  ==========================  ===========================
 slot              forward                     backward
@@ -86,6 +86,30 @@ batch_sum         sum over fsdp (per-group    identity
                   MoE aux's sums and counts)
 ================  ==========================  ===========================
 
+With the sequence split (``"batch_seq"``, the default) these take the
+place of the first and third rows:
+
+================  ==========================  ===========================
+slot              forward                     backward
+================  ==========================  ===========================
+attn_in,          all-gather of the           reduce-scatter of the
+mixer_in,         sequence's pieces           sequence (each rank's
+ffn_in, head_in   (``gather_seq``)            columns give a partial)
+moe_in            one all-gather, for the     the router's share: the
+                  router and the experts      rank's piece (whole on
+                  (``gather_seq_pair``)       every rank); the experts':
+                                              reduce-scatter
+attn_proj,        reduce-scatter of the       all-gather of the
+mixer_out,        sequence (``scatter_seq``)  sequence's pieces
+ffn_out,
+embed_rows
+================  ==========================  ===========================
+
+and the block norms and the final norm, whole on every model rank but
+read on the rank's piece of the sequence, pass a copy where they are
+read (:meth:`ClientShard.copy_shared`): summed over model, their
+gradient covers every position.
+
 A range that several model ranks hold (the SSM's B and C, a KV head that
 M/KV ranks share) goes through a copy where the forward reads it
 (:meth:`ClientShard.copy_shared`): each rank's gradient of it flows only
@@ -106,15 +130,17 @@ model.
 A rank's shard is a ``Model`` of :func:`shard_config` (its heads, widths
 and vocabulary; ``configs.base.SSMShard`` and ``RGLRUShard`` for its SSM
 heads and LRU channels), so every
-function of ``models`` runs on it unchanged; the residual stream stays
-whole on every rank.  A rank looks up only the token ids of its vocabulary
+function of ``models`` runs on it unchanged.  A rank looks up only the
+token ids of its vocabulary
 range (``Model.vocab_range``) and zeroes the others' rows, so the sum over
 the ranks is each row exactly.
 
 The partial sums are all-reduced in f32 (``collectives.sum_over``) and
 rounded once to the compute dtype: the partials of a bf16 GEMM are bf16
 already, and a sum of M of them in bf16 would round M − 1 more times.
-The f32 wire moves twice the bytes of a bf16 one.  The SSM's sums of
+The f32 wire moves twice the bytes of a bf16 one; a reduce-scatter of the
+sequence sends the partials in the compute dtype and adds them in f32 on
+arrival, the same sum in half the bytes.  The SSM's sums of
 squares are f32 already; the RG-LRU's gate input crosses in the compute
 dtype, exactly.
 """
@@ -497,13 +523,71 @@ def shard_skeleton(cfg: ModelConfig, m: int, rank: int, *,
     return skel
 
 
-def slots(axis: collectives.MeshAxis, cfg: ModelConfig) -> dict:
-    """The ``dist.context`` slots of the model axis: the row-parallel
-    sums (``attn_proj``, ``mixer_out``, ``ffn_out``), the SSM's sums of
-    squares (``ssm_norm``) and the vocab-parallel embedding rows over
-    ``axis``; the RG-LRU's gate input and the logits gathered over it.
-    None at one rank: no slot, so the model runs the single-process
-    path."""
+class SeqSplit:
+    """The residual's sequence split over the model axis for one forward
+    (Megatron's sequence parallelism): rank r holds positions of its piece
+    of ⌈S/M⌉ (``collectives.fsdp_widths``: the last pieces shorter, or
+    empty where S < M).  The split is made once, where the embedding rows
+    return (:meth:`scatter`, which reads S); every gather of the same
+    forward joins S positions.  ``autograd``: in training, each collective
+    is a ``dist.collectives`` autograd Function whose backward is its
+    pair's forward."""
+
+    def __init__(self, axis: collectives.MeshAxis):
+        self.axis, self.n = axis, None
+
+    def scatter(self, x):
+        """The embedding rows' partials (B, S, …): this rank's piece of
+        their sum, S recorded for the gathers."""
+        self.n = x.shape[1]
+        return self.reduce(x)
+
+    def reduce(self, x):
+        """A row-parallel output's partials over the whole sequence: this
+        rank's piece of their sum (f32, rank order, rounded once)."""
+        if x.shape[1] != self.n:
+            raise ValueError(f"a partial of {x.shape[1]} positions where "
+                             f"the split sequence has {self.n}")
+        return collectives.scatter_seq(x, self.axis)
+
+    def gather(self, x):
+        """The whole sequence where the residual enters a column-parallel
+        piece."""
+        return collectives.gather_seq(x, self.axis, self.n)
+
+    def gather_pair(self, x):
+        """The whole sequence for the MoE: (the router's, the experts')."""
+        return collectives.gather_seq_pair(x, self.axis, self.n)
+
+    def last(self, x):
+        """The sequence's last position, on every rank."""
+        return collectives.last_position(x, self.axis, self.n)
+
+
+def seq_slots(split: SeqSplit) -> dict:
+    """The ``dist.context`` slots of a sequence split: the gathers where
+    the residual enters a column-parallel piece (``attn_in``,
+    ``mixer_in``, ``ffn_in``, ``head_in``; ``moe_in``, once for the MoE's
+    router and experts), the reduce-scatters where a row-parallel output
+    returns (``attn_proj``, ``mixer_out``, ``ffn_out``; ``embed_rows``,
+    which makes the split) and the last position (``last_row``)."""
+    return dict(attn_in=split.gather, mixer_in=split.gather,
+                ffn_in=split.gather, head_in=split.gather,
+                moe_in=split.gather_pair, attn_proj=split.reduce,
+                mixer_out=split.reduce, ffn_out=split.reduce,
+                embed_rows=split.scatter, last_row=split.last)
+
+
+def slots(axis: collectives.MeshAxis, cfg: ModelConfig, *,
+          seq: bool = False) -> dict:
+    """The ``dist.context`` slots of the serving mesh's model axis: the
+    SSM's sums of squares (``ssm_norm``) summed over ``axis``, the RG-LRU's
+    gate input and the logits gathered over it; with ``seq`` (a prefill)
+    the residual's sequence split over it (:func:`seq_slots`), else the
+    residual whole on every rank and the row-parallel sums
+    (``attn_proj``, ``mixer_out``, ``ffn_out``) and the vocab-parallel
+    embedding rows (``embed_rows``) all-reduced.  None at one rank: no
+    slot, so the model runs the single-process path."""
     m = axis.size
     if m == 1:
         return {}
@@ -513,18 +597,23 @@ def slots(axis: collectives.MeshAxis, cfg: ModelConfig) -> dict:
     def reduce(t):
         return collectives.sum_over(t, axis)
 
-    return {"attn_proj": reduce, "mixer_out": reduce, "ffn_out": reduce,
-            "ssm_norm": reduce, "embed_rows": reduce,
-            "lru_gate_in": lambda t: collectives.all_gather_last(t, axis,
-                                                                 lru),
-            "logits": lambda t: collectives.all_gather_last(t, axis,
-                                                            widths)}
+    out = {"ssm_norm": reduce,
+           "lru_gate_in": lambda t: collectives.all_gather_last(t, axis,
+                                                                lru),
+           "logits": lambda t: collectives.all_gather_last(t, axis, widths)}
+    if seq:
+        out.update(seq_slots(SeqSplit(axis)))
+    else:
+        out.update(attn_proj=reduce, mixer_out=reduce, ffn_out=reduce,
+                   embed_rows=reduce)
+    return out
 
 
 @contextlib.contextmanager
-def model_parallel(axis: collectives.MeshAxis, cfg: ModelConfig):
+def model_parallel(axis: collectives.MeshAxis, cfg: ModelConfig, *,
+                   seq: bool = False):
     """The model axis' :func:`slots` installed for the block."""
-    with dist_ctx.residual_constraint(**slots(axis, cfg)):
+    with dist_ctx.residual_constraint(**slots(axis, cfg, seq=seq)):
         yield
 
 
@@ -654,14 +743,18 @@ class ClientShard:
     state's leaves (x, cx) hold these pieces; y stays whole on every rank
     of the block.  The client's batch rows split over fsdp
     (:meth:`batch`).  ``block``: all the client's ranks (sums over the
-    pieces, :meth:`block_sum`)."""
+    pieces, :meth:`block_sum`).  ``seq``: the residual's sequence split
+    over ``model`` between the column- and row-parallel pieces
+    (``MeshConfig.residual_mode="batch_seq"``, :class:`SeqSplit`), else
+    whole on every model rank (``"batch"``)."""
 
     def __init__(self, cfg: ModelConfig, fsdp: collectives.MeshAxis,
                  model: collectives.MeshAxis,
                  block: collectives.MeshAxis = collectives.MeshAxis(0, 1),
-                 *, expert_parallel: bool = False):
+                 *, expert_parallel: bool = False, seq: bool = False):
         self.cfg, self.fsdp, self.model, self.block = cfg, fsdp, model, block
         self.expert_parallel = expert_parallel
+        self.seq = seq and model.size > 1
         self.plan = plan(cfg, model.size, expert_parallel=expert_parallel)
         self.skel = shard_skeleton(cfg, model.size, model.rank,
                                    expert_parallel=expert_parallel)
@@ -670,6 +763,11 @@ class ClientShard:
         self.shared = {name: spans for name, spans in
                        ((n, self._spans(s)) for n, s in self.plan.items())
                        if any(sp.holders > 1 for sp in spans)}
+        # the whole leaves that read the rank's piece of a split sequence
+        self.on_pieces = ({name for name, s in self.plan.items()
+                           if s is None and name.split(".")[-1] in
+                           ("norm1", "norm2", "final_norm")}
+                          if self.seq else set())
 
     def _spans(self, s: Optional[Split]) -> List["_Span"]:
         """Each range of this rank's piece of a leaf split by ``s``, along
@@ -696,8 +794,14 @@ class ClientShard:
         that only some hold (a KV head on M/KV of the M ranks, 1 < KV < M)
         is placed at its own offset in zeros as wide as the leaf's dim,
         copied so, and cut back out, so that the sum over model adds each
-        range's holders only.  ``w`` itself where the rank holds no such
+        range's holders only.  A leaf every model rank holds whole that
+        reads only the rank's piece of a split sequence (a block norm, the
+        final norm: :attr:`on_pieces`) goes through ``axis_copy`` too: its
+        gradient covers the rank's positions, and the sum over model is
+        the whole one.  ``w`` itself where the rank holds no such
         range."""
+        if name in self.on_pieces:
+            return collectives.axis_copy(w, self.model)
         spans = self.shared.get(name)
         if not spans:
             return w
@@ -793,12 +897,14 @@ class ClientShard:
         return collectives.BlockSum(self.block, self.owned())
 
     def slots(self) -> dict:
-        """The ``dist.context`` slots of training on the block.  Over
-        ``model``: the copies where the whole residual enters a
-        column-parallel piece (``attn_in``, ``mixer_in``, ``ffn_in``,
-        ``head_in``) and on the MoE gates that combine a rank's partial
-        expert outputs (``expert_gates``); the row-parallel sums
-        (``attn_proj``, ``mixer_out``, ``ffn_out``, ``embed_rows``); the
+        """The ``dist.context`` slots of training on the block, for one
+        forward.  Over ``model``: the copies where the whole residual
+        enters a column-parallel piece (``attn_in``, ``mixer_in``,
+        ``ffn_in``, ``head_in``) and on the MoE gates that combine a
+        rank's partial expert outputs (``expert_gates``); the row-parallel
+        sums (``attn_proj``, ``mixer_out``, ``ffn_out``, ``embed_rows``);
+        with :attr:`seq`, in place of those copies and sums, the
+        sequence's gathers and reduce-scatters (:func:`seq_slots`); the
         SSM's sums of squares, a sum whose gradient is summed too
         (``ssm_norm``: each rank's channels read the whole sum); the
         RG-LRU's gate input gathered, its gradient reduce-scattered
@@ -824,6 +930,8 @@ class ClientShard:
                                                                       mod),
                        vocab_merge=lambda m, l, z: merge_partials(m, l, z,
                                                                   mod))
+            if self.seq:
+                out.update(seq_slots(SeqSplit(mod)))
         if fs.size > 1:
             out["batch_sum"] = lambda t: collectives.axis_sum(
                 t, fs, "batch_sum")

@@ -150,7 +150,8 @@ class ServeMesh(compat.AbstractMesh):
     """A ``(data, model)`` mesh of named sizes (``shape``, as an abstract
     mesh) and this rank's place on it: its axis over the ``data`` ranks
     (those that hold the same weight shard) and over the ``model`` ranks
-    (those that hold the same batch rows)."""
+    (those that hold the same batch rows, a prefill's residual split by
+    sequence over them: ``dist.tensor_parallel.SeqSplit``)."""
     batch_axis: collectives.MeshAxis = None
     model_axis: collectives.MeshAxis = None
 

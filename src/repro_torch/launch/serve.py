@@ -40,12 +40,15 @@ samples every codebook: (B, 1, C) (reference ``launch/serve.py:31,49``).
 (without them, a world of one rank: ``--mesh 1x1``): the batch rows split
 over ``data``, the weights over ``model`` (``dist.tensor_parallel``: every
 block kind, attention by heads, ``ssm`` by SSM heads, ``rglru`` by LRU
-channels), through ``launch.steps.build_prefill_step`` and
+channels; a prefill's residual split over ``model`` by sequence, a
+decode step's whole), through ``launch.steps.build_prefill_step`` and
 ``build_decode_step`` (:func:`generate_on_mesh`, the decode steps eager: a
 gloo collective cannot be captured).  Every rank draws the weights and
 prompts from the seed, the weights piece by piece, keeping only its shard
 (``tp.init_shard``); rank 0 prints prefill s, decode ms a token,
-tokens/s, the communication s and bytes by collective and the peak memory
+tokens/s, the communication s and bytes by collective (a prefill's
+sequence gathers and reduce-scatters as ``seq_gather`` and
+``seq_scatter``, its last position's ``broadcast``) and the peak memory
 of a rank::
 
   PYTHONPATH=src torchrun --standalone --nproc-per-node=2 \\
@@ -241,8 +244,8 @@ class MeshServeResult:
 def generate_on_mesh(mesh, cfg: ModelConfig, shard: Dict[str, torch.Tensor],
                      prompt: torch.Tensor, gen_tokens: int, *,
                      temperature: float = 1.0, generator=None, forced=None,
-                     prefix=None, compute_dtype=torch.bfloat16
-                     ) -> MeshServeResult:
+                     prefix=None, compute_dtype=torch.bfloat16,
+                     seq_parallel: bool = True) -> MeshServeResult:
     """:func:`generate` on a serving mesh, on this rank: ``shard`` the
     rank's piece of the model's parameters (``tp.init_shard``, or
     ``tp.shard_params`` of a ``param_dict``), ``prompt`` (B, P[, C]) cut
@@ -254,7 +257,9 @@ def generate_on_mesh(mesh, cfg: ModelConfig, shard: Dict[str, torch.Tensor],
     rank of a model group holds the same logits and generator, so samples
     the same) or, with ``forced`` (B, T[, C]), that token (teacher
     forcing).  ``prefix`` (B, P', d): a vision-language model's prefix
-    embeddings, run before the prompt in the prefill.  The collective
+    embeddings, run before the prompt in the prefill.  The prefill splits
+    the residual's sequence over ``model`` (``seq_parallel=False``: whole
+    on every model rank, as the decode steps keep it).  The collective
     counts are zeroed first; the tokens are compared over the model axis
     after the decode (the ``check`` phase)."""
     b, prompt_len = prompt.shape[:2]
@@ -262,7 +267,7 @@ def generate_on_mesh(mesh, cfg: ModelConfig, shard: Dict[str, torch.Tensor],
     check_prompt(cfg, prompt_len, prompt_len)
     pre = steps_lib.build_prefill_step(
         cfg, InputShape("serve_prefill", prompt_len, b, "prefill"), mesh,
-        compute_dtype=compute_dtype)
+        compute_dtype=compute_dtype, seq_parallel=seq_parallel)
     dec = steps_lib.build_decode_step(
         cfg, InputShape("serve_decode", total, b, "decode"), mesh,
         compute_dtype=compute_dtype)

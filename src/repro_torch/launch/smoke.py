@@ -24,7 +24,7 @@ For each reduced architecture:
   printing ``prefill+decode ran on (data 2, model 2)``.
 
 Exit code 0 iff every leg ran.  The sweep-cell leg waits for a later slice
-of the mesh (ROADMAP A13).
+of the mesh (ROADMAP A6).
 
   PYTHONPATH=src python -m repro_torch.launch.smoke [--archs qwen2-0.5b ...]
       [--legs train fsdp serve]

@@ -33,18 +33,27 @@ its partial log-sum-exps merged; every block kind, and with
 ``MeshConfig.moe_expert_parallel`` the MoE experts split over ``model``),
 over ``fsdp`` in ZeRO-3 pieces of each model piece, gathered where the
 forward reads them, their gradient reduce-scattered; the client's batch
-rows split over ``fsdp`` (``dist.tensor_parallel.ClientShard``).  The
-state's x and cx hold the rank's pieces; every lowering gossips them over
-the clients axis, the ranks that hold the same piece of every client.
+rows split over ``fsdp`` (``dist.tensor_parallel.ClientShard``).  Under
+``MeshConfig.residual_mode="batch_seq"`` (the default, as the
+reference's) the residual's sequence is split over ``model`` between the
+column- and row-parallel pieces (Megatron's sequence parallelism,
+``tensor_parallel.SeqSplit``: gathered where it enters a column-parallel
+piece, reduce-scattered where a row-parallel output returns); under
+``"batch"`` it is whole on every model rank.  The state's x and cx hold
+the rank's pieces; every lowering gossips them over the clients axis, the
+ranks that hold the same piece of every client.
 
 ``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
 build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch
 rows split over ``pod × data`` (replicated where that axis does not divide
 them, as the reference's ``_maybe`` leaves a batch of 1), the weights over
-``model`` as tensor parallelism (``dist.tensor_parallel``), the residual
-whole on every model rank.  The reference's serving residual is batch over
-``data`` and sequence over ``model`` (:268-270), which GSPMD gathers around
-attention; sequence parallelism is later work (ROADMAP A13).  A step runs
+``model`` as tensor parallelism (``dist.tensor_parallel``).  A prefill's
+residual is batch over ``data`` and sequence over ``model``, as the
+reference's (:268-270, which GSPMD gathers around attention): each model
+rank holds ⌈S/M⌉ positions between the blocks' column- and row-parallel
+pieces (``tensor_parallel.SeqSplit``; the last pieces shorter, or empty
+where S < M).  A decode step's residual is whole on every model rank, as
+the reference's constraint is batch only (:321-322).  A step runs
 eagerly: a gloo collective cannot be captured in a CUDA graph.  The
 reference's specs of those programs are ported as pure functions
 (``_cache_shardings``, ``params_sds``, ``cache_sds``), which
@@ -87,8 +96,11 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
     clients), and ``round_step.problem``, ``round_step.axes`` (the
     rank's ``launch.mesh.TrainAxes``) and ``round_step.shard`` (its
     ``ClientShard``; None at one rank a client) give what the state and
-    the metrics are built from.  ``mcfg.remat`` is refused: activation checkpointing
-    does not run under ``torch.func.grad``."""
+    the metrics are built from.  ``mcfg.residual_mode`` splits the
+    residual's sequence over ``model`` (``"batch_seq"``) or keeps it whole
+    (``"batch"``); ``mcfg.attn_heads_sharding`` runs the same program
+    either way (``configs.base.MeshConfig``).  ``mcfg.remat`` is refused:
+    activation checkpointing does not run under ``torch.func.grad``."""
     from repro_torch.launch import mesh as mesh_lib
 
     if mcfg.remat:
@@ -111,9 +123,11 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
     tp.check_train(model_cfg, axes.fsdp.size, axes.model.size,
                    param_mode=mcfg.param_mode,
                    expert_parallel=mcfg.moe_expert_parallel)
+    res_axes = sh.residual_axes(mcfg.residual_mode)
     shard = (None if axes.block.size == 1 else
              tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block,
-                            expert_parallel=mcfg.moe_expert_parallel))
+                            expert_parallel=mcfg.moe_expert_parallel,
+                            seq=sh.MODEL in res_axes))
     if problem is None:
         problem = objectives.dro_problem(
             model_cfg, num_groups=minimax.num_groups, mu=minimax.mu,
@@ -122,8 +136,7 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
     round_fn = kgt.make_round_step(problem, algo, lr_scale=lr_scale,
                                    device=device, axis=axis,
                                    block=axes.block)
-    constraint = sh.leading_dims_constraint(mesh,
-                                            sh.residual_axes(mcfg.residual_mode))
+    constraint = sh.leading_dims_constraint(mesh, res_axes)
 
     def round_step(state, batches, noise, *extras):
         with dist_ctx.residual_constraint(constraint):
@@ -198,20 +211,25 @@ def _step(fn, model_cfg: ModelConfig, mesh, b: int) -> ServeStep:
 
 
 def build_prefill_step(model_cfg: ModelConfig, shape: InputShape, mesh, *,
-                       compute_dtype=torch.bfloat16) -> ServeStep:
+                       compute_dtype=torch.bfloat16,
+                       seq_parallel: bool = True) -> ServeStep:
     """``prefill(params_shard, batch_rows, caches) -> (logits_last,
     caches)`` on this rank (reference :253): ``forward(mode="prefill",
     last_only=True)`` of the rank's shard (``tp.shard_params`` of the
     bf16 parameters) on its rows, the logits of every vocabulary column
     (gathered over ``model``) and the caches of the rank's rows and KV
     heads (``init_cache`` of the step's ``cfg`` at ``shape.seq_len``).
-    The collectives count under the ``prefill`` phase."""
+    The residual's sequence is split over ``model`` (the reference's
+    layout); ``seq_parallel=False`` keeps it whole on every model rank
+    (decode's layout).  The collectives count under the ``prefill``
+    phase."""
     skel = tp.shard_skeleton(model_cfg, mesh.model_axis.size,
                              mesh.model_axis.rank)
 
     def prefill(params_shard, batch, caches):
         with torch.no_grad(), collectives.phase("prefill"), \
-                tp.model_parallel(mesh.model_axis, model_cfg):
+                tp.model_parallel(mesh.model_axis, model_cfg,
+                                  seq=seq_parallel):
             logits, new_caches, _ = model_lib.call(
                 skel, params_shard, model_lib.forward, batch,
                 mode="prefill", compute_dtype=compute_dtype, caches=caches,
@@ -226,7 +244,8 @@ def build_decode_step(model_cfg: ModelConfig, shape: InputShape, mesh, *,
     """``decode(params_shard, caches, tokens, pos) -> (logits, caches)`` on
     this rank (reference :310): one ``decode_step`` of the rank's rows
     against caches of ``shape.seq_len``, ``pos`` an int or a (rows,)
-    tensor.  The collectives count under the ``decode`` phase."""
+    tensor, the residual whole on every model rank.  The collectives
+    count under the ``decode`` phase."""
     skel = tp.shard_skeleton(model_cfg, mesh.model_axis.size,
                              mesh.model_axis.rank)
 

@@ -19,7 +19,7 @@ metrics, eager), the A/B reference.  It runs on the card unless given
 ``donate``): it lives on the card once, in the graphs' static buffers,
 beside their memory pool.  On the card the run ends by printing its peak
 device memory.  The persistent compile cache (``--compile-cache``) is not
-ported (ROADMAP A13) and raises.
+ported (ROADMAP A8) and raises.
 
 ``--mesh decentralized`` spreads the n clients over the R ranks of a
 ``torch.distributed`` world (``launch.steps``): each rank holds n/R
@@ -185,7 +185,7 @@ def _check_unported(args) -> None:
     if getattr(args, "compile_cache", None) is not None:
         raise NotImplementedError(
             "--compile-cache: the persistent compile cache "
-            "(repro.sweep.cache) is not ported yet (ROADMAP A13)")
+            "(repro.sweep.cache) is not ported yet (ROADMAP A8)")
 
 
 def _check_mesh(args, algo: AlgorithmConfig, problem) -> None:
@@ -205,7 +205,7 @@ def _check_mesh(args, algo: AlgorithmConfig, problem) -> None:
         # the health gauges read the whole state
         raise NotImplementedError(
             "--telemetry-out on the decentralized mesh is not ported yet "
-            "(ROADMAP A13)")
+            "(ROADMAP A1)")
     if not dist.is_initialized():
         raise RuntimeError(
             "--mesh decentralized runs on a torch.distributed world: start "
@@ -248,7 +248,7 @@ class Trainer:
             if capture:
                 raise NotImplementedError(
                     "captured chunks on the decentralized mesh are not "
-                    "ported yet (ROADMAP A13)")
+                    "ported yet (ROADMAP A5)")
             capture = False
         return engine_lib.make_chunk_builder(
             self.round_step, self.sampler, self.metrics_fn,
@@ -603,7 +603,7 @@ def parser() -> argparse.ArgumentParser:
                     help="a torch.profiler trace into this directory")
     ap.add_argument("--profile-rounds", type=int, default=0)
     ap.add_argument("--compile-cache", default=None,
-                    help="not ported yet (ROADMAP A13)")
+                    help="not ported yet (ROADMAP A8)")
     ap.add_argument("--out", default=None)
     return ap
 

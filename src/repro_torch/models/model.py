@@ -16,8 +16,12 @@ A rank of the serving mesh runs a ``Model`` of its tensor-parallel shard
 (``dist.tensor_parallel``): its heads, widths and a contiguous range of
 the vocabulary (``Model.vocab_range``), the collectives at tagged points
 of ``dist.context`` (``embed_rows`` after the lookup, ``logits`` after the
-head; identities without a context).  A rank of a client's (fsdp, model)
-block in training runs the same shard from its pieces
+head; identities without a context).  In a prefill, and in training under
+``MeshConfig.residual_mode="batch_seq"``, the residual's sequence is split
+over the model ranks between the blocks' column- and row-parallel pieces
+(``tensor_parallel.SeqSplit``): ``embed_rows`` leaves each rank its piece
+of the positions, and the final norm runs on it.  A rank of a client's
+(fsdp, model) block in training runs the same shard from its pieces
 (``tensor_parallel.ShardedModel``): the loss over its vocabulary range is
 merged over the model ranks (``vocab_merge``, :func:`chunked_nll`) and
 the per-group sums over the fsdp ranks' batch rows (``batch_sum``,
@@ -131,42 +135,70 @@ def call(skel: Model, params: Dict[str, torch.Tensor], fn, *args, **kw):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(model: Model, tokens, compute_dtype):
+def embed_tokens(model: Model, tokens, compute_dtype, *, prefix=None,
+                 bias=None):
     """(B, S) tokens -> (B, S, d); with C codebooks (B, S, C) tokens ->
     the sum of the C codebooks' embeddings, added in codebook order in the
-    compute dtype (reference :54-60).  A shard with a ``vocab_range``
-    looks up :func:`_shard_rows`."""
+    compute dtype (reference :54-60); then ``bias`` (the adversarial
+    objective's perturbation) added, and ``prefix`` (B, P, d) embeddings
+    put before the tokens: (B, P + S, d).  A shard with a
+    ``vocab_range`` looks up :func:`_shard_rows`."""
     if model.vocab_range is not None:
-        return _shard_rows(model, tokens, compute_dtype)
+        return _shard_rows(model, tokens, compute_dtype, prefix, bias)
     if not model.cfg.num_codebooks:
-        return model.embed[tokens].to(compute_dtype)
-    x = model.embed[0][tokens[..., 0]].to(compute_dtype)
-    for c in range(1, model.cfg.num_codebooks):
-        x = x + model.embed[c][tokens[..., c]].to(compute_dtype)
+        x = model.embed[tokens].to(compute_dtype)
+    else:
+        x = model.embed[0][tokens[..., 0]].to(compute_dtype)
+        for c in range(1, model.cfg.num_codebooks):
+            x = x + model.embed[c][tokens[..., c]].to(compute_dtype)
+    if bias is not None:
+        x = x + bias.to(compute_dtype)
+    if prefix is not None:
+        x = torch.cat([prefix.to(compute_dtype), x], dim=1)
     return x
 
 
-def _shard_rows(model: Model, tokens, compute_dtype):
+def _shard_rows(model: Model, tokens, compute_dtype, prefix=None,
+                bias=None):
     """The embedding rows of a vocab-parallel shard: ids in its range
-    looked up, the others' rows zero, then summed over the model axis
-    (``embed_rows``: one rank holds each row, so the sum is the row); with
-    codebooks the C rows (B, S, C, d) cross together and are added in
-    codebook order afterwards, as :func:`embed_tokens` adds them."""
+    looked up, the others' rows zero, the C codebooks' rows (B, S, C, d)
+    side by side, then summed over the model axis (``embed_rows``: one
+    rank holds each row, so the sum is the row; on a split sequence a
+    reduce-scatter, which leaves the rank its piece), then added in
+    codebook order, as :func:`embed_tokens` adds them.  The first
+    vocabulary piece's rank also carries ``bias`` (one more row a
+    position) and ``prefix`` (before the tokens, in the first codebook's
+    row), the other ranks zeros there, so that they cross in the same sum
+    and come out exactly."""
     lo, hi = model.vocab_range
+    cb = model.cfg.num_codebooks
     local = tokens - lo
     inside = (local >= 0) & (local < hi - lo)
     local = torch.where(inside, local, 0)
-    if model.cfg.num_codebooks:
+    if cb:
         rows = torch.stack([model.embed[c][local[..., c]]
-                            for c in range(model.cfg.num_codebooks)], dim=-2)
+                            for c in range(cb)], dim=-2)
+        inside = inside[..., None]
     else:
-        rows = model.embed[local]
-    rows = torch.where(inside[..., None], rows.to(compute_dtype), 0)
+        rows = model.embed[local][..., None, :]
+        inside = inside[..., None, None]
+    rows = torch.where(inside, rows.to(compute_dtype), 0)
+    first = lo == 0
+    if bias is not None:
+        extra = bias.to(compute_dtype).expand(*rows.shape[:2],
+                                              rows.shape[-1])
+        if not first:
+            extra = torch.zeros_like(extra)
+        rows = torch.cat([rows, extra[..., None, :]], dim=-2)
+    if prefix is not None:
+        pre = rows.new_zeros((rows.shape[0], prefix.shape[1],
+                              *rows.shape[2:]))
+        if first:
+            pre[..., 0, :] = prefix.to(compute_dtype)
+        rows = torch.cat([pre, rows], dim=1)
     rows = dist_ctx.apply("embed_rows", rows)
-    if not model.cfg.num_codebooks:
-        return rows
     x = rows[..., 0, :]
-    for c in range(1, model.cfg.num_codebooks):
+    for c in range(1, rows.shape[-2]):
         x = x + rows[..., c, :]
     return x
 
@@ -195,24 +227,29 @@ def _head(model: Model, x, compute_dtype):
 
 def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
              compute_dtype=torch.bfloat16, caches=None, pos=None,
-             kernels: bool = True):
+             kernels: bool = True, last_only: bool = False):
     """Everything up to (and incl.) the final norm.  Returns (hidden (B,S,d),
     new_caches, aux).  A model with prefix tokens runs ``batch["prefix"]``
     (B, P, d), where the batch has one, before the token embeddings
     outside decode, positions over P + S, and drops the P positions after
-    the final norm (reference :92-115); decode ignores it."""
+    the final norm (reference :92-115); decode ignores it.
+    ``last_only``: the hidden state of the last position only, (B, 1, d).
+
+    On a sequence split over the model axis (``dist.tensor_parallel.
+    SeqSplit``) the embedding rows' sum leaves each rank its piece of the
+    positions, the blocks' norms and residual adds and the final norm run
+    on it, and the last position (``last_row``) or the whole sequence
+    (``head_in``) reaches every rank before the head."""
     cfg = model.cfg
     tokens = batch["tokens"]
-    x = embed_tokens(model, tokens, compute_dtype)
-    if "embed_bias" in batch:  # adversarial objective: universal perturbation
-        x = x + batch["embed_bias"].to(compute_dtype)
-    b = x.shape[0]
-    offset = 0
+    prefix = None
     if cfg.num_prefix_tokens and "prefix" in batch and mode != "decode":
-        prefix = batch["prefix"].to(compute_dtype)
-        x = torch.cat([prefix, x], dim=1)
-        offset = prefix.shape[1]
-    s = x.shape[1]
+        prefix = batch["prefix"]
+    # adversarial objective: a universal perturbation of the embeddings
+    x = embed_tokens(model, tokens, compute_dtype, prefix=prefix,
+                     bias=batch.get("embed_bias"))
+    offset = 0 if prefix is None else prefix.shape[1]
+    b, s = tokens.shape[0], offset + tokens.shape[1]
     if mode == "decode" and isinstance(pos, torch.Tensor):
         positions = pos.to(torch.int32)[:, None]     # each row its own
     elif mode == "decode":
@@ -225,6 +262,10 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
         model.layers, x, cfg, mode=mode, positions=positions, caches=caches,
         pos=pos, compute_dtype=compute_dtype, kernels=kernels)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
+    if last_only:
+        last = dist_ctx.slot("last_row")
+        return (x[:, -1:] if last is None else last(x)), new_caches, aux
+    x = dist_ctx.apply("head_in", x)
     if offset:
         x = x[:, offset:]
     return x, new_caches, aux
@@ -239,9 +280,7 @@ def forward(model: Model, batch: Dict[str, Any], *, mode: str = "train",
     (``transformer.kernel_route``)."""
     x, new_caches, aux = backbone(
         model, batch, mode=mode, compute_dtype=compute_dtype, caches=caches,
-        pos=pos, kernels=kernels)
-    if last_only:
-        x = x[:, -1:]
+        pos=pos, kernels=kernels, last_only=last_only)
     return lm_head(model, x, compute_dtype), new_caches, aux
 
 
@@ -310,8 +349,9 @@ def chunked_nll(model: Model, hidden, labels, *, compute_dtype=torch.bfloat16,
 def _vocab_parallel_nll(model, hidden, labels, merge, compute_dtype,
                         chunk: int, kernels: bool):
     """:func:`chunked_nll` on a training shard whose head is a piece [lo,
-    hi) of the vocabulary: the hidden states enter the head through
-    ``head_in`` (the model ranks sum their gradient), each token's
+    hi) of the vocabulary: the hidden states, which entered the head
+    through ``head_in`` (:func:`backbone`: the model ranks sum their
+    gradient), each token's
     partials over the piece (max logit, exp-sum, the label's logit where
     the label falls in the piece) are merged over the model ranks by
     ``merge`` and nll = M + log L − Z.  With ``kernels``, kernel B6's
@@ -321,7 +361,6 @@ def _vocab_parallel_nll(model, hidden, labels, merge, compute_dtype,
     the C NLLs."""
     b, s, d = hidden.shape
     lo, _ = model.vocab_range
-    h = dist_ctx.apply("head_in", hidden)
     route = tf.kernel_route("train", kernels)
     nlls = []
     for c in range(model.cfg.num_codebooks) or (None,):
@@ -329,11 +368,11 @@ def _vocab_parallel_nll(model, hidden, labels, merge, compute_dtype,
         lab = (labels if c is None else labels[..., c]) - lo
         if route:
             nll = ops.vocab_parallel_cross_entropy(
-                h.reshape(b * s, d).to(compute_dtype), w,
+                hidden.reshape(b * s, d).to(compute_dtype), w,
                 lab.reshape(b * s), merge).reshape(b, s)
         else:
             nll = torch.cat([ref.merge_nll(*merge(*ref.ce_partials_logits(
-                (h[:, i:i + chunk].to(compute_dtype) @ w.T).to(
+                (hidden[:, i:i + chunk].to(compute_dtype) @ w.T).to(
                     torch.float32), lab[:, i:i + chunk])))
                 for i in range(0, s, chunk)], dim=1)
         nlls.append(nll)

@@ -12,7 +12,7 @@ Two dispatches, as in the reference:
 * :func:`moe_mlp_sorted` — the dropless sort dispatch: the (token, choice)
   rows sorted by expert, one GEMM chain per expert, then unsorted.  Its
   group sizes are read on the host, so it refuses transforms and capture
-  (ROADMAP A13: its only caller in the reference is the dry-run tooling).
+  (ROADMAP A7: its only caller in the reference is the dry-run tooling).
 
 The expert products are plain ``torch.einsum`` / matmuls, as the
 reference's are plain einsums: MoE has no Pallas kernel.
@@ -27,7 +27,11 @@ identities without a context, carry the gradients: ``ffn_in`` on the
 experts' input (the router reads the input itself, whose gradient is
 whole on every rank), ``expert_gates`` on the gates the partials are
 combined with (their gradient is a partial too), and ``batch_sum`` on the
-aux loss's sums and counts, which the fsdp ranks' batch rows share.
+aux loss's sums and counts, which the fsdp ranks' batch rows share.  On a
+sequence split over model (``dist.tensor_parallel.SeqSplit``) the MoE's
+input is gathered once at its entry, for the router and the experts
+(``moe_in``, :func:`moe_inputs`): the capacity is a batch row's over its
+whole sequence, so the router must see every token of it.
 """
 from __future__ import annotations
 
@@ -146,17 +150,27 @@ def combine_weights(r: Routing, num_experts: int, cap: int):
     return combine.reshape(b, s, num_experts, cap)
 
 
+def moe_inputs(x):
+    """(the router's input, the experts' input) of the MoE's input ``x``:
+    on a sequence split over model (``moe_in``) both the whole sequence,
+    gathered once, so that the router sees every token of a batch row and
+    its capacity is the whole row's; else ``x`` and ``ffn_in`` of it."""
+    pair = dist_ctx.slot("moe_in")
+    return pair(x) if pair is not None else (x, dist_ctx.apply("ffn_in", x))
+
+
 def moe_mlp(params, x, cfg, compute_dtype=torch.bfloat16):
     """x (B, S, d) -> (out (B, S, d) in x's dtype, aux).  Per-batch-row
     capacity (``capacity(S, …)``) keeps the shapes batch-invariant.  A
     shard holding experts [lo, hi) of E (``MoEShard``) routes over all E
     and dispatches and combines its experts' slots only."""
     m = cfg.moe
-    b, s, d = x.shape
+    xr, x_in = moe_inputs(x)
+    b, s, d = xr.shape
     e = m.num_experts
     lo, hi = m.expert_range()
     cap = capacity(s, e, m.top_k, m.capacity_factor)
-    r = route(params, x, cfg)
+    r = route(params, xr, cfg)
     r = dataclasses.replace(r, gate_vals=dist_ctx.apply("expert_gates",
                                                         r.gate_vals))
     combine = combine_weights(r, e, cap)                    # (B, S, E, c)
@@ -167,8 +181,7 @@ def moe_mlp(params, x, cfg, compute_dtype=torch.bfloat16):
     def w(name):
         return params[name].to(compute_dtype)
 
-    xe = torch.einsum("bsec,bsd->becd", dispatch,
-                      dist_ctx.apply("ffn_in", x).to(compute_dtype))
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x_in.to(compute_dtype))
     h = F.silu(torch.einsum("becd,edf->becf", xe, w("gate")))
     h = h * torch.einsum("becd,edf->becf", xe, w("up"))
     ye = torch.einsum("becf,efd->becd", h, w("down"))
@@ -183,7 +196,7 @@ def _refuse_transforms(x) -> None:
             "moe_mlp_sorted reads its per-expert group sizes on the host, "
             "so it cannot run under torch.func transforms or CUDA graph "
             "capture; use MoEConfig.dispatch='dense' there (the sorted "
-            "dispatch serves the mesh tooling, ROADMAP A13)")
+            "dispatch serves the mesh tooling, ROADMAP A7)")
 
 
 def moe_mlp_sorted(params, x, cfg, compute_dtype=torch.bfloat16):
@@ -197,6 +210,7 @@ def moe_mlp_sorted(params, x, cfg, compute_dtype=torch.bfloat16):
         raise ValueError("moe_mlp_sorted runs every expert: a shard of "
                          "experts (expert parallelism) takes the dense "
                          "dispatch")
+    x = moe_inputs(x)[0]
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     xt = x.reshape(b * s, d)

@@ -28,6 +28,9 @@ and ``out``'s partial sums cross at ``mixer_out``
 """
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -76,6 +79,50 @@ def _conv1d(x, w, b, state=None):
     return y, (xp[:, -(k - 1):, :].clone() if k > 1 else None)
 
 
+class GeluTanh(torch.autograd.Function):
+    """``jax.nn.gelu`` (its default tanh form) as the reference computes
+    it, forward and gradient: x·v, v = 0.5·(1 + tanh(√(2/π)·(x +
+    0.044715·x³))), every op in ``x``'s dtype and its constants rounded
+    to it; the gradient is JAX's transpose of that chain's JVP, op for op
+    in the same dtype (the tanh's (g + g·t)·(1 − t), x³'s g·(3·x²), the
+    three terms of x's gradient added in JAX's order).  ``F.gelu
+    (approximate="tanh")`` and autograd through the chain round otherwise:
+    in bf16 an ulp apart in ~40 % of the values (ROADMAP §C, C1)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        c, k = _gelu_consts(x.dtype)
+        t = torch.tanh(c * (x + k * (x * x * x)))
+        return x * (0.5 * (1.0 + t)), t
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, t = ctx.saved_tensors
+        c, k = _gelu_consts(x.dtype)
+        v = 0.5 * (1.0 + t)
+        a = (0.5 * (x * g)) * (1.0 - t)
+        gs = c * (a + a * t)
+        return (g * v + gs) + (k * gs) * (3.0 * (x * x))
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_consts(dtype):
+    """√(2/π) and 0.044715 rounded to ``dtype``, as JAX rounds them."""
+    return (torch.tensor(math.sqrt(2.0 / math.pi), dtype=dtype).item(),
+            torch.tensor(0.044715, dtype=dtype).item())
+
+
+def gelu_tanh(x):
+    """:class:`GeluTanh`'s value."""
+    return GeluTanh.apply(x)[0]
+
+
 def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
                   conv_state=None, h_state=None, decode: bool = False,
                   kernels: bool = True):
@@ -86,7 +133,7 @@ def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
         return params[name].to(compute_dtype)
 
     xb = x @ w("in_x")
-    gate = F.gelu(x @ w("in_gate"), approximate="tanh")   # jax.nn.gelu
+    gate = gelu_tanh(x @ w("in_gate"))
     xb, new_conv = _conv1d(xb, w("conv_w"), w("conv_b"), conv_state)
 
     xf = xb.to(torch.float32)

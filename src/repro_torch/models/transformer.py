@@ -24,7 +24,15 @@ block adds the conjugate points where the whole residual enters a
 column-parallel piece, ``attn_in`` (q/k/v), ``mixer_in`` (the ``ssm``
 block's ``in_proj``, the ``rglru`` block's ``in_x`` / ``in_gate``) and
 ``ffn_in`` (gate/up, and the MoE experts' input: ``models.moe``): an
-identity whose gradient the model ranks sum.  A layer is read through its
+identity whose gradient the model ranks sum.  On a sequence split over
+the model axis (Megatron's sequence parallelism: a prefill, and training
+under ``MeshConfig.residual_mode="batch_seq"``; ``tensor_parallel.
+SeqSplit``) the residual between those points is the rank's piece of the
+positions: the ``*_in`` points gather the whole sequence and the
+row-parallel points reduce-scatter it back, so the norms and residual
+adds run on 1/M of it while the mixers, their kernels and the cache
+writes see the whole sequence, as they do with the residual whole.  A
+layer is read through its
 ``gathered()`` at its entry: the layer itself, or on that block its
 weights all-gathered over fsdp (``tensor_parallel.LayerPieces``).  The mixers' own points (the SSM's gated
 norm, the RG-LRU's gate input) are in ``models.ssm`` and ``models.rglru``.

@@ -24,7 +24,7 @@ reference's ``where(active, new, old)``.
 
 Etas, seeds and churn and adversary scalars are host values, baked into a
 trajectory's graph; they are fixed for a trajectory's life, so one capture
-serves all its chunks.  There is no mesh (ROADMAP A13).
+serves all its chunks.  There is no mesh (ROADMAP A6).
 """
 from __future__ import annotations
 

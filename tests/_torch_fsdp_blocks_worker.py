@@ -9,8 +9,8 @@ imports torch and the port only, never JAX.
 ``run`` runs both of these on every rank of the world, for each model
 (an arch, whether its experts split over model, and its mesh):
 
-* ``cases``: each case (a compute dtype, and whether the kernels' plain
-  versions run) runs the inputs' rounds of ``pallas_packed`` through
+* ``cases``: each case (a compute dtype, whether the kernels' plain
+  versions run, and the residual's layout over model) runs the inputs' rounds of ``pallas_packed`` through
   ``launch.steps.build_train_round`` from the saved whole initial state
   (each rank cut to its pieces by its ``ClientShard``), returning the
   rank's pieces of the final state and the collectives by phase;
@@ -37,7 +37,7 @@ def cfg_of(arch):
     return registry.reduced(registry.get_model_config(arch))
 
 
-def _round(inp, arch, ep, shape, dtype, kernels):
+def _round(inp, arch, ep, shape, dtype, kernels, residual="batch_seq"):
     """This rank's round step of a case on the mesh ``shape``, and its
     axis."""
     n, k, b, s = (inp[f] for f in ("n", "k", "b", "s"))
@@ -47,7 +47,7 @@ def _round(inp, arch, ep, shape, dtype, kernels):
     return steps.build_train_round(
         cfg_of(arch), InputShape("fsdp_blocks", s, b * n, "train"), mesh,
         MeshConfig(num_clients=n, fsdp=shape[1], model=shape[2],
-                   moe_expert_parallel=ep),
+                   moe_expert_parallel=ep, residual_mode=residual),
         algo=acfg, minimax=MinimaxConfig(num_groups=inp["g"], mu=inp["mu"]),
         device="cpu", compute_dtype=getattr(torch, dtype), kernels=kernels)
 
@@ -71,19 +71,19 @@ def _state(inp, step, axis):
 
 def run(rank, world, models, cases):
     """``models``: (key, arch, expert_parallel, mesh shape, inputs path)
-    each; ``cases``: (name, dtype, kernels) each."""
+    each; ``cases``: (name, dtype, kernels, residual_mode) each."""
     out = {}
     for key, arch, ep, shape, path in models:
         inp = torch.load(path, weights_only=False)
         out[key] = {"cases": {name: one_case(inp, arch, ep, shape, dtype,
-                                             kernels)
-                              for name, dtype, kernels in cases},
+                                             kernels, residual)
+                              for name, dtype, kernels, residual in cases},
                     "checks": checks(inp, arch, ep, shape)}
     return out
 
 
-def one_case(inp, arch, ep, shape, dtype, kernels):
-    step, axis = _round(inp, arch, ep, shape, dtype, kernels)
+def one_case(inp, arch, ep, shape, dtype, kernels, residual):
+    step, axis = _round(inp, arch, ep, shape, dtype, kernels, residual)
     state = _state(inp, step, axis)
     rows = slice(axis.lo, axis.hi)
     collectives.zero_collective_counts()

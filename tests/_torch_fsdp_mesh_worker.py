@@ -7,16 +7,21 @@ each spawned rank, so it imports torch and the port only, never JAX.
 ``run`` runs both of these on every rank of the world:
 
 * ``cases``: each case (a lowering, an algorithm, a compute dtype, int8
-  compression or none) runs ``ROUNDS`` rounds of
-  ``launch.steps.build_train_round`` from the saved whole initial state
-  (each rank cut to its pieces by its ``ClientShard``), returning the
-  rank's pieces of the final state and the collectives by phase;
+  compression or none, the residual's layout over model) runs ``ROUNDS``
+  rounds of ``launch.steps.build_train_round`` from the saved whole
+  initial state (each rank cut to its pieces by its ``ClientShard``),
+  returning the rank's pieces of the final state and the collectives by
+  phase;
 * ``checks``: the gradients of the pieces on one batch (the replicated
   leaves' to be held equal across the model ranks), the state's bytes a
   rank, int8's quantizer on the pieces of a client row against the
   whole row, and the DRO metrics row (``engine.diagnostics.
-  dro_metrics_fn`` on the pieces, its sums over the block).
+  dro_metrics_fn`` on the pieces, its sums over the block);
+* ``heads``: one round of ``dense`` on a ``(clients 1, fsdp 1, model
+  2)`` mesh over ranks 0 and 1 with ``MeshConfig.attn_heads_sharding``
+  off and on (the other ranks only make the groups with them).
 """
+import numpy as np
 import torch
 
 from repro_torch.configs import registry
@@ -25,7 +30,7 @@ from repro_torch.configs.base import (AlgorithmConfig, InputShape,
 from repro_torch.core import compression, packing
 from repro_torch.core import kgt_minimax as kgt
 from repro_torch.core import tree as tree_lib
-from repro_torch.dist import collectives
+from repro_torch.dist import collectives, compat
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 
@@ -37,16 +42,18 @@ def _cfg():
     return registry.reduced(registry.get_model_config(ARCH))
 
 
-def _round(inp, impl, algo, dtype, kernels, compress):
+def _round(inp, impl, algo, dtype, kernels, compress,
+           residual="batch_seq", mesh=None, shape=MESH, heads=False):
     """This rank's round step of a case, and its axes and shard."""
     n, k, b, s = (inp[f] for f in ("n", "k", "b", "s"))
-    mesh = mesh_lib.fake_mesh(*MESH)
+    mesh = mesh or mesh_lib.fake_mesh(*shape)
     acfg = AlgorithmConfig(**inp["algo"], algorithm=algo, num_clients=n,
                            local_steps=k, mixing_impl=impl,
                            gossip_compress=compress)
     step, axis = steps.build_train_round(
         _cfg(), InputShape("fsdp_mesh", s, b * n, "train"), mesh,
-        MeshConfig(num_clients=n, fsdp=MESH[1], model=MESH[2]),
+        MeshConfig(num_clients=n, fsdp=shape[1], model=shape[2],
+                   residual_mode=residual, attn_heads_sharding=heads),
         algo=acfg, minimax=MinimaxConfig(num_groups=inp["g"],
                                          mu=inp["mu"]),
         device="cpu", compute_dtype=getattr(torch, dtype), kernels=kernels)
@@ -77,14 +84,16 @@ def _state(inp, step, axis, compress):
 
 def run(rank, world, inputs_path, q_path, runs):
     return {"cases": cases(rank, world, inputs_path, runs),
-            "checks": checks(rank, world, inputs_path, q_path)}
+            "checks": checks(rank, world, inputs_path, q_path),
+            "heads": heads(rank, world, inputs_path)}
 
 
 def cases(rank, world, inputs_path, runs):
     inp = torch.load(inputs_path, weights_only=False)
     out = {}
-    for name, impl, algo, dtype, kernels, compress in runs:
-        step, axis, _ = _round(inp, impl, algo, dtype, kernels, compress)
+    for name, impl, algo, dtype, kernels, compress, residual in runs:
+        step, axis, _ = _round(inp, impl, algo, dtype, kernels, compress,
+                               residual)
         state = _state(inp, step, axis, compress)
         rows = slice(axis.lo, axis.hi)
         collectives.zero_collective_counts()
@@ -135,3 +144,30 @@ def checks(rank, world, inputs_path, q_path):
             "clients": [axis.lo, axis.hi],
             "block": (step.axes.fsdp.rank, step.axes.model.rank),
             "plan": {k: s is None for k, s in step.shard.plan.items()}}
+
+
+HEADS_MESH = (1, 1, 2)
+
+
+def heads(rank, world, inputs_path):
+    """Ranks 0 and 1: x, cx, y, cy of one round of ``dense`` on the
+    (1, 1, 2) mesh over them, with ``attn_heads_sharding`` off and on
+    (each a ``{field: tensors}``); None on the other ranks, which make the
+    meshes' groups with them."""
+    inp = torch.load(inputs_path, weights_only=False)
+    out = []
+    for flag in (False, True):
+        mesh = compat.mesh_of(np.arange(2).reshape(HEADS_MESH),
+                              (mesh_lib.CLIENTS, mesh_lib.FSDP,
+                               mesh_lib.MODEL), device_type="cpu")
+        if rank >= 2:   # the block's group, which train_axes makes
+            collectives.sub_axes([[0, 1]], streams=False)
+            continue
+        step, axis, _ = _round(inp, "dense", "kgt_minimax", "float32", True,
+                               None, mesh=mesh, shape=HEADS_MESH, heads=flag)
+        state = _state(inp, step, axis, None)
+        state = step(state, inp["batches"][0],
+                     torch.zeros((inp["k"], axis.n_local, 0)))
+        out.append({"x": state.x, "cx": state.cx, "y": state.y,
+                    "cy": state.cy})
+    return out or None

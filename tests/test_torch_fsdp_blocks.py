@@ -11,7 +11,10 @@ expert_d_ff split); and the reduced qwen2-0.5b (4 query heads, 2 KV
 heads) at ``(clients 1, fsdp 2, model 4)``, where each KV head is held
 by two of the four model ranks: the gradient of a shared range is summed
 over its holders only.  n = 2, K = 2, 4 × 32 tokens a client, 4 groups,
-two rounds of ``pallas_packed`` from a state whose clients differ.
+two rounds of ``pallas_packed`` from a state whose clients differ.  The
+residual's sequence is split over model (``MeshConfig.residual_mode=
+"batch_seq"``, the default) in the f32 and bf16 cases, and whole on every
+model rank (``"batch"``) in the ``f32_batch`` case.
 
 One world of 8 gloo ranks is spawned for the file and runs every case
 and check (``_torch_fsdp_blocks_worker.run``); the reference's rounds
@@ -82,8 +85,12 @@ MODELS = [("mamba2", "mamba2-1.3b", False, (2, 2, 2)),
           ("granite", "granite-moe-1b-a400m", False, (2, 2, 2)),
           ("qwen2_kv2", "qwen2-0.5b", False, (1, 2, 4))]
 KEYS = [m[0] for m in MODELS]
-# (name, compute dtype, kernels)
-CASES = [("f32", "float32", True), ("bf16", "bfloat16", False)]
+# (name, compute dtype, kernels, MeshConfig.residual_mode): the sequence
+# split over model ("batch_seq", the default) or the residual whole
+# ("batch")
+CASES = [("f32", "float32", True, "batch_seq"),
+         ("bf16", "bfloat16", False, "batch_seq"),
+         ("f32_batch", "float32", True, "batch")]
 NAMES = [c[0] for c in CASES]
 
 
@@ -213,9 +220,8 @@ def world(tmp_path_factory):
         # XLA compiles without the GIL: the reference's rounds side by side
         with concurrent.futures.ThreadPoolExecutor(3) as pool:
             list(pool.map(lambda a: _reference(*a),
-                          [(arch, dtype) for arch in sorted({m[1] for m in
-                                                             MODELS})
-                           for _, dtype, _ in CASES]))
+                          sorted({(m[1], c[1]) for m in MODELS
+                                  for c in CASES})))
     finally:
         thread.join()
     return out["ranks"]
@@ -315,7 +321,7 @@ def _case(name):
 @pytest.mark.parametrize("key", KEYS)
 def test_round_matches_the_reference(world, key, name):
     arch = _model(key)[1]
-    _, dtype, _ = _case(name)
+    _, dtype, _, _ = _case(name)
     want = _reference(arch, dtype)
     errs = _errs(world, key, name, _port_dicts(arch, want["x"]),
                  _port_dicts(arch, want["cx"]), want["y"], want["cy"])
@@ -327,7 +333,7 @@ def test_round_matches_the_reference(world, key, name):
 @pytest.mark.parametrize("key", KEYS)
 def test_round_matches_the_host_path(world, key, name):
     arch = _model(key)[1]
-    _, dtype, kernels = _case(name)
+    _, dtype, kernels, _ = _case(name)
     host = _host(arch, dtype, kernels)
     per_client = lambda d: [{k: v[c] for k, v in d.items()}  # noqa: E731
                             for c in range(N)]
@@ -495,20 +501,30 @@ def test_the_round_makes_the_block_collectives(world, key):
     loss sums over fsdp; an RG-LRU layer gathers its gate input over
     model and reduce-scatters its gradient (as many calls); the gossip
     runs over the clients axis only, and moves nothing where that axis is
-    one rank."""
+    one rank.  With the sequence split over model (``"batch_seq"``) the
+    residual's gathers and reduce-scatters (as many calls) take the place
+    of the row-parallel sums: fewer ``model_sum`` calls than with the
+    residual whole (``"batch"``), which makes no sequence collective."""
     gossip = {"all_gather"} if _model(key)[3][0] > 1 else set()
-    for rec in _cases(world, key, "f32"):
-        local = rec["counts"]["local_steps"]
-        assert local["fsdp_gather"]["calls"] == local["reduce_scatter"][
-            "calls"] > 0
-        assert local["model_sum"]["calls"] > 0
-        assert local["batch_sum"]["calls"] > 0
-        if key == "recurrentgemma":
-            assert local["model_gather"]["calls"] == local[
-                "model_scatter"]["calls"] > 0
-        else:
-            assert "model_gather" not in local
-        assert set(rec["counts"].get("gossip", {})) == gossip
+    for name in ("f32", "f32_batch"):
+        for rec in _cases(world, key, name):
+            local = rec["counts"]["local_steps"]
+            assert local["fsdp_gather"]["calls"] == local["reduce_scatter"][
+                "calls"] > 0
+            assert local["model_sum"]["calls"] > 0
+            assert local["batch_sum"]["calls"] > 0
+            if key == "recurrentgemma":
+                assert local["model_gather"]["calls"] == local[
+                    "model_scatter"]["calls"] > 0
+            else:
+                assert "model_gather" not in local
+            assert set(rec["counts"].get("gossip", {})) == gossip
+    for seq, whole in zip(_cases(world, key, "f32"),
+                          _cases(world, key, "f32_batch")):
+        seq, whole = (r["counts"]["local_steps"] for r in (seq, whole))
+        assert seq["seq_gather"]["calls"] == seq["seq_scatter"]["calls"] > 0
+        assert not {"seq_gather", "seq_scatter"} & set(whole)
+        assert seq["model_sum"]["calls"] < whole["model_sum"]["calls"]
 
 
 def test_expert_parallelism_splits_the_experts():

@@ -77,8 +77,12 @@ CASES = [
      False, None),
     ("pallas_packed_int8", "pallas_packed", "kgt_minimax", "float32", True,
      "int8"),
+    ("dense_batch", "dense", "kgt_minimax", "float32", True, None),
 ]
 NAMES = [c[0] for c in CASES]
+# MeshConfig.residual_mode of a case: the sequence split over model
+# ("batch_seq", the default), or the residual whole ("batch")
+RESIDUAL = {"dense_batch": "batch"}
 
 
 def _np(tree):
@@ -211,10 +215,12 @@ def world(tmp_path_factory):
     out = {}
 
     def run():
-        ranks = dist_launch.run_world(8, worker.run, path, q_path, CASES,
+        runs = [c + (RESIDUAL.get(c[0], "batch_seq"),) for c in CASES]
+        ranks = dist_launch.run_world(8, worker.run, path, q_path, runs,
                                       backend="gloo", store_dir=str(d))
         out["cases"] = [r["cases"] for r in ranks]
         out["checks"] = [r["checks"] for r in ranks]
+        out["heads"] = [r["heads"] for r in ranks]
 
     thread = threading.Thread(target=run)
     thread.start()
@@ -341,17 +347,50 @@ def test_y_is_the_same_on_every_rank_of_a_client(world):
 
 def test_the_round_makes_the_block_collectives(world):
     """The local steps gather the weights over fsdp and reduce-scatter
-    their gradients (as many calls), sum the row-parallel partials over
-    model and the loss sums over fsdp; the gossip runs over the clients
-    axis only."""
+    their gradients (as many calls), sum the loss sums over fsdp, and over
+    model: with the residual whole (``"batch"``) sum the row-parallel
+    partials (``model_sum``) and no sequence collective; with the
+    sequence split (``"batch_seq"``) gather the sequence where it enters
+    a column-parallel piece and reduce-scatter it where a row-parallel
+    output returns, and (their backwards) the other way round: as many
+    ``seq_gather`` as ``seq_scatter`` calls, which take the place of
+    those sums (fewer ``model_sum`` calls: the norms' gradients and the
+    vocabulary pieces' merge).  The gossip runs over the clients axis
+    only."""
     for rank in world["cases"]:
-        counts = rank["dense"]["counts"]
-        local = counts["local_steps"]
-        assert local["fsdp_gather"]["calls"] == local["reduce_scatter"][
-            "calls"] > 0
-        assert local["model_sum"]["calls"] > 0
-        assert local["batch_sum"]["calls"] > 0
-        assert set(counts["gossip"]) == {"all_gather"}
+        seq, whole = (rank[name]["counts"]["local_steps"]
+                      for name in ("dense", "dense_batch"))
+        for name in ("dense", "dense_batch"):
+            counts = rank[name]["counts"]
+            local = counts["local_steps"]
+            assert local["fsdp_gather"]["calls"] == local["reduce_scatter"][
+                "calls"] > 0
+            assert local["model_sum"]["calls"] > 0
+            assert local["batch_sum"]["calls"] > 0
+            assert set(counts["gossip"]) == {"all_gather"}
+        assert seq["seq_gather"]["calls"] == seq["seq_scatter"]["calls"] > 0
+        assert not {"seq_gather", "seq_scatter"} & set(whole)
+        assert seq["model_sum"]["calls"] < whole["model_sum"]["calls"]
+
+
+def test_attn_heads_sharding_runs_the_same_round(world):
+    """``MeshConfig.attn_heads_sharding`` off and on build and run the same
+    round on a ``(clients 1, fsdp 1, model 2)`` mesh, bit for bit: in the
+    port's layout q is split by heads after the sequence's gather either
+    way."""
+    got = world["heads"]
+    assert got[2:] == [None] * 6
+    for rank in got[:2]:
+        off, on = rank
+        for field in ("x", "cx"):
+            assert set(off[field]) == set(on[field])
+            assert all(torch.equal(off[field][k], on[field][k])
+                       for k in off[field])
+        assert torch.equal(off["y"], on["y"])
+        assert torch.equal(off["cy"], on["cy"])
+        # the round moved the state: the final norm, whole on each rank
+        assert not torch.equal(off["x"]["final_norm"],
+                               _port_state()["x"]["final_norm"])
 
 
 def test_replicated_leaves_get_the_same_gradient_on_every_model_rank(world):

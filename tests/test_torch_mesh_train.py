@@ -313,7 +313,7 @@ def test_checkpoints_cross_between_the_mesh_and_the_host_path(runs):
     (dict(participation=0.5), ValueError, "not supported"),
     (dict(num_byzantine=1), ValueError, "not supported"),
     (dict(mixing_impl="fused_round"), ValueError, "affine_coeffs"),
-    (dict(telemetry_out="telemetry.jsonl"), NotImplementedError, "A13"),
+    (dict(telemetry_out="telemetry.jsonl"), NotImplementedError, "A1"),
     (dict(), RuntimeError, "torch.distributed world")],
     ids=["topology_family", "participation", "byzantine", "fused_round",
          "telemetry", "no_process_group"])
@@ -327,8 +327,8 @@ def test_refusals(over, error, match):
 
 
 @pytest.mark.parametrize("cfg_over,step_kw,error,match", [
-    (dict(topology_cycle=("ring", "exp")), {}, NotImplementedError, "A13"),
-    ({}, dict(traced_etas=True), NotImplementedError, "A13"),
+    (dict(topology_cycle=("ring", "exp")), {}, NotImplementedError, "A1"),
+    ({}, dict(traced_etas=True), NotImplementedError, "A1"),
     ({}, dict(traced_w=True), ValueError, "not supported"),
     ({}, dict(participation=True), ValueError, "not supported"),
     ({}, dict(byzantine=True), ValueError, "not supported")],

@@ -20,6 +20,14 @@ from ``dist.tensor_parallel``, ``launch.serve.generate_on_mesh``,
   that vocabulary; a world of one rank bit for bit the port's single
   process (prefill, ``grow_caches``, decode steps); the counted
   collectives and bytes against the formula.
+* The prefill splits the residual's sequence over ``model`` (sequence
+  parallelism, ``tp.SeqSplit``): each model rank's residual between the
+  blocks holds its ⌈S/M⌉ positions (the last piece shorter, or empty),
+  a decode step's the whole one; prompts of 31 tokens (qwen2-0.5b,
+  mamba2-1.3b, recurrentgemma-9b) and of 1 token (qwen2-0.5b) on
+  ``(1, 2)`` against the reference; every arch also prefills on ``(1,
+  2)`` with the residual whole (``seq_parallel=False``), its collectives
+  held to the whole-residual formula beside the split one's.
 * ``shard_params`` then ``gather_params`` bit for bit, ``init_shard``
   the same pieces; ``plan(cfg, 2)`` of every arch; the refusals of what
   does not split, by name.
@@ -80,6 +88,10 @@ TP_MESHES = ((1, 2), (2, 1), (2, 2))
 ODD_VOCAB = 511
 # the smoke's serving leg, on the same world at (2, 2)
 SMOKE_ARCHS = ("qwen2-0.5b", "mamba2-1.3b", "recurrentgemma-9b")
+# prompts that two model ranks do not split evenly, or that leave one of
+# them no position, on (1, 2): (arch, prompt length)
+UNEVEN = (("qwen2-0.5b", 31), ("mamba2-1.3b", 31),
+          ("recurrentgemma-9b", 31), ("qwen2-0.5b", 1))
 
 
 def _close(got, want, tol=TOL):
@@ -107,12 +119,19 @@ def _grow_reference(caches, grown):
     return jax.tree.map(pad, caches, grown)
 
 
+def _uneven_name(arch, p):
+    return f"{arch}@{p}"
+
+
 @functools.lru_cache(maxsize=None)
-def _reference(arch, vocab=None):
+def _reference(arch, vocab=None, p=P):
     """(case, reference): the reduced ``arch``'s reference params, prompts
-    and forced tokens, with the reference's f32 prefill (last logits and
-    caches) and the logits of T teacher-forced decode steps.  ``vocab``:
-    the config's vocabulary replaced by that many tokens."""
+    of ``p`` tokens and forced tokens, with the reference's f32 prefill
+    (last logits and caches) and the logits of T teacher-forced decode
+    steps.  ``vocab``: the config's vocabulary replaced by that many
+    tokens.  A case at ``P`` runs on every mesh of TP_MESHES, and on
+    ``(1, 2)`` with the residual whole too; another prompt length or
+    vocabulary on fewer meshes."""
     cfg_j = jax_registry.reduced(jax_registry.get_model_config(arch))
     cfg_t = registry.reduced(registry.get_model_config(arch))
     if vocab is not None:
@@ -122,7 +141,7 @@ def _reference(arch, vocab=None):
     params = jax_model.init_params(cfg_j, jax.random.PRNGKey(3))
     rng = np.random.default_rng(5)
     cb = (cfg_j.num_codebooks,) if cfg_j.num_codebooks else ()
-    prompt = rng.integers(0, cfg_j.vocab_size, (B, P, *cb)).astype(np.int32)
+    prompt = rng.integers(0, cfg_j.vocab_size, (B, p, *cb)).astype(np.int32)
     forced = rng.integers(0, cfg_j.vocab_size, (B, T, *cb)).astype(np.int32)
     batch = {"tokens": jnp.asarray(prompt)}
     prefix = None
@@ -130,7 +149,7 @@ def _reference(arch, vocab=None):
         prefix = rng.standard_normal(
             (B, cfg_j.num_prefix_tokens, cfg_j.d_model)).astype(np.float32)
         batch["prefix"] = jnp.asarray(prefix)
-    caches = jax_model.init_cache(cfg_j, B, P, jnp.float32)
+    caches = jax_model.init_cache(cfg_j, B, p, jnp.float32)
     prefill = jax.jit(lambda p, b, c: jax_model.forward(
         p, b, cfg_j, mode="prefill", compute_dtype=jnp.float32, caches=c,
         last_only=True)[:2])
@@ -139,21 +158,24 @@ def _reference(arch, vocab=None):
     logits, caches = prefill(params, batch, caches)
     prefill_caches = jax.tree.map(np.asarray, caches)
     caches = _grow_reference(caches, jax_model.init_cache(
-        cfg_j, B, P + T, jnp.float32))
+        cfg_j, B, p + T, jnp.float32))
     outs = [np.asarray(logits)]
     for i in range(T):
         logits, caches = decode(params, caches,
                                 jnp.asarray(forced[:, i:i + 1]),
-                                jnp.int32(P + i))
+                                jnp.int32(p + i))
         outs.append(np.asarray(logits))
-    case = {"name": arch if vocab is None else "odd_vocab", "cfg": cfg_t,
+    name = ("odd_vocab" if vocab is not None
+            else arch if p == P else _uneven_name(arch, p))
+    case = {"name": name, "cfg": cfg_t,
             "params": jax.tree.map(np.asarray, params), "dtype": torch.float32,
             "prompt": torch.from_numpy(prompt).long(),
             "forced": torch.from_numpy(forced).long(),
             "prefix": None if prefix is None else torch.from_numpy(prefix),
             "gen_tokens": T,
             "meshes": (((1, 2), (2, 2)) if vocab is not None
-                       else TP_MESHES)}
+                       else TP_MESHES if p == P else ((1, 2),)),
+            "whole_meshes": ((1, 2),) if name == arch else ()}
     ref = {"logits": np.concatenate(outs, axis=1),
            "caches": interop.caches_from_reference(prefill_caches, cfg_t,
                                                    device="cpu")}
@@ -177,6 +199,8 @@ def world(tmp_path_factory):
     """Every case on one spawned world of 4; results by (case, mesh)."""
     refs = {arch: _reference(arch) for arch in TP_ARCHS}
     refs["odd_vocab"] = _reference("qwen2-0.5b", ODD_VOCAB)
+    for arch, p in UNEVEN:
+        refs[_uneven_name(arch, p)] = _reference(arch, p=p)
     one_case = _world_of_one_case()
     cases = [c for c, _ in refs.values()] + [one_case]
     d = tmp_path_factory.mktemp("serve_mesh")
@@ -187,7 +211,10 @@ def world(tmp_path_factory):
     by = {}
     for recs in ranks:
         for r in recs:
-            by.setdefault((r["case"], r["mesh"]), []).append(r)
+            key = (r["case"], r["mesh"])
+            if r.get("layout") == "whole":
+                key += ("whole",)
+            by.setdefault(key, []).append(r)
     return {"refs": refs, "cases": {c["name"]: c for c in cases},
             "one": _single_process(one_case), "by": by}
 
@@ -354,16 +381,29 @@ def test_a_world_of_one_is_the_single_process_path(world):
     assert set(r["collectives"]) == {"staged_bytes"}
 
 
-def _formula(cfg, nb, s, t, m, elt):
-    """The collectives of one rank at m model ranks: a prefill makes
-    2L + 1 f32 all-reduces — after each layer's mixer (out-projection)
-    and MLP, of nb·S'·d (S' with the prefix), or for an ``ssm`` layer
-    after its out-projection and of its gated norm's sums of squares,
-    nb·S'·d and nb·S'; and the embedding rows' of nb·S·[C]·d — and all-
-    gathers, in the compute dtype: the last logits' padded pieces
-    ((m − 1)·nb·[C]·⌈V/m⌉) and each ``rglru`` layer's gate input
-    ((m − 1)·nb·S'·W/m); a decode step the same with S = 1.  The check
-    phase all-gathers the fed tokens (int64)."""
+def _formula(cfg, nb, s, t, m, elt, *, layout="seq", model_rank=0):
+    """The collectives of one rank (``model_rank`` of m) at m model ranks.
+
+    A prefill on the split sequence (``layout="seq"``) of S' = S + the
+    prefix positions, pieces of k = ⌈S'/m⌉ (padded to k on the wire):
+    reduce-scatters in the compute dtype, each receiving (m − 1)·nb·k·d —
+    one a layer after its mixer (out-projection) and one after its MLP,
+    none after an ``ssm`` layer's missing MLP, and the embedding rows'
+    (C codebooks' rows side by side: (m − 1)·nb·k·C·d); an all-gather of
+    the pieces where the residual enters a column-parallel piece, one a
+    reduce-scatter after a layer (each mixer's and MLP's input, the MoE's
+    once); one broadcast of the last position's hidden row (nb·d,
+    received by every rank but the one whose piece holds it).  With the
+    residual whole (``layout="whole"``): 2L + 1 f32 all-reduces — after
+    each layer's
+    mixer and MLP, of nb·S'·d, or for an ``ssm`` layer after its
+    out-projection and of its gated norm's sums of squares, nb·S'·d and
+    nb·S'; and the embedding rows', of nb·S'·C·d.  Either way an ``ssm``
+    layer's gated norm all-reduces its f32 sums of squares (nb·S'), and
+    the compute dtype's all-gathers of the last logits' padded pieces
+    ((m − 1)·nb·C·⌈V/m⌉) and of each ``rglru`` layer's gate input
+    ((m − 1)·nb·S'·W/m).  A decode step is the whole layout's at S = 1.
+    The check phase all-gathers the fed tokens (int64)."""
     if m == 1:
         return {}
     c = cfg.num_codebooks or 1
@@ -372,35 +412,128 @@ def _formula(cfg, nb, s, t, m, elt):
     w = cfg.rglru.lru_width or d
     vmax = max(tp.pieces(cfg.vocab_size, m, "v"))
 
-    def step(seq, total):
+    def whole(total):
         rows = nb * total
         return {"all_reduce": {"calls": 2 * len(kinds) + 1,
                                "bytes": ((2 * len(kinds) - n_ssm) * rows * d
                                          + n_ssm * rows
-                                         + nb * seq * c * d) * 4},
+                                         + rows * c * d) * 4},
                 "all_gather": {"calls": 1 + n_lru,
                                "bytes": (m - 1) * (nb * c * vmax + n_lru
                                                    * rows * (w // m)) * elt}}
 
-    pre = step(s, s + cfg.num_prefix_tokens)
-    dec = {k: {f: v * t for f, v in x.items()} for k, x in step(1, 1).items()}
+    def split(total):
+        k = -(-total // m)
+        widths = collectives.fsdp_widths(total, m)
+        last = max(r for r, width in enumerate(widths) if width)
+        piece = (m - 1) * nb * k * d * elt
+        n = 2 * len(kinds) - n_ssm
+        out = {"seq_scatter": {"calls": n + 1,
+                               "bytes": n * piece + c * piece},
+               "seq_gather": {"calls": n, "bytes": n * piece},
+               "broadcast": {"calls": 1, "bytes": 0 if model_rank == last
+                             else nb * d * elt},
+               "all_gather": whole(total)["all_gather"]}
+        if n_ssm:
+            out["all_reduce"] = {"calls": n_ssm,
+                                 "bytes": n_ssm * nb * total * 4}
+        return out
+
+    total = s + cfg.num_prefix_tokens
+    pre = split(total) if layout == "seq" else whole(total)
+    dec = {k: {f: v * t for f, v in x.items()} for k, x in whole(1).items()}
     return {"prefill": pre, "decode": dec,
             "check": {"all_gather": {"calls": 1,
                                      "bytes": (m - 1) * nb * t * c * 8}}}
 
 
+def _counts(rec):
+    return {ph: {k: {f: v[f] for f in ("calls", "bytes")}
+                 for k, v in kinds.items()}
+            for ph, kinds in rec["collectives"].items()
+            if ph != "staged_bytes"}
+
+
 @pytest.mark.parametrize("mesh", TP_MESHES, ids=lambda m: "x".join(map(str, m)))
 @pytest.mark.parametrize("arch", TP_ARCHS)
 def test_the_counted_collectives_match_the_formula(world, arch, mesh):
+    """Each layout's counts against its formula: the split sequence's on
+    every mesh, and on ``(1, 2)`` the whole residual's beside it."""
     cfg = world["cases"][arch]["cfg"]
-    want = _formula(cfg, B // mesh[0], P, T, mesh[1], 4)
-    for r in world["by"][(arch, mesh)]:
-        got = {ph: {k: {f: v[f] for f in ("calls", "bytes")}
-                    for k, v in kinds.items()}
-               for ph, kinds in r["collectives"].items()
-               if ph != "staged_bytes"}
-        assert got == want
-        assert r["collectives"]["staged_bytes"] == 0     # CPU tensors
+    layouts = ("seq", "whole") if mesh == (1, 2) else ("seq",)
+    for layout in layouts:
+        key = (arch, mesh) + (("whole",) if layout == "whole" else ())
+        for r in world["by"][key]:
+            want = _formula(cfg, B // mesh[0], P, T, mesh[1], 4,
+                            layout=layout, model_rank=r["model_rank"])
+            assert _counts(r) == want, layout
+            assert r["collectives"]["staged_bytes"] == 0     # CPU tensors
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_the_whole_residual_prefill_matches_the_split_one(world, arch):
+    """On ``(1, 2)`` the prefill with the residual whole gives the split
+    one's logits and caches (within TOL of each other: the partials are
+    summed in f32 by another collective), and its ranks' decode steps the
+    same logits."""
+    cfg = world["cases"][arch]["cfg"]
+    split = _gathered(world["by"][(arch, (1, 2))], cfg)
+    whole = _gathered(world["by"][(arch, (1, 2), "whole")], cfg)
+    _close(whole[0], split[0])
+    for got, want in zip(whole[1], split[1]):
+        for k in got:
+            _close(got[k], want[k])
+
+
+def _residual_ok(rec, cfg, p, layout):
+    """Every block's residual in and out of the rank's prefill: its piece
+    of the split sequence, or the whole; a decode step's: one position."""
+    total = p + cfg.num_prefix_tokens
+    want = (collectives.fsdp_widths(total, rec["mesh"][1])[rec["model_rank"]]
+            if layout == "seq" else total)
+    lengths = rec["residual"]
+    n = len(cfg.blocks())
+    return (lengths["prefill"] == [(want, want)] * n
+            and lengths["decode"] == [(1, 1)] * (n * T))
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_a_ranks_residual_between_blocks_is_its_piece(world, arch):
+    """On ``(1, 2)`` and ``(2, 2)`` each model rank's residual between the
+    blocks of a prefill holds ⌈S'/M⌉ positions (S' with the prefix), the
+    whole S' with the residual whole; a decode step's one position on
+    every rank."""
+    cfg = world["cases"][arch]["cfg"]
+    for mesh in ((1, 2), (2, 2)):
+        for r in world["by"][(arch, mesh)]:
+            assert _residual_ok(r, cfg, P, "seq"), r["residual"]
+    for r in world["by"][(arch, (1, 2), "whole")]:
+        assert _residual_ok(r, cfg, P, "whole"), r["residual"]
+
+
+@pytest.mark.parametrize("arch,p", UNEVEN,
+                         ids=[f"{a}-{p}" for a, p in UNEVEN])
+def test_a_prompt_that_the_model_axis_does_not_divide(world, arch, p):
+    """A prompt of 31 tokens (rank 0 holds 16 positions, rank 1 15) and
+    one of 1 token (rank 0 holds it, rank 1 none) on ``(1, 2)``: the
+    prefill's last logits and caches and four decode steps against the
+    reference, each rank's residual its piece, and the collectives
+    against the formula."""
+    name = _uneven_name(arch, p)
+    recs = world["by"][(name, (1, 2))]
+    assert len(recs) == 2 and all(r["same_tokens"] for r in recs)
+    cfg = world["cases"][name]["cfg"]
+    ref = world["refs"][name][1]
+    logits, caches = _gathered(recs, cfg)
+    _close(logits[:, :1], ref["logits"][:, :1])        # the prefill
+    _close(logits[:, 1:], ref["logits"][:, 1:])        # four decode steps
+    for got, want in zip(caches, ref["caches"]):
+        for k in got:
+            _close(got[k], want[k])
+    for r in recs:
+        assert _residual_ok(r, cfg, p, "seq"), r["residual"]
+        assert _counts(r) == _formula(cfg, B, p, T, 2, 4,
+                                      model_rank=r["model_rank"])
 
 
 # ---------------------------------------------------------------------------
@@ -720,8 +853,11 @@ def test_serve_mesh_cli_under_torchrun():
     text = out.stdout
     assert "on (data 1, model 2) over gloo: prefill 16 tok x 2 seq" in text
     assert "ms/token" in text and "tok/s aggregate" in text
-    # 2L + 1 = 5 all-reduces a prefill, 5 a decode step
-    assert "all_reduce 5 calls" in text and "all_reduce 15 calls" in text
+    # the prefill's split sequence: 2L + 1 = 5 reduce-scatters and 2L = 4
+    # all-gathers; the whole residual's 2L + 1 = 5 all-reduces a decode
+    # step
+    assert "seq_scatter 5 calls" in text and "seq_gather 4 calls" in text
+    assert "all_reduce 15 calls" in text
     assert "peak memory a rank" in text
 
 

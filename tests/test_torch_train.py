@@ -387,7 +387,7 @@ def test_checkpoint_resume_is_bit_for_bit(tmp_path):
     # is refused as the reference refuses it (repro/launch/train.py:254)
     (dict(mesh="decentralized", topology_family="erdos_renyi"), ValueError,
      "not supported with --mesh decentralized"),
-    (dict(compile_cache="on"), NotImplementedError, "A13")],
+    (dict(compile_cache="on"), NotImplementedError, "A8")],
     ids=["mesh-decentralized", "compile_cache-on"])
 def test_unported_mesh_and_compile_cache_are_refused(over, error, match):
     with pytest.raises(error, match=match):
