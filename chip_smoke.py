@@ -148,7 +148,13 @@ Phases, each printing one JSON line:
    rank, no collective in the local steps, the gossip's collectives and
    bytes a round against the formula (a halo's rows by the rank's plan);
    a world of 1 over NCCL bit for bit the host path; rounds/s, tokens/s,
-   communication s a round and peak memory per rank.
+   communication s a round and peak memory per rank.  Then a
+   ``topology_cycle`` (ring, exp) of pallas_packed for twice its length
+   in rounds through ``--engine scan`` with ``--telemetry-out`` (B1 on a
+   rank's rows of each round's W), held to its host path, its stream's
+   rows and health gauges (summed over the clients axis) to the host
+   path's stream; and one round with traced stepsizes
+   (``point_etas``' bundle) bit for bit the round with them baked in.
 15b'. fsdp_mesh — a client's weights over the mesh's fsdp and model axes
    (``launch.steps.build_train_round`` on ``launch.mesh.train_mesh(2, 2,
    2)``, ``dist.tensor_parallel.ClientShard``): 8 gloo ranks on cuda:0
@@ -156,7 +162,16 @@ Phases, each printing one JSON line:
    FSDP_MESH_LAYERS (2) layers, FSDP_MESH_ROUNDS (2) rounds; mamba2-1.3b
    and granite-moe-1b-a400m (experts split over model) at full width,
    2 layers, and the reduced recurrentgemma-9b, one round each, then
-   granite again in bf16 replaying the host path's expert choices;
+   granite again in bf16 replaying the host path's expert choices; every
+   run under MeshConfig's default remat (each unit checkpointed: B5, B7
+   and B8 twice a layer and local step) but qwen2-0.5b once more without
+   it, held to the remat run bit for bit where the kernels are
+   deterministic; then, in a world of its own of 4 ranks on (2, 1, 2),
+   qwen2-0.5b at full width (2 layers, bf16) with its weights whole on
+   every rank (``param_mode="replicated"``: the whole-vocabulary B6, the
+   gossip on the whole client), held to its host path; then at one rank a
+   client qwen2-0.5b at full depth (24 layers), n = 2, one eager round
+   with remat off and one with it on, both peaks and seconds printed;
    n = 2, K = 4, 4 × 128 tokens a client, pallas_packed, each rank
    holding its (fsdp, model) quarter of its client's x and cx, the
    residual's sequence split over model (``residual_mode="batch_seq"``,
@@ -466,17 +481,49 @@ FSDP_MESH_ROUNDS = 2
 # their own choices on the first batch against the host path's counted
 # and printed; it runs last, so that the host path has recorded them by
 # the time the ranks reach it
+#
+# The eighth field of a run: more MeshConfig fields.  Every run trains
+# under MeshConfig's default remat=True (each unit checkpointed: B5, B7
+# and B8 launch twice a layer and local step, B8's backward once) but
+# qwen2-0.5b-no-remat, which starts from the first run's initial state
+# drawn on the mesh in the same way and runs one round, held to that
+# run's state after its first round bit for bit where the kernels are
+# deterministic, else at TOL_MESH_X / TOL_MESH_Y with the reason printed
+# (it has no host path of its own);
+# qwen2-0.5b-replicated keeps every weight whole on each rank of the
+# block (param_mode="replicated": the block data-parallel over the
+# client's rows and positions, the whole-vocabulary B6, B1 on the whole
+# client's row), at full width in bf16, held to its host path at
+# TOL_MESH_X / TOL_MESH_Y.  It runs last, on a world of its own of 4
+# ranks, (clients 2, fsdp 1, model 2) (a run's ninth field, "mesh"): each
+# rank holds a whole client through the gossip's buffers (~9 GB), and the
+# 8 ranks of (2, 2, 2) ran out of the card's 80 GB; model 2 keeps the
+# sequence split over model that "batch_seq" runs, and the ranks start
+# once the first world has ended and every host path has run
+FSDP_NO_REMAT = {"remat": False, "compare_to": 0}
+FSDP_REPLICATED_MESH = (2, 1, 2)
 FSDP_MESH_RUNS = (
     ("qwen2-0.5b", TRAIN_ARCH, FSDP_MESH_LAYERS, FSDP_MESH_ROUNDS,
-     "bfloat16", False, False),
+     "bfloat16", False, False, {}),
+    ("qwen2-0.5b-no-remat", TRAIN_ARCH, FSDP_MESH_LAYERS, 1, "bfloat16",
+     False, False, FSDP_NO_REMAT),
     ("mamba2-1.3b", "mamba2-1.3b", FSDP_MESH_LAYERS, 1, "bfloat16", False,
-     False),
+     False, {}),
     ("granite-moe-1b-a400m", "granite-moe-1b-a400m", FSDP_MESH_LAYERS, 1,
-     "float32", True, False),
+     "float32", True, False, {}),
     ("recurrentgemma-9b-reduced", "recurrentgemma-9b", None, 1, "float32",
-     False, False),
+     False, False, {}),
     ("granite-moe-1b-a400m-bf16", "granite-moe-1b-a400m", FSDP_MESH_LAYERS,
-     1, "bfloat16", True, True))
+     1, "bfloat16", True, True, {}),
+    ("qwen2-0.5b-replicated", TRAIN_ARCH, FSDP_MESH_LAYERS, FSDP_MESH_ROUNDS,
+     "bfloat16", False, False, {"param_mode": "replicated",
+                                "mesh": FSDP_REPLICATED_MESH}))
+# remat's memory where it matters: qwen2-0.5b at full depth, n = 2, one
+# eager round of the host path's DRO problem (what build_train_round runs
+# at one rank a client) with remat off, then on; both peaks and the
+# seconds a round printed, the two final states compared (bit for bit
+# where the kernels are deterministic, else at TOL_MESH_X / TOL_MESH_Y)
+REMAT_MEMORY_LAYERS, REMAT_MEMORY_N = 24, 2
 # B6's vocab-parallel form (phase kernels) at a rank's shape on that mesh:
 # a client's 4 × 128 tokens over fsdp 2, d_model, and the vocabulary over
 # model 2; the merged NLL of the two pieces against the whole vocabulary's
@@ -486,6 +533,18 @@ CE_PARTIALS_SHAPE = (TRAIN_B * TRAIN_S // 2, 896, 151936 // 2)
 TOL_CE_MERGED = 1e-6
 MESH_ROUNDS = 2
 MESH_LOWERING_ROUNDS = 1
+# a topology_cycle on the mesh (pallas_packed, B1 on a rank's rows of the
+# round's W), twice its length in rounds through the scan engine, with
+# --telemetry-out: held to the host path's rounds at TOL_MESH_X /
+# TOL_MESH_Y and its stream's rows and health gauges to the host path's
+# at TOL_MESH_X (mesh_telemetry_check)
+MESH_CYCLE = ("ring", "exp")
+MESH_CYCLE_ROUNDS = 2 * len(MESH_CYCLE)
+# chunks of two rounds on both sides, eager (the mesh's chunks are), so
+# that both streams carry two gauge sets; the host path's captured chunk
+# of this round ran out of the card's 80 GB in its capture (76 GB
+# allocated, a chunk of one round or of four; 26.6 GB eager)
+MESH_CYCLE_CHUNK = 2
 MESH_LOG_EVERY = 1
 # the mesh's other lowerings on --engine host: (name, mixing_impl,
 # gossip_compress)
@@ -529,7 +588,7 @@ SERVE_SCAN_PROMPT, SERVE_SCAN_GEN = 4096, 8
 # whose peaks fit the card; cut below them for the script's time limit:
 # PERF.md §4, §5)
 SSM_TRAIN_ARCH, SSM_TRAIN_N = "mamba2-1.3b", 2
-SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 8, 8, 4
+SSM_LAYERS_GRADS, SSM_LAYERS_EAGER, SSM_LAYERS_CAPTURED = 4, 4, 4
 # recurrentgemma-9b's state does not fit the card even at n = 1: its reduced
 # config trains here, and B8 is held at a full-width layer's (n·B, S, W)
 RG_TRAIN_ARCH = "recurrentgemma-9b"
@@ -4648,12 +4707,14 @@ def mesh_sigma_c(state, n) -> float:
     return worst
 
 
-def mesh_rank(rank, world, layers, runs):
+def mesh_rank(rank, world, layers, runs, traced=None):
     """One rank of the mesh phase: ``launch.train --mesh decentralized``
-    for each run of ``runs`` (engine, rounds, mixing_impl, the host path's
-    rows or fingerprints to hold it to), with the kernels' launches by
-    route, the collectives by phase, the host seconds and the peak memory
-    of each run."""
+    for each run of ``runs`` (engine, rounds, mixing_impl, a
+    ``topology_cycle``, a ``--telemetry-out`` path, the host path's rows
+    or fingerprints to hold it to), with the kernels' launches by route,
+    the collectives by phase, the host seconds and the peak memory of
+    each run; then, with ``traced`` (a mixing_impl), one round with traced
+    stepsizes against the static round (:func:`mesh_traced_etas`)."""
     import gc
 
     import torch
@@ -4674,9 +4735,11 @@ def mesh_rank(rank, world, layers, runs):
             t0 = time.perf_counter()
             res = train_lib.train(train_args(
                 device="cuda", mesh="decentralized", engine=run["engine"],
-                rounds=run["rounds"], chunk=run["rounds"],
+                rounds=run["rounds"], chunk=run.get("chunk", run["rounds"]),
                 log_every=MESH_LOG_EVERY, mixing_impl=run["impl"],
-                gossip_compress=run.get("compress")))
+                gossip_compress=run.get("compress"),
+                topology_cycle=run.get("cycle", ()),
+                telemetry_out=run.get("telemetry")))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             rec = {"name": run["name"], "rank": rank,
@@ -4700,6 +4763,46 @@ def mesh_rank(rank, world, layers, runs):
                                       == run["fingerprints"])
             out.append(rec)
             del state
+        if traced:
+            out.append(mesh_traced_etas(rank, traced))
+    return out
+
+
+def mesh_traced_etas(rank, impl) -> dict:
+    """One round of ``impl`` on the mesh from the train flags' initial
+    state and first batches, built with ``traced_etas`` (the stepsizes
+    fed as ``kgt.point_etas``' bundle) against the same round with them
+    baked in (the train CLI's), bit for bit on this rank's rows; the
+    kernels' launches of each."""
+    import torch
+
+    from repro_torch import engine as engine_lib
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.launch import train as train_lib
+
+    args = train_args(device="cuda", mesh="decentralized", engine="host",
+                      rounds=1, mixing_impl=impl)
+    trainer = train_lib.build(args)
+    traced, _ = train_lib.mesh_round(args, trainer.cfg, trainer.algo,
+                                     trainer.problem, "cuda",
+                                     traced_etas=True)
+    batches, noise, _ = engine_lib.split_sampled(trainer.sampler(0))
+    state = trainer.state
+    out = {"name": "traced_etas", "rank": rank, "impl": impl}
+    for name, fn in (("static", lambda: trainer.round_step(
+            state, batches, noise)), ("traced", lambda: traced(
+                state, batches, noise, kgt.point_etas(trainer.algo)))):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+        out[f"{name}_launches"] = launch_counts()
+    a, b = out.pop("static"), out.pop("traced")
+    out["bit_for_bit"] = all(torch.equal(x, y) for x, y in zip(
+        state_leaves(a), state_leaves(b)))
+    out["finite"] = all(bool(t.isfinite().all()) for t in state_leaves(b))
+    del a, b, state, trainer
     return out
 
 
@@ -4708,6 +4811,54 @@ def state_leaves(state):
 
     return [t for name in ("x", "y", "cx", "cy")
             for t in tree_lib.leaves(getattr(state, name))]
+
+
+def mesh_telemetry_check(host_path, mesh_path, store) -> dict:
+    """The mesh's ``--telemetry-out`` stream (rank 0's; the other rank
+    writes none) against the host path's of the same run: the meta record
+    and the ledger events equal, the metric rows and the health gauges
+    (Σc drift, consensus, summed over the clients axis) at TOL_MESH_X·(1
+    + max), the mesh's rows at R = 2 rounding otherwise in bf16 (the CPU
+    tests hold them at 1e-5 in the port's test geometry)."""
+    def read(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    def of(events, kind):
+        return [{k: v for k, v in e.items()
+                 if k not in ("v", "t", "wall_s", "build_s", "capture_s",
+                              "run_s")}
+                for e in events if e["type"] == kind]
+
+    host, mesh = read(host_path), read(mesh_path)
+    others = [p for p in os.listdir(store) if p.endswith(".jsonl")
+              and p not in (os.path.basename(host_path),
+                            os.path.basename(mesh_path))]
+    if others:
+        fail(f"mesh telemetry: other ranks wrote {others}")
+    if of(mesh, "meta") != of(host, "meta"):
+        fail("mesh telemetry: the meta record differs from the host path's")
+    if of(mesh, "ledger") != of(host, "ledger"):
+        fail("mesh telemetry: the ledger events differ from the host path's")
+    worst = {}
+    for kind, value_keys in (("metrics", None), ("gauge", ("value",))):
+        got, want = of(mesh, kind), of(host, kind)
+        if [(e.get("name"), e.get("round")) for e in got] != [
+                (e.get("name"), e.get("round")) for e in want] or not got:
+            fail(f"mesh telemetry: the {kind} events differ in number or "
+                 "order from the host path's")
+        for g, w in zip(got, want):
+            keys = value_keys or [k for k in w if k not in (
+                "type", "round", "eval_group_loss")]
+            for k in keys:
+                err = abs(g[k] - w[k]) / (1 + abs(w[k]))
+                worst[f"{kind}.{g.get('name', k)}"] = max(
+                    worst.get(f"{kind}.{g.get('name', k)}", 0.0), err)
+    if not max(worst.values()) <= TOL_MESH_X:
+        fail(f"mesh telemetry: rows or gauges differ by {worst}")
+    return {"events_host": len(host), "events_mesh": len(mesh),
+            "gauges": sorted({e["name"] for e in of(mesh, "gauge")}),
+            "rel_err": worst, "tolerance": TOL_MESH_X}
 
 
 def mesh_gossip_formula(cfg, n, world, impl, rank=0) -> dict:
@@ -4811,7 +4962,23 @@ def phase_mesh(dev, smi) -> dict:
             del res
             gc.collect()
             torch.cuda.empty_cache()
+        # the cycle, through the scan engine (its health gauges ride the
+        # engine's chunk boundaries) in eager chunks, as the mesh runs
+        # them, with --telemetry-out
+        tel_host = os.path.join(store, "cycle_host.jsonl")
+        res = train_lib.train(train_args(
+            device=dev, engine="scan", rounds=MESH_CYCLE_ROUNDS,
+            chunk=MESH_CYCLE_CHUNK, log_every=MESH_LOG_EVERY,
+            mixing_impl="pallas_packed", topology_cycle=MESH_CYCLE,
+            telemetry_out=tel_host), capture=False)
+        ref["cycle"] = {"history": strip_stamps(res["history"]),
+                        "fingerprints": state_fingerprints(res["state"])}
+        save_rows(res["state"], os.path.join(store, "cycle"))
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
         host_s = time.perf_counter() - t_phase
+        tel_mesh = os.path.join(store, "cycle_mesh.jsonl")
         runs = [dict(name="host", engine="host", rounds=MESH_ROUNDS,
                      impl="dense", ref="dense",
                      rows_dir=os.path.join(store, "dense")),
@@ -4828,11 +4995,18 @@ def phase_mesh(dev, smi) -> dict:
                                            "sparse_coord_median",
                                            "sparse_trimmed_mean"))
                  for name, impl, comp in MESH_LOWERINGS]
+        runs.append(dict(name="cycle", engine="scan",
+                         rounds=MESH_CYCLE_ROUNDS, chunk=MESH_CYCLE_CHUNK,
+                         impl="pallas_packed",
+                         cycle=MESH_CYCLE, ref="cycle",
+                         rows_dir=os.path.join(store, "cycle"),
+                         sigma_c=True, telemetry=tel_mesh))
         t0 = time.perf_counter()
         ranks = dist_launch.run_world(
-            MESH_WORLD, mesh_rank, MESH_LAYERS, runs, backend=backend,
-            store_dir=store, device="cuda")
+            MESH_WORLD, mesh_rank, MESH_LAYERS, runs, "pallas_packed",
+            backend=backend, store_dir=store, device="cuda")
         world_s = time.perf_counter() - t0
+        telemetry = mesh_telemetry_check(tel_host, tel_mesh, store)
         # a world of 1 over NCCL, in this process (the card is free again)
         t0 = time.perf_counter()
         gc.collect()
@@ -4953,6 +5127,23 @@ def phase_mesh(dev, smi) -> dict:
     if any(k != "staged_bytes" and k != "check" and v
            for k, v in one["collectives"].items()):
         fail(f"mesh: the world of 1 made collectives {one['collectives']}")
+    traced = [r[len(runs)] for r in ranks]
+    for rec in traced:
+        what = f"mesh traced_etas rank {rec['rank']}"
+        if not rec["finite"]:
+            fail(f"{what}: a state leaf is not finite")
+        if not rec["bit_for_bit"]:
+            fail(f"{what}: the round with traced stepsizes differs from "
+                 "the round with them baked in")
+        if rec["traced_launches"] != rec["static_launches"]:
+            fail(f"{what}: launches {rec['traced_launches']} against the "
+                 f"static round's {rec['static_launches']}")
+    out["traced_etas"] = traced
+    out["cycle_telemetry"] = telemetry
+    emit({"phase": "mesh", "case": "traced_etas, one round of "
+          "pallas_packed", "nvidia_smi": smi, "ranks": traced})
+    emit({"phase": "mesh", "case": "cycle --telemetry-out against the host "
+          "path's", "nvidia_smi": smi, **telemetry})
     out["world_of_1"] = {"backend": "nccl", "bit_for_bit": True,
                          "seconds": one["seconds"],
                          "peak_memory_gb": one["peak_memory_gb"]}
@@ -4999,6 +5190,32 @@ def fsdp_run_cfg(run):
     return dataclasses.replace(cfg, num_layers=run[2])
 
 
+def fsdp_opts(run) -> dict:
+    """A run's MeshConfig fields (``remat``, ``param_mode``), its
+    ``compare_to`` (the run it is held to in place of a host path) and its
+    ``mesh``, where it is not FSDP_MESH."""
+    return run[7]
+
+
+def fsdp_mesh_of(run) -> tuple:
+    """The (clients, fsdp, model) mesh of a run's world."""
+    return tuple(fsdp_opts(run).get("mesh", FSDP_MESH))
+
+
+def fsdp_mesh_kw(run) -> dict:
+    """The MeshConfig fields of a run."""
+    return {k: v for k, v in fsdp_opts(run).items()
+            if k in ("remat", "param_mode")}
+
+
+def fsdp_remat(run) -> bool:
+    return fsdp_opts(run).get("remat", True)
+
+
+def fsdp_replicated(run) -> bool:
+    return fsdp_opts(run).get("param_mode") == "replicated"
+
+
 def fsdp_run_tols(run) -> tuple:
     """(x and cx, y and cy) limits of a run against its host path."""
     return ((TOL_MESH_X, TOL_MESH_Y) if run[4] == "bfloat16"
@@ -5008,16 +5225,26 @@ def fsdp_run_tols(run) -> tuple:
 def fsdp_want_launches(run, cfg) -> dict:
     """A rank's launches of each model and gossip kernel in a run's
     rounds: B5 once an attention layer and local step, B7 once an ``ssm``
-    layer, B8 once an ``rglru`` layer (its backward kernel as often), B6's
+    layer, B8 once an ``rglru`` layer, each twice under remat (the
+    forward, then the recompute in the backward); B8's backward kernel
+    once a layer and local step (:func:`fsdp_backward_launches`); B6's
     partials once a local step, B1 once a round; the whole-vocabulary B6
-    no time."""
+    no time, but under ``param_mode="replicated"`` (the whole vocabulary
+    on every rank) once a local step in place of the partials."""
     kinds = cfg.blocks()
     steps_ = run[3] * TRAIN_K
-    return {"flash_attention": steps_ * sum(
+    units = steps_ * (2 if fsdp_remat(run) else 1)
+    head = "fused_cross_entropy" if fsdp_replicated(run) else "ce_partials"
+    return {"flash_attention": units * sum(
         k in ("attn", "sliding", "attn_local", "moe") for k in kinds),
-        "ssd_scan": steps_ * kinds.count("ssm"),
-        "rglru_scan": steps_ * kinds.count("rglru"),
-        "ce_partials": steps_, "fused_gossip": run[3]}
+        "ssd_scan": units * kinds.count("ssm"),
+        "rglru_scan": units * kinds.count("rglru"),
+        head: steps_, "fused_gossip": run[3]}
+
+
+def fsdp_backward_launches(run, cfg) -> int:
+    """B8's backward kernel: once an ``rglru`` layer and local step."""
+    return run[3] * TRAIN_K * cfg.blocks().count("rglru")
 
 
 def fsdp_route_of(run, cfg) -> dict:
@@ -5026,12 +5253,15 @@ def fsdp_route_of(run, cfg) -> dict:
     cores; B8 by its rule at a rank's (B/F, S, W/M); B1 unrolled."""
     from repro_torch.kernels import rglru_scan
 
+    _, f, m = fsdp_mesh_of(run)
     core = "tensor_core" if run[4] == "bfloat16" else "cuda_core"
-    out = {"flash_attention": core, "ce_partials": core}
+    out = {"flash_attention": core, "ce_partials": core,
+           "fused_cross_entropy": core}
     if "rglru" in cfg.blocks():
+        width = cfg.rglru.channels(cfg.d_model)
         out["rglru_scan"] = rglru_scan.route(
-            TRAIN_B // FSDP_MESH[1], TRAIN_S,
-            cfg.rglru.channels(cfg.d_model) // FSDP_MESH[2])
+            TRAIN_B // f, TRAIN_S,
+            width if fsdp_replicated(run) else width // m)
     return out
 
 
@@ -5084,14 +5314,26 @@ def count_flips(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def fsdp_save_pieces(state, cfg, ep, directory, prefix) -> None:
+def fsdp_save_pieces(state, cfg, ep, directory, prefix,
+                     whole=False) -> None:
     """Each block position's pieces of each client's x and cx and its
-    y and cy, on the host, as ``{prefix}_{client}_{fsdp}_{model}.pt``."""
+    y and cy, on the host, as ``{prefix}_{client}_{fsdp}_{model}.pt``;
+    ``whole`` (``param_mode="replicated"``, every position holds the
+    whole client): each client's once, as ``{prefix}_{client}_whole.pt``."""
     import torch
 
     from repro_torch.dist import collectives
     from repro_torch.dist import tensor_parallel as tp
 
+    if whole:
+        for i in range(FSDP_MESH[0]):
+            torch.save({name: (getattr(state, name)[i].cpu()
+                               if name in ("y", "cy") else
+                               {k: v[i].cpu() for k, v in getattr(
+                                   state, name).items()})
+                        for name in ("x", "cx", "y", "cy")},
+                       os.path.join(directory, f"{prefix}_{i}_whole.pt"))
+        return
     _, f, m = FSDP_MESH
     for fr in range(f):
         for mr in range(m):
@@ -5137,8 +5379,10 @@ def fsdp_host_path(index, run, cfg, dev, directory, init_batch,
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = kgt.init_state(problem, algo, gen, init_batch=init_batch)
+    whole = fsdp_replicated(run)
     if index:
-        fsdp_save_pieces(state, cfg, ep, directory, f"init_{index}")
+        fsdp_save_pieces(state, cfg, ep, directory, f"init_{index}",
+                         whole=whole)
         open(os.path.join(directory, f"init_done_{index}"), "w").close()
     if cfg.moe.num_experts:
         skel = model_lib.skeleton(cfg)
@@ -5163,7 +5407,8 @@ def fsdp_host_path(index, run, cfg, dev, directory, init_batch,
     if run[6]:
         torch.save([t.cpu() for t in seen],
                    os.path.join(directory, f"replay_{index}.pt"))
-    fsdp_save_pieces(state, cfg, ep, directory, f"host_{index}")
+    fsdp_save_pieces(state, cfg, ep, directory, f"host_{index}",
+                     whole=whole)
     open(os.path.join(directory, f"host_done_{index}"), "w").close()
     client_bytes = sum(t[0].numel() * t[0].element_size()
                        for t in state.x.values())
@@ -5184,20 +5429,41 @@ def wait_for(path, what, limit=600) -> None:
         time.sleep(0.05)
 
 
-def fsdp_mesh_rank(rank, world, directory, dev):
-    """One rank of the fsdp_mesh phase: each of FSDP_MESH_RUNS in order
-    (:func:`fsdp_mesh_run`)."""
+def fsdp_mesh_rank(rank, world, directory, dev, mesh):
+    """One rank of the fsdp_mesh phase's world on ``mesh``: each of
+    FSDP_MESH_RUNS on that mesh in order (:func:`fsdp_mesh_run`; None
+    in the place of another mesh's run)."""
     entered = time.time()
     t_enter = time.perf_counter()
-    runs = []
+    runs, kept = [], {}
+    # the runs another is held to, and after how many of their rounds
+    held = {fsdp_opts(r)["compare_to"]: r[3] for r in FSDP_MESH_RUNS
+            if "compare_to" in fsdp_opts(r)}
     for index, run in enumerate(FSDP_MESH_RUNS):
-        runs.append(fsdp_mesh_run(index, run, directory, dev, t_enter))
+        if fsdp_mesh_of(run) != tuple(mesh):
+            runs.append(None)
+            continue
+        runs.append(fsdp_mesh_run(index, run, directory, dev, t_enter,
+                                  kept=kept, keep=held.get(index)))
         t_enter = None
     return {"rank": rank, "device": rank_device(), "entered": entered,
             "runs": runs}
 
 
-def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
+def fsdp_remat_replay(recorded, units: int) -> list:
+    """The host path's expert choices (one a MoE layer and local step, in
+    call order) in the order a remat round calls the router: each local
+    step's forward through the ``units`` MoE units, then their recompute
+    in the backward, last unit first."""
+    out = []
+    for i in range(0, len(recorded), units):
+        block = list(recorded[i:i + units])
+        out += block + block[::-1]
+    return out
+
+
+def fsdp_mesh_run(index, run, directory, dev, t_enter=None, kept=None,
+                  keep=None):
     """Run ``index`` on this rank: its pieces of its client on the
     ``(clients, fsdp, model)`` mesh over ``launch.steps.
     build_train_round``, the run's rounds of pallas_packed from the
@@ -5209,7 +5475,15 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
     for a MoE run, its expert choices on the client's first batch against
     the host path's.  A run that replays the host path's expert choices
     (``run[6]``) waits for the host path's rounds, then runs its own under
-    ``routing_replay`` of its client's and fsdp rank's rows of them."""
+    ``routing_replay`` of its client's and fsdp rank's rows of them (in
+    a remat round's order, :func:`fsdp_remat_replay`).  A run with a
+    ``compare_to`` (``fsdp_opts``) draws its initial state on the mesh as
+    the first run does and is compared with that run's state after as
+    many rounds (``kept``), bit for
+    bit, in place of a host path (``keep``: the rounds after which the
+    run named keeps its state, a copy on the host).  Under
+    ``param_mode="replicated"`` the
+    rank loads and compares its whole clients."""
     import gc
 
     import torch
@@ -5227,7 +5501,7 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
     t_enter = t_enter or time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    c, f, m = FSDP_MESH
+    c, f, m = fsdp_mesh_of(run)
     cfg, ep, dtype = fsdp_run_cfg(run), run[5], getattr(torch, run[4])
     algo = fsdp_mesh_algo()
     saved = torch.load(os.path.join(directory, f"batches_{index}.pt"))
@@ -5237,13 +5511,21 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
     step, axis = steps.build_train_round(
         cfg, InputShape("fsdp_mesh", TRAIN_S, TRAIN_B * c, "train"),
         mesh, MeshConfig(num_clients=c, fsdp=f, model=m,
-                         moe_expert_parallel=ep),
+                         moe_expert_parallel=ep, **fsdp_mesh_kw(run)),
         algo=algo, minimax=MinimaxConfig(num_groups=TRAIN_G), device=dev,
         compute_dtype=dtype)
     shard, block = step.shard, (step.axes.fsdp.rank, step.axes.model.rank)
+    whole = fsdp_replicated(run)
+    compare_to = fsdp_opts(run).get("compare_to")
+
+    def saved_piece(prefix, i):
+        return torch.load(os.path.join(
+            directory, f"{prefix}_{i}_whole.pt" if whole else
+            f"{prefix}_{i}_{block[0]}_{block[1]}.pt"), weights_only=False)
+
     t0 = time.perf_counter()
     setup_s = t0 - t_enter
-    if index == 0:
+    if index == 0 or compare_to is not None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         state = kgt.init_state(step.problem, algo, gen,
@@ -5251,9 +5533,8 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
     else:
         wait_for(os.path.join(directory, f"init_done_{index}"),
                  f"run {index}'s initial state")
-        init = [torch.load(os.path.join(
-            directory, f"init_{index}_{i}_{block[0]}_{block[1]}.pt"),
-            weights_only=False) for i in range(axis.lo, axis.hi)]
+        init = [saved_piece(f"init_{index}", i)
+                for i in range(axis.lo, axis.hi)]
         state = kgt.KGTState(**{
             name: (torch.stack([p[name] for p in init]).to(dev)
                    if name in ("y", "cy") else
@@ -5282,20 +5563,34 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
         wait_for(os.path.join(directory, f"host_done_{index}"),
                  f"run {index}'s host path")
         b = TRAIN_B // f
-        replay = routing_replay([
+        recorded = [
             t[axis.lo:axis.hi, block[0] * b:(block[0] + 1) * b].to(dev)
             for t in torch.load(os.path.join(directory,
-                                             f"replay_{index}.pt"))])
+                                             f"replay_{index}.pt"))]
+        if fsdp_remat(run):
+            recorded = fsdp_remat_replay(recorded,
+                                         cfg.blocks().count("moe"))
+        replay = routing_replay(recorded)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
     collectives.zero_collective_counts()
     t0 = time.perf_counter()
+    err = dict.fromkeys(("x", "cx", "y", "cy"), 0.0)
+
+    def on_host():
+        return {name: (getattr(state, name).cpu() if name in ("y", "cy")
+                       else {k: v.cpu() for k, v in
+                             getattr(state, name).items()})
+                for name in err}
+
     with replay:
-        for batches in mine:
+        for r, batches in enumerate(mine):
             state = step(state, batches, torch.zeros(
                 (TRAIN_K, axis.n_local, 0), device=dev))
+            if keep == r + 1:
+                kept[index] = on_host()
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, routes = launch_counts(), route_counts()
@@ -5306,20 +5601,33 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
                       for t in tree_lib.leaves(
                           (state.x, state.cx, state.y, state.cy)))
     t0 = time.perf_counter()
-    # the host path runs in the parent while the ranks run
-    wait_for(os.path.join(directory, f"host_done_{index}"),
-             f"run {index}'s host path")
+    if compare_to is None:
+        # the host path runs in the parent while the ranks run
+        wait_for(os.path.join(directory, f"host_done_{index}"),
+                 f"run {index}'s host path")
     if cfg.moe.num_experts:
         want = torch.load(os.path.join(directory, f"routing_{index}.pt"),
                           weights_only=False)[axis.lo]
         b = TRAIN_B // f
         flips = count_flips(got, [w[block[0] * b:(block[0] + 1) * b]
                                   for w in want])
-    err = dict.fromkeys(("x", "cx", "y", "cy"), 0.0)
+    bit_for_bit = None
+    if compare_to is not None:
+        final, other = on_host(), kept[compare_to]
+        bit_for_bit = all(
+            torch.equal(final[name], other[name]) if name in ("y", "cy")
+            else all(torch.equal(final[name][k], other[name][k])
+                     for k in other[name]) for name in err)
     for i in range(axis.lo, axis.hi):
-        host = torch.load(os.path.join(
-            directory, f"host_{index}_{i}_{block[0]}_{block[1]}.pt"),
-            weights_only=False)
+        if compare_to is None:
+            host = saved_piece(f"host_{index}", i)
+        else:
+            j = i - axis.lo
+            host = {name: (kept[compare_to][name][j]
+                           if name in ("y", "cy") else
+                           {k: v[j] for k, v in
+                            kept[compare_to][name].items()})
+                    for name in err}
         for name in err:
             got_s = getattr(state, name)
             pairs = ([(got_s[i - axis.lo], host[name])]
@@ -5344,6 +5652,7 @@ def fsdp_mesh_run(index, run, directory, dev, t_enter=None):
             "launches": launches, "routes": routes,
             "backward_launches": backward, "collectives": counts,
             "rel_err": err, "finite": finite, "expert_flips": flips,
+            "bit_for_bit": bit_for_bit, "compare_to": compare_to,
             "shared_leaves": len(shared)}
 
 
@@ -5435,8 +5744,10 @@ def fsdp_kernel_times(gen, dev) -> dict:
     timed = set()
     with ops.uncounted():
         for run in FSDP_MESH_RUNS:
-            if run[1:3] + run[5:6] in timed:
-                continue    # the pieces of an earlier run, in another dtype
+            if run[1:3] + run[5:6] in timed or fsdp_replicated(run):
+                # the pieces of an earlier run, in another dtype; or whole
+                # clients, no rank's piece
+                continue
             timed.add(run[1:3] + run[5:6])
             cfg = fsdp_run_cfg(run)
             dx, dy = fsdp_packed_dims(cfg, run[5])
@@ -5467,15 +5778,134 @@ def fsdp_kernel_times(gen, dev) -> dict:
     return out
 
 
+def remat_memory(dev, smi) -> dict:
+    """Remat's memory where it matters, at one rank a client: qwen2-0.5b
+    at full width and REMAT_MEMORY_LAYERS layers, n = REMAT_MEMORY_N, K =
+    4, 4 × 128 tokens a client, bf16 compute, one eager round of
+    pallas_packed on the DRO problem with ``remat`` off, then on, from
+    copies of one initial state on the same batches (the round
+    ``build_train_round`` runs where the block is one rank).  Each
+    round's peak memory, above the memory it starts from (the initial
+    state, its copy and, for the second, the first's final state), and
+    seconds; one local step's vmapped gradient's peak above the memory
+    it starts from; the two final states compared, bit for bit
+    where the kernels are deterministic, else at TOL_MESH_X / TOL_MESH_Y
+    with the reason printed; B5's launches twice a layer and local step
+    under remat, once without."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core import kgt_minimax as kgt
+    from repro_torch.core import objectives
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.kernels import ops
+
+    t_case = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_model_config(TRAIN_ARCH),
+                              num_layers=REMAT_MEMORY_LAYERS)
+    n = REMAT_MEMORY_N
+    algo = dataclasses.replace(fsdp_mesh_algo(), num_clients=n)
+    init_batch, (batches,) = fsdp_mesh_batches(cfg, dev, 1)
+    init_batch = {k: v[:n] for k, v in init_batch.items()}
+    batches = {k: v[:, :n] for k, v in batches.items()}
+    noise = torch.zeros((TRAIN_K, n, 0), device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state0 = kgt.init_state(
+        objectives.dro_problem(cfg, num_groups=TRAIN_G,
+                               compute_dtype=torch.bfloat16),
+        algo, gen, init_batch=init_batch)
+    out, finals = {}, {}
+    for remat in (False, True):
+        problem = objectives.dro_problem(cfg, num_groups=TRAIN_G,
+                                         compute_dtype=torch.bfloat16,
+                                         remat=remat)
+        step = kgt.make_round_step(problem, algo, device=dev)
+        state = tree_lib.tree_map(
+            lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+            state0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated() / 1e9
+        # one local step's vmapped gradient: where the activations live
+        torch.cuda.reset_peak_memory_stats()
+        with ops.uncounted():
+            grads = kgt._vgrads(problem, state.x, state.y,
+                                {k: v[0] for k, v in batches.items()},
+                                noise[0])
+            torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() / 1e9 - start
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        state = step(state, batches, noise)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()["flash_attention"]
+        want = TRAIN_K * REMAT_MEMORY_LAYERS * (2 if remat else 1)
+        if launches != want:
+            fail(f"remat memory (remat={remat}): B5 launched {launches} "
+                 f"times, expected {want}")
+        if not all(bool(t.isfinite().all()) for t in tree_lib.leaves(
+                (state.x, state.cx, state.y, state.cy))):
+            fail(f"remat memory (remat={remat}): a state leaf is not "
+                 "finite")
+        key = "remat_on" if remat else "remat_off"
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[key] = {"peak_memory_gb": peak, "state_at_start_gb": start,
+                    "round_peak_above_state_gb": peak - start,
+                    "gradient_peak_above_state_gb": grad_peak,
+                    "seconds_a_round": seconds,
+                    "flash_attention_launches": launches}
+        finals[key] = (state.x, state.cx, state.y, state.cy)
+        del state, step, problem
+    del state0
+    on, off = finals["remat_on"], finals["remat_off"]
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        tree_lib.leaves(on), tree_lib.leaves(off)))
+    err = {name: tree_rel_err(a, b)
+           for name, a, b in zip(("x", "cx", "y", "cy"), on, off)}
+    del finals, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not bitwise and not (err["x"] <= TOL_MESH_X and err["cx"] <= TOL_MESH_X
+                            and err["y"] <= TOL_MESH_Y
+                            and err["cy"] <= TOL_MESH_Y):
+        fail(f"remat memory: remat on differs from remat off by {err}")
+    out.update(arch=TRAIN_ARCH, layers=REMAT_MEMORY_LAYERS, n=n,
+               bit_for_bit=bitwise, rel_err=err,
+               reason=None if bitwise else
+               "not bit for bit: a kernel or GEMM is not deterministic on "
+               "this card; held at TOL_MESH_X / TOL_MESH_Y",
+               peak_saved_gb=(out["remat_off"]["peak_memory_gb"]
+                              - out["remat_on"]["peak_memory_gb"]),
+               gradient_peak_saved_gb=(
+                   out["remat_off"]["gradient_peak_above_state_gb"]
+                   - out["remat_on"]["gradient_peak_above_state_gb"]),
+               seconds=time.perf_counter() - t_case)
+    emit({"phase": "fsdp_mesh", "case": "remat memory at one rank a "
+          "client", "nvidia_smi": smi, **out})
+    return out
+
+
 def phase_fsdp_mesh(dev, smi) -> dict:
     """A client's weights over the decentralized mesh's fsdp and model
     axes: a world of 8 gloo ranks on this card as (clients 2, fsdp 2,
     model 2) (``launch.mesh.train_mesh``, ``launch.steps.
-    build_train_round``), running FSDP_MESH_RUNS in order: qwen2-0.5b,
+    build_train_round``), running FSDP_MESH_RUNS in order: qwen2-0.5b
+    (under remat, the default; without it, held to that run),
     mamba2-1.3b and granite-moe-1b-a400m (its experts split over model)
     at full width cut to FSDP_MESH_LAYERS layers, the reduced
     recurrentgemma-9b, and granite in bf16 with the host path's expert
-    choices replayed; n = 2, K = 4, 4 × 128 tokens a client, 8 groups,
+    choices replayed; then qwen2-0.5b with its weights whole on every
+    rank (``param_mode="replicated"``) in a second world of 4 ranks on
+    FSDP_REPLICATED_MESH; n = 2, K = 4, 4 × 128 tokens a client, 8 groups,
     pallas_packed: each rank its (fsdp, model) pieces of its client's x
     and cx, ZeRO-3 gathers over fsdp, tensor parallelism over model, B6's
     vocab-parallel form on its vocabulary piece (the whole-vocabulary B6
@@ -5489,8 +5919,9 @@ def phase_fsdp_mesh(dev, smi) -> dict:
     the state's bytes against a client's, peak memory, the seconds and
     bytes a round of the fsdp gathers, the reduce-scatters, the model
     sums, the sequence's gathers and reduce-scatters (as many calls), the
-    RG-LRU gate input's gathers and the gossip, rounds/s, the
-    launches by route."""
+    RG-LRU gate input's gathers, the gradients' sums (``"replicated"``)
+    and the gossip, rounds/s and seconds a round, the launches by route.
+    Then remat's memory at one rank a client (:func:`remat_memory`)."""
     import gc
     import tempfile
 
@@ -5504,11 +5935,17 @@ def phase_fsdp_mesh(dev, smi) -> dict:
     emit({"phase": "fsdp_mesh", "case": "plan", "mesh": list(FSDP_MESH),
           "world": world, "backend": "gloo", "placement": "every rank on "
           "cuda:0", "impl": "pallas_packed",
-          "runs": [{"name": r[0], "arch": r[1],
+          "runs": [{"name": r[0], "arch": r[1], "mesh": list(fsdp_mesh_of(r)),
                     "layers": r[2] if r[2] is not None else "reduced",
                     "rounds": r[3], "compute_dtype": r[4],
                     "moe_expert_parallel": r[5],
                     "routing_replayed": r[6],
+                    "remat": fsdp_remat(r),
+                    "param_mode": fsdp_opts(r).get("param_mode", "fsdp2d"),
+                    "held_to": (f"run {fsdp_opts(r)['compare_to']}, bit for "
+                                "bit where the kernels are deterministic"
+                                if "compare_to" in fsdp_opts(r)
+                                else "its host path"),
                     "tolerance_x_cx": fsdp_run_tols(r)[0],
                     "tolerance_y_cy": fsdp_run_tols(r)[1]}
                    for r in FSDP_MESH_RUNS]})
@@ -5524,15 +5961,16 @@ def phase_fsdp_mesh(dev, smi) -> dict:
                                    for b in rounds_b]},
                        os.path.join(store, f"batches_{index}.pt"))
             drawn.append((init_batch, rounds_b))
-        # the world starts while the host paths run here, one a run in the
-        # ranks' order; the ranks wait for each one's pieces
+        # the world on FSDP_MESH starts while the host paths run here, one
+        # a run in the ranks' order; the ranks wait for each one's pieces.
+        # A world on another mesh starts after it, the host paths done
         got = {}
 
         def start_world():
             try:
                 got["ranks"] = dist_launch.run_world(
-                    world, fsdp_mesh_rank, store, dev, backend="gloo",
-                    store_dir=store, device=dev)
+                    world, fsdp_mesh_rank, store, dev, FSDP_MESH,
+                    backend="gloo", store_dir=store, device=dev)
             except BaseException as e:  # raised again below
                 got["error"] = e
 
@@ -5542,6 +5980,11 @@ def phase_fsdp_mesh(dev, smi) -> dict:
         host, host_s = [], []
         try:
             for index, (run, cfg) in enumerate(zip(FSDP_MESH_RUNS, cfgs)):
+                if "compare_to" in fsdp_opts(run):
+                    # held to another run of the mesh: no host path
+                    host.append(None)
+                    host_s.append(None)
+                    continue
                 t1 = time.perf_counter()
                 host.append(fsdp_host_path(index, run, cfg, dev, store,
                                            *drawn[index]))
@@ -5559,10 +6002,23 @@ def phase_fsdp_mesh(dev, smi) -> dict:
         if "error" in got:
             raise got["error"]
         ranks = got["ranks"]
+        ranks_of, worlds_s = {FSDP_MESH: ranks}, {str(FSDP_MESH): world_s}
+        for mesh in dict.fromkeys(fsdp_mesh_of(r) for r in FSDP_MESH_RUNS):
+            if mesh in ranks_of:
+                continue
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            ranks_of[mesh] = dist_launch.run_world(
+                math.prod(mesh), fsdp_mesh_rank, store, dev, mesh,
+                backend="gloo", store_dir=store, device=dev)
+            worlds_s[str(mesh)] = time.perf_counter() - t1
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         shapes = fsdp_kernel_times(gen, dev)
+    memory = remat_memory(dev, smi)
     kinds = {"fsdp_gathers": ("local_steps", "fsdp_gather"),
+             "grad_sums": ("local_steps", "grad_sum"),
              "reduce_scatters": ("local_steps", "reduce_scatter"),
              "model_sums": ("local_steps", "model_sum"),
              "seq_gathers": ("local_steps", "seq_gather"),
@@ -5572,15 +6028,16 @@ def phase_fsdp_mesh(dev, smi) -> dict:
              "model_maxes": ("local_steps", "all_reduce_max"),
              "batch_sums": ("local_steps", "batch_sum"),
              "gossip": ("gossip", "all_gather")}
-    routed = ("flash_attention", "ce_partials", "ssd_scan", "rglru_scan",
-              "fused_gossip")
+    routed = ("flash_attention", "ce_partials", "fused_cross_entropy",
+              "ssd_scan", "rglru_scan", "fused_gossip")
     runs_out = []
     for index, (run, cfg) in enumerate(zip(FSDP_MESH_RUNS, cfgs)):
         want = fsdp_want_launches(run, cfg)
         route_of = fsdp_route_of(run, cfg)
         tol_x, tol_y = fsdp_run_tols(run)
+        held = host[index] or host[fsdp_opts(run)["compare_to"]]
         lines = []
-        for rank in ranks:
+        for rank in ranks_of[fsdp_mesh_of(run)]:
             rec = rank["runs"][index]
             what = f"fsdp_mesh {run[0]} rank {rank['rank']}"
             if not rec["finite"]:
@@ -5592,12 +6049,24 @@ def phase_fsdp_mesh(dev, smi) -> dict:
             if rec["launches"] != {**dict.fromkeys(rec["launches"], 0),
                                    **want}:
                 fail(f"{what}: launches {rec['launches']}, expected {want}")
-            if rec["backward_launches"]["rglru_scan"] != want["rglru_scan"]:
+            bwd = fsdp_backward_launches(run, cfg)
+            if rec["backward_launches"]["rglru_scan"] != bwd:
                 fail(f"{what}: B8's backward launched "
                      f"{rec['backward_launches']['rglru_scan']} times, "
-                     f"expected {want['rglru_scan']}")
+                     f"expected {bwd}")
             check_routes({k: rec["routes"][k] for k in routed}, want, what,
                          route_of=route_of)
+            if rec["compare_to"] is not None:
+                # the kernels and GEMMs of both runs take the same inputs
+                # in the same order; a difference is a nondeterministic
+                # kernel, held at the bf16 limits above
+                emit({"phase": "fsdp_mesh", "case": f"{run[0]} rank "
+                      f"{rank['rank']} against run {rec['compare_to']}",
+                      "bit_for_bit": rec["bit_for_bit"], "rel_err": e,
+                      "reason": None if rec["bit_for_bit"] else
+                      "not bit for bit: a kernel or GEMM of the round is "
+                      "not deterministic on this card; held at TOL_MESH_X "
+                      "/ TOL_MESH_Y"})
             by_kind = {}
             for name, (ph, kind) in kinds.items():
                 v = rec["collectives"].get(ph, {}).get(kind)
@@ -5605,28 +6074,50 @@ def phase_fsdp_mesh(dev, smi) -> dict:
                     "calls_a_round": v["calls"] / run[3],
                     "bytes_a_round": v["bytes"] / run[3],
                     "seconds_a_round": v["seconds"] / run[3]}
-            needed = ["fsdp_gathers", "reduce_scatters", "model_sums",
-                      "seq_gathers", "seq_scatters", "gossip"]
+            if fsdp_replicated(run):
+                # whole weights: no gather; each gradient summed over the
+                # block; a mixer's input gathered (again in the recompute)
+                # and its gradient reduce-scattered once
+                needed = ["grad_sums", "batch_sums", "seq_gathers",
+                          "seq_scatters", "gossip"]
+                seq_ratio = 2 if fsdp_remat(run) else 1
+                for name in ("fsdp_gathers", "reduce_scatters"):
+                    if by_kind[name] is not None:
+                        fail(f"{what}: {name} under param_mode="
+                             "'replicated'")
+            else:
+                needed = ["fsdp_gathers", "reduce_scatters", "model_sums",
+                          "seq_gathers", "seq_scatters", "gossip"]
+                seq_ratio = 1
             if "rglru" in cfg.blocks():
                 needed += ["model_gathers", "model_scatters"]
             for name in needed:
                 if by_kind[name] is None:
                     fail(f"{what}: no {name} in the round")
             if (by_kind["seq_gathers"]["calls_a_round"]
-                    != by_kind["seq_scatters"]["calls_a_round"]):
-                fail(f"{what}: the sequence's gathers and reduce-scatters "
-                     "differ in number")
+                    != seq_ratio * by_kind["seq_scatters"]["calls_a_round"]):
+                fail(f"{what}: {by_kind['seq_gathers']['calls_a_round']} "
+                     "sequence gathers a round against "
+                     f"{by_kind['seq_scatters']['calls_a_round']} "
+                     f"reduce-scatters, not {seq_ratio}:1")
             line = {"run": run[0], "rank": rank["rank"],
                     "device": rank["device"], "clients": rec["clients"],
                     "block_fsdp_model": rec["block"],
                     "state_gb": rec["state_bytes"] / 1e9,
-                    "client_x_gb": host[index]["client_x_bytes"] / 1e9,
+                    "client_x_gb": held["client_x_bytes"] / 1e9,
                     "x_cx_share_of_a_client": (
                         (rec["state_bytes"] - 2 * 4 * TRAIN_G)
-                        / (2 * host[index]["client_x_bytes"])),
+                        / (2 * held["client_x_bytes"])),
+                    "remat": fsdp_remat(run),
+                    "param_mode": fsdp_opts(run).get("param_mode",
+                                                     "fsdp2d"),
+                    "bit_for_bit_with_run": (None if rec["compare_to"] is None
+                                             else [rec["compare_to"],
+                                                   rec["bit_for_bit"]]),
                     "peak_memory_gb": rec["peak_memory_gb"],
                     "setup_s": rec["setup_s"], "init_s": rec["init_s"],
                     "check_s": rec["check_s"], "seconds": rec["seconds"],
+                    "seconds_a_round": rec["seconds"] / run[3],
                     "rounds_per_s": rec["rounds_per_s"],
                     "collectives_a_round": by_kind,
                     "staged_bytes_a_round":
@@ -5645,17 +6136,27 @@ def phase_fsdp_mesh(dev, smi) -> dict:
             emit({"phase": "fsdp_mesh", "case": f"{run[0]} rank "
                   f"{rank['rank']}", "nvidia_smi": smi, **line})
             lines.append(line)
-        runs_out.append({"name": run[0], "ranks": lines,
+        runs_out.append({"name": run[0], "mesh": list(fsdp_mesh_of(run)),
+                         "ranks": lines,
                          "host_path_s": host_s[index],
-                         "host_round_s": host[index]["seconds"] / run[3],
+                         "host_round_s": (None if host[index] is None else
+                                          host[index]["seconds"] / run[3]),
+                         "remat": fsdp_remat(run),
+                         "param_mode": fsdp_opts(run).get("param_mode",
+                                                          "fsdp2d"),
+                         "peak_memory_gb_by_rank": [
+                             ln["peak_memory_gb"] for ln in lines],
+                         "seconds_a_round_by_rank": [
+                             ln["seconds_a_round"] for ln in lines],
                          "launches": lines[0]["launches"],
                          "launches_by_route": lines[0]["launches_by_route"],
                          "backward_launches": lines[0]["backward_launches"],
                          "expert_flips": [ln["expert_flips"]
                                           for ln in lines]})
-    out = {"runs": runs_out, "world_s": world_s,
+    out = {"runs": runs_out, "world_s": world_s, "worlds_s": worlds_s,
            "spawn_to_ranks_s": [r["entered"] - spawned for r in ranks],
-           "kernel_times": shapes, "phase_s": time.perf_counter() - t_phase,
+           "kernel_times": shapes, "remat_memory": memory,
+           "phase_s": time.perf_counter() - t_phase,
            "launches": dict(ranks[0]["runs"][0]["launches"]),
            "launches_by_route": {k: ranks[0]["runs"][0]["routes"][k]
                                  for k in routed}}
@@ -8285,16 +8786,23 @@ def main(argv=None) -> int:
                            "phase (qwen2-0.5b at "
                            f"{FSDP_MESH_LAYERS} layers on (clients 2, "
                            f"fsdp 2, model 2), {FSDP_MESH_ROUNDS} rounds "
-                           "of K = 4 under autograd: B6's partials once a "
-                           "local step, B5 once a layer and local step, B1 "
-                           "once a round; every rank launches as many); "
+                           "of K = 4 under autograd and remat: B6's "
+                           "partials once a local step, B5 twice a layer "
+                           "and local step (the forward and the "
+                           "recompute), B1 once a round; every rank "
+                           "launches as many); "
                            "launches_fsdp_mesh_by_run: rank 0 of each of "
-                           "the phase's runs (mamba2-1.3b and "
+                           "the phase's runs (qwen2-0.5b without remat, B5 "
+                           "once a layer and local step, and with its "
+                           "weights whole on (clients 2, fsdp 1, model 2), "
+                           "the whole-vocabulary B6 in place of the "
+                           "partials; mamba2-1.3b and "
                            "granite-moe-1b-a400m at full width, "
                            f"{FSDP_MESH_LAYERS} layers, and the reduced "
                            "recurrentgemma-9b, one round each: B7 and B8 "
-                           "once a layer of their kind and local step, B8's "
-                           "backward as often); fsdp_mesh_shapes: each "
+                           "twice a layer of their kind and local step "
+                           "under remat, B8's backward once); "
+                           "fsdp_mesh_shapes: each "
                            "kernel at a rank's shape in each run; "
                            "fused_gossip, fused_round: the main phase "
                            "(n = 8; fused_gossip one pair launch a round "

@@ -280,11 +280,13 @@ class MeshConfig:
     # model, dist.tensor_parallel.SeqSplit) or "batch" (fsdp only: the
     # residual whole on every model rank)
     residual_mode: str = "batch_seq"
-    # activation checkpointing of each unit in training (the reference's
-    # default is True); off here, since launch.steps.build_train_round
-    # refuses it by name: torch.utils.checkpoint does not run under
-    # torch.func.grad (ROADMAP A3)
-    remat: bool = False
+    # activation checkpointing of each unit of the block pattern in
+    # training, as the reference's default: a unit keeps only its input
+    # for the backward, which runs the unit again under torch.func.vjp
+    # (models.transformer.UnitRemat; torch.utils.checkpoint's saved-tensor
+    # hooks do not run under the torch.func.grad that takes the clients'
+    # gradients)
+    remat: bool = True
 
     @property
     def devices_needed(self) -> int:

@@ -264,14 +264,14 @@ def check_impl_options(problem: MinimaxProblem, cfg: AlgorithmConfig,
             "use traced_w with a per-round sampler instead")
 
 
-def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
-                       participation: bool = False, byzantine: bool = False,
-                       traced_etas: bool = False) -> None:
+def check_mesh_options(*, traced_w: bool = False,
+                       participation: bool = False,
+                       byzantine: bool = False) -> None:
     """The decentralized mesh runs every lowering, compressed gossip and
-    every gossip backend on a static W.  It refuses, as the reference's
-    mesh does, a per-round W, participation and the adversary; and, not
-    ported yet (ROADMAP A1), ``topology_cycle`` and per-trajectory
-    stepsizes."""
+    every gossip backend on a static W or a ``topology_cycle`` (with the
+    lowerings ``check_impl_options`` takes with one), with static or
+    traced stepsizes.  It refuses, as the reference's mesh does, a
+    per-round W, participation and the adversary."""
     off = [name for name, on in (
         ("traced_w", traced_w), ("participation", participation),
         ("byzantine", byzantine)) if on]
@@ -280,13 +280,6 @@ def check_mesh_options(cfg: AlgorithmConfig, *, traced_w: bool = False,
             f"{', '.join(off)} is not supported on the decentralized mesh "
             "yet (the sharded round bakes a static W); run on the host "
             "mesh")
-    off = [name for name, on in (
-        ("topology_cycle", bool(cfg.topology_cycle)),
-        ("traced_etas", traced_etas)) if on]
-    if off:
-        raise NotImplementedError(
-            f"{', '.join(off)} on the decentralized mesh: not ported yet "
-            "(ROADMAP A1)")
 
 
 def _mesh_mixer(cfg: AlgorithmConfig, impl: str, w: torch.Tensor,
@@ -409,10 +402,12 @@ def make_round_step(
 
     ``axis`` (a ``dist.collectives.ClientsAxis``): the step of one rank of
     the decentralized mesh over its n/R clients' rows (module docstring),
-    for every lowering, with or without compression, on a static W
-    (``check_mesh_options`` says what else it refuses).  ``sparse_packed``
-    and the robust rules build the rank's ``dist.collectives.HaloPlan``
-    once, here.  Its collectives count under the phases ``local_steps``
+    for every lowering, with or without compression, on a static W or a
+    ``topology_cycle`` (each W's rows of the rank stacked, picked by the
+    round's index as the host path picks its W), with ``cfg``'s stepsizes
+    or ``traced_etas`` (``check_mesh_options`` says what it refuses).
+    ``sparse_packed`` and the robust rules build the rank's
+    ``dist.collectives.HaloPlan`` once, here.  Its collectives count under the phases ``local_steps``
     (none, but a sharded client's gathers, reduce-scatters and sums, which
     the problem makes) and ``gossip``.  ``block``: the ranks that hold one
     client's weights between them (``launch.mesh.TrainAxes.block``), over
@@ -425,9 +420,8 @@ def make_round_step(
     _check_cfg(cfg)
     check_impl_options(problem, cfg, traced_w, byzantine)
     if axis is not None:
-        check_mesh_options(cfg, traced_w=traced_w,
-                           participation=participation, byzantine=byzantine,
-                           traced_etas=traced_etas)
+        check_mesh_options(traced_w=traced_w, participation=participation,
+                           byzantine=byzantine)
     impl = cfg.mixing_impl
     fused = impl == "fused_round"
     packed = impl == "pallas_packed"
@@ -458,11 +452,23 @@ def make_round_step(
 
     w_rows = plan = None
     if cfg.topology_cycle:
+        # every W of the cycle stacked on the device, one picked a round by
+        # its index (the host path's and, on the mesh, the rank's rows of
+        # each)
+        cycle = len(cfg.topology_cycle)
         ws = torch.stack([dense_tensor(topo_lib.mixing_matrix(
             t, cfg.num_clients)) for t in cfg.topology_cycle])
-        get_w = lambda round_idx: ws[round_idx % len(cfg.topology_cycle)]  # noqa: E731
+        get_w = lambda round_idx: ws[round_idx % cycle]  # noqa: E731
+        ws_rows = (None if axis is None else
+                   ws[:, axis.lo:axis.hi].contiguous())
+        get_rows = lambda round_idx: (  # noqa: E731
+            None if ws_rows is None else ws_rows[round_idx % cycle])
 
         def make_mix(round_idx):
+            if axis is not None:
+                rows_r = get_rows(round_idx)
+                return lambda tree: collectives.mix_dense(
+                    tree, rows_r, axis, gossip_dtype)
             w_r = get_w(round_idx)
             return lambda tree: mixing_lib.mix_dense(tree, w_r, gossip_dtype)
     else:
@@ -486,6 +492,7 @@ def make_round_step(
         if axis is not None and not sparse_w:
             # this rank's rows of W
             w_rows = w_arr[axis.lo:axis.hi].contiguous()
+        get_rows = lambda round_idx: w_rows  # noqa: E731
         if direct_w:
             make_mix = None
         elif axis is not None:
@@ -515,15 +522,15 @@ def make_round_step(
                                state.cy if track else None, yy)
         return xx, yy
 
-    def mix_buf(b, w_t):
-        """One gossip of a packed (n, D) buffer (the rank's rows on the
-        mesh)."""
+    def mix_buf(b, w_t, rows):
+        """One gossip of a packed (n, D) buffer (on the mesh the rank's
+        rows, by its ``rows`` of this round's W)."""
         if axis is None:
             return (sparse_lib.sparse_mix(w_t, b, gossip_dtype) if sparse
                     else mixing_lib.mix_dense(b, w_t, gossip_dtype))
         if sparse:
             return collectives.sparse_mix(b, plan, axis, gossip_dtype)
-        return collectives.mix_dense(b, w_rows, axis, gossip_dtype)
+        return collectives.mix_dense(b, rows, axis, gossip_dtype)
 
     def _done(new_state, state, mask):
         return (new_state if mask is None
@@ -601,8 +608,8 @@ def make_round_step(
                               else state.ef_y),
                      state, mask)
 
-    def _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy, corr_x,
-                      corr_y):
+    def _packed_round(state, dx, dy, w_t, rows, mask, eta_sx, eta_sy,
+                      corr_x, corr_y):
         """Each variable packed to one (n, D) buffer; the epilogue
         θ' = Wθ + η_s·WΔ, c' = c + s·(Δ − WΔ) of both is one kernel call:
         the dense gossip kernel (``pallas_packed``) or the neighbor-gather
@@ -624,8 +631,10 @@ def make_round_step(
         if not track:
             # no correction state: the epilogue is one gossip of the
             # stepped parameters, W(θ + η_s·Δ)
-            xb = mix_buf(packing.pack(state.x, spec_x) + eta_sx * dxb, w_t)
-            yb = mix_buf(packing.pack(state.y, spec_y) + eta_sy * dyb, w_t)
+            xb = mix_buf(packing.pack(state.x, spec_x) + eta_sx * dxb, w_t,
+                         rows)
+            yb = mix_buf(packing.pack(state.y, spec_y) + eta_sy * dyb, w_t,
+                         rows)
             return _done(KGTState(x=packing.unpack(xb, spec_x),
                                   y=packing.unpack(yb, spec_y),
                                   cx=state.cx, cy=state.cy,
@@ -647,7 +656,7 @@ def make_round_step(
             # the mesh: an all-gather a variable, B1 on the rank's rows of
             # W
             xb, cxb, yb, cyb = collectives.gossip_pair(
-                w_rows, xv, yv, axis, gossip_dtype, backend=backend)
+                rows, xv, yv, axis, gossip_dtype, backend=backend)
         elif sparse:
             xb, cxb, yb, cyb = kernel_ops.sparse_gossip_pair(
                 w_t.neighbor_idx, w_t.neighbor_w, w_t.self_w, xv, yv,
@@ -752,8 +761,8 @@ def make_round_step(
             return _robust_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
                                  corr_x, corr_y)
         if packed or sparse:
-            return _packed_round(state, dx, dy, w_t, mask, eta_sx, eta_sy,
-                                 corr_x, corr_y)
+            return _packed_round(state, dx, dy, w_t, get_rows(state.round),
+                                 mask, eta_sx, eta_sy, corr_x, corr_y)
         # Algorithm 1 gossips Δ (lines 7-8) and the parameters (lines
         # 10-11); the fused_* impls stack both into one mix per leaf.  The
         # mixers act leaf by leaf, so the epilogue runs one leaf at a time

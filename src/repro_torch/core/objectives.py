@@ -192,18 +192,19 @@ def _lm_init_x(cfg):
 
 
 def dro_group_losses(cfg, *, num_groups: int, compute_dtype=torch.bfloat16,
-                     kernels: bool = True, shard=None):
+                     kernels: bool = True, shard=None, remat: bool = False):
     """``losses(x, batch) -> ((G,) per-group losses, aux)`` of
     ``models.model.per_group_loss`` on a client's parameters ``x``: the
     whole dict through ``models.model.call``, or with ``shard`` (a
     ``dist.tensor_parallel.ClientShard``) this rank's pieces of it on the
     fsdp rank's rows of the batch, under the shard's slots, each group's
-    mean over the client's whole batch."""
+    mean over the client's whole batch.  ``remat``: each unit of the stack
+    under activation checkpointing (``models.transformer.UnitRemat``)."""
     from repro_torch.dist import context as dist_ctx
     from repro_torch.models import model as model_lib
 
     kw = dict(num_groups=num_groups, compute_dtype=compute_dtype,
-              kernels=kernels)
+              kernels=kernels, remat=remat)
     if shard is None:
         skel = model_lib.skeleton(cfg)
         return lambda x, batch: model_lib.call(
@@ -219,12 +220,14 @@ def dro_group_losses(cfg, *, num_groups: int, compute_dtype=torch.bfloat16,
 
 def dro_problem(cfg, *, num_groups: int = 8, mu: float = 1.0,
                 compute_dtype=torch.bfloat16, kernels: bool = True,
-                shard=None) -> MinimaxProblem:
+                shard=None, remat: bool = False) -> MinimaxProblem:
     """Reference :201.  ``value`` is Σ_g y_g ℓ_g + aux − μ/2‖y‖² with the
     per-group losses of ``models.model.per_group_loss`` computing in
     ``compute_dtype``; ``kernels`` as there (B5 and B6 on the card,
     differentiated through their autograd Functions; ``False`` runs the
-    plain versions, the check on the card).
+    plain versions, the check on the card); ``remat`` each unit of the
+    stack under activation checkpointing (the reference's ``remat``, its
+    default False here as there).
 
     ``shard``: a ``dist.tensor_parallel.ClientShard``, this rank's place
     on a client's ``(fsdp, model)`` block of the decentralized mesh.  x is
@@ -235,7 +238,7 @@ def dro_problem(cfg, *, num_groups: int = 8, mu: float = 1.0,
     the block (not summed over it) (:func:`dro_group_losses`)."""
     losses_of = dro_group_losses(cfg, num_groups=num_groups,
                                  compute_dtype=compute_dtype,
-                                 kernels=kernels, shard=shard)
+                                 kernels=kernels, shard=shard, remat=remat)
 
     def value(x, y, batch, noise):
         del noise  # the data batch is the only source of randomness
@@ -251,9 +254,11 @@ def dro_problem(cfg, *, num_groups: int = 8, mu: float = 1.0,
 
 
 def adversarial_problem(cfg, *, mu: float = 10.0, scale: float = 0.1,
-                        compute_dtype=torch.bfloat16) -> MinimaxProblem:
+                        compute_dtype=torch.bfloat16,
+                        remat: bool = False) -> MinimaxProblem:
     """Reference :225: the NLL of the full logits with ``scale·y`` added to
-    every token's embedding, + aux − μ/2‖y‖²."""
+    every token's embedding, + aux − μ/2‖y‖²; ``remat`` as
+    :func:`dro_problem`'s."""
     from repro_torch.models import model as model_lib
 
     skel = model_lib.skeleton(cfg)
@@ -264,7 +269,7 @@ def adversarial_problem(cfg, *, mu: float = 10.0, scale: float = 0.1,
         perturbed["embed_bias"] = scale * y
         logits, _, aux = model_lib.call(
             skel, x, model_lib.forward, perturbed, mode="train",
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, remat=remat)
         nll = model_lib.token_losses(logits, batch["labels"]).mean()
         return nll + aux - 0.5 * mu * torch.sum(y * y)
 

@@ -21,10 +21,15 @@ list / tuple; a leaf's path is its keys, a dotted string key (the port's
 parameter names, ``layers.3.moe.gate``) counting as its parts.
 
 These are specs.  The executed training layout of a client's weights is
-``dist.tensor_parallel.ClientShard``: over ``model`` the serving mesh's
-Megatron plan (heads, d_ff, the vocabulary; the dims GSPMD shards for
-``fsdp2d`` where the largest dim is one of those), over ``fsdp`` dim 0 of
-each model piece in ZeRO-3 pieces.
+``dist.tensor_parallel.ClientShard`` under ``param_mode="fsdp2d"``: over
+``model`` the serving mesh's Megatron plan (heads, d_ff, the vocabulary;
+the dims GSPMD shards for ``fsdp2d`` where the largest dim is one of
+those), over ``fsdp`` dim 0 of each model piece in ZeRO-3 pieces; and
+``dist.tensor_parallel.ReplicatedShard`` under ``"replicated"``: every
+weight whole on each rank of the block (these specs' ``Replicate()``
+over fsdp and model, the experts too), the batch rows over fsdp and,
+under ``residual_mode="batch_seq"``, the sequence over model, each
+weight's gradient summed over the ranks that hold the client's tokens.
 """
 from __future__ import annotations
 

@@ -110,6 +110,11 @@ read on the rank's piece of the sequence, pass a copy where they are
 read (:meth:`ClientShard.copy_shared`): summed over model, their
 gradient covers every position.
 
+Under ``MeshConfig.param_mode="replicated"`` (:class:`ReplicatedShard`)
+no weight is split: the block is data-parallel over the client's batch
+rows and, under ``"batch_seq"``, its positions, and each weight's
+gradient is summed over those ranks.
+
 A range that several model ranks hold (the SSM's B and C, a KV head that
 M/KV ranks share) goes through a copy where the forward reads it
 (:meth:`ClientShard.copy_shared`): each rank's gradient of it flows only
@@ -148,6 +153,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import types
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -563,6 +569,21 @@ class SeqSplit:
         """The sequence's last position, on every rank."""
         return collectives.last_position(x, self.axis, self.n)
 
+    def take(self, x):
+        """This rank's piece of a sequence (B, S, …) that every rank holds
+        whole, S recorded for the gathers (the residual of replicated
+        weights, :class:`ReplicatedShard`)."""
+        self.n = x.shape[1]
+        return self.own(x)
+
+    def own(self, x):
+        """This rank's piece of a whole sequence (B, S, …) that this rank
+        computed itself: a slice, whose gradient is zero elsewhere, so the
+        sum of the ranks' gradients counts each position once."""
+        widths = collectives.fsdp_widths(self.n, self.axis.size)
+        r = self.axis.rank
+        return x.narrow(1, sum(widths[:r]), widths[r])
+
 
 def seq_slots(split: SeqSplit) -> dict:
     """The ``dist.context`` slots of a sequence split: the gathers where
@@ -621,21 +642,34 @@ def model_parallel(axis: collectives.MeshAxis, cfg: ModelConfig, *,
 # training: one client's weights over its (fsdp, model) block
 # ---------------------------------------------------------------------------
 
+PARAM_MODES = ("fsdp2d", "replicated")
+
+
 def check_train(cfg: ModelConfig, fsdp: int, model: int, *,
-                param_mode: str = "fsdp2d", expert_parallel: bool = False
-                ) -> None:
+                param_mode: str = "fsdp2d", expert_parallel: bool = False,
+                seq: bool = False) -> None:
     """Refuses by name what training over a client's ``fsdp × model``
-    block does not run: ``param_mode="replicated"``; then what
-    :func:`check_config` refuses.  Every block kind trains, and
-    ``expert_parallel`` splits the MoE experts over model.  Nothing at
+    block does not run: an unknown ``param_mode``; under ``"replicated"``
+    with the sequence split over model (``seq``) a model with prefix
+    tokens (its head drops the prefix positions from the whole sequence);
+    then, in either mode, what :func:`check_config` refuses.  Every block
+    kind trains, and ``expert_parallel`` splits the MoE experts over
+    model under ``"fsdp2d"`` (``"replicated"`` keeps them whole, as the
+    reference's ``param_shardings`` skips their pin there).  Nothing at
     ``fsdp = model = 1``."""
     if fsdp * model == 1:
         return
     where = f"in training over fsdp × model = {fsdp} × {model}"
-    if param_mode != "fsdp2d":
-        raise NotImplementedError(
-            f"param_mode={param_mode!r} {where}: not ported yet (ROADMAP "
-            "A3)")
+    if param_mode not in PARAM_MODES:
+        raise ValueError(f"param_mode={param_mode!r} {where}: one of "
+                         f"{PARAM_MODES}")
+    if (param_mode == "replicated" and seq and model > 1
+            and cfg.num_prefix_tokens):
+        raise ValueError(
+            f"param_mode='replicated' with the sequence split over model "
+            f"{where}: {cfg.name} has {cfg.num_prefix_tokens} prefix "
+            "tokens, whose positions the head drops from the whole "
+            "sequence; use residual_mode='batch'")
     check_config(cfg, model, expert_parallel=expert_parallel)
 
 
@@ -648,6 +682,19 @@ def merge_partials(m, l, z, axis: collectives.MeshAxis):
     big = collectives.axis_max(m.detach(), axis)
     return (big, collectives.axis_sum(l * torch.exp(m - big), axis),
             collectives.axis_sum(z, axis))
+
+
+def fsdp_rows(batch: dict, fsdp: collectives.MeshAxis) -> dict:
+    """This fsdp rank's rows of one client's (B, …) batch."""
+    f, r = fsdp.size, fsdp.rank
+    out = {}
+    for k, v in batch.items():
+        b = v.shape[0]
+        if b % f:
+            raise ValueError(f"a client's batch of {b} rows does not "
+                             f"split over {f} fsdp ranks")
+        out[k] = v[r * (b // f):(r + 1) * (b // f)]
+    return out
 
 
 class _Span(NamedTuple):
@@ -847,15 +894,7 @@ class ClientShard:
 
     def batch(self, batch: dict) -> dict:
         """This fsdp rank's rows of one client's (B, …) batch."""
-        f, r = self.fsdp.size, self.fsdp.rank
-        out = {}
-        for k, v in batch.items():
-            b = v.shape[0]
-            if b % f:
-                raise ValueError(f"a client's batch of {b} rows does not "
-                                 f"split over {f} fsdp ranks")
-            out[k] = v[r * (b // f):(r + 1) * (b // f)]
-        return out
+        return fsdp_rows(batch, self.fsdp)
 
     def model_of(self, x: Dict[str, torch.Tensor]) -> ShardedModel:
         return ShardedModel(self, x)
@@ -935,6 +974,143 @@ class ClientShard:
         if fs.size > 1:
             out["batch_sum"] = lambda t: collectives.axis_sum(
                 t, fs, "batch_sum")
+        return out
+
+
+class ReplicatedShard:
+    """A client's weights whole on every rank of its ``(fsdp, model)``
+    block (``MeshConfig.param_mode="replicated"``, the reference's
+    ``param_shardings`` at ``repro/dist/sharding.py:103``): the block is
+    data-parallel over the client's tokens.  The state's leaves (x, cx)
+    and y are whole on every rank; the client's batch rows split over
+    fsdp (:meth:`batch`).  ``seq``: the residual's sequence split over
+    ``model`` too (``MeshConfig.residual_mode="batch_seq"``, the
+    reference's residual constraint at ``repro/dist/sharding.py:157-171``),
+    else the model ranks hold the same rows (``"batch"``).
+
+    Each weight enters the forward through ``collectives.axis_copy`` over
+    the ranks that hold the client's tokens (the block under ``seq``, else
+    fsdp; counted as ``grad_sum``): an identity whose backward sums the
+    ranks' gradients in f32, in rank order, rounded once, so every rank
+    gets the client's whole gradient.  The per-group loss sums and counts
+    and the MoE aux's sums and counts are summed over the same ranks
+    (``batch_sum``).  The vocabulary is whole, so the head runs the
+    whole-vocabulary B6.
+
+    Under ``seq`` (:class:`SeqSplit` of the model axis) the embedding rows
+    are taken to the rank's piece of the positions (``embed_out``, and
+    RoPE's positions: ``seq_pos``), the norms, the residual adds, the
+    mixers' in- and out-projections, the MLPs and the head run on it, and
+    the labels and groups are cut to it (:meth:`batch`).  What a mixer
+    needs over the whole sequence is gathered after its in-projection, in
+    one gather a mixer (``seq_in``: attention's q, k and v; the SSD's
+    conv and scan inputs; the RG-LRU's conv input; the gather's backward
+    reduce-scatters), so attention and its kernel, the convs, the RG-LRU
+    gates and the scans run on the whole sequence on every model rank,
+    and their output is cut back to the rank's piece before the gating
+    and the out-projection (``attn_out``, ``seq_out``).  Each MoE (whose
+    routing and capacity read a batch row's whole sequence) runs on the
+    whole sequence, gathered at its input (``moe_in``) and cut back at its
+    output (``moe_out``); the MoE aux reads the rank's piece of the
+    router's probabilities (``aux_rows``).  Each position's gradient comes
+    from the one rank that holds it.
+
+    The gossip is the clients axis' as under ``"fsdp2d"``: the rank at
+    the same block position in every client, here on the whole client
+    (F·M times ``fsdp2d``'s wire).  The same duck type as
+    :class:`ClientShard` for ``core.objectives.dro_problem(shard=)``,
+    ``engine.diagnostics.dro_metrics_fn`` and ``launch.steps``."""
+
+    def __init__(self, cfg: ModelConfig, fsdp: collectives.MeshAxis,
+                 model: collectives.MeshAxis,
+                 block: collectives.MeshAxis = collectives.MeshAxis(0, 1),
+                 *, seq: bool = False):
+        self.cfg, self.fsdp_axis, self.model, self.block = (cfg, fsdp,
+                                                            model, block)
+        self.seq = seq and model.size > 1
+        self.tokens = block if self.seq else fsdp
+        # ShardedModel reads the weights whole: no fsdp gather
+        self.fsdp = collectives.MeshAxis(0, 1)
+        self.skel = model_lib.skeleton(cfg)
+        self.rows = {name: p.shape[0]
+                     for name, p in self.skel.named_parameters()}
+        self.shared = {}
+
+    def copy_shared(self, name: str, w: torch.Tensor) -> torch.Tensor:
+        """``w`` through the copy whose backward sums its gradient over
+        the token ranks."""
+        return collectives.axis_copy(w, self.tokens, "grad_sum")
+
+    def take(self, full: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        """A whole client's parameter dict, copied (every rank holds it)."""
+        return {name: t.clone() for name, t in full.items()}
+
+    def init(self, generator, *, device, dtype=torch.float32
+             ) -> Dict[str, torch.Tensor]:
+        """``models.model.init_params(cfg, generator=...)``'s dict."""
+        return model_lib.param_dict(model_lib.init_params(
+            self.cfg, generator=generator, device=device, dtype=dtype))
+
+    def batch(self, batch: dict) -> dict:
+        """This fsdp rank's rows of one client's (B, …) batch; under
+        :attr:`seq` its labels and groups cut to the rank's piece of the
+        positions (the tokens stay whole: the embedding's rows are cut
+        after the lookup)."""
+        rows = fsdp_rows(batch, self.fsdp_axis)
+        if not self.seq:
+            return rows
+        split = SeqSplit(self.model)
+        split.n = rows["tokens"].shape[1]
+        return {k: (split.own(v) if k in ("labels", "groups") else v)
+                for k, v in rows.items()}
+
+    def model_of(self, x: Dict[str, torch.Tensor]) -> "ShardedModel":
+        return ShardedModel(self, x)
+
+    def owned(self) -> Dict[str, bool]:
+        """Every leaf whole on this rank: all counted here."""
+        return {name: True for name in self.rows}
+
+    def block_sum(self) -> collectives.BlockSum:
+        """The rank's own sum: it holds the whole client."""
+        return collectives.BlockSum(collectives.MeshAxis(0, 1),
+                                    self.owned())
+
+    def slots(self) -> dict:
+        """The ``dist.context`` slots of one forward: the loss's and the
+        MoE aux's sums and counts over the token ranks (``batch_sum``);
+        under :attr:`seq` the sequence's piece taken after the embedding
+        (``embed_out``, ``seq_pos``), each mixer's projected inputs
+        gathered (``seq_in``) and its output cut back before its
+        out-projection (``attn_out``, ``seq_out``), each MoE's input
+        gathered and its output cut back, and the MoE aux on the rank's
+        positions (``aux_rows``)."""
+        out = {}
+        if self.tokens.size > 1:
+            out["batch_sum"] = lambda t: collectives.axis_sum(
+                t, self.tokens, "batch_sum")
+        if self.seq:
+            split = SeqSplit(self.model)
+
+            def both(t):
+                whole = split.gather(t)
+                return whole, whole
+
+            def seq_in(ts):
+                """(B, s, …) pieces of one dtype joined in one gather."""
+                widths = [math.prod(t.shape[2:]) for t in ts]
+                whole = split.gather(torch.cat(
+                    [t.reshape(*t.shape[:2], w) for t, w in zip(ts, widths)],
+                    dim=-1))
+                return tuple(
+                    p.reshape(*whole.shape[:2], *t.shape[2:])
+                    for p, t in zip(torch.split(whole, widths, dim=-1), ts))
+
+            out.update(embed_out=split.take, seq_pos=split.own,
+                       seq_in=seq_in, attn_out=split.own,
+                       seq_out=split.own, moe_in=both, moe_out=split.own,
+                       aux_rows=split.own)
         return out
 
 

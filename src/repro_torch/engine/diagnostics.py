@@ -74,7 +74,10 @@ def dro_metrics_fn(problem: MinimaxProblem, model_cfg, *, num_groups: int,
     client's weights (``shard``, a ``dist.tensor_parallel.ClientShard``),
     x̄ is the pieces' mean, the losses run on them as the problem's do,
     and x's and cx's sums of squares are taken over the block
-    (``ClientShard.block_sum``).
+    (``ClientShard.block_sum``); where x is whole on every rank of the
+    block (a ``tensor_parallel.ReplicatedShard``), the losses run on the
+    rank's rows (and positions) with their sums over the block, and the
+    sums of squares are the rank's own (``ReplicatedShard.block_sum``).
     """
     from repro_torch.core import objectives
 

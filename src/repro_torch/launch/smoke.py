@@ -12,7 +12,10 @@ For each reduced architecture:
   ranks as ``(clients=2, fsdp=2, model=2)``: one round through
   ``launch.steps.build_train_round`` on ``dense``, ``pallas_packed`` and
   ``sparse_packed``, each client's weights over its ``(fsdp, model)``
-  block, the reference's train shape (4 rows of 64 tokens), printing the
+  block, each unit of the stack under activation checkpointing
+  (``MeshConfig``'s default ``remat=True``, as the reference's smoke
+  builds it), the reference's train shape (4 rows of 64 tokens),
+  printing the
   reference's ``train round``, ``packed-gossip train round`` and
   ``sparse-gossip train round``, each ``ran on (clients 2, fsdp 2, model
   2)``, for every arch (a MoE arch with ``moe_expert_parallel``, as the

@@ -41,7 +41,14 @@ column- and row-parallel pieces (Megatron's sequence parallelism,
 piece, reduce-scattered where a row-parallel output returns); under
 ``"batch"`` it is whole on every model rank.  The state's x and cx hold
 the rank's pieces; every lowering gossips them over the clients axis, the
-ranks that hold the same piece of every client.
+ranks that hold the same piece of every client.  Under
+``param_mode="replicated"`` (``dist.tensor_parallel.ReplicatedShard``)
+the weights are whole on every rank of the block, which is data-parallel
+over the client's batch rows (and under ``"batch_seq"`` its positions):
+each weight's gradient is summed over those ranks, and each rank gossips
+the whole client.  ``MeshConfig.remat`` (the default, as the
+reference's) runs each unit of the block pattern under activation
+checkpointing (``models.transformer.UnitRemat``).
 
 ``build_prefill_step`` and ``build_decode_step`` (reference :253, :310)
 build one rank's serving steps on a ``launch.mesh.ServeMesh``: the batch
@@ -84,9 +91,12 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
                       algo: Optional[AlgorithmConfig] = None,
                       minimax: Optional[MinimaxConfig] = None,
                       lr_scale=None, *, problem=None, device="cuda",
-                      compute_dtype=torch.bfloat16, kernels: bool = True):
+                      compute_dtype=torch.bfloat16, kernels: bool = True,
+                      traced_etas: bool = False):
     """``(round_step, axis)``: ``round_step(state, batches, noise) ->
-    state`` on this rank's (n/R, …) state and (K, n/R, B, S…) batches,
+    state`` (with ``traced_etas``, ``round_step(state, batches, noise,
+    etas)``: ``core.kgt_minimax.point_etas``' bundle) on this rank's
+    (n/R, …) state and (K, n/R, B, S…) batches,
     under the mesh's residual constraint (reference :38-137), ``axis`` the
     rank's clients.  ``problem`` defaults to the DRO problem of
     ``minimax`` in ``compute_dtype`` (``kernels`` as ``dro_problem``'s:
@@ -99,15 +109,15 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
     the metrics are built from.  ``mcfg.residual_mode`` splits the
     residual's sequence over ``model`` (``"batch_seq"``) or keeps it whole
     (``"batch"``); ``mcfg.attn_heads_sharding`` runs the same program
-    either way (``configs.base.MeshConfig``).  ``mcfg.remat`` is refused:
-    activation checkpointing does not run under ``torch.func.grad``."""
+    either way (``configs.base.MeshConfig``).  ``mcfg.param_mode``
+    ``"fsdp2d"`` lays a client's weights over its block
+    (``tp.ClientShard``), ``"replicated"`` keeps them whole on each rank
+    of it (``tp.ReplicatedShard``).  ``mcfg.remat`` runs each unit of the
+    block pattern under activation checkpointing in the DRO problem the
+    round builds (``dro_problem(remat=)``, ``models.transformer.
+    UnitRemat``); a ``problem`` passed in carries its own."""
     from repro_torch.launch import mesh as mesh_lib
 
-    if mcfg.remat:
-        raise NotImplementedError(
-            "remat: torch.utils.checkpoint does not run under "
-            "torch.func.grad (saved tensor hooks), which takes the "
-            "clients' gradients; leave MeshConfig.remat False (ROADMAP A3)")
     algo = algo or AlgorithmConfig(num_clients=mcfg.num_clients)
     algo = dataclasses.replace(algo, num_clients=mcfg.num_clients)
     minimax = minimax or MinimaxConfig()
@@ -120,22 +130,33 @@ def build_train_round(model_cfg: ModelConfig, shape: InputShape, mesh,
         raise ValueError(
             "a client split over fsdp × model runs the DRO problem on the "
             "rank's pieces, which the round builds: pass problem=None")
+    res_axes = sh.residual_axes(mcfg.residual_mode)
+    seq = sh.MODEL in res_axes
     tp.check_train(model_cfg, axes.fsdp.size, axes.model.size,
                    param_mode=mcfg.param_mode,
-                   expert_parallel=mcfg.moe_expert_parallel)
-    res_axes = sh.residual_axes(mcfg.residual_mode)
-    shard = (None if axes.block.size == 1 else
-             tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block,
-                            expert_parallel=mcfg.moe_expert_parallel,
-                            seq=sh.MODEL in res_axes))
+                   expert_parallel=mcfg.moe_expert_parallel, seq=seq)
+    replicated = mcfg.param_mode == "replicated"
+    if axes.block.size == 1:
+        shard = None
+    elif replicated:
+        shard = tp.ReplicatedShard(model_cfg, axes.fsdp, axes.model,
+                                   axes.block, seq=seq)
+    else:
+        shard = tp.ClientShard(model_cfg, axes.fsdp, axes.model, axes.block,
+                               expert_parallel=mcfg.moe_expert_parallel,
+                               seq=seq)
     if problem is None:
         problem = objectives.dro_problem(
             model_cfg, num_groups=minimax.num_groups, mu=minimax.mu,
-            compute_dtype=compute_dtype, kernels=kernels, shard=shard)
+            compute_dtype=compute_dtype, kernels=kernels, shard=shard,
+            remat=mcfg.remat)
     axis = axes.clients
+    # int8's per-row max over the pieces of a split client row; a whole
+    # client needs none
     round_fn = kgt.make_round_step(problem, algo, lr_scale=lr_scale,
                                    device=device, axis=axis,
-                                   block=axes.block)
+                                   block=None if replicated else axes.block,
+                                   traced_etas=traced_etas)
     constraint = sh.leading_dims_constraint(mesh, res_axes)
 
     def round_step(state, batches, noise, *extras):

@@ -32,7 +32,9 @@ the card.  Every rank draws
 the host path's data and initial state and keeps its rows, computes the
 same metrics row from all-reduced means, and rank 0 prints the rows and
 writes ``--out`` and the checkpoints, gathered to the host path's file
-format (a mesh checkpoint resumes on the host path and the reverse).
+format (a mesh checkpoint resumes on the host path and the reverse), and
+``--telemetry-out``'s stream, whose health gauges every rank sums over
+the clients axis (``obs.health_gauges(axis=)``).
 Chunks run eagerly on the mesh (``capture=off (mesh)``).  Rank r runs on
 ``cuda:(LOCAL_RANK mod device_count)`` over ``--dist-backend`` (``nccl``
 on the card, ``gloo`` on the CPU; two ranks on one card need gloo).
@@ -152,7 +154,9 @@ def _build_telemetry(args, algo, cfg, state):
 
 
 def algorithm_config(args) -> AlgorithmConfig:
-    """The ``AlgorithmConfig`` of the flags (reference :186)."""
+    """The ``AlgorithmConfig`` of the flags (reference :186).  A
+    programmatic caller may set ``args.topology_cycle`` (no flag, as the
+    reference's CLI has none)."""
     seed = getattr(args, "topology_seed", None)
     return AlgorithmConfig(
         algorithm=args.algorithm,
@@ -178,6 +182,7 @@ def algorithm_config(args) -> AlgorithmConfig:
         attack=getattr(args, "attack", "sign_flip"),
         attack_scale=getattr(args, "attack_scale", 1.0),
         robust_trim=getattr(args, "robust_trim", 1),
+        topology_cycle=tuple(getattr(args, "topology_cycle", ()) or ()),
     )
 
 
@@ -191,8 +196,7 @@ def _check_unported(args) -> None:
 def _check_mesh(args, algo: AlgorithmConfig, problem) -> None:
     """The reference's refusals on the mesh (:254-258) and of the
     lowering on the problem (``fused_round`` needs an ``affine_coeffs``
-    oracle, which the DRO problem has not), then what the port's mesh does
-    not run yet, then a world to run on."""
+    oracle, which the DRO problem has not), then a world to run on."""
     if (algo.topology_family != "static" or algo.participation_rate < 1.0
             or algo.num_byzantine > 0):
         raise ValueError(
@@ -200,12 +204,6 @@ def _check_mesh(args, algo: AlgorithmConfig, problem) -> None:
             "supported with --mesh decentralized yet (the sharded chunk "
             "builder bakes a static W); run on the host mesh")
     kgt.check_impl_options(problem, algo)
-    kgt.check_mesh_options(algo)
-    if getattr(args, "telemetry_out", None):
-        # the health gauges read the whole state
-        raise NotImplementedError(
-            "--telemetry-out on the decentralized mesh is not ported yet "
-            "(ROADMAP A1)")
     if not dist.is_initialized():
         raise RuntimeError(
             "--mesh decentralized runs on a torch.distributed world: start "
@@ -361,23 +359,26 @@ def build(args, *, init_params: Optional[Dict[str, torch.Tensor]] = None,
 
 
 def mesh_round(args, cfg: ModelConfig, algo: AlgorithmConfig, problem,
-               device):
+               device, *, traced_etas: bool = False):
     """``(round_step, axis)`` of this rank on the ``(clients, 1, 1)`` mesh
     over the world, weights whole within a client (reference
-    :149-180)."""
+    :149-180); ``traced_etas`` as ``launch.steps.build_train_round``'s
+    (the stepsizes as ``core.kgt_minimax.point_etas``' bundle, an operand
+    of the round)."""
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps as steps_lib
 
     n = algo.num_clients
     mesh = mesh_lib.local_mesh(device_type=torch.device(device).type)
     mcfg = MeshConfig(num_clients=n, fsdp=1, model=1,
-                      param_mode="replicated")
+                      param_mode="replicated", remat=False)
     shape = InputShape(name="train_cli", seq_len=args.seq_len,
                        global_batch=args.batch * n, kind="train")
     return steps_lib.build_train_round(
         cfg, shape, mesh, mcfg, algo=algo,
         minimax=MinimaxConfig(num_groups=args.groups, mu=args.mu),
-        lr_scale=lr_schedule(args), problem=problem, device=device)
+        lr_scale=None if traced_etas else lr_schedule(args),
+        problem=problem, device=device, traced_etas=traced_etas)
 
 
 def save_checkpoint(path: str, state: kgt.KGTState, metadata: dict,
@@ -417,10 +418,13 @@ def _topology_part(algo: AlgorithmConfig) -> str:
     return part
 
 
-def train(args, **replace) -> dict:
+def train(args, *, capture: Optional[bool] = None, **replace) -> dict:
     """A training run (reference :183): ``build``, then ``--rounds`` rounds
     through the scan engine (``engine.run``, captured chunks on the card)
-    or the host loop.  ``replace`` goes to :func:`build`.  Returns
+    or the host loop.  ``capture``: the scan engine's chunks as CUDA
+    graphs (None: on the card, off the mesh; False: eager, the chunks the
+    graphs are held to; :meth:`Trainer.build_chunk`).  ``replace`` goes
+    to :func:`build`.  Returns
     {"history", "final_consensus", "state"}; on the mesh "state" holds this
     rank's clients, rows ``"clients"`` = [lo, hi) of the whole state, and
     only rank 0 prints."""
@@ -450,22 +454,23 @@ def train(args, **replace) -> dict:
               + (f" (chunk={chunk_rounds})" if engine_mode == "scan" else "")
               + mesh_part, flush=True)
 
+    from repro_torch import obs
+
     if lead:
         telemetry, ledger, profiler = _build_telemetry(args, algo, cfg,
                                                        state)
     else:
         # the other ranks compute the same rows; rank 0 reports them
-        from repro_torch import obs
-
         telemetry, ledger, profiler = obs.Telemetry([]), None, None
+    # with --telemetry-out every rank takes part in the health gauges'
+    # sums over the clients axis; rank 0 writes them
+    health_fn = (functools.partial(obs.health_gauges, axis=axis)
+                 if getattr(args, "telemetry_out", None) else None)
     del state
     try:
         if engine_mode == "scan":
-            from repro_torch import obs
-
             hooks = [engine_lib.telemetry_hook(
-                telemetry, ledger=ledger,
-                health_fn=obs.health_gauges if ledger is not None else None)]
+                telemetry, ledger=ledger, health_fn=health_fn)]
             if args.checkpoint_every:
                 hooks.append(engine_lib.checkpoint_hook(
                     args.checkpoint_dir, args.checkpoint_every,
@@ -475,7 +480,7 @@ def train(args, **replace) -> dict:
                 profiler.start()
                 hooks.append(profiler.hook)
             state, history = engine_lib.run(
-                owner.pop(), trainer.build_chunk(args),
+                owner.pop(), trainer.build_chunk(args, capture=capture),
                 total_rounds=args.rounds,
                 chunk_rounds=chunk_rounds, hooks=hooks,
                 # chunk boundaries on every checkpoint multiple

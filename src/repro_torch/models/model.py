@@ -227,13 +227,16 @@ def _head(model: Model, x, compute_dtype):
 
 def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
              compute_dtype=torch.bfloat16, caches=None, pos=None,
-             kernels: bool = True, last_only: bool = False):
+             kernels: bool = True, last_only: bool = False,
+             remat: bool = False):
     """Everything up to (and incl.) the final norm.  Returns (hidden (B,S,d),
     new_caches, aux).  A model with prefix tokens runs ``batch["prefix"]``
     (B, P, d), where the batch has one, before the token embeddings
     outside decode, positions over P + S, and drops the P positions after
     the final norm (reference :92-115); decode ignores it.
     ``last_only``: the hidden state of the last position only, (B, 1, d).
+    ``remat``: each unit of the stack under activation checkpointing in
+    ``train`` mode (``transformer.stack_forward``; ignored otherwise).
 
     On a sequence split over the model axis (``dist.tensor_parallel.
     SeqSplit``) the embedding rows' sum leaves each rank its piece of the
@@ -248,6 +251,9 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
     # adversarial objective: a universal perturbation of the embeddings
     x = embed_tokens(model, tokens, compute_dtype, prefix=prefix,
                      bias=batch.get("embed_bias"))
+    # whole weights over a split sequence: the rank's piece of the rows
+    # (``tensor_parallel.ReplicatedShard``)
+    x = dist_ctx.apply("embed_out", x)
     offset = 0 if prefix is None else prefix.shape[1]
     b, s = tokens.shape[0], offset + tokens.shape[1]
     if mode == "decode" and isinstance(pos, torch.Tensor):
@@ -260,7 +266,7 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
                                  device=x.device)[None, :].expand(b, s)
     x, new_caches, aux = tf.stack_forward(
         model.layers, x, cfg, mode=mode, positions=positions, caches=caches,
-        pos=pos, compute_dtype=compute_dtype, kernels=kernels)
+        pos=pos, compute_dtype=compute_dtype, kernels=kernels, remat=remat)
     x = rms_norm(x, model.final_norm, cfg.norm_eps)
     if last_only:
         last = dist_ctx.slot("last_row")
@@ -273,14 +279,15 @@ def backbone(model: Model, batch: Dict[str, Any], *, mode: str = "train",
 
 def forward(model: Model, batch: Dict[str, Any], *, mode: str = "train",
             compute_dtype=torch.bfloat16, caches=None, pos=None,
-            last_only: bool = False, kernels: bool = True):
+            last_only: bool = False, kernels: bool = True,
+            remat: bool = False):
     """Returns (logits, new_caches, aux).  ``last_only`` computes the head on
     the final position only (prefill servers).  ``kernels=False`` runs the
     kernels' plain versions where they would run
-    (``transformer.kernel_route``)."""
+    (``transformer.kernel_route``); ``remat`` as :func:`backbone`'s."""
     x, new_caches, aux = backbone(
         model, batch, mode=mode, compute_dtype=compute_dtype, caches=caches,
-        pos=pos, kernels=kernels, last_only=last_only)
+        pos=pos, kernels=kernels, last_only=last_only, remat=remat)
     return lm_head(model, x, compute_dtype), new_caches, aux
 
 
@@ -380,12 +387,15 @@ def _vocab_parallel_nll(model, hidden, labels, merge, compute_dtype,
 
 
 def per_group_loss(model: Model, batch: Dict[str, Any], *, num_groups: int,
-                   compute_dtype=torch.bfloat16, kernels: bool = True):
+                   compute_dtype=torch.bfloat16, kernels: bool = True,
+                   remat: bool = False):
     """Group-resolved LM loss.  batch needs "tokens", "labels" (B, S), or
     (B, S, C) with codebooks, and "groups" (B, S) int in [0, num_groups).  Returns ((G,) mean NLL per
-    group — 0 for a group with no token — and aux)."""
+    group — 0 for a group with no token — and aux).  ``remat`` as
+    :func:`backbone`'s."""
     hidden, _, aux = backbone(model, batch, mode="train",
-                              compute_dtype=compute_dtype, kernels=kernels)
+                              compute_dtype=compute_dtype, kernels=kernels,
+                              remat=remat)
     nll = chunked_nll(model, hidden, batch["labels"],
                       compute_dtype=compute_dtype, kernels=kernels)
     # one_hot by comparison: F.one_hot checks its range on the host, which

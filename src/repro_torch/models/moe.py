@@ -108,6 +108,11 @@ def routing(probs, gate_idx, cfg) -> Routing:
     # neither vmap nor a CUDA graph capture can do
     top1 = (gate_idx[..., :1] == torch.arange(e, device=probs.device)).to(
         torch.float32)
+    # where every model rank routes the whole sequence, each sums its own
+    # positions' probabilities and choices (``aux_rows``)
+    mine = dist_ctx.slot("aux_rows")
+    if mine is not None:
+        probs, top1 = mine(probs), mine(top1)
     dims = tuple(range(probs.dim() - 1))
     total = dist_ctx.slot("batch_sum")
     if total is None:

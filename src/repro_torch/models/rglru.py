@@ -134,6 +134,9 @@ def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
 
     xb = x @ w("in_x")
     gate = gelu_tanh(x @ w("in_gate"))
+    # the conv's input over the whole sequence where each rank projected
+    # its piece of it
+    xb, = dist_ctx.apply("seq_in", (xb,))
     xb, new_conv = _conv1d(xb, w("conv_w"), w("conv_b"), conv_state)
 
     xf = xb.to(torch.float32)
@@ -160,6 +163,6 @@ def rglru_forward(params, x, cfg, compute_dtype=torch.bfloat16,
         h = ops.rglru_scan(a, u) if kernels else ref.rglru_ref(a, u)
         h_fin = h[:, -1].clone()
 
-    y = h.to(compute_dtype) * gate
+    y = dist_ctx.apply("seq_out", h).to(compute_dtype) * gate
     out = y @ w("out")
     return out.to(x.dtype), {"conv": new_conv, "h": h_fin}

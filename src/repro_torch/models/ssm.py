@@ -110,6 +110,9 @@ def ssm_forward(params, x, cfg, compute_dtype=torch.bfloat16, conv_state=None,
 
     proj = x @ w("in_proj")
     z, xb, bm, cm, dt = torch.split(proj, [d_in, d_in, n, n, nheads], dim=-1)
+    # the conv's and the scan's inputs over the whole sequence where each
+    # rank projected its piece of it
+    xb, bm, cm, dt = dist_ctx.apply("seq_in", (xb, bm, cm, dt))
     conv_in = torch.cat([xb, bm, cm], dim=-1)
     conv_out, new_conv = _causal_conv(conv_in, w("conv_w"), w("conv_b"),
                                       conv_state)
@@ -143,6 +146,7 @@ def ssm_forward(params, x, cfg, compute_dtype=torch.bfloat16, conv_state=None,
                                  cm.to(torch.float32), s.chunk, ssd_state)
 
     y = y + params["D"].to(torch.float32)[:, None] * xh.to(torch.float32)
+    y = dist_ctx.apply("seq_out", y)  # back to the rank's piece
     y = y.reshape(*y.shape[:-2], d_in).to(compute_dtype)
     y = y * F.silu(z)
     if d_in == s.expand * d:

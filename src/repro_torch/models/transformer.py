@@ -37,6 +37,15 @@ layer is read through its
 weights all-gathered over fsdp (``tensor_parallel.LayerPieces``).  The mixers' own points (the SSM's gated
 norm, the RG-LRU's gate input) are in ``models.ssm`` and ``models.rglru``.
 
+With ``remat`` (training only, ``MeshConfig.remat``) each unit of the
+block pattern runs through :class:`UnitRemat`, the reference's
+``jax.checkpoint`` of its scanned unit: the unit's input saved, the unit
+run again in the backward under ``torch.func.vjp``.  With whole weights
+over a split sequence (``tensor_parallel.ReplicatedShard``) the mixers'
+and the MoE's inputs are gathered at ``attn_in`` / ``mixer_in`` /
+``moe_in`` and their outputs cut back to the rank's positions at
+``attn_proj`` / ``mixer_out`` / ``moe_out``.
+
 Modes: ``prefill`` runs the CUDA kernels (``kernels.ops.flash_attention``,
 ``rglru_scan``, ``ssd_scan``) and fills the caches; ``train`` runs them
 too, under autograd as well (each kernel's gradient is an autograd
@@ -45,6 +54,7 @@ PyTorch.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -198,7 +208,10 @@ def block_forward(
     window = _attn_window(kind, cfg)
     q, k, v = attn_lib.qkv_project(params.attn,
                                    dist_ctx.apply("attn_in", h), cfg,
-                                   positions, compute_dtype)
+                                   dist_ctx.apply("seq_pos", positions),
+                                   compute_dtype)
+    # the whole sequence of q, k and v where each rank projected its piece
+    q, k, v = dist_ctx.apply("seq_in", (q, k, v))
     q = dist_ctx.apply("attn_qkv", q)  # optional head-sharding switch
 
     if mode == "decode":
@@ -251,10 +264,94 @@ def block_forward(
         moe_fn = (moe_lib.moe_mlp_sorted if cfg.moe.dispatch == "sorted"
                   else moe_lib.moe_mlp)
         y2, aux = moe_fn(params.moe, h2, cfg, compute_dtype)
+        # back to the rank's positions where the MoE ran on the whole
+        # gathered sequence with whole weights (``moe_in``)
+        y2 = dist_ctx.apply("moe_out", y2)
     else:
         y2 = mlp(params.mlp, dist_ctx.apply("ffn_in", h2), compute_dtype)
     y2 = dist_ctx.apply("ffn_out", y2)  # the ffn shards' partial sums
     return x + y2, new_cache, aux
+
+
+def _unit_layer(kind: str, heads: List[str], leaves: List[str],
+                weights) -> types.SimpleNamespace:
+    """A layer as :func:`block_forward` reads it, from its weights in the
+    order of ``heads`` / ``leaves`` (a sub-dict's leaf, or '' for a whole
+    leaf such as a norm)."""
+    out: dict = {}
+    for head, leaf, w in zip(heads, leaves, weights):
+        if leaf:
+            out.setdefault(head, {})[leaf] = w
+        else:
+            out[head] = w
+    return types.SimpleNamespace(kind=kind, **out)
+
+
+def _layer_weights(layer) -> Tuple[List[str], List[str], list]:
+    """(heads, leaves, tensors) of a layer as :func:`block_forward` reads
+    it: a ``Block``'s parameters (under ``torch.func.functional_call``
+    the tensors it was given), or a sharded layer's gathered weights (a
+    namespace of tensors and dicts of tensors)."""
+    if isinstance(layer, nn.Module):
+        named = list(layer.named_parameters())
+    else:
+        named = []
+        for head, v in vars(layer).items():
+            if isinstance(v, dict):
+                named.extend((f"{head}.{leaf}", w) for leaf, w in v.items())
+            elif head != "kind":
+                named.append((head, v))
+    parts = [name.partition(".") for name, _ in named]
+    return ([h for h, _, _ in parts], [leaf for _, _, leaf in parts],
+            [w for _, w in named])
+
+
+class UnitRemat(torch.autograd.Function):
+    """One unit of the block pattern under activation checkpointing (the
+    reference's ``jax.checkpoint(unit_fn)`` in training,
+    ``repro/models/transformer.py:244``): the forward runs the unit
+    without a graph and saves only its inputs (the residual, the aux so
+    far and the unit's layers' weights, as the forward reads them); the
+    backward runs the unit again under ``torch.func.vjp`` and returns
+    that vjp of the cotangents of (residual, aux).  ``torch.utils.
+    checkpoint`` cannot take its place: its saved-tensor hooks are refused
+    under the ``torch.func.vmap(grad)`` that takes the clients'
+    gradients.  The vmap rule is generated: forward and backward are
+    written in transformable ops.
+
+    ``run(x, aux, positions, *weights) -> (x, aux)`` is the unit's
+    forward (every tensor it reads is an input), with the
+    ``dist.context`` slots of the forward installed again (the backward
+    runs after the forward's context has exited).  On a
+    client's (fsdp, model) block the weights are those the layer's
+    ``gathered()`` gave, all-gathered over fsdp once, before the unit: the
+    recompute gathers nothing again, and the fsdp reduce-scatter of each
+    weight's gradient runs once, in the gather's own backward.  Every
+    collective inside the unit (the sequence's gathers and reduce-scatters,
+    the model axis' copies and sums, the MoE's gather) and every kernel
+    runs twice, once a run, and its backward once."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, x, aux, positions, *weights):
+        with torch.no_grad():
+            return run(x, aux, positions, *weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, g_x, g_aux):
+        x, aux, positions, *weights = ctx.saved_tensors
+        g_x = torch.zeros_like(x) if g_x is None else g_x
+        g_aux = torch.zeros_like(aux) if g_aux is None else g_aux
+        _, vjp = torch.func.vjp(
+            lambda xx, a, *ws: ctx.run(xx, a, positions, *ws),
+            x, aux, *weights)
+        g_x, g_aux, *g_w = vjp((g_x, g_aux))
+        return (None, g_x, g_aux, None, *g_w)
 
 
 def stack_forward(
@@ -268,29 +365,71 @@ def stack_forward(
     pos=None,
     compute_dtype=torch.bfloat16,
     kernels: bool = True,
+    remat: bool = False,
 ):
     """Run every layer.  ``caches`` is a list with one entry per layer (or
     None).  Returns (x, new_caches, total_aux): the sum of every layer's
-    aux (the reference adds each unit's last block's aux, the same sum
-    where a unit is one block, as every ``moe`` unit is: ROADMAP §C quirk
-    5)."""
+    aux, added in layer order (the reference adds each unit's last
+    block's aux, the same sum where a unit is one block, as every ``moe``
+    unit is: ROADMAP §C quirk 5).
+
+    The layers run unit by unit of the block pattern (``segments``), the
+    residual re-pinned to the installed layout after each unit (the
+    reference's scanned unit).  ``remat`` (training only: prefill, decode
+    and evaluation ignore it, as the reference's ``mode == "train"`` test
+    does) runs each unit through :class:`UnitRemat`; the values and the
+    gradient are those without it, bit for bit, where the unit's ops are
+    deterministic."""
     new_caches = [] if caches is not None else None
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    # the last layer of each unit of the block pattern, after which the
-    # residual is re-pinned to the installed layout (the reference's
-    # scanned unit)
+    slots = layer_slots(cfg)
     segs = segments(cfg)
-    unit_ends = [bi == len(segs[si][0]) - 1
-                 for si, _, bi, _ in layer_slots(cfg)]
-    for i, layer in enumerate(layers):
-        x, nc, a = block_forward(
-            layer.kind, layer.gathered(), x, cfg, mode=mode,
-            positions=positions,
-            cache=caches[i] if caches is not None else None, pos=pos,
-            compute_dtype=compute_dtype, kernels=kernels)
-        if unit_ends[i]:
-            x = dist_ctx.apply_residual(x)
-        total_aux = total_aux + a
-        if caches is not None:
-            new_caches.append(nc)
+    checkpoint = remat and mode == "train"
+    # the recompute runs after the forward's context has exited
+    installed = dist_ctx.current_slots() if checkpoint else {}
+    i = 0
+    while i < len(layers):
+        si = slots[i][0]
+        n_unit = len(segs[si][0])
+        unit = [(layers[j].kind, layers[j].gathered())
+                for j in range(i, i + n_unit)]
+        unit_caches = (caches[i:i + n_unit] if caches is not None
+                       else [None] * n_unit)
+
+        def run_unit(xx, aux, views, positions, unit_caches=unit_caches):
+            ncs = []
+            for (kind, params), c in zip(views, unit_caches):
+                xx, nc, a = block_forward(
+                    kind, params, xx, cfg, mode=mode, positions=positions,
+                    cache=c, pos=pos, compute_dtype=compute_dtype,
+                    kernels=kernels)
+                aux = aux + a
+                ncs.append(nc)
+            return dist_ctx.apply_residual(xx), aux, ncs
+
+        if checkpoint:
+            names, flat = [], []
+            for kind, params in unit:
+                heads, leaves, ws = _layer_weights(params)
+                names.append((kind, heads, leaves))
+                flat += ws
+
+            def run(xx, aux, positions, *weights, names=names,
+                    run_unit=run_unit):
+                views, at = [], 0
+                for kind, heads, leaves in names:
+                    views.append((kind, _unit_layer(
+                        kind, heads, leaves, weights[at:at + len(heads)])))
+                    at += len(heads)
+                with dist_ctx.residual_constraint(**installed):
+                    xx, aux, _ = run_unit(xx, aux, views, positions)
+                return xx, aux
+
+            x, total_aux = UnitRemat.apply(run, x, total_aux, positions,
+                                           *flat)
+        else:
+            x, total_aux, ncs = run_unit(x, total_aux, unit, positions)
+            if caches is not None:
+                new_caches.extend(ncs)
+        i += n_unit
     return x, new_caches, total_aux

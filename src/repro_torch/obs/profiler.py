@@ -11,7 +11,8 @@ kernels too.
 
 :func:`health_gauges` samples the quantities the theory says to watch,
 on the host from the state at a chunk boundary, so they cost a handful of
-small reductions only when telemetry is on:
+small reductions only when telemetry is on (on the decentralized mesh,
+from each rank's rows, all-reduced over the clients axis):
 
 * ``corr_x_drift`` / ``corr_y_drift`` — ‖c̄‖ for both corrections (Lemma 8
   says exactly 0 for the tracking variants);
@@ -28,22 +29,29 @@ from typing import Optional
 import torch
 
 
-def health_gauges(state) -> dict:
-    """Algorithm-health gauges from a ``KGTState`` (host floats)."""
+def health_gauges(state, axis=None) -> dict:
+    """Algorithm-health gauges from a ``KGTState`` (host floats).  On the
+    decentralized mesh (``axis``, a ``dist.collectives.ClientsAxis``: the
+    state holds this rank's clients' rows) each gauge is summed over the
+    clients axis, so every rank gets the whole state's values."""
     from repro_torch.core import kgt_minimax as kgt
     from repro_torch.core import mixing as mixing_lib
+    from repro_torch.dist import collectives
 
-    out = {
-        "corr_x_drift": float(kgt.correction_mean_norm(state.cx)),
-        "corr_y_drift": float(kgt.correction_mean_norm(state.cy)),
-        "consensus_x": float(mixing_lib.consensus_error(state.x)),
-        "consensus_y": float(mixing_lib.consensus_error(state.y)),
-    }
-    for name in ("ef_x", "ef_y"):
-        buf = getattr(state, name, None)
-        if buf is not None:
-            out[f"{name}_norm"] = float(
-                torch.sqrt(torch.sum(torch.square(buf.to(torch.float32)))))
+    with collectives.phase("telemetry"):
+        out = {
+            "corr_x_drift": float(kgt.correction_mean_norm(state.cx, axis)),
+            "corr_y_drift": float(kgt.correction_mean_norm(state.cy, axis)),
+            "consensus_x": float(mixing_lib.consensus_error(state.x, axis)),
+            "consensus_y": float(mixing_lib.consensus_error(state.y, axis)),
+        }
+        for name in ("ef_x", "ef_y"):
+            buf = getattr(state, name, None)
+            if buf is not None:
+                sq = torch.sum(torch.square(buf.to(torch.float32)))
+                if axis is not None:
+                    sq = collectives.all_reduce_sum(sq, axis)
+                out[f"{name}_norm"] = float(torch.sqrt(sq))
     return out
 
 

@@ -10,9 +10,12 @@ imports torch and the port only, never JAX.
 (an arch, whether its experts split over model, and its mesh):
 
 * ``cases``: each case (a compute dtype, whether the kernels' plain
-  versions run, and the residual's layout over model) runs the inputs' rounds of ``pallas_packed`` through
+  versions run, the residual's layout over model, and for some cases
+  ``MeshConfig.remat`` off or ``param_mode="replicated"``) runs the
+  inputs' rounds of ``pallas_packed`` through
   ``launch.steps.build_train_round`` from the saved whole initial state
-  (each rank cut to its pieces by its ``ClientShard``), returning the
+  (each rank cut to its pieces by its ``ClientShard``, or whole under
+  ``"replicated"``), returning the
   rank's pieces of the final state and the collectives by phase;
 * ``checks``: the gradients of the pieces on one batch (f32), the aux
   loss and per-group losses of client 0's pieces on its fsdp rank's rows
@@ -37,9 +40,11 @@ def cfg_of(arch):
     return registry.reduced(registry.get_model_config(arch))
 
 
-def _round(inp, arch, ep, shape, dtype, kernels, residual="batch_seq"):
+def _round(inp, arch, ep, shape, dtype, kernels, residual="batch_seq",
+           **mesh_kw):
     """This rank's round step of a case on the mesh ``shape``, and its
-    axis."""
+    axis (``mesh_kw``: more ``MeshConfig`` fields, ``param_mode`` and
+    ``remat``)."""
     n, k, b, s = (inp[f] for f in ("n", "k", "b", "s"))
     mesh = mesh_lib.fake_mesh(*shape)
     acfg = AlgorithmConfig(**inp["algo"], num_clients=n, local_steps=k,
@@ -47,7 +52,8 @@ def _round(inp, arch, ep, shape, dtype, kernels, residual="batch_seq"):
     return steps.build_train_round(
         cfg_of(arch), InputShape("fsdp_blocks", s, b * n, "train"), mesh,
         MeshConfig(num_clients=n, fsdp=shape[1], model=shape[2],
-                   moe_expert_parallel=ep, residual_mode=residual),
+                   moe_expert_parallel=ep, residual_mode=residual,
+                   **mesh_kw),
         algo=acfg, minimax=MinimaxConfig(num_groups=inp["g"], mu=inp["mu"]),
         device="cpu", compute_dtype=getattr(torch, dtype), kernels=kernels)
 
@@ -69,21 +75,26 @@ def _state(inp, step, axis):
                         cy=st["cy"][rows].clone(), round=0)
 
 
-def run(rank, world, models, cases):
+def run(rank, world, models, cases, extra):
     """``models``: (key, arch, expert_parallel, mesh shape, inputs path)
-    each; ``cases``: (name, dtype, kernels, residual_mode) each."""
+    each; ``cases``: (name, dtype, kernels, residual_mode) each, run for
+    every model; ``extra``: {key: [(name, dtype, kernels, residual_mode,
+    {MeshConfig field: value}), …]}, more cases of a model."""
     out = {}
     for key, arch, ep, shape, path in models:
         inp = torch.load(path, weights_only=False)
+        runs = [c + ({},) for c in cases] + list(extra.get(key, ()))
         out[key] = {"cases": {name: one_case(inp, arch, ep, shape, dtype,
-                                             kernels, residual)
-                              for name, dtype, kernels, residual in cases},
+                                             kernels, residual, mesh_kw)
+                              for name, dtype, kernels, residual, mesh_kw
+                              in runs},
                     "checks": checks(inp, arch, ep, shape)}
     return out
 
 
-def one_case(inp, arch, ep, shape, dtype, kernels, residual):
-    step, axis = _round(inp, arch, ep, shape, dtype, kernels, residual)
+def one_case(inp, arch, ep, shape, dtype, kernels, residual, mesh_kw):
+    step, axis = _round(inp, arch, ep, shape, dtype, kernels, residual,
+                        **mesh_kw)
     state = _state(inp, step, axis)
     rows = slice(axis.lo, axis.hi)
     collectives.zero_collective_counts()

@@ -7,16 +7,21 @@ each spawned rank, so it imports torch and the port only, never JAX.
 ``run`` runs both of these on every rank of the world:
 
 * ``cases``: each case (a lowering, an algorithm, a compute dtype, int8
-  compression or none, the residual's layout over model) runs ``ROUNDS``
+  compression or none, the residual's layout over model, and the
+  weights' layout over the block and activation checkpointing:
+  ``MeshConfig.param_mode`` and ``remat``) runs ``ROUNDS``
   rounds of ``launch.steps.build_train_round`` from the saved whole
-  initial state (each rank cut to its pieces by its ``ClientShard``),
+  initial state (each rank cut to its pieces by its ``ClientShard``, or
+  whole under ``"replicated"``),
   returning the rank's pieces of the final state and the collectives by
   phase;
 * ``checks``: the gradients of the pieces on one batch (the replicated
   leaves' to be held equal across the model ranks), the state's bytes a
   rank, int8's quantizer on the pieces of a client row against the
   whole row, and the DRO metrics row (``engine.diagnostics.
-  dro_metrics_fn`` on the pieces, its sums over the block);
+  dro_metrics_fn`` on the pieces, its sums over the block), and the
+  gradients, state bytes and metrics row under ``param_mode=
+  "replicated"``;
 * ``heads``: one round of ``dense`` on a ``(clients 1, fsdp 1, model
   2)`` mesh over ranks 0 and 1 with ``MeshConfig.attn_heads_sharding``
   off and on (the other ranks only make the groups with them).
@@ -43,8 +48,11 @@ def _cfg():
 
 
 def _round(inp, impl, algo, dtype, kernels, compress,
-           residual="batch_seq", mesh=None, shape=MESH, heads=False):
-    """This rank's round step of a case, and its axes and shard."""
+           residual="batch_seq", mesh=None, shape=MESH, heads=False,
+           **mesh_kw):
+    """This rank's round step of a case, and its axes and shard
+    (``mesh_kw``: more ``MeshConfig`` fields, ``param_mode`` and
+    ``remat``)."""
     n, k, b, s = (inp[f] for f in ("n", "k", "b", "s"))
     mesh = mesh or mesh_lib.fake_mesh(*shape)
     acfg = AlgorithmConfig(**inp["algo"], algorithm=algo, num_clients=n,
@@ -53,7 +61,8 @@ def _round(inp, impl, algo, dtype, kernels, compress,
     step, axis = steps.build_train_round(
         _cfg(), InputShape("fsdp_mesh", s, b * n, "train"), mesh,
         MeshConfig(num_clients=n, fsdp=shape[1], model=shape[2],
-                   residual_mode=residual, attn_heads_sharding=heads),
+                   residual_mode=residual, attn_heads_sharding=heads,
+                   **mesh_kw),
         algo=acfg, minimax=MinimaxConfig(num_groups=inp["g"],
                                          mu=inp["mu"]),
         device="cpu", compute_dtype=getattr(torch, dtype), kernels=kernels)
@@ -91,9 +100,9 @@ def run(rank, world, inputs_path, q_path, runs):
 def cases(rank, world, inputs_path, runs):
     inp = torch.load(inputs_path, weights_only=False)
     out = {}
-    for name, impl, algo, dtype, kernels, compress, residual in runs:
+    for name, impl, algo, dtype, kernels, compress, residual, mesh_kw in runs:
         step, axis, _ = _round(inp, impl, algo, dtype, kernels, compress,
-                               residual)
+                               residual, **mesh_kw)
         state = _state(inp, step, axis, compress)
         rows = slice(axis.lo, axis.hi)
         collectives.zero_collective_counts()
@@ -143,7 +152,33 @@ def checks(rank, world, inputs_path, q_path):
             "q": packing.unpack(q, spec), "e": packing.unpack(e, spec),
             "clients": [axis.lo, axis.hi],
             "block": (step.axes.fsdp.rank, step.axes.model.rank),
-            "plan": {k: s is None for k, s in step.shard.plan.items()}}
+            "plan": {k: s is None for k, s in step.shard.plan.items()},
+            "replicated": replicated_checks(inp)}
+
+
+def replicated_checks(inp):
+    """Under ``param_mode="replicated"`` (the sequence split over model):
+    the gradients of the rank's whole clients on the first round's k = 0
+    batch (f32), the bytes of its state and the metrics row of the
+    initial state, as :func:`checks` takes them."""
+    from repro_torch.engine import diagnostics
+
+    step, axis, _ = _round(inp, "dense", "kgt_minimax", "float32", True,
+                           None, param_mode="replicated")
+    state = _state(inp, step, axis, None)
+    rows = slice(axis.lo, axis.hi)
+    batch = {k: v[0, rows] for k, v in inp["batches"][0].items()}
+    gx, gy = kgt._vgrads(step.problem, state.x, state.y, batch,
+                         torch.zeros((axis.n_local, 0)))
+    row = diagnostics.dro_metrics_fn(
+        step.problem, _cfg(), num_groups=inp["g"],
+        eval_batch={k: v[1, 0] for k, v in inp["batches"][0].items()},
+        compute_dtype=torch.float32, axis=axis, shard=step.shard)(
+        state, {k: v[:, rows] for k, v in inp["batches"][0].items()})
+    return {"gx": gx, "gy": gy, "row": row, "clients": [axis.lo, axis.hi],
+            "state_bytes": sum(t.numel() * t.element_size() for t in
+                               tree_lib.leaves((state.x, state.cx, state.y,
+                                                state.cy)))}
 
 
 HEADS_MESH = (1, 1, 2)

@@ -11,8 +11,9 @@ never JAX).
   own from the run's seed), each returning the history, the gathered
   state on rank 0, Σ_i c_i over the ranks and the counts;
 * ``round_cases``: ``make_round_step(axis=)`` on the quadratic, each
-  lowering on the rank's rows of saved inputs, returning the rank's rows
-  and the gossip's counts;
+  lowering on the rank's rows of saved inputs (on a static W or a
+  ``topology_cycle``, with static or traced stepsizes), returning the
+  rank's rows and the gossip's counts;
 * ``world_info``: a rank's place, an all-reduced sum, and whether the
   port's training modules were imported before it ran (by the fork
   server it forked from).
@@ -189,34 +190,44 @@ def train_cases(rank, world, draws_path, runs):
 
 def round_cases(rank, world, inputs_path, cases):
     """The round level of ``tests/test_torch_mesh_lowerings.py``: each case
-    (impl, compress, algorithm, gossip dtype, topology, n) runs its
-    ``make_round_step(axis=)`` on this rank's rows of the saved inputs
-    (quadratic data, initial state and noise of each n), ``rounds`` rounds;
-    returns the rank's rows of the final state, Σ_i c_i of its rows and the
-    gossip's collectives by kind."""
+    (impl, compress, algorithm, gossip dtype, topology, n[, cycle,
+    traced]) runs its ``make_round_step(axis=)`` on this rank's rows of
+    the saved inputs (quadratic data, initial state and noise of each n),
+    the inputs' rounds — or, with a ``topology_cycle`` ``cycle``, twice
+    its length in rounds, the noise taken in turn; ``traced``: the
+    stepsizes passed as ``point_etas``' bundle (``traced_etas=True``).
+    Returns the rank's rows of the final state, Σ_i c_i of its rows and
+    the gossip's collectives by kind."""
     from repro_torch.configs import AlgorithmConfig
     from repro_torch.core import kgt_minimax as kgt
     from repro_torch.core.objectives import quadratic_problem
 
     inputs = torch.load(inputs_path, weights_only=False)
     out = []
-    for impl, compress, algo, gd, topology, n in cases:
+    for case in cases:
+        impl, compress, algo, gd, topology, n, *opt = case
+        cycle, traced = opt or ((), False)
         inp = inputs[n]
         axis = collectives.axis_of_group(dist.group.WORLD, n)
         rows = slice(axis.lo, axis.hi)
         prob = quadratic_problem(inp["data"], sigma=inp["sigma"])
         cfg = AlgorithmConfig(**inp["cfg"], algorithm=algo, num_clients=n,
                               topology=topology, mixing_impl=impl,
-                              gossip_dtype=gd, gossip_compress=compress)
-        step = kgt.make_round_step(prob, cfg, device="cpu", axis=axis)
+                              gossip_dtype=gd, gossip_compress=compress,
+                              topology_cycle=cycle)
+        step = kgt.make_round_step(prob, cfg, device="cpu", axis=axis,
+                                   traced_etas=traced)
+        etas = (kgt.point_etas(cfg),) if traced else ()
         state = collectives.shard_tree(inp["state"][(algo, compress)], axis)
         batches = {k: v[:, rows] for k, v in inp["batches"].items()}
+        noises = inp["noise"]
         collectives.zero_collective_counts()
-        for noise in inp["noise"]:
-            state = step(state, batches, noise[:, rows])
+        for t in range(2 * len(cycle) if cycle else len(noises)):
+            state = step(state, batches, noises[t % len(noises)][:, rows],
+                         *etas)
         counts = collectives.collective_counts()
         out.append({
-            "case": (impl, compress, algo, gd, topology, n),
+            "case": tuple(case),
             "rows": [axis.lo, axis.hi],
             "state": {f: getattr(state, f) for f in ("x", "y", "cx", "cy",
                                                      "ef_x", "ef_y")},

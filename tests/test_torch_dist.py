@@ -425,14 +425,11 @@ def test_mesh_configs_match_the_reference(arch, multi_pod):
     got = mesh_lib.decentralized_mesh_config(arch, multi_pod=multi_pod)
     want = jax_mesh.decentralized_mesh_config(arch, multi_pod=multi_pod)
     # every field of the reference's MeshConfig, attn_heads_sharding
-    # with sequence parallelism (ROADMAP A4); remat is back with the slice
-    # that executes the fsdp and model axes, off by default since training
-    # refuses it (ROADMAP A3)
+    # with sequence parallelism (ROADMAP A4) and remat on by default, as
+    # the reference's (models.transformer.UnitRemat)
     assert set(dataclasses.asdict(want)) == set(dataclasses.asdict(got))
-    assert want.remat and not got.remat
-    assert dataclasses.asdict(got) == {
-        k: v for k, v in dataclasses.asdict(want).items()
-        if k != "remat"} | {"remat": False}
+    assert want.remat and got.remat
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.devices_needed == want.devices_needed
     dec = mesh_lib.make_decentralized_mesh(got)
     assert dec.shape == {"clients": got.num_clients, "fsdp": got.fsdp,

@@ -92,6 +92,16 @@ CASES = [("f32", "float32", True, "batch_seq"),
          ("bf16", "bfloat16", False, "batch_seq"),
          ("f32_batch", "float32", True, "batch")]
 NAMES = [c[0] for c in CASES]
+# more cases of the ssm, rglru and moe models: activation checkpointing
+# off (on by default, MeshConfig.remat) in f32 and bf16, and the weights
+# whole on every rank of the block (param_mode="replicated"; the experts
+# whole too, as the reference keeps them there)
+NO_REMAT = dict(remat=False)
+EXTRA = {key: [("f32_no_remat", "float32", True, "batch_seq", NO_REMAT),
+               ("bf16_no_remat", "bfloat16", False, "batch_seq", NO_REMAT),
+               ("replicated", "float32", True, "batch_seq",
+                dict(param_mode="replicated"))]
+         for key in ("mamba2", "recurrentgemma", "granite_ep")}
 
 
 def _model(key):
@@ -211,7 +221,7 @@ def world(tmp_path_factory):
 
     def run():
         out["ranks"] = dist_launch.run_world(8, worker.run, models, CASES,
-                                             backend="gloo",
+                                             EXTRA, backend="gloo",
                                              store_dir=str(d))
 
     thread = threading.Thread(target=run)
@@ -240,11 +250,13 @@ def _ranks_of(key, client):
     return range(at * f * m, (at + 1) * f * m)
 
 
-def _gathered(recs, key, field):
+def _gathered(recs, key, field, whole=False):
     """Every client's whole parameter dict of ``field`` from the ranks'
     records ``recs`` (each a dict with ``clients`` and ``field``), joined
     by ``tp.gather_client``, which holds every range that several model
-    ranks hold equal bit for bit across them."""
+    ranks hold equal bit for bit across them; ``whole`` (``param_mode=
+    "replicated"``): the block's ranks each hold the whole dict, held
+    equal bit for bit across them."""
     _, arch, ep, _ = _model(key)
     f, m = _fm(key)
     out = []
@@ -254,8 +266,13 @@ def _gathered(recs, key, field):
             (a, b) for a in range(f) for b in range(m)]
         pieces = [{k: v[c - recs[r]["clients"][0]]
                    for k, v in recs[r][field].items()} for r in ranks]
-        out.append(tp.gather_client(pieces, _cfgs(arch)[1], f, m,
-                                    expert_parallel=ep))
+        if whole:
+            assert all(torch.equal(p[k], pieces[0][k])
+                       for p in pieces for k in p), (key, field)
+            out.append(pieces[0])
+        else:
+            out.append(tp.gather_client(pieces, _cfgs(arch)[1], f, m,
+                                        expert_parallel=ep))
     return out
 
 
@@ -290,7 +307,8 @@ def _errs(world, key, name, want_x, want_cx, want_y, want_cy):
     recs = _cases(world, key, name)
     errs = {}
     for field, want in (("x", want_x), ("cx", want_cx)):
-        for got, w in zip(_gathered(recs, key, field), want):
+        for got, w in zip(_gathered(recs, key, field,
+                                    whole=name == "replicated"), want):
             for k in got:
                 errs[field] = max(errs.get(field, 0.0),
                                   _err(got[k].float().numpy(),
@@ -499,7 +517,8 @@ def test_the_round_makes_the_block_collectives(world, key):
     """The local steps gather the weights over fsdp and reduce-scatter
     their gradients (as many calls), sum the partials over model and the
     loss sums over fsdp; an RG-LRU layer gathers its gate input over
-    model and reduce-scatters its gradient (as many calls); the gossip
+    model and reduce-scatters its gradient (twice as many gathers: remat
+    gathers again in the recompute); the gossip
     runs over the clients axis only, and moves nothing where that axis is
     one rank.  With the sequence split over model (``"batch_seq"``) the
     residual's gathers and reduce-scatters (as many calls) take the place
@@ -514,7 +533,10 @@ def test_the_round_makes_the_block_collectives(world, key):
             assert local["model_sum"]["calls"] > 0
             assert local["batch_sum"]["calls"] > 0
             if key == "recurrentgemma":
-                assert local["model_gather"]["calls"] == local[
+                # the gate input's gather runs again in each unit's
+                # recompute (MeshConfig.remat, the default), its
+                # reduce-scatter once, in the backward
+                assert local["model_gather"]["calls"] == 2 * local[
                     "model_scatter"]["calls"] > 0
             else:
                 assert "model_gather" not in local
@@ -543,3 +565,105 @@ def test_expert_parallelism_splits_the_experts():
     assert plan["layers.0.moe.gate"] == tp.Split(0, (e // M,) * M)
     assert plan["layers.0.moe.router"] is None
     assert tp.plan(cfg, M)["layers.0.moe.down"].dim == 1
+
+
+EXTRA_KEYS = sorted(EXTRA)
+
+
+@pytest.mark.parametrize("on,off", [("f32", "f32_no_remat"),
+                                    ("bf16", "bf16_no_remat")])
+@pytest.mark.parametrize("key", EXTRA_KEYS)
+def test_remat_is_the_remat_off_round_bit_for_bit(world, key, on, off):
+    """Activation checkpointing (``MeshConfig.remat``, the default) leaves
+    every rank's pieces of the state bit for bit those of the round
+    without it, for the ssm, rglru and moe blocks over the block, in f32
+    (the kernels' plain versions: the scans' and B5's autograd Functions
+    run twice a unit) and in bf16 (the reference's form)."""
+    for a, b in zip(_cases(world, key, on), _cases(world, key, off)):
+        for field in ("x", "cx"):
+            assert set(a[field]) == set(b[field])
+            for k in a[field]:
+                assert torch.equal(a[field][k], b[field][k]), (field, k)
+        for field in ("y", "cy"):
+            assert torch.equal(a[field], b[field])
+
+
+@pytest.mark.parametrize("key", EXTRA_KEYS)
+def test_remat_recomputes_the_units_collectives(world, key):
+    """Under remat the fsdp gathers and reduce-scatters run as often as
+    without it (once a forward, before each unit), and the collectives
+    inside the units run once more, in the recompute: more sequence
+    gathers than reduce-scatters (a gather's recompute has no backward of
+    its own), the RG-LRU's gate-input gathers likewise."""
+    for on, off in zip(_cases(world, key, "f32"),
+                       _cases(world, key, "f32_no_remat")):
+        on, off = (r["counts"]["local_steps"] for r in (on, off))
+        for kind in ("fsdp_gather", "reduce_scatter"):
+            assert on[kind]["calls"] == off[kind]["calls"] > 0, kind
+        assert off["seq_gather"]["calls"] == off["seq_scatter"]["calls"]
+        assert on["seq_gather"]["calls"] > off["seq_gather"]["calls"]
+        assert on["seq_scatter"]["calls"] > off["seq_scatter"]["calls"]
+        if key == "recurrentgemma":
+            assert on["model_gather"]["calls"] == 2 * off["model_gather"][
+                "calls"] > 0
+
+
+@pytest.mark.parametrize("key", EXTRA_KEYS)
+def test_replicated_round_matches_the_reference_and_the_host_path(world,
+                                                                  key):
+    """``param_mode="replicated"`` (every weight whole on each rank of the
+    block, the sequence split over model between the mixers, which run on
+    it whole) against the reference's round and the host path at the f32
+    tolerance; every rank of a client holds the same state bit for bit
+    (``_gathered(whole=True)``); no weight is gathered, each gradient is
+    summed over the block."""
+    arch = _model(key)[1]
+    want = _reference(arch, "float32")
+    host = _host(arch, "float32", True)
+    per_client = lambda d: [{k: v[c] for k, v in d.items()}  # noqa: E731
+                            for c in range(N)]
+    for x, cx, y, cy in (
+            (_port_dicts(arch, want["x"]), _port_dicts(arch, want["cx"]),
+             want["y"], want["cy"]),
+            (per_client(host.x), per_client(host.cx), host.y.numpy(),
+             host.cy.numpy())):
+        errs = _errs(world, key, "replicated", x, cx, y, cy)
+        assert all(v <= TOL_F32 for v in errs.values()), errs
+    for rec in _cases(world, key, "replicated"):
+        local = rec["counts"]["local_steps"]
+        assert "fsdp_gather" not in local and local["grad_sum"]["calls"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-1.3b",
+                                  "recurrentgemma-9b",
+                                  "granite-moe-1b-a400m"])
+def test_remat_at_one_rank_a_client_is_bit_for_bit(arch, dtype):
+    """At one rank a client (the host path's round, which
+    ``launch.steps.build_train_round`` runs where the block is one rank)
+    the DRO problem with each unit under ``UnitRemat`` takes the round of
+    the problem without it, bit for bit, for the four reduced models in
+    f32 (the kernels' plain versions) and bf16 (the reference's form):
+    one round, K = 1, 2 × 16 tokens a client."""
+    tcfg = _cfgs(arch)[1]
+    st = _port_state(arch)
+    batch = {k: v[:1, :, :2, :16] for k, v in
+             _batch(_inputs(arch)["batches"][0]).items()}
+    cfg = AlgorithmConfig(**dict(ALGO, eta_cx=0.02), num_clients=N,
+                          local_steps=1, mixing_impl="pallas_packed")
+    out = []
+    for remat in (True, False):
+        prob = t_objectives.dro_problem(
+            tcfg, num_groups=G, mu=1.0, compute_dtype=getattr(torch, dtype),
+            kernels=dtype == "float32", remat=remat)
+        state = KGTState(x=st["x"], y=st["y"], cx=st["cx"], cy=st["cy"],
+                         round=0)
+        out.append(t_kgt.make_round_step(prob, cfg, device="cpu")(
+            state, batch, torch.zeros((1, N, 0))))
+    a, b = out
+    for field in ("x", "cx"):
+        for k in st["x"]:
+            assert torch.equal(getattr(a, field)[k],
+                               getattr(b, field)[k]), (field, k)
+    assert torch.equal(a.y, b.y) and torch.equal(a.cy, b.cy)
+    assert not torch.equal(a.x["final_norm"], st["x"]["final_norm"])

@@ -78,11 +78,37 @@ CASES = [
     ("pallas_packed_int8", "pallas_packed", "kgt_minimax", "float32", True,
      "int8"),
     ("dense_batch", "dense", "kgt_minimax", "float32", True, None),
+    ("dense_no_remat", "dense", "kgt_minimax", "float32", True, None),
+    ("pallas_packed_bf16_no_remat", "pallas_packed", "kgt_minimax",
+     "bfloat16", False, None),
+    ("replicated", "pallas_packed", "kgt_minimax", "float32", True, None),
+    ("replicated_batch", "sparse_packed", "kgt_minimax", "float32", True,
+     None),
+    ("replicated_bf16", "pallas_packed", "kgt_minimax", "bfloat16", False,
+     None),
+    ("replicated_bf16_batch", "dense", "kgt_minimax", "bfloat16", False,
+     None),
 ]
 NAMES = [c[0] for c in CASES]
 # MeshConfig.residual_mode of a case: the sequence split over model
 # ("batch_seq", the default), or the residual whole ("batch")
-RESIDUAL = {"dense_batch": "batch"}
+RESIDUAL = {"dense_batch": "batch", "replicated_batch": "batch",
+            "replicated_bf16_batch": "batch"}
+# more MeshConfig fields of a case: activation checkpointing off (on by
+# default, as the reference's), the weights whole on every rank of the
+# block
+MESH_KW = {"dense_no_remat": dict(remat=False),
+           "pallas_packed_bf16_no_remat": dict(remat=False),
+           **{name: dict(param_mode="replicated") for name in (
+               "replicated", "replicated_batch", "replicated_bf16",
+               "replicated_bf16_batch")}}
+REPLICATED = [name for name, kw in MESH_KW.items() if "param_mode" in kw]
+# (remat on, remat off): the same case
+REMAT_PAIRS = [("dense", "dense_no_remat"),
+               ("pallas_packed_bf16", "pallas_packed_bf16_no_remat")]
+# (replicated, fsdp2d): the same lowering, dtype and residual layout
+LAYOUT_PAIRS = [("replicated", "pallas_packed"),
+                ("replicated_batch", None)]
 
 
 def _np(tree):
@@ -147,10 +173,13 @@ def _stack(trees):
 @functools.lru_cache(maxsize=None)
 def _reference(algo, dtype, compress):
     """The reference's ROUNDS rounds from the inputs (jitted, its XLA
-    oracle for a packed lowering's compression): numpy fields."""
+    oracle for a packed lowering's compression), each unit of the stack
+    under ``jax.checkpoint`` (``dro_problem(remat=True)``: the mesh's
+    default, ``MeshConfig.remat``): numpy fields."""
     inp = _inputs()
     jprob = jax_objectives.dro_problem(_cfgs()[0], num_groups=G, mu=1.0,
-                                       compute_dtype=getattr(jnp, dtype))
+                                       compute_dtype=getattr(jnp, dtype),
+                                       remat=True)
     impl = "pallas_packed" if compress else "dense"
     cfg = JaxAlgorithmConfig(**ALGO, algorithm=algo, num_clients=N,
                              local_steps=K, mixing_impl=impl,
@@ -215,7 +244,8 @@ def world(tmp_path_factory):
     out = {}
 
     def run():
-        runs = [c + (RESIDUAL.get(c[0], "batch_seq"),) for c in CASES]
+        runs = [c + (RESIDUAL.get(c[0], "batch_seq"),
+                     MESH_KW.get(c[0], {})) for c in CASES]
         ranks = dist_launch.run_world(8, worker.run, path, q_path, runs,
                                       backend="gloo", store_dir=str(d))
         out["cases"] = [r["cases"] for r in ranks]
@@ -238,7 +268,10 @@ def _ranks_of(client):
 
 
 def _gathered(ranks, name, field):
-    """Every client's whole (gathered) parameter dict of ``field``."""
+    """Every client's whole (gathered) parameter dict of ``field``: the
+    pieces joined, or under ``"replicated"`` the block's first rank's
+    (every rank's the same bit for bit:
+    :func:`test_every_rank_of_a_client_holds_the_same_state`)."""
     cfg = _cfgs()[1]
     out = []
     for c in range(N):
@@ -247,7 +280,8 @@ def _gathered(ranks, name, field):
             rec = ranks[r][name]
             pieces.append({k: v[c - rec["clients"][0]]
                            for k, v in rec[field].items()})
-        out.append(tp.gather_client(pieces, cfg, F, M))
+        out.append(pieces[0] if name in REPLICATED
+                   else tp.gather_client(pieces, cfg, F, M))
     return out
 
 
@@ -488,13 +522,155 @@ def test_int8_q_is_the_whole_rows_bit_for_bit(world):
                 assert torch.equal(got[k], want[k][c]), (field, k)
 
 
-def test_remat_is_refused_by_name():
-    """``MeshConfig.remat`` (activation checkpointing) does not run under
-    ``torch.func.grad``: ``build_train_round`` refuses it by name."""
-    with pytest.raises(NotImplementedError, match="remat.*ROADMAP A3"):
-        steps.build_train_round(_cfgs()[1], None, None,
-                                MeshConfig(num_clients=2, fsdp=2, model=2,
-                                           remat=True))
+@pytest.mark.parametrize("on,off", REMAT_PAIRS)
+def test_remat_is_the_remat_off_round_bit_for_bit(world, on, off):
+    """Activation checkpointing (``MeshConfig.remat``, the default: each
+    unit through ``models.transformer.UnitRemat``, its backward a
+    ``torch.func.vjp`` of the unit run again) leaves every rank's pieces
+    of the state bit for bit those of the round without it, in f32 and in
+    bf16."""
+    assert MeshConfig().remat
+    for rank in world["cases"]:
+        for field in ("x", "cx"):
+            assert set(rank[on][field]) == set(rank[off][field])
+            for k in rank[on][field]:
+                assert torch.equal(rank[on][field][k],
+                                   rank[off][field][k]), (field, k)
+        for field in ("y", "cy"):
+            assert torch.equal(rank[on][field], rank[off][field])
+
+
+def test_the_remat_round_makes_its_collectives(world):
+    """Under remat the fsdp gathers run once a forward, before each unit,
+    and their reduce-scatters once (as many calls as without remat); each
+    unit's sequence gathers and reduce-scatters run once more, in the
+    recompute: 2 of each a layer (``attn_in`` and ``ffn_in``,
+    ``attn_proj`` and ``ffn_out``) a local step, and the sums over model
+    and fsdp, outside the units here, as often as without it."""
+    layers = len(_cfgs()[1].blocks())
+    extra = 2 * layers * K * ROUNDS
+    for rank in world["cases"]:
+        on, off = (rank[name]["counts"]["local_steps"]
+                   for name in ("dense", "dense_no_remat"))
+        for kind in ("fsdp_gather", "reduce_scatter", "model_sum",
+                     "batch_sum"):
+            assert on[kind]["calls"] == off[kind]["calls"] > 0, kind
+            assert on[kind]["bytes"] == off[kind]["bytes"], kind
+        for kind in ("seq_gather", "seq_scatter"):
+            assert on[kind]["calls"] == off[kind]["calls"] + extra, kind
+        gossip_on, gossip_off = (
+            {k: (v["calls"], v["bytes"]) for k, v in
+             rank[name]["counts"]["gossip"].items()}
+            for name in ("dense", "dense_no_remat"))
+        assert gossip_on == gossip_off
+
+
+@pytest.mark.parametrize("name", REPLICATED)
+def test_every_rank_of_a_client_holds_the_same_state(world, name):
+    """Under ``param_mode="replicated"`` every rank of a client's block
+    holds the client's whole x, cx, y and cy, bit for bit the same."""
+    whole = _port_state()["x"]
+    for c in range(N):
+        recs = [world["cases"][r][name] for r in _ranks_of(c)]
+        for rec in recs:
+            assert all(rec["x"][k].shape[1:] == whole[k].shape[1:]
+                       for k in whole)
+        for field in ("x", "cx"):
+            for k in whole:
+                want = recs[0][field][k]
+                assert all(torch.equal(rec[field][k], want)
+                           for rec in recs), (field, k)
+        for field in ("y", "cy"):
+            assert all(torch.equal(rec[field], recs[0][field])
+                       for rec in recs)
+
+
+@pytest.mark.parametrize("rep,fsdp2d", [("replicated", "pallas_packed"),
+                                        ("replicated_batch",
+                                         "sparse_packed")])
+def test_replicated_is_the_fsdp2d_round(world, rep, fsdp2d):
+    """The plain versions' round with the weights whole on every rank of
+    the block is the ``"fsdp2d"`` round of the same lowering within the
+    f32 tolerance (``replicated_batch`` keeps the residual whole, the
+    ``sparse_packed`` case splits its sequence: the two layouts of the
+    same function)."""
+    per_client = _gathered(world["cases"], fsdp2d, "x")
+    per_client_c = _gathered(world["cases"], fsdp2d, "cx")
+    ys = [world["cases"][_ranks_of(c)[0]][fsdp2d] for c in range(N)]
+    errs = _errs(world["cases"], rep, per_client, per_client_c,
+                 [rec["y"][c - rec["clients"][0]].numpy()
+                  for c, rec in enumerate(ys)],
+                 [rec["cy"][c - rec["clients"][0]].numpy()
+                  for c, rec in enumerate(ys)])
+    assert all(v <= TOL_F32 for v in errs.values()), errs
+
+
+def test_the_replicated_round_makes_its_collectives(world):
+    """Under ``"replicated"`` no weight is gathered: each weight's
+    gradient is summed over the token ranks (``grad_sum``; the block
+    under ``"batch_seq"``, fsdp under ``"batch"``), and the gossip's
+    all-gather moves the whole client: (R − 1)·(n/R) rows of the stacked
+    (Δ, θ) of x and of y a round, F·M times ``fsdp2d``'s x.  Under
+    ``"batch_seq"`` a mixer's gather carries its projected inputs."""
+    dx = sum(v[0].numel() for v in _port_state()["x"].values())
+    nl = N // 2
+    cfg = _cfgs()[1]
+    qkv = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.resolved_head_dim
+    for rank in world["cases"]:
+        for name in ("replicated", "replicated_batch"):
+            local = rank[name]["counts"]["local_steps"]
+            assert "fsdp_gather" not in local and "reduce_scatter" not in local
+            assert local["grad_sum"]["calls"] > 0
+            assert local["batch_sum"]["calls"] > 0
+        # a mixer's input gathered in the forward and again in the
+        # recompute, reduce-scattered once in the backward; its output
+        # cut back to the rank's positions without a collective
+        seq = rank["replicated"]["counts"]["local_steps"]
+        assert seq["seq_gather"]["calls"] == 2 * seq["seq_scatter"][
+            "calls"] > 0
+        # each rank projects its own positions: a gather carries the rank's
+        # piece of q, k and v (f32), not of the residual
+        assert seq["seq_gather"]["bytes"] == seq["seq_gather"]["calls"] * (
+            (M - 1) * (B // F) * (S // M) * qkv * 4)
+        assert not {"seq_gather", "seq_scatter"} & set(
+            rank["replicated_batch"]["counts"]["local_steps"])
+        gossip = rank["replicated"]["counts"]["gossip"]
+        assert set(gossip) == {"all_gather"}
+        assert gossip["all_gather"]["calls"] == 2 * ROUNDS
+        assert gossip["all_gather"]["bytes"] == ROUNDS * (
+            (2 - 1) * nl * 2 * (dx + G) * 4)
+
+
+def test_the_replicated_gradient_and_metrics_are_the_host_paths(world):
+    """Under ``"replicated"`` each rank's gradient of its whole clients
+    (summed over the block) and its metrics row are the host path's, and
+    a rank holds a whole client."""
+    from repro_torch.engine import diagnostics
+
+    tcfg = _cfgs()[1]
+    prob = t_objectives.dro_problem(tcfg, num_groups=G, mu=1.0,
+                                    compute_dtype=torch.float32)
+    st = _port_state()
+    batches = _batch(_inputs()["batches"][0])
+    batch = {k: v[0] for k, v in batches.items()}
+    gx, gy = t_kgt._vgrads(prob, st["x"], st["y"], batch,
+                           torch.zeros((N, 0)))
+    want = diagnostics.dro_metrics_fn(
+        prob, tcfg, num_groups=G,
+        eval_batch={k: v[1, 0] for k, v in batches.items()},
+        compute_dtype=torch.float32)(
+        KGTState(x=st["x"], y=st["y"], cx=st["cx"], cy=st["cy"], round=0),
+        batches)
+    whole = sum(v[0].numel() * 4 for v in st["x"].values()) * 2 + G * 4 * 2
+    for rec in (c["replicated"] for c in world["checks"]):
+        lo = rec["clients"][0]
+        for k in gx:
+            assert _err(rec["gx"][k][0].numpy(), gx[k][lo].numpy()) <= \
+                TOL_F32, k
+        assert _err(rec["gy"][0].numpy(), gy[lo].numpy()) <= TOL_F32
+        for k, w in want.items():
+            assert _err(rec["row"][k].numpy(), w.numpy()) <= TOL_F32, k
+        assert rec["state_bytes"] == whole * (N // 2)
 
 
 @pytest.mark.parametrize("arch,match", [
@@ -527,22 +703,25 @@ def test_blocks_not_ported_are_refused_by_name(arch, match):
     assert all(torch.equal(back[k], full[k]) for k in full)
 
 
-def test_replicated_param_mode_and_expert_parallel_are_refused():
-    """``param_mode="replicated"`` stays refused by name in training over
-    the block; expert parallelism in training now plans (E/M whole experts
-    a model rank) and refuses by name experts that M does not divide."""
+def test_expert_parallel_plans_and_refuses_what_m_does_not_divide():
+    """Expert parallelism in training plans (E/M whole experts a model
+    rank) and refuses by name experts that M does not divide, under
+    either ``param_mode``; ``"replicated"`` trains (``check_train`` takes
+    it) and refuses an unknown mode by name."""
     cfg = _cfgs()[1]
-    with pytest.raises(NotImplementedError, match="replicated.*ROADMAP A3"):
-        tp.check_train(cfg, 2, 1, param_mode="replicated")
+    tp.check_train(cfg, 2, 1, param_mode="replicated")
+    with pytest.raises(ValueError, match="param_mode='sharded'"):
+        tp.check_train(cfg, 2, 1, param_mode="sharded")
     moe = registry.reduced(registry.get_model_config("granite-moe-1b-a400m"))
     tp.check_train(moe, 1, 2, expert_parallel=True)
     assert tp.plan(moe, 2, expert_parallel=True)[
         "layers.0.moe.up"] == tp.Split(0, (2, 2))
     six = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
                                                            num_experts=6))
-    with pytest.raises(ValueError, match="num_experts = 6 does not split "
-                       "over 4"):
-        tp.check_train(six, 1, 4, expert_parallel=True)
+    for mode in tp.PARAM_MODES:
+        with pytest.raises(ValueError, match="num_experts = 6 does not "
+                           "split over 4"):
+            tp.check_train(six, 1, 4, expert_parallel=True, param_mode=mode)
 
 
 def test_fsdp_pieces_cover_a_dim():

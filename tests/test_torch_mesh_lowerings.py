@@ -13,6 +13,12 @@ B1 and B4) against the JAX package and the port's host path.
   (``_torch_mesh_worker.round_cases``), through the port's host path here
   and, at one (n, topology) a case taken in turn, through the reference's
   ``make_round_step`` (the XLA oracle for the packed paths).
+* **A cycle of W and traced stepsizes.**  ``topology_cycle`` ("ring",
+  "exp") with the lowerings that take one (dense, fused_dense,
+  pallas_packed, fused_round), twice its length in rounds, against the
+  reference's cycled rounds and the host path; the stepsizes passed as
+  ``point_etas``' bundle against the same round with them baked in, bit
+  for bit.
 * **The CLI level.**  ``launch.train --mesh decentralized`` on the reduced
   qwen2-0.5b over a world of 2 for each of those options, held to the
   port's host path from the same seed.
@@ -90,6 +96,24 @@ def _impl_id(impl, compress):
 CASES = [(impl, comp, algo, gd, topo, n)
          for (impl, comp), algo, gd, topo, n in itertools.product(
              IMPLS, ALGOS, GOSSIP_DTYPES, TOPOLOGIES, NS)]
+# a cycle of W on the mesh (run for twice its length in rounds) with the
+# lowerings that take one, and traced stepsizes (``point_etas``' bundle):
+# (impl, compress, algorithm, gossip dtype, topology, n, cycle, traced)
+CYCLE = ("ring", "exp")
+CYCLE_IMPLS = ("dense", "fused_dense", "pallas_packed", "fused_round")
+CYCLE_CASES = [(impl, None, algo, gd, "ring", 8, CYCLE, False)
+               for impl in CYCLE_IMPLS for algo in ("kgt_minimax", "dsgda")
+               for gd in GOSSIP_DTYPES]
+TRACED_IMPLS = ("dense", "pallas_packed", "sparse_packed", "fused_round",
+                "trimmed_mean")
+TRACED_CASES = [(impl, None, "kgt_minimax", "float32", "exp", 8, (), True)
+                for impl in TRACED_IMPLS] + [
+    ("pallas_packed", None, "kgt_minimax", "float32", "ring", 8, CYCLE,
+     True)]
+# the traced cases' rounds with the stepsizes baked in (the cycled one's
+# is a CYCLE_CASES case)
+BAKED_CASES = [c[:7] + (False,) for c in TRACED_CASES if not c[6]]
+OPTION_CASES = CYCLE_CASES + TRACED_CASES + BAKED_CASES
 # the reference's cases: every (impl, algorithm, gossip dtype), each at one
 # (n, topology), taken in turn so that every pair is held
 REF_CASES = {(impl, comp, algo, gd): pair
@@ -161,38 +185,44 @@ def _cfg_kw(impl, comp, algo, gd, topo, n):
                 mixing_impl=impl, gossip_dtype=gd, gossip_compress=comp)
 
 
+def _rounds(cycle):
+    """The rounds a case runs: twice a cycle's length, else ROUNDS."""
+    return 2 * len(cycle) if cycle else ROUNDS
+
+
 @functools.lru_cache(maxsize=None)
-def _host_run(impl, comp, algo, gd, topo, n):
+def _host_run(impl, comp, algo, gd, topo, n, cycle=()):
     """The port's host path on the case: the final state's fields."""
     inp = _port_inputs(n)
     prob = quadratic_problem(inp["data"], sigma=SIGMA)
     step = kgt.make_round_step(
-        prob, AlgorithmConfig(**_cfg_kw(impl, comp, algo, gd, topo, n)),
-        device="cpu")
+        prob, AlgorithmConfig(**_cfg_kw(impl, comp, algo, gd, topo, n),
+                              topology_cycle=cycle), device="cpu")
     state = inp["state"][(algo, comp)]
-    for noise in inp["noise"]:
-        state = step(state, inp["batches"], noise)
+    for t in range(_rounds(cycle)):
+        state = step(state, inp["batches"], inp["noise"][t % ROUNDS])
     return {f: getattr(state, f) for f in FIELDS}
 
 
 @functools.lru_cache(maxsize=None)
-def _reference_run(impl, comp, algo, gd, topo, n):
+def _reference_run(impl, comp, algo, gd, topo, n, cycle=()):
     """The reference's ``make_round_step`` on the case (host, jitted; the
-    XLA oracle for the packed paths): the final state's fields (numpy)."""
+    XLA oracle for the packed paths; its W picked by the traced round
+    under a cycle): the final state's fields (numpy)."""
     data, states, _ = _inputs(n)
     prob = jax_objectives.quadratic_problem(
         {k: (jnp.asarray(v) if k != "mu" else v) for k, v in data.items()},
         sigma=SIGMA)
     cfg = JaxConfig(**_cfg_kw(impl, comp, algo, gd, topo, n),
-                    gossip_backend="xla")
+                    gossip_backend="xla", topology_cycle=cycle)
     step = jax.jit(jax_kgt.make_round_step(prob, cfg))
     st = jax_kgt.KGTState(**{f: None if v is None else jnp.asarray(v)
                              for f, v in states[(algo, comp)].items()},
                           round=jnp.int32(0))
     batches = {k: jnp.broadcast_to(jnp.asarray(v)[None], (K, *v.shape))
                for k, v in data.items() if k != "mu"}
-    for t in range(ROUNDS):
-        st = step(st, batches, _keys(t, n))
+    for t in range(_rounds(cycle)):
+        st = step(st, batches, _keys(t % ROUNDS, n))
     return {f: None if getattr(st, f) is None else np.asarray(getattr(st, f))
             for f in FIELDS}
 
@@ -211,8 +241,8 @@ def worlds(tmp_path_factory):
     def run_worlds():
         for world in WORLDS:
             ranks = dist_launch.run_world(world, worker.round_cases, path,
-                                          CASES, backend="gloo",
-                                          store_dir=str(d))
+                                          CASES + OPTION_CASES,
+                                          backend="gloo", store_dir=str(d))
             out[world] = [{rec["case"]: rec for rec in recs}
                           for recs in ranks]
 
@@ -221,6 +251,8 @@ def worlds(tmp_path_factory):
     try:
         for (impl, comp, algo, gd), (n, topo) in REF_CASES.items():
             _reference_run(impl, comp, algo, gd, topo, n)
+        for case in CYCLE_CASES:
+            _reference_run(*case[:7])
     finally:
         thread.join()
     assert set(out) == set(WORLDS)
@@ -360,6 +392,49 @@ def test_sigma_c_is_zero_across_ranks(worlds, impl, comp, algo, world):
             total = sum(rec["c_sums"][f] for rec in recs)
             top = max(float(rec["state"][f].abs().max()) for rec in recs)
             assert float(total.abs().max()) / n <= TOL_SIGMA_C * (1 + top)
+
+
+@pytest.mark.parametrize("gd", GOSSIP_DTYPES)
+@pytest.mark.parametrize("algo", ("kgt_minimax", "dsgda"))
+@pytest.mark.parametrize("impl", CYCLE_IMPLS)
+def test_a_cycle_on_the_mesh_matches_the_reference(worlds, impl, algo, gd):
+    """``topology_cycle`` on the mesh (each W's rows of the rank stacked,
+    picked by the round's index): twice the cycle's rounds on worlds of 2
+    and 4 against the reference's cycled rounds and the host path's at
+    TOL_ROWS, and on a world of 1 the host path's bit for bit."""
+    case = (impl, None, algo, gd, "ring", 8, CYCLE, False)
+    want = _reference_run(*case[:7])
+    host = _host_run(*case[:7])
+    for world in (2, 4):
+        for rank in worlds[world]:
+            for errs in (_rows_err(rank[case], want),
+                         _rows_err(rank[case], host)):
+                assert max(errs.values()) <= TOL_ROWS, (world, errs)
+    (one,) = worlds[1]
+    for f in FIELDS:
+        if host[f] is not None:
+            assert torch.equal(one[case]["state"][f], host[f]), f
+    # the cycle moved the trajectory: round 2 mixed with exp, not ring
+    static = _host_run(impl, None, algo, gd, "ring", 8)
+    assert not torch.equal(host["x"], static["x"])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", TRACED_CASES,
+                         ids=[f"{c[0]}{'+cycle' if c[6] else ''}"
+                              for c in TRACED_CASES])
+def test_traced_etas_are_the_static_round_bit_for_bit(worlds, case, world):
+    """``make_round_step(axis=, traced_etas=True)`` fed ``point_etas``'
+    bundle is the mesh round with those stepsizes baked in, bit for bit
+    (the reference's own claim, ``repro/core/kgt_minimax.py:159-166``),
+    on every rank of worlds of 1, 2 and 4, with a static W and a cycle."""
+    static = case[:7] + (False,)
+    for rank in worlds[world]:
+        got, want = rank[case]["state"], rank[static]["state"]
+        for f in FIELDS:
+            if want[f] is not None:
+                assert torch.equal(got[f], want[f]), (case, f)
+        assert rank[case]["gossip"] == rank[static]["gossip"]
 
 
 @pytest.mark.parametrize("method", compression.COMPRESS_METHODS)

@@ -19,6 +19,9 @@ Tolerances, max |got − want| ≤ tol·(1 + max|want|):
   4, and the packed epilogue contracts W's row block, so GEMMs may round
   otherwise;
 * Σ_i c_i over the ranks: TOL_SIGMA_C = 1e-5 (chip_smoke.py's);
+* ``--telemetry-out``'s rows and health gauges on a world of 2 against
+  the host path's: TOL_TELEMETRY = 1e-5, stated before the first
+  reading;
 * a world of 1: the host path bit for bit.
 """
 import _torch_threads  # noqa: F401
@@ -51,6 +54,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL_BF16_ROWS = 2e-2
 TOL_MESH_STATE = 1e-4
 TOL_SIGMA_C = 1e-5
+TOL_TELEMETRY = 1e-5
 ARCH = "qwen2-0.5b"
 N, K, B, S, G, ROUNDS, WORLD = 4, 2, 2, 32, 4, 2, 2
 ARGS = dict(arch=ARCH, reduced=True, algorithm="kgt_minimax", rounds=ROUNDS,
@@ -154,14 +158,16 @@ def runs(tmp_path_factory):
     host = {}
     for name, over in (
             ("dense", dict(mesh="host", checkpoint_every=1,
-                           checkpoint_dir=str(d / "host_ckpt"))),
+                           checkpoint_dir=str(d / "host_ckpt"),
+                           telemetry_out=str(d / "host_tel.jsonl"))),
             ("packed", dict(mesh="host", mixing_impl="pallas_packed")),
             ("ring", dict(mesh="host", mixing_impl="fused_ring"))):
         host[name] = t_train.train(_port_args(**over), **_host_kw(draws))
     mesh_over = dict(ARGS, device="cpu")
     two = dist_launch.run_world(WORLD, worker.train_cases, draws_path, [
         ("dense", dict(mesh_over, checkpoint_every=1,
-                       checkpoint_dir=str(d / "mesh_ckpt")), None),
+                       checkpoint_dir=str(d / "mesh_ckpt"),
+                       telemetry_out=str(d / "mesh_tel.jsonl")), None),
         ("resumed", mesh_over,
          str(d / "host_ckpt" / "round_000001.npz")),
         ("packed", dict(mesh_over, mixing_impl="pallas_packed",
@@ -308,37 +314,91 @@ def test_checkpoints_cross_between_the_mesh_and_the_host_path(runs):
                   "host checkpoint on the mesh")
 
 
+def _events(path):
+    import json
+
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_mesh_telemetry_is_the_host_paths(runs):
+    """``--telemetry-out`` on the mesh: rank 0 writes the stream (the
+    other rank none), its meta record is the host path's, and its metric
+    rows, ledger events and health gauges (Σc drift, consensus, summed
+    over the clients axis) are the host path's at 1e-5·(1 + max)."""
+    d = runs["dir"]
+    host, mesh = (_events(d / f"{w}_tel.jsonl") for w in ("host", "mesh"))
+    assert not [p for p in os.listdir(d) if p.endswith(".jsonl")
+                and p not in ("host_tel.jsonl", "mesh_tel.jsonl")]
+
+    def of(events, kind):
+        return [{k: v for k, v in e.items() if k not in ("v", "t", *STAMPS)}
+                for e in events if e["type"] == kind]
+
+    assert of(mesh, "meta") == of(host, "meta")
+    assert of(mesh, "ledger") == of(host, "ledger")
+    rows_h, rows_m = of(host, "metrics"), of(mesh, "metrics")
+    assert [r["round"] for r in rows_m] == [r["round"] for r in rows_h] == [
+        0, 1]
+    for g, w in zip(rows_m, rows_h):
+        for key in ROW_KEYS:
+            _close(g[key], w[key], TOL_TELEMETRY, ("metrics", key))
+    gauges_h, gauges_m = of(host, "gauge"), of(mesh, "gauge")
+    assert [(e["name"], e["round"]) for e in gauges_m] == [
+        (e["name"], e["round"]) for e in gauges_h]
+    assert {e["name"] for e in gauges_m} == {
+        "corr_x_drift", "corr_y_drift", "consensus_x", "consensus_y"}
+    for g, w in zip(gauges_m, gauges_h):
+        _close(g["value"], w["value"], TOL_TELEMETRY, g["name"])
+    assert any(e["value"] > 0 for e in gauges_m
+               if e["name"] == "consensus_x")
+
+
 @pytest.mark.parametrize("over,error,match", [
     (dict(topology_family="erdos_renyi"), ValueError, "not supported"),
     (dict(participation=0.5), ValueError, "not supported"),
     (dict(num_byzantine=1), ValueError, "not supported"),
     (dict(mixing_impl="fused_round"), ValueError, "affine_coeffs"),
-    (dict(telemetry_out="telemetry.jsonl"), NotImplementedError, "A1"),
     (dict(), RuntimeError, "torch.distributed world")],
     ids=["topology_family", "participation", "byzantine", "fused_round",
-         "telemetry", "no_process_group"])
+         "no_process_group"])
 def test_refusals(over, error, match):
     """The reference's refusals on the mesh (its words; ``fused_round``
     on the DRO problem: the reference's own error, it has no
-    ``affine_coeffs`` oracle), then what the port's mesh does not run yet,
-    then a world to run on."""
+    ``affine_coeffs`` oracle), then a world to run on."""
     with pytest.raises(error, match=match):
         t_train.build(_port_args(**over))
 
 
+CYCLE = ("ring", "exp")
+
+
 @pytest.mark.parametrize("cfg_over,step_kw,error,match", [
-    (dict(topology_cycle=("ring", "exp")), {}, NotImplementedError, "A1"),
-    ({}, dict(traced_etas=True), NotImplementedError, "A1"),
     ({}, dict(traced_w=True), ValueError, "not supported"),
     ({}, dict(participation=True), ValueError, "not supported"),
-    ({}, dict(byzantine=True), ValueError, "not supported")],
-    ids=["topology_cycle", "traced_etas", "traced_w", "participation",
-         "byzantine"])
+    ({}, dict(byzantine=True), ValueError, "not supported"),
+    (dict(topology_cycle=CYCLE, mixing_impl="fused_ring"), {}, ValueError,
+     "mixing_impl='fused_ring' is not supported with topology_cycle; use "
+     "'dense', 'fused_dense', or 'pallas_packed'"),
+    (dict(topology_cycle=CYCLE, mixing_impl="sparse_packed"), {},
+     ValueError, "mixing_impl='sparse_packed' is not supported with "
+     "topology_cycle; use traced_w with a per-round sampler instead"),
+    (dict(topology_cycle=CYCLE, mixing_impl="trimmed_mean"), {},
+     ValueError, "mixing_impl='trimmed_mean' is not supported with "
+     "topology_cycle; use traced_w"),
+    (dict(topology_cycle=CYCLE, mixing_impl="sparse_coord_median"), {},
+     ValueError, "mixing_impl='sparse_coord_median' is not supported with "
+     "topology_cycle")],
+    ids=["traced_w", "participation", "byzantine", "cycle_ring",
+         "cycle_sparse_packed", "cycle_trimmed_mean",
+         "cycle_sparse_coord_median"])
 def test_round_step_refusals_on_the_mesh(cfg_over, step_kw, error, match):
-    """``make_round_step(axis=)`` runs every lowering on a static W; it
-    refuses a per-round W, participation and the adversary (as the
-    reference's mesh does), and a cycled W and per-trajectory stepsizes
-    (not ported yet)."""
+    """``make_round_step(axis=)`` runs every lowering on a static W or a
+    ``topology_cycle``, with static or traced stepsizes; it refuses a
+    per-round W, participation and the adversary (as the reference's
+    mesh does), and a cycle with the ring lowerings, ``sparse_packed`` and
+    the robust rules, in the reference's words
+    (``repro/core/kgt_minimax.py:250-258``, ``:285-291``)."""
     from repro_torch.configs import AlgorithmConfig
     from repro_torch.core import kgt_minimax as kgt
     from repro_torch.core import make_quadratic_data, quadratic_problem
